@@ -1,0 +1,210 @@
+"""Event-driven simulation engine shared by the CLI apps.
+
+Counterpart: ``adi_thermal_fields_tpu/apps/engine.py`` —
+``make_cartesian_engine`` (:52; its constant-property single-device
+branches :409-459) and ``EventLoop`` (:592).  The host walks the event list
+(births and frames); between events ``advance`` issues the sub-steps from
+Python with scalar arguments and no host synchronisation.  Syncs happen
+once at the start and at frame boundaries (the finite check and frame
+callbacks), as in the JAX loop.
+
+``implementation`` is explicit — there is no choice by device:
+"kernels" runs step/cartesian_fused.adi_step_fused (K1-K4 on CUDA tensors,
+their plain versions on CPU tensors); "reference" runs the plain step
+step/cartesian.adi_step.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from ..bc.packs import build_coeff_packs
+from ..core.grid import CartesianGrid
+from ..core.material import Material
+from ..step.cartesian import adi_step, state_numpy_dtype
+from ..step.cartesian_fused import adi_step_fused, build_sweep_plan
+
+__all__ = ["make_cartesian_engine", "EventLoop", "IMPLEMENTATIONS"]
+
+IMPLEMENTATIONS = ("kernels", "reference")
+
+
+def make_cartesian_engine(grid: CartesianGrid, mat: Material, *,
+                          implementation: str, device, dtype: torch.dtype,
+                          theta: float = 0.5, t_inf: float = 20.0,
+                          robin_h=None, neumann=None, dirichlet_mask=None,
+                          dirichlet_value=None, source_fn=None,
+                          history_t_crit=None, mesh=None):
+    """Split engine: ``prepare(active) -> prep`` (plan or pack rebuild,
+    needed only when the mask changes) and
+    ``advance(T, prep, dt, n_sub, t0=0.0) -> T`` (the sub-step loop).
+
+    ``dtype``: state and pack dtype (float32 or float64).  ``robin_h``:
+    scalar (plan-lite: no coefficient fields), per-face dict or 3-D field
+    (field plan).  ``source_fn``: optional ``t -> volumetric heat field
+    [W/m^3]``.  Thermal history and device meshes are not ported yet."""
+    if implementation not in IMPLEMENTATIONS:
+        raise ValueError(f"implementation must be one of {IMPLEMENTATIONS}, "
+                         f"got {implementation!r}")
+    if history_t_crit is not None:
+        raise NotImplementedError("thermal-history tracking is not ported "
+                                  "to the PyTorch engine yet")
+    if mesh is not None:
+        raise NotImplementedError("multi-device meshes are not ported to "
+                                  "the PyTorch engine yet")
+    f = state_numpy_dtype(dtype)
+    device = torch.device(device)
+
+    def _packs(active):
+        return build_coeff_packs(active, grid, mat, dtype=dtype,
+                                 robin_h=robin_h, neumann=neumann,
+                                 dirichlet_mask=dirichlet_mask,
+                                 dirichlet_value=dirichlet_value)
+
+    # plan-lite: a scalar (or absent) Robin h needs no coefficient fields.
+    # Per-axis h/(rho cp d_axis), with the op order of build_coeff_packs
+    # (dtype(h) * dtype(1/(rho cp d))) so the lite plan is bitwise equal to
+    # the field plan by construction.
+    lite_c = None
+    if robin_h is None or isinstance(robin_h, (int, float)):
+        lite_c = tuple(float(f(float(robin_h or 0.0))
+                             * f(1.0 / (mat.rho * mat.cp * d)))
+                       for d in grid.spacing)
+    lite_needs_packs = neumann is not None or dirichlet_mask is not None
+
+    if implementation == "kernels":
+        def prepare(active):
+            active = active.to(device=device, dtype=torch.bool)
+            packs = (_packs(active)
+                     if lite_c is None or lite_needs_packs else None)
+            return build_sweep_plan(active, packs,
+                                    has_neumann=neumann is not None,
+                                    has_dirichlet=dirichlet_mask is not None,
+                                    robin_const=lite_c)
+
+        def step1(T, prep, dt, t):
+            src = None if source_fn is None else source_fn(t)
+            return adi_step_fused(T, prep, grid, mat, dt=dt, theta=theta,
+                                  t_inf=t_inf, source=src)
+    else:
+        def prepare(active):
+            active = active.to(device=device, dtype=torch.bool)
+            return (active, _packs(active))
+
+        def step1(T, prep, dt, t):
+            active, packs = prep
+            src = None if source_fn is None else source_fn(t)
+            return adi_step(T, active, packs, grid, mat, dt=dt, theta=theta,
+                            t_inf=t_inf, source=src)
+
+    def advance(T, prep, dt: float, n_sub: int, t0: float = 0.0):
+        """``n_sub`` sub-steps of ``dt`` from ``t0``.  The sub-step clock
+        ``t0 + i*dt`` runs at the state dtype's precision (>= float32)."""
+        fc = state_numpy_dtype(T.dtype)
+        t0f, dtf = fc(t0), fc(dt)
+        for i in range(n_sub):
+            T = step1(T, prep, dt, float(t0f + fc(i) * dtf))
+        return T
+
+    return prepare, advance
+
+
+@dataclasses.dataclass
+class EventLoop:
+    """Run an element-birth simulation through its event schedule.
+
+    advance : ``(T, prep, dt, n_sub, t0) -> T`` from make_cartesian_engine.
+    prepare : ``active -> prep``, called when the mask changes (births).
+    activation_times : tensor of the field's shape on the field's device;
+        a cell is born when ``activation_times <= t`` (substrate = -inf).
+    deposit_T : temperature assigned to newborn cells.
+    dt_cap : max sub-step; event segments are split evenly to respect it.
+    substeps : sub-steps taken by ``run`` (output).
+    ``run`` raises on NaN/Inf at frame boundaries and the last event.
+    Thermal history and interpass dwell are not ported yet."""
+
+    advance: Callable
+    prepare: Callable
+    activation_times: Any
+    deposit_T: float
+    dt_cap: float
+    history: bool = False
+    interpass_T: float | None = None
+    substeps: int = 0
+
+    def run(self, T, *, frame_times, t_end: float | None = None,
+            on_frame: Callable | None = None):
+        if self.history:
+            raise NotImplementedError("thermal-history tracking is not "
+                                      "ported to the PyTorch engine yet")
+        if self.interpass_T is not None:
+            raise NotImplementedError("interpass dwell control is not "
+                                      "ported to the PyTorch engine yet")
+        f = state_numpy_dtype(T.dtype)
+        act = self.activation_times
+        eps = 1e-12
+        # event times come from the activation field's own values (one host
+        # copy at set-up).  Comparisons against them are INCLUSIVE: for a
+        # float32 field `act < te + 1e-12` is false at act == te (the
+        # epsilon vanishes in the cast), and every layer would activate one
+        # event late.
+        act_h = act.detach().cpu().numpy()
+        finite = np.isfinite(act_h) & (act_h >= 0.0)
+        births = np.unique(np.where(finite, act_h, np.inf))
+        births = [float(b) for b in births if math.isfinite(float(b))]
+        frame_times = [float(t) for t in frame_times]
+        t_end = t_end if t_end is not None else (
+            max(frame_times) if frame_times else 0.0)
+        # a float32 birth time a hair above the float64 t_end still deposits
+        birth_set = set(b for b in births
+                        if b <= t_end + 1e-6 * max(1.0, abs(t_end)))
+        events = sorted(birth_set | set(frame_times) | {t_end})
+        frames = set(frame_times)
+        final_event = events[-1] if events else None
+
+        t = 0.0
+        active = (act <= t).expand(T.shape)
+        # layers born at the start are deposited now; the substrate (-inf)
+        # and cells born earlier keep the entering field
+        born_now = active & (act >= t)
+        T = torch.where(born_now, self.deposit_T, T)
+        active_any = bool(active.any())          # one sync at start only
+        prep = self.prepare(active)
+        if t in frames and on_frame is not None:
+            on_frame(t, T, active)
+
+        def check(t):
+            if not bool(torch.isfinite(torch.where(active, T, 0.0)).all()):
+                raise FloatingPointError(
+                    f"non-finite temperature detected at t={t:.6g} s "
+                    f"(dt_cap={self.dt_cap:.3g}; check material/BC "
+                    "magnitudes)")
+
+        for te in events:
+            if te <= t + eps:
+                continue
+            seg = te - t
+            if active_any:
+                n_sub = max(1, int(math.ceil(seg / self.dt_cap)))
+                # dt and the segment start at the state dtype, as the JAX
+                # loop passes them
+                T = self.advance(T, prep, float(f(seg / n_sub)), n_sub,
+                                 float(f(t)))
+                self.substeps += n_sub
+            t = te
+            if te in birth_set:
+                new_active = (act <= t).expand(T.shape)
+                newborn = new_active & ~active
+                T = torch.where(newborn, self.deposit_T, T)
+                active = new_active
+                active_any = True          # a birth event implies new cells
+                prep = self.prepare(active)
+            if te in frames or te == final_event:
+                check(t)
+            if te in frames and on_frame is not None:
+                on_frame(t, T, active)
+        return T, active, t

@@ -1,0 +1,82 @@
+"""Carry the JAX package's state across to the port's tensors.
+
+The JAX package (``adi_thermal_fields_tpu``) hands its arrays over as numpy
+(``np.asarray(jax_array)``); these functions turn them into the port's
+tensors on a chosen device:
+
+* ``field_from_numpy(T)``: a temperature (or any) field;
+* ``packs_from_numpy(coeff, qflux, dir_mask, dir_val)``: bc/packs.CoeffPacks;
+* ``plan_from_numpy(...)``: step/cartesian_fused.SweepPlan from the fields
+  of ``step/cartesian_pallas.SweepPlan``.  Its int8 codes are reinterpreted
+  as uint8 (bit 128 is the int8 sign bit), and the layout the port's plan
+  chooses is applied: the plan-lite z code without Neumann or Dirichlet
+  moves from the JAX (z, x, y) layout to the natural (x, y, z) layout that
+  K2 reads.  The JAX plan's TPU tile padding (``pad_to_tile``) is not
+  undone here: convert an unpadded plan.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .bc.packs import CoeffPacks
+from .step.cartesian_fused import SweepPlan
+
+__all__ = ["field_from_numpy", "packs_from_numpy", "plan_from_numpy"]
+
+
+def field_from_numpy(T, *, device, dtype: torch.dtype | None = None
+                     ) -> torch.Tensor:
+    """A contiguous tensor copy of ``T`` on ``device`` (dtype kept unless
+    given)."""
+    t = torch.from_numpy(np.require(T, requirements=["C", "W"]))
+    return t.to(device=device, dtype=dtype or t.dtype).contiguous()
+
+
+def _codes_from_numpy(code, *, device) -> torch.Tensor:
+    """int8 sweep codes reinterpreted bit for bit as uint8."""
+    arr = np.require(code, requirements=["C", "W"])
+    if arr.dtype == np.int8:
+        arr = arr.view(np.uint8)
+    if arr.dtype != np.uint8:
+        raise TypeError(f"sweep codes must be int8 or uint8, got {arr.dtype}")
+    return torch.from_numpy(arr).to(device)
+
+
+def packs_from_numpy(coeff, qflux, dir_mask, dir_val, *, device
+                     ) -> CoeffPacks:
+    """CoeffPacks from the JAX packs' four arrays."""
+    return CoeffPacks(coeff=field_from_numpy(coeff, device=device),
+                      qflux=field_from_numpy(qflux, device=device),
+                      dir_mask=field_from_numpy(np.asarray(dir_mask, bool),
+                                                device=device),
+                      dir_val=field_from_numpy(dir_val, device=device))
+
+
+def plan_from_numpy(mask, codes, coeffs=None, qfluxes=None, dir_vals=None,
+                    rob_c=None, *, device) -> SweepPlan:
+    """SweepPlan from the fields of a JAX ``SweepPlan`` as numpy arrays.
+
+    ``codes``: the three int8 codes (x and y natural, z in (z, x, y));
+    ``coeffs`` / ``qfluxes`` / ``dir_vals``: three arrays each in the same
+    layouts, or None; ``rob_c``: the per-axis plan-lite constants (a
+    scalar or 3 values), or None for a field plan."""
+    mask_t = field_from_numpy(np.asarray(mask, bool), device=device)
+    cx, cy, cz = (_codes_from_numpy(c, device=device) for c in codes)
+    lite = coeffs is None
+    if lite and qfluxes is None and dir_vals is None:
+        cz = cz.permute(1, 2, 0).contiguous()     # (z, x, y) -> natural
+
+    def fields(triple):
+        return (None if triple is None
+                else tuple(field_from_numpy(a, device=device)
+                           for a in triple))
+
+    rc = None
+    if lite:
+        if rob_c is None:
+            raise ValueError("a plan-lite plan (coeffs=None) needs rob_c")
+        rc = tuple(float(v) for v in np.broadcast_to(
+            np.asarray(rob_c, np.float64), (3,)))
+    return SweepPlan(mask_t, (cx, cy, cz), fields(coeffs), fields(qfluxes),
+                     fields(dir_vals), mask_t.to(torch.uint8), rc)

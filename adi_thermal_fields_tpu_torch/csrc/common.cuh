@@ -1,0 +1,56 @@
+// Shared helpers for the port's CUDA kernels (compiled for sm_90a).
+//
+// Every exported entry point has a plain C interface: pointers and the
+// stream come in as void*, scalars as double (rounded to the field type
+// inside), sizes as int64.  The entry point selects the device, launches on
+// the caller's stream, allocates nothing, and returns cudaGetLastError() of
+// the launch (0 = success) so that the Python wrapper can raise.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define ATF_API extern "C" __attribute__((visibility("default")))
+
+namespace atf {
+
+constexpr int kF32 = 0;
+constexpr int kF64 = 1;
+
+__host__ __device__ inline int64_t cdiv(int64_t a, int64_t b) {
+  return (a + b - 1) / b;
+}
+
+__host__ __device__ inline int64_t imin(int64_t a, int64_t b) {
+  return a < b ? a : b;
+}
+
+// Codes are read as unsigned bytes everywhere: bit 128 (the z-high
+// neighbour of the stencil code) is the sign bit of a signed char.
+constexpr unsigned kLow = 1u, kHigh = 2u, kPin = 4u, kInMask = 8u;
+constexpr unsigned kNb1Lo = 16u, kNb1Hi = 32u, kNb2Lo = 64u, kNb2Hi = 128u;
+
+template <typename T>
+__device__ __forceinline__ T bit(unsigned code, unsigned b) {
+  return (code & b) ? T(1) : T(0);
+}
+
+}  // namespace atf
+
+// Selects `device`, runs the statement with `T` bound to the field type
+// named by `dtype`, and returns the launch's cudaGetLastError().
+#define ATF_DISPATCH(dtype, device, ...)                                  \
+  do {                                                                    \
+    cudaError_t set_err = cudaSetDevice(device);                          \
+    if (set_err != cudaSuccess) return (int)set_err;                      \
+    if ((dtype) == atf::kF32) {                                           \
+      using T = float;                                                    \
+      __VA_ARGS__;                                                        \
+    } else if ((dtype) == atf::kF64) {                                    \
+      using T = double;                                                   \
+      __VA_ARGS__;                                                        \
+    } else {                                                              \
+      return (int)cudaErrorInvalidValue;                                  \
+    }                                                                     \
+    return (int)cudaGetLastError();                                       \
+  } while (0)

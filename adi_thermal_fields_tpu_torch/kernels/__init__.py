@@ -1,0 +1,82 @@
+"""Kernel build and the dispatch rule shared by every kernel wrapper.
+
+The rule: a CPU tensor goes to the kernel's plain PyTorch version; a CUDA
+tensor goes to the hand-written kernel, or the wrapper raises.  No wrapper
+falls back from a failed build or launch to the plain version.  This port
+is forward only, so a wrapper raises on an input that requires grad.
+"""
+from __future__ import annotations
+
+import torch
+
+from .build import build_library, load_library
+
+__all__ = ["use_kernel", "check_kernel_inputs", "dtype_code",
+           "raise_on_error", "ptr", "stream_ptr", "build_library",
+           "load_library"]
+
+
+def use_kernel(*tensors: torch.Tensor | None) -> bool:
+    """True when the inputs lie on a CUDA device (launch the kernel), False
+    when they lie on the CPU (run the plain version).  Raises for inputs on
+    different devices, on any other device type, or requiring grad."""
+    ts = [t for t in tensors if t is not None]
+    for t in ts:
+        if t.requires_grad:
+            raise RuntimeError(
+                "the kernel wrappers are forward only: an input requires "
+                "grad, and autograd would stop silently at the kernel")
+    devices = {t.device for t in ts}
+    if len(devices) != 1:
+        raise ValueError(f"kernel inputs lie on several devices: {devices}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type == "cuda":
+        return True
+    raise ValueError(f"no kernel or plain version for device {dev}")
+
+
+def check_kernel_inputs(name: str, ref: torch.Tensor, code: torch.Tensor,
+                        *fields: torch.Tensor | None) -> None:
+    """Validate what the CUDA kernels take: a contiguous float32/float64
+    ``ref``, a contiguous uint8 ``code`` of its shape, and optional fields
+    of its dtype and shape."""
+    if ref.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: field dtype {ref.dtype} is not supported "
+                        "(float32 or float64)")
+    if code.dtype != torch.uint8:
+        raise TypeError(f"{name}: code must be uint8, got {code.dtype}")
+    for label, t, dtype in (("field", ref, ref.dtype),
+                            ("code", code, torch.uint8),
+                            *(("input", f, ref.dtype) for f in fields
+                              if f is not None)):
+        if t.shape != ref.shape:
+            raise ValueError(f"{name}: {label} shape {tuple(t.shape)} != "
+                             f"{tuple(ref.shape)}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {label} dtype {t.dtype} != {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    """The C entry points' field-type code."""
+    return {torch.float32: 0, torch.float64: 1}[dtype]
+
+
+def ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def stream_ptr(device: torch.device) -> int:
+    """PyTorch's current stream on ``device``, for the C entry points."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def raise_on_error(err: int, name: str) -> None:
+    """Raise when a C entry point reports a CUDA error for its launch."""
+    if err != 0:
+        msg = load_library().atf_error_string(err)
+        raise RuntimeError(f"{name}: CUDA error {err}: "
+                           f"{msg.decode() if msg else '?'}")

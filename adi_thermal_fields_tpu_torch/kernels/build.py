@@ -1,0 +1,124 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu) at first use.
+
+``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+-Xcompiler -fPIC`` compiles every source in ``csrc/`` into ONE shared
+library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers: the build takes seconds).  The library lands in
+``build/torch_kernels/`` at the repository root, named by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one is
+reused.  A missing ``nvcc`` or a failed compile raises with the compiler's
+output; nothing falls back.
+
+Nothing here runs at import: the CPU test suite imports every module on a
+machine without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+__all__ = ["NVCC_FLAGS", "build_dir", "find_nvcc", "build_library",
+           "load_library"]
+
+_PKG = Path(__file__).resolve().parent.parent
+_CSRC = _PKG / "csrc"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _I64, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
+    ctypes.c_double
+
+# C entry points: (argtypes, restype)
+_SIGNATURES = {
+    "atf_sweep_strided": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                           _I64, _D, _D, _D, _D, _P], _I),
+    "atf_sweep_z": ([_I, _I, _P, _P, _P, _P, _I64, _I64, _D, _D, _D, _D,
+                     _P], _I),
+    "atf_theta_rhs": ([_I, _I, _P, _P, _P, _I64, _I64, _I64, _D, _D, _D, _D,
+                       _P], _I),
+    "atf_theta_sweep": ([_I, _I, _P, _P, _P, _P, _I64, _I64, _I64, _D, _D,
+                         _D, _D, _D, _D, _D, _D, _P], _I),
+    "atf_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+def build_dir() -> Path:
+    """``build/torch_kernels/`` beside the package (listed in .gitignore)."""
+    return _PKG.parent / "build" / "torch_kernels"
+
+
+def _sources() -> list[Path]:
+    return sorted(list(_CSRC.glob("*.cu")) + list(_CSRC.glob("*.cuh")))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: $CUDA_HOME/bin, then PATH, then /usr/local/cuda."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(which)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, PATH and "
+                       "/usr/local/cuda/bin): the CUDA kernels cannot be "
+                       "built")
+
+
+def build_library(*, verbose: bool = False) -> tuple[Path, float]:
+    """Compile csrc/*.cu into the hashed library unless it exists.
+    Returns (path, build seconds; 0.0 when reused).  ``verbose`` adds
+    ``-Xptxas -v`` and prints the compiler output (registers, spills)."""
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / f"libatf_kernels_{_digest()}.so"
+    if lib.exists() and not verbose:
+        return lib, 0.0
+    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-I", str(_CSRC), "-o", tmp, *cu]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr, flush=True)
+    os.replace(tmp, lib)   # atomic: a concurrent build sees no partial file
+    return lib, secs
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """The kernels' library, built on first use, with every entry point's
+    argument and result types declared."""
+    path, _ = build_library()
+    lib = ctypes.CDLL(str(path))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib

@@ -1,0 +1,176 @@
+"""Masked implicit ADI sweeps: kernels K1 and K2 with their plain versions.
+
+Counterpart: ``adi_thermal_fields_tpu/solvers/pallas_sweeps.py`` —
+``sweep_code`` (:50), ``fused_sweep_axis0_v2`` (:686) and
+``fused_sweep_axis1_v2`` (:1363) -> K1 ``sweep_strided``;
+``fused_sweep_axis2_v2`` (:950) -> K2 ``sweep_z``.  The CUDA sources are
+``csrc/sweeps.cu``.
+
+One sweep solves, per pencil along the sweep axis, the tridiagonal system
+built from the per-cell code byte (bits 1/2 = coupling to i-1/i+1, 4 =
+Dirichlet pin, 8 = in-mask):
+``a = -tg*low``, ``c = -tg*high``, ``b = 1 + tg*(low+high) + dt*cf``,
+``d = rhs + dt*cf*t_inf``; pinned rows have ``b = 1``.  ``cf`` is the Robin
+coefficient field (field plan) or ``rob_c*(2-low-high)*inmask`` (plan-lite:
+domain edges have no coupling but count as exposed faces).  Void rows are
+identity rows that carry the rhs through.
+
+Each wrapper dispatches by device (kernels/__init__.py): CPU tensors run
+the plain version (``thomas`` plus tensor ops), CUDA tensors launch the
+kernel and count the launch in the wrapper's ``launches`` attribute.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..bc.faces import shift_in
+from ..kernels import (check_kernel_inputs, dtype_code, load_library, ptr,
+                       raise_on_error, stream_ptr, use_kernel)
+from .thomas import thomas
+
+__all__ = ["sweep_code", "sweep_strided", "sweep_strided_plain", "sweep_z",
+           "sweep_z_plain"]
+
+_LOW, _HIGH, _PIN, _INMASK = 1, 2, 4, 8
+
+
+def sweep_code(mask: torch.Tensor, dir_mask: torch.Tensor | None, axis: int,
+               *, stencil_bits: bool = False) -> torch.Tensor:
+    """uint8 per-cell sweep code for ``axis``, in the axis-first layout.
+
+    Bits: 1 = coupling to the i-1 neighbor, 2 = coupling to i+1, 4 =
+    Dirichlet-pinned row, 8 = cell is in-mask.  Pinned rows carry ONLY bit
+    4 (their couplings and Robin sink are dropped); their neighbors keep
+    their couplings to them.
+
+    ``stencil_bits``: also pack the other two axes' neighbor couplings —
+    bits 16/32 = coupling to the (axis+1) -1/+1 neighbor, bits 64/128 = the
+    (axis+2) -1/+1 neighbor — so the fused theta+x-sweep kernel (K4) reads
+    every mask-aware Laplacian term from this one byte.  Bit 128 is why the
+    codes are unsigned bytes."""
+    mask = mask.to(torch.bool)
+    u8 = torch.uint8
+    low = mask & shift_in(mask, axis, -1, fill=False)
+    high = mask & shift_in(mask, axis, +1, fill=False)
+    code = low.to(u8) * _LOW | high.to(u8) * _HIGH | mask.to(u8) * _INMASK
+    if stencil_bits:
+        for nth, bit_lo, bit_hi in (((axis + 1) % 3, 16, 32),
+                                    ((axis + 2) % 3, 64, 128)):
+            nlo = mask & shift_in(mask, nth, -1, fill=False)
+            nhi = mask & shift_in(mask, nth, +1, fill=False)
+            code = code | nlo.to(u8) * bit_lo | nhi.to(u8) * bit_hi
+    if dir_mask is not None:
+        pin = dir_mask.to(torch.bool) & mask
+        code = code.masked_fill(pin, _PIN)
+    return code.movedim(axis, 0).contiguous()
+
+
+def _fold_rhs(rhs, code, dt, qflux, dir_val):
+    """Neumann source and Dirichlet values folded into the rhs (the TPU
+    wrappers' prepass, pallas_sweeps.py:714-720).  Returns (rhs, pin)."""
+    pin = None
+    if qflux is not None:
+        rhs = rhs + dt * qflux
+    if dir_val is not None:
+        pin = (code & _PIN) != 0
+        rhs = torch.where(pin, dir_val, rhs)
+    return rhs, pin
+
+
+def _solve_plain(rhs, code, axis, tg, dt, t_inf, coeff, rob_c, pin):
+    """Build the row system from the code bits and solve along ``axis``."""
+    mv = (lambda t: None if t is None else t.movedim(axis, 0))
+    rhs, code, coeff, pin = mv(rhs), mv(code), mv(coeff), mv(pin)
+    dtype = rhs.dtype
+    low = ((code & _LOW) != 0).to(dtype)
+    high = ((code & _HIGH) != 0).to(dtype)
+    if coeff is None:
+        inm = ((code & _INMASK) != 0).to(dtype)
+        cf = rob_c * ((2.0 - low - high) * inm)
+    else:
+        cf = coeff if pin is None else torch.where(pin, 0.0, coeff)
+    a = -tg * low
+    c = -tg * high
+    dtcf = dt * cf
+    b = 1.0 + tg * (low + high) + dtcf
+    if pin is not None:
+        pinf = pin.to(dtype)
+        b = b * (1.0 - pinf) + pinf
+    dd = rhs + dtcf * t_inf
+    return thomas(a, b, c, dd).movedim(0, axis).contiguous()
+
+
+def sweep_strided_plain(rhs, code, tg, dt, t_inf, *, axis, coeff=None,
+                        rob_c=None, qflux=None, dir_val=None):
+    """Plain version of K1 (any device)."""
+    rhs, pin = _fold_rhs(rhs, code, dt, qflux, dir_val)
+    return _solve_plain(rhs, code, axis, tg, dt, t_inf, coeff, rob_c, pin)
+
+
+def sweep_strided(rhs: torch.Tensor, code: torch.Tensor, tg: float,
+                  dt: float, t_inf: float, *, axis: int,
+                  coeff: torch.Tensor | None = None,
+                  rob_c: float | None = None,
+                  qflux: torch.Tensor | None = None,
+                  dir_val: torch.Tensor | None = None) -> torch.Tensor:
+    """K1: masked sweep along ``axis`` (0 or 1) of a C-contiguous 3-D field.
+
+    ``coeff`` (field plan) or the scalar ``rob_c`` (plan-lite) gives the
+    Robin sink; ``qflux`` and ``dir_val`` are folded into the rhs.  The
+    field plan's z sweep calls this on the (z, x, y) permuted field with
+    ``axis=0``."""
+    if axis not in (0, 1):
+        raise ValueError(f"sweep_strided solves along axis 0 or 1, not {axis}")
+    if coeff is None and rob_c is None:
+        raise ValueError("plan-lite sweep (coeff=None) requires rob_c")
+    if not use_kernel(rhs, code, coeff, qflux, dir_val):
+        return sweep_strided_plain(rhs, code, tg, dt, t_inf, axis=axis,
+                                   coeff=coeff, rob_c=rob_c, qflux=qflux,
+                                   dir_val=dir_val)
+    if rhs.dim() != 3:
+        raise ValueError(f"sweep_strided: field must be 3-D, got {rhs.dim()}")
+    check_kernel_inputs("sweep_strided", rhs, code, coeff, qflux, dir_val)
+    s0, s1, s2 = rhs.shape
+    B1, n, B2 = (1, s0, s1 * s2) if axis == 0 else (s0, s1, s2)
+    out = torch.empty_like(rhs)
+    scratch = torch.empty_like(rhs)
+    err = load_library().atf_sweep_strided(
+        dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(code),
+        ptr(coeff), ptr(qflux), ptr(dir_val), ptr(out), ptr(scratch),
+        B1, n, B2, tg, dt, t_inf, 0.0 if rob_c is None else rob_c,
+        stream_ptr(rhs.device))
+    raise_on_error(err, "sweep_strided")
+    sweep_strided.launches += 1
+    return out
+
+
+sweep_strided.launches = 0
+
+
+def sweep_z_plain(rhs, code, tg, dt, t_inf, rob_c):
+    """Plain version of K2 (any device)."""
+    pin = (code & _PIN) != 0
+    return _solve_plain(rhs, code, 2, tg, dt, t_inf, None, rob_c, pin)
+
+
+def sweep_z(rhs: torch.Tensor, code: torch.Tensor, tg: float, dt: float,
+            t_inf: float, rob_c: float) -> torch.Tensor:
+    """K2: plan-lite sweep along the contiguous z axis of a natural
+    (x, y, z) field; ``code`` in the same natural layout."""
+    if not use_kernel(rhs, code):
+        return sweep_z_plain(rhs, code, tg, dt, t_inf, rob_c)
+    if rhs.dim() != 3:
+        raise ValueError(f"sweep_z: field must be 3-D, got {rhs.dim()}")
+    check_kernel_inputs("sweep_z", rhs, code)
+    out = torch.empty_like(rhs)
+    scratch = torch.empty_like(rhs)
+    err = load_library().atf_sweep_z(
+        dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(code),
+        ptr(out), ptr(scratch), rhs.shape[0] * rhs.shape[1], rhs.shape[2],
+        tg, dt, t_inf, rob_c, stream_ptr(rhs.device))
+    raise_on_error(err, "sweep_z")
+    sweep_z.launches += 1
+    return out
+
+
+sweep_z.launches = 0

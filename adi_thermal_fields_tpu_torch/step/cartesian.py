@@ -1,0 +1,143 @@
+"""Cartesian masked theta-scheme ADI time step: the plain reference step.
+
+Counterpart: ``adi_thermal_fields_tpu/step/cartesian.py`` —
+``masked_laplacian_1d``, ``build_sweep_system``, ``implicit_sweep`` and
+``adi_step``.  Plain tensor ops on any device; the kernel path
+(step/cartesian_fused.py) is checked against it on the CPU and on the card.
+
+One step advances ``T^{n+1} = W(V(U(R0)))`` where
+``R0 = T^n + dt*kappa*(1-theta)*(Lx+Ly+Lz) T^n`` (mask-aware Laplacians) and
+U/V/W are per-axis implicit sweeps, each solving, per pencil,
+
+    (1 + theta*gam*nnb + dt*C_ax) u_i - theta*gam*(u_{i-1} + u_{i+1})
+        = rhs_i + dt*q_ax + dt*C_ax*T_inf
+
+with couplings only between mask-adjacent neighbors, Dirichlet rows pinned
+to their value, and void rows as identity rows carrying the rhs through.
+The explicit (1-theta) fraction of the Robin flux is NOT in R0: Robin
+enters only through the implicit sink ``dt*C_ax`` (the reference scheme's
+convention, kept for parity).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..bc.faces import shift_in
+from ..bc.packs import CoeffPacks
+from ..core.grid import CartesianGrid
+from ..core.material import Material
+from ..solvers.thomas import thomas
+
+__all__ = ["adi_step", "masked_laplacian_1d", "build_sweep_system",
+           "implicit_sweep", "step_scalars", "state_numpy_dtype"]
+
+
+def state_numpy_dtype(dtype: torch.dtype):
+    """numpy scalar type of a supported state dtype (float32 / float64)."""
+    if dtype == torch.float32:
+        return np.float32
+    if dtype == torch.float64:
+        return np.float64
+    raise NotImplementedError(
+        f"state dtype {dtype} is not supported yet (bfloat16 with "
+        "stochastic rounding is a later port)")
+
+
+def step_scalars(dtype: torch.dtype, grid: CartesianGrid, mat: Material,
+                 dt: float, theta: float):
+    """Per-step scalars as Python floats: ``(dt, inv_d2, tg, c_exp)``.
+
+    ``dt`` is rounded to the state dtype and ``tg = theta*(kappa*dt*inv_d2)``
+    and ``c_exp = dt*kappa*(1-theta)`` are evaluated at the state dtype's
+    precision in the JAX step's op order, so float32 runs follow the JAX
+    semantics.  ``inv_d2`` stays at double precision: consumers round it
+    at the state dtype, as the JAX step does."""
+    f = state_numpy_dtype(dtype)
+    dt_s = f(dt)
+    kappa = f(mat.alpha)
+    inv_d2 = tuple(1.0 / (d * d) for d in grid.spacing)
+    tg = tuple(float(f(theta) * (kappa * dt_s * f(iv))) for iv in inv_d2)
+    c_exp = float(dt_s * kappa * f(1.0 - theta))
+    return float(dt_s), inv_d2, tg, c_exp
+
+
+def masked_laplacian_1d(T: torch.Tensor, mask: torch.Tensor, axis: int,
+                        inv_dx2: float) -> torch.Tensor:
+    """Second difference along ``axis`` counting only in-mask neighbors
+    (reflective at mask boundaries); zero on void cells."""
+    nbr_lo = shift_in(mask, axis, -1, fill=False)
+    nbr_hi = shift_in(mask, axis, +1, fill=False)
+    T_lo = shift_in(T, axis, -1, fill=0.0)
+    T_hi = shift_in(T, axis, +1, fill=0.0)
+    s = torch.where(nbr_lo, T_lo, 0.0) + torch.where(nbr_hi, T_hi, 0.0)
+    cnt = nbr_lo.to(T.dtype) + nbr_hi.to(T.dtype)
+    return torch.where(mask, (s - cnt * T) * inv_dx2, 0.0)
+
+
+def build_sweep_system(rhs, mask, coeff_ax, dir_mask, dir_val, qflux_ax,
+                       theta_gam: float, dt: float, t_inf: float, axis: int):
+    """The per-axis tridiagonal system (a, b, c, d) of one implicit sweep,
+    in the natural field layout."""
+    low = mask & shift_in(mask, axis, -1, fill=False)
+    high = mask & shift_in(mask, axis, +1, fill=False)
+
+    dtype = rhs.dtype
+    zero = torch.zeros((), dtype=dtype, device=rhs.device)
+    neg_tg = torch.full((), -theta_gam, dtype=dtype, device=rhs.device)
+    a = torch.where(low, neg_tg, zero)
+    c = torch.where(high, neg_tg, zero)
+    nnb = low.to(dtype) + high.to(dtype)
+    b = 1.0 + theta_gam * nnb + dt * coeff_ax
+    d = rhs + dt * qflux_ax + dt * coeff_ax * t_inf
+
+    # void rows: identity carrying rhs through
+    b = torch.where(mask, b, 1.0)
+    d = torch.where(mask, d, rhs)
+
+    # Dirichlet rows: pinned
+    pin = dir_mask & mask
+    a = torch.where(pin, zero, a)
+    c = torch.where(pin, zero, c)
+    b = torch.where(pin, 1.0, b)
+    d = torch.where(pin, dir_val, d)
+    return a, b, c, d
+
+
+def implicit_sweep(rhs, mask, coeff_ax, dir_mask, dir_val, qflux_ax,
+                   theta_gam: float, dt: float, t_inf: float,
+                   axis: int) -> torch.Tensor:
+    """One per-axis implicit sweep in full-shape batched form."""
+    a, b, c, d = build_sweep_system(rhs, mask, coeff_ax, dir_mask, dir_val,
+                                    qflux_ax, theta_gam, dt, t_inf, axis)
+    mv = (lambda t: t.movedim(axis, 0))
+    x = thomas(mv(a), mv(b), mv(c), mv(d))
+    return x.movedim(0, axis).contiguous()
+
+
+def adi_step(T: torch.Tensor, mask: torch.Tensor, packs: CoeffPacks,
+             grid: CartesianGrid, mat: Material, *, dt: float,
+             theta: float = 0.5, t_inf: float = 0.0,
+             source: torch.Tensor | None = None) -> torch.Tensor:
+    """Advance one ADI step.  ``dt`` is a Python float; it is rounded to
+    the state dtype.
+
+    ``source``: optional volumetric heat rate [W/m^3] added explicitly to
+    R0 as ``dt*S/(rho cp)`` on in-mask cells."""
+    mask = mask.to(torch.bool)
+    dt, inv_d2, tg, c_exp = step_scalars(T.dtype, grid, mat, dt, theta)
+
+    lap = (masked_laplacian_1d(T, mask, 0, inv_d2[0])
+           + masked_laplacian_1d(T, mask, 1, inv_d2[1])
+           + masked_laplacian_1d(T, mask, 2, inv_d2[2]))
+    R0 = T + c_exp * lap
+    if source is not None:
+        R0 = R0 + torch.where(mask, dt * source / (mat.rho * mat.cp), 0.0)
+
+    U = implicit_sweep(R0, mask, packs.coeff[0], packs.dir_mask,
+                       packs.dir_val, packs.qflux[0], tg[0], dt, t_inf, 0)
+    V = implicit_sweep(U, mask, packs.coeff[1], packs.dir_mask,
+                       packs.dir_val, packs.qflux[1], tg[1], dt, t_inf, 1)
+    W = implicit_sweep(V, mask, packs.coeff[2], packs.dir_mask,
+                       packs.dir_val, packs.qflux[2], tg[2], dt, t_inf, 2)
+    return W

@@ -1,0 +1,145 @@
+"""Kernel-path Cartesian ADI step on the four hand-written kernels.
+
+Counterpart: ``adi_thermal_fields_tpu/step/cartesian_pallas.py`` —
+``SweepPlan``, ``build_sweep_plan`` and ``adi_step_pallas`` (:138), with
+the same branch structure (:180-297):
+
+* plan-lite fast path (scalar-h Robin, no Neumann, no Dirichlet, no
+  source): K4 (stencil fused into the x-sweep), K1 along y, K2 along the
+  contiguous z;
+* every other plan: K3 (stencil), K1 along x, K1 along y, then permute to
+  (z, x, y), K1, permute back — or K2 for a plan-lite z solve.
+
+Numerically it is step/cartesian.adi_step.  All mask/BC-derived sweep
+inputs are prebuilt per axis in each sweep's layout by ``build_sweep_plan``
+(they change only on birth events).  Left out of this port: bf16 states
+with stochastic rounding (they raise) and the TPU tiling helpers
+``pad_to_tile`` / ``padded_shape`` / ``pad_domain``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..bc.packs import CoeffPacks
+from ..core.grid import CartesianGrid
+from ..core.material import Material
+from ..solvers.stencil import theta_rhs
+from ..solvers.sweeps import sweep_code, sweep_strided, sweep_z
+from ..solvers.theta_sweep import fused_theta_sweep
+from .cartesian import step_scalars
+
+__all__ = ["SweepPlan", "build_sweep_plan", "adi_step_fused"]
+
+
+def _to_zxy(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(2, 0, 1).contiguous()
+
+
+class SweepPlan(NamedTuple):
+    """Per-axis sweep inputs in each sweep's layout (rebuilt on birth only).
+
+    x and y inputs are in the natural (x, y, z) layout.  z inputs are in
+    the (z, x, y) layout of the permuted K1 solve, except the plan-lite z
+    code without Neumann or Dirichlet, which K2 reads in the natural
+    layout (``z_natural``).  The x code carries the stencil bits for K4."""
+
+    mask: torch.Tensor                 # (x, y, z) bool
+    codes: tuple                       # 3 uint8 tensors
+    coeffs: tuple | None               # 3 Robin fields; None = plan-lite
+    qfluxes: tuple | None              # 3 Neumann fields or None
+    dir_vals: tuple | None             # 3 Dirichlet value fields or None
+    mask_u8: torch.Tensor              # uint8 mask for K3
+    rob_c: tuple | None = None         # per-axis h/(rho cp d_ax), plan-lite
+
+    @property
+    def z_natural(self) -> bool:
+        """The z solve runs K2 on the natural layout."""
+        return (self.coeffs is None and self.qfluxes is None
+                and self.dir_vals is None)
+
+
+def build_sweep_plan(mask: torch.Tensor, packs: CoeffPacks | None, *,
+                     has_neumann: bool | None = None,
+                     has_dirichlet: bool | None = None,
+                     robin_const=None) -> SweepPlan:
+    """Precompute per-axis codes and re-laid coefficient fields.
+
+    ``robin_const``: plan-lite mode for scalar-h Robin — pass
+    ``h/(rho cp d)`` (a scalar, or the per-axis triple for anisotropic
+    voxels) and no coefficient fields are built: the kernels derive the
+    Robin sink from the code's in-mask bit.  ``packs`` may then be None
+    when no Neumann or Dirichlet BCs exist.  ``has_neumann`` /
+    ``has_dirichlet`` default to what the packs hold (one host sync)."""
+    mask = mask.to(torch.bool)
+    if has_dirichlet is None:
+        has_dirichlet = packs is not None and bool(packs.dir_mask.any())
+    if has_neumann is None:
+        has_neumann = packs is not None and bool((packs.qflux != 0).any())
+    lite = robin_const is not None
+    z_natural = lite and not has_neumann and not has_dirichlet
+
+    dirm = packs.dir_mask if has_dirichlet else None
+    # sweep_code returns axis-first: x is natural; y moves back; z stays
+    # (z, x, y) for the permuted K1 solve or moves back for K2
+    codes = (sweep_code(mask, dirm, 0, stencil_bits=True),
+             sweep_code(mask, dirm, 1).movedim(0, 1).contiguous(),
+             sweep_code(mask, dirm, 2))
+    if z_natural:
+        codes = codes[:2] + (codes[2].movedim(0, 2).contiguous(),)
+
+    def per_axis(field):
+        return (field[0], field[1], _to_zxy(field[2]))
+
+    if lite:
+        coeffs = None
+        rc = robin_const
+        rob_c = (tuple(float(v) for v in rc)
+                 if isinstance(rc, (tuple, list)) else (float(rc),) * 3)
+    else:
+        coeffs = per_axis(packs.coeff)
+        rob_c = None
+    qfluxes = per_axis(packs.qflux) if has_neumann else None
+    dir_vals = ((packs.dir_val, packs.dir_val, _to_zxy(packs.dir_val))
+                if has_dirichlet else None)
+    return SweepPlan(mask, codes, coeffs, qfluxes, dir_vals,
+                     mask.to(torch.uint8), rob_c)
+
+
+def adi_step_fused(T: torch.Tensor, plan: SweepPlan, grid: CartesianGrid,
+                   mat: Material, *, dt: float, theta: float = 0.5,
+                   t_inf: float = 0.0,
+                   source: torch.Tensor | None = None) -> torch.Tensor:
+    """One theta-scheme ADI step on the kernel path.  ``dt`` is a Python
+    float, rounded to the state dtype; ``source``: optional volumetric heat
+    rate [W/m^3], as in step/cartesian.adi_step."""
+    dt, inv_d2, tg, c_exp = step_scalars(T.dtype, grid, mat, dt, theta)
+    codes = plan.codes
+    lite = plan.coeffs is None
+
+    if lite and source is None and plan.z_natural:
+        # the flagship WAAM configuration: stencil fused into the x-sweep
+        rc = plan.rob_c
+        U = fused_theta_sweep(T, codes[0], c_exp, inv_d2, tg[0], dt, t_inf,
+                              rc[0])
+        V = sweep_strided(U, codes[1], tg[1], dt, t_inf, axis=1, rob_c=rc[1])
+        return sweep_z(V, codes[2], tg[2], dt, t_inf, rc[2])
+
+    R0 = theta_rhs(T, plan.mask_u8, c_exp, inv_d2)
+    if source is not None:
+        R0 = R0 + torch.where(plan.mask, dt * source / (mat.rho * mat.cp),
+                              0.0)
+    cf = plan.coeffs or (None, None, None)
+    rc = plan.rob_c or (None, None, None)
+    q = plan.qfluxes or (None, None, None)
+    dv = plan.dir_vals or (None, None, None)
+    U = sweep_strided(R0, codes[0], tg[0], dt, t_inf, axis=0, coeff=cf[0],
+                      rob_c=rc[0], qflux=q[0], dir_val=dv[0])
+    V = sweep_strided(U, codes[1], tg[1], dt, t_inf, axis=1, coeff=cf[1],
+                      rob_c=rc[1], qflux=q[1], dir_val=dv[1])
+    if plan.z_natural:
+        return sweep_z(V, codes[2], tg[2], dt, t_inf, rc[2])
+    W = sweep_strided(_to_zxy(V), codes[2], tg[2], dt, t_inf, axis=0,
+                      coeff=cf[2], rob_c=rc[2], qflux=q[2], dir_val=dv[2])
+    return W.permute(1, 2, 0).contiguous()
