@@ -2,17 +2,26 @@
 adi_thermal_fields_tpu (transient 3-D heat conduction for WAAM).
 
 This package imports torch and numpy, never jax.  Its modules mirror the
-JAX package's paths; each docstring names its counterpart.  The slice
-ported so far is the Cartesian WAAM path: voxelized STL parts, element
+JAX package's paths; each docstring names its counterpart.  The slices
+ported so far are the Cartesian WAAM path: voxelized STL parts, element
 birth, constant properties, scalar or field Robin h, Neumann flux and
-Dirichlet pins, stepped by the masked theta-scheme ADI on four CUDA
-kernels written by hand for the H100 (csrc/):
+Dirichlet pins; and its variable-property step: k(T) and cp(T) tables
+(latent heat, melt-pool conductivity) and the radiative film with scalar
+convective h.  Both run the masked theta-scheme ADI on CUDA kernels
+written by hand for the H100 (csrc/):
 
 * K1 ``solvers.sweeps.sweep_strided`` — masked sweep along x or y;
 * K2 ``solvers.sweeps.sweep_z`` — plan-lite sweep along contiguous z;
 * K3 ``solvers.stencil.theta_rhs`` — the explicit theta-pass stencil;
 * K4 ``solvers.theta_sweep.fused_theta_sweep`` — K3 fused into the
-  x-sweep.
+  x-sweep;
+* K5 ``solvers.varprop.varprop_fields`` — face conductivities, 1/(rho cp)
+  and the radiative film from T;
+* K6 ``solvers.varprop.varprop_theta_sweep`` — the varprop theta pass
+  fused into the x-sweep;
+* K7 ``solvers.varprop.varprop_sweep_y`` — the varprop y-sweep;
+* K8 ``solvers.vp2.vp2_sweep_z`` — the tier-2 z-sweep deriving k, cp
+  and films from T.
 
 Each kernel wrapper runs its plain PyTorch version on CPU tensors and the
 kernel on CUDA tensors (built from csrc/*.cu at first use).
@@ -24,10 +33,18 @@ from .core.grid import CartesianGrid
 from .core.material import Material
 from .step.cartesian import adi_step as adi_step_cartesian
 from .step.cartesian_fused import SweepPlan, adi_step_fused, build_sweep_plan
+from .step.cartesian_varprop import (PropertyTable, adi_step_varprop,
+                                     adi_step_varprop_fused, apparent_cp,
+                                     build_varprop_codes,
+                                     melt_pool_enhanced_k)
+from .bc.radiation import STEFAN_BOLTZMANN, radiative_h
 
 __version__ = "0.1.0"
 
 __all__ = ["CartesianGrid", "Material", "FACES", "exposed_face",
            "exposed_faces", "CoeffPacks", "build_coeff_packs",
            "adi_step_cartesian", "SweepPlan", "build_sweep_plan",
-           "adi_step_fused"]
+           "adi_step_fused", "PropertyTable", "apparent_cp",
+           "melt_pool_enhanced_k", "adi_step_varprop",
+           "adi_step_varprop_fused", "build_varprop_codes",
+           "STEFAN_BOLTZMANN", "radiative_h"]

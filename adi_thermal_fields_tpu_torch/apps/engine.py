@@ -11,7 +11,11 @@ callbacks), as in the JAX loop.
 ``implementation`` is explicit — there is no choice by device:
 "kernels" runs step/cartesian_fused.adi_step_fused (K1-K4 on CUDA tensors,
 their plain versions on CPU tensors); "reference" runs the plain step
-step/cartesian.adi_step.
+step/cartesian.adi_step.  ``k_table``, ``cp_table`` or ``emissivity``
+switch the engine onto the variable-property step (JAX :167-358):
+"kernels" runs step/cartesian_varprop.adi_step_varprop_fused (K5-K8),
+"reference" runs adi_step_varprop and, with radiation, rebuilds its packs
+every sub-step from the live field.
 """
 from __future__ import annotations
 
@@ -23,10 +27,14 @@ import numpy as np
 import torch
 
 from ..bc.packs import build_coeff_packs
+from ..bc.radiation import radiative_h
 from ..core.grid import CartesianGrid
 from ..core.material import Material
 from ..step.cartesian import adi_step, state_numpy_dtype
 from ..step.cartesian_fused import adi_step_fused, build_sweep_plan
+from ..step.cartesian_varprop import (adi_step_varprop,
+                                      adi_step_varprop_fused,
+                                      build_varprop_codes, check_films)
 
 __all__ = ["make_cartesian_engine", "EventLoop", "IMPLEMENTATIONS"]
 
@@ -38,7 +46,9 @@ def make_cartesian_engine(grid: CartesianGrid, mat: Material, *,
                           theta: float = 0.5, t_inf: float = 20.0,
                           robin_h=None, neumann=None, dirichlet_mask=None,
                           dirichlet_value=None, source_fn=None,
-                          history_t_crit=None, mesh=None):
+                          history_t_crit=None, mesh=None, k_table=None,
+                          cp_table=None, emissivity=None,
+                          radiation_scale=None):
     """Split engine: ``prepare(active) -> prep`` (plan or pack rebuild,
     needed only when the mask changes) and
     ``advance(T, prep, dt, n_sub, t0=0.0) -> T`` (the sub-step loop).
@@ -46,7 +56,15 @@ def make_cartesian_engine(grid: CartesianGrid, mat: Material, *,
     ``dtype``: state and pack dtype (float32 or float64).  ``robin_h``:
     scalar (plan-lite: no coefficient fields), per-face dict or 3-D field
     (field plan).  ``source_fn``: optional ``t -> volumetric heat field
-    [W/m^3]``.  Thermal history and device meshes are not ported yet."""
+    [W/m^3]``.  Thermal history and device meshes are not ported yet.
+
+    Variable properties: ``k_table`` / ``cp_table`` (PropertyTable or
+    number; ``apparent_cp`` for latent heat, ``melt_pool_enhanced_k`` for
+    the melt-pool proxy) and ``emissivity`` (the radiative film
+    ``h_rad(T)`` on top of the convective ``robin_h``, refreshed every
+    sub-step).  On that path ``robin_h`` must be a scalar >= 0 and
+    ``emissivity`` >= 0; Neumann flux, Dirichlet pins, field h and
+    ``radiation_scale`` are not ported yet and raise."""
     if implementation not in IMPLEMENTATIONS:
         raise ValueError(f"implementation must be one of {IMPLEMENTATIONS}, "
                          f"got {implementation!r}")
@@ -76,7 +94,63 @@ def make_cartesian_engine(grid: CartesianGrid, mat: Material, *,
                        for d in grid.spacing)
     lite_needs_packs = neumann is not None or dirichlet_mask is not None
 
-    if implementation == "kernels":
+    varprop = (k_table is not None or cp_table is not None
+               or emissivity is not None)
+    if radiation_scale is not None and emissivity is None:
+        raise ValueError("radiation_scale scales the RADIATIVE film and "
+                         "therefore requires emissivity; for a corrected "
+                         "convective film pass the corrected h fields as "
+                         "robin_h")
+    if varprop:
+        if neumann is not None or dirichlet_mask is not None:
+            raise NotImplementedError(
+                "Neumann flux and Dirichlet pins on the variable-property "
+                "path are not ported yet")
+        if lite_c is None or radiation_scale is not None:
+            raise NotImplementedError(
+                "per-face or field Robin h (and radiation_scale) on the "
+                "variable-property path need the stream-reading varprop "
+                "sweep, TPU kernel row 17, not ported yet")
+        h0 = float(robin_h or 0.0)
+        check_films(h0, emissivity)
+        # radiation: the convective robin_h rides on top of h_rad(T)
+        h_conv = h0 if emissivity is not None else 0.0
+
+        if implementation == "kernels":
+            def prepare(active):
+                active = active.to(device=device, dtype=torch.bool)
+                # K5 reads the mask as uint8: convert once per birth event
+                return (active.to(torch.uint8), build_varprop_codes(active))
+
+            def step1(T, prep, dt, t):
+                active, codes = prep
+                src = None if source_fn is None else source_fn(t)
+                return adi_step_varprop_fused(
+                    T, active, codes, grid, mat, k_table=k_table,
+                    cp_table=cp_table, dt=dt, theta=theta, t_inf=t_inf,
+                    robin_h=h0, emissivity=emissivity, h_conv=h_conv,
+                    source=src)
+        else:
+            def prepare(active):
+                active = active.to(device=device, dtype=torch.bool)
+                # radiation rebuilds the packs every sub-step from the live
+                # field; otherwise they depend on the mask only
+                return (active,
+                        None if emissivity is not None else _packs(active))
+
+            def step1(T, prep, dt, t):
+                active, packs = prep
+                if emissivity is not None:
+                    packs = build_coeff_packs(
+                        active, grid, mat, dtype=T.dtype,
+                        robin_h=radiative_h(T, emissivity, t_inf,
+                                            h_conv=h_conv))
+                src = None if source_fn is None else source_fn(t)
+                return adi_step_varprop(
+                    T, active, packs, grid, mat, k_table=k_table,
+                    cp_table=cp_table, dt=dt, theta=theta, t_inf=t_inf,
+                    source=src)
+    elif implementation == "kernels":
         def prepare(active):
             active = active.to(device=device, dtype=torch.bool)
             packs = (_packs(active)

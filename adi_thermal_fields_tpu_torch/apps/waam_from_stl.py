@@ -2,11 +2,13 @@
 
 Counterpart: ``adi_thermal_fields_tpu/apps/waam_from_stl.py`` —
 ``load_voxels``, ``extract_layers``, ``parse_layer_times``,
-``layer_birth_times``, ``run`` (:221) and ``main`` for the
-constant-property path.  Pipeline: STL (mm) -> parity voxelization +
-solidify -> z-slab layers -> per-layer birth times (slab-area estimate or
-measured ``--layer_times_s``) -> event-driven ADI loop with element birth
-(apps/engine.py) on the chosen device.
+``layer_birth_times``, ``run`` (:221) and ``main``.  Pipeline: STL (mm) ->
+parity voxelization + solidify -> z-slab layers -> per-layer birth times
+(slab-area estimate or measured ``--layer_times_s``) -> event-driven ADI
+loop with element birth (apps/engine.py) on the chosen device.  The
+variable-property flags (``--latent_J_kg``, ``--melt_k_factor``,
+``--emissivity``) build the tables as the JAX app does (:318-349) and put
+the engine on the variable-property step (kernels K5-K8).
 
 Example (on a CUDA machine):
     python -m adi_thermal_fields_tpu_torch.apps.waam_from_stl --stl part.stl \
@@ -61,6 +63,22 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--h_side", type=float, default=30.0)
     p.add_argument("--T_inf", type=float, default=20.0)
     p.add_argument("--Ts", type=float, default=1500.0)
+    p.add_argument("--emissivity", type=float, default=0.0,
+                   help="surface emissivity: adds the radiative film "
+                        "h_rad(T) = eps*sigma*(T+T_inf)(T^2+T_inf^2) on top "
+                        "of --h_side, refreshed every sub-step (0 = off)")
+    # variable-property physics (step/cartesian_varprop.py)
+    p.add_argument("--latent_J_kg", type=float, default=0.0,
+                   help="latent heat of fusion [J/kg] via the apparent-cp "
+                        "method over --solidus_C..--liquidus_C (steel "
+                        "~2.7e5)")
+    p.add_argument("--solidus_C", type=float, default=1420.0)
+    p.add_argument("--liquidus_C", type=float, default=1470.0)
+    p.add_argument("--cp_liquid", type=float, default=None,
+                   help="liquid-phase cp [J/kg/K]; default = --cp")
+    p.add_argument("--melt_k_factor", type=float, default=1.0,
+                   help="melt-pool convection proxy: conductivity "
+                        "enhancement above the liquidus (1 disables)")
     # numerics
     p.add_argument("--theta", type=float, default=0.5)
     p.add_argument("--cfl", type=float, default=2.0)
@@ -71,13 +89,11 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="torch device; the run raises when CUDA is absent")
     p.add_argument("--implementation", choices=["kernels", "reference"],
                    default="kernels",
-                   help="kernels: K1-K4 on CUDA (plain versions on CPU); "
-                        "reference: the plain step")
+                   help="kernels: K1-K4 (K5-K8 with variable properties) "
+                        "on CUDA, plain versions on CPU; reference: the "
+                        "plain step")
     # JAX-app flags not ported yet: parsed so that they exit with a message
     p.add_argument("--corrected_bc", type=int, default=0)
-    p.add_argument("--emissivity", type=float, default=0.0)
-    p.add_argument("--latent_J_kg", type=float, default=0.0)
-    p.add_argument("--melt_k_factor", type=float, default=1.0)
     p.add_argument("--mesh", type=str, default="")
     p.add_argument("--checkpoint", type=str, default="")
     p.add_argument("--resume", type=str, default="")
@@ -91,9 +107,6 @@ def _reject_unsupported(args) -> None:
     """Exit with a message for flags this port does not support yet."""
     bad = [name for name, on in (
         ("--corrected_bc", args.corrected_bc != 0),
-        ("--emissivity", args.emissivity != 0.0),
-        ("--latent_J_kg", args.latent_J_kg != 0.0),
-        ("--melt_k_factor", args.melt_k_factor != 1.0),
         ("--mesh", bool(args.mesh)),
         ("--checkpoint", bool(args.checkpoint)),
         ("--resume", bool(args.resume)),
@@ -203,6 +216,7 @@ def run(args) -> dict:
     from ..core.grid import CartesianGrid
     from ..core.material import Material
     from ..io.logging import fmt_bytes, log
+    from ..step.cartesian_varprop import apparent_cp, melt_pool_enhanced_k
     from .engine import EventLoop, make_cartesian_engine
 
     _reject_unsupported(args)
@@ -253,9 +267,30 @@ def run(args) -> dict:
         act[:, :, ks:ke + 1] = np.where(sl, tb, act[:, :, ks:ke + 1])
     act = torch.from_numpy(act).to(device)
 
+    # variable-property physics: latent heat (apparent cp), melt-pool
+    # convection proxy, radiation -- the terms that dominate at 1500 C
+    k_table = cp_table = None
+    emissivity = args.emissivity if args.emissivity > 0 else None
+    if args.latent_J_kg > 0:
+        cp_table = apparent_cp(args.cp, args.cp_liquid or args.cp,
+                               args.latent_J_kg, args.solidus_C,
+                               args.liquidus_C)
+        log(f"latent heat {args.latent_J_kg:.3g} J/kg over "
+            f"{args.solidus_C:g}-{args.liquidus_C:g} C (apparent cp)",
+            tag="phys")
+    if args.melt_k_factor != 1.0:
+        k_table = melt_pool_enhanced_k(args.k, args.solidus_C,
+                                       args.liquidus_C,
+                                       enhancement=args.melt_k_factor)
+        log(f"melt-pool k proxy: {args.melt_k_factor:g}x above "
+            f"{args.liquidus_C:g} C", tag="phys")
+    if emissivity is not None:
+        log(f"radiative film, emissivity {emissivity:g}", tag="phys")
+
     prepare, advance = make_cartesian_engine(
         grid, mat, implementation=args.implementation, device=device,
-        dtype=dtype, theta=args.theta, t_inf=args.T_inf, robin_h=args.h_side)
+        dtype=dtype, theta=args.theta, t_inf=args.T_inf, robin_h=args.h_side,
+        k_table=k_table, cp_table=cp_table, emissivity=emissivity)
     dmin = min(d)
     dt_cap = args.cfl * dmin * dmin / mat.alpha
     log(f"alpha={mat.alpha:.3e} m^2/s, dt_cap={dt_cap:.3e} s "

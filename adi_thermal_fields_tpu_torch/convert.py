@@ -12,7 +12,13 @@ tensors on a chosen device:
   chooses is applied: the plan-lite z code without Neumann or Dirichlet
   moves from the JAX (z, x, y) layout to the natural (x, y, z) layout that
   K2 reads.  The JAX plan's TPU tile padding (``pad_to_tile``) is not
-  undone here: convert an unpadded plan.
+  undone here: convert an unpadded plan;
+* ``property_table_from_jax(tab)``: step/cartesian_varprop.PropertyTable
+  from a JAX ``PropertyTable`` (its points and values as floats);
+* ``vp2_code_from_numpy(code)``: a JAX ``build_vp2_code`` code as the
+  port's uint8 code (its bits stay below 32, so the values are kept), in
+  the natural layout K8 reads — ``zxy=True`` undoes the (z, x, y) layout
+  the JAX Cartesian step gives its z code.
 """
 from __future__ import annotations
 
@@ -21,8 +27,10 @@ import torch
 
 from .bc.packs import CoeffPacks
 from .step.cartesian_fused import SweepPlan
+from .step.cartesian_varprop import PropertyTable
 
-__all__ = ["field_from_numpy", "packs_from_numpy", "plan_from_numpy"]
+__all__ = ["field_from_numpy", "packs_from_numpy", "plan_from_numpy",
+           "property_table_from_jax", "vp2_code_from_numpy"]
 
 
 def field_from_numpy(T, *, device, dtype: torch.dtype | None = None
@@ -80,3 +88,19 @@ def plan_from_numpy(mask, codes, coeffs=None, qfluxes=None, dir_vals=None,
             np.asarray(rob_c, np.float64), (3,)))
     return SweepPlan(mask_t, (cx, cy, cz), fields(coeffs), fields(qfluxes),
                      fields(dir_vals), mask_t.to(torch.uint8), rc)
+
+
+def property_table_from_jax(tab) -> PropertyTable:
+    """The port's PropertyTable with the same breakpoints and values as
+    the JAX ``PropertyTable`` (or any object with ``points``/``values``)."""
+    return PropertyTable(tuple(float(p) for p in np.asarray(tab.points)),
+                         tuple(float(v) for v in np.asarray(tab.values)))
+
+
+def vp2_code_from_numpy(code, *, device, zxy: bool = False) -> torch.Tensor:
+    """A JAX vp2 code (int8 bits 1/2/4/8/16) as the port's uint8 code;
+    ``zxy``: the code is in the (z, x, y) layout and moves to (x, y, z)."""
+    t = _codes_from_numpy(code, device=device)
+    if t.numel() and int(t.max()) >= 32:
+        raise ValueError("a vp2 code uses bits 1-16 only")
+    return t.permute(1, 2, 0).contiguous() if zxy else t

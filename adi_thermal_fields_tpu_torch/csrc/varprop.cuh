@@ -1,0 +1,78 @@
+// Device helpers of the variable-property kernels K5-K8: property tables
+// as clamp-sums, the harmonic face mean and the Picard radiative film.
+//
+// A table reaches a kernel by value as a small POD struct (kernel
+// parameter space, __grid_constant__: no local copy) holding at most
+// kMaxSeg segments -- 32 breakpoints.  The host (solvers/varprop.py
+// table_segments) computes the slopes in float64 and drops the segments
+// with no value change; here they are held at the field's type T:
+//   v(x) = v0 + sum_i s_i * clamp(x - p_i, 0, dp_i)     (dp_i > 0)
+//        +      sum_i s_i * (x > p_i)                  (dp_i == 0: a step)
+// in table order, as the plain versions evaluate them.
+#pragma once
+
+#include "common.cuh"
+
+namespace atf {
+
+constexpr int kMaxSeg = 31;
+
+template <typename T>
+struct Table {
+  int n;            // segments in use
+  T v0;
+  T p[kMaxSeg];
+  T dp[kMaxSeg];
+  T s[kMaxSeg];
+};
+
+// Fills `tab` from the host buffer [v0, p0, dp0, s0, p1, ...]; false when
+// the segment count is out of range.
+template <typename T>
+inline bool make_table(const double* buf, int n, Table<T>* tab) {
+  if (n < 0 || n > kMaxSeg || buf == nullptr) return false;
+  tab->n = n;
+  tab->v0 = (T)buf[0];
+  for (int i = 0; i < n; ++i) {
+    tab->p[i] = (T)buf[1 + 3 * i];
+    tab->dp[i] = (T)buf[2 + 3 * i];
+    tab->s[i] = (T)buf[3 + 3 * i];
+  }
+  return true;
+}
+
+template <typename T>
+__device__ __forceinline__ T clamp_sum(const Table<T>& tab, T x) {
+  T acc = tab.v0;
+#pragma unroll
+  for (int i = 0; i < kMaxSeg; ++i) {
+    if (i >= tab.n) break;
+    if (tab.dp[i] > T(0)) {
+      T c = x - tab.p[i];
+      c = c > T(0) ? c : T(0);
+      c = c < tab.dp[i] ? c : tab.dp[i];
+      acc = acc + tab.s[i] * c;
+    } else {
+      acc = acc + ((x > tab.p[i]) ? tab.s[i] : T(0));
+    }
+  }
+  return acc;
+}
+
+// 2 a b / (a + b), zero where the sum is not positive.
+template <typename T>
+__device__ __forceinline__ T harm(T a, T b) {
+  const T den = a + b;
+  return den > T(0) ? T(2) * a * b / den : T(0);
+}
+
+// eps*sigma*(Tk + Tik)*(Tk^2 + Tik^2) with Tk = x + 273.15; the host
+// passes rc = eps*sigma, tik and tik2 = Tik^2 rounded as its plain version
+// forms them.
+template <typename T>
+__device__ __forceinline__ T rad_film(T x, T rc, T tik, T tik2) {
+  const T tk = x + T(273.15);
+  return rc * (tk + tik) * (tk * tk + tik2);
+}
+
+}  // namespace atf

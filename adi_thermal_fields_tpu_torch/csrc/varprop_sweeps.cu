@@ -1,0 +1,207 @@
+// K6 and K7: the variable-property sweeps that read prebuilt face streams.
+//
+// K6 replaces adi_thermal_fields_tpu/solvers/pallas_varprop.py
+//    fused_varprop_theta_sweep (:1066), body _vp_ring_kernel (:821): the
+//    explicit varprop theta pass fused into the x sweep,
+//      d = T + (cw*w*inm) * sum_ax iv_ax*(f_lo*(T_lo - T) + f_hi*(T_hi - T))
+//          [+ (cd*w*inm) * src],
+//    faces x, then y, then z (the _vp_rhs_kernel order, :403-462), with
+//    f_lo = fc[i] and f_hi = fc[i+1] (zero past the domain edge).
+// K7 replaces pallas_varprop.py fused_varprop_sweep_axis1 (:718), body
+//    _varprop_kernel_axis1 (:560): the sweep along the STRIDED y axis of
+//    the natural field, viewed as (B1, n, B2) = (nx, ny, nz).
+//
+// Row system (both, _varprop_kernel :142-197), per pencil along the axis:
+//   tw = tg*w, a = -tw*f_lo, c = -tw*f_hi,
+//   sink = (sk*h)*((2-low-high)*inm), sw = sink*w,
+//   b = 1 + tw*(f_lo + f_hi) + sw, d += sw*t_inf,
+// h a per-cell film stream or the scalar rob_c; code bits 1/2/8 of
+// sweep_code (plain bits, no stencil bits: the faces carry the masking).
+//
+// What bounds them on the H100: memory.  The TPU kernels keep the line in
+// VMEM and run one row lagged (the upper face arrives with the next
+// group); here one thread owns a pencil and simply reads fc[i+1] ahead,
+// carrying it to the next row as f_lo.  Threads adjacent in z read
+// adjacent addresses, so every row load is coalesced.  As in K1/K4, c'
+// lives in the output buffer and d' in a scratch tensor, and back
+// substitution overwrites c' with x.  Traffic (float32): K6 reads T (4,
+// the y/z neighbours through L1/L2) + code (1) + fx/fy/fz/w (16) [+ h 4]
+// [+ src 4] and writes U (4): 25-33 B/cell; K7 reads rhs + code + fc + w
+// [+ h] and writes x: 17-21 B/cell; both plus the 16 B/cell c'/d' round
+// trip.
+#include "common.cuh"
+
+namespace {
+
+template <typename T>
+__device__ __forceinline__ void vp_row(unsigned c, T f_lo, T f_hi, T wv,
+                                       T hv, T d, T tg, T sk, T t_inf,
+                                       T& cp, T& dp) {
+  const T low = atf::bit<T>(c, atf::kLow);
+  const T high = atf::bit<T>(c, atf::kHigh);
+  const T inm = atf::bit<T>(c, atf::kInMask);
+  const T sink = (sk * hv) * ((T(2) - low - high) * inm);
+  const T tw = tg * wv;
+  const T a = -tw * f_lo;
+  const T cc = -tw * f_hi;
+  const T sw = sink * wv;
+  const T b = T(1) + tw * (f_lo + f_hi) + sw;
+  const T dd = d + sw * t_inf;
+  const T inv = T(1) / (b - a * cp);
+  cp = cc * inv;
+  dp = (dd - a * dp) * inv;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256) vp_theta_sweep_kernel(
+    const T* __restrict__ Tf, const uint8_t* __restrict__ code,
+    const T* __restrict__ fx, const T* __restrict__ fy,
+    const T* __restrict__ fz, const T* __restrict__ w,
+    const T* __restrict__ h, const T* __restrict__ src, T* __restrict__ out,
+    T* __restrict__ dpbuf, int64_t nx, int64_t ny, int64_t nz, T cw, T cd,
+    T iv_x, T iv_y, T iv_z, T tg, T sk, T t_inf, T rob_c) {
+  const int64_t plane = ny * nz;
+  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= plane) return;
+  const int64_t j = p / nz;
+  const int64_t k = p - j * nz;
+  const bool has_ylo = j > 0, has_yhi = j + 1 < ny;
+  const bool has_zlo = k > 0, has_zhi = k + 1 < nz;
+
+  T cp = T(0), dp = T(0);
+  T t_lo = T(0);              // T at x-1 (0 before the first row)
+  T t_c = Tf[p];              // T at x
+  T fx_lo = fx[p];            // face (x-1, x)
+  for (int64_t i = 0; i < nx; ++i) {
+    const int64_t off = i * plane + p;
+    const bool has_xhi = i + 1 < nx;
+    const T t_hi = has_xhi ? Tf[off + plane] : T(0);
+    const T fx_hi = has_xhi ? fx[off + plane] : T(0);
+    const unsigned c = code[off];
+
+    // explicit theta pass: x, then y, then z
+    T acc = (fx_lo * (t_lo - t_c) + fx_hi * (t_hi - t_c)) * iv_x;
+    const T fy_lo = fy[off];
+    const T fy_hi = has_yhi ? fy[off + nz] : T(0);
+    const T t_ylo = has_ylo ? Tf[off - nz] : T(0);
+    const T t_yhi = has_yhi ? Tf[off + nz] : T(0);
+    acc = acc + (fy_lo * (t_ylo - t_c) + fy_hi * (t_yhi - t_c)) * iv_y;
+    const T fz_lo = fz[off];
+    const T fz_hi = has_zhi ? fz[off + 1] : T(0);
+    const T t_zlo = has_zlo ? Tf[off - 1] : T(0);
+    const T t_zhi = has_zhi ? Tf[off + 1] : T(0);
+    acc = acc + (fz_lo * (t_zlo - t_c) + fz_hi * (t_zhi - t_c)) * iv_z;
+    const T wv = w[off];
+    const T gain = wv * atf::bit<T>(c, atf::kInMask);
+    T d = t_c + cw * gain * acc;
+    if (src != nullptr) d = d + cd * gain * src[off];
+
+    vp_row(c, fx_lo, fx_hi, wv, h != nullptr ? h[off] : rob_c, d, tg, sk,
+           t_inf, cp, dp);
+    out[off] = cp;
+    dpbuf[off] = dp;
+
+    t_lo = t_c;
+    t_c = t_hi;
+    fx_lo = fx_hi;
+  }
+  T x = T(0);
+  for (int64_t i = nx - 1; i >= 0; --i) {
+    const int64_t off = i * plane + p;
+    x = dpbuf[off] - out[off] * x;
+    out[off] = x;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256) vp_sweep_strided_kernel(
+    const T* __restrict__ rhs, const uint8_t* __restrict__ code,
+    const T* __restrict__ fc, const T* __restrict__ w,
+    const T* __restrict__ h, T* __restrict__ out, T* __restrict__ dpbuf,
+    int64_t B1, int64_t n, int64_t B2, T tg, T sk, T t_inf, T rob_c) {
+  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= B1 * B2) return;
+  const int64_t b1 = p / B2;
+  const int64_t base = b1 * n * B2 + (p - b1 * B2);
+
+  T cp = T(0), dp = T(0);
+  T f_lo = fc[base];
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t off = base + i * B2;
+    const T f_hi = (i + 1 < n) ? fc[off + B2] : T(0);
+    vp_row(code[off], f_lo, f_hi, w[off], h != nullptr ? h[off] : rob_c,
+           rhs[off], tg, sk, t_inf, cp, dp);
+    out[off] = cp;
+    dpbuf[off] = dp;
+    f_lo = f_hi;
+  }
+  T x = T(0);
+  for (int64_t i = n - 1; i >= 0; --i) {
+    const int64_t off = base + i * B2;
+    x = dpbuf[off] - out[off] * x;
+    out[off] = x;
+  }
+}
+
+template <typename T>
+void launch_vp_theta_sweep(const void* Tf, const void* code, const void* fx,
+                           const void* fy, const void* fz, const void* w,
+                           const void* h, const void* src, void* out,
+                           void* scratch, int64_t nx, int64_t ny, int64_t nz,
+                           double cw, double cd, double iv_x, double iv_y,
+                           double iv_z, double tg, double sk, double t_inf,
+                           double rob_c, cudaStream_t stream) {
+  const int threads = 256;
+  const int64_t blocks = atf::cdiv(ny * nz, threads);
+  vp_theta_sweep_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
+      static_cast<const T*>(Tf), static_cast<const uint8_t*>(code),
+      static_cast<const T*>(fx), static_cast<const T*>(fy),
+      static_cast<const T*>(fz), static_cast<const T*>(w),
+      static_cast<const T*>(h), static_cast<const T*>(src),
+      static_cast<T*>(out), static_cast<T*>(scratch), nx, ny, nz, (T)cw,
+      (T)cd, (T)iv_x, (T)iv_y, (T)iv_z, (T)tg, (T)sk, (T)t_inf, (T)rob_c);
+}
+
+template <typename T>
+void launch_vp_sweep_strided(const void* rhs, const void* code,
+                             const void* fc, const void* w, const void* h,
+                             void* out, void* scratch, int64_t B1, int64_t n,
+                             int64_t B2, double tg, double sk, double t_inf,
+                             double rob_c, cudaStream_t stream) {
+  const int threads = 256;
+  const int64_t blocks = atf::cdiv(B1 * B2, threads);
+  vp_sweep_strided_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
+      static_cast<const T*>(rhs), static_cast<const uint8_t*>(code),
+      static_cast<const T*>(fc), static_cast<const T*>(w),
+      static_cast<const T*>(h), static_cast<T*>(out),
+      static_cast<T*>(scratch), B1, n, B2, (T)tg, (T)sk, (T)t_inf,
+      (T)rob_c);
+}
+
+}  // namespace
+
+ATF_API int atf_varprop_theta_sweep(
+    int dtype, int device, const void* Tf, const void* code, const void* fx,
+    const void* fy, const void* fz, const void* w, const void* h,
+    const void* src, void* out, void* scratch, int64_t nx, int64_t ny,
+    int64_t nz, double cw, double cd, double iv_x, double iv_y, double iv_z,
+    double tg, double sk, double t_inf, double rob_c, void* stream) {
+  ATF_DISPATCH(dtype, device,
+               launch_vp_theta_sweep<T>(Tf, code, fx, fy, fz, w, h, src, out,
+                                        scratch, nx, ny, nz, cw, cd, iv_x,
+                                        iv_y, iv_z, tg, sk, t_inf, rob_c,
+                                        (cudaStream_t)stream));
+}
+
+ATF_API int atf_varprop_sweep_strided(int dtype, int device, const void* rhs,
+                                      const void* code, const void* fc,
+                                      const void* w, const void* h,
+                                      void* out, void* scratch, int64_t B1,
+                                      int64_t n, int64_t B2, double tg,
+                                      double sk, double t_inf, double rob_c,
+                                      void* stream) {
+  ATF_DISPATCH(dtype, device,
+               launch_vp_sweep_strided<T>(rhs, code, fc, w, h, out, scratch,
+                                          B1, n, B2, tg, sk, t_inf, rob_c,
+                                          (cudaStream_t)stream));
+}

@@ -35,9 +35,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _I64, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
     ctypes.c_double
+_DP = ctypes.POINTER(ctypes.c_double)     # a property table's host buffer
 
 # C entry points: (argtypes, restype)
 _SIGNATURES = {
+    "atf_varprop_fields": ([_I, _I, *[_P] * 7, _I64, _I64, _I64, _DP, _I,
+                            _DP, _I, *[_D] * 5, _P], _I),
+    "atf_varprop_theta_sweep": ([_I, _I, *[_P] * 10, _I64, _I64, _I64,
+                                 *[_D] * 9, _P], _I),
+    "atf_varprop_sweep_strided": ([_I, _I, *[_P] * 7, _I64, _I64, _I64,
+                                   *[_D] * 4, _P], _I),
+    "atf_vp2_sweep_z": ([_I, _I, *[_P] * 5, _I64, _I64, _DP, _I, _DP, _I,
+                         *[_D] * 8, _I, _P], _I),
     "atf_sweep_strided": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                            _I64, _D, _D, _D, _D, _P], _I),
     "atf_sweep_z": ([_I, _I, _P, _P, _P, _P, _I64, _I64, _D, _D, _D, _D,

@@ -1,0 +1,299 @@
+"""Variable-property kernels K5, K6 and K7 with their plain versions.
+
+Counterpart: ``adi_thermal_fields_tpu/solvers/pallas_varprop.py`` —
+``varprop_fields`` (:1274, body ``_vp_fields_kernel`` :1223) -> K5
+``varprop_fields``; ``fused_varprop_theta_sweep`` (:1066, body
+``_vp_ring_kernel`` :821) -> K6 ``varprop_theta_sweep``;
+``fused_varprop_sweep_axis1`` (:718, body ``_varprop_kernel_axis1`` :560)
+-> K7 ``varprop_sweep_y``.  CUDA sources: ``csrc/varprop_fields.cu`` (K5)
+and ``csrc/varprop_sweeps.cu`` (K6, K7).
+
+Property tables reach the kernels as clamp-sum segments (``table_segments``):
+``v(T) = v0 + sum_i s_i*clamp(T - p_i, 0, dp_i)`` in table order, slopes
+``s_i = dv_i/dp_i`` in float64 on the host, a value step ``dv_i*(T > p_i)``
+where ``dp_i == 0``, and segments with ``dv_i == 0`` skipped — the JAX
+``PropertyTable`` evaluation.  Kernels and plain versions evaluate the same
+segments in the same order at the field's dtype.
+
+The implicit rows of K6/K7 (per pencil along the sweep axis, ``fc`` the
+pre-masked harmonic face conductivity of the lower face, ``fc[i+1]`` the
+upper, ``w = 1/(rho cp)``, code bits 1/2/8 of ``sweep_code``):
+
+    tw = tg*w, a = -tw*fc[i], c = -tw*fc[i+1],
+    sink = (sk*h)*((2-low-high)*inm), sw = sink*w,
+    b = 1 + tw*(fc[i] + fc[i+1]) + sw, d = rhs + sw*t_inf
+
+with ``h`` a per-cell film stream or the scalar ``rob_c``.  Each wrapper
+runs its plain version on CPU tensors and launches its kernel on CUDA
+tensors, counting the launch in its ``launches`` attribute.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..bc.faces import shift_in
+from ..bc.radiation import STEFAN_BOLTZMANN, radiative_h
+from ..kernels import (check_kernel_inputs, dtype_code, load_library, ptr,
+                       raise_on_error, stream_ptr, use_kernel)
+from .stencil import _inv3
+from .thomas import thomas
+
+__all__ = ["MAX_TABLE_POINTS", "table_segments", "clamp_sum", "eval_spec",
+           "face_g", "harm", "varprop_fields", "varprop_fields_plain",
+           "varprop_theta_sweep", "varprop_theta_sweep_plain",
+           "varprop_sweep_y", "varprop_sweep_y_plain"]
+
+# breakpoints a kernel table holds (csrc/varprop.cuh: kMaxSeg = 31 segments)
+MAX_TABLE_POINTS = 32
+_LOW, _HIGH, _INMASK = 1, 2, 8
+
+
+def table_segments(spec) -> tuple[float, tuple]:
+    """``(v0, ((p, dp, s), ...))`` of a property spec: a number (constant,
+    no segments) or a table with ``points`` and ``values`` (strictly
+    increasing points; duplicates make a value step).  ``s`` is the slope
+    ``dv/dp``, or the step ``dv`` where ``dp == 0``."""
+    if isinstance(spec, (int, float)):
+        return float(spec), ()
+    pts = [float(p) for p in spec.points]
+    vals = [float(v) for v in spec.values]
+    segs = []
+    for i in range(len(pts) - 1):
+        dp = pts[i + 1] - pts[i]
+        dv = vals[i + 1] - vals[i]
+        if dv == 0.0:
+            continue
+        segs.append((pts[i], dp, dv / dp if dp > 0.0 else dv))
+    return vals[0], tuple(segs)
+
+
+def clamp_sum(Tc: torch.Tensor, v0: float, segs) -> torch.Tensor:
+    """The clamp-sum of ``table_segments`` at ``Tc``'s dtype."""
+    acc = torch.full_like(Tc, v0)
+    for p, dp, s in segs:
+        if dp > 0.0:
+            acc = acc + s * torch.clamp(Tc - p, 0.0, dp)
+        else:     # duplicate abscissae: a value step at p
+            acc = acc + s * (Tc > p).to(Tc.dtype)
+    return acc
+
+
+def eval_spec(spec, T: torch.Tensor) -> torch.Tensor:
+    """A property spec (number or table) evaluated at ``T``."""
+    return clamp_sum(T, *table_segments(spec))
+
+
+def harm(ka: torch.Tensor, kb: torch.Tensor) -> torch.Tensor:
+    """Harmonic mean ``2 ka kb / (ka + kb)``, zero where the sum is not
+    positive."""
+    den = ka + kb
+    return torch.where(den > 0, 2.0 * ka * kb / torch.where(den > 0, den, 1.0),
+                       0.0)
+
+
+def face_g(kf: torch.Tensor, axis: int, direction: int,
+           mask: torch.Tensor) -> torch.Tensor:
+    """Harmonic face conductivity toward the (axis, direction) neighbour;
+    zero across mask boundaries and domain edges (JAX
+    ``step/cartesian_varprop._face_g``)."""
+    kn = shift_in(kf, axis, direction, fill=0.0)
+    mn = shift_in(mask, axis, direction, fill=False)
+    return torch.where(mask & mn, harm(kf, kn), 0.0)
+
+
+def _table_arg(spec):
+    """A table spec as the C entry points take it: a double buffer
+    ``[v0, p0, dp0, s0, p1, ...]`` and the segment count."""
+    if not isinstance(spec, (int, float)) and \
+            len(spec.points) > MAX_TABLE_POINTS:
+        raise ValueError(f"a kernel property table holds at most "
+                         f"{MAX_TABLE_POINTS} breakpoints, got "
+                         f"{len(spec.points)}")
+    v0, segs = table_segments(spec)
+    flat = [v0] + [v for seg in segs for v in seg]
+    return (ctypes.c_double * len(flat))(*flat), len(segs)
+
+
+def _rad_scalars(emissivity: float, t_inf: float, dtype: torch.dtype):
+    """``(eps*sigma, Tik, Tik^2)`` of ``radiative_h`` at ``dtype``:
+    ``Tik = dtype(t_inf) + dtype(273.15)`` and its square at ``dtype``."""
+    tik = (torch.tensor(t_inf, dtype=dtype)
+           + torch.tensor(273.15, dtype=dtype))
+    return emissivity * STEFAN_BOLTZMANN, float(tik), float(tik * tik)
+
+
+# ---------------------------------------------------------------------------
+# K5: the fields pass
+# ---------------------------------------------------------------------------
+
+def varprop_fields_plain(T, mask_u8, *, k_spec, cp_spec, rho: float,
+                         rad=None):
+    """Plain version of K5: the XLA formulation of JAX
+    ``build_varprop_fields`` (cartesian_varprop.py:426-447)."""
+    mask = mask_u8 != 0
+    kf = eval_spec(k_spec, T)
+    fc = tuple(face_g(kf, ax, -1, mask) for ax in range(3))
+    w = 1.0 / (rho * eval_spec(cp_spec, T))
+    if rad is None:
+        return fc, w
+    eps, tinf, hconv = rad
+    return fc, w, radiative_h(T, eps, tinf, h_conv=hconv)
+
+
+def varprop_fields(T: torch.Tensor, mask_u8: torch.Tensor, *, k_spec,
+                   cp_spec, rho: float, rad: tuple | None = None):
+    """K5: per-axis pre-masked harmonic face conductivities, ``1/(rho cp)``
+    and (``rad = (emissivity, t_inf, h_conv)``) the Picard radiative film,
+    in one pass over ``T`` and the uint8 mask, natural (x, y, z) layout.
+
+    ``fx[i] = harm(k[i-1], k[i])`` where cells i-1 and i are both in-mask,
+    else 0 (likewise fy, fz); ``k_spec``/``cp_spec``: a number or a table
+    (``points``/``values``, at most 32 breakpoints).  Returns
+    ``((fx, fy, fz), w)`` or ``((fx, fy, fz), w, h)``."""
+    if not use_kernel(T, mask_u8):
+        return varprop_fields_plain(T, mask_u8, k_spec=k_spec,
+                                    cp_spec=cp_spec, rho=rho, rad=rad)
+    if T.dim() != 3:
+        raise ValueError(f"varprop_fields: field must be 3-D, got {T.dim()}")
+    check_kernel_inputs("varprop_fields", T, mask_u8)
+    ktab, kn = _table_arg(k_spec)
+    ctab, cn = _table_arg(cp_spec)
+    outs = [torch.empty_like(T) for _ in range(4 if rad is None else 5)]
+    if rad is None:
+        rc, tik, tik2, hconv = 0.0, 0.0, 0.0, 0.0
+    else:
+        eps, tinf, hconv = rad
+        rc, tik, tik2 = _rad_scalars(float(eps), float(tinf), T.dtype)
+    err = load_library().atf_varprop_fields(
+        dtype_code(T.dtype), T.device.index, ptr(T), ptr(mask_u8),
+        *(ptr(o) for o in outs[:4]), ptr(outs[4]) if rad is not None else None,
+        *T.shape, ktab, kn, ctab, cn, float(rho), rc, tik, tik2,
+        float(hconv), stream_ptr(T.device))
+    raise_on_error(err, "varprop_fields")
+    varprop_fields.launches += 1
+    fc, w = tuple(outs[:3]), outs[3]
+    return (fc, w) if rad is None else (fc, w, outs[4])
+
+
+varprop_fields.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6 and K7: the sweeps
+# ---------------------------------------------------------------------------
+
+def _varprop_solve(d, code, fc, w, tg, sk, t_inf, h, rob_c, axis):
+    """The module's implicit rows along ``axis``, solved by ``thomas``."""
+    dtype = d.dtype
+    bit = (lambda b: ((code & b) != 0).to(dtype))
+    low, high, inm = bit(_LOW), bit(_HIGH), bit(_INMASK)
+    # sk*h at the field's dtype (the kernels' scalar product)
+    hv = h if h is not None else torch.tensor(rob_c, dtype=dtype)
+    sink = (torch.tensor(sk, dtype=dtype) * hv) * ((2.0 - low - high) * inm)
+    f_hi = shift_in(fc, axis, +1, fill=0.0)
+    tw = tg * w
+    a = -tw * fc
+    c = -tw * f_hi
+    sw = sink * w
+    b = 1.0 + tw * (fc + f_hi) + sw
+    dd = d + sw * t_inf
+    mv = (lambda t: t.movedim(axis, 0))
+    return thomas(mv(a), mv(b), mv(c), mv(dd)).movedim(0, axis).contiguous()
+
+
+def varprop_theta_sweep_plain(T, code, fx, fy, fz, w, cw, inv_d2, tg, sk,
+                              t_inf, *, h=None, rob_c=0.0, src=None,
+                              dt=None):
+    """Plain version of K6: the ``_vp_rhs_kernel`` formula (faces x, then
+    y, then z), then the x rows and ``thomas``."""
+    dtype = T.dtype
+    inm = ((code & _INMASK) != 0).to(dtype)
+    acc = None
+    for ax, f, iv in zip(range(3), (fx, fy, fz), _inv3(inv_d2)):
+        f_hi = shift_in(f, ax, +1, fill=0.0)
+        term = (f * (shift_in(T, ax, -1, fill=0.0) - T)
+                + f_hi * (shift_in(T, ax, +1, fill=0.0) - T)) * iv
+        acc = term if acc is None else acc + term
+    gain = w * inm
+    d = T + cw * gain * acc
+    if src is not None:
+        d = d + dt * gain * src
+    return _varprop_solve(d, code, fx, w, tg, sk, t_inf, h, rob_c, 0)
+
+
+def varprop_theta_sweep(T: torch.Tensor, code: torch.Tensor,
+                        fx: torch.Tensor, fy: torch.Tensor, fz: torch.Tensor,
+                        w: torch.Tensor, cw: float, inv_d2, tg: float,
+                        sk: float, t_inf: float, *,
+                        h: torch.Tensor | None = None, rob_c: float = 0.0,
+                        src: torch.Tensor | None = None,
+                        dt: float | None = None) -> torch.Tensor:
+    """K6: ``U = A_x^{-1}[(I + cw W L) T (+ dt W src) + sink*t_inf]``, the
+    explicit varprop theta pass fused into the x sweep, on the natural
+    (x, y, z) field.
+
+    ``code``: the x sweep code ``sweep_code(mask, None, 0)`` (bits 1/2/8);
+    ``fx/fy/fz``: pre-masked faces (K5); ``w = 1/(rho cp)``;
+    ``cw = (1-theta)*dt``; ``inv_d2``: per-axis 1/d^2; ``tg =
+    theta*dt/dx^2``; ``sk = dt/dx``; ``h``: per-cell film stream, else the
+    scalar ``rob_c``; ``src``: volumetric source (needs ``dt``)."""
+    if src is not None and dt is None:
+        raise ValueError("varprop_theta_sweep: src needs dt")
+    if not use_kernel(T, code, fx, fy, fz, w, h, src):
+        return varprop_theta_sweep_plain(T, code, fx, fy, fz, w, cw, inv_d2,
+                                         tg, sk, t_inf, h=h, rob_c=rob_c,
+                                         src=src, dt=dt)
+    if T.dim() != 3:
+        raise ValueError(
+            f"varprop_theta_sweep: field must be 3-D, got {T.dim()}")
+    check_kernel_inputs("varprop_theta_sweep", T, code, fx, fy, fz, w, h, src)
+    ivx, ivy, ivz = _inv3(inv_d2)
+    out = torch.empty_like(T)
+    scratch = torch.empty_like(T)
+    err = load_library().atf_varprop_theta_sweep(
+        dtype_code(T.dtype), T.device.index, ptr(T), ptr(code), ptr(fx),
+        ptr(fy), ptr(fz), ptr(w), ptr(h), ptr(src), ptr(out), ptr(scratch),
+        *T.shape, cw, 0.0 if dt is None else dt, ivx, ivy, ivz, tg, sk,
+        t_inf, rob_c, stream_ptr(T.device))
+    raise_on_error(err, "varprop_theta_sweep")
+    varprop_theta_sweep.launches += 1
+    return out
+
+
+varprop_theta_sweep.launches = 0
+
+
+def varprop_sweep_y_plain(rhs, code, fc, w, tg, sk, t_inf, *, h=None,
+                          rob_c=0.0):
+    """Plain version of K7: the y rows and ``thomas``."""
+    return _varprop_solve(rhs, code, fc, w, tg, sk, t_inf, h, rob_c, 1)
+
+
+def varprop_sweep_y(rhs: torch.Tensor, code: torch.Tensor, fc: torch.Tensor,
+                    w: torch.Tensor, tg: float, sk: float, t_inf: float, *,
+                    h: torch.Tensor | None = None,
+                    rob_c: float = 0.0) -> torch.Tensor:
+    """K7: the varprop sweep along y of the natural (x, y, z) field.
+    ``code`` is the y sweep code in the natural layout
+    (``sweep_code(mask, None, 1).movedim(0, 1)``), ``fc`` the y faces."""
+    if not use_kernel(rhs, code, fc, w, h):
+        return varprop_sweep_y_plain(rhs, code, fc, w, tg, sk, t_inf, h=h,
+                                     rob_c=rob_c)
+    if rhs.dim() != 3:
+        raise ValueError(
+            f"varprop_sweep_y: field must be 3-D, got {rhs.dim()}")
+    check_kernel_inputs("varprop_sweep_y", rhs, code, fc, w, h)
+    out = torch.empty_like(rhs)
+    scratch = torch.empty_like(rhs)
+    err = load_library().atf_varprop_sweep_strided(
+        dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(code),
+        ptr(fc), ptr(w), ptr(h), ptr(out), ptr(scratch), *rhs.shape, tg, sk,
+        t_inf, rob_c, stream_ptr(rhs.device))
+    raise_on_error(err, "varprop_sweep_y")
+    varprop_sweep_y.launches += 1
+    return out
+
+
+varprop_sweep_y.launches = 0

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's main path once on one CUDA card, through its four
-hand-written kernels, and check every result.
+"""Run the PyTorch port's main paths once on one CUDA card, through their
+eight hand-written kernels, and check every result.
 
     python3 chip_smoke.py        # from the root of a checkout; one card
 
@@ -11,22 +11,48 @@ Phases (each asserts; a failure exits non-zero and prints no result):
 1. Build: compiles csrc/*.cu for sm_90a (ptxas register/spill report) and
    prints the build seconds.
 2. Each kernel against its plain PyTorch version on the same CUDA tensors,
-   float32, at 256^3 with a WAAM mask (plate, two walls, a deposited
-   block), 256^3 with a random mask, and 97x203x131: max |delta| and the
-   CUDA-event median time of kernel and plain version.
+   float32: K1-K4 at 256^3 with a WAAM mask (plate, two walls, a deposited
+   block), 256^3 with a random mask, and 97x203x131; K5-K8 at the 256^3
+   WAAM mask and 97x203x131, T over 20-1500 C with cells exactly at the
+   solidus and liquidus, melt_pool_enhanced_k(54, 1420, 1470, 4) and
+   apparent_cp(490, 490, 2.7e5, 1420, 1470), emissivity 0.5, h 30.  Max
+   |delta|, the CUDA-event median time of kernel and plain version, and %
+   of 3.35 TB/s under each kernel's byte model.
 3. The full step at 512^3 float32 through make_cartesian_engine, kernels
    against reference after 3 steps, on three BC sets: plan-lite (scalar
    h: K4, K1, K2), __graft_entry__'s (scalar h + Neumann flux on z+: K3,
    K1 x3) and the same as per-face coefficient fields (K3, K1 x3).  After
    two warm-up steps each step is timed with CUDA events; prints the
    median ms/step and Gcell/s and checks each kernel's launch count.
+   Its variable-property part (run after phase 4): the 512^3 float32
+   varprop step on two BC sets (the tables + scalar h 30; the tables +
+   h 30 + emissivity 0.5): K5, K6, K7, K8 once per step and K1-K4 never.
+   Each of 3 steps starts the kernels and the reference from the
+   reference's state and is held to STEP_TOL, and so is the free-running
+   difference after 3 steps.  Kernel steps are timed as above.
 4. The WAAM app on a 160x40x40 mm STL box at 0.5 mm (~2.5 M cells), 20
    layers of 3 s, 4 frames, float32, with the kernels and again with the
    reference step: T finite, every solid voxel active at the end,
    Tmax <= --Ts, and the two runs agree.
+5. The WAAM app on phase 4's bar with --latent_J_kg 2.7e5
+   --melt_k_factor 4 --emissivity 0.5: float64 with the kernels and with
+   the reference step (T finite, the solid active, Tmax <= --Ts, agreement
+   within APP_TOL), then float32 with the kernels (T finite, the solid
+   active, Tmax <= --Ts), whose final field must differ from phase 4's
+   constant-property one by more than 1 K somewhere: the flags reach the
+   step.  Why float64 for the comparison: in float32 the apparent cp's
+   epsilon ramps are below one ulp at 1420 C, so cp jumps 12x at the
+   solidus, and two float32 runs that differ by round-off part at the
+   cells that cross it between them (measured on the H100: 0.564 K, 20
+   cells above 0.5 K, float32 kernels vs float32 reference after 1702
+   sub-steps).  The float32 kernels' distance from the float64 run is
+   printed.
 
-The line before the last is a JSON summary of the kernels (launches of the
-main-path runs of phases 3 and 4); the last line is
+Each main path is driven with the launch counts set to 0 just before it
+and read just after it: phases 3 (constant properties) and 4 for K1-K4,
+then phases 3 (variable properties) and 5 for K5-K8.  The line before the
+last is a JSON summary of the kernels (launches of those runs); the last
+line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import json
@@ -56,6 +82,7 @@ P3_N = 512
 P3_WARMUP, P3_STEPS = 2, 3
 P4_BOX_MM = (160.0, 40.0, 40.0)
 P4_DX_MM = 0.5
+P4_LAYERS, P4_LAYER_S = 20, 3.0      # 2 mm beads up the 40 mm height
 
 KERNEL_INFO = {
     "K1": ("sweep_strided", "csrc/sweeps.cu",
@@ -66,7 +93,21 @@ KERNEL_INFO = {
            "adi_thermal_fields_tpu/solvers/pallas_stencil.py:115"),
     "K4": ("fused_theta_sweep", "csrc/theta_sweep.cu",
            "adi_thermal_fields_tpu/solvers/pallas_theta_sweep.py:454"),
+    "K5": ("varprop_fields", "csrc/varprop_fields.cu",
+           "adi_thermal_fields_tpu/solvers/pallas_varprop.py:1274"),
+    "K6": ("varprop_theta_sweep", "csrc/varprop_sweeps.cu",
+           "adi_thermal_fields_tpu/solvers/pallas_varprop.py:1066"),
+    "K7": ("varprop_sweep_y", "csrc/varprop_sweeps.cu",
+           "adi_thermal_fields_tpu/solvers/pallas_varprop.py:718"),
+    "K8": ("vp2_sweep_z", "csrc/vp2_sweep.cu",
+           "adi_thermal_fields_tpu/solvers/pallas_vp2.py:402"),
 }
+CONST_KERNELS = ("K1", "K2", "K3", "K4")
+VP_KERNELS = ("K5", "K6", "K7", "K8")
+VP_SHAPES = (P2_SHAPES[0], P2_SHAPES[2])
+# the varprop physics of phases 2, 3 and 5 (steel, the JAX app's defaults)
+SOLIDUS, LIQUIDUS, LATENT = 1420.0, 1470.0, 2.7e5
+EMISSIVITY, H_CONV = 0.5, 30.0
 
 
 def fail(msg):
@@ -298,9 +339,8 @@ def phase3(torch, dev):
                 step_ms.append(start.elapsed_time(end))
             ms = statistics.median(step_ms)
             delta = {k: v - before[k] for k, v in launch_counts().items()}
-            want = ({k: (P3_WARMUP + P3_STEPS) * v
-                     for k, v in per_step.items()}
-                    if impl == "kernels" else {k: 0 for k in per_step})
+            want = {k: (P3_WARMUP + P3_STEPS) * per_step.get(k, 0)
+                    if impl == "kernels" else 0 for k in delta}
             check(delta == want, f"phase 3 {pname} {impl}: launches "
                   f"{delta} != expected {want}")
             check(bool(torch.isfinite(T).all()),
@@ -322,7 +362,10 @@ def phase3(torch, dev):
     return out
 
 
-def phase4(torch, dev):
+def app_phase(torch, dev, phase, extra, precision="float32",
+              impls=("kernels", "reference")):
+    """The WAAM app on the bar with each of ``impls``; ``extra``: flags
+    added to phase 4's.  With both implementations, they must agree."""
     from adi_thermal_fields_tpu_torch.apps import waam_from_stl as app
     from adi_thermal_fields_tpu_torch.geometry.primitives import box_mesh
     from adi_thermal_fields_tpu_torch.geometry.stl import save_stl_binary
@@ -333,10 +376,10 @@ def phase4(torch, dev):
     save_stl_binary(stl, box_mesh(size=P4_BOX_MM,
                                   center=tuple(v / 2 for v in P4_BOX_MM)))
     argv = ["--stl", stl, "--dx_mm", str(P4_DX_MM), "--nframes", "4",
-            "--layer_times_s", ",".join(["3"] * 20), "--precision",
-            "float32", "--device", str(dev)]
+            "--layer_times_s", ",".join([str(P4_LAYER_S)] * P4_LAYERS),
+            "--precision", precision, "--device", str(dev)] + extra
     runs = {}
-    for impl in ("kernels", "reference"):
+    for impl in impls:
         args = app.build_argparser().parse_args(
             argv + ["--implementation", impl])
         t0 = time.perf_counter()
@@ -346,11 +389,13 @@ def phase4(torch, dev):
         runs[impl] = (res, wall)
         T, active = res["T"], res["active"]
         tmax = float(T[active].max())
-        print(f"[phase 4] app {impl:9s}: grid {res['grid'].shape} "
+        print(f"[phase {phase}] app {precision} {impl:9s}: grid "
+              f"{res['grid'].shape} "
               f"({res['grid'].ncells / 1e6:.2f} M cells), "
               f"{len(res['layers'])} layers, {res['substeps']} sub-steps, "
               f"wall {wall:.2f} s, Tmax {tmax:.2f} C", flush=True)
-        check(len(res["layers"]) == 20, f"{len(res['layers'])} layers != 20")
+        check(len(res["layers"]) == P4_LAYERS,
+              f"{len(res['layers'])} layers != {P4_LAYERS}")
         check(bool(torch.isfinite(T).all()), f"app {impl}: non-finite T")
         check(tmax <= args.Ts, f"app {impl}: Tmax {tmax} > Ts {args.Ts}")
         check(all(m <= args.Ts for _, _, m in res["frames"]),
@@ -359,15 +404,234 @@ def phase4(torch, dev):
     for impl, (res, _) in runs.items():
         check(bool((res["active"].cpu().numpy() == solid).all()),
               f"app {impl}: the active set at the end is not the solid")
-    err = float((runs["kernels"][0]["T"]
-                 - runs["reference"][0]["T"]).abs().max())
-    print(f"[phase 4] max|T_kernels - T_reference| = {err:.3e} K",
+    if "reference" not in runs:
+        return dict(wall_kernels=runs["kernels"][1],
+                    T_kernels=runs["kernels"][0]["T"])
+    diff = (runs["kernels"][0]["T"] - runs["reference"][0]["T"]).abs()
+    err = float(diff.max())
+    print(f"[phase {phase}] max|T_kernels - T_reference| = {err:.3e} K "
+          f"({int((diff > APP_TOL).sum())} cells above {APP_TOL} K)",
           flush=True)
     check(err <= APP_TOL, f"app: kernels vs reference {err:.3e} K > "
           f"{APP_TOL} K")
     return dict(wall_kernels=runs["kernels"][1],
                 wall_reference=runs["reference"][1],
-                substeps=runs["kernels"][0]["substeps"], max_abs_err=err)
+                substeps=runs["kernels"][0]["substeps"], max_abs_err=err,
+                T_kernels=runs["kernels"][0]["T"])
+
+
+def varprop_tables():
+    """melt_pool_enhanced_k(54, 1420, 1470, 4), apparent_cp(490, 490,
+    2.7e5, 1420, 1470)."""
+    from adi_thermal_fields_tpu_torch import apparent_cp, melt_pool_enhanced_k
+    return (melt_pool_enhanced_k(54.0, SOLIDUS, LIQUIDUS, 4.0),
+            apparent_cp(490.0, 490.0, LATENT, SOLIDUS, LIQUIDUS))
+
+
+def mushy_field(torch, mask, seed):
+    """random_field with cells exactly at the solidus and the liquidus."""
+    T = random_field(torch, mask, seed)
+    flat = T.view(-1)
+    flat[::97] = SOLIDUS
+    flat[31::101] = LIQUIDUS
+    return T
+
+
+def vp_scalars(grid, mat, dt, theta=0.5):
+    """The float32 step scalars of adi_step_varprop_fused."""
+    import numpy as np
+    f = np.float32
+    dt_s = f(dt)
+    inv_d2 = [1.0 / (d * d) for d in grid.spacing]
+    return dict(
+        dt=float(dt_s), inv_d2=inv_d2, cw=float(f(1.0 - theta) * dt_s),
+        tg=[float(f(theta) * dt_s * f(iv)) for iv in inv_d2],
+        sk=[float(dt_s / f(d)) for d in grid.spacing],
+        glo=float(f(theta * inv_d2[2])), gs=float(f(1.0 / grid.dz)),
+        inv_dtor=float(f(1.0) / (dt_s / f(mat.rho))))
+
+
+def phase2_varprop(torch, dev):
+    """K5-K8 against their plain versions (float32)."""
+    from adi_thermal_fields_tpu_torch import CartesianGrid, Material
+    from adi_thermal_fields_tpu_torch.solvers import (
+        varprop_fields, varprop_fields_plain, varprop_sweep_y,
+        varprop_sweep_y_plain, varprop_theta_sweep,
+        varprop_theta_sweep_plain, vp2_sweep_z, vp2_sweep_z_plain)
+    from adi_thermal_fields_tpu_torch.step.cartesian_varprop import (
+        build_varprop_codes)
+
+    eps32 = torch.finfo(torch.float32).eps
+    mat = Material(7800.0, 490.0, 54.0)
+    kt, ct = varprop_tables()
+    rad = (EMISSIVITY, 20.0, H_CONV)
+    rows = []
+    for label, shape in VP_SHAPES:
+        grid = CartesianGrid(*shape, 0.5e-3)
+        sc = vp_scalars(grid, mat, 2.0 * grid.dx ** 2 / mat.alpha)
+        if label.endswith("waam"):
+            mask = waam_mask(torch, shape, dev)
+        else:
+            g = torch.Generator(device=dev).manual_seed(3)
+            mask = torch.rand(shape, generator=g, device=dev) > 0.25
+        T = mushy_field(torch, mask, seed=7)
+        R = random_field(torch, mask, seed=13)       # a chained rhs
+        m8 = mask.to(torch.uint8)
+        codes = build_varprop_codes(mask)
+        fc, w, h = varprop_fields_plain(T, m8, k_spec=kt, cp_spec=ct,
+                                        rho=mat.rho, rad=rad)
+        g = torch.Generator(device=dev).manual_seed(5)
+        src = torch.where(mask, 1e8 * torch.rand(shape, generator=g,
+                                                 device=dev), 0.0)
+        fk = dict(k_spec=kt, cp_spec=ct, rho=mat.rho)
+        th = (T, codes[0], *fc, w, sc["cw"], sc["inv_d2"], sc["tg"][0],
+              sc["sk"][0], 20.0)
+        hk = dict(h=h)
+        sk = dict(rob_c=H_CONV, src=src, dt=sc["dt"])
+        yk = (R, codes[1], fc[1], w, sc["tg"][1], sc["sk"][1], 20.0)
+        zk = (R, T, codes[2], sc["glo"], sc["gs"], sc["inv_dtor"])
+        zkw = dict(k_spec=kt, cp_spec=ct, h=H_CONV, t_inf=20.0,
+                   emissivity=EMISSIVITY)
+        variants = [
+            ("K5", "fields", 21,
+             lambda: varprop_fields(T, m8, **fk),
+             lambda: varprop_fields_plain(T, m8, **fk)),
+            ("K5", "fields + rad", 25,
+             lambda: varprop_fields(T, m8, rad=rad, **fk),
+             lambda: varprop_fields_plain(T, m8, rad=rad, **fk)),
+            ("K6", "theta + x, h stream", 29,
+             lambda: varprop_theta_sweep(*th, **hk),
+             lambda: varprop_theta_sweep_plain(*th, **hk)),
+            ("K6", "theta + x, rob_c + src", 29,
+             lambda: varprop_theta_sweep(*th, **sk),
+             lambda: varprop_theta_sweep_plain(*th, **sk)),
+            ("K7", "y, h stream", 21,
+             lambda: varprop_sweep_y(*yk, **hk),
+             lambda: varprop_sweep_y_plain(*yk, **hk)),
+            ("K7", "y, rob_c", 17,
+             lambda: varprop_sweep_y(*yk, rob_c=H_CONV),
+             lambda: varprop_sweep_y_plain(*yk, rob_c=H_CONV)),
+            ("K8", "z, rad", 13,
+             lambda: vp2_sweep_z(*zk, **zkw),
+             lambda: vp2_sweep_z_plain(*zk, **zkw)),
+        ]
+        cells = mask.numel()
+        for kname, vname, bpc, kern, plain in variants:
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            flat = (lambda o: [t for x in (o if isinstance(o, tuple)
+                                           else (o,))
+                               for t in (x if isinstance(x, tuple)
+                                         else (x,))])
+            err, ulps = 0.0, 0.0
+            for a, b in zip(flat(got), flat(want)):
+                check(bool(torch.isfinite(a).all()),
+                      f"{kname} {vname} {label}: non-finite output")
+                e = float((a - b).abs().max())
+                scale = float(b.abs().max())
+                err = max(err, e)
+                ulps = max(ulps, e / (eps32 * scale) if scale > 0 else 0.0)
+            ms = cuda_ms(torch, kern, 20)
+            plain_ms = cuda_ms(torch, plain, 3)
+            pct = 100.0 * cells * bpc / (ms * 1e-3) / HBM_BYTES_PER_S
+            rows.append(dict(kernel=kname, variant=vname, shape=label,
+                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bytes_per_cell=bpc, pct_hbm=pct))
+            print(f"[phase 2] {kname} {vname:32s} {label:18s} "
+                  f"max|d|={err:.3e} ({ulps:.2f} ulp of scale, tol "
+                  f"{KERNEL_TOL_ULP})  kernel {ms:8.3f} ms  plain "
+                  f"{plain_ms:9.3f} ms  {pct:5.1f}% of 3.35 TB/s at {bpc} "
+                  f"B/cell", flush=True)
+            check(ulps <= KERNEL_TOL_ULP, f"{kname} {vname} {label}: "
+                  f"{ulps:.2f} float32 ulp of the output's scale > "
+                  f"{KERNEL_TOL_ULP}")
+        del T, R, mask, fc, w, h, src
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase3_varprop(torch, dev):
+    """The 512^3 float32 varprop step, kernels against reference."""
+    from adi_thermal_fields_tpu_torch import CartesianGrid, Material
+    from adi_thermal_fields_tpu_torch.apps.engine import make_cartesian_engine
+    from adi_thermal_fields_tpu_torch.solvers import launch_counts
+
+    n = P3_N
+    grid = CartesianGrid(n, n, n, 0.5e-3)
+    mat = Material(7800.0, 490.0, 54.0)
+    dt = 2.0 * grid.dx ** 2 / mat.alpha
+    mask = waam_mask(torch, grid.shape, dev)
+    T0 = mushy_field(torch, mask, seed=11)
+    kt, ct = varprop_tables()
+    per_step = {**{k: 0 for k in CONST_KERNELS}, **{k: 1 for k in VP_KERNELS}}
+    plans = {"tables + h 30": dict(robin_h=H_CONV),
+             "tables + h 30 + eps 0.5": dict(robin_h=H_CONV,
+                                             emissivity=EMISSIVITY)}
+    out = {}
+    for pname, bcs in plans.items():
+        eng = {impl: make_cartesian_engine(
+            grid, mat, implementation=impl, device=dev, dtype=torch.float32,
+            theta=0.5, t_inf=20.0, k_table=kt, cp_table=ct, **bcs)
+            for impl in ("kernels", "reference")}
+        prep = {impl: e[0](mask) for impl, e in eng.items()}
+        adv_k, adv_r = eng["kernels"][1], eng["reference"][1]
+        before = launch_counts()
+        # each step: kernels and reference from the reference's state
+        T, errs, ref_ms = T0, [], []
+        for i in range(P3_STEPS):
+            Tk = adv_k(T, prep["kernels"], dt, 1, i * dt)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            Tr = adv_r(T, prep["reference"], dt, 1, i * dt)
+            end.record()
+            end.synchronize()
+            ref_ms.append(start.elapsed_time(end))
+            check(bool(torch.isfinite(Tk).all()) and
+                  bool(torch.isfinite(Tr).all()),
+                  f"phase 3 {pname}: non-finite T")
+            errs.append(float((Tk - Tr).abs().max()))
+            T = Tr
+            del Tk
+        # kernels alone: two warm-up steps, then 3 steps from T0 each timed
+        adv_k(T0, prep["kernels"], dt, P3_WARMUP, 0.0)
+        torch.cuda.synchronize()
+        Tf, step_ms = T0, []
+        for i in range(P3_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            Tf = adv_k(Tf, prep["kernels"], dt, 1, i * dt)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+        free = (Tf - T).abs()
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        want = {k: (2 * P3_STEPS + P3_WARMUP) * v for k, v in per_step.items()}
+        check(delta == want, f"phase 3 {pname}: launches {delta} != "
+              f"expected {want}")
+        ms, rms = statistics.median(step_ms), statistics.median(ref_ms)
+        print(f"[phase 3] {n}^3 f32 varprop {pname}: kernels {ms:9.3f} "
+              f"ms/step (median; steps "
+              f"{', '.join(f'{s:.3f}' for s in step_ms)})  "
+              f"{grid.ncells / (ms * 1e-3) / 1e9:7.3f} Gcell/s; reference "
+              f"{rms:9.3f} ms/step; launches {delta}", flush=True)
+        print(f"[phase 3] {pname}: max|T_kernels - T_reference| per step "
+              f"from the reference's state: "
+              f"{', '.join(f'{e:.3e}' for e in errs)} K; free-running "
+              f"after {P3_STEPS} steps {float(free.max()):.3e} K "
+              f"({int((free > STEP_TOL).sum())} cells above {STEP_TOL} K)",
+              flush=True)
+        check(max(errs) <= STEP_TOL, f"phase 3 {pname}: {max(errs):.3e} K "
+              f"> {STEP_TOL}")
+        check(float(free.max()) <= STEP_TOL, f"phase 3 {pname}: "
+              f"free-running {float(free.max()):.3e} K > {STEP_TOL}")
+        out[pname] = dict(ms_kernels=ms, ms_reference=rms,
+                          max_abs_err=max(errs),
+                          free_running_err=float(free.max()))
+        del T, Tf, Tr, free, prep, eng
+        torch.cuda.empty_cache()
+    return out
 
 
 def main():
@@ -378,19 +642,43 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     name, _ = phase0(torch)
     phase1()
-    rows = phase2(torch, dev)
+    rows = phase2(torch, dev) + phase2_varprop(torch, dev)
 
     from adi_thermal_fields_tpu_torch.solvers import (launch_counts,
                                                       reset_launch_counts)
-    reset_launch_counts()          # phase 2's comparison launches excluded
+    # each main path: counts set to 0 just before it, read just after it
+    # (phase 2's comparison launches are excluded)
+    reset_launch_counts()
     phase3(torch, dev)
-    phase4(torch, dev)
-    counts = launch_counts()
-    check(all(counts[k] > 0 for k in KERNEL_INFO),
-          f"a kernel of the main path never launched: {counts}")
+    p4 = app_phase(torch, dev, 4, [])
+    counts_c = launch_counts()
+    reset_launch_counts()
+    phase3_varprop(torch, dev)
+    vp_flags = ["--latent_J_kg", str(LATENT), "--melt_k_factor", "4",
+                "--emissivity", str(EMISSIVITY)]
+    p5 = app_phase(torch, dev, 5, vp_flags, precision="float64")
+    p5_32 = app_phase(torch, dev, 5, vp_flags, impls=("kernels",))
+    counts_v = launch_counts()
+    d32 = float((p5_32["T_kernels"].double() - p5["T_kernels"]).abs().max())
+    print(f"[phase 5] max|T_float32 - T_float64| (kernels) = {d32:.3e} K",
+          flush=True)
+    check(all(counts_c[k] > 0 for k in CONST_KERNELS)
+          and all(counts_c[k] == 0 for k in VP_KERNELS),
+          f"the constant-property path's launches: {counts_c}")
+    check(all(counts_v[k] > 0 for k in VP_KERNELS)
+          and all(counts_v[k] == 0 for k in CONST_KERNELS),
+          f"the variable-property path's launches: {counts_v}")
+    d45 = float((p5_32["T_kernels"] - p4["T_kernels"]).abs().max())
+    print(f"[phase 5] max|T_varprop - T_constant| = {d45:.3e} K", flush=True)
+    check(d45 > 1.0, "the varprop flags changed the app's field by "
+          f"{d45:.3e} K <= 1 K: they do not reach the step")
+    counts = {**{k: counts_c[k] for k in CONST_KERNELS},
+              **{k: counts_v[k] for k in VP_KERNELS}}
 
     main_variant = {"K1": "lite y", "K2": "lite z", "K3": "stencil",
-                    "K4": "stencil + lite x"}
+                    "K4": "stencil + lite x", "K5": "fields + rad",
+                    "K6": "theta + x, h stream", "K7": "y, h stream",
+                    "K8": "z, rad"}
     summary = []
     for k, (fn, src, replaces) in KERNEL_INFO.items():
         mine = [r for r in rows if r["kernel"] == k]

@@ -8,16 +8,23 @@ This file imports no jax, so it also runs on a machine without it:
 (``--noconftest``: the suite's conftest configures jax).  Tolerances at
 the inputs' scale (fields up to 1500 C after a solve): float64 1e-9 K,
 float32 2e-3 K (~16 ulp; division vs reciprocal-multiply and FMA
-contraction).  chip_smoke.py runs the same comparison at full size.
+contraction).  The variable-property kernels K5-K8 are held to the same
+bounds relative to each output's scale (face conductivities, 1/(rho cp)
+and films are not temperatures).  chip_smoke.py runs the same comparisons
+at full size.
 """
 import numpy as np
 import pytest
 import torch
 
+from adi_thermal_fields_tpu_torch import apparent_cp, melt_pool_enhanced_k
 from adi_thermal_fields_tpu_torch.solvers import (
-    fused_theta_sweep, fused_theta_sweep_plain, launch_counts,
-    reset_launch_counts, sweep_code, sweep_strided, sweep_strided_plain,
-    sweep_z, sweep_z_plain, theta_rhs, theta_rhs_plain)
+    build_vp2_code, fused_theta_sweep, fused_theta_sweep_plain,
+    launch_counts, reset_launch_counts, sweep_code, sweep_strided,
+    sweep_strided_plain, sweep_z, sweep_z_plain, theta_rhs, theta_rhs_plain,
+    varprop_fields, varprop_fields_plain, varprop_sweep_y,
+    varprop_sweep_y_plain, varprop_theta_sweep, varprop_theta_sweep_plain,
+    vp2_sweep_z, vp2_sweep_z_plain)
 
 TG, DT, TINF, ROB = 0.21, 0.05, 20.0, 0.0031
 C_EXP, INV = 3.5e-7, (1.0e6, 1.1e6, 0.9e6)
@@ -71,4 +78,67 @@ def test_kernels_match_plain_on_card(dtype, tol):
     for got, want in pairs:
         assert got.is_cuda and got.dtype == dtype
         assert float((got - want).abs().max()) <= tol
-    assert launch_counts() == {"K1": 4, "K2": 1, "K3": 1, "K4": 1}
+    assert launch_counts() == {"K1": 4, "K2": 1, "K3": 1, "K4": 1, "K5": 0,
+                               "K6": 0, "K7": 0, "K8": 0}
+
+
+def _flat(out):
+    return [t for x in (out if isinstance(out, tuple) else (out,))
+            for t in (x if isinstance(x, tuple) else (x,))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float64, 1e-12),
+                                       (torch.float32, 8 * 2.0 ** -23)],
+                         ids=["f64", "f32"])
+def test_varprop_kernels_match_plain_on_card(dtype, rel):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(19)
+    shape = (37, 45, 70)               # uneven: partial blocks and tiles
+    mask_np = rng.random(shape) > 0.25
+    mask = torch.from_numpy(mask_np).to(dev)
+    cast = (lambda a: torch.from_numpy(a).to(dev, dtype))
+    T = cast(np.where(mask_np, 20.0 + 1580.0 * rng.random(shape), 20.0))
+    T.view(-1)[::7] = 1420.0
+    T.view(-1)[3::11] = 1470.0
+    R = cast(np.where(mask_np, 20.0 + 1480.0 * rng.random(shape), 20.0))
+    src = cast(rng.random(shape) * 1e6)
+    kt = melt_pool_enhanced_k(54.0, 1420.0, 1470.0, 4.0)
+    ct = apparent_cp(490.0, 520.0, 2.7e5, 1420.0, 1470.0)
+    m8 = mask.to(torch.uint8)
+    rad = (0.5, 20.0, 30.0)
+    fk = dict(k_spec=kt, cp_spec=ct, rho=7800.0)
+    fc, w, h = varprop_fields_plain(T, m8, rad=rad, **fk)
+    code0 = sweep_code(mask, None, 0)
+    code1 = sweep_code(mask, None, 1).movedim(0, 1).contiguous()
+    code2 = build_vp2_code(mask, 2, edge_exposed=True)
+    # dt 0.035 s on 0.5 mm voxels: cw, 1/d^2, theta*dt/d^2, dt/d
+    th = (T, code0, *fc, w, 0.0175, 4e6, 7e4, 70.0, TINF)
+    yk = (R, code1, fc[1], w, 7e4, 70.0, TINF)
+    zk = (R, T, code2, 2e6, 2e3, 2.2e5)
+    zkw = dict(k_spec=kt, cp_spec=ct, h=15.0, t_inf=TINF, emissivity=0.5)
+
+    reset_launch_counts()
+    pairs = [
+        (varprop_fields(T, m8, **fk), varprop_fields_plain(T, m8, **fk)),
+        (varprop_fields(T, m8, rad=rad, **fk),
+         varprop_fields_plain(T, m8, rad=rad, **fk)),
+        (varprop_theta_sweep(*th, h=h), varprop_theta_sweep_plain(*th, h=h)),
+        (varprop_theta_sweep(*th, rob_c=30.0, src=src, dt=DT),
+         varprop_theta_sweep_plain(*th, rob_c=30.0, src=src, dt=DT)),
+        (varprop_sweep_y(*yk, h=h), varprop_sweep_y_plain(*yk, h=h)),
+        (varprop_sweep_y(*yk, rob_c=30.0),
+         varprop_sweep_y_plain(*yk, rob_c=30.0)),
+        (vp2_sweep_z(*zk, **zkw), vp2_sweep_z_plain(*zk, **zkw)),
+        (vp2_sweep_z(*zk, **{**zkw, "emissivity": 0.0}),
+         vp2_sweep_z_plain(*zk, **{**zkw, "emissivity": 0.0})),
+    ]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        for a, b in zip(_flat(got), _flat(want)):
+            assert a.is_cuda and a.dtype == dtype
+            assert float((a - b).abs().max()) <= rel * float(b.abs().max())
+    assert launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 2,
+                               "K6": 2, "K7": 2, "K8": 2}

@@ -7,7 +7,8 @@
 * the port imports no jax (checked in a fresh interpreter);
 * the kernel wrappers are forward only: they raise on inputs that require
   grad;
-* flags the port does not support yet exit with a message naming them.
+* flags the port does not support yet exit with a message naming them
+  (the variable-property flags are supported: tests/test_torch_varprop.py).
 """
 import os
 import subprocess
@@ -76,6 +77,11 @@ def test_port_imports_no_jax():
             "import adi_thermal_fields_tpu_torch\n"
             "import adi_thermal_fields_tpu_torch.apps.waam_from_stl\n"
             "import adi_thermal_fields_tpu_torch.convert\n"
+            "import adi_thermal_fields_tpu_torch.bc.radiation\n"
+            "import adi_thermal_fields_tpu_torch.solvers.varprop\n"
+            "import adi_thermal_fields_tpu_torch.solvers.vp2\n"
+            "import adi_thermal_fields_tpu_torch.step.cartesian_varprop\n"
+            "import adi_thermal_fields_tpu_torch.apps.engine\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax',\n"
             "                                    'adi_thermal_fields_tpu'))\n"
@@ -101,17 +107,23 @@ def test_kernel_wrappers_refuse_inputs_that_require_grad():
             call()
 
 
+# the varprop flags run now; combined with a flag the port lacks they still
+# exit, naming only that flag
 @pytest.mark.parametrize("flag", [
-    ["--corrected_bc", "1"], ["--emissivity", "0.4"],
-    ["--latent_J_kg", "2.7e5"], ["--melt_k_factor", "3"], ["--mesh", "2x2"],
+    ["--corrected_bc", "1"], ["--emissivity", "0.4", "--corrected_bc", "1"],
+    ["--latent_J_kg", "2.7e5", "--precision", "bfloat16"],
+    ["--melt_k_factor", "3", "--history_t_crit", "800"], ["--mesh", "2x2"],
     ["--checkpoint", "ck.npz"], ["--resume", "ck.npz"], ["--save_vtk", "1"],
     ["--history_t_crit", "800"], ["--interpass_T", "200"],
     ["--precision", "bfloat16"]])
 def test_unsupported_flags_exit_with_a_message(box_stl, flag):
     args = port_app.build_argparser().parse_args(
         _argv(box_stl)[:-4] + ["--device", "cpu"] + flag)
-    with pytest.raises(SystemExit, match="not supported by the PyTorch port"):
+    with pytest.raises(SystemExit, match="not supported by the PyTorch port"
+                       ) as exc:
         port_app.run(args)
+    for ported in ("--emissivity", "--latent_J_kg", "--melt_k_factor"):
+        assert ported not in str(exc.value)
 
 
 def test_run_refuses_cuda_when_absent(box_stl):
