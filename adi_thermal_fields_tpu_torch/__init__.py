@@ -5,10 +5,11 @@ This package imports torch and numpy, never jax.  Its modules mirror the
 JAX package's paths; each docstring names its counterpart.  The slices
 ported so far are the Cartesian WAAM path: voxelized STL parts, element
 birth, constant properties, scalar or field Robin h, Neumann flux and
-Dirichlet pins; and its variable-property step: k(T) and cp(T) tables
+Dirichlet pins; its variable-property step: k(T) and cp(T) tables
 (latent heat, melt-pool conductivity) and the radiative film with scalar
-convective h.  Both run the masked theta-scheme ADI on CUDA kernels
-written by hand for the H100 (csrc/):
+convective h; and the cylindrical spiral-tube path: the masked-Robin
+(r, phi, z) backward-Euler step with element birth by a spiral schedule.
+They run on CUDA kernels written by hand for the H100 (csrc/):
 
 * K1 ``solvers.sweeps.sweep_strided`` — masked sweep along x or y;
 * K2 ``solvers.sweeps.sweep_z`` — plan-lite sweep along contiguous z;
@@ -21,7 +22,12 @@ written by hand for the H100 (csrc/):
   fused into the x-sweep;
 * K7 ``solvers.varprop.varprop_sweep_y`` — the varprop y-sweep;
 * K8 ``solvers.vp2.vp2_sweep_z`` — the tier-2 z-sweep deriving k, cp
-  and films from T.
+  and films from T;
+* K9 ``solvers.masked.masked_sweep_strided`` — the masked-Robin r sweep;
+* K10 ``solvers.masked.masked_sweep_z`` — the masked-Robin sweep along
+  contiguous z;
+* K11 ``solvers.masked.masked_cyclic_phi`` — the mask-broken periodic phi
+  sweep.
 
 Each kernel wrapper runs its plain PyTorch version on CPU tensors and the
 kernel on CUDA tensors (built from csrc/*.cu at first use).
@@ -29,7 +35,7 @@ kernel on CUDA tensors (built from csrc/*.cu at first use).
 
 from .bc.faces import FACES, exposed_face, exposed_faces
 from .bc.packs import CoeffPacks, build_coeff_packs
-from .core.grid import CartesianGrid
+from .core.grid import CartesianGrid, CylindricalGrid
 from .core.material import Material
 from .step.cartesian import adi_step as adi_step_cartesian
 from .step.cartesian_fused import SweepPlan, adi_step_fused, build_sweep_plan
@@ -37,6 +43,10 @@ from .step.cartesian_varprop import (PropertyTable, adi_step_varprop,
                                      adi_step_varprop_fused, apparent_cp,
                                      build_varprop_codes,
                                      melt_pool_enhanced_k)
+from .step.cylindrical import RobinBC, ZFaceBC
+from .step.cylindrical_masked import (MaskedRobinPlan, adi_step_masked_robin,
+                                      build_masked_robin_plan,
+                                      masked_robin_solve)
 from .bc.radiation import STEFAN_BOLTZMANN, radiative_h
 
 __version__ = "0.1.0"
@@ -47,4 +57,6 @@ __all__ = ["CartesianGrid", "Material", "FACES", "exposed_face",
            "adi_step_fused", "PropertyTable", "apparent_cp",
            "melt_pool_enhanced_k", "adi_step_varprop",
            "adi_step_varprop_fused", "build_varprop_codes",
-           "STEFAN_BOLTZMANN", "radiative_h"]
+           "STEFAN_BOLTZMANN", "radiative_h", "CylindricalGrid", "RobinBC",
+           "ZFaceBC", "MaskedRobinPlan", "build_masked_robin_plan",
+           "masked_robin_solve", "adi_step_masked_robin"]

@@ -1,1 +1,1 @@
-"""Engine and CLI apps (the WAAM flagship)."""
+"""Engine and CLI apps (the WAAM flagship and the spiral tube)."""

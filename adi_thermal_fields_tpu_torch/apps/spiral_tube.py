@@ -1,0 +1,308 @@
+"""Spiral/ring WAAM tube deposition on a cylindrical grid (CLI app),
+PyTorch port.
+
+Counterpart: ``adi_thermal_fields_tpu/apps/spiral_tube.py`` —
+``build_argparser`` (:30, the same flags and defaults) and ``run`` (:131)
+in its default configuration: one device, ``--void_mode robin``,
+``--scheme be``, constant properties, optionally the moving Gaussian torch
+(``--torch_Q``/``--torch_sigma``).  The nozzle sweeps arcs layer by layer,
+activating (phi, z) columns of an annular wall from a float64
+activation-time table kept on the host (birth/spiral.py); each fixed step
+runs the masked-Robin cylindrical step (step/cylindrical_masked.py) on K9,
+K11 and K10.  The step's plan depends only on the active mask, so it is
+rebuilt only on steps in which a column is born, which the host knows from
+the activation times without a device sync; the host syncs with the
+device only at frames.
+
+Example (on a CUDA machine):
+    python -m adi_thermal_fields_tpu_torch.apps.spiral_tube --R_out 32 \\
+        --wall_thickness 2 --height 8 --z_back 20 --pitch 4 --out ""
+
+``--device`` defaults to ``cuda`` and the run raises when CUDA is absent;
+``--device cpu`` runs the kernels' plain versions.  ``--implementation
+reference`` runs the plain step.  Flags of the JAX app that this port does
+not support yet exit with a message naming what they need.  A non-empty
+``--out`` writes a GIF and needs matplotlib and imageio.
+"""
+from __future__ import annotations
+
+import argparse
+import math
+
+import numpy as np
+import torch
+
+__all__ = ["build_argparser", "run", "main"]
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="WAAM tube: spiral/ring deposition, masked cylindrical "
+                    "ADI (PyTorch port)")
+    # geometry [mm]
+    p.add_argument("--R_out", type=float, required=True)
+    p.add_argument("--wall_thickness", type=float, required=True)
+    p.add_argument("--height", type=float, required=True)
+    p.add_argument("--z_back", type=float, required=True)
+    p.add_argument("--nr", type=int, default=8)
+    p.add_argument("--nphi", type=int, default=36)
+    p.add_argument("--dz", type=float, default=None,
+                   help="override dz [mm] (default dr)")
+    # material
+    p.add_argument("--rho", type=float, default=7800.0)
+    p.add_argument("--cp", type=float, default=490.0)
+    p.add_argument("--k", type=float, default=54.0)
+    # BCs
+    p.add_argument("--h_side", type=float, default=300.0)
+    p.add_argument("--h_end", type=float, default=150.0)
+    p.add_argument("--h_void", type=float, default=None)
+    p.add_argument("--T_inf", type=float, default=20.0)
+    p.add_argument("--Ts", type=float, default=1000.0)
+    p.add_argument("--void_mode", choices=["robin", "clamp"], default="robin")
+    # time / kinematics
+    p.add_argument("--t_tot", type=float, default=30.0)
+    p.add_argument("--dt_fixed", type=float, default=0.05)
+    p.add_argument("--pitch", type=float, required=True,
+                   help="vertical distance per full turn [mm]")
+    p.add_argument("--speed", type=float, default=None,
+                   help="tangential speed [mm/s]")
+    p.add_argument("--auto_speed", action="store_true",
+                   help="choose speed so all layers fit in t_tot")
+    p.add_argument("--loops_per_layer", type=int, default=1)
+    p.add_argument("--layer_cells_z", type=int, default=None,
+                   help="layer thickness in z cells (default: derived from "
+                        "pitch)")
+    # output
+    p.add_argument("--nframes", type=int, default=30)
+    p.add_argument("--out", type=str, default="spiral_tube.gif")
+    p.add_argument("--iphi_slice", type=int, default=0)
+    p.add_argument("--precision", choices=["float32", "float64"],
+                   default="float32")
+    p.add_argument("--scheme", choices=["be", "douglas"], default="be")
+    # variable-property physics and the other JAX-app flags: parsed so
+    # that they exit with a message
+    p.add_argument("--latent_J_kg", type=float, default=0.0)
+    p.add_argument("--solidus_C", type=float, default=1420.0)
+    p.add_argument("--liquidus_C", type=float, default=1510.0)
+    p.add_argument("--melt_k_factor", type=float, default=1.0)
+    p.add_argument("--emissivity", type=float, default=0.0)
+    p.add_argument("--torch_Q", type=float, default=0.0,
+                   help="moving torch power [W]: a Gaussian volumetric "
+                        "source of width --torch_sigma centred on the "
+                        "nozzle, normalized so its domain integral is Q")
+    p.add_argument("--torch_sigma", type=float, default=3.0,
+                   help="torch Gaussian sigma [mm]")
+    p.add_argument("--history_t_crit", type=str, default=None)
+    p.add_argument("--history_out", type=str, default="spiral_history.npz")
+    p.add_argument("--mesh", type=str, default="")
+    p.add_argument("--vtk", type=str, default="")
+    p.add_argument("--checkpoint", type=str, default="")
+    p.add_argument("--resume", type=str, default="")
+    # the port's own
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; the run raises when CUDA is absent")
+    p.add_argument("--implementation", choices=["kernels", "reference"],
+                   default="kernels",
+                   help="kernels: K9-K11 on CUDA, plain versions on CPU; "
+                        "reference: the plain step")
+    return p
+
+
+def _reject_unsupported(args) -> None:
+    """Exit with a message for flags this port does not support yet."""
+    rows_9_12 = ("the unmasked cylindrical step (TPU kernel rows 9-12, "
+                 "fused_sweep_const and the fused_cyclic_const family)")
+    varprop = ("the cylindrical variable-property step (TPU kernel rows "
+               "22 solve-leading to 26)")
+    bad = [f"{name}: needs {need}" for name, on, need in (
+        ("--void_mode clamp", args.void_mode != "robin", rows_9_12),
+        ("--scheme douglas", args.scheme != "be", rows_9_12),
+        ("--latent_J_kg", args.latent_J_kg > 0.0, varprop),
+        ("--melt_k_factor", args.melt_k_factor != 1.0, varprop),
+        ("--emissivity", args.emissivity > 0.0, varprop),
+        ("--mesh", bool(args.mesh), "the multi-device layer"),
+        ("--history_t_crit", args.history_t_crit is not None,
+         "the thermal-history tracker"),
+        ("--vtk", bool(args.vtk), "the VTK writer"),
+        ("--checkpoint", bool(args.checkpoint), "checkpoint I/O"),
+        ("--resume", bool(args.resume), "checkpoint I/O")) if on]
+    if bad:
+        raise SystemExit("not supported by the PyTorch port yet: "
+                         + "; ".join(bad)
+                         + " (the JAX package's app runs them)")
+
+
+def run(args) -> dict:
+    from ..birth.spiral import (active_at, newborn_between,
+                                spiral_activation_times)
+    from ..core.grid import CylindricalGrid
+    from ..core.material import Material
+    from ..io.logging import log
+    from ..step.cylindrical import RobinBC, ZFaceBC
+    from ..step.cylindrical_masked import (build_masked_robin_plan,
+                                           masked_robin_solve)
+
+    _reject_unsupported(args)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available on this machine; pass "
+                           "--device cpu to run the plain versions")
+
+    mm = 1e-3
+    R_out = args.R_out * mm
+    wall = args.wall_thickness * mm
+    R_in = max(0.0, R_out - wall)
+    dr = wall / args.nr
+    dz = (args.dz * mm) if args.dz else dr
+    nz = int(round((args.z_back * mm + args.height * mm) / dz))
+    grid = CylindricalGrid(args.nr, args.nphi, nz, dr, dz, r_inner=R_in)
+    mat = Material(args.rho, args.cp, args.k)
+    iz_base = int(round(args.z_back * mm / dz))
+    # layer thickness: explicit cells, else derived from pitch (vertical
+    # distance per full turn; layer_height = pitch / loops_per_layer)
+    if args.layer_cells_z is not None:
+        layer_cells = max(1, args.layer_cells_z)
+    else:
+        layer_cells = max(1, int(round(args.pitch * mm
+                                       / (dz * args.loops_per_layer))))
+    layer_h = layer_cells * dz
+    n_layers = max(1, int(round(args.height * mm / layer_h)))
+
+    # kinematics: time per loop from tangential speed at the wall mid-radius
+    r_mid = R_in + 0.5 * wall
+    if args.auto_speed or args.speed is None:
+        tau_loop = args.t_tot / (n_layers * args.loops_per_layer)
+    else:
+        tau_loop = 2 * math.pi * r_mid / (args.speed * mm)
+    log(f"grid (nr,nphi,nz)=({grid.nr},{grid.nphi},{grid.nz}), "
+        f"R_in={R_in*1e3:.3g} mm, {n_layers} layers, "
+        f"tau_loop={tau_loop:.3f} s", tag="spiral")
+
+    # float64 on the host: the births are decided there, with the same
+    # float clock as the JAX app
+    act = spiral_activation_times(
+        grid, iz_base=iz_base, layer_cells=layer_cells, n_layers=n_layers,
+        tau_dep=tau_loop * args.loops_per_layer,
+        loops_per_layer=args.loops_per_layer)
+
+    h_void = args.h_void if args.h_void is not None else args.h_side
+    rob = RobinBC(args.h_side, args.T_inf)
+    zbc = ZFaceBC(kind_bot="neumann0", kind_top="robin", h_top=args.h_end,
+                  T_inf_top=args.T_inf)
+    dtype = {"float32": torch.float32, "float64": torch.float64}[
+        args.precision]
+
+    def plan_of(active2d):
+        a3 = torch.from_numpy(active2d).to(device)[None].expand(grid.shape)
+        a3 = a3.contiguous()
+        return build_masked_robin_plan(
+            grid, mat, a3, robin_outer=rob, zbc=zbc, robin_inner=rob,
+            h_void=h_void, T_inf_void=args.T_inf, h_front=args.h_end,
+            dtype=dtype)
+
+    # moving torch: Gaussian volumetric source [W/m^3] centred on the
+    # nozzle, its position from the same kinematics as the activation
+    # times (layer L, loop fraction t/tau_loop)
+    torch_source = None
+    if args.torch_Q > 0.0:
+        log(f"torch: Q={args.torch_Q:g} W, sigma={args.torch_sigma:g} mm",
+            tag="torch")
+        r_np = np.asarray(grid.r)
+        vol = torch.as_tensor(r_np * grid.dr * grid.dphi * grid.dz,
+                              device=device).to(dtype)[:, None, None]
+        phis = torch.as_tensor(grid.dphi * np.arange(grid.nphi),
+                               device=device).to(dtype)
+        zs = torch.as_tensor(grid.dz * (np.arange(grid.nz) + 0.5),
+                             device=device).to(dtype)
+        sig = args.torch_sigma * mm
+        tau_layer = tau_loop * args.loops_per_layer
+
+        def torch_source(t, active3d):
+            frac = (t / tau_loop) % 1.0
+            phi_n = 2.0 * math.pi * frac
+            lay = min(max(math.floor(t / tau_layer), 0), n_layers - 1)
+            z_n = (iz_base + (lay + 1.0) * layer_cells - 0.5) * grid.dz
+            dphi_w = torch.abs(((phis - phi_n) + math.pi) % (2 * math.pi)
+                               - math.pi)
+            arc2 = (r_mid * dphi_w) ** 2                  # (nphi,)
+            dz2 = (zs - z_n) ** 2                         # (nz,)
+            G = torch.exp(-(arc2[:, None] + dz2[None, :])
+                          / (2.0 * sig * sig))
+            G3 = G[None] * active3d
+            norm = torch.sum(G3 * vol) + 1e-30
+            return (args.torch_Q / norm) * G3
+
+    T = torch.full(grid.shape, args.T_inf, dtype=dtype, device=device)
+    dt = args.dt_fixed
+    n_steps = int(round(args.t_tot / dt))
+    frame_every = max(1, n_steps // max(1, args.nframes))
+
+    frames = []
+    plan = None
+    plans_built = 0
+    t = 0.0
+    for i in range(n_steps):
+        t_next = t + dt
+        newborn = newborn_between(act, t, t_next)
+        born = bool(newborn.any())
+        if born or plan is None:
+            if born:
+                nb = torch.from_numpy(newborn).to(device)[None]
+                T = T.masked_fill(nb, args.Ts)
+            active = active_at(act, t_next)
+            plan = plan_of(active)
+            plans_built += 1
+        src = None
+        if torch_source is not None:
+            src = torch_source(t + 0.5 * dt, plan.active)
+        T = masked_robin_solve(T, plan, grid, mat, dt=dt, source=src,
+                               implementation=args.implementation)
+        t = t_next
+        if (i + 1) % frame_every == 0 or i == n_steps - 1:
+            a_np = np.broadcast_to(active[None], grid.shape)
+            T_np = T.cpu().numpy()
+            tmax = float(np.nanmax(np.where(a_np, T_np, np.nan)))
+            log(f"t={t:8.3f} s  Tmax={tmax:8.1f}", tag="frame")
+            frames.append((t, T_np, a_np.copy()))
+
+    out = {"T": T, "frames": frames, "grid": grid, "t": t,
+           "active": active_at(act, t), "activation_times": act,
+           "steps": n_steps, "plans_built": plans_built}
+    if args.out and frames:
+        _save_gif(args.out, frames, grid, args)
+        log(f"saved {args.out}", tag="gif")
+    return out
+
+
+def _save_gif(path, frames, grid, args):
+    import matplotlib
+    matplotlib.use("Agg")
+    import imageio.v2 as imageio
+    import matplotlib.pyplot as plt
+
+    images = []
+    vmax = max(np.nanmax(np.where(a, T, np.nan)) for _, T, a in frames)
+    ir = grid.nr - 1  # outer surface view
+    for t, T, a in frames:
+        fig, ax = plt.subplots(figsize=(6.4, 3.6))
+        sl = np.where(a[ir], T[ir], np.nan)   # (nphi, nz)
+        im = ax.imshow(sl.T, origin="lower", aspect="auto",
+                       vmin=args.T_inf, vmax=vmax, cmap="inferno",
+                       extent=[0, 360, 0, grid.nz * grid.dz * 1e3])
+        ax.set_xlabel("phi, deg")
+        ax.set_ylabel("z, mm")
+        ax.set_title(f"outer surface T, t = {t:.2f} s")
+        fig.colorbar(im, ax=ax, label="T, C")
+        fig.tight_layout()
+        fig.canvas.draw()
+        images.append(np.asarray(fig.canvas.buffer_rgba())[:, :, :3].copy())
+        plt.close(fig)
+    imageio.mimsave(path, images, fps=8)
+
+
+def main(argv=None):
+    run(build_argparser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

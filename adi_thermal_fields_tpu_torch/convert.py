@@ -18,7 +18,11 @@ tensors on a chosen device:
 * ``vp2_code_from_numpy(code)``: a JAX ``build_vp2_code`` code as the
   port's uint8 code (its bits stay below 32, so the values are kept), in
   the natural layout K8 reads — ``zxy=True`` undoes the (z, x, y) layout
-  the JAX Cartesian step gives its z code.
+  the JAX Cartesian step gives its z code;
+* ``masked_plan_from_jax(plan)``: step/cylindrical_masked.MaskedRobinPlan
+  from the ``compressed`` inputs of a JAX ``MaskedRobinPlan``: int8 codes
+  as uint8, the z code, sink and srhs moved from the JAX (z, r, phi)
+  layout to the natural (r, phi, z) layout, the geometry as tensors.
 """
 from __future__ import annotations
 
@@ -28,9 +32,11 @@ import torch
 from .bc.packs import CoeffPacks
 from .step.cartesian_fused import SweepPlan
 from .step.cartesian_varprop import PropertyTable
+from .step.cylindrical_masked import MaskedRobinPlan
 
 __all__ = ["field_from_numpy", "packs_from_numpy", "plan_from_numpy",
-           "property_table_from_jax", "vp2_code_from_numpy"]
+           "property_table_from_jax", "vp2_code_from_numpy",
+           "masked_plan_from_jax"]
 
 
 def field_from_numpy(T, *, device, dtype: torch.dtype | None = None
@@ -104,3 +110,26 @@ def vp2_code_from_numpy(code, *, device, zxy: bool = False) -> torch.Tensor:
     if t.numel() and int(t.max()) >= 32:
         raise ValueError("a vp2 code uses bits 1-16 only")
     return t.permute(1, 2, 0).contiguous() if zxy else t
+
+
+def masked_plan_from_jax(plan, *, device="cpu") -> MaskedRobinPlan:
+    """The port's masked-Robin plan from a JAX ``MaskedRobinPlan`` (its
+    ``active``, ``ambient`` and ``compressed`` fields, read as numpy)."""
+    comp_r, comp_phi, comp_z = plan.compressed
+
+    def sweep(comp, zfirst=False):
+        code, *fields = comp
+        code = _codes_from_numpy(np.asarray(code), device=device)
+        fields = [field_from_numpy(np.asarray(f), device=device)
+                  for f in fields]
+        if zfirst:      # (z, r, phi) -> (r, phi, z)
+            code = code.permute(1, 2, 0).contiguous()
+            fields[:2] = [f.permute(1, 2, 0).contiguous()
+                          for f in fields[:2]]
+        return (code, *fields)
+
+    return MaskedRobinPlan(
+        field_from_numpy(np.asarray(plan.active, bool), device=device),
+        float(np.asarray(plan.ambient)), sweep(comp_r),
+        None if comp_phi is None else sweep(comp_phi),
+        sweep(comp_z, zfirst=True))

@@ -1,5 +1,5 @@
-"""Static metadata: grid and material (numpy-only copies)."""
-from .grid import CartesianGrid
+"""Static metadata: grids and material (numpy-only copies)."""
+from .grid import CartesianGrid, CylindricalGrid
 from .material import Material
 
-__all__ = ["CartesianGrid", "Material"]
+__all__ = ["CartesianGrid", "CylindricalGrid", "Material"]

@@ -1,0 +1,403 @@
+// K9, K10 and K11: the masked-Robin sweeps of the cylindrical step.
+//
+// K9 replaces adi_thermal_fields_tpu/solvers/pallas_fields.py
+//    fused_masked_sweep (:655) in its solve-leading forms (the pipelined
+//    body _masked_sweep_pipe_kernel :520, call site :744, and the streaming
+//    body _masked_sweep_kernel :373, which compute the same thing): the
+//    solve along axis 0 of a C-contiguous (n, B) field -- r of the natural
+//    (r, phi, z) field, B = nphi*nz.
+// K10 replaces fused_masked_sweep with nat_rhs_out=True (call site :802,
+//    body :373 with the in-kernel relayout :447-451, :507-513): the same
+//    rows along the CONTIGUOUS last axis of the natural field (z).  Unlike
+//    the JAX z sweep, K10 also reads code, sink and srhs in the natural
+//    layout, so the cylindrical step transposes nothing.
+// K11 replaces fused_masked_cyclic_axis1 (:977, call site :1005, body
+//    _masked_cyclic_axis1_kernel :820): the mask-broken PERIODIC solve
+//    along axis 1 of a (B1, n, B2) field -- phi of the natural field.
+//
+// Row i of every sweep, from the code byte (bits 1/2 = coupling to i-1/i+1,
+// 4 = pinned row, 8 = in-mask), the per-cell Robin sink and srhs (sink*T_inf
+// on live rows, the pin value on pinned rows) and the per-row geometry
+// glo/ghi (K11: one geo per system, glo = ghi = geo):
+//   a = -fac*glo*low, c = -fac*ghi*high, b = 1 + fac*(glo*low + ghi*high
+//   + sink), d = pin ? srhs : (inmask ? rhs + fac*srhs : ambient)
+// (the in-kernel prefold; void and pinned rows are identity rows).  K11's
+// wrap couplings enter by Sherman-Morrison as in the JAX kernel
+// (:903-910, :955-968): gamma = -b_0, beta = a_0 and alpha = c_{n-1} are
+// taken out of the matrix, b_0 -= gamma, b_{n-1} -= alpha*beta/gamma, and
+// one forward pass solves B y = d and B z = u (u = gamma e_0 + alpha
+// e_{n-1}); then x = y - z*(y_0 + beta*y_{n-1}/gamma)/(1 + z_0 +
+// beta*z_{n-1}/gamma).
+//
+// Rounding: each kernel repeats its plain version's operations (the row
+// formulas of solvers/masked.py, then thomas / cyclic_thomas: divisions,
+// not reciprocal multiplies) one IEEE rounding at a time, with the _rn
+// intrinsics, which nvcc never contracts into an FMA.  The phi systems
+// near the axis of a full disk are stiff (fac*geo reaches ~500 at 0.5 mm
+// cells), so the solve amplifies a difference of one rounding by the
+// condition number (~4*fac*geo): on the H100 the first version of these
+// kernels (b formed as 1 + fac*(al + ch + sink), reciprocal multiplies)
+// parted from the plain versions by 26 float32 ulp on a 37x45x70 full
+// disk.
+//
+// What bounds them on the H100: memory.  The byte model (float32) reads
+// rhs 4 + code 1 + sink 4 + srhs 4 and writes x 4 = 17 B/cell per sweep.
+//   K9:  one thread per (phi, z) pencil; adjacent threads read adjacent
+//        addresses, so every row load is coalesced.  c' lives in the output
+//        and d' in a scratch field (K1's design): +16 B/cell of global
+//        round trip.  glo[i]/ghi[i] are the same for every thread of a row
+//        (broadcast loads through the read-only cache).
+//   K10: one thread per pencil would read z rows with a stride of n.  As in
+//        K2 and K8, a block of one warp owns 32 pencils and stages [32
+//        pencils x 32 rows] tiles of rhs, sink, srhs and code through shared
+//        memory with coalesced loads (lane = row), then each lane runs its
+//        pencil's recurrence from the tiles (lane = pencil; padded pitch,
+//        conflict-free).  c' and d' go to global scratch through the same
+//        tiles.
+//   K11: one thread per (r, z) pencil, coalesced over z.  Three line-length
+//        streams (c', y, z) live in global memory: forward pass writes
+//        three, backward reads three and writes two, the fix-up reads two
+//        and writes x (~48 B/cell of scratch traffic above the model).  At
+//        (64, 512, 1024) there are only 65,536 pencils, a quarter of the
+//        card's resident threads; blocks of 128 threads spread them over
+//        every SM.
+// A simple kernel first: no TMA, no split of a line across threads.
+#include "common.cuh"
+
+namespace {
+
+// IEEE round-to-nearest operations, one rounding each, never fused
+__device__ __forceinline__ float add(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float mul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float div(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+
+// d of a row: the pin value, the live rhs + fac*srhs, or the ambient
+template <typename T>
+__device__ __forceinline__ T prefold(unsigned code, T rhs, T srhs, T fac,
+                                     T ambient) {
+  if (code & atf::kPin) return srhs;
+  return (code & atf::kInMask) ? add(rhs, mul(fac, srhs)) : ambient;
+}
+
+// the masked-Robin row of K9/K10 (masked_sweep_*_plain): a, b, c, d
+template <typename T>
+__device__ __forceinline__ void masked_row(unsigned code, T glo, T ghi,
+                                           T sink, T rhs, T srhs, T fac,
+                                           T ambient, T& a, T& b, T& c,
+                                           T& d) {
+  const T al = mul(glo, atf::bit<T>(code, atf::kLow));
+  const T ch = mul(ghi, atf::bit<T>(code, atf::kHigh));
+  a = mul(-fac, al);
+  c = mul(-fac, ch);
+  b = add(T(1), mul(fac, add(add(al, ch), sink)));
+  d = prefold(code, rhs, srhs, fac, ambient);
+}
+
+// one Thomas elimination step: c' and d' from the previous row's
+template <typename T>
+__device__ __forceinline__ void eliminate(T a, T b, T c, T d, T& cp,
+                                          T& dp) {
+  const T denom = sub(b, mul(a, cp));
+  cp = div(c, denom);
+  dp = div(sub(d, mul(a, dp)), denom);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256) masked_sweep_strided_kernel(
+    const T* __restrict__ rhs, const uint8_t* __restrict__ code,
+    const T* __restrict__ sink, const T* __restrict__ srhs,
+    const T* __restrict__ glo, const T* __restrict__ ghi,
+    T* __restrict__ out, T* __restrict__ dpbuf, int64_t n, int64_t B, T fac,
+    T ambient) {
+  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= B) return;
+  T cp = T(0), dp = T(0);
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t off = i * B + p;
+    T a, b, c, d;
+    masked_row<T>(code[off], __ldg(glo + i), __ldg(ghi + i), sink[off],
+                  rhs[off], srhs[off], fac, ambient, a, b, c, d);
+    eliminate(a, b, c, d, cp, dp);
+    out[off] = cp;
+    dpbuf[off] = dp;
+  }
+  T x = T(0);
+  for (int64_t i = n - 1; i >= 0; --i) {
+    const int64_t off = i * B + p;
+    x = sub(dpbuf[off], mul(out[off], x));
+    out[off] = x;
+  }
+}
+
+constexpr int kPencils = 32;        // pencils per K10 block (one warp)
+constexpr int kChunk = 32;          // rows per staged tile
+constexpr int kPitch = kChunk + 1;  // padded tile row: conflict-free lanes
+
+template <typename T>
+constexpr size_t z_smem_bytes() {
+  // rhs / c' / x, d', sink and srhs tiles (T), then the code tile (bytes)
+  return 4 * sizeof(T) * kPencils * kPitch + kPencils * kPitch;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kPencils) masked_sweep_z_kernel(
+    const T* __restrict__ rhs, const uint8_t* __restrict__ code,
+    const T* __restrict__ sink, const T* __restrict__ srhs,
+    const T* __restrict__ glo, const T* __restrict__ ghi,
+    T* __restrict__ out, T* __restrict__ dpbuf, int64_t npen, int64_t n,
+    T fac, T ambient) {
+  extern __shared__ __align__(16) unsigned char atf_smem[];
+  T* tile = reinterpret_cast<T*>(atf_smem);       // rhs, then c', then x
+  T* tile2 = tile + kPencils * kPitch;            // d'
+  T* stile = tile2 + kPencils * kPitch;           // sink
+  T* rtile = stile + kPencils * kPitch;           // srhs
+  uint8_t* ctile = reinterpret_cast<uint8_t*>(rtile + kPencils * kPitch);
+
+  const int lane = threadIdx.x;
+  const int64_t pen0 = (int64_t)blockIdx.x * kPencils;
+  const int np = (int)atf::imin(kPencils, npen - pen0);
+  const int row = lane * kPitch;
+
+  // forward elimination, chunk by chunk: stage the four inputs (lane =
+  // row), recur (lane = pencil), write c' and d' back (lane = row)
+  T cp = T(0), dp = T(0);
+  for (int64_t k0 = 0; k0 < n; k0 += kChunk) {
+    const int cz = (int)atf::imin(kChunk, n - k0);
+    if (lane < cz) {
+      for (int q = 0; q < np; ++q) {
+        const int64_t g = (pen0 + q) * n + k0 + lane;
+        tile[q * kPitch + lane] = rhs[g];
+        stile[q * kPitch + lane] = sink[g];
+        rtile[q * kPitch + lane] = srhs[g];
+        ctile[q * kPitch + lane] = code[g];
+      }
+    }
+    __syncwarp();
+    if (lane < np) {
+      for (int j = 0; j < cz; ++j) {
+        T a, b, c, d;
+        masked_row<T>(ctile[row + j], __ldg(glo + k0 + j),
+                      __ldg(ghi + k0 + j), stile[row + j], tile[row + j],
+                      rtile[row + j], fac, ambient, a, b, c, d);
+        eliminate(a, b, c, d, cp, dp);
+        tile[row + j] = cp;
+        tile2[row + j] = dp;
+      }
+    }
+    __syncwarp();
+    if (lane < cz) {
+      for (int q = 0; q < np; ++q) {
+        const int64_t g = (pen0 + q) * n + k0 + lane;
+        out[g] = tile[q * kPitch + lane];
+        dpbuf[g] = tile2[q * kPitch + lane];
+      }
+    }
+    __syncwarp();
+  }
+
+  // back substitution, last chunk first
+  T x = T(0);
+  for (int64_t k0 = (n - 1) / kChunk * kChunk; k0 >= 0; k0 -= kChunk) {
+    const int cz = (int)atf::imin(kChunk, n - k0);
+    if (lane < cz) {
+      for (int q = 0; q < np; ++q) {
+        const int64_t g = (pen0 + q) * n + k0 + lane;
+        tile[q * kPitch + lane] = out[g];
+        tile2[q * kPitch + lane] = dpbuf[g];
+      }
+    }
+    __syncwarp();
+    if (lane < np) {
+      for (int j = cz - 1; j >= 0; --j) {
+        x = sub(tile2[row + j], mul(tile[row + j], x));
+        tile[row + j] = x;
+      }
+    }
+    __syncwarp();
+    if (lane < cz) {
+      for (int q = 0; q < np; ++q) {
+        out[(pen0 + q) * n + k0 + lane] = tile[q * kPitch + lane];
+      }
+    }
+    __syncwarp();
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(128) masked_cyclic_phi_kernel(
+    const T* __restrict__ rhs, const uint8_t* __restrict__ code,
+    const T* __restrict__ sink, const T* __restrict__ srhs,
+    const T* __restrict__ geo, T* __restrict__ out, T* __restrict__ cpbuf,
+    T* __restrict__ zbuf, int64_t B1, int64_t n, int64_t B2, T fac,
+    T ambient) {
+  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= B1 * B2) return;
+  const int64_t b1 = p / B2;
+  const int64_t base = b1 * n * B2 + (p - b1 * B2);
+  const T g = geo[p];
+
+  // forward: B y = d and B z = u in one pass (y in out, z in zbuf), the
+  // rows of masked_cyclic_phi_plain and the steps of cyclic_thomas
+  const T fg = mul(-fac, g);
+  T cp = T(0), dy = T(0), dz = T(0), gamma = T(-1), beta = T(0);
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t off = base + i * B2;
+    const unsigned cd = code[off];
+    T a = (cd & atf::kLow) ? fg : T(0);
+    T c = (cd & atf::kHigh) ? fg : T(0);
+    T b = add(sub(T(1), add(a, c)), mul(fac, sink[off]));
+    const T d = prefold(cd, rhs[off], srhs[off], fac, ambient);
+    T u = T(0);
+    if (i == 0) {
+      beta = a;
+      a = T(0);
+      gamma = -b;
+      b = sub(b, gamma);
+      u = gamma;
+    }
+    if (i == n - 1) {
+      const T alpha = c;
+      c = T(0);
+      b = sub(b, div(mul(alpha, beta), gamma));
+      u = alpha;
+    }
+    const T denom = sub(b, mul(a, cp));
+    cp = div(c, denom);
+    dy = div(sub(d, mul(a, dy)), denom);
+    dz = div(sub(u, mul(a, dz)), denom);
+    cpbuf[off] = cp;
+    out[off] = dy;
+    zbuf[off] = dz;
+  }
+  // backward: y and z, keeping y_{n-1}, z_{n-1}; y_0, z_0 end in the carry
+  T y = T(0), z = T(0), yn = T(0), zn = T(0);
+  for (int64_t i = n - 1; i >= 0; --i) {
+    const int64_t off = base + i * B2;
+    const T cpi = cpbuf[off];
+    y = sub(out[off], mul(cpi, y));
+    z = sub(zbuf[off], mul(cpi, z));
+    if (i == n - 1) {
+      yn = y;
+      zn = z;
+    }
+    out[off] = y;
+    zbuf[off] = z;
+  }
+  const T fact = div(add(y, div(mul(beta, yn), gamma)),
+                     add(add(T(1), z), div(mul(beta, zn), gamma)));
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t off = base + i * B2;
+    out[off] = sub(out[off], mul(fact, zbuf[off]));
+  }
+}
+
+template <typename T>
+void launch_masked_sweep_strided(const void* rhs, const void* code,
+                                 const void* sink, const void* srhs,
+                                 const void* glo, const void* ghi, void* out,
+                                 void* scratch, int64_t n, int64_t B,
+                                 double fac, double ambient,
+                                 cudaStream_t stream) {
+  const int threads = 256;
+  const int64_t blocks = atf::cdiv(B, threads);
+  masked_sweep_strided_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
+      static_cast<const T*>(rhs), static_cast<const uint8_t*>(code),
+      static_cast<const T*>(sink), static_cast<const T*>(srhs),
+      static_cast<const T*>(glo), static_cast<const T*>(ghi),
+      static_cast<T*>(out), static_cast<T*>(scratch), n, B, (T)fac,
+      (T)ambient);
+}
+
+template <typename T>
+void launch_masked_sweep_z(const void* rhs, const void* code,
+                           const void* sink, const void* srhs,
+                           const void* glo, const void* ghi, void* out,
+                           void* scratch, int64_t npen, int64_t n,
+                           double fac, double ambient, cudaStream_t stream) {
+  const int64_t blocks = atf::cdiv(npen, kPencils);
+  masked_sweep_z_kernel<T><<<(unsigned)blocks, kPencils, z_smem_bytes<T>(),
+                             stream>>>(
+      static_cast<const T*>(rhs), static_cast<const uint8_t*>(code),
+      static_cast<const T*>(sink), static_cast<const T*>(srhs),
+      static_cast<const T*>(glo), static_cast<const T*>(ghi),
+      static_cast<T*>(out), static_cast<T*>(scratch), npen, n, (T)fac,
+      (T)ambient);
+}
+
+template <typename T>
+void launch_masked_cyclic_phi(const void* rhs, const void* code,
+                              const void* sink, const void* srhs,
+                              const void* geo, void* out, void* cpbuf,
+                              void* zbuf, int64_t B1, int64_t n, int64_t B2,
+                              double fac, double ambient,
+                              cudaStream_t stream) {
+  const int threads = 128;
+  const int64_t blocks = atf::cdiv(B1 * B2, threads);
+  masked_cyclic_phi_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
+      static_cast<const T*>(rhs), static_cast<const uint8_t*>(code),
+      static_cast<const T*>(sink), static_cast<const T*>(srhs),
+      static_cast<const T*>(geo), static_cast<T*>(out),
+      static_cast<T*>(cpbuf), static_cast<T*>(zbuf), B1, n, B2, (T)fac,
+      (T)ambient);
+}
+
+}  // namespace
+
+ATF_API int atf_masked_sweep_strided(int dtype, int device, const void* rhs,
+                                     const void* code, const void* sink,
+                                     const void* srhs, const void* glo,
+                                     const void* ghi, void* out,
+                                     void* scratch, int64_t n, int64_t B,
+                                     double fac, double ambient,
+                                     void* stream) {
+  ATF_DISPATCH(dtype, device,
+               launch_masked_sweep_strided<T>(rhs, code, sink, srhs, glo,
+                                              ghi, out, scratch, n, B, fac,
+                                              ambient,
+                                              (cudaStream_t)stream));
+}
+
+ATF_API int atf_masked_sweep_z(int dtype, int device, const void* rhs,
+                               const void* code, const void* sink,
+                               const void* srhs, const void* glo,
+                               const void* ghi, void* out, void* scratch,
+                               int64_t npen, int64_t n, double fac,
+                               double ambient, void* stream) {
+  ATF_DISPATCH(dtype, device,
+               launch_masked_sweep_z<T>(rhs, code, sink, srhs, glo, ghi, out,
+                                        scratch, npen, n, fac, ambient,
+                                        (cudaStream_t)stream));
+}
+
+ATF_API int atf_masked_cyclic_phi(int dtype, int device, const void* rhs,
+                                  const void* code, const void* sink,
+                                  const void* srhs, const void* geo,
+                                  void* out, void* cpbuf, void* zbuf,
+                                  int64_t B1, int64_t n, int64_t B2,
+                                  double fac, double ambient, void* stream) {
+  ATF_DISPATCH(dtype, device,
+               launch_masked_cyclic_phi<T>(rhs, code, sink, srhs, geo, out,
+                                           cpbuf, zbuf, B1, n, B2, fac,
+                                           ambient, (cudaStream_t)stream));
+}

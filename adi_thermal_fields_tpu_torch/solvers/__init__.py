@@ -1,16 +1,21 @@
-"""Solvers: the plain Thomas solve and the eight hand-written kernels.
+"""Solvers: the plain Thomas solves and the eleven hand-written kernels.
 
 Constant properties: K1 ``sweep_strided`` and K2 ``sweep_z`` (sweeps.py),
 K3 ``theta_rhs`` (stencil.py), K4 ``fused_theta_sweep`` (theta_sweep.py).
 Variable properties: K5 ``varprop_fields``, K6 ``varprop_theta_sweep``
 and K7 ``varprop_sweep_y`` (varprop.py), K8 ``vp2_sweep_z`` (vp2.py).
+Masked-Robin cylindrical step: K9 ``masked_sweep_strided``, K10
+``masked_sweep_z`` and K11 ``masked_cyclic_phi`` (masked.py).
 Each wrapper counts its CUDA launches in a ``launches`` attribute.
 """
+from .masked import (masked_cyclic_phi, masked_cyclic_phi_plain,
+                     masked_sweep_strided, masked_sweep_strided_plain,
+                     masked_sweep_z, masked_sweep_z_plain)
 from .stencil import theta_rhs, theta_rhs_plain
 from .sweeps import (sweep_code, sweep_strided, sweep_strided_plain, sweep_z,
                      sweep_z_plain)
 from .theta_sweep import fused_theta_sweep, fused_theta_sweep_plain
-from .thomas import thomas
+from .thomas import cyclic_thomas, thomas
 from .varprop import (varprop_fields, varprop_fields_plain,
                       varprop_sweep_y, varprop_sweep_y_plain,
                       varprop_theta_sweep, varprop_theta_sweep_plain)
@@ -19,15 +24,19 @@ from .vp2 import build_vp2_code, vp2_sweep_z, vp2_sweep_z_plain
 KERNELS = {"K1": sweep_strided, "K2": sweep_z, "K3": theta_rhs,
            "K4": fused_theta_sweep, "K5": varprop_fields,
            "K6": varprop_theta_sweep, "K7": varprop_sweep_y,
-           "K8": vp2_sweep_z}
+           "K8": vp2_sweep_z, "K9": masked_sweep_strided,
+           "K10": masked_sweep_z, "K11": masked_cyclic_phi}
 
-__all__ = ["thomas", "sweep_code", "sweep_strided", "sweep_strided_plain",
+__all__ = ["thomas", "cyclic_thomas", "sweep_code", "sweep_strided", "sweep_strided_plain",
            "sweep_z", "sweep_z_plain", "theta_rhs", "theta_rhs_plain",
            "fused_theta_sweep", "fused_theta_sweep_plain", "varprop_fields",
            "varprop_fields_plain", "varprop_theta_sweep",
            "varprop_theta_sweep_plain", "varprop_sweep_y",
            "varprop_sweep_y_plain", "build_vp2_code", "vp2_sweep_z",
-           "vp2_sweep_z_plain", "KERNELS", "launch_counts",
+           "vp2_sweep_z_plain", "masked_sweep_strided",
+           "masked_sweep_strided_plain", "masked_sweep_z",
+           "masked_sweep_z_plain", "masked_cyclic_phi",
+           "masked_cyclic_phi_plain", "KERNELS", "launch_counts",
            "reset_launch_counts"]
 
 

@@ -1,7 +1,7 @@
-"""Batched tridiagonal (Thomas) solve: the plain solve under every kernel.
+"""Batched tridiagonal (Thomas) solves: the plain solves under every kernel.
 
-Counterpart: ``adi_thermal_fields_tpu/solvers/thomas.py::thomas`` (a
-``lax.scan``).  Here a Python loop runs over the line and each iteration is
+Counterpart: ``adi_thermal_fields_tpu/solvers/thomas.py`` — ``thomas`` (a
+``lax.scan``) and ``cyclic_thomas`` (:67, the periodic solve).  Here a Python loop runs over the line and each iteration is
 a few tensor ops vectorized over the batch — on any device.  It is the
 solve inside the plain version of every sweep kernel and inside the
 reference step (step/cartesian.py).
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["thomas"]
+__all__ = ["thomas", "cyclic_thomas"]
 
 
 def thomas(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -39,3 +39,35 @@ def thomas(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         torch.sub(dp[i], cp[i] * x_next, out=x[i])
         x_next = x[i]
     return x
+
+
+def cyclic_thomas(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                  d: torch.Tensor) -> torch.Tensor:
+    """Solve batched cyclic (periodic) tridiagonal systems along axis 0.
+
+    Row 0 couples to x[n-1] by ``beta = a[0]`` and row n-1 to x[0] by
+    ``alpha = c[n-1]`` (both zeroed inside the solve).  Sherman-Morrison
+    with gauge ``g = -b[0]``: solve ``B y = d`` and ``B z = u`` with
+    ``B = A - u v^T``, ``u = (g, 0, ..., alpha)``, ``v = (1, 0, ...,
+    beta/g)``, then ``x = y - z (v^T y)/(1 + v^T z)``.  y and z come
+    from one ``thomas`` call with the two right-hand sides side by side
+    (the same operations per element, half the launches)."""
+    n = d.shape[0]
+    beta, alpha = a[0], c[n - 1]
+    a = a.clone()
+    c = c.clone()
+    a[0] = 0.0
+    c[n - 1] = 0.0
+    gamma = -b[0]
+    b_mod = b.clone()
+    b_mod[0] = b[0] - gamma
+    b_mod[n - 1] = b[n - 1] - alpha * beta / gamma
+    u = torch.zeros_like(d)
+    u[0] = gamma
+    u[n - 1] = alpha
+    yz = thomas(a[:, None], b_mod[:, None], c[:, None],
+                torch.stack([d, u], 1))
+    y, z = yz[:, 0], yz[:, 1]
+    fact = ((y[0] + beta * y[n - 1] / gamma)
+            / (1.0 + z[0] + beta * z[n - 1] / gamma))
+    return y - fact[None] * z

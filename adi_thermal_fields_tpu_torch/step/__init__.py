@@ -1,5 +1,11 @@
-"""Cartesian ADI steps: the plain reference and the kernel path."""
+"""ADI steps: Cartesian (plain reference and kernel path) and the masked
+cylindrical step."""
 from .cartesian import adi_step
 from .cartesian_fused import SweepPlan, adi_step_fused, build_sweep_plan
+from .cylindrical import RobinBC, ZFaceBC
+from .cylindrical_masked import (MaskedRobinPlan, adi_step_masked_robin,
+                                 build_masked_robin_plan, masked_robin_solve)
 
-__all__ = ["adi_step", "SweepPlan", "build_sweep_plan", "adi_step_fused"]
+__all__ = ["adi_step", "SweepPlan", "build_sweep_plan", "adi_step_fused",
+           "RobinBC", "ZFaceBC", "MaskedRobinPlan", "build_masked_robin_plan",
+           "masked_robin_solve", "adi_step_masked_robin"]

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's main paths once on one CUDA card, through their
-eight hand-written kernels, and check every result.
+eleven hand-written kernels, and check every result.
 
     python3 chip_smoke.py        # from the root of a checkout; one card
 
@@ -48,11 +48,29 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    sub-steps).  The float32 kernels' distance from the float64 run is
    printed.
 
+6. The cylindrical spiral-tube path.  Its kernel part (run with phase 2):
+   K9 (r), K11 (phi, cyclic) and K10 (z) against their plain versions,
+   float32, on the plan of a (64, 512, 1024) annular tube (substrate, a
+   half-built wall and a partly deposited top layer; Dirichlet bottom
+   pins) and of a (37, 203, 131) full disk with a random mask: max
+   |delta| in float32 ulp of the output's scale, kernel and plain ms, %
+   of 3.35 TB/s at 17 B/cell.  Its step part: the (64, 512, 1024)
+   masked-Robin step (bench.py's masked-cylindrical configuration),
+   kernels against reference after 3 steps within STEP_TOL, CUDA-event
+   ms/step after two warm-up steps, Gcell/s, the plan rebuild's ms on its
+   own, and launches of exactly K9, K10 and K11 once per step.  Its app
+   part: apps/spiral_tube on a 120 mm tube with an 8 mm wall at 0.25 mm
+   ((32, 720, 200) = 4.6 M cells, 20 layers, 600 steps), float32, with the
+   kernels and with the reference step: T finite, Tmax <= --Ts, every
+   deposited column active at the end, the two runs within APP_TOL.
+
 Each main path is driven with the launch counts set to 0 just before it
 and read just after it: phases 3 (constant properties) and 4 for K1-K4,
-then phases 3 (variable properties) and 5 for K5-K8.  The line before the
-last is a JSON summary of the kernels (launches of those runs); the last
-line is
+phases 3 (variable properties) and 5 for K5-K8, then phase 6's step and
+app for K9-K11.  The line before the last is a JSON summary of the
+kernels (launches of those runs; each kernel's time at its main-path
+shape beside its bound, the least time for the bytes it must move and the
+operations it must do, and its plain version's time); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import json
@@ -65,6 +83,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "adi_thermal_fields_tpu_torch"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory, published peak
+FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 
 # Tolerances (float32; temperatures up to 1500 C, ulp there = 1.2e-4 K):
 KERNEL_TOL_ULP = 8  # one kernel vs its plain version, in float32 ulp of the
@@ -101,9 +120,31 @@ KERNEL_INFO = {
            "adi_thermal_fields_tpu/solvers/pallas_varprop.py:718"),
     "K8": ("vp2_sweep_z", "csrc/vp2_sweep.cu",
            "adi_thermal_fields_tpu/solvers/pallas_vp2.py:402"),
+    "K9": ("masked_sweep_strided", "csrc/masked.cu",
+           "adi_thermal_fields_tpu/solvers/pallas_fields.py:655"),
+    "K10": ("masked_sweep_z", "csrc/masked.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_fields.py:655"),
+    "K11": ("masked_cyclic_phi", "csrc/masked.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_fields.py:977"),
 }
+# float32 operations per cell of each kernel's main variant, counted from
+# its source (adds, multiplies and divides of one row, the back
+# substitution, table segments evaluated; an estimate for the bound)
+OPS_PER_CELL = {"K1": 22, "K2": 22, "K3": 20, "K4": 42, "K5": 140,
+                "K6": 45, "K7": 25, "K8": 85, "K9": 20, "K10": 20,
+                "K11": 30}
 CONST_KERNELS = ("K1", "K2", "K3", "K4")
 VP_KERNELS = ("K5", "K6", "K7", "K8")
+CYL_KERNELS = ("K9", "K10", "K11")
+# phase 6: the kernels' plans, the step (bench.py's masked-cylindrical
+# shape and BCs, dr = dz = 0.5 mm) and the spiral app
+CYL_SHAPES = (("64x512x1024 tube", (64, 512, 1024)),
+              ("37x203x131 disk", (37, 203, 131)))
+CYL_DT = 0.02
+P6_APP = ["--R_out", "60", "--wall_thickness", "8", "--height", "40",
+          "--z_back", "10", "--nr", "32", "--nphi", "720", "--dz", "0.25",
+          "--pitch", "2", "--auto_speed", "--t_tot", "30", "--dt_fixed",
+          "0.05", "--out", "", "--nframes", "4"]
 VP_SHAPES = (P2_SHAPES[0], P2_SHAPES[2])
 # the varprop physics of phases 2, 3 and 5 (steel, the JAX app's defaults)
 SOLIDUS, LIQUIDUS, LATENT = 1420.0, 1470.0, 2.7e5
@@ -160,6 +201,15 @@ def waam_mask(torch, shape, device):
     m[3 * nx // 8:5 * nx // 8, 3 * ny // 8:5 * ny // 8,
       plate:plate + nz // 8] = True
     return m
+
+
+def bound(kname, nbytes, cells):
+    """The least time for a kernel's work: the bytes it must move over
+    the memory rate, or its operations over the float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = OPS_PER_CELL[kname] * cells / FP32_OPS_PER_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def random_field(torch, mask, seed):
@@ -278,7 +328,8 @@ def phase2(torch, dev):
             pct = 100.0 * cells * bpc / (ms * 1e-3) / HBM_BYTES_PER_S
             rows.append(dict(kernel=kname, variant=vname, shape=label,
                              max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bytes_per_cell=bpc, pct_hbm=pct))
+                             bytes_per_cell=bpc, pct_hbm=pct,
+                             **bound(kname, cells * bpc, cells)))
             print(f"[phase 2] {kname} {vname:32s} {label:18s} "
                   f"max|d|={err:.3e} K (tol {tol:.1e})  kernel "
                   f"{ms:8.3f} ms  plain {plain_ms:9.3f} ms  {pct:5.1f}% of "
@@ -536,7 +587,8 @@ def phase2_varprop(torch, dev):
             pct = 100.0 * cells * bpc / (ms * 1e-3) / HBM_BYTES_PER_S
             rows.append(dict(kernel=kname, variant=vname, shape=label,
                              max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bytes_per_cell=bpc, pct_hbm=pct))
+                             bytes_per_cell=bpc, pct_hbm=pct,
+                             **bound(kname, cells * bpc, cells)))
             print(f"[phase 2] {kname} {vname:32s} {label:18s} "
                   f"max|d|={err:.3e} ({ulps:.2f} ulp of scale, tol "
                   f"{KERNEL_TOL_ULP})  kernel {ms:8.3f} ms  plain "
@@ -563,7 +615,7 @@ def phase3_varprop(torch, dev):
     mask = waam_mask(torch, grid.shape, dev)
     T0 = mushy_field(torch, mask, seed=11)
     kt, ct = varprop_tables()
-    per_step = {**{k: 0 for k in CONST_KERNELS}, **{k: 1 for k in VP_KERNELS}}
+    per_step = {**{k: 0 for k in KERNEL_INFO}, **{k: 1 for k in VP_KERNELS}}
     plans = {"tables + h 30": dict(robin_h=H_CONV),
              "tables + h 30 + eps 0.5": dict(robin_h=H_CONV,
                                              emissivity=EMISSIVITY)}
@@ -634,6 +686,199 @@ def phase3_varprop(torch, dev):
     return out
 
 
+def tube_mask(torch, shape, dev):
+    """A tube in the making: a substrate (the lower quarter, every
+    radius), a half-built wall (the outer half of the radii up to half
+    the height) and a top layer deposited over 3/5 of the
+    circumference."""
+    nr, nphi, nz = shape
+    m = torch.zeros(shape, dtype=torch.bool, device=dev)
+    m[:, :, :nz // 4] = True
+    m[nr // 2:, :, nz // 4:nz // 2] = True
+    m[nr // 2:, :(3 * nphi) // 5, nz // 2:nz // 2 + max(1, nz // 16)] = True
+    return m
+
+
+def cyl_plan(torch, grid, mask, kind_bot):
+    """The masked-Robin plan of phase 6 (bench.py's BCs: h 300 on the
+    radial faces, 400 on the top, 80 on the material/void faces)."""
+    from adi_thermal_fields_tpu_torch import (Material, RobinBC, ZFaceBC,
+                                              build_masked_robin_plan)
+    rob = RobinBC(300.0, 20.0)
+    return build_masked_robin_plan(
+        grid, Material(7800.0, 490.0, 54.0), mask, robin_outer=rob,
+        robin_inner=rob, zbc=ZFaceBC(kind_bot=kind_bot, T_bot=200.0,
+                                     kind_top="robin", h_top=400.0),
+        h_void=80.0, dtype=torch.float32)
+
+
+def phase2_cyl(torch, dev):
+    """K9-K11 against their plain versions (float32)."""
+    from adi_thermal_fields_tpu_torch import CylindricalGrid, Material
+    from adi_thermal_fields_tpu_torch.solvers import (
+        masked_cyclic_phi, masked_cyclic_phi_plain, masked_sweep_strided,
+        masked_sweep_strided_plain, masked_sweep_z, masked_sweep_z_plain)
+
+    f32 = torch.float32
+    eps32 = torch.finfo(f32).eps
+    mat = Material(7800.0, 490.0, 54.0)
+    fac = float(torch.tensor(CYL_DT, dtype=f32)
+                * torch.tensor(mat.alpha, dtype=f32))
+    rows = []
+    for label, shape in CYL_SHAPES:
+        tube = label.endswith("tube")
+        grid = CylindricalGrid(*shape, 5e-4, 5e-4,
+                               r_inner=0.02 if tube else 0.0)
+        if tube:
+            mask = tube_mask(torch, shape, dev)
+        else:
+            g = torch.Generator(device=dev).manual_seed(29)
+            mask = torch.rand(shape, generator=g, device=dev) > 0.25
+        plan = cyl_plan(torch, grid, mask,
+                        "dirichlet" if tube else "neumann0")
+        R = random_field(torch, mask, seed=17)
+        variants = [
+            ("K9", "r", plan.r,
+             lambda: masked_sweep_strided(R, *plan.r, fac, 20.0),
+             lambda: masked_sweep_strided_plain(R, *plan.r, fac, 20.0)),
+            ("K11", "phi (cyclic)", plan.phi,
+             lambda: masked_cyclic_phi(R, *plan.phi, fac, 20.0),
+             lambda: masked_cyclic_phi_plain(R, *plan.phi, fac, 20.0)),
+            ("K10", "z", plan.z,
+             lambda: masked_sweep_z(R, *plan.z, fac, 20.0),
+             lambda: masked_sweep_z_plain(R, *plan.z, fac, 20.0)),
+        ]
+        cells = mask.numel()
+        for kname, vname, ins, kern, plain in variants:
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()),
+                  f"{kname} {vname} {label}: non-finite output")
+            err = float((got - want).abs().max())
+            ulps = err / (eps32 * float(want.abs().max()))
+            # each input read once, the output written once
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in (R, *ins, got))
+            ms = cuda_ms(torch, kern, 20)
+            plain_ms = cuda_ms(torch, plain, 3)
+            pct = 100.0 * nbytes / (ms * 1e-3) / HBM_BYTES_PER_S
+            rows.append(dict(kernel=kname, variant=vname, shape=label,
+                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bytes_per_cell=nbytes / cells, pct_hbm=pct,
+                             **bound(kname, nbytes, cells)))
+            print(f"[phase 2] {kname} {vname:32s} {label:18s} "
+                  f"max|d|={err:.3e} K ({ulps:.2f} ulp of scale, tol "
+                  f"{KERNEL_TOL_ULP})  kernel {ms:8.3f} ms  plain "
+                  f"{plain_ms:9.3f} ms  {pct:5.1f}% of 3.35 TB/s at "
+                  f"{nbytes / cells:.2f} B/cell", flush=True)
+            check(ulps <= KERNEL_TOL_ULP, f"{kname} {vname} {label}: "
+                  f"{ulps:.2f} float32 ulp of the output's scale > "
+                  f"{KERNEL_TOL_ULP}")
+        del R, mask, plan
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase6_step(torch, dev):
+    """The (64, 512, 1024) float32 masked-Robin step, kernels against
+    reference, and the plan rebuild on its own."""
+    from adi_thermal_fields_tpu_torch import (CylindricalGrid, Material,
+                                              masked_robin_solve)
+    from adi_thermal_fields_tpu_torch.solvers import launch_counts
+
+    label, shape = CYL_SHAPES[0]
+    grid = CylindricalGrid(*shape, 5e-4, 5e-4, r_inner=0.02)
+    mat = Material(7800.0, 490.0, 54.0)
+    mask = tube_mask(torch, shape, dev)
+    T0 = random_field(torch, mask, seed=19)
+    plan_ms = cuda_ms(torch, lambda: cyl_plan(torch, grid, mask, "neumann0"),
+                      5)
+    plan = cyl_plan(torch, grid, mask, "neumann0")
+    per_step = {k: int(k in CYL_KERNELS) for k in KERNEL_INFO}
+    res = {}
+    for impl in ("kernels", "reference"):
+        before = launch_counts()
+        T = T0
+        for _ in range(P3_WARMUP):
+            T = masked_robin_solve(T, plan, grid, mat, dt=CYL_DT,
+                                   implementation=impl)
+        torch.cuda.synchronize()
+        T, step_ms = T0, []
+        for _ in range(P3_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            T = masked_robin_solve(T, plan, grid, mat, dt=CYL_DT,
+                                   implementation=impl)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        want = {k: (P3_WARMUP + P3_STEPS) * v if impl == "kernels" else 0
+                for k, v in per_step.items()}
+        check(delta == want, f"phase 6 step {impl}: launches {delta} != "
+              f"expected {want}")
+        check(bool(torch.isfinite(T).all()), f"phase 6 step {impl}: "
+              "non-finite T")
+        ms = statistics.median(step_ms)
+        res[impl] = (T, ms)
+        print(f"[phase 6] {label} f32 masked-Robin step {impl:9s}: "
+              f"{ms:9.3f} ms/step (median; steps "
+              f"{', '.join(f'{s:.3f}' for s in step_ms)})  "
+              f"{grid.ncells / (ms * 1e-3) / 1e9:7.3f} Gcell/s  launches "
+              f"{ {k: v for k, v in delta.items() if v} }", flush=True)
+    err = float((res["kernels"][0] - res["reference"][0]).abs().max())
+    print(f"[phase 6] plan rebuild {plan_ms:.3f} ms (median of 5); "
+          f"max|T_kernels - T_reference| = {err:.3e} K after {P3_STEPS} "
+          "steps", flush=True)
+    check(err <= STEP_TOL, f"phase 6 step: {err:.3e} K > {STEP_TOL}")
+    return dict(ms_kernels=res["kernels"][1],
+                ms_reference=res["reference"][1], plan_ms=plan_ms,
+                max_abs_err=err)
+
+
+def phase6_app(torch, dev):
+    """apps/spiral_tube on the 4.6 M-cell tube, kernels and reference."""
+    import numpy as np
+    from adi_thermal_fields_tpu_torch.apps import spiral_tube as app
+
+    runs = {}
+    for impl in ("kernels", "reference"):
+        args = app.build_argparser().parse_args(
+            P6_APP + ["--device", str(dev), "--implementation", impl])
+        t0 = time.perf_counter()
+        res = app.run(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[impl] = (res, wall)
+        T = res["T"]
+        a3 = torch.from_numpy(np.ascontiguousarray(res["active"])).to(dev)
+        tmax = float(T[a3[None].expand(T.shape)].max())
+        deposited = np.isfinite(res["activation_times"])
+        print(f"[phase 6] spiral app f32 {impl:9s}: grid "
+              f"{res['grid'].shape} ({res['grid'].ncells / 1e6:.2f} M "
+              f"cells), {res['steps']} steps, {res['plans_built']} plan "
+              f"builds, {int(deposited.sum())} deposited columns, wall "
+              f"{wall:.2f} s, Tmax {tmax:.2f} C", flush=True)
+        check(bool(torch.isfinite(T).all()), f"spiral app {impl}: "
+              "non-finite T")
+        check(tmax <= args.Ts, f"spiral app {impl}: Tmax {tmax} > Ts")
+        check(all(float(np.nanmax(np.where(a, f, np.nan))) <= args.Ts
+                  for _, f, a in res["frames"]),
+              f"spiral app {impl}: a frame's Tmax exceeds Ts")
+        check(deposited.any() and bool(res["active"][deposited].all()),
+              f"spiral app {impl}: a deposited column is not active")
+    diff = (runs["kernels"][0]["T"] - runs["reference"][0]["T"]).abs()
+    err = float(diff.max())
+    print(f"[phase 6] spiral app: max|T_kernels - T_reference| = "
+          f"{err:.3e} K ({int((diff > APP_TOL).sum())} cells above "
+          f"{APP_TOL} K)", flush=True)
+    check(err <= APP_TOL, f"spiral app: kernels vs reference {err:.3e} K "
+          f"> {APP_TOL} K")
+    return dict(wall_kernels=runs["kernels"][1],
+                wall_reference=runs["reference"][1], max_abs_err=err)
+
+
 def main():
     torch = load_port()
     dev = torch.device("cuda", 0)
@@ -642,7 +887,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     name, _ = phase0(torch)
     phase1()
-    rows = phase2(torch, dev) + phase2_varprop(torch, dev)
+    rows = phase2(torch, dev) + phase2_varprop(torch, dev) \
+        + phase2_cyl(torch, dev)
 
     from adi_thermal_fields_tpu_torch.solvers import (launch_counts,
                                                       reset_launch_counts)
@@ -659,36 +905,48 @@ def main():
     p5 = app_phase(torch, dev, 5, vp_flags, precision="float64")
     p5_32 = app_phase(torch, dev, 5, vp_flags, impls=("kernels",))
     counts_v = launch_counts()
+    reset_launch_counts()
+    phase6_step(torch, dev)
+    phase6_app(torch, dev)
+    counts_y = launch_counts()
     d32 = float((p5_32["T_kernels"].double() - p5["T_kernels"]).abs().max())
     print(f"[phase 5] max|T_float32 - T_float64| (kernels) = {d32:.3e} K",
           flush=True)
-    check(all(counts_c[k] > 0 for k in CONST_KERNELS)
-          and all(counts_c[k] == 0 for k in VP_KERNELS),
-          f"the constant-property path's launches: {counts_c}")
-    check(all(counts_v[k] > 0 for k in VP_KERNELS)
-          and all(counts_v[k] == 0 for k in CONST_KERNELS),
-          f"the variable-property path's launches: {counts_v}")
+    for path, counts_p, mine in (("constant-property", counts_c,
+                                  CONST_KERNELS),
+                                 ("variable-property", counts_v, VP_KERNELS),
+                                 ("cylindrical", counts_y, CYL_KERNELS)):
+        check(all(counts_p[k] > 0 if k in mine else counts_p[k] == 0
+                  for k in KERNEL_INFO),
+              f"the {path} path's launches: {counts_p}")
     d45 = float((p5_32["T_kernels"] - p4["T_kernels"]).abs().max())
     print(f"[phase 5] max|T_varprop - T_constant| = {d45:.3e} K", flush=True)
     check(d45 > 1.0, "the varprop flags changed the app's field by "
           f"{d45:.3e} K <= 1 K: they do not reach the step")
     counts = {**{k: counts_c[k] for k in CONST_KERNELS},
-              **{k: counts_v[k] for k in VP_KERNELS}}
+              **{k: counts_v[k] for k in VP_KERNELS},
+              **{k: counts_y[k] for k in CYL_KERNELS}}
 
     main_variant = {"K1": "lite y", "K2": "lite z", "K3": "stencil",
                     "K4": "stencil + lite x", "K5": "fields + rad",
                     "K6": "theta + x, h stream", "K7": "y, h stream",
-                    "K8": "z, rad"}
+                    "K8": "z, rad", "K9": "r", "K10": "z",
+                    "K11": "phi (cyclic)"}
     summary = []
     for k, (fn, src, replaces) in KERNEL_INFO.items():
         mine = [r for r in rows if r["kernel"] == k]
+        shape = CYL_SHAPES[0][0] if k in CYL_KERNELS else P2_SHAPES[0][0]
         ref = next(r for r in mine if r["variant"] == main_variant[k]
-                   and r["shape"] == P2_SHAPES[0][0])
+                   and r["shape"] == shape)
+        # no PyTorch call computes a batched (cyclic) tridiagonal solve or
+        # these masked stencils and table passes: library_ms is null
         summary.append({"name": f"{k} {fn}", "route": "cuda",
                         "source": f"{PKG}/{src}", "replaces": replaces,
                         "launches": counts[k],
                         "max_abs_err": max(r["max_abs_err"] for r in mine),
-                        "ms": ref["ms"], "plain_ms": ref["plain_ms"]})
+                        "ms": ref["ms"], "plain_ms": ref["plain_ms"],
+                        "bound_ms": ref["bound_ms"],
+                        "bound_by": ref["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

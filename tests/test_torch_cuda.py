@@ -18,9 +18,13 @@ import pytest
 import torch
 
 from adi_thermal_fields_tpu_torch import apparent_cp, melt_pool_enhanced_k
+from adi_thermal_fields_tpu_torch import (CylindricalGrid, Material, RobinBC,
+                                          ZFaceBC, build_masked_robin_plan)
 from adi_thermal_fields_tpu_torch.solvers import (
     build_vp2_code, fused_theta_sweep, fused_theta_sweep_plain,
-    launch_counts, reset_launch_counts, sweep_code, sweep_strided,
+    launch_counts, masked_cyclic_phi, masked_cyclic_phi_plain,
+    masked_sweep_strided, masked_sweep_strided_plain, masked_sweep_z,
+    masked_sweep_z_plain, reset_launch_counts, sweep_code, sweep_strided,
     sweep_strided_plain, sweep_z, sweep_z_plain, theta_rhs, theta_rhs_plain,
     varprop_fields, varprop_fields_plain, varprop_sweep_y,
     varprop_sweep_y_plain, varprop_theta_sweep, varprop_theta_sweep_plain,
@@ -79,7 +83,8 @@ def test_kernels_match_plain_on_card(dtype, tol):
         assert got.is_cuda and got.dtype == dtype
         assert float((got - want).abs().max()) <= tol
     assert launch_counts() == {"K1": 4, "K2": 1, "K3": 1, "K4": 1, "K5": 0,
-                               "K6": 0, "K7": 0, "K8": 0}
+                               "K6": 0, "K7": 0, "K8": 0, "K9": 0, "K10": 0,
+                               "K11": 0}
 
 
 def _flat(out):
@@ -141,4 +146,46 @@ def test_varprop_kernels_match_plain_on_card(dtype, rel):
             assert a.is_cuda and a.dtype == dtype
             assert float((a - b).abs().max()) <= rel * float(b.abs().max())
     assert launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 2,
-                               "K6": 2, "K7": 2, "K8": 2}
+                               "K6": 2, "K7": 2, "K8": 2, "K9": 0, "K10": 0,
+                               "K11": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float64, 1e-12),
+                                       (torch.float32, 8 * 2.0 ** -23)],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("r_inner,kind_bot", [(0.02, "dirichlet"),
+                                              (0.0, "neumann0")],
+                         ids=["annular-pins", "disk"])
+def test_masked_kernels_match_plain_on_card(dtype, rel, r_inner, kind_bot):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(23)
+    shape = (37, 45, 70)               # uneven: partial blocks and tiles
+    grid = CylindricalGrid(*shape, 5e-4, 5e-4, r_inner=r_inner)
+    act = torch.from_numpy(rng.random(shape) > 0.25).to(dev)
+    plan = build_masked_robin_plan(
+        grid, Material(7800.0, 490.0, 54.0), act,
+        robin_outer=RobinBC(300.0, 20.0),
+        zbc=ZFaceBC(kind_bot=kind_bot, T_bot=140.0, kind_top="robin",
+                    h_top=400.0), robin_inner=RobinBC(150.0, 30.0),
+        h_void=80.0, h_front=60.0, dtype=dtype)
+    R = torch.from_numpy(20.0 + 1480.0 * rng.random(shape)).to(dev, dtype)
+    fac = float(torch.tensor(0.05, dtype=dtype) * (54.0 / (7800.0 * 490.0)))
+    reset_launch_counts()
+    pairs = [
+        (masked_sweep_strided(R, *plan.r, fac, 20.0),
+         masked_sweep_strided_plain(R, *plan.r, fac, 20.0)),
+        (masked_cyclic_phi(R, *plan.phi, fac, 20.0),
+         masked_cyclic_phi_plain(R, *plan.phi, fac, 20.0)),
+        (masked_sweep_z(R, *plan.z, fac, 20.0),
+         masked_sweep_z_plain(R, *plan.z, fac, 20.0)),
+    ]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert got.is_cuda and got.dtype == dtype
+        assert float((got - want).abs().max()) <= rel * float(
+            want.abs().max())
+    assert launch_counts() == {**{f"K{i}": 0 for i in range(1, 9)},
+                               "K9": 1, "K10": 1, "K11": 1}

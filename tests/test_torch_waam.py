@@ -82,6 +82,10 @@ def test_port_imports_no_jax():
             "import adi_thermal_fields_tpu_torch.solvers.vp2\n"
             "import adi_thermal_fields_tpu_torch.step.cartesian_varprop\n"
             "import adi_thermal_fields_tpu_torch.apps.engine\n"
+            "import adi_thermal_fields_tpu_torch.apps.spiral_tube\n"
+            "import adi_thermal_fields_tpu_torch.birth.spiral\n"
+            "import adi_thermal_fields_tpu_torch.solvers.masked\n"
+            "import adi_thermal_fields_tpu_torch.step.cylindrical_masked\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax',\n"
             "                                    'adi_thermal_fields_tpu'))\n"
