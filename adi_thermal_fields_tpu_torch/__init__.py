@@ -8,8 +8,10 @@ birth, constant properties, scalar or field Robin h, Neumann flux and
 Dirichlet pins; its variable-property step: k(T) and cp(T) tables
 (latent heat, melt-pool conductivity) and the radiative film with scalar
 convective h; and the cylindrical spiral-tube path: the masked-Robin
-(r, phi, z) backward-Euler step with element birth by a spiral schedule.
-They run on CUDA kernels written by hand for the H100 (csrc/):
+(r, phi, z) backward-Euler step with element birth by a spiral schedule,
+and the unmasked cylindrical step (backward Euler and Douglas-Gunn) with
+its ambient-clamp birth wrapper.  They run on CUDA kernels written by hand
+for the H100 (csrc/):
 
 * K1 ``solvers.sweeps.sweep_strided`` — masked sweep along x or y;
 * K2 ``solvers.sweeps.sweep_z`` — plan-lite sweep along contiguous z;
@@ -27,7 +29,13 @@ They run on CUDA kernels written by hand for the H100 (csrc/):
 * K10 ``solvers.masked.masked_sweep_z`` — the masked-Robin sweep along
   contiguous z;
 * K11 ``solvers.masked.masked_cyclic_phi`` — the mask-broken periodic phi
-  sweep.
+  sweep;
+* K12 ``solvers.const_sweeps.const_sweep_strided`` — the constant-row r
+  sweep;
+* K13 ``solvers.const_sweeps.const_sweep_z`` — the constant-row sweep
+  along contiguous z;
+* K14 ``solvers.const_sweeps.cyclic_const_phi`` — the constant-coefficient
+  periodic phi solve.
 
 Each kernel wrapper runs its plain PyTorch version on CPU tensors and the
 kernel on CUDA tensors (built from csrc/*.cu at first use).
@@ -44,6 +52,9 @@ from .step.cartesian_varprop import (PropertyTable, adi_step_varprop,
                                      build_varprop_codes,
                                      melt_pool_enhanced_k)
 from .step.cylindrical import RobinBC, ZFaceBC
+from .step.cylindrical import adi_step as adi_step_cylindrical
+from .step.cylindrical import adi_step_masked as adi_step_cylindrical_masked
+from .solvers.spectral import phi_solve_spectral
 from .step.cylindrical_masked import (MaskedRobinPlan, adi_step_masked_robin,
                                       build_masked_robin_plan,
                                       masked_robin_solve)
@@ -58,5 +69,6 @@ __all__ = ["CartesianGrid", "Material", "FACES", "exposed_face",
            "melt_pool_enhanced_k", "adi_step_varprop",
            "adi_step_varprop_fused", "build_varprop_codes",
            "STEFAN_BOLTZMANN", "radiative_h", "CylindricalGrid", "RobinBC",
-           "ZFaceBC", "MaskedRobinPlan", "build_masked_robin_plan",
+           "ZFaceBC", "adi_step_cylindrical", "adi_step_cylindrical_masked",
+           "phi_solve_spectral", "MaskedRobinPlan", "build_masked_robin_plan",
            "masked_robin_solve", "adi_step_masked_robin"]

@@ -3,16 +3,19 @@ PyTorch port.
 
 Counterpart: ``adi_thermal_fields_tpu/apps/spiral_tube.py`` —
 ``build_argparser`` (:30, the same flags and defaults) and ``run`` (:131)
-in its default configuration: one device, ``--void_mode robin``,
-``--scheme be``, constant properties, optionally the moving Gaussian torch
-(``--torch_Q``/``--torch_sigma``).  The nozzle sweeps arcs layer by layer,
-activating (phi, z) columns of an annular wall from a float64
-activation-time table kept on the host (birth/spiral.py); each fixed step
-runs the masked-Robin cylindrical step (step/cylindrical_masked.py) on K9,
-K11 and K10.  The step's plan depends only on the active mask, so it is
+on one device with ``--scheme be`` and constant properties, optionally
+with the moving Gaussian torch (``--torch_Q``/``--torch_sigma``).  The
+nozzle sweeps arcs layer by layer, activating (phi, z) columns of an
+annular wall from a float64 activation-time table kept on the host
+(birth/spiral.py).  Each fixed step runs, with ``--void_mode robin`` (the
+default), the masked-Robin cylindrical step (step/cylindrical_masked.py)
+on K9, K11 and K10; its plan depends only on the active mask, so it is
 rebuilt only on steps in which a column is born, which the host knows from
-the activation times without a device sync; the host syncs with the
-device only at frames.
+the activation times without a device sync.  With ``--void_mode clamp``
+it runs the ambient-clamp wrapper of the unmasked step
+(step/cylindrical.adi_step_masked, the JAX app's :314-321) on K12, K14 and
+K13, which needs no plan.  The host syncs with the device only at
+frames.
 
 Example (on a CUDA machine):
     python -m adi_thermal_fields_tpu_torch.apps.spiral_tube --R_out 32 \\
@@ -103,20 +106,18 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="torch device; the run raises when CUDA is absent")
     p.add_argument("--implementation", choices=["kernels", "reference"],
                    default="kernels",
-                   help="kernels: K9-K11 on CUDA, plain versions on CPU; "
-                        "reference: the plain step")
+                   help="kernels: K9-K11 (clamp: K12-K14) on CUDA, plain "
+                        "versions on CPU; reference: the plain step")
     return p
 
 
 def _reject_unsupported(args) -> None:
     """Exit with a message for flags this port does not support yet."""
-    rows_9_12 = ("the unmasked cylindrical step (TPU kernel rows 9-12, "
-                 "fused_sweep_const and the fused_cyclic_const family)")
     varprop = ("the cylindrical variable-property step (TPU kernel rows "
                "22 solve-leading to 26)")
     bad = [f"{name}: needs {need}" for name, on, need in (
-        ("--void_mode clamp", args.void_mode != "robin", rows_9_12),
-        ("--scheme douglas", args.scheme != "be", rows_9_12),
+        # the JAX app sends every douglas run through the varprop step
+        ("--scheme douglas", args.scheme != "be", varprop),
         ("--latent_J_kg", args.latent_J_kg > 0.0, varprop),
         ("--melt_k_factor", args.melt_k_factor != 1.0, varprop),
         ("--emissivity", args.emissivity > 0.0, varprop),
@@ -138,7 +139,7 @@ def run(args) -> dict:
     from ..core.grid import CylindricalGrid
     from ..core.material import Material
     from ..io.logging import log
-    from ..step.cylindrical import RobinBC, ZFaceBC
+    from ..step.cylindrical import RobinBC, ZFaceBC, adi_step_masked
     from ..step.cylindrical_masked import (build_masked_robin_plan,
                                            masked_robin_solve)
 
@@ -187,6 +188,8 @@ def run(args) -> dict:
 
     h_void = args.h_void if args.h_void is not None else args.h_side
     rob = RobinBC(args.h_side, args.T_inf)
+    rob_void = RobinBC(h_void, args.T_inf)
+    clamp = args.void_mode == "clamp"
     zbc = ZFaceBC(kind_bot="neumann0", kind_top="robin", h_top=args.h_end,
                   T_inf_top=args.T_inf)
     dtype = {"float32": torch.float32, "float64": torch.float64}[
@@ -237,26 +240,40 @@ def run(args) -> dict:
     n_steps = int(round(args.t_tot / dt))
     frame_every = max(1, n_steps // max(1, args.nframes))
 
+    def clamp_step(T, a3, src):
+        return adi_step_masked(T, grid, mat, dt=dt, robin_outer=rob,
+                               zbc=zbc, active=a3, robin_inner=rob,
+                               robin_void=rob_void, source=src,
+                               implementation=args.implementation)
+
     frames = []
-    plan = None
+    plan = a3 = None
     plans_built = 0
     t = 0.0
     for i in range(n_steps):
         t_next = t + dt
         newborn = newborn_between(act, t, t_next)
         born = bool(newborn.any())
-        if born or plan is None:
+        if born or a3 is None:
             if born:
                 nb = torch.from_numpy(newborn).to(device)[None]
                 T = T.masked_fill(nb, args.Ts)
             active = active_at(act, t_next)
-            plan = plan_of(active)
-            plans_built += 1
+            if clamp:
+                a3 = torch.from_numpy(active).to(device)[None] \
+                    .expand(grid.shape)
+            else:
+                plan = plan_of(active)
+                plans_built += 1
+                a3 = plan.active
         src = None
         if torch_source is not None:
-            src = torch_source(t + 0.5 * dt, plan.active)
-        T = masked_robin_solve(T, plan, grid, mat, dt=dt, source=src,
-                               implementation=args.implementation)
+            src = torch_source(t + 0.5 * dt, a3)
+        if clamp:
+            T = clamp_step(T, a3, src)
+        else:
+            T = masked_robin_solve(T, plan, grid, mat, dt=dt, source=src,
+                                   implementation=args.implementation)
         t = t_next
         if (i + 1) % frame_every == 0 or i == n_steps - 1:
             a_np = np.broadcast_to(active[None], grid.shape)

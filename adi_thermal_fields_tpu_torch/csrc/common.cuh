@@ -35,6 +35,44 @@ __device__ __forceinline__ T bit(unsigned code, unsigned b) {
   return (code & b) ? T(1) : T(0);
 }
 
+// IEEE round-to-nearest operations, one rounding each, never fused into an
+// FMA: a kernel written with them repeats its plain PyTorch version (one
+// tensor op per operation) bit for bit.
+__device__ __forceinline__ float add(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float mul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float div(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB only
+// after opting in); a refusal surfaces as the launch's error.
+template <typename K>
+inline void allow_dynamic_smem(K kernel, size_t bytes) {
+  if (bytes > 48 * 1024) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)bytes);
+  }
+}
+
 }  // namespace atf
 
 // Selects `device`, runs the statement with `T` bound to the field type

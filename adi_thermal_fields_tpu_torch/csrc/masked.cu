@@ -66,31 +66,10 @@
 
 namespace {
 
-// IEEE round-to-nearest operations, one rounding each, never fused
-__device__ __forceinline__ float add(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ double add(double a, double b) {
-  return __dadd_rn(a, b);
-}
-__device__ __forceinline__ float sub(float a, float b) {
-  return __fsub_rn(a, b);
-}
-__device__ __forceinline__ double sub(double a, double b) {
-  return __dsub_rn(a, b);
-}
-__device__ __forceinline__ float mul(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ float div(float a, float b) {
-  return __fdiv_rn(a, b);
-}
-__device__ __forceinline__ double div(double a, double b) {
-  return __ddiv_rn(a, b);
-}
+using atf::add;
+using atf::div;
+using atf::mul;
+using atf::sub;
 
 // d of a row: the pin value, the live rhs + fac*srhs, or the ambient
 template <typename T>

@@ -11,7 +11,7 @@ import torch
 
 from .build import build_library, load_library
 
-__all__ = ["use_kernel", "check_kernel_inputs", "dtype_code",
+__all__ = ["use_kernel", "check_kernel_inputs", "check_vectors", "dtype_code",
            "raise_on_error", "ptr", "stream_ptr", "build_library",
            "load_library"]
 
@@ -58,6 +58,16 @@ def check_kernel_inputs(name: str, ref: torch.Tensor, code: torch.Tensor,
             raise TypeError(f"{name}: {label} dtype {t.dtype} != {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous")
+
+
+def check_vectors(name: str, ref: torch.Tensor, n: int,
+                  *vecs: torch.Tensor) -> None:
+    """Validate per-row vectors: contiguous, shape (n,), ``ref``'s dtype."""
+    for v in vecs:
+        if v.shape != (n,) or v.dtype != ref.dtype or not v.is_contiguous():
+            raise ValueError(f"{name}: per-row vectors must be contiguous "
+                             f"({n},) {ref.dtype}, got {tuple(v.shape)} "
+                             f"{v.dtype}")
 
 
 def dtype_code(dtype: torch.dtype) -> int:

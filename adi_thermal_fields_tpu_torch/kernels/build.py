@@ -60,6 +60,10 @@ _SIGNATURES = {
     "atf_masked_sweep_z": ([_I, _I, *[_P] * 8, _I64, _I64, _D, _D, _P], _I),
     "atf_masked_cyclic_phi": ([_I, _I, *[_P] * 8, _I64, _I64, _I64, _D, _D,
                                _P], _I),
+    "atf_const_sweep_strided": ([_I, _I, *[_P] * 6, _I64, _I64, _P], _I),
+    "atf_const_sweep_z": ([_I, _I, *[_P] * 6, _I64, _I64, _P], _I),
+    "atf_cyclic_const_phi": ([_I, _I, _P, _P, _P, _I64, _I64, _I64, _P],
+                             _I),
     "atf_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,4 +1,5 @@
-"""Solvers: the plain Thomas solves and the eleven hand-written kernels.
+"""Solvers: the plain Thomas solves, the spectral phi solve and the fourteen
+hand-written kernels.
 
 Constant properties: K1 ``sweep_strided`` and K2 ``sweep_z`` (sweeps.py),
 K3 ``theta_rhs`` (stencil.py), K4 ``fused_theta_sweep`` (theta_sweep.py).
@@ -6,11 +7,17 @@ Variable properties: K5 ``varprop_fields``, K6 ``varprop_theta_sweep``
 and K7 ``varprop_sweep_y`` (varprop.py), K8 ``vp2_sweep_z`` (vp2.py).
 Masked-Robin cylindrical step: K9 ``masked_sweep_strided``, K10
 ``masked_sweep_z`` and K11 ``masked_cyclic_phi`` (masked.py).
+Unmasked cylindrical step: K12 ``const_sweep_strided``, K13
+``const_sweep_z`` and K14 ``cyclic_const_phi`` (const_sweeps.py).
 Each wrapper counts its CUDA launches in a ``launches`` attribute.
 """
+from .const_sweeps import (const_sweep_strided, const_sweep_strided_plain,
+                           const_sweep_z, const_sweep_z_plain,
+                           cyclic_const_phi, cyclic_const_phi_plain)
 from .masked import (masked_cyclic_phi, masked_cyclic_phi_plain,
                      masked_sweep_strided, masked_sweep_strided_plain,
                      masked_sweep_z, masked_sweep_z_plain)
+from .spectral import phi_eigenvalue_factors, phi_solve_spectral
 from .stencil import theta_rhs, theta_rhs_plain
 from .sweeps import (sweep_code, sweep_strided, sweep_strided_plain, sweep_z,
                      sweep_z_plain)
@@ -25,7 +32,9 @@ KERNELS = {"K1": sweep_strided, "K2": sweep_z, "K3": theta_rhs,
            "K4": fused_theta_sweep, "K5": varprop_fields,
            "K6": varprop_theta_sweep, "K7": varprop_sweep_y,
            "K8": vp2_sweep_z, "K9": masked_sweep_strided,
-           "K10": masked_sweep_z, "K11": masked_cyclic_phi}
+           "K10": masked_sweep_z, "K11": masked_cyclic_phi,
+           "K12": const_sweep_strided, "K13": const_sweep_z,
+           "K14": cyclic_const_phi}
 
 __all__ = ["thomas", "cyclic_thomas", "sweep_code", "sweep_strided", "sweep_strided_plain",
            "sweep_z", "sweep_z_plain", "theta_rhs", "theta_rhs_plain",
@@ -36,7 +45,11 @@ __all__ = ["thomas", "cyclic_thomas", "sweep_code", "sweep_strided", "sweep_stri
            "vp2_sweep_z_plain", "masked_sweep_strided",
            "masked_sweep_strided_plain", "masked_sweep_z",
            "masked_sweep_z_plain", "masked_cyclic_phi",
-           "masked_cyclic_phi_plain", "KERNELS", "launch_counts",
+           "masked_cyclic_phi_plain", "const_sweep_strided",
+           "const_sweep_strided_plain", "const_sweep_z",
+           "const_sweep_z_plain", "cyclic_const_phi",
+           "cyclic_const_phi_plain", "phi_eigenvalue_factors",
+           "phi_solve_spectral", "KERNELS", "launch_counts",
            "reset_launch_counts"]
 
 

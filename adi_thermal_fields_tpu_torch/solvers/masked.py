@@ -30,8 +30,9 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels import (check_kernel_inputs, dtype_code, load_library, ptr,
-                       raise_on_error, stream_ptr, use_kernel)
+from ..kernels import (check_kernel_inputs, check_vectors, dtype_code,
+                       load_library, ptr, raise_on_error, stream_ptr,
+                       use_kernel)
 from .thomas import cyclic_thomas, thomas
 
 __all__ = ["masked_sweep_strided", "masked_sweep_strided_plain",
@@ -88,20 +89,12 @@ def masked_cyclic_phi_plain(rhs, code, sink, srhs, geo, fac, ambient):
         .contiguous()
 
 
-def _check_vectors(name, ref, n, *vecs):
-    for v in vecs:
-        if v.shape != (n,) or v.dtype != ref.dtype or not v.is_contiguous():
-            raise ValueError(f"{name}: geometry vectors must be contiguous "
-                             f"({n},) {ref.dtype}, got {tuple(v.shape)} "
-                             f"{v.dtype}")
-
-
 def _sweep(name, entry, axis, rhs, code, sink, srhs, glo, ghi, fac,
            ambient):
     """Launch K9 (axis 0) or K10 (last axis) on CUDA tensors."""
     check_kernel_inputs(name, rhs, code, sink, srhs)
     n = rhs.shape[axis]
-    _check_vectors(name, rhs, n, glo, ghi)
+    check_vectors(name, rhs, n, glo, ghi)
     out = torch.empty_like(rhs)
     scratch = torch.empty_like(rhs)
     sizes = (n, rhs.numel() // n) if axis == 0 else (rhs.numel() // n, n)

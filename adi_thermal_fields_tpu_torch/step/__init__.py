@@ -1,11 +1,15 @@
-"""ADI steps: Cartesian (plain reference and kernel path) and the masked
+"""ADI steps: Cartesian (plain reference and kernel path), the unmasked
+cylindrical step with its ambient-clamp wrapper, and the masked-Robin
 cylindrical step."""
 from .cartesian import adi_step
 from .cartesian_fused import SweepPlan, adi_step_fused, build_sweep_plan
 from .cylindrical import RobinBC, ZFaceBC
+from .cylindrical import adi_step as adi_step_cylindrical
+from .cylindrical import adi_step_masked as adi_step_cylindrical_masked
 from .cylindrical_masked import (MaskedRobinPlan, adi_step_masked_robin,
                                  build_masked_robin_plan, masked_robin_solve)
 
 __all__ = ["adi_step", "SweepPlan", "build_sweep_plan", "adi_step_fused",
-           "RobinBC", "ZFaceBC", "MaskedRobinPlan", "build_masked_robin_plan",
+           "RobinBC", "ZFaceBC", "adi_step_cylindrical",
+           "adi_step_cylindrical_masked", "MaskedRobinPlan", "build_masked_robin_plan",
            "masked_robin_solve", "adi_step_masked_robin"]

@@ -47,12 +47,10 @@ from ..solvers.masked import (masked_cyclic_phi, masked_cyclic_phi_plain,
                               masked_sweep_strided,
                               masked_sweep_strided_plain, masked_sweep_z,
                               masked_sweep_z_plain)
-from .cylindrical import RobinBC, ZFaceBC
+from .cylindrical import IMPLEMENTATIONS, RobinBC, ZFaceBC
 
 __all__ = ["MaskedRobinPlan", "build_masked_robin_plan",
            "masked_robin_solve", "adi_step_masked_robin"]
-
-IMPLEMENTATIONS = ("kernels", "reference")
 
 
 class MaskedRobinPlan(NamedTuple):

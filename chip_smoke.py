@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's main paths once on one CUDA card, through their
-eleven hand-written kernels, and check every result.
+fourteen hand-written kernels, and check every result.
 
     python3 chip_smoke.py        # from the root of a checkout; one card
 
@@ -63,14 +63,33 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    ((32, 720, 200) = 4.6 M cells, 20 layers, 600 steps), float32, with the
    kernels and with the reference step: T finite, Tmax <= --Ts, every
    deposited column active at the end, the two runs within APP_TOL.
+7. The unmasked cylindrical step.  Its kernel part (run with phase 2):
+   K12 (r), K14 (phi, cyclic) and K13 (z) against their plain versions,
+   float32, on the coefficient vectors of the step at bench.py's
+   cylindrical configuration ((128, 512, 512), r_inner 20 mm, dr = dz =
+   0.5 mm, steel, dt 0.02 s, Robin h 300 outside, 400 on the top) and of a
+   (37, 203, 131) full disk (odd nphi, stiff axis rings, Dirichlet bottom):
+   max |delta| in float32 ulp of the output's scale, kernel and plain ms,
+   % of 3.35 TB/s at 8 B/cell, and the time of one PyTorch call computing
+   the same function (K12/K13: addmm by the dense inverse of the constant
+   per-row matrix, built once, TF32 off; K14: the spectral solve, rfft ->
+   divide -> irfft).  Its step part: the (128, 512, 512) step through
+   adi_step_cylindrical, backward Euler and then Douglas, kernels against
+   reference (thomas + FFT) after 3 steps within STEP_TOL, CUDA-event
+   ms/step after two warm-up steps, Gcell/s, and launches of exactly K12,
+   K13 and K14 once per step.  Its app part: phase 6's spiral app with
+   --void_mode clamp, kernels and reference: T finite, Tmax <= --Ts in
+   every frame, every deposited column active, the two runs within
+   APP_TOL, and more than 1 K from phase 6's robin-mode field somewhere.
 
 Each main path is driven with the launch counts set to 0 just before it
 and read just after it: phases 3 (constant properties) and 4 for K1-K4,
-phases 3 (variable properties) and 5 for K5-K8, then phase 6's step and
-app for K9-K11.  The line before the last is a JSON summary of the
-kernels (launches of those runs; each kernel's time at its main-path
-shape beside its bound, the least time for the bytes it must move and the
-operations it must do, and its plain version's time); the last line is
+phases 3 (variable properties) and 5 for K5-K8, phase 6's step and app
+for K9-K11, then phase 7's step and app for K12-K14.  The line before the
+last is a JSON summary of the kernels (launches of those runs; each
+kernel's time at its main-path shape beside its bound, the least time for
+the bytes it must move and the operations it must do, its plain version's
+time, and the PyTorch call's time where one exists); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import json
@@ -126,16 +145,23 @@ KERNEL_INFO = {
             "adi_thermal_fields_tpu/solvers/pallas_fields.py:655"),
     "K11": ("masked_cyclic_phi", "csrc/masked.cu",
             "adi_thermal_fields_tpu/solvers/pallas_fields.py:977"),
+    "K12": ("const_sweep_strided", "csrc/const_sweeps.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_sweeps.py:1567"),
+    "K13": ("const_sweep_z", "csrc/const_sweeps.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_sweeps.py:1567"),
+    "K14": ("cyclic_const_phi", "csrc/const_sweeps.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_sweeps.py:1727"),
 }
 # float32 operations per cell of each kernel's main variant, counted from
 # its source (adds, multiplies and divides of one row, the back
 # substitution, table segments evaluated; an estimate for the bound)
 OPS_PER_CELL = {"K1": 22, "K2": 22, "K3": 20, "K4": 42, "K5": 140,
                 "K6": 45, "K7": 25, "K8": 85, "K9": 20, "K10": 20,
-                "K11": 30}
+                "K11": 30, "K12": 6, "K13": 6, "K14": 9}
 CONST_KERNELS = ("K1", "K2", "K3", "K4")
 VP_KERNELS = ("K5", "K6", "K7", "K8")
 CYL_KERNELS = ("K9", "K10", "K11")
+BE_KERNELS = ("K12", "K13", "K14")
 # phase 6: the kernels' plans, the step (bench.py's masked-cylindrical
 # shape and BCs, dr = dz = 0.5 mm) and the spiral app
 CYL_SHAPES = (("64x512x1024 tube", (64, 512, 1024)),
@@ -145,6 +171,11 @@ P6_APP = ["--R_out", "60", "--wall_thickness", "8", "--height", "40",
           "--z_back", "10", "--nr", "32", "--nphi", "720", "--dz", "0.25",
           "--pitch", "2", "--auto_speed", "--t_tot", "30", "--dt_fixed",
           "0.05", "--out", "", "--nframes", "4"]
+# phase 7: bench.py's cylindrical case (annular, neumann0 bottom) and a
+# full disk with a Dirichlet bottom, both at 0.5 mm and dt 0.02 s
+P7_SHAPES = (("128x512x512 annular", (128, 512, 512)),
+             ("37x203x131 disk", (37, 203, 131)))
+P7_DT = 0.02
 VP_SHAPES = (P2_SHAPES[0], P2_SHAPES[2])
 # the varprop physics of phases 2, 3 and 5 (steel, the JAX app's defaults)
 SOLIDUS, LIQUIDUS, LATENT = 1420.0, 1470.0, 2.7e5
@@ -837,15 +868,18 @@ def phase6_step(torch, dev):
                 max_abs_err=err)
 
 
-def phase6_app(torch, dev):
-    """apps/spiral_tube on the 4.6 M-cell tube, kernels and reference."""
+def spiral_app(torch, dev, phase, extra=()):
+    """apps/spiral_tube on the 4.6 M-cell tube, kernels and reference;
+    ``extra``: flags added to P6_APP."""
     import numpy as np
     from adi_thermal_fields_tpu_torch.apps import spiral_tube as app
 
+    mode = " ".join(extra) or "--void_mode robin"
     runs = {}
     for impl in ("kernels", "reference"):
         args = app.build_argparser().parse_args(
-            P6_APP + ["--device", str(dev), "--implementation", impl])
+            P6_APP + list(extra) + ["--device", str(dev),
+                                    "--implementation", impl])
         t0 = time.perf_counter()
         res = app.run(args)
         torch.cuda.synchronize()
@@ -855,7 +889,7 @@ def phase6_app(torch, dev):
         a3 = torch.from_numpy(np.ascontiguousarray(res["active"])).to(dev)
         tmax = float(T[a3[None].expand(T.shape)].max())
         deposited = np.isfinite(res["activation_times"])
-        print(f"[phase 6] spiral app f32 {impl:9s}: grid "
+        print(f"[phase {phase}] spiral app {mode} f32 {impl:9s}: grid "
               f"{res['grid'].shape} ({res['grid'].ncells / 1e6:.2f} M "
               f"cells), {res['steps']} steps, {res['plans_built']} plan "
               f"builds, {int(deposited.sum())} deposited columns, wall "
@@ -870,13 +904,174 @@ def phase6_app(torch, dev):
               f"spiral app {impl}: a deposited column is not active")
     diff = (runs["kernels"][0]["T"] - runs["reference"][0]["T"]).abs()
     err = float(diff.max())
-    print(f"[phase 6] spiral app: max|T_kernels - T_reference| = "
+    print(f"[phase {phase}] spiral app {mode}: max|T_kernels - "
+          f"T_reference| = "
           f"{err:.3e} K ({int((diff > APP_TOL).sum())} cells above "
           f"{APP_TOL} K)", flush=True)
     check(err <= APP_TOL, f"spiral app: kernels vs reference {err:.3e} K "
           f"> {APP_TOL} K")
     return dict(wall_kernels=runs["kernels"][1],
-                wall_reference=runs["reference"][1], max_abs_err=err)
+                wall_reference=runs["reference"][1], max_abs_err=err,
+                T_kernels=runs["kernels"][0]["T"])
+
+
+def be_case(label, shape):
+    """Grid, material and BCs of a phase 7 configuration."""
+    from adi_thermal_fields_tpu_torch import (CylindricalGrid, Material,
+                                              RobinBC, ZFaceBC)
+    annular = label.endswith("annular")
+    grid = CylindricalGrid(*shape, 5e-4, 5e-4,
+                           r_inner=0.02 if annular else 0.0)
+    zbc = ZFaceBC(kind_bot="neumann0" if annular else "dirichlet",
+                  T_bot=200.0, kind_top="robin", h_top=400.0, T_inf_top=20.0)
+    return grid, Material(7800.0, 490.0, 54.0), RobinBC(300.0, 20.0), zbc
+
+
+def dense_inverse_call(torch, vecs, axis, R):
+    """One PyTorch call computing K12's (axis 0) or K13's (last axis)
+    function on R: addmm by the dense inverse of the constant per-row
+    matrix (inverted in float64 once, rounded to R's dtype), with the
+    inverse applied to radd folded into the bias."""
+    a, b, c, radd = (v.double() for v in vecs)
+    n = a.numel()
+    A = torch.diag(b) + torch.diag(a[1:], -1) + torch.diag(c[:-1], 1)
+    inv = torch.linalg.inv(A)
+    w = (inv @ radd).to(R.dtype)
+    inv = inv.to(R.dtype)
+    if axis == 0:
+        d2, bias = R.view(n, -1), w[:, None]
+        return lambda: torch.addmm(bias, inv, d2)
+    d2, bias, inv_t = R.view(-1, n), w[None, :], inv.T.contiguous()
+    return lambda: torch.addmm(bias, d2, inv_t)
+
+
+def phase2_be(torch, dev):
+    """K12-K14 against their plain versions (float32), and the PyTorch
+    call computing each one's function."""
+    from adi_thermal_fields_tpu_torch.solvers import (
+        const_sweep_strided, const_sweep_strided_plain, const_sweep_z,
+        const_sweep_z_plain, cyclic_const_phi, cyclic_const_phi_plain,
+        phi_solve_spectral)
+    from adi_thermal_fields_tpu_torch.step import cylindrical as cyl
+
+    f32 = torch.float32
+    eps32 = torch.finfo(f32).eps
+    rows = []
+    for label, shape in P7_SHAPES:
+        grid, mat, rob, zbc = be_case(label, shape)
+        R = random_field(torch, torch.ones(shape, dtype=torch.bool,
+                                           device=dev), seed=23)
+        # the step's own coefficient vectors
+        r_vecs = cyl._r_coefficients(grid, mat, rob, None, P7_DT, f32, dev)
+        z_vecs, _ = cyl._z_coefficients(grid, mat, zbc, P7_DT, f32, dev)
+        fac = cyl._phi_fac(grid, mat, 1.0, P7_DT, f32, dev)
+        variants = [
+            ("K12", "r", r_vecs,
+             lambda: const_sweep_strided(R, *r_vecs),
+             lambda: const_sweep_strided_plain(R, *r_vecs),
+             dense_inverse_call(torch, r_vecs, 0, R)),
+            ("K14", "phi (cyclic)", (fac,),
+             lambda: cyclic_const_phi(R, fac),
+             lambda: cyclic_const_phi_plain(R, fac),
+             lambda: phi_solve_spectral(R, grid, mat, 1.0, P7_DT)),
+            ("K13", "z", z_vecs,
+             lambda: const_sweep_z(R, *z_vecs),
+             lambda: const_sweep_z_plain(R, *z_vecs),
+             dense_inverse_call(torch, z_vecs, 2, R)),
+        ]
+        cells = R.numel()
+        for kname, vname, ins, kern, plain, lib in variants:
+            got, want, lib_out = kern(), plain(), lib().view(shape)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()),
+                  f"{kname} {vname} {label}: non-finite output")
+            err = float((got - want).abs().max())
+            ulps = err / (eps32 * float(want.abs().max()))
+            lib_err = float((lib_out - want).abs().max())
+            # the field read once and written once, and the vectors
+            nbytes = 2 * R.numel() * R.element_size() + sum(
+                t.numel() * t.element_size() for t in ins)
+            ms = cuda_ms(torch, kern, 20)
+            plain_ms = cuda_ms(torch, plain, 3)
+            lib_ms = cuda_ms(torch, lib, 10)
+            pct = 100.0 * nbytes / (ms * 1e-3) / HBM_BYTES_PER_S
+            rows.append(dict(kernel=kname, variant=vname, shape=label,
+                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bytes_per_cell=nbytes / cells,
+                             pct_hbm=pct, **bound(kname, nbytes, cells)))
+            print(f"[phase 2] {kname} {vname:32s} {label:20s} "
+                  f"max|d|={err:.3e} K ({ulps:.2f} ulp of scale, tol "
+                  f"{KERNEL_TOL_ULP})  kernel {ms:8.3f} ms  plain "
+                  f"{plain_ms:9.3f} ms  {pct:5.1f}% of 3.35 TB/s at "
+                  f"{nbytes / cells:.2f} B/cell; PyTorch call {lib_ms:8.3f} "
+                  f"ms (max|d| {lib_err:.3e} K)", flush=True)
+            check(ulps <= KERNEL_TOL_ULP, f"{kname} {vname} {label}: "
+                  f"{ulps:.2f} float32 ulp of the output's scale > "
+                  f"{KERNEL_TOL_ULP}")
+            del got, want, lib_out
+        del R, variants
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase7_step(torch, dev):
+    """The (128, 512, 512) float32 unmasked step, BE then Douglas, kernels
+    against reference."""
+    from adi_thermal_fields_tpu_torch import adi_step_cylindrical
+    from adi_thermal_fields_tpu_torch.solvers import launch_counts
+
+    label, shape = P7_SHAPES[0]
+    grid, mat, rob, zbc = be_case(label, shape)
+    T0 = random_field(torch, torch.ones(shape, dtype=torch.bool, device=dev),
+                      seed=31)
+    per_step = {k: int(k in BE_KERNELS) for k in KERNEL_INFO}
+    out = {}
+    for scheme in ("be", "douglas"):
+        res = {}
+        for impl in ("kernels", "reference"):
+            def step(T):
+                return adi_step_cylindrical(
+                    T, grid, mat, dt=P7_DT, robin_outer=rob, zbc=zbc,
+                    scheme=scheme, implementation=impl)
+            before = launch_counts()
+            T = T0
+            for _ in range(P3_WARMUP):
+                T = step(T)
+            torch.cuda.synchronize()
+            T, step_ms = T0, []
+            for _ in range(P3_STEPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                T = step(T)
+                end.record()
+                end.synchronize()
+                step_ms.append(start.elapsed_time(end))
+            delta = {k: v - before[k] for k, v in launch_counts().items()}
+            want = {k: (P3_WARMUP + P3_STEPS) * v if impl == "kernels"
+                    else 0 for k, v in per_step.items()}
+            check(delta == want, f"phase 7 {scheme} {impl}: launches "
+                  f"{delta} != expected {want}")
+            check(bool(torch.isfinite(T).all()), f"phase 7 {scheme} {impl}: "
+                  "non-finite T")
+            ms = statistics.median(step_ms)
+            res[impl] = (T, ms)
+            print(f"[phase 7] {label} f32 {scheme} step {impl:9s}: "
+                  f"{ms:9.3f} ms/step (median; steps "
+                  f"{', '.join(f'{s:.3f}' for s in step_ms)})  "
+                  f"{grid.ncells / (ms * 1e-3) / 1e9:7.3f} Gcell/s  launches "
+                  f"{ {k: v for k, v in delta.items() if v} }", flush=True)
+        err = float((res["kernels"][0] - res["reference"][0]).abs().max())
+        print(f"[phase 7] {scheme}: max|T_kernels - T_reference| = {err:.3e} "
+              f"K after {P3_STEPS} steps", flush=True)
+        check(err <= STEP_TOL, f"phase 7 {scheme} step: {err:.3e} K > "
+              f"{STEP_TOL}")
+        out[scheme] = dict(ms_kernels=res["kernels"][1],
+                           ms_reference=res["reference"][1],
+                           max_abs_err=err)
+        del res
+        torch.cuda.empty_cache()
+    return out
 
 
 def main():
@@ -888,7 +1083,7 @@ def main():
     name, _ = phase0(torch)
     phase1()
     rows = phase2(torch, dev) + phase2_varprop(torch, dev) \
-        + phase2_cyl(torch, dev)
+        + phase2_cyl(torch, dev) + phase2_be(torch, dev)
 
     from adi_thermal_fields_tpu_torch.solvers import (launch_counts,
                                                       reset_launch_counts)
@@ -907,15 +1102,21 @@ def main():
     counts_v = launch_counts()
     reset_launch_counts()
     phase6_step(torch, dev)
-    phase6_app(torch, dev)
+    p6 = spiral_app(torch, dev, 6)
     counts_y = launch_counts()
+    reset_launch_counts()
+    phase7_step(torch, dev)
+    p7 = spiral_app(torch, dev, 7, ("--void_mode", "clamp"))
+    counts_b = launch_counts()
     d32 = float((p5_32["T_kernels"].double() - p5["T_kernels"]).abs().max())
     print(f"[phase 5] max|T_float32 - T_float64| (kernels) = {d32:.3e} K",
           flush=True)
     for path, counts_p, mine in (("constant-property", counts_c,
                                   CONST_KERNELS),
                                  ("variable-property", counts_v, VP_KERNELS),
-                                 ("cylindrical", counts_y, CYL_KERNELS)):
+                                 ("cylindrical", counts_y, CYL_KERNELS),
+                                 ("unmasked cylindrical", counts_b,
+                                  BE_KERNELS)):
         check(all(counts_p[k] > 0 if k in mine else counts_p[k] == 0
                   for k in KERNEL_INFO),
               f"the {path} path's launches: {counts_p}")
@@ -923,30 +1124,39 @@ def main():
     print(f"[phase 5] max|T_varprop - T_constant| = {d45:.3e} K", flush=True)
     check(d45 > 1.0, "the varprop flags changed the app's field by "
           f"{d45:.3e} K <= 1 K: they do not reach the step")
+    d67 = float((p7["T_kernels"] - p6["T_kernels"]).abs().max())
+    print(f"[phase 7] max|T_clamp - T_robin| (kernels) = {d67:.3e} K",
+          flush=True)
+    check(d67 > 1.0, "--void_mode clamp changed the spiral app's field by "
+          f"{d67:.3e} K <= 1 K: the flag does not reach the step")
     counts = {**{k: counts_c[k] for k in CONST_KERNELS},
               **{k: counts_v[k] for k in VP_KERNELS},
-              **{k: counts_y[k] for k in CYL_KERNELS}}
+              **{k: counts_y[k] for k in CYL_KERNELS},
+              **{k: counts_b[k] for k in BE_KERNELS}}
 
     main_variant = {"K1": "lite y", "K2": "lite z", "K3": "stencil",
                     "K4": "stencil + lite x", "K5": "fields + rad",
                     "K6": "theta + x, h stream", "K7": "y, h stream",
                     "K8": "z, rad", "K9": "r", "K10": "z",
-                    "K11": "phi (cyclic)"}
+                    "K11": "phi (cyclic)", "K12": "r", "K13": "z",
+                    "K14": "phi (cyclic)"}
     summary = []
     for k, (fn, src, replaces) in KERNEL_INFO.items():
         mine = [r for r in rows if r["kernel"] == k]
-        shape = CYL_SHAPES[0][0] if k in CYL_KERNELS else P2_SHAPES[0][0]
+        shape = (CYL_SHAPES[0][0] if k in CYL_KERNELS else P7_SHAPES[0][0]
+                 if k in BE_KERNELS else P2_SHAPES[0][0])
         ref = next(r for r in mine if r["variant"] == main_variant[k]
                    and r["shape"] == shape)
-        # no PyTorch call computes a batched (cyclic) tridiagonal solve or
-        # these masked stencils and table passes: library_ms is null
+        # K1-K11: no PyTorch call computes these masked (cyclic)
+        # tridiagonal solves, stencils or table passes: library_ms is null
         summary.append({"name": f"{k} {fn}", "route": "cuda",
                         "source": f"{PKG}/{src}", "replaces": replaces,
                         "launches": counts[k],
                         "max_abs_err": max(r["max_abs_err"] for r in mine),
                         "ms": ref["ms"], "plain_ms": ref["plain_ms"],
                         "bound_ms": ref["bound_ms"],
-                        "bound_by": ref["bound_by"], "library_ms": None})
+                        "bound_by": ref["bound_by"],
+                        "library_ms": ref.get("library_ms")})
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

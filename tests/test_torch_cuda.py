@@ -10,8 +10,9 @@ the inputs' scale (fields up to 1500 C after a solve): float64 1e-9 K,
 float32 2e-3 K (~16 ulp; division vs reciprocal-multiply and FMA
 contraction).  The variable-property kernels K5-K8 are held to the same
 bounds relative to each output's scale (face conductivities, 1/(rho cp)
-and films are not temperatures).  chip_smoke.py runs the same comparisons
-at full size.
+and films are not temperatures), and so are the cylindrical sweeps K9-K14,
+whose stiff phi systems near a full disk's axis amplify one rounding.
+chip_smoke.py runs the same comparisons at full size.
 """
 import numpy as np
 import pytest
@@ -21,7 +22,9 @@ from adi_thermal_fields_tpu_torch import apparent_cp, melt_pool_enhanced_k
 from adi_thermal_fields_tpu_torch import (CylindricalGrid, Material, RobinBC,
                                           ZFaceBC, build_masked_robin_plan)
 from adi_thermal_fields_tpu_torch.solvers import (
-    build_vp2_code, fused_theta_sweep, fused_theta_sweep_plain,
+    build_vp2_code, const_sweep_strided, const_sweep_strided_plain,
+    const_sweep_z, const_sweep_z_plain, cyclic_const_phi,
+    cyclic_const_phi_plain, fused_theta_sweep, fused_theta_sweep_plain,
     launch_counts, masked_cyclic_phi, masked_cyclic_phi_plain,
     masked_sweep_strided, masked_sweep_strided_plain, masked_sweep_z,
     masked_sweep_z_plain, reset_launch_counts, sweep_code, sweep_strided,
@@ -29,6 +32,7 @@ from adi_thermal_fields_tpu_torch.solvers import (
     varprop_fields, varprop_fields_plain, varprop_sweep_y,
     varprop_sweep_y_plain, varprop_theta_sweep, varprop_theta_sweep_plain,
     vp2_sweep_z, vp2_sweep_z_plain)
+from adi_thermal_fields_tpu_torch.step import cylindrical as pcyl
 
 TG, DT, TINF, ROB = 0.21, 0.05, 20.0, 0.0031
 C_EXP, INV = 3.5e-7, (1.0e6, 1.1e6, 0.9e6)
@@ -82,9 +86,8 @@ def test_kernels_match_plain_on_card(dtype, tol):
     for got, want in pairs:
         assert got.is_cuda and got.dtype == dtype
         assert float((got - want).abs().max()) <= tol
-    assert launch_counts() == {"K1": 4, "K2": 1, "K3": 1, "K4": 1, "K5": 0,
-                               "K6": 0, "K7": 0, "K8": 0, "K9": 0, "K10": 0,
-                               "K11": 0}
+    assert launch_counts() == {**{f"K{i}": 0 for i in range(1, 15)},
+                               "K1": 4, "K2": 1, "K3": 1, "K4": 1}
 
 
 def _flat(out):
@@ -145,9 +148,8 @@ def test_varprop_kernels_match_plain_on_card(dtype, rel):
         for a, b in zip(_flat(got), _flat(want)):
             assert a.is_cuda and a.dtype == dtype
             assert float((a - b).abs().max()) <= rel * float(b.abs().max())
-    assert launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 2,
-                               "K6": 2, "K7": 2, "K8": 2, "K9": 0, "K10": 0,
-                               "K11": 0}
+    assert launch_counts() == {**{f"K{i}": 0 for i in range(1, 15)},
+                               "K5": 2, "K6": 2, "K7": 2, "K8": 2}
 
 
 @pytest.mark.cuda
@@ -187,5 +189,43 @@ def test_masked_kernels_match_plain_on_card(dtype, rel, r_inner, kind_bot):
         assert got.is_cuda and got.dtype == dtype
         assert float((got - want).abs().max()) <= rel * float(
             want.abs().max())
-    assert launch_counts() == {**{f"K{i}": 0 for i in range(1, 9)},
+    assert launch_counts() == {**{f"K{i}": 0 for i in range(1, 15)},
                                "K9": 1, "K10": 1, "K11": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float64, 1e-12),
+                                       (torch.float32, 8 * 2.0 ** -23)],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("nphi,r_inner,kind_bot", [
+    (45, 0.02, "neumann0"), (45, 0.0, "dirichlet"), (2, 0.0, "dirichlet")],
+    ids=["annular-odd", "disk-odd-dirichlet", "disk-nphi2-dirichlet"])
+def test_const_kernels_match_plain_on_card(dtype, rel, nphi, r_inner,
+                                           kind_bot):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(29)
+    grid = CylindricalGrid(37, nphi, 70, 5e-4, 5e-4, r_inner=r_inner)
+    mat = Material(7800.0, 490.0, 54.0)
+    rob = RobinBC(300.0, 20.0)
+    zbc = ZFaceBC(kind_bot=kind_bot, T_bot=140.0, kind_top="robin",
+                  h_top=400.0)
+    R = torch.from_numpy(20.0 + 1480.0 * rng.random(grid.shape)).to(dev,
+                                                                    dtype)
+    r_vecs = pcyl._r_coefficients(grid, mat, rob, RobinBC(150.0, 30.0), DT,
+                                  dtype, dev)
+    z_vecs, _ = pcyl._z_coefficients(grid, mat, zbc, DT, dtype, dev)
+    fac = pcyl._phi_fac(grid, mat, 1.0, DT, dtype, dev)
+    reset_launch_counts()
+    pairs = [(const_sweep_strided(R, *r_vecs),
+              const_sweep_strided_plain(R, *r_vecs)),
+             (cyclic_const_phi(R, fac), cyclic_const_phi_plain(R, fac)),
+             (const_sweep_z(R, *z_vecs), const_sweep_z_plain(R, *z_vecs))]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert got.is_cuda and got.dtype == dtype
+        assert float((got - want).abs().max()) <= rel * float(
+            want.abs().max())
+    assert launch_counts() == {**{f"K{i}": 0 for i in range(1, 15)},
+                               "K12": 1, "K13": 1, "K14": 1}

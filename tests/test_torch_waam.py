@@ -86,6 +86,9 @@ def test_port_imports_no_jax():
             "import adi_thermal_fields_tpu_torch.birth.spiral\n"
             "import adi_thermal_fields_tpu_torch.solvers.masked\n"
             "import adi_thermal_fields_tpu_torch.step.cylindrical_masked\n"
+            "import adi_thermal_fields_tpu_torch.step.cylindrical\n"
+            "import adi_thermal_fields_tpu_torch.solvers.const_sweeps\n"
+            "import adi_thermal_fields_tpu_torch.solvers.spectral\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax',\n"
             "                                    'adi_thermal_fields_tpu'))\n"
