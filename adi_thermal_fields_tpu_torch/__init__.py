@@ -9,9 +9,11 @@ Dirichlet pins; its variable-property step: k(T) and cp(T) tables
 (latent heat, melt-pool conductivity) and the radiative film with scalar
 convective h; and the cylindrical spiral-tube path: the masked-Robin
 (r, phi, z) backward-Euler step with element birth by a spiral schedule,
-and the unmasked cylindrical step (backward Euler and Douglas-Gunn) with
-its ambient-clamp birth wrapper.  They run on CUDA kernels written by hand
-for the H100 (csrc/):
+the unmasked cylindrical step (backward Euler and Douglas-Gunn) with
+its ambient-clamp birth wrapper, and the variable-property cylindrical
+step (tables, radiation, backward Euler and Douglas-Gunn, face-cut or
+clamp birth).  They run on CUDA kernels written by hand for the H100
+(csrc/):
 
 * K1 ``solvers.sweeps.sweep_strided`` — masked sweep along x or y;
 * K2 ``solvers.sweeps.sweep_z`` — plan-lite sweep along contiguous z;
@@ -35,7 +37,14 @@ for the H100 (csrc/):
 * K13 ``solvers.const_sweeps.const_sweep_z`` — the constant-row sweep
   along contiguous z;
 * K14 ``solvers.const_sweeps.cyclic_const_phi`` — the constant-coefficient
-  periodic phi solve.
+  periodic phi solve;
+* K15 ``solvers.vp2.vp2_sweep_strided`` — the tier-2 r sweep deriving k,
+  cp and films from T (K8's general form takes z);
+* K16 ``solvers.vp2.vp2_cyclic_phi`` — the tier-2 periodic phi sweep;
+* K17 ``solvers.vpfields.vp_fields_sweep_strided`` — the five-stream
+  sweep (r, and z on a permutation);
+* K18 ``solvers.vpfields.vp_fields_cyclic_phi`` — the five-stream
+  periodic phi sweep.
 
 Each kernel wrapper runs its plain PyTorch version on CPU tensors and the
 kernel on CUDA tensors (built from csrc/*.cu at first use).
@@ -58,6 +67,9 @@ from .solvers.spectral import phi_solve_spectral
 from .step.cylindrical_masked import (MaskedRobinPlan, adi_step_masked_robin,
                                       build_masked_robin_plan,
                                       masked_robin_solve)
+from .step.cylindrical_varprop import (adi_step_cyl_varprop,
+                                       adi_step_cyl_varprop_masked,
+                                       build_cyl_vp2_plan)
 from .bc.radiation import STEFAN_BOLTZMANN, radiative_h
 
 __version__ = "0.1.0"
@@ -71,4 +83,6 @@ __all__ = ["CartesianGrid", "Material", "FACES", "exposed_face",
            "STEFAN_BOLTZMANN", "radiative_h", "CylindricalGrid", "RobinBC",
            "ZFaceBC", "adi_step_cylindrical", "adi_step_cylindrical_masked",
            "phi_solve_spectral", "MaskedRobinPlan", "build_masked_robin_plan",
-           "masked_robin_solve", "adi_step_masked_robin"]
+           "masked_robin_solve", "adi_step_masked_robin",
+           "adi_step_cyl_varprop", "adi_step_cyl_varprop_masked",
+           "build_cyl_vp2_plan"]

@@ -3,19 +3,27 @@ PyTorch port.
 
 Counterpart: ``adi_thermal_fields_tpu/apps/spiral_tube.py`` —
 ``build_argparser`` (:30, the same flags and defaults) and ``run`` (:131)
-on one device with ``--scheme be`` and constant properties, optionally
-with the moving Gaussian torch (``--torch_Q``/``--torch_sigma``).  The
-nozzle sweeps arcs layer by layer, activating (phi, z) columns of an
-annular wall from a float64 activation-time table kept on the host
-(birth/spiral.py).  Each fixed step runs, with ``--void_mode robin`` (the
-default), the masked-Robin cylindrical step (step/cylindrical_masked.py)
-on K9, K11 and K10; its plan depends only on the active mask, so it is
-rebuilt only on steps in which a column is born, which the host knows from
-the activation times without a device sync.  With ``--void_mode clamp``
-it runs the ambient-clamp wrapper of the unmasked step
-(step/cylindrical.adi_step_masked, the JAX app's :314-321) on K12, K14 and
-K13, which needs no plan.  The host syncs with the device only at
-frames.
+on one device, optionally with the moving Gaussian torch
+(``--torch_Q``/``--torch_sigma``).  The nozzle sweeps arcs layer by layer,
+activating (phi, z) columns of an annular wall from a float64
+activation-time table kept on the host (birth/spiral.py).  Each fixed step
+runs, with ``--void_mode robin`` (the default), the masked-Robin
+cylindrical step (step/cylindrical_masked.py) on K9, K11 and K10; its plan
+depends only on the active mask, so it is rebuilt only on steps in which a
+column is born, which the host knows from the activation times without a
+device sync.  With ``--void_mode clamp`` it runs the ambient-clamp wrapper
+of the unmasked step (step/cylindrical.adi_step_masked, the JAX app's
+:314-321) on K12, K14 and K13, which needs no plan.
+
+The variable-property flags ``--latent_J_kg`` (apparent cp over
+``--solidus_C``..``--liquidus_C``), ``--melt_k_factor`` (the melt-pool
+conductivity proxy), ``--emissivity`` (the radiative film on every exposed
+surface) and ``--scheme douglas`` switch the run onto the cylindrical
+varprop step (step/cylindrical_varprop.py), as the JAX app does (:185-215,
+:282-305): in robin mode with ``active`` and the interface films, in clamp
+mode through its clamp wrapper.  Backward Euler runs K15, K16 and K8 (the
+robin mode rebuilds their codes only on steps with a birth), Douglas K17,
+K18 and K17.  The host syncs with the device only at frames.
 
 Example (on a CUDA machine):
     python -m adi_thermal_fields_tpu_torch.apps.spiral_tube --R_out 32 \\
@@ -82,19 +90,20 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--precision", choices=["float32", "float64"],
                    default="float32")
     p.add_argument("--scheme", choices=["be", "douglas"], default="be")
-    # variable-property physics and the other JAX-app flags: parsed so
-    # that they exit with a message
+    # variable-property physics
     p.add_argument("--latent_J_kg", type=float, default=0.0)
     p.add_argument("--solidus_C", type=float, default=1420.0)
     p.add_argument("--liquidus_C", type=float, default=1510.0)
     p.add_argument("--melt_k_factor", type=float, default=1.0)
     p.add_argument("--emissivity", type=float, default=0.0)
+    # moving torch
     p.add_argument("--torch_Q", type=float, default=0.0,
                    help="moving torch power [W]: a Gaussian volumetric "
                         "source of width --torch_sigma centred on the "
                         "nozzle, normalized so its domain integral is Q")
     p.add_argument("--torch_sigma", type=float, default=3.0,
                    help="torch Gaussian sigma [mm]")
+    # the other JAX-app flags: parsed so that they exit with a message
     p.add_argument("--history_t_crit", type=str, default=None)
     p.add_argument("--history_out", type=str, default="spiral_history.npz")
     p.add_argument("--mesh", type=str, default="")
@@ -106,21 +115,15 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="torch device; the run raises when CUDA is absent")
     p.add_argument("--implementation", choices=["kernels", "reference"],
                    default="kernels",
-                   help="kernels: K9-K11 (clamp: K12-K14) on CUDA, plain "
-                        "versions on CPU; reference: the plain step")
+                   help="kernels: K9-K11 (clamp: K12-K14; varprop flags: "
+                        "K8 and K15-K18) on CUDA, plain versions on CPU; "
+                        "reference: the plain step")
     return p
 
 
 def _reject_unsupported(args) -> None:
     """Exit with a message for flags this port does not support yet."""
-    varprop = ("the cylindrical variable-property step (TPU kernel rows "
-               "22 solve-leading to 26)")
     bad = [f"{name}: needs {need}" for name, on, need in (
-        # the JAX app sends every douglas run through the varprop step
-        ("--scheme douglas", args.scheme != "be", varprop),
-        ("--latent_J_kg", args.latent_J_kg > 0.0, varprop),
-        ("--melt_k_factor", args.melt_k_factor != 1.0, varprop),
-        ("--emissivity", args.emissivity > 0.0, varprop),
         ("--mesh", bool(args.mesh), "the multi-device layer"),
         ("--history_t_crit", args.history_t_crit is not None,
          "the thermal-history tracker"),
@@ -142,6 +145,9 @@ def run(args) -> dict:
     from ..step.cylindrical import RobinBC, ZFaceBC, adi_step_masked
     from ..step.cylindrical_masked import (build_masked_robin_plan,
                                            masked_robin_solve)
+    from ..step.cylindrical_varprop import (adi_step_cyl_varprop,
+                                            adi_step_cyl_varprop_masked,
+                                            build_cyl_vp2_plan)
 
     _reject_unsupported(args)
     device = torch.device(args.device)
@@ -195,6 +201,43 @@ def run(args) -> dict:
     dtype = {"float32": torch.float32, "float64": torch.float64}[
         args.precision]
 
+    # variable-property physics: latent heat (apparent cp) and the
+    # melt-pool conductivity proxy switch the run onto the varprop step
+    k_table = cp_table = None
+    if args.latent_J_kg > 0:
+        from ..step.cartesian_varprop import apparent_cp
+        cp_table = apparent_cp(args.cp, args.cp, args.latent_J_kg,
+                               args.solidus_C, args.liquidus_C)
+        log(f"latent heat {args.latent_J_kg:.3g} J/kg over "
+            f"{args.solidus_C:g}-{args.liquidus_C:g} C (apparent cp)",
+            tag="varprop")
+    if args.melt_k_factor != 1.0:
+        from ..step.cartesian_varprop import melt_pool_enhanced_k
+        k_table = melt_pool_enhanced_k(args.k, args.solidus_C,
+                                       args.liquidus_C,
+                                       enhancement=args.melt_k_factor)
+        log(f"melt-pool k proxy: {args.melt_k_factor:g}x above "
+            f"{args.liquidus_C:g} C", tag="varprop")
+    if args.emissivity > 0.0:
+        log(f"radiative film: eps={args.emissivity:g} on every exposed "
+            "surface (Picard h_rad(T))", tag="varprop")
+    varprop = (k_table is not None or cp_table is not None
+               or args.emissivity > 0.0 or args.scheme != "be")
+    if args.scheme != "be" and k_table is None and cp_table is None \
+            and args.emissivity == 0.0:
+        log("scheme=douglas routes through the varprop step with constant "
+            "tables (identical physics, second-order time)", tag="scheme")
+    if args.emissivity > 0.0 and clamp:
+        log("clamp void mode: radiation applies on the domain faces only "
+            "(the clamp scheme has no material/void interface films)",
+            tag="varprop")
+    # the tier-2 route (K15, K16, K8) reads codes that depend on the mask
+    vp2_codes = (varprop and not clamp and args.scheme == "be"
+                 and args.implementation == "kernels")
+    vp_kw = dict(k_table=k_table, cp_table=cp_table,
+                 emissivity=args.emissivity, scheme=args.scheme,
+                 implementation=args.implementation)
+
     def plan_of(active2d):
         a3 = torch.from_numpy(active2d).to(device)[None].expand(grid.shape)
         a3 = a3.contiguous()
@@ -241,10 +284,20 @@ def run(args) -> dict:
     frame_every = max(1, n_steps // max(1, args.nframes))
 
     def clamp_step(T, a3, src):
+        if varprop:
+            return adi_step_cyl_varprop_masked(
+                T, grid, mat, dt=dt, robin_outer=rob, zbc=zbc, active=a3,
+                robin_inner=rob, robin_void=rob_void, source=src, **vp_kw)
         return adi_step_masked(T, grid, mat, dt=dt, robin_outer=rob,
                                zbc=zbc, active=a3, robin_inner=rob,
                                robin_void=rob_void, source=src,
                                implementation=args.implementation)
+
+    def varprop_step(T, a3, src, codes):
+        return adi_step_cyl_varprop(
+            T, grid, mat, dt=dt, robin_outer=rob, zbc=zbc, robin_inner=rob,
+            active=a3, h_void=h_void, T_inf_void=args.T_inf,
+            h_front=args.h_end, source=src, vp2_plan=codes, **vp_kw)
 
     frames = []
     plan = a3 = None
@@ -262,6 +315,12 @@ def run(args) -> dict:
             if clamp:
                 a3 = torch.from_numpy(active).to(device)[None] \
                     .expand(grid.shape)
+            elif varprop:
+                a3 = torch.from_numpy(active).to(device)[None] \
+                    .expand(grid.shape).contiguous()
+                if vp2_codes:
+                    plan = build_cyl_vp2_plan(a3, grid, zbc)
+                    plans_built += 1
             else:
                 plan = plan_of(active)
                 plans_built += 1
@@ -271,6 +330,8 @@ def run(args) -> dict:
             src = torch_source(t + 0.5 * dt, a3)
         if clamp:
             T = clamp_step(T, a3, src)
+        elif varprop:
+            T = varprop_step(T, a3, src, plan)
         else:
             T = masked_robin_solve(T, plan, grid, mat, dt=dt, source=src,
                                    implementation=args.implementation)

@@ -30,6 +30,8 @@ def radiative_h(T: torch.Tensor, emissivity, t_inf, *, celsius: bool = True,
     ``T``'s precision, as the JAX function does."""
     off = 273.15 if celsius else 0.0
     Tk = T + off
-    Tik = torch.as_tensor(t_inf, dtype=T.dtype, device=T.device) + off
+    # a device fill, not a host-to-device copy (which would stall the host
+    # on the stream)
+    Tik = torch.full((), float(t_inf), dtype=T.dtype, device=T.device) + off
     h = emissivity * STEFAN_BOLTZMANN * (Tk + Tik) * (Tk * Tk + Tik * Tik)
     return h + h_conv

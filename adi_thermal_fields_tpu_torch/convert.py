@@ -22,7 +22,10 @@ tensors on a chosen device:
 * ``masked_plan_from_jax(plan)``: step/cylindrical_masked.MaskedRobinPlan
   from the ``compressed`` inputs of a JAX ``MaskedRobinPlan``: int8 codes
   as uint8, the z code, sink and srhs moved from the JAX (z, r, phi)
-  layout to the natural (r, phi, z) layout, the geometry as tensors.
+  layout to the natural (r, phi, z) layout, the geometry as tensors;
+* ``cyl_vp2_plan_from_jax(plan)``: the port's ``build_cyl_vp2_plan`` codes
+  from a JAX ``build_cyl_vp2_plan`` tuple: int8 codes as uint8, the z code
+  moved from (z, r, phi) to the natural layout.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ from .step.cylindrical_masked import MaskedRobinPlan
 
 __all__ = ["field_from_numpy", "packs_from_numpy", "plan_from_numpy",
            "property_table_from_jax", "vp2_code_from_numpy",
-           "masked_plan_from_jax"]
+           "masked_plan_from_jax", "cyl_vp2_plan_from_jax"]
 
 
 def field_from_numpy(T, *, device, dtype: torch.dtype | None = None
@@ -133,3 +136,12 @@ def masked_plan_from_jax(plan, *, device="cpu") -> MaskedRobinPlan:
         float(np.asarray(plan.ambient)), sweep(comp_r),
         None if comp_phi is None else sweep(comp_phi),
         sweep(comp_z, zfirst=True))
+
+
+def cyl_vp2_plan_from_jax(plan, *, device="cpu") -> tuple:
+    """``(code_r, code_p, code_z)`` of the port's ``build_cyl_vp2_plan``
+    from a JAX ``build_cyl_vp2_plan`` tuple (read as numpy)."""
+    code_r, code_p, code_z = (np.asarray(c) for c in plan)
+    return (vp2_code_from_numpy(code_r, device=device),
+            vp2_code_from_numpy(code_p, device=device),
+            vp2_code_from_numpy(code_z, device=device, zxy=True))

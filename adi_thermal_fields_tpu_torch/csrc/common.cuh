@@ -63,6 +63,74 @@ __device__ __forceinline__ double div(double a, double b) {
   return __ddiv_rn(a, b);
 }
 
+// The Sherman-Morrison double solve of one periodic tridiagonal pencil, in
+// the steps of solvers/thomas.cyclic_thomas (K11, K16, K18).  The caller
+// forms row i's (a, b, c, d) and hands it to row(): the wrap couplings move
+// into rows 0 and n-1, and B y = d and B z = u run forward together (c' in
+// cpbuf, y' in out, z' in zbuf, at the row's offset).  finish() runs both
+// back substitutions along the pencil and writes x = y - fact z into out.
+template <typename T>
+class CyclicSolve {
+ public:
+  __device__ CyclicSolve(int64_t n, T* out, T* cpbuf, T* zbuf)
+      : n_(n), out_(out), cpbuf_(cpbuf), zbuf_(zbuf) {}
+
+  __device__ __forceinline__ void row(int64_t i, int64_t off, T a, T b, T c,
+                                      T d) {
+    T u = T(0);
+    if (i == 0) {
+      beta_ = a;
+      a = T(0);
+      gamma_ = -b;
+      b = sub(b, gamma_);
+      u = gamma_;
+    }
+    if (i == n_ - 1) {
+      const T alpha = c;
+      c = T(0);
+      b = sub(b, div(mul(alpha, beta_), gamma_));
+      u = alpha;
+    }
+    const T denom = sub(b, mul(a, cp_));
+    cp_ = div(c, denom);
+    dy_ = div(sub(d, mul(a, dy_)), denom);
+    dz_ = div(sub(u, mul(a, dz_)), denom);
+    cpbuf_[off] = cp_;
+    out_[off] = dy_;
+    zbuf_[off] = dz_;
+  }
+
+  // rows at base + i * stride; y_{n-1}, z_{n-1} kept, y_0, z_0 in the carry
+  __device__ __forceinline__ void finish(int64_t base, int64_t stride) const {
+    T y = T(0), z = T(0), yn = T(0), zn = T(0);
+    for (int64_t i = n_ - 1; i >= 0; --i) {
+      const int64_t off = base + i * stride;
+      const T cpi = cpbuf_[off];
+      y = sub(out_[off], mul(cpi, y));
+      z = sub(zbuf_[off], mul(cpi, z));
+      if (i == n_ - 1) {
+        yn = y;
+        zn = z;
+      }
+      out_[off] = y;
+      zbuf_[off] = z;
+    }
+    const T fact = div(add(y, div(mul(beta_, yn), gamma_)),
+                       add(add(T(1), z), div(mul(beta_, zn), gamma_)));
+    for (int64_t i = 0; i < n_; ++i) {
+      const int64_t off = base + i * stride;
+      out_[off] = sub(out_[off], mul(fact, zbuf_[off]));
+    }
+  }
+
+ private:
+  int64_t n_;
+  T* out_;
+  T* cpbuf_;
+  T* zbuf_;
+  T cp_ = T(0), dy_ = T(0), dz_ = T(0), gamma_ = T(-1), beta_ = T(0);
+};
+
 // Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB only
 // after opting in); a refusal surfaces as the launch's error.
 template <typename K>

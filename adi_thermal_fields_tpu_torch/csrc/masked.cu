@@ -239,56 +239,17 @@ __global__ void __launch_bounds__(128) masked_cyclic_phi_kernel(
   // forward: B y = d and B z = u in one pass (y in out, z in zbuf), the
   // rows of masked_cyclic_phi_plain and the steps of cyclic_thomas
   const T fg = mul(-fac, g);
-  T cp = T(0), dy = T(0), dz = T(0), gamma = T(-1), beta = T(0);
+  atf::CyclicSolve<T> solve(n, out, cpbuf, zbuf);
   for (int64_t i = 0; i < n; ++i) {
     const int64_t off = base + i * B2;
     const unsigned cd = code[off];
-    T a = (cd & atf::kLow) ? fg : T(0);
-    T c = (cd & atf::kHigh) ? fg : T(0);
-    T b = add(sub(T(1), add(a, c)), mul(fac, sink[off]));
-    const T d = prefold(cd, rhs[off], srhs[off], fac, ambient);
-    T u = T(0);
-    if (i == 0) {
-      beta = a;
-      a = T(0);
-      gamma = -b;
-      b = sub(b, gamma);
-      u = gamma;
-    }
-    if (i == n - 1) {
-      const T alpha = c;
-      c = T(0);
-      b = sub(b, div(mul(alpha, beta), gamma));
-      u = alpha;
-    }
-    const T denom = sub(b, mul(a, cp));
-    cp = div(c, denom);
-    dy = div(sub(d, mul(a, dy)), denom);
-    dz = div(sub(u, mul(a, dz)), denom);
-    cpbuf[off] = cp;
-    out[off] = dy;
-    zbuf[off] = dz;
+    const T a = (cd & atf::kLow) ? fg : T(0);
+    const T c = (cd & atf::kHigh) ? fg : T(0);
+    const T b = add(sub(T(1), add(a, c)), mul(fac, sink[off]));
+    solve.row(i, off, a, b, c,
+              prefold(cd, rhs[off], srhs[off], fac, ambient));
   }
-  // backward: y and z, keeping y_{n-1}, z_{n-1}; y_0, z_0 end in the carry
-  T y = T(0), z = T(0), yn = T(0), zn = T(0);
-  for (int64_t i = n - 1; i >= 0; --i) {
-    const int64_t off = base + i * B2;
-    const T cpi = cpbuf[off];
-    y = sub(out[off], mul(cpi, y));
-    z = sub(zbuf[off], mul(cpi, z));
-    if (i == n - 1) {
-      yn = y;
-      zn = z;
-    }
-    out[off] = y;
-    zbuf[off] = z;
-  }
-  const T fact = div(add(y, div(mul(beta, yn), gamma)),
-                     add(add(T(1), z), div(mul(beta, zn), gamma)));
-  for (int64_t i = 0; i < n; ++i) {
-    const int64_t off = base + i * B2;
-    out[off] = sub(out[off], mul(fact, zbuf[off]));
-  }
+  solve.finish(base, B2);
 }
 
 template <typename T>

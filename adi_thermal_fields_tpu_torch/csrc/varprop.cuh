@@ -75,4 +75,38 @@ __device__ __forceinline__ T rad_film(T x, T rc, T tik, T tik2) {
   return rc * (tk + tik) * (tk * tk + tik2);
 }
 
+// The same three functions with one IEEE rounding per operation (the _rn
+// helpers of common.cuh, never contracted into an FMA), in the plain
+// versions' order: the kernels K15-K16 and K8's general form repeat their
+// plain versions bit for bit with them.
+template <typename T>
+__device__ __forceinline__ T clamp_sum_rn(const Table<T>& tab, T x) {
+  T acc = tab.v0;
+#pragma unroll
+  for (int i = 0; i < kMaxSeg; ++i) {
+    if (i >= tab.n) break;
+    if (tab.dp[i] > T(0)) {
+      T c = sub(x, tab.p[i]);
+      c = c > T(0) ? c : T(0);
+      c = c < tab.dp[i] ? c : tab.dp[i];
+      acc = add(acc, mul(tab.s[i], c));
+    } else {
+      acc = add(acc, (x > tab.p[i]) ? tab.s[i] : T(0));
+    }
+  }
+  return acc;
+}
+
+template <typename T>
+__device__ __forceinline__ T harm_rn(T a, T b) {
+  const T den = add(a, b);
+  return den > T(0) ? div(mul(mul(T(2), a), b), den) : T(0);
+}
+
+template <typename T>
+__device__ __forceinline__ T rad_film_rn(T x, T rc, T tik, T tik2) {
+  const T tk = add(x, T(273.15));
+  return mul(mul(rc, add(tk, tik)), add(mul(tk, tk), tik2));
+}
+
 }  // namespace atf

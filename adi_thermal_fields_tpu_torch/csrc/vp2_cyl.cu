@@ -1,0 +1,463 @@
+// K15, K16 and K8's general form: the tier-2 sweeps of the cylindrical
+// variable-property step.
+//
+// K15 replaces adi_thermal_fields_tpu/solvers/pallas_vp2.py fused_vp2_sweep
+//     (:402) in its solve-leading forms (the pipelined body
+//     _vp2_pipe_kernel :1109, call site :539, and the streaming body
+//     _vp2_kernel :201 at call site :611 without nat_rhs_out, which compute
+//     the same thing): the solve along axis 0 of a C-contiguous (n, B)
+//     field -- r of the natural (r, phi, z) field, B = nphi*nz.
+// K8's general form replaces fused_vp2_sweep with nat_rhs_out=True (call
+//     site :611, body :201) as the cylindrical step uses it: per-row
+//     columns, h_lo != h_hi and domain-edge films, along the CONTIGUOUS z
+//     axis of the natural field; unlike the JAX sweep it also reads the
+//     code in the natural layout.  (K8's Cartesian form, csrc/vp2_sweep.cu,
+//     is compiled apart and unchanged.)
+// K16 replaces fused_vp2_cyclic_axis1 (:812, call site :882, body
+//     _vp2_cyclic_kernel :633): the PERIODIC solve along axis 1 of a
+//     (B1, n, B2) field -- phi of the natural field.
+//
+// Row i of the open sweeps (K15, K8), from rhs (T itself when the caller
+// passes none), T^n and the code byte (bits 1 = hi coupling live, 2/4 =
+// lo/hi face exposed, 8 = active), the per-row columns glo/ghi (coupling)
+// and gsl/gsh (interface films) and the edge films at rows 0 and n-1:
+//   k_i = k(T_i); f_hi = bit1 ? harm(k_i, k_{i+1}) : 0; f_lo = previous
+//   row's f_hi; hr = eps*sigma*(Tk+Tik)(Tk^2+Tik^2) (0 without radiation);
+//   sink = bit2*gsl*(h_lo + hr) + bit4*gsh*(h_hi + hr); srhs = sink*t_inf;
+//   at an edge row: s_e = bit8*g_e*(h_e + hr_e); sink += s_e;
+//   srhs += s_e*t_e;
+//   al = glo*f_lo; ch = ghi*f_hi; coup = al + ch + sink;
+//   w = coup > 0 ? cp(T_i)*inv_dtor : 1        (scaled-row elimination,
+//   b = w + coup; d = rhs*w + srhs; a = -al; c = -ch   pallas_vp2.py:335)
+// K16's rows: f_lo = bit16 ? harm(k_{i-1}, k_i) : 0 and f_hi = bit1 ?
+// harm(k_i, k_{i+1}) : 0 with i-1 and i+1 taken mod n, sink = (bit2 +
+// bit4)*gs*(h_void + hr), the coupling metric geo and film metric gs one
+// value per ring, the same scaled rows; the wrap couplings enter by
+// Sherman-Morrison (atf::CyclicSolve, shared with K11 and K18).  The
+// coup > 0 gate is right for films >= 0 only; the step refuses negative
+// films.
+//
+// Rounding: each kernel repeats its plain version (solvers/vp2.py: one
+// tensor op per operation, then thomas / cyclic_thomas with divisions) one
+// IEEE rounding at a time with the _rn helpers (common.cuh, varprop.cuh),
+// which nvcc never contracts into an FMA.  In float32 the apparent heat
+// capacity jumps 12x at the solidus within one ulp of T, so one contracted
+// rounding in T's path would move a cell across it.
+//
+// What bounds them on the H100: memory.  The byte model (float32) reads T
+// (4) + code (1) (+ rhs 4) and writes x (4): 9 B/cell for K15 without an
+// rhs, 13 B/cell otherwise; k, cp, the faces and the films live in
+// registers only.
+//   K15: one thread per (phi, z) pencil; adjacent threads read adjacent
+//        addresses, so every row load is coalesced; c' lives in the output
+//        and d' in a scratch field (K9's design, +16 B/cell of global round
+//        trip).  The columns are the same for every thread of a row
+//        (broadcast loads through the read-only cache).
+//   K8 general: K8's design -- one warp owns 32 pencils and stages [32
+//        pencils x 32 rows] tiles of rhs, T (plus one lookahead row) and
+//        code through shared memory with coalesced loads (lane = row), then
+//        each lane runs its pencil's recurrence from the tiles (lane =
+//        pencil; padded pitch).  c' and d' go to global scratch through the
+//        same tiles.
+//   K16: one thread per (r, z) pencil, coalesced over z, like K11: c', y
+//        and z of the Sherman-Morrison double solve in global memory.
+#include "varprop.cuh"
+
+namespace {
+
+using atf::add;
+using atf::div;
+using atf::mul;
+using atf::sub;
+
+// a domain-edge film (h, geo, t_inf) with its own radiative ambient
+template <typename T>
+struct Edge {
+  int on;
+  T h, g, tinf, tik, tik2;
+};
+
+// the film constants of an open sweep
+template <typename T>
+struct Films {
+  T inv_dtor, h_lo, h_hi, tinf, rc, tik, tik2;
+  int rad;
+  Edge<T> e0, e1;
+};
+
+template <typename T>
+Edge<T> make_edge(const double* e) {
+  Edge<T> out;
+  out.on = e[0] != 0.0;
+  out.h = (T)e[1];
+  out.g = (T)e[2];
+  out.tinf = (T)e[3];
+  out.tik = (T)e[4];
+  out.tik2 = (T)e[5];
+  return out;
+}
+
+template <typename T>
+Films<T> make_films(double inv_dtor, double h_lo, double h_hi, double tinf,
+                    double rc, double tik, double tik2, int rad,
+                    const double* edges) {
+  Films<T> f;
+  f.inv_dtor = (T)inv_dtor;
+  f.h_lo = (T)h_lo;
+  f.h_hi = (T)h_hi;
+  f.tinf = (T)tinf;
+  f.rc = (T)rc;
+  f.tik = (T)tik;
+  f.tik2 = (T)tik2;
+  f.rad = rad;
+  f.e0 = make_edge<T>(edges);
+  f.e1 = make_edge<T>(edges + 6);
+  return f;
+}
+
+template <typename T>
+__device__ __forceinline__ void edge_film(const Edge<T>& e, unsigned code,
+                                          T tc, const Films<T>& f, T& sink,
+                                          T& srhs) {
+  const T hr = f.rad ? atf::rad_film_rn(tc, f.rc, e.tik, e.tik2) : T(0);
+  const T s = mul(mul(atf::bit<T>(code, 8u), e.g), add(e.h, hr));
+  sink = add(sink, s);
+  srhs = add(srhs, mul(s, e.tinf));
+}
+
+// (b, d) of open-sweep row i with al = glo*f_lo and ch = ghi*f_hi given
+template <typename T>
+__device__ __forceinline__ void open_row(
+    unsigned code, T tc, T rhs, T al, T ch, T gsl, T gsh, int64_t i,
+    int64_t n, const atf::Table<T>& ctab, const Films<T>& f, T& b, T& d) {
+  const T hr = f.rad ? atf::rad_film_rn(tc, f.rc, f.tik, f.tik2) : T(0);
+  T sink = add(mul(mul(atf::bit<T>(code, 2u), gsl), add(f.h_lo, hr)),
+               mul(mul(atf::bit<T>(code, 4u), gsh), add(f.h_hi, hr)));
+  T srhs = mul(sink, f.tinf);
+  if (i == 0 && f.e0.on) edge_film(f.e0, code, tc, f, sink, srhs);
+  if (i == n - 1 && f.e1.on) edge_film(f.e1, code, tc, f, sink, srhs);
+  const T coup = add(add(al, ch), sink);
+  const T w =
+      coup > T(0) ? mul(atf::clamp_sum_rn(ctab, tc), f.inv_dtor) : T(1);
+  b = add(w, coup);
+  d = add(mul(rhs, w), srhs);
+}
+
+// one Thomas elimination step with a = -al, c = -ch (thomas' divisions)
+template <typename T>
+__device__ __forceinline__ void eliminate(T al, T ch, T b, T d, T& cp,
+                                          T& dp) {
+  const T a = -al;
+  const T denom = sub(b, mul(a, cp));
+  cp = div(-ch, denom);
+  dp = div(sub(d, mul(a, dp)), denom);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256) vp2_sweep_strided_kernel(
+    const T* __restrict__ rhs, const T* __restrict__ Tf,
+    const uint8_t* __restrict__ code, const T* __restrict__ glo,
+    const T* __restrict__ ghi, const T* __restrict__ gsl,
+    const T* __restrict__ gsh, T* __restrict__ out, T* __restrict__ dpbuf,
+    int64_t n, int64_t B, const __grid_constant__ atf::Table<T> ktab,
+    const __grid_constant__ atf::Table<T> ctab,
+    const __grid_constant__ Films<T> f) {
+  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= B) return;
+  T cp = T(0), dp = T(0), f_lo = T(0);
+  T t_next = Tf[p];
+  T k_next = atf::clamp_sum_rn(ktab, t_next);
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t off = i * B + p;
+    const T tc = t_next;
+    const T k_cur = k_next;
+    if (i + 1 < n) {
+      t_next = Tf[off + B];
+      k_next = atf::clamp_sum_rn(ktab, t_next);
+    }
+    const unsigned c = code[off];
+    const T f_hi = (c & 1u) ? atf::harm_rn(k_cur, k_next) : T(0);
+    const T al = mul(__ldg(glo + i), f_lo);
+    const T ch = mul(__ldg(ghi + i), f_hi);
+    T b, d;
+    open_row<T>(c, tc, rhs ? rhs[off] : tc, al, ch, __ldg(gsl + i),
+                __ldg(gsh + i), i, n, ctab, f, b, d);
+    eliminate(al, ch, b, d, cp, dp);
+    out[off] = cp;
+    dpbuf[off] = dp;
+    f_lo = f_hi;
+  }
+  T x = T(0);
+  for (int64_t i = n - 1; i >= 0; --i) {
+    const int64_t off = i * B + p;
+    x = sub(dpbuf[off], mul(out[off], x));
+    out[off] = x;
+  }
+}
+
+constexpr int kPencils = 32;        // pencils per z block (one warp)
+constexpr int kChunk = 32;          // rows per staged tile
+constexpr int kPitch = kChunk + 1;  // padded tile row; slot kChunk = lookahead
+
+template <typename T>
+constexpr size_t z_smem_bytes() {
+  // rhs / c' / x, d', T tiles (T), then the code tile (bytes)
+  return 3 * sizeof(T) * kPencils * kPitch + kPencils * kPitch;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kPencils) vp2_sweep_z_cols_kernel(
+    const T* __restrict__ rhs, const T* __restrict__ Tf,
+    const uint8_t* __restrict__ code, const T* __restrict__ glo,
+    const T* __restrict__ ghi, const T* __restrict__ gsl,
+    const T* __restrict__ gsh, T* __restrict__ out, T* __restrict__ dpbuf,
+    int64_t npen, int64_t n, const __grid_constant__ atf::Table<T> ktab,
+    const __grid_constant__ atf::Table<T> ctab,
+    const __grid_constant__ Films<T> f) {
+  extern __shared__ __align__(16) unsigned char atf_smem[];
+  T* tile = reinterpret_cast<T*>(atf_smem);        // rhs, then c', then x
+  T* tile2 = tile + kPencils * kPitch;             // d'
+  T* ttile = tile2 + kPencils * kPitch;            // T^n (+ lookahead row)
+  uint8_t* ctile = reinterpret_cast<uint8_t*>(ttile + kPencils * kPitch);
+
+  const int lane = threadIdx.x;
+  const int64_t pen0 = (int64_t)blockIdx.x * kPencils;
+  const int np = (int)atf::imin(kPencils, npen - pen0);
+  const int row = lane * kPitch;
+
+  // forward elimination, chunk by chunk
+  T cp = T(0), dp = T(0), f_lo = T(0), k_cur = T(0);
+  for (int64_t k0 = 0; k0 < n; k0 += kChunk) {
+    const int cz = (int)atf::imin(kChunk, n - k0);
+    if (lane < cz) {
+      for (int q = 0; q < np; ++q) {
+        const int64_t g = (pen0 + q) * n + k0 + lane;
+        tile[q * kPitch + lane] = rhs ? rhs[g] : Tf[g];
+        ttile[q * kPitch + lane] = Tf[g];
+        ctile[q * kPitch + lane] = code[g];
+      }
+    }
+    if (lane < np && k0 + kChunk < n) {
+      ttile[row + kChunk] = Tf[(pen0 + lane) * n + k0 + kChunk];
+    }
+    __syncwarp();
+    if (lane < np) {
+      if (k0 == 0) k_cur = atf::clamp_sum_rn(ktab, ttile[row]);
+      for (int j = 0; j < cz; ++j) {
+        const int64_t i = k0 + j;
+        const T tc = ttile[row + j];
+        const unsigned c = ctile[row + j];
+        const T k_next =
+            (i + 1 < n) ? atf::clamp_sum_rn(ktab, ttile[row + j + 1]) : T(0);
+        const T f_hi = (c & 1u) ? atf::harm_rn(k_cur, k_next) : T(0);
+        const T al = mul(__ldg(glo + i), f_lo);
+        const T ch = mul(__ldg(ghi + i), f_hi);
+        T b, d;
+        open_row<T>(c, tc, tile[row + j], al, ch, __ldg(gsl + i),
+                    __ldg(gsh + i), i, n, ctab, f, b, d);
+        eliminate(al, ch, b, d, cp, dp);
+        tile[row + j] = cp;
+        tile2[row + j] = dp;
+        f_lo = f_hi;
+        k_cur = k_next;
+      }
+    }
+    __syncwarp();
+    if (lane < cz) {
+      for (int q = 0; q < np; ++q) {
+        const int64_t g = (pen0 + q) * n + k0 + lane;
+        out[g] = tile[q * kPitch + lane];
+        dpbuf[g] = tile2[q * kPitch + lane];
+      }
+    }
+    __syncwarp();
+  }
+
+  // back substitution, last chunk first
+  T x = T(0);
+  for (int64_t k0 = (n - 1) / kChunk * kChunk; k0 >= 0; k0 -= kChunk) {
+    const int cz = (int)atf::imin(kChunk, n - k0);
+    if (lane < cz) {
+      for (int q = 0; q < np; ++q) {
+        const int64_t g = (pen0 + q) * n + k0 + lane;
+        tile[q * kPitch + lane] = out[g];
+        tile2[q * kPitch + lane] = dpbuf[g];
+      }
+    }
+    __syncwarp();
+    if (lane < np) {
+      for (int j = cz - 1; j >= 0; --j) {
+        x = sub(tile2[row + j], mul(tile[row + j], x));
+        tile[row + j] = x;
+      }
+    }
+    __syncwarp();
+    if (lane < cz) {
+      for (int q = 0; q < np; ++q) {
+        out[(pen0 + q) * n + k0 + lane] = tile[q * kPitch + lane];
+      }
+    }
+    __syncwarp();
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(128) vp2_cyclic_phi_kernel(
+    const T* __restrict__ rhs, const T* __restrict__ Tf,
+    const uint8_t* __restrict__ code, const T* __restrict__ geo,
+    const T* __restrict__ gs, T* __restrict__ out, T* __restrict__ cpbuf,
+    T* __restrict__ zbuf, int64_t B1, int64_t n, int64_t B2,
+    const __grid_constant__ atf::Table<T> ktab,
+    const __grid_constant__ atf::Table<T> ctab, T inv_dtor, T h_void,
+    T tinf, T rc, T tik, T tik2, int with_rad) {
+  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= B1 * B2) return;
+  const int64_t b1 = p / B2;
+  const int64_t base = b1 * n * B2 + (p - b1 * B2);
+  const T g = __ldg(geo + b1);
+  const T s = __ldg(gs + b1);
+
+  // forward: B y = d and B z = u in one pass (y in out, z in zbuf), the
+  // rows of vp2_cyclic_phi_plain and the steps of cyclic_thomas
+  const T k_first = atf::clamp_sum_rn(ktab, Tf[base]);
+  T k_cur = k_first;
+  T h_lo = atf::harm_rn(atf::clamp_sum_rn(ktab, Tf[base + (n - 1) * B2]),
+                        k_first);                 // harm(k_{n-1}, k_0)
+  T t_next = Tf[base];
+  atf::CyclicSolve<T> solve(n, out, cpbuf, zbuf);
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t off = base + i * B2;
+    const T tc = t_next;
+    T k_next = k_first;
+    if (i + 1 < n) {
+      t_next = Tf[off + B2];
+      k_next = atf::clamp_sum_rn(ktab, t_next);
+    }
+    const unsigned cd = code[off];
+    const T h_hi = atf::harm_rn(k_cur, k_next);
+    const T f_lo = (cd & 16u) ? h_lo : T(0);
+    const T f_hi = (cd & 1u) ? h_hi : T(0);
+    const T hr = with_rad ? atf::rad_film_rn(tc, rc, tik, tik2) : T(0);
+    const T sink = mul(mul(add(atf::bit<T>(cd, 2u), atf::bit<T>(cd, 4u)), s),
+                       add(h_void, hr));
+    const T srhs = mul(sink, tinf);
+    const T al = mul(g, f_lo);
+    const T ch = mul(g, f_hi);
+    const T coup = add(add(al, ch), sink);
+    const T w = coup > T(0) ? mul(atf::clamp_sum_rn(ctab, tc), inv_dtor)
+                            : T(1);
+    solve.row(i, off, -al, add(w, coup), -ch, add(mul(rhs[off], w), srhs));
+    k_cur = k_next;
+    h_lo = h_hi;
+  }
+  solve.finish(base, B2);
+}
+
+template <typename T>
+void launch_vp2_open(int axis_z, const void* rhs, const void* Tf,
+                     const void* code, const void* glo, const void* ghi,
+                     const void* gsl, const void* gsh, void* out,
+                     void* scratch, int64_t s0, int64_t s1,
+                     const double* ktab, int kn, const double* ctab, int cn,
+                     double inv_dtor, double h_lo, double h_hi, double tinf,
+                     double rc, double tik, double tik2, int with_rad,
+                     const double* edges, cudaStream_t stream) {
+  atf::Table<T> kt, ct;
+  atf::make_table(ktab, kn, &kt);
+  atf::make_table(ctab, cn, &ct);
+  const Films<T> f = make_films<T>(inv_dtor, h_lo, h_hi, tinf, rc, tik, tik2,
+                                   with_rad, edges);
+  const T* r = static_cast<const T*>(rhs);
+  const T* t = static_cast<const T*>(Tf);
+  const uint8_t* c = static_cast<const uint8_t*>(code);
+  const T* v[4] = {static_cast<const T*>(glo), static_cast<const T*>(ghi),
+                   static_cast<const T*>(gsl), static_cast<const T*>(gsh)};
+  if (axis_z) {   // (npen, n): s0 pencils of s1 contiguous rows
+    const int64_t blocks = atf::cdiv(s0, kPencils);
+    vp2_sweep_z_cols_kernel<T><<<(unsigned)blocks, kPencils,
+                                 z_smem_bytes<T>(), stream>>>(
+        r, t, c, v[0], v[1], v[2], v[3], static_cast<T*>(out),
+        static_cast<T*>(scratch), s0, s1, kt, ct, f);
+  } else {        // (n, B): s0 rows of s1 pencils
+    const int threads = 256;
+    const int64_t blocks = atf::cdiv(s1, threads);
+    vp2_sweep_strided_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
+        r, t, c, v[0], v[1], v[2], v[3], static_cast<T*>(out),
+        static_cast<T*>(scratch), s0, s1, kt, ct, f);
+  }
+}
+
+template <typename T>
+void launch_vp2_cyclic_phi(const void* rhs, const void* Tf, const void* code,
+                           const void* geo, const void* gs, void* out,
+                           void* cpbuf, void* zbuf, int64_t B1, int64_t n,
+                           int64_t B2, const double* ktab, int kn,
+                           const double* ctab, int cn, double inv_dtor,
+                           double h_void, double tinf, double rc, double tik,
+                           double tik2, int with_rad, cudaStream_t stream) {
+  atf::Table<T> kt, ct;
+  atf::make_table(ktab, kn, &kt);
+  atf::make_table(ctab, cn, &ct);
+  const int threads = 128;
+  const int64_t blocks = atf::cdiv(B1 * B2, threads);
+  vp2_cyclic_phi_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
+      static_cast<const T*>(rhs), static_cast<const T*>(Tf),
+      static_cast<const uint8_t*>(code), static_cast<const T*>(geo),
+      static_cast<const T*>(gs), static_cast<T*>(out),
+      static_cast<T*>(cpbuf), static_cast<T*>(zbuf), B1, n, B2, kt, ct,
+      (T)inv_dtor, (T)h_void, (T)tinf, (T)rc, (T)tik, (T)tik2, with_rad);
+}
+
+bool tables_ok(int kn, int cn) {
+  return kn >= 0 && kn <= atf::kMaxSeg && cn >= 0 && cn <= atf::kMaxSeg;
+}
+
+}  // namespace
+
+ATF_API int atf_vp2_sweep_strided(
+    int dtype, int device, const void* rhs, const void* Tf, const void* code,
+    const void* glo, const void* ghi, const void* gsl, const void* gsh,
+    void* out, void* scratch, int64_t n, int64_t B, const double* ktab,
+    int kn, const double* ctab, int cn, double inv_dtor, double h_lo,
+    double h_hi, double tinf, double rc, double tik, double tik2,
+    int with_rad, const double* edges, void* stream) {
+  if (!tables_ok(kn, cn)) return (int)cudaErrorInvalidValue;
+  ATF_DISPATCH(dtype, device,
+               launch_vp2_open<T>(0, rhs, Tf, code, glo, ghi, gsl, gsh, out,
+                                  scratch, n, B, ktab, kn, ctab, cn,
+                                  inv_dtor, h_lo, h_hi, tinf, rc, tik, tik2,
+                                  with_rad, edges, (cudaStream_t)stream));
+}
+
+ATF_API int atf_vp2_sweep_z_cols(
+    int dtype, int device, const void* rhs, const void* Tf, const void* code,
+    const void* glo, const void* ghi, const void* gsl, const void* gsh,
+    void* out, void* scratch, int64_t npen, int64_t n, const double* ktab,
+    int kn, const double* ctab, int cn, double inv_dtor, double h_lo,
+    double h_hi, double tinf, double rc, double tik, double tik2,
+    int with_rad, const double* edges, void* stream) {
+  if (!tables_ok(kn, cn)) return (int)cudaErrorInvalidValue;
+  ATF_DISPATCH(dtype, device,
+               launch_vp2_open<T>(1, rhs, Tf, code, glo, ghi, gsl, gsh, out,
+                                  scratch, npen, n, ktab, kn, ctab, cn,
+                                  inv_dtor, h_lo, h_hi, tinf, rc, tik, tik2,
+                                  with_rad, edges, (cudaStream_t)stream));
+}
+
+ATF_API int atf_vp2_cyclic_phi(int dtype, int device, const void* rhs,
+                               const void* Tf, const void* code,
+                               const void* geo, const void* gs, void* out,
+                               void* cpbuf, void* zbuf, int64_t B1, int64_t n,
+                               int64_t B2, const double* ktab, int kn,
+                               const double* ctab, int cn, double inv_dtor,
+                               double h_void, double tinf, double rc,
+                               double tik, double tik2, int with_rad,
+                               void* stream) {
+  if (!tables_ok(kn, cn)) return (int)cudaErrorInvalidValue;
+  ATF_DISPATCH(dtype, device,
+               launch_vp2_cyclic_phi<T>(rhs, Tf, code, geo, gs, out, cpbuf,
+                                        zbuf, B1, n, B2, ktab, kn, ctab, cn,
+                                        inv_dtor, h_void, tinf, rc, tik,
+                                        tik2, with_rad,
+                                        (cudaStream_t)stream));
+}

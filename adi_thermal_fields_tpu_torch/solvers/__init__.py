@@ -1,4 +1,4 @@
-"""Solvers: the plain Thomas solves, the spectral phi solve and the fourteen
+"""Solvers: the plain Thomas solves, the spectral phi solve and the eighteen
 hand-written kernels.
 
 Constant properties: K1 ``sweep_strided`` and K2 ``sweep_z`` (sweeps.py),
@@ -9,6 +9,9 @@ Masked-Robin cylindrical step: K9 ``masked_sweep_strided``, K10
 ``masked_sweep_z`` and K11 ``masked_cyclic_phi`` (masked.py).
 Unmasked cylindrical step: K12 ``const_sweep_strided``, K13
 ``const_sweep_z`` and K14 ``cyclic_const_phi`` (const_sweeps.py).
+Cylindrical variable-property step: K15 ``vp2_sweep_strided``, K16
+``vp2_cyclic_phi`` and K8's general form (vp2.py), K17
+``vp_fields_sweep_strided`` and K18 ``vp_fields_cyclic_phi`` (vpfields.py).
 Each wrapper counts its CUDA launches in a ``launches`` attribute.
 """
 from .const_sweeps import (const_sweep_strided, const_sweep_strided_plain,
@@ -26,7 +29,12 @@ from .thomas import cyclic_thomas, thomas
 from .varprop import (varprop_fields, varprop_fields_plain,
                       varprop_sweep_y, varprop_sweep_y_plain,
                       varprop_theta_sweep, varprop_theta_sweep_plain)
-from .vp2 import build_vp2_code, vp2_sweep_z, vp2_sweep_z_plain
+from .vp2 import (build_vp2_code, vp2_cyclic_phi, vp2_cyclic_phi_plain,
+                  vp2_sweep_strided, vp2_sweep_strided_plain, vp2_sweep_z,
+                  vp2_sweep_z_plain)
+from .vpfields import (vp_fields_cyclic_phi, vp_fields_cyclic_phi_plain,
+                       vp_fields_sweep_strided,
+                       vp_fields_sweep_strided_plain)
 
 KERNELS = {"K1": sweep_strided, "K2": sweep_z, "K3": theta_rhs,
            "K4": fused_theta_sweep, "K5": varprop_fields,
@@ -34,7 +42,9 @@ KERNELS = {"K1": sweep_strided, "K2": sweep_z, "K3": theta_rhs,
            "K8": vp2_sweep_z, "K9": masked_sweep_strided,
            "K10": masked_sweep_z, "K11": masked_cyclic_phi,
            "K12": const_sweep_strided, "K13": const_sweep_z,
-           "K14": cyclic_const_phi}
+           "K14": cyclic_const_phi, "K15": vp2_sweep_strided,
+           "K16": vp2_cyclic_phi, "K17": vp_fields_sweep_strided,
+           "K18": vp_fields_cyclic_phi}
 
 __all__ = ["thomas", "cyclic_thomas", "sweep_code", "sweep_strided", "sweep_strided_plain",
            "sweep_z", "sweep_z_plain", "theta_rhs", "theta_rhs_plain",
@@ -48,7 +58,11 @@ __all__ = ["thomas", "cyclic_thomas", "sweep_code", "sweep_strided", "sweep_stri
            "masked_cyclic_phi_plain", "const_sweep_strided",
            "const_sweep_strided_plain", "const_sweep_z",
            "const_sweep_z_plain", "cyclic_const_phi",
-           "cyclic_const_phi_plain", "phi_eigenvalue_factors",
+           "cyclic_const_phi_plain", "vp2_sweep_strided",
+           "vp2_sweep_strided_plain", "vp2_cyclic_phi",
+           "vp2_cyclic_phi_plain", "vp_fields_sweep_strided",
+           "vp_fields_sweep_strided_plain", "vp_fields_cyclic_phi",
+           "vp_fields_cyclic_phi_plain", "phi_eigenvalue_factors",
            "phi_solve_spectral", "KERNELS", "launch_counts",
            "reset_launch_counts"]
 

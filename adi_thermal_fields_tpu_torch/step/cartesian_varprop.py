@@ -106,13 +106,19 @@ def melt_pool_enhanced_k(k_solid: float, T_solidus: float, T_liquidus: float,
                          (k_solid, kl * enhancement))
 
 
-def check_films(robin_h, emissivity) -> None:
-    """Refuse negative films on the variable-property path: the tier-2 z
-    sweep (K8) scales a row only where its couplings and films sum to more
-    than zero, which is right for films >= 0 only."""
+def check_films(robin_h, emissivity, **films) -> None:
+    """Refuse negative films on the variable-property path: the tier-2
+    sweeps (K8, K15, K16) scale a row only where its couplings and films
+    sum to more than zero, which is right for films >= 0 only.  ``films``:
+    further named films (the cylindrical step's h_void, h_front, Robin and
+    z-face h); None skips one."""
     if robin_h is not None and float(robin_h) < 0.0:
         raise ValueError(f"robin_h must be >= 0 on the variable-property "
                          f"path, got {robin_h}")
+    for name, h in films.items():
+        if h is not None and float(h) < 0.0:
+            raise ValueError(f"{name} must be >= 0 on the variable-property "
+                             f"path, got {h}")
     if emissivity is not None and float(emissivity) < 0.0:
         raise ValueError(f"emissivity must be >= 0, got {emissivity}")
 

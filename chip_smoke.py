@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's main paths once on one CUDA card, through their
-fourteen hand-written kernels, and check every result.
+eighteen hand-written kernels, and check every result.
 
     python3 chip_smoke.py        # from the root of a checkout; one card
+    python3 chip_smoke.py --profile   # phase 8's steps under torch.profiler
 
 Phases (each asserts; a failure exits non-zero and prints no result):
 
@@ -82,10 +83,35 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    every frame, every deposited column active, the two runs within
    APP_TOL, and more than 1 K from phase 6's robin-mode field somewhere.
 
+8. The variable-property cylindrical step.  Its kernel part (run with
+   phase 2): K15 (r), K16 (phi, cyclic), K8's general form (z), K17 (r,
+   and z on the (z, r, phi) permutation) and K18 (phi, cyclic) against
+   their plain versions on bench.py's cyl_varprop tube ((64, 512, 1024),
+   r_inner 20 mm, 0.5 mm cells, the lower half and a partial layer
+   deposited) at float32 and on a (37, 203, 131) full disk with a random
+   mask and a Dirichlet bottom at float32 and float64, T across 1400-1500
+   C with cells exactly at the solidus and liquidus; max |delta| (gates
+   P8_TOL), kernel and plain ms, % of 3.35 TB/s under each byte model.
+   Its step part: bench.py's cyl_varprop configuration at (64, 512, 1024)
+   float32 (melt_pool_enhanced_k(54, 1420, 1470, 4), apparent_cp(490,
+   490, 2.7e5, 1420, 1470), emissivity 0.5, h 300 outside, 50 inside, 400
+   on top, h_void 80, h_front 200, dt 0.02 s, the prebuilt plan), backward
+   Euler and then Douglas: each of 3 steps starts kernels and reference
+   from the reference's state (STEP_TOL), then the kernels alone, timed
+   after two warm-ups; launches K15 = K16 = K8 = 1 per BE step, K17 = 2
+   and K18 = 1 per Douglas step.  Its app part: phase 6's spiral app with
+   --latent_J_kg 2.7e5 --melt_k_factor 4 --emissivity 0.5 --Ts 1550,
+   float32 kernels over the whole print (wall time), then kernels against
+   reference at float64 on the first P8_APP_T_TOT s of the print (within
+   P8_APP_TOL), once in robin mode, once with --scheme douglas and once
+   with --void_mode clamp (Tmax <= --Ts is checked for backward Euler
+   only: Douglas-Gunn at theta 0.5 is not monotone).
+
 Each main path is driven with the launch counts set to 0 just before it
 and read just after it: phases 3 (constant properties) and 4 for K1-K4,
 phases 3 (variable properties) and 5 for K5-K8, phase 6's step and app
-for K9-K11, then phase 7's step and app for K12-K14.  The line before the
+for K9-K11, phase 7's step and app for K12-K14, then phase 8's steps and
+apps for K8 and K15-K18.  The line before the
 last is a JSON summary of the kernels (launches of those runs; each
 kernel's time at its main-path shape beside its bound, the least time for
 the bytes it must move and the operations it must do, its plain version's
@@ -151,17 +177,27 @@ KERNEL_INFO = {
             "adi_thermal_fields_tpu/solvers/pallas_sweeps.py:1567"),
     "K14": ("cyclic_const_phi", "csrc/const_sweeps.cu",
             "adi_thermal_fields_tpu/solvers/pallas_sweeps.py:1727"),
+    "K15": ("vp2_sweep_strided", "csrc/vp2_cyl.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_vp2.py:402"),
+    "K16": ("vp2_cyclic_phi", "csrc/vp2_cyl.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_vp2.py:812"),
+    "K17": ("vp_fields_sweep_strided", "csrc/vp_fields.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_vpfields.py:190"),
+    "K18": ("vp_fields_cyclic_phi", "csrc/vp_fields.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_vpfields.py:525"),
 }
 # float32 operations per cell of each kernel's main variant, counted from
 # its source (adds, multiplies and divides of one row, the back
 # substitution, table segments evaluated; an estimate for the bound)
 OPS_PER_CELL = {"K1": 22, "K2": 22, "K3": 20, "K4": 42, "K5": 140,
                 "K6": 45, "K7": 25, "K8": 85, "K9": 20, "K10": 20,
-                "K11": 30, "K12": 6, "K13": 6, "K14": 9}
+                "K11": 30, "K12": 6, "K13": 6, "K14": 9, "K15": 50,
+                "K16": 60, "K17": 20, "K18": 30}
 CONST_KERNELS = ("K1", "K2", "K3", "K4")
 VP_KERNELS = ("K5", "K6", "K7", "K8")
 CYL_KERNELS = ("K9", "K10", "K11")
 BE_KERNELS = ("K12", "K13", "K14")
+CYL_VP_KERNELS = ("K8", "K15", "K16", "K17", "K18")
 # phase 6: the kernels' plans, the step (bench.py's masked-cylindrical
 # shape and BCs, dr = dz = 0.5 mm) and the spiral app
 CYL_SHAPES = (("64x512x1024 tube", (64, 512, 1024)),
@@ -177,6 +213,21 @@ P7_SHAPES = (("128x512x512 annular", (128, 512, 512)),
              ("37x203x131 disk", (37, 203, 131)))
 P7_DT = 0.02
 VP_SHAPES = (P2_SHAPES[0], P2_SHAPES[2])
+# phase 8: bench.py's cyl_varprop tube and a full disk (0.5 mm, dt 0.02 s)
+P8_SHAPES = (("64x512x1024 tube", (64, 512, 1024), "float32"),
+             ("37x203x131 disk", (37, 203, 131), "float32"),
+             ("37x203x131 disk", (37, 203, 131), "float64"))
+P8_DT = 0.02
+P8_TOL = {"float32": 1e-3, "float64": 1e-9}   # K, one kernel vs plain
+P8_APP_FLAGS = ["--latent_J_kg", "2.7e5", "--melt_k_factor", "4",
+                "--emissivity", "0.5", "--Ts", "1550"]
+P8_APP_T_TOT = "6"      # s of the print in the float64 comparisons
+P8_APP_TOL = 1e-6       # K, float64 kernels vs reference
+# K above --Ts that the Douglas print may reach: theta 0.5 is not monotone
+# at these Fourier numbers (its first frame, at 1.5 s, reads 2307.7 C on an
+# H100 80GB HBM3 at 700 W; the JAX app overshoots alike,
+# tests/test_torch_cyl_vp.py).  A loose bound that a diverging run fails.
+DOUGLAS_OVERSHOOT = 1000.0
 # the varprop physics of phases 2, 3 and 5 (steel, the JAX app's defaults)
 SOLIDUS, LIQUIDUS, LATENT = 1420.0, 1470.0, 2.7e5
 EMISSIVITY, H_CONV = 0.5, 30.0
@@ -868,15 +919,20 @@ def phase6_step(torch, dev):
                 max_abs_err=err)
 
 
-def spiral_app(torch, dev, phase, extra=()):
-    """apps/spiral_tube on the 4.6 M-cell tube, kernels and reference;
-    ``extra``: flags added to P6_APP."""
+def spiral_app(torch, dev, phase, extra=(), impls=("kernels", "reference"),
+               tol=APP_TOL, overshoot=0.0):
+    """apps/spiral_tube on the 4.6 M-cell tube with each of ``impls``;
+    ``extra``: flags added to P6_APP (later flags override).  With two
+    implementations, they must agree within ``tol``.  Tmax must stay at
+    or below --Ts + ``overshoot`` K (backward Euler is monotone: 0;
+    Douglas-Gunn at theta 0.5 is not, and overshoots at a fresh deposit's
+    edges: DOUGLAS_OVERSHOOT)."""
     import numpy as np
     from adi_thermal_fields_tpu_torch.apps import spiral_tube as app
 
     mode = " ".join(extra) or "--void_mode robin"
     runs = {}
-    for impl in ("kernels", "reference"):
+    for impl in impls:
         args = app.build_argparser().parse_args(
             P6_APP + list(extra) + ["--device", str(dev),
                                     "--implementation", impl])
@@ -889,27 +945,34 @@ def spiral_app(torch, dev, phase, extra=()):
         a3 = torch.from_numpy(np.ascontiguousarray(res["active"])).to(dev)
         tmax = float(T[a3[None].expand(T.shape)].max())
         deposited = np.isfinite(res["activation_times"])
-        print(f"[phase {phase}] spiral app {mode} f32 {impl:9s}: grid "
-              f"{res['grid'].shape} ({res['grid'].ncells / 1e6:.2f} M "
-              f"cells), {res['steps']} steps, {res['plans_built']} plan "
-              f"builds, {int(deposited.sum())} deposited columns, wall "
-              f"{wall:.2f} s, Tmax {tmax:.2f} C", flush=True)
+        born = res["activation_times"] < res["t"]
+        print(f"[phase {phase}] spiral app {mode} {args.precision} "
+              f"{impl:9s}: grid {res['grid'].shape} "
+              f"({res['grid'].ncells / 1e6:.2f} M cells), {res['steps']} "
+              f"steps, {res['plans_built']} plan builds, "
+              f"{int(born.sum())} active columns ({int(deposited.sum())} "
+              f"deposited by the nozzle), wall {wall:.2f} s, Tmax "
+              f"{tmax:.2f} C", flush=True)
         check(bool(torch.isfinite(T).all()), f"spiral app {impl}: "
               "non-finite T")
-        check(tmax <= args.Ts, f"spiral app {impl}: Tmax {tmax} > Ts")
-        check(all(float(np.nanmax(np.where(a, f, np.nan))) <= args.Ts
+        t_cap = args.Ts + overshoot
+        check(tmax <= t_cap, f"spiral app {impl}: Tmax {tmax} > {t_cap}")
+        check(all(float(np.nanmax(np.where(a, f, np.nan))) <= t_cap
                   for _, f, a in res["frames"]),
-              f"spiral app {impl}: a frame's Tmax exceeds Ts")
-        check(deposited.any() and bool(res["active"][deposited].all()),
+              f"spiral app {impl}: a frame's Tmax exceeds {t_cap}")
+        check(born.any() and bool(res["active"][born].all()),
               f"spiral app {impl}: a deposited column is not active")
+    if "reference" not in runs:
+        return dict(wall_kernels=runs["kernels"][1],
+                    T_kernels=runs["kernels"][0]["T"])
     diff = (runs["kernels"][0]["T"] - runs["reference"][0]["T"]).abs()
     err = float(diff.max())
     print(f"[phase {phase}] spiral app {mode}: max|T_kernels - "
           f"T_reference| = "
-          f"{err:.3e} K ({int((diff > APP_TOL).sum())} cells above "
-          f"{APP_TOL} K)", flush=True)
-    check(err <= APP_TOL, f"spiral app: kernels vs reference {err:.3e} K "
-          f"> {APP_TOL} K")
+          f"{err:.3e} K ({int((diff > tol).sum())} cells above "
+          f"{tol} K)", flush=True)
+    check(err <= tol, f"spiral app: kernels vs reference {err:.3e} K "
+          f"> {tol} K")
     return dict(wall_kernels=runs["kernels"][1],
                 wall_reference=runs["reference"][1], max_abs_err=err,
                 T_kernels=runs["kernels"][0]["T"])
@@ -1074,8 +1137,310 @@ def phase7_step(torch, dev):
     return out
 
 
+def cylvp_case(torch, label, shape, dtype, dev):
+    """Grid, material, mask, z BCs and T^n of a phase 8 configuration:
+    bench.py's cyl_varprop tube (the lower half deposited, a layer over
+    3/5 of the circumference above it), or a full disk with a random
+    mask and a Dirichlet bottom; T across 1400-1500 C on the mask."""
+    from adi_thermal_fields_tpu_torch import (CylindricalGrid, Material,
+                                              ZFaceBC)
+    tube = label.endswith("tube")
+    nr, nphi, nz = shape
+    grid = CylindricalGrid(*shape, 5e-4, 5e-4, r_inner=0.02 if tube else 0.0)
+    if tube:
+        mask = torch.zeros(shape, dtype=torch.bool, device=dev)
+        mask[:, :, :nz // 2] = True
+        mask[:, :(3 * nphi) // 5, nz // 2:nz // 2 + nz // 8] = True
+        zbc = ZFaceBC(kind_top="robin", h_top=400.0, T_inf_top=20.0)
+    else:
+        g = torch.Generator(device=dev).manual_seed(37)
+        mask = torch.rand(shape, generator=g, device=dev) > 0.25
+        zbc = ZFaceBC(kind_bot="dirichlet", T_bot=1400.0, kind_top="robin",
+                      h_top=400.0, T_inf_top=20.0)
+    g = torch.Generator(device=dev).manual_seed(41)
+    T = torch.where(mask, 1400.0 + 100.0 * torch.rand(
+        shape, generator=g, device=dev), 20.0)
+    T.view(-1)[::97] = SOLIDUS
+    T.view(-1)[31::101] = LIQUIDUS
+    return grid, Material(7800.0, 490.0, 54.0), mask, zbc, T.to(dtype)
+
+
+def phase2_cylvp(torch, dev):
+    """K15, K16, K8's general form, K17 and K18 against their plain
+    versions (float32 and float64)."""
+    import numpy as np
+    from adi_thermal_fields_tpu_torch.solvers import (
+        vp2_cyclic_phi, vp2_cyclic_phi_plain, vp2_sweep_strided,
+        vp2_sweep_strided_plain, vp2_sweep_z, vp2_sweep_z_plain,
+        vp_fields_cyclic_phi, vp_fields_cyclic_phi_plain,
+        vp_fields_sweep_strided, vp_fields_sweep_strided_plain)
+    from adi_thermal_fields_tpu_torch.solvers.varprop import face_g
+    from adi_thermal_fields_tpu_torch.step import cylindrical_varprop as cvp
+
+    kt, ct = varprop_tables()
+    rows = []
+    for label, shape, prec in P8_SHAPES:
+        dtype = getattr(torch, prec)
+        f = getattr(np, prec)
+        grid, mat, mask, zbc, T = cylvp_case(torch, label, shape, dtype, dev)
+        R = random_field(torch, mask, seed=43).to(dtype)
+        code_r, code_p, code_z = cvp.build_cyl_vp2_plan(mask, grid, zbc)
+        cols = cvp._vp2_columns(grid, zbc, dtype, dev)
+        inv = float(f(1.0) / f(f(P8_DT) / f(mat.rho)))
+        r, r_imh, r_iph = cvp._radii(grid)
+        dr = grid.dr
+        rk = dict(k_spec=kt, cp_spec=ct, h_lo=80.0, h_hi=80.0,
+                  tinf_void=20.0, emissivity=EMISSIVITY,
+                  edge0=((50.0, r_imh[0] / (r[0] * dr), 20.0)
+                         if grid.is_annular else None),
+                  edge1=(300.0, r_iph[-1] / (r[-1] * dr), 20.0))
+        rc = (cols["glo_r"], cols["ghi_r"], cols["gsl_r"], cols["gsh_r"])
+        pk = dict(k_spec=kt, cp_spec=ct, h_void=80.0, tinf_void=20.0,
+                  emissivity=EMISSIVITY)
+        zk = dict(k_spec=kt, cp_spec=ct, ghi=cols["geo_z"], gsh=cols["gs_z"],
+                  h=80.0, h_hi=200.0, t_inf=20.0, emissivity=EMISSIVITY,
+                  edge1=(400.0, 1.0 / grid.dz, 20.0))
+        # the stream tier's inputs, built from T as the step builds them
+        kf = kt(T)
+        dw = P8_DT / (mat.rho * ct(T))
+        fr = face_g(kf, 0, -1, mask)
+        fr_hi = torch.cat([fr[1:], torch.zeros_like(fr[:1])], 0)
+        fp = cvp._face_phi(kf, mask)
+        fz = face_g(kf, 2, -1, mask)
+        fz_hi = torch.cat([fz[:, :, 1:], torch.zeros_like(fz[:, :, :1])], 2)
+        g = torch.Generator(device=dev).manual_seed(47)
+        film = torch.rand(shape, generator=g, device=dev) < 0.2
+        sink = torch.where(film & mask, 80.0 / grid.dz, 0.0).to(dtype)
+        srhs = sink * 20.0
+        zl = [t.permute(2, 0, 1).contiguous()
+              for t in (R, fz_hi, dw, sink, srhs)]
+        sr = (R, fr_hi, dw, sink, srhs)
+        sp = (R, fp, dw, sink, srhs)
+        variants = [
+            ("K15", "r", (R, T, code_r),
+             lambda: vp2_sweep_strided(R, T, code_r, *rc, inv, **rk),
+             lambda: vp2_sweep_strided_plain(R, T, code_r, *rc, inv, **rk)),
+            ("K15", "r, rhs is T", (T, code_r),
+             lambda: vp2_sweep_strided(None, T, code_r, *rc, inv, **rk),
+             lambda: vp2_sweep_strided_plain(None, T, code_r, *rc, inv,
+                                             **rk)),
+            ("K16", "phi (cyclic)", (R, T, code_p),
+             lambda: vp2_cyclic_phi(R, T, code_p, cols["geo_p"],
+                                    cols["gs_p"], inv, **pk),
+             lambda: vp2_cyclic_phi_plain(R, T, code_p, cols["geo_p"],
+                                          cols["gs_p"], inv, **pk)),
+            ("K8", "z, cylindrical", (R, T, code_z),
+             lambda: vp2_sweep_z(R, T, code_z, cols["geo_z"], cols["gs_z"],
+                                 inv, **zk),
+             lambda: vp2_sweep_z_plain(R, T, code_z, cols["geo_z"],
+                                       cols["gs_z"], inv, **zk)),
+            ("K17", "r", sr,
+             lambda: vp_fields_sweep_strided(*sr, cols["glo_r"],
+                                             cols["ghi_r"]),
+             lambda: vp_fields_sweep_strided_plain(*sr, cols["glo_r"],
+                                                   cols["ghi_r"])),
+            ("K17", "z (permuted)", zl,
+             lambda: vp_fields_sweep_strided(*zl, cols["geo_z"],
+                                             cols["geo_z"]),
+             lambda: vp_fields_sweep_strided_plain(*zl, cols["geo_z"],
+                                                   cols["geo_z"])),
+            ("K18", "phi (cyclic)", sp,
+             lambda: vp_fields_cyclic_phi(*sp, cols["geo_p"]),
+             lambda: vp_fields_cyclic_phi_plain(*sp, cols["geo_p"])),
+        ]
+        cells = T.numel()
+        tol = P8_TOL[prec]
+        where = f"{label} {prec}"
+        for kname, vname, ins, kern, plain in variants:
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()),
+                  f"{kname} {vname} {where}: non-finite output")
+            err = float((got - want).abs().max())
+            ulps = err / (torch.finfo(dtype).eps * float(want.abs().max()))
+            # each input read once, the output written once
+            nbytes = sum(t.numel() * t.element_size() for t in (*ins, got))
+            ms = cuda_ms(torch, kern, 20)
+            plain_ms = cuda_ms(torch, plain, 3)
+            pct = 100.0 * nbytes / (ms * 1e-3) / HBM_BYTES_PER_S
+            rows.append(dict(kernel=kname, variant=vname, shape=where,
+                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bytes_per_cell=nbytes / cells, pct_hbm=pct,
+                             **bound(kname, nbytes, cells)))
+            print(f"[phase 2] {kname} {vname:32s} {where:26s} "
+                  f"max|d|={err:.3e} K ({ulps:.2f} ulp of scale, tol "
+                  f"{tol:.0e} K)  kernel {ms:8.3f} ms  plain "
+                  f"{plain_ms:9.3f} ms  {pct:5.1f}% of 3.35 TB/s at "
+                  f"{nbytes / cells:.2f} B/cell", flush=True)
+            check(err <= tol, f"{kname} {vname} {where}: max|d| "
+                  f"{err:.3e} K > {tol:.0e} K")
+            del got, want
+        del T, R, variants, zl, sr, sp, kf, dw, fr, fr_hi, fp, fz, fz_hi
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase8_step(torch, dev):
+    """bench.py's cyl_varprop step at (64, 512, 1024) float32, BE then
+    Douglas: kernels against reference per step from the reference's
+    state, then the kernels alone, timed."""
+    from adi_thermal_fields_tpu_torch import (RobinBC, adi_step_cyl_varprop,
+                                              build_cyl_vp2_plan)
+    from adi_thermal_fields_tpu_torch.solvers import launch_counts
+
+    label, shape, _ = P8_SHAPES[0]
+    grid, mat, mask, zbc, T0 = cylvp_case(torch, label, shape, torch.float32,
+                                          dev)
+    kt, ct = varprop_tables()
+    kw = dict(dt=P8_DT, robin_outer=RobinBC(300.0, 20.0), zbc=zbc,
+              robin_inner=RobinBC(50.0, 20.0), active=mask, h_void=80.0,
+              T_inf_void=20.0, h_front=200.0, k_table=kt, cp_table=ct,
+              emissivity=EMISSIVITY)
+    plan = build_cyl_vp2_plan(mask, grid, zbc)
+    per_step = {"be": {"K8": 1, "K15": 1, "K16": 1},
+                "douglas": {"K17": 2, "K18": 1}}
+    out = {}
+    for scheme, per in per_step.items():
+        def step(T, impl):
+            return adi_step_cyl_varprop(
+                T, grid, mat, scheme=scheme, implementation=impl,
+                vp2_plan=plan if impl == "kernels" else None, **kw)
+
+        before = launch_counts()
+        T, errs, ref_ms = T0, [], []
+        for _ in range(P3_STEPS):
+            Tk = step(T, "kernels")
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            Tr = step(T, "reference")
+            end.record()
+            end.synchronize()
+            ref_ms.append(start.elapsed_time(end))
+            check(bool(torch.isfinite(Tk).all())
+                  and bool(torch.isfinite(Tr).all()),
+                  f"phase 8 {scheme}: non-finite T")
+            errs.append(float((Tk - Tr).abs().max()))
+            T = Tr
+            del Tk
+        Tf = T0
+        for _ in range(P3_WARMUP):
+            Tf = step(Tf, "kernels")
+        torch.cuda.synchronize()
+        Tf, step_ms = T0, []
+        for _ in range(P3_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            Tf = step(Tf, "kernels")
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        want = {k: (2 * P3_STEPS + P3_WARMUP) * per.get(k, 0)
+                for k in KERNEL_INFO}
+        check(delta == want, f"phase 8 {scheme}: launches {delta} != "
+              f"expected {want}")
+        check(bool(torch.isfinite(Tf).all()), f"phase 8 {scheme}: "
+              "non-finite T")
+        ms, rms = statistics.median(step_ms), statistics.median(ref_ms)
+        print(f"[phase 8] {label} f32 varprop {scheme} step: kernels "
+              f"{ms:9.3f} ms/step (median; steps "
+              f"{', '.join(f'{s:.3f}' for s in step_ms)})  "
+              f"{grid.ncells / (ms * 1e-3) / 1e9:7.3f} Gcell/s; reference "
+              f"{rms:9.3f} ms/step; launches "
+              f"{ {k: v for k, v in delta.items() if v} }", flush=True)
+        print(f"[phase 8] {scheme}: max|T_kernels - T_reference| per step "
+              f"from the reference's state: "
+              f"{', '.join(f'{e:.3e}' for e in errs)} K", flush=True)
+        check(max(errs) <= STEP_TOL, f"phase 8 {scheme} step: "
+              f"{max(errs):.3e} K > {STEP_TOL}")
+        out[scheme] = dict(ms_kernels=ms, ms_reference=rms,
+                           max_abs_err=max(errs))
+        del T, Tr, Tf
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase8_app(torch, dev):
+    """The spiral app with the varprop flags: the float32 kernels over
+    the whole print, then kernels against reference at float64 on its
+    first P8_APP_T_TOT s in robin mode, with --scheme douglas and with
+    --void_mode clamp."""
+    p32 = spiral_app(torch, dev, 8, P8_APP_FLAGS, impls=("kernels",))
+    f64 = P8_APP_FLAGS + ["--precision", "float64", "--t_tot", P8_APP_T_TOT]
+    runs = {mode: spiral_app(torch, dev, 8, f64 + extra, tol=P8_APP_TOL,
+                             overshoot=DOUGLAS_OVERSHOOT
+                             if mode == "douglas" else 0.0)
+            for mode, extra in (("robin", []),
+                                ("douglas", ["--scheme", "douglas"]),
+                                ("clamp", ["--void_mode", "clamp"]))}
+    return p32, runs
+
+
+def profile_phase8(torch, dev, steps=5):
+    """``--profile``: torch.profiler over ``steps`` kernel steps of phase
+    8's BE and Douglas steps (after two warm-ups): the device time of each
+    operation per step, and the device's idle share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+    from adi_thermal_fields_tpu_torch import (RobinBC, adi_step_cyl_varprop,
+                                              build_cyl_vp2_plan)
+
+    label, shape, _ = P8_SHAPES[0]
+    grid, mat, mask, zbc, T0 = cylvp_case(torch, label, shape, torch.float32,
+                                          dev)
+    kt, ct = varprop_tables()
+    kw = dict(dt=P8_DT, robin_outer=RobinBC(300.0, 20.0), zbc=zbc,
+              robin_inner=RobinBC(50.0, 20.0), active=mask, h_void=80.0,
+              T_inf_void=20.0, h_front=200.0, k_table=kt, cp_table=ct,
+              emissivity=EMISSIVITY,
+              vp2_plan=build_cyl_vp2_plan(mask, grid, zbc))
+    for scheme in ("be", "douglas"):
+        T = T0
+        for _ in range(P3_WARMUP):
+            T = adi_step_cyl_varprop(T, grid, mat, scheme=scheme, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            T = T0
+            for _ in range(steps):
+                T = adi_step_cyl_varprop(T, grid, mat, scheme=scheme, **kw)
+            end.record()
+            end.synchronize()
+        window_ms = start.elapsed_time(end)
+
+        def dev_us(e):
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))
+        # the device's own rows (kernels, copies): the operators above
+        # them repeat their kernels' time
+        ops = sorted((e for e in prof.key_averages()
+                      if str(getattr(e, "device_type", "")).endswith("CUDA")
+                      and dev_us(e) > 0), key=dev_us, reverse=True)
+        busy_ms = sum(dev_us(e) for e in ops) / 1e3
+        print(f"[profile] {label} f32 {scheme} step: {window_ms / steps:.3f} "
+              f"ms/step over {steps} steps (CUDA events), device busy "
+              f"{busy_ms / steps:.3f} ms/step, idle "
+              f"{100.0 * max(0.0, 1.0 - busy_ms / window_ms):.1f}%",
+              flush=True)
+        for e in ops[:14]:
+            print(f"[profile]   {dev_us(e) / 1e3 / steps:8.3f} ms/step "
+                  f"{100.0 * dev_us(e) / 1e3 / busy_ms:5.1f}%  "
+                  f"{e.count // steps:4d}x  {e.key[:90]}", flush=True)
+
+
 def main():
     torch = load_port()
+    if sys.argv[1:] == ["--profile"]:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        phase0(torch)
+        phase1()
+        profile_phase8(torch, dev)
+        return
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1083,7 +1448,8 @@ def main():
     name, _ = phase0(torch)
     phase1()
     rows = phase2(torch, dev) + phase2_varprop(torch, dev) \
-        + phase2_cyl(torch, dev) + phase2_be(torch, dev)
+        + phase2_cyl(torch, dev) + phase2_be(torch, dev) \
+        + phase2_cylvp(torch, dev)
 
     from adi_thermal_fields_tpu_torch.solvers import (launch_counts,
                                                       reset_launch_counts)
@@ -1108,6 +1474,10 @@ def main():
     phase7_step(torch, dev)
     p7 = spiral_app(torch, dev, 7, ("--void_mode", "clamp"))
     counts_b = launch_counts()
+    reset_launch_counts()
+    phase8_step(torch, dev)
+    p8, _ = phase8_app(torch, dev)
+    counts_8 = launch_counts()
     d32 = float((p5_32["T_kernels"].double() - p5["T_kernels"]).abs().max())
     print(f"[phase 5] max|T_float32 - T_float64| (kernels) = {d32:.3e} K",
           flush=True)
@@ -1116,7 +1486,9 @@ def main():
                                  ("variable-property", counts_v, VP_KERNELS),
                                  ("cylindrical", counts_y, CYL_KERNELS),
                                  ("unmasked cylindrical", counts_b,
-                                  BE_KERNELS)):
+                                  BE_KERNELS),
+                                 ("cylindrical varprop", counts_8,
+                                  CYL_VP_KERNELS)):
         check(all(counts_p[k] > 0 if k in mine else counts_p[k] == 0
                   for k in KERNEL_INFO),
               f"the {path} path's launches: {counts_p}")
@@ -1129,26 +1501,36 @@ def main():
           flush=True)
     check(d67 > 1.0, "--void_mode clamp changed the spiral app's field by "
           f"{d67:.3e} K <= 1 K: the flag does not reach the step")
+    d86 = float((p8["T_kernels"] - p6["T_kernels"]).abs().max())
+    print(f"[phase 8] max|T_varprop - T_robin| (kernels, float32) = "
+          f"{d86:.3e} K", flush=True)
+    check(d86 > 1.0, "the varprop flags changed the spiral app's field by "
+          f"{d86:.3e} K <= 1 K: they do not reach the step")
     counts = {**{k: counts_c[k] for k in CONST_KERNELS},
               **{k: counts_v[k] for k in VP_KERNELS},
               **{k: counts_y[k] for k in CYL_KERNELS},
-              **{k: counts_b[k] for k in BE_KERNELS}}
+              **{k: counts_b[k] for k in BE_KERNELS},
+              **{k: counts_8[k] for k in CYL_VP_KERNELS}}
+    counts["K8"] = counts_v["K8"] + counts_8["K8"]
 
     main_variant = {"K1": "lite y", "K2": "lite z", "K3": "stencil",
                     "K4": "stencil + lite x", "K5": "fields + rad",
                     "K6": "theta + x, h stream", "K7": "y, h stream",
                     "K8": "z, rad", "K9": "r", "K10": "z",
                     "K11": "phi (cyclic)", "K12": "r", "K13": "z",
-                    "K14": "phi (cyclic)"}
+                    "K14": "phi (cyclic)", "K15": "r", "K16": "phi (cyclic)",
+                    "K17": "r", "K18": "phi (cyclic)"}
     summary = []
     for k, (fn, src, replaces) in KERNEL_INFO.items():
         mine = [r for r in rows if r["kernel"] == k]
         shape = (CYL_SHAPES[0][0] if k in CYL_KERNELS else P7_SHAPES[0][0]
-                 if k in BE_KERNELS else P2_SHAPES[0][0])
+                 if k in BE_KERNELS else f"{P8_SHAPES[0][0]} float32"
+                 if k in ("K15", "K16", "K17", "K18") else P2_SHAPES[0][0])
         ref = next(r for r in mine if r["variant"] == main_variant[k]
                    and r["shape"] == shape)
-        # K1-K11: no PyTorch call computes these masked (cyclic)
-        # tridiagonal solves, stencils or table passes: library_ms is null
+        # K1-K11 and K15-K18: no PyTorch call computes these masked
+        # (cyclic) tridiagonal solves, stencils or table passes:
+        # library_ms is null
         summary.append({"name": f"{k} {fn}", "route": "cuda",
                         "source": f"{PKG}/{src}", "replaces": replaces,
                         "launches": counts[k],

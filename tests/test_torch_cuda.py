@@ -10,8 +10,9 @@ the inputs' scale (fields up to 1500 C after a solve): float64 1e-9 K,
 float32 2e-3 K (~16 ulp; division vs reciprocal-multiply and FMA
 contraction).  The variable-property kernels K5-K8 are held to the same
 bounds relative to each output's scale (face conductivities, 1/(rho cp)
-and films are not temperatures), and so are the cylindrical sweeps K9-K14,
-whose stiff phi systems near a full disk's axis amplify one rounding.
+and films are not temperatures), and so are the cylindrical sweeps K9-K18,
+whose stiff phi systems near a full disk's axis amplify one rounding; the
+cylindrical varprop step runs kernels against reference at float64.
 chip_smoke.py runs the same comparisons at full size.
 """
 import numpy as np
@@ -20,7 +21,9 @@ import torch
 
 from adi_thermal_fields_tpu_torch import apparent_cp, melt_pool_enhanced_k
 from adi_thermal_fields_tpu_torch import (CylindricalGrid, Material, RobinBC,
-                                          ZFaceBC, build_masked_robin_plan)
+                                          ZFaceBC, adi_step_cyl_varprop,
+                                          build_cyl_vp2_plan,
+                                          build_masked_robin_plan)
 from adi_thermal_fields_tpu_torch.solvers import (
     build_vp2_code, const_sweep_strided, const_sweep_strided_plain,
     const_sweep_z, const_sweep_z_plain, cyclic_const_phi,
@@ -31,8 +34,12 @@ from adi_thermal_fields_tpu_torch.solvers import (
     sweep_strided_plain, sweep_z, sweep_z_plain, theta_rhs, theta_rhs_plain,
     varprop_fields, varprop_fields_plain, varprop_sweep_y,
     varprop_sweep_y_plain, varprop_theta_sweep, varprop_theta_sweep_plain,
-    vp2_sweep_z, vp2_sweep_z_plain)
+    vp2_cyclic_phi, vp2_cyclic_phi_plain, vp2_sweep_strided,
+    vp2_sweep_strided_plain, vp2_sweep_z, vp2_sweep_z_plain,
+    vp_fields_cyclic_phi, vp_fields_cyclic_phi_plain,
+    vp_fields_sweep_strided, vp_fields_sweep_strided_plain)
 from adi_thermal_fields_tpu_torch.step import cylindrical as pcyl
+from adi_thermal_fields_tpu_torch.step import cylindrical_varprop as pcvp
 
 TG, DT, TINF, ROB = 0.21, 0.05, 20.0, 0.0031
 C_EXP, INV = 3.5e-7, (1.0e6, 1.1e6, 0.9e6)
@@ -86,7 +93,7 @@ def test_kernels_match_plain_on_card(dtype, tol):
     for got, want in pairs:
         assert got.is_cuda and got.dtype == dtype
         assert float((got - want).abs().max()) <= tol
-    assert launch_counts() == {**{f"K{i}": 0 for i in range(1, 15)},
+    assert launch_counts() == {**{f"K{i}": 0 for i in range(1, 19)},
                                "K1": 4, "K2": 1, "K3": 1, "K4": 1}
 
 
@@ -148,7 +155,7 @@ def test_varprop_kernels_match_plain_on_card(dtype, rel):
         for a, b in zip(_flat(got), _flat(want)):
             assert a.is_cuda and a.dtype == dtype
             assert float((a - b).abs().max()) <= rel * float(b.abs().max())
-    assert launch_counts() == {**{f"K{i}": 0 for i in range(1, 15)},
+    assert launch_counts() == {**{f"K{i}": 0 for i in range(1, 19)},
                                "K5": 2, "K6": 2, "K7": 2, "K8": 2}
 
 
@@ -189,7 +196,7 @@ def test_masked_kernels_match_plain_on_card(dtype, rel, r_inner, kind_bot):
         assert got.is_cuda and got.dtype == dtype
         assert float((got - want).abs().max()) <= rel * float(
             want.abs().max())
-    assert launch_counts() == {**{f"K{i}": 0 for i in range(1, 15)},
+    assert launch_counts() == {**{f"K{i}": 0 for i in range(1, 19)},
                                "K9": 1, "K10": 1, "K11": 1}
 
 
@@ -227,5 +234,105 @@ def test_const_kernels_match_plain_on_card(dtype, rel, nphi, r_inner,
         assert got.is_cuda and got.dtype == dtype
         assert float((got - want).abs().max()) <= rel * float(
             want.abs().max())
-    assert launch_counts() == {**{f"K{i}": 0 for i in range(1, 15)},
+    assert launch_counts() == {**{f"K{i}": 0 for i in range(1, 19)},
                                "K12": 1, "K13": 1, "K14": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float64, 1e-12),
+                                       (torch.float32, 8 * 2.0 ** -23)],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("nphi,r_inner,kind_bot", [
+    (45, 0.02, "neumann0"), (45, 0.0, "dirichlet"), (2, 0.0, "dirichlet")],
+    ids=["annular-odd", "disk-odd-dirichlet", "disk-nphi2-dirichlet"])
+def test_cyl_varprop_kernels_match_plain_on_card(dtype, rel, nphi, r_inner,
+                                                 kind_bot):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(31)
+    grid = CylindricalGrid(37, nphi, 70, 5e-4, 5e-4, r_inner=r_inner)
+    shape = grid.shape
+    zbc = ZFaceBC(kind_bot=kind_bot, T_bot=1400.0, kind_top="robin",
+                  h_top=400.0, T_inf_top=25.0)
+    act = torch.from_numpy(rng.random(shape) > 0.25).to(dev)
+    cast = (lambda a: torch.from_numpy(a).to(dev, dtype))
+    T = cast(1400.0 + 100.0 * rng.random(shape))
+    T.view(-1)[::7] = 1420.0
+    T.view(-1)[3::11] = 1470.0
+    R = cast(20.0 + 1480.0 * rng.random(shape))
+    code_r, code_p, code_z = build_cyl_vp2_plan(act, grid, zbc)
+    cols = pcvp._vp2_columns(grid, zbc, dtype, dev)
+    f = np.float32 if dtype == torch.float32 else np.float64
+    inv = float(f(1.0) / f(f(0.02) / f(7800.0)))
+    tabs = dict(k_spec=melt_pool_enhanced_k(54.0, 1420.0, 1470.0, 4.0),
+                cp_spec=apparent_cp(490.0, 490.0, 2.7e5, 1420.0, 1470.0))
+    rk = dict(h_lo=80.0, h_hi=80.0, tinf_void=15.0, emissivity=0.5,
+              edge0=(150.0, 1.9e3, 30.0), edge1=(300.0, 2.1e3, 20.0), **tabs)
+    r_cols = (cols["glo_r"], cols["ghi_r"], cols["gsl_r"], cols["gsh_r"])
+    pk = dict(h_void=80.0, tinf_void=15.0, emissivity=0.5, **tabs)
+    zk = dict(ghi=cols["geo_z"], gsh=cols["gs_z"], h=80.0, h_hi=200.0,
+              t_inf=15.0, emissivity=0.5, edge1=(400.0, 2e3, 25.0), **tabs)
+    z_args = (R, T, code_z, cols["geo_z"], cols["gs_z"], inv)
+    streams = [cast(a) for a in (
+        20.0 + 1480.0 * rng.random(shape),
+        54.0 * (1.0 + 3.0 * rng.random(shape)) * (rng.random(shape) > 0.2),
+        2e-8 * (0.5 + rng.random(shape)), 3e3 * rng.random(shape),
+        6e4 * rng.random(shape))]
+    zl = [s.permute(2, 0, 1).contiguous() for s in streams]
+    reset_launch_counts()
+    pairs = [
+        (vp2_sweep_strided(R, T, code_r, *r_cols, inv, **rk),
+         vp2_sweep_strided_plain(R, T, code_r, *r_cols, inv, **rk)),
+        (vp2_sweep_strided(None, T, code_r, *r_cols, inv, **rk),
+         vp2_sweep_strided_plain(None, T, code_r, *r_cols, inv, **rk)),
+        (vp2_cyclic_phi(R, T, code_p, cols["geo_p"], cols["gs_p"], inv,
+                        **pk),
+         vp2_cyclic_phi_plain(R, T, code_p, cols["geo_p"], cols["gs_p"], inv,
+                              **pk)),
+        (vp2_sweep_z(*z_args, **zk), vp2_sweep_z_plain(*z_args, **zk)),
+        (vp_fields_sweep_strided(*streams, cols["glo_r"], cols["ghi_r"]),
+         vp_fields_sweep_strided_plain(*streams, cols["glo_r"],
+                                       cols["ghi_r"])),
+        (vp_fields_sweep_strided(*zl, cols["geo_z"], cols["geo_z"]),
+         vp_fields_sweep_strided_plain(*zl, cols["geo_z"], cols["geo_z"])),
+        (vp_fields_cyclic_phi(*streams, cols["geo_p"]),
+         vp_fields_cyclic_phi_plain(*streams, cols["geo_p"])),
+    ]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert got.is_cuda and got.dtype == dtype
+        assert float((got - want).abs().max()) <= rel * float(
+            want.abs().max())
+    assert launch_counts() == {**{f"K{i}": 0 for i in range(1, 19)},
+                               "K8": 1, "K15": 2, "K16": 1, "K17": 2,
+                               "K18": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme,launches", [
+    ("be", {"K8": 1, "K15": 1, "K16": 1}), ("douglas", {"K17": 2, "K18": 1})])
+def test_cyl_varprop_step_on_card(scheme, launches):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(37)
+    grid = CylindricalGrid(24, 45, 40, 5e-4, 5e-4, r_inner=0.0)
+    act = torch.from_numpy(rng.random(grid.shape) > 0.2).to(dev)
+    T = torch.from_numpy(1380.0 + 150.0 * rng.random(grid.shape)).to(dev)
+    kw = dict(dt=0.02, robin_outer=RobinBC(300.0, 20.0),
+              zbc=ZFaceBC(kind_bot="dirichlet", T_bot=1400.0,
+                          kind_top="robin", h_top=400.0),
+              k_table=melt_pool_enhanced_k(54.0, 1420.0, 1470.0, 4.0),
+              cp_table=apparent_cp(490.0, 490.0, 2.7e5, 1420.0, 1470.0),
+              active=act, h_void=80.0, h_front=200.0, emissivity=0.5,
+              scheme=scheme)
+    mat = Material(7800.0, 490.0, 54.0)
+    reset_launch_counts()
+    got = adi_step_cyl_varprop(T, grid, mat, **kw)
+    assert launch_counts() == {**{f"K{i}": 0 for i in range(1, 19)},
+                               **launches}
+    want = adi_step_cyl_varprop(T, grid, mat, implementation="reference",
+                                **kw)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-9

@@ -293,7 +293,7 @@ def test_const_wrappers_cpu_contract():
     const_sweep_strided(rhs, a, b, c, radd)
     const_sweep_z(rhs, az, bz, cz, raddz)
     cyclic_const_phi(rhs, fac)
-    assert launch_counts() == {f"K{i}": 0 for i in range(1, 15)}
+    assert launch_counts() == {f"K{i}": 0 for i in range(1, 19)}
     grad = rhs.clone().requires_grad_(True)
     for call in (lambda: const_sweep_strided(grad, a, b, c, radd),
                  lambda: const_sweep_z(grad, az, bz, cz, raddz),

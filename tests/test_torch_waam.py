@@ -89,6 +89,8 @@ def test_port_imports_no_jax():
             "import adi_thermal_fields_tpu_torch.step.cylindrical\n"
             "import adi_thermal_fields_tpu_torch.solvers.const_sweeps\n"
             "import adi_thermal_fields_tpu_torch.solvers.spectral\n"
+            "import adi_thermal_fields_tpu_torch.solvers.vpfields\n"
+            "import adi_thermal_fields_tpu_torch.step.cylindrical_varprop\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax',\n"
             "                                    'adi_thermal_fields_tpu'))\n"
