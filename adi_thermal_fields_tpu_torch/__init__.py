@@ -6,14 +6,16 @@ JAX package's paths; each docstring names its counterpart.  The slices
 ported so far are the Cartesian WAAM path: voxelized STL parts, element
 birth, constant properties, scalar or field Robin h, Neumann flux and
 Dirichlet pins; its variable-property step: k(T) and cp(T) tables
-(latent heat, melt-pool conductivity) and the radiative film with scalar
-convective h; and the cylindrical spiral-tube path: the masked-Robin
-(r, phi, z) backward-Euler step with element birth by a spiral schedule,
-the unmasked cylindrical step (backward Euler and Douglas-Gunn) with
-its ambient-clamp birth wrapper, and the variable-property cylindrical
-step (tables, radiation, backward Euler and Douglas-Gunn, face-cut or
-clamp birth).  They run on CUDA kernels written by hand for the H100
-(csrc/):
+(latent heat, melt-pool conductivity), the radiative film, scalar,
+per-face or field convective h (the STL area-corrected fields of
+``--corrected_bc``), Neumann flux and Dirichlet pins; and the
+cylindrical spiral-tube path: the masked-Robin (r, phi, z)
+backward-Euler step with element birth by a spiral schedule, the
+unmasked cylindrical step (backward Euler and Douglas-Gunn) with its
+ambient-clamp birth wrapper, and the variable-property cylindrical step
+(tables, radiation, backward Euler and Douglas-Gunn, face-cut or clamp
+birth, and its field-coefficient tier).  They run on CUDA kernels
+written by hand for the H100 (csrc/):
 
 * K1 ``solvers.sweeps.sweep_strided`` — masked sweep along x or y;
 * K2 ``solvers.sweeps.sweep_z`` — plan-lite sweep along contiguous z;
@@ -44,7 +46,16 @@ clamp birth).  They run on CUDA kernels written by hand for the H100
 * K17 ``solvers.vpfields.vp_fields_sweep_strided`` — the five-stream
   sweep (r, and z on a permutation);
 * K18 ``solvers.vpfields.vp_fields_cyclic_phi`` — the five-stream
-  periodic phi sweep.
+  periodic phi sweep;
+* K19 ``solvers.varprop.varprop_sweep_z`` — the stream-reading varprop
+  sweep along contiguous z (K7's entry point also takes x:
+  ``varprop_sweep_x``);
+* K20 ``solvers.varprop.varprop_theta_rhs`` — the explicit varprop theta
+  pass;
+* K21 ``solvers.fields.tridiag_fields`` — Thomas on a/b/c/d fields along
+  any axis;
+* K22 ``solvers.fields.cyclic_fields`` — the periodic field-coefficient
+  solve.
 
 Each kernel wrapper runs its plain PyTorch version on CPU tensors and the
 kernel on CUDA tensors (built from csrc/*.cu at first use).

@@ -12,10 +12,14 @@ callbacks), as in the JAX loop.
 "kernels" runs step/cartesian_fused.adi_step_fused (K1-K4 on CUDA tensors,
 their plain versions on CPU tensors); "reference" runs the plain step
 step/cartesian.adi_step.  ``k_table``, ``cp_table`` or ``emissivity``
-switch the engine onto the variable-property step (JAX :167-358):
-"kernels" runs step/cartesian_varprop.adi_step_varprop_fused (K5-K8),
-"reference" runs adi_step_varprop and, with radiation, rebuilds its packs
-every sub-step from the live field.
+switch the engine onto the variable-property step (JAX :167-358).  With
+Robin films only, "kernels" runs step/cartesian_varprop.
+adi_step_varprop_fused (K5-K8; per-face or field ``robin_h`` and
+``radiation_scale`` folded once per birth into per-axis streams by
+``build_face_h_axes``, then K19 along z).  With Neumann flux or Dirichlet
+pins both implementations take the materialized step adi_step_varprop,
+"kernels" solving it with K21; "reference" always does, and with
+radiation rebuilds its packs every sub-step from the live field.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..bc.packs import build_coeff_packs
+from ..bc.packs import _normalize_per_face, build_coeff_packs
 from ..bc.radiation import radiative_h
 from ..core.grid import CartesianGrid
 from ..core.material import Material
@@ -34,11 +38,20 @@ from ..step.cartesian import adi_step, state_numpy_dtype
 from ..step.cartesian_fused import adi_step_fused, build_sweep_plan
 from ..step.cartesian_varprop import (adi_step_varprop,
                                       adi_step_varprop_fused,
-                                      build_varprop_codes, check_films)
+                                      build_face_h_axes, build_varprop_codes,
+                                      check_films)
 
 __all__ = ["make_cartesian_engine", "EventLoop", "IMPLEMENTATIONS"]
 
 IMPLEMENTATIONS = ("kernels", "reference")
+
+
+def _faces_on(spec, device, dtype) -> dict:
+    """A per-face film spec (scalar, field or dict of either) as a per-face
+    dict, fields as tensors on ``device`` at ``dtype``."""
+    return {face: (v if v is None or isinstance(v, (int, float))
+                   else torch.as_tensor(v, dtype=dtype, device=device))
+            for face, v in _normalize_per_face(spec).items()}
 
 
 def make_cartesian_engine(grid: CartesianGrid, mat: Material, *,
@@ -58,13 +71,19 @@ def make_cartesian_engine(grid: CartesianGrid, mat: Material, *,
     (field plan).  ``source_fn``: optional ``t -> volumetric heat field
     [W/m^3]``.  Thermal history and device meshes are not ported yet.
 
-    Variable properties: ``k_table`` / ``cp_table`` (PropertyTable or
-    number; ``apparent_cp`` for latent heat, ``melt_pool_enhanced_k`` for
-    the melt-pool proxy) and ``emissivity`` (the radiative film
-    ``h_rad(T)`` on top of the convective ``robin_h``, refreshed every
-    sub-step).  On that path ``robin_h`` must be a scalar >= 0 and
-    ``emissivity`` >= 0; Neumann flux, Dirichlet pins, field h and
-    ``radiation_scale`` are not ported yet and raise."""
+    Variable properties: ``k_table`` / ``cp_table`` (PropertyTable,
+    number, callable, or a per-axis k 3-tuple; ``apparent_cp`` for latent
+    heat, ``melt_pool_enhanced_k`` for the melt-pool proxy) and
+    ``emissivity`` (the radiative film ``h_rad(T)`` on top of the
+    convective ``robin_h``, refreshed every sub-step).  ``robin_h`` may be
+    a scalar (>= 0 there), a per-face dict or a 3-D field, e.g. the STL
+    area-corrected fields (geometry/bc_correction.py); the film is then
+    ``robin_h + h_rad(T) * radiation_scale``, ``radiation_scale`` a
+    per-face dict or field of area ratios (a face without one counts 1;
+    it needs ``emissivity``).  Unlike the JAX engine, which drops
+    ``radiation_scale`` beside a scalar ``robin_h``, the port applies it
+    there too.  Neumann flux and Dirichlet pins run the materialized
+    step."""
     if implementation not in IMPLEMENTATIONS:
         raise ValueError(f"implementation must be one of {IMPLEMENTATIONS}, "
                          f"got {implementation!r}")
@@ -102,33 +121,56 @@ def make_cartesian_engine(grid: CartesianGrid, mat: Material, *,
                          "convective film pass the corrected h fields as "
                          "robin_h")
     if varprop:
-        if neumann is not None or dirichlet_mask is not None:
-            raise NotImplementedError(
-                "Neumann flux and Dirichlet pins on the variable-property "
-                "path are not ported yet")
-        if lite_c is None or radiation_scale is not None:
-            raise NotImplementedError(
-                "per-face or field Robin h (and radiation_scale) on the "
-                "variable-property path need the stream-reading varprop "
-                "sweep, TPU kernel row 17, not ported yet")
-        h0 = float(robin_h or 0.0)
-        check_films(h0, emissivity)
-        # radiation: the convective robin_h rides on top of h_rad(T)
-        h_conv = h0 if emissivity is not None else 0.0
+        # a radiation_scale makes the film per face even beside a scalar h
+        scalar_conv = lite_c is not None and radiation_scale is None
+        if scalar_conv:
+            check_films(float(robin_h or 0.0), emissivity)
+        else:
+            check_films(None, emissivity)
+        # radiation: a scalar convective robin_h rides on top of h_rad(T)
+        h_conv = (float(robin_h or 0.0)
+                  if emissivity is not None and scalar_conv else None)
+        fused = neumann is None and dirichlet_mask is None
+        # per-face films on the device at the state dtype, converted once
+        h_pf = s_pf = None
+        if not scalar_conv:
+            h_pf = _faces_on(robin_h if lite_c is None
+                             else float(robin_h or 0.0), device, dtype)
+            s_pf = _faces_on(radiation_scale, device, dtype)
 
-        if implementation == "kernels":
+        def _compose_h(T):
+            """This sub-step's total film for the packs: the convective
+            robin_h plus the radiative film, scaled per face by
+            radiation_scale (JAX :186-201)."""
+            h_rad = radiative_h(T, emissivity, t_inf,
+                                h_conv=0.0 if h_conv is None else h_conv)
+            if scalar_conv:
+                return h_rad
+            return {face: (h_pf[face] if h_pf[face] is not None else 0.0)
+                    + h_rad * (1.0 if s_pf[face] is None else s_pf[face])
+                    for face in h_pf}
+
+        if implementation == "kernels" and fused:
+            s_spec = s_pf if emissivity is not None else None
+
             def prepare(active):
                 active = active.to(device=device, dtype=torch.bool)
-                # K5 reads the mask as uint8: convert once per birth event
-                return (active.to(torch.uint8), build_varprop_codes(active))
+                # K5 and K20 read the mask as uint8: convert once per birth;
+                # per-face films fold into per-axis streams once per birth
+                h_ab = (None if scalar_conv else
+                        build_face_h_axes(active, h_pf, s_spec,
+                                          dtype=dtype))
+                return (active.to(torch.uint8), build_varprop_codes(active),
+                        h_ab)
 
             def step1(T, prep, dt, t):
-                active, codes = prep
+                active, codes, h_ab = prep
                 src = None if source_fn is None else source_fn(t)
                 return adi_step_varprop_fused(
                     T, active, codes, grid, mat, k_table=k_table,
                     cp_table=cp_table, dt=dt, theta=theta, t_inf=t_inf,
-                    robin_h=h0, emissivity=emissivity, h_conv=h_conv,
+                    robin_h=float(robin_h or 0.0) if scalar_conv else 0.0,
+                    h_axes=h_ab, emissivity=emissivity, h_conv=h_conv,
                     source=src)
         else:
             def prepare(active):
@@ -143,13 +185,14 @@ def make_cartesian_engine(grid: CartesianGrid, mat: Material, *,
                 if emissivity is not None:
                     packs = build_coeff_packs(
                         active, grid, mat, dtype=T.dtype,
-                        robin_h=radiative_h(T, emissivity, t_inf,
-                                            h_conv=h_conv))
+                        robin_h=_compose_h(T), neumann=neumann,
+                        dirichlet_mask=dirichlet_mask,
+                        dirichlet_value=dirichlet_value)
                 src = None if source_fn is None else source_fn(t)
                 return adi_step_varprop(
                     T, active, packs, grid, mat, k_table=k_table,
                     cp_table=cp_table, dt=dt, theta=theta, t_inf=t_inf,
-                    source=src)
+                    source=src, implementation=implementation)
     elif implementation == "kernels":
         def prepare(active):
             active = active.to(device=device, dtype=torch.bool)

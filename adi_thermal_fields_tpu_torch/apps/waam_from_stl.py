@@ -9,6 +9,11 @@ loop with element birth (apps/engine.py) on the chosen device.  The
 variable-property flags (``--latent_J_kg``, ``--melt_k_factor``,
 ``--emissivity``) build the tables as the JAX app does (:318-349) and put
 the engine on the variable-property step (kernels K5-K8).
+``--corrected_bc 1`` replaces ``--h_side`` by the STL projected-area
+corrected per-face h fields (geometry/bc_correction.py), which also scale
+the radiative film under ``--emissivity`` (JAX :273-287): the constant
+property step runs them on K1's field plan, the varprop step as per-axis
+film streams (K5-K7, K19).
 
 Example (on a CUDA machine):
     python -m adi_thermal_fields_tpu_torch.apps.waam_from_stl --stl part.stl \
@@ -89,11 +94,13 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="torch device; the run raises when CUDA is absent")
     p.add_argument("--implementation", choices=["kernels", "reference"],
                    default="kernels",
-                   help="kernels: K1-K4 (K5-K8 with variable properties) "
-                        "on CUDA, plain versions on CPU; reference: the "
-                        "plain step")
+                   help="kernels: K1-K4 (K5-K8 and K19 with variable "
+                        "properties) on CUDA, plain versions on CPU; "
+                        "reference: the plain step")
+    p.add_argument("--corrected_bc", type=int, default=0,
+                   help="1: STL projected-area corrected per-face Robin "
+                        "fields instead of the uniform --h_side")
     # JAX-app flags not ported yet: parsed so that they exit with a message
-    p.add_argument("--corrected_bc", type=int, default=0)
     p.add_argument("--mesh", type=str, default="")
     p.add_argument("--checkpoint", type=str, default="")
     p.add_argument("--resume", type=str, default="")
@@ -106,7 +113,6 @@ def build_argparser() -> argparse.ArgumentParser:
 def _reject_unsupported(args) -> None:
     """Exit with a message for flags this port does not support yet."""
     bad = [name for name, on in (
-        ("--corrected_bc", args.corrected_bc != 0),
         ("--mesh", bool(args.mesh)),
         ("--checkpoint", bool(args.checkpoint)),
         ("--resume", bool(args.resume)),
@@ -285,12 +291,29 @@ def run(args) -> dict:
         log(f"melt-pool k proxy: {args.melt_k_factor:g}x above "
             f"{args.liquidus_C:g} C", tag="phys")
     if emissivity is not None:
-        log(f"radiative film, emissivity {emissivity:g}", tag="phys")
+        log(f"radiative film, emissivity {emissivity:g}"
+            + (" (area-corrected)" if args.corrected_bc else ""), tag="phys")
+
+    robin_h, rad_scale = args.h_side, None
+    if args.corrected_bc:
+        # per-axis spacing: the corrector normalizes by each direction's
+        # voxel-face area, so --dz_mm composes
+        from ..geometry.bc_correction import corrected_robin_fields
+        fields, scale = corrected_robin_fields(
+            mesh, mask_full, origin, d,
+            {f: args.h_side for f in ("x-", "x+", "y-", "y+", "z-", "z+")})
+        robin_h = {f: torch.as_tensor(v, dtype=dtype, device=device)
+                   for f, v in fields.items()}
+        # the same area ratios scale the radiative film
+        rad_scale = {f: torch.as_tensor(v, dtype=dtype, device=device)
+                     for f, v in scale.items()}
+        log("using STL projected-area corrected Robin fields", tag="bc")
 
     prepare, advance = make_cartesian_engine(
         grid, mat, implementation=args.implementation, device=device,
-        dtype=dtype, theta=args.theta, t_inf=args.T_inf, robin_h=args.h_side,
-        k_table=k_table, cp_table=cp_table, emissivity=emissivity)
+        dtype=dtype, theta=args.theta, t_inf=args.T_inf, robin_h=robin_h,
+        k_table=k_table, cp_table=cp_table, emissivity=emissivity,
+        radiation_scale=rad_scale if emissivity is not None else None)
     dmin = min(d)
     dt_cap = args.cfl * dmin * dmin / mat.alpha
     log(f"alpha={mat.alpha:.3e} m^2/s, dt_cap={dt_cap:.3e} s "

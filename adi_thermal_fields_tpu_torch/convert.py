@@ -25,7 +25,13 @@ tensors on a chosen device:
   layout to the natural (r, phi, z) layout, the geometry as tensors;
 * ``cyl_vp2_plan_from_jax(plan)``: the port's ``build_cyl_vp2_plan`` codes
   from a JAX ``build_cyl_vp2_plan`` tuple: int8 codes as uint8, the z code
-  moved from (z, r, phi) to the natural layout.
+  moved from (z, r, phi) to the natural layout;
+* ``faces_from_numpy(spec)``: a per-face dict of films or area scales (a
+  JAX ``robin_h`` / ``radiation_scale``, or the outputs of
+  ``corrected_robin_fields``) with its fields as tensors;
+* ``h_axes_from_jax(h_axes)``: the per-axis film streams of a JAX
+  ``build_face_h_axes`` as the port's, the z pair moved from the JAX
+  (z, x, y) layout to the natural layout that K19 reads.
 """
 from __future__ import annotations
 
@@ -39,7 +45,8 @@ from .step.cylindrical_masked import MaskedRobinPlan
 
 __all__ = ["field_from_numpy", "packs_from_numpy", "plan_from_numpy",
            "property_table_from_jax", "vp2_code_from_numpy",
-           "masked_plan_from_jax", "cyl_vp2_plan_from_jax"]
+           "masked_plan_from_jax", "cyl_vp2_plan_from_jax",
+           "faces_from_numpy", "h_axes_from_jax"]
 
 
 def field_from_numpy(T, *, device, dtype: torch.dtype | None = None
@@ -145,3 +152,30 @@ def cyl_vp2_plan_from_jax(plan, *, device="cpu") -> tuple:
     return (vp2_code_from_numpy(code_r, device=device),
             vp2_code_from_numpy(code_p, device=device),
             vp2_code_from_numpy(code_z, device=device, zxy=True))
+
+
+def faces_from_numpy(spec, *, device, dtype: torch.dtype | None = None
+                     ) -> dict:
+    """A per-face dict (faces x-, x+, ...) of scalars or fields, the fields
+    as contiguous tensors on ``device`` (dtype kept unless given)."""
+    return {face: (v if v is None or isinstance(v, (int, float))
+                   else field_from_numpy(np.asarray(v), device=device,
+                                         dtype=dtype))
+            for face, v in spec.items()}
+
+
+def h_axes_from_jax(h_axes, *, device) -> tuple:
+    """``((Ax, Bx), (Ay, By), (Az, Bz))`` of a JAX ``build_face_h_axes``
+    (read as numpy) in the port's layout: x and y kept, the z pair moved
+    from (z, x, y) to (x, y, z); a missing B stays None."""
+    out = []
+    for ax, pair in enumerate(h_axes):
+        conv = []
+        for a in pair:
+            if a is None:
+                conv.append(None)
+                continue
+            t = field_from_numpy(np.asarray(a), device=device)
+            conv.append(t.permute(1, 2, 0).contiguous() if ax == 2 else t)
+        out.append(tuple(conv))
+    return tuple(out)

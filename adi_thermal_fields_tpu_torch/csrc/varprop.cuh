@@ -1,5 +1,6 @@
-// Device helpers of the variable-property kernels K5-K8: property tables
-// as clamp-sums, the harmonic face mean and the Picard radiative film.
+// Device helpers of the variable-property kernels K5-K8 and K15-K20:
+// property tables as clamp-sums, the harmonic face mean, the Picard
+// radiative film, the explicit theta term and the stream-reading row.
 //
 // A table reaches a kernel by value as a small POD struct (kernel
 // parameter space, __grid_constant__: no local copy) holding at most
@@ -107,6 +108,44 @@ template <typename T>
 __device__ __forceinline__ T rad_film_rn(T x, T rc, T tik, T tik2) {
   const T tk = add(x, T(273.15));
   return mul(mul(rc, add(tk, tik)), add(mul(tk, tk), tik2));
+}
+
+// One axis of the explicit varprop theta pass (K6, K20):
+// iv*(f_lo*(t_lo - t) + f_hi*(t_hi - t)), neighbours and faces zero past
+// the domain edge.
+template <typename T>
+__device__ __forceinline__ T vp_face_term(T f_lo, T f_hi, T t_lo, T t_hi,
+                                          T t, T iv) {
+  return mul(add(mul(f_lo, sub(t_lo, t)), mul(f_hi, sub(t_hi, t))), iv);
+}
+
+// One implicit row of the stream-reading varprop sweeps (K6, K7 and its x
+// entry, K19; the rows of pallas_varprop._varprop_kernel :142-197), fed
+// into the Thomas recurrence (cp, dp) of solvers/thomas.thomas:
+//   tw = tg*w, a = -tw*f_lo, c = -tw*f_hi,
+//   sink = (sk*h)*((2-low-high)*inm), sw = sink*w,
+//   b = 1 + tw*(f_lo + f_hi) + sw, d += sw*t_inf,
+// code bits 1/2/8 of sweep_code, eliminated with one reciprocal per row as
+// _varprop_kernel does (inv = 1/(b - a*cp'); cp' = c*inv; dp' = (d -
+// a*dp')*inv).  One rounding per operation in the plain version's order
+// (solvers/varprop._varprop_solve).
+template <typename T>
+__device__ __forceinline__ void vp_row(unsigned c, T f_lo, T f_hi, T wv,
+                                       T hv, T d, T tg, T sk, T t_inf,
+                                       T& cp, T& dp) {
+  const T low = bit<T>(c, kLow);
+  const T high = bit<T>(c, kHigh);
+  const T inm = bit<T>(c, kInMask);
+  const T sink = mul(mul(sk, hv), mul(sub(sub(T(2), low), high), inm));
+  const T tw = mul(tg, wv);
+  const T a = mul(-tw, f_lo);
+  const T cc = mul(-tw, f_hi);
+  const T sw = mul(sink, wv);
+  const T b = add(add(T(1), mul(tw, add(f_lo, f_hi))), sw);
+  const T dd = add(d, mul(sw, t_inf));
+  const T inv = div(T(1), sub(b, mul(a, cp)));
+  cp = mul(cc, inv);
+  dp = mul(sub(dd, mul(a, dp)), inv);
 }
 
 }  // namespace atf

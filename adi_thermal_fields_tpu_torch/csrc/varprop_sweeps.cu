@@ -1,4 +1,5 @@
-// K6 and K7: the variable-property sweeps that read prebuilt face streams.
+// K6, K7 and K20: the variable-property passes that read prebuilt face
+// streams.
 //
 // K6 replaces adi_thermal_fields_tpu/solvers/pallas_varprop.py
 //    fused_varprop_theta_sweep (:1066), body _vp_ring_kernel (:821): the
@@ -9,14 +10,19 @@
 //    f_lo = fc[i] and f_hi = fc[i+1] (zero past the domain edge).
 // K7 replaces pallas_varprop.py fused_varprop_sweep_axis1 (:718), body
 //    _varprop_kernel_axis1 (:560): the sweep along the STRIDED y axis of
-//    the natural field, viewed as (B1, n, B2) = (nx, ny, nz).
+//    the natural field, viewed as (B1, n, B2) = (nx, ny, nz).  Its entry
+//    point also takes x as (1, nx, ny*nz): the solve-leading form of
+//    fused_varprop_sweep (:251, body _varprop_kernel :60), the same rows.
+// K20 replaces pallas_varprop.py varprop_theta_rhs (:471), body
+//    _vp_rhs_kernel (:403): K6's explicit pass alone, R0 = d, with the
+//    in-mask factor read from a uint8 mask.  Like the reference it leaves
+//    the Robin flux out of R0 (the films enter the implicit rows only).
 //
-// Row system (both, _varprop_kernel :142-197), per pencil along the axis:
-//   tw = tg*w, a = -tw*f_lo, c = -tw*f_hi,
-//   sink = (sk*h)*((2-low-high)*inm), sw = sink*w,
-//   b = 1 + tw*(f_lo + f_hi) + sw, d += sw*t_inf,
-// h a per-cell film stream or the scalar rob_c; code bits 1/2/8 of
-// sweep_code (plain bits, no stencil bits: the faces carry the masking).
+// Row system (K6, K7): atf::vp_row (varprop.cuh), code bits 1/2/8 of
+// sweep_code (plain bits, no stencil bits: the faces carry the masking),
+// h a per-cell film stream or the scalar rob_c.  Every operation is one
+// IEEE rounding in the plain versions' order (solvers/varprop.py), so the
+// kernels repeat them bit for bit.
 //
 // What bounds them on the H100: memory.  The TPU kernels keep the line in
 // VMEM and run one row lagged (the upper face arrives with the next
@@ -28,36 +34,24 @@
 // the y/z neighbours through L1/L2) + code (1) + fx/fy/fz/w (16) [+ h 4]
 // [+ src 4] and writes U (4): 25-33 B/cell; K7 reads rhs + code + fc + w
 // [+ h] and writes x: 17-21 B/cell; both plus the 16 B/cell c'/d' round
-// trip.
-#include "common.cuh"
+// trip.  K20 marches along x like K6 (T and fx carried in registers) and
+// moves T + fx/fy/fz/w (20) + mask (1) [+ src 4] + R0 (4): 25-29 B/cell.
+#include "varprop.cuh"
 
 namespace {
 
-template <typename T>
-__device__ __forceinline__ void vp_row(unsigned c, T f_lo, T f_hi, T wv,
-                                       T hv, T d, T tg, T sk, T t_inf,
-                                       T& cp, T& dp) {
-  const T low = atf::bit<T>(c, atf::kLow);
-  const T high = atf::bit<T>(c, atf::kHigh);
-  const T inm = atf::bit<T>(c, atf::kInMask);
-  const T sink = (sk * hv) * ((T(2) - low - high) * inm);
-  const T tw = tg * wv;
-  const T a = -tw * f_lo;
-  const T cc = -tw * f_hi;
-  const T sw = sink * wv;
-  const T b = T(1) + tw * (f_lo + f_hi) + sw;
-  const T dd = d + sw * t_inf;
-  const T inv = T(1) / (b - a * cp);
-  cp = cc * inv;
-  dp = (dd - a * dp) * inv;
-}
+using atf::add;
+using atf::mul;
 
-template <typename T>
+// kRhsOnly: K20 (write R0, in-mask factor from the uint8 mask, no solve);
+// else K6.
+template <typename T, bool kRhsOnly>
 __global__ void __launch_bounds__(256) vp_theta_sweep_kernel(
     const T* __restrict__ Tf, const uint8_t* __restrict__ code,
     const T* __restrict__ fx, const T* __restrict__ fy,
     const T* __restrict__ fz, const T* __restrict__ w,
-    const T* __restrict__ h, const T* __restrict__ src, T* __restrict__ out,
+    const T* __restrict__ h, const T* __restrict__ src,
+    const uint8_t* __restrict__ mask, T* __restrict__ out,
     T* __restrict__ dpbuf, int64_t nx, int64_t ny, int64_t nz, T cw, T cd,
     T iv_x, T iv_y, T iv_z, T tg, T sk, T t_inf, T rob_c) {
   const int64_t plane = ny * nz;
@@ -77,39 +71,50 @@ __global__ void __launch_bounds__(256) vp_theta_sweep_kernel(
     const bool has_xhi = i + 1 < nx;
     const T t_hi = has_xhi ? Tf[off + plane] : T(0);
     const T fx_hi = has_xhi ? fx[off + plane] : T(0);
-    const unsigned c = code[off];
 
     // explicit theta pass: x, then y, then z
-    T acc = (fx_lo * (t_lo - t_c) + fx_hi * (t_hi - t_c)) * iv_x;
-    const T fy_lo = fy[off];
-    const T fy_hi = has_yhi ? fy[off + nz] : T(0);
-    const T t_ylo = has_ylo ? Tf[off - nz] : T(0);
-    const T t_yhi = has_yhi ? Tf[off + nz] : T(0);
-    acc = acc + (fy_lo * (t_ylo - t_c) + fy_hi * (t_yhi - t_c)) * iv_y;
-    const T fz_lo = fz[off];
-    const T fz_hi = has_zhi ? fz[off + 1] : T(0);
-    const T t_zlo = has_zlo ? Tf[off - 1] : T(0);
-    const T t_zhi = has_zhi ? Tf[off + 1] : T(0);
-    acc = acc + (fz_lo * (t_zlo - t_c) + fz_hi * (t_zhi - t_c)) * iv_z;
+    T acc = atf::vp_face_term(fx_lo, fx_hi, t_lo, t_hi, t_c, iv_x);
+    acc = add(acc, atf::vp_face_term(
+                       fy[off], has_yhi ? fy[off + nz] : T(0),
+                       has_ylo ? Tf[off - nz] : T(0),
+                       has_yhi ? Tf[off + nz] : T(0), t_c, iv_y));
+    acc = add(acc, atf::vp_face_term(
+                       fz[off], has_zhi ? fz[off + 1] : T(0),
+                       has_zlo ? Tf[off - 1] : T(0),
+                       has_zhi ? Tf[off + 1] : T(0), t_c, iv_z));
     const T wv = w[off];
-    const T gain = wv * atf::bit<T>(c, atf::kInMask);
-    T d = t_c + cw * gain * acc;
-    if (src != nullptr) d = d + cd * gain * src[off];
+    unsigned c = 0u;
+    T inm;
+    if constexpr (kRhsOnly) {
+      inm = mask[off] ? T(1) : T(0);
+    } else {
+      c = code[off];
+      inm = atf::bit<T>(c, atf::kInMask);
+    }
+    const T gain = mul(wv, inm);
+    T d = add(t_c, mul(mul(cw, gain), acc));
+    if (src != nullptr) d = add(d, mul(mul(cd, gain), src[off]));
 
-    vp_row(c, fx_lo, fx_hi, wv, h != nullptr ? h[off] : rob_c, d, tg, sk,
-           t_inf, cp, dp);
-    out[off] = cp;
-    dpbuf[off] = dp;
+    if constexpr (kRhsOnly) {
+      out[off] = d;
+    } else {
+      atf::vp_row(c, fx_lo, fx_hi, wv, h != nullptr ? h[off] : rob_c, d,
+                  tg, sk, t_inf, cp, dp);
+      out[off] = cp;
+      dpbuf[off] = dp;
+    }
 
     t_lo = t_c;
     t_c = t_hi;
     fx_lo = fx_hi;
   }
-  T x = T(0);
-  for (int64_t i = nx - 1; i >= 0; --i) {
-    const int64_t off = i * plane + p;
-    x = dpbuf[off] - out[off] * x;
-    out[off] = x;
+  if constexpr (!kRhsOnly) {
+    T x = T(0);
+    for (int64_t i = nx - 1; i >= 0; --i) {
+      const int64_t off = i * plane + p;
+      x = atf::sub(dpbuf[off], mul(out[off], x));
+      out[off] = x;
+    }
   }
 }
 
@@ -129,8 +134,9 @@ __global__ void __launch_bounds__(256) vp_sweep_strided_kernel(
   for (int64_t i = 0; i < n; ++i) {
     const int64_t off = base + i * B2;
     const T f_hi = (i + 1 < n) ? fc[off + B2] : T(0);
-    vp_row(code[off], f_lo, f_hi, w[off], h != nullptr ? h[off] : rob_c,
-           rhs[off], tg, sk, t_inf, cp, dp);
+    atf::vp_row(code[off], f_lo, f_hi, w[off],
+                h != nullptr ? h[off] : rob_c, rhs[off], tg, sk, t_inf, cp,
+                dp);
     out[off] = cp;
     dpbuf[off] = dp;
     f_lo = f_hi;
@@ -138,28 +144,30 @@ __global__ void __launch_bounds__(256) vp_sweep_strided_kernel(
   T x = T(0);
   for (int64_t i = n - 1; i >= 0; --i) {
     const int64_t off = base + i * B2;
-    x = dpbuf[off] - out[off] * x;
+    x = atf::sub(dpbuf[off], mul(out[off], x));
     out[off] = x;
   }
 }
 
-template <typename T>
+template <typename T, bool kRhsOnly>
 void launch_vp_theta_sweep(const void* Tf, const void* code, const void* fx,
                            const void* fy, const void* fz, const void* w,
-                           const void* h, const void* src, void* out,
-                           void* scratch, int64_t nx, int64_t ny, int64_t nz,
-                           double cw, double cd, double iv_x, double iv_y,
-                           double iv_z, double tg, double sk, double t_inf,
-                           double rob_c, cudaStream_t stream) {
+                           const void* h, const void* src, const void* mask,
+                           void* out, void* scratch, int64_t nx, int64_t ny,
+                           int64_t nz, double cw, double cd, double iv_x,
+                           double iv_y, double iv_z, double tg, double sk,
+                           double t_inf, double rob_c, cudaStream_t stream) {
   const int threads = 256;
   const int64_t blocks = atf::cdiv(ny * nz, threads);
-  vp_theta_sweep_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
+  vp_theta_sweep_kernel<T, kRhsOnly><<<(unsigned)blocks, threads, 0,
+                                       stream>>>(
       static_cast<const T*>(Tf), static_cast<const uint8_t*>(code),
       static_cast<const T*>(fx), static_cast<const T*>(fy),
       static_cast<const T*>(fz), static_cast<const T*>(w),
       static_cast<const T*>(h), static_cast<const T*>(src),
-      static_cast<T*>(out), static_cast<T*>(scratch), nx, ny, nz, (T)cw,
-      (T)cd, (T)iv_x, (T)iv_y, (T)iv_z, (T)tg, (T)sk, (T)t_inf, (T)rob_c);
+      static_cast<const uint8_t*>(mask), static_cast<T*>(out),
+      static_cast<T*>(scratch), nx, ny, nz, (T)cw, (T)cd, (T)iv_x, (T)iv_y,
+      (T)iv_z, (T)tg, (T)sk, (T)t_inf, (T)rob_c);
 }
 
 template <typename T>
@@ -187,10 +195,26 @@ ATF_API int atf_varprop_theta_sweep(
     int64_t nz, double cw, double cd, double iv_x, double iv_y, double iv_z,
     double tg, double sk, double t_inf, double rob_c, void* stream) {
   ATF_DISPATCH(dtype, device,
-               launch_vp_theta_sweep<T>(Tf, code, fx, fy, fz, w, h, src, out,
-                                        scratch, nx, ny, nz, cw, cd, iv_x,
-                                        iv_y, iv_z, tg, sk, t_inf, rob_c,
-                                        (cudaStream_t)stream));
+               launch_vp_theta_sweep<T, false>(
+                   Tf, code, fx, fy, fz, w, h, src, nullptr, out, scratch,
+                   nx, ny, nz, cw, cd, iv_x, iv_y, iv_z, tg, sk, t_inf, rob_c,
+                   (cudaStream_t)stream));
+}
+
+ATF_API int atf_varprop_theta_rhs(int dtype, int device, const void* Tf,
+                                  const void* fx, const void* fy,
+                                  const void* fz, const void* w,
+                                  const void* mask, const void* src,
+                                  void* out, int64_t nx, int64_t ny,
+                                  int64_t nz, double cw, double cd,
+                                  double iv_x, double iv_y, double iv_z,
+                                  void* stream) {
+  if (mask == nullptr) return (int)cudaErrorInvalidValue;
+  ATF_DISPATCH(dtype, device,
+               launch_vp_theta_sweep<T, true>(
+                   Tf, nullptr, fx, fy, fz, w, nullptr, src, mask, out,
+                   nullptr, nx, ny, nz, cw, cd, iv_x, iv_y, iv_z, 0.0, 0.0,
+                   0.0, 0.0, (cudaStream_t)stream));
 }
 
 ATF_API int atf_varprop_sweep_strided(int dtype, int device, const void* rhs,

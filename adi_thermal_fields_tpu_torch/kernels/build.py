@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
-``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC`` compiles every source in ``csrc/`` into ONE shared
+``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+-fPIC -c`` compiles every source in ``csrc/`` to an object, one nvcc per
+source, all started together; ``nvcc -shared`` links them into ONE shared
 library with a plain C interface, loaded with ``ctypes`` (no PyTorch
 headers: the build takes seconds).  The library lands in
 ``build/torch_kernels/`` at the repository root, named by a hash of the
@@ -31,7 +32,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _I64, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
     ctypes.c_double
@@ -45,6 +46,14 @@ _SIGNATURES = {
                                  *[_D] * 9, _P], _I),
     "atf_varprop_sweep_strided": ([_I, _I, *[_P] * 7, _I64, _I64, _I64,
                                    *[_D] * 4, _P], _I),
+    "atf_varprop_theta_rhs": ([_I, _I, *[_P] * 8, _I64, _I64, _I64,
+                               *[_D] * 5, _P], _I),
+    "atf_varprop_sweep_z": ([_I, _I, *[_P] * 7, _I64, _I64, *[_D] * 4, _P],
+                            _I),
+    "atf_tridiag_fields_strided": ([_I, _I, *[_P] * 6, _I64, _I64, _I64, _P],
+                                   _I),
+    "atf_tridiag_fields_z": ([_I, _I, *[_P] * 6, _I64, _I64, _P], _I),
+    "atf_cyclic_fields": ([_I, _I, *[_P] * 7, _I64, _I64, _I64, _P], _I),
     "atf_vp2_sweep_z": ([_I, _I, *[_P] * 5, _I64, _I64, _DP, _I, _DP, _I,
                          *[_D] * 8, _I, _P], _I),
     "atf_sweep_strided": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
@@ -121,22 +130,37 @@ def build_library(*, verbose: bool = False) -> tuple[Path, float]:
     lib = out_dir / f"libatf_kernels_{_digest()}.so"
     if lib.exists() and not verbose:
         return lib, 0.0
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-I", str(_CSRC), "-o", tmp, *cu]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, lib)   # atomic: a concurrent build sees no partial file
-    return lib, secs
+    with tempfile.TemporaryDirectory(dir=out_dir) as work:
+        # one nvcc per source, all running at once
+        jobs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = os.path.join(work, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS,
+                   *(["-Xptxas", "-v"] if verbose else []), "-I",
+                   str(_CSRC), "-c", "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        report = [_finish(cmd, *proc.communicate(), proc.returncode)
+                  for cmd, _, proc in jobs]
+        tmp = os.path.join(work, "lib.so")
+        link = [nvcc, "-shared", "-o", tmp, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _finish(link, proc.stdout, proc.stderr, proc.returncode)
+        if verbose:
+            print("".join(report), flush=True)
+        os.replace(tmp, lib)   # atomic: a concurrent build sees no partial
+    return lib, time.perf_counter() - t0
+
+
+def _finish(cmd: list, out: str, err: str, rc: int) -> str:
+    """The output of one nvcc run; raises with it when the run failed."""
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed (exit {rc}):\n{' '.join(cmd)}\n"
+                           f"{out}\n{err}")
+    return out + err
 
 
 @functools.cache

@@ -1,10 +1,13 @@
-"""Solvers: the plain Thomas solves, the spectral phi solve and the eighteen
-hand-written kernels.
+"""Solvers: the plain Thomas solves, the spectral phi solve and the
+twenty-two hand-written kernels.
 
 Constant properties: K1 ``sweep_strided`` and K2 ``sweep_z`` (sweeps.py),
 K3 ``theta_rhs`` (stencil.py), K4 ``fused_theta_sweep`` (theta_sweep.py).
-Variable properties: K5 ``varprop_fields``, K6 ``varprop_theta_sweep``
-and K7 ``varprop_sweep_y`` (varprop.py), K8 ``vp2_sweep_z`` (vp2.py).
+Variable properties: K5 ``varprop_fields``, K6 ``varprop_theta_sweep``,
+K7 ``varprop_sweep_y`` and its x entry ``varprop_sweep_x`` (counted as
+"K7x"), K19 ``varprop_sweep_z`` and K20 ``varprop_theta_rhs``
+(varprop.py), K8 ``vp2_sweep_z`` (vp2.py).  Field-coefficient solves: K21
+``tridiag_fields`` and K22 ``cyclic_fields`` (fields.py).
 Masked-Robin cylindrical step: K9 ``masked_sweep_strided``, K10
 ``masked_sweep_z`` and K11 ``masked_cyclic_phi`` (masked.py).
 Unmasked cylindrical step: K12 ``const_sweep_strided``, K13
@@ -17,6 +20,8 @@ Each wrapper counts its CUDA launches in a ``launches`` attribute.
 from .const_sweeps import (const_sweep_strided, const_sweep_strided_plain,
                            const_sweep_z, const_sweep_z_plain,
                            cyclic_const_phi, cyclic_const_phi_plain)
+from .fields import (cyclic_fields, cyclic_fields_plain, tridiag_fields,
+                     tridiag_fields_plain)
 from .masked import (masked_cyclic_phi, masked_cyclic_phi_plain,
                      masked_sweep_strided, masked_sweep_strided_plain,
                      masked_sweep_z, masked_sweep_z_plain)
@@ -27,7 +32,10 @@ from .sweeps import (sweep_code, sweep_strided, sweep_strided_plain, sweep_z,
 from .theta_sweep import fused_theta_sweep, fused_theta_sweep_plain
 from .thomas import cyclic_thomas, thomas
 from .varprop import (varprop_fields, varprop_fields_plain,
+                      varprop_sweep_x, varprop_sweep_x_plain,
                       varprop_sweep_y, varprop_sweep_y_plain,
+                      varprop_sweep_z, varprop_sweep_z_plain,
+                      varprop_theta_rhs, varprop_theta_rhs_plain,
                       varprop_theta_sweep, varprop_theta_sweep_plain)
 from .vp2 import (build_vp2_code, vp2_cyclic_phi, vp2_cyclic_phi_plain,
                   vp2_sweep_strided, vp2_sweep_strided_plain, vp2_sweep_z,
@@ -44,7 +52,9 @@ KERNELS = {"K1": sweep_strided, "K2": sweep_z, "K3": theta_rhs,
            "K12": const_sweep_strided, "K13": const_sweep_z,
            "K14": cyclic_const_phi, "K15": vp2_sweep_strided,
            "K16": vp2_cyclic_phi, "K17": vp_fields_sweep_strided,
-           "K18": vp_fields_cyclic_phi}
+           "K18": vp_fields_cyclic_phi, "K7x": varprop_sweep_x,
+           "K19": varprop_sweep_z, "K20": varprop_theta_rhs,
+           "K21": tridiag_fields, "K22": cyclic_fields}
 
 __all__ = ["thomas", "cyclic_thomas", "sweep_code", "sweep_strided", "sweep_strided_plain",
            "sweep_z", "sweep_z_plain", "theta_rhs", "theta_rhs_plain",
@@ -62,7 +72,12 @@ __all__ = ["thomas", "cyclic_thomas", "sweep_code", "sweep_strided", "sweep_stri
            "vp2_sweep_strided_plain", "vp2_cyclic_phi",
            "vp2_cyclic_phi_plain", "vp_fields_sweep_strided",
            "vp_fields_sweep_strided_plain", "vp_fields_cyclic_phi",
-           "vp_fields_cyclic_phi_plain", "phi_eigenvalue_factors",
+           "vp_fields_cyclic_phi_plain", "varprop_sweep_x",
+           "varprop_sweep_x_plain", "varprop_sweep_z",
+           "varprop_sweep_z_plain", "varprop_theta_rhs",
+           "varprop_theta_rhs_plain", "tridiag_fields",
+           "tridiag_fields_plain", "cyclic_fields", "cyclic_fields_plain",
+           "phi_eigenvalue_factors",
            "phi_solve_spectral", "KERNELS", "launch_counts",
            "reset_launch_counts"]
 

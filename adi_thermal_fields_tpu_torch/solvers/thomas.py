@@ -17,12 +17,14 @@ __all__ = ["thomas", "cyclic_thomas"]
 
 
 def thomas(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
-           d: torch.Tensor) -> torch.Tensor:
+           d: torch.Tensor, *, reciprocal: bool = False) -> torch.Tensor:
     """Solve tridiagonal systems along axis 0; trailing axes are batch.
 
     ``cp[i] = c[i]/(b[i]-a[i]*cp[i-1])``,
     ``dp[i] = (d[i]-a[i]*dp[i-1])/(b[i]-a[i]*cp[i-1])``, then
-    ``x[i] = dp[i] - cp[i]*x[i+1]``."""
+    ``x[i] = dp[i] - cp[i]*x[i+1]``.  ``reciprocal``: divide once per row,
+    ``inv = 1/(b[i]-a[i]*cp[i-1])``, and multiply ``c[i]`` and
+    ``d[i]-a[i]*dp[i-1]`` by it (the order of the JAX varprop kernels)."""
     n = d.shape[0]
     cp = torch.empty_like(d)
     dp = torch.empty_like(d)
@@ -30,8 +32,13 @@ def thomas(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     dp_prev = torch.zeros_like(d[0])
     for i in range(n):
         denom = b[i] - a[i] * cp_prev
-        torch.div(c[i], denom, out=cp[i])
-        torch.div(d[i] - a[i] * dp_prev, denom, out=dp[i])
+        if reciprocal:
+            inv = torch.reciprocal(denom)
+            torch.mul(c[i], inv, out=cp[i])
+            torch.mul(d[i] - a[i] * dp_prev, inv, out=dp[i])
+        else:
+            torch.div(c[i], denom, out=cp[i])
+            torch.div(d[i] - a[i] * dp_prev, denom, out=dp[i])
         cp_prev, dp_prev = cp[i], dp[i]
     x = torch.empty_like(d)
     x_next = torch.zeros_like(d[0])

@@ -5,8 +5,13 @@ Counterpart: ``adi_thermal_fields_tpu/solvers/pallas_varprop.py`` —
 ``varprop_fields``; ``fused_varprop_theta_sweep`` (:1066, body
 ``_vp_ring_kernel`` :821) -> K6 ``varprop_theta_sweep``;
 ``fused_varprop_sweep_axis1`` (:718, body ``_varprop_kernel_axis1`` :560)
--> K7 ``varprop_sweep_y``.  CUDA sources: ``csrc/varprop_fields.cu`` (K5)
-and ``csrc/varprop_sweeps.cu`` (K6, K7).
+-> K7 ``varprop_sweep_y``; ``fused_varprop_sweep`` (:251, body
+``_varprop_kernel`` :60) -> K7's entry point along x,
+``varprop_sweep_x``, and K19 ``varprop_sweep_z`` (its natural-z form,
+every stream natural); ``varprop_theta_rhs`` (:471, body
+``_vp_rhs_kernel`` :403) -> K20 ``varprop_theta_rhs``.  CUDA sources:
+``csrc/varprop_fields.cu`` (K5), ``csrc/varprop_sweeps.cu`` (K6, K7, K20)
+and ``csrc/varprop_z.cu`` (K19).
 
 Property tables reach the kernels as clamp-sum segments (``table_segments``):
 ``v(T) = v0 + sum_i s_i*clamp(T - p_i, 0, dp_i)`` in table order, slopes
@@ -15,17 +20,22 @@ where ``dp_i == 0``, and segments with ``dv_i == 0`` skipped — the JAX
 ``PropertyTable`` evaluation.  Kernels and plain versions evaluate the same
 segments in the same order at the field's dtype.
 
-The implicit rows of K6/K7 (per pencil along the sweep axis, ``fc`` the
-pre-masked harmonic face conductivity of the lower face, ``fc[i+1]`` the
-upper, ``w = 1/(rho cp)``, code bits 1/2/8 of ``sweep_code``):
+The implicit rows of K6, K7 and K19 (per pencil along the sweep axis,
+``fc`` the pre-masked harmonic face conductivity of the lower face,
+``fc[i+1]`` the upper, ``w = 1/(rho cp)``, code bits 1/2/8 of
+``sweep_code``):
 
     tw = tg*w, a = -tw*fc[i], c = -tw*fc[i+1],
     sink = (sk*h)*((2-low-high)*inm), sw = sink*w,
     b = 1 + tw*(fc[i] + fc[i+1]) + sw, d = rhs + sw*t_inf
 
-with ``h`` a per-cell film stream or the scalar ``rob_c``.  Each wrapper
-runs its plain version on CPU tensors and launches its kernel on CUDA
-tensors, counting the launch in its ``launches`` attribute.
+with ``h`` a per-cell film stream or the scalar ``rob_c``.  The explicit
+pass of K6 and K20 is ``R0 = T + (cw*w*inm)*sum_ax iv_ax*(f_lo*(T_lo - T) +
+f_hi*(T_hi - T)) [+ (dt*w*inm)*src]``, faces x, then y, then z; like the
+JAX kernel it leaves the Robin flux out of R0.  The kernels K6, K7, K19
+and K20 repeat their plain versions one IEEE rounding at a time.  Each
+wrapper runs its plain version on CPU tensors and launches its kernel on
+CUDA tensors, counting the launch in its ``launches`` attribute.
 """
 from __future__ import annotations
 
@@ -43,7 +53,10 @@ from .thomas import thomas
 __all__ = ["MAX_TABLE_POINTS", "table_segments", "clamp_sum", "eval_spec",
            "face_g", "harm", "varprop_fields", "varprop_fields_plain",
            "varprop_theta_sweep", "varprop_theta_sweep_plain",
-           "varprop_sweep_y", "varprop_sweep_y_plain"]
+           "varprop_theta_rhs", "varprop_theta_rhs_plain",
+           "varprop_sweep_x", "varprop_sweep_x_plain",
+           "varprop_sweep_y", "varprop_sweep_y_plain",
+           "varprop_sweep_z", "varprop_sweep_z_plain"]
 
 # breakpoints a kernel table holds (csrc/varprop.cuh: kMaxSeg = 31 segments)
 MAX_TABLE_POINTS = 32
@@ -185,7 +198,8 @@ varprop_fields.launches = 0
 # ---------------------------------------------------------------------------
 
 def _varprop_solve(d, code, fc, w, tg, sk, t_inf, h, rob_c, axis):
-    """The module's implicit rows along ``axis``, solved by ``thomas``."""
+    """The module's implicit rows along ``axis``, solved by ``thomas`` with
+    one reciprocal per row (the kernels' order)."""
     dtype = d.dtype
     bit = (lambda b: ((code & b) != 0).to(dtype))
     low, high, inm = bit(_LOW), bit(_HIGH), bit(_INMASK)
@@ -200,16 +214,13 @@ def _varprop_solve(d, code, fc, w, tg, sk, t_inf, h, rob_c, axis):
     b = 1.0 + tw * (fc + f_hi) + sw
     dd = d + sw * t_inf
     mv = (lambda t: t.movedim(axis, 0))
-    return thomas(mv(a), mv(b), mv(c), mv(dd)).movedim(0, axis).contiguous()
+    return thomas(mv(a), mv(b), mv(c), mv(dd), reciprocal=True) \
+        .movedim(0, axis).contiguous()
 
 
-def varprop_theta_sweep_plain(T, code, fx, fy, fz, w, cw, inv_d2, tg, sk,
-                              t_inf, *, h=None, rob_c=0.0, src=None,
-                              dt=None):
-    """Plain version of K6: the ``_vp_rhs_kernel`` formula (faces x, then
-    y, then z), then the x rows and ``thomas``."""
-    dtype = T.dtype
-    inm = ((code & _INMASK) != 0).to(dtype)
+def _theta_rhs(T, inm, fx, fy, fz, w, cw, inv_d2, src, dt):
+    """The explicit pass of K6 and K20 (``_vp_rhs_kernel``: faces x, then
+    y, then z); ``inm``: the in-mask factor at T's dtype."""
     acc = None
     for ax, f, iv in zip(range(3), (fx, fy, fz), _inv3(inv_d2)):
         f_hi = shift_in(f, ax, +1, fill=0.0)
@@ -220,6 +231,16 @@ def varprop_theta_sweep_plain(T, code, fx, fy, fz, w, cw, inv_d2, tg, sk,
     d = T + cw * gain * acc
     if src is not None:
         d = d + dt * gain * src
+    return d
+
+
+def varprop_theta_sweep_plain(T, code, fx, fy, fz, w, cw, inv_d2, tg, sk,
+                              t_inf, *, h=None, rob_c=0.0, src=None,
+                              dt=None):
+    """Plain version of K6: the explicit pass, then the x rows and
+    ``thomas``."""
+    inm = ((code & _INMASK) != 0).to(T.dtype)
+    d = _theta_rhs(T, inm, fx, fy, fz, w, cw, inv_d2, src, dt)
     return _varprop_solve(d, code, fx, w, tg, sk, t_inf, h, rob_c, 0)
 
 
@@ -265,6 +286,87 @@ def varprop_theta_sweep(T: torch.Tensor, code: torch.Tensor,
 varprop_theta_sweep.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K20: the explicit pass alone
+# ---------------------------------------------------------------------------
+
+def varprop_theta_rhs_plain(T, fx, fy, fz, w, mask_u8, cw, inv_d2, *,
+                            src=None, dt=None):
+    """Plain version of K20."""
+    inm = (mask_u8 != 0).to(T.dtype)
+    return _theta_rhs(T, inm, fx, fy, fz, w, cw, inv_d2, src, dt)
+
+
+def varprop_theta_rhs(T: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
+                      fz: torch.Tensor, w: torch.Tensor,
+                      mask_u8: torch.Tensor, cw: float, inv_d2, *,
+                      src: torch.Tensor | None = None,
+                      dt: float | None = None) -> torch.Tensor:
+    """K20: ``R0 = T + (cw*w*mask)*sum_ax iv_ax*(f_lo*(T_lo - T) + f_hi*(T_hi
+    - T)) [+ (dt*w*mask)*src]`` on the natural (x, y, z) field, from the
+    pre-masked faces of K5 (no neighbour masks needed) and the uint8 mask.
+    ``cw = (1-theta)*dt``; ``inv_d2``: per-axis 1/d^2; ``src``: volumetric
+    source (needs ``dt``).  The Robin flux stays out of R0."""
+    if src is not None and dt is None:
+        raise ValueError("varprop_theta_rhs: src needs dt")
+    if not use_kernel(T, fx, fy, fz, w, mask_u8, src):
+        return varprop_theta_rhs_plain(T, fx, fy, fz, w, mask_u8, cw,
+                                       inv_d2, src=src, dt=dt)
+    if T.dim() != 3:
+        raise ValueError(
+            f"varprop_theta_rhs: field must be 3-D, got {T.dim()}")
+    check_kernel_inputs("varprop_theta_rhs", T, mask_u8, fx, fy, fz, w, src)
+    ivx, ivy, ivz = _inv3(inv_d2)
+    out = torch.empty_like(T)
+    err = load_library().atf_varprop_theta_rhs(
+        dtype_code(T.dtype), T.device.index, ptr(T), ptr(fx), ptr(fy),
+        ptr(fz), ptr(w), ptr(mask_u8), ptr(src), ptr(out), *T.shape, cw,
+        0.0 if dt is None else dt, ivx, ivy, ivz, stream_ptr(T.device))
+    raise_on_error(err, "varprop_theta_rhs")
+    varprop_theta_rhs.launches += 1
+    return out
+
+
+varprop_theta_rhs.launches = 0
+
+
+def varprop_sweep_x_plain(rhs, code, fc, w, tg, sk, t_inf, *, h=None,
+                          rob_c=0.0):
+    """Plain version of K7's x entry: the x rows and ``thomas``."""
+    return _varprop_solve(rhs, code, fc, w, tg, sk, t_inf, h, rob_c, 0)
+
+
+def varprop_sweep_x(rhs: torch.Tensor, code: torch.Tensor, fc: torch.Tensor,
+                    w: torch.Tensor, tg: float, sk: float, t_inf: float, *,
+                    h: torch.Tensor | None = None,
+                    rob_c: float = 0.0) -> torch.Tensor:
+    """K7's entry point along x: the varprop rows of ``varprop_sweep_y``
+    along the leading axis of the natural field, viewed as (1, nx,
+    ny*nz) (the solve-leading form of JAX ``fused_varprop_sweep``).
+    ``code``: the x sweep code ``sweep_code(mask, None, 0)``; ``fc``: the
+    x faces.  Counted in its own ``launches``."""
+    if not use_kernel(rhs, code, fc, w, h):
+        return varprop_sweep_x_plain(rhs, code, fc, w, tg, sk, t_inf, h=h,
+                                     rob_c=rob_c)
+    if rhs.dim() != 3:
+        raise ValueError(
+            f"varprop_sweep_x: field must be 3-D, got {rhs.dim()}")
+    check_kernel_inputs("varprop_sweep_x", rhs, code, fc, w, h)
+    out = torch.empty_like(rhs)
+    scratch = torch.empty_like(rhs)
+    nx = rhs.shape[0]
+    err = load_library().atf_varprop_sweep_strided(
+        dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(code),
+        ptr(fc), ptr(w), ptr(h), ptr(out), ptr(scratch), 1, nx,
+        rhs.numel() // nx, tg, sk, t_inf, rob_c, stream_ptr(rhs.device))
+    raise_on_error(err, "varprop_sweep_x")
+    varprop_sweep_x.launches += 1
+    return out
+
+
+varprop_sweep_x.launches = 0
+
+
 def varprop_sweep_y_plain(rhs, code, fc, w, tg, sk, t_inf, *, h=None,
                           rob_c=0.0):
     """Plain version of K7: the y rows and ``thomas``."""
@@ -297,3 +399,44 @@ def varprop_sweep_y(rhs: torch.Tensor, code: torch.Tensor, fc: torch.Tensor,
 
 
 varprop_sweep_y.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K19: the sweep along contiguous z
+# ---------------------------------------------------------------------------
+
+def varprop_sweep_z_plain(rhs, code, fc, w, tg, sk, t_inf, *, h=None,
+                          rob_c=0.0):
+    """Plain version of K19: the z rows and ``thomas``."""
+    return _varprop_solve(rhs, code, fc, w, tg, sk, t_inf, h, rob_c, 2)
+
+
+def varprop_sweep_z(rhs: torch.Tensor, code: torch.Tensor, fc: torch.Tensor,
+                    w: torch.Tensor, tg: float, sk: float, t_inf: float, *,
+                    h: torch.Tensor | None = None,
+                    rob_c: float = 0.0) -> torch.Tensor:
+    """K19: the varprop rows along the contiguous z axis, every stream and
+    the result in the natural (x, y, z) layout.  ``code``: the z sweep
+    code in the natural layout (``sweep_code(mask, None, 2).movedim(0,
+    2)``); ``fc``: the z faces (K5); ``h``: a film stream, else the scalar
+    ``rob_c``."""
+    if not use_kernel(rhs, code, fc, w, h):
+        return varprop_sweep_z_plain(rhs, code, fc, w, tg, sk, t_inf, h=h,
+                                     rob_c=rob_c)
+    if rhs.dim() != 3:
+        raise ValueError(
+            f"varprop_sweep_z: field must be 3-D, got {rhs.dim()}")
+    check_kernel_inputs("varprop_sweep_z", rhs, code, fc, w, h)
+    out = torch.empty_like(rhs)
+    scratch = torch.empty_like(rhs)
+    n = rhs.shape[2]
+    err = load_library().atf_varprop_sweep_z(
+        dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(code),
+        ptr(fc), ptr(w), ptr(h), ptr(out), ptr(scratch), rhs.numel() // n,
+        n, tg, sk, t_inf, rob_c, stream_ptr(rhs.device))
+    raise_on_error(err, "varprop_sweep_z")
+    varprop_sweep_z.launches += 1
+    return out
+
+
+varprop_sweep_z.launches = 0

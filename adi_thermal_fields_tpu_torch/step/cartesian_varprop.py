@@ -3,7 +3,8 @@
 Counterpart: ``adi_thermal_fields_tpu/step/cartesian_varprop.py`` —
 ``PropertyTable`` (:97), ``apparent_cp`` (:134), ``melt_pool_enhanced_k``
 (:155), ``_face_g`` (:199), ``adi_step_varprop`` (:209),
-``build_varprop_codes`` (:299) and ``adi_step_varprop_fused`` (:523).
+``build_varprop_codes`` (:299), ``build_face_h_axes`` (:312),
+``build_varprop_fields`` (:385) and ``adi_step_varprop_fused`` (:523).
 
 Conductivity k(T) and volumetric heat capacity rho*cp(T) are lookup
 tables evaluated at T^n (Picard linearization).  Finite-volume flux form
@@ -20,15 +21,16 @@ solve
 and BC packs built against a reference material are rescaled by
 ``cp_ref/cp(T)``.
 
-Two steps: ``adi_step_varprop`` is the plain reference (the JAX "xla"
-branch, ``thomas`` along each axis).  ``adi_step_varprop_fused`` is the
-kernel path, K5 (fields) -> K6 (theta pass + x sweep) -> K7 (y sweep) ->
-K8 (tier-2 z sweep), the route the JAX step takes under its module
-defaults for a float32 single-device run with scalar ``robin_h``,
-PropertyTable k/cp and an optional emissivity.  Unlike the JAX step, which
-sends float64 z through its stream-reading sweep because its vp2 kernel
-takes float32 only, the port runs K8 for float32 and float64 alike; the
-two z solves differ only by row scaling (round-off level at float64).
+Two steps.  ``adi_step_varprop`` materializes a/b/c/d from the packs (any
+BC: Robin, Neumann, Dirichlet): ``implementation="reference"`` solves them
+with ``thomas`` (the JAX "xla" branch), ``"kernels"`` with K21 in the
+natural layout (the JAX "pallas" branch, ``fused_tridiag_fields``).
+``adi_step_varprop_fused`` is the Robin-only kernel path: K5 (fields) ->
+K6 (theta pass + x sweep) -> K7 (y sweep) -> K8 (tier-2 z sweep) for a
+float32 state with a scalar or self-radiative film, and the JAX step's
+other routes: K19 along z for float64 states, film fields and per-face
+streams, K20 then K7's x entry with ``fuse_theta=False``.  Float64 z runs
+K19 as in JAX, whose tier-2 z kernel takes float32 states only.
 """
 from __future__ import annotations
 
@@ -36,21 +38,27 @@ import dataclasses
 
 import torch
 
-from ..bc.faces import shift_in
-from ..bc.packs import CoeffPacks
+from ..bc.faces import exposed_face, shift_in
+from ..bc.packs import CoeffPacks, _normalize_per_face
+from ..bc.radiation import radiative_h
 from ..core.grid import CartesianGrid
 from ..core.material import Material
+from ..solvers.fields import tridiag_fields
 from ..solvers.sweeps import sweep_code
 from ..solvers.thomas import thomas
 from ..solvers.varprop import (clamp_sum, face_g, table_segments,
-                               varprop_fields, varprop_sweep_y,
-                               varprop_theta_sweep)
+                               varprop_fields, varprop_sweep_x,
+                               varprop_sweep_y, varprop_sweep_z,
+                               varprop_theta_rhs, varprop_theta_sweep)
 from ..solvers.vp2 import build_vp2_code, vp2_sweep_z
 from .cartesian import state_numpy_dtype
 
 __all__ = ["PropertyTable", "apparent_cp", "melt_pool_enhanced_k",
            "adi_step_varprop", "adi_step_varprop_fused",
-           "build_varprop_codes", "check_films"]
+           "build_varprop_codes", "build_face_h_axes",
+           "build_varprop_fields", "check_films", "IMPLEMENTATIONS"]
+
+IMPLEMENTATIONS = ("kernels", "reference")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,36 +131,44 @@ def check_films(robin_h, emissivity, **films) -> None:
         raise ValueError(f"emissivity must be >= 0, got {emissivity}")
 
 
-def _full(T, value):
-    return torch.full_like(T, float(value))
+def _prop(T, tab, const):
+    """A property (None: ``const``, a number or a callable) at ``T``."""
+    if tab is None:
+        return torch.full_like(T, float(const))
+    if callable(tab):
+        return tab(T)
+    return torch.full_like(T, float(tab))
+
+
+def _axis_k(T, mat_ref, k_table) -> tuple:
+    """(k_x, k_y, k_z) at ``T``; ``k_table`` may be a per-axis 3-tuple."""
+    if isinstance(k_table, (tuple, list)):
+        return tuple(_prop(T, tab, mat_ref.k) for tab in k_table)
+    return (_prop(T, k_table, mat_ref.k),) * 3
 
 
 def adi_step_varprop(T: torch.Tensor, mask: torch.Tensor, packs: CoeffPacks,
                      grid: CartesianGrid, mat_ref: Material, *,
                      k_table=None, cp_table=None, dt: float,
                      theta: float = 0.5, t_inf: float = 0.0,
-                     source: torch.Tensor | None = None) -> torch.Tensor:
-    """One theta-scheme ADI step with T-dependent k and/or cp: the plain
-    reference.  ``mat_ref``: the material whose rho and cp built ``packs``;
-    ``k_table``: a table, a number, a callable or a per-axis 3-tuple of
-    them; ``cp_table``: a table, a callable or None.  ``dt`` is rounded to
-    the state dtype."""
+                     source: torch.Tensor | None = None,
+                     implementation: str = "reference") -> torch.Tensor:
+    """One theta-scheme ADI step with T-dependent k and/or cp from
+    materialized a/b/c/d.  ``mat_ref``: the material whose rho and cp
+    built ``packs``; ``k_table``: a table, a number, a callable or a
+    per-axis 3-tuple of them; ``cp_table``: a table, a callable or None.
+    Dirichlet rows are pinned (a = c = 0, b = 1, d = the pin).
+    ``implementation``: "reference" solves each axis with ``thomas``,
+    "kernels" with K21 in the natural layout.  ``dt`` is rounded to the
+    state dtype."""
+    if implementation not in IMPLEMENTATIONS:
+        raise ValueError(f"implementation must be one of {IMPLEMENTATIONS}, "
+                         f"got {implementation!r}")
     mask = mask.to(torch.bool)
     dt = float(state_numpy_dtype(T.dtype)(dt))
     inv_d2 = [1.0 / (d * d) for d in grid.spacing]
-
-    def k_of(tab):
-        if tab is None:
-            return _full(T, mat_ref.k)
-        if callable(tab):
-            return tab(T)
-        return _full(T, tab)
-
-    if isinstance(k_table, (tuple, list)):
-        kfs = tuple(k_of(tab) for tab in k_table)
-    else:
-        kfs = (k_of(k_table),) * 3
-    cpf = cp_table(T) if cp_table is not None else _full(T, mat_ref.cp)
+    kfs = _axis_k(T, mat_ref, k_table)
+    cpf = _prop(T, cp_table, mat_ref.cp)
     inv_rc = 1.0 / (mat_ref.rho * cpf)
     bc_scale = mat_ref.cp / cpf
 
@@ -181,6 +197,8 @@ def adi_step_varprop(T: torch.Tensor, mask: torch.Tensor, packs: CoeffPacks,
         c = torch.where(pin, 0.0, c)
         b = torch.where(pin, 1.0, b)
         d = torch.where(pin, packs.dir_val, d)
+        if implementation == "kernels":
+            return tridiag_fields(a, b, c, d, axis)
         mv = (lambda t: t.movedim(axis, 0))
         return thomas(mv(a), mv(b), mv(c), mv(d)).movedim(0, axis) \
             .contiguous()
@@ -190,31 +208,98 @@ def adi_step_varprop(T: torch.Tensor, mask: torch.Tensor, packs: CoeffPacks,
 
 def build_varprop_codes(mask: torch.Tensor) -> tuple:
     """The kernel path's per-axis codes, all in the natural (x, y, z)
-    layout: the x and y sweep codes (``sweep_code``, bits 1/2/8) for K6
-    and K7, and the vp2 z code ``build_vp2_code(mask, 2,
-    edge_exposed=True)`` for K8.  The JAX function's third code is the z
-    sweep code in (z, x, y) for its stream-reading z sweep, and its step
-    builds the vp2 code on every call; here the vp2 code is built with the
-    others.  Mask-dependent only: rebuild on birth events."""
+    layout: the x and y sweep codes (``sweep_code``, bits 1/2/8) for K6 or
+    K7's x entry and K7, the vp2 z code ``build_vp2_code(mask, 2,
+    edge_exposed=True)`` for K8, and the z sweep code for K19.  The JAX
+    function returns three codes, its z sweep code in (z, x, y), and its
+    step builds the vp2 code on every call.  Mask-dependent only: rebuild
+    on birth events."""
     mask = mask.to(torch.bool)
     return (sweep_code(mask, None, 0),
             sweep_code(mask, None, 1).movedim(0, 1).contiguous(),
-            build_vp2_code(mask, 2, edge_exposed=True))
+            build_vp2_code(mask, 2, edge_exposed=True),
+            sweep_code(mask, None, 2).movedim(0, 2).contiguous())
 
 
-def _kernel_spec(tab, default: float, name: str):
-    """A property as the kernels take it: a number or a table."""
+def build_face_h_axes(mask: torch.Tensor, robin_h, radiation_scale=None, *,
+                      dtype: torch.dtype) -> tuple:
+    """Per-axis film streams carrying per-face convective h (scalars or
+    fields) and per-face radiative area scales through the stream-reading
+    sweeps, whose sink is ``sk*h*n`` with ``n = e_lo + e_hi`` the cell's
+    exposed faces along the axis (JAX :312-366).
+
+    ``A = (e_lo*h_lo + e_hi*h_hi)/max(n, 1)``: the kernels' ``A*n``
+    rebuilds the face sum exactly (a division by 1 or 2).  ``B`` is the
+    same fold of the scales (a face without one counts 1), so the film of
+    a sweep is ``A + h_rad(T)*B`` with ``h_rad`` pure radiation.  Returns
+    ``((Ax, Bx), (Ay, By), (Az, Bz))`` at ``dtype`` on ``mask``'s device,
+    ``B`` None without ``radiation_scale``.  Unlike the JAX function,
+    which moves the z pair to its (z, x, y) layout, every stream stays in
+    the natural layout that K19 reads.  Rebuild on birth events."""
+    mask = mask.to(torch.bool)
+    dev = mask.device
+    h_pf = _normalize_per_face(robin_h)
+    s_pf = (None if radiation_scale is None
+            else _normalize_per_face(radiation_scale))
+
+    def as_t(v):
+        return torch.as_tensor(0.0 if v is None else v, dtype=dtype,
+                               device=dev)
+
+    out = []
+    for flo, fhi in (("x-", "x+"), ("y-", "y+"), ("z-", "z+")):
+        e_lo = exposed_face(mask, flo).to(dtype)
+        e_hi = exposed_face(mask, fhi).to(dtype)
+        inv_n = 1.0 / torch.clamp(e_lo + e_hi, min=1.0)
+
+        def fold(pf):
+            return (e_lo * as_t(pf[flo]) + e_hi * as_t(pf[fhi])) * inv_n
+
+        A = fold(h_pf)
+        B = (None if s_pf is None else
+             fold({f: 1.0 if s_pf[f] is None else s_pf[f]
+                   for f in (flo, fhi)}))
+        out.append((A, B))
+    return tuple(out)
+
+
+def _kernel_spec(tab, default: float):
+    """A property as the kernels K5 and K8 take it, a number or a table;
+    None for a callable."""
     if tab is None:
         return float(default)
     if isinstance(tab, (int, float)):
         return float(tab)
     if isinstance(tab, PropertyTable):
         return tab
-    raise NotImplementedError(
-        f"{name}: per-axis k tuples and callables need the XLA fields "
-        "build and the stream-reading z sweep (TPU kernel row 17, "
-        "pallas_varprop.fused_varprop_sweep), not ported yet; pass a "
-        "PropertyTable or a number")
+    if callable(tab):
+        return None
+    raise TypeError(f"a property must be a number, a PropertyTable or a "
+                    f"callable, got {type(tab).__name__}")
+
+
+def build_varprop_fields(T: torch.Tensor, mask: torch.Tensor,
+                         mat_ref: Material, k_table=None, cp_table=None, *,
+                         rad: tuple | None = None):
+    """Per-axis pre-masked harmonic face conductivities ``(fx, fy, fz)``,
+    ``w = 1/(rho cp)`` and, with ``rad = (emissivity, t_inf, h_conv)``,
+    the Picard radiative film, natural layout, T's dtype (JAX :385-447).
+    K5 when both properties are numbers or tables; per-axis k tuples and
+    callables build them with tensor ops (``face_g`` per axis)."""
+    ks = (None if isinstance(k_table, (tuple, list))
+          else _kernel_spec(k_table, mat_ref.k))
+    cs = _kernel_spec(cp_table, mat_ref.cp)
+    if ks is not None and cs is not None:
+        return varprop_fields(T, mask.to(torch.uint8), k_spec=ks,
+                              cp_spec=cs, rho=mat_ref.rho, rad=rad)
+    mask = mask.to(torch.bool)
+    kfs = _axis_k(T, mat_ref, k_table)
+    fc = tuple(face_g(kfs[ax], ax, -1, mask).to(T.dtype) for ax in range(3))
+    w = (1.0 / (mat_ref.rho * _prop(T, cp_table, mat_ref.cp))).to(T.dtype)
+    if rad is None:
+        return fc, w
+    eps, tinf, hconv = rad
+    return fc, w, radiative_h(T, eps, tinf, h_conv=hconv)
 
 
 def adi_step_varprop_fused(T: torch.Tensor, mask: torch.Tensor, codes: tuple,
@@ -229,32 +314,32 @@ def adi_step_varprop_fused(T: torch.Tensor, mask: torch.Tensor, codes: tuple,
                            source: torch.Tensor | None = None,
                            fuse_theta: bool | None = None,
                            gstreams: bool | None = None) -> torch.Tensor:
-    """One varprop theta-scheme step on K5 -> K6 -> K7 -> K8.
+    """One varprop theta-scheme step on the kernels, route for route as
+    the JAX step (:563-776).
 
-    Same physics as ``adi_step_varprop`` for Robin on every exposed face:
-    the scalar ``robin_h``, or with ``emissivity`` the Picard radiative
-    film ``h_rad(T) + h_conv`` (``robin_h`` is then not used).  No Neumann
-    flux, no Dirichlet pins.  ``mask``: bool or uint8 (uint8 is what K5
-    reads; the engine converts it once per birth event).  ``codes`` from
-    ``build_varprop_codes(mask)``;
-    ``k_table``/``cp_table``: PropertyTable, number or None (``mat_ref``'s
-    value).  ``dt`` is rounded to the state dtype (float32 or float64).
+    Same physics as ``adi_step_varprop`` for Robin on every exposed face
+    (no Neumann flux, no Dirichlet pins), the film one of: the scalar
+    ``robin_h``; with ``emissivity`` the Picard radiative film ``h_rad(T)
+    + h_conv`` (``robin_h`` then unused); a per-cell ``h_field``; or the
+    per-axis streams ``h_axes`` of ``build_face_h_axes`` (mutually
+    exclusive with ``h_field``), whose film is ``A + h_rad(T)*B`` with
+    ``emissivity`` (``h_conv`` ignored: convection lives in A).  ``mask``:
+    bool or uint8 (K5 and K20 read uint8; the engine converts it once per
+    birth event).  ``codes`` from ``build_varprop_codes(mask)``;
+    ``k_table``: a PropertyTable, number, callable or per-axis 3-tuple of
+    them; ``cp_table``: a PropertyTable, number or callable (None:
+    ``mat_ref``'s value).  ``dt`` is rounded to the state dtype (float32
+    or float64).
 
-    Not ported yet, and refused with the missing TPU kernel named:
-    ``h_field`` and ``h_axes`` (row 17, the stream-reading sweep),
-    ``fuse_theta=False`` (rows 19 and 17), ``gstreams=True`` and bfloat16
-    states (rows 27-30, the g-stream tier with stochastic rounding)."""
-    if h_axes is not None or h_field is not None:
-        raise NotImplementedError(
-            "per-face or per-cell film streams (h_axes / h_field, the "
-            "corrected-BC route) need the stream-reading varprop sweep, TPU "
-            "kernel row 17 (pallas_varprop.fused_varprop_sweep), not ported "
-            "yet")
-    if fuse_theta is False:
-        raise NotImplementedError(
-            "fuse_theta=False needs TPU kernel rows 19 "
-            "(pallas_varprop.varprop_theta_rhs) and 17 "
-            "(fused_varprop_sweep), not ported yet")
+    Route: the fields (K5 for numbers and tables, tensor ops for per-axis
+    tuples and callables); x by K6 (``fuse_theta`` True or None) or by K20
+    then K7's x entry (``fuse_theta=False``); y by K7; z by K8 for float32
+    states with a table or number cp and z conductivity and a scalar or
+    self-radiative film, else by K19 (float64 states, h fields and
+    streams, callables).  ``gstreams=True`` and bfloat16 states are not
+    ported and raise, naming TPU kernel rows 27-30."""
+    if h_axes is not None and h_field is not None:
+        raise ValueError("h_axes and h_field are mutually exclusive")
     if gstreams:
         raise NotImplementedError(
             "the g-stream tier needs TPU kernel rows 27-30 "
@@ -265,42 +350,64 @@ def adi_step_varprop_fused(T: torch.Tensor, mask: torch.Tensor, codes: tuple,
             "g-stream tier with stochastic rounding, TPU kernel rows 27-30 "
             "(pallas_gstreams.py), not ported yet")
     check_films(robin_h, emissivity)
-    k_spec = _kernel_spec(k_table, mat_ref.k, "k_table")
-    cp_spec = _kernel_spec(cp_table, mat_ref.cp, "cp_table")
-    self_rad = emissivity is not None
+    self_rad = emissivity is not None and h_field is None and h_axes is None
     h_conv = float(h_conv or 0.0)
     if self_rad:
         check_films(h_conv, None)
+    kts = (tuple(k_table) if isinstance(k_table, (tuple, list))
+           else (k_table,) * 3)
+    if len(kts) != 3:
+        raise ValueError("a per-axis k_table must be a 3-tuple")
+    cp_spec = _kernel_spec(cp_table, mat_ref.cp)
+    kz_spec = _kernel_spec(kts[2], mat_ref.k)
 
     # scalars at the state dtype, in the JAX step's op order
     f = state_numpy_dtype(T.dtype)
     dt_s = f(dt)
-    dz = grid.spacing[2]
     inv_d2 = [1.0 / (d * d) for d in grid.spacing]
     cw = float(f(1.0 - theta) * dt_s)
     tg = [float(f(theta) * dt_s * f(iv)) for iv in inv_d2]
     sk = [float(dt_s / f(d)) for d in grid.spacing]
-    inv_dtor = float(f(1.0) / (dt_s / f(mat_ref.rho)))
 
-    mask_u8 = mask.to(torch.uint8)
+    mask_u8 = mask if mask.dtype == torch.uint8 else mask.to(torch.uint8)
     if self_rad:
-        fc, w, hf = varprop_fields(
-            T, mask_u8, k_spec=k_spec, cp_spec=cp_spec, rho=mat_ref.rho,
+        fc, w, hf = build_varprop_fields(
+            T, mask_u8, mat_ref, k_table, cp_table,
             rad=(float(emissivity), float(t_inf), h_conv))
-        rob = 0.0
     else:
-        fc, w = varprop_fields(T, mask_u8, k_spec=k_spec, cp_spec=cp_spec,
-                               rho=mat_ref.rho)
-        hf, rob = None, float(robin_h)
-    U = varprop_theta_sweep(T, codes[0], fc[0], fc[1], fc[2], w, cw, inv_d2,
-                            tg[0], sk[0], t_inf, h=hf, rob_c=rob, src=source,
-                            dt=float(dt_s))
-    V = varprop_sweep_y(U, codes[1], fc[1], w, tg[1], sk[1], t_inf, h=hf,
+        fc, w = build_varprop_fields(T, mask_u8, mat_ref, k_table, cp_table)
+        hf = h_field
+    rob = 0.0 if hf is not None or h_axes is not None else float(robin_h)
+    if h_axes is not None:
+        # h_rad is pure radiation: the convection lives in A
+        h_rad = (None if emissivity is None else
+                 radiative_h(T, emissivity, t_inf, h_conv=0.0))
+        hs = tuple((A if B is None or h_rad is None else A + h_rad * B)
+                   .to(T.dtype) for A, B in h_axes)
+    else:
+        hs = (hf,) * 3
+
+    if fuse_theta is False:
+        R0 = varprop_theta_rhs(T, *fc, w, mask_u8, cw, inv_d2, src=source,
+                               dt=float(dt_s))
+        U = varprop_sweep_x(R0, codes[0], fc[0], w, tg[0], sk[0], t_inf,
+                            h=hs[0], rob_c=rob)
+    else:
+        U = varprop_theta_sweep(T, codes[0], *fc, w, cw, inv_d2, tg[0],
+                                sk[0], t_inf, h=hs[0], rob_c=rob,
+                                src=source, dt=float(dt_s))
+    V = varprop_sweep_y(U, codes[1], fc[1], w, tg[1], sk[1], t_inf, h=hs[1],
                         rob_c=rob)
-    # K8 reads V only as the rhs; k, cp and the films come from T^n
-    return vp2_sweep_z(V, T, codes[2], float(f(theta * inv_d2[2])),
-                       float(f(1.0 / dz)), inv_dtor, k_spec=k_spec,
-                       cp_spec=cp_spec,
-                       h=h_conv if self_rad else float(robin_h),
-                       t_inf=float(t_inf),
-                       emissivity=float(emissivity) if self_rad else 0.0)
+    # K8 derives k, cp and a scalar or self-radiative film from T^n in
+    # registers; its gate is the JAX step's vp2 gate (float32 states only)
+    if (T.dtype == torch.float32 and cp_spec is not None
+            and kz_spec is not None and h_field is None and h_axes is None):
+        return vp2_sweep_z(V, T, codes[2], float(f(theta * inv_d2[2])),
+                           float(f(1.0 / grid.spacing[2])),
+                           float(f(1.0) / (dt_s / f(mat_ref.rho))),
+                           k_spec=kz_spec, cp_spec=cp_spec,
+                           h=h_conv if self_rad else float(robin_h),
+                           t_inf=float(t_inf),
+                           emissivity=float(emissivity) if self_rad else 0.0)
+    return varprop_sweep_z(V, codes[3], fc[2], w, tg[2], sk[2], t_inf,
+                           h=hs[2], rob_c=rob)

@@ -22,7 +22,7 @@ ambient.  ``scheme="be"``: backward Euler; ``scheme="douglas"``:
 Douglas-Gunn with the affine operators built from the same streams as the
 solves, so steady states are fixed points.
 
-Two implementations:
+Three implementations:
 
 * ``"kernels"`` (the JAX ``"pallas"`` route).  Backward Euler with table
   or number properties (``k_table`` None, a number, a ``PropertyTable`` or
@@ -37,14 +37,16 @@ Two implementations:
   float64 through the stream tier (its vp2 kernels take float32); the port
   runs the tier-2 chain at float32 and float64 alike.  The two tiers
   differ only by the scaling of each row, and agree to round-off.
+* ``"fields"`` (the JAX ``"pallas_fields"`` route): the reference's
+  materialized a/b/c/d, solved in the natural layout by K21 along r and z
+  and K22 along phi, for backward Euler and Douglas alike.
 * ``"reference"`` (the JAX ``"xla"`` route): the streams, materialized
   a/b/c/d, ``thomas`` along r and z and ``cyclic_thomas`` along phi.
 
 ``nphi == 1`` runs no phi sweep.  bfloat16 and float16 states are solved
 at float32 and rounded back once, as the JAX step does.  ``dt`` is a
 Python float.  Not ported, and refused naming what they need: the
-multi-device hooks ``constrain``, ``z_solver`` and ``pallas_solvers``, and
-``implementation="pallas_fields"`` (TPU kernel rows 13-14).
+multi-device hooks ``constrain``, ``z_solver`` and ``pallas_solvers``.
 """
 from __future__ import annotations
 
@@ -57,6 +59,7 @@ from ..bc.faces import shift_in
 from ..bc.radiation import radiative_h
 from ..core.grid import CylindricalGrid
 from ..core.material import Material
+from ..solvers.fields import cyclic_fields, tridiag_fields
 from ..solvers.thomas import cyclic_thomas, thomas
 from ..solvers.varprop import face_g, harm
 from ..solvers.vp2 import (build_vp2_code, vp2_cyclic_phi, vp2_sweep_strided,
@@ -64,10 +67,12 @@ from ..solvers.vp2 import (build_vp2_code, vp2_cyclic_phi, vp2_sweep_strided,
 from ..solvers.vpfields import vp_fields_cyclic_phi, vp_fields_sweep_strided
 from .cartesian import state_numpy_dtype
 from .cartesian_varprop import PropertyTable, check_films
-from .cylindrical import IMPLEMENTATIONS, RobinBC, ZFaceBC, _vec
+from .cylindrical import RobinBC, ZFaceBC, _vec
 
 __all__ = ["adi_step_cyl_varprop", "adi_step_cyl_varprop_masked",
-           "build_cyl_vp2_plan"]
+           "build_cyl_vp2_plan", "IMPLEMENTATIONS"]
+
+IMPLEMENTATIONS = ("kernels", "fields", "reference")
 
 
 def _ev(tab, const, T):
@@ -253,10 +258,10 @@ def _vp2_be_step(T, grid, mat_ref, dt, robin_outer, zbc, k_specs, cp_spec,
 
 def _fields_step(T, grid, mat_ref, dt, robin_outer, zbc, k_table, cp_table,
                  *, robin_inner, act, h_void, T_inf_void, h_front, source,
-                 emissivity, scheme, theta, kernels):
-    """The stream tier: K17/K18 (``kernels``) or materialized rows with
-    ``thomas``/``cyclic_thomas`` (the reference), backward Euler or
-    Douglas-Gunn."""
+                 emissivity, scheme, theta, solver):
+    """The stream tier: K17/K18 (``solver`` "kernels") or materialized
+    rows solved by K21/K22 ("fields") or ``thomas``/``cyclic_thomas``
+    ("reference"), backward Euler or Douglas-Gunn."""
     dtype, dev = T.dtype, T.device
     f = state_numpy_dtype(dtype)
     dt_s = float(f(dt))
@@ -312,13 +317,15 @@ def _fields_step(T, grid, mat_ref, dt, robin_outer, zbc, k_table, cp_table,
         srhs_r = srhs_r + s * T_inf_void
 
     def solve_r(rhs, dwx):
-        if kernels:
+        if solver == "kernels":
             return vp_fields_sweep_strided(
                 rhs.contiguous(), fr_hi, dwx, sink_r, srhs_r, cols["glo_r"],
                 cols["ghi_r"])
         a = -dwx * ga_r * fr
         c = -dwx * gc_r * fr_hi
         b = 1.0 + dwx * (ga_r * fr + gc_r * fr_hi + sink_r)
+        if solver == "fields":
+            return tridiag_fields(a, b, c, rhs + dwx * srhs_r, 0)
         return thomas(a, b, c, rhs + dwx * srhs_r)
 
     # --- phi streams (periodic)
@@ -342,12 +349,14 @@ def _fields_step(T, grid, mat_ref, dt, robin_outer, zbc, k_table, cp_table,
             srhs_p = srhs_p + s * T_inf_void
 
         def solve_phi(rhs, dwx):
-            if kernels:
+            if solver == "kernels":
                 return vp_fields_cyclic_phi(
                     rhs.contiguous(), fp, dwx, sink_p, srhs_p, cols["geo_p"])
             ap = -dwx * gphi * fp
             cp = -dwx * gphi * fp_hi
             bp = 1.0 + dwx * (gphi * (fp + fp_hi) + sink_p)
+            if solver == "fields":
+                return cyclic_fields(ap, bp, cp, rhs + dwx * srhs_p, 1)
             mv = (lambda t: t.movedim(1, 0))
             return cyclic_thomas(mv(ap), mv(bp), mv(cp),
                                  mv(rhs + dwx * srhs_p)).movedim(0, 1) \
@@ -385,7 +394,7 @@ def _fields_step(T, grid, mat_ref, dt, robin_outer, zbc, k_table, cp_table,
 
     def solve_z(rhs, dwx):
         d = _pin_z(rhs, zbc, act)
-        if kernels:
+        if solver == "kernels":
             zl = (lambda t: t.permute(2, 0, 1).contiguous())
             x = vp_fields_sweep_strided(zl(d), zl(fz_hi), zl(dwx), zl(sink_z),
                                         zl(srhs_z), gz, gz)
@@ -393,6 +402,8 @@ def _fields_step(T, grid, mat_ref, dt, robin_outer, zbc, k_table, cp_table,
         az = -dwx * colz * fz
         cz = -dwx * colz * fz_hi
         bz = 1.0 + dwx * (colz * (fz + fz_hi) + sink_z)
+        if solver == "fields":
+            return tridiag_fields(az, bz, cz, d + dwx * srhs_z, 2)
         mv = (lambda t: t.movedim(2, 0))
         return thomas(mv(az), mv(bz), mv(cz), mv(d + dwx * srhs_z)) \
             .movedim(0, 2).contiguous()
@@ -460,11 +471,6 @@ def adi_step_cyl_varprop(T: torch.Tensor, grid: CylindricalGrid,
             raise NotImplementedError(
                 f"{name}: the multi-device hooks need the port of "
                 "dist/cylindrical.py (torch.distributed), not ported yet")
-    if implementation == "pallas_fields":
-        raise NotImplementedError(
-            "implementation='pallas_fields' needs TPU kernel rows 13-14 "
-            "(pallas_fields.fused_tridiag_fields / fused_cyclic_fields), "
-            "not ported yet")
     if implementation not in IMPLEMENTATIONS:
         raise ValueError(f"implementation must be one of {IMPLEMENTATIONS}, "
                          f"got {implementation!r}")
@@ -506,7 +512,7 @@ def adi_step_cyl_varprop(T: torch.Tensor, grid: CylindricalGrid,
                                 vp2_plan=vp2_plan, **common)
     return _fields_step(T, grid, mat_ref, dt, robin_outer, zbc, k_table,
                         cp_table, scheme=scheme, theta=theta,
-                        kernels=implementation == "kernels", **common)
+                        solver=implementation, **common)
 
 
 def adi_step_cyl_varprop_masked(T: torch.Tensor, grid: CylindricalGrid,

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's main paths once on one CUDA card, through their
-eighteen hand-written kernels, and check every result.
+twenty-two hand-written kernels, and check every result.
 
     python3 chip_smoke.py        # from the root of a checkout; one card
     python3 chip_smoke.py --profile   # phase 8's steps under torch.profiler
@@ -27,7 +27,8 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    median ms/step and Gcell/s and checks each kernel's launch count.
    Its variable-property part (run after phase 4): the 512^3 float32
    varprop step on two BC sets (the tables + scalar h 30; the tables +
-   h 30 + emissivity 0.5): K5, K6, K7, K8 once per step and K1-K4 never.
+   h 30 + emissivity 0.5): K5, K6, K7, K8 once per step and K1-K4 never
+   (float64 states send z through K19 instead of K8, as phase 5 does).
    Each of 3 steps starts the kernels and the reference from the
    reference's state and is held to STEP_TOL, and so is the free-running
    difference after 3 steps.  Kernel steps are timed as above.
@@ -36,9 +37,11 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    reference step: T finite, every solid voxel active at the end,
    Tmax <= --Ts, and the two runs agree.
 5. The WAAM app on phase 4's bar with --latent_J_kg 2.7e5
-   --melt_k_factor 4 --emissivity 0.5: float64 with the kernels and with
-   the reference step (T finite, the solid active, Tmax <= --Ts, agreement
-   within APP_TOL), then float32 with the kernels (T finite, the solid
+   --melt_k_factor 4 --emissivity 0.5: float64 with the kernels (T finite,
+   the solid active, Tmax <= --Ts), then float64 with the kernels and with
+   the reference step on a print of 20 layers of SHORT_LAYER_S s
+   (agreement within APP_TOL; the whole print's reference took 122 s),
+   then float32 with the kernels (T finite, the solid
    active, Tmax <= --Ts), whose final field must differ from phase 4's
    constant-property one by more than 1 K somewhere: the flags reach the
    step.  Why float64 for the comparison: in float32 the apparent cp's
@@ -107,11 +110,39 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    with --void_mode clamp (Tmax <= --Ts is checked for backward Euler
    only: Douglas-Gunn at theta 0.5 is not monotone).
 
+9. The general boundary conditions of the variable-property step.  Its
+   kernel part (run with phase 2): K19 (z, with and without a film
+   stream), K7's x entry, K20 (with and without a source), K21 (x, y and
+   z entries) and K22 (phi, cyclic) against their plain versions at 384^3
+   (the WAAM mask) float32 and on 97x203x131 (a random mask) at float32
+   and float64: bitwise equal (each repeats its plain version one rounding
+   at a time), kernel and plain ms, % of 3.35 TB/s under each byte model.
+   Its step part, float32: bench.py's corrected-BC configuration at 384^3
+   through make_cartesian_engine (1 mm cells, bench.py's mask at 900 C,
+   per-face h 10 + 10*U(0,1) and area scales 0.7 + 0.6*U(0,1) from
+   numpy's default_rng(5), emissivity 0.5, the phase 2 tables, dt 0.02 s):
+   kernels against reference per step from the reference's state
+   (STEP_TOL), launches K5 = K6 = K7 = K19 = 1 per step, K8 never; then
+   adi_step_varprop_fused(fuse_theta=False) on the same streams (K5, K20,
+   K7's x entry, K7, K19 once each), bitwise equal to the fused step; the
+   varprop engine at 384^3 with __graft_entry__'s BCs (Robin 200, Neumann
+   z+ 5e5) and a Dirichlet bottom plane at 600 C (K21 three times per
+   step); adi_step_cyl_varprop(implementation="fields") at phase 8's tube,
+   backward Euler and Douglas (K21 twice and K22 once per step), each
+   against its reference per step.  Its app part: the WAAM app on phase
+   4's bar rotated 30 degrees about z (the corrected fields differ from
+   --h_side) with --corrected_bc 1, and with --corrected_bc 1 --emissivity
+   0.5 --latent_J_kg 2.7e5 --melt_k_factor 4: the whole print with the
+   float32 kernels (wall time, Tmax <= --Ts, the solid active), then
+   kernels against reference (within APP_TOL) on a print of 20 layers of
+   SHORT_LAYER_S s, at float32 and with the varprop flags at float64.
+
 Each main path is driven with the launch counts set to 0 just before it
 and read just after it: phases 3 (constant properties) and 4 for K1-K4,
-phases 3 (variable properties) and 5 for K5-K8, phase 6's step and app
-for K9-K11, phase 7's step and app for K12-K14, then phase 8's steps and
-apps for K8 and K15-K18.  The line before the
+phases 3 (variable properties) and 5 for K5-K8 and K19, phase 6's step
+and app for K9-K11, phase 7's step and app for K12-K14, phase 8's steps
+and apps for K8 and K15-K18, then phase 9's steps and apps for K7's x
+entry and K19-K22 (beside K1, K3 and K5-K7).  The line before the
 last is a JSON summary of the kernels (launches of those runs; each
 kernel's time at its main-path shape beside its bound, the least time for
 the bytes it must move and the operations it must do, its plain version's
@@ -185,6 +216,16 @@ KERNEL_INFO = {
             "adi_thermal_fields_tpu/solvers/pallas_vpfields.py:190"),
     "K18": ("vp_fields_cyclic_phi", "csrc/vp_fields.cu",
             "adi_thermal_fields_tpu/solvers/pallas_vpfields.py:525"),
+    "K7x": ("varprop_sweep_x", "csrc/varprop_sweeps.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_varprop.py:251"),
+    "K19": ("varprop_sweep_z", "csrc/varprop_z.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_varprop.py:251"),
+    "K20": ("varprop_theta_rhs", "csrc/varprop_sweeps.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_varprop.py:471"),
+    "K21": ("tridiag_fields", "csrc/fields.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_fields.py:129"),
+    "K22": ("cyclic_fields", "csrc/fields.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_fields.py:311"),
 }
 # float32 operations per cell of each kernel's main variant, counted from
 # its source (adds, multiplies and divides of one row, the back
@@ -192,12 +233,18 @@ KERNEL_INFO = {
 OPS_PER_CELL = {"K1": 22, "K2": 22, "K3": 20, "K4": 42, "K5": 140,
                 "K6": 45, "K7": 25, "K8": 85, "K9": 20, "K10": 20,
                 "K11": 30, "K12": 6, "K13": 6, "K14": 9, "K15": 50,
-                "K16": 60, "K17": 20, "K18": 30}
+                "K16": 60, "K17": 20, "K18": 30, "K7x": 25, "K19": 25,
+                "K20": 25, "K21": 8, "K22": 20}
 CONST_KERNELS = ("K1", "K2", "K3", "K4")
-VP_KERNELS = ("K5", "K6", "K7", "K8")
+VP_KERNELS = ("K5", "K6", "K7", "K8", "K19")
 CYL_KERNELS = ("K9", "K10", "K11")
 BE_KERNELS = ("K12", "K13", "K14")
 CYL_VP_KERNELS = ("K8", "K15", "K16", "K17", "K18")
+# phase 9: the new kernels, and the kernels its routes share with earlier
+# phases (the apps' constant-property plans K1-K4, the varprop route
+# K5-K7)
+GENERAL_KERNELS = ("K7x", "K19", "K20", "K21", "K22")
+P9_ALSO = CONST_KERNELS + ("K5", "K6", "K7")
 # phase 6: the kernels' plans, the step (bench.py's masked-cylindrical
 # shape and BCs, dr = dz = 0.5 mm) and the spiral app
 CYL_SHAPES = (("64x512x1024 tube", (64, 512, 1024)),
@@ -228,6 +275,14 @@ P8_APP_TOL = 1e-6       # K, float64 kernels vs reference
 # H100 80GB HBM3 at 700 W; the JAX app overshoots alike,
 # tests/test_torch_cyl_vp.py).  A loose bound that a diverging run fails.
 DOUGLAS_OVERSHOOT = 1000.0
+# phase 9: kernel shapes and bench.py's corrected-BC edge
+P9_SHAPES = (("384^3 waam", (384,) * 3, "float32"),
+             ("97x203x131 random", (97, 203, 131), "float32"),
+             ("97x203x131 random", (97, 203, 131), "float64"))
+P9_N = 384
+# s per layer of the WAAM apps' kernels-vs-reference prints in phases 5
+# and 9 (160 sub-steps; the whole print runs 20 x 3 s, 1702 sub-steps)
+SHORT_LAYER_S = 0.25
 # the varprop physics of phases 2, 3 and 5 (steel, the JAX app's defaults)
 SOLIDUS, LIQUIDUS, LATENT = 1420.0, 1470.0, 2.7e5
 EMISSIVITY, H_CONV = 0.5, 30.0
@@ -495,21 +550,36 @@ def phase3(torch, dev):
     return out
 
 
-def app_phase(torch, dev, phase, extra, precision="float32",
-              impls=("kernels", "reference")):
-    """The WAAM app on the bar with each of ``impls``; ``extra``: flags
-    added to phase 4's.  With both implementations, they must agree."""
-    from adi_thermal_fields_tpu_torch.apps import waam_from_stl as app
+def bar_stl(turn_deg=0.0):
+    """Phase 4's bar as an STL file, turned ``turn_deg`` about z."""
+    import numpy as np
     from adi_thermal_fields_tpu_torch.geometry.primitives import box_mesh
-    from adi_thermal_fields_tpu_torch.geometry.stl import save_stl_binary
+    from adi_thermal_fields_tpu_torch.geometry.stl import (TriMesh,
+                                                           save_stl_binary)
 
     work = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
-    stl = os.path.join(work, "bar.stl")
-    save_stl_binary(stl, box_mesh(size=P4_BOX_MM,
-                                  center=tuple(v / 2 for v in P4_BOX_MM)))
-    argv = ["--stl", stl, "--dx_mm", str(P4_DX_MM), "--nframes", "4",
-            "--layer_times_s", ",".join([str(P4_LAYER_S)] * P4_LAYERS),
+    stl = os.path.join(work, f"bar_{turn_deg:g}.stl")
+    tris = box_mesh(size=P4_BOX_MM,
+                    center=tuple(v / 2 for v in P4_BOX_MM)).triangles
+    a = np.radians(turn_deg)
+    rot = np.array([[np.cos(a), -np.sin(a), 0.0],
+                    [np.sin(a), np.cos(a), 0.0], [0.0, 0.0, 1.0]])
+    save_stl_binary(stl, TriMesh(tris @ rot.T))
+    return stl
+
+
+def app_phase(torch, dev, phase, extra, precision="float32",
+              impls=("kernels", "reference"), turn_deg=0.0,
+              layer_s=P4_LAYER_S):
+    """The WAAM app on the bar (turned ``turn_deg`` about z, 20 layers of
+    ``layer_s`` s) with each of ``impls``; ``extra``: flags added to phase
+    4's.  With both implementations, they must agree."""
+    from adi_thermal_fields_tpu_torch.apps import waam_from_stl as app
+
+    argv = ["--stl", bar_stl(turn_deg), "--dx_mm", str(P4_DX_MM),
+            "--nframes", "4",
+            "--layer_times_s", ",".join([str(layer_s)] * P4_LAYERS),
             "--precision", precision, "--device", str(dev)] + extra
     runs = {}
     for impl in impls:
@@ -697,7 +767,9 @@ def phase3_varprop(torch, dev):
     mask = waam_mask(torch, grid.shape, dev)
     T0 = mushy_field(torch, mask, seed=11)
     kt, ct = varprop_tables()
-    per_step = {**{k: 0 for k in KERNEL_INFO}, **{k: 1 for k in VP_KERNELS}}
+    # float32: z on K8 (K19 takes float64 z, phase 5)
+    per_step = {**{k: 0 for k in KERNEL_INFO},
+                **{k: 1 for k in ("K5", "K6", "K7", "K8")}}
     plans = {"tables + h 30": dict(robin_h=H_CONV),
              "tables + h 30 + eps 0.5": dict(robin_h=H_CONV,
                                              emissivity=EMISSIVITY)}
@@ -1286,7 +1358,6 @@ def phase8_step(torch, dev):
     state, then the kernels alone, timed."""
     from adi_thermal_fields_tpu_torch import (RobinBC, adi_step_cyl_varprop,
                                               build_cyl_vp2_plan)
-    from adi_thermal_fields_tpu_torch.solvers import launch_counts
 
     label, shape, _ = P8_SHAPES[0]
     grid, mat, mask, zbc, T0 = cylvp_case(torch, label, shape, torch.float32,
@@ -1301,63 +1372,15 @@ def phase8_step(torch, dev):
                 "douglas": {"K17": 2, "K18": 1}}
     out = {}
     for scheme, per in per_step.items():
-        def step(T, impl):
+        def step(T, impl, scheme=scheme):
             return adi_step_cyl_varprop(
                 T, grid, mat, scheme=scheme, implementation=impl,
                 vp2_plan=plan if impl == "kernels" else None, **kw)
 
-        before = launch_counts()
-        T, errs, ref_ms = T0, [], []
-        for _ in range(P3_STEPS):
-            Tk = step(T, "kernels")
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            Tr = step(T, "reference")
-            end.record()
-            end.synchronize()
-            ref_ms.append(start.elapsed_time(end))
-            check(bool(torch.isfinite(Tk).all())
-                  and bool(torch.isfinite(Tr).all()),
-                  f"phase 8 {scheme}: non-finite T")
-            errs.append(float((Tk - Tr).abs().max()))
-            T = Tr
-            del Tk
-        Tf = T0
-        for _ in range(P3_WARMUP):
-            Tf = step(Tf, "kernels")
-        torch.cuda.synchronize()
-        Tf, step_ms = T0, []
-        for _ in range(P3_STEPS):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            Tf = step(Tf, "kernels")
-            end.record()
-            end.synchronize()
-            step_ms.append(start.elapsed_time(end))
-        delta = {k: v - before[k] for k, v in launch_counts().items()}
-        want = {k: (2 * P3_STEPS + P3_WARMUP) * per.get(k, 0)
-                for k in KERNEL_INFO}
-        check(delta == want, f"phase 8 {scheme}: launches {delta} != "
-              f"expected {want}")
-        check(bool(torch.isfinite(Tf).all()), f"phase 8 {scheme}: "
-              "non-finite T")
-        ms, rms = statistics.median(step_ms), statistics.median(ref_ms)
-        print(f"[phase 8] {label} f32 varprop {scheme} step: kernels "
-              f"{ms:9.3f} ms/step (median; steps "
-              f"{', '.join(f'{s:.3f}' for s in step_ms)})  "
-              f"{grid.ncells / (ms * 1e-3) / 1e9:7.3f} Gcell/s; reference "
-              f"{rms:9.3f} ms/step; launches "
-              f"{ {k: v for k, v in delta.items() if v} }", flush=True)
-        print(f"[phase 8] {scheme}: max|T_kernels - T_reference| per step "
-              f"from the reference's state: "
-              f"{', '.join(f'{e:.3e}' for e in errs)} K", flush=True)
-        check(max(errs) <= STEP_TOL, f"phase 8 {scheme} step: "
-              f"{max(errs):.3e} K > {STEP_TOL}")
-        out[scheme] = dict(ms_kernels=ms, ms_reference=rms,
-                           max_abs_err=max(errs))
-        del T, Tr, Tf
+        out[scheme] = per_step_check(
+            torch, f"[phase 8] {label} f32 varprop {scheme} step",
+            lambda T: step(T, "kernels"), lambda T: step(T, "reference"),
+            T0, per)
         torch.cuda.empty_cache()
     return out
 
@@ -1376,6 +1399,301 @@ def phase8_app(torch, dev):
                                 ("douglas", ["--scheme", "douglas"]),
                                 ("clamp", ["--void_mode", "clamp"]))}
     return p32, runs
+
+
+def phase2_fields(torch, dev):
+    """K19, K7's x entry, K20, K21 and K22 against their plain versions
+    (float32 and float64): bitwise."""
+    from adi_thermal_fields_tpu_torch import CartesianGrid, Material
+    from adi_thermal_fields_tpu_torch.solvers import (
+        cyclic_fields, cyclic_fields_plain, sweep_code, tridiag_fields,
+        tridiag_fields_plain, varprop_fields_plain, varprop_sweep_x,
+        varprop_sweep_x_plain, varprop_sweep_z, varprop_sweep_z_plain,
+        varprop_theta_rhs, varprop_theta_rhs_plain)
+
+    mat = Material(7800.0, 490.0, 54.0)
+    kt, ct = varprop_tables()
+    rows = []
+    for label, shape, prec in P9_SHAPES:
+        dtype = getattr(torch, prec)
+        grid = CartesianGrid(*shape, 0.5e-3)
+        sc = vp_scalars(grid, mat, 2.0 * grid.dx ** 2 / mat.alpha)
+        if label.endswith("waam"):
+            mask = waam_mask(torch, shape, dev)
+        else:
+            g = torch.Generator(device=dev).manual_seed(3)
+            mask = torch.rand(shape, generator=g, device=dev) > 0.25
+        T = mushy_field(torch, mask, seed=7).to(dtype)
+        R = random_field(torch, mask, seed=13).to(dtype)   # a chained rhs
+        m8 = mask.to(torch.uint8)
+        fc, w, h = varprop_fields_plain(T, m8, k_spec=kt, cp_spec=ct,
+                                        rho=mat.rho,
+                                        rad=(EMISSIVITY, 20.0, H_CONV))
+        g = torch.Generator(device=dev).manual_seed(5)
+        src = torch.where(mask, 1e8 * torch.rand(shape, generator=g,
+                                                 device=dev), 0.0).to(dtype)
+        # diagonally dominant field systems, the rows of an implicit sweep
+        a = -torch.rand(shape, generator=g, device=dev, dtype=dtype)
+        c = -torch.rand(shape, generator=g, device=dev, dtype=dtype)
+        b = 1.0 + 2.0 * torch.rand(shape, generator=g, device=dev,
+                                   dtype=dtype) - a - c
+        c0 = sweep_code(mask, None, 0)
+        c2 = sweep_code(mask, None, 2).movedim(0, 2).contiguous()
+        zr = (sc["tg"][2], sc["sk"][2], 20.0)
+        xr = (sc["tg"][0], sc["sk"][0], 20.0)
+        th = (T, *fc, w, m8, sc["cw"], sc["inv_d2"])
+        variants = [
+            ("K19", "z, h stream", (R, c2, fc[2], w, h),
+             lambda: varprop_sweep_z(R, c2, fc[2], w, *zr, h=h),
+             lambda: varprop_sweep_z_plain(R, c2, fc[2], w, *zr, h=h)),
+            ("K19", "z, rob_c", (R, c2, fc[2], w),
+             lambda: varprop_sweep_z(R, c2, fc[2], w, *zr, rob_c=H_CONV),
+             lambda: varprop_sweep_z_plain(R, c2, fc[2], w, *zr,
+                                           rob_c=H_CONV)),
+            ("K7x", "x, h stream", (R, c0, fc[0], w, h),
+             lambda: varprop_sweep_x(R, c0, fc[0], w, *xr, h=h),
+             lambda: varprop_sweep_x_plain(R, c0, fc[0], w, *xr, h=h)),
+            ("K20", "rhs", th[:6],
+             lambda: varprop_theta_rhs(*th),
+             lambda: varprop_theta_rhs_plain(*th)),
+            ("K20", "rhs + src", (*th[:6], src),
+             lambda: varprop_theta_rhs(*th, src=src, dt=sc["dt"]),
+             lambda: varprop_theta_rhs_plain(*th, src=src, dt=sc["dt"])),
+            *((("K21", name, (a, b, c, R),
+                (lambda ax=ax: tridiag_fields(a, b, c, R, ax)),
+                (lambda ax=ax: tridiag_fields_plain(a, b, c, R, ax))))
+              for ax, name in enumerate(("x", "y", "z"))),
+            ("K22", "phi (axis 1, cyclic)", (a, b, c, R),
+             lambda: cyclic_fields(a, b, c, R, 1),
+             lambda: cyclic_fields_plain(a, b, c, R, 1)),
+        ]
+        cells = T.numel()
+        where = f"{label} {prec}"
+        for kname, vname, ins, kern, plain in variants:
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()),
+                  f"{kname} {vname} {where}: non-finite output")
+            err = float((got - want).abs().max())
+            nbytes = sum(t.numel() * t.element_size() for t in (*ins, got))
+            ms = cuda_ms(torch, kern, 20)
+            plain_ms = cuda_ms(torch, plain, 3)
+            pct = 100.0 * nbytes / (ms * 1e-3) / HBM_BYTES_PER_S
+            rows.append(dict(kernel=kname, variant=vname, shape=where,
+                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bytes_per_cell=nbytes / cells, pct_hbm=pct,
+                             **bound(kname, nbytes, cells)))
+            print(f"[phase 2] {kname} {vname:32s} {where:26s} "
+                  f"max|d|={err:.3e}  kernel {ms:8.3f} ms  plain "
+                  f"{plain_ms:9.3f} ms  {pct:5.1f}% of 3.35 TB/s at "
+                  f"{nbytes / cells:.2f} B/cell", flush=True)
+            check(err == 0.0, f"{kname} {vname} {where}: max|d| {err:.3e} "
+                  "from its plain version, not bitwise")
+            del got, want
+        del T, R, fc, w, h, src, a, b, c, variants
+        torch.cuda.empty_cache()
+    return rows
+
+
+def bench_mask(torch, shape, dev):
+    """bench.py's build_case mask: a plate over 3/4 of the height and a
+    block on it."""
+    nx, ny, nz = shape
+    zsplit = (3 * nz) // 4
+    m = torch.ones(shape, dtype=torch.bool, device=dev)
+    m[:, :, zsplit:] = False
+    m[nx // 4:3 * nx // 4, ny // 4:3 * ny // 4,
+      zsplit:zsplit + nz // 8] = True
+    return m
+
+
+def timed_steps(torch, step, T0, n):
+    """CUDA-event ms of ``n`` steps from ``T0``, each timed on its own,
+    after two warm-up steps."""
+    for _ in range(P3_WARMUP):
+        step(T0)
+    torch.cuda.synchronize()
+    T, out = T0, []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        T = step(T)
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    check(bool(torch.isfinite(T).all()), "non-finite T in a timed run")
+    return out
+
+
+def per_step_check(torch, name, kernels, reference, T0, per):
+    """Kernels against reference, each of P3_STEPS steps from the
+    reference's state (STEP_TOL), then the kernels alone timed; the
+    launches are ``per`` step exactly."""
+    from adi_thermal_fields_tpu_torch.solvers import launch_counts
+
+    before = launch_counts()
+    T, errs, ref_ms = T0, [], []
+    for _ in range(P3_STEPS):
+        Tk = kernels(T)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        Tr = reference(T)
+        end.record()
+        end.synchronize()
+        ref_ms.append(start.elapsed_time(end))
+        check(bool(torch.isfinite(Tk).all()) and
+              bool(torch.isfinite(Tr).all()), f"{name}: non-finite T")
+        errs.append(float((Tk - Tr).abs().max()))
+        T = Tr
+        del Tk
+    step_ms = timed_steps(torch, kernels, T0, P3_STEPS)
+    delta = {k: v - before[k] for k, v in launch_counts().items()}
+    n = 2 * P3_STEPS + P3_WARMUP
+    want = {k: n * per.get(k, 0) for k in delta}
+    check(delta == want, f"{name}: launches {delta} != expected {want}")
+    ms, rms = statistics.median(step_ms), statistics.median(ref_ms)
+    print(f"{name}: kernels {ms:9.3f} ms/step (median; steps "
+          f"{', '.join(f'{s:.3f}' for s in step_ms)}); reference "
+          f"{rms:9.3f} ms/step; launches per step "
+          f"{ {k: v for k, v in per.items() if v} }", flush=True)
+    print(f"{name}: max|T_kernels - T_reference| per step from the "
+          f"reference's state: {', '.join(f'{e:.3e}' for e in errs)} K",
+          flush=True)
+    check(max(errs) <= STEP_TOL, f"{name}: {max(errs):.3e} K > {STEP_TOL}")
+    return dict(ms_kernels=ms, ms_reference=rms, max_abs_err=max(errs))
+
+
+def phase9_step(torch, dev):
+    """The corrected-BC route (and its fuse_theta=False form), the
+    Neumann/Dirichlet varprop step and the cylindrical fields tier,
+    float32, kernels against reference per step."""
+    import numpy as np
+    from adi_thermal_fields_tpu_torch import (CartesianGrid, Material,
+                                              RobinBC,
+                                              adi_step_cyl_varprop,
+                                              adi_step_varprop_fused)
+    from adi_thermal_fields_tpu_torch.apps.engine import make_cartesian_engine
+    from adi_thermal_fields_tpu_torch.bc.faces import FACES
+
+    n = P9_N
+    grid = CartesianGrid(n, n, n, 1e-3)
+    mat = Material(7800.0, 490.0, 54.0)
+    kt, ct = varprop_tables()
+    mask = bench_mask(torch, grid.shape, dev)
+    T0 = torch.where(mask, 900.0, 20.0).to(torch.float32)
+    dt = 0.02
+    # bench.py's run_corrected fields: all h faces, then all scales
+    rng = np.random.default_rng(5)
+    f32 = (lambda a: torch.from_numpy(a).to(dev, torch.float32))
+    hf = {f: f32(10.0 + 10.0 * rng.random(grid.shape)) for f in FACES}
+    scale = {f: f32(0.7 + 0.6 * rng.random(grid.shape)) for f in FACES}
+    common = dict(device=dev, dtype=torch.float32, theta=0.5, t_inf=20.0,
+                  k_table=kt, cp_table=ct)
+    out = {}
+
+    def engine_case(name, bcs, per):
+        eng = {impl: make_cartesian_engine(grid, mat, implementation=impl,
+                                           **common, **bcs)
+               for impl in ("kernels", "reference")}
+        prep = {impl: e[0](mask) for impl, e in eng.items()}
+        steps = {impl: (lambda T, impl=impl: eng[impl][1](T, prep[impl], dt,
+                                                          1, 0.0))
+                 for impl in eng}
+        out[name] = per_step_check(torch, f"[phase 9] {n}^3 f32 {name}",
+                                   steps["kernels"], steps["reference"], T0,
+                                   per)
+        return prep["kernels"], steps["kernels"]
+
+    prep_k, fused_step = engine_case(
+        "corrected (per-face h + scales, eps 0.5)",
+        dict(robin_h=hf, radiation_scale=scale, emissivity=EMISSIVITY),
+        {"K5": 1, "K6": 1, "K7": 1, "K19": 1})
+
+    # the same streams through K20 and K7's x entry instead of K6
+    def unfused(T):
+        return adi_step_varprop_fused(
+            T, prep_k[0], prep_k[1], grid, mat, k_table=kt, cp_table=ct,
+            dt=dt, theta=0.5, t_inf=20.0, h_axes=prep_k[2],
+            emissivity=EMISSIVITY, h_conv=None, fuse_theta=False)
+
+    from adi_thermal_fields_tpu_torch.solvers import launch_counts
+    before = launch_counts()
+    same = bool(torch.equal(unfused(T0), fused_step(T0)))
+    step_ms = timed_steps(torch, unfused, T0, P3_STEPS)
+    delta = {k: v - before[k] for k, v in launch_counts().items()}
+    per = {"K5": 1, "K20": 1, "K7x": 1, "K7": 1, "K19": 1}
+    n_unf = 1 + P3_WARMUP + P3_STEPS
+    want = {k: n_unf * per.get(k, 0)
+            + (1 if k in ("K5", "K6", "K7", "K19") else 0) for k in delta}
+    check(delta == want, f"phase 9 fuse_theta=False: launches {delta} != "
+          f"expected {want}")
+    ms = statistics.median(step_ms)
+    print(f"[phase 9] {n}^3 f32 corrected, fuse_theta=False: kernels "
+          f"{ms:9.3f} ms/step (median; steps "
+          f"{', '.join(f'{s:.3f}' for s in step_ms)}); bitwise equal to "
+          f"the fused step: {same}", flush=True)
+    check(same, "phase 9: fuse_theta=False differs from the fused step")
+    out["corrected, fuse_theta=False"] = dict(ms_kernels=ms)
+    del prep_k, fused_step, hf, scale
+    torch.cuda.empty_cache()
+
+    dirm = torch.zeros(grid.shape, dtype=torch.bool, device=dev)
+    dirm[:, :, 0] = True
+    engine_case("entry BCs + Dirichlet bottom",
+                dict(robin_h=200.0, neumann={"z+": 5e5},
+                     dirichlet_mask=dirm, dirichlet_value=600.0),
+                {"K21": 3})
+    torch.cuda.empty_cache()
+
+    # the cylindrical fields tier at phase 8's tube
+    label, shape, _ = P8_SHAPES[0]
+    cgrid, cmat, cmask, zbc, C0 = cylvp_case(torch, label, shape,
+                                             torch.float32, dev)
+    kw = dict(dt=P8_DT, robin_outer=RobinBC(300.0, 20.0), zbc=zbc,
+              robin_inner=RobinBC(50.0, 20.0), active=cmask, h_void=80.0,
+              T_inf_void=20.0, h_front=200.0, k_table=kt, cp_table=ct,
+              emissivity=EMISSIVITY)
+    for scheme in ("be", "douglas"):
+        out[f"cyl fields {scheme}"] = per_step_check(
+            torch, f"[phase 9] {label} f32 varprop {scheme} fields tier",
+            lambda T: adi_step_cyl_varprop(T, cgrid, cmat, scheme=scheme,
+                                           implementation="fields", **kw),
+            lambda T: adi_step_cyl_varprop(T, cgrid, cmat, scheme=scheme,
+                                           implementation="reference", **kw),
+            C0, {"K21": 2, "K22": 1})
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase9_app(torch, dev):
+    """The WAAM app on the turned bar with --corrected_bc, and with the
+    varprop flags: the whole print on the float32 kernels, then kernels
+    against reference on a short print (float32; float64 with the varprop
+    flags); the corrected fields must change the field."""
+    vp = ["--emissivity", str(EMISSIVITY), "--latent_J_kg", str(LATENT),
+          "--melt_k_factor", "4"]
+    cbc = ["--corrected_bc", "1"]
+    out = {}
+    for name, extra, prec in (("corrected", cbc, "float32"),
+                              ("corrected + varprop", cbc + vp, "float64")):
+        whole = app_phase(torch, dev, 9, extra, impls=("kernels",),
+                          turn_deg=30.0)
+        short = app_phase(torch, dev, 9, extra, precision=prec,
+                          turn_deg=30.0, layer_s=SHORT_LAYER_S)
+        out[name] = dict(wall_kernels_whole=whole["wall_kernels"],
+                         **{k: v for k, v in short.items()
+                            if k != "T_kernels"})
+        if name == "corrected":
+            plain = app_phase(torch, dev, 9, [], impls=("kernels",),
+                              turn_deg=30.0, layer_s=SHORT_LAYER_S)
+            d = float((plain["T_kernels"] - short["T_kernels"]).abs().max())
+            print(f"[phase 9] max|T_corrected - T_h_side| (kernels, short "
+                  f"print) = {d:.3e} K", flush=True)
+            check(d > 1e-3, f"--corrected_bc changed the field by {d:.3e} "
+                  "K: the corrected fields do not reach the step")
+    return out
 
 
 def profile_phase8(torch, dev, steps=5):
@@ -1449,7 +1767,7 @@ def main():
     phase1()
     rows = phase2(torch, dev) + phase2_varprop(torch, dev) \
         + phase2_cyl(torch, dev) + phase2_be(torch, dev) \
-        + phase2_cylvp(torch, dev)
+        + phase2_cylvp(torch, dev) + phase2_fields(torch, dev)
 
     from adi_thermal_fields_tpu_torch.solvers import (launch_counts,
                                                       reset_launch_counts)
@@ -1463,7 +1781,10 @@ def main():
     phase3_varprop(torch, dev)
     vp_flags = ["--latent_J_kg", str(LATENT), "--melt_k_factor", "4",
                 "--emissivity", str(EMISSIVITY)]
-    p5 = app_phase(torch, dev, 5, vp_flags, precision="float64")
+    p5 = app_phase(torch, dev, 5, vp_flags, precision="float64",
+                   impls=("kernels",))
+    app_phase(torch, dev, 5, vp_flags, precision="float64",
+              layer_s=SHORT_LAYER_S)
     p5_32 = app_phase(torch, dev, 5, vp_flags, impls=("kernels",))
     counts_v = launch_counts()
     reset_launch_counts()
@@ -1478,6 +1799,10 @@ def main():
     phase8_step(torch, dev)
     p8, _ = phase8_app(torch, dev)
     counts_8 = launch_counts()
+    reset_launch_counts()
+    phase9_step(torch, dev)
+    phase9_app(torch, dev)
+    counts_9 = launch_counts()
     d32 = float((p5_32["T_kernels"].double() - p5["T_kernels"]).abs().max())
     print(f"[phase 5] max|T_float32 - T_float64| (kernels) = {d32:.3e} K",
           flush=True)
@@ -1492,6 +1817,9 @@ def main():
         check(all(counts_p[k] > 0 if k in mine else counts_p[k] == 0
                   for k in KERNEL_INFO),
               f"the {path} path's launches: {counts_p}")
+    check(all(counts_9[k] > 0 if k in GENERAL_KERNELS else
+              k in P9_ALSO or counts_9[k] == 0 for k in KERNEL_INFO),
+          f"the general-BC path's launches: {counts_9}")
     d45 = float((p5_32["T_kernels"] - p4["T_kernels"]).abs().max())
     print(f"[phase 5] max|T_varprop - T_constant| = {d45:.3e} K", flush=True)
     check(d45 > 1.0, "the varprop flags changed the app's field by "
@@ -1510,8 +1838,10 @@ def main():
               **{k: counts_v[k] for k in VP_KERNELS},
               **{k: counts_y[k] for k in CYL_KERNELS},
               **{k: counts_b[k] for k in BE_KERNELS},
-              **{k: counts_8[k] for k in CYL_VP_KERNELS}}
+              **{k: counts_8[k] for k in CYL_VP_KERNELS},
+              **{k: counts_9[k] for k in GENERAL_KERNELS}}
     counts["K8"] = counts_v["K8"] + counts_8["K8"]
+    counts["K19"] = counts_v["K19"] + counts_9["K19"]
 
     main_variant = {"K1": "lite y", "K2": "lite z", "K3": "stencil",
                     "K4": "stencil + lite x", "K5": "fields + rad",
@@ -1519,18 +1849,22 @@ def main():
                     "K8": "z, rad", "K9": "r", "K10": "z",
                     "K11": "phi (cyclic)", "K12": "r", "K13": "z",
                     "K14": "phi (cyclic)", "K15": "r", "K16": "phi (cyclic)",
-                    "K17": "r", "K18": "phi (cyclic)"}
+                    "K17": "r", "K18": "phi (cyclic)", "K7x": "x, h stream",
+                    "K19": "z, h stream", "K20": "rhs", "K21": "x",
+                    "K22": "phi (axis 1, cyclic)"}
     summary = []
     for k, (fn, src, replaces) in KERNEL_INFO.items():
         mine = [r for r in rows if r["kernel"] == k]
         shape = (CYL_SHAPES[0][0] if k in CYL_KERNELS else P7_SHAPES[0][0]
                  if k in BE_KERNELS else f"{P8_SHAPES[0][0]} float32"
-                 if k in ("K15", "K16", "K17", "K18") else P2_SHAPES[0][0])
+                 if k in ("K15", "K16", "K17", "K18") else
+                 f"{P9_SHAPES[0][0]} float32" if k in GENERAL_KERNELS
+                 else P2_SHAPES[0][0])
         ref = next(r for r in mine if r["variant"] == main_variant[k]
                    and r["shape"] == shape)
-        # K1-K11 and K15-K18: no PyTorch call computes these masked
-        # (cyclic) tridiagonal solves, stencils or table passes:
-        # library_ms is null
+        # K1-K11 and K15-K22: no PyTorch call computes these masked,
+        # variable-coefficient or field-coefficient (cyclic) tridiagonal
+        # solves, stencils or table passes: library_ms is null
         summary.append({"name": f"{k} {fn}", "route": "cuda",
                         "source": f"{PKG}/{src}", "replaces": replaces,
                         "launches": counts[k],

@@ -12,7 +12,9 @@ contraction).  The variable-property kernels K5-K8 are held to the same
 bounds relative to each output's scale (face conductivities, 1/(rho cp)
 and films are not temperatures), and so are the cylindrical sweeps K9-K18,
 whose stiff phi systems near a full disk's axis amplify one rounding; the
-cylindrical varprop step runs kernels against reference at float64.
+cylindrical varprop step runs kernels against reference at float64.  K6,
+K7 (and its x entry), K19, K20, K21 and K22 repeat their plain versions
+one rounding at a time: they are held to bitwise equality.
 chip_smoke.py runs the same comparisons at full size.
 """
 import numpy as np
@@ -25,7 +27,7 @@ from adi_thermal_fields_tpu_torch import (CylindricalGrid, Material, RobinBC,
                                           build_cyl_vp2_plan,
                                           build_masked_robin_plan)
 from adi_thermal_fields_tpu_torch.solvers import (
-    build_vp2_code, const_sweep_strided, const_sweep_strided_plain,
+    KERNELS, build_vp2_code, const_sweep_strided, const_sweep_strided_plain,
     const_sweep_z, const_sweep_z_plain, cyclic_const_phi,
     cyclic_const_phi_plain, fused_theta_sweep, fused_theta_sweep_plain,
     launch_counts, masked_cyclic_phi, masked_cyclic_phi_plain,
@@ -37,12 +39,20 @@ from adi_thermal_fields_tpu_torch.solvers import (
     vp2_cyclic_phi, vp2_cyclic_phi_plain, vp2_sweep_strided,
     vp2_sweep_strided_plain, vp2_sweep_z, vp2_sweep_z_plain,
     vp_fields_cyclic_phi, vp_fields_cyclic_phi_plain,
-    vp_fields_sweep_strided, vp_fields_sweep_strided_plain)
+    vp_fields_sweep_strided, vp_fields_sweep_strided_plain, cyclic_fields,
+    cyclic_fields_plain, tridiag_fields, tridiag_fields_plain,
+    varprop_sweep_x, varprop_sweep_x_plain, varprop_sweep_z,
+    varprop_sweep_z_plain, varprop_theta_rhs, varprop_theta_rhs_plain)
 from adi_thermal_fields_tpu_torch.step import cylindrical as pcyl
 from adi_thermal_fields_tpu_torch.step import cylindrical_varprop as pcvp
 
 TG, DT, TINF, ROB = 0.21, 0.05, 20.0, 0.0031
 C_EXP, INV = 3.5e-7, (1.0e6, 1.1e6, 0.9e6)
+
+
+def _counts(**launched):
+    """launch_counts() when only ``launched`` kernels ran."""
+    return {**{k: 0 for k in KERNELS}, **launched}
 
 
 @pytest.mark.cuda
@@ -93,8 +103,7 @@ def test_kernels_match_plain_on_card(dtype, tol):
     for got, want in pairs:
         assert got.is_cuda and got.dtype == dtype
         assert float((got - want).abs().max()) <= tol
-    assert launch_counts() == {**{f"K{i}": 0 for i in range(1, 19)},
-                               "K1": 4, "K2": 1, "K3": 1, "K4": 1}
+    assert launch_counts() == _counts(K1=4, K2=1, K3=1, K4=1)
 
 
 def _flat(out):
@@ -155,8 +164,7 @@ def test_varprop_kernels_match_plain_on_card(dtype, rel):
         for a, b in zip(_flat(got), _flat(want)):
             assert a.is_cuda and a.dtype == dtype
             assert float((a - b).abs().max()) <= rel * float(b.abs().max())
-    assert launch_counts() == {**{f"K{i}": 0 for i in range(1, 19)},
-                               "K5": 2, "K6": 2, "K7": 2, "K8": 2}
+    assert launch_counts() == _counts(K5=2, K6=2, K7=2, K8=2)
 
 
 @pytest.mark.cuda
@@ -196,8 +204,7 @@ def test_masked_kernels_match_plain_on_card(dtype, rel, r_inner, kind_bot):
         assert got.is_cuda and got.dtype == dtype
         assert float((got - want).abs().max()) <= rel * float(
             want.abs().max())
-    assert launch_counts() == {**{f"K{i}": 0 for i in range(1, 19)},
-                               "K9": 1, "K10": 1, "K11": 1}
+    assert launch_counts() == _counts(K9=1, K10=1, K11=1)
 
 
 @pytest.mark.cuda
@@ -234,8 +241,7 @@ def test_const_kernels_match_plain_on_card(dtype, rel, nphi, r_inner,
         assert got.is_cuda and got.dtype == dtype
         assert float((got - want).abs().max()) <= rel * float(
             want.abs().max())
-    assert launch_counts() == {**{f"K{i}": 0 for i in range(1, 19)},
-                               "K12": 1, "K13": 1, "K14": 1}
+    assert launch_counts() == _counts(K12=1, K13=1, K14=1)
 
 
 @pytest.mark.cuda
@@ -304,9 +310,7 @@ def test_cyl_varprop_kernels_match_plain_on_card(dtype, rel, nphi, r_inner,
         assert got.is_cuda and got.dtype == dtype
         assert float((got - want).abs().max()) <= rel * float(
             want.abs().max())
-    assert launch_counts() == {**{f"K{i}": 0 for i in range(1, 19)},
-                               "K8": 1, "K15": 2, "K16": 1, "K17": 2,
-                               "K18": 1}
+    assert launch_counts() == _counts(K8=1, K15=2, K16=1, K17=2, K18=1)
 
 
 @pytest.mark.cuda
@@ -330,9 +334,122 @@ def test_cyl_varprop_step_on_card(scheme, launches):
     mat = Material(7800.0, 490.0, 54.0)
     reset_launch_counts()
     got = adi_step_cyl_varprop(T, grid, mat, **kw)
-    assert launch_counts() == {**{f"K{i}": 0 for i in range(1, 19)},
-                               **launches}
+    assert launch_counts() == _counts(**launches)
     want = adi_step_cyl_varprop(T, grid, mat, implementation="reference",
                                 **kw)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_general_route_kernels_match_plain_on_card(dtype):
+    """K7's x entry, K19 and K20 (the corrected-BC route) and K21/K22 (the
+    field solves) against their plain versions: bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(41)
+    shape = (37, 45, 70)               # uneven: partial blocks and tiles
+    mask_np = rng.random(shape) > 0.25
+    mask = torch.from_numpy(mask_np).to(dev)
+    cast = (lambda a: torch.from_numpy(a).to(dev, dtype))
+    T = cast(np.where(mask_np, 20.0 + 1580.0 * rng.random(shape), 20.0))
+    R = cast(np.where(mask_np, 20.0 + 1480.0 * rng.random(shape), 20.0))
+    src = cast(rng.random(shape) * 1e6)
+    m8 = mask.to(torch.uint8)
+    fc, w, h = varprop_fields_plain(
+        T, m8, k_spec=melt_pool_enhanced_k(54.0, 1420.0, 1470.0, 4.0),
+        cp_spec=apparent_cp(490.0, 520.0, 2.7e5, 1420.0, 1470.0),
+        rho=7800.0, rad=(0.5, 20.0, 30.0))
+    code0 = sweep_code(mask, None, 0)
+    code2 = sweep_code(mask, None, 2).movedim(0, 2).contiguous()
+    a, c = -cast(rng.random(shape)), -cast(rng.random(shape))
+    b = 1.0 + 2.0 * cast(rng.random(shape)) - a - c
+    rows = (R, 7e4, 70.0, TINF)
+    reset_launch_counts()
+    pairs = [
+        (varprop_sweep_x(R, code0, fc[0], w, *rows[1:], h=h),
+         varprop_sweep_x_plain(R, code0, fc[0], w, *rows[1:], h=h)),
+        (varprop_sweep_z(R, code2, fc[2], w, *rows[1:], h=h),
+         varprop_sweep_z_plain(R, code2, fc[2], w, *rows[1:], h=h)),
+        (varprop_sweep_z(R, code2, fc[2], w, *rows[1:], rob_c=30.0),
+         varprop_sweep_z_plain(R, code2, fc[2], w, *rows[1:], rob_c=30.0)),
+        (varprop_theta_rhs(T, *fc, w, m8, 0.0175, INV),
+         varprop_theta_rhs_plain(T, *fc, w, m8, 0.0175, INV)),
+        (varprop_theta_rhs(T, *fc, w, m8, 0.0175, INV, src=src, dt=DT),
+         varprop_theta_rhs_plain(T, *fc, w, m8, 0.0175, INV, src=src,
+                                 dt=DT)),
+        *((tridiag_fields(a, b, c, R, ax),
+           tridiag_fields_plain(a, b, c, R, ax)) for ax in range(3)),
+        (cyclic_fields(a, b, c, R, 1), cyclic_fields_plain(a, b, c, R, 1)),
+    ]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert got.is_cuda and got.dtype == dtype
+        assert torch.equal(got, want)
+    assert launch_counts() == _counts(K7x=1, K19=2, K20=2, K21=3, K22=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,launches", [
+    ("h_axes", dict(K5=1, K6=1, K7=1, K19=1)),
+    ("fuse_theta_false", dict(K5=1, K20=1, K7x=1, K7=1, K19=1)),
+    ("neumann_dirichlet", dict(K21=3))])
+def test_varprop_routes_on_card(route, launches):
+    """The float64 Cartesian varprop routes of this slice through the
+    engine on the card: launches per step, and kernels against reference
+    within 1e-9 K."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from adi_thermal_fields_tpu_torch import (CartesianGrid,
+                                              adi_step_varprop_fused,
+                                              build_varprop_codes)
+    from adi_thermal_fields_tpu_torch.apps.engine import (
+        make_cartesian_engine)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(43)
+    grid = CartesianGrid(37, 45, 70, 5e-4)
+    mask = torch.from_numpy(rng.random(grid.shape) > 0.2).to(dev)
+    T = torch.from_numpy(1300.0 + 300.0 * rng.random(grid.shape)).to(dev)
+    mat = Material(7800.0, 490.0, 54.0)
+    tabs = dict(k_table=melt_pool_enhanced_k(54.0, 1420.0, 1470.0, 4.0),
+                cp_table=apparent_cp(490.0, 490.0, 2.7e5, 1420.0, 1470.0))
+    faces = ("x-", "x+", "y-", "y+", "z-", "z+")
+    if route == "fuse_theta_false":
+        reset_launch_counts()
+        got = adi_step_varprop_fused(T, mask, build_varprop_codes(mask),
+                                     grid, mat, dt=0.02, robin_h=30.0,
+                                     t_inf=20.0, fuse_theta=False, **tabs)
+        assert launch_counts() == _counts(**launches)
+        want = adi_step_varprop_fused(T.cpu(), mask.cpu(),
+                                      build_varprop_codes(mask.cpu()), grid,
+                                      mat, dt=0.02, robin_h=30.0, t_inf=20.0,
+                                      **tabs)
+    else:
+        if route == "h_axes":
+            bcs = dict(robin_h={f: torch.from_numpy(
+                10.0 + 10.0 * rng.random(grid.shape)).to(dev)
+                for f in faces}, emissivity=0.5,
+                radiation_scale={f: torch.from_numpy(
+                    0.7 + 0.6 * rng.random(grid.shape)).to(dev)
+                    for f in faces})
+        else:
+            dirm = torch.zeros(grid.shape, dtype=torch.bool, device=dev)
+            dirm[:, :, 0] = True
+            bcs = dict(robin_h=200.0, neumann={"z+": 5e5},
+                       dirichlet_mask=dirm, dirichlet_value=1350.0)
+        res = {}
+        for impl in ("kernels", "reference"):
+            prep, adv = make_cartesian_engine(
+                grid, mat, implementation=impl, device=dev,
+                dtype=torch.float64, t_inf=20.0, **bcs, **tabs)
+            p = prep(mask)
+            reset_launch_counts()
+            res[impl] = adv(T, p, 0.02, 1, 0.0)
+            if impl == "kernels":
+                assert launch_counts() == _counts(**launches)
+        got, want = res["kernels"], res["reference"]
+    torch.cuda.synchronize()
+    assert float((got.cpu() - want.cpu()).abs().max()) <= 1e-9

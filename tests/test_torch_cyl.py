@@ -47,8 +47,8 @@ from adi_thermal_fields_tpu_torch.apps import spiral_tube as port_app
 from adi_thermal_fields_tpu_torch.birth import spiral
 from adi_thermal_fields_tpu_torch.convert import masked_plan_from_jax
 from adi_thermal_fields_tpu_torch.solvers import (
-    cyclic_thomas, launch_counts, masked_cyclic_phi, masked_sweep_strided,
-    masked_sweep_z, reset_launch_counts)
+    KERNELS, cyclic_thomas, launch_counts, masked_cyclic_phi,
+    masked_sweep_strided, masked_sweep_z, reset_launch_counts)
 
 torch.set_num_threads(1)
 
@@ -307,7 +307,7 @@ def test_masked_wrappers_cpu_contract():
     masked_cyclic_phi(*args, _t(0.5 + rng.random((4, 5))), FAC, AMB)
     masked_sweep_z(*args, _t(0.5 + rng.random(5)), _t(0.5 + rng.random(5)),
                    FAC, AMB)
-    assert launch_counts() == {f"K{i}": 0 for i in range(1, 19)}
+    assert launch_counts() == {k: 0 for k in KERNELS}
     with pytest.raises(ValueError, match="length >= 2"):
         masked_cyclic_phi(*(t[:, :1].contiguous() for t in args),
                           _t(np.ones((4, 5))), FAC, AMB)

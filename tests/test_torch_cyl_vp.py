@@ -54,8 +54,8 @@ from adi_thermal_fields_tpu_torch.apps import spiral_tube as port_app
 from adi_thermal_fields_tpu_torch.convert import (cyl_vp2_plan_from_jax,
                                                   property_table_from_jax)
 from adi_thermal_fields_tpu_torch.solvers import (
-    build_vp2_code, launch_counts, reset_launch_counts, vp2_cyclic_phi,
-    vp2_sweep_strided, vp2_sweep_z, vp_fields_cyclic_phi,
+    KERNELS, build_vp2_code, launch_counts, reset_launch_counts,
+    vp2_cyclic_phi, vp2_sweep_strided, vp2_sweep_z, vp_fields_cyclic_phi,
     vp_fields_sweep_strided)
 from adi_thermal_fields_tpu_torch.step import cylindrical_varprop as pcvp
 
@@ -483,7 +483,8 @@ def test_unported_routes_raise_and_bf16_is_solved_at_float32():
                  dict(pallas_solvers={})):
         with pytest.raises(NotImplementedError, match="multi-device"):
             adi_step_cyl_varprop(_t(T), pg, Material(*MAT), **pargs, **over)
-    with pytest.raises(NotImplementedError, match="rows 13-14"):
+    # the JAX name of the fields tier is not the port's ("fields")
+    with pytest.raises(ValueError, match="implementation must be one of"):
         adi_step_cyl_varprop(_t(T), pg, Material(*MAT), **pargs,
                              implementation="pallas_fields")
     with pytest.raises(ValueError, match="unknown scheme"):
@@ -511,7 +512,7 @@ def test_cyl_vp_wrappers_cpu_contract():
                 cp_spec=PCP)
     vp_fields_sweep_strided(*streams, cols[0], cols[1])
     vp_fields_cyclic_phi(*streams, ring)
-    assert launch_counts() == {f"K{i}": 0 for i in range(1, 19)}
+    assert launch_counts() == {k: 0 for k in KERNELS}
     grad = T.clone().requires_grad_(True)
     for call in (
             lambda: vp2_sweep_strided(grad, T, code, *cols, 1e5, k_spec=PK,

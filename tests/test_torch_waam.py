@@ -91,6 +91,8 @@ def test_port_imports_no_jax():
             "import adi_thermal_fields_tpu_torch.solvers.spectral\n"
             "import adi_thermal_fields_tpu_torch.solvers.vpfields\n"
             "import adi_thermal_fields_tpu_torch.step.cylindrical_varprop\n"
+            "import adi_thermal_fields_tpu_torch.solvers.fields\n"
+            "import adi_thermal_fields_tpu_torch.geometry.bc_correction\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax',\n"
             "                                    'adi_thermal_fields_tpu'))\n"
@@ -119,7 +121,6 @@ def test_kernel_wrappers_refuse_inputs_that_require_grad():
 # the varprop flags run now; combined with a flag the port lacks they still
 # exit, naming only that flag
 @pytest.mark.parametrize("flag", [
-    ["--corrected_bc", "1"], ["--emissivity", "0.4", "--corrected_bc", "1"],
     ["--latent_J_kg", "2.7e5", "--precision", "bfloat16"],
     ["--melt_k_factor", "3", "--history_t_crit", "800"], ["--mesh", "2x2"],
     ["--checkpoint", "ck.npz"], ["--resume", "ck.npz"], ["--save_vtk", "1"],
@@ -131,7 +132,8 @@ def test_unsupported_flags_exit_with_a_message(box_stl, flag):
     with pytest.raises(SystemExit, match="not supported by the PyTorch port"
                        ) as exc:
         port_app.run(args)
-    for ported in ("--emissivity", "--latent_J_kg", "--melt_k_factor"):
+    for ported in ("--emissivity", "--latent_J_kg", "--melt_k_factor",
+                   "--corrected_bc"):
         assert ported not in str(exc.value)
 
 
