@@ -14,8 +14,10 @@ backward-Euler step with element birth by a spiral schedule, the
 unmasked cylindrical step (backward Euler and Douglas-Gunn) with its
 ambient-clamp birth wrapper, and the variable-property cylindrical step
 (tables, radiation, backward Euler and Douglas-Gunn, face-cut or clamp
-birth, and its field-coefficient tier).  They run on CUDA kernels
-written by hand for the H100 (csrc/):
+birth, and its field-coefficient tier); and the bf16 bandwidth mode
+(bfloat16 states solved at float32, stores rounded stochastically from
+the engine's integer step counter).  They run on CUDA kernels written by
+hand for the H100 (csrc/):
 
 * K1 ``solvers.sweeps.sweep_strided`` — masked sweep along x or y;
 * K2 ``solvers.sweeps.sweep_z`` — plan-lite sweep along contiguous z;
@@ -55,7 +57,15 @@ written by hand for the H100 (csrc/):
 * K21 ``solvers.fields.tridiag_fields`` — Thomas on a/b/c/d fields along
   any axis;
 * K22 ``solvers.fields.cyclic_fields`` — the periodic field-coefficient
-  solve.
+  solve;
+* K23 ``solvers.gstreams.gstream_fields`` — the pre-multiplied coupling
+  and sink streams of the g-stream varprop tier;
+* K24 ``solvers.gstreams.gstream_theta_sweep`` — its theta pass fused
+  into the x-sweep;
+* K25 ``solvers.gstreams.gstream_sweep_y`` and K26
+  ``solvers.gstreams.gstream_sweep_z`` — its y and z sweeps.
+
+K1-K4 and K23-K26 take bfloat16 states (``solvers.rounding``).
 
 Each kernel wrapper runs its plain PyTorch version on CPU tensors and the
 kernel on CUDA tensors (built from csrc/*.cu at first use).
@@ -68,7 +78,8 @@ from .core.material import Material
 from .step.cartesian import adi_step as adi_step_cartesian
 from .step.cartesian_fused import SweepPlan, adi_step_fused, build_sweep_plan
 from .step.cartesian_varprop import (PropertyTable, adi_step_varprop,
-                                     adi_step_varprop_fused, apparent_cp,
+                                     adi_step_varprop_fused,
+                                     adi_step_varprop_gstreams, apparent_cp,
                                      build_varprop_codes,
                                      melt_pool_enhanced_k)
 from .step.cylindrical import RobinBC, ZFaceBC
@@ -90,7 +101,8 @@ __all__ = ["CartesianGrid", "Material", "FACES", "exposed_face",
            "adi_step_cartesian", "SweepPlan", "build_sweep_plan",
            "adi_step_fused", "PropertyTable", "apparent_cp",
            "melt_pool_enhanced_k", "adi_step_varprop",
-           "adi_step_varprop_fused", "build_varprop_codes",
+           "adi_step_varprop_fused", "adi_step_varprop_gstreams",
+           "build_varprop_codes",
            "STEFAN_BOLTZMANN", "radiative_h", "CylindricalGrid", "RobinBC",
            "ZFaceBC", "adi_step_cylindrical", "adi_step_cylindrical_masked",
            "phi_solve_spectral", "MaskedRobinPlan", "build_masked_robin_plan",

@@ -20,6 +20,10 @@ adi_step_varprop_fused (K5-K8; per-face or field ``robin_h`` and
 pins both implementations take the materialized step adi_step_varprop,
 "kernels" solving it with K21; "reference" always does, and with
 radiation rebuilds its packs every sub-step from the live field.
+bfloat16 states run the kernels' bfloat16 entries (K1-K4; the varprop
+step on the g-stream tier, K23-K26) and, with ``stochastic_rounding``,
+round their stores stochastically, seeded by the integer step counter of
+``clock``.
 """
 from __future__ import annotations
 
@@ -34,14 +38,14 @@ from ..bc.packs import _normalize_per_face, build_coeff_packs
 from ..bc.radiation import radiative_h
 from ..core.grid import CartesianGrid
 from ..core.material import Material
-from ..step.cartesian import adi_step, state_numpy_dtype
+from ..step.cartesian import adi_step, round_to_state, solve_numpy_dtype
 from ..step.cartesian_fused import adi_step_fused, build_sweep_plan
 from ..step.cartesian_varprop import (adi_step_varprop,
                                       adi_step_varprop_fused,
                                       build_face_h_axes, build_varprop_codes,
                                       check_films)
 
-__all__ = ["make_cartesian_engine", "EventLoop", "IMPLEMENTATIONS"]
+__all__ = ["make_cartesian_engine", "EventLoop", "IMPLEMENTATIONS", "clock"]
 
 IMPLEMENTATIONS = ("kernels", "reference")
 
@@ -54,6 +58,24 @@ def _faces_on(spec, device, dtype) -> dict:
             for face, v in _normalize_per_face(spec).items()}
 
 
+def clock(state_dtype: torch.dtype, dt: float, t0: float):
+    """The sub-step clock OUTSIDE the state dtype (JAX ``_clock``,
+    :467-478): ``i -> (t_i, istep_i)`` with ``t_i = t0 + i*dt`` at the solve
+    precision (>= float32) and ``istep_i = round(t0/dt) + i`` an int32 step
+    counter, the stochastic rounding's seed.  At bfloat16 (8-bit mantissa)
+    a time or a seed formed at the state dtype would repeat over whole
+    plateaus of sub-steps past step ~256, re-correlating the rounding."""
+    f = solve_numpy_dtype(state_dtype)
+    t0f, dtf = f(t0), f(dt)
+    base = int(np.round(t0f / dtf))
+
+    def tick(i: int):
+        istep = (base + i + 2 ** 31) % 2 ** 32 - 2 ** 31   # int32 wrap
+        return float(t0f + f(i) * dtf), istep
+
+    return tick
+
+
 def make_cartesian_engine(grid: CartesianGrid, mat: Material, *,
                           implementation: str, device, dtype: torch.dtype,
                           theta: float = 0.5, t_inf: float = 20.0,
@@ -61,12 +83,21 @@ def make_cartesian_engine(grid: CartesianGrid, mat: Material, *,
                           dirichlet_value=None, source_fn=None,
                           history_t_crit=None, mesh=None, k_table=None,
                           cp_table=None, emissivity=None,
-                          radiation_scale=None):
+                          radiation_scale=None,
+                          stochastic_rounding: bool = False):
     """Split engine: ``prepare(active) -> prep`` (plan or pack rebuild,
     needed only when the mask changes) and
     ``advance(T, prep, dt, n_sub, t0=0.0) -> T`` (the sub-step loop).
 
-    ``dtype``: state and pack dtype (float32 or float64).  ``robin_h``:
+    ``dtype``: state and pack dtype (float32, float64 or bfloat16; a
+    bfloat16 state solves at float32 in the kernels' bfloat16 entries and
+    its plan-lite constant stays at float32, JAX :158-163).
+    ``stochastic_rounding``: round every bfloat16 store stochastically,
+    seeded per sub-step from an integer step counter (JAX :81-87, :312,
+    :436): round-to-nearest drops updates smaller than the bfloat16 quantum
+    (~8 K at 1500 C) and freezes slow cooling.  It raises where it cannot
+    be honoured, as the JAX engine does: the reference implementation and
+    the materialized Neumann/Dirichlet varprop step.  ``robin_h``:
     scalar (plan-lite: no coefficient fields), per-face dict or 3-D field
     (field plan).  ``source_fn``: optional ``t -> volumetric heat field
     [W/m^3]``.  Thermal history and device meshes are not ported yet.
@@ -93,8 +124,12 @@ def make_cartesian_engine(grid: CartesianGrid, mat: Material, *,
     if mesh is not None:
         raise NotImplementedError("multi-device meshes are not ported to "
                                   "the PyTorch engine yet")
-    f = state_numpy_dtype(dtype)
+    f = solve_numpy_dtype(dtype)
     device = torch.device(device)
+    if stochastic_rounding and implementation == "reference":
+        raise ValueError("stochastic_rounding is a kernel feature; the "
+                         "reference branch would silently round to nearest "
+                         "(bf16 cooling freeze hazard)")
 
     def _packs(active):
         return build_coeff_packs(active, grid, mat, dtype=dtype,
@@ -150,6 +185,12 @@ def make_cartesian_engine(grid: CartesianGrid, mat: Material, *,
                     + h_rad * (1.0 if s_pf[face] is None else s_pf[face])
                     for face in h_pf}
 
+        if stochastic_rounding and not fused:
+            raise ValueError("stochastic_rounding on the varprop path needs "
+                             "the fused kernels (Robin-only films, no "
+                             "Neumann/Dirichlet); this configuration takes "
+                             "the materialized step, which has no "
+                             "stochastic stores")
         if implementation == "kernels" and fused:
             s_spec = s_pf if emissivity is not None else None
 
@@ -163,7 +204,7 @@ def make_cartesian_engine(grid: CartesianGrid, mat: Material, *,
                 return (active.to(torch.uint8), build_varprop_codes(active),
                         h_ab)
 
-            def step1(T, prep, dt, t):
+            def step1(T, prep, dt, t, istep):
                 active, codes, h_ab = prep
                 src = None if source_fn is None else source_fn(t)
                 return adi_step_varprop_fused(
@@ -171,7 +212,8 @@ def make_cartesian_engine(grid: CartesianGrid, mat: Material, *,
                     cp_table=cp_table, dt=dt, theta=theta, t_inf=t_inf,
                     robin_h=float(robin_h or 0.0) if scalar_conv else 0.0,
                     h_axes=h_ab, emissivity=emissivity, h_conv=h_conv,
-                    source=src)
+                    source=src,
+                    rng_seed=istep if stochastic_rounding else None)
         else:
             def prepare(active):
                 active = active.to(device=device, dtype=torch.bool)
@@ -180,7 +222,7 @@ def make_cartesian_engine(grid: CartesianGrid, mat: Material, *,
                 return (active,
                         None if emissivity is not None else _packs(active))
 
-            def step1(T, prep, dt, t):
+            def step1(T, prep, dt, t, istep):
                 active, packs = prep
                 if emissivity is not None:
                     packs = build_coeff_packs(
@@ -203,28 +245,30 @@ def make_cartesian_engine(grid: CartesianGrid, mat: Material, *,
                                     has_dirichlet=dirichlet_mask is not None,
                                     robin_const=lite_c)
 
-        def step1(T, prep, dt, t):
+        def step1(T, prep, dt, t, istep):
             src = None if source_fn is None else source_fn(t)
+            # the seed is the INTEGER step counter (JAX :432-436)
             return adi_step_fused(T, prep, grid, mat, dt=dt, theta=theta,
-                                  t_inf=t_inf, source=src)
+                                  t_inf=t_inf, source=src,
+                                  rng_seed=istep if stochastic_rounding
+                                  else None)
     else:
         def prepare(active):
             active = active.to(device=device, dtype=torch.bool)
             return (active, _packs(active))
 
-        def step1(T, prep, dt, t):
+        def step1(T, prep, dt, t, istep):
             active, packs = prep
             src = None if source_fn is None else source_fn(t)
             return adi_step(T, active, packs, grid, mat, dt=dt, theta=theta,
                             t_inf=t_inf, source=src)
 
     def advance(T, prep, dt: float, n_sub: int, t0: float = 0.0):
-        """``n_sub`` sub-steps of ``dt`` from ``t0``.  The sub-step clock
-        ``t0 + i*dt`` runs at the state dtype's precision (>= float32)."""
-        fc = state_numpy_dtype(T.dtype)
-        t0f, dtf = fc(t0), fc(dt)
+        """``n_sub`` sub-steps of ``dt`` from ``t0`` on the clock of
+        ``clock``."""
+        tick = clock(T.dtype, dt, t0)
         for i in range(n_sub):
-            T = step1(T, prep, dt, float(t0f + fc(i) * dtf))
+            T = step1(T, prep, dt, *tick(i))
         return T
 
     return prepare, advance
@@ -261,7 +305,6 @@ class EventLoop:
         if self.interpass_T is not None:
             raise NotImplementedError("interpass dwell control is not "
                                       "ported to the PyTorch engine yet")
-        f = state_numpy_dtype(T.dtype)
         act = self.activation_times
         eps = 1e-12
         # event times come from the activation field's own values (one host
@@ -307,10 +350,12 @@ class EventLoop:
             seg = te - t
             if active_any:
                 n_sub = max(1, int(math.ceil(seg / self.dt_cap)))
-                # dt and the segment start at the state dtype, as the JAX
-                # loop passes them
-                T = self.advance(T, prep, float(f(seg / n_sub)), n_sub,
-                                 float(f(t)))
+                # dt and the segment start rounded to the STATE dtype, as
+                # the JAX loop passes them (:729-731): at bfloat16 both are
+                # bf16-quantised before the clock widens them.  Kept so, for
+                # parity with JAX, not corrected here.
+                T = self.advance(T, prep, round_to_state(seg / n_sub, T.dtype),
+                                 n_sub, round_to_state(t, T.dtype))
                 self.substeps += n_sub
             t = te
             if te in birth_set:

@@ -19,6 +19,13 @@ Example (on a CUDA machine):
     python -m adi_thermal_fields_tpu_torch.apps.waam_from_stl --stl part.stl \
         --dx_mm 1.0
 
+``--precision bfloat16`` stores the field at bfloat16 and solves at
+float32 (the kernels' bfloat16 entries: K4, K1, K2 or K3, K1 x3; with the
+varprop flags the g-stream tier K23-K26), rounding every store
+stochastically, seeded by the engine's step counter.  The JAX app rounds
+stochastically only on a TPU and warns elsewhere (:305-316); the port's
+rounding runs on every device, CPU included.
+
 ``--device`` defaults to ``cuda`` and the run raises when CUDA is absent;
 ``--device cpu`` runs the kernels' plain versions.  Flags of the JAX app
 that this port does not support yet exit with a message naming them.
@@ -112,6 +119,9 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def _reject_unsupported(args) -> None:
     """Exit with a message for flags this port does not support yet."""
+    bf16 = args.precision == "bfloat16"
+    varprop = (args.emissivity > 0 or args.latent_J_kg > 0
+               or args.melt_k_factor != 1.0)
     bad = [name for name, on in (
         ("--mesh", bool(args.mesh)),
         ("--checkpoint", bool(args.checkpoint)),
@@ -119,7 +129,13 @@ def _reject_unsupported(args) -> None:
         ("--save_vtk", args.save_vtk != 0),
         ("--history_t_crit", args.history_t_crit is not None),
         ("--interpass_T", args.interpass_T is not None),
-        ("--precision bfloat16", args.precision == "bfloat16")) if on]
+        # per-face films with variable properties run the classic varprop
+        # tier, whose bfloat16 entries (K5-K7, K19) are not ported
+        ("--precision bfloat16 on area-corrected films with variable "
+         "properties", bf16 and bool(args.corrected_bc) and varprop),
+        # the reference step cannot round stochastically
+        ("--precision bfloat16 with --implementation reference",
+         bf16 and args.implementation == "reference")) if on]
     if bad:
         raise SystemExit("not supported by the PyTorch port yet: "
                          + ", ".join(bad)
@@ -237,8 +253,8 @@ def run(args) -> dict:
     grid = CartesianGrid(nx, ny, nz, dx, dz=dz)
     mat = Material(args.rho, args.cp, args.k)
 
-    dtype = {"float32": torch.float32, "float64": torch.float64}[
-        args.precision]
+    dtype = {"float32": torch.float32, "float64": torch.float64,
+             "bfloat16": torch.bfloat16}[args.precision]
     bytes_T = grid.ncells * torch.empty((), dtype=dtype).element_size()
     log(f"field memory ~{fmt_bytes(bytes_T)} + mask {fmt_bytes(grid.ncells)}"
         f" on {device}", tag="mem")
@@ -313,7 +329,8 @@ def run(args) -> dict:
         grid, mat, implementation=args.implementation, device=device,
         dtype=dtype, theta=args.theta, t_inf=args.T_inf, robin_h=robin_h,
         k_table=k_table, cp_table=cp_table, emissivity=emissivity,
-        radiation_scale=rad_scale if emissivity is not None else None)
+        radiation_scale=rad_scale if emissivity is not None else None,
+        stochastic_rounding=dtype == torch.bfloat16)
     dmin = min(d)
     dt_cap = args.cfl * dmin * dmin / mat.alpha
     log(f"alpha={mat.alpha:.3e} m^2/s, dt_cap={dt_cap:.3e} s "
@@ -325,7 +342,9 @@ def run(args) -> dict:
     frames_meta = []
 
     def on_frame(t, T_d, active):
-        T_np = T_d.cpu().numpy()
+        # numpy has no bfloat16: read a bfloat16 field at float32
+        T_np = T_d.to(torch.promote_types(T_d.dtype, torch.float32)) \
+            .cpu().numpy()
         a_np = active.cpu().numpy()
         n_act = int(a_np.sum())
         tmax = float(np.nanmax(np.where(a_np, T_np, np.nan))) if n_act else 0.0

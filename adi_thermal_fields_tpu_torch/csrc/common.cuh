@@ -1,13 +1,14 @@
 // Shared helpers for the port's CUDA kernels (compiled for sm_90a).
 //
 // Every exported entry point has a plain C interface: pointers and the
-// stream come in as void*, scalars as double (rounded to the field type
+// stream come in as void*, scalars as double (rounded to the compute type
 // inside), sizes as int64.  The entry point selects the device, launches on
 // the caller's stream, allocates nothing, and returns cudaGetLastError() of
 // the launch (0 = success) so that the Python wrapper can raise.
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define ATF_API extern "C" __attribute__((visibility("default")))
@@ -16,6 +17,52 @@ namespace atf {
 
 constexpr int kF32 = 0;
 constexpr int kF64 = 1;
+constexpr int kBF16 = 2;   // bfloat16 storage, float32 solve
+
+// The state's storage type S and the solve's compute type C: loads widen,
+// stores narrow.  A bfloat16 store rounds to nearest for a negative `key`,
+// else stochastically with the JAX bit trick (dist/cartesian_pallas.py
+// _stoch_round_bf16): add 16 random low bits to the float32 pattern and
+// truncate.  The bits are sr_bits(key, idx), a counter-based hash of the
+// key (seed and pass, folded on the host: solvers/rounding.py sr_key) and
+// the cell's linear index in the natural layout -- independent of the
+// block shape and the launch order, so the plain version (round_bf16)
+// repeats it bit for bit from the same float32 value.
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7feb352du;
+  x ^= x >> 15;
+  x *= 0x846ca68bu;
+  x ^= x >> 16;
+  return x;
+}
+
+__device__ __forceinline__ uint32_t sr_bits(int64_t key, int64_t idx) {
+  const uint64_t u = (uint64_t)idx;
+  return mix32(mix32((uint32_t)u ^ (uint32_t)key) + (uint32_t)(u >> 32));
+}
+
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ double ld(const double* p) { return *p; }
+
+__device__ __forceinline__ void st(float* p, float v, int64_t, int64_t) {
+  *p = v;
+}
+__device__ __forceinline__ void st(double* p, double v, int64_t, int64_t) {
+  *p = v;
+}
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v, int64_t key,
+                                   int64_t idx) {
+  if (key < 0) {
+    *p = __float2bfloat16_rn(v);
+    return;
+  }
+  const uint32_t b = __float_as_uint(v) + (sr_bits(key, idx) & 0xffffu);
+  *p = __ushort_as_bfloat16((unsigned short)(b >> 16));
+}
 
 __host__ __device__ inline int64_t cdiv(int64_t a, int64_t b) {
   return (a + b - 1) / b;
@@ -154,6 +201,31 @@ inline void allow_dynamic_smem(K kernel, size_t bytes) {
       __VA_ARGS__;                                                        \
     } else if ((dtype) == atf::kF64) {                                    \
       using T = double;                                                   \
+      __VA_ARGS__;                                                        \
+    } else {                                                              \
+      return (int)cudaErrorInvalidValue;                                  \
+    }                                                                     \
+    return (int)cudaGetLastError();                                       \
+  } while (0)
+
+// The same for the kernels with a bfloat16 entry: binds the storage type
+// `S` and the compute type `C` (float32, float64, or bfloat16 solved at
+// float32).
+#define ATF_DISPATCH_STATE(dtype, device, ...)                            \
+  do {                                                                    \
+    cudaError_t set_err = cudaSetDevice(device);                          \
+    if (set_err != cudaSuccess) return (int)set_err;                      \
+    if ((dtype) == atf::kF32) {                                           \
+      using S = float;                                                    \
+      using C = float;                                                    \
+      __VA_ARGS__;                                                        \
+    } else if ((dtype) == atf::kF64) {                                    \
+      using S = double;                                                   \
+      using C = double;                                                   \
+      __VA_ARGS__;                                                        \
+    } else if ((dtype) == atf::kBF16) {                                   \
+      using S = __nv_bfloat16;                                            \
+      using C = float;                                                    \
       __VA_ARGS__;                                                        \
     } else {                                                              \
       return (int)cudaErrorInvalidValue;                                  \

@@ -16,12 +16,19 @@
 //   source (rhs += dt*qflux) and the Dirichlet value (rhs = dir_val on
 //   pinned rows, cf = 0 there) as fused_sweep_axis0_v2 does (:714-720).
 //
+// Types: the field (rhs, coeff, qflux, dir_val, out) is stored as S and
+// solved in C (common.cuh ATF_DISPATCH_STATE): float32 and float64 solve
+// at their own type; a bfloat16 field is widened on load, solved at
+// float32 (c' and d' stay float32) and narrowed on the final store, to
+// nearest or stochastically (`key`; the JAX kernels' rng_seed), at the
+// cell's natural linear index.
+//
 // What bounds them on the H100: memory.  The TPU kernels keep c' and d' in
-// VMEM and move 9-13 B/cell.  Here:
+// VMEM and move 9-13 B/cell (5-7 at bfloat16).  Here:
 //   K1: one thread per pencil; threads adjacent in the batch read adjacent
-//       addresses, so every row load is coalesced.  c' lives in the output
-//       buffer and d' in a scratch tensor (global memory), and back
-//       substitution overwrites c' with x: ~25-29 B/cell, no shared memory.
+//       addresses, so every row load is coalesced.  c' and d' live in
+//       scratch tensors of the compute type (global memory), and back
+//       substitution writes x: ~25-29 B/cell at float32, ~21 at bfloat16.
 //   K2: one thread per pencil would make every load strided.  A block of
 //       one warp owns 32 pencils and stages [32 pencils x 32 rows] tiles of
 //       rhs and code through shared memory with coalesced loads; each lane
@@ -37,51 +44,54 @@
 
 namespace {
 
-template <typename T>
+// zxy: the field is the (z, x, y) permutation of the natural field (B1 = 1,
+// n = nz): the natural index of row i of pencil p is p*n + i.
+template <typename S, typename C>
 __global__ void __launch_bounds__(256) sweep_strided_kernel(
-    const T* __restrict__ rhs, const uint8_t* __restrict__ code,
-    const T* __restrict__ coeff, const T* __restrict__ qflux,
-    const T* __restrict__ dirv, T* __restrict__ out, T* __restrict__ dpbuf,
-    int64_t B1, int64_t n, int64_t B2, T tg, T dt, T t_inf, T rob_c) {
+    const S* __restrict__ rhs, const uint8_t* __restrict__ code,
+    const S* __restrict__ coeff, const S* __restrict__ qflux,
+    const S* __restrict__ dirv, S* __restrict__ out, C* __restrict__ cpbuf,
+    C* __restrict__ dpbuf, int64_t B1, int64_t n, int64_t B2, C tg, C dt,
+    C t_inf, C rob_c, int64_t key, int zxy) {
   const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= B1 * B2) return;
   const int64_t b1 = p / B2;
   const int64_t base = b1 * n * B2 + (p - b1 * B2);
   const bool has_pin = dirv != nullptr;
 
-  T cp = T(0), dp = T(0);
+  C cp = C(0), dp = C(0);
   for (int64_t i = 0; i < n; ++i) {
     const int64_t off = base + i * B2;
     const unsigned c = code[off];
-    const T low = atf::bit<T>(c, atf::kLow);
-    const T high = atf::bit<T>(c, atf::kHigh);
+    const C low = atf::bit<C>(c, atf::kLow);
+    const C high = atf::bit<C>(c, atf::kHigh);
     const bool pin = has_pin && (c & atf::kPin);
-    T r = rhs[off];
-    if (qflux != nullptr) r = r + dt * qflux[off];
-    if (pin) r = dirv[off];
-    T cf;
+    C r = atf::ld(rhs + off);
+    if (qflux != nullptr) r = r + dt * atf::ld(qflux + off);
+    if (pin) r = atf::ld(dirv + off);
+    C cf;
     if (coeff != nullptr) {
-      cf = pin ? T(0) : coeff[off];
+      cf = pin ? C(0) : atf::ld(coeff + off);
     } else {
-      cf = rob_c * ((T(2) - low - high) * atf::bit<T>(c, atf::kInMask));
+      cf = rob_c * ((C(2) - low - high) * atf::bit<C>(c, atf::kInMask));
     }
-    const T a = -tg * low;
-    const T cc = -tg * high;
-    const T dtcf = dt * cf;
-    T b = T(1) + tg * (low + high) + dtcf;
-    if (pin) b = T(1);
-    const T dd = r + dtcf * t_inf;
-    const T inv = T(1) / (b - a * cp);
+    const C a = -tg * low;
+    const C cc = -tg * high;
+    const C dtcf = dt * cf;
+    C b = C(1) + tg * (low + high) + dtcf;
+    if (pin) b = C(1);
+    const C dd = r + dtcf * t_inf;
+    const C inv = C(1) / (b - a * cp);
     cp = cc * inv;
     dp = (dd - a * dp) * inv;
-    out[off] = cp;
+    cpbuf[off] = cp;
     dpbuf[off] = dp;
   }
-  T x = T(0);
+  C x = C(0);
   for (int64_t i = n - 1; i >= 0; --i) {
     const int64_t off = base + i * B2;
-    x = dpbuf[off] - out[off] * x;
-    out[off] = x;
+    x = dpbuf[off] - cpbuf[off] * x;
+    atf::st(out + off, x, key, zxy ? p * n + i : off);
   }
 }
 
@@ -89,20 +99,20 @@ constexpr int kPencils = 32;     // pencils per K2 block (one warp)
 constexpr int kChunk = 32;       // rows per staged tile
 constexpr int kPitch = kChunk + 1;  // padded tile row: conflict-free lanes
 
-template <typename T>
+template <typename C>
 constexpr size_t z_smem_bytes() {
-  // rhs / c' / x tile and d' tile (T), then the code tile (bytes)
-  return 2 * sizeof(T) * kPencils * kPitch + kPencils * kPitch;
+  // rhs / c' / x tile and d' tile (C), then the code tile (bytes)
+  return 2 * sizeof(C) * kPencils * kPitch + kPencils * kPitch;
 }
 
-template <typename T>
+template <typename S, typename C>
 __global__ void __launch_bounds__(kPencils) sweep_z_kernel(
-    const T* __restrict__ rhs, const uint8_t* __restrict__ code,
-    T* __restrict__ out, T* __restrict__ dpbuf, int64_t npen, int64_t n,
-    T tg, T dt, T t_inf, T rob_c) {
+    const S* __restrict__ rhs, const uint8_t* __restrict__ code,
+    S* __restrict__ out, C* __restrict__ cpbuf, C* __restrict__ dpbuf,
+    int64_t npen, int64_t n, C tg, C dt, C t_inf, C rob_c, int64_t key) {
   extern __shared__ __align__(16) unsigned char atf_smem[];
-  T* tile = reinterpret_cast<T*>(atf_smem);         // rhs, then c', then x
-  T* tile2 = tile + kPencils * kPitch;              // d'
+  C* tile = reinterpret_cast<C*>(atf_smem);         // rhs, then c', then x
+  C* tile2 = tile + kPencils * kPitch;              // d'
   uint8_t* ctile = reinterpret_cast<uint8_t*>(tile2 + kPencils * kPitch);
 
   const int lane = threadIdx.x;
@@ -111,13 +121,13 @@ __global__ void __launch_bounds__(kPencils) sweep_z_kernel(
 
   // forward elimination, chunk by chunk: stage rhs and code (lane = row),
   // recur (lane = pencil), write c' and d' back (lane = row)
-  T cp = T(0), dp = T(0);
+  C cp = C(0), dp = C(0);
   for (int64_t k0 = 0; k0 < n; k0 += kChunk) {
     const int cz = (int)atf::imin(kChunk, n - k0);
     if (lane < cz) {
       for (int q = 0; q < np; ++q) {
         const int64_t g = (pen0 + q) * n + k0 + lane;
-        tile[q * kPitch + lane] = rhs[g];
+        tile[q * kPitch + lane] = atf::ld(rhs + g);
         ctile[q * kPitch + lane] = code[g];
       }
     }
@@ -125,17 +135,17 @@ __global__ void __launch_bounds__(kPencils) sweep_z_kernel(
     if (lane < np) {
       for (int j = 0; j < cz; ++j) {
         const unsigned c = ctile[lane * kPitch + j];
-        const T low = atf::bit<T>(c, atf::kLow);
-        const T high = atf::bit<T>(c, atf::kHigh);
-        const T cf =
-            rob_c * ((T(2) - low - high) * atf::bit<T>(c, atf::kInMask));
-        const T a = -tg * low;
-        const T cc = -tg * high;
-        const T dtcf = dt * cf;
-        T b = T(1) + tg * (low + high) + dtcf;
-        if (c & atf::kPin) b = T(1);
-        const T dd = tile[lane * kPitch + j] + dtcf * t_inf;
-        const T inv = T(1) / (b - a * cp);
+        const C low = atf::bit<C>(c, atf::kLow);
+        const C high = atf::bit<C>(c, atf::kHigh);
+        const C cf =
+            rob_c * ((C(2) - low - high) * atf::bit<C>(c, atf::kInMask));
+        const C a = -tg * low;
+        const C cc = -tg * high;
+        const C dtcf = dt * cf;
+        C b = C(1) + tg * (low + high) + dtcf;
+        if (c & atf::kPin) b = C(1);
+        const C dd = tile[lane * kPitch + j] + dtcf * t_inf;
+        const C inv = C(1) / (b - a * cp);
         cp = cc * inv;
         dp = (dd - a * dp) * inv;
         tile[lane * kPitch + j] = cp;
@@ -146,7 +156,7 @@ __global__ void __launch_bounds__(kPencils) sweep_z_kernel(
     if (lane < cz) {
       for (int q = 0; q < np; ++q) {
         const int64_t g = (pen0 + q) * n + k0 + lane;
-        out[g] = tile[q * kPitch + lane];
+        cpbuf[g] = tile[q * kPitch + lane];
         dpbuf[g] = tile2[q * kPitch + lane];
       }
     }
@@ -154,13 +164,13 @@ __global__ void __launch_bounds__(kPencils) sweep_z_kernel(
   }
 
   // back substitution, last chunk first
-  T x = T(0);
+  C x = C(0);
   for (int64_t k0 = (n - 1) / kChunk * kChunk; k0 >= 0; k0 -= kChunk) {
     const int cz = (int)atf::imin(kChunk, n - k0);
     if (lane < cz) {
       for (int q = 0; q < np; ++q) {
         const int64_t g = (pen0 + q) * n + k0 + lane;
-        tile[q * kPitch + lane] = out[g];
+        tile[q * kPitch + lane] = cpbuf[g];
         tile2[q * kPitch + lane] = dpbuf[g];
       }
     }
@@ -174,41 +184,42 @@ __global__ void __launch_bounds__(kPencils) sweep_z_kernel(
     __syncwarp();
     if (lane < cz) {
       for (int q = 0; q < np; ++q) {
-        out[(pen0 + q) * n + k0 + lane] = tile[q * kPitch + lane];
+        const int64_t g = (pen0 + q) * n + k0 + lane;
+        atf::st(out + g, tile[q * kPitch + lane], key, g);
       }
     }
     __syncwarp();
   }
 }
 
-template <typename T>
+template <typename S, typename C>
 void launch_sweep_strided(const void* rhs, const void* code,
                           const void* coeff, const void* qflux,
-                          const void* dirv, void* out, void* scratch,
-                          int64_t B1, int64_t n, int64_t B2, double tg,
-                          double dt, double t_inf, double rob_c,
-                          cudaStream_t stream) {
+                          const void* dirv, void* out, void* cpbuf,
+                          void* dpbuf, int64_t B1, int64_t n, int64_t B2,
+                          double tg, double dt, double t_inf, double rob_c,
+                          int64_t key, int zxy, cudaStream_t stream) {
   const int threads = 256;
   const int64_t blocks = atf::cdiv(B1 * B2, threads);
-  sweep_strided_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const T*>(rhs), static_cast<const uint8_t*>(code),
-      static_cast<const T*>(coeff), static_cast<const T*>(qflux),
-      static_cast<const T*>(dirv), static_cast<T*>(out),
-      static_cast<T*>(scratch), B1, n, B2, (T)tg, (T)dt, (T)t_inf,
-      (T)rob_c);
+  sweep_strided_kernel<S, C><<<(unsigned)blocks, threads, 0, stream>>>(
+      static_cast<const S*>(rhs), static_cast<const uint8_t*>(code),
+      static_cast<const S*>(coeff), static_cast<const S*>(qflux),
+      static_cast<const S*>(dirv), static_cast<S*>(out),
+      static_cast<C*>(cpbuf), static_cast<C*>(dpbuf), B1, n, B2, (C)tg,
+      (C)dt, (C)t_inf, (C)rob_c, key, zxy);
 }
 
-template <typename T>
+template <typename S, typename C>
 void launch_sweep_z(const void* rhs, const void* code, void* out,
-                    void* scratch, int64_t npen, int64_t n, double tg,
-                    double dt, double t_inf, double rob_c,
-                    cudaStream_t stream) {
+                    void* cpbuf, void* dpbuf, int64_t npen, int64_t n,
+                    double tg, double dt, double t_inf, double rob_c,
+                    int64_t key, cudaStream_t stream) {
   const int64_t blocks = atf::cdiv(npen, kPencils);
-  sweep_z_kernel<T><<<(unsigned)blocks, kPencils, z_smem_bytes<T>(),
-                      stream>>>(
-      static_cast<const T*>(rhs), static_cast<const uint8_t*>(code),
-      static_cast<T*>(out), static_cast<T*>(scratch), npen, n, (T)tg,
-      (T)dt, (T)t_inf, (T)rob_c);
+  sweep_z_kernel<S, C><<<(unsigned)blocks, kPencils, z_smem_bytes<C>(),
+                         stream>>>(
+      static_cast<const S*>(rhs), static_cast<const uint8_t*>(code),
+      static_cast<S*>(out), static_cast<C*>(cpbuf), static_cast<C*>(dpbuf),
+      npen, n, (C)tg, (C)dt, (C)t_inf, (C)rob_c, key);
 }
 
 }  // namespace
@@ -216,22 +227,26 @@ void launch_sweep_z(const void* rhs, const void* code, void* out,
 ATF_API int atf_sweep_strided(int dtype, int device, const void* rhs,
                               const void* code, const void* coeff,
                               const void* qflux, const void* dirv, void* out,
-                              void* scratch, int64_t B1, int64_t n,
-                              int64_t B2, double tg, double dt, double t_inf,
-                              double rob_c, void* stream) {
-  ATF_DISPATCH(dtype, device,
-               launch_sweep_strided<T>(rhs, code, coeff, qflux, dirv, out,
-                                       scratch, B1, n, B2, tg, dt, t_inf,
-                                       rob_c, (cudaStream_t)stream));
+                              void* cpbuf, void* dpbuf, int64_t B1,
+                              int64_t n, int64_t B2, double tg, double dt,
+                              double t_inf, double rob_c, int64_t key,
+                              int zxy, void* stream) {
+  ATF_DISPATCH_STATE(dtype, device,
+                     launch_sweep_strided<S, C>(
+                         rhs, code, coeff, qflux, dirv, out, cpbuf, dpbuf,
+                         B1, n, B2, tg, dt, t_inf, rob_c, key, zxy,
+                         (cudaStream_t)stream));
 }
 
 ATF_API int atf_sweep_z(int dtype, int device, const void* rhs,
-                        const void* code, void* out, void* scratch,
-                        int64_t npen, int64_t n, double tg, double dt,
-                        double t_inf, double rob_c, void* stream) {
-  ATF_DISPATCH(dtype, device,
-               launch_sweep_z<T>(rhs, code, out, scratch, npen, n, tg, dt,
-                                 t_inf, rob_c, (cudaStream_t)stream));
+                        const void* code, void* out, void* cpbuf,
+                        void* dpbuf, int64_t npen, int64_t n, double tg,
+                        double dt, double t_inf, double rob_c, int64_t key,
+                        void* stream) {
+  ATF_DISPATCH_STATE(dtype, device,
+                     launch_sweep_z<S, C>(rhs, code, out, cpbuf, dpbuf, npen,
+                                          n, tg, dt, t_inf, rob_c, key,
+                                          (cudaStream_t)stream));
 }
 
 ATF_API const char* atf_error_string(int err) {

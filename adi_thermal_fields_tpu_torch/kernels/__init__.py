@@ -13,7 +13,18 @@ from .build import build_library, load_library
 
 __all__ = ["use_kernel", "check_kernel_inputs", "check_vectors", "dtype_code",
            "raise_on_error", "ptr", "stream_ptr", "build_library",
-           "load_library"]
+           "load_library", "FLOAT_DTYPES", "STATE_DTYPES", "compute_dtype"]
+
+# field types of the kernels: every kernel takes float32 and float64; the
+# kernels with a bfloat16 entry (K1-K4, K23-K26) also take bfloat16
+# states, solved at float32 (csrc/common.cuh ATF_DISPATCH_STATE)
+FLOAT_DTYPES = (torch.float32, torch.float64)
+STATE_DTYPES = FLOAT_DTYPES + (torch.bfloat16,)
+
+
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The solve's type for a field type: float32 for bfloat16."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
 def use_kernel(*tensors: torch.Tensor | None) -> bool:
@@ -37,18 +48,21 @@ def use_kernel(*tensors: torch.Tensor | None) -> bool:
     raise ValueError(f"no kernel or plain version for device {dev}")
 
 
-def check_kernel_inputs(name: str, ref: torch.Tensor, code: torch.Tensor,
-                        *fields: torch.Tensor | None) -> None:
-    """Validate what the CUDA kernels take: a contiguous float32/float64
-    ``ref``, a contiguous uint8 ``code`` of its shape, and optional fields
-    of its dtype and shape."""
-    if ref.dtype not in (torch.float32, torch.float64):
+def check_kernel_inputs(name: str, ref: torch.Tensor,
+                        code: torch.Tensor | None,
+                        *fields: torch.Tensor | None,
+                        dtypes: tuple = FLOAT_DTYPES) -> None:
+    """Validate what the CUDA kernels take: a contiguous ``ref`` of one of
+    ``dtypes``, a contiguous uint8 ``code`` of its shape (None for a kernel
+    without one), and optional fields of its dtype and shape."""
+    if ref.dtype not in dtypes:
         raise TypeError(f"{name}: field dtype {ref.dtype} is not supported "
-                        "(float32 or float64)")
-    if code.dtype != torch.uint8:
+                        f"({', '.join(str(d) for d in dtypes)})")
+    if code is not None and code.dtype != torch.uint8:
         raise TypeError(f"{name}: code must be uint8, got {code.dtype}")
     for label, t, dtype in (("field", ref, ref.dtype),
-                            ("code", code, torch.uint8),
+                            *((("code", code, torch.uint8),)
+                              if code is not None else ()),
                             *(("input", f, ref.dtype) for f in fields
                               if f is not None)):
         if t.shape != ref.shape:
@@ -72,7 +86,7 @@ def check_vectors(name: str, ref: torch.Tensor, n: int,
 
 def dtype_code(dtype: torch.dtype) -> int:
     """The C entry points' field-type code."""
-    return {torch.float32: 0, torch.float64: 1}[dtype]
+    return {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}[dtype]
 
 
 def ptr(t: torch.Tensor | None):

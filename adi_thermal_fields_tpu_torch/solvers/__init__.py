@@ -1,5 +1,5 @@
-"""Solvers: the plain Thomas solves, the spectral phi solve and the
-twenty-two hand-written kernels.
+"""Solvers: the plain Thomas solves, the spectral phi solve, the bfloat16
+stores and the twenty-six hand-written kernels.
 
 Constant properties: K1 ``sweep_strided`` and K2 ``sweep_z`` (sweeps.py),
 K3 ``theta_rhs`` (stencil.py), K4 ``fused_theta_sweep`` (theta_sweep.py).
@@ -7,7 +7,11 @@ Variable properties: K5 ``varprop_fields``, K6 ``varprop_theta_sweep``,
 K7 ``varprop_sweep_y`` and its x entry ``varprop_sweep_x`` (counted as
 "K7x"), K19 ``varprop_sweep_z`` and K20 ``varprop_theta_rhs``
 (varprop.py), K8 ``vp2_sweep_z`` (vp2.py).  Field-coefficient solves: K21
-``tridiag_fields`` and K22 ``cyclic_fields`` (fields.py).
+``tridiag_fields`` and K22 ``cyclic_fields`` (fields.py).  The g-stream
+varprop tier: K23 ``gstream_fields``, K24 ``gstream_theta_sweep``, K25
+``gstream_sweep_y`` and K26 ``gstream_sweep_z`` (gstreams.py).  K1-K4 and
+K23-K26 take bfloat16 states (float32 solves, stores to nearest or
+stochastic: rounding.py).
 Masked-Robin cylindrical step: K9 ``masked_sweep_strided``, K10
 ``masked_sweep_z`` and K11 ``masked_cyclic_phi`` (masked.py).
 Unmasked cylindrical step: K12 ``const_sweep_strided``, K13
@@ -15,13 +19,19 @@ Unmasked cylindrical step: K12 ``const_sweep_strided``, K13
 Cylindrical variable-property step: K15 ``vp2_sweep_strided``, K16
 ``vp2_cyclic_phi`` and K8's general form (vp2.py), K17
 ``vp_fields_sweep_strided`` and K18 ``vp_fields_cyclic_phi`` (vpfields.py).
-Each wrapper counts its CUDA launches in a ``launches`` attribute.
+Each wrapper counts its CUDA launches in a ``launches`` attribute; K1-K4
+count their bfloat16 entries apart, in ``<wrapper>.bf16.launches``
+("K1b"-"K4b").
 """
 from .const_sweeps import (const_sweep_strided, const_sweep_strided_plain,
                            const_sweep_z, const_sweep_z_plain,
                            cyclic_const_phi, cyclic_const_phi_plain)
 from .fields import (cyclic_fields, cyclic_fields_plain, tridiag_fields,
                      tridiag_fields_plain)
+from .gstreams import (gstream_fields, gstream_fields_plain, gstream_sweep_y,
+                       gstream_sweep_y_plain, gstream_sweep_z,
+                       gstream_sweep_z_plain, gstream_theta_sweep,
+                       gstream_theta_sweep_plain)
 from .masked import (masked_cyclic_phi, masked_cyclic_phi_plain,
                      masked_sweep_strided, masked_sweep_strided_plain,
                      masked_sweep_z, masked_sweep_z_plain)
@@ -54,7 +64,12 @@ KERNELS = {"K1": sweep_strided, "K2": sweep_z, "K3": theta_rhs,
            "K16": vp2_cyclic_phi, "K17": vp_fields_sweep_strided,
            "K18": vp_fields_cyclic_phi, "K7x": varprop_sweep_x,
            "K19": varprop_sweep_z, "K20": varprop_theta_rhs,
-           "K21": tridiag_fields, "K22": cyclic_fields}
+           "K21": tridiag_fields, "K22": cyclic_fields,
+           "K23": gstream_fields, "K24": gstream_theta_sweep,
+           "K25": gstream_sweep_y, "K26": gstream_sweep_z,
+           # the bfloat16 entries of K1-K4, counted apart
+           "K1b": sweep_strided.bf16, "K2b": sweep_z.bf16,
+           "K3b": theta_rhs.bf16, "K4b": fused_theta_sweep.bf16}
 
 __all__ = ["thomas", "cyclic_thomas", "sweep_code", "sweep_strided", "sweep_strided_plain",
            "sweep_z", "sweep_z_plain", "theta_rhs", "theta_rhs_plain",
@@ -78,8 +93,11 @@ __all__ = ["thomas", "cyclic_thomas", "sweep_code", "sweep_strided", "sweep_stri
            "varprop_theta_rhs_plain", "tridiag_fields",
            "tridiag_fields_plain", "cyclic_fields", "cyclic_fields_plain",
            "phi_eigenvalue_factors",
-           "phi_solve_spectral", "KERNELS", "launch_counts",
-           "reset_launch_counts"]
+           "phi_solve_spectral", "gstream_fields", "gstream_fields_plain",
+           "gstream_theta_sweep", "gstream_theta_sweep_plain",
+           "gstream_sweep_y", "gstream_sweep_y_plain", "gstream_sweep_z",
+           "gstream_sweep_z_plain", "KERNELS",
+           "launch_counts", "reset_launch_counts"]
 
 
 def launch_counts() -> dict[str, int]:

@@ -10,11 +10,15 @@ TPU kernel's order.  Void cells return T unchanged.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 
 from ..bc.faces import shift_in
-from ..kernels import (check_kernel_inputs, dtype_code, load_library, ptr,
-                       raise_on_error, stream_ptr, use_kernel)
+from ..kernels import (STATE_DTYPES, check_kernel_inputs, dtype_code,
+                       load_library, ptr, raise_on_error, stream_ptr,
+                       use_kernel)
+from .rounding import sr_key, to_state, widen
 
 __all__ = ["theta_rhs", "theta_rhs_plain"]
 
@@ -29,8 +33,11 @@ def _inv3(inv_d2) -> tuple[float, float, float]:
     return iv
 
 
-def theta_rhs_plain(T, mask_u8, c, inv_d2):
-    """Plain version of K3 (any device)."""
+def theta_rhs_plain(T, mask_u8, c, inv_d2, *, rng_seed=None, rng_offset=0):
+    """Plain version of K3 (any device); a bfloat16 T at float32, R0
+    stored back by ``to_state``."""
+    dtype = T.dtype
+    T = widen(T)
     M = (mask_u8 != 0).to(T.dtype)
     acc = None
     for ax, iv in enumerate(_inv3(inv_d2)):
@@ -40,29 +47,36 @@ def theta_rhs_plain(T, mask_u8, c, inv_d2):
                                                               fill=0.0)
         term = (s - (ml + mh) * T) * iv
         acc = term if acc is None else acc + term
-    return T + (c * M) * acc
+    return to_state(T + (c * M) * acc, dtype, sr_key(rng_seed, rng_offset))
 
 
 def theta_rhs(T: torch.Tensor, mask_u8: torch.Tensor, c: float,
-              inv_d2) -> torch.Tensor:
+              inv_d2, *, rng_seed: int | None = None,
+              rng_offset: int = 0) -> torch.Tensor:
     """K3: ``R0 = T + c*(Lx+Ly+Lz) T`` with mask-aware Laplacians.
 
     ``c`` is ``dt*kappa*(1-theta)``; ``inv_d2`` a scalar ``1/dx^2`` or the
     per-axis triple; ``mask_u8`` the solid mask as uint8 (nonzero =
-    in-mask)."""
+    in-mask).  A bfloat16 T is computed at float32 and R0 rounded to
+    nearest, or stochastically with ``rng_seed`` / ``rng_offset``
+    (solvers/rounding.py)."""
     if not use_kernel(T, mask_u8):
-        return theta_rhs_plain(T, mask_u8, c, inv_d2)
+        return theta_rhs_plain(T, mask_u8, c, inv_d2, rng_seed=rng_seed,
+                               rng_offset=rng_offset)
     if T.dim() != 3:
         raise ValueError(f"theta_rhs: field must be 3-D, got {T.dim()}")
-    check_kernel_inputs("theta_rhs", T, mask_u8)
+    check_kernel_inputs("theta_rhs", T, mask_u8, dtypes=STATE_DTYPES)
     ivx, ivy, ivz = _inv3(inv_d2)
     out = torch.empty_like(T)
     err = load_library().atf_theta_rhs(
         dtype_code(T.dtype), T.device.index, ptr(T), ptr(mask_u8), ptr(out),
-        *T.shape, c, ivx, ivy, ivz, stream_ptr(T.device))
+        *T.shape, c, ivx, ivy, ivz, sr_key(rng_seed, rng_offset),
+        stream_ptr(T.device))
     raise_on_error(err, "theta_rhs")
-    theta_rhs.launches += 1
+    counter = theta_rhs.bf16 if T.dtype == torch.bfloat16 else theta_rhs
+    counter.launches += 1
     return out
 
 
 theta_rhs.launches = 0
+theta_rhs.bf16 = SimpleNamespace(launches=0)   # the bfloat16 entry

@@ -18,14 +18,23 @@ identity rows that carry the rhs through.
 Each wrapper dispatches by device (kernels/__init__.py): CPU tensors run
 the plain version (``thomas`` plus tensor ops), CUDA tensors launch the
 kernel and count the launch in the wrapper's ``launches`` attribute.
+bfloat16 fields solve at float32 (c' and d' too) and store bfloat16,
+rounded to nearest or, with ``rng_seed``, stochastically
+(solvers/rounding.py), as the JAX kernels' bf16 mode does.
 """
 from __future__ import annotations
+
+from types import SimpleNamespace
+
+from types import SimpleNamespace
 
 import torch
 
 from ..bc.faces import shift_in
-from ..kernels import (check_kernel_inputs, dtype_code, load_library, ptr,
-                       raise_on_error, stream_ptr, use_kernel)
+from ..kernels import (STATE_DTYPES, check_kernel_inputs, compute_dtype,
+                       dtype_code, load_library, ptr, raise_on_error,
+                       stream_ptr, use_kernel)
+from .rounding import natural_index, sr_key, to_state, widen
 from .thomas import thomas
 
 __all__ = ["sweep_code", "sweep_strided", "sweep_strided_plain", "sweep_z",
@@ -97,14 +106,29 @@ def _solve_plain(rhs, code, axis, tg, dt, t_inf, coeff, rob_c, pin):
         pinf = pin.to(dtype)
         b = b * (1.0 - pinf) + pinf
     dd = rhs + dtcf * t_inf
-    return thomas(a, b, c, dd).movedim(0, axis).contiguous()
+    return thomas(a, b, c, dd, reciprocal=True).movedim(0, axis).contiguous()
+
+
+def _zxy_index(shape, device) -> torch.Tensor:
+    """Natural linear indices of the cells of a (z, x, y) permuted field
+    of ``shape`` = (nz, nx, ny)."""
+    nz, nx, ny = shape
+    return natural_index((nx, ny, nz), device).permute(2, 0, 1)
 
 
 def sweep_strided_plain(rhs, code, tg, dt, t_inf, *, axis, coeff=None,
-                        rob_c=None, qflux=None, dir_val=None):
-    """Plain version of K1 (any device)."""
+                        rob_c=None, qflux=None, dir_val=None,
+                        rng_seed=None, rng_offset=0, zxy=False):
+    """Plain version of K1 (any device).  A bfloat16 field is solved at
+    float32 and stored back by ``to_state``."""
+    dtype = rhs.dtype
+    rhs, coeff, qflux, dir_val = (widen(t) for t in (rhs, coeff, qflux,
+                                                     dir_val))
     rhs, pin = _fold_rhs(rhs, code, dt, qflux, dir_val)
-    return _solve_plain(rhs, code, axis, tg, dt, t_inf, coeff, rob_c, pin)
+    x = _solve_plain(rhs, code, axis, tg, dt, t_inf, coeff, rob_c, pin)
+    idx = (_zxy_index(x.shape, x.device)
+           if zxy and dtype == torch.bfloat16 else None)
+    return to_state(x, dtype, sr_key(rng_seed, rng_offset), idx)
 
 
 def sweep_strided(rhs: torch.Tensor, code: torch.Tensor, tg: float,
@@ -112,65 +136,90 @@ def sweep_strided(rhs: torch.Tensor, code: torch.Tensor, tg: float,
                   coeff: torch.Tensor | None = None,
                   rob_c: float | None = None,
                   qflux: torch.Tensor | None = None,
-                  dir_val: torch.Tensor | None = None) -> torch.Tensor:
+                  dir_val: torch.Tensor | None = None,
+                  rng_seed: int | None = None, rng_offset: int = 0,
+                  zxy: bool = False) -> torch.Tensor:
     """K1: masked sweep along ``axis`` (0 or 1) of a C-contiguous 3-D field.
 
     ``coeff`` (field plan) or the scalar ``rob_c`` (plan-lite) gives the
     Robin sink; ``qflux`` and ``dir_val`` are folded into the rhs.  The
     field plan's z sweep calls this on the (z, x, y) permuted field with
-    ``axis=0``."""
+    ``axis=0`` and ``zxy=True``.  float32 and float64 fields solve at their
+    type; a bfloat16 field (coefficient fields bfloat16 too) solves at
+    float32 and rounds its result to nearest, or stochastically with
+    ``rng_seed`` (the step counter) and ``rng_offset`` (the pass), at each
+    cell's natural index (solvers/rounding.py)."""
     if axis not in (0, 1):
         raise ValueError(f"sweep_strided solves along axis 0 or 1, not {axis}")
     if coeff is None and rob_c is None:
         raise ValueError("plan-lite sweep (coeff=None) requires rob_c")
+    if zxy and axis != 0:
+        raise ValueError("sweep_strided: zxy needs axis 0")
     if not use_kernel(rhs, code, coeff, qflux, dir_val):
         return sweep_strided_plain(rhs, code, tg, dt, t_inf, axis=axis,
                                    coeff=coeff, rob_c=rob_c, qflux=qflux,
-                                   dir_val=dir_val)
+                                   dir_val=dir_val, rng_seed=rng_seed,
+                                   rng_offset=rng_offset, zxy=zxy)
     if rhs.dim() != 3:
         raise ValueError(f"sweep_strided: field must be 3-D, got {rhs.dim()}")
-    check_kernel_inputs("sweep_strided", rhs, code, coeff, qflux, dir_val)
+    check_kernel_inputs("sweep_strided", rhs, code, coeff, qflux, dir_val,
+                        dtypes=STATE_DTYPES)
     s0, s1, s2 = rhs.shape
     B1, n, B2 = (1, s0, s1 * s2) if axis == 0 else (s0, s1, s2)
     out = torch.empty_like(rhs)
-    scratch = torch.empty_like(rhs)
+    cdt = compute_dtype(rhs.dtype)
+    cpbuf = torch.empty(rhs.shape, dtype=cdt, device=rhs.device)
+    dpbuf = torch.empty(rhs.shape, dtype=cdt, device=rhs.device)
     err = load_library().atf_sweep_strided(
         dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(code),
-        ptr(coeff), ptr(qflux), ptr(dir_val), ptr(out), ptr(scratch),
-        B1, n, B2, tg, dt, t_inf, 0.0 if rob_c is None else rob_c,
-        stream_ptr(rhs.device))
+        ptr(coeff), ptr(qflux), ptr(dir_val), ptr(out), ptr(cpbuf),
+        ptr(dpbuf), B1, n, B2, tg, dt, t_inf, 0.0 if rob_c is None else rob_c,
+        sr_key(rng_seed, rng_offset), int(zxy), stream_ptr(rhs.device))
     raise_on_error(err, "sweep_strided")
-    sweep_strided.launches += 1
+    counter = (sweep_strided.bf16 if rhs.dtype == torch.bfloat16
+               else sweep_strided)
+    counter.launches += 1
     return out
 
 
 sweep_strided.launches = 0
+sweep_strided.bf16 = SimpleNamespace(launches=0)   # the bfloat16 entry
 
 
-def sweep_z_plain(rhs, code, tg, dt, t_inf, rob_c):
+def sweep_z_plain(rhs, code, tg, dt, t_inf, rob_c, *, rng_seed=None,
+                  rng_offset=0):
     """Plain version of K2 (any device)."""
     pin = (code & _PIN) != 0
-    return _solve_plain(rhs, code, 2, tg, dt, t_inf, None, rob_c, pin)
+    x = _solve_plain(widen(rhs), code, 2, tg, dt, t_inf, None, rob_c, pin)
+    return to_state(x, rhs.dtype, sr_key(rng_seed, rng_offset))
 
 
 def sweep_z(rhs: torch.Tensor, code: torch.Tensor, tg: float, dt: float,
-            t_inf: float, rob_c: float) -> torch.Tensor:
+            t_inf: float, rob_c: float, *, rng_seed: int | None = None,
+            rng_offset: int = 0) -> torch.Tensor:
     """K2: plan-lite sweep along the contiguous z axis of a natural
-    (x, y, z) field; ``code`` in the same natural layout."""
+    (x, y, z) field; ``code`` in the same natural layout.  Types and
+    rounding as K1's."""
     if not use_kernel(rhs, code):
-        return sweep_z_plain(rhs, code, tg, dt, t_inf, rob_c)
+        return sweep_z_plain(rhs, code, tg, dt, t_inf, rob_c,
+                             rng_seed=rng_seed, rng_offset=rng_offset)
     if rhs.dim() != 3:
         raise ValueError(f"sweep_z: field must be 3-D, got {rhs.dim()}")
-    check_kernel_inputs("sweep_z", rhs, code)
+    check_kernel_inputs("sweep_z", rhs, code, dtypes=STATE_DTYPES)
     out = torch.empty_like(rhs)
-    scratch = torch.empty_like(rhs)
+    cdt = compute_dtype(rhs.dtype)
+    cpbuf = torch.empty(rhs.shape, dtype=cdt, device=rhs.device)
+    dpbuf = torch.empty(rhs.shape, dtype=cdt, device=rhs.device)
     err = load_library().atf_sweep_z(
         dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(code),
-        ptr(out), ptr(scratch), rhs.shape[0] * rhs.shape[1], rhs.shape[2],
-        tg, dt, t_inf, rob_c, stream_ptr(rhs.device))
+        ptr(out), ptr(cpbuf), ptr(dpbuf), rhs.shape[0] * rhs.shape[1],
+        rhs.shape[2], tg, dt, t_inf, rob_c, sr_key(rng_seed, rng_offset),
+        stream_ptr(rhs.device))
     raise_on_error(err, "sweep_z")
-    sweep_z.launches += 1
+    counter = sweep_z.bf16 if rhs.dtype == torch.bfloat16 else sweep_z
+    counter.launches += 1
     return out
 
 
 sweep_z.launches = 0
+sweep_z.bf16 = SimpleNamespace(launches=0)   # the bfloat16 entry

@@ -13,20 +13,28 @@ and fed straight into K1's plan-lite recurrence along x.  Scope: plan-lite
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 
 from ..bc.faces import shift_in
-from ..kernels import (check_kernel_inputs, dtype_code, load_library, ptr,
-                       raise_on_error, stream_ptr, use_kernel)
+from ..kernels import (STATE_DTYPES, check_kernel_inputs, compute_dtype,
+                       dtype_code, load_library, ptr, raise_on_error,
+                       stream_ptr, use_kernel)
+from .rounding import sr_key, to_state, widen
 from .stencil import _inv3
 from .sweeps import _solve_plain
 
 __all__ = ["fused_theta_sweep", "fused_theta_sweep_plain"]
 
 
-def fused_theta_sweep_plain(T, code, c_exp, inv_d2, tg, dt, t_inf, rob_c):
+def fused_theta_sweep_plain(T, code, c_exp, inv_d2, tg, dt, t_inf, rob_c,
+                            *, rng_seed=None, rng_offset=0):
     """Plain version of K4 (any device): the stencil from the code bits,
-    accumulated x, y, z as in K3, then the plain lite x-sweep."""
+    accumulated x, y, z as in K3, then the plain lite x-sweep; a bfloat16
+    T at float32, U stored back by ``to_state``."""
+    state = T.dtype
+    T = widen(T)
     dtype = T.dtype
     bit = (lambda b: ((code & b) != 0).to(dtype))
     acc = None
@@ -38,32 +46,41 @@ def fused_theta_sweep_plain(T, code, c_exp, inv_d2, tg, dt, t_inf, rob_c):
         term = (s - (ml + mh) * T) * iv
         acc = term if acc is None else acc + term
     d = T + (c_exp * bit(8)) * acc
-    return _solve_plain(d, code, 0, tg, dt, t_inf, None, rob_c, None)
+    x = _solve_plain(d, code, 0, tg, dt, t_inf, None, rob_c, None)
+    return to_state(x, state, sr_key(rng_seed, rng_offset))
 
 
 def fused_theta_sweep(T: torch.Tensor, code: torch.Tensor, c_exp: float,
                       inv_d2, tg: float, dt: float, t_inf: float,
-                      rob_c: float) -> torch.Tensor:
+                      rob_c: float, *, rng_seed: int | None = None,
+                      rng_offset: int = 0) -> torch.Tensor:
     """K4: fused explicit theta-pass + plan-lite x-sweep on the natural
     (x, y, z) field.  ``c_exp = dt*kappa*(1-theta)``; ``inv_d2`` per-axis
-    1/d^2; ``tg`` and ``rob_c`` are the x axis' values."""
+    1/d^2; ``tg`` and ``rob_c`` are the x axis' values.  A bfloat16 T
+    solves at float32 and U is rounded as K1's result."""
     if not use_kernel(T, code):
         return fused_theta_sweep_plain(T, code, c_exp, inv_d2, tg, dt,
-                                       t_inf, rob_c)
+                                       t_inf, rob_c, rng_seed=rng_seed,
+                                       rng_offset=rng_offset)
     if T.dim() != 3:
         raise ValueError(
             f"fused_theta_sweep: field must be 3-D, got {T.dim()}")
-    check_kernel_inputs("fused_theta_sweep", T, code)
+    check_kernel_inputs("fused_theta_sweep", T, code, dtypes=STATE_DTYPES)
     ivx, ivy, ivz = _inv3(inv_d2)
     out = torch.empty_like(T)
-    scratch = torch.empty_like(T)
+    cdt = compute_dtype(T.dtype)
+    cpbuf = torch.empty(T.shape, dtype=cdt, device=T.device)
+    dpbuf = torch.empty(T.shape, dtype=cdt, device=T.device)
     err = load_library().atf_theta_sweep(
         dtype_code(T.dtype), T.device.index, ptr(T), ptr(code), ptr(out),
-        ptr(scratch), *T.shape, c_exp, ivx, ivy, ivz, tg, dt, t_inf, rob_c,
-        stream_ptr(T.device))
+        ptr(cpbuf), ptr(dpbuf), *T.shape, c_exp, ivx, ivy, ivz, tg, dt,
+        t_inf, rob_c, sr_key(rng_seed, rng_offset), stream_ptr(T.device))
     raise_on_error(err, "fused_theta_sweep")
-    fused_theta_sweep.launches += 1
+    counter = (fused_theta_sweep.bf16 if T.dtype == torch.bfloat16
+               else fused_theta_sweep)
+    counter.launches += 1
     return out
 
 
 fused_theta_sweep.launches = 0
+fused_theta_sweep.bf16 = SimpleNamespace(launches=0)   # the bfloat16 entry

@@ -30,30 +30,39 @@ from ..core.material import Material
 from ..solvers.thomas import thomas
 
 __all__ = ["adi_step", "masked_laplacian_1d", "build_sweep_system",
-           "implicit_sweep", "step_scalars", "state_numpy_dtype"]
+           "implicit_sweep", "step_scalars", "solve_numpy_dtype",
+           "round_to_state"]
 
 
-def state_numpy_dtype(dtype: torch.dtype):
-    """numpy scalar type of a supported state dtype (float32 / float64)."""
-    if dtype == torch.float32:
+def solve_numpy_dtype(dtype: torch.dtype):
+    """numpy scalar type of the solve for a state dtype: float32 for
+    float32 and bfloat16 states (bf16 stores, float32 solve), float64 for
+    float64."""
+    if dtype in (torch.float32, torch.bfloat16):
         return np.float32
     if dtype == torch.float64:
         return np.float64
     raise NotImplementedError(
-        f"state dtype {dtype} is not supported yet (bfloat16 with "
-        "stochastic rounding is a later port)")
+        f"state dtype {dtype} is not supported (float32, float64 or "
+        "bfloat16)")
+
+
+def round_to_state(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to the state dtype (to nearest), as a Python float."""
+    return float(torch.tensor(float(x), dtype=dtype))
 
 
 def step_scalars(dtype: torch.dtype, grid: CartesianGrid, mat: Material,
                  dt: float, theta: float):
     """Per-step scalars as Python floats: ``(dt, inv_d2, tg, c_exp)``.
 
-    ``dt`` is rounded to the state dtype and ``tg = theta*(kappa*dt*inv_d2)``
-    and ``c_exp = dt*kappa*(1-theta)`` are evaluated at the state dtype's
-    precision in the JAX step's op order, so float32 runs follow the JAX
-    semantics.  ``inv_d2`` stays at double precision: consumers round it
-    at the state dtype, as the JAX step does."""
-    f = state_numpy_dtype(dtype)
+    ``dt`` is rounded to the solve dtype (float32 for bfloat16 states, as
+    the JAX step's ``promote_types(T.dtype, float32)``) and ``tg =
+    theta*(kappa*dt*inv_d2)`` and ``c_exp = dt*kappa*(1-theta)`` are
+    evaluated at its precision in the JAX step's op order.  ``inv_d2``
+    stays at double precision: consumers round it at the solve dtype, as
+    the JAX step does."""
+    f = solve_numpy_dtype(dtype)
     dt_s = f(dt)
     kappa = f(mat.alpha)
     inv_d2 = tuple(1.0 / (d * d) for d in grid.spacing)

@@ -12,9 +12,11 @@ the same branch structure (:180-297):
 
 Numerically it is step/cartesian.adi_step.  All mask/BC-derived sweep
 inputs are prebuilt per axis in each sweep's layout by ``build_sweep_plan``
-(they change only on birth events).  Left out of this port: bf16 states
-with stochastic rounding (they raise) and the TPU tiling helpers
-``pad_to_tile`` / ``padded_shape`` / ``pad_domain``.
+(they change only on birth events).  bfloat16 states run the same kernels
+in their bfloat16 entries: float32 solves, bfloat16 stores, rounded to
+nearest or stochastically (``rng_seed``; JAX :138-297).  Left out of this
+port: the TPU tiling helpers ``pad_to_tile`` / ``padded_shape`` /
+``pad_domain``.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 from ..bc.packs import CoeffPacks
 from ..core.grid import CartesianGrid
 from ..core.material import Material
+from ..solvers.rounding import sr_key, to_state, widen
 from ..solvers.stencil import theta_rhs
 from ..solvers.sweeps import sweep_code, sweep_strided, sweep_z
 from ..solvers.theta_sweep import fused_theta_sweep
@@ -110,36 +113,55 @@ def build_sweep_plan(mask: torch.Tensor, packs: CoeffPacks | None, *,
 def adi_step_fused(T: torch.Tensor, plan: SweepPlan, grid: CartesianGrid,
                    mat: Material, *, dt: float, theta: float = 0.5,
                    t_inf: float = 0.0,
-                   source: torch.Tensor | None = None) -> torch.Tensor:
+                   source: torch.Tensor | None = None,
+                   rng_seed: int | None = None) -> torch.Tensor:
     """One theta-scheme ADI step on the kernel path.  ``dt`` is a Python
-    float, rounded to the state dtype; ``source``: optional volumetric heat
-    rate [W/m^3], as in step/cartesian.adi_step."""
+    float, rounded to the solve dtype; ``source``: optional volumetric heat
+    rate [W/m^3], as in step/cartesian.adi_step.
+
+    A bfloat16 state (and bfloat16 plan fields) solves every pass at
+    float32 and stores bfloat16.  ``rng_seed`` (an integer: vary it per
+    step, the engine passes its step counter) makes those stores
+    stochastic, as the JAX step's: K3 with the seed, the sweeps with seed
+    + 1, + 2, + 3 (offsets 0-3 of solvers/rounding.sr_key); without it they
+    round to nearest.  The JAX step moves the stochastic plan-lite z solve
+    to the transposed layout; here K2 takes the natural z in both modes.
+    float32 and float64 states ignore ``rng_seed``."""
     dt, inv_d2, tg, c_exp = step_scalars(T.dtype, grid, mat, dt, theta)
     codes = plan.codes
     lite = plan.coeffs is None
+    sr = dict(rng_seed=rng_seed)
 
     if lite and source is None and plan.z_natural:
         # the flagship WAAM configuration: stencil fused into the x-sweep
         rc = plan.rob_c
         U = fused_theta_sweep(T, codes[0], c_exp, inv_d2, tg[0], dt, t_inf,
-                              rc[0])
-        V = sweep_strided(U, codes[1], tg[1], dt, t_inf, axis=1, rob_c=rc[1])
-        return sweep_z(V, codes[2], tg[2], dt, t_inf, rc[2])
+                              rc[0], rng_offset=1, **sr)
+        V = sweep_strided(U, codes[1], tg[1], dt, t_inf, axis=1, rob_c=rc[1],
+                          rng_offset=2, **sr)
+        return sweep_z(V, codes[2], tg[2], dt, t_inf, rc[2], rng_offset=3,
+                       **sr)
 
-    R0 = theta_rhs(T, plan.mask_u8, c_exp, inv_d2)
+    R0 = theta_rhs(T, plan.mask_u8, c_exp, inv_d2, rng_offset=0, **sr)
     if source is not None:
-        R0 = R0 + torch.where(plan.mask, dt * source / (mat.rho * mat.cp),
-                              0.0)
+        q = torch.where(plan.mask, dt * widen(source) / (mat.rho * mat.cp),
+                        0.0)
+        # at a bfloat16 state the sum rounds once more (its own offset)
+        R0 = to_state(widen(R0) + q, R0.dtype, sr_key(rng_seed, 4))
     cf = plan.coeffs or (None, None, None)
     rc = plan.rob_c or (None, None, None)
     q = plan.qfluxes or (None, None, None)
     dv = plan.dir_vals or (None, None, None)
     U = sweep_strided(R0, codes[0], tg[0], dt, t_inf, axis=0, coeff=cf[0],
-                      rob_c=rc[0], qflux=q[0], dir_val=dv[0])
+                      rob_c=rc[0], qflux=q[0], dir_val=dv[0], rng_offset=1,
+                      **sr)
     V = sweep_strided(U, codes[1], tg[1], dt, t_inf, axis=1, coeff=cf[1],
-                      rob_c=rc[1], qflux=q[1], dir_val=dv[1])
+                      rob_c=rc[1], qflux=q[1], dir_val=dv[1], rng_offset=2,
+                      **sr)
     if plan.z_natural:
-        return sweep_z(V, codes[2], tg[2], dt, t_inf, rc[2])
+        return sweep_z(V, codes[2], tg[2], dt, t_inf, rc[2], rng_offset=3,
+                       **sr)
     W = sweep_strided(_to_zxy(V), codes[2], tg[2], dt, t_inf, axis=0,
-                      coeff=cf[2], rob_c=rc[2], qflux=q[2], dir_val=dv[2])
+                      coeff=cf[2], rob_c=rc[2], qflux=q[2], dir_val=dv[2],
+                      rng_offset=3, zxy=True, **sr)
     return W.permute(1, 2, 0).contiguous()

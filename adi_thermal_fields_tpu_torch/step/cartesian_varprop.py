@@ -31,6 +31,9 @@ float32 state with a scalar or self-radiative film, and the JAX step's
 other routes: K19 along z for float64 states, film fields and per-face
 streams, K20 then K7's x entry with ``fuse_theta=False``.  Float64 z runs
 K19 as in JAX, whose tier-2 z kernel takes float32 states only.
+``adi_step_varprop_gstreams`` (JAX :450) is the g-stream tier, K23 ->
+K24 -> K25 -> K26, which ``adi_step_varprop_fused`` takes for bfloat16
+states (float32 with ``gstreams=True``), stochastic rounding included.
 """
 from __future__ import annotations
 
@@ -44,6 +47,8 @@ from ..bc.radiation import radiative_h
 from ..core.grid import CartesianGrid
 from ..core.material import Material
 from ..solvers.fields import tridiag_fields
+from ..solvers.gstreams import (gstream_fields, gstream_sweep_y,
+                                gstream_sweep_z, gstream_theta_sweep)
 from ..solvers.sweeps import sweep_code
 from ..solvers.thomas import thomas
 from ..solvers.varprop import (clamp_sum, face_g, table_segments,
@@ -51,14 +56,22 @@ from ..solvers.varprop import (clamp_sum, face_g, table_segments,
                                varprop_sweep_y, varprop_sweep_z,
                                varprop_theta_rhs, varprop_theta_sweep)
 from ..solvers.vp2 import build_vp2_code, vp2_sweep_z
-from .cartesian import state_numpy_dtype
+from .cartesian import solve_numpy_dtype
 
 __all__ = ["PropertyTable", "apparent_cp", "melt_pool_enhanced_k",
            "adi_step_varprop", "adi_step_varprop_fused",
-           "build_varprop_codes", "build_face_h_axes",
-           "build_varprop_fields", "check_films", "IMPLEMENTATIONS"]
+           "adi_step_varprop_gstreams", "build_varprop_codes",
+           "build_face_h_axes", "build_varprop_fields", "check_films",
+           "IMPLEMENTATIONS", "G_STREAMS_DEFAULT", "G_STREAMS_BF16_DEFAULT"]
 
 IMPLEMENTATIONS = ("kernels", "reference")
+
+# adi_step_varprop_fused(gstreams=None) routes an eligible step through the
+# g-stream tier (K23-K26) at bfloat16 only, as the JAX module's flags
+# (:55-69): its TPU A/B lost at float32 and won at bfloat16.  The H100 A/B
+# is in PERF.md; the defaults stay the JAX ones.
+G_STREAMS_DEFAULT = False          # float32 states: the classic tier
+G_STREAMS_BF16_DEFAULT = True      # bfloat16 states: the g-stream tier
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,7 +178,7 @@ def adi_step_varprop(T: torch.Tensor, mask: torch.Tensor, packs: CoeffPacks,
         raise ValueError(f"implementation must be one of {IMPLEMENTATIONS}, "
                          f"got {implementation!r}")
     mask = mask.to(torch.bool)
-    dt = float(state_numpy_dtype(T.dtype)(dt))
+    dt = float(solve_numpy_dtype(T.dtype)(dt))
     inv_d2 = [1.0 / (d * d) for d in grid.spacing]
     kfs = _axis_k(T, mat_ref, k_table)
     cpf = _prop(T, cp_table, mat_ref.cp)
@@ -302,6 +315,77 @@ def build_varprop_fields(T: torch.Tensor, mask: torch.Tensor,
     return fc, w, radiative_h(T, eps, tinf, h_conv=hconv)
 
 
+def _gstream_spec(tab, default: float):
+    """A property as the g-stream tier takes it (a number or a table), or
+    None: per-axis tuples and callables run the classic tier."""
+    if isinstance(tab, (tuple, list)):
+        return None
+    return _kernel_spec(tab, default)
+
+
+def adi_step_varprop_gstreams(T: torch.Tensor, mask: torch.Tensor,
+                              grid: CartesianGrid, mat_ref: Material, *,
+                              k_table=None, cp_table=None, dt: float,
+                              theta: float = 0.5, t_inf: float = 0.0,
+                              robin_h: float = 0.0,
+                              h_field: torch.Tensor | None = None,
+                              emissivity: float | None = None,
+                              h_conv: float | None = 0.0,
+                              source: torch.Tensor | None = None,
+                              rng_seed: int | None = None) -> torch.Tensor:
+    """One varprop theta-scheme step through the g-stream tier (JAX
+    :450-520): K23 builds the pre-multiplied coupling and sink streams
+    (the film a scalar ``robin_h``, a per-cell ``h_field``, or with
+    ``emissivity`` the radiative film ``h_rad(T) + h_conv`` in registers),
+    then K24 (theta pass + x), K25 (y) and K26 (z, natural layout: the JAX
+    step's four transposes are gone).  Same physics as
+    ``adi_step_varprop_fused`` for Robin-only boundaries.
+
+    float32 and bfloat16 states; a bfloat16 state solves at float32 and
+    stores its streams at bfloat16 (to nearest) and U, V and W stochastically
+    with ``rng_seed`` (offsets 1-3), else to nearest.  ``h_field`` and
+    ``source`` are read at the state dtype (JAX reads them at theirs).
+    Raises for ``theta <= 0``, per-axis k tuples and callables, and other
+    dtypes, as JAX does."""
+    if not theta > 0.0:
+        raise ValueError("the g-stream tier needs theta > 0 (the streams "
+                         "carry theta*dt*w*fc; use theta in {0.5, 1})")
+    ks = _gstream_spec(k_table, mat_ref.k)
+    cs = _gstream_spec(cp_table, mat_ref.cp)
+    if ks is None or cs is None:
+        raise ValueError("g-stream tier needs constant or PropertyTable "
+                         "k/cp (per-axis tuples and callables run the "
+                         "classic fused tier)")
+    if T.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"g-stream tier is f32/bf16 only, got {T.dtype}")
+    f = solve_numpy_dtype(T.dtype)
+    dt_s = f(dt)
+    tg3 = [float(f(theta) * dt_s * f(1.0 / (d * d))) for d in grid.spacing]
+    sk3 = [float(dt_s / f(d)) for d in grid.spacing]
+    if emissivity is not None:
+        h_mode, hpar = "rad", float(emissivity)
+    elif h_field is not None:
+        h_mode, hpar = "stream", 0.0
+    else:
+        h_mode, hpar = "const", float(robin_h or 0.0)
+    as_state = (lambda t: None if t is None else t.to(T.dtype))
+    mask_u8 = mask if mask.dtype == torch.uint8 else mask.to(torch.uint8)
+    g_lo, g_hi, sw, src_pre = gstream_fields(
+        T, mask_u8, tg3, sk3, k_spec=ks, cp_spec=cs, rho=mat_ref.rho,
+        h_mode=h_mode, hpar=hpar, t_inf=float(t_inf),
+        h_conv=float(h_conv or 0.0), dt=float(dt_s),
+        h=as_state(h_field) if h_mode == "stream" else None,
+        src=as_state(source))
+    sr = dict(rng_seed=rng_seed if T.dtype == torch.bfloat16 else None)
+    U = gstream_theta_sweep(T, g_lo[0], g_hi[0], g_lo[1], g_hi[1], g_lo[2],
+                            g_hi[2], sw[0], (1.0 - theta) / theta, t_inf,
+                            src_pre=src_pre, rng_offset=1, **sr)
+    V = gstream_sweep_y(U, g_lo[1], g_hi[1], sw[1], t_inf, rng_offset=2,
+                        **sr)
+    return gstream_sweep_z(V, g_lo[2], g_hi[2], sw[2], t_inf, rng_offset=3,
+                           **sr)
+
+
 def adi_step_varprop_fused(T: torch.Tensor, mask: torch.Tensor, codes: tuple,
                            grid: CartesianGrid, mat_ref: Material, *,
                            k_table=None, cp_table=None, dt: float,
@@ -313,7 +397,8 @@ def adi_step_varprop_fused(T: torch.Tensor, mask: torch.Tensor, codes: tuple,
                            h_conv: float | None = 0.0,
                            source: torch.Tensor | None = None,
                            fuse_theta: bool | None = None,
-                           gstreams: bool | None = None) -> torch.Tensor:
+                           gstreams: bool | None = None,
+                           rng_seed: int | None = None) -> torch.Tensor:
     """One varprop theta-scheme step on the kernels, route for route as
     the JAX step (:563-776).
 
@@ -328,27 +413,42 @@ def adi_step_varprop_fused(T: torch.Tensor, mask: torch.Tensor, codes: tuple,
     birth event).  ``codes`` from ``build_varprop_codes(mask)``;
     ``k_table``: a PropertyTable, number, callable or per-axis 3-tuple of
     them; ``cp_table``: a PropertyTable, number or callable (None:
-    ``mat_ref``'s value).  ``dt`` is rounded to the state dtype (float32
-    or float64).
+    ``mat_ref``'s value).  ``dt`` is rounded to the solve dtype.
 
-    Route: the fields (K5 for numbers and tables, tensor ops for per-axis
-    tuples and callables); x by K6 (``fuse_theta`` True or None) or by K20
-    then K7's x entry (``fuse_theta=False``); y by K7; z by K8 for float32
-    states with a table or number cp and z conductivity and a scalar or
-    self-radiative film, else by K19 (float64 states, h fields and
-    streams, callables).  ``gstreams=True`` and bfloat16 states are not
-    ported and raise, naming TPU kernel rows 27-30."""
+    Route: ``gstreams`` (None: ``G_STREAMS_DEFAULT``, or
+    ``G_STREAMS_BF16_DEFAULT`` for a bfloat16 state) sends a float32 or
+    bfloat16 step with theta > 0, no ``h_axes`` and number or table
+    properties to ``adi_step_varprop_gstreams`` (K23-K26; ``rng_seed``
+    seeds its stochastic bfloat16 stores), as the JAX step routes (:569-582).
+    Otherwise the classic tier: the fields (K5 for numbers and tables,
+    tensor ops for per-axis tuples and callables); x by K6 (``fuse_theta``
+    True or None) or by K20 then K7's x entry (``fuse_theta=False``); y by
+    K7; z by K8 for float32 states with a table or number cp and z
+    conductivity and a scalar or self-radiative film, else by K19 (float64
+    states, h fields and streams, callables).  The classic tier takes
+    float32 and float64 states: a bfloat16 state that the g-stream tier
+    does not take raises."""
     if h_axes is not None and h_field is not None:
         raise ValueError("h_axes and h_field are mutually exclusive")
-    if gstreams:
-        raise NotImplementedError(
-            "the g-stream tier needs TPU kernel rows 27-30 "
-            "(pallas_gstreams.py), not ported yet")
+    if gstreams is None:
+        gstreams = (G_STREAMS_DEFAULT
+                    or (G_STREAMS_BF16_DEFAULT and T.dtype == torch.bfloat16))
+    if (gstreams and theta > 0.0 and h_axes is None
+            and T.dtype in (torch.float32, torch.bfloat16)
+            and _gstream_spec(k_table, mat_ref.k) is not None
+            and _gstream_spec(cp_table, mat_ref.cp) is not None):
+        return adi_step_varprop_gstreams(
+            T, mask, grid, mat_ref, k_table=k_table, cp_table=cp_table,
+            dt=dt, theta=theta, t_inf=t_inf, robin_h=robin_h,
+            h_field=h_field, emissivity=emissivity, h_conv=h_conv,
+            source=source, rng_seed=rng_seed)
     if T.dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(
-            f"state dtype {T.dtype}: bfloat16 varprop states run the "
-            "g-stream tier with stochastic rounding, TPU kernel rows 27-30 "
-            "(pallas_gstreams.py), not ported yet")
+            f"state dtype {T.dtype} on the classic varprop tier (per-face "
+            "film streams h_axes, per-axis k tuples or callables, theta <= "
+            "0, or gstreams=False): its bfloat16 entries of K5-K7 and K19 "
+            "with stochastic rounding are a later port; the g-stream tier "
+            "takes bfloat16 states with number or table properties")
     check_films(robin_h, emissivity)
     self_rad = emissivity is not None and h_field is None and h_axes is None
     h_conv = float(h_conv or 0.0)
@@ -362,7 +462,7 @@ def adi_step_varprop_fused(T: torch.Tensor, mask: torch.Tensor, codes: tuple,
     kz_spec = _kernel_spec(kts[2], mat_ref.k)
 
     # scalars at the state dtype, in the JAX step's op order
-    f = state_numpy_dtype(T.dtype)
+    f = solve_numpy_dtype(T.dtype)
     dt_s = f(dt)
     inv_d2 = [1.0 / (d * d) for d in grid.spacing]
     cw = float(f(1.0 - theta) * dt_s)

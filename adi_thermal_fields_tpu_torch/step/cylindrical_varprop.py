@@ -65,7 +65,7 @@ from ..solvers.varprop import face_g, harm
 from ..solvers.vp2 import (build_vp2_code, vp2_cyclic_phi, vp2_sweep_strided,
                            vp2_sweep_z)
 from ..solvers.vpfields import vp_fields_cyclic_phi, vp_fields_sweep_strided
-from .cartesian import state_numpy_dtype
+from .cartesian import solve_numpy_dtype
 from .cartesian_varprop import PropertyTable, check_films
 from .cylindrical import RobinBC, ZFaceBC, _vec
 
@@ -199,7 +199,7 @@ def _vp2_be_step(T, grid, mat_ref, dt, robin_outer, zbc, k_specs, cp_spec,
     """The tier-2 backward-Euler chain: K15 (r) -> K16 (phi) -> K8's
     general form (z)."""
     dtype, dev = T.dtype, T.device
-    f = state_numpy_dtype(dtype)
+    f = solve_numpy_dtype(dtype)
     dt_s = f(dt)
     inv_dtor = float(f(1.0) / f(dt_s / f(mat_ref.rho)))
     nr, dr = grid.nr, grid.dr
@@ -263,7 +263,7 @@ def _fields_step(T, grid, mat_ref, dt, robin_outer, zbc, k_table, cp_table,
     rows solved by K21/K22 ("fields") or ``thomas``/``cyclic_thomas``
     ("reference"), backward Euler or Douglas-Gunn."""
     dtype, dev = T.dtype, T.device
-    f = state_numpy_dtype(dtype)
+    f = solve_numpy_dtype(dtype)
     dt_s = float(f(dt))
     nr, nphi, nz = grid.shape
     dr, dz = grid.dr, grid.dz
@@ -485,7 +485,7 @@ def adi_step_cyl_varprop(T: torch.Tensor, grid: CylindricalGrid,
             T_inf_void=T_inf_void, h_front=h_front, source=source,
             emissivity=emissivity, scheme=scheme, theta=theta,
             implementation=implementation, vp2_plan=vp2_plan).to(T.dtype)
-    state_numpy_dtype(T.dtype)          # float32 / float64, or raise
+    solve_numpy_dtype(T.dtype)          # float32 / float64, or raise
     if tuple(T.shape) != grid.shape:
         raise ValueError(f"T shape {tuple(T.shape)} != grid shape "
                          f"{grid.shape}")

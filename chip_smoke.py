@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's main paths once on one CUDA card, through their
-twenty-two hand-written kernels, and check every result.
+twenty-six hand-written kernels (four with a bfloat16 entry), and check
+every result.
 
     python3 chip_smoke.py        # from the root of a checkout; one card
     python3 chip_smoke.py --profile   # phase 8's steps under torch.profiler
@@ -136,13 +137,40 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    float32 kernels (wall time, Tmax <= --Ts, the solid active), then
    kernels against reference (within APP_TOL) on a print of 20 layers of
    SHORT_LAYER_S s, at float32 and with the varprop flags at float64.
+10. The bfloat16 bandwidth mode.  Its kernel part (run with phase 2):
+   K23 (film modes const and rad, with and without a source), K24 (seeded,
+   and with src_pre), K25 and K26 (seeded) against their plain versions at
+   384^3 (the WAAM mask) and 97x203x131 (a random mask), bfloat16 and
+   float32: bitwise; the bfloat16 entries K1b-K4b at the 256^3 WAAM mask,
+   to nearest and seeded: within one bfloat16 ulp of the output's scale
+   (the share of cells apart printed); kernel and plain ms and % of each bound; the
+   kernels' stochastic rounding of 1 + ulp/4 over 128^3 cells (P(up) =
+   0.25 +- 0.01, only the two neighbours).  Its step part: bench.py's
+   main_bf16 case (512^3, 1 mm, Robin 200, dt 0.05 s) through
+   make_cartesian_engine(dtype=bfloat16, stochastic_rounding=True), ms/step
+   and Gcell/s beside the float32 step of the same case (launches K4b = K1b
+   = K2b = 1 per step), the same with per-face h (K3b = 1, K1b = 3);
+   run_varprop's case at 384^3 bfloat16 (K23 = K24 = K25 = K26 = 1 per
+   step, K5-K8 never); the float32 A/B of the g-stream and classic tiers
+   on that step (classic, g-streams, g-streams, classic); the drift gates
+   of tests/test_bf16_drift.py (64x56x48, 900 C, Robin 200, dt 0.002 s, 30
+   steps: stochastic rounding within max 21 K and mean 2.5 K of float32,
+   round-to-nearest cooling less than half as much, step counters
+   decorrelating the rounding).  Its app part: the WAAM app at bfloat16 on
+   phase 4's bar (against phase 4's float32 field), with phase 5's varprop
+   flags less the latent heat (against a float32 run of those flags), both
+   gated at a mean of P10_APP_MEAN_TOL K over the solid, and with all of
+   phase 5's flags (against phase 5's float32 field; printed, not gated:
+   the stochastically rounded state freezes at the solidus, PERF.md).
 
 Each main path is driven with the launch counts set to 0 just before it
 and read just after it: phases 3 (constant properties) and 4 for K1-K4,
 phases 3 (variable properties) and 5 for K5-K8 and K19, phase 6's step
 and app for K9-K11, phase 7's step and app for K12-K14, phase 8's steps
-and apps for K8 and K15-K18, then phase 9's steps and apps for K7's x
-entry and K19-K22 (beside K1, K3 and K5-K7).  The line before the
+and apps for K8 and K15-K18, phase 9's steps and apps for K7's x
+entry and K19-K22 (beside K1, K3 and K5-K7), then phase 10's steps and
+apps for K1b-K4b and K23-K26 (beside the float32 K1-K8 of its
+comparisons).  The line before the
 last is a JSON summary of the kernels (launches of those runs; each
 kernel's time at its main-path shape beside its bound, the least time for
 the bytes it must move and the operations it must do, its plain version's
@@ -226,6 +254,23 @@ KERNEL_INFO = {
             "adi_thermal_fields_tpu/solvers/pallas_fields.py:129"),
     "K22": ("cyclic_fields", "csrc/fields.cu",
             "adi_thermal_fields_tpu/solvers/pallas_fields.py:311"),
+    "K23": ("gstream_fields", "csrc/gstreams.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_gstreams.py:163"),
+    "K24": ("gstream_theta_sweep", "csrc/gstreams.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_gstreams.py:839"),
+    "K25": ("gstream_sweep_y", "csrc/gstreams.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_gstreams.py:575"),
+    "K26": ("gstream_sweep_z", "csrc/gstreams.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_gstreams.py:376"),
+    # the bfloat16 entries of K1-K4 (float32 solves, bfloat16 stores)
+    "K1b": ("sweep_strided, bfloat16 entry", "csrc/sweeps.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_sweeps.py:686"),
+    "K2b": ("sweep_z, bfloat16 entry", "csrc/sweeps.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_sweeps.py:950"),
+    "K3b": ("theta_rhs, bfloat16 entry", "csrc/stencil.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_stencil.py:115"),
+    "K4b": ("fused_theta_sweep, bfloat16 entry", "csrc/theta_sweep.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_theta_sweep.py:454"),
 }
 # float32 operations per cell of each kernel's main variant, counted from
 # its source (adds, multiplies and divides of one row, the back
@@ -234,7 +279,9 @@ OPS_PER_CELL = {"K1": 22, "K2": 22, "K3": 20, "K4": 42, "K5": 140,
                 "K6": 45, "K7": 25, "K8": 85, "K9": 20, "K10": 20,
                 "K11": 30, "K12": 6, "K13": 6, "K14": 9, "K15": 50,
                 "K16": 60, "K17": 20, "K18": 30, "K7x": 25, "K19": 25,
-                "K20": 25, "K21": 8, "K22": 20}
+                "K20": 25, "K21": 8, "K22": 20, "K23": 110, "K24": 35,
+                "K25": 12, "K26": 12, "K1b": 22, "K2b": 22, "K3b": 20,
+                "K4b": 42}
 CONST_KERNELS = ("K1", "K2", "K3", "K4")
 VP_KERNELS = ("K5", "K6", "K7", "K8", "K19")
 CYL_KERNELS = ("K9", "K10", "K11")
@@ -245,6 +292,11 @@ CYL_VP_KERNELS = ("K8", "K15", "K16", "K17", "K18")
 # K5-K7)
 GENERAL_KERNELS = ("K7x", "K19", "K20", "K21", "K22")
 P9_ALSO = CONST_KERNELS + ("K5", "K6", "K7")
+# phase 10: the bfloat16 entries and the g-stream tier, and the kernels
+# its float32 comparisons share with earlier phases
+GSTREAM_KERNELS = ("K23", "K24", "K25", "K26")
+BF16_KERNELS = ("K1b", "K2b", "K3b", "K4b") + GSTREAM_KERNELS
+P10_ALSO = CONST_KERNELS + ("K5", "K6", "K7", "K8")
 # phase 6: the kernels' plans, the step (bench.py's masked-cylindrical
 # shape and BCs, dr = dz = 0.5 mm) and the spiral app
 CYL_SHAPES = (("64x512x1024 tube", (64, 512, 1024)),
@@ -286,6 +338,16 @@ SHORT_LAYER_S = 0.25
 # the varprop physics of phases 2, 3 and 5 (steel, the JAX app's defaults)
 SOLIDUS, LIQUIDUS, LATENT = 1420.0, 1470.0, 2.7e5
 EMISSIVITY, H_CONV = 0.5, 30.0
+# phase 10: K23-K26 shapes, bench.py's bf16 edge (main_bf16), the varprop
+# dt of run_varprop, the rounding seed, the edge of the rounding check,
+# and the app gate (one bfloat16 quantum at 1500 C)
+P10_SHAPES = (("384^3 waam", (384,) * 3), ("97x203x131 random",
+                                          (97, 203, 131)))
+P10_N = 512
+P10_VP_DT = 0.02
+P10_SEED = 12345
+P10_SR_N = 128
+P10_APP_MEAN_TOL = 8.0
 
 
 def fail(msg):
@@ -576,6 +638,7 @@ def app_phase(torch, dev, phase, extra, precision="float32",
     ``layer_s`` s) with each of ``impls``; ``extra``: flags added to phase
     4's.  With both implementations, they must agree."""
     from adi_thermal_fields_tpu_torch.apps import waam_from_stl as app
+    from adi_thermal_fields_tpu_torch.step.cartesian import round_to_state
 
     argv = ["--stl", bar_stl(turn_deg), "--dx_mm", str(P4_DX_MM),
             "--nframes", "4",
@@ -592,6 +655,9 @@ def app_phase(torch, dev, phase, extra, precision="float32",
         runs[impl] = (res, wall)
         T, active = res["T"], res["active"]
         tmax = float(T[active].max())
+        # the deposit temperature as the state stores it (bfloat16 keeps
+        # --Ts 1500 as 1504, its nearest value)
+        ts = round_to_state(args.Ts, T.dtype)
         print(f"[phase {phase}] app {precision} {impl:9s}: grid "
               f"{res['grid'].shape} "
               f"({res['grid'].ncells / 1e6:.2f} M cells), "
@@ -600,8 +666,8 @@ def app_phase(torch, dev, phase, extra, precision="float32",
         check(len(res["layers"]) == P4_LAYERS,
               f"{len(res['layers'])} layers != {P4_LAYERS}")
         check(bool(torch.isfinite(T).all()), f"app {impl}: non-finite T")
-        check(tmax <= args.Ts, f"app {impl}: Tmax {tmax} > Ts {args.Ts}")
-        check(all(m <= args.Ts for _, _, m in res["frames"]),
+        check(tmax <= ts, f"app {impl}: Tmax {tmax} > Ts {ts}")
+        check(all(m <= ts for _, _, m in res["frames"]),
               f"app {impl}: a frame's Tmax exceeds Ts")
     _, solid, _, _ = app.load_voxels(args)
     for impl, (res, _) in runs.items():
@@ -609,7 +675,8 @@ def app_phase(torch, dev, phase, extra, precision="float32",
               f"app {impl}: the active set at the end is not the solid")
     if "reference" not in runs:
         return dict(wall_kernels=runs["kernels"][1],
-                    T_kernels=runs["kernels"][0]["T"])
+                    T_kernels=runs["kernels"][0]["T"],
+                    active=runs["kernels"][0]["active"])
     diff = (runs["kernels"][0]["T"] - runs["reference"][0]["T"]).abs()
     err = float(diff.max())
     print(f"[phase {phase}] max|T_kernels - T_reference| = {err:.3e} K "
@@ -1036,7 +1103,8 @@ def spiral_app(torch, dev, phase, extra=(), impls=("kernels", "reference"),
               f"spiral app {impl}: a deposited column is not active")
     if "reference" not in runs:
         return dict(wall_kernels=runs["kernels"][1],
-                    T_kernels=runs["kernels"][0]["T"])
+                    T_kernels=runs["kernels"][0]["T"],
+                    active=runs["kernels"][0]["active"])
     diff = (runs["kernels"][0]["T"] - runs["reference"][0]["T"]).abs()
     err = float(diff.max())
     print(f"[phase {phase}] spiral app {mode}: max|T_kernels - "
@@ -1696,6 +1764,459 @@ def phase9_app(torch, dev):
     return out
 
 
+def bf16_ulp(x):
+    """The spacing of bfloat16 numbers at magnitude ``x`` (> 0)."""
+    import math
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def time_row(torch, rows, kname, vname, where, ins, kern, plain, err,
+             extra=""):
+    """Time a kernel and its plain version, append its summary row and
+    print it."""
+    got = kern()
+    outs = got if isinstance(got, (tuple, list)) else (got,)
+    outs = [t for o in outs for t in (o if isinstance(o, tuple) else (o,))
+            if t is not None]
+    cells = outs[0].numel()
+    nbytes = sum(t.numel() * t.element_size() for t in (*ins, *outs))
+    ms = cuda_ms(torch, kern, 20)
+    plain_ms = cuda_ms(torch, plain, 3)
+    b = bound(kname, nbytes, cells)
+    rows.append(dict(kernel=kname, variant=vname, shape=where,
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     bytes_per_cell=nbytes / cells,
+                     pct_hbm=100.0 * nbytes / (ms * 1e-3) / HBM_BYTES_PER_S,
+                     **b))
+    print(f"[phase 2] {kname} {vname:32s} {where:26s} max|d|={err:.3e}"
+          f"{extra}  kernel {ms:8.3f} ms  plain {plain_ms:9.3f} ms  "
+          f"{100.0 * b['bound_ms'] / ms:5.1f}% of its bound "
+          f"({b['bound_ms']:.3f} ms, {nbytes / cells:.2f} B/cell)",
+          flush=True)
+
+
+def phase2_gstreams(torch, dev):
+    """K23-K26 against their plain versions at float32 and bfloat16:
+    bitwise (phase 10's kernel part)."""
+    from adi_thermal_fields_tpu_torch import CartesianGrid, Material
+    from adi_thermal_fields_tpu_torch.solvers import (
+        gstream_fields, gstream_fields_plain, gstream_sweep_y,
+        gstream_sweep_y_plain, gstream_sweep_z, gstream_sweep_z_plain,
+        gstream_theta_sweep, gstream_theta_sweep_plain)
+
+    mat = Material(7800.0, 490.0, 54.0)
+    kt, ct = varprop_tables()
+    rows = []
+    for label, shape in P10_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            grid = CartesianGrid(*shape, 0.5e-3)
+            sc = vp_scalars(grid, mat, P10_VP_DT)
+            if label.endswith("waam"):
+                mask = waam_mask(torch, shape, dev)
+            else:
+                g = torch.Generator(device=dev).manual_seed(3)
+                mask = torch.rand(shape, generator=g, device=dev) > 0.25
+            T = mushy_field(torch, mask, seed=7).to(dtype)
+            R = random_field(torch, mask, seed=13).to(dtype)
+            m8 = mask.to(torch.uint8)
+            g = torch.Generator(device=dev).manual_seed(5)
+            src = torch.where(mask, 1e8 * torch.rand(shape, generator=g,
+                                                     device=dev),
+                              0.0).to(dtype)
+            fk = dict(k_spec=kt, cp_spec=ct, rho=mat.rho, dt=sc["dt"],
+                      t_inf=20.0)
+            const = dict(h_mode="const", hpar=H_CONV)
+            rad = dict(h_mode="rad", hpar=EMISSIVITY, h_conv=H_CONV)
+            g_lo, g_hi, sw, sp = gstream_fields_plain(
+                T, m8, sc["tg"], sc["sk"], src=src, **fk, **rad)
+            th = (T, g_lo[0], g_hi[0], g_lo[1], g_hi[1], g_lo[2], g_hi[2],
+                  sw[0], 1.0, 20.0)
+            seed = dict(rng_seed=P10_SEED)
+            variants = [
+                ("K23", "fields, const h", (T, m8),
+                 lambda: gstream_fields(T, m8, sc["tg"], sc["sk"], **fk,
+                                        **const),
+                 lambda: gstream_fields_plain(T, m8, sc["tg"], sc["sk"],
+                                              **fk, **const)),
+                ("K23", "fields, const h + src", (T, m8, src),
+                 lambda: gstream_fields(T, m8, sc["tg"], sc["sk"], src=src,
+                                        **fk, **const),
+                 lambda: gstream_fields_plain(T, m8, sc["tg"], sc["sk"],
+                                              src=src, **fk, **const)),
+                ("K23", "fields, rad", (T, m8),
+                 lambda: gstream_fields(T, m8, sc["tg"], sc["sk"], **fk,
+                                        **rad),
+                 lambda: gstream_fields_plain(T, m8, sc["tg"], sc["sk"],
+                                              **fk, **rad)),
+                ("K23", "fields, rad + src", (T, m8, src),
+                 lambda: gstream_fields(T, m8, sc["tg"], sc["sk"], src=src,
+                                        **fk, **rad),
+                 lambda: gstream_fields_plain(T, m8, sc["tg"], sc["sk"],
+                                              src=src, **fk, **rad)),
+                ("K24", "theta + x, seeded", th[:8],
+                 lambda: gstream_theta_sweep(*th, rng_offset=1, **seed),
+                 lambda: gstream_theta_sweep_plain(*th, rng_offset=1,
+                                                   **seed)),
+                ("K24", "theta + x + src_pre", (*th[:8], sp),
+                 lambda: gstream_theta_sweep(*th, src_pre=sp),
+                 lambda: gstream_theta_sweep_plain(*th, src_pre=sp)),
+                ("K25", "y, seeded", (R, g_lo[1], g_hi[1], sw[1]),
+                 lambda: gstream_sweep_y(R, g_lo[1], g_hi[1], sw[1], 20.0,
+                                         rng_offset=2, **seed),
+                 lambda: gstream_sweep_y_plain(R, g_lo[1], g_hi[1], sw[1],
+                                               20.0, rng_offset=2, **seed)),
+                ("K26", "z, seeded", (R, g_lo[2], g_hi[2], sw[2]),
+                 lambda: gstream_sweep_z(R, g_lo[2], g_hi[2], sw[2], 20.0,
+                                         rng_offset=3, **seed),
+                 lambda: gstream_sweep_z_plain(R, g_lo[2], g_hi[2], sw[2],
+                                               20.0, rng_offset=3, **seed)),
+            ]
+            where = f"{label} {str(dtype)[6:]}"
+            for kname, vname, ins, kern, plain in variants:
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                flat = (lambda o: [t for x in (o if isinstance(o, tuple)
+                                               else (o,))
+                                   for t in (x if isinstance(x, tuple)
+                                             else (x,)) if t is not None])
+                err, same = 0.0, True
+                for a, b in zip(flat(got), flat(want)):
+                    check(a.dtype == dtype and bool(torch.isfinite(a).all()),
+                          f"{kname} {vname} {where}: non-finite output")
+                    err = max(err, float((a.float() - b.float()).abs()
+                                         .max()))
+                    same = same and bool(torch.equal(a, b))
+                time_row(torch, rows, kname, vname, where, ins, kern, plain,
+                         err)
+                check(same, f"{kname} {vname} {where}: max|d| {err:.3e} "
+                      "from its plain version, not bitwise")
+                del got, want
+            del T, R, src, g_lo, g_hi, sw, sp, variants
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase2_bf16(torch, dev):
+    """The bfloat16 entries of K1-K4 against their plain versions at the
+    256^3 WAAM mask, rounding to nearest and stochastically: within one
+    bfloat16 ulp of the output's scale (the stencil's R0 of a random field
+    crosses zero, where a cell's own ulp is tiny); then the kernels'
+    stochastic rounding of
+    1 + ulp/4 (phase 10's kernel part)."""
+    from adi_thermal_fields_tpu_torch import (CartesianGrid, Material,
+                                              build_coeff_packs)
+    from adi_thermal_fields_tpu_torch.solvers import (
+        fused_theta_sweep, fused_theta_sweep_plain, gstream_theta_sweep,
+        sweep_code, sweep_strided, sweep_strided_plain, sweep_z,
+        sweep_z_plain, theta_rhs, theta_rhs_plain)
+    from adi_thermal_fields_tpu_torch.step.cartesian import step_scalars
+
+    bf = torch.bfloat16
+    mat = Material(7800.0, 490.0, 54.0)
+    label, shape = P2_SHAPES[0]
+    grid = CartesianGrid(*shape, 0.5e-3)
+    dt = 2.0 * grid.dx ** 2 / mat.alpha
+    dt, inv_d2, tg, c_exp = step_scalars(bf, grid, mat, dt, 0.5)
+    rc = [float(torch.tensor(30.0, dtype=torch.float32)
+                * torch.tensor(1.0 / (mat.rho * mat.cp * d),
+                               dtype=torch.float32)) for d in grid.spacing]
+    mask = waam_mask(torch, shape, dev)
+    T = random_field(torch, mask, seed=7).to(bf)
+    dirm = torch.zeros_like(mask)
+    dirm[:, :, 0] = mask[:, :, 0]
+    pk = build_coeff_packs(mask, grid, mat, dtype=bf, robin_h=200.0,
+                           neumann={"z+": 5e5}, dirichlet_mask=dirm,
+                           dirichlet_value=20.0)
+
+    def nat(axis, dm=None, **kw):
+        return sweep_code(mask, dm, axis, **kw).movedim(0, axis) \
+            .contiguous()
+
+    c0, c1, c2 = nat(0), nat(1), nat(2)
+    c0s, d0 = nat(0, stencil_bits=True), nat(0, dirm)
+    m_u8 = mask.to(torch.uint8)
+    fkw = dict(coeff=pk.coeff[0], qflux=pk.qflux[0], dir_val=pk.dir_val)
+    rows = []
+    for seeded in (False, True):
+        sr = dict(rng_seed=P10_SEED if seeded else None)
+        tag = ", seeded" if seeded else ""
+        variants = [
+            ("K1b", "lite x" + tag, (T, c0),
+             lambda: sweep_strided(T, c0, tg[0], dt, 20.0, axis=0,
+                                   rob_c=rc[0], rng_offset=1, **sr),
+             lambda: sweep_strided_plain(T, c0, tg[0], dt, 20.0, axis=0,
+                                         rob_c=rc[0], rng_offset=1, **sr)),
+            ("K1b", "lite y" + tag, (T, c1),
+             lambda: sweep_strided(T, c1, tg[1], dt, 20.0, axis=1,
+                                   rob_c=rc[1], rng_offset=2, **sr),
+             lambda: sweep_strided_plain(T, c1, tg[1], dt, 20.0, axis=1,
+                                         rob_c=rc[1], rng_offset=2, **sr)),
+            ("K1b", "field+neumann+dirichlet x" + tag,
+             (T, d0, *fkw.values()),
+             lambda: sweep_strided(T, d0, tg[0], dt, 20.0, axis=0,
+                                   rng_offset=1, **fkw, **sr),
+             lambda: sweep_strided_plain(T, d0, tg[0], dt, 20.0, axis=0,
+                                         rng_offset=1, **fkw, **sr)),
+            ("K2b", "lite z" + tag, (T, c2),
+             lambda: sweep_z(T, c2, tg[2], dt, 20.0, rc[2], rng_offset=3,
+                             **sr),
+             lambda: sweep_z_plain(T, c2, tg[2], dt, 20.0, rc[2],
+                                   rng_offset=3, **sr)),
+            ("K3b", "stencil" + tag, (T, m_u8),
+             lambda: theta_rhs(T, m_u8, c_exp, inv_d2, **sr),
+             lambda: theta_rhs_plain(T, m_u8, c_exp, inv_d2, **sr)),
+            ("K4b", "stencil + lite x" + tag, (T, c0s),
+             lambda: fused_theta_sweep(T, c0s, c_exp, inv_d2, tg[0], dt,
+                                       20.0, rc[0], rng_offset=1, **sr),
+             lambda: fused_theta_sweep_plain(T, c0s, c_exp, inv_d2, tg[0],
+                                             dt, 20.0, rc[0], rng_offset=1,
+                                             **sr)),
+        ]
+        for kname, vname, ins, kern, plain in variants:
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            check(got.dtype == bf and bool(torch.isfinite(got).all()),
+                  f"{kname} {vname}: non-finite output")
+            err = float((got.float() - want.float()).abs().max())
+            ulps = err / bf16_ulp(float(want.float().abs().max()))
+            share = float((got != want).double().mean())
+            time_row(torch, rows, kname, vname, f"{label} bfloat16", ins,
+                     kern, plain, err,
+                     extra=f" ({ulps:.0f} bf16 ulp of scale, "
+                           f"{100.0 * share:.4f}% of cells differ)")
+            check(ulps <= 1.0, f"{kname} {vname}: {ulps} bf16 ulp of the "
+                  "output's scale from its plain version")
+            del got, want
+    del T, mask, pk
+    torch.cuda.empty_cache()
+
+    # the kernels' stochastic rounding: d = 1 + 2^-9 = 1 + ulp/4 through
+    # K24 with zero couplings and sinks (identity rows, src_pre = 2^-9)
+    n = P10_SR_N
+    one = torch.ones((n, n, n), dtype=bf, device=dev)
+    zero = torch.zeros_like(one)
+    sp = torch.full_like(one, 2.0 ** -9)
+    args = (one, *([zero] * 7), 1.0, 0.0)
+    near = gstream_theta_sweep(*args, src_pre=sp).float()
+    out = gstream_theta_sweep(*args, src_pre=sp, rng_seed=P10_SEED,
+                              rng_offset=1).float()
+    torch.cuda.synchronize()
+    up = float((out > 1.0).double().mean())
+    vals = sorted(torch.unique(out).tolist())
+    print(f"[phase 2] K24 stochastic rounding of 1 + ulp/4 over "
+          f"{one.numel()} cells: P(up) = {up:.4f} (want 0.25 +- 0.01), "
+          f"values {vals}; to nearest: {sorted(torch.unique(near).tolist())}",
+          flush=True)
+    check(abs(up - 0.25) < 0.01, f"stochastic rounding P(up) = {up}")
+    check(set(vals) <= {1.0, 1.0 + 2.0 ** -7}, f"rounded values {vals}")
+    check(bool((near == 1.0).all()), "round to nearest moved 1 + ulp/4")
+    del one, zero, sp, out, near
+    torch.cuda.empty_cache()
+    return rows
+
+
+def timed_seq(torch, step, T0, n, warmup=P3_WARMUP):
+    """CUDA-event ms of each of ``n`` steps ``step(T, i)`` after
+    ``warmup`` steps, the step index running on (the engine's counter)."""
+    T = T0
+    for i in range(warmup):
+        T = step(T, i)
+    torch.cuda.synchronize()
+    out = []
+    for i in range(warmup, warmup + n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        T = step(T, i)
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    check(bool(torch.isfinite(T).all()), "non-finite T in a timed run")
+    return T, out
+
+
+def phase10_step(torch, dev):
+    """bench.py's bf16 case (plan-lite, and the field plan) at 512^3 and
+    run_varprop's configuration at 384^3 through make_cartesian_engine(
+    dtype=bfloat16, stochastic_rounding=True); the float32 g-stream A/B;
+    the drift gates of tests/test_bf16_drift.py on the card."""
+    from adi_thermal_fields_tpu_torch import (CartesianGrid, Material,
+                                              adi_step_varprop_fused,
+                                              build_varprop_codes)
+    from adi_thermal_fields_tpu_torch.apps.engine import make_cartesian_engine
+    from adi_thermal_fields_tpu_torch.bc.faces import FACES
+    from adi_thermal_fields_tpu_torch.solvers import launch_counts
+    from adi_thermal_fields_tpu_torch.step.cartesian import round_to_state
+
+    bf, f32 = torch.bfloat16, torch.float32
+    mat = Material(7800.0, 490.0, 54.0)
+    out = {}
+
+    def engine_run(name, grid, mask, T0, dtype, dt, per, **bcs):
+        prepare, advance = make_cartesian_engine(
+            grid, mat, implementation="kernels", device=dev, dtype=dtype,
+            theta=0.5, t_inf=20.0, stochastic_rounding=dtype == bf, **bcs)
+        prep = prepare(mask)
+        before = launch_counts()
+        # sub-step i from t0 = i*dt: the step counter (the seed) is i
+        T, step_ms = timed_seq(
+            torch, lambda T, i: advance(T, prep, dt, 1, i * dt), T0,
+            P3_STEPS)
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        want = {k: (P3_WARMUP + P3_STEPS) * per.get(k, 0) for k in delta}
+        check(delta == want, f"phase 10 {name}: launches {delta} != "
+              f"expected {want}")
+        ms = statistics.median(step_ms)
+        print(f"[phase 10] {name}: {ms:9.3f} ms/step (median; steps "
+              f"{', '.join(f'{s:.3f}' for s in step_ms)})  "
+              f"{grid.ncells / (ms * 1e-3) / 1e9:7.3f} Gcell/s; launches per "
+              f"step { {k: v for k, v in per.items() if v} }", flush=True)
+        out[name] = dict(ms=ms, gcells=grid.ncells / (ms * 1e-3) / 1e9)
+        return T
+
+    # bench.py main_bf16: build_case(512), Robin 200, dt 0.05, theta 0.5
+    n = P10_N
+    grid = CartesianGrid(n, n, n, 1e-3)
+    mask = bench_mask(torch, grid.shape, dev)
+    T0 = torch.where(mask, 900.0, 20.0)
+    lite = dict(robin_h=200.0)
+    field = dict(robin_h={f: 200.0 for f in FACES})
+    names = (f"{n}^3 bf16 lite (bench main_bf16)",
+             f"{n}^3 f32 lite (the same case)")
+    Tb = engine_run(names[0], grid, mask, T0.to(bf), bf, 0.05,
+                    {"K4b": 1, "K1b": 1, "K2b": 1}, **lite)
+    Tf = engine_run(names[1], grid, mask, T0.to(f32), f32, 0.05,
+                    {"K4": 1, "K1": 1, "K2": 1}, **lite)
+    d = (Tb.float() - Tf)[mask].abs()
+    print(f"[phase 10] {n}^3 lite after {P3_WARMUP + P3_STEPS} steps: "
+          f"|T_bf16 - T_f32| max {float(d.max()):.3f} K, mean "
+          f"{float(d.mean()):.4f} K over the solid; bf16/f32 time "
+          f"{out[names[0]]['ms'] / out[names[1]]['ms']:.3f}", flush=True)
+    check(float(d.max()) < 16.0, f"phase 10 lite: bf16 {float(d.max())} K "
+          "from float32")
+    engine_run(f"{n}^3 bf16 field plan (per-face h 200)", grid, mask,
+               T0.to(bf), bf, 0.05, {"K3b": 1, "K1b": 3}, **field)
+    del Tb, Tf, d, T0, mask
+    torch.cuda.empty_cache()
+
+    # bench.py run_varprop at 384^3 bf16: robin 15, emissivity 0.5, the
+    # phase 2 tables, dt 0.02
+    n = P9_N
+    grid = CartesianGrid(n, n, n, 1e-3)
+    mask = bench_mask(torch, grid.shape, dev)
+    T0 = torch.where(mask, 900.0, 20.0)
+    kt, ct = varprop_tables()
+    vp = dict(robin_h=15.0, emissivity=EMISSIVITY, k_table=kt, cp_table=ct)
+    engine_run(f"{n}^3 bf16 varprop (bench run_varprop, g-streams)", grid,
+               mask, T0.to(bf), bf, P10_VP_DT,
+               {"K23": 1, "K24": 1, "K25": 1, "K26": 1}, **vp)
+    # float32 A/B of the two tiers on the same step (JAX's keep-or-kill
+    # A/B, cartesian_varprop.py:55-67): classic, g-streams, g-streams,
+    # classic
+    codes = build_varprop_codes(mask)
+    m8 = mask.to(torch.uint8)
+    T32 = T0.to(f32)
+    kw = dict(k_table=kt, cp_table=ct, dt=P10_VP_DT, theta=0.5, t_inf=20.0,
+              robin_h=15.0, emissivity=EMISSIVITY, h_conv=15.0)
+    tiers = {
+        "classic": lambda T, i: adi_step_varprop_fused(
+            T, m8, codes, grid, mat, gstreams=False, **kw),
+        "g-streams": lambda T, i: adi_step_varprop_fused(
+            T, m8, codes, grid, mat, gstreams=True, **kw)}
+    a, b = tiers["classic"](T32, 0), tiers["g-streams"](T32, 0)
+    rel = float((a - b).abs().max() / b.abs().max())
+    times = {"classic": [], "g-streams": []}
+    for name in ("classic", "g-streams", "g-streams", "classic"):
+        _, ms = timed_seq(torch, tiers[name], T32, P3_STEPS)
+        times[name].append(statistics.median(ms))
+    print(f"[phase 10] {n}^3 f32 varprop A/B (classic / g-streams / "
+          f"g-streams / classic): {times['classic'][0]:.3f} / "
+          f"{times['g-streams'][0]:.3f} / {times['g-streams'][1]:.3f} / "
+          f"{times['classic'][1]:.3f} ms/step; one step apart by "
+          f"{rel:.2e} (relative)", flush=True)
+    check(rel < 1e-5, f"phase 10 A/B: the tiers differ by {rel:.2e}")
+    out["f32 A/B"] = times
+    del a, b, T32, T0, mask, codes, m8
+    torch.cuda.empty_cache()
+
+    # the drift gates of tests/test_bf16_drift.py: 64x56x48 at 900 C,
+    # Robin 200, dt 0.002 (at the state dtype, as that test passes it),
+    # 30 steps
+    grid = CartesianGrid(64, 56, 48, 1e-3)
+    mask = torch.ones(grid.shape, dtype=torch.bool, device=dev)
+
+    def cooling(dtype, sr, t0=0.0, steps=30, g=grid, m=mask):
+        prepare, advance = make_cartesian_engine(
+            g, mat, implementation="kernels", device=dev, dtype=dtype,
+            theta=0.5, t_inf=20.0, robin_h=200.0, stochastic_rounding=sr)
+        T = torch.full(g.shape, 900.0, dtype=dtype, device=dev)
+        return advance(T, prepare(m), round_to_state(0.002, dtype), steps,
+                       t0).double()
+
+    ref, sr, rtn = (cooling(f32, False), cooling(bf, True),
+                    cooling(bf, False))
+    drift = (sr - ref).abs()
+    cooled = {k: 900.0 - float(v.mean()) for k, v in
+              (("f32", ref), ("sr", sr), ("rtn", rtn))}
+    print(f"[phase 10] drift gates (64x56x48, 30 steps): SR vs f32 max "
+          f"{float(drift.max()):.3f} K (< 21), mean {float(drift.mean()):.4f}"
+          f" K (< 2.5); cooled f32 {cooled['f32']:.3f} K, SR "
+          f"{cooled['sr']:.3f} K, nearest {cooled['rtn']:.3f} K "
+          f"(< half of f32: the freeze)", flush=True)
+    check(float(drift.max()) < 21.0 and float(drift.mean()) < 2.5,
+          "phase 10: stochastic rounding outside the drift envelope")
+    # the float32 run cools ~0.3 K on average in these 30 steps (the JAX
+    # test's "> 0.5 K" bound is above what this configuration cools): it
+    # must cool, and round-to-nearest less than half as much
+    check(cooled["f32"] > 0.1 and cooled["rtn"] < 0.5 * cooled["f32"],
+          "phase 10: the round-to-nearest freeze was not detected")
+    g32 = CartesianGrid(32, 32, 32, 1e-3)
+    m32 = torch.ones(g32.shape, dtype=torch.bool, device=dev)
+    x = cooling(bf, True, 0.0, 1, g32, m32)
+    y = cooling(bf, True, 1000 * 0.002, 1, g32, m32)
+    same = cooling(bf, True, 0.0, 1, g32, m32)
+    print(f"[phase 10] seeds: same counter identical "
+          f"{bool(torch.equal(x, same))}, other counter differs at "
+          f"{int((x != y).sum())} cells", flush=True)
+    check(bool(torch.equal(x, same)) and bool((x != y).any()),
+          "phase 10: the step counter does not decorrelate the rounding")
+    out["drift"] = dict(max=float(drift.max()), mean=float(drift.mean()),
+                        cooled=cooled)
+    return out
+
+
+def phase10_app(torch, dev, p4, p5_32):
+    """The WAAM app on phase 4's bar with --precision bfloat16, with phase
+    5's varprop flags (the g-stream tier), and with those flags less the
+    latent heat, over the whole print on the kernels, against float32
+    fields of the same flags (phases 4 and 5; the last run here)."""
+    vp_flags = ["--latent_J_kg", str(LATENT), "--melt_k_factor", "4",
+                "--emissivity", str(EMISSIVITY)]
+    no_latent = vp_flags[2:]
+    p_nl = app_phase(torch, dev, 10, no_latent, impls=("kernels",))
+    out = {}
+    for name, extra, f32_run, gated in (
+            ("constant", [], p4, True),
+            ("varprop without latent heat", no_latent, p_nl, True),
+            ("varprop", vp_flags, p5_32, False)):
+        res = app_phase(torch, dev, 10, extra, precision="bfloat16",
+                        impls=("kernels",))
+        Tb, T32 = res["T_kernels"].float(), f32_run["T_kernels"].float()
+        d = (Tb - T32)[res["active"]].abs()
+        print(f"[phase 10] app {name}: |T_bf16 - T_f32| over the solid max "
+              f"{float(d.max()):.3f} K, mean {float(d.mean()):.4f} K"
+              + (f" (gate {P10_APP_MEAN_TOL} K)" if gated else
+                 " (not gated: the solidus freeze, PERF.md)")
+              + f"; wall {res['wall_kernels']:.2f} s", flush=True)
+        if gated:
+            check(float(d.mean()) < P10_APP_MEAN_TOL, f"phase 10 app "
+                  f"{name}: mean {float(d.mean()):.3f} K > "
+                  f"{P10_APP_MEAN_TOL} K")
+        out[name] = dict(wall=res["wall_kernels"], max=float(d.max()),
+                         mean=float(d.mean()))
+    return out
+
+
 def profile_phase8(torch, dev, steps=5):
     """``--profile``: torch.profiler over ``steps`` kernel steps of phase
     8's BE and Douglas steps (after two warm-ups): the device time of each
@@ -1767,7 +2288,8 @@ def main():
     phase1()
     rows = phase2(torch, dev) + phase2_varprop(torch, dev) \
         + phase2_cyl(torch, dev) + phase2_be(torch, dev) \
-        + phase2_cylvp(torch, dev) + phase2_fields(torch, dev)
+        + phase2_cylvp(torch, dev) + phase2_fields(torch, dev) \
+        + phase2_gstreams(torch, dev) + phase2_bf16(torch, dev)
 
     from adi_thermal_fields_tpu_torch.solvers import (launch_counts,
                                                       reset_launch_counts)
@@ -1803,6 +2325,10 @@ def main():
     phase9_step(torch, dev)
     phase9_app(torch, dev)
     counts_9 = launch_counts()
+    reset_launch_counts()
+    phase10_step(torch, dev)
+    phase10_app(torch, dev, p4, p5_32)
+    counts_10 = launch_counts()
     d32 = float((p5_32["T_kernels"].double() - p5["T_kernels"]).abs().max())
     print(f"[phase 5] max|T_float32 - T_float64| (kernels) = {d32:.3e} K",
           flush=True)
@@ -1820,6 +2346,9 @@ def main():
     check(all(counts_9[k] > 0 if k in GENERAL_KERNELS else
               k in P9_ALSO or counts_9[k] == 0 for k in KERNEL_INFO),
           f"the general-BC path's launches: {counts_9}")
+    check(all(counts_10[k] > 0 if k in BF16_KERNELS else
+              k in P10_ALSO or counts_10[k] == 0 for k in KERNEL_INFO),
+          f"the bfloat16 path's launches: {counts_10}")
     d45 = float((p5_32["T_kernels"] - p4["T_kernels"]).abs().max())
     print(f"[phase 5] max|T_varprop - T_constant| = {d45:.3e} K", flush=True)
     check(d45 > 1.0, "the varprop flags changed the app's field by "
@@ -1839,7 +2368,8 @@ def main():
               **{k: counts_y[k] for k in CYL_KERNELS},
               **{k: counts_b[k] for k in BE_KERNELS},
               **{k: counts_8[k] for k in CYL_VP_KERNELS},
-              **{k: counts_9[k] for k in GENERAL_KERNELS}}
+              **{k: counts_9[k] for k in GENERAL_KERNELS},
+              **{k: counts_10[k] for k in BF16_KERNELS}}
     counts["K8"] = counts_v["K8"] + counts_8["K8"]
     counts["K19"] = counts_v["K19"] + counts_9["K19"]
 
@@ -1851,7 +2381,11 @@ def main():
                     "K14": "phi (cyclic)", "K15": "r", "K16": "phi (cyclic)",
                     "K17": "r", "K18": "phi (cyclic)", "K7x": "x, h stream",
                     "K19": "z, h stream", "K20": "rhs", "K21": "x",
-                    "K22": "phi (axis 1, cyclic)"}
+                    "K22": "phi (axis 1, cyclic)", "K23": "fields, rad",
+                    "K24": "theta + x, seeded", "K25": "y, seeded",
+                    "K26": "z, seeded", "K1b": "lite y, seeded",
+                    "K2b": "lite z, seeded", "K3b": "stencil, seeded",
+                    "K4b": "stencil + lite x, seeded"}
     summary = []
     for k, (fn, src, replaces) in KERNEL_INFO.items():
         mine = [r for r in rows if r["kernel"] == k]
@@ -1859,12 +2393,15 @@ def main():
                  if k in BE_KERNELS else f"{P8_SHAPES[0][0]} float32"
                  if k in ("K15", "K16", "K17", "K18") else
                  f"{P9_SHAPES[0][0]} float32" if k in GENERAL_KERNELS
+                 else f"{P10_SHAPES[0][0]} bfloat16" if k in GSTREAM_KERNELS
+                 else f"{P2_SHAPES[0][0]} bfloat16" if k in BF16_KERNELS
                  else P2_SHAPES[0][0])
         ref = next(r for r in mine if r["variant"] == main_variant[k]
                    and r["shape"] == shape)
-        # K1-K11 and K15-K22: no PyTorch call computes these masked,
-        # variable-coefficient or field-coefficient (cyclic) tridiagonal
-        # solves, stencils or table passes: library_ms is null
+        # K1-K11, K15-K26 and the bfloat16 entries: no PyTorch call
+        # computes these masked, variable-coefficient or field-coefficient
+        # (cyclic) tridiagonal solves, stencils or table passes:
+        # library_ms is null
         summary.append({"name": f"{k} {fn}", "route": "cuda",
                         "source": f"{PKG}/{src}", "replaces": replaces,
                         "launches": counts[k],

@@ -13,8 +13,10 @@ bounds relative to each output's scale (face conductivities, 1/(rho cp)
 and films are not temperatures), and so are the cylindrical sweeps K9-K18,
 whose stiff phi systems near a full disk's axis amplify one rounding; the
 cylindrical varprop step runs kernels against reference at float64.  K6,
-K7 (and its x entry), K19, K20, K21 and K22 repeat their plain versions
-one rounding at a time: they are held to bitwise equality.
+K7 (and its x entry), K19, K20, K21, K22 and K23-K26 repeat their plain
+versions one rounding at a time: they are held to bitwise equality.  The
+bfloat16 entries of K1-K4 solve at float32 like their plain versions but
+round differently (FMA contraction): within one bfloat16 ulp of them.
 chip_smoke.py runs the same comparisons at full size.
 """
 import numpy as np
@@ -453,3 +455,182 @@ def test_varprop_routes_on_card(route, launches):
         got, want = res["kernels"], res["reference"]
     torch.cuda.synchronize()
     assert float((got.cpu() - want.cpu()).abs().max()) <= 1e-9
+
+
+def _bf16_ulps(got, want):
+    """|got - want| in bfloat16 ulps at the larger of the two values."""
+    got, want = got.double().cpu(), want.double().cpu()
+    big = torch.maximum(got.abs(), want.abs()).clamp_min(1e-30)
+    return ((got - want).abs() / torch.exp2(torch.floor(torch.log2(big))
+                                            - 7)).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gstream_kernels_match_plain_on_card(dtype):
+    """K23 (film modes const, stream and rad, with and without a source),
+    K24 (with and without src_pre), K25 and K26 against their plain
+    versions on the card: bitwise, with and without a rounding seed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from adi_thermal_fields_tpu_torch.solvers import (
+        gstream_fields, gstream_fields_plain, gstream_sweep_y,
+        gstream_sweep_y_plain, gstream_sweep_z, gstream_sweep_z_plain,
+        gstream_theta_sweep, gstream_theta_sweep_plain)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(47)
+    shape = (37, 45, 70)               # uneven: partial blocks and tiles
+    mask_np = rng.random(shape) > 0.25
+    m8 = torch.from_numpy(mask_np).to(dev, torch.uint8)
+    cast = (lambda a: torch.from_numpy(a).to(dev, torch.float32).to(dtype))
+    T = cast(np.where(mask_np, 20.0 + 1580.0 * rng.random(shape), 20.0))
+    R = cast(np.where(mask_np, 20.0 + 1480.0 * rng.random(shape), 20.0))
+    h = cast(50.0 + 100.0 * rng.random(shape))
+    src = cast(rng.random(shape) * 1e8)
+    tabs = dict(k_spec=melt_pool_enhanced_k(54.0, 1420.0, 1470.0, 4.0),
+                cp_spec=apparent_cp(490.0, 520.0, 2.7e5, 1420.0, 1470.0),
+                rho=7800.0)
+    tg3, sk3 = (1.5e-3, 1.4e-3, 1.6e-3), (49.0, 51.0, 47.0)
+    fkw = [dict(h_mode="const", hpar=30.0), dict(h_mode="stream", h=h),
+           dict(h_mode="rad", hpar=0.5, h_conv=30.0, t_inf=20.0)]
+    reset_launch_counts()
+    pairs = []
+    for i, kw in enumerate(fkw):
+        s = src if i == 2 else None
+        got = gstream_fields(T, m8, tg3, sk3, dt=0.02, src=s, **tabs, **kw)
+        want = gstream_fields_plain(T, m8, tg3, sk3, dt=0.02, src=s, **tabs,
+                                    **kw)
+        pairs += list(zip([*got[0], *got[1], *got[2]],
+                          [*want[0], *want[1], *want[2]]))
+        if s is not None:
+            pairs.append((got[3], want[3]))
+    g_lo, g_hi, sw, sp = got
+    for seed in (None, 12):
+        sr = dict(rng_seed=seed, rng_offset=1)
+        for s in (None, sp):
+            args = (T, g_lo[0], g_hi[0], g_lo[1], g_hi[1], g_lo[2], g_hi[2],
+                    sw[0], 1.0, 20.0)
+            pairs.append((gstream_theta_sweep(*args, src_pre=s, **sr),
+                          gstream_theta_sweep_plain(*args, src_pre=s, **sr)))
+        pairs.append((gstream_sweep_y(R, g_lo[1], g_hi[1], sw[1], 20.0, **sr),
+                      gstream_sweep_y_plain(R, g_lo[1], g_hi[1], sw[1], 20.0,
+                                            **sr)))
+        pairs.append((gstream_sweep_z(R, g_lo[2], g_hi[2], sw[2], 20.0, **sr),
+                      gstream_sweep_z_plain(R, g_lo[2], g_hi[2], sw[2], 20.0,
+                                            **sr)))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert got.is_cuda and got.dtype == dtype
+        assert torch.equal(got, want)
+    assert launch_counts() == _counts(K23=3, K24=4, K25=2, K26=2)
+
+
+@pytest.mark.cuda
+def test_bf16_entries_match_plain_on_card():
+    """The bfloat16 entries of K1 (plan-lite x and y, the field plan with
+    Neumann and Dirichlet folds, the permuted z), K2, K3 and K4 against
+    their plain versions on the card, rounding to nearest and
+    stochastically: within one bfloat16 ulp (the float32 solves round
+    differently, FMA and reciprocals)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(53)
+    shape = (37, 45, 70)
+    mask_np = rng.random(shape) > 0.25
+    mask = torch.from_numpy(mask_np).to(dev)
+    bf = (lambda a: torch.from_numpy(a).to(dev, torch.float32)
+          .to(torch.bfloat16))
+    T = bf(np.where(mask_np, 20.0 + 1480.0 * rng.random(shape), 20.0))
+    coeff = bf(np.where(mask_np & (rng.random(shape) > 0.5), 0.3, 0.0))
+    q = bf(rng.random(shape) * 50.0 * mask_np)
+    dval = bf(500.0 + 500.0 * rng.random(shape))
+    dirm = torch.from_numpy(rng.random(shape) > 0.85).to(dev)
+
+    def nat(axis, dm=None, **kw):
+        return sweep_code(mask, dm, axis, **kw).movedim(0, axis).contiguous()
+
+    zxy = (lambda t: t.permute(2, 0, 1).contiguous())
+    Tz = zxy(T)
+    cz = sweep_code(mask, dirm, 2)
+    reset_launch_counts()
+    pairs = []
+    for seed in (None, 21):
+        sr = dict(rng_seed=seed, rng_offset=2)
+        calls = [
+            (sweep_strided, sweep_strided_plain,
+             (T, nat(0), TG, DT, TINF), dict(axis=0, rob_c=ROB)),
+            (sweep_strided, sweep_strided_plain,
+             (T, nat(1), TG, DT, TINF), dict(axis=1, rob_c=ROB)),
+            (sweep_strided, sweep_strided_plain,
+             (T, nat(0, dirm), TG, DT, TINF),
+             dict(axis=0, coeff=coeff, qflux=q, dir_val=dval)),
+            (sweep_strided, sweep_strided_plain,
+             (Tz, cz, TG, DT, TINF),
+             dict(axis=0, coeff=zxy(coeff), qflux=zxy(q),
+                  dir_val=zxy(dval), zxy=True)),
+            (sweep_z, sweep_z_plain, (T, nat(2), TG, DT, TINF, ROB), {}),
+            (theta_rhs, theta_rhs_plain,
+             (T, mask.to(torch.uint8), C_EXP, INV), {}),
+            (fused_theta_sweep, fused_theta_sweep_plain,
+             (T, nat(0, stencil_bits=True), C_EXP, INV, TG, DT, TINF, ROB),
+             {}),
+        ]
+        pairs += [(k(*a, **kw, **sr), p(*a, **kw, **sr))
+                  for k, p, a, kw in calls]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert got.is_cuda and got.dtype == torch.bfloat16
+        assert _bf16_ulps(got, want) <= 1.0
+    assert launch_counts() == _counts(K1b=8, K2b=2, K3b=2, K4b=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,launches", [
+    ("lite", dict(K4b=1, K1b=1, K2b=1)),
+    ("field", dict(K3b=1, K1b=3)),
+    ("gstreams", dict(K23=1, K24=1, K25=1, K26=1))])
+def test_bf16_engine_routes_on_card(route, launches):
+    """make_cartesian_engine(dtype=bfloat16, stochastic_rounding=True) on
+    the card: launches per step, and the card's step against the CPU's
+    (plain versions, the same rounding bits): within one bfloat16 ulp, the
+    g-stream step bitwise (K23-K26 repeat their plain versions)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from adi_thermal_fields_tpu_torch import CartesianGrid
+    from adi_thermal_fields_tpu_torch.apps.engine import (
+        make_cartesian_engine)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(59)
+    grid = CartesianGrid(37, 45, 70, 5e-4)
+    mask = torch.from_numpy(rng.random(grid.shape) > 0.2)
+    T = torch.from_numpy(1300.0 + 300.0 * rng.random(grid.shape)) \
+        .to(torch.float32).to(torch.bfloat16)
+    mat = Material(7800.0, 490.0, 54.0)
+    bcs = {"lite": dict(robin_h=30.0),
+           "field": dict(robin_h={f: 30.0 for f in ("x-", "x+", "y-", "y+",
+                                                    "z-", "z+")}),
+           "gstreams": dict(robin_h=15.0, emissivity=0.5,
+                            k_table=melt_pool_enhanced_k(54.0, 1420.0,
+                                                         1470.0, 4.0),
+                            cp_table=apparent_cp(490.0, 490.0, 2.7e5,
+                                                 1420.0, 1470.0))}[route]
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        prep, adv = make_cartesian_engine(
+            grid, mat, implementation="kernels", device=d,
+            dtype=torch.bfloat16, t_inf=20.0, stochastic_rounding=True,
+            **bcs)
+        p = prep(mask.to(d))
+        reset_launch_counts()
+        res[d.type] = adv(T.to(d), p, 0.02, 1, 0.5)
+        assert launch_counts() == _counts(**{
+            k: v if d.type == "cuda" else 0 for k, v in launches.items()})
+    torch.cuda.synchronize()
+    got, want = res["cuda"].cpu(), res["cpu"]
+    assert got.dtype == torch.bfloat16
+    if route == "gstreams":
+        assert torch.equal(got, want)
+    else:
+        assert _bf16_ulps(got, want) <= 2.0

@@ -198,13 +198,29 @@ def test_convert_round_trip(plan):
 
 
 def test_bfloat16_state_is_not_ported_yet():
+    """bfloat16 states run now (the name records when they did not): the
+    plan-lite step on a bfloat16 state stays bfloat16 and lies within one
+    bfloat16 ulp of JAX ``adi_step_pallas`` on the same state (rounding
+    to nearest; tests/test_torch_bf16.py holds the other plans)."""
     mask, T = _random_case((6, 5, 4), seed=8)
-    grid = CartesianGrid(*mask.shape, 1e-3)
-    plan = build_sweep_plan(torch.from_numpy(mask), None,
-                            robin_const=_lite_const(200.0, grid))
-    with pytest.raises(NotImplementedError):
-        adi_step_fused(torch.from_numpy(T).to(torch.bfloat16), plan, grid,
-                       Material(RHO, CP, K), dt=DT)
+    grids = (JGrid(*mask.shape, 1e-3), CartesianGrid(*mask.shape, 1e-3))
+    rc = _lite_const(200.0, grids[1])
+    rc32 = tuple(float(np.float32(v)) for v in rc)
+    plan = build_sweep_plan(torch.from_numpy(mask), None, robin_const=rc32)
+    Tb = jnp.asarray(T, jnp.bfloat16)
+    ref = np.asarray(j_adi_step_pallas(
+        Tb, j_build_plan(jnp.asarray(mask), None,
+                         robin_const=jnp.asarray(rc32, jnp.float32)),
+        grids[0], JMaterial(RHO, CP, K), dt=DT, theta=0.5, t_inf=20.0,
+        interpret=True).astype(jnp.float32))
+    got = adi_step_fused(torch.from_numpy(np.array(
+        Tb.astype(jnp.float32))).to(torch.bfloat16), plan, grids[1],
+        Material(RHO, CP, K), dt=DT, t_inf=20.0)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    big = np.maximum(np.abs(got), np.abs(ref))
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(big, 1e-30))) - 7)
+    assert np.all(np.abs(got - ref) <= ulp)
 
 
 @pytest.mark.parametrize("bcs", ["robin", "entry", "dirichlet", "per_face"])

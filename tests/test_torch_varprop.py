@@ -495,12 +495,18 @@ def test_unported_varprop_routes_raise():
     T = torch.full(mask.shape, 900.0, dtype=torch.float64)
     grid, mat = CartesianGrid(6, 5, 4, 1e-3), Material(RHO, CP, K)
     codes = build_varprop_codes(mask)
-    with pytest.raises(NotImplementedError, match="rows 27-30"):
+    # the g-stream tier runs now: float64 with gstreams=True takes the
+    # classic tier, as in JAX; a bfloat16 state with a per-axis k tuple
+    # needs the classic tier's bfloat16 entries, not ported
+    assert torch.equal(
         adi_step_varprop_fused(T, mask, codes, grid, mat, gstreams=True,
-                               **_fused_kw())
-    with pytest.raises(NotImplementedError, match="rows 27-30"):
+                               **_fused_kw()),
+        adi_step_varprop_fused(T, mask, codes, grid, mat, gstreams=False,
+                               **_fused_kw()))
+    kw = {**_fused_kw(), "k_table": (40.0, 50.0, 60.0)}
+    with pytest.raises(NotImplementedError, match="K5-K7 and K19"):
         adi_step_varprop_fused(T.to(torch.bfloat16), mask, codes, grid, mat,
-                               **_fused_kw())
+                               **kw)
     with pytest.raises(ValueError, match="requires emissivity"):
         make_cartesian_engine(grid, mat, implementation="kernels",
                               device="cpu", dtype=torch.float64,

@@ -118,14 +118,18 @@ def test_kernel_wrappers_refuse_inputs_that_require_grad():
             call()
 
 
-# the varprop flags run now; combined with a flag the port lacks they still
-# exit, naming only that flag
+# the varprop flags and --precision bfloat16 run now; combined with a flag
+# the port lacks they still exit, naming only that flag (bfloat16 with the
+# corrected films and variable properties needs the classic tier's bf16
+# entries)
 @pytest.mark.parametrize("flag", [
-    ["--latent_J_kg", "2.7e5", "--precision", "bfloat16"],
+    ["--latent_J_kg", "2.7e5", "--precision", "bfloat16",
+     "--corrected_bc", "1"],
     ["--melt_k_factor", "3", "--history_t_crit", "800"], ["--mesh", "2x2"],
     ["--checkpoint", "ck.npz"], ["--resume", "ck.npz"], ["--save_vtk", "1"],
     ["--history_t_crit", "800"], ["--interpass_T", "200"],
-    ["--precision", "bfloat16"]])
+    ["--precision", "bfloat16", "--corrected_bc", "1", "--emissivity",
+     "0.5"]])
 def test_unsupported_flags_exit_with_a_message(box_stl, flag):
     args = port_app.build_argparser().parse_args(
         _argv(box_stl)[:-4] + ["--device", "cpu"] + flag)
