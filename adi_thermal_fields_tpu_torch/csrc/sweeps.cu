@@ -16,6 +16,17 @@
 //   source (rhs += dt*qflux) and the Dirichlet value (rhs = dir_val on
 //   pinned rows, cf = 0 there) as fused_sweep_axis0_v2 does (:714-720).
 //
+// K1's v1 entry ("K1v1", `pin_from_code`) replaces pallas_sweeps.py
+//    fused_sweep_axis0 (:289, body _sweep_kernel :101) and
+//    fused_sweep_axis1 (:215, body _sweep_kernel_axis1 :147), the
+//    field-coefficient sweeps of the public fused_sweep (:2025).  Their
+//    pin rule differs: a row with code bit 4 is ALWAYS an identity row
+//    (b = 1, :116-121), while cf is zeroed and the rhs replaced by dir_val
+//    only when dir_val is given (:298-303).  Without dir_val a pinned row
+//    keeps d = rhs + dt*coeff*t_inf.  The v2 kernels pin only with dir_val
+//    (:771).  The v1 kernels pad n and the batch with identity rows; K1
+//    needs no padding (back substitution starts from x = 0).
+//
 // Types: the field (rhs, coeff, qflux, dir_val, out) is stored as S and
 // solved in C (common.cuh ATF_DISPATCH_STATE): float32 and float64 solve
 // at their own type; a bfloat16 field is widened on load, solved at
@@ -46,7 +57,9 @@ namespace {
 
 // zxy: the field is the (z, x, y) permutation of the natural field (B1 = 1,
 // n = nz): the natural index of row i of pencil p is p*n + i.
-template <typename S, typename C>
+// kPinFromCode: the v1 pin rule (K1v1), a compile-time switch so that K1's
+// own entries compile as before.
+template <typename S, typename C, bool kPinFromCode>
 __global__ void __launch_bounds__(256) sweep_strided_kernel(
     const S* __restrict__ rhs, const uint8_t* __restrict__ code,
     const S* __restrict__ coeff, const S* __restrict__ qflux,
@@ -79,7 +92,7 @@ __global__ void __launch_bounds__(256) sweep_strided_kernel(
     const C cc = -tg * high;
     const C dtcf = dt * cf;
     C b = C(1) + tg * (low + high) + dtcf;
-    if (pin) b = C(1);
+    if (kPinFromCode ? (c & atf::kPin) != 0u : pin) b = C(1);
     const C dd = r + dtcf * t_inf;
     const C inv = C(1) / (b - a * cp);
     cp = cc * inv;
@@ -198,10 +211,13 @@ void launch_sweep_strided(const void* rhs, const void* code,
                           const void* dirv, void* out, void* cpbuf,
                           void* dpbuf, int64_t B1, int64_t n, int64_t B2,
                           double tg, double dt, double t_inf, double rob_c,
-                          int64_t key, int zxy, cudaStream_t stream) {
+                          int64_t key, int zxy, int pin_from_code,
+                          cudaStream_t stream) {
   const int threads = 256;
   const int64_t blocks = atf::cdiv(B1 * B2, threads);
-  sweep_strided_kernel<S, C><<<(unsigned)blocks, threads, 0, stream>>>(
+  auto* kernel = pin_from_code ? sweep_strided_kernel<S, C, true>
+                               : sweep_strided_kernel<S, C, false>;
+  kernel<<<(unsigned)blocks, threads, 0, stream>>>(
       static_cast<const S*>(rhs), static_cast<const uint8_t*>(code),
       static_cast<const S*>(coeff), static_cast<const S*>(qflux),
       static_cast<const S*>(dirv), static_cast<S*>(out),
@@ -230,12 +246,12 @@ ATF_API int atf_sweep_strided(int dtype, int device, const void* rhs,
                               void* cpbuf, void* dpbuf, int64_t B1,
                               int64_t n, int64_t B2, double tg, double dt,
                               double t_inf, double rob_c, int64_t key,
-                              int zxy, void* stream) {
+                              int zxy, int pin_from_code, void* stream) {
   ATF_DISPATCH_STATE(dtype, device,
                      launch_sweep_strided<S, C>(
                          rhs, code, coeff, qflux, dirv, out, cpbuf, dpbuf,
                          B1, n, B2, tg, dt, t_inf, rob_c, key, zxy,
-                         (cudaStream_t)stream));
+                         pin_from_code, (cudaStream_t)stream));
 }
 
 ATF_API int atf_sweep_z(int dtype, int device, const void* rhs,

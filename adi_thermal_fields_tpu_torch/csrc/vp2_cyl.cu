@@ -5,8 +5,15 @@
 //     (:402) in its solve-leading forms (the pipelined body
 //     _vp2_pipe_kernel :1109, call site :539, and the streaming body
 //     _vp2_kernel :201 at call site :611 without nat_rhs_out, which compute
-//     the same thing): the solve along axis 0 of a C-contiguous (n, B)
-//     field -- r of the natural (r, phi, z) field, B = nphi*nz.
+//     the same thing): the solve along the strided axis of a C-contiguous
+//     field viewed as (B1, n, B2) -- r of the natural (r, phi, z) field,
+//     (1, nr, nphi*nz).
+// K15's y entry ("K15y") replaces fused_vp2_sweep_axis1 (:1029, body
+//     _vp2_axis1_kernel :903): the Cartesian y solve of the natural
+//     (x, y, z) field, (nx, ny, nz), with uniform geometry (constant
+//     columns glo = ghi = theta/dy^2, gsl = gsh = 1/dy, h_lo = h_hi, no
+//     edge films: edge_exposed codes carry the domain-edge films).  Same
+//     kernel, same access class (one thread per pencil, z coalesced).
 // K8's general form replaces fused_vp2_sweep with nat_rhs_out=True (call
 //     site :611, body :201) as the cylindrical step uses it: per-row
 //     columns, h_lo != h_hi and domain-edge films, along the CONTIGUOUS z
@@ -48,7 +55,7 @@
 // (4) + code (1) (+ rhs 4) and writes x (4): 9 B/cell for K15 without an
 // rhs, 13 B/cell otherwise; k, cp, the faces and the films live in
 // registers only.
-//   K15: one thread per (phi, z) pencil; adjacent threads read adjacent
+//   K15: one thread per (b1, b2) pencil; adjacent threads read adjacent
 //        addresses, so every row load is coalesced; c' lives in the output
 //        and d' in a scratch field (K9's design, +16 B/cell of global round
 //        trip).  The columns are the same for every thread of a row
@@ -159,20 +166,23 @@ __global__ void __launch_bounds__(256) vp2_sweep_strided_kernel(
     const uint8_t* __restrict__ code, const T* __restrict__ glo,
     const T* __restrict__ ghi, const T* __restrict__ gsl,
     const T* __restrict__ gsh, T* __restrict__ out, T* __restrict__ dpbuf,
-    int64_t n, int64_t B, const __grid_constant__ atf::Table<T> ktab,
+    int64_t B1, int64_t n, int64_t B2,
+    const __grid_constant__ atf::Table<T> ktab,
     const __grid_constant__ atf::Table<T> ctab,
     const __grid_constant__ Films<T> f) {
   const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= B) return;
+  if (p >= B1 * B2) return;
+  const int64_t b1 = p / B2;
+  const int64_t base = b1 * n * B2 + (p - b1 * B2);
   T cp = T(0), dp = T(0), f_lo = T(0);
-  T t_next = Tf[p];
+  T t_next = Tf[base];
   T k_next = atf::clamp_sum_rn(ktab, t_next);
   for (int64_t i = 0; i < n; ++i) {
-    const int64_t off = i * B + p;
+    const int64_t off = base + i * B2;
     const T tc = t_next;
     const T k_cur = k_next;
     if (i + 1 < n) {
-      t_next = Tf[off + B];
+      t_next = Tf[off + B2];
       k_next = atf::clamp_sum_rn(ktab, t_next);
     }
     const unsigned c = code[off];
@@ -189,7 +199,7 @@ __global__ void __launch_bounds__(256) vp2_sweep_strided_kernel(
   }
   T x = T(0);
   for (int64_t i = n - 1; i >= 0; --i) {
-    const int64_t off = i * B + p;
+    const int64_t off = base + i * B2;
     x = sub(dpbuf[off], mul(out[off], x));
     out[off] = x;
   }
@@ -357,7 +367,7 @@ template <typename T>
 void launch_vp2_open(int axis_z, const void* rhs, const void* Tf,
                      const void* code, const void* glo, const void* ghi,
                      const void* gsl, const void* gsh, void* out,
-                     void* scratch, int64_t s0, int64_t s1,
+                     void* scratch, int64_t B1, int64_t n, int64_t B2,
                      const double* ktab, int kn, const double* ctab, int cn,
                      double inv_dtor, double h_lo, double h_hi, double tinf,
                      double rc, double tik, double tik2, int with_rad,
@@ -372,18 +382,18 @@ void launch_vp2_open(int axis_z, const void* rhs, const void* Tf,
   const uint8_t* c = static_cast<const uint8_t*>(code);
   const T* v[4] = {static_cast<const T*>(glo), static_cast<const T*>(ghi),
                    static_cast<const T*>(gsl), static_cast<const T*>(gsh)};
-  if (axis_z) {   // (npen, n): s0 pencils of s1 contiguous rows
-    const int64_t blocks = atf::cdiv(s0, kPencils);
+  if (axis_z) {   // (B1, n, 1): B1 pencils of n contiguous rows
+    const int64_t blocks = atf::cdiv(B1, kPencils);
     vp2_sweep_z_cols_kernel<T><<<(unsigned)blocks, kPencils,
                                  z_smem_bytes<T>(), stream>>>(
         r, t, c, v[0], v[1], v[2], v[3], static_cast<T*>(out),
-        static_cast<T*>(scratch), s0, s1, kt, ct, f);
-  } else {        // (n, B): s0 rows of s1 pencils
+        static_cast<T*>(scratch), B1, n, kt, ct, f);
+  } else {        // (B1, n, B2): B1*B2 pencils of n rows B2 apart
     const int threads = 256;
-    const int64_t blocks = atf::cdiv(s1, threads);
+    const int64_t blocks = atf::cdiv(B1 * B2, threads);
     vp2_sweep_strided_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
         r, t, c, v[0], v[1], v[2], v[3], static_cast<T*>(out),
-        static_cast<T*>(scratch), s0, s1, kt, ct, f);
+        static_cast<T*>(scratch), B1, n, B2, kt, ct, f);
   }
 }
 
@@ -417,14 +427,14 @@ bool tables_ok(int kn, int cn) {
 ATF_API int atf_vp2_sweep_strided(
     int dtype, int device, const void* rhs, const void* Tf, const void* code,
     const void* glo, const void* ghi, const void* gsl, const void* gsh,
-    void* out, void* scratch, int64_t n, int64_t B, const double* ktab,
-    int kn, const double* ctab, int cn, double inv_dtor, double h_lo,
-    double h_hi, double tinf, double rc, double tik, double tik2,
-    int with_rad, const double* edges, void* stream) {
+    void* out, void* scratch, int64_t B1, int64_t n, int64_t B2,
+    const double* ktab, int kn, const double* ctab, int cn, double inv_dtor,
+    double h_lo, double h_hi, double tinf, double rc, double tik,
+    double tik2, int with_rad, const double* edges, void* stream) {
   if (!tables_ok(kn, cn)) return (int)cudaErrorInvalidValue;
   ATF_DISPATCH(dtype, device,
                launch_vp2_open<T>(0, rhs, Tf, code, glo, ghi, gsl, gsh, out,
-                                  scratch, n, B, ktab, kn, ctab, cn,
+                                  scratch, B1, n, B2, ktab, kn, ctab, cn,
                                   inv_dtor, h_lo, h_hi, tinf, rc, tik, tik2,
                                   with_rad, edges, (cudaStream_t)stream));
 }
@@ -432,14 +442,14 @@ ATF_API int atf_vp2_sweep_strided(
 ATF_API int atf_vp2_sweep_z_cols(
     int dtype, int device, const void* rhs, const void* Tf, const void* code,
     const void* glo, const void* ghi, const void* gsl, const void* gsh,
-    void* out, void* scratch, int64_t npen, int64_t n, const double* ktab,
-    int kn, const double* ctab, int cn, double inv_dtor, double h_lo,
-    double h_hi, double tinf, double rc, double tik, double tik2,
-    int with_rad, const double* edges, void* stream) {
-  if (!tables_ok(kn, cn)) return (int)cudaErrorInvalidValue;
+    void* out, void* scratch, int64_t B1, int64_t n, int64_t B2,
+    const double* ktab, int kn, const double* ctab, int cn, double inv_dtor,
+    double h_lo, double h_hi, double tinf, double rc, double tik,
+    double tik2, int with_rad, const double* edges, void* stream) {
+  if (!tables_ok(kn, cn) || B2 != 1) return (int)cudaErrorInvalidValue;
   ATF_DISPATCH(dtype, device,
                launch_vp2_open<T>(1, rhs, Tf, code, glo, ghi, gsl, gsh, out,
-                                  scratch, npen, n, ktab, kn, ctab, cn,
+                                  scratch, B1, n, B2, ktab, kn, ctab, cn,
                                   inv_dtor, h_lo, h_hi, tinf, rc, tik, tik2,
                                   with_rad, edges, (cudaStream_t)stream));
 }

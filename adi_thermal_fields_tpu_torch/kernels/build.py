@@ -57,7 +57,7 @@ _SIGNATURES = {
     "atf_vp2_sweep_z": ([_I, _I, *[_P] * 5, _I64, _I64, _DP, _I, _DP, _I,
                          *[_D] * 8, _I, _P], _I),
     "atf_sweep_strided": ([_I, _I, *[_P] * 8, _I64, _I64, _I64, *[_D] * 4,
-                           _I64, _I, _P], _I),
+                           _I64, _I, _I, _P], _I),
     "atf_sweep_z": ([_I, _I, *[_P] * 5, _I64, _I64, *[_D] * 4, _I64, _P],
                     _I),
     "atf_theta_rhs": ([_I, _I, _P, _P, _P, _I64, _I64, _I64, *[_D] * 4,
@@ -81,10 +81,10 @@ _SIGNATURES = {
     "atf_const_sweep_z": ([_I, _I, *[_P] * 6, _I64, _I64, _P], _I),
     "atf_cyclic_const_phi": ([_I, _I, _P, _P, _P, _I64, _I64, _I64, _P],
                              _I),
-    "atf_vp2_sweep_strided": ([_I, _I, *[_P] * 9, _I64, _I64, _DP, _I, _DP,
-                               _I, *[_D] * 7, _I, _DP, _P], _I),
-    "atf_vp2_sweep_z_cols": ([_I, _I, *[_P] * 9, _I64, _I64, _DP, _I, _DP,
-                              _I, *[_D] * 7, _I, _DP, _P], _I),
+    "atf_vp2_sweep_strided": ([_I, _I, *[_P] * 9, _I64, _I64, _I64, _DP, _I,
+                               _DP, _I, *[_D] * 7, _I, _DP, _P], _I),
+    "atf_vp2_sweep_z_cols": ([_I, _I, *[_P] * 9, _I64, _I64, _I64, _DP, _I,
+                              _DP, _I, *[_D] * 7, _I, _DP, _P], _I),
     "atf_vp2_cyclic_phi": ([_I, _I, *[_P] * 8, _I64, _I64, _I64, _DP, _I,
                             _DP, _I, *[_D] * 6, _I, _P], _I),
     "atf_vp_fields_sweep_strided": ([_I, _I, *[_P] * 9, _I64, _I64, _P],

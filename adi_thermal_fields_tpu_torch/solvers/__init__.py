@@ -1,13 +1,17 @@
 """Solvers: the plain Thomas solves, the spectral phi solve, the bfloat16
 stores and the twenty-six hand-written kernels.
 
-Constant properties: K1 ``sweep_strided`` and K2 ``sweep_z`` (sweeps.py),
+Constant properties: K1 ``sweep_strided`` and K2 ``sweep_z`` (sweeps.py;
+K1's v1 entry "K1v1" behind the JAX v1 names ``fused_sweep``,
+``fused_sweep_axis0`` and ``fused_sweep_axis1``),
 K3 ``theta_rhs`` (stencil.py), K4 ``fused_theta_sweep`` (theta_sweep.py).
 Variable properties: K5 ``varprop_fields``, K6 ``varprop_theta_sweep``,
 K7 ``varprop_sweep_y`` and its x entry ``varprop_sweep_x`` (counted as
 "K7x"), K19 ``varprop_sweep_z`` and K20 ``varprop_theta_rhs``
-(varprop.py), K8 ``vp2_sweep_z`` (vp2.py).  Field-coefficient solves: K21
-``tridiag_fields`` and K22 ``cyclic_fields`` (fields.py).  The g-stream
+(varprop.py), K8 ``vp2_sweep_z`` and K15's y entry ``vp2_sweep_y``
+("K15y", the tier-2 y sweep behind ``VP2_Y_DEFAULT``) (vp2.py).
+Field-coefficient solves: K21 ``tridiag_fields`` and K22
+``cyclic_fields`` (fields.py).  The g-stream
 varprop tier: K23 ``gstream_fields``, K24 ``gstream_theta_sweep``, K25
 ``gstream_sweep_y`` and K26 ``gstream_sweep_z`` (gstreams.py).  K1-K4 and
 K23-K26 take bfloat16 states (float32 solves, stores to nearest or
@@ -21,7 +25,7 @@ Cylindrical variable-property step: K15 ``vp2_sweep_strided``, K16
 ``vp_fields_sweep_strided`` and K18 ``vp_fields_cyclic_phi`` (vpfields.py).
 Each wrapper counts its CUDA launches in a ``launches`` attribute; K1-K4
 count their bfloat16 entries apart, in ``<wrapper>.bf16.launches``
-("K1b"-"K4b").
+("K1b"-"K4b"), and K1 its v1 entry in ``sweep_strided.v1.launches``.
 """
 from .const_sweeps import (const_sweep_strided, const_sweep_strided_plain,
                            const_sweep_z, const_sweep_z_plain,
@@ -37,7 +41,10 @@ from .masked import (masked_cyclic_phi, masked_cyclic_phi_plain,
                      masked_sweep_z, masked_sweep_z_plain)
 from .spectral import phi_eigenvalue_factors, phi_solve_spectral
 from .stencil import theta_rhs, theta_rhs_plain
-from .sweeps import (sweep_code, sweep_strided, sweep_strided_plain, sweep_z,
+from .sweeps import (fused_sweep, fused_sweep_axis0,
+                     fused_sweep_axis0_plain, fused_sweep_axis1,
+                     fused_sweep_axis1_plain, fused_sweep_plain, sweep_code,
+                     sweep_strided, sweep_strided_plain, sweep_z,
                      sweep_z_plain)
 from .theta_sweep import fused_theta_sweep, fused_theta_sweep_plain
 from .thomas import cyclic_thomas, thomas
@@ -48,8 +55,8 @@ from .varprop import (varprop_fields, varprop_fields_plain,
                       varprop_theta_rhs, varprop_theta_rhs_plain,
                       varprop_theta_sweep, varprop_theta_sweep_plain)
 from .vp2 import (build_vp2_code, vp2_cyclic_phi, vp2_cyclic_phi_plain,
-                  vp2_sweep_strided, vp2_sweep_strided_plain, vp2_sweep_z,
-                  vp2_sweep_z_plain)
+                  vp2_sweep_strided, vp2_sweep_strided_plain, vp2_sweep_y,
+                  vp2_sweep_y_plain, vp2_sweep_z, vp2_sweep_z_plain)
 from .vpfields import (vp_fields_cyclic_phi, vp_fields_cyclic_phi_plain,
                        vp_fields_sweep_strided,
                        vp_fields_sweep_strided_plain)
@@ -69,7 +76,9 @@ KERNELS = {"K1": sweep_strided, "K2": sweep_z, "K3": theta_rhs,
            "K25": gstream_sweep_y, "K26": gstream_sweep_z,
            # the bfloat16 entries of K1-K4, counted apart
            "K1b": sweep_strided.bf16, "K2b": sweep_z.bf16,
-           "K3b": theta_rhs.bf16, "K4b": fused_theta_sweep.bf16}
+           "K3b": theta_rhs.bf16, "K4b": fused_theta_sweep.bf16,
+           # K1's v1 entry and K15's y entry, counted apart
+           "K1v1": sweep_strided.v1, "K15y": vp2_sweep_y}
 
 __all__ = ["thomas", "cyclic_thomas", "sweep_code", "sweep_strided", "sweep_strided_plain",
            "sweep_z", "sweep_z_plain", "theta_rhs", "theta_rhs_plain",
@@ -96,7 +105,10 @@ __all__ = ["thomas", "cyclic_thomas", "sweep_code", "sweep_strided", "sweep_stri
            "phi_solve_spectral", "gstream_fields", "gstream_fields_plain",
            "gstream_theta_sweep", "gstream_theta_sweep_plain",
            "gstream_sweep_y", "gstream_sweep_y_plain", "gstream_sweep_z",
-           "gstream_sweep_z_plain", "KERNELS",
+           "gstream_sweep_z_plain", "fused_sweep", "fused_sweep_plain",
+           "fused_sweep_axis0", "fused_sweep_axis0_plain",
+           "fused_sweep_axis1", "fused_sweep_axis1_plain", "vp2_sweep_y",
+           "vp2_sweep_y_plain", "KERNELS",
            "launch_counts", "reset_launch_counts"]
 
 

@@ -1,10 +1,10 @@
-"""Tier-2 variable-property sweeps: kernels K8, K15 and K16 and their plain
-versions.
+"""Tier-2 variable-property sweeps: kernels K8, K15 (with its y entry
+"K15y") and K16 and their plain versions.
 
 Counterpart: ``adi_thermal_fields_tpu/solvers/pallas_vp2.py`` —
 ``build_vp2_code`` (:88), ``_rad`` (:139), ``vp2_streams_xla`` (:147),
-``vp2_cyclic_streams_xla`` (:180), ``fused_vp2_sweep`` (:402) and
-``fused_vp2_cyclic_axis1`` (:812):
+``vp2_cyclic_streams_xla`` (:180), ``fused_vp2_sweep`` (:402),
+``fused_vp2_cyclic_axis1`` (:812) and ``fused_vp2_sweep_axis1`` (:1029):
 
 * ``fused_vp2_sweep`` with ``nat_rhs_out=True`` (streaming site :611, body
   ``_vp2_kernel`` :201-389) -> K8 ``vp2_sweep_z``, the sweep along the
@@ -14,6 +14,9 @@ Counterpart: ``adi_thermal_fields_tpu/solvers/pallas_vp2.py`` —
 * ``fused_vp2_sweep`` in its solve-leading forms (pipelined site :539, body
   ``_vp2_pipe_kernel`` :1109; streaming site :611 without ``nat_rhs_out``)
   -> K15 ``vp2_sweep_strided``, the sweep along axis 0 (cylindrical r);
+* ``fused_vp2_sweep_axis1`` (body ``_vp2_axis1_kernel`` :903) -> K15's y
+  entry ``vp2_sweep_y``, the Cartesian y sweep of the natural (x, y, z)
+  field with uniform geometry (constant columns, no edge films);
 * ``fused_vp2_cyclic_axis1`` (site :882, body ``_vp2_cyclic_kernel`` :633)
   -> K16 ``vp2_cyclic_phi``, the periodic sweep along axis 1 (phi).
 
@@ -54,6 +57,7 @@ raises), counting the launch in its ``launches`` attribute.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -67,7 +71,8 @@ from .varprop import _table_arg, eval_spec, harm
 
 __all__ = ["build_vp2_code", "vp2_streams", "vp2_sweep_z",
            "vp2_sweep_z_plain", "vp2_sweep_strided", "vp2_sweep_strided_plain",
-           "vp2_cyclic_phi", "vp2_cyclic_phi_plain"]
+           "vp2_sweep_y", "vp2_sweep_y_plain", "vp2_cyclic_phi",
+           "vp2_cyclic_phi_plain"]
 
 _T0K = 273.15
 
@@ -214,7 +219,8 @@ def _edge_arg(edges, emissivity: float):
 def _launch_open(entry, name, rhs, T, code, glo, ghi, gsl, gsh, inv_dtor,
                  axis, *, k_spec, cp_spec, h_lo, h_hi, tinf, emissivity,
                  edge0, edge1):
-    """K15 (axis 0) or K8's general form (last axis) on CUDA tensors."""
+    """K15 (axis 0 or 1 of a 3-D field) or K8's general form (last axis)
+    on CUDA tensors."""
     check_kernel_inputs(name, T, code, rhs)
     n = T.shape[axis]
     check_vectors(name, T, n, glo, ghi, gsl, gsh)
@@ -224,7 +230,10 @@ def _launch_open(entry, name, rhs, T, code, glo, ghi, gsl, gsh, inv_dtor,
     rad = emissivity > 0.0
     out = torch.empty_like(T)
     scratch = torch.empty_like(T)
-    sizes = (n, T.numel() // n) if axis == 0 else (T.numel() // n, n)
+    # the field as (B1, n, B2): B1*B2 pencils of n rows B2 apart (the z
+    # sweep's B2 is 1)
+    B1 = math.prod(T.shape[:axis])
+    sizes = (B1, n, T.numel() // (B1 * n))
     err = getattr(load_library(), entry)(
         dtype_code(T.dtype), T.device.index, ptr(rhs), ptr(T), ptr(code),
         ptr(glo), ptr(ghi), ptr(gsl), ptr(gsh), ptr(out), ptr(scratch),
@@ -363,6 +372,55 @@ def vp2_sweep_strided(rhs: torch.Tensor | None, T: torch.Tensor,
 
 
 vp2_sweep_strided.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K15's y entry: the Cartesian y sweep
+# ---------------------------------------------------------------------------
+
+def vp2_sweep_y_plain(rhs, T, code, glo, gs, inv_dtor, *, k_spec, cp_spec,
+                      h=0.0, t_inf=0.0, emissivity=0.0):
+    """Plain version of K15's y entry: the streams, the scaled rows,
+    ``thomas`` along axis 1, with the numbers ``glo`` and ``gs`` for every
+    row and the film ``h`` on both faces."""
+    return _open_plain(rhs, T, code, glo, glo, gs, gs, inv_dtor, 1,
+                       k_spec=k_spec, cp_spec=cp_spec, h_lo=h, h_hi=h,
+                       tinf=t_inf, emissivity=emissivity, edge0=None,
+                       edge1=None)
+
+
+def vp2_sweep_y(rhs: torch.Tensor, T: torch.Tensor, code: torch.Tensor,
+                glo: float, gs: float, inv_dtor: float, *, k_spec, cp_spec,
+                h: float = 0.0, t_inf: float = 0.0,
+                emissivity: float = 0.0) -> torch.Tensor:
+    """K15's y entry ("K15y"): the tier-2 sweep along axis 1 of the natural
+    (x, y, z) field, the y solve of ``adi_step_varprop_fused`` with
+    ``VP2_Y_DEFAULT`` on.
+
+    ``rhs``: the chained right-hand side; ``T``: the step's start field;
+    ``code``: ``build_vp2_code(mask, 1, edge_exposed=True)``; ``glo =
+    theta/dy^2`` and ``gs = 1/dy``: numbers already rounded to the field's
+    dtype (the uniform geometry of JAX ``fused_vp2_sweep_axis1``), passed
+    to K15 as constant columns; ``h``: the film on both faces against
+    ``t_inf``, plus the radiative film with ``emissivity > 0``;
+    ``inv_dtor = rho/dt``."""
+    if not use_kernel(rhs, T, code):
+        return vp2_sweep_y_plain(rhs, T, code, glo, gs, inv_dtor,
+                                 k_spec=k_spec, cp_spec=cp_spec, h=h,
+                                 t_inf=t_inf, emissivity=emissivity)
+    if T.dim() != 3:
+        raise ValueError(f"vp2_sweep_y: field must be 3-D, got {T.dim()}")
+    g, s = (torch.full((T.shape[1],), float(v), dtype=T.dtype,
+                       device=T.device) for v in (glo, gs))
+    out = _launch_open("atf_vp2_sweep_strided", "vp2_sweep_y", rhs, T, code,
+                       g, g, s, s, inv_dtor, 1, k_spec=k_spec,
+                       cp_spec=cp_spec, h_lo=h, h_hi=h, tinf=t_inf,
+                       emissivity=emissivity, edge0=None, edge1=None)
+    vp2_sweep_y.launches += 1
+    return out
+
+
+vp2_sweep_y.launches = 0
 
 
 # ---------------------------------------------------------------------------

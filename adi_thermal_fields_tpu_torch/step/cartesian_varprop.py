@@ -26,8 +26,9 @@ BC: Robin, Neumann, Dirichlet): ``implementation="reference"`` solves them
 with ``thomas`` (the JAX "xla" branch), ``"kernels"`` with K21 in the
 natural layout (the JAX "pallas" branch, ``fused_tridiag_fields``).
 ``adi_step_varprop_fused`` is the Robin-only kernel path: K5 (fields) ->
-K6 (theta pass + x sweep) -> K7 (y sweep) -> K8 (tier-2 z sweep) for a
-float32 state with a scalar or self-radiative film, and the JAX step's
+K6 (theta pass + x sweep) -> K7 (y sweep; with ``VP2_Y_DEFAULT`` K15's
+tier-2 y entry) -> K8 (tier-2 z sweep) for a float32 state with a scalar
+or self-radiative film, and the JAX step's
 other routes: K19 along z for float64 states, film fields and per-face
 streams, K20 then K7's x entry with ``fuse_theta=False``.  Float64 z runs
 K19 as in JAX, whose tier-2 z kernel takes float32 states only.
@@ -55,14 +56,15 @@ from ..solvers.varprop import (clamp_sum, face_g, table_segments,
                                varprop_fields, varprop_sweep_x,
                                varprop_sweep_y, varprop_sweep_z,
                                varprop_theta_rhs, varprop_theta_sweep)
-from ..solvers.vp2 import build_vp2_code, vp2_sweep_z
+from ..solvers.vp2 import build_vp2_code, vp2_sweep_y, vp2_sweep_z
 from .cartesian import solve_numpy_dtype
 
 __all__ = ["PropertyTable", "apparent_cp", "melt_pool_enhanced_k",
            "adi_step_varprop", "adi_step_varprop_fused",
            "adi_step_varprop_gstreams", "build_varprop_codes",
            "build_face_h_axes", "build_varprop_fields", "check_films",
-           "IMPLEMENTATIONS", "G_STREAMS_DEFAULT", "G_STREAMS_BF16_DEFAULT"]
+           "IMPLEMENTATIONS", "G_STREAMS_DEFAULT", "G_STREAMS_BF16_DEFAULT",
+           "VP2_Y_DEFAULT"]
 
 IMPLEMENTATIONS = ("kernels", "reference")
 
@@ -72,6 +74,15 @@ IMPLEMENTATIONS = ("kernels", "reference")
 # is in PERF.md; the defaults stay the JAX ones.
 G_STREAMS_DEFAULT = False          # float32 states: the classic tier
 G_STREAMS_BF16_DEFAULT = True      # bfloat16 states: the g-stream tier
+
+# The tier-2 (vp2) y solve of the classic tier, as the JAX module's flag
+# (:86): K15's y entry derives the face conductivities, 1/(rho cp) and the
+# films in registers from T^n and a 1-byte code instead of reading the
+# fields pass's fc/w/h streams, 13 B/cell (rhs, T, code, x) against K7's
+# 21.  The JAX package keeps it off (y on K7) on a TPU A/B; the H100 A/B is
+# in PERF.md, and the default stays the JAX one.  The tier-2 z solve (K8)
+# runs under the same gate without a switch.
+VP2_Y_DEFAULT = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,15 +234,20 @@ def build_varprop_codes(mask: torch.Tensor) -> tuple:
     """The kernel path's per-axis codes, all in the natural (x, y, z)
     layout: the x and y sweep codes (``sweep_code``, bits 1/2/8) for K6 or
     K7's x entry and K7, the vp2 z code ``build_vp2_code(mask, 2,
-    edge_exposed=True)`` for K8, and the z sweep code for K19.  The JAX
-    function returns three codes, its z sweep code in (z, x, y), and its
-    step builds the vp2 code on every call.  Mask-dependent only: rebuild
-    on birth events."""
+    edge_exposed=True)`` for K8, the z sweep code for K19, and the vp2 y
+    code ``build_vp2_code(mask, 1, edge_exposed=True)`` for K15's y entry,
+    built only while ``VP2_Y_DEFAULT`` is on (else None: the step then
+    builds it on each call that takes K15's y entry).  The JAX function
+    returns three codes, its z sweep code in (z, x, y), and its step builds
+    the vp2 codes on every call.  Mask-dependent only: rebuild on birth
+    events."""
     mask = mask.to(torch.bool)
     return (sweep_code(mask, None, 0),
             sweep_code(mask, None, 1).movedim(0, 1).contiguous(),
             build_vp2_code(mask, 2, edge_exposed=True),
-            sweep_code(mask, None, 2).movedim(0, 2).contiguous())
+            sweep_code(mask, None, 2).movedim(0, 2).contiguous(),
+            build_vp2_code(mask, 1, edge_exposed=True) if VP2_Y_DEFAULT
+            else None)
 
 
 def build_face_h_axes(mask: torch.Tensor, robin_h, radiation_scale=None, *,
@@ -423,9 +439,12 @@ def adi_step_varprop_fused(T: torch.Tensor, mask: torch.Tensor, codes: tuple,
     Otherwise the classic tier: the fields (K5 for numbers and tables,
     tensor ops for per-axis tuples and callables); x by K6 (``fuse_theta``
     True or None) or by K20 then K7's x entry (``fuse_theta=False``); y by
-    K7; z by K8 for float32 states with a table or number cp and z
-    conductivity and a scalar or self-radiative film, else by K19 (float64
-    states, h fields and streams, callables).  The classic tier takes
+    K7, or with ``VP2_Y_DEFAULT`` by K15's y entry under the tier-2 gate;
+    z by K8 under the tier-2 gate, else by K19.  The
+    tier-2 gate is the JAX step's (:651-656): a float32 state, a table or
+    number cp and conductivity along the axis, a scalar or self-radiative
+    film (no ``h_field``, no ``h_axes``); float64 states, film fields and
+    streams and callables take K7 and K19.  The classic tier takes
     float32 and float64 states: a bfloat16 state that the g-stream tier
     does not take raises."""
     if h_axes is not None and h_field is not None:
@@ -459,7 +478,7 @@ def adi_step_varprop_fused(T: torch.Tensor, mask: torch.Tensor, codes: tuple,
     if len(kts) != 3:
         raise ValueError("a per-axis k_table must be a 3-tuple")
     cp_spec = _kernel_spec(cp_table, mat_ref.cp)
-    kz_spec = _kernel_spec(kts[2], mat_ref.k)
+    ky_spec, kz_spec = (_kernel_spec(kt, mat_ref.k) for kt in kts[1:])
 
     # scalars at the state dtype, in the JAX step's op order
     f = solve_numpy_dtype(T.dtype)
@@ -496,18 +515,27 @@ def adi_step_varprop_fused(T: torch.Tensor, mask: torch.Tensor, codes: tuple,
         U = varprop_theta_sweep(T, codes[0], *fc, w, cw, inv_d2, tg[0],
                                 sk[0], t_inf, h=hs[0], rob_c=rob,
                                 src=source, dt=float(dt_s))
-    V = varprop_sweep_y(U, codes[1], fc[1], w, tg[1], sk[1], t_inf, h=hs[1],
-                        rob_c=rob)
-    # K8 derives k, cp and a scalar or self-radiative film from T^n in
-    # registers; its gate is the JAX step's vp2 gate (float32 states only)
-    if (T.dtype == torch.float32 and cp_spec is not None
-            and kz_spec is not None and h_field is None and h_axes is None):
+    # the tier-2 sweeps (K15's y entry, K8) derive k, cp and a scalar or
+    # self-radiative film from T^n in registers; the JAX step's vp2 gate
+    # (float32 states only), each constant rounded to float32 once
+    vp2_ok = (T.dtype == torch.float32 and cp_spec is not None
+              and h_field is None and h_axes is None)
+    vp2 = dict(cp_spec=cp_spec, h=h_conv if self_rad else float(robin_h),
+               t_inf=float(t_inf),
+               emissivity=float(emissivity) if self_rad else 0.0)
+    inv_dtor = float(f(1.0) / (dt_s / f(mat_ref.rho)))
+    if VP2_Y_DEFAULT and vp2_ok and ky_spec is not None:
+        ycode = (codes[4] if codes[4] is not None else
+                 build_vp2_code(mask.to(torch.bool), 1, edge_exposed=True))
+        V = vp2_sweep_y(U, T, ycode, float(f(theta * inv_d2[1])),
+                        float(f(1.0 / grid.spacing[1])), inv_dtor,
+                        k_spec=ky_spec, **vp2)
+    else:
+        V = varprop_sweep_y(U, codes[1], fc[1], w, tg[1], sk[1], t_inf,
+                            h=hs[1], rob_c=rob)
+    if vp2_ok and kz_spec is not None:
         return vp2_sweep_z(V, T, codes[2], float(f(theta * inv_d2[2])),
-                           float(f(1.0 / grid.spacing[2])),
-                           float(f(1.0) / (dt_s / f(mat_ref.rho))),
-                           k_spec=kz_spec, cp_spec=cp_spec,
-                           h=h_conv if self_rad else float(robin_h),
-                           t_inf=float(t_inf),
-                           emissivity=float(emissivity) if self_rad else 0.0)
+                           float(f(1.0 / grid.spacing[2])), inv_dtor,
+                           k_spec=kz_spec, **vp2)
     return varprop_sweep_z(V, codes[3], fc[2], w, tg[2], sk[2], t_inf,
                            h=hs[2], rob_c=rob)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's main paths once on one CUDA card, through their
-twenty-six hand-written kernels (four with a bfloat16 entry), and check
-every result.
+twenty-six hand-written kernels (four with a bfloat16 entry, K1 with its
+v1 entry and K15 with its y entry), and check every result.
 
     python3 chip_smoke.py        # from the root of a checkout; one card
     python3 chip_smoke.py --profile   # phase 8's steps under torch.profiler
@@ -162,6 +162,30 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    gated at a mean of P10_APP_MEAN_TOL K over the solid, and with all of
    phase 5's flags (against phase 5's float32 field; printed, not gated:
    the stochastically rounded state freezes at the solidus, PERF.md).
+11. The last TPU kernels: the v1 field-coefficient sweeps and the tier-2 y
+   sweep.  Its kernel part (run with phase 2): K1's v1 entry through the
+   public fused_sweep for axes 0, 1 and 2 and through fused_sweep_axis1
+   on the natural layout, at the 256^3 WAAM mask and 97x203x131 (a random
+   mask), float32 and float64, with the Neumann and Dirichlet folds and
+   with pinned codes but no dir_val (the v1 pin rule), within
+   KERNEL_TOL_ULP of the plain versions; K15's y entry at the 256^3 and
+   512^3 WAAM masks, float32, scalar and radiative film, bitwise.  Its
+   path part: one implicit x, y, z pass through fused_sweep at 256^3 with
+   __graft_entry__'s BCs and a Dirichlet bottom against the reference
+   sweeps (STEP_TOL; K1v1 = 3 launches); phase 3's 512^3 float32 varprop
+   step (tables + h 30 + emissivity 0.5) with VP2_Y_DEFAULT off and on from
+   a shared state, per step within rtol 2e-5 / atol 5e-3 K (the JAX
+   switch test's tolerance), launches K15y = 1 and K7 = 0 per step on, the
+   reverse off, and an A/B of ms/step in turns (off, on, on, off); the
+   float32 WAAM varprop prints with the switch on: phase 10's print less
+   the latent heat within APP_TOL of its switch-off run, and phase 5's
+   print with the latent heat against its switch-off run, printed (max,
+   mean, the cells above APP_TOL and their distance from the solidus) and
+   not gated: it parts by more than APP_TOL at cells near the solidus, as
+   the JAX package's two routes do (scripts/vp2_y_solidus.py; PERF.md).
+   Each of the four float32 prints is held against the float64 print of
+   its flags (max, mean |d| and mean d over the solid; printed).  The
+   switch is set back whatever happens.
 
 Each main path is driven with the launch counts set to 0 just before it
 and read just after it: phases 3 (constant properties) and 4 for K1-K4,
@@ -170,7 +194,8 @@ and app for K9-K11, phase 7's step and app for K12-K14, phase 8's steps
 and apps for K8 and K15-K18, phase 9's steps and apps for K7's x
 entry and K19-K22 (beside K1, K3 and K5-K7), then phase 10's steps and
 apps for K1b-K4b and K23-K26 (beside the float32 K1-K8 of its
-comparisons).  The line before the
+comparisons), then phase 11's v1 pass, steps and print for K1v1 and K15y
+(beside K5-K8, and K19 in its float64 print).  The line before the
 last is a JSON summary of the kernels (launches of those runs; each
 kernel's time at its main-path shape beside its bound, the least time for
 the bytes it must move and the operations it must do, its plain version's
@@ -271,6 +296,12 @@ KERNEL_INFO = {
             "adi_thermal_fields_tpu/solvers/pallas_stencil.py:115"),
     "K4b": ("fused_theta_sweep, bfloat16 entry", "csrc/theta_sweep.cu",
             "adi_thermal_fields_tpu/solvers/pallas_theta_sweep.py:454"),
+    # K1's v1 entry (rows 7-8: fused_sweep_axis0 :289, fused_sweep_axis1
+    # :215) and K15's y entry (row 23)
+    "K1v1": ("fused_sweep, K1's v1 entry", "csrc/sweeps.cu",
+             "adi_thermal_fields_tpu/solvers/pallas_sweeps.py:289"),
+    "K15y": ("vp2_sweep_y, K15's y entry", "csrc/vp2_cyl.cu",
+             "adi_thermal_fields_tpu/solvers/pallas_vp2.py:1029"),
 }
 # float32 operations per cell of each kernel's main variant, counted from
 # its source (adds, multiplies and divides of one row, the back
@@ -281,7 +312,7 @@ OPS_PER_CELL = {"K1": 22, "K2": 22, "K3": 20, "K4": 42, "K5": 140,
                 "K16": 60, "K17": 20, "K18": 30, "K7x": 25, "K19": 25,
                 "K20": 25, "K21": 8, "K22": 20, "K23": 110, "K24": 35,
                 "K25": 12, "K26": 12, "K1b": 22, "K2b": 22, "K3b": 20,
-                "K4b": 42}
+                "K4b": 42, "K1v1": 22, "K15y": 50}
 CONST_KERNELS = ("K1", "K2", "K3", "K4")
 VP_KERNELS = ("K5", "K6", "K7", "K8", "K19")
 CYL_KERNELS = ("K9", "K10", "K11")
@@ -297,6 +328,10 @@ P9_ALSO = CONST_KERNELS + ("K5", "K6", "K7")
 GSTREAM_KERNELS = ("K23", "K24", "K25", "K26")
 BF16_KERNELS = ("K1b", "K2b", "K3b", "K4b") + GSTREAM_KERNELS
 P10_ALSO = CONST_KERNELS + ("K5", "K6", "K7", "K8")
+# phase 11: the v1 sweeps and the tier-2 y sweep, and the varprop kernels
+# its switch-off legs and its print share with phase 3
+REMAINDER_KERNELS = ("K1v1", "K15y")
+P11_ALSO = ("K5", "K6", "K7", "K8", "K19")
 # phase 6: the kernels' plans, the step (bench.py's masked-cylindrical
 # shape and BCs, dr = dz = 0.5 mm) and the spiral app
 CYL_SHAPES = (("64x512x1024 tube", (64, 512, 1024)),
@@ -348,6 +383,10 @@ P10_VP_DT = 0.02
 P10_SEED = 12345
 P10_SR_N = 128
 P10_APP_MEAN_TOL = 8.0
+# phase 11: K15y's shapes; the tolerance of the switched step, that of the
+# JAX switch test (tests/test_vp2.py:367-368)
+P11_Y_SHAPES = (("256^3 waam", (256,) * 3), ("512^3 waam", (512,) * 3))
+P11_RTOL, P11_ATOL = 2e-5, 5e-3
 
 
 def fail(msg):
@@ -2214,6 +2253,287 @@ def phase10_app(torch, dev, p4, p5_32):
                   f"{P10_APP_MEAN_TOL} K")
         out[name] = dict(wall=res["wall_kernels"], max=float(d.max()),
                          mean=float(d.mean()))
+    out["float32 varprop without latent heat"] = p_nl
+    return out
+
+
+def max_over_tol(a, b, rtol, atol):
+    """max(|a - b| - (atol + rtol*|b|)): <= 0 when a is within the
+    tolerance of b at every cell (numpy's allclose)."""
+    return float(((a - b).abs() - (atol + rtol * b.abs())).max())
+
+
+def phase2_remainder(torch, dev):
+    """K1's v1 entry (the public v1 sweeps) and K15's y entry against
+    their plain versions."""
+    from adi_thermal_fields_tpu_torch import CartesianGrid, Material
+    from adi_thermal_fields_tpu_torch.solvers import (
+        build_vp2_code, fused_sweep, fused_sweep_axis1,
+        fused_sweep_axis1_plain, fused_sweep_plain, sweep_code, vp2_sweep_y,
+        vp2_sweep_y_plain)
+
+    mat = Material(7800.0, 490.0, 54.0)
+    rows = []
+
+    def compare(kname, vname, label, dtype, kern, plain, ins, bitwise=False):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()),
+              f"{kname} {vname} {label}: non-finite output")
+        err = float((got - want).abs().max())
+        ulps = err / (torch.finfo(dtype).eps * float(want.abs().max()))
+        cells = got.numel()
+        # each input read once, the output written once
+        nbytes = sum(t.numel() * t.element_size() for t in (*ins, got))
+        ms = cuda_ms(torch, kern, 20)
+        plain_ms = cuda_ms(torch, plain, 3)
+        pct = 100.0 * nbytes / (ms * 1e-3) / HBM_BYTES_PER_S
+        rows.append(dict(kernel=kname, variant=vname, shape=label,
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bytes_per_cell=nbytes / cells, pct_hbm=pct,
+                         **bound(kname, nbytes, cells)))
+        print(f"[phase 2] {kname} {vname:32s} {label:26s} max|d|={err:.3e} "
+              f"({ulps:.2f} ulp of scale, tol "
+              f"{0 if bitwise else KERNEL_TOL_ULP})  kernel {ms:8.3f} ms  "
+              f"plain {plain_ms:9.3f} ms  {pct:5.1f}% of 3.35 TB/s at "
+              f"{nbytes / cells:.2f} B/cell", flush=True)
+        if bitwise:
+            check(err == 0.0, f"{kname} {vname} {label}: max|d| {err:.3e} "
+                  "K, not bitwise equal to its plain version")
+        check(ulps <= KERNEL_TOL_ULP, f"{kname} {vname} {label}: "
+              f"{ulps:.2f} ulp of the output's scale > {KERNEL_TOL_ULP}")
+
+    # K1v1: every axis, the Neumann and Dirichlet folds and pinned codes
+    # without dir_val, float32 and float64
+    for label, shape in (P2_SHAPES[0], P2_SHAPES[2]):
+        grid = CartesianGrid(*shape, 0.5e-3)
+        if label.endswith("waam"):
+            mask = waam_mask(torch, shape, dev)
+        else:
+            g = torch.Generator(device=dev).manual_seed(3)
+            mask = torch.rand(shape, generator=g, device=dev) > 0.25
+        dirm = torch.zeros_like(mask)
+        dirm[:, :, 0] = mask[:, :, 0]
+        dirm[:, 0, :] |= mask[:, 0, :]
+        T32 = random_field(torch, mask, seed=7)
+        g = torch.Generator(device=dev).manual_seed(9)
+        rnd = (lambda: torch.rand(shape, generator=g, device=dev))
+        fields32 = dict(coeff=torch.where(mask & (rnd() > 0.5), 0.3, 0.0),
+                        qflux=torch.where(mask, 5e3 * rnd(), 0.0),
+                        dir_val=20.0 + 580.0 * rnd())
+        dt = 2.0 * grid.dx ** 2 / mat.alpha
+        tg = 0.5 * dt * mat.alpha / grid.dx ** 2
+        codes = [sweep_code(mask, dirm, a) for a in range(3)]
+        code1 = codes[1].movedim(0, 1).contiguous()
+        for dtype in (torch.float32, torch.float64):
+            dn = "f32" if dtype == torch.float32 else "f64"
+            T = T32.to(dtype)
+            fl = {k: v.to(dtype) for k, v in fields32.items()}
+            for case, kw in (("pinned, no dir_val",
+                              dict(coeff=fl["coeff"])),
+                             ("neumann+dirichlet", fl)):
+                ins = (T, codes[0], *kw.values())
+                for axis in range(3):
+                    args = (T, codes[axis], kw["coeff"], tg, dt, 20.0, axis)
+                    extra = {k: v for k, v in kw.items() if k != "coeff"}
+                    compare("K1v1", f"{'xyz'[axis]}, {case}",
+                            f"{label} {dn}", dtype,
+                            lambda: fused_sweep(*args, **extra),
+                            lambda: fused_sweep_plain(*args, **extra), ins)
+                # the axis-1 form on the natural layout (n = 203 at the
+                # random shape: not a multiple of 32)
+                args = (T, code1, kw["coeff"], tg, dt, 20.0)
+                extra = {k: v for k, v in kw.items() if k != "coeff"}
+                compare("K1v1", f"axis-1 form, {case}", f"{label} {dn}",
+                        dtype, lambda: fused_sweep_axis1(*args, **extra),
+                        lambda: fused_sweep_axis1_plain(*args, **extra), ins)
+            del T, fl
+        del T32, mask, dirm, fields32, codes, code1
+        torch.cuda.empty_cache()
+
+    # K15y at the WAAM mask, float32, scalar and radiative film: bitwise
+    kt, ct = varprop_tables()
+    for label, shape in P11_Y_SHAPES:
+        grid = CartesianGrid(*shape, 0.5e-3)
+        sc = vp_scalars(grid, mat, 2.0 * grid.dx ** 2 / mat.alpha)
+        glo = float(torch.tensor(0.5 / grid.dy ** 2, dtype=torch.float32))
+        gs = float(torch.tensor(1.0 / grid.dy, dtype=torch.float32))
+        mask = waam_mask(torch, shape, dev)
+        T = mushy_field(torch, mask, seed=7)
+        R = random_field(torch, mask, seed=13)
+        code = build_vp2_code(mask, 1, edge_exposed=True)
+        for vname, eps, h in (("y, h 30", 0.0, H_CONV),
+                              ("y, rad", EMISSIVITY, H_CONV)):
+            kw = dict(k_spec=kt, cp_spec=ct, h=h, t_inf=20.0, emissivity=eps)
+            args = (R, T, code, glo, gs, sc["inv_dtor"])
+            compare("K15y", vname, f"{label} f32", torch.float32,
+                    lambda: vp2_sweep_y(*args, **kw),
+                    lambda: vp2_sweep_y_plain(*args, **kw), (R, T, code),
+                    bitwise=True)
+        del T, R, mask, code
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase11_step(torch, dev, p5_32, p_nl, p5):
+    """The v1 sweeps' path, and the 512^3 varprop step and the WAAM
+    varprop prints with VP2_Y_DEFAULT on (K15's y entry) against the same
+    with it off (``p5_32``, and ``p_nl`` without the latent heat; ``p5``:
+    the float64 print, which takes K7 either way); the switch is set back
+    whatever happens."""
+    import adi_thermal_fields_tpu_torch.step.cartesian_varprop as cv
+    from adi_thermal_fields_tpu_torch import (CartesianGrid, Material,
+                                              build_coeff_packs)
+    from adi_thermal_fields_tpu_torch.apps.engine import make_cartesian_engine
+    from adi_thermal_fields_tpu_torch.solvers import (fused_sweep,
+                                                      launch_counts,
+                                                      sweep_code)
+    from adi_thermal_fields_tpu_torch.step.cartesian import implicit_sweep
+
+    mat = Material(7800.0, 490.0, 54.0)
+    out = {}
+    # the v1 path: one implicit x, y, z pass through the public v1 entry
+    # on the 256^3 WAAM mask with __graft_entry__'s BCs and a Dirichlet
+    # bottom, against the reference sweeps
+    n = P2_SHAPES[0][1][0]
+    grid = CartesianGrid(n, n, n, 0.5e-3)
+    mask = waam_mask(torch, grid.shape, dev)
+    dirm = torch.zeros_like(mask)
+    dirm[:, :, 0] = mask[:, :, 0]
+    pk = build_coeff_packs(mask, grid, mat, dtype=torch.float32,
+                           robin_h=200.0, neumann={"z+": 5e5},
+                           dirichlet_mask=dirm, dirichlet_value=600.0)
+    dt = 2.0 * grid.dx ** 2 / mat.alpha
+    tg = 0.5 * dt * mat.alpha / grid.dx ** 2
+    codes = [sweep_code(mask, dirm, a) for a in range(3)]
+    before = launch_counts()
+    U = W = random_field(torch, mask, seed=19)
+    for axis in range(3):
+        U = fused_sweep(U, codes[axis], pk.coeff[axis], tg, dt, 20.0, axis,
+                        qflux=pk.qflux[axis], dir_val=pk.dir_val)
+        W = implicit_sweep(W, mask, pk.coeff[axis], dirm, pk.dir_val,
+                           pk.qflux[axis], tg, dt, 20.0, axis)
+    delta = {k: v - before[k] for k, v in launch_counts().items()}
+    err = float((U - W).abs().max())
+    print(f"[phase 11] v1 pass x, y, z at {n}^3 f32 (h 200, q'' 5e5 on z+, "
+          f"600 C bottom): max|fused_sweep - implicit_sweep| = {err:.3e} K; "
+          f"launches {delta}", flush=True)
+    check(delta == {k: 3 if k == "K1v1" else 0 for k in delta},
+          f"phase 11 v1 pass: launches {delta}")
+    check(err <= STEP_TOL, f"phase 11 v1 pass: {err:.3e} K > {STEP_TOL}")
+    out["v1_pass_err"] = err
+    del mask, dirm, pk, codes, U, W
+    torch.cuda.empty_cache()
+
+    # phase 3's 512^3 float32 varprop step (the tables + h 30 + eps 0.5)
+    n = P3_N
+    grid = CartesianGrid(n, n, n, 0.5e-3)
+    dt = 2.0 * grid.dx ** 2 / mat.alpha
+    mask = waam_mask(torch, grid.shape, dev)
+    T0 = mushy_field(torch, mask, seed=11)
+    kt, ct = varprop_tables()
+    prepare, advance = make_cartesian_engine(
+        grid, mat, implementation="kernels", device=dev, dtype=torch.float32,
+        theta=0.5, t_inf=20.0, k_table=kt, cp_table=ct, robin_h=H_CONV,
+        emissivity=EMISSIVITY)
+    y_k = {False: "K7", True: "K15y"}
+    saved = cv.VP2_Y_DEFAULT
+    try:
+        # the codes as the engine builds them under each setting (the vp2
+        # y code only with the switch on)
+        preps = {}
+        for flag in (False, True):
+            cv.VP2_Y_DEFAULT = flag
+            preps[flag] = prepare(mask)
+        # each of 3 steps: off and on from the switch-off run's state
+        T, errs = T0, []
+        for _ in range(P3_STEPS):
+            res = {}
+            for flag in (False, True):
+                cv.VP2_Y_DEFAULT = flag
+                before = launch_counts()
+                res[flag] = advance(T, preps[flag], dt, 1, 0.0)
+                delta = {k: v - before[k] for k, v in launch_counts().items()}
+                want = {k: 1 if k in ("K5", "K6", "K8", y_k[flag]) else 0
+                        for k in delta}
+                check(delta == want, f"phase 11 step, VP2_Y_DEFAULT={flag}: "
+                      f"launches {delta} != {want}")
+            check(bool(torch.isfinite(res[True]).all()),
+                  "phase 11 step: non-finite T")
+            errs.append((float((res[True] - res[False]).abs().max()),
+                         max_over_tol(res[True], res[False], P11_RTOL,
+                                      P11_ATOL)))
+            T = res[False]
+        print(f"[phase 11] {n}^3 f32 varprop step (tables + h 30 + eps 0.5)"
+              f", y on K15y vs K7 per step from a shared state: max|d| "
+              f"{', '.join(f'{e:.3e}' for e, _ in errs)} K (rtol "
+              f"{P11_RTOL}, atol {P11_ATOL} K); launches per step K5 = K6 "
+              f"= K8 = 1 and K15y = 1, K7 = 0 (on) / K7 = 1, K15y = 0 (off)",
+              flush=True)
+        check(max(o for _, o in errs) <= 0.0, "phase 11 step: K15y vs K7 "
+              f"outside rtol {P11_RTOL} / atol {P11_ATOL}: {errs}")
+        # the A/B, in turns: off, on, on, off
+        ab = []
+        for flag in (False, True, True, False):
+            cv.VP2_Y_DEFAULT = flag
+            ab.append((flag, statistics.median(timed_steps(
+                torch, lambda T, f=flag: advance(T, preps[f], dt, 1, 0.0),
+                T0, P3_STEPS))))
+        ms = {f: statistics.mean(m for g, m in ab if g == f)
+              for f in (False, True)}
+        print(f"[phase 11] A/B ms/step (off / on / on / off): "
+              f"{' / '.join(f'{m:.3f}' for _, m in ab)}; on/off "
+              f"{ms[True] / ms[False]:.3f}", flush=True)
+        out.update(ab=ab, step_errs=errs)
+        del T, T0, res, preps, mask
+        torch.cuda.empty_cache()
+        # the float32 varprop prints with the switch on: without the latent
+        # heat (gated) and with it (printed)
+        cv.VP2_Y_DEFAULT = True
+        vp_flags = ["--latent_J_kg", str(LATENT), "--melt_k_factor", "4",
+                    "--emissivity", str(EMISSIVITY)]
+        runs = [(name, app_phase(torch, dev, 11, flags, impls=("kernels",)),
+                 off) for name, flags, off in (
+                     ("without latent heat", vp_flags[2:], p_nl),
+                     ("with latent heat", vp_flags, p5_32))]
+    finally:
+        cv.VP2_Y_DEFAULT = saved
+    # the float64 prints (y on K7 under either setting): phase 5's with the
+    # latent heat, and one without it
+    ref64 = {"without latent heat": app_phase(
+        torch, dev, 11, vp_flags[2:], precision="float64",
+        impls=("kernels",))["T_kernels"],
+        "with latent heat": p5["T_kernels"]}
+    for name, on, off in runs:
+        T_on, T_off = on["T_kernels"], off["T_kernels"]
+        solid = on["active"]
+        diff = (T_on - T_off).abs()
+        far = diff > APP_TOL
+        err = float(diff.max())
+        # where they part: distance from the solidus, in either run
+        near = torch.minimum((T_on - SOLIDUS).abs(), (T_off - SOLIDUS).abs())
+        print(f"[phase 11] app varprop {name} f32, y on K15y vs K7: max|d| "
+              f"= {err:.3e} K, mean {float(diff[solid].mean()):.3e} K"
+              f" over the solid; {int(far.sum())} cells above {APP_TOL} K"
+              + (f", each within {float(near[far].max()):.3f} K of the "
+                 f"solidus in one run" if bool(far.any()) else "")
+              + f"; wall {on['wall_kernels']:.2f} s (off: "
+              f"{off['wall_kernels']:.2f} s)"
+              + ("" if name == "without latent heat" else
+                 f" (not gated: above the {APP_TOL} K asked, PERF.md)"),
+              flush=True)
+        # each float32 print against the float64 one, over the solid
+        for key, t in (("on", T_on), ("off", T_off)):
+            e = (t.double() - ref64[name])[solid]
+            print(f"[phase 11] app varprop {name}, switch {key}: T_float32 "
+                  f"- T_float64 over the solid: max|d| "
+                  f"{float(e.abs().max()):.3e} K, mean|d| "
+                  f"{float(e.abs().mean()):.3e} K, mean d "
+                  f"{float(e.mean()):+.3e} K", flush=True)
+        out[f"app_err {name}"] = err
+        if name == "without latent heat":
+            check(err <= APP_TOL, f"phase 11 app {name}: {err:.3e} K > "
+                  f"{APP_TOL} K")
     return out
 
 
@@ -2289,7 +2609,8 @@ def main():
     rows = phase2(torch, dev) + phase2_varprop(torch, dev) \
         + phase2_cyl(torch, dev) + phase2_be(torch, dev) \
         + phase2_cylvp(torch, dev) + phase2_fields(torch, dev) \
-        + phase2_gstreams(torch, dev) + phase2_bf16(torch, dev)
+        + phase2_gstreams(torch, dev) + phase2_bf16(torch, dev) \
+        + phase2_remainder(torch, dev)
 
     from adi_thermal_fields_tpu_torch.solvers import (launch_counts,
                                                       reset_launch_counts)
@@ -2327,8 +2648,12 @@ def main():
     counts_9 = launch_counts()
     reset_launch_counts()
     phase10_step(torch, dev)
-    phase10_app(torch, dev, p4, p5_32)
+    p10 = phase10_app(torch, dev, p4, p5_32)
     counts_10 = launch_counts()
+    reset_launch_counts()
+    phase11_step(torch, dev, p5_32,
+                 p10["float32 varprop without latent heat"], p5)
+    counts_11 = launch_counts()
     d32 = float((p5_32["T_kernels"].double() - p5["T_kernels"]).abs().max())
     print(f"[phase 5] max|T_float32 - T_float64| (kernels) = {d32:.3e} K",
           flush=True)
@@ -2349,6 +2674,9 @@ def main():
     check(all(counts_10[k] > 0 if k in BF16_KERNELS else
               k in P10_ALSO or counts_10[k] == 0 for k in KERNEL_INFO),
           f"the bfloat16 path's launches: {counts_10}")
+    check(all(counts_11[k] > 0 if k in REMAINDER_KERNELS else
+              k in P11_ALSO or counts_11[k] == 0 for k in KERNEL_INFO),
+          f"the v1 sweeps' and tier-2 y path's launches: {counts_11}")
     d45 = float((p5_32["T_kernels"] - p4["T_kernels"]).abs().max())
     print(f"[phase 5] max|T_varprop - T_constant| = {d45:.3e} K", flush=True)
     check(d45 > 1.0, "the varprop flags changed the app's field by "
@@ -2369,7 +2697,8 @@ def main():
               **{k: counts_b[k] for k in BE_KERNELS},
               **{k: counts_8[k] for k in CYL_VP_KERNELS},
               **{k: counts_9[k] for k in GENERAL_KERNELS},
-              **{k: counts_10[k] for k in BF16_KERNELS}}
+              **{k: counts_10[k] for k in BF16_KERNELS},
+              **{k: counts_11[k] for k in REMAINDER_KERNELS}}
     counts["K8"] = counts_v["K8"] + counts_8["K8"]
     counts["K19"] = counts_v["K19"] + counts_9["K19"]
 
@@ -2385,7 +2714,8 @@ def main():
                     "K24": "theta + x, seeded", "K25": "y, seeded",
                     "K26": "z, seeded", "K1b": "lite y, seeded",
                     "K2b": "lite z, seeded", "K3b": "stencil, seeded",
-                    "K4b": "stencil + lite x, seeded"}
+                    "K4b": "stencil + lite x, seeded",
+                    "K1v1": "x, pinned, no dir_val", "K15y": "y, rad"}
     summary = []
     for k, (fn, src, replaces) in KERNEL_INFO.items():
         mine = [r for r in rows if r["kernel"] == k]
@@ -2395,10 +2725,12 @@ def main():
                  f"{P9_SHAPES[0][0]} float32" if k in GENERAL_KERNELS
                  else f"{P10_SHAPES[0][0]} bfloat16" if k in GSTREAM_KERNELS
                  else f"{P2_SHAPES[0][0]} bfloat16" if k in BF16_KERNELS
+                 else f"{P2_SHAPES[0][0]} f32" if k == "K1v1"
+                 else f"{P11_Y_SHAPES[1][0]} f32" if k == "K15y"
                  else P2_SHAPES[0][0])
         ref = next(r for r in mine if r["variant"] == main_variant[k]
                    and r["shape"] == shape)
-        # K1-K11, K15-K26 and the bfloat16 entries: no PyTorch call
+        # K1-K11, K15-K26 and their entries: no PyTorch call
         # computes these masked, variable-coefficient or field-coefficient
         # (cyclic) tridiagonal solves, stencils or table passes:
         # library_ms is null

@@ -14,9 +14,10 @@ and films are not temperatures), and so are the cylindrical sweeps K9-K18,
 whose stiff phi systems near a full disk's axis amplify one rounding; the
 cylindrical varprop step runs kernels against reference at float64.  K6,
 K7 (and its x entry), K19, K20, K21, K22 and K23-K26 repeat their plain
-versions one rounding at a time: they are held to bitwise equality.  The
-bfloat16 entries of K1-K4 solve at float32 like their plain versions but
-round differently (FMA contraction): within one bfloat16 ulp of them.
+versions one rounding at a time: they are held to bitwise equality, and
+so is K15's y entry.  K1's v1 entry is held to the field-plan K1 bounds.
+The bfloat16 entries of K1-K4 solve at float32 like their plain versions
+but round differently (FMA contraction): within one bfloat16 ulp of them.
 chip_smoke.py runs the same comparisons at full size.
 """
 import numpy as np
@@ -31,7 +32,9 @@ from adi_thermal_fields_tpu_torch import (CylindricalGrid, Material, RobinBC,
 from adi_thermal_fields_tpu_torch.solvers import (
     KERNELS, build_vp2_code, const_sweep_strided, const_sweep_strided_plain,
     const_sweep_z, const_sweep_z_plain, cyclic_const_phi,
-    cyclic_const_phi_plain, fused_theta_sweep, fused_theta_sweep_plain,
+    cyclic_const_phi_plain, fused_sweep, fused_sweep_axis1,
+    fused_sweep_axis1_plain, fused_sweep_plain, fused_theta_sweep,
+    fused_theta_sweep_plain,
     launch_counts, masked_cyclic_phi, masked_cyclic_phi_plain,
     masked_sweep_strided, masked_sweep_strided_plain, masked_sweep_z,
     masked_sweep_z_plain, reset_launch_counts, sweep_code, sweep_strided,
@@ -39,7 +42,8 @@ from adi_thermal_fields_tpu_torch.solvers import (
     varprop_fields, varprop_fields_plain, varprop_sweep_y,
     varprop_sweep_y_plain, varprop_theta_sweep, varprop_theta_sweep_plain,
     vp2_cyclic_phi, vp2_cyclic_phi_plain, vp2_sweep_strided,
-    vp2_sweep_strided_plain, vp2_sweep_z, vp2_sweep_z_plain,
+    vp2_sweep_strided_plain, vp2_sweep_y, vp2_sweep_y_plain, vp2_sweep_z,
+    vp2_sweep_z_plain,
     vp_fields_cyclic_phi, vp_fields_cyclic_phi_plain,
     vp_fields_sweep_strided, vp_fields_sweep_strided_plain, cyclic_fields,
     cyclic_fields_plain, tridiag_fields, tridiag_fields_plain,
@@ -634,3 +638,96 @@ def test_bf16_engine_routes_on_card(route, launches):
         assert torch.equal(got, want)
     else:
         assert _bf16_ulps(got, want) <= 2.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 2e-3)],
+                         ids=["f64", "f32"])
+def test_v1_and_vp2_y_entries_match_plain_on_card(dtype, tol):
+    """K1's v1 entry (fused_sweep for every axis, with the Neumann and
+    Dirichlet folds and with pinned codes but no dir_val; the axis-1 form
+    at n = 45) and K15's y entry (scalar and radiative film, bitwise)
+    against their plain versions on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(61)
+    shape = (37, 45, 70)
+    mask_np = rng.random(shape) > 0.25
+    mask = torch.from_numpy(mask_np).to(dev)
+    dirm = torch.from_numpy(rng.random(shape) > 0.85).to(dev)
+    cast = (lambda a: torch.from_numpy(a).to(dev, dtype))
+    T = cast(np.where(mask_np, 20.0 + 1480.0 * rng.random(shape), 20.0))
+    coeff = cast(np.where(mask_np & (rng.random(shape) > 0.5), 0.3, 0.0))
+    q = cast(rng.random(shape) * 50.0 * mask_np)
+    dval = cast(500.0 + 500.0 * rng.random(shape))
+    reset_launch_counts()
+    pairs = []
+    for kw in ({}, dict(qflux=q, dir_val=dval)):
+        for axis in range(3):
+            a = (T, sweep_code(mask, dirm, axis), coeff, TG, DT, TINF, axis)
+            pairs.append((fused_sweep(*a, **kw), fused_sweep_plain(*a, **kw)))
+        a = (T, sweep_code(mask, dirm, 1).movedim(0, 1).contiguous(), coeff,
+             TG, DT, TINF)
+        pairs.append((fused_sweep_axis1(*a, **kw),
+                      fused_sweep_axis1_plain(*a, **kw)))
+    code = build_vp2_code(mask, 1, edge_exposed=True)
+    T2 = T.clone()
+    T2.view(-1)[::7] = 1420.0
+    tabs = dict(k_spec=melt_pool_enhanced_k(54.0, 1420.0, 1470.0, 4.0),
+                cp_spec=apparent_cp(490.0, 490.0, 2.7e5, 1420.0, 1470.0))
+    bitwise = []
+    for eps in (0.0, 0.5):
+        a = (T, T2, code, 4.0e5, 2.0e3, 1.5e5)
+        kw = dict(h=30.0, t_inf=TINF, emissivity=eps, **tabs)
+        bitwise.append((vp2_sweep_y(*a, **kw), vp2_sweep_y_plain(*a, **kw)))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert got.is_cuda and got.dtype == dtype
+        assert float((got - want).abs().max()) <= tol
+    for got, want in bitwise:
+        assert torch.equal(got, want)
+    assert launch_counts() == _counts(K1v1=8, K15y=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag,launches", [
+    (False, dict(K5=1, K6=1, K7=1, K8=1)),
+    (True, dict(K5=1, K6=1, K15y=1, K8=1))], ids=["off", "on"])
+def test_vp2_y_switch_on_card(flag, launches, monkeypatch):
+    """The float32 varprop step through the engine with VP2_Y_DEFAULT off
+    and on: launches per step, the card's step against the CPU's (plain
+    versions) within 2e-3 K, and the switched step within the JAX switch
+    test's rtol 2e-5 / atol 5e-3 K of the switch-off step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    import adi_thermal_fields_tpu_torch.step.cartesian_varprop as cv
+    from adi_thermal_fields_tpu_torch import CartesianGrid
+    from adi_thermal_fields_tpu_torch.apps.engine import (
+        make_cartesian_engine)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(67)
+    grid = CartesianGrid(37, 45, 70, 5e-4)
+    mask = torch.from_numpy(rng.random(grid.shape) > 0.2)
+    T = torch.from_numpy(1300.0 + 300.0 * rng.random(grid.shape)) \
+        .to(torch.float32)
+    bcs = dict(robin_h=30.0, emissivity=0.5,
+               k_table=melt_pool_enhanced_k(54.0, 1420.0, 1470.0, 4.0),
+               cp_table=apparent_cp(490.0, 490.0, 2.7e5, 1420.0, 1470.0))
+    res = {}
+    for on, d in ((flag, dev), (flag, torch.device("cpu")),
+                  (False, torch.device("cpu"))):
+        monkeypatch.setattr(cv, "VP2_Y_DEFAULT", on)
+        prep, adv = make_cartesian_engine(
+            grid, Material(7800.0, 490.0, 54.0), implementation="kernels",
+            device=d, dtype=torch.float32, t_inf=20.0, **bcs)
+        p = prep(mask.to(d))
+        reset_launch_counts()
+        res[(on, d.type)] = adv(T.to(d), p, 0.02, 1, 0.0).cpu()
+        assert launch_counts() == _counts(**(
+            launches if d.type == "cuda" else {}))
+    got = res[(flag, "cuda")]
+    assert float((got - res[(flag, "cpu")]).abs().max()) <= 2e-3
+    off = res[(False, "cpu")]
+    assert bool(((got - off).abs() <= 5e-3 + 2e-5 * off.abs()).all())
