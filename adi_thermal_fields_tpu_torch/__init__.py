@@ -20,7 +20,7 @@ the engine's integer step counter).  They run on CUDA kernels written by
 hand for the H100 (csrc/):
 
 * K1 ``solvers.sweeps.sweep_strided`` — masked sweep along x or y;
-* K2 ``solvers.sweeps.sweep_z`` — plan-lite sweep along contiguous z;
+* K2 ``solvers.sweeps.sweep_z`` — masked sweep along contiguous z;
 * K3 ``solvers.stencil.theta_rhs`` — the explicit theta-pass stencil;
 * K4 ``solvers.theta_sweep.fused_theta_sweep`` — K3 fused into the
   x-sweep;

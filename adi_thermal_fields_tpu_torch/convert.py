@@ -8,10 +8,10 @@ tensors on a chosen device:
 * ``packs_from_numpy(coeff, qflux, dir_mask, dir_val)``: bc/packs.CoeffPacks;
 * ``plan_from_numpy(...)``: step/cartesian_fused.SweepPlan from the fields
   of ``step/cartesian_pallas.SweepPlan``.  Its int8 codes are reinterpreted
-  as uint8 (bit 128 is the int8 sign bit), and the layout the port's plan
-  chooses is applied: the plan-lite z code without Neumann or Dirichlet
-  moves from the JAX (z, x, y) layout to the natural (x, y, z) layout that
-  K2 reads.  The JAX plan's TPU tile padding (``pad_to_tile``) is not
+  as uint8 (bit 128 is the int8 sign bit), and every z input (code,
+  coefficient, Neumann and Dirichlet fields) moves from the JAX (z, x, y)
+  layout to the natural (x, y, z) layout that K2 reads.  The JAX plan's
+  TPU tile padding (``pad_to_tile``) is not
   undone here: convert an unpadded plan;
 * ``property_table_from_jax(tab)``: step/cartesian_varprop.PropertyTable
   from a JAX ``PropertyTable`` (its points and values as floats);
@@ -84,17 +84,18 @@ def plan_from_numpy(mask, codes, coeffs=None, qfluxes=None, dir_vals=None,
     ``codes``: the three int8 codes (x and y natural, z in (z, x, y));
     ``coeffs`` / ``qfluxes`` / ``dir_vals``: three arrays each in the same
     layouts, or None; ``rob_c``: the per-axis plan-lite constants (a
-    scalar or 3 values), or None for a field plan."""
+    scalar or 3 values), or None for a field plan.  Every z input moves
+    from (z, x, y) to the natural layout, where the port solves z."""
     mask_t = field_from_numpy(np.asarray(mask, bool), device=device)
     cx, cy, cz = (_codes_from_numpy(c, device=device) for c in codes)
+    cz = cz.permute(1, 2, 0).contiguous()
     lite = coeffs is None
-    if lite and qfluxes is None and dir_vals is None:
-        cz = cz.permute(1, 2, 0).contiguous()     # (z, x, y) -> natural
 
     def fields(triple):
-        return (None if triple is None
-                else tuple(field_from_numpy(a, device=device)
-                           for a in triple))
+        if triple is None:
+            return None
+        fx, fy, fz = (field_from_numpy(a, device=device) for a in triple)
+        return fx, fy, fz.permute(1, 2, 0).contiguous()
 
     rc = None
     if lite:

@@ -1,268 +1,893 @@
-// K1 and K2: the masked implicit ADI sweeps.
+// K1 and K2: the masked implicit ADI sweeps, each line split across threads.
 //
 // K1 replaces adi_thermal_fields_tpu/solvers/pallas_sweeps.py
 //    fused_sweep_axis0_v2 (:686) and fused_sweep_axis1_v2 (:1363):
 //    the masked tridiagonal solve along a STRIDED axis of a C-contiguous
-//    field viewed as (B1, n, B2) -- x: (1, nx, ny*nz), y: (nx, ny, nz), and
-//    the transposed z of the field plan: (1, nz, nx*ny).
-// K2 replaces pallas_sweeps.py fused_sweep_axis2_v2 (:950): the plan-lite
-//    solve along the CONTIGUOUS z axis of the natural field.
+//    field viewed as (B1, n, B2) -- x: (1, nx, ny*nz), y: (nx, ny, nz); and
+//    (`zxy`) a (z, x, y) permuted field as (1, nz, nx*ny).
+// K1's v1 entry ("K1v1", `pin_from_code`) replaces pallas_sweeps.py
+//    fused_sweep_axis0 (:289) and fused_sweep_axis1 (:215), the
+//    field-coefficient sweeps of the public fused_sweep (:2025).
+// K2 replaces pallas_sweeps.py fused_sweep_axis2_v2 (:950): the solve along
+//    the CONTIGUOUS z axis of the natural field.  It takes K1's inputs too
+//    (coefficient field, Neumann flux, Dirichlet values), so the field plan
+//    solves z in the natural layout with no permuted copy of the state.
 //
 // Row system (both kernels), from the per-cell code byte
 // (bits 1/2 = coupling to i-1/i+1, 4 = Dirichlet pin, 8 = in-mask):
 //   a = -tg*low, c = -tg*high, cf = coeff (field) or
 //   rob_c*(2-low-high)*inmask (plan-lite), b = 1 + tg*(low+high) + dt*cf,
-//   d = rhs + dt*cf*t_inf; pinned rows have b = 1.  K1 folds the Neumann
-//   source (rhs += dt*qflux) and the Dirichlet value (rhs = dir_val on
-//   pinned rows, cf = 0 there) as fused_sweep_axis0_v2 does (:714-720).
+//   d = rhs + dt*cf*t_inf; pinned rows have b = 1.  The Neumann source
+//   folds in as rhs += dt*qflux and the Dirichlet value as rhs = dir_val on
+//   pinned rows with cf = 0 there (fused_sweep_axis0_v2 :714-720).  The v1
+//   pin rule (kPinFromCode): a row with code bit 4 is ALWAYS an identity
+//   row (b = 1, :116-121), while cf is zeroed and the rhs replaced only
+//   when dir_val is given (:298-303).  K2 given plan-lite inputs alone
+//   pins every bit-4 row too (b = 1, d = rhs + dt*cf*t_inf), as
+//   fused_sweep_axis2_v2 (has_pin=True) does; with any field it follows
+//   fused_sweep_axis0_v2.  Rows 0 and n-1 drop their outward
+//   couplings (a_0 = c_{n-1} = 0), as the Thomas solve ignores them.
 //
-// K1's v1 entry ("K1v1", `pin_from_code`) replaces pallas_sweeps.py
-//    fused_sweep_axis0 (:289, body _sweep_kernel :101) and
-//    fused_sweep_axis1 (:215, body _sweep_kernel_axis1 :147), the
-//    field-coefficient sweeps of the public fused_sweep (:2025).  Their
-//    pin rule differs: a row with code bit 4 is ALWAYS an identity row
-//    (b = 1, :116-121), while cf is zeroed and the rhs replaced by dir_val
-//    only when dir_val is given (:298-303).  Without dir_val a pinned row
-//    keeps d = rhs + dt*coeff*t_inf.  The v2 kernels pin only with dir_val
-//    (:771).  The v1 kernels pad n and the batch with identity rows; K1
-//    needs no padding (back substitution starts from x = 0).
+// What bounds them on the H100: memory.  The byte model reads each input
+// once and writes x once: 9 B/cell plan-lite, 13 with the Neumann field,
+// 21 with coefficient, Neumann and Dirichlet fields (5 and 11 at
+// bfloat16).  A tridiagonal solve has no product for the tensor cores to
+// take; they play no part.  The first versions ran one thread per line
+// (a serial Thomas recurrence) and sent c' and d' through global scratch,
+// ~25-29 B/cell, and at 256^3 the 65,536 lines of a y sweep filled a
+// quarter of the card.
+//
+// The split-line solve (the partition or SPIKE method).  A line of n rows
+// is cut into chunks of M rows, one chunk per thread:
+//   (a) the thread loads its chunk's rows once, forms (a, b, c, d) in
+//       registers (a, c and b from a 16-entry table of the code's low
+//       bits) and eliminates inside the chunk (the "modified Thomas" of
+//       Laszlo, Giles and Appleyard: a downward pass, then an upward one),
+//       leaving every row as
+//         a'_k x_first + x_k + c'_k x_last = d'_k    (0 < k < M-1)
+//       and the chunk's first and last rows coupled only to the
+//       neighbouring chunks' last and first unknowns;
+//   (b) those two rows of every chunk form a reduced tridiagonal system of
+//       2 x (chunks per line) rows with a unit diagonal, solved in parallel
+//       (`pcr_reduced`, `warp_reduced`: cyclic reduction, log2 steps);
+//   (c) each thread back-substitutes its chunk from registers and writes
+//       x once.
+// c' and d' never reach global memory.  The systems are strictly
+// diagonally dominant (b >= 1 + |a| + |c|; pinned and void rows have
+// a = c = 0), so neither level needs pivoting.  `Chunk` (phases a and c)
+// and the reduced solves (phase b) are that core, templated on the
+// compute type and the pin rule; every entry (float32, float64, bfloat16,
+// K1v1) shares it.  A thread with more than one chunk (R rounds) keeps
+// the last one in registers and reloads the others in (c).
+//   K1: a warp spans 32 lines adjacent in B2 (lane = line: every row load
+//       and store is a coalesced 128 B at float32); the block's W warps
+//       split the lines' rows, warp w owning chunks [w R, (w+1) R).  In
+//       (b) each thread first folds its R chunks' 2R rows to two
+//       (`seg_eliminate`), so PCR runs over 2W rows per line across the
+//       warps.  M = 8, W = 16 (64 registers at float32, no spills; two
+//       blocks per SM); M = 16 where a line's reduced rows would not fit
+//       in shared memory at 8, and for longer lines (over 4,096 rows at
+//       float32, 1,792 at float64) the reduced rows go to a global buffer
+//       of 6/M of the field's cells, taken and freed on the stream.
+//   K2: a warp owns one line, its lanes the chunks (lane-strided rows).
+//       The block stages its W lines of every input in shared memory with
+//       cp.async (4- and 8-byte elements; bytes and bfloat16 by plain
+//       loads), double-buffered across the groups of W lines a persistent
+//       block walks, so the next group's copies fly while this one solves.
+//       Each chunk of M rows is padded by one element (the code bytes by
+//       four), so the lanes' strided reads hit distinct banks.  With one
+//       chunk per lane (n <= 32 M) the reduced system never leaves
+//       registers: one step of cyclic reduction, then PCR over warp
+//       shuffles.  The solution goes back into the staged rhs and leaves in
+//       coalesced rows.  M = 16 (8 for n <= 256), W = 2.  A line too long
+//       to stage alone (~5,800 rows at float32 with every field, ~3,000 at
+//       float64) goes to K1's kernel on the z layout (lanes = lines n
+//       apart, rows contiguous), so no length is refused.
+// On the H100 (PERF.md §6) one thread per line solving the
+// reduced system serially in shared memory ran K2 1.3-1.6x slower than
+// PCR and K1 within a few percent of it; the launch shapes above were the
+// fastest of M in {8, 16} x W in {1..16}.  An earlier K2 variant that held
+// whole lines' c' and d' in shared memory left one warp per SM and ran
+// 1.5-4.3x slower than global scratch; here a line has 32 threads (K2) or
+// W (K1), and shared memory holds inputs (K2) and reduced rows only.
+//
+// Rounding: the split solve is not Thomas order, and its float32
+// reciprocals are the hardware's approximation (`rcp`, within one ulp), so
+// a kernel no longer repeats its plain version to within 0.68 ulp; it
+// stays within a few float32 ulp of the output's scale (2.7-3.9 on the
+// H100; chip_smoke.py KERNEL_TOL_ULP = 8).
 //
 // Types: the field (rhs, coeff, qflux, dir_val, out) is stored as S and
 // solved in C (common.cuh ATF_DISPATCH_STATE): float32 and float64 solve
 // at their own type; a bfloat16 field is widened on load, solved at
-// float32 (c' and d' stay float32) and narrowed on the final store, to
-// nearest or stochastically (`key`; the JAX kernels' rng_seed), at the
-// cell's natural linear index.
-//
-// What bounds them on the H100: memory.  The TPU kernels keep c' and d' in
-// VMEM and move 9-13 B/cell (5-7 at bfloat16).  Here:
-//   K1: one thread per pencil; threads adjacent in the batch read adjacent
-//       addresses, so every row load is coalesced.  c' and d' live in
-//       scratch tensors of the compute type (global memory), and back
-//       substitution writes x: ~25-29 B/cell at float32, ~21 at bfloat16.
-//   K2: one thread per pencil would make every load strided.  A block of
-//       one warp owns 32 pencils and stages [32 pencils x 32 rows] tiles of
-//       rhs and code through shared memory with coalesced loads; each lane
-//       runs its pencil's recurrence from the tile.  c' and d' go to global
-//       scratch through the same coalesced tiles (~25 B/cell), so a block
-//       needs ~10 KB of shared memory and many warps share an SM.  Keeping
-//       c' and d' of whole lines in shared memory instead (9 B/cell) leaves
-//       one warp per SM at 512 rows (~140 KB per block); on the H100 that
-//       variant measured 1.5x slower at 256^3 and 4.3x slower at 512^3
-//       (PERF.md), so it was dropped.
-// A simple kernel first: no TMA, no multi-warp split of a line.
+// float32 and narrowed on the final store, to nearest or stochastically
+// (`key`; the JAX kernels' rng_seed), at the cell's natural linear index.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
-// zxy: the field is the (z, x, y) permutation of the natural field (B1 = 1,
-// n = nz): the natural index of row i of pencil p is p*n + i.
-// kPinFromCode: the v1 pin rule (K1v1), a compile-time switch so that K1's
-// own entries compile as before.
-template <typename S, typename C, bool kPinFromCode>
-__global__ void __launch_bounds__(256) sweep_strided_kernel(
-    const S* __restrict__ rhs, const uint8_t* __restrict__ code,
-    const S* __restrict__ coeff, const S* __restrict__ qflux,
-    const S* __restrict__ dirv, S* __restrict__ out, C* __restrict__ cpbuf,
-    C* __restrict__ dpbuf, int64_t B1, int64_t n, int64_t B2, C tg, C dt,
-    C t_inf, C rob_c, int64_t key, int zxy) {
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= B1 * B2) return;
-  const int64_t b1 = p / B2;
-  const int64_t base = b1 * n * B2 + (p - b1 * B2);
-  const bool has_pin = dirv != nullptr;
+template <typename C>
+struct RowParams {
+  C tg, dt, t_inf, rob_c;
+};
 
-  C cp = C(0), dp = C(0);
-  for (int64_t i = 0; i < n; ++i) {
-    const int64_t off = base + i * B2;
-    const unsigned c = code[off];
-    const C low = atf::bit<C>(c, atf::kLow);
-    const C high = atf::bit<C>(c, atf::kHigh);
-    const bool pin = has_pin && (c & atf::kPin);
-    C r = atf::ld(rhs + off);
-    if (qflux != nullptr) r = r + dt * atf::ld(qflux + off);
-    if (pin) r = atf::ld(dirv + off);
-    C cf;
-    if (coeff != nullptr) {
-      cf = pin ? C(0) : atf::ld(coeff + off);
-    } else {
-      cf = rob_c * ((C(2) - low - high) * atf::bit<C>(c, atf::kInMask));
-    }
-    const C a = -tg * low;
-    const C cc = -tg * high;
-    const C dtcf = dt * cf;
-    C b = C(1) + tg * (low + high) + dtcf;
-    if (kPinFromCode ? (c & atf::kPin) != 0u : pin) b = C(1);
-    const C dd = r + dtcf * t_inf;
-    const C inv = C(1) / (b - a * cp);
-    cp = cc * inv;
-    dp = (dd - a * dp) * inv;
-    cpbuf[off] = cp;
-    dpbuf[off] = dp;
-  }
-  C x = C(0);
-  for (int64_t i = n - 1; i >= 0; --i) {
-    const int64_t off = base + i * B2;
-    x = dpbuf[off] - cpbuf[off] * x;
-    atf::st(out + off, x, key, zxy ? p * n + i : off);
+// 1/x: the hardware's approximate reciprocal at float32 (within 1 ulp;
+// every denominator here is >= 1 - |a| |c'| > 0), a division at float64.
+__device__ __forceinline__ float rcp(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ double rcp(double x) { return 1.0 / x; }
+
+// The row coefficients that depend on the code's low four bits alone:
+// a, c, b (less dt*coeff when a coefficient field is given) and, plan-lite,
+// dt*cf*t_inf; one entry per code in [0, 16), filled by threads 0-15.
+// `pin_code` (plan-lite only): every bit-4 row has b = 1, the pin rule of
+// fused_sweep_axis2_v2 (has_pin=True), which K2 takes when it is given
+// plan-lite inputs alone.
+template <typename C>
+__device__ __forceinline__ void fill_row_table(C* tab, int t,
+                                               const RowParams<C>& p,
+                                               bool has_coeff, bool pin_code) {
+  const C low = atf::bit<C>(t, atf::kLow);
+  const C high = atf::bit<C>(t, atf::kHigh);
+  tab[t] = -p.tg * low;
+  tab[16 + t] = -p.tg * high;
+  const C b0 = C(1) + p.tg * (low + high);
+  if (has_coeff) {
+    tab[32 + t] = b0;
+    tab[48 + t] = C(0);
+  } else {
+    const C inm = atf::bit<C>(t, atf::kInMask);
+    const C dtcf = p.dt * (p.rob_c * ((C(2) - low - high) * inm));
+    tab[32 + t] = (pin_code && (t & atf::kPin)) ? C(1) : b0 + dtcf;
+    tab[48 + t] = dtcf * p.t_inf;
   }
 }
 
-constexpr int kPencils = 32;     // pencils per K2 block (one warp)
-constexpr int kChunk = 32;       // rows per staged tile
-constexpr int kPitch = kChunk + 1;  // padded tile row: conflict-free lanes
+// One row of the system from its code and field values (the fold and pin).
+template <typename C, bool kPinFromCode>
+__device__ __forceinline__ void form_row(unsigned c, C r, bool has_coeff,
+                                         C cfv, bool has_q, C q, bool has_pin,
+                                         C dv, const RowParams<C>& p,
+                                         const C* tab, C& a, C& b, C& cc,
+                                         C& d) {
+  const unsigned c4 = c & 15u;
+  a = tab[c4];
+  cc = tab[16 + c4];
+  const bool pin = has_pin && (c & atf::kPin);
+  if (has_q) r = r + p.dt * q;
+  if (pin) r = dv;
+  if (has_coeff) {
+    const C dtcf = pin ? C(0) : p.dt * cfv;
+    b = tab[32 + c4] + dtcf;
+    d = r + dtcf * p.t_inf;
+  } else {
+    b = tab[32 + c4];
+    d = r + tab[48 + c4];
+  }
+  if (kPinFromCode ? (c & atf::kPin) != 0u : pin) b = C(1);
+}
+
+// Phases (a) and (c) of one chunk of M rows (M >= 4).  `src(k, code, r,
+// cf, q, dv)` fills row k's inputs (all zero past the line's end: an
+// identity row).
+template <typename C, int M, bool kPinFromCode>
+struct Chunk {
+  C a[M], c[M], d[M];
+
+  template <typename Src>
+  __device__ __forceinline__ void load(const Src& src, int64_t row0,
+                                       int64_t n, bool has_coeff, bool has_q,
+                                       bool has_pin, const RowParams<C>& p,
+                                       const C* tab) {
+    C b[M];
+#pragma unroll
+    for (int k = 0; k < M; ++k) {
+      unsigned cd;
+      C r, cf, q, dv;
+      src(k, cd, r, cf, q, dv);
+      form_row<C, kPinFromCode>(cd, r, has_coeff, cf, has_q, q, has_pin, dv,
+                                p, tab, a[k], b[k], c[k], d[k]);
+      if (row0 + k == 0) a[k] = C(0);
+      if (row0 + k == n - 1) c[k] = C(0);
+    }
+    // downward: row k >= 1 becomes a'_k x_first + x_k + c'_k x_{k+1} = d'_k
+    C r = rcp(b[0]);
+    a[0] *= r;
+    c[0] *= r;
+    d[0] *= r;
+    r = rcp(b[1]);
+    a[1] *= r;
+    c[1] *= r;
+    d[1] *= r;
+#pragma unroll
+    for (int k = 2; k < M; ++k) {
+      r = rcp(b[k] - a[k] * c[k - 1]);
+      d[k] = r * (d[k] - a[k] * d[k - 1]);
+      a[k] = -r * (a[k] * a[k - 1]);
+      c[k] = r * c[k];
+    }
+    // upward: rows 1..M-2 couple to x_first and x_last only; row 0 to the
+    // previous chunk's last unknown and x_last
+#pragma unroll
+    for (int k = M - 3; k >= 1; --k) {
+      d[k] = d[k] - c[k] * d[k + 1];
+      a[k] = a[k] - c[k] * a[k + 1];
+      c[k] = -c[k] * c[k + 1];
+    }
+    r = rcp(C(1) - c[0] * a[1]);
+    d[0] = r * (d[0] - c[0] * d[1]);
+    a[0] = r * a[0];
+    c[0] = -r * (c[0] * c[1]);
+  }
+
+  __device__ __forceinline__ C x(int k, C x_first, C x_last) const {
+    if (k == 0) return x_first;
+    if (k == M - 1) return x_last;
+    return d[k] - a[k] * x_first - c[k] * x_last;
+  }
+
+  // the chunk's two rows of the reduced system (rows 2j, 2j+1 at stride s)
+  __device__ __forceinline__ void put_reduced(C* A, C* Cc, C* D, int64_t i0,
+                                              int64_t i1) const {
+    A[i0] = a[0];
+    Cc[i0] = c[0];
+    D[i0] = d[0];
+    A[i1] = a[M - 1];
+    Cc[i1] = c[M - 1];
+    D[i1] = d[M - 1];
+  }
+};
+
+// Phase (b): parallel cyclic reduction (PCR) of the reduced system.  Step
+// s folds rows i-s and i+s into row i (unit diagonal kept), so after
+// ceil(log2 rows) steps every row stands alone and D holds the unknowns.
+// Rows ping-pong between (A, Cc, D) and the scratch (A2, Cc2, D2); this
+// thread updates rows first, first+step, ...; `sync` orders the steps
+// (the block's or the warp's barrier).  Returns the array holding x.
+template <typename C, typename Sync>
+__device__ __forceinline__ C* pcr_reduced(C* A, C* Cc, C* D, C* A2, C* Cc2,
+                                          C* D2, int rows, int stride,
+                                          int base, int first, int step,
+                                          const Sync& sync) {
+  for (int s = 1; s < rows; s *= 2) {
+    for (int i = first; i < rows; i += step) {
+      const int o = base + i * stride;
+      const C a = A[o], c = Cc[o];
+      C am = C(0), cm = C(0), dm = C(0), ap = C(0), cp = C(0), dp = C(0);
+      if (i >= s) {
+        const int om = o - s * stride;
+        am = A[om];
+        cm = Cc[om];
+        dm = D[om];
+      }
+      if (i + s < rows) {
+        const int op = o + s * stride;
+        ap = A[op];
+        cp = Cc[op];
+        dp = D[op];
+      }
+      const C inv = rcp(C(1) - a * cm - c * ap);
+      A2[o] = -(a * am) * inv;
+      Cc2[o] = -(c * cp) * inv;
+      D2[o] = (D[o] - a * dm - c * dp) * inv;
+    }
+    sync();
+    C* t = A;
+    A = A2;
+    A2 = t;
+    t = Cc;
+    Cc = Cc2;
+    Cc2 = t;
+    t = D;
+    D = D2;
+    D2 = t;
+  }
+  return D;
+}
+
+// The chunk elimination again, on `cnt` unit-diagonal rows of the reduced
+// system at A/Cc/D[o0 + k*st] (in place): a thread's consecutive chunks
+// reduce to the first and last of their rows, coupled to the neighbouring
+// threads' rows only.  `seg_finish` fills the inner rows once those two
+// are known.
+template <typename C>
+__device__ __forceinline__ void seg_eliminate(C* A, C* Cc, C* D, int o0,
+                                              int st, int cnt) {
+  for (int k = 2; k < cnt; ++k) {
+    const int o = o0 + k * st, op = o - st;
+    const C a = A[o];
+    const C r = rcp(C(1) - a * Cc[op]);
+    D[o] = r * (D[o] - a * D[op]);
+    A[o] = -r * (a * A[op]);
+    Cc[o] = r * Cc[o];
+  }
+  for (int k = cnt - 3; k >= 1; --k) {
+    const int o = o0 + k * st, on = o + st;
+    const C c = Cc[o];
+    D[o] = D[o] - c * D[on];
+    A[o] = A[o] - c * A[on];
+    Cc[o] = -c * Cc[on];
+  }
+  if (cnt >= 3) {
+    const int o1 = o0 + st;
+    const C c0 = Cc[o0];
+    const C r = rcp(C(1) - c0 * A[o1]);
+    D[o0] = r * (D[o0] - c0 * D[o1]);
+    A[o0] = r * A[o0];
+    Cc[o0] = -r * (c0 * Cc[o1]);
+  }
+}
 
 template <typename C>
-constexpr size_t z_smem_bytes() {
-  // rhs / c' / x tile and d' tile (C), then the code tile (bytes)
-  return 2 * sizeof(C) * kPencils * kPitch + kPencils * kPitch;
+__device__ __forceinline__ void seg_finish(const C* A, const C* Cc, C* D,
+                                           int o0, int st, int cnt, C u0,
+                                           C u1) {
+  for (int k = 1; k < cnt - 1; ++k) {
+    const int o = o0 + k * st;
+    D[o] = D[o] - A[o] * u0 - Cc[o] * u1;
+  }
+  D[o0] = u0;
+  D[o0 + (cnt - 1) * st] = u1;
 }
 
-template <typename S, typename C>
-__global__ void __launch_bounds__(kPencils) sweep_z_kernel(
+// Phase (b) for a line of 32 chunks, one per lane, in registers: each
+// lane's last unknown absorbs its own first row and the next lane's (one
+// step of cyclic reduction), the 32 rows left go through PCR over warp
+// shuffles, and each first unknown follows from its row.  (a0, c0, d0)
+// and (a1, c1, d1): the lane's first and last reduced rows.
+template <typename C>
+__device__ __forceinline__ void warp_reduced(C a0, C c0, C d0, C a1, C c1,
+                                             C d1, int lane, C& u0, C& u1) {
+  constexpr unsigned kAll = 0xffffffffu;
+  C na = __shfl_down_sync(kAll, a0, 1);
+  C nc = __shfl_down_sync(kAll, c0, 1);
+  C nd = __shfl_down_sync(kAll, d0, 1);
+  if (lane == 31) na = nc = nd = C(0);
+  C inv = rcp(C(1) - a1 * c0 - c1 * na);
+  C A = -(a1 * a0) * inv;
+  C Cc = -(c1 * nc) * inv;
+  C D = (d1 - a1 * d0 - c1 * nd) * inv;
+#pragma unroll
+  for (int s = 1; s < 32; s *= 2) {
+    C am = __shfl_up_sync(kAll, A, s), cm = __shfl_up_sync(kAll, Cc, s);
+    C dm = __shfl_up_sync(kAll, D, s);
+    C ap = __shfl_down_sync(kAll, A, s), cp = __shfl_down_sync(kAll, Cc, s);
+    C dp = __shfl_down_sync(kAll, D, s);
+    if (lane < s) am = cm = dm = C(0);
+    if (lane + s >= 32) ap = cp = dp = C(0);
+    inv = rcp(C(1) - A * cm - Cc * ap);
+    const C nA = -(A * am) * inv, nC = -(Cc * cp) * inv;
+    D = (D - A * dm - Cc * dp) * inv;
+    A = nA;
+    Cc = nC;
+  }
+  u1 = D;
+  C prev = __shfl_up_sync(kAll, u1, 1);
+  if (lane == 0) prev = C(0);
+  u0 = d0 - a0 * prev - c0 * u1;
+}
+
+// ---------------------------------------------------------------------------
+// K1: strided lines; lane = line, warps = chunks
+// ---------------------------------------------------------------------------
+
+// Memory: the reduced rows (A, Cc, D: 2WR rows of 32 lines) in shared
+// memory, or (kGlobal, lines too long for it) in `gred`, 3 x 2WR x 32 per
+// block; then, in shared memory, the warps' segment rows (2W rows) and
+// their PCR scratch.
+template <typename C>
+size_t strided_smem_bytes(int W, int R, bool global) {
+  return sizeof(C) * (size_t)32 * ((global ? 0 : 3 * 2 * W * R) + 6 * 2 * W);
+}
+
+// Line b2 of group b1 starts at b1*n*B2 + b2*ls and its rows lie rs apart:
+// (ls, rs) = (1, B2) for the strided axes, (n, 1) for K2's long z lines.
+template <typename S, typename C, int M, bool kPinFromCode, bool kGlobal>
+__global__ void __launch_bounds__(512) sweep_strided_kernel(
     const S* __restrict__ rhs, const uint8_t* __restrict__ code,
-    S* __restrict__ out, C* __restrict__ cpbuf, C* __restrict__ dpbuf,
-    int64_t npen, int64_t n, C tg, C dt, C t_inf, C rob_c, int64_t key) {
+    const S* __restrict__ coeff, const S* __restrict__ qflux,
+    const S* __restrict__ dirv, S* __restrict__ out, int64_t n, int64_t B2,
+    int64_t ls, int64_t rs, int R, RowParams<C> p, int64_t key, int zxy,
+    int pin_code, C* __restrict__ gred) {
   extern __shared__ __align__(16) unsigned char atf_smem[];
-  C* tile = reinterpret_cast<C*>(atf_smem);         // rhs, then c', then x
-  C* tile2 = tile + kPencils * kPitch;              // d'
-  uint8_t* ctile = reinterpret_cast<uint8_t*>(tile2 + kPencils * kPitch);
+  __shared__ C tab[64];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int W = blockDim.x >> 5;
+  const int rows = 2 * W * R;                     // reduced rows per line
+  C* A = kGlobal ? gred + (size_t)blockIdx.x * 3 * rows * 32
+                 : reinterpret_cast<C*>(atf_smem);
+  C* Cc = A + rows * 32;
+  C* D = Cc + rows * 32;
+  C* S2 = kGlobal ? reinterpret_cast<C*>(atf_smem)
+                  : D + rows * 32;                // segment rows, scratch
 
-  const int lane = threadIdx.x;
-  const int64_t pen0 = (int64_t)blockIdx.x * kPencils;
-  const int np = (int)atf::imin(kPencils, npen - pen0);
-
-  // forward elimination, chunk by chunk: stage rhs and code (lane = row),
-  // recur (lane = pencil), write c' and d' back (lane = row)
-  C cp = C(0), dp = C(0);
-  for (int64_t k0 = 0; k0 < n; k0 += kChunk) {
-    const int cz = (int)atf::imin(kChunk, n - k0);
-    if (lane < cz) {
-      for (int q = 0; q < np; ++q) {
-        const int64_t g = (pen0 + q) * n + k0 + lane;
-        tile[q * kPitch + lane] = atf::ld(rhs + g);
-        ctile[q * kPitch + lane] = code[g];
-      }
-    }
-    __syncwarp();
-    if (lane < np) {
-      for (int j = 0; j < cz; ++j) {
-        const unsigned c = ctile[lane * kPitch + j];
-        const C low = atf::bit<C>(c, atf::kLow);
-        const C high = atf::bit<C>(c, atf::kHigh);
-        const C cf =
-            rob_c * ((C(2) - low - high) * atf::bit<C>(c, atf::kInMask));
-        const C a = -tg * low;
-        const C cc = -tg * high;
-        const C dtcf = dt * cf;
-        C b = C(1) + tg * (low + high) + dtcf;
-        if (c & atf::kPin) b = C(1);
-        const C dd = tile[lane * kPitch + j] + dtcf * t_inf;
-        const C inv = C(1) / (b - a * cp);
-        cp = cc * inv;
-        dp = (dd - a * dp) * inv;
-        tile[lane * kPitch + j] = cp;
-        tile2[lane * kPitch + j] = dp;
-      }
-    }
-    __syncwarp();
-    if (lane < cz) {
-      for (int q = 0; q < np; ++q) {
-        const int64_t g = (pen0 + q) * n + k0 + lane;
-        cpbuf[g] = tile[q * kPitch + lane];
-        dpbuf[g] = tile2[q * kPitch + lane];
-      }
-    }
-    __syncwarp();
+  const int64_t gpb = atf::cdiv(B2, 32);          // line groups per b1
+  const int64_t b1 = blockIdx.x / gpb;
+  const int64_t b2 = (blockIdx.x - b1 * gpb) * 32 + lane;
+  const bool valid = b2 < B2;
+  const int64_t base = b1 * n * B2 + b2 * ls;
+  const bool has_coeff = coeff != nullptr, has_q = qflux != nullptr;
+  const bool has_pin = dirv != nullptr;
+  if (threadIdx.x < 16) {
+    fill_row_table(tab, threadIdx.x, p, has_coeff, pin_code != 0);
   }
+  __syncthreads();
 
-  // back substitution, last chunk first
-  C x = C(0);
-  for (int64_t k0 = (n - 1) / kChunk * kChunk; k0 >= 0; k0 -= kChunk) {
-    const int cz = (int)atf::imin(kChunk, n - k0);
-    if (lane < cz) {
-      for (int q = 0; q < np; ++q) {
-        const int64_t g = (pen0 + q) * n + k0 + lane;
-        tile[q * kPitch + lane] = cpbuf[g];
-        tile2[q * kPitch + lane] = dpbuf[g];
+  Chunk<C, M, kPinFromCode> ch;
+  auto eliminate = [&](int j) {
+    const int64_t row0 = (int64_t)j * M;
+    auto src = [&](int k, unsigned& cd, C& r, C& cf, C& q, C& dv) {
+      const int64_t i = row0 + k;
+      const bool in = valid && i < n;
+      const int64_t off = base + i * rs;
+      cd = in ? code[off] : 0u;
+      r = in ? atf::ld(rhs + off) : C(0);
+      cf = (in && has_coeff) ? atf::ld(coeff + off) : C(0);
+      q = (in && has_q) ? atf::ld(qflux + off) : C(0);
+      dv = (in && has_pin) ? atf::ld(dirv + off) : C(0);
+    };
+    ch.load(src, row0, n, has_coeff, has_q, has_pin, p, tab);
+  };
+  auto store = [&](int j) {
+    const C x0 = D[(2 * j) * 32 + lane];
+    const C xl = D[(2 * j + 1) * 32 + lane];
+#pragma unroll
+    for (int k = 0; k < M; ++k) {
+      const int64_t i = (int64_t)j * M + k;
+      if (valid && i < n) {
+        const int64_t off = base + i * rs;
+        atf::st(out + off, ch.x(k, x0, xl), key,
+                zxy ? (b1 * B2 + b2) * n + i : off);
       }
     }
-    __syncwarp();
-    if (lane < np) {
-      for (int j = cz - 1; j >= 0; --j) {
-        x = tile2[lane * kPitch + j] - tile[lane * kPitch + j] * x;
-        tile[lane * kPitch + j] = x;
-      }
-    }
-    __syncwarp();
-    if (lane < cz) {
-      for (int q = 0; q < np; ++q) {
-        const int64_t g = (pen0 + q) * n + k0 + lane;
-        atf::st(out + g, tile[q * kPitch + lane], key, g);
-      }
-    }
-    __syncwarp();
+  };
+
+  for (int r = 0; r < R; ++r) {                  // (a)
+    const int j = w * R + r;
+    eliminate(j);
+    ch.put_reduced(A, Cc, D, (2 * j) * 32 + lane, (2 * j + 1) * 32 + lane);
+  }
+  // (b): this thread's 2R reduced rows (its R consecutive chunks) reduce
+  // to their first and last; those 2W rows per line go through PCR across
+  // the warps; then the inner rows follow
+  const int o0 = (2 * w * R) * 32 + lane, cnt = 2 * R;
+  seg_eliminate(A, Cc, D, o0, 32, cnt);
+  const int last = o0 + (cnt - 1) * 32;
+  const int f = (2 * w) * 32 + lane, l = f + 32;
+  C* A2 = S2;
+  C* C2 = A2 + 2 * W * 32;
+  C* D2 = C2 + 2 * W * 32;
+  A2[f] = A[o0];
+  C2[f] = Cc[o0];
+  D2[f] = D[o0];
+  A2[l] = A[last];
+  C2[l] = Cc[last];
+  D2[l] = D[last];
+  __syncthreads();
+  const C* X2 = pcr_reduced(A2, C2, D2, D2 + 2 * W * 32, D2 + 4 * W * 32,
+                            D2 + 6 * W * 32, 2 * W, 32, lane, w, W,
+                            [] { __syncthreads(); });
+  seg_finish(A, Cc, D, o0, 32, cnt, X2[f], X2[l]);   // this thread's rows
+  store(w * R + R - 1);                          // (c), last chunk first
+  for (int r = 0; r < R - 1; ++r) {
+    eliminate(w * R + r);
+    store(w * R + r);
   }
 }
 
-template <typename S, typename C>
-void launch_sweep_strided(const void* rhs, const void* code,
-                          const void* coeff, const void* qflux,
-                          const void* dirv, void* out, void* cpbuf,
-                          void* dpbuf, int64_t B1, int64_t n, int64_t B2,
-                          double tg, double dt, double t_inf, double rob_c,
-                          int64_t key, int zxy, int pin_from_code,
-                          cudaStream_t stream) {
-  const int threads = 256;
-  const int64_t blocks = atf::cdiv(B1 * B2, threads);
-  auto* kernel = pin_from_code ? sweep_strided_kernel<S, C, true>
-                               : sweep_strided_kernel<S, C, false>;
-  kernel<<<(unsigned)blocks, threads, 0, stream>>>(
+// ---------------------------------------------------------------------------
+// K2: contiguous lines; warp = line, lanes = chunks, inputs staged
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
+                                         int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if (bytes == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(gmem));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(gmem));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// one element into the tile: asynchronous where the types agree in a 4- or
+// 8-byte word, else a plain load (bfloat16)
+template <typename T, typename S>
+__device__ __forceinline__ void stage(T* dst, const S* src) {
+  if constexpr (std::is_same_v<T, S> && sizeof(S) >= 4) {
+    cp_async(dst, src, (int)sizeof(S));
+  } else if constexpr (std::is_same_v<T, S>) {
+    *dst = *src;
+  } else {
+    *dst = atf::ld(src);
+  }
+}
+
+// The shared-memory layout of one staged group of W lines.
+struct ZLayout {
+  int W, pitch, cpitch;          // elements per line: values, code bytes
+  size_t x_bytes, f_bytes, c_bytes, buf_bytes;
+};
+
+template <typename S, typename C, int M>
+ZLayout z_layout(int W, int64_t n, int nfields) {
+  ZLayout L;
+  const int nch = (int)atf::cdiv(n, M);
+  L.W = W;
+  L.pitch = nch * (M + 1);
+  L.cpitch = nch * (M + 4);
+  auto up16 = [](size_t b) { return (b + 15) / 16 * 16; };
+  L.x_bytes = up16((size_t)W * L.pitch * sizeof(C));
+  L.f_bytes = up16((size_t)W * L.pitch * sizeof(S));
+  L.c_bytes = up16((size_t)W * L.cpitch);
+  L.buf_bytes = L.x_bytes + nfields * L.f_bytes + L.c_bytes;
+  return L;
+}
+
+template <typename C>
+size_t z_reduced_bytes(int W, int R) {
+  return 6 * sizeof(C) * (size_t)W * 2 * 32 * R;
+}
+
+template <typename S, typename C, int M>
+__global__ void __launch_bounds__(256) sweep_z_kernel(
+    const S* __restrict__ rhs, const uint8_t* __restrict__ code,
+    const S* __restrict__ coeff, const S* __restrict__ qflux,
+    const S* __restrict__ dirv, S* __restrict__ out, int64_t npen, int64_t n,
+    int R, ZLayout L, int code_async, int pin_code, RowParams<C> p,
+    int64_t key) {
+  extern __shared__ __align__(16) unsigned char atf_smem[];
+  __shared__ C tab[64];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int W = L.W;
+  const int rows = 2 * 32 * R;
+  const bool has_coeff = coeff != nullptr, has_q = qflux != nullptr;
+  const bool has_pin = dirv != nullptr;
+  const S* fsrc[3] = {coeff, qflux, dirv};
+  int fslot[3];
+  {
+    int s = 0;
+    for (int f = 0; f < 3; ++f) fslot[f] = fsrc[f] ? s++ : -1;
+  }
+  const int nf = (has_coeff ? 1 : 0) + (has_q ? 1 : 0) + (has_pin ? 1 : 0);
+  unsigned char* red = atf_smem + 2 * L.buf_bytes;
+  C* A = reinterpret_cast<C*>(red) + (size_t)w * 6 * rows;
+  C* Cc = A + rows;
+  C* D = Cc + rows;                              // then PCR's scratch
+
+  auto X = [&](int buf) {
+    return reinterpret_cast<C*>(atf_smem + buf * L.buf_bytes);
+  };
+  auto F = [&](int buf, int slot) {
+    return reinterpret_cast<S*>(atf_smem + buf * L.buf_bytes + L.x_bytes +
+                                slot * L.f_bytes);
+  };
+  auto CT = [&](int buf) {
+    return reinterpret_cast<uint8_t*>(atf_smem + buf * L.buf_bytes +
+                                      L.x_bytes + nf * L.f_bytes);
+  };
+  auto vidx = [](int64_t i) { return (int)(i / M * (M + 1) + i % M); };
+  auto cidx = [](int64_t i) { return (int)(i / M * (M + 4) + i % M); };
+
+  const int64_t G = atf::cdiv(npen, W);
+  auto stage_group = [&](int64_t g, int buf) {
+    C* x = X(buf);
+    uint8_t* ct = CT(buf);
+    for (int q = 0; q < W; ++q) {
+      const int64_t pen = g * W + q;
+      if (pen >= npen) break;
+      const int64_t g0 = pen * n;
+      for (int64_t i = threadIdx.x; i < n; i += blockDim.x) {
+        const int s = q * L.pitch + vidx(i);
+        stage<C, S>(x + s, rhs + g0 + i);
+        for (int f = 0; f < 3; ++f) {
+          if (fslot[f] >= 0) {
+            stage<S, S>(F(buf, fslot[f]) + s, fsrc[f] + g0 + i);
+          }
+        }
+      }
+      if (code_async) {
+        for (int64_t i = 4 * threadIdx.x; i < n; i += 4 * blockDim.x) {
+          cp_async(ct + q * L.cpitch + cidx(i), code + g0 + i, 4);
+        }
+      } else {
+        for (int64_t i = threadIdx.x; i < n; i += blockDim.x) {
+          ct[q * L.cpitch + cidx(i)] = code[g0 + i];
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (threadIdx.x < 16) {
+    fill_row_table(tab, threadIdx.x, p, has_coeff, pin_code != 0);
+  }
+  int buf = 0;
+  int64_t g = blockIdx.x;
+  if (g < G) stage_group(g, 0);
+  for (; g < G; g += gridDim.x, buf ^= 1) {
+    if (g + gridDim.x < G) {
+      stage_group(g + gridDim.x, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const int64_t pen = g * W + w;
+    if (pen < npen) {
+      C* x = X(buf) + w * L.pitch;
+      const uint8_t* ct = CT(buf) + w * L.cpitch;
+      const S* fl[3];
+      for (int f = 0; f < 3; ++f) {
+        fl[f] = fslot[f] >= 0 ? F(buf, fslot[f]) + w * L.pitch : nullptr;
+      }
+      Chunk<C, M, false> ch;
+      auto eliminate = [&](int j) {
+        const int64_t row0 = (int64_t)j * M;
+        auto src = [&](int k, unsigned& cd, C& r, C& cf, C& q, C& dv) {
+          const bool in = row0 + k < n;
+          const int s = j * (M + 1) + k;
+          cd = in ? ct[j * (M + 4) + k] : 0u;
+          r = in ? x[s] : C(0);
+          cf = (in && has_coeff) ? atf::ld(fl[0] + s) : C(0);
+          q = (in && has_q) ? atf::ld(fl[1] + s) : C(0);
+          dv = (in && has_pin) ? atf::ld(fl[2] + s) : C(0);
+        };
+        ch.load(src, row0, n, has_coeff, has_q, has_pin, p, tab);
+      };
+      auto put_x = [&](int j, C x0, C xl) {
+#pragma unroll
+        for (int k = 0; k < M; ++k) {
+          if ((int64_t)j * M + k < n) x[j * (M + 1) + k] = ch.x(k, x0, xl);
+        }
+      };
+      if (R == 1) {                              // a line of 32 chunks
+        eliminate(lane);                         // (a)
+        C x0, xl;                                // (b) in registers
+        warp_reduced(ch.a[0], ch.c[0], ch.d[0], ch.a[M - 1], ch.c[M - 1],
+                     ch.d[M - 1], lane, x0, xl);
+        put_x(lane, x0, xl);                     // (c), into the rhs tile
+      } else {
+        for (int r = 0; r < R; ++r) {            // (a): lanes = chunks
+          const int j = r * 32 + lane;
+          eliminate(j);
+          ch.put_reduced(A, Cc, D, 2 * j, 2 * j + 1);
+        }
+        __syncwarp();                            // (b), the warp
+        const C* X = pcr_reduced(A, Cc, D, D + rows, D + 2 * rows,
+                                 D + 3 * rows, rows, 1, 0, lane, 32,
+                                 [] { __syncwarp(); });
+        __syncwarp();
+        auto put = [&](int j) { put_x(j, X[2 * j], X[2 * j + 1]); };
+        put((R - 1) * 32 + lane);                // (c), into the rhs tile
+        for (int r = 0; r < R - 1; ++r) {
+          eliminate(r * 32 + lane);
+          put(r * 32 + lane);
+        }
+      }
+    }
+    __syncthreads();
+    // coalesced stores of the group's solution
+    for (int q = 0; q < W; ++q) {
+      const int64_t pq = g * W + q;
+      if (pq >= npen) break;
+      const C* x = X(buf) + q * L.pitch;
+      for (int64_t i = threadIdx.x; i < n; i += blockDim.x) {
+        atf::st(out + pq * n + i, x[vidx(i)], key, pq * n + i);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+// The largest dynamic shared memory a block may take (H100: 227 KB), less
+// 1 KB for the kernels' static row table.
+int smem_limit(int device) {
+  int bytes = 0;
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         device);
+  return bytes - 1024;
+}
+
+// K1's launch shape: W warps per block, M rows per thread.  M = 8 where a
+// line's reduced rows fit in shared memory, else 16, and past that the
+// reduced rows go to global memory (lines over 4,096 rows at float32, 1,792
+// at float64).  The fastest of M in {8, 16} x W in {1..16} at 256^3 and
+// 512^3 on the H100 (PERF.md §6).
+constexpr int kK1Warps = 16;
+
+int k1_warps(int64_t n, int M) {
+  return (int)atf::imin(kK1Warps, atf::cdiv(n, M));
+}
+
+template <typename C>
+bool k1_fits(int64_t n, int M, int device) {
+  const int W = k1_warps(n, M);
+  return strided_smem_bytes<C>(W, (int)atf::cdiv(n, (int64_t)W * M), false)
+         <= (size_t)smem_limit(device);
+}
+
+template <typename S, typename C, int M, bool kPin, bool kGlobal>
+cudaError_t launch_strided_m(const void* rhs, const void* code,
+                             const void* coeff, const void* qflux,
+                             const void* dirv, void* out, int64_t B1,
+                             int64_t n, int64_t B2, int64_t ls, int64_t rs,
+                             RowParams<C> p, int64_t key, int zxy,
+                             int pin_code, cudaStream_t stream) {
+  const int W = k1_warps(n, M);
+  const int R = (int)atf::cdiv(n, (int64_t)W * M);
+  const size_t smem = strided_smem_bytes<C>(W, R, kGlobal);
+  const int64_t blocks = B1 * atf::cdiv(B2, 32);
+  C* gred = nullptr;
+  if (kGlobal) {
+    const size_t bytes = sizeof(C) * (size_t)blocks * 3 * 2 * W * R * 32;
+    const cudaError_t err =
+        cudaMallocAsync(reinterpret_cast<void**>(&gred), bytes, stream);
+    if (err != cudaSuccess) return err;
+  }
+  auto* kernel = sweep_strided_kernel<S, C, M, kPin, kGlobal>;
+  // the static row table counts against the same 48 KB default: opt in
+  // whatever the size
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  kernel<<<(unsigned)blocks, 32 * W, smem, stream>>>(
       static_cast<const S*>(rhs), static_cast<const uint8_t*>(code),
       static_cast<const S*>(coeff), static_cast<const S*>(qflux),
-      static_cast<const S*>(dirv), static_cast<S*>(out),
-      static_cast<C*>(cpbuf), static_cast<C*>(dpbuf), B1, n, B2, (C)tg,
-      (C)dt, (C)t_inf, (C)rob_c, key, zxy);
+      static_cast<const S*>(dirv), static_cast<S*>(out), n, B2, ls, rs, R, p,
+      key, zxy, pin_code, gred);
+  if (kGlobal) {
+    const cudaError_t launch_err = cudaGetLastError();
+    const cudaError_t free_err = cudaFreeAsync(gred, stream);
+    return launch_err != cudaSuccess ? launch_err : free_err;
+  }
+  return cudaSuccess;
 }
 
 template <typename S, typename C>
-void launch_sweep_z(const void* rhs, const void* code, void* out,
-                    void* cpbuf, void* dpbuf, int64_t npen, int64_t n,
-                    double tg, double dt, double t_inf, double rob_c,
-                    int64_t key, cudaStream_t stream) {
-  const int64_t blocks = atf::cdiv(npen, kPencils);
-  sweep_z_kernel<S, C><<<(unsigned)blocks, kPencils, z_smem_bytes<C>(),
-                         stream>>>(
+cudaError_t launch_sweep_strided(const void* rhs, const void* code,
+                                 const void* coeff, const void* qflux,
+                                 const void* dirv, void* out, int64_t B1,
+                                 int64_t n, int64_t B2, int64_t ls,
+                                 int64_t rs, RowParams<C> p, int64_t key,
+                                 int zxy, int pin_from_code, int pin_code,
+                                 int device, cudaStream_t stream) {
+#define ATF_K1(MM, GLOBAL)                                                   \
+  return pin_from_code                                                       \
+             ? launch_strided_m<S, C, MM, true, GLOBAL>(                     \
+                   rhs, code, coeff, qflux, dirv, out, B1, n, B2, ls, rs, p,  \
+                   key, zxy, pin_code, stream)                               \
+             : launch_strided_m<S, C, MM, false, GLOBAL>(                    \
+                   rhs, code, coeff, qflux, dirv, out, B1, n, B2, ls, rs, p,  \
+                   key, zxy, pin_code, stream)
+  if (k1_fits<C>(n, 8, device)) ATF_K1(8, false);
+  if (k1_fits<C>(n, 16, device)) ATF_K1(16, false);
+  ATF_K1(16, true);
+#undef ATF_K1
+}
+
+// K2's launch shape: two lines per block (one where a staged group would
+// pass 100 KB), M = 16 rows per lane, or 8 for lines of up to 256 rows;
+// tuned on the H100 as K1's.  A line too long to stage even alone (~5,800
+// rows at float32 with every field, ~3,000 at float64) is solved by K1's
+// kernel on the z layout (lines n apart, rows contiguous).
+constexpr int kK2Lines = 2;
+
+template <typename S, typename C, int M>
+cudaError_t launch_z_m(const void* rhs, const void* code, const void* coeff,
+                       const void* qflux, const void* dirv, void* out,
+                       int64_t npen, int64_t n, RowParams<C> p, int64_t key,
+                       int pin_code, int device, cudaStream_t stream) {
+  const int nf = (coeff ? 1 : 0) + (qflux ? 1 : 0) + (dirv ? 1 : 0);
+  const int R = (int)atf::cdiv(n, 32 * M);
+  auto bytes = [&](int W) {
+    return 2 * z_layout<S, C, M>(W, n, nf).buf_bytes +
+           z_reduced_bytes<C>(W, R);
+  };
+  if (bytes(1) > (size_t)smem_limit(device)) {
+    return launch_sweep_strided<S, C>(rhs, code, coeff, qflux, dirv, out, 1,
+                                      n, npen, n, 1, p, key, 0, 0, pin_code,
+                                      device, stream);
+  }
+  int W = kK2Lines;
+  while (W > 1 && bytes(W) > 100 * 1024) W /= 2;
+  const size_t smem = bytes(W);
+  const ZLayout L = z_layout<S, C, M>(W, n, nf);
+  auto* kernel = sweep_z_kernel<S, C, M>;
+  // the static row table counts against the same 48 KB default: opt in
+  // whatever the size
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  int per_sm = 0, sms = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * W,
+                                                smem);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int64_t groups = atf::cdiv(npen, W);
+  const int64_t blocks = atf::imin(groups, (int64_t)(per_sm > 0 ? per_sm : 1)
+                                               * (sms > 0 ? sms : 1));
+  const int code_async =
+      (n % 4 == 0) && (reinterpret_cast<uintptr_t>(code) % 4 == 0);
+  kernel<<<(unsigned)blocks, 32 * W, smem, stream>>>(
       static_cast<const S*>(rhs), static_cast<const uint8_t*>(code),
-      static_cast<S*>(out), static_cast<C*>(cpbuf), static_cast<C*>(dpbuf),
-      npen, n, (C)tg, (C)dt, (C)t_inf, (C)rob_c, key);
+      static_cast<const S*>(coeff), static_cast<const S*>(qflux),
+      static_cast<const S*>(dirv), static_cast<S*>(out), npen, n, R, L,
+      code_async, pin_code, p, key);
+  return cudaSuccess;
+}
+
+template <typename S, typename C>
+cudaError_t launch_sweep_z(const void* rhs, const void* code,
+                           const void* coeff, const void* qflux,
+                           const void* dirv, void* out, int64_t npen,
+                           int64_t n, RowParams<C> p, int64_t key,
+                           int device, cudaStream_t stream) {
+  // plan-lite inputs alone: fused_sweep_axis2_v2's pin rule
+  const int pin_code = !coeff && !qflux && !dirv;
+  if (n > 8 * 32) {
+    return launch_z_m<S, C, 16>(rhs, code, coeff, qflux, dirv, out, npen, n,
+                                p, key, pin_code, device, stream);
+  }
+  return launch_z_m<S, C, 8>(rhs, code, coeff, qflux, dirv, out, npen, n, p,
+                             key, pin_code, device, stream);
 }
 
 }  // namespace
 
+// An error before the launch (the scratch of a long line's reduced rows)
+// returns at once.
+#define ATF_RETURN_IF(expr)                          \
+  do {                                               \
+    const cudaError_t cfg_err = (expr);              \
+    if (cfg_err != cudaSuccess) return (int)cfg_err; \
+  } while (0)
+
 ATF_API int atf_sweep_strided(int dtype, int device, const void* rhs,
                               const void* code, const void* coeff,
                               const void* qflux, const void* dirv, void* out,
-                              void* cpbuf, void* dpbuf, int64_t B1,
-                              int64_t n, int64_t B2, double tg, double dt,
-                              double t_inf, double rob_c, int64_t key,
-                              int zxy, int pin_from_code, void* stream) {
-  ATF_DISPATCH_STATE(dtype, device,
-                     launch_sweep_strided<S, C>(
-                         rhs, code, coeff, qflux, dirv, out, cpbuf, dpbuf,
-                         B1, n, B2, tg, dt, t_inf, rob_c, key, zxy,
-                         pin_from_code, (cudaStream_t)stream));
+                              int64_t B1, int64_t n, int64_t B2, double tg,
+                              double dt, double t_inf, double rob_c,
+                              int64_t key, int zxy, int pin_from_code,
+                              void* stream) {
+  ATF_DISPATCH_STATE(
+      dtype, device,
+      ATF_RETURN_IF((launch_sweep_strided<S, C>(
+          rhs, code, coeff, qflux, dirv, out, B1, n, B2, 1, B2,
+          RowParams<C>{(C)tg, (C)dt, (C)t_inf, (C)rob_c}, key, zxy,
+          pin_from_code, 0, device, (cudaStream_t)stream))));
 }
 
 ATF_API int atf_sweep_z(int dtype, int device, const void* rhs,
-                        const void* code, void* out, void* cpbuf,
-                        void* dpbuf, int64_t npen, int64_t n, double tg,
-                        double dt, double t_inf, double rob_c, int64_t key,
+                        const void* code, const void* coeff,
+                        const void* qflux, const void* dirv, void* out,
+                        int64_t npen, int64_t n, double tg, double dt,
+                        double t_inf, double rob_c, int64_t key,
                         void* stream) {
   ATF_DISPATCH_STATE(dtype, device,
-                     launch_sweep_z<S, C>(rhs, code, out, cpbuf, dpbuf, npen,
-                                          n, tg, dt, t_inf, rob_c, key,
-                                          (cudaStream_t)stream));
+                     ATF_RETURN_IF((launch_sweep_z<S, C>(
+                         rhs, code, coeff, qflux, dirv, out, npen, n,
+                         RowParams<C>{(C)tg, (C)dt, (C)t_inf, (C)rob_c}, key,
+                         device, (cudaStream_t)stream))));
 }
 
 ATF_API const char* atf_error_string(int err) {

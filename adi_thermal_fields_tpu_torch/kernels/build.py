@@ -56,9 +56,9 @@ _SIGNATURES = {
     "atf_cyclic_fields": ([_I, _I, *[_P] * 7, _I64, _I64, _I64, _P], _I),
     "atf_vp2_sweep_z": ([_I, _I, *[_P] * 5, _I64, _I64, _DP, _I, _DP, _I,
                          *[_D] * 8, _I, _P], _I),
-    "atf_sweep_strided": ([_I, _I, *[_P] * 8, _I64, _I64, _I64, *[_D] * 4,
+    "atf_sweep_strided": ([_I, _I, *[_P] * 6, _I64, _I64, _I64, *[_D] * 4,
                            _I64, _I, _I, _P], _I),
-    "atf_sweep_z": ([_I, _I, *[_P] * 5, _I64, _I64, *[_D] * 4, _I64, _P],
+    "atf_sweep_z": ([_I, _I, *[_P] * 6, _I64, _I64, *[_D] * 4, _I64, _P],
                     _I),
     "atf_theta_rhs": ([_I, _I, _P, _P, _P, _I64, _I64, _I64, *[_D] * 4,
                        _I64, _P], _I),

@@ -3,10 +3,13 @@
 Counterpart: ``adi_thermal_fields_tpu/solvers/pallas_sweeps.py`` —
 ``sweep_code`` (:50), ``fused_sweep_axis0_v2`` (:686) and
 ``fused_sweep_axis1_v2`` (:1363) -> K1 ``sweep_strided``;
-``fused_sweep_axis2_v2`` (:950) -> K2 ``sweep_z``; the v1 field-coefficient
-sweeps ``fused_sweep_axis0`` (:289), ``fused_sweep_axis1`` (:215) and their
-dispatcher ``fused_sweep`` (:2025) -> K1's v1 entry (``pin_from_code``,
-counted apart as "K1v1"), under the JAX names.  The CUDA sources are
+``fused_sweep_axis2_v2`` (:950) -> K2 ``sweep_z``, which also takes K1's
+coefficient, Neumann and Dirichlet fields (the field plan's z solve in
+the natural layout, where JAX solves the (z, x, y) transpose); the v1
+field-coefficient sweeps ``fused_sweep_axis0`` (:289),
+``fused_sweep_axis1`` (:215) and their dispatcher ``fused_sweep`` (:2025)
+-> K1's v1 entry (``pin_from_code``, counted apart as "K1v1"), under the
+JAX names.  The CUDA sources are
 ``csrc/sweeps.cu``.
 
 One sweep solves, per pencil along the sweep axis, the tridiagonal system
@@ -23,9 +26,10 @@ pinned row keeps ``d = rhs + dt*coeff*t_inf`` (pallas_sweeps.py:116-121,
 
 Each wrapper dispatches by device (kernels/__init__.py): CPU tensors run
 the plain version (``thomas`` plus tensor ops), CUDA tensors launch the
-kernel and count the launch in the wrapper's ``launches`` attribute.
-bfloat16 fields solve at float32 (c' and d' too) and store bfloat16,
-rounded to nearest or, with ``rng_seed``, stochastically
+kernel and count the launch in the wrapper's ``launches`` attribute.  The
+kernels split each line across threads (csrc/sweeps.cu): the wrappers
+allocate nothing but their output.  bfloat16 fields solve at float32 and
+store bfloat16, rounded to nearest or, with ``rng_seed``, stochastically
 (solvers/rounding.py), as the JAX kernels' bf16 mode does.
 """
 from __future__ import annotations
@@ -36,8 +40,8 @@ import torch
 
 from ..bc.faces import shift_in
 from ..kernels import (FLOAT_DTYPES, STATE_DTYPES, check_kernel_inputs,
-                       compute_dtype, dtype_code, load_library, ptr,
-                       raise_on_error, stream_ptr, use_kernel)
+                       dtype_code, load_library, ptr, raise_on_error,
+                       stream_ptr, use_kernel)
 from .rounding import natural_index, sr_key, to_state, widen
 from .thomas import thomas
 
@@ -92,16 +96,10 @@ def _fold_rhs(rhs, code, dt, qflux, dir_val):
     return rhs, pin
 
 
-def _solve_plain(rhs, code, axis, tg, dt, t_inf, coeff, rob_c, pin,
-                 pin_rows=None):
-    """Build the row system from the code bits and solve along ``axis``.
-    ``pin``: the Dirichlet rows (coefficient zeroed); ``pin_rows``: the
-    rows with ``b = 1`` (None: ``pin``; the v1 rule: every bit-4 row)."""
-    if pin_rows is None:
-        pin_rows = pin
-    mv = (lambda t: None if t is None else t.movedim(axis, 0))
-    rhs, code, coeff, pin, pin_rows = (mv(rhs), mv(code), mv(coeff), mv(pin),
-                                       mv(pin_rows))
+def _rows_plain(rhs, code, tg, dt, t_inf, coeff, rob_c, pin, pin_rows):
+    """The row system ``(a, b, c, d)`` from the code bits, in the layout of
+    its inputs.  ``pin``: the Dirichlet rows (coefficient zeroed);
+    ``pin_rows``: the rows with ``b = 1``."""
     dtype = rhs.dtype
     low = ((code & _LOW) != 0).to(dtype)
     high = ((code & _HIGH) != 0).to(dtype)
@@ -117,8 +115,19 @@ def _solve_plain(rhs, code, axis, tg, dt, t_inf, coeff, rob_c, pin,
     if pin_rows is not None:
         pinf = pin_rows.to(dtype)
         b = b * (1.0 - pinf) + pinf
-    dd = rhs + dtcf * t_inf
-    return thomas(a, b, c, dd, reciprocal=True).movedim(0, axis).contiguous()
+    return a, b, c, rhs + dtcf * t_inf
+
+
+def _solve_plain(rhs, code, axis, tg, dt, t_inf, coeff, rob_c, pin,
+                 pin_rows=None):
+    """Build the row system from the code bits and solve along ``axis``
+    (``pin_rows`` None: ``pin``; the v1 rule: every bit-4 row)."""
+    if pin_rows is None:
+        pin_rows = pin
+    mv = (lambda t: None if t is None else t.movedim(axis, 0))
+    a, b, c, d = _rows_plain(mv(rhs), mv(code), tg, dt, t_inf, mv(coeff),
+                             rob_c, mv(pin), mv(pin_rows))
+    return thomas(a, b, c, d, reciprocal=True).movedim(0, axis).contiguous()
 
 
 def _zxy_index(shape, device) -> torch.Tensor:
@@ -157,15 +166,19 @@ def sweep_strided(rhs: torch.Tensor, code: torch.Tensor, tg: float,
     """K1: masked sweep along ``axis`` (0 or 1) of a C-contiguous 3-D field.
 
     ``coeff`` (field plan) or the scalar ``rob_c`` (plan-lite) gives the
-    Robin sink; ``qflux`` and ``dir_val`` are folded into the rhs.  The
-    field plan's z sweep calls this on the (z, x, y) permuted field with
-    ``axis=0`` and ``zxy=True``.  float32 and float64 fields solve at their
+    Robin sink; ``qflux`` and ``dir_val`` are folded into the rhs.
+    ``zxy``: the field is the (z, x, y) permutation of a natural field,
+    solved along ``axis=0`` (z; the stochastic rounding takes each cell's
+    natural index).  float32 and float64 fields solve at their
     type; a bfloat16 field (coefficient fields bfloat16 too) solves at
     float32 and rounds its result to nearest, or stochastically with
     ``rng_seed`` (the step counter) and ``rng_offset`` (the pass), at each
     cell's natural index (solvers/rounding.py).  ``pin_from_code``: the v1
     pin rule (module docstring), float32 and float64 only; its launches
-    count apart, in ``sweep_strided.v1.launches`` ("K1v1")."""
+    count apart, in ``sweep_strided.v1.launches`` ("K1v1").  Lines of any
+    length: past 4,096 rows at float32 and bfloat16 (1,792 at float64) the
+    kernel keeps a line's reduced rows in a global buffer of 6/16 of the
+    field's cells, which it takes and frees on the stream."""
     if axis not in (0, 1):
         raise ValueError(f"sweep_strided solves along axis 0 or 1, not {axis}")
     if coeff is None and rob_c is None:
@@ -186,13 +199,10 @@ def sweep_strided(rhs: torch.Tensor, code: torch.Tensor, tg: float,
     s0, s1, s2 = rhs.shape
     B1, n, B2 = (1, s0, s1 * s2) if axis == 0 else (s0, s1, s2)
     out = torch.empty_like(rhs)
-    cdt = compute_dtype(rhs.dtype)
-    cpbuf = torch.empty(rhs.shape, dtype=cdt, device=rhs.device)
-    dpbuf = torch.empty(rhs.shape, dtype=cdt, device=rhs.device)
     err = load_library().atf_sweep_strided(
         dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(code),
-        ptr(coeff), ptr(qflux), ptr(dir_val), ptr(out), ptr(cpbuf),
-        ptr(dpbuf), B1, n, B2, tg, dt, t_inf, 0.0 if rob_c is None else rob_c,
+        ptr(coeff), ptr(qflux), ptr(dir_val), ptr(out), B1, n, B2, tg, dt,
+        t_inf, 0.0 if rob_c is None else rob_c,
         sr_key(rng_seed, rng_offset), int(zxy), int(pin_from_code),
         stream_ptr(rhs.device))
     raise_on_error(err, "sweep_strided")
@@ -207,34 +217,50 @@ sweep_strided.bf16 = SimpleNamespace(launches=0)   # the bfloat16 entry
 sweep_strided.v1 = SimpleNamespace(launches=0)     # the v1 entry
 
 
-def sweep_z_plain(rhs, code, tg, dt, t_inf, rob_c, *, rng_seed=None,
-                  rng_offset=0):
-    """Plain version of K2 (any device)."""
-    pin = (code & _PIN) != 0
-    x = _solve_plain(widen(rhs), code, 2, tg, dt, t_inf, None, rob_c, pin)
-    return to_state(x, rhs.dtype, sr_key(rng_seed, rng_offset))
+def sweep_z_plain(rhs, code, tg, dt, t_inf, rob_c=None, *, coeff=None,
+                  qflux=None, dir_val=None, rng_seed=None, rng_offset=0):
+    """Plain version of K2 (any device): K1's along axis 2, with
+    ``fused_sweep_axis2_v2``'s pin rule on plan-lite inputs alone."""
+    lite_only = coeff is None and qflux is None and dir_val is None
+    return sweep_strided_plain(rhs, code, tg, dt, t_inf, axis=2, coeff=coeff,
+                               rob_c=rob_c, qflux=qflux, dir_val=dir_val,
+                               rng_seed=rng_seed, rng_offset=rng_offset,
+                               pin_from_code=lite_only)
 
 
 def sweep_z(rhs: torch.Tensor, code: torch.Tensor, tg: float, dt: float,
-            t_inf: float, rob_c: float, *, rng_seed: int | None = None,
+            t_inf: float, rob_c: float | None = None, *,
+            coeff: torch.Tensor | None = None,
+            qflux: torch.Tensor | None = None,
+            dir_val: torch.Tensor | None = None,
+            rng_seed: int | None = None,
             rng_offset: int = 0) -> torch.Tensor:
-    """K2: plan-lite sweep along the contiguous z axis of a natural
-    (x, y, z) field; ``code`` in the same natural layout.  Types and
-    rounding as K1's."""
-    if not use_kernel(rhs, code):
-        return sweep_z_plain(rhs, code, tg, dt, t_inf, rob_c,
-                             rng_seed=rng_seed, rng_offset=rng_offset)
+    """K2: masked sweep along the contiguous z axis of a natural (x, y, z)
+    field; ``code`` and the fields in the same natural layout.  The Robin
+    sink, Neumann and Dirichlet folds, types and rounding as K1's: the
+    field plan's z solve.  Given plan-lite inputs alone (``rob_c``, no
+    field) it pins every row whose code has bit 4 (``b = 1``), as JAX
+    ``fused_sweep_axis2_v2`` (``has_pin=True``) does; with any field it
+    pins as K1 does (only where ``dir_val`` is given).  Lines of any
+    length: a line too long to stage in shared memory (~5,800 rows at
+    float32 with every field, ~3,000 at float64) is solved by K1's kernel
+    on the z layout."""
+    if coeff is None and rob_c is None:
+        raise ValueError("plan-lite sweep (coeff=None) requires rob_c")
+    if not use_kernel(rhs, code, coeff, qflux, dir_val):
+        return sweep_z_plain(rhs, code, tg, dt, t_inf, rob_c, coeff=coeff,
+                             qflux=qflux, dir_val=dir_val, rng_seed=rng_seed,
+                             rng_offset=rng_offset)
     if rhs.dim() != 3:
         raise ValueError(f"sweep_z: field must be 3-D, got {rhs.dim()}")
-    check_kernel_inputs("sweep_z", rhs, code, dtypes=STATE_DTYPES)
+    check_kernel_inputs("sweep_z", rhs, code, coeff, qflux, dir_val,
+                        dtypes=STATE_DTYPES)
     out = torch.empty_like(rhs)
-    cdt = compute_dtype(rhs.dtype)
-    cpbuf = torch.empty(rhs.shape, dtype=cdt, device=rhs.device)
-    dpbuf = torch.empty(rhs.shape, dtype=cdt, device=rhs.device)
     err = load_library().atf_sweep_z(
         dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(code),
-        ptr(out), ptr(cpbuf), ptr(dpbuf), rhs.shape[0] * rhs.shape[1],
-        rhs.shape[2], tg, dt, t_inf, rob_c, sr_key(rng_seed, rng_offset),
+        ptr(coeff), ptr(qflux), ptr(dir_val), ptr(out),
+        rhs.shape[0] * rhs.shape[1], rhs.shape[2], tg, dt, t_inf,
+        0.0 if rob_c is None else rob_c, sr_key(rng_seed, rng_offset),
         stream_ptr(rhs.device))
     raise_on_error(err, "sweep_z")
     counter = sweep_z.bf16 if rhs.dtype == torch.bfloat16 else sweep_z

@@ -7,16 +7,18 @@ the same branch structure (:180-297):
 * plan-lite fast path (scalar-h Robin, no Neumann, no Dirichlet, no
   source): K4 (stencil fused into the x-sweep), K1 along y, K2 along the
   contiguous z;
-* every other plan: K3 (stencil), K1 along x, K1 along y, then permute to
-  (z, x, y), K1, permute back — or K2 for a plan-lite z solve.
+* every other plan: K3 (stencil), K1 along x, K1 along y, K2 along z
+  with the plan's coefficient, Neumann and Dirichlet fields.
 
-Numerically it is step/cartesian.adi_step.  All mask/BC-derived sweep
-inputs are prebuilt per axis in each sweep's layout by ``build_sweep_plan``
-(they change only on birth events).  bfloat16 states run the same kernels
-in their bfloat16 entries: float32 solves, bfloat16 stores, rounded to
-nearest or stochastically (``rng_seed``; JAX :138-297).  Left out of this
-port: the TPU tiling helpers ``pad_to_tile`` / ``padded_shape`` /
-``pad_domain``.
+Numerically it is step/cartesian.adi_step.  JAX solves the field plan's z
+on the (z, x, y) transpose (:247-265); here K2 solves it in the natural
+layout, so no step makes a permuted copy of the state.  All mask/BC-derived
+sweep inputs are prebuilt per axis in the natural layout by
+``build_sweep_plan`` (they change only on birth events).  bfloat16 states
+run the same kernels in their bfloat16 entries: float32 solves, bfloat16
+stores, rounded to nearest or stochastically (``rng_seed``; JAX
+:138-297).  Left out of this port: the TPU tiling helpers ``pad_to_tile``
+/ ``padded_shape`` / ``pad_domain``.
 """
 from __future__ import annotations
 
@@ -36,17 +38,10 @@ from .cartesian import step_scalars
 __all__ = ["SweepPlan", "build_sweep_plan", "adi_step_fused"]
 
 
-def _to_zxy(t: torch.Tensor) -> torch.Tensor:
-    return t.permute(2, 0, 1).contiguous()
-
-
 class SweepPlan(NamedTuple):
-    """Per-axis sweep inputs in each sweep's layout (rebuilt on birth only).
-
-    x and y inputs are in the natural (x, y, z) layout.  z inputs are in
-    the (z, x, y) layout of the permuted K1 solve, except the plan-lite z
-    code without Neumann or Dirichlet, which K2 reads in the natural
-    layout (``z_natural``).  The x code carries the stencil bits for K4."""
+    """Per-axis sweep inputs (rebuilt on birth only), every one in the
+    natural (x, y, z) layout.  The x code carries the stencil bits for
+    K4."""
 
     mask: torch.Tensor                 # (x, y, z) bool
     codes: tuple                       # 3 uint8 tensors
@@ -55,12 +50,6 @@ class SweepPlan(NamedTuple):
     dir_vals: tuple | None             # 3 Dirichlet value fields or None
     mask_u8: torch.Tensor              # uint8 mask for K3
     rob_c: tuple | None = None         # per-axis h/(rho cp d_ax), plan-lite
-
-    @property
-    def z_natural(self) -> bool:
-        """The z solve runs K2 on the natural layout."""
-        return (self.coeffs is None and self.qfluxes is None
-                and self.dir_vals is None)
 
 
 def build_sweep_plan(mask: torch.Tensor, packs: CoeffPacks | None, *,
@@ -81,31 +70,22 @@ def build_sweep_plan(mask: torch.Tensor, packs: CoeffPacks | None, *,
     if has_neumann is None:
         has_neumann = packs is not None and bool((packs.qflux != 0).any())
     lite = robin_const is not None
-    z_natural = lite and not has_neumann and not has_dirichlet
 
     dirm = packs.dir_mask if has_dirichlet else None
-    # sweep_code returns axis-first: x is natural; y moves back; z stays
-    # (z, x, y) for the permuted K1 solve or moves back for K2
+    # sweep_code returns axis-first: x is natural; y and z move back
     codes = (sweep_code(mask, dirm, 0, stencil_bits=True),
              sweep_code(mask, dirm, 1).movedim(0, 1).contiguous(),
-             sweep_code(mask, dirm, 2))
-    if z_natural:
-        codes = codes[:2] + (codes[2].movedim(0, 2).contiguous(),)
-
-    def per_axis(field):
-        return (field[0], field[1], _to_zxy(field[2]))
-
+             sweep_code(mask, dirm, 2).movedim(0, 2).contiguous())
     if lite:
         coeffs = None
         rc = robin_const
         rob_c = (tuple(float(v) for v in rc)
                  if isinstance(rc, (tuple, list)) else (float(rc),) * 3)
     else:
-        coeffs = per_axis(packs.coeff)
+        coeffs = tuple(packs.coeff)
         rob_c = None
-    qfluxes = per_axis(packs.qflux) if has_neumann else None
-    dir_vals = ((packs.dir_val, packs.dir_val, _to_zxy(packs.dir_val))
-                if has_dirichlet else None)
+    qfluxes = tuple(packs.qflux) if has_neumann else None
+    dir_vals = (packs.dir_val,) * 3 if has_dirichlet else None
     return SweepPlan(mask, codes, coeffs, qfluxes, dir_vals,
                      mask.to(torch.uint8), rob_c)
 
@@ -124,15 +104,16 @@ def adi_step_fused(T: torch.Tensor, plan: SweepPlan, grid: CartesianGrid,
     step, the engine passes its step counter) makes those stores
     stochastic, as the JAX step's: K3 with the seed, the sweeps with seed
     + 1, + 2, + 3 (offsets 0-3 of solvers/rounding.sr_key); without it they
-    round to nearest.  The JAX step moves the stochastic plan-lite z solve
-    to the transposed layout; here K2 takes the natural z in both modes.
+    round to nearest.  The JAX step solves the stochastic z pass on the
+    transposed layout; here K2 takes the natural z in every mode.
     float32 and float64 states ignore ``rng_seed``."""
     dt, inv_d2, tg, c_exp = step_scalars(T.dtype, grid, mat, dt, theta)
     codes = plan.codes
     lite = plan.coeffs is None
     sr = dict(rng_seed=rng_seed)
 
-    if lite and source is None and plan.z_natural:
+    if (lite and source is None and plan.qfluxes is None
+            and plan.dir_vals is None):
         # the flagship WAAM configuration: stencil fused into the x-sweep
         rc = plan.rob_c
         U = fused_theta_sweep(T, codes[0], c_exp, inv_d2, tg[0], dt, t_inf,
@@ -158,10 +139,5 @@ def adi_step_fused(T: torch.Tensor, plan: SweepPlan, grid: CartesianGrid,
     V = sweep_strided(U, codes[1], tg[1], dt, t_inf, axis=1, coeff=cf[1],
                       rob_c=rc[1], qflux=q[1], dir_val=dv[1], rng_offset=2,
                       **sr)
-    if plan.z_natural:
-        return sweep_z(V, codes[2], tg[2], dt, t_inf, rc[2], rng_offset=3,
-                       **sr)
-    W = sweep_strided(_to_zxy(V), codes[2], tg[2], dt, t_inf, axis=0,
-                      coeff=cf[2], rob_c=rc[2], qflux=q[2], dir_val=dv[2],
-                      rng_offset=3, zxy=True, **sr)
-    return W.permute(1, 2, 0).contiguous()
+    return sweep_z(V, codes[2], tg[2], dt, t_inf, rc[2], coeff=cf[2],
+                   qflux=q[2], dir_val=dv[2], rng_offset=3, **sr)

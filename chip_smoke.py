@@ -14,8 +14,12 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    prints the build seconds.
 2. Each kernel against its plain PyTorch version on the same CUDA tensors,
    float32: K1-K4 at 256^3 with a WAAM mask (plate, two walls, a deposited
-   block), 256^3 with a random mask, and 97x203x131; K5-K8 at the 256^3
-   WAAM mask and 97x203x131, T over 20-1500 C with cells exactly at the
+   block), 256^3 with a random mask, and 97x203x131, and K1 and K2 also
+   at the 512^3 WAAM mask of phase 3 (plan-lite x, y and z, the entry
+   plan's plan-lite + Neumann x and z, the field plan's coefficient +
+   Neumann + Dirichlet x and z; the summary's K1 and K2 times); K5-K8 at
+   the 256^3 WAAM mask and 97x203x131, T over 20-1500 C with cells exactly
+   at the
    solidus and liquidus, melt_pool_enhanced_k(54, 1420, 1470, 4) and
    apparent_cp(490, 490, 2.7e5, 1420, 1470), emissivity 0.5, h 30.  Max
    |delta|, the CUDA-event median time of kernel and plain version, and %
@@ -23,7 +27,8 @@ Phases (each asserts; a failure exits non-zero and prints no result):
 3. The full step at 512^3 float32 through make_cartesian_engine, kernels
    against reference after 3 steps, on three BC sets: plan-lite (scalar
    h: K4, K1, K2), __graft_entry__'s (scalar h + Neumann flux on z+: K3,
-   K1 x3) and the same as per-face coefficient fields (K3, K1 x3).  After
+   K1 x2, K2) and the same as per-face coefficient fields (K3, K1 x2,
+   K2: z in the natural layout, no permuted copy of the state).  After
    two warm-up steps each step is timed with CUDA events; prints the
    median ms/step and Gcell/s and checks each kernel's launch count.
    Its variable-property part (run after phase 4): the 512^3 float32
@@ -149,7 +154,8 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    main_bf16 case (512^3, 1 mm, Robin 200, dt 0.05 s) through
    make_cartesian_engine(dtype=bfloat16, stochastic_rounding=True), ms/step
    and Gcell/s beside the float32 step of the same case (launches K4b = K1b
-   = K2b = 1 per step), the same with per-face h (K3b = 1, K1b = 3);
+   = K2b = 1 per step), the same with per-face h (K3b = 1, K1b = 2,
+   K2b = 1);
    run_varprop's case at 384^3 bfloat16 (K23 = K24 = K25 = K26 = 1 per
    step, K5-K8 never); the float32 A/B of the g-stream and classic tiers
    on that step (classic, g-streams, g-streams, classic); the drift gates
@@ -226,6 +232,8 @@ APP_TOL = 0.5       # ~1700 sub-steps of ulp-level differences, which the
 # sizes: phase 2 kernel shapes, phase 3 step edge, phase 4 STL box and cell
 P2_SHAPES = (("256^3 waam", (256, 256, 256)), ("256^3 random", (256,) * 3),
              ("97x203x131 random", (97, 203, 131)))
+# phase 2's K1 and K2 rows at the main path's shape (the summary's times)
+P2_SWEEP_SHAPE = ("512^3 waam", (512,) * 3)
 P3_N = 512
 P3_WARMUP, P3_STEPS = 2, 3
 P4_BOX_MM = (160.0, 40.0, 40.0)
@@ -491,7 +499,7 @@ def phase2(torch, dev):
     f32 = torch.float32
     mat = Material(7800.0, 490.0, 54.0)
     rows = []
-    for label, shape in P2_SHAPES:
+    for label, shape in P2_SHAPES + (P2_SWEEP_SHAPE,):
         grid = CartesianGrid(*shape, 0.5e-3)
         dt = 2.0 * grid.dx ** 2 / mat.alpha          # the app's dt cap
         dt, inv_d2, tg, c_exp = step_scalars(f32, grid, mat, dt, 0.5)
@@ -516,10 +524,10 @@ def phase2(torch, dev):
 
         c0, c1, c2 = nat(0), nat(1), nat(2)
         c0s = nat(0, stencil_bits=True)
-        d0, d1 = nat(0, dirm), nat(1, dirm)
+        d0, d1, d2 = nat(0, dirm), nat(1, dirm), nat(2, dirm)
         m_u8 = mask.to(torch.uint8)
         fkw = [dict(coeff=pk.coeff[a], qflux=pk.qflux[a], dir_val=pk.dir_val)
-               for a in (0, 1)]
+               for a in range(3)]
         variants = [
             ("K1", "lite x", 9,
              lambda: sweep_strided(T, c0, tg[0], dt, 20.0, axis=0,
@@ -539,9 +547,23 @@ def phase2(torch, dev):
              lambda: sweep_strided(T, d1, tg[1], dt, 20.0, axis=1, **fkw[1]),
              lambda: sweep_strided_plain(T, d1, tg[1], dt, 20.0, axis=1,
                                          **fkw[1])),
+            # the entry plan's x: plan-lite with the Neumann field
+            ("K1", "lite+neumann x", 13,
+             lambda: sweep_strided(T, c0, tg[0], dt, 20.0, axis=0,
+                                   rob_c=rc[0], qflux=pk.qflux[0]),
+             lambda: sweep_strided_plain(T, c0, tg[0], dt, 20.0, axis=0,
+                                         rob_c=rc[0], qflux=pk.qflux[0])),
             ("K2", "lite z", 9,
              lambda: sweep_z(T, c2, tg[2], dt, 20.0, rc[2]),
              lambda: sweep_z_plain(T, c2, tg[2], dt, 20.0, rc[2])),
+            ("K2", "lite+neumann z", 13,
+             lambda: sweep_z(T, c2, tg[2], dt, 20.0, rc[2],
+                             qflux=pk.qflux[2]),
+             lambda: sweep_z_plain(T, c2, tg[2], dt, 20.0, rc[2],
+                                   qflux=pk.qflux[2])),
+            ("K2", "field+neumann+dirichlet z", 21,
+             lambda: sweep_z(T, d2, tg[2], dt, 20.0, **fkw[2]),
+             lambda: sweep_z_plain(T, d2, tg[2], dt, 20.0, **fkw[2])),
             ("K3", "stencil", 9,
              lambda: theta_rhs(T, m_u8, c_exp, inv_d2),
              lambda: theta_rhs_plain(T, m_u8, c_exp, inv_d2)),
@@ -551,6 +573,9 @@ def phase2(torch, dev):
              lambda: fused_theta_sweep_plain(T, c0s, c_exp, inv_d2, tg[0],
                                              dt, 20.0, rc[0])),
         ]
+        if (label, shape) == P2_SWEEP_SHAPE:
+            variants = [v for v in variants if v[0] in ("K1", "K2")
+                        and v[1] != "field+neumann+dirichlet y"]
         cells = mask.numel()
         for kname, vname, bpc, kern, plain in variants:
             got = kern()
@@ -591,7 +616,7 @@ def phase3(torch, dev):
     dt = 2.0 * grid.dx ** 2 / mat.alpha
     mask = waam_mask(torch, grid.shape, dev)
     T0 = random_field(torch, mask, seed=11)
-    unfused = {"K1": 3, "K2": 0, "K3": 1, "K4": 0}
+    unfused = {"K1": 2, "K2": 1, "K3": 1, "K4": 0}
     plans = {
         "lite (scalar h=30)": (dict(robin_h=30.0),
                                {"K1": 1, "K2": 1, "K3": 0, "K4": 1}),
@@ -1972,9 +1997,10 @@ def phase2_bf16(torch, dev):
             .contiguous()
 
     c0, c1, c2 = nat(0), nat(1), nat(2)
-    c0s, d0 = nat(0, stencil_bits=True), nat(0, dirm)
+    c0s, d0, d2 = nat(0, stencil_bits=True), nat(0, dirm), nat(2, dirm)
     m_u8 = mask.to(torch.uint8)
     fkw = dict(coeff=pk.coeff[0], qflux=pk.qflux[0], dir_val=pk.dir_val)
+    fkw2 = dict(coeff=pk.coeff[2], qflux=pk.qflux[2], dir_val=pk.dir_val)
     rows = []
     for seeded in (False, True):
         sr = dict(rng_seed=P10_SEED if seeded else None)
@@ -2001,6 +2027,12 @@ def phase2_bf16(torch, dev):
                              **sr),
              lambda: sweep_z_plain(T, c2, tg[2], dt, 20.0, rc[2],
                                    rng_offset=3, **sr)),
+            ("K2b", "field+neumann+dirichlet z" + tag,
+             (T, d2, *fkw2.values()),
+             lambda: sweep_z(T, d2, tg[2], dt, 20.0, rng_offset=3, **fkw2,
+                             **sr),
+             lambda: sweep_z_plain(T, d2, tg[2], dt, 20.0, rng_offset=3,
+                                   **fkw2, **sr)),
             ("K3b", "stencil" + tag, (T, m_u8),
              lambda: theta_rhs(T, m_u8, c_exp, inv_d2, **sr),
              lambda: theta_rhs_plain(T, m_u8, c_exp, inv_d2, **sr)),
@@ -2134,7 +2166,8 @@ def phase10_step(torch, dev):
     check(float(d.max()) < 16.0, f"phase 10 lite: bf16 {float(d.max())} K "
           "from float32")
     engine_run(f"{n}^3 bf16 field plan (per-face h 200)", grid, mask,
-               T0.to(bf), bf, 0.05, {"K3b": 1, "K1b": 3}, **field)
+               T0.to(bf), bf, 0.05, {"K3b": 1, "K1b": 2, "K2b": 1},
+               **field)
     del Tb, Tf, d, T0, mask
     torch.cuda.empty_cache()
 
@@ -2727,6 +2760,7 @@ def main():
                  else f"{P2_SHAPES[0][0]} bfloat16" if k in BF16_KERNELS
                  else f"{P2_SHAPES[0][0]} f32" if k == "K1v1"
                  else f"{P11_Y_SHAPES[1][0]} f32" if k == "K15y"
+                 else P2_SWEEP_SHAPE[0] if k in ("K1", "K2")
                  else P2_SHAPES[0][0])
         ref = next(r for r in mine if r["variant"] == main_variant[k]
                    and r["shape"] == shape)

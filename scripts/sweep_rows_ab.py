@@ -1,47 +1,47 @@
 #!/usr/bin/env python3
-"""A/B of K1 (the masked sweep, ``sweep_strided``) and K15 (the tier-2
-sweep along cylindrical r, ``vp2_sweep_strided``) between two checkouts of
-the PyTorch port, on one CUDA card.
+"""A/B of K1 and K2 (the masked sweeps, ``sweep_strided`` and ``sweep_z``),
+the field plan's z pass and the constant-property WAAM steps, with K15
+(the tier-2 sweep along cylindrical r, ``vp2_sweep_strided``) beside them,
+between two checkouts of the PyTorch port, on one CUDA card.
 
     python3 scripts/sweep_rows_ab.py OTHER_CHECKOUT
 
 runs, in turns, OTHER, this checkout, this checkout, OTHER, each in its
 own process (each builds its own kernel library), and prints one JSON line
-per run: CUDA-event medians, float32, of K1 at chip_smoke.py phase 2's
-256^3 WAAM mask (plan-lite y, the constant-property path's variant, and
-the field form along x with Neumann and Dirichlet) and of K15 at phase 8's
-64x512x1024 tube (r, the cylindrical varprop BE step's variant).
+per run: CUDA-event medians, float32, at chip_smoke.py's 256^3 and 512^3
+WAAM masks of K1 (plan-lite y; the entry plan's x, plan-lite with the
+Neumann field; the field plan's x with Neumann and Dirichlet), K2
+(plan-lite z), the field plan's z pass (where ``sweep_z`` takes no fields:
+permute to (z, x, y), K1, permute back; else K2 on the natural layout),
+K15 at phase 8's 64x512x1024 tube, and chip_smoke.py phase 3's three
+512^3 steps (plan-lite, entry, per-face field) in ms/step, each with its
+device time per kernel and their sum (busy ms) from torch.profiler over
+three steps, and the idle share 1 - busy / (CUDA-event ms/step).
 """
 import importlib.util
+import inspect
 import json
 import os
+import re
+import statistics
 import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STEP_WARMUP, STEP_REPS = 2, 5
 
 
-def measure(root):
-    sys.path.insert(0, root)
-    import torch
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+def sweep_rows(torch, cs, dev, n, out):
+    """K1, K2 and the field plan's z pass at the n^3 WAAM mask."""
     from adi_thermal_fields_tpu_torch import (CartesianGrid, Material,
                                               build_coeff_packs)
     from adi_thermal_fields_tpu_torch.solvers import (sweep_code,
-                                                      sweep_strided,
-                                                      vp2_sweep_strided)
-    from adi_thermal_fields_tpu_torch.step import cylindrical_varprop as cvp
+                                                      sweep_strided, sweep_z)
     from adi_thermal_fields_tpu_torch.step.cartesian import step_scalars
 
-    dev = torch.device("cuda", 0)
     f32 = torch.float32
     mat = Material(7800.0, 490.0, 54.0)
-    out = dict(root=root)
-    # K1, phase 2's 256^3 WAAM case
-    grid = CartesianGrid(256, 256, 256, 0.5e-3)
+    grid = CartesianGrid(n, n, n, 0.5e-3)
     dt = 2.0 * grid.dx ** 2 / mat.alpha
     dt, _, tg, _ = step_scalars(f32, grid, mat, dt, 0.5)
     rc = float(torch.tensor(30.0, dtype=f32)
@@ -53,15 +53,110 @@ def measure(root):
     pk = build_coeff_packs(mask, grid, mat, dtype=f32, robin_h=200.0,
                            neumann={"z+": 5e5}, dirichlet_mask=dirm,
                            dirichlet_value=20.0)
+    c0 = sweep_code(mask, None, 0)
     c1 = sweep_code(mask, None, 1).movedim(0, 1).contiguous()
+    c2 = sweep_code(mask, None, 2).movedim(0, 2).contiguous()
     d0 = sweep_code(mask, dirm, 0)
-    out["K1_lite_y_ms"] = cs.cuda_ms(torch, lambda: sweep_strided(
-        T, c1, tg[1], dt, 20.0, axis=1, rob_c=rc), 50)
-    out["K1_field_x_ms"] = cs.cuda_ms(torch, lambda: sweep_strided(
+    dz = sweep_code(mask, dirm, 2)                 # (z, x, y)
+    fz = dict(coeff=pk.coeff[2], qflux=pk.qflux[2], dir_val=pk.dir_val)
+    tag = f"{n}^3"
+    out[f"K1_lite_y_ms {tag}"] = cs.cuda_ms(torch, lambda: sweep_strided(
+        T, c1, tg[1], dt, 20.0, axis=1, rob_c=rc), 30)
+    out[f"K1_entry_x_ms {tag}"] = cs.cuda_ms(torch, lambda: sweep_strided(
+        T, c0, tg[0], dt, 20.0, axis=0, rob_c=rc, qflux=pk.qflux[0]), 30)
+    out[f"K1_field_x_ms {tag}"] = cs.cuda_ms(torch, lambda: sweep_strided(
         T, d0, tg[0], dt, 20.0, axis=0, coeff=pk.coeff[0],
-        qflux=pk.qflux[0], dir_val=pk.dir_val), 50)
-    del T, mask, dirm, pk, c1, d0
-    # K15, phase 8's tube, r
+        qflux=pk.qflux[0], dir_val=pk.dir_val), 30)
+    out[f"K2_lite_z_ms {tag}"] = cs.cuda_ms(torch, lambda: sweep_z(
+        T, c2, tg[2], dt, 20.0, rc), 30)
+    if "coeff" in inspect.signature(sweep_z).parameters:
+        dzn = dz.movedim(0, 2).contiguous()
+        z_pass = (lambda: sweep_z(T, dzn, tg[2], dt, 20.0, **fz))
+        out["z_pass"] = "K2, natural layout"
+    else:
+        zxy = (lambda t: t.permute(2, 0, 1).contiguous())
+        fzxy = {k: zxy(v) for k, v in fz.items()}
+        z_pass = (lambda: sweep_strided(
+            zxy(T), dz, tg[2], dt, 20.0, axis=0, zxy=True, **fzxy)
+            .permute(1, 2, 0).contiguous())
+        out["z_pass"] = "permute, K1, permute back"
+    out[f"field_z_pass_ms {tag}"] = cs.cuda_ms(torch, z_pass, 30)
+
+
+def step_rows(torch, cs, dev, out):
+    """chip_smoke.py phase 3's three 512^3 steps, ms/step."""
+    from adi_thermal_fields_tpu_torch import CartesianGrid, Material
+    from adi_thermal_fields_tpu_torch.apps.engine import make_cartesian_engine
+    from adi_thermal_fields_tpu_torch.bc.faces import FACES
+
+    n = cs.P3_N
+    grid = CartesianGrid(n, n, n, 0.5e-3)
+    mat = Material(7800.0, 490.0, 54.0)
+    dt = 2.0 * grid.dx ** 2 / mat.alpha
+    mask = cs.waam_mask(torch, grid.shape, dev)
+    T0 = cs.random_field(torch, mask, seed=11)
+    plans = {"lite": dict(robin_h=30.0),
+             "entry": dict(robin_h=200.0, neumann={"z+": 5e5}),
+             "field": dict(robin_h={f: 200.0 for f in FACES},
+                           neumann={"z+": 5e5})}
+    for name, bcs in plans.items():
+        prepare, advance = make_cartesian_engine(
+            grid, mat, implementation="kernels", device=dev,
+            dtype=torch.float32, theta=0.5, t_inf=20.0, **bcs)
+        prep = prepare(mask)
+        T = advance(T0, prep, dt, STEP_WARMUP, 0.0)
+        times = []
+        for i in range(STEP_REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            T = advance(T, prep, dt, 1, i * dt)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = statistics.median(times)
+        prof = profile_steps(torch, lambda T: advance(T, prep, dt, 1, 0.0),
+                             T)
+        prof["idle_share"] = max(0.0, 1.0 - prof["busy_ms"] / ms)
+        out[f"step_{name}_ms 512^3"] = ms
+        out[f"profile_{name} 512^3"] = prof
+        del prep, T
+        torch.cuda.empty_cache()
+
+
+def profile_steps(torch, step, T, n=3):
+    """Device ms per step by kernel under torch.profiler and their sum, the
+    device's busy ms per step (the idle share is taken against the
+    CUDA-event step time: the profiler slows the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            T = step(T)
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(ev, "self_cuda_time_total", 0.0)
+        # host ops (aten::*) report their kernels' time again
+        if dev > 0 and not ev.key.startswith("aten::"):
+            m = re.search(r"cu_[0-9a-f]{8}\d+(\w+?_kernel)", ev.key)
+            name = m.group(1) if m else ev.key[:60]
+            by_name[name] = by_name.get(name, 0.0) + dev / 1e3 / n
+    return dict(busy_ms=sum(by_name.values()),
+                kernels=dict(sorted(by_name.items(),
+                                    key=lambda kv: -kv[1])[:8]))
+
+
+def k15_row(torch, cs, dev, out):
+    """K15 at phase 8's tube, r."""
+    from adi_thermal_fields_tpu_torch.solvers import vp2_sweep_strided
+    from adi_thermal_fields_tpu_torch.step import cylindrical_varprop as cvp
+
+    f32 = torch.float32
     label, shape, _ = cs.P8_SHAPES[0]
     grid, mat, mask, zbc, T = cs.cylvp_case(torch, label, shape, f32, dev)
     R = cs.random_field(torch, mask, seed=43)
@@ -79,6 +174,24 @@ def measure(root):
     rcols = (cols["glo_r"], cols["ghi_r"], cols["gsl_r"], cols["gsh_r"])
     out["K15_r_ms"] = cs.cuda_ms(torch, lambda: vp2_sweep_strided(
         R, T, code_r, *rcols, inv, **rk), 50)
+
+
+def measure(root):
+    sys.path.insert(0, root)
+    import torch
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+
+    dev = torch.device("cuda", 0)
+    out = dict(root=root)
+    for n in (256, 512):
+        sweep_rows(torch, cs, dev, n, out)
+        torch.cuda.empty_cache()
+    k15_row(torch, cs, dev, out)
+    torch.cuda.empty_cache()
+    step_rows(torch, cs, dev, out)
     out["card"] = torch.cuda.get_device_name(0)
     print(json.dumps(out), flush=True)
 

@@ -98,6 +98,11 @@ def test_kernels_match_plain_on_card(dtype, tol):
                                           rob_c=ROB)))
     pairs.append((sweep_z(T, nat(2), TG, DT, TINF, ROB),
                   sweep_z_plain(T, nat(2), TG, DT, TINF, ROB)))
+    # K2 with K1's inputs: the field plan's z solve, and Neumann on lite
+    for args, kw in (((T, nat(2, dirm), TG, DT, TINF),
+                      dict(coeff=coeff, qflux=q, dir_val=dval)),
+                     ((T, nat(2), TG, DT, TINF, ROB), dict(qflux=q))):
+        pairs.append((sweep_z(*args, **kw), sweep_z_plain(*args, **kw)))
     m_u8 = mask.to(torch.uint8)
     pairs.append((theta_rhs(T, m_u8, C_EXP, INV),
                   theta_rhs_plain(T, m_u8, C_EXP, INV)))
@@ -109,7 +114,80 @@ def test_kernels_match_plain_on_card(dtype, tol):
     for got, want in pairs:
         assert got.is_cuda and got.dtype == dtype
         assert float((got - want).abs().max()) <= tol
-    assert launch_counts() == _counts(K1=4, K2=1, K3=1, K4=1)
+    assert launch_counts() == _counts(K1=4, K2=3, K3=1, K4=1)
+
+
+# Long lines for the split-line sweeps: K1 at 16 rows per thread (past
+# 2,048 rows at float32, 896 at float64) and past its shared memory (4,096
+# and 1,792 rows: the reduced rows in global memory); K2 past its staged
+# lines with every field (5,825 rows at float32, 8,641 at bfloat16, 3,009
+# at float64; 16,417 plan-lite at float32).
+LONG_LINES = {torch.float32: dict(k1=(3000, 4100, 9000), k2=6000,
+                                  k2_lite=17000),
+              torch.bfloat16: dict(k1=(4100,), k2=8800, k2_lite=None),
+              torch.float64: dict(k1=(1200, 1800, 4100), k2=3100,
+                                  k2_lite=None)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(LONG_LINES),
+                         ids=["f32", "bf16", "f64"])
+def test_long_lines_match_plain_on_card(dtype):
+    """K1 (x and y, plan-lite and the field plan's folds, the v1 entry) and
+    K2 (the field plan's z, plan-lite with pinned codes) on lines too long
+    for shared memory, against their plain versions: float64 1e-9 K,
+    float32 2e-3 K, bfloat16 one ulp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(29)
+    sizes = LONG_LINES[dtype]
+
+    def fields(shape):
+        mask = torch.from_numpy(rng.random(shape) > 0.1).to(dev)
+        dirm = torch.from_numpy(rng.random(shape) > 0.97).to(dev) & mask
+        r = (lambda: torch.from_numpy(rng.random(shape)).to(dev))
+        T = torch.where(mask, 20.0 + 1480.0 * r(), 20.0).to(dtype)
+        kw = dict(coeff=torch.where(mask & (r() > 0.5), 0.3, 0.0),
+                  qflux=r() * 50.0 * mask, dir_val=500.0 + 500.0 * r())
+        return mask, dirm, T, {k: v.to(dtype) for k, v in kw.items()}
+
+    def nat(mask, dirm, axis):
+        return sweep_code(mask, dirm, axis).movedim(0, axis).contiguous()
+
+    cases = []
+    for n in sizes["k1"]:
+        for axis, shape in ((0, (n, 3, 45)), (1, (2, n, 37))):
+            mask, dirm, T, kw = fields(shape)
+            cases += [(sweep_strided, sweep_strided_plain,
+                       (T, nat(mask, None, axis), TG, DT, TINF),
+                       dict(axis=axis, rob_c=ROB)),
+                      (sweep_strided, sweep_strided_plain,
+                       (T, nat(mask, dirm, axis), TG, DT, TINF),
+                       dict(axis=axis, **kw))]
+            if dtype != torch.bfloat16:
+                cases.append((sweep_strided, sweep_strided_plain,
+                              (T, nat(mask, dirm, axis), TG, DT, TINF),
+                              dict(axis=axis, coeff=kw["coeff"],
+                                   pin_from_code=True)))
+    mask, dirm, T, kw = fields((3, 5, sizes["k2"]))
+    cases.append((sweep_z, sweep_z_plain, (T, nat(mask, dirm, 2), TG, DT,
+                                           TINF), kw))
+    if sizes["k2_lite"]:
+        mask, _, T, kw = fields((3, 5, sizes["k2_lite"]))
+        pins = torch.from_numpy(rng.random(mask.shape) > 0.9).to(dev)
+        code = nat(mask, None, 2) | (pins.to(torch.uint8) * 4)
+        cases += [(sweep_z, sweep_z_plain, (T, code, TG, DT, TINF, ROB), {}),
+                  (sweep_z, sweep_z_plain, (T, code, TG, DT, TINF, ROB),
+                   dict(qflux=kw["qflux"]))]
+    for kern, plain, args, kw in cases:
+        got, want = kern(*args, **kw), plain(*args, **kw)
+        assert got.is_cuda and got.dtype == dtype
+        if dtype == torch.bfloat16:
+            assert _bf16_ulps(got, want) <= 1.0
+        else:
+            tol = 1e-9 if dtype == torch.float64 else 2e-3
+            assert float((got - want).abs().max()) <= tol
 
 
 def _flat(out):
@@ -533,7 +611,8 @@ def test_gstream_kernels_match_plain_on_card(dtype):
 @pytest.mark.cuda
 def test_bf16_entries_match_plain_on_card():
     """The bfloat16 entries of K1 (plan-lite x and y, the field plan with
-    Neumann and Dirichlet folds, the permuted z), K2, K3 and K4 against
+    Neumann and Dirichlet folds, the permuted z), K2 (plan-lite, and the
+    field plan's z with the same folds), K3 and K4 against
     their plain versions on the card, rounding to nearest and
     stochastically: within one bfloat16 ulp (the float32 solves round
     differently, FMA and reciprocals)."""
@@ -575,6 +654,8 @@ def test_bf16_entries_match_plain_on_card():
              dict(axis=0, coeff=zxy(coeff), qflux=zxy(q),
                   dir_val=zxy(dval), zxy=True)),
             (sweep_z, sweep_z_plain, (T, nat(2), TG, DT, TINF, ROB), {}),
+            (sweep_z, sweep_z_plain, (T, nat(2, dirm), TG, DT, TINF),
+             dict(coeff=coeff, qflux=q, dir_val=dval)),
             (theta_rhs, theta_rhs_plain,
              (T, mask.to(torch.uint8), C_EXP, INV), {}),
             (fused_theta_sweep, fused_theta_sweep_plain,
@@ -587,13 +668,13 @@ def test_bf16_entries_match_plain_on_card():
     for got, want in pairs:
         assert got.is_cuda and got.dtype == torch.bfloat16
         assert _bf16_ulps(got, want) <= 1.0
-    assert launch_counts() == _counts(K1b=8, K2b=2, K3b=2, K4b=2)
+    assert launch_counts() == _counts(K1b=8, K2b=4, K3b=2, K4b=2)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("route,launches", [
     ("lite", dict(K4b=1, K1b=1, K2b=1)),
-    ("field", dict(K3b=1, K1b=3)),
+    ("field", dict(K3b=1, K1b=2, K2b=1)),
     ("gstreams", dict(K23=1, K24=1, K25=1, K26=1))])
 def test_bf16_engine_routes_on_card(route, launches):
     """make_cartesian_engine(dtype=bfloat16, stochastic_rounding=True) on

@@ -180,7 +180,9 @@ def test_convert_round_trip(plan):
         device="cpu")
     native = build_sweep_plan(torch.from_numpy(mask), None if rc else pp,
                               robin_const=rc)
-    assert conv.z_natural == native.z_natural == (plan == "lite")
+    # every input, z's too, in the natural (x, y, z) layout
+    for t in (*conv.codes, *(conv.coeffs or ()), *(conv.qfluxes or ())):
+        assert t.shape == mask.shape
     for a, b in zip(conv.codes, native.codes):
         assert a.dtype == torch.uint8 and torch.equal(a, b)
     for name in ("coeffs", "qfluxes"):
