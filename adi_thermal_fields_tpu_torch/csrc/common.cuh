@@ -54,14 +54,16 @@ __device__ __forceinline__ void st(float* p, float v, int64_t, int64_t) {
 __device__ __forceinline__ void st(double* p, double v, int64_t, int64_t) {
   *p = v;
 }
+// The bits of v rounded to bfloat16 as st() stores it.
+__device__ __forceinline__ unsigned short bf16_bits(float v, int64_t key,
+                                                   int64_t idx) {
+  if (key < 0) return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  const uint32_t b = __float_as_uint(v) + (sr_bits(key, idx) & 0xffffu);
+  return (unsigned short)(b >> 16);
+}
 __device__ __forceinline__ void st(__nv_bfloat16* p, float v, int64_t key,
                                    int64_t idx) {
-  if (key < 0) {
-    *p = __float2bfloat16_rn(v);
-    return;
-  }
-  const uint32_t b = __float_as_uint(v) + (sr_bits(key, idx) & 0xffffu);
-  *p = __ushort_as_bfloat16((unsigned short)(b >> 16));
+  *p = __ushort_as_bfloat16(bf16_bits(v, key, idx));
 }
 
 __host__ __device__ inline int64_t cdiv(int64_t a, int64_t b) {
@@ -189,6 +191,14 @@ inline void allow_dynamic_smem(K kernel, size_t bytes) {
 }
 
 }  // namespace atf
+
+// Inside an ATF_DISPATCH body: an error before the launch (the scratch of
+// a long line's reduced rows) returns at once.
+#define ATF_RETURN_IF(expr)                          \
+  do {                                               \
+    const cudaError_t cfg_err = (expr);              \
+    if (cfg_err != cudaSuccess) return (int)cfg_err; \
+  } while (0)
 
 // Selects `device`, runs the statement with `T` bound to the field type
 // named by `dtype`, and returns the launch's cudaGetLastError().

@@ -62,7 +62,7 @@ _SIGNATURES = {
                     _I),
     "atf_theta_rhs": ([_I, _I, _P, _P, _P, _I64, _I64, _I64, *[_D] * 4,
                        _I64, _P], _I),
-    "atf_theta_sweep": ([_I, _I, *[_P] * 5, _I64, _I64, _I64, *[_D] * 8,
+    "atf_theta_sweep": ([_I, _I, *[_P] * 3, _I64, _I64, _I64, *[_D] * 8,
                          _I64, _P], _I),
     "atf_gstream_fields": ([_I, _I, *[_P] * 14, _I64, _I64, _I64, _DP, _I,
                             _DP, _I, *[_D] * 12, _I, _P], _I),

@@ -8,7 +8,8 @@ fused_theta_sweep_axis0`` (:454; its ring kernel ``_theta_sweep_ring``
 ``U = A_x^{-1} [(I + c_exp L) T + dt*cf*t_inf]``: the mask-aware Laplacian
 of K3 evaluated from the x-sweep code's neighbor bits (1/2 = x, 16/32 = y,
 64/128 = z, 8 = in-mask; ``sweep_code(mask, None, 0, stencil_bits=True)``)
-and fed straight into K1's plan-lite recurrence along x.  Scope: plan-lite
+and fed straight into K1's plan-lite solve along x, each line split
+across threads (csrc/split_line.cuh): no c'/d' scratch.  Scope: plan-lite
 (scalar-h Robin), no Neumann fold, no Dirichlet pins.
 """
 from __future__ import annotations
@@ -18,9 +19,9 @@ from types import SimpleNamespace
 import torch
 
 from ..bc.faces import shift_in
-from ..kernels import (STATE_DTYPES, check_kernel_inputs, compute_dtype,
-                       dtype_code, load_library, ptr, raise_on_error,
-                       stream_ptr, use_kernel)
+from ..kernels import (STATE_DTYPES, check_kernel_inputs, dtype_code,
+                       load_library, ptr, raise_on_error, stream_ptr,
+                       use_kernel)
 from .rounding import sr_key, to_state, widen
 from .stencil import _inv3
 from .sweeps import _solve_plain
@@ -68,13 +69,10 @@ def fused_theta_sweep(T: torch.Tensor, code: torch.Tensor, c_exp: float,
     check_kernel_inputs("fused_theta_sweep", T, code, dtypes=STATE_DTYPES)
     ivx, ivy, ivz = _inv3(inv_d2)
     out = torch.empty_like(T)
-    cdt = compute_dtype(T.dtype)
-    cpbuf = torch.empty(T.shape, dtype=cdt, device=T.device)
-    dpbuf = torch.empty(T.shape, dtype=cdt, device=T.device)
     err = load_library().atf_theta_sweep(
         dtype_code(T.dtype), T.device.index, ptr(T), ptr(code), ptr(out),
-        ptr(cpbuf), ptr(dpbuf), *T.shape, c_exp, ivx, ivy, ivz, tg, dt,
-        t_inf, rob_c, sr_key(rng_seed, rng_offset), stream_ptr(T.device))
+        *T.shape, c_exp, ivx, ivy, ivz, tg, dt, t_inf, rob_c,
+        sr_key(rng_seed, rng_offset), stream_ptr(T.device))
     raise_on_error(err, "fused_theta_sweep")
     counter = (fused_theta_sweep.bf16 if T.dtype == torch.bfloat16
                else fused_theta_sweep)

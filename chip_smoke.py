@@ -14,10 +14,12 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    prints the build seconds.
 2. Each kernel against its plain PyTorch version on the same CUDA tensors,
    float32: K1-K4 at 256^3 with a WAAM mask (plate, two walls, a deposited
-   block), 256^3 with a random mask, and 97x203x131, and K1 and K2 also
-   at the 512^3 WAAM mask of phase 3 (plan-lite x, y and z, the entry
+   block), 256^3 with a random mask, and 97x203x131, and also at the
+   512^3 WAAM mask of phase 3 (K1 and K2: plan-lite x, y and z, the entry
    plan's plan-lite + Neumann x and z, the field plan's coefficient +
-   Neumann + Dirichlet x and z; the summary's K1 and K2 times); K5-K8 at
+   Neumann + Dirichlet x and z; K3; K4; the summary's K1-K4 times), and
+   K4 on 8192-row lines (its reduced rows in global memory) and on fields
+   of 1 and 3 planes (8192x64x64, 1x512x512, 3x512x512); K5-K8 at
    the 256^3 WAAM mask and 97x203x131, T over 20-1500 C with cells exactly
    at the
    solidus and liquidus, melt_pool_enhanced_k(54, 1420, 1470, 4) and
@@ -232,8 +234,13 @@ APP_TOL = 0.5       # ~1700 sub-steps of ulp-level differences, which the
 # sizes: phase 2 kernel shapes, phase 3 step edge, phase 4 STL box and cell
 P2_SHAPES = (("256^3 waam", (256, 256, 256)), ("256^3 random", (256,) * 3),
              ("97x203x131 random", (97, 203, 131)))
-# phase 2's K1 and K2 rows at the main path's shape (the summary's times)
+# phase 2's K1-K4 rows at the main path's shape (the summary's times)
 P2_SWEEP_SHAPE = ("512^3 waam", (512,) * 3)
+# K4 on lines past its shared memory (the reduced rows in global memory)
+# and on fields of one and three planes
+P2_K4_SHAPES = (("8192x64x64 random", (8192, 64, 64)),
+                ("1x512x512 random", (1, 512, 512)),
+                ("3x512x512 random", (3, 512, 512)))
 P3_N = 512
 P3_WARMUP, P3_STEPS = 2, 3
 P4_BOX_MM = (160.0, 40.0, 40.0)
@@ -499,7 +506,7 @@ def phase2(torch, dev):
     f32 = torch.float32
     mat = Material(7800.0, 490.0, 54.0)
     rows = []
-    for label, shape in P2_SHAPES + (P2_SWEEP_SHAPE,):
+    for label, shape in P2_SHAPES + (P2_SWEEP_SHAPE,) + P2_K4_SHAPES:
         grid = CartesianGrid(*shape, 0.5e-3)
         dt = 2.0 * grid.dx ** 2 / mat.alpha          # the app's dt cap
         dt, inv_d2, tg, c_exp = step_scalars(f32, grid, mat, dt, 0.5)
@@ -574,8 +581,10 @@ def phase2(torch, dev):
                                              dt, 20.0, rc[0])),
         ]
         if (label, shape) == P2_SWEEP_SHAPE:
-            variants = [v for v in variants if v[0] in ("K1", "K2")
-                        and v[1] != "field+neumann+dirichlet y"]
+            variants = [v for v in variants
+                        if v[1] != "field+neumann+dirichlet y"]
+        elif (label, shape) in P2_K4_SHAPES:
+            variants = [v for v in variants if v[0] == "K4"]
         cells = mask.numel()
         for kname, vname, bpc, kern, plain in variants:
             got = kern()
@@ -584,8 +593,8 @@ def phase2(torch, dev):
             check(bool(torch.isfinite(got).all()),
                   f"{kname} {vname} {label}: non-finite output")
             err = float((got - want).abs().max())
-            tol = KERNEL_TOL_ULP * torch.finfo(f32).eps * max(
-                1.0, float(want.abs().max()))
+            ulp = torch.finfo(f32).eps * max(1.0, float(want.abs().max()))
+            tol = KERNEL_TOL_ULP * ulp
             ms = cuda_ms(torch, kern, 20)
             plain_ms = cuda_ms(torch, plain, 3)
             pct = 100.0 * cells * bpc / (ms * 1e-3) / HBM_BYTES_PER_S
@@ -594,7 +603,8 @@ def phase2(torch, dev):
                              bytes_per_cell=bpc, pct_hbm=pct,
                              **bound(kname, cells * bpc, cells)))
             print(f"[phase 2] {kname} {vname:32s} {label:18s} "
-                  f"max|d|={err:.3e} K (tol {tol:.1e})  kernel "
+                  f"max|d|={err:.3e} K = {err / ulp:.2f} ulp of scale "
+                  f"(tol {tol:.1e})  kernel "
                   f"{ms:8.3f} ms  plain {plain_ms:9.3f} ms  {pct:5.1f}% of "
                   f"3.35 TB/s at {bpc} B/cell", flush=True)
             check(err <= tol, f"{kname} {vname} {label}: max|d| "
@@ -2760,7 +2770,7 @@ def main():
                  else f"{P2_SHAPES[0][0]} bfloat16" if k in BF16_KERNELS
                  else f"{P2_SHAPES[0][0]} f32" if k == "K1v1"
                  else f"{P11_Y_SHAPES[1][0]} f32" if k == "K15y"
-                 else P2_SWEEP_SHAPE[0] if k in ("K1", "K2")
+                 else P2_SWEEP_SHAPE[0] if k in CONST_KERNELS
                  else P2_SHAPES[0][0])
         ref = next(r for r in mine if r["variant"] == main_variant[k]
                    and r["shape"] == shape)

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """A/B of K1 and K2 (the masked sweeps, ``sweep_strided`` and ``sweep_z``),
-the field plan's z pass and the constant-property WAAM steps, with K15
-(the tier-2 sweep along cylindrical r, ``vp2_sweep_strided``) beside them,
-between two checkouts of the PyTorch port, on one CUDA card.
+K3 and K4 (the theta-pass stencil ``theta_rhs`` and the stencil fused into
+the plan-lite x sweep, ``fused_theta_sweep``), the field plan's z pass and
+the constant-property WAAM steps, with K15 (the tier-2 sweep along
+cylindrical r, ``vp2_sweep_strided``) beside them, between two checkouts of
+the PyTorch port, on one CUDA card.
 
     python3 scripts/sweep_rows_ab.py OTHER_CHECKOUT
 
@@ -11,7 +13,9 @@ own process (each builds its own kernel library), and prints one JSON line
 per run: CUDA-event medians, float32, at chip_smoke.py's 256^3 and 512^3
 WAAM masks of K1 (plan-lite y; the entry plan's x, plan-lite with the
 Neumann field; the field plan's x with Neumann and Dirichlet), K2
-(plan-lite z), the field plan's z pass (where ``sweep_z`` takes no fields:
+(plan-lite z), K3 and K4 (float32, and their bfloat16 entries K3b and K4b
+at 256^3, stochastically rounded as the bf16 engine stores), the field
+plan's z pass (where ``sweep_z`` takes no fields:
 permute to (z, x, y), K1, permute back; else K2 on the natural layout),
 K15 at phase 8's 64x512x1024 tube, and chip_smoke.py phase 3's three
 512^3 steps (plan-lite, entry, per-face field) in ms/step, each with its
@@ -32,18 +36,20 @@ STEP_WARMUP, STEP_REPS = 2, 5
 
 
 def sweep_rows(torch, cs, dev, n, out):
-    """K1, K2 and the field plan's z pass at the n^3 WAAM mask."""
+    """K1-K4 and the field plan's z pass at the n^3 WAAM mask."""
     from adi_thermal_fields_tpu_torch import (CartesianGrid, Material,
                                               build_coeff_packs)
-    from adi_thermal_fields_tpu_torch.solvers import (sweep_code,
-                                                      sweep_strided, sweep_z)
+    from adi_thermal_fields_tpu_torch.solvers import (fused_theta_sweep,
+                                                      sweep_code,
+                                                      sweep_strided, sweep_z,
+                                                      theta_rhs)
     from adi_thermal_fields_tpu_torch.step.cartesian import step_scalars
 
     f32 = torch.float32
     mat = Material(7800.0, 490.0, 54.0)
     grid = CartesianGrid(n, n, n, 0.5e-3)
     dt = 2.0 * grid.dx ** 2 / mat.alpha
-    dt, _, tg, _ = step_scalars(f32, grid, mat, dt, 0.5)
+    dt, inv_d2, tg, c_exp = step_scalars(f32, grid, mat, dt, 0.5)
     rc = float(torch.tensor(30.0, dtype=f32)
                * torch.tensor(1.0 / (mat.rho * mat.cp * grid.dy), dtype=f32))
     mask = cs.waam_mask(torch, grid.shape, dev)
@@ -81,6 +87,17 @@ def sweep_rows(torch, cs, dev, n, out):
             .permute(1, 2, 0).contiguous())
         out["z_pass"] = "permute, K1, permute back"
     out[f"field_z_pass_ms {tag}"] = cs.cuda_ms(torch, z_pass, 30)
+    m8 = mask.to(torch.uint8)
+    cs4 = sweep_code(mask, None, 0, stencil_bits=True)
+    for name, Tk, sr in ((("", T, {}),) + ((("b", T.to(torch.bfloat16),
+                                              dict(rng_seed=cs.P10_SEED)),)
+                                            if n == 256 else ())):
+        out[f"K3{name}_ms {tag}"] = cs.cuda_ms(torch, lambda: theta_rhs(
+            Tk, m8, c_exp, inv_d2, **sr), 30)
+        out[f"K4{name}_ms {tag}"] = cs.cuda_ms(
+            torch, lambda: fused_theta_sweep(Tk, cs4, c_exp, inv_d2, tg[0],
+                                             dt, 20.0, rc, rng_offset=1,
+                                             **sr), 30)
 
 
 def step_rows(torch, cs, dev, out):

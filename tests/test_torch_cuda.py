@@ -190,6 +190,87 @@ def test_long_lines_match_plain_on_card(dtype):
             assert float((got - want).abs().max()) <= tol
 
 
+# K3 and K4 at odd shapes: nz no multiple of 4 or 32 (K3's scalar path,
+# K4's partial lane groups), 1-3 planes, and (K4) lines past shared memory
+# (1,024 rows at float32 and bfloat16, 512 at float64).
+THETA_SHAPES = {torch.float32: ((6, 7, 13), (5, 9, 34), (1, 5, 7),
+                                (2, 3, 1), (3, 4, 64), (4200, 2, 37)),
+                torch.bfloat16: ((6, 7, 13), (3, 4, 64), (4200, 2, 37)),
+                torch.float64: ((6, 7, 13), (5, 9, 34), (2, 3, 1),
+                                (1900, 3, 9))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(THETA_SHAPES),
+                         ids=["f32", "bf16", "f64"])
+def test_theta_kernels_at_odd_shapes_on_card(dtype):
+    """K3 and K4 against their plain versions (float64 1e-9 K, float32
+    2e-3 K, bfloat16 one bfloat16 ulp of the output's scale), scalar and
+    per-axis 1/d^2, to nearest and (bfloat16) seeded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(71)
+    seeds = (None, 5) if dtype == torch.bfloat16 else (None,)
+    reset_launch_counts()
+    calls = 0
+    for shape in THETA_SHAPES[dtype]:
+        mask_np = rng.random(shape) > 0.25
+        mask = torch.from_numpy(mask_np).to(dev)
+        T = torch.from_numpy(np.where(mask_np, 20.0 + 1480.0
+                                      * rng.random(shape), 20.0)) \
+            .to(dev, dtype)
+        code = sweep_code(mask, None, 0, stencil_bits=True)
+        m_u8 = mask.to(torch.uint8)
+        for inv, seed in ((i, s) for i in (1.0e6, INV) for s in seeds):
+            sr = dict(rng_seed=seed)
+            k4 = (T, code, C_EXP, inv, TG, DT, TINF, ROB)
+            for got, want in (
+                    (theta_rhs(T, m_u8, C_EXP, inv, **sr),
+                     theta_rhs_plain(T, m_u8, C_EXP, inv, **sr)),
+                    (fused_theta_sweep(*k4, rng_offset=1, **sr),
+                     fused_theta_sweep_plain(*k4, rng_offset=1, **sr))):
+                assert got.is_cuda and got.dtype == dtype
+                err = float((got.double() - want.double()).abs().max())
+                if dtype == torch.bfloat16:
+                    scale = float(want.double().abs().max())
+                    assert err <= 2.0 ** (np.floor(np.log2(scale)) - 7), \
+                        shape
+                else:
+                    assert err <= (1e-9 if dtype == torch.float64
+                                   else 2e-3), shape
+            calls += 1
+    counts = (dict(K3b=calls, K4b=calls) if dtype == torch.bfloat16
+              else dict(K3=calls, K4=calls))
+    assert launch_counts() == _counts(**counts)
+
+
+@pytest.mark.cuda
+def test_theta_sweep_takes_no_field_sized_scratch_on_card():
+    """K4 solves each line on chip: one call raises the allocator's peak
+    by its output alone, under two fields (the first version took c' and
+    d' scratch of two more fields)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    shape = (128, 96, 160)
+    rng = np.random.default_rng(73)
+    mask = torch.from_numpy(rng.random(shape) > 0.25).to(dev)
+    T = torch.where(mask, 900.0, 20.0).to(torch.float32)
+    code = sweep_code(mask, None, 0, stencil_bits=True)
+    args = (T, code, C_EXP, INV, TG, DT, TINF, ROB)
+    fused_theta_sweep(*args)                  # builds and loads the library
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = fused_theta_sweep(*args)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated(dev) - base
+    field = T.numel() * T.element_size()
+    assert out.shape == T.shape
+    assert field <= rise < 2 * field, (rise, field)
+
+
 def _flat(out):
     return [t for x in (out if isinstance(out, tuple) else (out,))
             for t in (x if isinstance(x, tuple) else (x,))]
