@@ -1,11 +1,13 @@
-// The split-line core of the masked tridiagonal sweeps (K1, K2, K4).
+// The split-line core of the tridiagonal sweeps K1, K2, K4, K7 and K8.
 //
 // A line of n rows is cut into chunks of M rows, one chunk per thread:
 //   (a) `Chunk::load` forms the chunk's rows in registers (a, c and b from a
 //       16-entry table of the code's low bits, `fill_row_table`; the right-
-//       hand side from the caller's `src`) and eliminates inside the chunk
-//       (a downward pass, then an upward one), leaving its first and last
-//       rows coupled only to the neighbouring chunks;
+//       hand side from the caller's `src`; K1, K2, K4), `Chunk::load_rows`
+//       takes them from the caller's row former (K7, K8), and both
+//       eliminate inside the chunk (a downward pass, then an upward one),
+//       leaving its first and last rows coupled only to the neighbouring
+//       chunks;
 //   (b) those two rows of every chunk form a reduced tridiagonal system with
 //       a unit diagonal: `seg_eliminate` folds a thread's consecutive chunks
 //       to two rows, `pcr_reduced` (shared memory) or `warp_reduced` (warp
@@ -15,6 +17,8 @@
 // csrc/sweeps.cu explains the method, its pivoting and its rounding; the
 // kernels that use it say how they lay lines and chunks over threads.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -84,9 +88,12 @@ __device__ __forceinline__ void form_row(unsigned c, C r, bool has_coeff,
   if (kPinFromCode ? (c & atf::kPin) != 0u : pin) b = C(1);
 }
 
-// Phases (a) and (c) of one chunk of M rows (M >= 4).  `src(k, code, r,
-// cf, q, dv)` fills row k's inputs (all zero past the line's end: an
-// identity row).
+// Phases (a) and (c) of one chunk of M rows (M >= 4).  `load_rows` takes
+// the rows from the caller's former, `rows(k, a, b, c, d)`, called for
+// k = 0, 1, ..., M-1 in that order (a former may carry a value from row to
+// row; rows past the line's end must be identity rows); `load` forms them
+// from the code table (K1, K2, K4): `src(k, code, r, cf, q, dv)` fills row
+// k's inputs (all zero past the line's end: an identity row).
 template <typename C, int M, bool kPinFromCode>
 struct Chunk {
   C a[M], c[M], d[M];
@@ -107,6 +114,24 @@ struct Chunk {
       if (row0 + k == 0) a[k] = C(0);
       if (row0 + k == n - 1) c[k] = C(0);
     }
+    eliminate(b);
+  }
+
+  template <typename Rows>
+  __device__ __forceinline__ void load_rows(const Rows& rows, int64_t row0,
+                                            int64_t n) {
+    C b[M];
+#pragma unroll
+    for (int k = 0; k < M; ++k) {
+      rows(k, a[k], b[k], c[k], d[k]);
+      if (row0 + k == 0) a[k] = C(0);
+      if (row0 + k == n - 1) c[k] = C(0);
+    }
+    eliminate(b);
+  }
+
+  // the downward and upward passes over the chunk's rows (diagonal b)
+  __device__ __forceinline__ void eliminate(C (&b)[M]) {
     // downward: row k >= 1 becomes a'_k x_first + x_k + c'_k x_{k+1} = d'_k
     C r = rcp(b[0]);
     a[0] *= r;
@@ -284,6 +309,110 @@ __device__ __forceinline__ void warp_reduced(C a0, C c0, C d0, C a1, C c1,
   u0 = d0 - a0 * prev - c0 * u1;
 }
 
+// Phase (b) on warp shuffles (W <= 32): each thread's 2R reduced rows (its
+// R consecutive chunks) reduce to their first and last (`seg_eliminate`);
+// each line's 2W segment rows then go through one warp, lane s holding
+// segment s's first and last rows (`warp_reduced`; lanes past W hold
+// identity rows), so the block meets at two barriers (K1's PCR across the
+// warps in shared memory takes one a step); then the inner rows follow.
+// S2 holds 3 x 2W x 33 values (rows of 32 lines, padded so that the
+// lanes' writes hit distinct banks and their reads at most two a bank).
+template <typename C>
+__device__ __forceinline__ void block_reduced_warps(C* A, C* Cc, C* D,
+                                                    C* S2, int lane, int w,
+                                                    int W, int R) {
+  const int o0 = (2 * w * R) * 32 + lane, cnt = 2 * R;
+  seg_eliminate(A, Cc, D, o0, 32, cnt);
+  const int last = o0 + (cnt - 1) * 32;
+  C* Sa = S2;
+  C* Sc = Sa + 2 * W * 33;
+  C* Sd = Sc + 2 * W * 33;
+  const int f = (2 * w) * 33 + lane, l = f + 33;
+  Sa[f] = A[o0];
+  Sc[f] = Cc[o0];
+  Sd[f] = D[o0];
+  Sa[l] = A[last];
+  Sc[l] = Cc[last];
+  Sd[l] = D[last];
+  __syncthreads();
+  for (int line = w; line < 32; line += W) {     // lane = segment
+    const bool seg = lane < W;
+    const int g = (2 * lane) * 33 + line, h = g + 33;
+    C u0, u1;
+    warp_reduced(seg ? Sa[g] : C(0), seg ? Sc[g] : C(0), seg ? Sd[g] : C(0),
+                 seg ? Sa[h] : C(0), seg ? Sc[h] : C(0), seg ? Sd[h] : C(0),
+                 lane, u0, u1);
+    if (seg) {
+      Sd[g] = u0;
+      Sd[h] = u1;
+    }
+  }
+  __syncthreads();
+  seg_finish(A, Cc, D, o0, 32, cnt, Sd[f], Sd[l]);   // this thread's rows
+}
+
+// Staging for the kernels that own a line per warp (K2, K8): cp.async
+// copies into shared memory, and the padded layout of a group of W lines.
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
+                                         int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if (bytes == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(gmem));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(gmem));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// one element into the tile: asynchronous where the types agree in a 4- or
+// 8-byte word, else a plain load (bfloat16)
+template <typename T, typename S>
+__device__ __forceinline__ void stage(T* dst, const S* src) {
+  if constexpr (std::is_same_v<T, S> && sizeof(S) >= 4) {
+    cp_async(dst, src, (int)sizeof(S));
+  } else if constexpr (std::is_same_v<T, S>) {
+    *dst = *src;
+  } else {
+    *dst = atf::ld(src);
+  }
+}
+
+// The shared-memory layout of one staged group of W lines.
+struct ZLayout {
+  int W, pitch, cpitch;          // elements per line: values, code bytes
+  size_t x_bytes, f_bytes, c_bytes, buf_bytes;
+};
+
+template <typename S, typename C, int M>
+ZLayout z_layout(int W, int64_t n, int nfields) {
+  ZLayout L;
+  const int nch = (int)atf::cdiv(n, M);
+  L.W = W;
+  L.pitch = nch * (M + 1);
+  L.cpitch = nch * (M + 4);
+  auto up16 = [](size_t b) { return (b + 15) / 16 * 16; };
+  L.x_bytes = up16((size_t)W * L.pitch * sizeof(C));
+  L.f_bytes = up16((size_t)W * L.pitch * sizeof(S));
+  L.c_bytes = up16((size_t)W * L.cpitch);
+  L.buf_bytes = L.x_bytes + nfields * L.f_bytes + L.c_bytes;
+  return L;
+}
+
+template <typename C>
+size_t z_reduced_bytes(int W, int R) {
+  return 6 * sizeof(C) * (size_t)W * 2 * 32 * R;
+}
+
 // The largest dynamic shared memory a block may take (H100: 227 KB), less
 // 1 KB for the kernels' static row table.
 inline int smem_limit(int device) {
@@ -291,6 +420,173 @@ inline int smem_limit(int device) {
   cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          device);
   return bytes - 1024;
+}
+
+// ---------------------------------------------------------------------------
+// A split-line sweep along a strided axis with the caller's rows (K7's y
+// sweep; K8's lines too long to stage)
+// ---------------------------------------------------------------------------
+//
+// K1's layout (csrc/sweeps.cu): a warp's lanes are 32 lines adjacent in B2,
+// so a row's loads and stores are coalesced; the block's W warps split the
+// lines' chunks, warp w owning chunks [w R, (w+1) R).  Phase (b) runs on
+// warp shuffles (`block_reduced_warps`, as K4); phase (c) takes a thread's
+// chunks but the last from their eliminated inner rows, kept in shared
+// memory where they fit (kKeep: lines of up to 512 rows at float32, 256
+// at float64), else forms them again, as K1 reloads its inputs.  `Rows`
+// forms a chunk: `rows.load(ch, base, rs, row0, n, valid)` loads and
+// eliminates rows row0 .. row0 + M - 1 of the line whose row i lies at
+// base + i*rs (identity rows past n, and for a lane past the last line,
+// `valid` false).  Memory: the reduced rows (A, Cc, D: 2WR rows of 32
+// lines) in shared memory, or (kGlobal, lines too long for it) in `gred`,
+// then phase (b)'s segment rows (3 x 2W x 33).  M = 8 rows a thread (16,
+// then global reduced rows, where a line's reduced rows would
+// not fit: past 2,048 and 4,096 rows at float32, 1,024 and 2,048 at
+// float64); one block an SM, of W = 32 warps at float32 (64 registers)
+// and 16 at float64.  On the H100 (PERF.md §6, K7 at 512^3) 32 warps of
+// 8-row chunks (two chunks a thread, one formed again in phase (c)) ran
+// 8-12% faster than two 16-warp blocks an SM (four chunks a thread), and
+// 16-row chunks (128 registers) 30% slower; keeping the first chunk's
+// eliminated rows instead of forming them again took another 19%.
+template <typename C>
+constexpr int kSplitWarps = sizeof(C) == 4 ? 32 : 16;
+
+// kKeep: shared memory also holds the eliminated inner rows (a', c', d')
+// of a thread's chunks but the last, so phase (c) back-substitutes them
+// without forming them again: (R-1) x (M-2) x 3 values a thread.
+template <typename C>
+size_t split_smem_bytes(int W, int R, int M, bool global, bool keep) {
+  return sizeof(C) * ((size_t)33 * 3 * 2 * W +
+                      (global ? 0 : (size_t)32 * 3 * 2 * W * R) +
+                      (keep ? (size_t)32 * W * (R - 1) * (M - 2) * 3 : 0));
+}
+
+template <typename C, typename Rows, int M, bool kGlobal, bool kKeep>
+__global__ void __launch_bounds__(32 * kSplitWarps<C>)
+    split_strided_kernel(const __grid_constant__ Rows rows,
+                         C* __restrict__ out, int64_t n, int64_t B2,
+                         int64_t ls, int64_t rs, int R,
+                         C* __restrict__ gred) {
+  extern __shared__ __align__(16) unsigned char atf_smem[];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int W = blockDim.x >> 5;
+  const int red = 2 * W * R;                      // reduced rows per line
+  C* A = kGlobal ? gred + (size_t)blockIdx.x * 3 * red * 32
+                 : reinterpret_cast<C*>(atf_smem);
+  C* Cc = A + red * 32;
+  C* D = Cc + red * 32;
+  C* S2 = kGlobal ? reinterpret_cast<C*>(atf_smem) : D + red * 32;
+  // value v of inner row k of the thread's chunk r (kKeep)
+  C* keep = S2 + 3 * 2 * W * 33;
+  auto kept = [&](int r, int k, int v) -> C& {
+    return keep[((r * (M - 2) + k - 1) * 3 + v) * blockDim.x + threadIdx.x];
+  };
+
+  const int64_t gpb = atf::cdiv(B2, 32);          // line groups per b1
+  const int64_t b1 = blockIdx.x / gpb;
+  const int64_t b2 = (blockIdx.x - b1 * gpb) * 32 + lane;
+  const bool valid = b2 < B2;
+  const int64_t base = b1 * n * B2 + b2 * ls;
+
+  Chunk<C, M, false> ch;
+  auto eliminate = [&](int j) {
+    rows.load(ch, base, rs, (int64_t)j * M, n, valid);
+  };
+  auto store = [&](int j) {
+    const C x0 = D[(2 * j) * 32 + lane];
+    const C xl = D[(2 * j + 1) * 32 + lane];
+#pragma unroll
+    for (int k = 0; k < M; ++k) {
+      const int64_t i = (int64_t)j * M + k;
+      if (valid && i < n) out[base + i * rs] = ch.x(k, x0, xl);
+    }
+  };
+
+  for (int r = 0; r < R; ++r) {                  // (a)
+    const int j = w * R + r;
+    eliminate(j);
+    ch.put_reduced(A, Cc, D, (2 * j) * 32 + lane, (2 * j + 1) * 32 + lane);
+    if (kKeep && r < R - 1) {
+#pragma unroll
+      for (int k = 1; k < M - 1; ++k) {
+        kept(r, k, 0) = ch.a[k];
+        kept(r, k, 1) = ch.c[k];
+        kept(r, k, 2) = ch.d[k];
+      }
+    }
+  }
+  block_reduced_warps(A, Cc, D, S2, lane, w, W, R);   // (b)
+  store(w * R + R - 1);                          // (c), last chunk first
+  for (int r = 0; r < R - 1; ++r) {
+    if (kKeep) {
+#pragma unroll
+      for (int k = 1; k < M - 1; ++k) {
+        ch.a[k] = kept(r, k, 0);
+        ch.c[k] = kept(r, k, 1);
+        ch.d[k] = kept(r, k, 2);
+      }
+    } else {
+      eliminate(w * R + r);
+    }
+    store(w * R + r);
+  }
+}
+
+template <typename C, typename Rows, int M, bool kGlobal, bool kKeep = false>
+cudaError_t launch_split_strided_m(const Rows& rows, C* out, int64_t B1,
+                                   int64_t n, int64_t B2, int64_t ls,
+                                   int64_t rs, cudaStream_t stream) {
+  const int W = (int)atf::imin(kSplitWarps<C>, atf::cdiv(n, M));
+  const int R = (int)atf::cdiv(n, (int64_t)W * M);
+  const size_t smem = split_smem_bytes<C>(W, R, M, kGlobal, kKeep);
+  const int64_t blocks = B1 * atf::cdiv(B2, 32);
+  C* gred = nullptr;
+  if (kGlobal) {
+    const size_t bytes = sizeof(C) * (size_t)blocks * 3 * 2 * W * R * 32;
+    const cudaError_t err =
+        cudaMallocAsync(reinterpret_cast<void**>(&gred), bytes, stream);
+    if (err != cudaSuccess) return err;
+  }
+  auto* kernel = split_strided_kernel<C, Rows, M, kGlobal, kKeep>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  kernel<<<(unsigned)blocks, 32 * W, smem, stream>>>(rows, out, n, B2, ls,
+                                                      rs, R, gred);
+  if (kGlobal) {
+    const cudaError_t launch_err = cudaGetLastError();
+    const cudaError_t free_err = cudaFreeAsync(gred, stream);
+    return launch_err != cudaSuccess ? launch_err : free_err;
+  }
+  return cudaSuccess;
+}
+
+// Lines b2 of groups b1 of a (B1, n, B2) field (line b2 of group b1 at
+// b1*n*B2 + b2*ls, rows rs apart), solved with `rows`' rows into `out`.
+template <typename C, typename Rows>
+cudaError_t launch_split_strided(const Rows& rows, C* out, int64_t B1,
+                                 int64_t n, int64_t B2, int64_t ls,
+                                 int64_t rs, int device,
+                                 cudaStream_t stream) {
+  auto fits = [&](int M, bool keep) {
+    const int W = (int)atf::imin(kSplitWarps<C>, atf::cdiv(n, M));
+    return split_smem_bytes<C>(W, (int)atf::cdiv(n, (int64_t)W * M), M,
+                               false, keep) <= (size_t)smem_limit(device);
+  };
+  if (fits(8, true)) {
+    return launch_split_strided_m<C, Rows, 8, false, true>(rows, out, B1, n,
+                                                           B2, ls, rs, stream);
+  }
+  if (fits(8, false)) {
+    return launch_split_strided_m<C, Rows, 8, false>(rows, out, B1, n, B2,
+                                                     ls, rs, stream);
+  }
+  if (fits(16, false)) {
+    return launch_split_strided_m<C, Rows, 16, false>(rows, out, B1, n, B2,
+                                                      ls, rs, stream);
+  }
+  return launch_split_strided_m<C, Rows, 16, true>(rows, out, B1, n, B2, ls,
+                                                   rs, stream);
 }
 
 }  // namespace

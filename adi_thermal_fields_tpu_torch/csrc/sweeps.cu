@@ -103,8 +103,6 @@
 // at their own type; a bfloat16 field is widened on load, solved at
 // float32 and narrowed on the final store, to nearest or stochastically
 // (`key`; the JAX kernels' rng_seed), at the cell's natural linear index.
-#include <type_traits>
-
 #include "common.cuh"
 #include "split_line.cuh"
 
@@ -222,66 +220,6 @@ __global__ void __launch_bounds__(512) sweep_strided_kernel(
 // ---------------------------------------------------------------------------
 // K2: contiguous lines; warp = line, lanes = chunks, inputs staged
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
-                                         int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  if (bytes == 4) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-                 "l"(gmem));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-                 "l"(gmem));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// one element into the tile: asynchronous where the types agree in a 4- or
-// 8-byte word, else a plain load (bfloat16)
-template <typename T, typename S>
-__device__ __forceinline__ void stage(T* dst, const S* src) {
-  if constexpr (std::is_same_v<T, S> && sizeof(S) >= 4) {
-    cp_async(dst, src, (int)sizeof(S));
-  } else if constexpr (std::is_same_v<T, S>) {
-    *dst = *src;
-  } else {
-    *dst = atf::ld(src);
-  }
-}
-
-// The shared-memory layout of one staged group of W lines.
-struct ZLayout {
-  int W, pitch, cpitch;          // elements per line: values, code bytes
-  size_t x_bytes, f_bytes, c_bytes, buf_bytes;
-};
-
-template <typename S, typename C, int M>
-ZLayout z_layout(int W, int64_t n, int nfields) {
-  ZLayout L;
-  const int nch = (int)atf::cdiv(n, M);
-  L.W = W;
-  L.pitch = nch * (M + 1);
-  L.cpitch = nch * (M + 4);
-  auto up16 = [](size_t b) { return (b + 15) / 16 * 16; };
-  L.x_bytes = up16((size_t)W * L.pitch * sizeof(C));
-  L.f_bytes = up16((size_t)W * L.pitch * sizeof(S));
-  L.c_bytes = up16((size_t)W * L.cpitch);
-  L.buf_bytes = L.x_bytes + nfields * L.f_bytes + L.c_bytes;
-  return L;
-}
-
-template <typename C>
-size_t z_reduced_bytes(int W, int R) {
-  return 6 * sizeof(C) * (size_t)W * 2 * 32 * R;
-}
 
 template <typename S, typename C, int M>
 __global__ void __launch_bounds__(256) sweep_z_kernel(

@@ -90,48 +90,6 @@ __device__ __forceinline__ C stencil_rhs(const S* __restrict__ Tf,
   return tc + ((c & atf::kInMask) ? sc.c_exp : C(0)) * acc;
 }
 
-// Phase (b) on warp shuffles (W <= 32): each thread's 2R reduced rows (its
-// R consecutive chunks) reduce to their first and last (`seg_eliminate`);
-// each line's 2W segment rows then go through one warp, lane s holding
-// segment s's first and last rows (`warp_reduced`; lanes past W hold
-// identity rows), so the block meets at two barriers (K1's PCR across the
-// warps in shared memory takes one a step); then the inner rows follow.
-// S2 holds 3 x 2W x 33 values (rows of 32 lines, padded so that the
-// lanes' writes hit distinct banks and their reads at most two a bank).
-template <typename C>
-__device__ __forceinline__ void block_reduced_warps(C* A, C* Cc, C* D,
-                                                    C* S2, int lane, int w,
-                                                    int W, int R) {
-  const int o0 = (2 * w * R) * 32 + lane, cnt = 2 * R;
-  seg_eliminate(A, Cc, D, o0, 32, cnt);
-  const int last = o0 + (cnt - 1) * 32;
-  C* Sa = S2;
-  C* Sc = Sa + 2 * W * 33;
-  C* Sd = Sc + 2 * W * 33;
-  const int f = (2 * w) * 33 + lane, l = f + 33;
-  Sa[f] = A[o0];
-  Sc[f] = Cc[o0];
-  Sd[f] = D[o0];
-  Sa[l] = A[last];
-  Sc[l] = Cc[last];
-  Sd[l] = D[last];
-  __syncthreads();
-  for (int line = w; line < 32; line += W) {     // lane = segment
-    const bool seg = lane < W;
-    const int g = (2 * lane) * 33 + line, h = g + 33;
-    C u0, u1;
-    warp_reduced(seg ? Sa[g] : C(0), seg ? Sc[g] : C(0), seg ? Sd[g] : C(0),
-                 seg ? Sa[h] : C(0), seg ? Sc[h] : C(0), seg ? Sd[h] : C(0),
-                 lane, u0, u1);
-    if (seg) {
-      Sd[g] = u0;
-      Sd[h] = u1;
-    }
-  }
-  __syncthreads();
-  seg_finish(A, Cc, D, o0, 32, cnt, Sd[f], Sd[l]);   // this thread's rows
-}
-
 // K4's launch shape: W = 16 warps a block, M = 8 rows a thread (a 512-row
 // line: R = 4 chunks a thread, three kept); at float32 and bfloat16 two
 // blocks an SM (64 registers a thread), so that one block's loads overlap

@@ -27,17 +27,18 @@ struct Table {
   T s[kMaxSeg];
 };
 
-// Fills `tab` from the host buffer [v0, p0, dp0, s0, p1, ...]; false when
-// the segment count is out of range.
+// Fills `tab` from the host buffer [v0, p0, dp0, s0, p1, ...], the
+// segments past n with zero slopes (p 0, dp 1, s 0: they add 0); false
+// when the segment count is out of range.
 template <typename T>
 inline bool make_table(const double* buf, int n, Table<T>* tab) {
   if (n < 0 || n > kMaxSeg || buf == nullptr) return false;
   tab->n = n;
   tab->v0 = (T)buf[0];
-  for (int i = 0; i < n; ++i) {
-    tab->p[i] = (T)buf[1 + 3 * i];
-    tab->dp[i] = (T)buf[2 + 3 * i];
-    tab->s[i] = (T)buf[3 + 3 * i];
+  for (int i = 0; i < kMaxSeg; ++i) {
+    tab->p[i] = i < n ? (T)buf[1 + 3 * i] : T(0);
+    tab->dp[i] = i < n ? (T)buf[2 + 3 * i] : T(1);
+    tab->s[i] = i < n ? (T)buf[3 + 3 * i] : T(0);
   }
   return true;
 }
@@ -78,12 +79,17 @@ __device__ __forceinline__ T rad_film(T x, T rc, T tik, T tik2) {
 
 // The same three functions with one IEEE rounding per operation (the _rn
 // helpers of common.cuh, never contracted into an FMA), in the plain
-// versions' order: the kernels K15-K16 and K8's general form repeat their
-// plain versions bit for bit with them.
-template <typename T>
+// versions' order: K8 (both forms), K15 and K16 evaluate k, cp, the faces
+// and the films bit for bit as their plain versions do with them.  (K5
+// still takes the contracted ones above.)
+//
+// kUnroll: how far the segment loop unrolls (fully by default; a kernel
+// that inlines many evaluations, K8, keeps it rolled: its code, and its
+// build, stay small).
+template <typename T, int kUnroll = kMaxSeg>
 __device__ __forceinline__ T clamp_sum_rn(const Table<T>& tab, T x) {
   T acc = tab.v0;
-#pragma unroll
+#pragma unroll (kUnroll)
   for (int i = 0; i < kMaxSeg; ++i) {
     if (i >= tab.n) break;
     if (tab.dp[i] > T(0)) {
@@ -94,6 +100,24 @@ __device__ __forceinline__ T clamp_sum_rn(const Table<T>& tab, T x) {
     } else {
       acc = add(acc, (x > tab.p[i]) ? tab.s[i] : T(0));
     }
+  }
+  return acc;
+}
+
+// clamp_sum_rn over the first K segments without a branch, for tables of
+// at most K segments (make_table pads the rest with zero slopes, which add
+// 0): s*(x > p) for a step is s*1 or s*0, so the sum is clamp_sum_rn's bit
+// for bit.
+template <typename T, int K>
+__device__ __forceinline__ T clamp_sum_rn_upto(const Table<T>& tab, T x) {
+  T acc = tab.v0;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    T c = sub(x, tab.p[i]);
+    c = c > T(0) ? c : T(0);
+    c = c < tab.dp[i] ? c : tab.dp[i];
+    c = tab.dp[i] > T(0) ? c : ((x > tab.p[i]) ? T(1) : T(0));
+    acc = add(acc, mul(tab.s[i], c));
   }
   return acc;
 }
@@ -120,29 +144,39 @@ __device__ __forceinline__ T vp_face_term(T f_lo, T f_hi, T t_lo, T t_hi,
 }
 
 // One implicit row of the stream-reading varprop sweeps (K6, K7 and its x
-// entry, K19; the rows of pallas_varprop._varprop_kernel :142-197), fed
-// into the Thomas recurrence (cp, dp) of solvers/thomas.thomas:
+// entry, K19; the rows of pallas_varprop._varprop_kernel :142-197):
 //   tw = tg*w, a = -tw*f_lo, c = -tw*f_hi,
 //   sink = (sk*h)*((2-low-high)*inm), sw = sink*w,
 //   b = 1 + tw*(f_lo + f_hi) + sw, d += sw*t_inf,
-// code bits 1/2/8 of sweep_code, eliminated with one reciprocal per row as
-// _varprop_kernel does (inv = 1/(b - a*cp'); cp' = c*inv; dp' = (d -
-// a*dp')*inv).  One rounding per operation in the plain version's order
-// (solvers/varprop._varprop_solve).
+// code bits 1/2/8 of sweep_code, one rounding per operation in the plain
+// version's order (solvers/varprop._varprop_solve).
 template <typename T>
-__device__ __forceinline__ void vp_row(unsigned c, T f_lo, T f_hi, T wv,
-                                       T hv, T d, T tg, T sk, T t_inf,
-                                       T& cp, T& dp) {
+__device__ __forceinline__ void vp_row_coeffs(unsigned c, T f_lo, T f_hi,
+                                              T wv, T hv, T d, T tg, T sk,
+                                              T t_inf, T& a, T& b, T& cc,
+                                              T& dd) {
   const T low = bit<T>(c, kLow);
   const T high = bit<T>(c, kHigh);
   const T inm = bit<T>(c, kInMask);
   const T sink = mul(mul(sk, hv), mul(sub(sub(T(2), low), high), inm));
   const T tw = mul(tg, wv);
-  const T a = mul(-tw, f_lo);
-  const T cc = mul(-tw, f_hi);
+  a = mul(-tw, f_lo);
+  cc = mul(-tw, f_hi);
   const T sw = mul(sink, wv);
-  const T b = add(add(T(1), mul(tw, add(f_lo, f_hi))), sw);
-  const T dd = add(d, mul(sw, t_inf));
+  b = add(add(T(1), mul(tw, add(f_lo, f_hi))), sw);
+  dd = add(d, mul(sw, t_inf));
+}
+
+// The row fed into the Thomas recurrence (cp, dp) of solvers/thomas.thomas
+// (K6, K7's x entry, K19), eliminated with one reciprocal per row as
+// _varprop_kernel does (inv = 1/(b - a*cp'); cp' = c*inv; dp' = (d -
+// a*dp')*inv).
+template <typename T>
+__device__ __forceinline__ void vp_row(unsigned c, T f_lo, T f_hi, T wv,
+                                       T hv, T d, T tg, T sk, T t_inf,
+                                       T& cp, T& dp) {
+  T a, b, cc, dd;
+  vp_row_coeffs(c, f_lo, f_hi, wv, hv, d, tg, sk, t_inf, a, b, cc, dd);
   const T inv = div(T(1), sub(b, mul(a, cp)));
   cp = mul(cc, inv);
   dp = mul(sub(dd, mul(a, dp)), inv);

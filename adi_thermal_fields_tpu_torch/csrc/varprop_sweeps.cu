@@ -10,32 +10,51 @@
 //    f_lo = fc[i] and f_hi = fc[i+1] (zero past the domain edge).
 // K7 replaces pallas_varprop.py fused_varprop_sweep_axis1 (:718), body
 //    _varprop_kernel_axis1 (:560): the sweep along the STRIDED y axis of
-//    the natural field, viewed as (B1, n, B2) = (nx, ny, nz).  Its entry
-//    point also takes x as (1, nx, ny*nz): the solve-leading form of
+//    the natural field, viewed as (B1, n, B2) = (nx, ny, nz).  Its x entry
+//    ("K7x") takes x as (1, nx, ny*nz): the solve-leading form of
 //    fused_varprop_sweep (:251, body _varprop_kernel :60), the same rows.
 // K20 replaces pallas_varprop.py varprop_theta_rhs (:471), body
 //    _vp_rhs_kernel (:403): K6's explicit pass alone, R0 = d, with the
 //    in-mask factor read from a uint8 mask.  Like the reference it leaves
 //    the Robin flux out of R0 (the films enter the implicit rows only).
 //
-// Row system (K6, K7): atf::vp_row (varprop.cuh), code bits 1/2/8 of
-// sweep_code (plain bits, no stencil bits: the faces carry the masking),
-// h a per-cell film stream or the scalar rob_c.  Every operation is one
-// IEEE rounding in the plain versions' order (solvers/varprop.py), so the
-// kernels repeat them bit for bit.
+// Row system (K6, K7): atf::vp_row_coeffs (varprop.cuh), code bits 1/2/8
+// of sweep_code (plain bits, no stencil bits: the faces carry the
+// masking), h a per-cell film stream or the scalar rob_c; one IEEE
+// rounding per operation in the plain versions' order (solvers/varprop.py),
+// so the rows equal the plain version's bit for bit.  With tw, w and the
+// faces >= 0 the rows are strictly diagonally dominant (b >= 1 + |a| + |c|).
 //
-// What bounds them on the H100: memory.  The TPU kernels keep the line in
-// VMEM and run one row lagged (the upper face arrives with the next
-// group); here one thread owns a pencil and simply reads fc[i+1] ahead,
-// carrying it to the next row as f_lo.  Threads adjacent in z read
-// adjacent addresses, so every row load is coalesced.  As in K1/K4, c'
-// lives in the output buffer and d' in a scratch tensor, and back
-// substitution overwrites c' with x.  Traffic (float32): K6 reads T (4,
+// What bounds them on the H100: memory.  Traffic (float32): K6 reads T (4,
 // the y/z neighbours through L1/L2) + code (1) + fx/fy/fz/w (16) [+ h 4]
 // [+ src 4] and writes U (4): 25-33 B/cell; K7 reads rhs + code + fc + w
-// [+ h] and writes x: 17-21 B/cell; both plus the 16 B/cell c'/d' round
-// trip.  K20 marches along x like K6 (T and fx carried in registers) and
-// moves T + fx/fy/fz/w (20) + mask (1) [+ src 4] + R0 (4): 25-29 B/cell.
+// [+ h] and writes x: 17-21 B/cell.  K20 marches along x like K6 (T and fx
+// carried in registers) and moves T + fx/fy/fz/w (20) + mask (1) [+ src 4]
+// + R0 (4): 25-29 B/cell.
+//   K6, K20 and K7x: one thread owns a pencil and reads fc[i+1] ahead,
+//      carrying it to the next row as f_lo; threads adjacent in z read
+//      adjacent addresses, so every row load is coalesced.  c' lives in the
+//      output buffer and d' in a scratch tensor (+16 B/cell), and back
+//      substitution overwrites c' with x; the Thomas recurrence repeats the
+//      plain version bit for bit (atf::vp_row), which the unfused step's
+//      K20 -> K7x must, to equal the fused K6 bit for bit.
+//   K7: K1's layout on the split-line core (csrc/split_line.cuh,
+//      `split_strided_kernel`; csrc/sweeps.cu explains the method): lanes
+//      are 32 lines adjacent in z, the block's 32 warps (16 at float64)
+//      split each line's chunks of 8 rows, each chunk's rows are formed
+//      and eliminated in registers (a chunk of M rows reads fc at M + 1
+//      rows), the reduced rows are solved on warp shuffles, and x is
+//      written once; up to 512 rows a line at float32 (256 at float64) a
+//      thread's first chunk waits, eliminated, in shared memory meanwhile,
+//      so each input is read once.  c' and d' never reach global memory.
+//      The first version ran K7x's pencil kernel on y (one thread a
+//      pencil, IEEE divisions, c'/d' scratch).  The split solve is not
+//      Thomas order and takes the hardware reciprocal at float32: a few
+//      float32 ulp of the output's scale from the plain version
+//      (chip_smoke.py KERNEL_TOL_ULP = 8); float64 divides.  Lines past
+//      shared memory keep their reduced rows in a global buffer: no length
+//      is refused.
+#include "split_line.cuh"
 #include "varprop.cuh"
 
 namespace {
@@ -149,6 +168,42 @@ __global__ void __launch_bounds__(256) vp_sweep_strided_kernel(
   }
 }
 
+// K7's rows for the core's strided kernel: f_hi = fc[i+1] is carried to
+// the next row as f_lo.
+template <typename T>
+struct VpRows {
+  const T* rhs;
+  const uint8_t* code;
+  const T* fc;
+  const T* w;
+  const T* h;
+  T tg, sk, t_inf, rob_c;
+
+  template <int M>
+  __device__ __forceinline__ void load(Chunk<T, M, false>& ch, int64_t base,
+                                       int64_t rs, int64_t row0, int64_t n,
+                                       bool valid) const {
+    T f_lo = (valid && row0 < n) ? __ldg(fc + base + row0 * rs) : T(0);
+    ch.load_rows(
+        [&](int k, T& a, T& b, T& c, T& d) {
+          const int64_t i = row0 + k;
+          if (!valid || i >= n) {
+            a = c = d = T(0);
+            b = T(1);
+            return;
+          }
+          const int64_t off = base + i * rs;
+          const T f_hi = (i + 1 < n) ? __ldg(fc + off + rs) : T(0);
+          atf::vp_row_coeffs<T>(__ldg(code + off), f_lo, f_hi,
+                                __ldg(w + off),
+                                h != nullptr ? __ldg(h + off) : rob_c,
+                                __ldg(rhs + off), tg, sk, t_inf, a, b, c, d);
+          f_lo = f_hi;
+        },
+        row0, n);
+  }
+};
+
 template <typename T, bool kRhsOnly>
 void launch_vp_theta_sweep(const void* Tf, const void* code, const void* fx,
                            const void* fy, const void* fz, const void* w,
@@ -215,6 +270,24 @@ ATF_API int atf_varprop_theta_rhs(int dtype, int device, const void* Tf,
                    Tf, nullptr, fx, fy, fz, w, nullptr, src, mask, out,
                    nullptr, nx, ny, nz, cw, cd, iv_x, iv_y, iv_z, 0.0, 0.0,
                    0.0, 0.0, (cudaStream_t)stream));
+}
+
+ATF_API int atf_varprop_sweep_y(int dtype, int device, const void* rhs,
+                                const void* code, const void* fc,
+                                const void* w, const void* h, void* out,
+                                int64_t B1, int64_t n, int64_t B2, double tg,
+                                double sk, double t_inf, double rob_c,
+                                void* stream) {
+  ATF_DISPATCH(
+      dtype, device,
+      ATF_RETURN_IF((launch_split_strided<T, VpRows<T>>(
+          VpRows<T>{static_cast<const T*>(rhs),
+                    static_cast<const uint8_t*>(code),
+                    static_cast<const T*>(fc), static_cast<const T*>(w),
+                    static_cast<const T*>(h), (T)tg, (T)sk, (T)t_inf,
+                    (T)rob_c},
+          static_cast<T*>(out), B1, n, B2, 1, B2, device,
+          (cudaStream_t)stream))));
 }
 
 ATF_API int atf_varprop_sweep_strided(int dtype, int device, const void* rhs,

@@ -19,7 +19,7 @@
 //     columns, h_lo != h_hi and domain-edge films, along the CONTIGUOUS z
 //     axis of the natural field; unlike the JAX sweep it also reads the
 //     code in the natural layout.  (K8's Cartesian form, csrc/vp2_sweep.cu,
-//     is compiled apart and unchanged.)
+//     is compiled apart, on the split-line core.)
 // K16 replaces fused_vp2_cyclic_axis1 (:812, call site :882, body
 //     _vp2_cyclic_kernel :633): the PERIODIC solve along axis 1 of a
 //     (B1, n, B2) field -- phi of the natural field.
@@ -60,7 +60,7 @@
 //        and d' in a scratch field (K9's design, +16 B/cell of global round
 //        trip).  The columns are the same for every thread of a row
 //        (broadcast loads through the read-only cache).
-//   K8 general: K8's design -- one warp owns 32 pencils and stages [32
+//   K8 general: K8's first design -- one warp owns 32 pencils and stages [32
 //        pencils x 32 rows] tiles of rhs, T (plus one lookahead row) and
 //        code through shared memory with coalesced loads (lane = row), then
 //        each lane runs its pencil's recurrence from the tiles (lane =

@@ -46,6 +46,8 @@ _SIGNATURES = {
                                  *[_D] * 9, _P], _I),
     "atf_varprop_sweep_strided": ([_I, _I, *[_P] * 7, _I64, _I64, _I64,
                                    *[_D] * 4, _P], _I),
+    "atf_varprop_sweep_y": ([_I, _I, *[_P] * 6, _I64, _I64, _I64,
+                             *[_D] * 4, _P], _I),
     "atf_varprop_theta_rhs": ([_I, _I, *[_P] * 8, _I64, _I64, _I64,
                                *[_D] * 5, _P], _I),
     "atf_varprop_sweep_z": ([_I, _I, *[_P] * 7, _I64, _I64, *[_D] * 4, _P],
@@ -54,7 +56,7 @@ _SIGNATURES = {
                                    _I),
     "atf_tridiag_fields_z": ([_I, _I, *[_P] * 6, _I64, _I64, _P], _I),
     "atf_cyclic_fields": ([_I, _I, *[_P] * 7, _I64, _I64, _I64, _P], _I),
-    "atf_vp2_sweep_z": ([_I, _I, *[_P] * 5, _I64, _I64, _DP, _I, _DP, _I,
+    "atf_vp2_sweep_z": ([_I, _I, *[_P] * 4, _I64, _I64, _DP, _I, _DP, _I,
                          *[_D] * 8, _I, _P], _I),
     "atf_sweep_strided": ([_I, _I, *[_P] * 6, _I64, _I64, _I64, *[_D] * 4,
                            _I64, _I, _I, _P], _I),

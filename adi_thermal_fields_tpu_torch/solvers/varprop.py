@@ -32,8 +32,11 @@ The implicit rows of K6, K7 and K19 (per pencil along the sweep axis,
 with ``h`` a per-cell film stream or the scalar ``rob_c``.  The explicit
 pass of K6 and K20 is ``R0 = T + (cw*w*inm)*sum_ax iv_ax*(f_lo*(T_lo - T) +
 f_hi*(T_hi - T)) [+ (dt*w*inm)*src]``, faces x, then y, then z; like the
-JAX kernel it leaves the Robin flux out of R0.  The kernels K6, K7, K19
-and K20 repeat their plain versions one IEEE rounding at a time.  Each
+JAX kernel it leaves the Robin flux out of R0.  The kernels K6, K7's x
+entry, K19 and K20 repeat their plain versions one IEEE rounding at a
+time.  K7 forms the same rows bit for bit but solves each line split
+across threads (the split-line core of ``csrc/split_line.cuh``), not in
+Thomas order: within a few float32 ulp of the output's scale.  Each
 wrapper runs its plain version on CPU tensors and launches its kernel on
 CUDA tensors, counting the launch in its ``launches`` attribute.
 """
@@ -377,9 +380,10 @@ def varprop_sweep_y(rhs: torch.Tensor, code: torch.Tensor, fc: torch.Tensor,
                     w: torch.Tensor, tg: float, sk: float, t_inf: float, *,
                     h: torch.Tensor | None = None,
                     rob_c: float = 0.0) -> torch.Tensor:
-    """K7: the varprop sweep along y of the natural (x, y, z) field.
-    ``code`` is the y sweep code in the natural layout
-    (``sweep_code(mask, None, 1).movedim(0, 1)``), ``fc`` the y faces."""
+    """K7: the varprop sweep along y of the natural (x, y, z) field, each
+    line split across a block's warps (no c'/d' scratch).  ``code`` is the
+    y sweep code in the natural layout (``sweep_code(mask, None,
+    1).movedim(0, 1)``), ``fc`` the y faces."""
     if not use_kernel(rhs, code, fc, w, h):
         return varprop_sweep_y_plain(rhs, code, fc, w, tg, sk, t_inf, h=h,
                                      rob_c=rob_c)
@@ -388,11 +392,10 @@ def varprop_sweep_y(rhs: torch.Tensor, code: torch.Tensor, fc: torch.Tensor,
             f"varprop_sweep_y: field must be 3-D, got {rhs.dim()}")
     check_kernel_inputs("varprop_sweep_y", rhs, code, fc, w, h)
     out = torch.empty_like(rhs)
-    scratch = torch.empty_like(rhs)
-    err = load_library().atf_varprop_sweep_strided(
+    err = load_library().atf_varprop_sweep_y(
         dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(code),
-        ptr(fc), ptr(w), ptr(h), ptr(out), ptr(scratch), *rhs.shape, tg, sk,
-        t_inf, rob_c, stream_ptr(rhs.device))
+        ptr(fc), ptr(w), ptr(h), ptr(out), *rhs.shape, tg, sk, t_inf, rob_c,
+        stream_ptr(rhs.device))
     raise_on_error(err, "varprop_sweep_y")
     varprop_sweep_y.launches += 1
     return out

@@ -50,7 +50,10 @@ transposed.
 
 The plain versions build the rows with one tensor op per operation and
 solve them with ``thomas`` / ``cyclic_thomas``; K15, K16 and K8's general
-form repeat that arithmetic one IEEE rounding at a time.  Each wrapper
+form repeat that arithmetic one IEEE rounding at a time.  K8's Cartesian
+form forms the same rows bit for bit but solves each line split across a
+warp (the split-line core of ``csrc/split_line.cuh``), not in Thomas
+order: within a few float32 ulp of the output's scale.  Each wrapper
 runs the plain version on CPU tensors and its kernel on CUDA tensors (or
 raises), counting the launch in its ``launches`` attribute.
 """
@@ -272,9 +275,10 @@ def vp2_sweep_z(rhs: torch.Tensor, T: torch.Tensor, code: torch.Tensor,
     T^n, from which k, cp and the films are derived; ``code``: the z code
     in the natural layout; ``inv_dtor = rho/dt`` at the field's dtype.
 
-    Cartesian form (``csrc/vp2_sweep.cu``): ``glo = theta/dz^2`` and
-    ``gs = 1/dz`` numbers, ``code = build_vp2_code(mask, 2,
-    edge_exposed=True)``, the film ``h`` on both faces against ``t_inf``.
+    Cartesian form (``csrc/vp2_sweep.cu``, each line split across a warp,
+    no c'/d' scratch): ``glo = theta/dz^2`` and ``gs = 1/dz`` numbers,
+    ``code = build_vp2_code(mask, 2, edge_exposed=True)``, the film ``h``
+    on both faces against ``t_inf``.
     General form (``csrc/vp2_cyl.cu``; taken when ``glo`` is a tensor):
     per-row (n,) coupling columns ``glo``/``ghi`` (zeros at Dirichlet
     rows) and film columns ``gs``/``gsh``, the lo-face film ``h`` and the
@@ -310,10 +314,9 @@ def vp2_sweep_z(rhs: torch.Tensor, T: torch.Tensor, code: torch.Tensor,
     rad = emissivity > 0.0
     tik = t_inf + _T0K
     out = torch.empty_like(rhs)
-    scratch = torch.empty_like(rhs)
     err = load_library().atf_vp2_sweep_z(
         dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(T), ptr(code),
-        ptr(out), ptr(scratch), rhs.shape[0] * rhs.shape[1], rhs.shape[2],
+        ptr(out), rhs.shape[0] * rhs.shape[1], rhs.shape[2],
         ktab, kn, ctab, cn, glo, gs, inv_dtor, h, t_inf,
         emissivity * STEFAN_BOLTZMANN if rad else 0.0, tik, tik * tik,
         int(rad), stream_ptr(rhs.device))

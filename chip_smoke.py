@@ -20,8 +20,10 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    Neumann + Dirichlet x and z; K3; K4; the summary's K1-K4 times), and
    K4 on 8192-row lines (its reduced rows in global memory) and on fields
    of 1 and 3 planes (8192x64x64, 1x512x512, 3x512x512); K5-K8 at
-   the 256^3 WAAM mask and 97x203x131, T over 20-1500 C with cells exactly
-   at the
+   the 256^3 WAAM mask and 97x203x131, and K7 and K8 (the split-line
+   sweeps of the varprop step) also at the 512^3 WAAM mask (the summary's
+   times), at 8192x64x64 and on 8192-row lines (64x8192x64 for K7's y,
+   64x64x8192 for K8's z), T over 20-1500 C with cells exactly at the
    solidus and liquidus, melt_pool_enhanced_k(54, 1420, 1470, 4) and
    apparent_cp(490, 490, 2.7e5, 1420, 1470), emissivity 0.5, h 30.  Max
    |delta|, the CUDA-event median time of kernel and plain version, and %
@@ -236,6 +238,13 @@ P2_SHAPES = (("256^3 waam", (256, 256, 256)), ("256^3 random", (256,) * 3),
              ("97x203x131 random", (97, 203, 131)))
 # phase 2's K1-K4 rows at the main path's shape (the summary's times)
 P2_SWEEP_SHAPE = ("512^3 waam", (512,) * 3)
+# K7 and K8 at the main path's shape (the summary's times), on many short
+# lines, and on 8192-row lines (K7 solves along y, K8 along z: K7's reduced
+# rows in global memory, K8 with 16 chunks a lane)
+P2_VP_SWEEP_SHAPES = (P2_SWEEP_SHAPE + ("K7 K8",),
+                      ("8192x64x64 random", (8192, 64, 64), "K7 K8"),
+                      ("64x8192x64 random", (64, 8192, 64), "K7"),
+                      ("64x64x8192 random", (64, 64, 8192), "K8"))
 # K4 on lines past its shared memory (the reduced rows in global memory)
 # and on fields of one and three planes
 P2_K4_SHAPES = (("8192x64x64 random", (8192, 64, 64)),
@@ -810,7 +819,8 @@ def phase2_varprop(torch, dev):
     kt, ct = varprop_tables()
     rad = (EMISSIVITY, 20.0, H_CONV)
     rows = []
-    for label, shape in VP_SHAPES:
+    shapes = [(lb, sh, "K5 K6 K7 K8") for lb, sh in VP_SHAPES]
+    for label, shape, which in shapes + list(P2_VP_SWEEP_SHAPES):
         grid = CartesianGrid(*shape, 0.5e-3)
         sc = vp_scalars(grid, mat, 2.0 * grid.dx ** 2 / mat.alpha)
         if label.endswith("waam"):
@@ -859,6 +869,7 @@ def phase2_varprop(torch, dev):
              lambda: vp2_sweep_z(*zk, **zkw),
              lambda: vp2_sweep_z_plain(*zk, **zkw)),
         ]
+        variants = [v for v in variants if v[0] in which.split()]
         cells = mask.numel()
         for kname, vname, bpc, kern, plain in variants:
             got, want = kern(), plain()
@@ -2770,7 +2781,7 @@ def main():
                  else f"{P2_SHAPES[0][0]} bfloat16" if k in BF16_KERNELS
                  else f"{P2_SHAPES[0][0]} f32" if k == "K1v1"
                  else f"{P11_Y_SHAPES[1][0]} f32" if k == "K15y"
-                 else P2_SWEEP_SHAPE[0] if k in CONST_KERNELS
+                 else P2_SWEEP_SHAPE[0] if k in CONST_KERNELS + ("K7", "K8")
                  else P2_SHAPES[0][0])
         ref = next(r for r in mine if r["variant"] == main_variant[k]
                    and r["shape"] == shape)

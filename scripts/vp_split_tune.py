@@ -1,0 +1,215 @@
+#!/usr/bin/env python3
+"""K7 and K8 (the varprop y sweep and the tier-2 z sweep on the split-line
+core: csrc/varprop_sweeps.cu, csrc/vp2_sweep.cu, csrc/split_line.cuh) on
+one CUDA card: their register and spill report, a check against the plain
+versions over odd shapes, and their times.
+
+    python3 scripts/vp_split_tune.py [--quick] [--set NAME=VALUE ...]
+                                     [--sub OLD=NEW ...]
+
+Prints one line per case.  Checks (float32 within 8 float32 ulp of the
+output's scale, float64 within 1e-12 of it): lines of 1 to 12,000 rows,
+K7 with its eliminated rows kept in shared memory and past its shared
+memory (reduced rows in global memory), K8 with several lines a warp, one
+and several chunks a lane (the seams between rounds) and past its staged
+lines (the core's strided kernel), T through the mushy interval with cells
+on the solidus and the liquidus.  Times: CUDA-event medians, float32, at
+chip_smoke.py's 256^3 and 512^3 WAAM masks, on many short lines
+(8192x64x64) and on 8192-row lines, with the share of 3.35 TB/s under the
+byte models (K7 21 B/cell with the h stream, 17 with rob_c; K8 13).
+``--set kK8Lines=4`` (any ``constexpr`` of those three sources) or ``--sub
+clamp_sum_rn=clamp_sum`` (a text substitution in csrc/vp2_sweep.cu)
+measures a copy of the package under build/tune/ so changed; ``--quick``
+skips the checks and times the 256^3, 512^3 and 64x64x8192 rows alone.
+"""
+import contextlib
+import importlib.util
+import io
+import math
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = "adi_thermal_fields_tpu_torch"
+SOURCES = ("vp2_sweep.cu", "varprop_sweeps.cu", "split_line.cuh")
+
+
+def patched_copy(sets, subs):
+    """A copy of the package under build/tune/ with the constants set and
+    the substitutions made."""
+    tag = "_".join(re.sub(r"\W", "", s) for s in sets + subs)[:80]
+    root = os.path.join(HERE, "build", "tune", tag)
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(os.path.join(HERE, PKG), os.path.join(root, PKG),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    csrc = os.path.join(root, PKG, "csrc")
+    for s in sets:
+        name, value = s.split("=")
+        hits = 0
+        for src in SOURCES:
+            path = os.path.join(csrc, src)
+            text, n = re.subn(
+                rf"(constexpr \w+ {name} = )[^;]+;", rf"\g<1>{value};",
+                open(path).read())
+            open(path, "w").write(text)
+            hits += n
+        if hits != 1:
+            raise SystemExit(f"vp_split_tune: constant {name} found {hits} "
+                             "times")
+    for s in subs:
+        old, new = s.split("=")
+        path = os.path.join(csrc, "vp2_sweep.cu")
+        text = open(path).read()
+        if old not in text:
+            raise SystemExit(f"vp_split_tune: {old} not in vp2_sweep.cu")
+        open(path, "w").write(text.replace(old, new))
+    return root
+
+
+def ptxas_report(build_library):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, secs = build_library(verbose=True)
+    print(f"build: {secs:.1f} s", flush=True)
+    for part in buf.getvalue().split("Compiling entry function")[1:]:
+        name = part.split("'")[1]
+        if not any(k in name for k in ("vp2_sweep_z_kernel",
+                                        "split_strided_kernel",
+                                        "sweep_strided_kernel")):
+            continue
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          part)
+        print(f"ptxas {name[:100]}: {regs.group(1) if regs else '?'} regs, "
+              f"spills {spill.groups() if spill else '?'}", flush=True)
+
+
+def measure(root, quick):
+    sys.path.insert(0, root)
+    import torch
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from adi_thermal_fields_tpu_torch import CartesianGrid, Material
+    from adi_thermal_fields_tpu_torch.kernels.build import build_library
+    from adi_thermal_fields_tpu_torch.solvers import (varprop_fields_plain,
+                                                      varprop_sweep_y,
+                                                      varprop_sweep_y_plain,
+                                                      vp2_sweep_z,
+                                                      vp2_sweep_z_plain)
+    from adi_thermal_fields_tpu_torch.step.cartesian_varprop import (
+        build_varprop_codes)
+
+    if not torch.cuda.is_available():
+        raise SystemExit("vp_split_tune: no CUDA card")
+    dev = torch.device("cuda", 0)
+    print(f"card: {torch.cuda.get_device_name(0)}; package {root}",
+          flush=True)
+    ptxas_report(build_library)
+    mat = Material(7800.0, 490.0, 54.0)
+    kt, ct = cs.varprop_tables()
+
+    def case(shape, seed, dtype, waam=False):
+        """The inputs of K7 and K8 on ``shape`` at ``dtype``."""
+        if waam:
+            mask = cs.waam_mask(torch, shape, dev)
+        else:
+            g = torch.Generator(device=dev).manual_seed(seed)
+            mask = torch.rand(shape, generator=g, device=dev) > 0.2
+        T = cs.mushy_field(torch, mask, seed).to(dtype)
+        R = cs.random_field(torch, mask, seed + 1).to(dtype)
+        grid = CartesianGrid(*shape, 0.5e-3)
+        sc = cs.vp_scalars(grid, mat, 2.0 * grid.dx ** 2 / mat.alpha)
+        codes = build_varprop_codes(mask)
+        fc, w, h = varprop_fields_plain(T, mask.to(torch.uint8), k_spec=kt,
+                                        cp_spec=ct, rho=mat.rho,
+                                        rad=(cs.EMISSIVITY, 20.0, cs.H_CONV))
+        yk = (R, codes[1], fc[1], w, sc["tg"][1], sc["sk"][1], 20.0)
+        zk = (R, T, codes[2], sc["glo"], sc["gs"], sc["inv_dtor"])
+        zkw = dict(k_spec=kt, cp_spec=ct, h=cs.H_CONV, t_inf=20.0)
+        return [
+            ("K7 y h", 21, lambda: varprop_sweep_y(*yk, h=h),
+             lambda: varprop_sweep_y_plain(*yk, h=h)),
+            ("K7 y rob_c", 17, lambda: varprop_sweep_y(*yk, rob_c=30.0),
+             lambda: varprop_sweep_y_plain(*yk, rob_c=30.0)),
+            ("K8 z rad", 13,
+             lambda: vp2_sweep_z(*zk, emissivity=cs.EMISSIVITY, **zkw),
+             lambda: vp2_sweep_z_plain(*zk, emissivity=cs.EMISSIVITY,
+                                       **zkw)),
+            ("K8 z conv", 13, lambda: vp2_sweep_z(*zk, **zkw),
+             lambda: vp2_sweep_z_plain(*zk, **zkw)),
+        ]
+
+    # (shape, which kernels): K7 solves along axis 1, K8 along axis 2
+    checks = [((37, 45, 70), "K7 K8"), ((3, 1, 1), "K7 K8"),
+              ((2, 3, 33), "K7 K8"), ((4, 7, 256), "K8"),
+              ((4, 7, 257), "K8"), ((3, 5, 513), "K8"), ((2, 3, 1030), "K8"),
+              ((2, 3, 8192), "K8"), ((1, 3, 12000), "K8"),
+              ((3, 200, 37), "K7"), ((3, 500, 37), "K7"),
+              ((5, 1100, 7), "K7"), ((5, 2200, 7), "K7"),
+              ((2, 4500, 9), "K7"), ((1, 8192, 40), "K7")]
+    worst = {}
+    for shape, which in ([] if quick else checks):
+        for dtype in (torch.float32, torch.float64):
+            for name, _, kern, plain in case(shape, 3, dtype):
+                if name[:2] not in which:
+                    continue
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                scale = max(1.0, float(want.abs().max()))
+                ulps = err / (torch.finfo(dtype).eps * scale)
+                bad = (ulps > 8.0 if dtype == torch.float32
+                       else err > 1e-12 * scale)
+                key = (name, str(dtype)[6:])
+                worst[key] = max(worst.get(key, 0.0), ulps)
+                if bad or not bool(torch.isfinite(got).all()):
+                    print(f"FAIL {name} {shape} {str(dtype)[6:]}: "
+                          f"{ulps:.3f} ulp of scale", flush=True)
+    print("check done: worst " + ", ".join(
+        f"{n} {d} {u:.3f}" for (n, d), u in sorted(worst.items()))
+          + " ulp of scale", flush=True)
+
+    timed = (("256^3 waam", (256,) * 3, True, "K7 K8"),
+             ("512^3 waam", (512,) * 3, True, "K7 K8"),
+             ("8192x64x64", (8192, 64, 64), False, "K7 K8"),
+             ("64x8192x64", (64, 8192, 64), False, "K7"),
+             ("64x64x8192", (64, 64, 8192), False, "K8"))
+    for label, shape, waam, which in (timed[:2] + timed[4:] if quick
+                                      else timed):
+        rows = case(shape, 5, torch.float32, waam)
+        cells = math.prod(shape)
+        for name, bpc, kern, _ in rows:
+            if name[:2] not in which:
+                continue
+            ms = cs.cuda_ms(torch, kern, 20)
+            pct = 100.0 * cells * bpc / (ms * 1e-3) / cs.HBM_BYTES_PER_S
+            print(f"{name} {label}: {ms:.4f} ms, {pct:.1f}% of its {bpc} "
+                  "B/cell bound", flush=True)
+        del rows
+        torch.cuda.empty_cache()
+
+
+def main():
+    args = sys.argv[1:]
+    if args[:1] == ["--measure"]:
+        measure(args[1], args[2:] == ["--quick"])
+        return
+    quick = "--quick" in args
+    args = [a for a in args if a != "--quick"]
+    sets, subs = [], []
+    for flag, value in zip(args[::2], args[1::2]):
+        (sets if flag == "--set" else subs).append(value)
+    root = patched_copy(sets, subs) if sets or subs else HERE
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--measure", root] + (["--quick"] if quick
+                                                 else []))
+    sys.exit(proc.returncode)
+
+
+if __name__ == "__main__":
+    main()

@@ -13,9 +13,11 @@ bounds relative to each output's scale (face conductivities, 1/(rho cp)
 and films are not temperatures), and so are the cylindrical sweeps K9-K18,
 whose stiff phi systems near a full disk's axis amplify one rounding; the
 cylindrical varprop step runs kernels against reference at float64.  K6,
-K7 (and its x entry), K19, K20, K21, K22 and K23-K26 repeat their plain
-versions one rounding at a time: they are held to bitwise equality, and
-so is K15's y entry.  K1's v1 entry is held to the field-plan K1 bounds.
+K7's x entry, K19, K20, K21, K22 and K23-K26 repeat their plain versions
+one rounding at a time: they are held to bitwise equality, and so is K15's
+y entry.  K7 and K8 split each line across threads (the split-line core
+of K1, K2 and K4): within 8 float32 ulp of the output's scale, 1e-12 of it
+at float64.  K1's v1 entry is held to the field-plan K1 bounds.
 The bfloat16 entries of K1-K4 solve at float32 like their plain versions
 but round differently (FMA contraction): within one bfloat16 ulp of them.
 chip_smoke.py runs the same comparisons at full size.
@@ -269,6 +271,91 @@ def test_theta_sweep_takes_no_field_sized_scratch_on_card():
     field = T.numel() * T.element_size()
     assert out.shape == T.shape
     assert field <= rise < 2 * field, (rise, field)
+
+
+# K7 and K8 on the split-line core: 8192-row lines (K7's reduced rows in
+# global memory past 4,352 rows at float32 and 2,048 at float64; K8 with 16
+# chunks a lane at float32, on the core's strided kernel at float64),
+# fields of one and three planes across and along the sweep, odd lines.
+VP_SPLIT_SHAPES = ((3, 8192, 37), (2, 37, 8192), (1, 512, 512),
+                   (3, 512, 512), (512, 1, 512), (512, 3, 512),
+                   (512, 512, 1), (512, 512, 3), (5, 700, 33), (5, 33, 700))
+
+
+def _vp_split_calls(shape, dtype, seed):
+    """(name, kernel, plain) of K7 (h stream, rob_c) and K8 (radiation) on
+    ``shape``, T through the mushy interval."""
+    from adi_thermal_fields_tpu_torch.step.cartesian_varprop import (
+        build_varprop_codes)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(seed)
+    mask_np = rng.random(shape) > 0.2
+    mask = torch.from_numpy(mask_np).to(dev)
+    cast = (lambda a: torch.from_numpy(a).to(dev, dtype))
+    T = cast(np.where(mask_np, 20.0 + 1580.0 * rng.random(shape), 20.0))
+    T.view(-1)[::7] = 1420.0
+    T.view(-1)[3::11] = 1470.0
+    R = cast(np.where(mask_np, 20.0 + 1480.0 * rng.random(shape), 20.0))
+    kt = melt_pool_enhanced_k(54.0, 1420.0, 1470.0, 4.0)
+    ct = apparent_cp(490.0, 490.0, 2.7e5, 1420.0, 1470.0)
+    fc, w, h = varprop_fields_plain(T, mask.to(torch.uint8), k_spec=kt,
+                                    cp_spec=ct, rho=7800.0,
+                                    rad=(0.5, TINF, 30.0))
+    codes = build_varprop_codes(mask)
+    yk = (R, codes[1], fc[1], w, 7e4, 70.0, TINF)
+    zk = (R, T, codes[2], 2e6, 2e3, 2.2e5)
+    zkw = dict(k_spec=kt, cp_spec=ct, h=15.0, t_inf=TINF, emissivity=0.5)
+    return [("K7", lambda: varprop_sweep_y(*yk, h=h),
+             lambda: varprop_sweep_y_plain(*yk, h=h)),
+            ("K7", lambda: varprop_sweep_y(*yk, rob_c=30.0),
+             lambda: varprop_sweep_y_plain(*yk, rob_c=30.0)),
+            ("K8", lambda: vp2_sweep_z(*zk, **zkw),
+             lambda: vp2_sweep_z_plain(*zk, **zkw))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float64, 1e-12),
+                                       (torch.float32, 8 * 2.0 ** -23)],
+                         ids=["f64", "f32"])
+def test_vp_split_sweeps_on_long_lines_and_planes_on_card(dtype, rel):
+    """K7 and K8 against their plain versions on 8192-row lines, on one-
+    and three-plane fields and on odd lines, within ``rel`` of the
+    output's scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    reset_launch_counts()
+    for i, shape in enumerate(VP_SPLIT_SHAPES):
+        for name, kern, plain in _vp_split_calls(shape, dtype, 60 + i):
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            assert got.is_cuda and got.dtype == dtype
+            scale = max(1.0, float(want.abs().max()))
+            assert float((got - want).abs().max()) <= rel * scale, \
+                (name, shape)
+    n = len(VP_SPLIT_SHAPES)
+    assert launch_counts() == _counts(K7=2 * n, K8=n)
+
+
+@pytest.mark.cuda
+def test_vp_split_sweeps_take_no_field_sized_scratch_on_card():
+    """K7 and K8 solve each line on chip: one call raises the allocator's
+    peak by its output alone, under two fields (their first versions took
+    a c'/d' scratch field beside the output)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for _, kern, _ in _vp_split_calls((128, 96, 160), torch.float32, 71):
+        out = kern()                          # builds and loads the library
+        torch.cuda.synchronize()
+        del out
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        out = kern()
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated(dev) - base
+        field = out.numel() * out.element_size()
+        assert field <= rise < 2 * field, (rise, field)
+        del out
 
 
 def _flat(out):
