@@ -432,12 +432,19 @@ inline int smem_limit(int device) {
 // lines' chunks, warp w owning chunks [w R, (w+1) R).  Phase (b) runs on
 // warp shuffles (`block_reduced_warps`, as K4); phase (c) takes a thread's
 // chunks but the last from their eliminated inner rows, kept in shared
-// memory where they fit (kKeep: lines of up to 512 rows at float32, 256
-// at float64), else forms them again, as K1 reloads its inputs.  `Rows`
-// forms a chunk: `rows.load(ch, base, rs, row0, n, valid)` loads and
-// eliminates rows row0 .. row0 + M - 1 of the line whose row i lies at
-// base + i*rs (identity rows past n, and for a lane past the last line,
-// `valid` false).  Memory: the reduced rows (A, Cc, D: 2WR rows of 32
+// memory where they fit (kKeepRows: lines of up to 512 rows at float32,
+// 256 at float64), else forms them again, as K1 reloads its inputs: from
+// one value a row that the row former kept in shared memory in phase (a)
+// where it keeps one (kKeepRhs: K6 its right-hand sides, the stencil's
+// result, as K4 does; up to 1,024 rows at float32, 512 at float64), else
+// from its inputs.  `Rows` forms a chunk: `rows.load(ch, base, rs, row0,
+// n, valid)` loads and eliminates rows row0 .. row0 + M - 1 of the line
+// whose row i lies at base + i*rs (identity rows past n, and for a lane
+// past the last line, `valid` false); a former that keeps a value a row
+// (`kKeepsRhs`) also takes `load(..., kept, stride)` (kept[k*stride]:
+// row k's value, stored where kept is not null) and `reload(..., kept,
+// stride)`, which forms the rows again from them.  Memory: the reduced
+// rows (A, Cc, D: 2WR rows of 32
 // lines) in shared memory, or (kGlobal, lines too long for it) in `gred`,
 // then phase (b)'s segment rows (3 x 2W x 33).  M = 8 rows a thread (16,
 // then global reduced rows, where a line's reduced rows would
@@ -451,17 +458,30 @@ inline int smem_limit(int device) {
 template <typename C>
 constexpr int kSplitWarps = sizeof(C) == 4 ? 32 : 16;
 
-// kKeep: shared memory also holds the eliminated inner rows (a', c', d')
-// of a thread's chunks but the last, so phase (c) back-substitutes them
-// without forming them again: (R-1) x (M-2) x 3 values a thread.
+// What shared memory keeps of a thread's chunks but the last for phase
+// (c): nothing (they are formed again from the inputs), their eliminated
+// inner rows (a', c', d': (R-1) x (M-2) x 3 values a thread), or the row
+// former's value of each row ((R-1) x M values a thread).
+constexpr int kKeepNone = 0, kKeepRows = 1, kKeepRhs = 2;
+
+// Rows::kKeepsRhs where the former keeps a value a row (K6), else false.
+template <typename Rows, typename = void>
+struct KeepsRhs : std::false_type {};
+template <typename Rows>
+struct KeepsRhs<Rows, std::void_t<decltype(Rows::kKeepsRhs)>>
+    : std::bool_constant<Rows::kKeepsRhs> {};
+
 template <typename C>
-size_t split_smem_bytes(int W, int R, int M, bool global, bool keep) {
+size_t split_smem_bytes(int W, int R, int M, bool global, int keep) {
+  const size_t kept = keep == kKeepRows  ? (size_t)(M - 2) * 3
+                      : keep == kKeepRhs ? (size_t)M
+                                         : 0;
   return sizeof(C) * ((size_t)33 * 3 * 2 * W +
                       (global ? 0 : (size_t)32 * 3 * 2 * W * R) +
-                      (keep ? (size_t)32 * W * (R - 1) * (M - 2) * 3 : 0));
+                      (size_t)32 * W * (R - 1) * kept);
 }
 
-template <typename C, typename Rows, int M, bool kGlobal, bool kKeep>
+template <typename C, typename Rows, int M, bool kGlobal, int kKeep>
 __global__ void __launch_bounds__(32 * kSplitWarps<C>)
     split_strided_kernel(const __grid_constant__ Rows rows,
                          C* __restrict__ out, int64_t n, int64_t B2,
@@ -477,10 +497,14 @@ __global__ void __launch_bounds__(32 * kSplitWarps<C>)
   C* Cc = A + red * 32;
   C* D = Cc + red * 32;
   C* S2 = kGlobal ? reinterpret_cast<C*>(atf_smem) : D + red * 32;
-  // value v of inner row k of the thread's chunk r (kKeep)
+  // value v of inner row k of the thread's chunk r (kKeepRows); the
+  // former's values of chunk r, row k at [k * blockDim.x] (kKeepRhs)
   C* keep = S2 + 3 * 2 * W * 33;
   auto kept = [&](int r, int k, int v) -> C& {
     return keep[((r * (M - 2) + k - 1) * 3 + v) * blockDim.x + threadIdx.x];
+  };
+  auto kept_rhs = [&](int r) {
+    return keep + (size_t)r * M * blockDim.x + threadIdx.x;
   };
 
   const int64_t gpb = atf::cdiv(B2, 32);          // line groups per b1
@@ -505,9 +529,14 @@ __global__ void __launch_bounds__(32 * kSplitWarps<C>)
 
   for (int r = 0; r < R; ++r) {                  // (a)
     const int j = w * R + r;
-    eliminate(j);
+    if constexpr (kKeep == kKeepRhs) {
+      rows.load(ch, base, rs, (int64_t)j * M, n, valid,
+                r < R - 1 ? kept_rhs(r) : nullptr, (int)blockDim.x);
+    } else {
+      eliminate(j);
+    }
     ch.put_reduced(A, Cc, D, (2 * j) * 32 + lane, (2 * j + 1) * 32 + lane);
-    if (kKeep && r < R - 1) {
+    if (kKeep == kKeepRows && r < R - 1) {
 #pragma unroll
       for (int k = 1; k < M - 1; ++k) {
         kept(r, k, 0) = ch.a[k];
@@ -519,13 +548,16 @@ __global__ void __launch_bounds__(32 * kSplitWarps<C>)
   block_reduced_warps(A, Cc, D, S2, lane, w, W, R);   // (b)
   store(w * R + R - 1);                          // (c), last chunk first
   for (int r = 0; r < R - 1; ++r) {
-    if (kKeep) {
+    if constexpr (kKeep == kKeepRows) {
 #pragma unroll
       for (int k = 1; k < M - 1; ++k) {
         ch.a[k] = kept(r, k, 0);
         ch.c[k] = kept(r, k, 1);
         ch.d[k] = kept(r, k, 2);
       }
+    } else if constexpr (kKeep == kKeepRhs) {
+      rows.reload(ch, base, rs, (int64_t)(w * R + r) * M, n, valid,
+                  kept_rhs(r), (int)blockDim.x);
     } else {
       eliminate(w * R + r);
     }
@@ -533,7 +565,8 @@ __global__ void __launch_bounds__(32 * kSplitWarps<C>)
   }
 }
 
-template <typename C, typename Rows, int M, bool kGlobal, bool kKeep = false>
+template <typename C, typename Rows, int M, bool kGlobal,
+          int kKeep = kKeepNone>
 cudaError_t launch_split_strided_m(const Rows& rows, C* out, int64_t B1,
                                    int64_t n, int64_t B2, int64_t ls,
                                    int64_t rs, cudaStream_t stream) {
@@ -568,16 +601,22 @@ cudaError_t launch_split_strided(const Rows& rows, C* out, int64_t B1,
                                  int64_t n, int64_t B2, int64_t ls,
                                  int64_t rs, int device,
                                  cudaStream_t stream) {
-  auto fits = [&](int M, bool keep) {
+  auto fits = [&](int M, int keep) {
     const int W = (int)atf::imin(kSplitWarps<C>, atf::cdiv(n, M));
     return split_smem_bytes<C>(W, (int)atf::cdiv(n, (int64_t)W * M), M,
                                false, keep) <= (size_t)smem_limit(device);
   };
-  if (fits(8, true)) {
-    return launch_split_strided_m<C, Rows, 8, false, true>(rows, out, B1, n,
-                                                           B2, ls, rs, stream);
+  if (fits(8, kKeepRows)) {
+    return launch_split_strided_m<C, Rows, 8, false, kKeepRows>(
+        rows, out, B1, n, B2, ls, rs, stream);
   }
-  if (fits(8, false)) {
+  if constexpr (KeepsRhs<Rows>::value) {
+    if (fits(8, kKeepRhs)) {
+      return launch_split_strided_m<C, Rows, 8, false, kKeepRhs>(
+          rows, out, B1, n, B2, ls, rs, stream);
+    }
+  }
+  if (fits(8, kKeepNone)) {
     return launch_split_strided_m<C, Rows, 8, false>(rows, out, B1, n, B2,
                                                      ls, rs, stream);
   }

@@ -143,13 +143,32 @@ __device__ __forceinline__ T vp_face_term(T f_lo, T f_hi, T t_lo, T t_hi,
   return mul(add(mul(f_lo, sub(t_lo, t)), mul(f_hi, sub(t_hi, t))), iv);
 }
 
+// The explicit varprop theta pass of one cell (the _vp_rhs_kernel order,
+// pallas_varprop.py:403-462): the faces x, then y, then z, and
+//   d = t + (cw*gain)*acc,  gain = w*inm;
+// the caller adds (cd*gain)*src.  K6 forms its rows' right-hand sides
+// with it and K20 writes it as R0, so the two agree bit for bit (the
+// unfused step, K20 -> K7x, equals the fused K6).
+template <typename T>
+__device__ __forceinline__ T vp_theta_d(T t, T fx_lo, T fx_hi, T tx_lo,
+                                        T tx_hi, T fy_lo, T fy_hi, T ty_lo,
+                                        T ty_hi, T fz_lo, T fz_hi, T tz_lo,
+                                        T tz_hi, T gain, T cw, T iv_x,
+                                        T iv_y, T iv_z) {
+  T acc = vp_face_term(fx_lo, fx_hi, tx_lo, tx_hi, t, iv_x);
+  acc = add(acc, vp_face_term(fy_lo, fy_hi, ty_lo, ty_hi, t, iv_y));
+  acc = add(acc, vp_face_term(fz_lo, fz_hi, tz_lo, tz_hi, t, iv_z));
+  return add(t, mul(mul(cw, gain), acc));
+}
+
 // One implicit row of the stream-reading varprop sweeps (K6, K7 and its x
 // entry, K19; the rows of pallas_varprop._varprop_kernel :142-197):
 //   tw = tg*w, a = -tw*f_lo, c = -tw*f_hi,
 //   sink = (sk*h)*((2-low-high)*inm), sw = sink*w,
 //   b = 1 + tw*(f_lo + f_hi) + sw, d += sw*t_inf,
 // code bits 1/2/8 of sweep_code, one rounding per operation in the plain
-// version's order (solvers/varprop._varprop_solve).
+// version's order (solvers/varprop._varprop_solve).  The kernels solve the
+// rows on the split-line core (csrc/split_line.cuh).
 template <typename T>
 __device__ __forceinline__ void vp_row_coeffs(unsigned c, T f_lo, T f_hi,
                                               T wv, T hv, T d, T tg, T sk,
@@ -165,21 +184,6 @@ __device__ __forceinline__ void vp_row_coeffs(unsigned c, T f_lo, T f_hi,
   const T sw = mul(sink, wv);
   b = add(add(T(1), mul(tw, add(f_lo, f_hi))), sw);
   dd = add(d, mul(sw, t_inf));
-}
-
-// The row fed into the Thomas recurrence (cp, dp) of solvers/thomas.thomas
-// (K6, K7's x entry, K19), eliminated with one reciprocal per row as
-// _varprop_kernel does (inv = 1/(b - a*cp'); cp' = c*inv; dp' = (d -
-// a*dp')*inv).
-template <typename T>
-__device__ __forceinline__ void vp_row(unsigned c, T f_lo, T f_hi, T wv,
-                                       T hv, T d, T tg, T sk, T t_inf,
-                                       T& cp, T& dp) {
-  T a, b, cc, dd;
-  vp_row_coeffs(c, f_lo, f_hi, wv, hv, d, tg, sk, t_inf, a, b, cc, dd);
-  const T inv = div(T(1), sub(b, mul(a, cp)));
-  cp = mul(cc, inv);
-  dp = mul(sub(dd, mul(a, dp)), inv);
 }
 
 }  // namespace atf

@@ -32,13 +32,16 @@ The implicit rows of K6, K7 and K19 (per pencil along the sweep axis,
 with ``h`` a per-cell film stream or the scalar ``rob_c``.  The explicit
 pass of K6 and K20 is ``R0 = T + (cw*w*inm)*sum_ax iv_ax*(f_lo*(T_lo - T) +
 f_hi*(T_hi - T)) [+ (dt*w*inm)*src]``, faces x, then y, then z; like the
-JAX kernel it leaves the Robin flux out of R0.  The kernels K6, K7's x
-entry, K19 and K20 repeat their plain versions one IEEE rounding at a
-time.  K7 forms the same rows bit for bit but solves each line split
-across threads (the split-line core of ``csrc/split_line.cuh``), not in
-Thomas order: within a few float32 ulp of the output's scale.  Each
-wrapper runs its plain version on CPU tensors and launches its kernel on
-CUDA tensors, counting the launch in its ``launches`` attribute.
+JAX kernel it leaves the Robin flux out of R0.  K20 repeats its plain
+version one IEEE rounding at a time, and K6 forms its right-hand sides
+as K20 does.  K6, K7, K7's x entry and K19 form the plain versions' rows
+bit for bit but solve each line split across threads (the split-line
+core of ``csrc/split_line.cuh``), not in Thomas order: within a few
+float32 ulp of the output's scale.  K6 and K7's x entry cut each line
+into the same chunks, so K20 then K7's x entry equals K6 bit for bit.
+Each wrapper runs its plain version on CPU tensors and launches its
+kernel on CUDA tensors, counting the launch in its ``launches``
+attribute; none takes a scratch field.
 """
 from __future__ import annotations
 
@@ -202,7 +205,7 @@ varprop_fields.launches = 0
 
 def _varprop_solve(d, code, fc, w, tg, sk, t_inf, h, rob_c, axis):
     """The module's implicit rows along ``axis``, solved by ``thomas`` with
-    one reciprocal per row (the kernels' order)."""
+    one reciprocal per row (the JAX kernel's order)."""
     dtype = d.dtype
     bit = (lambda b: ((code & b) != 0).to(dtype))
     low, high, inm = bit(_LOW), bit(_HIGH), bit(_INMASK)
@@ -262,7 +265,8 @@ def varprop_theta_sweep(T: torch.Tensor, code: torch.Tensor,
     ``fx/fy/fz``: pre-masked faces (K5); ``w = 1/(rho cp)``;
     ``cw = (1-theta)*dt``; ``inv_d2``: per-axis 1/d^2; ``tg =
     theta*dt/dx^2``; ``sk = dt/dx``; ``h``: per-cell film stream, else the
-    scalar ``rob_c``; ``src``: volumetric source (needs ``dt``)."""
+    scalar ``rob_c``; ``src``: volumetric source (needs ``dt``).  Each x
+    line is split across a block's warps (no c'/d' scratch)."""
     if src is not None and dt is None:
         raise ValueError("varprop_theta_sweep: src needs dt")
     if not use_kernel(T, code, fx, fy, fz, w, h, src):
@@ -275,12 +279,11 @@ def varprop_theta_sweep(T: torch.Tensor, code: torch.Tensor,
     check_kernel_inputs("varprop_theta_sweep", T, code, fx, fy, fz, w, h, src)
     ivx, ivy, ivz = _inv3(inv_d2)
     out = torch.empty_like(T)
-    scratch = torch.empty_like(T)
     err = load_library().atf_varprop_theta_sweep(
         dtype_code(T.dtype), T.device.index, ptr(T), ptr(code), ptr(fx),
-        ptr(fy), ptr(fz), ptr(w), ptr(h), ptr(src), ptr(out), ptr(scratch),
-        *T.shape, cw, 0.0 if dt is None else dt, ivx, ivy, ivz, tg, sk,
-        t_inf, rob_c, stream_ptr(T.device))
+        ptr(fy), ptr(fz), ptr(w), ptr(h), ptr(src), ptr(out), *T.shape, cw,
+        0.0 if dt is None else dt, ivx, ivy, ivz, tg, sk, t_inf, rob_c,
+        stream_ptr(T.device))
     raise_on_error(err, "varprop_theta_sweep")
     varprop_theta_sweep.launches += 1
     return out
@@ -345,9 +348,10 @@ def varprop_sweep_x(rhs: torch.Tensor, code: torch.Tensor, fc: torch.Tensor,
                     rob_c: float = 0.0) -> torch.Tensor:
     """K7's entry point along x: the varprop rows of ``varprop_sweep_y``
     along the leading axis of the natural field, viewed as (1, nx,
-    ny*nz) (the solve-leading form of JAX ``fused_varprop_sweep``).
-    ``code``: the x sweep code ``sweep_code(mask, None, 0)``; ``fc``: the
-    x faces.  Counted in its own ``launches``."""
+    ny*nz) (the solve-leading form of JAX ``fused_varprop_sweep``), in
+    K6's chunks.  ``code``: the x sweep code
+    ``sweep_code(mask, None, 0)``; ``fc``: the x faces.  Counted in its
+    own ``launches``."""
     if not use_kernel(rhs, code, fc, w, h):
         return varprop_sweep_x_plain(rhs, code, fc, w, tg, sk, t_inf, h=h,
                                      rob_c=rob_c)
@@ -356,12 +360,11 @@ def varprop_sweep_x(rhs: torch.Tensor, code: torch.Tensor, fc: torch.Tensor,
             f"varprop_sweep_x: field must be 3-D, got {rhs.dim()}")
     check_kernel_inputs("varprop_sweep_x", rhs, code, fc, w, h)
     out = torch.empty_like(rhs)
-    scratch = torch.empty_like(rhs)
     nx = rhs.shape[0]
     err = load_library().atf_varprop_sweep_strided(
         dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(code),
-        ptr(fc), ptr(w), ptr(h), ptr(out), ptr(scratch), 1, nx,
-        rhs.numel() // nx, tg, sk, t_inf, rob_c, stream_ptr(rhs.device))
+        ptr(fc), ptr(w), ptr(h), ptr(out), 1, nx, rhs.numel() // nx, tg, sk,
+        t_inf, rob_c, stream_ptr(rhs.device))
     raise_on_error(err, "varprop_sweep_x")
     varprop_sweep_x.launches += 1
     return out
@@ -392,7 +395,7 @@ def varprop_sweep_y(rhs: torch.Tensor, code: torch.Tensor, fc: torch.Tensor,
             f"varprop_sweep_y: field must be 3-D, got {rhs.dim()}")
     check_kernel_inputs("varprop_sweep_y", rhs, code, fc, w, h)
     out = torch.empty_like(rhs)
-    err = load_library().atf_varprop_sweep_y(
+    err = load_library().atf_varprop_sweep_strided(
         dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(code),
         ptr(fc), ptr(w), ptr(h), ptr(out), *rhs.shape, tg, sk, t_inf, rob_c,
         stream_ptr(rhs.device))
@@ -422,7 +425,7 @@ def varprop_sweep_z(rhs: torch.Tensor, code: torch.Tensor, fc: torch.Tensor,
     the result in the natural (x, y, z) layout.  ``code``: the z sweep
     code in the natural layout (``sweep_code(mask, None, 2).movedim(0,
     2)``); ``fc``: the z faces (K5); ``h``: a film stream, else the scalar
-    ``rob_c``."""
+    ``rob_c``.  Each line is split across a warp (no c'/d' scratch)."""
     if not use_kernel(rhs, code, fc, w, h):
         return varprop_sweep_z_plain(rhs, code, fc, w, tg, sk, t_inf, h=h,
                                      rob_c=rob_c)
@@ -431,12 +434,11 @@ def varprop_sweep_z(rhs: torch.Tensor, code: torch.Tensor, fc: torch.Tensor,
             f"varprop_sweep_z: field must be 3-D, got {rhs.dim()}")
     check_kernel_inputs("varprop_sweep_z", rhs, code, fc, w, h)
     out = torch.empty_like(rhs)
-    scratch = torch.empty_like(rhs)
     n = rhs.shape[2]
     err = load_library().atf_varprop_sweep_z(
         dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(code),
-        ptr(fc), ptr(w), ptr(h), ptr(out), ptr(scratch), rhs.numel() // n,
-        n, tg, sk, t_inf, rob_c, stream_ptr(rhs.device))
+        ptr(fc), ptr(w), ptr(h), ptr(out), rhs.numel() // n, n, tg, sk,
+        t_inf, rob_c, stream_ptr(rhs.device))
     raise_on_error(err, "varprop_sweep_z")
     varprop_sweep_z.launches += 1
     return out

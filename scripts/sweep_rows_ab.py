@@ -160,8 +160,15 @@ def profile_steps(torch, step, T, n=3):
             dev = getattr(ev, "self_cuda_time_total", 0.0)
         # host ops (aten::*) report their kernels' time again
         if dev > 0 and not ev.key.startswith("aten::"):
-            m = re.search(r"cu_[0-9a-f]{8}\d+(\w+?_kernel)", ev.key)
+            # the kernel's name, mangled or demangled
+            m = (re.search(r"cu_[0-9a-f]{8}\d+(\w+?_kernel)", ev.key)
+                 or re.search(r"::(\w+_kernel)<", ev.key))
             name = m.group(1) if m else ev.key[:60]
+            # the split-line core's strided kernel: by its row former
+            r = re.search(r"split_strided_kernel(?:I[fd]NS_\d+(\w+?)I[fd]E"
+                          r"|<\w+, \(anonymous namespace\)::(\w+)<)", ev.key)
+            if r:
+                name += f"<{r.group(1) or r.group(2)}>"
             by_name[name] = by_name.get(name, 0.0) + dev / 1e3 / n
     return dict(busy_ms=sum(by_name.values()),
                 kernels=dict(sorted(by_name.items(),

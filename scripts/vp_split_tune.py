@@ -1,26 +1,31 @@
 #!/usr/bin/env python3
-"""K7 and K8 (the varprop y sweep and the tier-2 z sweep on the split-line
-core: csrc/varprop_sweeps.cu, csrc/vp2_sweep.cu, csrc/split_line.cuh) on
-one CUDA card: their register and spill report, a check against the plain
-versions over odd shapes, and their times.
+"""The varprop sweeps on the split-line core (K6, K7, K7x, K8, K19:
+csrc/varprop_sweeps.cu, csrc/vp2_sweep.cu, csrc/varprop_z.cu,
+csrc/split_line.cuh) on one CUDA card: their register and spill report, a
+check against the plain versions over odd shapes, and their times.
 
-    python3 scripts/vp_split_tune.py [--quick] [--set NAME=VALUE ...]
+    python3 scripts/vp_split_tune.py [--quick] [--kernels K6,K19]
+                                     [--set NAME=VALUE ...]
                                      [--sub OLD=NEW ...]
 
 Prints one line per case.  Checks (float32 within 8 float32 ulp of the
 output's scale, float64 within 1e-12 of it): lines of 1 to 12,000 rows,
-K7 with its eliminated rows kept in shared memory and past its shared
-memory (reduced rows in global memory), K8 with several lines a warp, one
-and several chunks a lane (the seams between rounds) and past its staged
+K6, K7 and K7x with their eliminated rows kept in shared memory and past
+their shared memory (reduced rows in global memory), K8 and K19 with
+several lines a warp, one and several chunks a lane and past their staged
 lines (the core's strided kernel), T through the mushy interval with cells
-on the solidus and the liquidus.  Times: CUDA-event medians, float32, at
-chip_smoke.py's 256^3 and 512^3 WAAM masks, on many short lines
-(8192x64x64) and on 8192-row lines, with the share of 3.35 TB/s under the
-byte models (K7 21 B/cell with the h stream, 17 with rob_c; K8 13).
-``--set kK8Lines=4`` (any ``constexpr`` of those three sources) or ``--sub
-clamp_sum_rn=clamp_sum`` (a text substitution in csrc/vp2_sweep.cu)
-measures a copy of the package under build/tune/ so changed; ``--quick``
-skips the checks and times the 256^3, 512^3 and 64x64x8192 rows alone.
+on the solidus and the liquidus; K7x against K20 -> K6 bit for bit.
+Times: CUDA-event medians, float32, at chip_smoke.py's 256^3 and 512^3
+WAAM masks (K19 also at 384^3; K6, K7x and K19 also at 512^3 float64), on
+many short lines (8192x64x64) and on 8192-row lines, with the share of
+3.35 TB/s under the byte models (float32: K6 29 B/cell, K7, K7x and K19
+21 with the h stream, 17 with rob_c; K8 13).
+``--kernels`` limits the run to the kernels named.
+``--set kK8Lines=4`` (any ``constexpr`` of those sources) or ``--sub
+clamp_sum_rn=clamp_sum`` (a text substitution, wherever OLD occurs in
+them) measures a copy of the package under build/tune/ so changed;
+``--quick`` skips the checks and times the 256^3, 384^3, 512^3 and
+8192-row z lines alone.
 """
 import contextlib
 import importlib.util
@@ -34,7 +39,9 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "adi_thermal_fields_tpu_torch"
-SOURCES = ("vp2_sweep.cu", "varprop_sweeps.cu", "split_line.cuh")
+SOURCES = ("vp2_sweep.cu", "varprop_sweeps.cu", "varprop_z.cu",
+           "split_line.cuh")
+KERNELS = ("K6", "K7", "K7x", "K8", "K19")
 
 
 def patched_copy(sets, subs):
@@ -60,12 +67,15 @@ def patched_copy(sets, subs):
             raise SystemExit(f"vp_split_tune: constant {name} found {hits} "
                              "times")
     for s in subs:
-        old, new = s.split("=")
-        path = os.path.join(csrc, "vp2_sweep.cu")
-        text = open(path).read()
-        if old not in text:
-            raise SystemExit(f"vp_split_tune: {old} not in vp2_sweep.cu")
-        open(path, "w").write(text.replace(old, new))
+        old, new = s.split("=", 1)
+        hits = 0
+        for src in SOURCES:
+            path = os.path.join(csrc, src)
+            text = open(path).read()
+            hits += text.count(old)
+            open(path, "w").write(text.replace(old, new))
+        if hits == 0:
+            raise SystemExit(f"vp_split_tune: {old} not in {SOURCES}")
     return root
 
 
@@ -77,6 +87,7 @@ def ptxas_report(build_library):
     for part in buf.getvalue().split("Compiling entry function")[1:]:
         name = part.split("'")[1]
         if not any(k in name for k in ("vp2_sweep_z_kernel",
+                                        "vp_sweep_z_kernel",
                                         "split_strided_kernel",
                                         "sweep_strided_kernel")):
             continue
@@ -87,7 +98,7 @@ def ptxas_report(build_library):
               f"spills {spill.groups() if spill else '?'}", flush=True)
 
 
-def measure(root, quick):
+def measure(root, quick, kernels):
     sys.path.insert(0, root)
     import torch
     spec = importlib.util.spec_from_file_location(
@@ -96,11 +107,11 @@ def measure(root, quick):
     spec.loader.exec_module(cs)
     from adi_thermal_fields_tpu_torch import CartesianGrid, Material
     from adi_thermal_fields_tpu_torch.kernels.build import build_library
-    from adi_thermal_fields_tpu_torch.solvers import (varprop_fields_plain,
-                                                      varprop_sweep_y,
-                                                      varprop_sweep_y_plain,
-                                                      vp2_sweep_z,
-                                                      vp2_sweep_z_plain)
+    from adi_thermal_fields_tpu_torch.solvers import (
+        varprop_fields_plain, varprop_sweep_x, varprop_sweep_x_plain,
+        varprop_sweep_y, varprop_sweep_y_plain, varprop_sweep_z,
+        varprop_sweep_z_plain, varprop_theta_rhs, varprop_theta_sweep,
+        varprop_theta_sweep_plain, vp2_sweep_z, vp2_sweep_z_plain)
     from adi_thermal_fields_tpu_torch.step.cartesian_varprop import (
         build_varprop_codes)
 
@@ -114,7 +125,8 @@ def measure(root, quick):
     kt, ct = cs.varprop_tables()
 
     def case(shape, seed, dtype, waam=False):
-        """The inputs of K7 and K8 on ``shape`` at ``dtype``."""
+        """(name, B/cell, kernel, plain) of each kernel on ``shape`` at
+        ``dtype``."""
         if waam:
             mask = cs.waam_mask(torch, shape, dev)
         else:
@@ -131,7 +143,29 @@ def measure(root, quick):
         yk = (R, codes[1], fc[1], w, sc["tg"][1], sc["sk"][1], 20.0)
         zk = (R, T, codes[2], sc["glo"], sc["gs"], sc["inv_dtor"])
         zkw = dict(k_spec=kt, cp_spec=ct, h=cs.H_CONV, t_inf=20.0)
+        th = (T, codes[0], *fc, w, sc["cw"], sc["inv_d2"], sc["tg"][0],
+              sc["sk"][0], 20.0)
+        src = torch.where(mask, 1e8 * torch.rand(shape, device=dev),
+                          0.0).to(dtype)
+        sk = dict(rob_c=30.0, src=src, dt=sc["dt"])
+        xk = (R, codes[0], fc[0], w, sc["tg"][0], sc["sk"][0], 20.0)
+        z19 = (R, codes[3], fc[2], w, sc["tg"][2], sc["sk"][2], 20.0)
         return [
+            ("K6 x h", 29, lambda: varprop_theta_sweep(*th, h=h),
+             lambda: varprop_theta_sweep_plain(*th, h=h)),
+            ("K6 x rob_c+src", 29, lambda: varprop_theta_sweep(*th, **sk),
+             lambda: varprop_theta_sweep_plain(*th, **sk)),
+            ("K7x x h", 21, lambda: varprop_sweep_x(*xk, h=h),
+             lambda: varprop_sweep_x_plain(*xk, h=h)),
+            ("K7x x R0 rob_c+src", 0, lambda: varprop_sweep_x(
+                varprop_theta_rhs(T, *fc, w, mask.to(torch.uint8),
+                                  sc["cw"], sc["inv_d2"], src=src,
+                                  dt=sc["dt"]), *xk[1:], rob_c=30.0),
+             lambda: varprop_theta_sweep(*th, **sk)),
+            ("K19 z h", 21, lambda: varprop_sweep_z(*z19, h=h),
+             lambda: varprop_sweep_z_plain(*z19, h=h)),
+            ("K19 z rob_c", 17, lambda: varprop_sweep_z(*z19, rob_c=30.0),
+             lambda: varprop_sweep_z_plain(*z19, rob_c=30.0)),
             ("K7 y h", 21, lambda: varprop_sweep_y(*yk, h=h),
              lambda: varprop_sweep_y_plain(*yk, h=h)),
             ("K7 y rob_c", 17, lambda: varprop_sweep_y(*yk, rob_c=30.0),
@@ -144,19 +178,29 @@ def measure(root, quick):
              lambda: vp2_sweep_z_plain(*zk, **zkw)),
         ]
 
-    # (shape, which kernels): K7 solves along axis 1, K8 along axis 2
-    checks = [((37, 45, 70), "K7 K8"), ((3, 1, 1), "K7 K8"),
-              ((2, 3, 33), "K7 K8"), ((4, 7, 256), "K8"),
-              ((4, 7, 257), "K8"), ((3, 5, 513), "K8"), ((2, 3, 1030), "K8"),
-              ((2, 3, 8192), "K8"), ((1, 3, 12000), "K8"),
+    def runs(name, which):
+        kname = name.split()[0]
+        return kname in which.split() and kname in kernels
+
+    # (shape, which kernels): K6, K7x solve along axis 0, K7 along axis 1,
+    # K8 and K19 along axis 2
+    checks = [((37, 45, 70), "K6 K7 K7x K8 K19"),
+              ((3, 1, 1), "K6 K7 K7x K8 K19"),
+              ((2, 3, 33), "K6 K7 K7x K8 K19"), ((4, 7, 256), "K8 K19"),
+              ((4, 7, 257), "K8 K19"), ((3, 5, 513), "K8 K19"),
+              ((2, 3, 1030), "K8 K19"), ((2, 3, 8192), "K8 K19"),
+              ((1, 3, 12000), "K8 K19"),
               ((3, 200, 37), "K7"), ((3, 500, 37), "K7"),
               ((5, 1100, 7), "K7"), ((5, 2200, 7), "K7"),
-              ((2, 4500, 9), "K7"), ((1, 8192, 40), "K7")]
+              ((2, 4500, 9), "K7"), ((1, 8192, 40), "K7"),
+              ((200, 3, 37), "K6 K7x"), ((500, 3, 37), "K6 K7x"),
+              ((1100, 5, 7), "K6 K7x"), ((2200, 5, 7), "K6 K7x"),
+              ((4500, 2, 9), "K6 K7x"), ((8192, 1, 40), "K6 K7x")]
     worst = {}
     for shape, which in ([] if quick else checks):
         for dtype in (torch.float32, torch.float64):
             for name, _, kern, plain in case(shape, 3, dtype):
-                if name[:2] not in which:
+                if not runs(name, which):
                     continue
                 got, want = kern(), plain()
                 torch.cuda.synchronize()
@@ -165,6 +209,8 @@ def measure(root, quick):
                 ulps = err / (torch.finfo(dtype).eps * scale)
                 bad = (ulps > 8.0 if dtype == torch.float32
                        else err > 1e-12 * scale)
+                if "R0" in name:          # K20 -> K7x against K6: bitwise
+                    bad = not bool(torch.equal(got, want))
                 key = (name, str(dtype)[6:])
                 worst[key] = max(worst.get(key, 0.0), ulps)
                 if bad or not bool(torch.isfinite(got).all()):
@@ -174,18 +220,23 @@ def measure(root, quick):
         f"{n} {d} {u:.3f}" for (n, d), u in sorted(worst.items()))
           + " ulp of scale", flush=True)
 
-    timed = (("256^3 waam", (256,) * 3, True, "K7 K8"),
-             ("512^3 waam", (512,) * 3, True, "K7 K8"),
-             ("8192x64x64", (8192, 64, 64), False, "K7 K8"),
-             ("64x8192x64", (64, 8192, 64), False, "K7"),
-             ("64x64x8192", (64, 64, 8192), False, "K8"))
-    for label, shape, waam, which in (timed[:2] + timed[4:] if quick
-                                      else timed):
-        rows = case(shape, 5, torch.float32, waam)
+    f32, f64 = torch.float32, torch.float64
+    timed = (("256^3 waam", (256,) * 3, True, "K6 K7 K7x K8 K19", f32),
+             ("384^3 waam", (384,) * 3, True, "K19", f32),
+             ("512^3 waam", (512,) * 3, True, "K6 K7 K7x K8 K19", f32),
+             ("512^3 waam f64", (512,) * 3, True, "K6 K7x K19", f64),
+             ("64x64x8192", (64, 64, 8192), False, "K8 K19", f32),
+             ("8192x64x64", (8192, 64, 64), False, "K6 K7 K7x K8 K19", f32),
+             ("64x8192x64", (64, 8192, 64), False, "K7", f32))
+    for label, shape, waam, which, dtype in (timed[:5] if quick
+                                             else timed):
+        rows = case(shape, 5, dtype, waam)
         cells = math.prod(shape)
-        for name, bpc, kern, _ in rows:
-            if name[:2] not in which:
+        for name, bpc4, kern, _ in rows:
+            if not runs(name, which) or not bpc4:
                 continue
+            # the byte model at float32, each field's bytes at dtype
+            bpc = bpc4 // 4 * torch.finfo(dtype).bits // 8 + bpc4 % 4
             ms = cs.cuda_ms(torch, kern, 20)
             pct = 100.0 * cells * bpc / (ms * 1e-3) / cs.HBM_BYTES_PER_S
             print(f"{name} {label}: {ms:.4f} ms, {pct:.1f}% of its {bpc} "
@@ -197,17 +248,20 @@ def measure(root, quick):
 def main():
     args = sys.argv[1:]
     if args[:1] == ["--measure"]:
-        measure(args[1], args[2:] == ["--quick"])
+        measure(args[1], args[2] == "--quick", args[3].split(","))
         return
     quick = "--quick" in args
     args = [a for a in args if a != "--quick"]
-    sets, subs = [], []
+    sets, subs, kernels = [], [], ",".join(KERNELS)
     for flag, value in zip(args[::2], args[1::2]):
-        (sets if flag == "--set" else subs).append(value)
+        if flag == "--kernels":
+            kernels = value
+        else:
+            (sets if flag == "--set" else subs).append(value)
     root = patched_copy(sets, subs) if sets or subs else HERE
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--measure", root] + (["--quick"] if quick
-                                                 else []))
+                           "--measure", root,
+                           "--quick" if quick else "--full", kernels])
     sys.exit(proc.returncode)
 
 

@@ -12,12 +12,14 @@ contraction).  The variable-property kernels K5-K8 are held to the same
 bounds relative to each output's scale (face conductivities, 1/(rho cp)
 and films are not temperatures), and so are the cylindrical sweeps K9-K18,
 whose stiff phi systems near a full disk's axis amplify one rounding; the
-cylindrical varprop step runs kernels against reference at float64.  K6,
-K7's x entry, K19, K20, K21, K22 and K23-K26 repeat their plain versions
-one rounding at a time: they are held to bitwise equality, and so is K15's
-y entry.  K7 and K8 split each line across threads (the split-line core
+cylindrical varprop step runs kernels against reference at float64.  K20,
+K21, K22 and K23-K26 repeat their plain versions one rounding at a time:
+they are held to bitwise equality, and so is K15's y entry.  K6, K7, K7's
+x entry, K8 and K19 split each line across threads (the split-line core
 of K1, K2 and K4): within 8 float32 ulp of the output's scale, 1e-12 of it
-at float64.  K1's v1 entry is held to the field-plan K1 bounds.
+at float64; K20 then K7's x entry equals K6 bit for bit (the unfused
+varprop step equals the fused one).  K1's v1 entry is held to the
+field-plan K1 bounds.
 The bfloat16 entries of K1-K4 solve at float32 like their plain versions
 but round differently (FMA contraction): within one bfloat16 ulp of them.
 chip_smoke.py runs the same comparisons at full size.
@@ -358,6 +360,139 @@ def test_vp_split_sweeps_take_no_field_sized_scratch_on_card():
         del out
 
 
+# K6 and K7x on x lines past their shared memory (8192 rows: reduced rows
+# in global memory), on fields of one and three planes and odd lines; K19
+# on z lines past its staging (8192 and 5000 rows: the core's strided
+# kernel), of one and three rows, and odd.
+VP_XZ_SHAPES = ((8192, 3, 37), (1, 512, 512), (3, 512, 512), (700, 5, 33),
+                (2, 37, 8192), (3, 7, 5000), (512, 512, 1), (512, 512, 3),
+                (5, 33, 700))
+
+
+def _vp_xz_calls(shape, dtype, seed):
+    """(name, kernel, plain) of K6 (h stream; rob_c + src), K7x (h stream)
+    and K19 (h stream, rob_c) on ``shape``, T through the mushy interval."""
+    from adi_thermal_fields_tpu_torch.step.cartesian_varprop import (
+        build_varprop_codes)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(seed)
+    mask_np = rng.random(shape) > 0.2
+    mask = torch.from_numpy(mask_np).to(dev)
+    cast = (lambda a: torch.from_numpy(a).to(dev, dtype))
+    T = cast(np.where(mask_np, 20.0 + 1580.0 * rng.random(shape), 20.0))
+    T.view(-1)[::7] = 1420.0
+    T.view(-1)[3::11] = 1470.0
+    R = cast(np.where(mask_np, 20.0 + 1480.0 * rng.random(shape), 20.0))
+    src = cast(rng.random(shape) * 1e6)
+    fc, w, h = varprop_fields_plain(
+        T, mask.to(torch.uint8), k_spec=melt_pool_enhanced_k(
+            54.0, 1420.0, 1470.0, 4.0),
+        cp_spec=apparent_cp(490.0, 490.0, 2.7e5, 1420.0, 1470.0),
+        rho=7800.0, rad=(0.5, TINF, 30.0))
+    codes = build_varprop_codes(mask)
+    th = (T, codes[0], *fc, w, 0.0175, INV, 7e4, 70.0, TINF)
+    sk = dict(rob_c=30.0, src=src, dt=DT)
+    xk = (R, codes[0], fc[0], w, 7e4, 70.0, TINF)
+    zk = (R, codes[3], fc[2], w, 7e4, 70.0, TINF)
+    return [("K6", lambda: varprop_theta_sweep(*th, h=h),
+             lambda: varprop_theta_sweep_plain(*th, h=h)),
+            ("K6", lambda: varprop_theta_sweep(*th, **sk),
+             lambda: varprop_theta_sweep_plain(*th, **sk)),
+            ("K7x", lambda: varprop_sweep_x(*xk, h=h),
+             lambda: varprop_sweep_x_plain(*xk, h=h)),
+            ("K19", lambda: varprop_sweep_z(*zk, h=h),
+             lambda: varprop_sweep_z_plain(*zk, h=h)),
+            ("K19", lambda: varprop_sweep_z(*zk, rob_c=30.0),
+             lambda: varprop_sweep_z_plain(*zk, rob_c=30.0))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float64, 1e-12),
+                                       (torch.float32, 8 * 2.0 ** -23)],
+                         ids=["f64", "f32"])
+def test_vp_x_and_z_sweeps_on_long_lines_and_planes_on_card(dtype, rel):
+    """K6, K7x and K19 against their plain versions on 8192-row lines, on
+    one- and three-plane fields and on odd lines, within ``rel`` of the
+    output's scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    reset_launch_counts()
+    for i, shape in enumerate(VP_XZ_SHAPES):
+        for name, kern, plain in _vp_xz_calls(shape, dtype, 80 + i):
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            assert got.is_cuda and got.dtype == dtype
+            scale = max(1.0, float(want.abs().max()))
+            assert float((got - want).abs().max()) <= rel * scale, \
+                (name, shape)
+    n = len(VP_XZ_SHAPES)
+    assert launch_counts() == _counts(K6=2 * n, K7x=n, K19=2 * n)
+
+
+@pytest.mark.cuda
+def test_vp_x_and_z_sweeps_take_no_field_sized_scratch_on_card():
+    """K6, K7x and K19 solve each line on chip: one call raises the
+    allocator's peak by its output alone, under two fields (their first
+    versions took a c'/d' scratch field beside the output)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for _, kern, _ in _vp_xz_calls((128, 96, 160), torch.float32, 79):
+        out = kern()                          # builds and loads the library
+        torch.cuda.synchronize()
+        del out
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        out = kern()
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated(dev) - base
+        field = out.numel() * out.element_size()
+        assert field <= rise < 2 * field, (rise, field)
+        del out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_unfused_varprop_step_equals_fused_on_card(dtype):
+    """``adi_step_varprop_fused(fuse_theta=False)`` (K20 -> K7x -> K7 ->
+    K19) equals the fused step (K6 -> K7 -> K19) bit for bit on an uneven
+    field whose x lines span five 8-row chunks, with per-face film streams,
+    radiation and a source."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from adi_thermal_fields_tpu_torch import (CartesianGrid,
+                                              adi_step_varprop_fused,
+                                              build_varprop_codes)
+    from adi_thermal_fields_tpu_torch.bc.faces import FACES
+    from adi_thermal_fields_tpu_torch.step.cartesian_varprop import (
+        build_face_h_axes)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(47)
+    grid = CartesianGrid(37, 45, 70, 5e-4)
+    mask_np = rng.random(grid.shape) > 0.2
+    mask = torch.from_numpy(mask_np).to(dev)
+    cast = (lambda a: torch.from_numpy(a).to(dev, dtype))
+    T = cast(np.where(mask_np, 1300.0 + 300.0 * rng.random(grid.shape),
+                      20.0))
+    src = cast(rng.random(grid.shape) * 1e8 * mask_np)
+    hf = {f: cast(10.0 + 10.0 * rng.random(grid.shape)) for f in FACES}
+    h_axes = build_face_h_axes(mask, hf, dtype=dtype)
+    codes = build_varprop_codes(mask)
+    kw = dict(k_table=melt_pool_enhanced_k(54.0, 1420.0, 1470.0, 4.0),
+              cp_table=apparent_cp(490.0, 490.0, 2.7e5, 1420.0, 1470.0),
+              dt=0.02, t_inf=20.0, h_axes=h_axes, emissivity=0.5,
+              h_conv=None, source=src)
+    mat = Material(7800.0, 490.0, 54.0)
+    reset_launch_counts()
+    fused = adi_step_varprop_fused(T, mask, codes, grid, mat, **kw)
+    unfused = adi_step_varprop_fused(T, mask, codes, grid, mat,
+                                     fuse_theta=False, **kw)
+    assert launch_counts() == _counts(K5=2, K6=1, K20=1, K7x=1, K7=2,
+                                      K19=2)
+    assert torch.equal(fused, unfused)
+
+
 def _flat(out):
     return [t for x in (out if isinstance(out, tuple) else (out,))
             for t in (x if isinstance(x, tuple) else (x,))]
@@ -598,7 +733,9 @@ def test_cyl_varprop_step_on_card(scheme, launches):
                          ids=["f64", "f32"])
 def test_general_route_kernels_match_plain_on_card(dtype):
     """K7's x entry, K19 and K20 (the corrected-BC route) and K21/K22 (the
-    field solves) against their plain versions: bitwise."""
+    field solves) against their plain versions: K20, K21 and K22 bitwise,
+    K7x and K19 (lines split across threads) within 8 float32 ulp of the
+    output's scale, 1e-12 of it at float64."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -621,13 +758,17 @@ def test_general_route_kernels_match_plain_on_card(dtype):
     b = 1.0 + 2.0 * cast(rng.random(shape)) - a - c
     rows = (R, 7e4, 70.0, TINF)
     reset_launch_counts()
-    pairs = [
+    # K7x and K19 split each line (8 float32 ulp of the output's scale,
+    # 1e-12 of it at float64)
+    split = [
         (varprop_sweep_x(R, code0, fc[0], w, *rows[1:], h=h),
          varprop_sweep_x_plain(R, code0, fc[0], w, *rows[1:], h=h)),
         (varprop_sweep_z(R, code2, fc[2], w, *rows[1:], h=h),
          varprop_sweep_z_plain(R, code2, fc[2], w, *rows[1:], h=h)),
         (varprop_sweep_z(R, code2, fc[2], w, *rows[1:], rob_c=30.0),
          varprop_sweep_z_plain(R, code2, fc[2], w, *rows[1:], rob_c=30.0)),
+    ]
+    pairs = [
         (varprop_theta_rhs(T, *fc, w, m8, 0.0175, INV),
          varprop_theta_rhs_plain(T, *fc, w, m8, 0.0175, INV)),
         (varprop_theta_rhs(T, *fc, w, m8, 0.0175, INV, src=src, dt=DT),
@@ -638,6 +779,11 @@ def test_general_route_kernels_match_plain_on_card(dtype):
         (cyclic_fields(a, b, c, R, 1), cyclic_fields_plain(a, b, c, R, 1)),
     ]
     torch.cuda.synchronize()
+    rel = 1e-12 if dtype == torch.float64 else 8 * 2.0 ** -23
+    for got, want in split:
+        assert got.is_cuda and got.dtype == dtype
+        assert float((got - want).abs().max()) <= \
+            rel * float(want.abs().max())
     for got, want in pairs:
         assert got.is_cuda and got.dtype == dtype
         assert torch.equal(got, want)
