@@ -112,12 +112,52 @@ __device__ __forceinline__ double div(double a, double b) {
   return __ddiv_rn(a, b);
 }
 
-// The Sherman-Morrison double solve of one periodic tridiagonal pencil, in
-// the steps of solvers/thomas.cyclic_thomas (K11, K16, K18).  The caller
-// forms row i's (a, b, c, d) and hands it to row(): the wrap couplings move
-// into rows 0 and n-1, and B y = d and B z = u run forward together (c' in
-// cpbuf, y' in out, z' in zbuf, at the row's offset).  finish() runs both
-// back substitutions along the pencil and writes x = y - fact z into out.
+// Sherman-Morrison's factor (y_0 + beta y_{n-1}/gamma) / (1 + z_0 + beta
+// z_{n-1}/gamma) of solvers/thomas.cyclic_thomas, one rounding each.
+template <typename T>
+__device__ __forceinline__ T sm_fact(T y0, T z0, T yn, T zn, T beta,
+                                     T gamma) {
+  return div(add(y0, div(mul(beta, yn), gamma)),
+             add(add(T(1), z0), div(mul(beta, zn), gamma)));
+}
+
+// One forward step of cyclic_thomas's double solve, one rounding each: the
+// state (c', y', z') after row i from that after row i - 1.  Rows 0 and
+// n-1 take the wrap couplings out (beta, gamma set at row 0), and B y = d
+// and B z = u (u = gamma e_0 + alpha e_{n-1}) run together.
+template <typename T>
+struct ThomasStep {
+  T cp = T(0), dy = T(0), dz = T(0);
+
+  __device__ __forceinline__ void row(int64_t i, int64_t n, T a, T b, T c,
+                                      T d, T& beta, T& gamma) {
+    T u = T(0);
+    if (i == 0) {
+      beta = a;
+      a = T(0);
+      gamma = -b;
+      b = sub(b, gamma);
+      u = gamma;
+    }
+    if (i == n - 1) {
+      const T alpha = c;
+      c = T(0);
+      b = sub(b, div(mul(alpha, beta), gamma));
+      u = alpha;
+    }
+    const T denom = sub(b, mul(a, cp));
+    cp = div(c, denom);
+    dy = div(sub(d, mul(a, dy)), denom);
+    dz = div(sub(u, mul(a, dz)), denom);
+  }
+};
+
+// The Sherman-Morrison double solve of one periodic tridiagonal pencil
+// (K18, K22; K11's and K16's Thomas-order replay, csrc/split_cyclic.cuh,
+// runs the same ThomasStep and sm_fact).  The caller forms row i's (a, b,
+// c, d) and hands it to row(): c' goes to cpbuf, y' to out, z' to zbuf, at
+// the row's offset.  finish() runs both back substitutions along the
+// pencil and writes x = y - fact z into out.
 template <typename T>
 class CyclicSolve {
  public:
@@ -126,27 +166,10 @@ class CyclicSolve {
 
   __device__ __forceinline__ void row(int64_t i, int64_t off, T a, T b, T c,
                                       T d) {
-    T u = T(0);
-    if (i == 0) {
-      beta_ = a;
-      a = T(0);
-      gamma_ = -b;
-      b = sub(b, gamma_);
-      u = gamma_;
-    }
-    if (i == n_ - 1) {
-      const T alpha = c;
-      c = T(0);
-      b = sub(b, div(mul(alpha, beta_), gamma_));
-      u = alpha;
-    }
-    const T denom = sub(b, mul(a, cp_));
-    cp_ = div(c, denom);
-    dy_ = div(sub(d, mul(a, dy_)), denom);
-    dz_ = div(sub(u, mul(a, dz_)), denom);
-    cpbuf_[off] = cp_;
-    out_[off] = dy_;
-    zbuf_[off] = dz_;
+    s_.row(i, n_, a, b, c, d, beta_, gamma_);
+    cpbuf_[off] = s_.cp;
+    out_[off] = s_.dy;
+    zbuf_[off] = s_.dz;
   }
 
   // rows at base + i * stride; y_{n-1}, z_{n-1} kept, y_0, z_0 in the carry
@@ -164,8 +187,7 @@ class CyclicSolve {
       out_[off] = y;
       zbuf_[off] = z;
     }
-    const T fact = div(add(y, div(mul(beta_, yn), gamma_)),
-                       add(add(T(1), z), div(mul(beta_, zn), gamma_)));
+    const T fact = sm_fact(y, z, yn, zn, beta_, gamma_);
     for (int64_t i = 0; i < n_; ++i) {
       const int64_t off = base + i * stride;
       out_[off] = sub(out_[off], mul(fact, zbuf_[off]));
@@ -177,7 +199,8 @@ class CyclicSolve {
   T* out_;
   T* cpbuf_;
   T* zbuf_;
-  T cp_ = T(0), dy_ = T(0), dz_ = T(0), gamma_ = T(-1), beta_ = T(0);
+  ThomasStep<T> s_;
+  T gamma_ = T(-1), beta_ = T(0);
 };
 
 // Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB only

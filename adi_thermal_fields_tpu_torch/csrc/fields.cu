@@ -13,7 +13,7 @@
 //     axis of a (B1, n, B2) view (phi of the natural cylindrical field).
 //     The wrap couplings are alpha = c[n-1] and beta = a[0] with the gauge
 //     gamma = -b[0] (solvers/thomas.cyclic_thomas), entered by
-//     Sherman-Morrison in atf::CyclicSolve (shared with K11, K16, K18).
+//     Sherman-Morrison in atf::CyclicSolve (shared with K18).
 //     The JAX wrapper pads the batch with identity systems and sets their
 //     gamma to -1 (:335-337); nothing is padded here, and a real system
 //     with b[0] = 0 is as singular in the gauge as it is in cyclic_thomas.

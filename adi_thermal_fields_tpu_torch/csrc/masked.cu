@@ -18,27 +18,25 @@
 // Row i of every sweep, from the code byte (bits 1/2 = coupling to i-1/i+1,
 // 4 = pinned row, 8 = in-mask), the per-cell Robin sink and srhs (sink*T_inf
 // on live rows, the pin value on pinned rows) and the per-row geometry
-// glo/ghi (K11: one geo per system, glo = ghi = geo):
+// glo/ghi (K11: one geo per line, glo = ghi = geo):
 //   a = -fac*glo*low, c = -fac*ghi*high, b = 1 + fac*(glo*low + ghi*high
 //   + sink), d = pin ? srhs : (inmask ? rhs + fac*srhs : ambient)
-// (the in-kernel prefold; void and pinned rows are identity rows).  K11's
-// wrap couplings enter by Sherman-Morrison as in the JAX kernel
-// (:903-910, :955-968): gamma = -b_0, beta = a_0 and alpha = c_{n-1} are
-// taken out of the matrix, b_0 -= gamma, b_{n-1} -= alpha*beta/gamma, and
-// one forward pass solves B y = d and B z = u (u = gamma e_0 + alpha
-// e_{n-1}); then x = y - z*(y_0 + beta*y_{n-1}/gamma)/(1 + z_0 +
-// beta*z_{n-1}/gamma).
+// (the in-kernel prefold; void and pinned rows are identity rows; K11 forms
+// b as 1 - (a + c) + fac*sink, its plain version's order).  K11's wrap
+// couplings (row 0's a, row n-1's c) come out by Sherman-Morrison in the
+// gauge of cyclic_thomas (gamma = -b_0, beta = a_0, alpha = c_{n-1}).
 //
-// Rounding: each kernel repeats its plain version's operations (the row
-// formulas of solvers/masked.py, then thomas / cyclic_thomas: divisions,
-// not reciprocal multiplies) one IEEE rounding at a time, with the _rn
-// intrinsics, which nvcc never contracts into an FMA.  The phi systems
-// near the axis of a full disk are stiff (fac*geo reaches ~500 at 0.5 mm
-// cells), so the solve amplifies a difference of one rounding by the
-// condition number (~4*fac*geo): on the H100 the first version of these
-// kernels (b formed as 1 + fac*(al + ch + sink), reciprocal multiplies)
-// parted from the plain versions by 26 float32 ulp on a 37x45x70 full
-// disk.
+// Rounding: K9 and K10 repeat their plain versions' operations (the row
+// formulas of solvers/masked.py, then thomas: divisions, not reciprocal
+// multiplies) one IEEE rounding at a time, with the _rn intrinsics, which
+// nvcc never contracts into an FMA: bit for bit.  K11 forms its rows so
+// too, but solves them split across threads (below), which parts from the
+// Thomas order by up to 6 float32 ulp of the output's scale on rings whose
+// rows stay below a stiffness ratio of 12, more on stiffer ones (~140 ulp
+// on a full disk's second ring, fac*geo ~ 520 at 0.5 mm cells: the solve
+// amplifies each rounding by the condition number); a block of lines with
+// a row past its stiffness ratio (kK11Stiff) is solved in Thomas order
+// instead, bit for bit its plain version.
 //
 // What bounds them on the H100: memory.  The byte model (float32) reads
 // rhs 4 + code 1 + sink 4 + srhs 4 and writes x 4 = 17 B/cell per sweep.
@@ -54,15 +52,21 @@
 //        pencil's recurrence from the tiles (lane = pencil; padded pitch,
 //        conflict-free).  c' and d' go to global scratch through the same
 //        tiles.
-//   K11: one thread per (r, z) pencil, coalesced over z.  Three line-length
-//        streams (c', y, z) live in global memory: forward pass writes
-//        three, backward reads three and writes two, the fix-up reads two
-//        and writes x (~48 B/cell of scratch traffic above the model).  At
-//        (64, 512, 1024) there are only 65,536 pencils, a quarter of the
-//        card's resident threads; blocks of 128 threads spread them over
-//        every SM.
-// A simple kernel first: no TMA, no split of a line across threads.
-#include "common.cuh"
+//   K11: the periodic split-line kernel of csrc/split_cyclic.cuh on K7's
+//        layout: a warp's lanes are 32 phi lines adjacent in z (every row
+//        load and store coalesced), the block's 32 warps split each line's
+//        8-row chunks; `MaskedCyclicRows` forms the rows in registers,
+//        Sherman-Morrison's second right-hand side enters only the reduced
+//        system, and nothing of the solve leaves the SM but x: 17 B/cell
+//        (the first K11 marched one thread a pencil with c', y and z in
+//        global memory, ~48 B/cell more, 65,536 threads at (64, 512,
+//        1024)).  Stiff blocks replay the Thomas order with the rows formed
+//        again, about five split blocks' time each (PERF.md section 6).
+//        What holds the split solve at a quarter of its byte model:
+//        latency -- the rounded divisions (three a row; the hardware
+//        reciprocal parted K16 from its plain version by 1.3e-3 K on the
+//        tube, past its gate) and 64 registers a thread at 32 warps.
+#include "split_cyclic.cuh"
 
 namespace {
 
@@ -223,34 +227,46 @@ __global__ void __launch_bounds__(kPencils) masked_sweep_z_kernel(
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(128) masked_cyclic_phi_kernel(
-    const T* __restrict__ rhs, const uint8_t* __restrict__ code,
-    const T* __restrict__ sink, const T* __restrict__ srhs,
-    const T* __restrict__ geo, T* __restrict__ out, T* __restrict__ cpbuf,
-    T* __restrict__ zbuf, int64_t B1, int64_t n, int64_t B2, T fac,
-    T ambient) {
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= B1 * B2) return;
-  const int64_t b1 = p / B2;
-  const int64_t base = b1 * n * B2 + (p - b1 * B2);
-  const T g = geo[p];
+// K11's stiffness ratio (csrc/split_cyclic.cuh): a block of lines with a
+// row past |a| + |c| > kK11Stiff * (b - |a| - |c|) is solved in Thomas
+// order, bit for bit masked_cyclic_phi_plain.  12: every block split, over
+// five seeds and two time steps (scripts/cyclic_tune.py, PERF.md section
+// 6), blocks below 12 stayed within 6.0 float32 ulp of scale of the plain
+// version (the gate is 8: a quarter spare), blocks of 12-16 reached 8.1.
+constexpr double kK11Stiff = 12.0;
 
-  // forward: B y = d and B z = u in one pass (y in out, z in zbuf), the
-  // rows of masked_cyclic_phi_plain and the steps of cyclic_thomas
-  const T fg = mul(-fac, g);
-  atf::CyclicSolve<T> solve(n, out, cpbuf, zbuf);
-  for (int64_t i = 0; i < n; ++i) {
-    const int64_t off = base + i * B2;
-    const unsigned cd = code[off];
-    const T a = (cd & atf::kLow) ? fg : T(0);
-    const T c = (cd & atf::kHigh) ? fg : T(0);
-    const T b = add(sub(T(1), add(a, c)), mul(fac, sink[off]));
-    solve.row(i, off, a, b, c,
-              prefold(cd, rhs[off], srhs[off], fac, ambient));
+// K11's rows for the periodic split solve (csrc/split_cyclic.cuh): the
+// rows of masked_cyclic_phi_plain one rounding at a time, geo one value a
+// line ((B1, B2), b1 * B2 + b2).
+template <typename T>
+struct MaskedCyclicRows {
+  static constexpr double kStiff = kK11Stiff;
+  const T* rhs;
+  const uint8_t* code;
+  const T* sink;
+  const T* srhs;
+  const T* geo;
+  T fac, ambient;
+
+  template <int M, typename F>
+  __device__ __forceinline__ void each(const CycLine& L, int64_t row0,
+                                       F&& f) const {
+    const T fg = mul(-fac, __ldg(geo + L.b1 * L.rs + L.b2));
+#pragma unroll
+    for (int k = 0; k < M; ++k) {
+      const int64_t i = row0 + k;
+      if (i < L.n) {
+        const int64_t off = L.at(i);
+        const unsigned cd = __ldg(code + off);
+        const T a = (cd & atf::kLow) ? fg : T(0);
+        const T c = (cd & atf::kHigh) ? fg : T(0);
+        const T b = add(sub(T(1), add(a, c)), mul(fac, __ldg(sink + off)));
+        f(k, a, b, c,
+          prefold(cd, __ldg(rhs + off), __ldg(srhs + off), fac, ambient));
+      }
+    }
   }
-  solve.finish(base, B2);
-}
+};
 
 template <typename T>
 void launch_masked_sweep_strided(const void* rhs, const void* code,
@@ -285,23 +301,6 @@ void launch_masked_sweep_z(const void* rhs, const void* code,
       (T)ambient);
 }
 
-template <typename T>
-void launch_masked_cyclic_phi(const void* rhs, const void* code,
-                              const void* sink, const void* srhs,
-                              const void* geo, void* out, void* cpbuf,
-                              void* zbuf, int64_t B1, int64_t n, int64_t B2,
-                              double fac, double ambient,
-                              cudaStream_t stream) {
-  const int threads = 128;
-  const int64_t blocks = atf::cdiv(B1 * B2, threads);
-  masked_cyclic_phi_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const T*>(rhs), static_cast<const uint8_t*>(code),
-      static_cast<const T*>(sink), static_cast<const T*>(srhs),
-      static_cast<const T*>(geo), static_cast<T*>(out),
-      static_cast<T*>(cpbuf), static_cast<T*>(zbuf), B1, n, B2, (T)fac,
-      (T)ambient);
-}
-
 }  // namespace
 
 ATF_API int atf_masked_sweep_strided(int dtype, int device, const void* rhs,
@@ -333,11 +332,17 @@ ATF_API int atf_masked_sweep_z(int dtype, int device, const void* rhs,
 ATF_API int atf_masked_cyclic_phi(int dtype, int device, const void* rhs,
                                   const void* code, const void* sink,
                                   const void* srhs, const void* geo,
-                                  void* out, void* cpbuf, void* zbuf,
-                                  int64_t B1, int64_t n, int64_t B2,
-                                  double fac, double ambient, void* stream) {
+                                  void* out, int64_t B1, int64_t n,
+                                  int64_t B2, double fac, double ambient,
+                                  void* stream) {
   ATF_DISPATCH(dtype, device,
-               launch_masked_cyclic_phi<T>(rhs, code, sink, srhs, geo, out,
-                                           cpbuf, zbuf, B1, n, B2, fac,
-                                           ambient, (cudaStream_t)stream));
+               ATF_RETURN_IF((launch_split_cyclic<T>(
+                   MaskedCyclicRows<T>{static_cast<const T*>(rhs),
+                                       static_cast<const uint8_t*>(code),
+                                       static_cast<const T*>(sink),
+                                       static_cast<const T*>(srhs),
+                                       static_cast<const T*>(geo), (T)fac,
+                                       (T)ambient},
+                   static_cast<T*>(out), B1, n, B2, device,
+                   (cudaStream_t)stream))));
 }

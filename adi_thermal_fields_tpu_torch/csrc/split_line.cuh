@@ -1,10 +1,13 @@
-// The split-line core of the tridiagonal sweeps K1, K2, K4, K7 and K8.
+// The split-line core of the tridiagonal sweeps K1, K2, K4, K6-K8, K19 and,
+// through csrc/split_cyclic.cuh, the periodic phi sweeps K11 and K16.
 //
 // A line of n rows is cut into chunks of M rows, one chunk per thread:
 //   (a) `Chunk::load` forms the chunk's rows in registers (a, c and b from a
 //       16-entry table of the code's low bits, `fill_row_table`; the right-
 //       hand side from the caller's `src`; K1, K2, K4), `Chunk::load_rows`
-//       takes them from the caller's row former (K7, K8), and both
+//       takes them from the caller's row former (K6-K8, K19) and
+//       `load_cyclic` (csrc/split_cyclic.cuh) those of a periodic line
+//       (K11, K16), and all
 //       eliminate inside the chunk (a downward pass, then an upward one),
 //       leaving its first and last rows coupled only to the neighbouring
 //       chunks;
@@ -12,10 +15,13 @@
 //       a unit diagonal: `seg_eliminate` folds a thread's consecutive chunks
 //       to two rows, `pcr_reduced` (shared memory) or `warp_reduced` (warp
 //       shuffles) solve the rest by cyclic reduction, `seg_finish` fills the
-//       folded rows back in;
+//       folded rows back in (with a second right-hand side where kTwo: the
+//       periodic lines' Sherman-Morrison column);
 //   (c) `Chunk::x` back-substitutes each row from the chunk's registers.
 // csrc/sweeps.cu explains the method, its pivoting and its rounding; the
 // kernels that use it say how they lay lines and chunks over threads.
+// kDiv (K11, K16): rounded divisions (atf::div) where the others multiply
+// by the hardware's reciprocal, whose stiff rings amplify each rounding.
 #pragma once
 
 #include <type_traits>
@@ -37,6 +43,34 @@ __device__ __forceinline__ float rcp(float x) {
   return r;
 }
 __device__ __forceinline__ double rcp(double x) { return 1.0 / x; }
+
+// x / den as the core takes it: x times rcp(den), or where kDiv a rounded
+// division.  neg(x) is -(x / den).
+template <typename C, bool kDiv>
+struct Over {
+  C v;   // den where kDiv, else its reciprocal
+  __device__ __forceinline__ explicit Over(C den) {
+    if constexpr (kDiv) {
+      v = den;
+    } else {
+      v = rcp(den);
+    }
+  }
+  __device__ __forceinline__ C operator()(C x) const {
+    if constexpr (kDiv) {
+      return atf::div(x, v);
+    } else {
+      return v * x;
+    }
+  }
+  __device__ __forceinline__ C neg(C x) const {
+    if constexpr (kDiv) {
+      return -atf::div(x, v);
+    } else {
+      return -v * x;
+    }
+  }
+};
 
 // The row coefficients that depend on the code's low four bits alone:
 // a, c, b (less dt*coeff when a coefficient field is given) and, plan-lite,
@@ -93,8 +127,9 @@ __device__ __forceinline__ void form_row(unsigned c, C r, bool has_coeff,
 // k = 0, 1, ..., M-1 in that order (a former may carry a value from row to
 // row; rows past the line's end must be identity rows); `load` forms them
 // from the code table (K1, K2, K4): `src(k, code, r, cf, q, dv)` fills row
-// k's inputs (all zero past the line's end: an identity row).
-template <typename C, int M, bool kPinFromCode>
+// k's inputs (all zero past the line's end: an identity row);
+// `load_cyclic` (csrc/split_cyclic.cuh) those of a periodic line.
+template <typename C, int M, bool kPinFromCode, bool kDiv = false>
 struct Chunk {
   C a[M], c[M], d[M];
 
@@ -133,20 +168,20 @@ struct Chunk {
   // the downward and upward passes over the chunk's rows (diagonal b)
   __device__ __forceinline__ void eliminate(C (&b)[M]) {
     // downward: row k >= 1 becomes a'_k x_first + x_k + c'_k x_{k+1} = d'_k
-    C r = rcp(b[0]);
-    a[0] *= r;
-    c[0] *= r;
-    d[0] *= r;
-    r = rcp(b[1]);
-    a[1] *= r;
-    c[1] *= r;
-    d[1] *= r;
+    Over<C, kDiv> r(b[0]);
+    a[0] = r(a[0]);
+    c[0] = r(c[0]);
+    d[0] = r(d[0]);
+    r = Over<C, kDiv>(b[1]);
+    a[1] = r(a[1]);
+    c[1] = r(c[1]);
+    d[1] = r(d[1]);
 #pragma unroll
     for (int k = 2; k < M; ++k) {
-      r = rcp(b[k] - a[k] * c[k - 1]);
-      d[k] = r * (d[k] - a[k] * d[k - 1]);
-      a[k] = -r * (a[k] * a[k - 1]);
-      c[k] = r * c[k];
+      r = Over<C, kDiv>(b[k] - a[k] * c[k - 1]);
+      d[k] = r(d[k] - a[k] * d[k - 1]);
+      a[k] = r.neg(a[k] * a[k - 1]);
+      c[k] = r(c[k]);
     }
     // upward: rows 1..M-2 couple to x_first and x_last only; row 0 to the
     // previous chunk's last unknown and x_last
@@ -156,16 +191,24 @@ struct Chunk {
       a[k] = a[k] - c[k] * a[k + 1];
       c[k] = -c[k] * c[k + 1];
     }
-    r = rcp(C(1) - c[0] * a[1]);
-    d[0] = r * (d[0] - c[0] * d[1]);
-    a[0] = r * a[0];
-    c[0] = -r * (c[0] * c[1]);
+    r = Over<C, kDiv>(C(1) - c[0] * a[1]);
+    d[0] = r(d[0] - c[0] * d[1]);
+    a[0] = r(a[0]);
+    c[0] = r.neg(c[0] * c[1]);
   }
 
   __device__ __forceinline__ C x(int k, C x_first, C x_last) const {
     if (k == 0) return x_first;
     if (k == M - 1) return x_last;
     return d[k] - a[k] * x_first - c[k] * x_last;
+  }
+
+  // row k of a second solution whose right-hand side is zero inside the
+  // chunk (the periodic lines' z: csrc/split_cyclic.cuh)
+  __device__ __forceinline__ C xz(int k, C x_first, C x_last) const {
+    if (k == 0) return x_first;
+    if (k == M - 1) return x_last;
+    return -a[k] * x_first - c[k] * x_last;
   }
 
   // the chunk's two rows of the reduced system (rows 2j, 2j+1 at stride s)
@@ -231,75 +274,98 @@ __device__ __forceinline__ C* pcr_reduced(C* A, C* Cc, C* D, C* A2, C* Cc2,
 // system at A/Cc/D[o0 + k*st] (in place): a thread's consecutive chunks
 // reduce to the first and last of their rows, coupled to the neighbouring
 // threads' rows only.  `seg_finish` fills the inner rows once those two
-// are known.
-template <typename C>
+// are known.  kTwo: Dz, a second right-hand side, alongside D.
+template <typename C, bool kDiv = false, bool kTwo = false>
 __device__ __forceinline__ void seg_eliminate(C* A, C* Cc, C* D, int o0,
-                                              int st, int cnt) {
+                                              int st, int cnt,
+                                              C* Dz = nullptr) {
   for (int k = 2; k < cnt; ++k) {
     const int o = o0 + k * st, op = o - st;
     const C a = A[o];
-    const C r = rcp(C(1) - a * Cc[op]);
-    D[o] = r * (D[o] - a * D[op]);
-    A[o] = -r * (a * A[op]);
-    Cc[o] = r * Cc[o];
+    const Over<C, kDiv> r(C(1) - a * Cc[op]);
+    D[o] = r(D[o] - a * D[op]);
+    if constexpr (kTwo) Dz[o] = r(Dz[o] - a * Dz[op]);
+    A[o] = r.neg(a * A[op]);
+    Cc[o] = r(Cc[o]);
   }
   for (int k = cnt - 3; k >= 1; --k) {
     const int o = o0 + k * st, on = o + st;
     const C c = Cc[o];
     D[o] = D[o] - c * D[on];
+    if constexpr (kTwo) Dz[o] = Dz[o] - c * Dz[on];
     A[o] = A[o] - c * A[on];
     Cc[o] = -c * Cc[on];
   }
   if (cnt >= 3) {
     const int o1 = o0 + st;
     const C c0 = Cc[o0];
-    const C r = rcp(C(1) - c0 * A[o1]);
-    D[o0] = r * (D[o0] - c0 * D[o1]);
-    A[o0] = r * A[o0];
-    Cc[o0] = -r * (c0 * Cc[o1]);
+    const Over<C, kDiv> r(C(1) - c0 * A[o1]);
+    D[o0] = r(D[o0] - c0 * D[o1]);
+    if constexpr (kTwo) Dz[o0] = r(Dz[o0] - c0 * Dz[o1]);
+    A[o0] = r(A[o0]);
+    Cc[o0] = r.neg(c0 * Cc[o1]);
   }
 }
 
-template <typename C>
+template <typename C, bool kTwo = false>
 __device__ __forceinline__ void seg_finish(const C* A, const C* Cc, C* D,
                                            int o0, int st, int cnt, C u0,
-                                           C u1) {
+                                           C u1, C* Dz = nullptr,
+                                           C v0 = C(0), C v1 = C(0)) {
   for (int k = 1; k < cnt - 1; ++k) {
     const int o = o0 + k * st;
     D[o] = D[o] - A[o] * u0 - Cc[o] * u1;
+    if constexpr (kTwo) Dz[o] = Dz[o] - A[o] * v0 - Cc[o] * v1;
   }
   D[o0] = u0;
   D[o0 + (cnt - 1) * st] = u1;
+  if constexpr (kTwo) {
+    Dz[o0] = v0;
+    Dz[o0 + (cnt - 1) * st] = v1;
+  }
 }
 
 // Phase (b) for a line of 32 chunks, one per lane, in registers: each
 // lane's last unknown absorbs its own first row and the next lane's (one
 // step of cyclic reduction), the 32 rows left go through PCR over warp
 // shuffles, and each first unknown follows from its row.  (a0, c0, d0)
-// and (a1, c1, d1): the lane's first and last reduced rows.
-template <typename C>
+// and (a1, c1, d1): the lane's first and last reduced rows; kTwo: z0, z1
+// their second right-hand side, whose solution goes to v[0], v[1].
+template <typename C, bool kDiv = false, bool kTwo = false>
 __device__ __forceinline__ void warp_reduced(C a0, C c0, C d0, C a1, C c1,
-                                             C d1, int lane, C& u0, C& u1) {
+                                             C d1, int lane, C& u0, C& u1,
+                                             C z0 = C(0), C z1 = C(0),
+                                             C* v = nullptr) {
   constexpr unsigned kAll = 0xffffffffu;
   C na = __shfl_down_sync(kAll, a0, 1);
   C nc = __shfl_down_sync(kAll, c0, 1);
   C nd = __shfl_down_sync(kAll, d0, 1);
-  if (lane == 31) na = nc = nd = C(0);
-  C inv = rcp(C(1) - a1 * c0 - c1 * na);
-  C A = -(a1 * a0) * inv;
-  C Cc = -(c1 * nc) * inv;
-  C D = (d1 - a1 * d0 - c1 * nd) * inv;
+  C nz = C(0);
+  if constexpr (kTwo) nz = __shfl_down_sync(kAll, z0, 1);
+  if (lane == 31) na = nc = nd = nz = C(0);
+  Over<C, kDiv> inv(C(1) - a1 * c0 - c1 * na);
+  C A = inv.neg(a1 * a0);
+  C Cc = inv.neg(c1 * nc);
+  C D = inv(d1 - a1 * d0 - c1 * nd);
+  C Z = C(0);
+  if constexpr (kTwo) Z = inv(z1 - a1 * z0 - c1 * nz);
 #pragma unroll
   for (int s = 1; s < 32; s *= 2) {
     C am = __shfl_up_sync(kAll, A, s), cm = __shfl_up_sync(kAll, Cc, s);
     C dm = __shfl_up_sync(kAll, D, s);
     C ap = __shfl_down_sync(kAll, A, s), cp = __shfl_down_sync(kAll, Cc, s);
     C dp = __shfl_down_sync(kAll, D, s);
-    if (lane < s) am = cm = dm = C(0);
-    if (lane + s >= 32) ap = cp = dp = C(0);
-    inv = rcp(C(1) - A * cm - Cc * ap);
-    const C nA = -(A * am) * inv, nC = -(Cc * cp) * inv;
-    D = (D - A * dm - Cc * dp) * inv;
+    C zm = C(0), zp = C(0);
+    if constexpr (kTwo) {
+      zm = __shfl_up_sync(kAll, Z, s);
+      zp = __shfl_down_sync(kAll, Z, s);
+    }
+    if (lane < s) am = cm = dm = zm = C(0);
+    if (lane + s >= 32) ap = cp = dp = zp = C(0);
+    inv = Over<C, kDiv>(C(1) - A * cm - Cc * ap);
+    const C nA = inv.neg(A * am), nC = inv.neg(Cc * cp);
+    D = inv(D - A * dm - Cc * dp);
+    if constexpr (kTwo) Z = inv(Z - A * zm - Cc * zp);
     A = nA;
     Cc = nC;
   }
@@ -307,6 +373,12 @@ __device__ __forceinline__ void warp_reduced(C a0, C c0, C d0, C a1, C c1,
   C prev = __shfl_up_sync(kAll, u1, 1);
   if (lane == 0) prev = C(0);
   u0 = d0 - a0 * prev - c0 * u1;
+  if constexpr (kTwo) {
+    v[1] = Z;
+    C zprev = __shfl_up_sync(kAll, Z, 1);
+    if (lane == 0) zprev = C(0);
+    v[0] = z0 - a0 * zprev - c0 * Z;
+  }
 }
 
 // Phase (b) on warp shuffles (W <= 32): each thread's 2R reduced rows (its
@@ -316,17 +388,20 @@ __device__ __forceinline__ void warp_reduced(C a0, C c0, C d0, C a1, C c1,
 // identity rows), so the block meets at two barriers (K1's PCR across the
 // warps in shared memory takes one a step); then the inner rows follow.
 // S2 holds 3 x 2W x 33 values (rows of 32 lines, padded so that the
-// lanes' writes hit distinct banks and their reads at most two a bank).
-template <typename C>
+// lanes' writes hit distinct banks and their reads at most two a bank);
+// kTwo: 4 x 2W x 33, the right-hand side Dz solved alongside D.
+template <typename C, bool kDiv = false, bool kTwo = false>
 __device__ __forceinline__ void block_reduced_warps(C* A, C* Cc, C* D,
                                                     C* S2, int lane, int w,
-                                                    int W, int R) {
+                                                    int W, int R,
+                                                    C* Dz = nullptr) {
   const int o0 = (2 * w * R) * 32 + lane, cnt = 2 * R;
-  seg_eliminate(A, Cc, D, o0, 32, cnt);
+  seg_eliminate<C, kDiv, kTwo>(A, Cc, D, o0, 32, cnt, Dz);
   const int last = o0 + (cnt - 1) * 32;
   C* Sa = S2;
   C* Sc = Sa + 2 * W * 33;
   C* Sd = Sc + 2 * W * 33;
+  C* Sz = Sd + 2 * W * 33;
   const int f = (2 * w) * 33 + lane, l = f + 33;
   Sa[f] = A[o0];
   Sc[f] = Cc[o0];
@@ -334,21 +409,35 @@ __device__ __forceinline__ void block_reduced_warps(C* A, C* Cc, C* D,
   Sa[l] = A[last];
   Sc[l] = Cc[last];
   Sd[l] = D[last];
+  if constexpr (kTwo) {
+    Sz[f] = Dz[o0];
+    Sz[l] = Dz[last];
+  }
   __syncthreads();
   for (int line = w; line < 32; line += W) {     // lane = segment
     const bool seg = lane < W;
     const int g = (2 * lane) * 33 + line, h = g + 33;
-    C u0, u1;
-    warp_reduced(seg ? Sa[g] : C(0), seg ? Sc[g] : C(0), seg ? Sd[g] : C(0),
-                 seg ? Sa[h] : C(0), seg ? Sc[h] : C(0), seg ? Sd[h] : C(0),
-                 lane, u0, u1);
+    C u0, u1, v[2];
+    warp_reduced<C, kDiv, kTwo>(
+        seg ? Sa[g] : C(0), seg ? Sc[g] : C(0), seg ? Sd[g] : C(0),
+        seg ? Sa[h] : C(0), seg ? Sc[h] : C(0), seg ? Sd[h] : C(0), lane, u0,
+        u1, kTwo && seg ? Sz[g] : C(0), kTwo && seg ? Sz[h] : C(0), v);
     if (seg) {
       Sd[g] = u0;
       Sd[h] = u1;
+      if constexpr (kTwo) {
+        Sz[g] = v[0];
+        Sz[h] = v[1];
+      }
     }
   }
   __syncthreads();
-  seg_finish(A, Cc, D, o0, 32, cnt, Sd[f], Sd[l]);   // this thread's rows
+  if constexpr (kTwo) {                          // this thread's rows
+    seg_finish<C, true>(A, Cc, D, o0, 32, cnt, Sd[f], Sd[l], Dz, Sz[f],
+                        Sz[l]);
+  } else {
+    seg_finish(A, Cc, D, o0, 32, cnt, Sd[f], Sd[l]);
+  }
 }
 
 // Staging for the kernels that own a line per warp (K2, K8): cp.async

@@ -122,6 +122,19 @@ __device__ __forceinline__ T clamp_sum_rn_upto(const Table<T>& tab, T x) {
   return acc;
 }
 
+// A property table at t.  kSeg > 0: the tables have at most kSeg
+// segments, summed without a branch (clamp_sum_rn_upto); 0: any table,
+// the segment loop rolled (unrolled, the many inlined evaluations of K8
+// and K16 took the build from seconds to minutes and ran slower).
+template <int kSeg, typename T>
+__device__ __forceinline__ T table(const Table<T>& tab, T t) {
+  if constexpr (kSeg > 0) {
+    return clamp_sum_rn_upto<T, kSeg>(tab, t);
+  } else {
+    return clamp_sum_rn<T, 1>(tab, t);
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ T harm_rn(T a, T b) {
   const T den = add(a, b);

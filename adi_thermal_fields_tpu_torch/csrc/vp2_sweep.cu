@@ -80,19 +80,6 @@ struct Vp2Params {
   int rad;
 };
 
-// A property table at t.  kSeg > 0: the tables have at most kSeg
-// segments, summed without a branch (clamp_sum_rn_upto); 0: any table,
-// the segment loop rolled (unrolled, the many inlined evaluations took the
-// build from seconds to minutes and ran slower).
-template <int kSeg, typename T>
-__device__ __forceinline__ T table(const atf::Table<T>& tab, T t) {
-  if constexpr (kSeg > 0) {
-    return atf::clamp_sum_rn_upto<T, kSeg>(tab, t);
-  } else {
-    return atf::clamp_sum_rn<T, 1>(tab, t);
-  }
-}
-
 // Forms and eliminates the chunk of rows row0 .. row0 + M - 1 (identity
 // rows past n).  tat(k), cat(k), rat(k): row k's T, code byte and rhs,
 // asked for rows below n only; kf, kl: k(T) at rows row0 and row0 + M - 1
@@ -127,7 +114,7 @@ __device__ __forceinline__ void vp2_chunk(Chunk<T, M, false>& ch,
         } else if (k == M - 2) {
           k_nxt = kl;
         } else {
-          k_nxt = table<kSeg>(p.ktab, tat(k + 1));
+          k_nxt = atf::table<kSeg>(p.ktab, tat(k + 1));
         }
         const T f_hi = (cd & 1u) ? atf::harm_rn(k_cur, k_nxt) : T(0);
         const T hr = p.rad ? atf::rad_film_rn(tc, p.rc, p.tik, p.tik2) : T(0);
@@ -139,7 +126,7 @@ __device__ __forceinline__ void vp2_chunk(Chunk<T, M, false>& ch,
         const T coup = add(add(al, ch_hi), sink);
         // cp at every row, selected where coup > 0: a branch here cost
         // more than the evaluations it saves
-        const T cp = table<kSeg>(p.ctab, tc);
+        const T cp = atf::table<kSeg>(p.ctab, tc);
         const T wr = coup > T(0) ? mul(cp, p.inv_dtor) : T(1);
         a = -al;
         c = -ch_hi;
@@ -167,7 +154,8 @@ struct Vp2Rows {
     const int64_t nv = valid ? n : 0;       // no line: identity rows
     auto at = [&](int64_t i) { return base + i * rs; };
     auto kat = [&](int64_t i) {
-      return (i >= 0 && i < nv) ? table<0>(p.ktab, __ldg(Tf + at(i))) : T(0);
+      return (i >= 0 && i < nv) ? atf::table<0>(p.ktab, __ldg(Tf + at(i)))
+                                : T(0);
     };
     const unsigned cd_prev =
         (row0 > 0 && row0 - 1 < nv) ? __ldg(code + at(row0 - 1)) : 0u;
@@ -278,15 +266,17 @@ __global__ void __launch_bounds__(32 * kK8Lines) vp2_sweep_z_kernel(
         const T* tj = tt + j * (M + 1);
         const uint8_t* cj = ct + j * (M + 4);
         const T* xj = x + j * (M + 1);
-        const T kf = row0 < nv ? table<kSeg>(p.ktab, tj[0]) : T(0);
-        const T kl = row0 + M - 1 < nv ? table<kSeg>(p.ktab, tj[M - 1]) : T(0);
+        const T kf = row0 < nv ? atf::table<kSeg>(p.ktab, tj[0]) : T(0);
+        const T kl =
+            row0 + M - 1 < nv ? atf::table<kSeg>(p.ktab, tj[M - 1]) : T(0);
         T k_prev = __shfl_up_sync(kAll, kl, 1);
         T k_after = __shfl_down_sync(kAll, kf, 1);
         // the seams between rounds: the row across lies in another round
         const bool lo = lane == 0 && row0 > 0 && row0 - 1 < nv;
         const bool hi = lane == 31 && row0 + M < nv;
         if (lo || hi) {
-          const T kk = table<kSeg>(p.ktab, tt[vidx(lo ? row0 - 1 : row0 + M)]);
+          const T kk =
+              atf::table<kSeg>(p.ktab, tt[vidx(lo ? row0 - 1 : row0 + M)]);
           if (lo) {
             k_prev = kk;
           } else {

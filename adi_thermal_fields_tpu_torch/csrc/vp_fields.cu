@@ -21,7 +21,7 @@
 //   K18: al = dw*(geo*flo); ch = dw*(geo*fhi); a = -al; c = -ch;
 //        b = 1 + dw*(geo*(flo + fhi) + sink); d = rhs + dw*srhs
 // and K18's wrap couplings enter by Sherman-Morrison (atf::CyclicSolve,
-// shared with K11 and K16).  Each kernel repeats its plain version
+// shared with K22).  Each kernel repeats its plain version
 // (solvers/vpfields.py, then thomas / cyclic_thomas) one IEEE rounding at a
 // time with the _rn helpers.
 //

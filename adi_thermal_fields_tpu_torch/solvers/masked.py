@@ -23,8 +23,15 @@ K11 along axis 1 of a (B1, n, B2) field (phi) as a periodic system whose
 wrap couplings are row 0's ``a`` and row n-1's ``c``, with one geometry
 value per system (``geo``, shape (B1, B2)).
 
-Each wrapper runs its plain version on CPU tensors and its kernel on CUDA
-tensors (or raises), and counts the launches in ``launches``.
+K9 and K10 repeat their plain versions' arithmetic bit for bit.  K11 forms
+its rows so but solves each line split across the block's warps with the
+wrap by Sherman-Morrison (``csrc/split_cyclic.cuh``), except on blocks of
+stiff rings (past ``kK11Stiff`` in ``csrc/masked.cu``), which it solves in
+Thomas order, bit for bit ``cyclic_thomas``; it refuses lines too long for
+that replay's shared memory (past ~91,000 rows at float32, ~22,000 at
+float64).  Each wrapper runs its plain version on CPU tensors and its
+kernel on CUDA tensors (or raises), and counts the launches in
+``launches``.
 """
 from __future__ import annotations
 
@@ -163,12 +170,10 @@ def masked_cyclic_phi(rhs: torch.Tensor, code: torch.Tensor,
         raise ValueError(f"masked_cyclic_phi: geo must be contiguous "
                          f"({B1}, {B2}) {rhs.dtype}")
     out = torch.empty_like(rhs)
-    cpbuf = torch.empty_like(rhs)
-    zbuf = torch.empty_like(rhs)
     err = load_library().atf_masked_cyclic_phi(
         dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(code),
-        ptr(sink), ptr(srhs), ptr(geo), ptr(out), ptr(cpbuf), ptr(zbuf),
-        B1, n, B2, fac, ambient, stream_ptr(rhs.device))
+        ptr(sink), ptr(srhs), ptr(geo), ptr(out), B1, n, B2, fac, ambient,
+        stream_ptr(rhs.device))
     raise_on_error(err, "masked_cyclic_phi")
     masked_cyclic_phi.launches += 1
     return out

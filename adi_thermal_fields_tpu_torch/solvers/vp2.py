@@ -49,12 +49,17 @@ cylindrical step moves its z code to (z, r, phi)), so nothing is
 transposed.
 
 The plain versions build the rows with one tensor op per operation and
-solve them with ``thomas`` / ``cyclic_thomas``; K15, K16 and K8's general
-form repeat that arithmetic one IEEE rounding at a time.  K8's Cartesian
-form forms the same rows bit for bit but solves each line split across a
-warp (the split-line core of ``csrc/split_line.cuh``), not in Thomas
-order: within a few float32 ulp of the output's scale.  Each wrapper
-runs the plain version on CPU tensors and its kernel on CUDA tensors (or
+solve them with ``thomas`` / ``cyclic_thomas``; K15 and K8's general form
+repeat that arithmetic one IEEE rounding at a time.  K8's Cartesian form
+forms the same rows bit for bit but solves each line split across a warp
+(the split-line core of ``csrc/split_line.cuh``), not in Thomas order:
+within a few float32 ulp of the output's scale.  K16 forms its rows bit
+for bit and solves them split across the block's warps with the wrap by
+Sherman-Morrison (``csrc/split_cyclic.cuh``), except on blocks of stiff
+rings (past ``kK16Stiff`` in ``csrc/vp2_cyl.cu``), which it solves in
+Thomas order, bit for bit ``cyclic_thomas``, and refuses lines too long
+for that replay (K11's limits, ``solvers/masked.py``).  Each wrapper runs
+the plain version on CPU tensors and its kernel on CUDA tensors (or
 raises), counting the launch in its ``launches`` attribute.
 """
 from __future__ import annotations
@@ -478,13 +483,11 @@ def vp2_cyclic_phi(rhs: torch.Tensor, T: torch.Tensor, code: torch.Tensor,
     rc, tik, tik2 = _rad_args(emissivity, tinf_void)
     rad = emissivity > 0.0
     out = torch.empty_like(T)
-    cpbuf = torch.empty_like(T)
-    zbuf = torch.empty_like(T)
     err = load_library().atf_vp2_cyclic_phi(
         dtype_code(T.dtype), T.device.index, ptr(rhs), ptr(T), ptr(code),
-        ptr(geo), ptr(gs), ptr(out), ptr(cpbuf), ptr(zbuf), B1, n, B2, ktab,
-        kn, ctab, cn, float(inv_dtor), float(h_void), float(tinf_void),
-        rc if rad else 0.0, tik, tik2, int(rad), stream_ptr(T.device))
+        ptr(geo), ptr(gs), ptr(out), B1, n, B2, ktab, kn, ctab, cn,
+        float(inv_dtor), float(h_void), float(tinf_void), rc if rad else 0.0,
+        tik, tik2, int(rad), stream_ptr(T.device))
     raise_on_error(err, "vp2_cyclic_phi")
     vp2_cyclic_phi.launches += 1
     return out

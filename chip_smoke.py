@@ -70,7 +70,9 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    K9 (r), K11 (phi, cyclic) and K10 (z) against their plain versions,
    float32, on the plan of a (64, 512, 1024) annular tube (substrate, a
    half-built wall and a partly deposited top layer; Dirichlet bottom
-   pins) and of a (37, 203, 131) full disk with a random mask: max
+   pins) and of a (37, 203, 131) full disk with a random mask, and K11
+   also on CYCLIC_SHAPES (the spiral app's (32, 720, 200) ring, 4096-row
+   lines on a mild and a stiff annulus, lines of 2 and 3 rows): max
    |delta| in float32 ulp of the output's scale, kernel and plain ms, %
    of 3.35 TB/s at 17 B/cell.  Its step part: the (64, 512, 1024)
    masked-Robin step (bench.py's masked-cylindrical configuration),
@@ -107,8 +109,10 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    r_inner 20 mm, 0.5 mm cells, the lower half and a partial layer
    deposited) at float32 and on a (37, 203, 131) full disk with a random
    mask and a Dirichlet bottom at float32 and float64, T across 1400-1500
-   C with cells exactly at the solidus and liquidus; max |delta| (gates
-   P8_TOL), kernel and plain ms, % of 3.35 TB/s under each byte model.
+   C with cells exactly at the solidus and liquidus, and K16 also on
+   CYCLIC_SHAPES at float32 (lines of 3 rows also float64); max |delta|
+   (gates P8_TOL), kernel and plain ms, % of 3.35 TB/s under each byte
+   model.
    Its step part: bench.py's cyl_varprop configuration at (64, 512, 1024)
    float32 (melt_pool_enhanced_k(54, 1420, 1470, 4), apparent_cp(490,
    490, 2.7e5, 1420, 1470), emissivity 0.5, h 300 outside, 50 inside, 400
@@ -380,6 +384,17 @@ P11_ALSO = ("K5", "K6", "K7", "K8", "K19")
 CYL_SHAPES = (("64x512x1024 tube", (64, 512, 1024)),
               ("37x203x131 disk", (37, 203, 131)))
 CYL_DT = 0.02
+# K11's and K16's further lines (phases 6 and 8): (label, shape, dr,
+# r_inner): the spiral app's ring (720 rows: past the kept rows, formed
+# again), 4096-row lines (16-row chunks, the reduced rows in global
+# memory) on a 1 m annulus (mild rings: the split solve) and on a 20 mm one
+# (stiff rings: the Thomas-order replay), and lines of 2 and 3 rows on full
+# disks
+CYCLIC_SHAPES = (("32x720x200 app tube", (32, 720, 200), 2.5e-4, 0.052),
+                 ("2x4096x64 mild tube", (2, 4096, 64), 5e-4, 1.0),
+                 ("2x4096x64 stiff tube", (2, 4096, 64), 5e-4, 0.02),
+                 ("8x2x96 disk", (8, 2, 96), 5e-4, 0.0),
+                 ("8x3x96 disk", (8, 3, 96), 5e-4, 0.0))
 P6_APP = ["--R_out", "60", "--wall_thickness", "8", "--height", "40",
           "--z_back", "10", "--nr", "32", "--nphi", "720", "--dz", "0.25",
           "--pitch", "2", "--auto_speed", "--t_tot", "30", "--dt_fixed",
@@ -1061,7 +1076,6 @@ def phase2_cyl(torch, dev):
         masked_sweep_strided_plain, masked_sweep_z, masked_sweep_z_plain)
 
     f32 = torch.float32
-    eps32 = torch.finfo(f32).eps
     mat = Material(7800.0, 490.0, 54.0)
     fac = float(torch.tensor(CYL_DT, dtype=f32)
                 * torch.tensor(mat.alpha, dtype=f32))
@@ -1089,35 +1103,58 @@ def phase2_cyl(torch, dev):
              lambda: masked_sweep_z(R, *plan.z, fac, 20.0),
              lambda: masked_sweep_z_plain(R, *plan.z, fac, 20.0)),
         ]
-        cells = mask.numel()
-        for kname, vname, ins, kern, plain in variants:
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got).all()),
-                  f"{kname} {vname} {label}: non-finite output")
-            err = float((got - want).abs().max())
-            ulps = err / (eps32 * float(want.abs().max()))
-            # each input read once, the output written once
-            nbytes = sum(t.numel() * t.element_size()
-                         for t in (R, *ins, got))
-            ms = cuda_ms(torch, kern, 20)
-            plain_ms = cuda_ms(torch, plain, 3)
-            pct = 100.0 * nbytes / (ms * 1e-3) / HBM_BYTES_PER_S
-            rows.append(dict(kernel=kname, variant=vname, shape=label,
-                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bytes_per_cell=nbytes / cells, pct_hbm=pct,
-                             **bound(kname, nbytes, cells)))
-            print(f"[phase 2] {kname} {vname:32s} {label:18s} "
-                  f"max|d|={err:.3e} K ({ulps:.2f} ulp of scale, tol "
-                  f"{KERNEL_TOL_ULP})  kernel {ms:8.3f} ms  plain "
-                  f"{plain_ms:9.3f} ms  {pct:5.1f}% of 3.35 TB/s at "
-                  f"{nbytes / cells:.2f} B/cell", flush=True)
-            check(ulps <= KERNEL_TOL_ULP, f"{kname} {vname} {label}: "
-                  f"{ulps:.2f} float32 ulp of the output's scale > "
-                  f"{KERNEL_TOL_ULP}")
+        rows += [kernel_row(torch, kname, vname, label, (R, *ins), kern,
+                            plain)
+                 for kname, vname, ins, kern, plain in variants]
+        del R, mask, plan
+        torch.cuda.empty_cache()
+    for label, shape, dr, r_inner in CYCLIC_SHAPES:        # K11 alone
+        grid = CylindricalGrid(*shape, dr, dr, r_inner=r_inner)
+        if label.endswith("tube"):
+            mask = tube_mask(torch, shape, dev)
+        else:
+            g = torch.Generator(device=dev).manual_seed(31)
+            mask = torch.rand(shape, generator=g, device=dev) > 0.25
+        plan = cyl_plan(torch, grid, mask, "dirichlet")
+        R = random_field(torch, mask, seed=23)
+        rows.append(kernel_row(
+            torch, "K11", "phi (cyclic)", label, (R, *plan.phi),
+            lambda: masked_cyclic_phi(R, *plan.phi, fac, 20.0),
+            lambda: masked_cyclic_phi_plain(R, *plan.phi, fac, 20.0)))
         del R, mask, plan
         torch.cuda.empty_cache()
     return rows
+
+
+def kernel_row(torch, kname, vname, where, ins, kern, plain, tol_k=None):
+    """A kernel against its plain version on one input: within tol_k K, or
+    without it KERNEL_TOL_ULP float32 ulp of the output's scale; its
+    summary row (each input read once, the output written once)."""
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()),
+          f"{kname} {vname} {where}: non-finite output")
+    err = float((got - want).abs().max())
+    ulps = err / (torch.finfo(got.dtype).eps * float(want.abs().max()))
+    nbytes = sum(t.numel() * t.element_size() for t in (*ins, got))
+    cells = got.numel()
+    ms = cuda_ms(torch, kern, 20)
+    plain_ms = cuda_ms(torch, plain, 3)
+    pct = 100.0 * nbytes / (ms * 1e-3) / HBM_BYTES_PER_S
+    tol = f"tol {KERNEL_TOL_ULP}" if tol_k is None else f"tol {tol_k:.0e} K"
+    print(f"[phase 2] {kname} {vname:32s} {where:26s} max|d|={err:.3e} K "
+          f"({ulps:.2f} ulp of scale, {tol})  kernel {ms:8.3f} ms  plain "
+          f"{plain_ms:9.3f} ms  {pct:5.1f}% of 3.35 TB/s at "
+          f"{nbytes / cells:.2f} B/cell", flush=True)
+    if tol_k is None:
+        check(ulps <= KERNEL_TOL_ULP, f"{kname} {vname} {where}: {ulps:.2f} "
+              f"float32 ulp of the output's scale > {KERNEL_TOL_ULP}")
+    else:
+        check(err <= tol_k, f"{kname} {vname} {where}: max|d| {err:.3e} K > "
+              f"{tol_k:.0e} K")
+    return dict(kernel=kname, variant=vname, shape=where, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bytes_per_cell=nbytes / cells,
+                pct_hbm=pct, **bound(kname, nbytes, cells))
 
 
 def phase6_step(torch, dev):
@@ -1397,16 +1434,19 @@ def phase7_step(torch, dev):
     return out
 
 
-def cylvp_case(torch, label, shape, dtype, dev):
+def cylvp_case(torch, label, shape, dtype, dev, dr=5e-4, r_inner=None):
     """Grid, material, mask, z BCs and T^n of a phase 8 configuration:
     bench.py's cyl_varprop tube (the lower half deposited, a layer over
     3/5 of the circumference above it), or a full disk with a random
-    mask and a Dirichlet bottom; T across 1400-1500 C on the mask."""
+    mask and a Dirichlet bottom; T across 1400-1500 C on the mask.  The
+    tube's inner radius is 20 mm unless ``r_inner`` is given."""
     from adi_thermal_fields_tpu_torch import (CylindricalGrid, Material,
                                               ZFaceBC)
     tube = label.endswith("tube")
     nr, nphi, nz = shape
-    grid = CylindricalGrid(*shape, 5e-4, 5e-4, r_inner=0.02 if tube else 0.0)
+    if r_inner is None:
+        r_inner = 0.02 if tube else 0.0
+    grid = CylindricalGrid(*shape, dr, dr, r_inner=r_inner)
     if tube:
         mask = torch.zeros(shape, dtype=torch.bool, device=dev)
         mask[:, :, :nz // 2] = True
@@ -1536,6 +1576,27 @@ def phase2_cylvp(torch, dev):
                   f"{err:.3e} K > {tol:.0e} K")
             del got, want
         del T, R, variants, zl, sr, sp, kf, dw, fr, fr_hi, fp, fz, fz_hi
+        torch.cuda.empty_cache()
+    # K16 alone on the further lines (float32; lines of 3 also float64)
+    for (label, shape, dr, r_inner), prec in (
+            [(c, "float32") for c in CYCLIC_SHAPES]
+            + [(CYCLIC_SHAPES[-1], "float64")]):
+        dtype = getattr(torch, prec)
+        f = getattr(np, prec)
+        grid, mat, mask, zbc, T = cylvp_case(torch, label, shape, dtype, dev,
+                                             dr, r_inner)
+        R = random_field(torch, mask, seed=53).to(dtype)
+        code_p = cvp.build_cyl_vp2_plan(mask, grid, zbc)[1]
+        cols = cvp._vp2_columns(grid, zbc, dtype, dev)
+        inv = float(f(1.0) / f(f(P8_DT) / f(mat.rho)))
+        pk = dict(k_spec=kt, cp_spec=ct, h_void=80.0, tinf_void=20.0,
+                  emissivity=EMISSIVITY)
+        args = (R, T, code_p, cols["geo_p"], cols["gs_p"], inv)
+        rows.append(kernel_row(
+            torch, "K16", "phi (cyclic)", f"{label} {prec}", (R, T, code_p),
+            lambda: vp2_cyclic_phi(*args, **pk),
+            lambda: vp2_cyclic_phi_plain(*args, **pk), tol_k=P8_TOL[prec]))
+        del T, R, args
         torch.cuda.empty_cache()
     return rows
 

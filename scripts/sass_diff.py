@@ -1,0 +1,69 @@
+#!/usr/bin/env python3
+"""The SASS of every kernel in this checkout's library against another
+checkout's, on a machine with nvcc and cuobjdump.
+
+    python3 scripts/sass_diff.py OTHER_CHECKOUT
+
+builds both kernel libraries (kernels/build.py, each in its own process)
+and prints, kernel by kernel, whether its SASS is identical (instruction
+addresses dropped), differs, or lies in one library only.  Kernels are
+matched by their mangled names with the per-file hash of the anonymous
+namespace removed.  A kernel whose SASS is identical runs the same
+instructions: no A/B can tell the two apart.
+"""
+import os
+import re
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CUOBJDUMP = "/usr/local/cuda/bin/cuobjdump"
+BUILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
+         "from adi_thermal_fields_tpu_torch.kernels import build_library; "
+         "print(build_library()[0])")
+
+
+def library(root):
+    proc = subprocess.run([sys.executable, "-c", BUILD, root],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"{root}: build failed\n{proc.stderr}")
+    return proc.stdout.strip().splitlines()[-1]
+
+
+def sass(lib):
+    """{kernel: its SASS without addresses}."""
+    text = subprocess.run([CUOBJDUMP, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, name, body = {}, None, []
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            if name:
+                funcs[name] = "\n".join(body)
+            name = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_(\w+?)_cu_[0-9a-f]+",
+                          r"anon_\1", m.group(1))
+            body = []
+        elif name:
+            body.append(re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).rstrip())
+    if name:
+        funcs[name] = "\n".join(body)
+    return funcs
+
+
+def main():
+    other = sass(library(os.path.abspath(sys.argv[1])))
+    mine = sass(library(HERE))
+    for name in sorted(set(other) | set(mine)):
+        state = ("only in the other" if name not in mine
+                 else "only in this" if name not in other
+                 else "identical" if mine[name] == other[name]
+                 else "differs")
+        print(f"{state:17s} {name}", flush=True)
+    same = sum(1 for n in mine if other.get(n) == mine[n])
+    print(f"{same} identical of {len(mine)} kernels here, {len(other)} "
+          "there", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -18,8 +18,10 @@ they are held to bitwise equality, and so is K15's y entry.  K6, K7, K7's
 x entry, K8 and K19 split each line across threads (the split-line core
 of K1, K2 and K4): within 8 float32 ulp of the output's scale, 1e-12 of it
 at float64; K20 then K7's x entry equals K6 bit for bit (the unfused
-varprop step equals the fused one).  K1's v1 entry is held to the
-field-plan K1 bounds.
+varprop step equals the fused one).  K11 and K16 split their periodic
+lines the same way, in Thomas order on stiff rings: the same bounds, on
+the spiral app's ring, 4096-row lines and lines of 2 and 3 rows too.
+K1's v1 entry is held to the field-plan K1 bounds.
 The bfloat16 entries of K1-K4 solve at float32 like their plain versions
 but round differently (FMA contraction): within one bfloat16 ulp of them.
 chip_smoke.py runs the same comparisons at full size.
@@ -698,6 +700,64 @@ def test_cyl_varprop_kernels_match_plain_on_card(dtype, rel, nphi, r_inner,
         assert float((got - want).abs().max()) <= rel * float(
             want.abs().max())
     assert launch_counts() == _counts(K8=1, K15=2, K16=1, K17=2, K18=1)
+
+
+# K11's and K16's further lines (chip_smoke.py CYCLIC_SHAPES): (shape, dr,
+# r_inner) of the spiral app's ring (720 rows: formed again in phase (c)),
+# 4096-row lines on a 1 m annulus (the split solve, 16-row chunks, reduced
+# rows in global memory) and on a 20 mm one (stiff rings: the Thomas-order
+# replay), lines of 2 and 3 rows on full disks
+CYCLIC_SHAPES = {"app-ring": ((32, 720, 200), 2.5e-4, 0.052),
+                 "long-mild": ((2, 4096, 64), 5e-4, 1.0),
+                 "long-stiff": ((2, 4096, 64), 5e-4, 0.02),
+                 "n2-disk": ((8, 2, 96), 5e-4, 0.0),
+                 "n3-disk": ((8, 3, 96), 5e-4, 0.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float64, 1e-12),
+                                       (torch.float32, 8 * 2.0 ** -23)],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("case", list(CYCLIC_SHAPES))
+def test_cyclic_phi_kernels_on_long_short_and_stiff_lines_on_card(case,
+                                                                  dtype, rel):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    shape, dr, r_inner = CYCLIC_SHAPES[case]
+    rng = np.random.default_rng(41)
+    grid = CylindricalGrid(*shape, dr, dr, r_inner=r_inner)
+    act = torch.from_numpy(rng.random(shape) > 0.25).to(dev)
+    zbc = ZFaceBC(kind_bot="dirichlet", T_bot=1400.0, kind_top="robin",
+                  h_top=400.0)
+    mat = Material(7800.0, 490.0, 54.0)
+    plan = build_masked_robin_plan(grid, mat, act,
+                                   robin_outer=RobinBC(300.0, 20.0), zbc=zbc,
+                                   h_void=80.0, dtype=dtype)
+    cast = (lambda a: torch.from_numpy(a).to(dev, dtype))
+    R = cast(20.0 + 1480.0 * rng.random(shape))
+    T = cast(1400.0 + 100.0 * rng.random(shape))
+    T.view(-1)[::7] = 1420.0
+    T.view(-1)[3::11] = 1470.0
+    fac = float(torch.tensor(0.05, dtype=dtype) * (54.0 / (7800.0 * 490.0)))
+    code_p = build_cyl_vp2_plan(act, grid, zbc)[1]
+    cols = pcvp._vp2_columns(grid, zbc, dtype, dev)
+    f = np.float32 if dtype == torch.float32 else np.float64
+    inv = float(f(1.0) / f(f(0.02) / f(7800.0)))
+    pk = dict(k_spec=melt_pool_enhanced_k(54.0, 1420.0, 1470.0, 4.0),
+              cp_spec=apparent_cp(490.0, 490.0, 2.7e5, 1420.0, 1470.0),
+              h_void=80.0, tinf_void=15.0, emissivity=0.5)
+    phi = (R, T, code_p, cols["geo_p"], cols["gs_p"], inv)
+    reset_launch_counts()
+    pairs = [(masked_cyclic_phi(R, *plan.phi, fac, 20.0),
+              masked_cyclic_phi_plain(R, *plan.phi, fac, 20.0)),
+             (vp2_cyclic_phi(*phi, **pk), vp2_cyclic_phi_plain(*phi, **pk))]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert got.is_cuda and got.dtype == dtype
+        assert float((got - want).abs().max()) <= rel * float(
+            want.abs().max())
+    assert launch_counts() == _counts(K11=1, K16=1)
 
 
 @pytest.mark.cuda
