@@ -46,7 +46,7 @@ hand for the H100 (csrc/):
   cp and films from T (K8's general form takes z);
 * K16 ``solvers.vp2.vp2_cyclic_phi`` — the tier-2 periodic phi sweep;
 * K17 ``solvers.vpfields.vp_fields_sweep_strided`` — the five-stream
-  sweep (r, and z on a permutation);
+  sweep (r; its entry ``vp_fields_sweep_z`` takes z, natural);
 * K18 ``solvers.vpfields.vp_fields_cyclic_phi`` — the five-stream
   periodic phi sweep;
 * K19 ``solvers.varprop.varprop_sweep_z`` — the stream-reading varprop

@@ -1,11 +1,12 @@
-// The split-line core of the tridiagonal sweeps K1, K2, K4, K6-K8, K19 and,
+// The split-line core of the tridiagonal sweeps K1, K2, K4, K6-K8, K19,
+// K17 and K21 (with csrc/split_staged.cuh for their contiguous z) and,
 // through csrc/split_cyclic.cuh, the periodic phi sweeps K11 and K16.
 //
 // A line of n rows is cut into chunks of M rows, one chunk per thread:
 //   (a) `Chunk::load` forms the chunk's rows in registers (a, c and b from a
 //       16-entry table of the code's low bits, `fill_row_table`; the right-
 //       hand side from the caller's `src`; K1, K2, K4), `Chunk::load_rows`
-//       takes them from the caller's row former (K6-K8, K19) and
+//       takes them from the caller's row former (K6-K8, K17, K19, K21) and
 //       `load_cyclic` (csrc/split_cyclic.cuh) those of a periodic line
 //       (K11, K16), and all
 //       eliminate inside the chunk (a downward pass, then an upward one),
@@ -122,6 +123,12 @@ __device__ __forceinline__ void form_row(unsigned c, C r, bool has_coeff,
   if (kPinFromCode ? (c & atf::kPin) != 0u : pin) b = C(1);
 }
 
+struct NoCheck {
+  template <typename A>
+  __device__ __forceinline__ void operator()(const A&, const A&,
+                                             const A&) const {}
+};
+
 // Phases (a) and (c) of one chunk of M rows (M >= 4).  `load_rows` takes
 // the rows from the caller's former, `rows(k, a, b, c, d)`, called for
 // k = 0, 1, ..., M-1 in that order (a former may carry a value from row to
@@ -152,9 +159,12 @@ struct Chunk {
     eliminate(b);
   }
 
-  template <typename Rows>
+  // `check(a, b, c)`, where given, sees the chunk's rows once all are
+  // formed, before they are eliminated (K17's and K21's stiffness test)
+  template <typename Rows, typename Check = NoCheck>
   __device__ __forceinline__ void load_rows(const Rows& rows, int64_t row0,
-                                            int64_t n) {
+                                            int64_t n,
+                                            const Check& check = Check()) {
     C b[M];
 #pragma unroll
     for (int k = 0; k < M; ++k) {
@@ -162,6 +172,7 @@ struct Chunk {
       if (row0 + k == 0) a[k] = C(0);
       if (row0 + k == n - 1) c[k] = C(0);
     }
+    check(a, b, c);
     eliminate(b);
   }
 
@@ -560,6 +571,16 @@ template <typename Rows>
 struct KeepsRhs<Rows, std::void_t<decltype(Rows::kKeepsRhs)>>
     : std::bool_constant<Rows::kKeepsRhs> {};
 
+// Rows::kReplay where the former replays stiff blocks (K17 and K21 at
+// float32), else false: a block with a row past the former's ratio solves
+// its lines again in Thomas order (`Rows::replay`, csrc/field_rows.cuh)
+// instead of phases (b) and (c).
+template <typename Rows, typename = void>
+struct StiffRows : std::false_type {};
+template <typename Rows>
+struct StiffRows<Rows, std::void_t<decltype(Rows::kReplay)>>
+    : std::bool_constant<Rows::kReplay> {};
+
 template <typename C>
 size_t split_smem_bytes(int W, int R, int M, bool global, int keep) {
   const size_t kept = keep == kKeepRows  ? (size_t)(M - 2) * 3
@@ -603,8 +624,13 @@ __global__ void __launch_bounds__(32 * kSplitWarps<C>)
   const int64_t base = b1 * n * B2 + b2 * ls;
 
   Chunk<C, M, false> ch;
+  bool stiff = false;
   auto eliminate = [&](int j) {
-    rows.load(ch, base, rs, (int64_t)j * M, n, valid);
+    if constexpr (StiffRows<Rows>::value) {
+      rows.load(ch, base, rs, (int64_t)j * M, n, valid, stiff);
+    } else {
+      rows.load(ch, base, rs, (int64_t)j * M, n, valid);
+    }
   };
   auto store = [&](int j) {
     const C x0 = D[(2 * j) * 32 + lane];
@@ -634,6 +660,15 @@ __global__ void __launch_bounds__(32 * kSplitWarps<C>)
       }
     }
   }
+  if constexpr (StiffRows<Rows>::value) {          // Thomas order instead
+    if (__syncthreads_or(stiff)) {
+      if (w == 0) {
+        rows.replay(out, base, rs, n, valid,
+                    reinterpret_cast<C*>(atf_smem));
+      }
+      return;
+    }
+  }
   block_reduced_warps(A, Cc, D, S2, lane, w, W, R);   // (b)
   store(w * R + R - 1);                          // (c), last chunk first
   for (int r = 0; r < R - 1; ++r) {
@@ -661,7 +696,10 @@ cudaError_t launch_split_strided_m(const Rows& rows, C* out, int64_t B1,
                                    int64_t rs, cudaStream_t stream) {
   const int W = (int)atf::imin(kSplitWarps<C>, atf::cdiv(n, M));
   const int R = (int)atf::cdiv(n, (int64_t)W * M);
-  const size_t smem = split_smem_bytes<C>(W, R, M, kGlobal, kKeep);
+  size_t smem = split_smem_bytes<C>(W, R, M, kGlobal, kKeep);
+  if constexpr (StiffRows<Rows>::value) {        // a stiff block's replay
+    smem = smem > Rows::replay_bytes(n) ? smem : Rows::replay_bytes(n);
+  }
   const int64_t blocks = B1 * atf::cdiv(B2, 32);
   C* gred = nullptr;
   if (kGlobal) {

@@ -5,8 +5,10 @@
 //     fused_vp_fields_sweep (:190; pipelined site :273 with body
 //     _vp_fields_pipe_kernel :628, streaming site :324 with body
 //     _vp_fields_kernel :53, which compute the same thing): the open solve
-//     along axis 0 of C-contiguous (n, B) streams -- r of the natural
-//     (r, phi, z) field, and z on its (z, r, phi) permutation.
+//     along the middle axis of (B1, n, B2) streams (r of the natural (r,
+//     phi, z) field as (1, nr, nphi*nz)) and, in a second entry, along the
+//     contiguous last axis (z of the natural field; the JAX step solves z
+//     on the (z, r, phi) transposes, JAX step/cylindrical_varprop.py:571).
 // K18 replaces fused_vp_fields_cyclic_axis1 (:525, site :611, body
 //     _vp_cyclic_axis1_kernel :342) with fhi=None: the PERIODIC solve along
 //     axis 1 of (B1, n, B2) streams -- phi of the natural field, the hi
@@ -20,60 +22,32 @@
 //        b = 1 + dw*(al + ch + sink); d = rhs + dw*srhs
 //   K18: al = dw*(geo*flo); ch = dw*(geo*fhi); a = -al; c = -ch;
 //        b = 1 + dw*(geo*(flo + fhi) + sink); d = rhs + dw*srhs
-// and K18's wrap couplings enter by Sherman-Morrison (atf::CyclicSolve,
-// shared with K22).  Each kernel repeats its plain version
-// (solvers/vpfields.py, then thomas / cyclic_thomas) one IEEE rounding at a
-// time with the _rn helpers.
+// one IEEE rounding per operation in the plain version's order, so the
+// rows equal the plain versions' (solvers/vpfields.py) bit for bit.
+//   K17 solves them on the split-line core (`VpFieldRows`,
+//        csrc/field_rows.cuh; csrc/sweeps.cu explains the method): r on
+//        the core's strided kernel (K7's layout), z on the staged kernel of
+//        csrc/split_staged.cuh (K19's layout: five streams staged with
+//        cp.async, a warp a line; lines past their staging on the strided
+//        kernel along z; glo and ghi staged once a block).  The split
+//        solve is not Thomas order and takes the hardware reciprocal at
+//        float32 (divisions at float64): a few float32 ulp of the output's
+//        scale from the plain version; at float32 stiff blocks are solved
+//        again in Thomas order, as K21's (csrc/field_rows.cuh).
+//   K18 repeats cyclic_thomas one rounding at a time (atf::CyclicSolve,
+//        shared with K22), bit for bit its plain version.
 //
 // What bounds them on the H100: memory.  The byte model (float32) reads
 // five streams (20) and writes x (4): 24 B/cell.
-//   K17: one thread per pencil, every row load coalesced; c' in the output
-//        and d' in a scratch field (+16 B/cell of global round trip).
+//   K17: nothing else below its shared-memory lengths.
 //   K18: one thread per (r, z) pencil, coalesced over z; c', y and z of the
-//        double solve in global memory, like K11.
-#include "common.cuh"
+//        double solve in global memory.
+#include "field_rows.cuh"
 
 namespace {
 
 using atf::add;
-using atf::div;
 using atf::mul;
-using atf::sub;
-
-template <typename T>
-__global__ void __launch_bounds__(256) vp_fields_sweep_strided_kernel(
-    const T* __restrict__ rhs, const T* __restrict__ fhi,
-    const T* __restrict__ dw, const T* __restrict__ sink,
-    const T* __restrict__ srhs, const T* __restrict__ glo,
-    const T* __restrict__ ghi, T* __restrict__ out, T* __restrict__ dpbuf,
-    int64_t n, int64_t B) {
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= B) return;
-  T cp = T(0), dp = T(0), f_lo = T(0);
-  for (int64_t i = 0; i < n; ++i) {
-    const int64_t off = i * B + p;
-    const T f_hi = fhi[off];
-    const T w = dw[off];
-    const T al = mul(__ldg(glo + i), f_lo);
-    const T ch = mul(__ldg(ghi + i), f_hi);
-    const T a = mul(-w, al);
-    const T c = mul(-w, ch);
-    const T b = add(T(1), mul(w, add(add(al, ch), sink[off])));
-    const T d = add(rhs[off], mul(w, srhs[off]));
-    const T denom = sub(b, mul(a, cp));
-    cp = div(c, denom);
-    dp = div(sub(d, mul(a, dp)), denom);
-    out[off] = cp;
-    dpbuf[off] = dp;
-    f_lo = f_hi;
-  }
-  T x = T(0);
-  for (int64_t i = n - 1; i >= 0; --i) {
-    const int64_t off = i * B + p;
-    x = sub(dpbuf[off], mul(out[off], x));
-    out[off] = x;
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(128) vp_fields_cyclic_phi_kernel(
@@ -106,21 +80,15 @@ __global__ void __launch_bounds__(128) vp_fields_cyclic_phi_kernel(
 }
 
 template <typename T>
-void launch_vp_fields_sweep_strided(const void* rhs, const void* fhi,
-                                    const void* dw, const void* sink,
-                                    const void* srhs, const void* glo,
-                                    const void* ghi, void* out,
-                                    void* scratch, int64_t n, int64_t B,
-                                    cudaStream_t stream) {
-  const int threads = 256;
-  const int64_t blocks = atf::cdiv(B, threads);
-  vp_fields_sweep_strided_kernel<T><<<(unsigned)blocks, threads, 0,
-                                      stream>>>(
-      static_cast<const T*>(rhs), static_cast<const T*>(fhi),
-      static_cast<const T*>(dw), static_cast<const T*>(sink),
-      static_cast<const T*>(srhs), static_cast<const T*>(glo),
-      static_cast<const T*>(ghi), static_cast<T*>(out),
-      static_cast<T*>(scratch), n, B);
+VpFieldRows<T> vp_field_rows(const void* rhs, const void* fhi,
+                             const void* dw, const void* sink,
+                             const void* srhs, const void* glo,
+                             const void* ghi) {
+  return VpFieldRows<T>{
+      static_cast<const T*>(rhs),
+      {static_cast<const T*>(fhi), static_cast<const T*>(dw),
+       static_cast<const T*>(sink), static_cast<const T*>(srhs)},
+      static_cast<const T*>(glo), static_cast<const T*>(ghi)};
 }
 
 template <typename T>
@@ -147,12 +115,26 @@ ATF_API int atf_vp_fields_sweep_strided(int dtype, int device,
                                         const void* dw, const void* sink,
                                         const void* srhs, const void* glo,
                                         const void* ghi, void* out,
-                                        void* scratch, int64_t n, int64_t B,
+                                        int64_t B1, int64_t n, int64_t B2,
                                         void* stream) {
   ATF_DISPATCH(dtype, device,
-               launch_vp_fields_sweep_strided<T>(rhs, fhi, dw, sink, srhs,
-                                                 glo, ghi, out, scratch, n,
-                                                 B, (cudaStream_t)stream));
+               ATF_RETURN_IF((launch_split_strided<T, VpFieldRows<T>>(
+                   vp_field_rows<T>(rhs, fhi, dw, sink, srhs, glo, ghi),
+                   static_cast<T*>(out), B1, n, B2, 1, B2, device,
+                   (cudaStream_t)stream))));
+}
+
+ATF_API int atf_vp_fields_sweep_z(int dtype, int device, const void* rhs,
+                                  const void* fhi, const void* dw,
+                                  const void* sink, const void* srhs,
+                                  const void* glo, const void* ghi,
+                                  void* out, void* flags, int64_t npen,
+                                  int64_t n, void* stream) {
+  ATF_DISPATCH(dtype, device,
+               ATF_RETURN_IF((launch_split_staged<T, VpFieldRows<T>>(
+                   vp_field_rows<T>(rhs, fhi, dw, sink, srhs, glo, ghi),
+                   static_cast<T*>(out), static_cast<uint8_t*>(flags), npen,
+                   n, device, (cudaStream_t)stream))));
 }
 
 ATF_API int atf_vp_fields_cyclic_phi(int dtype, int device, const void* rhs,

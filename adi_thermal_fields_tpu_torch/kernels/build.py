@@ -50,7 +50,7 @@ _SIGNATURES = {
                                *[_D] * 5, _P], _I),
     "atf_varprop_sweep_z": ([_I, _I, *[_P] * 6, _I64, _I64, *[_D] * 4, _P],
                             _I),
-    "atf_tridiag_fields_strided": ([_I, _I, *[_P] * 6, _I64, _I64, _I64, _P],
+    "atf_tridiag_fields_strided": ([_I, _I, *[_P] * 5, _I64, _I64, _I64, _P],
                                    _I),
     "atf_tridiag_fields_z": ([_I, _I, *[_P] * 6, _I64, _I64, _P], _I),
     "atf_cyclic_fields": ([_I, _I, *[_P] * 7, _I64, _I64, _I64, _P], _I),
@@ -87,8 +87,9 @@ _SIGNATURES = {
                               _DP, _I, *[_D] * 7, _I, _DP, _P], _I),
     "atf_vp2_cyclic_phi": ([_I, _I, *[_P] * 6, _I64, _I64, _I64, _DP, _I,
                             _DP, _I, *[_D] * 6, _I, _P], _I),
-    "atf_vp_fields_sweep_strided": ([_I, _I, *[_P] * 9, _I64, _I64, _P],
-                                    _I),
+    "atf_vp_fields_sweep_strided": ([_I, _I, *[_P] * 8, _I64, _I64, _I64,
+                                     _P], _I),
+    "atf_vp_fields_sweep_z": ([_I, _I, *[_P] * 9, _I64, _I64, _P], _I),
     "atf_vp_fields_cyclic_phi": ([_I, _I, *[_P] * 9, _I64, _I64, _I64, _P],
                                  _I),
     "atf_error_string": ([_I], ctypes.c_char_p),

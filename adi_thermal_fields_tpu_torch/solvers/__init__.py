@@ -22,10 +22,13 @@ Unmasked cylindrical step: K12 ``const_sweep_strided``, K13
 ``const_sweep_z`` and K14 ``cyclic_const_phi`` (const_sweeps.py).
 Cylindrical variable-property step: K15 ``vp2_sweep_strided``, K16
 ``vp2_cyclic_phi`` and K8's general form (vp2.py), K17
-``vp_fields_sweep_strided`` and K18 ``vp_fields_cyclic_phi`` (vpfields.py).
+``vp_fields_sweep_strided`` (with its z entry ``vp_fields_sweep_z``) and
+K18 ``vp_fields_cyclic_phi`` (vpfields.py).
 Each wrapper counts its CUDA launches in a ``launches`` attribute; K1-K4
 count their bfloat16 entries apart, in ``<wrapper>.bf16.launches``
-("K1b"-"K4b"), and K1 its v1 entry in ``sweep_strided.v1.launches``.
+("K1b"-"K4b"), and K1 its v1 entry in ``sweep_strided.v1.launches``;
+``vp_fields_sweep_z`` counts in ``vp_fields_sweep_strided.launches``
+(K17).
 """
 from .const_sweeps import (const_sweep_strided, const_sweep_strided_plain,
                            const_sweep_z, const_sweep_z_plain,
@@ -59,7 +62,8 @@ from .vp2 import (build_vp2_code, vp2_cyclic_phi, vp2_cyclic_phi_plain,
                   vp2_sweep_y_plain, vp2_sweep_z, vp2_sweep_z_plain)
 from .vpfields import (vp_fields_cyclic_phi, vp_fields_cyclic_phi_plain,
                        vp_fields_sweep_strided,
-                       vp_fields_sweep_strided_plain)
+                       vp_fields_sweep_strided_plain, vp_fields_sweep_z,
+                       vp_fields_sweep_z_plain)
 
 KERNELS = {"K1": sweep_strided, "K2": sweep_z, "K3": theta_rhs,
            "K4": fused_theta_sweep, "K5": varprop_fields,
@@ -95,7 +99,8 @@ __all__ = ["thomas", "cyclic_thomas", "sweep_code", "sweep_strided", "sweep_stri
            "cyclic_const_phi_plain", "vp2_sweep_strided",
            "vp2_sweep_strided_plain", "vp2_cyclic_phi",
            "vp2_cyclic_phi_plain", "vp_fields_sweep_strided",
-           "vp_fields_sweep_strided_plain", "vp_fields_cyclic_phi",
+           "vp_fields_sweep_strided_plain", "vp_fields_sweep_z",
+           "vp_fields_sweep_z_plain", "vp_fields_cyclic_phi",
            "vp_fields_cyclic_phi_plain", "varprop_sweep_x",
            "varprop_sweep_x_plain", "varprop_sweep_z",
            "varprop_sweep_z_plain", "varprop_theta_rhs",

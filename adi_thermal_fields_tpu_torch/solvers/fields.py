@@ -11,11 +11,17 @@ The JAX kernels solve along axis 0 of (n, B1, B2) arrays, so their callers
 move the solve axis to the front (a transpose pair per sweep).  Here the
 coefficients stay in the caller's natural layout and the wrapper names the
 solve axis: K21 runs a strided entry for any axis but the last and a
-staged entry for the contiguous last axis; K22 runs the periodic solve
-along any axis of a (B1, n, B2) view.  Plain versions: ``thomas`` and
-``cyclic_thomas`` (``a[0]`` and ``c[n-1]`` ignored by the open solve; the
-wrap couplings of the periodic one), which the kernels repeat one IEEE
-rounding at a time.
+staged entry for the contiguous last axis, both on the split-line core
+(``csrc/split_line.cuh``: chunks in registers, the reduced system by
+cyclic reduction, no c'/d' scratch; the hardware reciprocal at float32,
+divisions at float64), within a few float32 ulp of the output's scale of
+its plain version (at float32 a block of lines with a row past the
+stiffness ratio of ``csrc/field_rows.cuh`` is solved again in Thomas
+order, bit for bit); K22 runs the periodic solve along any axis of a (B1,
+n, B2) view, repeating its plain version one IEEE rounding at a time.
+Plain versions: ``thomas`` and ``cyclic_thomas`` (``a[0]`` and
+``c[n-1]`` ignored by the open solve; the wrap couplings of the periodic
+one).
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ from ..kernels import dtype_code, load_library, ptr, raise_on_error, \
 from .thomas import cyclic_thomas, thomas
 
 __all__ = ["tridiag_fields", "tridiag_fields_plain", "cyclic_fields",
-           "cyclic_fields_plain"]
+           "cyclic_fields_plain", "stiff_flags"]
 
 
 def _check(name, d, axis, *coeffs):
@@ -53,6 +59,16 @@ def _view3(shape, axis):
             math.prod(shape[axis + 1:]))
 
 
+def stiff_flags(ref: torch.Tensor, lines: int) -> torch.Tensor | None:
+    """The staged z entries' byte a line (K17, K21): at float32 the kernel
+    flags the lines it solves again in Thomas order there (none at
+    float64).  A buffer of the caching allocator, not scratch of the
+    solve."""
+    if ref.dtype != torch.float32:
+        return None
+    return torch.empty(lines, dtype=torch.uint8, device=ref.device)
+
+
 def tridiag_fields_plain(a, b, c, d, axis: int = 0):
     """Plain version of K21: ``thomas`` along ``axis``."""
     mv = (lambda t: t.movedim(axis, 0))
@@ -69,18 +85,17 @@ def tridiag_fields(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     name = "tridiag_fields"
     _check(name, d, axis, a, b, c)
     out = torch.empty_like(d)
-    scratch = torch.empty_like(d)
     B1, n, B2 = _view3(tuple(d.shape), axis)
     lib = load_library()
     if B2 == 1:          # the contiguous last axis: the staged entry
+        flags = stiff_flags(d, B1)
         err = lib.atf_tridiag_fields_z(
             dtype_code(d.dtype), d.device.index, ptr(a), ptr(b), ptr(c),
-            ptr(d), ptr(out), ptr(scratch), B1, n, stream_ptr(d.device))
+            ptr(d), ptr(out), ptr(flags), B1, n, stream_ptr(d.device))
     else:
         err = lib.atf_tridiag_fields_strided(
             dtype_code(d.dtype), d.device.index, ptr(a), ptr(b), ptr(c),
-            ptr(d), ptr(out), ptr(scratch), B1, n, B2,
-            stream_ptr(d.device))
+            ptr(d), ptr(out), B1, n, B2, stream_ptr(d.device))
     raise_on_error(err, name)
     tridiag_fields.launches += 1
     return out

@@ -9,7 +9,10 @@ Counterpart: ``adi_thermal_fields_tpu/solvers/pallas_vpfields.py`` —
 ``_vp_cyclic_axis1_kernel`` :342) -> K18 ``vp_fields_cyclic_phi``; and the
 forward halves of ``solvers/differentiable.vp_sweep_solve`` (:438) and
 ``vp_cyclic_solve`` (:494), which are the calls the cylindrical varprop
-step makes.  CUDA source: ``csrc/vp_fields.cu``.
+step makes.  K17 has a second entry, ``vp_fields_sweep_z``: the same
+solve along the last axis of the natural (r, phi, z) streams, where the
+JAX step solves z on the (z, r, phi) transposes.  CUDA source:
+``csrc/vp_fields.cu``.
 
 The streams are the rhs, the hi-face harmonic conductivity ``fhi`` (zero
 across void and domain edges), ``dw = dt/(rho cp(T^n))``, the Robin
@@ -30,8 +33,14 @@ periodicity, ``fhi[i] = flo[i+1 mod n]``, with one metric ``geo`` per ring:
 solved by Sherman-Morrison (``cyclic_thomas``).  All-zero lines (a full
 disk's axis ring, void lines) are identities.  The plain versions build
 the rows with one tensor op per operation and solve them with ``thomas`` /
-``cyclic_thomas``; the kernels repeat that arithmetic one IEEE rounding at
-a time.
+``cyclic_thomas``; the kernels form the same rows one IEEE rounding at a
+time, bit for bit.  K18 repeats ``cyclic_thomas`` so too; K17 solves its
+rows on the split-line core (``csrc/split_line.cuh``: chunks in
+registers, the reduced system by cyclic reduction, no c'/d' scratch; the
+hardware reciprocal at float32, divisions at float64), within a few
+float32 ulp of the output's scale of its plain version (at float32 a
+block of lines with a row past the stiffness ratio of
+``csrc/field_rows.cuh`` is solved again in Thomas order, bit for bit).
 """
 from __future__ import annotations
 
@@ -40,9 +49,11 @@ import torch
 from ..bc.faces import shift_in
 from ..kernels import (check_vectors, dtype_code, load_library, ptr,
                        raise_on_error, stream_ptr, use_kernel)
+from .fields import stiff_flags
 from .thomas import cyclic_thomas, thomas
 
 __all__ = ["vp_fields_sweep_strided", "vp_fields_sweep_strided_plain",
+           "vp_fields_sweep_z", "vp_fields_sweep_z_plain",
            "vp_fields_cyclic_phi", "vp_fields_cyclic_phi_plain"]
 
 
@@ -75,8 +86,8 @@ def vp_fields_sweep_strided(rhs: torch.Tensor, fhi: torch.Tensor,
                             srhs: torch.Tensor, glo: torch.Tensor,
                             ghi: torch.Tensor) -> torch.Tensor:
     """K17: the five-stream sweep along axis 0 of C-contiguous fields (the
-    r sweep of the natural (r, phi, z) field; the z sweep on the (z, r,
-    phi) permutation).  ``glo``/``ghi``: (n,) geometry columns."""
+    r sweep of the natural (r, phi, z) field; ``vp_fields_sweep_z`` solves
+    z).  ``glo``/``ghi``: (n,) geometry columns."""
     if not use_kernel(rhs, fhi, dw, sink, srhs, glo, ghi):
         return vp_fields_sweep_strided_plain(rhs, fhi, dw, sink, srhs, glo,
                                              ghi)
@@ -85,10 +96,9 @@ def vp_fields_sweep_strided(rhs: torch.Tensor, fhi: torch.Tensor,
     n = rhs.shape[0]
     check_vectors(name, rhs, n, glo, ghi)
     out = torch.empty_like(rhs)
-    scratch = torch.empty_like(rhs)
     err = load_library().atf_vp_fields_sweep_strided(
         dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(fhi), ptr(dw),
-        ptr(sink), ptr(srhs), ptr(glo), ptr(ghi), ptr(out), ptr(scratch), n,
+        ptr(sink), ptr(srhs), ptr(glo), ptr(ghi), ptr(out), 1, n,
         rhs.numel() // n, stream_ptr(rhs.device))
     raise_on_error(err, name)
     vp_fields_sweep_strided.launches += 1
@@ -96,6 +106,40 @@ def vp_fields_sweep_strided(rhs: torch.Tensor, fhi: torch.Tensor,
 
 
 vp_fields_sweep_strided.launches = 0
+
+
+def vp_fields_sweep_z_plain(rhs, fhi, dw, sink, srhs, glo, ghi):
+    """Plain version of K17's z entry: the strided plain version on the
+    streams with their last axis moved to the front, moved back."""
+    zl = (lambda t: t.movedim(-1, 0).contiguous())
+    return vp_fields_sweep_strided_plain(
+        *(zl(t) for t in (rhs, fhi, dw, sink, srhs)), glo, ghi) \
+        .movedim(0, -1).contiguous()
+
+
+def vp_fields_sweep_z(rhs: torch.Tensor, fhi: torch.Tensor,
+                      dw: torch.Tensor, sink: torch.Tensor,
+                      srhs: torch.Tensor, glo: torch.Tensor,
+                      ghi: torch.Tensor) -> torch.Tensor:
+    """K17's z entry: the five-stream sweep along the contiguous last axis
+    of C-contiguous fields (z of the natural (r, phi, z) field), nothing
+    permuted.  ``glo``/``ghi``: geometry columns along that axis.  Counted
+    as K17's launch."""
+    if not use_kernel(rhs, fhi, dw, sink, srhs, glo, ghi):
+        return vp_fields_sweep_z_plain(rhs, fhi, dw, sink, srhs, glo, ghi)
+    name = "vp_fields_sweep_z"
+    _check_streams(name, rhs, fhi, dw, sink, srhs)
+    n = rhs.shape[-1]
+    check_vectors(name, rhs, n, glo, ghi)
+    out = torch.empty_like(rhs)
+    flags = stiff_flags(rhs, rhs.numel() // n)
+    err = load_library().atf_vp_fields_sweep_z(
+        dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(fhi), ptr(dw),
+        ptr(sink), ptr(srhs), ptr(glo), ptr(ghi), ptr(out), ptr(flags),
+        rhs.numel() // n, n, stream_ptr(rhs.device))
+    raise_on_error(err, name)
+    vp_fields_sweep_strided.launches += 1
+    return out
 
 
 def vp_fields_cyclic_phi_plain(rhs, flo, dw, sink, srhs, geo):

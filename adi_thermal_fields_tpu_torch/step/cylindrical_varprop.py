@@ -32,8 +32,9 @@ Three implementations:
   1-byte code (``build_cyl_vp2_plan``).  Douglas and backward Euler with
   an arbitrary callable build the five streams (face
   conductivity, ``dt w``, sink, srhs) with tensor ops and run K17 along r,
-  K18 along phi and K17 along z on a (z, r, phi) permute pair of the
-  streams (the JAX Douglas z solve, :706-713).  The JAX package sends
+  K18 along phi and K17's z entry along z of the natural streams (the JAX
+  Douglas z solve, :706-713, runs on a (z, r, phi) transpose pair; the
+  port departs in layout only).  The JAX package sends
   float64 through the stream tier (its vp2 kernels take float32); the port
   runs the tier-2 chain at float32 and float64 alike.  The two tiers
   differ only by the scaling of each row, and agree to round-off.
@@ -64,7 +65,8 @@ from ..solvers.thomas import cyclic_thomas, thomas
 from ..solvers.varprop import face_g, harm
 from ..solvers.vp2 import (build_vp2_code, vp2_cyclic_phi, vp2_sweep_strided,
                            vp2_sweep_z)
-from ..solvers.vpfields import vp_fields_cyclic_phi, vp_fields_sweep_strided
+from ..solvers.vpfields import (vp_fields_cyclic_phi,
+                                vp_fields_sweep_strided, vp_fields_sweep_z)
 from .cartesian import solve_numpy_dtype
 from .cartesian_varprop import PropertyTable, check_films
 from .cylindrical import RobinBC, ZFaceBC, _vec
@@ -395,10 +397,8 @@ def _fields_step(T, grid, mat_ref, dt, robin_outer, zbc, k_table, cp_table,
     def solve_z(rhs, dwx):
         d = _pin_z(rhs, zbc, act)
         if solver == "kernels":
-            zl = (lambda t: t.permute(2, 0, 1).contiguous())
-            x = vp_fields_sweep_strided(zl(d), zl(fz_hi), zl(dwx), zl(sink_z),
-                                        zl(srhs_z), gz, gz)
-            return x.permute(1, 2, 0).contiguous()
+            return vp_fields_sweep_z(d.contiguous(), fz_hi, dwx.contiguous(),
+                                     sink_z, srhs_z, gz, gz)
         az = -dwx * colz * fz
         cz = -dwx * colz * fz_hi
         bz = 1.0 + dwx * (colz * (fz + fz_hi) + sink_z)

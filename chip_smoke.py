@@ -104,15 +104,20 @@ Phases (each asserts; a failure exits non-zero and prints no result):
 
 8. The variable-property cylindrical step.  Its kernel part (run with
    phase 2): K15 (r), K16 (phi, cyclic), K8's general form (z), K17 (r,
-   and z on the (z, r, phi) permutation) and K18 (phi, cyclic) against
+   and z on the natural streams) and K18 (phi, cyclic) against
    their plain versions on bench.py's cyl_varprop tube ((64, 512, 1024),
    r_inner 20 mm, 0.5 mm cells, the lower half and a partial layer
    deposited) at float32 and on a (37, 203, 131) full disk with a random
    mask and a Dirichlet bottom at float32 and float64, T across 1400-1500
    C with cells exactly at the solidus and liquidus, and K16 also on
    CYCLIC_SHAPES at float32 (lines of 3 rows also float64); max |delta|
-   (gates P8_TOL), kernel and plain ms, % of 3.35 TB/s under each byte
-   model.
+   (gates P8_TOL; K17, whose lines are split across threads, also within
+   KERNEL_TOL_ULP float32 ulp of the output's scale, KERNEL_TOL_F64 of it
+   at float64), kernel and plain ms, % of 3.35 TB/s under each byte
+   model.  K17 r and z and K21 on the same rows (the fields tier's) also
+   on the tube at 10x the step's dt (every block past kOpenStiff: Thomas
+   order) and K17 on 8192-row lines (8192x64x64 r, 64x64x8192 z), within
+   KERNEL_TOL_ULP.
    Its step part: bench.py's cyl_varprop configuration at (64, 512, 1024)
    float32 (melt_pool_enhanced_k(54, 1420, 1470, 4), apparent_cp(490,
    490, 2.7e5, 1420, 1470), emissivity 0.5, h 300 outside, 50 inside, 400
@@ -133,10 +138,12 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    stream), K7's x entry, K20 (with and without a source), K21 (x, y and
    z entries) and K22 (phi, cyclic) against their plain versions at 384^3
    (the WAAM mask) float32 and on 97x203x131 (a random mask) at float32
-   and float64: K20-K22 bitwise equal (each repeats its plain version one
-   rounding at a time), K7x and K19 (lines split across threads) within
-   KERNEL_TOL_ULP float32 ulp of the output's scale, KERNEL_TOL_F64 of it
-   at float64; kernel and plain ms, % of 3.35 TB/s under each byte model.
+   and float64, and K21 on 8192-row lines along x, y and z (8192x64x64,
+   64x8192x64, 64x64x8192): K20 and K22 bitwise equal (each repeats its
+   plain version one rounding at a time), K7x, K19 and K21 (lines split
+   across threads) within KERNEL_TOL_ULP float32 ulp of the output's
+   scale, KERNEL_TOL_F64 of it at float64; kernel and plain ms, % of 3.35
+   TB/s under each byte model.
    Its step part, float32: bench.py's corrected-BC configuration at 384^3
    through make_cartesian_engine (1 mm cells, bench.py's mask at 900 C,
    per-face h 10 + 10*U(0,1) and area scales 0.7 + 0.6*U(0,1) from
@@ -367,8 +374,8 @@ CYL_VP_KERNELS = ("K8", "K15", "K16", "K17", "K18")
 # K5-K7)
 GENERAL_KERNELS = ("K7x", "K19", "K20", "K21", "K22")
 # of those, the ones on the split-line core (not bitwise with their plain
-# versions; K20-K22 are)
-SPLIT_GENERAL = ("K7x", "K19")
+# versions; K20 and K22 are)
+SPLIT_GENERAL = ("K7x", "K19", "K21")
 P9_ALSO = CONST_KERNELS + ("K5", "K6", "K7")
 # phase 10: the bfloat16 entries and the g-stream tier, and the kernels
 # its float32 comparisons share with earlier phases
@@ -415,6 +422,9 @@ P8_APP_FLAGS = ["--latent_J_kg", "2.7e5", "--melt_k_factor", "4",
                 "--emissivity", "0.5", "--Ts", "1550"]
 P8_APP_T_TOT = "6"      # s of the print in the float64 comparisons
 P8_APP_TOL = 1e-6       # K, float64 kernels vs reference
+# K21's and K17's 8192-row lines (phases 8 and 9): along x (K17: r), y and
+# z, past the core's shared-memory reduced rows and K17's/K21's z staging
+LONG_LINES = ((8192, 64, 64), (64, 8192, 64), (64, 64, 8192))
 # K above --Ts that the Douglas print may reach: theta 0.5 is not monotone
 # at these Fourier numbers (its first frame, at 1.5 s, reads 2307.7 C on an
 # H100 80GB HBM3 at 700 W; the JAX app overshoots alike,
@@ -1465,6 +1475,63 @@ def cylvp_case(torch, label, shape, dtype, dev, dr=5e-4, r_inner=None):
     return grid, Material(7800.0, 490.0, 54.0), mask, zbc, T.to(dtype)
 
 
+def k17_streams(torch, grid, mat, mask, T, R, dt, seed=47):
+    """K17's r and z streams (rhs, fhi, dw, sink, srhs), natural layout,
+    built from T as the stream tier builds them (k(T), dw = dt/(rho
+    cp(T)), the hi faces, a film on a fifth of the cells)."""
+    from adi_thermal_fields_tpu_torch.solvers.varprop import face_g
+    kt, ct = varprop_tables()
+    kf = kt(T)
+    dw = dt / (mat.rho * ct(T))
+    fr = face_g(kf, 0, -1, mask)
+    fr_hi = torch.cat([fr[1:], torch.zeros_like(fr[:1])], 0)
+    fz = face_g(kf, 2, -1, mask)
+    fz_hi = torch.cat([fz[:, :, 1:], torch.zeros_like(fz[:, :, :1])], 2)
+    g = torch.Generator(device=T.device).manual_seed(seed)
+    film = torch.rand(T.shape, generator=g, device=T.device) < 0.2
+    sink = torch.where(film & mask, 80.0 / grid.dz, 0.0).to(T.dtype)
+    srhs = sink * 20.0
+    return (R, fr_hi, dw, sink, srhs), (R, fz_hi, dw, sink, srhs)
+
+
+def k17_rows(torch, streams, glo, ghi, axis):
+    """The rows K17 forms from its streams along ``axis`` as a/b/c/d
+    fields (the plain version's, and the cylindrical ``fields`` tier's
+    rows for K21)."""
+    from adi_thermal_fields_tpu_torch.bc.faces import shift_in
+    rhs, fhi, dw, sink, srhs = streams
+    shape = [1] * rhs.dim()
+    shape[axis] = -1
+    al = glo.view(shape) * shift_in(fhi, axis, -1, fill=0.0)
+    ch = ghi.view(shape) * fhi
+    return (-dw * al, 1.0 + dw * (al + ch + sink), -dw * ch,
+            rhs + dw * srhs)
+
+
+def field_systems(torch, shape, dtype, dev, seed):
+    """Diagonally dominant a/b/c fields (the rows of an implicit sweep)
+    and a right-hand side over 20-1500: K21's phase 9 inputs."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = -torch.rand(shape, generator=g, device=dev, dtype=dtype)
+    c = -torch.rand(shape, generator=g, device=dev, dtype=dtype)
+    b = 1.0 + 2.0 * torch.rand(shape, generator=g, device=dev,
+                               dtype=dtype) - a - c
+    R = (20.0 + 1480.0 * torch.rand(shape, generator=g, device=dev)
+         ).to(dtype)
+    return a, b, c, R
+
+
+def line_streams(torch, shape, axis, dev, seed):
+    """Float32 K17 streams on ``shape`` at the tube's scale (coupling
+    dw*glo*fhi ~ 2) and a metric column along ``axis``: the 8192-row
+    lines of phase 8."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = (lambda *s: torch.rand(s or shape, generator=g, device=dev))
+    streams = (20.0 + 1480.0 * rnd(), 54.0 * (1.0 + 3.0 * rnd()),
+               2.0 / 216.0 / 4e6 * (0.5 + rnd()), 3e3 * rnd(), 6e4 * rnd())
+    return streams, 4e6 * (1.0 + 0.1 * rnd(shape[axis]))
+
+
 def phase2_cylvp(torch, dev):
     """K15, K16, K8's general form, K17 and K18 against their plain
     versions (float32 and float64)."""
@@ -1473,8 +1540,8 @@ def phase2_cylvp(torch, dev):
         vp2_cyclic_phi, vp2_cyclic_phi_plain, vp2_sweep_strided,
         vp2_sweep_strided_plain, vp2_sweep_z, vp2_sweep_z_plain,
         vp_fields_cyclic_phi, vp_fields_cyclic_phi_plain,
-        vp_fields_sweep_strided, vp_fields_sweep_strided_plain)
-    from adi_thermal_fields_tpu_torch.solvers.varprop import face_g
+        vp_fields_sweep_strided, vp_fields_sweep_strided_plain,
+        vp_fields_sweep_z, vp_fields_sweep_z_plain)
     from adi_thermal_fields_tpu_torch.step import cylindrical_varprop as cvp
 
     kt, ct = varprop_tables()
@@ -1501,21 +1568,8 @@ def phase2_cylvp(torch, dev):
                   h=80.0, h_hi=200.0, t_inf=20.0, emissivity=EMISSIVITY,
                   edge1=(400.0, 1.0 / grid.dz, 20.0))
         # the stream tier's inputs, built from T as the step builds them
-        kf = kt(T)
-        dw = P8_DT / (mat.rho * ct(T))
-        fr = face_g(kf, 0, -1, mask)
-        fr_hi = torch.cat([fr[1:], torch.zeros_like(fr[:1])], 0)
-        fp = cvp._face_phi(kf, mask)
-        fz = face_g(kf, 2, -1, mask)
-        fz_hi = torch.cat([fz[:, :, 1:], torch.zeros_like(fz[:, :, :1])], 2)
-        g = torch.Generator(device=dev).manual_seed(47)
-        film = torch.rand(shape, generator=g, device=dev) < 0.2
-        sink = torch.where(film & mask, 80.0 / grid.dz, 0.0).to(dtype)
-        srhs = sink * 20.0
-        zl = [t.permute(2, 0, 1).contiguous()
-              for t in (R, fz_hi, dw, sink, srhs)]
-        sr = (R, fr_hi, dw, sink, srhs)
-        sp = (R, fp, dw, sink, srhs)
+        sr, sz = k17_streams(torch, grid, mat, mask, T, R, P8_DT)
+        sp = (R, cvp._face_phi(kt(T), mask), *sr[2:])
         variants = [
             ("K15", "r", (R, T, code_r),
              lambda: vp2_sweep_strided(R, T, code_r, *rc, inv, **rk),
@@ -1539,11 +1593,10 @@ def phase2_cylvp(torch, dev):
                                              cols["ghi_r"]),
              lambda: vp_fields_sweep_strided_plain(*sr, cols["glo_r"],
                                                    cols["ghi_r"])),
-            ("K17", "z (permuted)", zl,
-             lambda: vp_fields_sweep_strided(*zl, cols["geo_z"],
-                                             cols["geo_z"]),
-             lambda: vp_fields_sweep_strided_plain(*zl, cols["geo_z"],
-                                                   cols["geo_z"])),
+            ("K17", "z (natural)", sz,
+             lambda: vp_fields_sweep_z(*sz, cols["geo_z"], cols["geo_z"]),
+             lambda: vp_fields_sweep_z_plain(*sz, cols["geo_z"],
+                                             cols["geo_z"])),
             ("K18", "phi (cyclic)", sp,
              lambda: vp_fields_cyclic_phi(*sp, cols["geo_p"]),
              lambda: vp_fields_cyclic_phi_plain(*sp, cols["geo_p"])),
@@ -1574,8 +1627,56 @@ def phase2_cylvp(torch, dev):
                   f"{nbytes / cells:.2f} B/cell", flush=True)
             check(err <= tol, f"{kname} {vname} {where}: max|d| "
                   f"{err:.3e} K > {tol:.0e} K")
+            if kname == "K17":
+                # lines split across threads: also KERNEL_TOL_ULP float32
+                # ulp of the output's scale, KERNEL_TOL_F64 of it at
+                # float64
+                lim = (KERNEL_TOL_ULP * torch.finfo(torch.float32).eps
+                       if prec == "float32" else KERNEL_TOL_F64) \
+                    * float(want.abs().max())
+                check(err <= lim, f"K17 {vname} {where}: max|d| {err:.3e}"
+                      f" from its plain version > {lim:.3e}")
             del got, want
-        del T, R, variants, zl, sr, sp, kf, dw, fr, fr_hi, fp, fz, fz_hi
+        del T, R, variants, sr, sz, sp
+        torch.cuda.empty_cache()
+    # K17 (and K21 on the same rows, the fields tier's) on the tube at 10x
+    # the step's dt (rows past kOpenStiff: Thomas order) and on 8192-row
+    # lines (the core's global reduced rows; z past its staging)
+    from adi_thermal_fields_tpu_torch.solvers import (tridiag_fields,
+                                                      tridiag_fields_plain)
+    label, shape, _ = P8_SHAPES[0]
+    grid, mat, mask, zbc, T = cylvp_case(torch, label, shape, torch.float32,
+                                         dev)
+    R = random_field(torch, mask, seed=43)
+    cols = cvp._vp2_columns(grid, zbc, torch.float32, dev)
+    sr, sz = k17_streams(torch, grid, mat, mask, T, R, 10.0 * P8_DT)
+    where = f"{label} float32, 10x dt"
+    for vname, st, axis, gl, gh, kern, plain in (
+            ("r", sr, 0, cols["glo_r"], cols["ghi_r"],
+             vp_fields_sweep_strided, vp_fields_sweep_strided_plain),
+            ("z (natural)", sz, 2, cols["geo_z"], cols["geo_z"],
+             vp_fields_sweep_z, vp_fields_sweep_z_plain)):
+        rows.append(kernel_row(torch, "K17", vname, where, st,
+                               lambda: kern(*st, gl, gh),
+                               lambda: plain(*st, gl, gh)))
+        abcd = k17_rows(torch, st, gl, gh, axis)
+        rows.append(kernel_row(
+            torch, "K21", f"{'rz'[axis // 2]}, fields tier rows", where,
+            abcd, lambda: tridiag_fields(*abcd, axis),
+            lambda: tridiag_fields_plain(*abcd, axis)))
+        del abcd
+    del T, R, sr, sz, mask
+    torch.cuda.empty_cache()
+    for vname, shape, axis, kern, plain in (
+            ("r", LONG_LINES[0], 0, vp_fields_sweep_strided,
+             vp_fields_sweep_strided_plain),
+            ("z (natural)", LONG_LINES[2], 2, vp_fields_sweep_z,
+             vp_fields_sweep_z_plain)):
+        st, col = line_streams(torch, shape, axis, dev, 61)
+        rows.append(kernel_row(
+            torch, "K17", vname, f"{'x'.join(map(str, shape))} float32", st,
+            lambda: kern(*st, col, col), lambda: plain(*st, col, col)))
+        del st
         torch.cuda.empty_cache()
     # K16 alone on the further lines (float32; lines of 3 also float64)
     for (label, shape, dr, r_inner), prec in (
@@ -1652,9 +1753,10 @@ def phase8_app(torch, dev):
 
 def phase2_fields(torch, dev):
     """K19, K7's x entry, K20, K21 and K22 against their plain versions
-    (float32 and float64): K20-K22 bitwise, K7x and K19 (the split-line
-    core) within KERNEL_TOL_ULP float32 ulp of the output's scale, or
-    KERNEL_TOL_F64 of it at float64."""
+    (float32 and float64): K20 and K22 bitwise, K7x, K19 and K21 (the
+    split-line core) within KERNEL_TOL_ULP float32 ulp of the output's
+    scale, or KERNEL_TOL_F64 of it at float64; K21 also on 8192-row
+    lines."""
     from adi_thermal_fields_tpu_torch import CartesianGrid, Material
     from adi_thermal_fields_tpu_torch.solvers import (
         cyclic_fields, cyclic_fields_plain, sweep_code, tridiag_fields,
@@ -1751,6 +1853,16 @@ def phase2_fields(torch, dev):
                       f"{err:.3e} from its plain version, not bitwise")
             del got, want
         del T, R, fc, w, h, src, a, b, c, variants
+        torch.cuda.empty_cache()
+    # K21 on 8192-row lines along each axis (the core's global reduced
+    # rows; z past its staging, on the strided kernel along z)
+    for ax, shape in enumerate(LONG_LINES):
+        abcd = field_systems(torch, shape, torch.float32, dev, 67 + ax)
+        rows.append(kernel_row(
+            torch, "K21", "xyz"[ax], f"{'x'.join(map(str, shape))} float32",
+            abcd, lambda: tridiag_fields(*abcd, ax),
+            lambda: tridiag_fields_plain(*abcd, ax)))
+        del abcd
         torch.cuda.empty_cache()
     return rows
 

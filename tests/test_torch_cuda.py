@@ -13,11 +13,12 @@ bounds relative to each output's scale (face conductivities, 1/(rho cp)
 and films are not temperatures), and so are the cylindrical sweeps K9-K18,
 whose stiff phi systems near a full disk's axis amplify one rounding; the
 cylindrical varprop step runs kernels against reference at float64.  K20,
-K21, K22 and K23-K26 repeat their plain versions one rounding at a time:
+K22 and K23-K26 repeat their plain versions one rounding at a time:
 they are held to bitwise equality, and so is K15's y entry.  K6, K7, K7's
-x entry, K8 and K19 split each line across threads (the split-line core
-of K1, K2 and K4): within 8 float32 ulp of the output's scale, 1e-12 of it
-at float64; K20 then K7's x entry equals K6 bit for bit (the unfused
+x entry, K8, K17, K19 and K21 split each line across threads (the
+split-line core of K1, K2 and K4): within 8 float32 ulp of the output's
+scale, 1e-12 of it at float64; K20 then K7's x entry equals K6 bit for
+bit (the unfused
 varprop step equals the fused one).  K11 and K16 split their periodic
 lines the same way, in Thomas order on stiff rings: the same bounds, on
 the spiral app's ring, 4096-row lines and lines of 2 and 3 rows too.
@@ -51,7 +52,8 @@ from adi_thermal_fields_tpu_torch.solvers import (
     vp2_sweep_strided_plain, vp2_sweep_y, vp2_sweep_y_plain, vp2_sweep_z,
     vp2_sweep_z_plain,
     vp_fields_cyclic_phi, vp_fields_cyclic_phi_plain,
-    vp_fields_sweep_strided, vp_fields_sweep_strided_plain, cyclic_fields,
+    vp_fields_sweep_strided, vp_fields_sweep_strided_plain,
+    vp_fields_sweep_z, vp_fields_sweep_z_plain, cyclic_fields,
     cyclic_fields_plain, tridiag_fields, tridiag_fields_plain,
     varprop_sweep_x, varprop_sweep_x_plain, varprop_sweep_z,
     varprop_sweep_z_plain, varprop_theta_rhs, varprop_theta_rhs_plain)
@@ -674,7 +676,6 @@ def test_cyl_varprop_kernels_match_plain_on_card(dtype, rel, nphi, r_inner,
         54.0 * (1.0 + 3.0 * rng.random(shape)) * (rng.random(shape) > 0.2),
         2e-8 * (0.5 + rng.random(shape)), 3e3 * rng.random(shape),
         6e4 * rng.random(shape))]
-    zl = [s.permute(2, 0, 1).contiguous() for s in streams]
     reset_launch_counts()
     pairs = [
         (vp2_sweep_strided(R, T, code_r, *r_cols, inv, **rk),
@@ -689,8 +690,8 @@ def test_cyl_varprop_kernels_match_plain_on_card(dtype, rel, nphi, r_inner,
         (vp_fields_sweep_strided(*streams, cols["glo_r"], cols["ghi_r"]),
          vp_fields_sweep_strided_plain(*streams, cols["glo_r"],
                                        cols["ghi_r"])),
-        (vp_fields_sweep_strided(*zl, cols["geo_z"], cols["geo_z"]),
-         vp_fields_sweep_strided_plain(*zl, cols["geo_z"], cols["geo_z"])),
+        (vp_fields_sweep_z(*streams, cols["geo_z"], cols["geo_z"]),
+         vp_fields_sweep_z_plain(*streams, cols["geo_z"], cols["geo_z"])),
         (vp_fields_cyclic_phi(*streams, cols["geo_p"]),
          vp_fields_cyclic_phi_plain(*streams, cols["geo_p"])),
     ]
@@ -793,8 +794,8 @@ def test_cyl_varprop_step_on_card(scheme, launches):
                          ids=["f64", "f32"])
 def test_general_route_kernels_match_plain_on_card(dtype):
     """K7's x entry, K19 and K20 (the corrected-BC route) and K21/K22 (the
-    field solves) against their plain versions: K20, K21 and K22 bitwise,
-    K7x and K19 (lines split across threads) within 8 float32 ulp of the
+    field solves) against their plain versions: K20 and K22 bitwise, K7x,
+    K19 and K21 (lines split across threads) within 8 float32 ulp of the
     output's scale, 1e-12 of it at float64."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
@@ -818,8 +819,8 @@ def test_general_route_kernels_match_plain_on_card(dtype):
     b = 1.0 + 2.0 * cast(rng.random(shape)) - a - c
     rows = (R, 7e4, 70.0, TINF)
     reset_launch_counts()
-    # K7x and K19 split each line (8 float32 ulp of the output's scale,
-    # 1e-12 of it at float64)
+    # K7x, K19 and K21 split each line (8 float32 ulp of the output's
+    # scale, 1e-12 of it at float64)
     split = [
         (varprop_sweep_x(R, code0, fc[0], w, *rows[1:], h=h),
          varprop_sweep_x_plain(R, code0, fc[0], w, *rows[1:], h=h)),
@@ -827,6 +828,8 @@ def test_general_route_kernels_match_plain_on_card(dtype):
          varprop_sweep_z_plain(R, code2, fc[2], w, *rows[1:], h=h)),
         (varprop_sweep_z(R, code2, fc[2], w, *rows[1:], rob_c=30.0),
          varprop_sweep_z_plain(R, code2, fc[2], w, *rows[1:], rob_c=30.0)),
+        *((tridiag_fields(a, b, c, R, ax),
+           tridiag_fields_plain(a, b, c, R, ax)) for ax in range(3)),
     ]
     pairs = [
         (varprop_theta_rhs(T, *fc, w, m8, 0.0175, INV),
@@ -834,8 +837,6 @@ def test_general_route_kernels_match_plain_on_card(dtype):
         (varprop_theta_rhs(T, *fc, w, m8, 0.0175, INV, src=src, dt=DT),
          varprop_theta_rhs_plain(T, *fc, w, m8, 0.0175, INV, src=src,
                                  dt=DT)),
-        *((tridiag_fields(a, b, c, R, ax),
-           tridiag_fields_plain(a, b, c, R, ax)) for ax in range(3)),
         (cyclic_fields(a, b, c, R, 1), cyclic_fields_plain(a, b, c, R, 1)),
     ]
     torch.cuda.synchronize()
@@ -848,6 +849,84 @@ def test_general_route_kernels_match_plain_on_card(dtype):
         assert got.is_cuda and got.dtype == dtype
         assert torch.equal(got, want)
     assert launch_counts() == _counts(K7x=1, K19=2, K20=2, K21=3, K22=1)
+
+
+# K21 and K17 on lines past their staging and their kept rows (8192 rows
+# along each axis), on odd lines and on lines of 1-3 rows
+FIELD_SHAPES = ((8192, 3, 37), (3, 8192, 37), (2, 37, 8192), (700, 5, 33),
+                (5, 33, 700), (3, 7, 5000), (1, 9, 40), (2, 9, 40),
+                (3, 9, 3), (9, 40, 1), (9, 40, 2))
+
+
+def _field_calls(shape, dtype, seed, fo=2.0):
+    """(name, kernel, plain) of K21 along each axis (rows diagonally
+    dominant) and of K17 along r and z (natural) on ``shape``: streams of
+    the cylindrical varprop step whose coupling dw*glo*fhi is ~``fo``."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(seed)
+    cast = (lambda a: torch.from_numpy(a).to(dev, dtype))
+    a, c = -cast(rng.random(shape)), -cast(rng.random(shape))
+    b = 1.0 + 2.0 * cast(rng.random(shape)) - a - c
+    d = cast(20.0 + 1480.0 * rng.random(shape))
+    fhi = cast(54.0 * (1.0 + 3.0 * rng.random(shape))
+               * (rng.random(shape) > 0.1))
+    dw = cast(fo / 216.0 / 4e6 * (0.5 + rng.random(shape)))
+    sink = cast(3e3 * rng.random(shape) * (rng.random(shape) > 0.7))
+    streams = (d, fhi, dw, sink, sink * 20.0)
+    geo = (lambda n: cast(4e6 * (1.0 + 0.1 * rng.random(n))))
+    gr, gz = (geo(shape[0]), geo(shape[0])), (geo(shape[2]), geo(shape[2]))
+    return [*((f"K21 axis {ax}", lambda ax=ax: tridiag_fields(a, b, c, d, ax),
+               lambda ax=ax: tridiag_fields_plain(a, b, c, d, ax))
+              for ax in range(3)),
+            ("K17 r", lambda: vp_fields_sweep_strided(*streams, *gr),
+             lambda: vp_fields_sweep_strided_plain(*streams, *gr)),
+            ("K17 z", lambda: vp_fields_sweep_z(*streams, *gz),
+             lambda: vp_fields_sweep_z_plain(*streams, *gz))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float64, 1e-12),
+                                       (torch.float32, 8 * 2.0 ** -23)],
+                         ids=["f64", "f32"])
+def test_field_sweeps_on_long_and_short_lines_on_card(dtype, rel):
+    """K21 (each axis) and K17 (r, natural z) against their plain versions
+    on 8192-row lines, odd lines and lines of 1-3 rows, within ``rel`` of
+    the output's scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    reset_launch_counts()
+    for i, shape in enumerate(FIELD_SHAPES):
+        for name, kern, plain in _field_calls(shape, dtype, 90 + i):
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            assert got.is_cuda and got.dtype == dtype
+            scale = max(1.0, float(want.abs().max()))
+            assert float((got - want).abs().max()) <= rel * scale, \
+                (name, shape)
+    n = len(FIELD_SHAPES)
+    assert launch_counts() == _counts(K17=2 * n, K21=3 * n)
+
+
+@pytest.mark.cuda
+def test_field_sweeps_take_no_field_sized_scratch_on_card():
+    """K21 and K17 solve each line on chip: one call raises the
+    allocator's peak by its output alone, under two fields (their first
+    versions took a c'/d' scratch field beside the output)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for _, kern, _ in _field_calls((128, 96, 160), torch.float32, 89):
+        out = kern()                          # builds and loads the library
+        torch.cuda.synchronize()
+        del out
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        out = kern()
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated(dev) - base
+        field = out.numel() * out.element_size()
+        assert field <= rise < 2 * field, (rise, field)
+        del out
 
 
 @pytest.mark.cuda

@@ -350,7 +350,8 @@ class _Calls:
     def __init__(self, monkeypatch):
         self.names = []
         for name in ("vp2_sweep_strided", "vp2_cyclic_phi", "vp2_sweep_z",
-                     "vp_fields_sweep_strided", "vp_fields_cyclic_phi"):
+                     "vp_fields_sweep_strided", "vp_fields_cyclic_phi",
+                     "vp_fields_sweep_z"):
             fn = getattr(pcvp, name)
             monkeypatch.setattr(pcvp, name, self._wrap(name, fn))
 
@@ -366,9 +367,9 @@ class _Calls:
      ["vp2_sweep_strided", "vp2_cyclic_phi", "vp2_sweep_z"]),
     ("annular-mask-source-rad", "douglas",
      ["vp_fields_sweep_strided", "vp_fields_cyclic_phi",
-      "vp_fields_sweep_strided"]),
+      "vp_fields_sweep_z"]),
     ("callable", "be", ["vp_fields_sweep_strided", "vp_fields_cyclic_phi",
-                        "vp_fields_sweep_strided"]),
+                        "vp_fields_sweep_z"]),
     ("nphi1", "be", ["vp2_sweep_strided", "vp2_sweep_z"])],
     ids=["be-tables", "douglas", "be-callable", "nphi1"])
 def test_step_routes_to_its_kernels(config, scheme, route, monkeypatch):
