@@ -65,7 +65,9 @@ hand for the H100 (csrc/):
 * K25 ``solvers.gstreams.gstream_sweep_y`` and K26
   ``solvers.gstreams.gstream_sweep_z`` — its y and z sweeps.
 
-K1-K4 and K23-K26 take bfloat16 states (``solvers.rounding``).
+K1-K4 and K23-K26 take bfloat16 states (``solvers.rounding``).  The
+periodic sweeps K11, K16, K18 and K22 share one split-line kernel
+(csrc/split_cyclic.cuh), each with its own row former.
 
 Each kernel wrapper runs its plain PyTorch version on CPU tensors and the
 kernel on CUDA tensors (built from csrc/*.cu at first use).

@@ -124,7 +124,9 @@ __device__ __forceinline__ T sm_fact(T y0, T z0, T yn, T zn, T beta,
 // One forward step of cyclic_thomas's double solve, one rounding each: the
 // state (c', y', z') after row i from that after row i - 1.  Rows 0 and
 // n-1 take the wrap couplings out (beta, gamma set at row 0), and B y = d
-// and B z = u (u = gamma e_0 + alpha e_{n-1}) run together.
+// and B z = u (u = gamma e_0 + alpha e_{n-1}) run together.  The
+// Thomas-order replays of csrc/split_cyclic.cuh (K11, K16, K18, K22) run it
+// and sm_fact: their plain versions bit for bit.
 template <typename T>
 struct ThomasStep {
   T cp = T(0), dy = T(0), dz = T(0);
@@ -150,57 +152,6 @@ struct ThomasStep {
     dy = div(sub(d, mul(a, dy)), denom);
     dz = div(sub(u, mul(a, dz)), denom);
   }
-};
-
-// The Sherman-Morrison double solve of one periodic tridiagonal pencil
-// (K18, K22; K11's and K16's Thomas-order replay, csrc/split_cyclic.cuh,
-// runs the same ThomasStep and sm_fact).  The caller forms row i's (a, b,
-// c, d) and hands it to row(): c' goes to cpbuf, y' to out, z' to zbuf, at
-// the row's offset.  finish() runs both back substitutions along the
-// pencil and writes x = y - fact z into out.
-template <typename T>
-class CyclicSolve {
- public:
-  __device__ CyclicSolve(int64_t n, T* out, T* cpbuf, T* zbuf)
-      : n_(n), out_(out), cpbuf_(cpbuf), zbuf_(zbuf) {}
-
-  __device__ __forceinline__ void row(int64_t i, int64_t off, T a, T b, T c,
-                                      T d) {
-    s_.row(i, n_, a, b, c, d, beta_, gamma_);
-    cpbuf_[off] = s_.cp;
-    out_[off] = s_.dy;
-    zbuf_[off] = s_.dz;
-  }
-
-  // rows at base + i * stride; y_{n-1}, z_{n-1} kept, y_0, z_0 in the carry
-  __device__ __forceinline__ void finish(int64_t base, int64_t stride) const {
-    T y = T(0), z = T(0), yn = T(0), zn = T(0);
-    for (int64_t i = n_ - 1; i >= 0; --i) {
-      const int64_t off = base + i * stride;
-      const T cpi = cpbuf_[off];
-      y = sub(out_[off], mul(cpi, y));
-      z = sub(zbuf_[off], mul(cpi, z));
-      if (i == n_ - 1) {
-        yn = y;
-        zn = z;
-      }
-      out_[off] = y;
-      zbuf_[off] = z;
-    }
-    const T fact = sm_fact(y, z, yn, zn, beta_, gamma_);
-    for (int64_t i = 0; i < n_; ++i) {
-      const int64_t off = base + i * stride;
-      out_[off] = sub(out_[off], mul(fact, zbuf_[off]));
-    }
-  }
-
- private:
-  int64_t n_;
-  T* out_;
-  T* cpbuf_;
-  T* zbuf_;
-  ThomasStep<T> s_;
-  T gamma_ = T(-1), beta_ = T(0);
 };
 
 // Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB only

@@ -22,6 +22,7 @@
 
 #include <type_traits>
 
+#include "split_cyclic.cuh"
 #include "split_staged.cuh"
 
 namespace {
@@ -326,6 +327,89 @@ struct VpFieldRows {
           f_lo = f_hi;
         },
         row0, nv, stiff_check<kReplay>(stiff));
+  }
+};
+
+// K22's and K18's stiffness ratio (csrc/split_cyclic.cuh; the two solve the
+// same rows in the cylindrical step's `fields` and `kernels` tiers): a
+// block of 32 lines with a row past |a| + |c| > kCyclicFieldStiff *
+// (b - |a| - |c|) is solved in Thomas order, bit for bit cyclic_thomas.
+// 12: every block split, over five seeds and five time steps
+// (scripts/cyclic_tune.py on the H100, PERF.md section 6), blocks below 12 of
+// chip_smoke.py's phase 8 rows stayed within 7.3e-4 K and 4.2 float32
+// ulp of scale of the plain version (P8_TOL 1e-3 K, KERNEL_TOL_ULP 8: a
+// quarter spare), blocks of 12-16 reached 8.5e-4 K; the Douglas step's
+// own rows (theta*dw) reached 1.34e-3 K and 6.2 ulp below 12.  At float64
+// too: split, a full disk's axis rings (ratio past 1000) part by 2.7e-8 K,
+// past P8_TOL's 1e-9.
+constexpr double kCyclicFieldStiff = 12.0;
+
+// K22: the periodic rows as given, row 0's a the wrap coupling beta and
+// row n-1's c alpha.
+template <typename T>
+struct FieldCyclicRows {
+  static constexpr double kStiff = kCyclicFieldStiff;
+  static constexpr bool kChunkTest = true;
+  const T* a;
+  const T* b;
+  const T* c;
+  const T* d;
+
+  template <int M, typename F>
+  __device__ __forceinline__ void each(const CycLine& L, int64_t row0,
+                                       F&& f) const {
+#pragma unroll
+    for (int k = 0; k < M; ++k) {
+      const int64_t i = row0 + k;
+      if (i < L.n) {
+        const int64_t off = L.at(i);
+        f(k, __ldg(a + off), __ldg(b + off), __ldg(c + off), __ldg(d + off));
+      }
+    }
+  }
+};
+
+// K18: the rows of vp_fields_cyclic_phi_plain one rounding at a time from
+// the lo faces flo (row i's hi face is flo[i + 1 mod n]: a chunk reads flo
+// at rows row0 .. row0 + M, the last mod n), dw, sink, srhs and one metric
+// geo a ring (b1):
+//   al = dw*(geo*f_lo); ch = dw*(geo*f_hi); a = -al; c = -ch;
+//   b = 1 + dw*(geo*(f_lo + f_hi) + sink); d = rhs + dw*srhs
+template <typename T>
+struct VpFieldCyclicRows {
+  static constexpr double kStiff = kCyclicFieldStiff;
+  static constexpr bool kChunkTest = true;
+  const T* rhs;
+  const T* flo;
+  const T* dw;
+  const T* sink;
+  const T* srhs;
+  const T* geo;
+
+  template <int M, typename F>
+  __device__ __forceinline__ void each(const CycLine& L, int64_t row0,
+                                       F&& f) const {
+    using atf::add;
+    using atf::mul;
+    const int64_t n = L.n;
+    if (row0 >= n) return;
+    const T g = __ldg(geo + L.b1);
+    T f_lo = __ldg(flo + L.at(row0));
+#pragma unroll
+    for (int k = 0; k < M; ++k) {
+      const int64_t i = row0 + k;
+      if (i < n) {
+        const int64_t off = L.at(i);
+        const T f_hi = __ldg(flo + (i + 1 < n ? off + L.rs : L.at(0)));
+        const T w = __ldg(dw + off);
+        const T al = mul(w, mul(g, f_lo));
+        const T ch = mul(w, mul(g, f_hi));
+        const T b =
+            add(T(1), mul(w, add(mul(g, add(f_lo, f_hi)), __ldg(sink + off))));
+        f(k, -al, b, -ch, add(__ldg(rhs + off), mul(w, __ldg(srhs + off))));
+        f_lo = f_hi;
+      }
+    }
   }
 };
 

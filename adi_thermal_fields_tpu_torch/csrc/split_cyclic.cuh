@@ -1,15 +1,16 @@
-// The periodic split-line sweep of K11 and K16: a tridiagonal solve along
-// the middle axis of a (B1, n, B2) field whose rows 0 and n-1 couple
-// across the wrap (phi of the natural (r, phi, z) field).
+// The periodic split-line sweep of K11, K16, K18 and K22: a tridiagonal
+// solve along the middle axis of a (B1, n, B2) field whose rows 0 and n-1
+// couple across the wrap (phi of the natural (r, phi, z) field; K22 along
+// any axis).
 //
 // Layout: K7's, the split-line core's strided kernel (csrc/split_line.cuh)
 // with lines B2 apart: a warp's lanes are 32 lines adjacent in B2, so every
 // row's load and store is coalesced; the block's W warps split the lines'
 // chunks of M rows, warp w owning chunks [w R, (w+1) R).
 //
-// The wrap, by Sherman-Morrison in the gauge of solvers/thomas.cyclic_thomas
-// (and atf::CyclicSolve): gamma = -b_0, beta = a_0 and alpha = c_{n-1} come
-// out of the matrix, b_0 -= gamma and b_{n-1} -= alpha beta / gamma, and
+// The wrap, by Sherman-Morrison in the gauge of solvers/thomas.cyclic_thomas:
+// gamma = -b_0, beta = a_0 and alpha = c_{n-1} come out of the matrix,
+// b_0 -= gamma and b_{n-1} -= alpha beta / gamma, and
 // x = y - z (y_0 + beta y_{n-1}/gamma) / (1 + z_0 + beta z_{n-1}/gamma)
 // with B y = d and B z = u, u = gamma e_0 + alpha e_{n-1}.  The second
 // right-hand side costs the chunks nothing: u enters as couplings to two
@@ -36,10 +37,10 @@
 // second ring: past the plain versions' gates (8 ulp, 1e-3 K).  The plain
 // Thomas solve itself lies as far from the float64 solve of its rows.  So
 // a block with a row past (|a| + |c|) > kStiff * (b - |a| - |c|) (the row
-// former's rows and its constant Rows::kStiff, 12 for both, decided after
-// phase (a) with __syncthreads_or) solves its lines again in Thomas order
-// instead, atf::ThomasStep and atf::sm_fact (atf::CyclicSolve's steps, one
-// rounding each: its plain version bit for bit), with no line-length
+// former's rows and its constant Rows::kStiff, 12 for all four, decided
+// after phase (a) with __syncthreads_or) solves its lines again in Thomas
+// order instead, atf::ThomasStep and atf::sm_fact (cyclic_thomas's steps,
+// one rounding each: its plain version bit for bit), with no line-length
 // stream off chip: `replay_chain` where a thread keeps its rows on chip
 // (every warp forms its rows, the elimination passes from warp to warp),
 // else `replay` (one warp, (c', y', z') kept every S rows, each backward
@@ -61,11 +62,22 @@ struct CycLine {
   }
 };
 
-// A periodic row former (K11 `MaskedCyclicRows`, K16 `Vp2CyclicRows`):
+// A periodic row former (K11 `MaskedCyclicRows` in csrc/masked.cu, K16
+// `Vp2CyclicRows` in csrc/vp2_cyl.cu, K22 `FieldCyclicRows` and K18
+// `VpFieldCyclicRows` in csrc/field_rows.cuh):
 // `rows.template each<M>(line, row0, f)` forms the periodic rows row0 ..
 // min(row0 + M, n) - 1 of a valid line in order and calls f(k, a, b, c, d)
 // for each (row 0's a couples to x_{n-1}, row n-1's c to x_0), and
 // `Rows::kStiff` is the stiffness ratio past which a block is replayed.
+// A former with `Rows::kChunkTest` (K18, K22) has a chunk's rows tested
+// once all are formed (a test between the rows' loads holds them back,
+// as K21's did: PERF.md section 6), one without it (K11, K16) each row as
+// it is formed.
+template <typename Rows, typename = void>
+struct ChunkTested : std::false_type {};
+template <typename Rows>
+struct ChunkTested<Rows, std::void_t<decltype(Rows::kChunkTest)>>
+    : std::bool_constant<Rows::kChunkTest> {};
 
 // Phase (a) of one chunk of a periodic line: the rows, the wrap moved out
 // (beta, gamma from row 0; row 0 is formed first where the chunk holds it,
@@ -93,9 +105,18 @@ __device__ __forceinline__ void load_cyclic(Chunk<C, M, false, true>& ch,
       b[k] = bb;
       ch.c[k] = c;
       ch.d[k] = d;
-      const C off = fabs(a) + fabs(c);
-      stiff = stiff || off > C(Rows::kStiff) * (bb - off);
+      if constexpr (!ChunkTested<Rows>::value) {
+        const C off = fabs(a) + fabs(c);
+        stiff = stiff || off > C(Rows::kStiff) * (bb - off);
+      }
     });
+    if constexpr (ChunkTested<Rows>::value) {     // the whole chunk's rows
+#pragma unroll
+      for (int k = 0; k < M; ++k) {
+        const C off = fabs(ch.a[k]) + fabs(ch.c[k]);
+        stiff |= row0 + k < n && off > C(Rows::kStiff) * (b[k] - off);
+      }
+    }
   }
 #pragma unroll
   for (int k = 0; k < M; ++k) {

@@ -23,61 +23,30 @@
 //   K18: al = dw*(geo*flo); ch = dw*(geo*fhi); a = -al; c = -ch;
 //        b = 1 + dw*(geo*(flo + fhi) + sink); d = rhs + dw*srhs
 // one IEEE rounding per operation in the plain version's order, so the
-// rows equal the plain versions' (solvers/vpfields.py) bit for bit.
-//   K17 solves them on the split-line core (`VpFieldRows`,
-//        csrc/field_rows.cuh; csrc/sweeps.cu explains the method): r on
-//        the core's strided kernel (K7's layout), z on the staged kernel of
-//        csrc/split_staged.cuh (K19's layout: five streams staged with
-//        cp.async, a warp a line; lines past their staging on the strided
-//        kernel along z; glo and ghi staged once a block).  The split
-//        solve is not Thomas order and takes the hardware reciprocal at
-//        float32 (divisions at float64): a few float32 ulp of the output's
-//        scale from the plain version; at float32 stiff blocks are solved
-//        again in Thomas order, as K21's (csrc/field_rows.cuh).
-//   K18 repeats cyclic_thomas one rounding at a time (atf::CyclicSolve,
-//        shared with K22), bit for bit its plain version.
+// rows equal the plain versions' (solvers/vpfields.py) bit for bit; the
+// row formers are in csrc/field_rows.cuh (`VpFieldRows`,
+// `VpFieldCyclicRows`).  Both solve them split across threads, so neither
+// is Thomas order: a few float32 ulp of the output's scale from the plain
+// versions, and at float32 the lines of a block with a row past the
+// former's stiffness ratio are solved again in Thomas order, bit for bit.
+//   K17 on the split-line core (csrc/split_line.cuh; csrc/sweeps.cu
+//        explains the method): r on the core's strided kernel (K7's
+//        layout), z on the staged kernel of csrc/split_staged.cuh (K19's
+//        layout: five streams staged with cp.async, a warp a line; lines
+//        past their staging on the strided kernel along z; glo and ghi
+//        staged once a block); the hardware reciprocal at float32,
+//        divisions at float64; stiff past kOpenStiff.
+//   K18 on the periodic split-line kernel of csrc/split_cyclic.cuh (K11's
+//        and K16's: K7's layout, Sherman-Morrison's second right-hand side
+//        in the reduced system only, rounded divisions); stiff past
+//        kCyclicFieldStiff, shared with K22.
 //
 // What bounds them on the H100: memory.  The byte model (float32) reads
-// five streams (20) and writes x (4): 24 B/cell.
-//   K17: nothing else below its shared-memory lengths.
-//   K18: one thread per (r, z) pencil, coalesced over z; c', y and z of the
-//        double solve in global memory.
+// five streams (20) and writes x (4): 24 B/cell, and neither moves anything
+// else below its shared-memory lengths (K17's z one flag byte a line).
 #include "field_rows.cuh"
 
 namespace {
-
-using atf::add;
-using atf::mul;
-
-template <typename T>
-__global__ void __launch_bounds__(128) vp_fields_cyclic_phi_kernel(
-    const T* __restrict__ rhs, const T* __restrict__ flo,
-    const T* __restrict__ dw, const T* __restrict__ sink,
-    const T* __restrict__ srhs, const T* __restrict__ geo,
-    T* __restrict__ out, T* __restrict__ cpbuf, T* __restrict__ zbuf,
-    int64_t B1, int64_t n, int64_t B2) {
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= B1 * B2) return;
-  const int64_t b1 = p / B2;
-  const int64_t base = b1 * n * B2 + (p - b1 * B2);
-  const T g = __ldg(geo + b1);
-
-  const T f_first = flo[base];
-  T f_next = f_first;
-  atf::CyclicSolve<T> solve(n, out, cpbuf, zbuf);
-  for (int64_t i = 0; i < n; ++i) {
-    const int64_t off = base + i * B2;
-    const T f_lo = f_next;
-    f_next = (i + 1 < n) ? flo[off + B2] : f_first;
-    const T f_hi = f_next;
-    const T w = dw[off];
-    const T al = mul(w, mul(g, f_lo));
-    const T ch = mul(w, mul(g, f_hi));
-    const T b = add(T(1), mul(w, add(mul(g, add(f_lo, f_hi)), sink[off])));
-    solve.row(i, off, -al, b, -ch, add(rhs[off], mul(w, srhs[off])));
-  }
-  solve.finish(base, B2);
-}
 
 template <typename T>
 VpFieldRows<T> vp_field_rows(const void* rhs, const void* fhi,
@@ -89,23 +58,6 @@ VpFieldRows<T> vp_field_rows(const void* rhs, const void* fhi,
       {static_cast<const T*>(fhi), static_cast<const T*>(dw),
        static_cast<const T*>(sink), static_cast<const T*>(srhs)},
       static_cast<const T*>(glo), static_cast<const T*>(ghi)};
-}
-
-template <typename T>
-void launch_vp_fields_cyclic_phi(const void* rhs, const void* flo,
-                                 const void* dw, const void* sink,
-                                 const void* srhs, const void* geo, void* out,
-                                 void* cpbuf, void* zbuf, int64_t B1,
-                                 int64_t n, int64_t B2,
-                                 cudaStream_t stream) {
-  const int threads = 128;
-  const int64_t blocks = atf::cdiv(B1 * B2, threads);
-  vp_fields_cyclic_phi_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const T*>(rhs), static_cast<const T*>(flo),
-      static_cast<const T*>(dw), static_cast<const T*>(sink),
-      static_cast<const T*>(srhs), static_cast<const T*>(geo),
-      static_cast<T*>(out), static_cast<T*>(cpbuf), static_cast<T*>(zbuf),
-      B1, n, B2);
 }
 
 }  // namespace
@@ -140,11 +92,17 @@ ATF_API int atf_vp_fields_sweep_z(int dtype, int device, const void* rhs,
 ATF_API int atf_vp_fields_cyclic_phi(int dtype, int device, const void* rhs,
                                      const void* flo, const void* dw,
                                      const void* sink, const void* srhs,
-                                     const void* geo, void* out, void* cpbuf,
-                                     void* zbuf, int64_t B1, int64_t n,
-                                     int64_t B2, void* stream) {
+                                     const void* geo, void* out, int64_t B1,
+                                     int64_t n, int64_t B2, void* stream) {
+  if (n < 2) return (int)cudaErrorInvalidValue;
   ATF_DISPATCH(dtype, device,
-               launch_vp_fields_cyclic_phi<T>(rhs, flo, dw, sink, srhs, geo,
-                                              out, cpbuf, zbuf, B1, n, B2,
-                                              (cudaStream_t)stream));
+               ATF_RETURN_IF((launch_split_cyclic<T>(
+                   VpFieldCyclicRows<T>{static_cast<const T*>(rhs),
+                                        static_cast<const T*>(flo),
+                                        static_cast<const T*>(dw),
+                                        static_cast<const T*>(sink),
+                                        static_cast<const T*>(srhs),
+                                        static_cast<const T*>(geo)},
+                   static_cast<T*>(out), B1, n, B2, device,
+                   (cudaStream_t)stream))));
 }

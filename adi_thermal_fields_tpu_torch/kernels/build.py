@@ -53,7 +53,7 @@ _SIGNATURES = {
     "atf_tridiag_fields_strided": ([_I, _I, *[_P] * 5, _I64, _I64, _I64, _P],
                                    _I),
     "atf_tridiag_fields_z": ([_I, _I, *[_P] * 6, _I64, _I64, _P], _I),
-    "atf_cyclic_fields": ([_I, _I, *[_P] * 7, _I64, _I64, _I64, _P], _I),
+    "atf_cyclic_fields": ([_I, _I, *[_P] * 5, _I64, _I64, _I64, _P], _I),
     "atf_vp2_sweep_z": ([_I, _I, *[_P] * 4, _I64, _I64, _DP, _I, _DP, _I,
                          *[_D] * 8, _I, _P], _I),
     "atf_sweep_strided": ([_I, _I, *[_P] * 6, _I64, _I64, _I64, *[_D] * 4,
@@ -90,7 +90,7 @@ _SIGNATURES = {
     "atf_vp_fields_sweep_strided": ([_I, _I, *[_P] * 8, _I64, _I64, _I64,
                                      _P], _I),
     "atf_vp_fields_sweep_z": ([_I, _I, *[_P] * 9, _I64, _I64, _P], _I),
-    "atf_vp_fields_cyclic_phi": ([_I, _I, *[_P] * 9, _I64, _I64, _I64, _P],
+    "atf_vp_fields_cyclic_phi": ([_I, _I, *[_P] * 7, _I64, _I64, _I64, _P],
                                  _I),
     "atf_error_string": ([_I], ctypes.c_char_p),
 }

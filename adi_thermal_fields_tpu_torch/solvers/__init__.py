@@ -24,6 +24,8 @@ Cylindrical variable-property step: K15 ``vp2_sweep_strided``, K16
 ``vp2_cyclic_phi`` and K8's general form (vp2.py), K17
 ``vp_fields_sweep_strided`` (with its z entry ``vp_fields_sweep_z``) and
 K18 ``vp_fields_cyclic_phi`` (vpfields.py).
+K11, K16, K18 and K22 run one periodic split-line kernel
+(csrc/split_cyclic.cuh) with their own row formers.
 Each wrapper counts its CUDA launches in a ``launches`` attribute; K1-K4
 count their bfloat16 entries apart, in ``<wrapper>.bf16.launches``
 ("K1b"-"K4b"), and K1 its v1 entry in ``sweep_strided.v1.launches``;

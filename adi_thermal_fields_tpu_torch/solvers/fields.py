@@ -16,12 +16,17 @@ staged entry for the contiguous last axis, both on the split-line core
 cyclic reduction, no c'/d' scratch; the hardware reciprocal at float32,
 divisions at float64), within a few float32 ulp of the output's scale of
 its plain version (at float32 a block of lines with a row past the
-stiffness ratio of ``csrc/field_rows.cuh`` is solved again in Thomas
-order, bit for bit); K22 runs the periodic solve along any axis of a (B1,
-n, B2) view, repeating its plain version one IEEE rounding at a time.
-Plain versions: ``thomas`` and ``cyclic_thomas`` (``a[0]`` and
-``c[n-1]`` ignored by the open solve; the wrap couplings of the periodic
-one).
+stiffness ratio ``kOpenStiff`` of ``csrc/field_rows.cuh`` is solved again
+in Thomas order, bit for bit); K22 runs the periodic solve along any axis
+of a (B1, n, B2) view on the periodic split-line kernel
+(``csrc/split_cyclic.cuh``: Sherman-Morrison's second right-hand side in
+the reduced system only, rounded divisions, no c'/y/z scratch), as near
+its plain version (at float32 a block of lines with a row past
+``kCyclicFieldStiff`` is solved again in Thomas order, bit for bit; lines
+on which that replay does not fit in shared memory, past ~91,000 rows at
+float32 and ~22,000 at float64, are refused).  Plain versions:
+``thomas`` and ``cyclic_thomas`` (``a[0]`` and ``c[n-1]`` ignored by the
+open solve; the wrap couplings of the periodic one).
 """
 from __future__ import annotations
 
@@ -116,7 +121,8 @@ def cyclic_fields(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     """K22: the periodic solve along ``axis`` (length >= 2) of C-contiguous
     coefficient fields: row 0 couples to the last row by ``a[0]`` and the
     last row to row 0 by ``c[n-1]`` (``cyclic_thomas``, gauge
-    ``-b[0]``)."""
+    ``-b[0]``).  The last axis (B2 = 1) is solved too, with one line of
+    each warp's 32 busy."""
     if d.shape[axis] < 2:
         raise ValueError("cyclic_fields solves periodic lines of length "
                          f">= 2, got {d.shape[axis]} along axis {axis}")
@@ -125,12 +131,10 @@ def cyclic_fields(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     name = "cyclic_fields"
     _check(name, d, axis, a, b, c)
     out = torch.empty_like(d)
-    cpbuf = torch.empty_like(d)
-    zbuf = torch.empty_like(d)
     B1, n, B2 = _view3(tuple(d.shape), axis)
     err = load_library().atf_cyclic_fields(
         dtype_code(d.dtype), d.device.index, ptr(a), ptr(b), ptr(c), ptr(d),
-        ptr(out), ptr(cpbuf), ptr(zbuf), B1, n, B2, stream_ptr(d.device))
+        ptr(out), B1, n, B2, stream_ptr(d.device))
     raise_on_error(err, name)
     cyclic_fields.launches += 1
     return out

@@ -34,13 +34,16 @@ solved by Sherman-Morrison (``cyclic_thomas``).  All-zero lines (a full
 disk's axis ring, void lines) are identities.  The plain versions build
 the rows with one tensor op per operation and solve them with ``thomas`` /
 ``cyclic_thomas``; the kernels form the same rows one IEEE rounding at a
-time, bit for bit.  K18 repeats ``cyclic_thomas`` so too; K17 solves its
-rows on the split-line core (``csrc/split_line.cuh``: chunks in
-registers, the reduced system by cyclic reduction, no c'/d' scratch; the
-hardware reciprocal at float32, divisions at float64), within a few
-float32 ulp of the output's scale of its plain version (at float32 a
-block of lines with a row past the stiffness ratio of
-``csrc/field_rows.cuh`` is solved again in Thomas order, bit for bit).
+time, bit for bit.  K17 solves its rows on the split-line core
+(``csrc/split_line.cuh``: chunks in registers, the reduced system by
+cyclic reduction, no c'/d' scratch; the hardware reciprocal at float32,
+divisions at float64), K18 on its periodic kernel
+(``csrc/split_cyclic.cuh``: Sherman-Morrison's second right-hand side in
+the reduced system only, rounded divisions, no c'/y/z scratch); each
+within a few float32 ulp of the output's scale of its plain version (at
+float32 a block of lines with a row past the stiffness ratio of
+``csrc/field_rows.cuh``, ``kOpenStiff`` or ``kCyclicFieldStiff``, is
+solved again in Thomas order, bit for bit).
 """
 from __future__ import annotations
 
@@ -174,12 +177,10 @@ def vp_fields_cyclic_phi(rhs: torch.Tensor, flo: torch.Tensor,
     B1, n, B2 = rhs.shape
     check_vectors(name, rhs, B1, geo)
     out = torch.empty_like(rhs)
-    cpbuf = torch.empty_like(rhs)
-    zbuf = torch.empty_like(rhs)
     err = load_library().atf_vp_fields_cyclic_phi(
         dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(flo), ptr(dw),
-        ptr(sink), ptr(srhs), ptr(geo), ptr(out), ptr(cpbuf), ptr(zbuf), B1,
-        n, B2, stream_ptr(rhs.device))
+        ptr(sink), ptr(srhs), ptr(geo), ptr(out), B1, n, B2,
+        stream_ptr(rhs.device))
     raise_on_error(err, name)
     vp_fields_cyclic_phi.launches += 1
     return out

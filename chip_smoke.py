@@ -109,15 +109,17 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    r_inner 20 mm, 0.5 mm cells, the lower half and a partial layer
    deposited) at float32 and on a (37, 203, 131) full disk with a random
    mask and a Dirichlet bottom at float32 and float64, T across 1400-1500
-   C with cells exactly at the solidus and liquidus, and K16 also on
-   CYCLIC_SHAPES at float32 (lines of 3 rows also float64); max |delta|
-   (gates P8_TOL; K17, whose lines are split across threads, also within
+   C with cells exactly at the solidus and liquidus, and K22 on K18's
+   rows (the fields tier's); K16, K18 and K22 also on CYCLIC_SHAPES at
+   float32 (lines of 3 rows also float64); max |delta| (gates P8_TOL;
+   K17, K18 and K22, whose lines are split across threads, also within
    KERNEL_TOL_ULP float32 ulp of the output's scale, KERNEL_TOL_F64 of it
    at float64), kernel and plain ms, % of 3.35 TB/s under each byte
-   model.  K17 r and z and K21 on the same rows (the fields tier's) also
-   on the tube at 10x the step's dt (every block past kOpenStiff: Thomas
-   order) and K17 on 8192-row lines (8192x64x64 r, 64x64x8192 z), within
-   KERNEL_TOL_ULP.
+   model.  K17 r and z and K21 on the same rows, K18 and K22 on its rows
+   (the fields tier's), also on the tube at 10x the step's dt (blocks
+   past kOpenStiff or kCyclicFieldStiff: Thomas order) and K17 on
+   8192-row lines (8192x64x64 r, 64x64x8192 z), within KERNEL_TOL_ULP
+   (K18 also P8_TOL).
    Its step part: bench.py's cyl_varprop configuration at (64, 512, 1024)
    float32 (melt_pool_enhanced_k(54, 1420, 1470, 4), apparent_cp(490,
    490, 2.7e5, 1420, 1470), emissivity 0.5, h 300 outside, 50 inside, 400
@@ -139,8 +141,8 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    z entries) and K22 (phi, cyclic) against their plain versions at 384^3
    (the WAAM mask) float32 and on 97x203x131 (a random mask) at float32
    and float64, and K21 on 8192-row lines along x, y and z (8192x64x64,
-   64x8192x64, 64x64x8192): K20 and K22 bitwise equal (each repeats its
-   plain version one rounding at a time), K7x, K19 and K21 (lines split
+   64x8192x64, 64x64x8192): K20 bitwise equal (it repeats its plain
+   version one rounding at a time), K7x, K19, K21 and K22 (lines split
    across threads) within KERNEL_TOL_ULP float32 ulp of the output's
    scale, KERNEL_TOL_F64 of it at float64; kernel and plain ms, % of 3.35
    TB/s under each byte model.
@@ -374,8 +376,8 @@ CYL_VP_KERNELS = ("K8", "K15", "K16", "K17", "K18")
 # K5-K7)
 GENERAL_KERNELS = ("K7x", "K19", "K20", "K21", "K22")
 # of those, the ones on the split-line core (not bitwise with their plain
-# versions; K20 and K22 are)
-SPLIT_GENERAL = ("K7x", "K19", "K21")
+# versions; K20 is)
+SPLIT_GENERAL = ("K7x", "K19", "K21", "K22")
 P9_ALSO = CONST_KERNELS + ("K5", "K6", "K7")
 # phase 10: the bfloat16 entries and the g-stream tier, and the kernels
 # its float32 comparisons share with earlier phases
@@ -391,9 +393,9 @@ P11_ALSO = ("K5", "K6", "K7", "K8", "K19")
 CYL_SHAPES = (("64x512x1024 tube", (64, 512, 1024)),
               ("37x203x131 disk", (37, 203, 131)))
 CYL_DT = 0.02
-# K11's and K16's further lines (phases 6 and 8): (label, shape, dr,
-# r_inner): the spiral app's ring (720 rows: past the kept rows, formed
-# again), 4096-row lines (16-row chunks, the reduced rows in global
+# K11's, K16's, K18's and K22's further lines (phases 6 and 8): (label,
+# shape, dr, r_inner): the spiral app's ring (720 rows: past the kept rows,
+# formed again), 4096-row lines (16-row chunks, the reduced rows in global
 # memory) on a 1 m annulus (mild rings: the split solve) and on a 20 mm one
 # (stiff rings: the Thomas-order replay), and lines of 2 and 3 rows on full
 # disks
@@ -1136,30 +1138,39 @@ def phase2_cyl(torch, dev):
     return rows
 
 
-def kernel_row(torch, kname, vname, where, ins, kern, plain, tol_k=None):
-    """A kernel against its plain version on one input: within tol_k K, or
-    without it KERNEL_TOL_ULP float32 ulp of the output's scale; its
-    summary row (each input read once, the output written once)."""
+def kernel_row(torch, kname, vname, where, ins, kern, plain, tol_k=None,
+               scale_too=False):
+    """A kernel against its plain version on one input: within tol_k K
+    (and, where scale_too, the scale's gate too), or without it within
+    KERNEL_TOL_ULP float32 ulp of the output's scale (KERNEL_TOL_F64 of
+    it at float64); its summary row (each input read once, the output
+    written once)."""
     got, want = kern(), plain()
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()),
           f"{kname} {vname} {where}: non-finite output")
     err = float((got - want).abs().max())
-    ulps = err / (torch.finfo(got.dtype).eps * float(want.abs().max()))
+    scale = float(want.abs().max())
+    ulps = err / (torch.finfo(got.dtype).eps * scale)
+    lim = (KERNEL_TOL_F64 if got.dtype == torch.float64 else
+           KERNEL_TOL_ULP * torch.finfo(torch.float32).eps) * scale
     nbytes = sum(t.numel() * t.element_size() for t in (*ins, got))
     cells = got.numel()
     ms = cuda_ms(torch, kern, 20)
     plain_ms = cuda_ms(torch, plain, 3)
     pct = 100.0 * nbytes / (ms * 1e-3) / HBM_BYTES_PER_S
-    tol = f"tol {KERNEL_TOL_ULP}" if tol_k is None else f"tol {tol_k:.0e} K"
+    gate = (f"tol {KERNEL_TOL_ULP}" if got.dtype == torch.float32 else
+            f"tol {KERNEL_TOL_F64:.0e} of scale")
+    tol = gate if tol_k is None else f"tol {tol_k:.0e} K" + (
+        f", {gate}" if scale_too else "")
     print(f"[phase 2] {kname} {vname:32s} {where:26s} max|d|={err:.3e} K "
           f"({ulps:.2f} ulp of scale, {tol})  kernel {ms:8.3f} ms  plain "
           f"{plain_ms:9.3f} ms  {pct:5.1f}% of 3.35 TB/s at "
           f"{nbytes / cells:.2f} B/cell", flush=True)
-    if tol_k is None:
-        check(ulps <= KERNEL_TOL_ULP, f"{kname} {vname} {where}: {ulps:.2f} "
-              f"float32 ulp of the output's scale > {KERNEL_TOL_ULP}")
-    else:
+    if tol_k is None or scale_too:
+        check(err <= lim, f"{kname} {vname} {where}: max|d| {err:.3e} from "
+              f"its plain version > {lim:.3e} (the scale's gate)")
+    if tol_k is not None:
         check(err <= tol_k, f"{kname} {vname} {where}: max|d| {err:.3e} K > "
               f"{tol_k:.0e} K")
     return dict(kernel=kname, variant=vname, shape=where, max_abs_err=err,
@@ -1508,6 +1519,17 @@ def k17_rows(torch, streams, glo, ghi, axis):
             rhs + dw * srhs)
 
 
+def k18_rows(torch, streams, geo):
+    """The rows K18 forms from its streams along axis 1 as a/b/c/d fields
+    (the plain version's, and the cylindrical ``fields`` tier's rows for
+    K22)."""
+    rhs, flo, dw, sink, srhs = streams
+    g3 = geo[:, None, None]
+    fhi = torch.roll(flo, -1, 1)
+    return (-(dw * (g3 * flo)), 1.0 + dw * (g3 * (flo + fhi) + sink),
+            -(dw * (g3 * fhi)), rhs + dw * srhs)
+
+
 def field_systems(torch, shape, dtype, dev, seed):
     """Diagonally dominant a/b/c fields (the rows of an implicit sweep)
     and a right-hand side over 20-1500: K21's phase 9 inputs."""
@@ -1534,9 +1556,10 @@ def line_streams(torch, shape, axis, dev, seed):
 
 def phase2_cylvp(torch, dev):
     """K15, K16, K8's general form, K17 and K18 against their plain
-    versions (float32 and float64)."""
+    versions (float32 and float64), and K22 on K18's rows."""
     import numpy as np
     from adi_thermal_fields_tpu_torch.solvers import (
+        cyclic_fields, cyclic_fields_plain,
         vp2_cyclic_phi, vp2_cyclic_phi_plain, vp2_sweep_strided,
         vp2_sweep_strided_plain, vp2_sweep_z, vp2_sweep_z_plain,
         vp_fields_cyclic_phi, vp_fields_cyclic_phi_plain,
@@ -1570,6 +1593,7 @@ def phase2_cylvp(torch, dev):
         # the stream tier's inputs, built from T as the step builds them
         sr, sz = k17_streams(torch, grid, mat, mask, T, R, P8_DT)
         sp = (R, cvp._face_phi(kt(T), mask), *sr[2:])
+        ap = k18_rows(torch, sp, cols["geo_p"])
         variants = [
             ("K15", "r", (R, T, code_r),
              lambda: vp2_sweep_strided(R, T, code_r, *rc, inv, **rk),
@@ -1600,6 +1624,9 @@ def phase2_cylvp(torch, dev):
             ("K18", "phi (cyclic)", sp,
              lambda: vp_fields_cyclic_phi(*sp, cols["geo_p"]),
              lambda: vp_fields_cyclic_phi_plain(*sp, cols["geo_p"])),
+            ("K22", "phi, fields tier rows", ap,
+             lambda: cyclic_fields(*ap, 1),
+             lambda: cyclic_fields_plain(*ap, 1)),
         ]
         cells = T.numel()
         tol = P8_TOL[prec]
@@ -1627,21 +1654,22 @@ def phase2_cylvp(torch, dev):
                   f"{nbytes / cells:.2f} B/cell", flush=True)
             check(err <= tol, f"{kname} {vname} {where}: max|d| "
                   f"{err:.3e} K > {tol:.0e} K")
-            if kname == "K17":
+            if kname in ("K17", "K18", "K22"):
                 # lines split across threads: also KERNEL_TOL_ULP float32
                 # ulp of the output's scale, KERNEL_TOL_F64 of it at
                 # float64
                 lim = (KERNEL_TOL_ULP * torch.finfo(torch.float32).eps
                        if prec == "float32" else KERNEL_TOL_F64) \
                     * float(want.abs().max())
-                check(err <= lim, f"K17 {vname} {where}: max|d| {err:.3e}"
-                      f" from its plain version > {lim:.3e}")
+                check(err <= lim, f"{kname} {vname} {where}: max|d| "
+                      f"{err:.3e} from its plain version > {lim:.3e}")
             del got, want
-        del T, R, variants, sr, sz, sp
+        del T, R, variants, sr, sz, sp, ap
         torch.cuda.empty_cache()
-    # K17 (and K21 on the same rows, the fields tier's) on the tube at 10x
-    # the step's dt (rows past kOpenStiff: Thomas order) and on 8192-row
-    # lines (the core's global reduced rows; z past its staging)
+    # K17 and K18 (and K21 and K22 on the same rows, the fields tier's) on
+    # the tube at 10x the step's dt (rows past kOpenStiff and
+    # kCyclicFieldStiff: Thomas order), K17 on 8192-row lines (the core's
+    # global reduced rows; z past its staging)
     from adi_thermal_fields_tpu_torch.solvers import (tridiag_fields,
                                                       tridiag_fields_plain)
     label, shape, _ = P8_SHAPES[0]
@@ -1665,7 +1693,17 @@ def phase2_cylvp(torch, dev):
             abcd, lambda: tridiag_fields(*abcd, axis),
             lambda: tridiag_fields_plain(*abcd, axis)))
         del abcd
-    del T, R, sr, sz, mask
+    sp = (R, cvp._face_phi(kt(T), mask), *sr[2:])
+    rows.append(kernel_row(
+        torch, "K18", "phi (cyclic)", where, sp,
+        lambda: vp_fields_cyclic_phi(*sp, cols["geo_p"]),
+        lambda: vp_fields_cyclic_phi_plain(*sp, cols["geo_p"]),
+        tol_k=P8_TOL["float32"], scale_too=True))
+    ap = k18_rows(torch, sp, cols["geo_p"])
+    rows.append(kernel_row(torch, "K22", "phi, fields tier rows", where, ap,
+                           lambda: cyclic_fields(*ap, 1),
+                           lambda: cyclic_fields_plain(*ap, 1)))
+    del T, R, sr, sz, sp, ap, mask
     torch.cuda.empty_cache()
     for vname, shape, axis, kern, plain in (
             ("r", LONG_LINES[0], 0, vp_fields_sweep_strided,
@@ -1678,7 +1716,8 @@ def phase2_cylvp(torch, dev):
             lambda: kern(*st, col, col), lambda: plain(*st, col, col)))
         del st
         torch.cuda.empty_cache()
-    # K16 alone on the further lines (float32; lines of 3 also float64)
+    # K16, K18 and K22 (on K18's rows) on the further lines (float32;
+    # lines of 3 also float64)
     for (label, shape, dr, r_inner), prec in (
             [(c, "float32") for c in CYCLIC_SHAPES]
             + [(CYCLIC_SHAPES[-1], "float64")]):
@@ -1697,7 +1736,19 @@ def phase2_cylvp(torch, dev):
             torch, "K16", "phi (cyclic)", f"{label} {prec}", (R, T, code_p),
             lambda: vp2_cyclic_phi(*args, **pk),
             lambda: vp2_cyclic_phi_plain(*args, **pk), tol_k=P8_TOL[prec]))
-        del T, R, args
+        sr, _ = k17_streams(torch, grid, mat, mask, T, R, P8_DT)
+        sp = (R, cvp._face_phi(kt(T), mask), *sr[2:])
+        rows.append(kernel_row(
+            torch, "K18", "phi (cyclic)", f"{label} {prec}", sp,
+            lambda: vp_fields_cyclic_phi(*sp, cols["geo_p"]),
+            lambda: vp_fields_cyclic_phi_plain(*sp, cols["geo_p"]),
+            tol_k=P8_TOL[prec], scale_too=True))
+        ap = k18_rows(torch, sp, cols["geo_p"])
+        rows.append(kernel_row(torch, "K22", "phi, fields tier rows",
+                               f"{label} {prec}", ap,
+                               lambda: cyclic_fields(*ap, 1),
+                               lambda: cyclic_fields_plain(*ap, 1)))
+        del T, R, args, sr, sp, ap
         torch.cuda.empty_cache()
     return rows
 
@@ -1753,7 +1804,7 @@ def phase8_app(torch, dev):
 
 def phase2_fields(torch, dev):
     """K19, K7's x entry, K20, K21 and K22 against their plain versions
-    (float32 and float64): K20 and K22 bitwise, K7x, K19 and K21 (the
+    (float32 and float64): K20 bitwise, K7x, K19, K21 and K22 (the
     split-line core) within KERNEL_TOL_ULP float32 ulp of the output's
     scale, or KERNEL_TOL_F64 of it at float64; K21 also on 8192-row
     lines."""

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""A/B of the open field sweeps K21 (a/b/c/d fields) and K17 (five
-streams) and the three steps that run them, between two checkouts of the
-PyTorch port, on one CUDA card.
+"""A/B of the field sweeps K21 and K22 (a/b/c/d fields, open and
+periodic) and K17 and K18 (five streams, open and periodic) and the three
+steps that run them, between two checkouts of the PyTorch port, on one
+CUDA card.
 
     python3 scripts/fields_rows_ab.py OTHER_CHECKOUT
 
@@ -21,6 +22,17 @@ once at 3.35 TB/s, or its operations at 67 TFLOP/s), float32 unless named:
   (z, r, phi) permutation: its row times the kernel alone on the permuted
   streams, and "K17 z permute pair" the five permutes and the result's
   permute back that its step runs around it;
+* K22 along phi (axis 1) on phase 9's systems at 384^3 and 97x203x131,
+  and at 384^3 along axis 0 and the last axis (B2 = 1: one busy lane a
+  warp on the periodic split kernel); K18 on phase 8's streams (the tube
+  at the step's dt and at 10x, the disk at float32 and float64) and K22
+  on the same rows materialized (chip_smoke.py ``k18_rows``); K18 on the
+  tube's own Douglas step rows (theta*dw) and K22 on the ``fields``
+  tier's Douglas step rows, each taken from one step at the tube's T
+  (scripts/cyclic_tune.py ``step_call_args``).  Beside each row of
+  these, the share of its blocks (one b1, 32 lines) past the
+  checkout's ``kCyclicFieldStiff`` (csrc/field_rows.cuh), which replay
+  the Thomas order (none for a checkout without it);
 * the steps in ms/step (median of STEP_REPS after STEP_WARMUP) with their
   device time per kernel and its sum (busy ms) from torch.profiler over
   three steps (scripts/sweep_rows_ab.py ``profile_steps``) and the idle
@@ -28,7 +40,10 @@ once at 3.35 TB/s, or its operations at 67 TFLOP/s), float32 unless named:
   varprop Douglas step (phase 8: K17 r and z, K18), the 384^3
   Neumann/Dirichlet varprop step (phase 9: K21 x3) and the cylindrical
   ``fields`` tier's backward Euler and Douglas steps at the tube (phase
-  9: K21 r and z, K22).
+  9: K21 r and z, K22);
+* the wall time of chip_smoke.py phase 8's spiral-app print with
+  ``--scheme douglas`` at float32 (K17 and K18 on every step; the
+  library built before it).
 """
 import importlib.util
 import json
@@ -127,6 +142,72 @@ def k17_rows(torch, cs, dev, out, natural_z):
         torch.cuda.empty_cache()
 
 
+def cyclic_field_rows(torch, cs, dev, out, root):
+    """K22 and K18 on phase 9's systems, phase 8's streams and the steps'
+    own phi rows, with the share of blocks past the checkout's ratio."""
+    from cyclic_tune import (block_max, douglas_phi_args, phase8_step_kw,
+                             step_call_args, stiff_ratio)
+    from adi_thermal_fields_tpu_torch.solvers import (cyclic_fields,
+                                                      vp_fields_cyclic_phi)
+    from adi_thermal_fields_tpu_torch.step import cylindrical_varprop as cvp
+    ratio = stiff_ratio(root)
+
+    def share(name, rows):
+        a, b, c, _ = rows
+        if ratio is None:
+            return
+        off = a.abs() + c.abs()
+        past = block_max((off / (b - off)).double()) > ratio
+        out[f"{name} replayed_share"] = float(past.double().mean())
+
+    for label, shape, prec in cs.P9_SHAPES[:2]:
+        abcd = cs.field_systems(torch, shape, getattr(torch, prec), dev, 5)
+        axes = (1, 0, 2) if shape[0] == cs.P9_N else (1,)
+        for ax in axes:
+            row(torch, cs, out, "K22", f"{label} {prec} axis {ax}", abcd,
+                lambda ax=ax: cyclic_fields(*abcd, ax))
+        del abcd
+        torch.cuda.empty_cache()
+    cases = [(label, shape, prec, 1.0) for label, shape, prec in cs.P8_SHAPES]
+    cases.insert(1, (cs.P8_SHAPES[0][0], cs.P8_SHAPES[0][1], "float32",
+                     10.0))
+    kt, _ = cs.varprop_tables()
+    for label, shape, prec, dtm in cases:
+        dtype = getattr(torch, prec)
+        grid, mat, mask, zbc, T = cs.cylvp_case(torch, label, shape, dtype,
+                                                dev)
+        R = cs.random_field(torch, mask, seed=43).to(dtype)
+        cols = cvp._vp2_columns(grid, zbc, dtype, dev)
+        sr, _ = cs.k17_streams(torch, grid, mat, mask, T, R, cs.P8_DT * dtm)
+        sp = (R, cvp._face_phi(kt(T), mask), *sr[2:])
+        ap = cs.k18_rows(torch, sp, cols["geo_p"])
+        name = f"{label} {prec}" + (f" {dtm:g}x dt" if dtm != 1.0 else "")
+        row(torch, cs, out, "K18", name, sp,
+            lambda: vp_fields_cyclic_phi(*sp, cols["geo_p"]))
+        share(f"K18 {name}", ap)
+        row(torch, cs, out, "K22", f"{name}, K18's rows", ap,
+            lambda: cyclic_fields(*ap, 1))
+        share(f"K22 {name}, K18's rows", ap)
+        if label.endswith("tube") and dtm == 1.0:
+            kw = phase8_step_kw(cs, mask, zbc, cs.P8_DT)
+            plan = cvp.build_cyl_vp2_plan(mask, grid, zbc)
+            dp = douglas_phi_args(cs, cvp, grid, mat, T, kw, plan)
+            name = f"{label} Douglas step rows"
+            row(torch, cs, out, "K18", name, dp[:5],
+                lambda: vp_fields_cyclic_phi(*dp))
+            share(f"K18 {name}", cs.k18_rows(torch, dp[:5], dp[5]))
+            fp = step_call_args(cvp, "cyclic_fields", lambda: (
+                cvp.adi_step_cyl_varprop(T, grid, mat, scheme="douglas",
+                                         implementation="fields", **kw)))
+            name = f"{label} fields tier Douglas step rows"
+            row(torch, cs, out, "K22", name, fp[:4],
+                lambda: cyclic_fields(*fp))
+            share(f"K22 {name}", fp[:4])
+            del dp, fp
+        del T, R, sr, sp, ap, mask
+        torch.cuda.empty_cache()
+
+
 def timed_step(torch, out, name, step, T0):
     """CUDA-event ms/step (median of STEP_REPS after STEP_WARMUP) and the
     profile of ``step``."""
@@ -189,6 +270,21 @@ def step_rows(torch, cs, dev, out):
     torch.cuda.empty_cache()
 
 
+def app_row(torch, cs, dev, out):
+    """Wall seconds of phase 8's spiral app with --scheme douglas."""
+    import time
+    from adi_thermal_fields_tpu_torch.apps import spiral_tube as app
+    args = app.build_argparser().parse_args(
+        cs.P6_APP + cs.P8_APP_FLAGS + ["--scheme", "douglas", "--device",
+                                       str(dev), "--implementation",
+                                       "kernels"])
+    t0 = time.perf_counter()
+    res = app.run(args)
+    torch.cuda.synchronize()
+    out["spiral app douglas print wall_s"] = time.perf_counter() - t0
+    out["spiral app douglas print steps"] = res["steps"]
+
+
 def measure(root):
     sys.path.insert(0, root)
     import torch
@@ -202,7 +298,9 @@ def measure(root):
     out = dict(root=root)
     k21_rows(torch, cs, dev, out)
     k17_rows(torch, cs, dev, out, hasattr(solvers, "vp_fields_sweep_z"))
+    cyclic_field_rows(torch, cs, dev, out, root)
     step_rows(torch, cs, dev, out)
+    app_row(torch, cs, dev, out)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)

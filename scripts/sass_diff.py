@@ -2,15 +2,18 @@
 """The SASS of every kernel in this checkout's library against another
 checkout's, on a machine with nvcc and cuobjdump.
 
-    python3 scripts/sass_diff.py OTHER_CHECKOUT
+    python3 scripts/sass_diff.py OTHER_CHECKOUT [PATTERN]
 
 builds both kernel libraries (kernels/build.py, each in its own process)
 and prints, kernel by kernel, whether its SASS is identical (instruction
-addresses dropped), differs, or lies in one library only.  Kernels are
+addresses dropped, blanks collapsed), differs, or lies in one library only; with PATTERN,
+also the first lines of a unified diff of the first differing kernel
+whose name holds PATTERN.  Kernels are
 matched by their mangled names with the per-file hash of the anonymous
 namespace removed.  A kernel whose SASS is identical runs the same
 instructions: no A/B can tell the two apart.
 """
+import difflib
 import os
 import re
 import subprocess
@@ -45,7 +48,10 @@ def sass(lib):
                           r"anon_\1", m.group(1))
             body = []
         elif name:
-            body.append(re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).rstrip())
+            # addresses dropped, runs of blanks made one: the listing's
+            # column widths are layout, not code
+            body.append(" ".join(re.sub(r"/\*[0-9a-f]{4,}\*/", "",
+                                        line).split()))
     if name:
         funcs[name] = "\n".join(body)
     return funcs
@@ -60,6 +66,15 @@ def main():
                  else "identical" if mine[name] == other[name]
                  else "differs")
         print(f"{state:17s} {name}", flush=True)
+    pattern = sys.argv[2] if len(sys.argv) > 2 else None
+    for name in sorted(mine):
+        if pattern and pattern in name and other.get(name, mine[name]) \
+                != mine[name]:
+            diff = difflib.unified_diff(other[name].splitlines(),
+                                        mine[name].splitlines(), "other",
+                                        "this", lineterm="", n=1)
+            print("\n".join(list(diff)[:80]), flush=True)
+            break
     same = sum(1 for n in mine if other.get(n) == mine[n])
     print(f"{same} identical of {len(mine)} kernels here, {len(other)} "
           "there", flush=True)

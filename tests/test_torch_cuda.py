@@ -12,16 +12,16 @@ contraction).  The variable-property kernels K5-K8 are held to the same
 bounds relative to each output's scale (face conductivities, 1/(rho cp)
 and films are not temperatures), and so are the cylindrical sweeps K9-K18,
 whose stiff phi systems near a full disk's axis amplify one rounding; the
-cylindrical varprop step runs kernels against reference at float64.  K20,
-K22 and K23-K26 repeat their plain versions one rounding at a time:
-they are held to bitwise equality, and so is K15's y entry.  K6, K7, K7's
-x entry, K8, K17, K19 and K21 split each line across threads (the
-split-line core of K1, K2 and K4): within 8 float32 ulp of the output's
-scale, 1e-12 of it at float64; K20 then K7's x entry equals K6 bit for
-bit (the unfused
-varprop step equals the fused one).  K11 and K16 split their periodic
-lines the same way, in Thomas order on stiff rings: the same bounds, on
-the spiral app's ring, 4096-row lines and lines of 2 and 3 rows too.
+cylindrical varprop step runs kernels against reference at float64.  K20
+and K23-K26 repeat their plain versions one rounding at a time: they are
+held to bitwise equality, and so is K15's y entry.  K6, K7, K7's x entry,
+K8, K17, K19 and K21 split each line across threads (the split-line core
+of K1, K2 and K4): within 8 float32 ulp of the output's scale, 1e-12 of
+it at float64; K20 then K7's x entry equals K6 bit for bit (the unfused
+varprop step equals the fused one).  K11, K16, K18 and K22 split their
+periodic lines the same way, in Thomas order on stiff rings: the same
+bounds, on the spiral app's ring, 4096-row lines and lines of 2 and 3
+rows too.
 K1's v1 entry is held to the field-plan K1 bounds.
 The bfloat16 entries of K1-K4 solve at float32 like their plain versions
 but round differently (FMA contraction): within one bfloat16 ulp of them.
@@ -749,16 +749,29 @@ def test_cyclic_phi_kernels_on_long_short_and_stiff_lines_on_card(case,
               cp_spec=apparent_cp(490.0, 490.0, 2.7e5, 1420.0, 1470.0),
               h_void=80.0, tinf_void=15.0, emissivity=0.5)
     phi = (R, T, code_p, cols["geo_p"], cols["gs_p"], inv)
+    # K18's streams at the step's scale (dw*geo*flo as the tube's), and its
+    # rows materialized for K22 (the fields tier's)
+    flo = pcvp._face_phi(pk["k_spec"](T), act)
+    dw = fac / 54.0 * (0.5 + cast(rng.random(shape)))
+    sink = cast(3e3 * rng.random(shape) * (rng.random(shape) > 0.7))
+    sp = (R, flo, dw, sink, sink * 20.0)
+    g3 = cols["geo_p"][:, None, None]
+    fhi = torch.roll(flo, -1, 1)
+    ap = (-(dw * (g3 * flo)), 1.0 + dw * (g3 * (flo + fhi) + sink),
+          -(dw * (g3 * fhi)), R + dw * (sink * 20.0))
     reset_launch_counts()
     pairs = [(masked_cyclic_phi(R, *plan.phi, fac, 20.0),
               masked_cyclic_phi_plain(R, *plan.phi, fac, 20.0)),
-             (vp2_cyclic_phi(*phi, **pk), vp2_cyclic_phi_plain(*phi, **pk))]
+             (vp2_cyclic_phi(*phi, **pk), vp2_cyclic_phi_plain(*phi, **pk)),
+             (vp_fields_cyclic_phi(*sp, cols["geo_p"]),
+              vp_fields_cyclic_phi_plain(*sp, cols["geo_p"])),
+             (cyclic_fields(*ap, 1), cyclic_fields_plain(*ap, 1))]
     torch.cuda.synchronize()
     for got, want in pairs:
         assert got.is_cuda and got.dtype == dtype
         assert float((got - want).abs().max()) <= rel * float(
             want.abs().max())
-    assert launch_counts() == _counts(K11=1, K16=1)
+    assert launch_counts() == _counts(K11=1, K16=1, K18=1, K22=1)
 
 
 @pytest.mark.cuda
@@ -794,8 +807,8 @@ def test_cyl_varprop_step_on_card(scheme, launches):
                          ids=["f64", "f32"])
 def test_general_route_kernels_match_plain_on_card(dtype):
     """K7's x entry, K19 and K20 (the corrected-BC route) and K21/K22 (the
-    field solves) against their plain versions: K20 and K22 bitwise, K7x,
-    K19 and K21 (lines split across threads) within 8 float32 ulp of the
+    field solves) against their plain versions: K20 bitwise, K7x, K19, K21
+    and K22 (lines split across threads) within 8 float32 ulp of the
     output's scale, 1e-12 of it at float64."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
@@ -819,7 +832,7 @@ def test_general_route_kernels_match_plain_on_card(dtype):
     b = 1.0 + 2.0 * cast(rng.random(shape)) - a - c
     rows = (R, 7e4, 70.0, TINF)
     reset_launch_counts()
-    # K7x, K19 and K21 split each line (8 float32 ulp of the output's
+    # K7x, K19, K21 and K22 split each line (8 float32 ulp of the output's
     # scale, 1e-12 of it at float64)
     split = [
         (varprop_sweep_x(R, code0, fc[0], w, *rows[1:], h=h),
@@ -830,6 +843,7 @@ def test_general_route_kernels_match_plain_on_card(dtype):
          varprop_sweep_z_plain(R, code2, fc[2], w, *rows[1:], rob_c=30.0)),
         *((tridiag_fields(a, b, c, R, ax),
            tridiag_fields_plain(a, b, c, R, ax)) for ax in range(3)),
+        (cyclic_fields(a, b, c, R, 1), cyclic_fields_plain(a, b, c, R, 1)),
     ]
     pairs = [
         (varprop_theta_rhs(T, *fc, w, m8, 0.0175, INV),
@@ -837,7 +851,6 @@ def test_general_route_kernels_match_plain_on_card(dtype):
         (varprop_theta_rhs(T, *fc, w, m8, 0.0175, INV, src=src, dt=DT),
          varprop_theta_rhs_plain(T, *fc, w, m8, 0.0175, INV, src=src,
                                  dt=DT)),
-        (cyclic_fields(a, b, c, R, 1), cyclic_fields_plain(a, b, c, R, 1)),
     ]
     torch.cuda.synchronize()
     rel = 1e-12 if dtype == torch.float64 else 8 * 2.0 ** -23
@@ -909,13 +922,20 @@ def test_field_sweeps_on_long_and_short_lines_on_card(dtype, rel):
 
 @pytest.mark.cuda
 def test_field_sweeps_take_no_field_sized_scratch_on_card():
-    """K21 and K17 solve each line on chip: one call raises the
+    """K21, K17, K22 and K18 solve each line on chip: one call raises the
     allocator's peak by its output alone, under two fields (their first
-    versions took a c'/d' scratch field beside the output)."""
+    versions took a c'/d' or c'/y/z scratch beside the output)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     dev = torch.device("cuda", torch.cuda.current_device())
-    for _, kern, _ in _field_calls((128, 96, 160), torch.float32, 89):
+    calls = _field_calls((128, 96, 160), torch.float32, 89)
+    a, b, c, d = (torch.rand((128, 96, 160), device=dev) for _ in range(4))
+    b = b + 2.0
+    st = tuple(torch.rand((128, 96, 160), device=dev) for _ in range(5))
+    geo = torch.rand(128, device=dev)
+    calls += [("K22", lambda: cyclic_fields(a, b, c, d, 1), None),
+              ("K18", lambda: vp_fields_cyclic_phi(*st, geo), None)]
+    for _, kern, _ in calls:
         out = kern()                          # builds and loads the library
         torch.cuda.synchronize()
         del out
