@@ -40,12 +40,24 @@
 // K23 reads T + mask and writes nine streams, 21 B (41); K24 reads T and
 // seven streams and writes U, 18 B (36); K25 and K26 read rhs and three
 // streams and write x, 10 B (20); the sweeps also move c' and d' as
-// float32 scratch (+16 B).  Designs: K23 one thread per cell, threads
-// adjacent in z (coalesced), each thread evaluating k at the in-mask
-// neighbours it couples to; K24 K6's thread-per-(y, z)-pencil march along
-// x, the pencil's own x-1, x and x+1 values in registers; K25 K7's
-// thread-per-pencil strided sweep; K26 K19's warp of 32 pencils staging
-// [32 pencils x 32 rows] tiles of every stream through shared memory.
+// float32 scratch (+16 B).  Designs: K24 K6's thread-per-(y, z)-pencil
+// march along x, the pencil's own x-1, x and x+1 values in registers; K25
+// K7's thread-per-pencil strided sweep; K26 K19's warp of 32 pencils
+// staging [32 pencils x 32 rows] tiles of every stream through shared
+// memory.  K23 (PR 16) marches tiles of 8 y rows x 128 z cells along x,
+// four cells a thread, as K3: k(T) once a cell into a shared tile with
+// its y halo rows (the z halo by lanes 0 and 31), each face's harm once
+// (the y faces through the tile, the z faces by shuffle, the x face
+// carried to the next plane), cp(T) once a cell, offsets advanced by the
+// plane stride, 8- and 16-byte accesses along z, loads one plane ahead
+// and one barrier a plane (three tile buffers; a plane's y lo streams are
+// stored at the next plane).  The first K23 ran a thread a cell over a
+// grid-stride loop with a 64-bit division and modulo a cell, evaluating k
+// at the cell and at each of up to six in-mask neighbours and six harms:
+// bound by instructions (1.04-1.08 ms at bfloat16, 1.02-1.15 at float32,
+// 384^3).  The march does a third of its table evaluations and half its
+// divisions and still holds 38-43% of its bfloat16 bound (PERF.md section
+// 6): latency at 16 warps an SM (116 registers), not bytes.
 #include "varprop.cuh"
 
 namespace {
@@ -57,80 +69,499 @@ using atf::sub;
 
 constexpr int kHConst = 0, kHStream = 1, kHRad = 2;   // film modes
 
-// tw*(harm(ka, kb)*c) for the 0/1 coupling c: harm*1 is exact, and c = 0
-// gives 0 without evaluating the neighbour's k
+// Tables of at most kGfSmallSeg segments are summed without a branch
+// (K8's kK8SmallSeg; varprop.cuh table<kSeg>).
+constexpr int kGfSmallSeg = 4;
+
+// K23's tile: a warp a y row, kGfZ adjacent z cells a lane, kGfRows rows
+// a block; the block marches its (y, z) tile along x through a segment of
+// planes.
+constexpr int kGfZ = 4;
+constexpr int kGfRows = 8;
+constexpr int kGfTileZ = 32 * kGfZ;
+constexpr int kGfThreads = 32 * kGfRows;
+// blocks an SM the registers are held to (__launch_bounds__): 2 (116
+// registers at float32) ran 5-15% faster than 3 (80, small spills) and
+// 1.1-1.7x faster than 4 (64, spills) at 384^3 (PERF.md section 6)
+constexpr int kGfMinBlocks = 2;
+static_assert(kGfZ == 4, "the vector accesses take four cells a thread");
+static_assert(kGfThreads >= 2 * kGfTileZ,
+              "at most one cell of the two y halo rows a thread");
+
+// The fields pass's scalars and outputs (g_lo x, g_hi x, g_lo y, g_hi y,
+// g_lo z, g_hi z, sw x, y, z, src_pre).
 template <typename C>
-__device__ __forceinline__ C gface(C tw, C ka, C kb, bool on) {
-  return on ? mul(tw, atf::harm_rn(ka, kb)) : C(0);
+struct GScalars {
+  C rho, tg[3], sk[3], hpar, tik, tik2, hconv, dt;
+};
+template <typename S>
+struct GOuts {
+  S* p[10];
+};
+
+// kGfZ cells from p, widened: one vector access where `vec` (the row's
+// cells aligned and all in the field), else cell by cell (nv in the
+// field): the films and the sources
+template <typename S, typename C>
+__device__ __forceinline__ void ld_cells(const S* p, bool vec, int nv,
+                                         C (&v)[kGfZ]) {
+  if (vec) {
+    if constexpr (sizeof(S) == 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p);
+      v[0] = q.x;
+      v[1] = q.y;
+      v[2] = q.z;
+      v[3] = q.w;
+    } else if constexpr (sizeof(S) == 8) {
+      const double2 q0 = reinterpret_cast<const double2*>(p)[0];
+      const double2 q1 = reinterpret_cast<const double2*>(p)[1];
+      v[0] = q0.x;
+      v[1] = q0.y;
+      v[2] = q1.x;
+      v[3] = q1.y;
+    } else {                             // bfloat16: its bits, widened
+      const uint2 q = *reinterpret_cast<const uint2*>(p);
+      v[0] = __uint_as_float(q.x << 16);
+      v[1] = __uint_as_float(q.x & 0xffff0000u);
+      v[2] = __uint_as_float(q.y << 16);
+      v[3] = __uint_as_float(q.y & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < kGfZ; ++c) v[c] = c < nv ? atf::ld(p + c) : C(0);
+  }
 }
 
-template <typename S, typename C>
-__global__ void __launch_bounds__(256) gstream_fields_kernel(
-    const S* __restrict__ Tf, const uint8_t* __restrict__ mask,
-    const S* __restrict__ h, const S* __restrict__ src,
-    S* __restrict__ gxlo, S* __restrict__ gxhi, S* __restrict__ gylo,
-    S* __restrict__ gyhi, S* __restrict__ gzlo, S* __restrict__ gzhi,
-    S* __restrict__ swx, S* __restrict__ swy, S* __restrict__ swz,
-    S* __restrict__ srcp, int64_t nx, int64_t ny, int64_t nz,
-    const __grid_constant__ atf::Table<C> ktab,
-    const __grid_constant__ atf::Table<C> ctab, C rho, C tgx, C tgy, C tgz,
-    C skx, C sky, C skz, C hpar, C tik, C tik2, C hconv, C dt, int hmode) {
-  const int64_t plane = ny * nz;
-  const int64_t ncell = nx * plane;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < ncell; idx += stride) {
-    const int64_t i = idx / plane;
-    const int64_t jk = idx - i * plane;
-    const int64_t j = jk / nz;
-    const int64_t k = jk - j * nz;
-    const C t = atf::ld(Tf + idx);
-    const bool m = mask[idx] != 0;
-    const C mf = m ? C(1) : C(0);
-    const C kc = atf::clamp_sum_rn(ktab, t);
-    const C w = div(C(1), mul(rho, atf::clamp_sum_rn(ctab, t)));
+// kGfZ cells of T and their mask bytes as loaded: their bits, widened
+// where they are used, so that a load one plane ahead is not waited on
+// before its plane comes (vector loads only; cell by cell, the bits are
+// gathered at once).
+template <typename S>
+struct Raw {
+  uint32_t w[kGfZ * sizeof(S) / 4];
+  uint32_t m;          // mask byte c in byte c
+};
 
-    // couplings to the -1/+1 neighbour along each axis
-    const bool xl = m && i > 0 && mask[idx - plane] != 0;
-    const bool xh = m && i + 1 < nx && mask[idx + plane] != 0;
-    const bool yl = m && j > 0 && mask[idx - nz] != 0;
-    const bool yh = m && j + 1 < ny && mask[idx + nz] != 0;
-    const bool zl = m && k > 0 && mask[idx - 1] != 0;
-    const bool zh = m && k + 1 < nz && mask[idx + 1] != 0;
-    auto knb = [&](bool on, int64_t off) {
-      return on ? atf::clamp_sum_rn(ktab, atf::ld(Tf + idx + off)) : C(0);
-    };
-    C tw = mul(tgx, w);
-    atf::st(gxlo + idx, gface(tw, knb(xl, -plane), kc, xl), -1, idx);
-    atf::st(gxhi + idx, gface(tw, kc, knb(xh, plane), xh), -1, idx);
-    tw = mul(tgy, w);
-    atf::st(gylo + idx, gface(tw, knb(yl, -nz), kc, yl), -1, idx);
-    atf::st(gyhi + idx, gface(tw, kc, knb(yh, nz), yh), -1, idx);
-    tw = mul(tgz, w);
-    atf::st(gzlo + idx, gface(tw, knb(zl, -1), kc, zl), -1, idx);
-    atf::st(gzhi + idx, gface(tw, kc, knb(zh, 1), zh), -1, idx);
-
-    // Robin sinks: h * w * (exposed faces along the axis), in-mask only
-    C hloc = hpar;
-    if (hmode == kHStream) {
-      hloc = atf::ld(h + idx);
-    } else if (hmode == kHRad) {
-      const C tk = add(t, C(273.15));
-      hloc = add(mul(mul(hpar, add(tk, tik)), add(mul(tk, tk), tik2)),
-                 hconv);
+template <typename S>
+__device__ __forceinline__ void ld_raw(const S* p, const uint8_t* pm,
+                                       bool vec, int nv, Raw<S>& r) {
+  if (vec) {
+    if constexpr (sizeof(S) == 2) {
+      const uint2 q = *reinterpret_cast<const uint2*>(p);
+      r.w[0] = q.x;
+      r.w[1] = q.y;
+    } else {
+#pragma unroll
+      for (int i = 0; i < (int)sizeof(S) / 4; ++i) {
+        const uint4 q = reinterpret_cast<const uint4*>(p)[i];
+        r.w[4 * i] = q.x;
+        r.w[4 * i + 1] = q.y;
+        r.w[4 * i + 2] = q.z;
+        r.w[4 * i + 3] = q.w;
+      }
     }
-    const C wm = mul(w, mf);
-    const C hw = mul(hloc, wm);
-    auto nexp = [](bool lo, bool hi) {
-      return sub(sub(C(2), lo ? C(1) : C(0)), hi ? C(1) : C(0));
-    };
-    atf::st(swx + idx, mul(mul(skx, hw), nexp(xl, xh)), -1, idx);
-    atf::st(swy + idx, mul(mul(sky, hw), nexp(yl, yh)), -1, idx);
-    atf::st(swz + idx, mul(mul(skz, hw), nexp(zl, zh)), -1, idx);
-    if (src != nullptr) {
-      atf::st(srcp + idx, mul(mul(dt, wm), atf::ld(src + idx)), -1, idx);
+    r.m = *reinterpret_cast<const uint32_t*>(pm);
+  } else {
+#pragma unroll
+    for (int i = 0; i < (int)(kGfZ * sizeof(S) / 4); ++i) r.w[i] = 0;
+    r.m = 0;
+#pragma unroll
+    for (int c = 0; c < kGfZ; ++c) {
+      if (c < nv) {
+        if constexpr (sizeof(S) == 2) {
+          r.w[c / 2] |= (uint32_t)__bfloat16_as_ushort(p[c]) << (16 * (c % 2));
+        } else if constexpr (sizeof(S) == 4) {
+          r.w[c] = __float_as_uint(p[c]);
+        } else {
+          r.w[2 * c] = (uint32_t)__double2loint(p[c]);
+          r.w[2 * c + 1] = (uint32_t)__double2hiint(p[c]);
+        }
+        r.m |= (uint32_t)pm[c] << (8 * c);
+      }
     }
   }
+}
+
+// cell c of `r` widened to C (atf::ld's value, bit for bit)
+template <typename S, typename C>
+__device__ __forceinline__ C wid(const Raw<S>& r, int c) {
+  if constexpr (sizeof(S) == 2) {
+    const uint32_t w = r.w[c / 2];
+    return __uint_as_float(c % 2 ? (w & 0xffff0000u) : (w << 16));
+  } else if constexpr (sizeof(S) == 4) {
+    return __uint_as_float(r.w[c]);
+  } else {
+    return __hiloint2double((int)r.w[2 * c + 1], (int)r.w[2 * c]);
+  }
+}
+
+// the mask bits of `r` (bit c: cell c in the mask)
+template <typename S>
+__device__ __forceinline__ unsigned mbits(const Raw<S>& r) {
+  unsigned m = 0;
+#pragma unroll
+  for (int c = 0; c < kGfZ; ++c) m |= ((r.m >> (8 * c)) & 0xffu) ? 1u << c : 0u;
+  return m;
+}
+
+// kGfZ cells to p, rounded to nearest at S (atf::st)
+template <typename S, typename C>
+__device__ __forceinline__ void st_cells(S* p, bool vec, int nv,
+                                         const C (&v)[kGfZ]) {
+  if (vec) {
+    if constexpr (sizeof(S) == 4) {
+      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    } else if constexpr (sizeof(S) == 8) {
+      reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+      reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+    } else {
+      uint2 q;
+      q.x = atf::bf16_bits(v[0], -1, 0) |
+            ((unsigned)atf::bf16_bits(v[1], -1, 0) << 16);
+      q.y = atf::bf16_bits(v[2], -1, 0) |
+            ((unsigned)atf::bf16_bits(v[3], -1, 0) << 16);
+      *reinterpret_cast<uint2*>(p) = q;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < kGfZ; ++c) {
+      if (c < nv) atf::st(p + c, v[c], -1, 0);
+    }
+  }
+}
+
+// K23's shared memory, one of three buffers (plane x's, plane x - 1's y hi
+// faces, plane x + 1's being written): the tile's k(T) and mask bytes, the
+// y hi faces, and k and the mask bytes of the y halo rows.  A thread's
+// kGfZ cells are one vector (Quad) of each row.
+template <typename C>
+struct alignas(sizeof(C) * kGfZ) Quad {
+  C v[kGfZ];
+};
+template <typename C>
+struct GfBuf {
+  Quad<C> k[kGfRows][32];
+  Quad<C> fy[kGfRows][32];
+  C kh[2][kGfTileZ];
+  uint32_t m[kGfRows][32];         // mask byte c of a thread's cells: byte c
+  uint8_t mh[2][kGfTileZ];
+};
+constexpr int kGfBufs = 3;
+
+// The plane march.  Thread (row ty, lane) owns cells z0 .. z0 + kGfZ - 1
+// of row y; per plane x it holds its cells' T, k and mask bits at x and
+// x + 1 and their x lo faces (the previous plane's x hi faces), and
+//   (1) issues the loads of its cells at x + 2 and of its halo cells at
+//       x + 1 (kept as loaded bits until their plane comes: the march
+//       never waits on a load issued in the same plane), writes its k and
+//       mask bytes into the tile, and k(T) of one cell of the y halo rows
+//       (the threads of lanes 0 and 31 keep k at the z halo cells
+//       z0 - 1 and z0 + kGfZ in registers);
+//   and, past the plane's one barrier,
+//   (2) stores plane x - 1's y lo streams (g_lo and sw along y) from the
+//       y hi faces the row above wrote into plane x - 1's tile, forms its
+//       y hi faces from the row below in the tile (the halo row for the
+//       last row) into the tile, its z faces within its cells and from its
+//       neighbouring lanes by shuffle, its x hi faces from the k at x + 1
+//       it loaded, and the first row its y lo faces from the halo row;
+//   (3) forms and stores its cells' other seven (eight) streams.
+// Each face's harm is formed once (each tile's edge faces once more by
+// the tile beyond it) in its plain version's argument order, harm(k at
+// the lower index, k at the upper one); an uncoupled face is 0 without a
+// harm.  k(T) is evaluated once a cell (and once more at each tile's halo
+// cells), cp(T) once a cell.
+template <typename S, typename C, int kSeg>
+__global__ void __launch_bounds__(kGfThreads, kGfMinBlocks)
+    gstream_fields_kernel(const S* __restrict__ Tf,
+                          const uint8_t* __restrict__ mask,
+                          const S* __restrict__ h, const S* __restrict__ src,
+                          GOuts<S> o, int64_t nx, int64_t ny, int64_t nz,
+                          int64_t xs_len, int vec,
+                          const __grid_constant__ atf::Table<C> ktab,
+                          const __grid_constant__ atf::Table<C> ctab,
+                          const __grid_constant__ GScalars<C> sc,
+                          int hmode) {
+  constexpr unsigned kAll = 0xffffffffu;
+  extern __shared__ __align__(16) unsigned char atf_smem[];
+  GfBuf<C>* bufs = reinterpret_cast<GfBuf<C>*>(atf_smem);
+  const int lane = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+  const int zc = lane * kGfZ;                    // the cells' column
+  const int64_t zt = (int64_t)blockIdx.x * kGfTileZ;
+  const int64_t y0 = (int64_t)blockIdx.y * kGfRows;
+  const int64_t y = y0 + ty;
+  const int64_t x0 = (int64_t)blockIdx.z * xs_len;
+  const int64_t x1 = atf::imin(nx, x0 + xs_len);
+  const int64_t plane = ny * nz;
+  const int nv =
+      y < ny ? (int)atf::imin(kGfZ, nz > zt + zc ? nz - zt - zc : 0) : 0;
+  const bool full = vec && nv == kGfZ;
+  const int64_t own = y * nz + zt + zc;          // offset in a plane
+  // this thread's y halo cell: row y0 - 1 (threads < kGfTileZ), y0 + rows
+  // (the next kGfTileZ threads), none (the rest)
+  const bool hcell = threadIdx.x < 2 * kGfTileZ;
+  const int hr = hcell ? threadIdx.x / kGfTileZ : 0;
+  const int hc = threadIdx.x % kGfTileZ;
+  const int64_t hy = hr == 0 ? y0 - 1 : y0 + kGfRows;
+  const bool hin = hcell && hy >= 0 && hy < ny && zt + hc < nz;
+  const int64_t hoff = hy * nz + zt + hc;
+  // lanes 0 and 31: the z halo cell before and after the tile
+  const int64_t zz = lane == 0 ? zt - 1 : zt + kGfTileZ;
+  const bool zin = y < ny && (lane == 0 || lane == 31) && zz >= 0 && zz < nz;
+  const int64_t zoff = y * nz + zz;
+  auto on = [](unsigned bits, int c) { return ((bits >> c) & 1u) != 0u; };
+  auto kt = [&](C t) { return atf::table<kSeg>(ktab, t); };
+
+  // the segment's first plane and its x lo faces
+  C t[kGfZ], k[kGfZ], fxl[kGfZ];
+  Raw<S> r0;
+  ld_raw(Tf + x0 * plane + own, mask + x0 * plane + own, full, nv, r0);
+  unsigned m = mbits(r0), mp = 0;
+#pragma unroll
+  for (int c = 0; c < kGfZ; ++c) {
+    t[c] = wid<S, C>(r0, c);
+    k[c] = kt(t[c]);
+    fxl[c] = C(0);
+  }
+  if (x0 > 0) {
+    const int64_t o = (x0 - 1) * plane + own;
+    ld_raw(Tf + o, mask + o, full, nv, r0);
+    mp = mbits(r0);
+#pragma unroll
+    for (int c = 0; c < kGfZ; ++c) {
+      if (on(m & mp, c)) fxl[c] = atf::harm_rn(kt(wid<S, C>(r0, c)), k[c]);
+    }
+  }
+  // loads run ahead of their use, as raw bits: plane x + 1's cells (two
+  // planes ahead) and plane x's halo cells (one plane ahead) are in
+  // registers at plane x
+  auto load_cells = [&](int64_t x, Raw<S>& r) {
+    const int64_t o = (x < nx ? x : x0) * plane + own;   // x0: a dummy
+    ld_raw(Tf + o, mask + o, full, x < nx ? nv : 0, r);
+    if (x >= nx) r.m = 0;
+  };
+  // the halo cells' T and mask byte (the mask byte 0 outside the field)
+  auto load_halo = [&](int64_t x, S& th, unsigned& mh, S& tz,
+                       unsigned& mz) {
+    const int64_t o = x * plane;
+    th = Tf[hin ? o + hoff : 0];
+    mh = hin ? mask[o + hoff] : 0u;
+    tz = Tf[zin ? o + zoff : 0];
+    mz = zin ? mask[o + zoff] : 0u;
+  };
+  Raw<S> r1;
+  load_cells(x0 + 1, r1);
+  S th, tz;
+  unsigned mh, mz;
+  load_halo(x0, th, mh, tz, mz);
+
+  // plane x - 1's y lo stream waits for its faces from the row above
+  // (written before plane x's barrier): its tw_y, sk_y*h*w*m, y hi bits
+  // and, in the first row, its y lo faces from the halo row
+  C twy[kGfZ], swy[kGfZ], fy0[kGfZ];
+  unsigned yhp = 0, yl0 = 0;
+  auto finish_ylo = [&](const GfBuf<C>& P, int64_t xp) {
+    C f[kGfZ], lo[kGfZ], sw[kGfZ];
+    unsigned yl = yl0;
+    if (ty > 0) {
+      yl = 0;
+      const uint32_t ma = P.m[ty - 1][lane];
+      const Quad<C> fa = P.fy[ty - 1][lane];
+#pragma unroll
+      for (int c = 0; c < kGfZ; ++c) {
+        const bool cpl = on(mp, c) && ((ma >> (8 * c)) & 0xffu) != 0u;
+        yl |= cpl ? 1u << c : 0u;
+        f[c] = fa.v[c];
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < kGfZ; ++c) f[c] = fy0[c];
+    }
+#pragma unroll
+    for (int c = 0; c < kGfZ; ++c) {
+      lo[c] = on(yl, c) ? mul(twy[c], f[c]) : C(0);
+      sw[c] = mul(swy[c], sub(sub(C(2), on(yl, c) ? C(1) : C(0)),
+                              on(yhp, c) ? C(1) : C(0)));
+    }
+    st_cells(o.p[2] + xp * plane + own, full, nv, lo);
+    st_cells(o.p[7] + xp * plane + own, full, nv, sw);
+  };
+
+  for (int64_t x = x0; x < x1; ++x) {
+    GfBuf<C>& B = bufs[(x - x0) % kGfBufs];
+    const GfBuf<C>& P = bufs[(x - x0 + kGfBufs - 1) % kGfBufs];
+    const int64_t off = x * plane;
+    // (1) the loads of the planes ahead; the halo cells' k; the tile
+    Raw<S> r2;
+    S th1, tz1;
+    unsigned mh1, mz1;
+    load_cells(x + 2, r2);
+    load_halo(x + 1 < nx ? x + 1 : x, th1, mh1, tz1, mz1);
+    C hl[kGfZ], sv[kGfZ];
+    if (hmode == kHStream) ld_cells(h + off + own, full, nv, hl);
+    if (src != nullptr) ld_cells(src + off + own, full, nv, sv);
+    if (hcell) {
+      B.kh[hr][hc] = mh != 0u ? kt(atf::ld(&th)) : C(0);
+      B.mh[hr][hc] = mh != 0u;
+    }
+    const bool zm = mz != 0u;
+    const C kz = zm ? kt(atf::ld(&tz)) : C(0);
+    {
+      Quad<C> q;
+      uint32_t mw = 0;
+#pragma unroll
+      for (int c = 0; c < kGfZ; ++c) {
+        q.v[c] = k[c];
+        mw |= on(m, c) ? 1u << (8 * c) : 0u;
+      }
+      B.k[ty][lane] = q;
+      B.m[ty][lane] = mw;
+    }
+    __syncthreads();
+
+    // (2) plane x - 1's y lo stream; plane x's y hi faces, into the tile,
+    // and the first row's y lo faces
+    if (x > x0) finish_ylo(P, x - 1);
+    const bool last = ty + 1 == kGfRows;
+    C kb[kGfZ];
+    unsigned mb = 0;
+    if (last) {
+#pragma unroll
+      for (int c = 0; c < kGfZ; ++c) {
+        kb[c] = B.kh[1][zc + c];
+        mb |= B.mh[1][zc + c] ? 1u << c : 0u;
+      }
+    } else {
+      const Quad<C> q = B.k[ty + 1][lane];
+      const uint32_t w = B.m[ty + 1][lane];
+#pragma unroll
+      for (int c = 0; c < kGfZ; ++c) {
+        kb[c] = q.v[c];
+        mb |= ((w >> (8 * c)) & 0xffu) ? 1u << c : 0u;
+      }
+    }
+    const unsigned yh = m & mb;
+    Quad<C> fyh;
+#pragma unroll
+    for (int c = 0; c < kGfZ; ++c) {
+      fyh.v[c] = on(yh, c) ? atf::harm_rn(k[c], kb[c]) : C(0);
+    }
+    B.fy[ty][lane] = fyh;
+    if (ty == 0) {
+      yl0 = 0;
+#pragma unroll
+      for (int c = 0; c < kGfZ; ++c) {
+        const bool cpl = on(m, c) && B.mh[0][zc + c] != 0;
+        yl0 |= cpl ? 1u << c : 0u;
+        fy0[c] = cpl ? atf::harm_rn(B.kh[0][zc + c], k[c]) : C(0);
+      }
+    }
+    // z faces: within the thread's cells, across lanes by shuffle
+    C k_up = __shfl_down_sync(kAll, k[0], 1);
+    unsigned m_up = __shfl_down_sync(kAll, m & 1u, 1);
+    if (lane == 31) {
+      k_up = kz;
+      m_up = zm;
+    }
+    C fzh[kGfZ];
+    unsigned zh = 0;
+#pragma unroll
+    for (int c = 0; c < kGfZ; ++c) {
+      const bool nb = c + 1 < kGfZ ? on(m, c + 1) : m_up != 0u;
+      const bool cpl = on(m, c) && nb;
+      zh |= cpl ? 1u << c : 0u;
+      fzh[c] = cpl ? atf::harm_rn(k[c], c + 1 < kGfZ ? k[c + 1] : k_up)
+                   : C(0);
+    }
+    C fz0 = __shfl_up_sync(kAll, fzh[kGfZ - 1], 1);
+    unsigned z0on = __shfl_up_sync(kAll, (zh >> (kGfZ - 1)) & 1u, 1);
+    if (lane == 0) {
+      z0on = on(m, 0) && zm;
+      fz0 = z0on ? atf::harm_rn(kz, k[0]) : C(0);
+    }
+    const unsigned zl = ((zh << 1) | z0on) & ((1u << kGfZ) - 1u);
+    // x hi faces from the next plane's k
+    C tn[kGfZ], kn[kGfZ], fxh[kGfZ];
+    const unsigned mn = mbits(r1);
+    const unsigned xh = m & mn;
+#pragma unroll
+    for (int c = 0; c < kGfZ; ++c) {
+      tn[c] = wid<S, C>(r1, c);
+      kn[c] = kt(tn[c]);
+      fxh[c] = on(xh, c) ? atf::harm_rn(k[c], kn[c]) : C(0);
+    }
+
+    // (3) plane x's streams but g_lo and sw along y (at plane x + 1)
+    const unsigned xl = m & mp;
+    C w[kGfZ], wm[kGfZ], hw[kGfZ];
+#pragma unroll
+    for (int c = 0; c < kGfZ; ++c) {
+      w[c] = atf::div(C(1), mul(sc.rho, atf::table<kSeg>(ctab, t[c])));
+      C hloc = sc.hpar;
+      if (hmode == kHStream) {
+        hloc = hl[c];
+      } else if (hmode == kHRad) {
+        const C tk = add(t[c], C(273.15));
+        hloc = add(mul(mul(sc.hpar, add(tk, sc.tik)),
+                       add(mul(tk, tk), sc.tik2)),
+                   sc.hconv);
+      }
+      wm[c] = mul(w[c], on(m, c) ? C(1) : C(0));
+      hw[c] = mul(hloc, wm[c]);
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const unsigned bl = a == 0 ? xl : zl;
+      const unsigned bh = a == 0 ? xh : a == 1 ? yh : zh;
+      C lo[kGfZ], hi[kGfZ], sw[kGfZ];
+#pragma unroll
+      for (int c = 0; c < kGfZ; ++c) {
+        const C flo = a == 0 ? fxl[c] : c == 0 ? fz0 : fzh[c - 1];
+        const C fhi = a == 0 ? fxh[c] : a == 1 ? fyh.v[c] : fzh[c];
+        const C tw = mul(sc.tg[a], w[c]);
+        const C ska = mul(sc.sk[a], hw[c]);
+        hi[c] = on(bh, c) ? mul(tw, fhi) : C(0);
+        if (a == 1) {                  // the rest at plane x + 1
+          twy[c] = tw;
+          swy[c] = ska;
+        } else {
+          lo[c] = on(bl, c) ? mul(tw, flo) : C(0);
+          // Robin sinks: h * w * (exposed faces along the axis)
+          sw[c] = mul(ska, sub(sub(C(2), on(bl, c) ? C(1) : C(0)),
+                               on(bh, c) ? C(1) : C(0)));
+        }
+      }
+      if (a != 1) {
+        st_cells(o.p[2 * a] + off + own, full, nv, lo);
+        st_cells(o.p[6 + a] + off + own, full, nv, sw);
+      }
+      st_cells(o.p[2 * a + 1] + off + own, full, nv, hi);
+    }
+    yhp = yh;
+    if (src != nullptr) {
+#pragma unroll
+      for (int c = 0; c < kGfZ; ++c) sv[c] = mul(mul(sc.dt, wm[c]), sv[c]);
+      st_cells(o.p[9] + off + own, full, nv, sv);
+    }
+
+    // the next plane
+#pragma unroll
+    for (int c = 0; c < kGfZ; ++c) {
+      t[c] = tn[c];
+      k[c] = kn[c];
+      fxl[c] = fxh[c];
+    }
+    mp = m;
+    m = mn;
+    r1 = r2;
+    th = th1;
+    mh = mh1;
+    tz = tz1;
+    mz = mz1;
+  }
+  // the segment's last plane's y lo stream
+  __syncthreads();
+  if (x1 > x0) finish_ylo(bufs[(x1 - 1 - x0) % kGfBufs], x1 - 1);
 }
 
 // One g-stream row into the recurrence (c', d').
@@ -317,26 +748,85 @@ __global__ void __launch_bounds__(kPencils) gstream_sweep_z_kernel(
   }
 }
 
+// K23 on the (nx, ny, nz) field: tiles of kGfRows y rows x kGfTileZ z
+// cells, each marched along x through a segment of planes; the segment
+// count S is chosen so that the waves of blocks cost the least, each
+// segment's first plane evaluating k at the plane before it.
+template <typename S, typename C, int kSeg>
+void launch_gstream_fields_k(const S* Tf, const uint8_t* mask, const S* h,
+                             const S* src, const GOuts<S>& o, int64_t nx,
+                             int64_t ny, int64_t nz, const atf::Table<C>& kt,
+                             const atf::Table<C>& ct, const GScalars<C>& sc,
+                             int hmode, int device, cudaStream_t stream) {
+  auto* kernel = gstream_fields_kernel<S, C, kSeg>;
+  const size_t smem = kGfBufs * sizeof(GfBuf<C>);
+  atf::allow_dynamic_smem(kernel, smem);
+  int per_sm = 0, sms = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kGfThreads,
+                                                smem);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int64_t wave = (int64_t)(per_sm > 0 ? per_sm : 1) *
+                       (sms > 0 ? sms : 1);
+  const int64_t tiles = atf::cdiv(nz, kGfTileZ) * atf::cdiv(ny, kGfRows);
+  int64_t best = 1, best_cost = -1;
+  for (int64_t seg = 1; seg <= atf::imin(nx, 65535); ++seg) {
+    const int64_t len = atf::cdiv(nx, seg);
+    if (atf::cdiv(nx, len) != seg) continue;
+    const int64_t cost = atf::cdiv(tiles * seg, wave) * (len + 1);
+    if (best_cost < 0 || cost < best_cost) {
+      best = seg;
+      best_cost = cost;
+    }
+  }
+  const int64_t len = atf::cdiv(nx, best);
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  bool vec = nz % kGfZ == 0 && aligned(Tf) && aligned(mask) &&
+             (h == nullptr || aligned(h)) && (src == nullptr || aligned(src));
+  for (int q = 0; q < 10; ++q) vec = vec && (o.p[q] == nullptr || aligned(o.p[q]));
+  const dim3 grid((unsigned)atf::cdiv(nz, kGfTileZ),
+                  (unsigned)atf::cdiv(ny, kGfRows), (unsigned)best);
+  kernel<<<grid, kGfThreads, smem, stream>>>(Tf, mask, h, src, o, nx, ny, nz,
+                                             len, vec ? 1 : 0, kt, ct, sc,
+                                             hmode);
+}
+
 template <typename S, typename C>
 void launch_gstream_fields(const void* Tf, const void* mask, const void* h,
                            const void* src, void* const* outs, int64_t nx,
                            int64_t ny, int64_t nz, const double* ktab,
                            int kn, const double* ctab, int cn,
-                           const double* sc, int hmode,
+                           const double* d, int hmode, int device,
                            cudaStream_t stream) {
   atf::Table<C> kt, ct;
   atf::make_table(ktab, kn, &kt);
   atf::make_table(ctab, cn, &ct);
-  const int threads = 256;
-  const int64_t blocks =
-      atf::imin(atf::cdiv(nx * ny * nz, threads), (int64_t)1 << 20);
-  auto o = [&](int q) { return static_cast<S*>(outs[q]); };
-  gstream_fields_kernel<S, C><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const S*>(Tf), static_cast<const uint8_t*>(mask),
-      static_cast<const S*>(h), static_cast<const S*>(src), o(0), o(1),
-      o(2), o(3), o(4), o(5), o(6), o(7), o(8), o(9), nx, ny, nz, kt, ct,
-      (C)sc[0], (C)sc[1], (C)sc[2], (C)sc[3], (C)sc[4], (C)sc[5], (C)sc[6],
-      (C)sc[7], (C)sc[8], (C)sc[9], (C)sc[10], (C)sc[11], hmode);
+  GScalars<C> sc;
+  sc.rho = (C)d[0];
+  for (int a = 0; a < 3; ++a) {
+    sc.tg[a] = (C)d[1 + a];
+    sc.sk[a] = (C)d[4 + a];
+  }
+  sc.hpar = (C)d[7];
+  sc.tik = (C)d[8];
+  sc.tik2 = (C)d[9];
+  sc.hconv = (C)d[10];
+  sc.dt = (C)d[11];
+  GOuts<S> o;
+  for (int q = 0; q < 10; ++q) o.p[q] = static_cast<S*>(outs[q]);
+  const S* t = static_cast<const S*>(Tf);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  const S* hh = static_cast<const S*>(h);
+  const S* s = static_cast<const S*>(src);
+  if (kn <= kGfSmallSeg && cn <= kGfSmallSeg) {
+    launch_gstream_fields_k<S, C, kGfSmallSeg>(t, m, hh, s, o, nx, ny, nz,
+                                               kt, ct, sc, hmode, device,
+                                               stream);
+  } else {
+    launch_gstream_fields_k<S, C, 0>(t, m, hh, s, o, nx, ny, nz, kt, ct, sc,
+                                     hmode, device, stream);
+  }
 }
 
 }  // namespace
@@ -361,7 +851,7 @@ ATF_API int atf_gstream_fields(
   ATF_DISPATCH_STATE(dtype, device,
                      launch_gstream_fields<S, C>(
                          Tf, mask, h, src, outs, nx, ny, nz, ktab, kn, ctab,
-                         cn, sc, hmode, (cudaStream_t)stream));
+                         cn, sc, hmode, device, (cudaStream_t)stream));
 }
 
 ATF_API int atf_gstream_theta_sweep(

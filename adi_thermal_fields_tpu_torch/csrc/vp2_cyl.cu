@@ -1,5 +1,6 @@
-// K15, K16 and K8's general form: the tier-2 sweeps of the cylindrical
-// variable-property step.
+// K15 and K16: the tier-2 sweeps of the cylindrical variable-property
+// step along r and phi (its z sweep, K8's general form, runs on K8's
+// split-line kernel in csrc/vp2_sweep.cu).
 //
 // K15 replaces adi_thermal_fields_tpu/solvers/pallas_vp2.py fused_vp2_sweep
 //     (:402) in its solve-leading forms (the pipelined body
@@ -14,20 +15,14 @@
 //     columns glo = ghi = theta/dy^2, gsl = gsh = 1/dy, h_lo = h_hi, no
 //     edge films: edge_exposed codes carry the domain-edge films).  Same
 //     kernel, same access class (one thread per pencil, z coalesced).
-// K8's general form replaces fused_vp2_sweep with nat_rhs_out=True (call
-//     site :611, body :201) as the cylindrical step uses it: per-row
-//     columns, h_lo != h_hi and domain-edge films, along the CONTIGUOUS z
-//     axis of the natural field; unlike the JAX sweep it also reads the
-//     code in the natural layout.  (K8's Cartesian form, csrc/vp2_sweep.cu,
-//     is compiled apart, on the split-line core.)
 // K16 replaces fused_vp2_cyclic_axis1 (:812, call site :882, body
 //     _vp2_cyclic_kernel :633): the PERIODIC solve along axis 1 of a
 //     (B1, n, B2) field -- phi of the natural field.
 //
-// Row i of the open sweeps (K15, K8), from rhs (T itself when the caller
-// passes none), T^n and the code byte (bits 1 = hi coupling live, 2/4 =
-// lo/hi face exposed, 8 = active), the per-row columns glo/ghi (coupling)
-// and gsl/gsh (interface films) and the edge films at rows 0 and n-1:
+// Row i of K15, from rhs (T itself when the caller passes none), T^n and
+// the code byte (bits 1 = hi coupling live, 2/4 = lo/hi face exposed, 8 =
+// active), the per-row columns glo/ghi (coupling) and gsl/gsh (interface
+// films) and the edge films at rows 0 and n-1 (csrc/vp2_films.cuh):
 //   k_i = k(T_i); f_hi = bit1 ? harm(k_i, k_{i+1}) : 0; f_lo = previous
 //   row's f_hi; hr = eps*sigma*(Tk+Tik)(Tk^2+Tik^2) (0 without radiation);
 //   sink = bit2*gsl*(h_lo + hr) + bit4*gsh*(h_hi + hr); srhs = sink*t_inf;
@@ -47,7 +42,7 @@
 // Rounding: each kernel forms its plain version's rows (solvers/vp2.py: one
 // tensor op per operation) one IEEE rounding at a time with the _rn helpers
 // (common.cuh, varprop.cuh), which nvcc never contracts into an FMA, and
-// K15 and K8's general form also solve them in thomas's order, bit for bit.
+// K15 also solves them in thomas's order, bit for bit.
 // In float32 the apparent heat capacity jumps 12x at the solidus within
 // one ulp of T, so one contracted rounding in T's path would move a cell
 // across it.  K16 solves its rows split across threads: within 7.3e-4 K
@@ -65,12 +60,6 @@
 //        and d' in a scratch field (K9's design, +16 B/cell of global round
 //        trip).  The columns are the same for every thread of a row
 //        (broadcast loads through the read-only cache).
-//   K8 general: K8's first design -- one warp owns 32 pencils and stages [32
-//        pencils x 32 rows] tiles of rhs, T (plus one lookahead row) and
-//        code through shared memory with coalesced loads (lane = row), then
-//        each lane runs its pencil's recurrence from the tiles (lane =
-//        pencil; padded pitch).  c' and d' go to global scratch through the
-//        same tiles.
 //   K16: K11's periodic split-line kernel (csrc/split_cyclic.cuh: lanes =
 //        32 phi lines adjacent in z, the block's warps splitting each
 //        line's 8-row chunks, Sherman-Morrison's second right-hand side in
@@ -87,7 +76,7 @@
 //        Thomas order at about five split blocks' time each: the tube
 //        takes ~1.8 ms, above the first K16's 1.6 (PERF.md section 6).
 #include "split_cyclic.cuh"
-#include "varprop.cuh"
+#include "vp2_films.cuh"
 
 namespace {
 
@@ -96,72 +85,13 @@ using atf::div;
 using atf::mul;
 using atf::sub;
 
-// a domain-edge film (h, geo, t_inf) with its own radiative ambient
-template <typename T>
-struct Edge {
-  int on;
-  T h, g, tinf, tik, tik2;
-};
-
-// the film constants of an open sweep
-template <typename T>
-struct Films {
-  T inv_dtor, h_lo, h_hi, tinf, rc, tik, tik2;
-  int rad;
-  Edge<T> e0, e1;
-};
-
-template <typename T>
-Edge<T> make_edge(const double* e) {
-  Edge<T> out;
-  out.on = e[0] != 0.0;
-  out.h = (T)e[1];
-  out.g = (T)e[2];
-  out.tinf = (T)e[3];
-  out.tik = (T)e[4];
-  out.tik2 = (T)e[5];
-  return out;
-}
-
-template <typename T>
-Films<T> make_films(double inv_dtor, double h_lo, double h_hi, double tinf,
-                    double rc, double tik, double tik2, int rad,
-                    const double* edges) {
-  Films<T> f;
-  f.inv_dtor = (T)inv_dtor;
-  f.h_lo = (T)h_lo;
-  f.h_hi = (T)h_hi;
-  f.tinf = (T)tinf;
-  f.rc = (T)rc;
-  f.tik = (T)tik;
-  f.tik2 = (T)tik2;
-  f.rad = rad;
-  f.e0 = make_edge<T>(edges);
-  f.e1 = make_edge<T>(edges + 6);
-  return f;
-}
-
-template <typename T>
-__device__ __forceinline__ void edge_film(const Edge<T>& e, unsigned code,
-                                          T tc, const Films<T>& f, T& sink,
-                                          T& srhs) {
-  const T hr = f.rad ? atf::rad_film_rn(tc, f.rc, e.tik, e.tik2) : T(0);
-  const T s = mul(mul(atf::bit<T>(code, 8u), e.g), add(e.h, hr));
-  sink = add(sink, s);
-  srhs = add(srhs, mul(s, e.tinf));
-}
-
 // (b, d) of open-sweep row i with al = glo*f_lo and ch = ghi*f_hi given
 template <typename T>
 __device__ __forceinline__ void open_row(
     unsigned code, T tc, T rhs, T al, T ch, T gsl, T gsh, int64_t i,
     int64_t n, const atf::Table<T>& ctab, const Films<T>& f, T& b, T& d) {
-  const T hr = f.rad ? atf::rad_film_rn(tc, f.rc, f.tik, f.tik2) : T(0);
-  T sink = add(mul(mul(atf::bit<T>(code, 2u), gsl), add(f.h_lo, hr)),
-               mul(mul(atf::bit<T>(code, 4u), gsh), add(f.h_hi, hr)));
-  T srhs = mul(sink, f.tinf);
-  if (i == 0 && f.e0.on) edge_film(f.e0, code, tc, f, sink, srhs);
-  if (i == n - 1 && f.e1.on) edge_film(f.e1, code, tc, f, sink, srhs);
+  T sink, srhs;
+  open_films(code, tc, gsl, gsh, i == 0, i == n - 1, f, sink, srhs);
   const T coup = add(add(al, ch), sink);
   const T w =
       coup > T(0) ? mul(atf::clamp_sum_rn(ctab, tc), f.inv_dtor) : T(1);
@@ -221,112 +151,6 @@ __global__ void __launch_bounds__(256) vp2_sweep_strided_kernel(
     const int64_t off = base + i * B2;
     x = sub(dpbuf[off], mul(out[off], x));
     out[off] = x;
-  }
-}
-
-constexpr int kPencils = 32;        // pencils per z block (one warp)
-constexpr int kChunk = 32;          // rows per staged tile
-constexpr int kPitch = kChunk + 1;  // padded tile row; slot kChunk = lookahead
-
-template <typename T>
-constexpr size_t z_smem_bytes() {
-  // rhs / c' / x, d', T tiles (T), then the code tile (bytes)
-  return 3 * sizeof(T) * kPencils * kPitch + kPencils * kPitch;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kPencils) vp2_sweep_z_cols_kernel(
-    const T* __restrict__ rhs, const T* __restrict__ Tf,
-    const uint8_t* __restrict__ code, const T* __restrict__ glo,
-    const T* __restrict__ ghi, const T* __restrict__ gsl,
-    const T* __restrict__ gsh, T* __restrict__ out, T* __restrict__ dpbuf,
-    int64_t npen, int64_t n, const __grid_constant__ atf::Table<T> ktab,
-    const __grid_constant__ atf::Table<T> ctab,
-    const __grid_constant__ Films<T> f) {
-  extern __shared__ __align__(16) unsigned char atf_smem[];
-  T* tile = reinterpret_cast<T*>(atf_smem);        // rhs, then c', then x
-  T* tile2 = tile + kPencils * kPitch;             // d'
-  T* ttile = tile2 + kPencils * kPitch;            // T^n (+ lookahead row)
-  uint8_t* ctile = reinterpret_cast<uint8_t*>(ttile + kPencils * kPitch);
-
-  const int lane = threadIdx.x;
-  const int64_t pen0 = (int64_t)blockIdx.x * kPencils;
-  const int np = (int)atf::imin(kPencils, npen - pen0);
-  const int row = lane * kPitch;
-
-  // forward elimination, chunk by chunk
-  T cp = T(0), dp = T(0), f_lo = T(0), k_cur = T(0);
-  for (int64_t k0 = 0; k0 < n; k0 += kChunk) {
-    const int cz = (int)atf::imin(kChunk, n - k0);
-    if (lane < cz) {
-      for (int q = 0; q < np; ++q) {
-        const int64_t g = (pen0 + q) * n + k0 + lane;
-        tile[q * kPitch + lane] = rhs ? rhs[g] : Tf[g];
-        ttile[q * kPitch + lane] = Tf[g];
-        ctile[q * kPitch + lane] = code[g];
-      }
-    }
-    if (lane < np && k0 + kChunk < n) {
-      ttile[row + kChunk] = Tf[(pen0 + lane) * n + k0 + kChunk];
-    }
-    __syncwarp();
-    if (lane < np) {
-      if (k0 == 0) k_cur = atf::clamp_sum_rn(ktab, ttile[row]);
-      for (int j = 0; j < cz; ++j) {
-        const int64_t i = k0 + j;
-        const T tc = ttile[row + j];
-        const unsigned c = ctile[row + j];
-        const T k_next =
-            (i + 1 < n) ? atf::clamp_sum_rn(ktab, ttile[row + j + 1]) : T(0);
-        const T f_hi = (c & 1u) ? atf::harm_rn(k_cur, k_next) : T(0);
-        const T al = mul(__ldg(glo + i), f_lo);
-        const T ch = mul(__ldg(ghi + i), f_hi);
-        T b, d;
-        open_row<T>(c, tc, tile[row + j], al, ch, __ldg(gsl + i),
-                    __ldg(gsh + i), i, n, ctab, f, b, d);
-        eliminate(al, ch, b, d, cp, dp);
-        tile[row + j] = cp;
-        tile2[row + j] = dp;
-        f_lo = f_hi;
-        k_cur = k_next;
-      }
-    }
-    __syncwarp();
-    if (lane < cz) {
-      for (int q = 0; q < np; ++q) {
-        const int64_t g = (pen0 + q) * n + k0 + lane;
-        out[g] = tile[q * kPitch + lane];
-        dpbuf[g] = tile2[q * kPitch + lane];
-      }
-    }
-    __syncwarp();
-  }
-
-  // back substitution, last chunk first
-  T x = T(0);
-  for (int64_t k0 = (n - 1) / kChunk * kChunk; k0 >= 0; k0 -= kChunk) {
-    const int cz = (int)atf::imin(kChunk, n - k0);
-    if (lane < cz) {
-      for (int q = 0; q < np; ++q) {
-        const int64_t g = (pen0 + q) * n + k0 + lane;
-        tile[q * kPitch + lane] = out[g];
-        tile2[q * kPitch + lane] = dpbuf[g];
-      }
-    }
-    __syncwarp();
-    if (lane < np) {
-      for (int j = cz - 1; j >= 0; --j) {
-        x = sub(tile2[row + j], mul(tile[row + j], x));
-        tile[row + j] = x;
-      }
-    }
-    __syncwarp();
-    if (lane < cz) {
-      for (int q = 0; q < np; ++q) {
-        out[(pen0 + q) * n + k0 + lane] = tile[q * kPitch + lane];
-      }
-    }
-    __syncwarp();
   }
 }
 
@@ -401,38 +225,29 @@ struct Vp2CyclicRows {
 // kK8SmallSeg).
 constexpr int kSmallSeg = 4;
 
+// K15: B1*B2 pencils of n rows B2 apart of a (B1, n, B2) field
 template <typename T>
-void launch_vp2_open(int axis_z, const void* rhs, const void* Tf,
-                     const void* code, const void* glo, const void* ghi,
-                     const void* gsl, const void* gsh, void* out,
-                     void* scratch, int64_t B1, int64_t n, int64_t B2,
-                     const double* ktab, int kn, const double* ctab, int cn,
-                     double inv_dtor, double h_lo, double h_hi, double tinf,
-                     double rc, double tik, double tik2, int with_rad,
+void launch_vp2_open(const void* rhs, const void* Tf, const void* code,
+                     const void* glo, const void* ghi, const void* gsl,
+                     const void* gsh, void* out, void* scratch, int64_t B1,
+                     int64_t n, int64_t B2, const double* ktab, int kn,
+                     const double* ctab, int cn, double inv_dtor,
+                     double h_lo, double h_hi, double tinf, double rc,
+                     double tik, double tik2, int with_rad,
                      const double* edges, cudaStream_t stream) {
   atf::Table<T> kt, ct;
   atf::make_table(ktab, kn, &kt);
   atf::make_table(ctab, cn, &ct);
   const Films<T> f = make_films<T>(inv_dtor, h_lo, h_hi, tinf, rc, tik, tik2,
                                    with_rad, edges);
-  const T* r = static_cast<const T*>(rhs);
-  const T* t = static_cast<const T*>(Tf);
-  const uint8_t* c = static_cast<const uint8_t*>(code);
-  const T* v[4] = {static_cast<const T*>(glo), static_cast<const T*>(ghi),
-                   static_cast<const T*>(gsl), static_cast<const T*>(gsh)};
-  if (axis_z) {   // (B1, n, 1): B1 pencils of n contiguous rows
-    const int64_t blocks = atf::cdiv(B1, kPencils);
-    vp2_sweep_z_cols_kernel<T><<<(unsigned)blocks, kPencils,
-                                 z_smem_bytes<T>(), stream>>>(
-        r, t, c, v[0], v[1], v[2], v[3], static_cast<T*>(out),
-        static_cast<T*>(scratch), B1, n, kt, ct, f);
-  } else {        // (B1, n, B2): B1*B2 pencils of n rows B2 apart
-    const int threads = 256;
-    const int64_t blocks = atf::cdiv(B1 * B2, threads);
-    vp2_sweep_strided_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
-        r, t, c, v[0], v[1], v[2], v[3], static_cast<T*>(out),
-        static_cast<T*>(scratch), B1, n, B2, kt, ct, f);
-  }
+  const int threads = 256;
+  const int64_t blocks = atf::cdiv(B1 * B2, threads);
+  vp2_sweep_strided_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
+      static_cast<const T*>(rhs), static_cast<const T*>(Tf),
+      static_cast<const uint8_t*>(code), static_cast<const T*>(glo),
+      static_cast<const T*>(ghi), static_cast<const T*>(gsl),
+      static_cast<const T*>(gsh), static_cast<T*>(out),
+      static_cast<T*>(scratch), B1, n, B2, kt, ct, f);
 }
 
 template <typename T>
@@ -483,22 +298,7 @@ ATF_API int atf_vp2_sweep_strided(
     double tik2, int with_rad, const double* edges, void* stream) {
   if (!tables_ok(kn, cn)) return (int)cudaErrorInvalidValue;
   ATF_DISPATCH(dtype, device,
-               launch_vp2_open<T>(0, rhs, Tf, code, glo, ghi, gsl, gsh, out,
-                                  scratch, B1, n, B2, ktab, kn, ctab, cn,
-                                  inv_dtor, h_lo, h_hi, tinf, rc, tik, tik2,
-                                  with_rad, edges, (cudaStream_t)stream));
-}
-
-ATF_API int atf_vp2_sweep_z_cols(
-    int dtype, int device, const void* rhs, const void* Tf, const void* code,
-    const void* glo, const void* ghi, const void* gsl, const void* gsh,
-    void* out, void* scratch, int64_t B1, int64_t n, int64_t B2,
-    const double* ktab, int kn, const double* ctab, int cn, double inv_dtor,
-    double h_lo, double h_hi, double tinf, double rc, double tik,
-    double tik2, int with_rad, const double* edges, void* stream) {
-  if (!tables_ok(kn, cn) || B2 != 1) return (int)cudaErrorInvalidValue;
-  ATF_DISPATCH(dtype, device,
-               launch_vp2_open<T>(1, rhs, Tf, code, glo, ghi, gsl, gsh, out,
+               launch_vp2_open<T>(rhs, Tf, code, glo, ghi, gsl, gsh, out,
                                   scratch, B1, n, B2, ktab, kn, ctab, cn,
                                   inv_dtor, h_lo, h_hi, tinf, rc, tik, tik2,
                                   with_rad, edges, (cudaStream_t)stream));

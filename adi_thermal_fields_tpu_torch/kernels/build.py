@@ -83,8 +83,8 @@ _SIGNATURES = {
                              _I),
     "atf_vp2_sweep_strided": ([_I, _I, *[_P] * 9, _I64, _I64, _I64, _DP, _I,
                                _DP, _I, *[_D] * 7, _I, _DP, _P], _I),
-    "atf_vp2_sweep_z_cols": ([_I, _I, *[_P] * 9, _I64, _I64, _I64, _DP, _I,
-                              _DP, _I, *[_D] * 7, _I, _DP, _P], _I),
+    "atf_vp2_sweep_z_general": ([_I, _I, *[_P] * 9, _I64, _I64, _DP, _I,
+                                 _DP, _I, *[_D] * 7, _I, _DP, _P], _I),
     "atf_vp2_cyclic_phi": ([_I, _I, *[_P] * 6, _I64, _I64, _I64, _DP, _I,
                             _DP, _I, *[_D] * 6, _I, _P], _I),
     "atf_vp_fields_sweep_strided": ([_I, _I, *[_P] * 8, _I64, _I64, _I64,

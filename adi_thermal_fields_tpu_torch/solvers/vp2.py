@@ -8,9 +8,9 @@ Counterpart: ``adi_thermal_fields_tpu/solvers/pallas_vp2.py`` —
 
 * ``fused_vp2_sweep`` with ``nat_rhs_out=True`` (streaming site :611, body
   ``_vp2_kernel`` :201-389) -> K8 ``vp2_sweep_z``, the sweep along the
-  contiguous z axis: the Cartesian form (scalar columns, symmetric films,
-  ``csrc/vp2_sweep.cu``) and the general form (per-row columns, h_lo !=
-  h_hi, domain-edge films; ``csrc/vp2_cyl.cu``);
+  contiguous z axis: the Cartesian form (scalar columns, symmetric films)
+  and the general form (per-row columns, h_lo != h_hi, domain-edge films),
+  one kernel in ``csrc/vp2_sweep.cu``;
 * ``fused_vp2_sweep`` in its solve-leading forms (pipelined site :539, body
   ``_vp2_pipe_kernel`` :1109; streaming site :611 without ``nat_rhs_out``)
   -> K15 ``vp2_sweep_strided``, the sweep along axis 0 (cylindrical r);
@@ -49,12 +49,14 @@ cylindrical step moves its z code to (z, r, phi)), so nothing is
 transposed.
 
 The plain versions build the rows with one tensor op per operation and
-solve them with ``thomas`` / ``cyclic_thomas``; K15 and K8's general form
-repeat that arithmetic one IEEE rounding at a time.  K8's Cartesian form
-forms the same rows bit for bit but solves each line split across a warp
-(the split-line core of ``csrc/split_line.cuh``), not in Thomas order:
-within a few float32 ulp of the output's scale.  K16 forms its rows bit
-for bit and solves them split across the block's warps with the wrap by
+solve them with ``thomas`` / ``cyclic_thomas``; K15 repeats that
+arithmetic one IEEE rounding at a time.  K8 (both forms) forms the same
+rows bit for bit but solves each line split across a warp (the split-line
+core of ``csrc/split_line.cuh``), not in Thomas order: within a few
+float32 ulp of the output's scale; at float32 its general form solves a
+line with a row past ``kK8Stiff`` (``csrc/vp2_sweep.cu``) again in Thomas
+order, bit for bit ``thomas``.  K16 forms its rows bit for bit and
+solves them split across the block's warps with the wrap by
 Sherman-Morrison (``csrc/split_cyclic.cuh``), except on blocks of stiff
 rings (past ``kK16Stiff`` in ``csrc/vp2_cyl.cu``), which it solves in
 Thomas order, bit for bit ``cyclic_thomas``, and refuses lines too long
@@ -74,6 +76,7 @@ from ..bc.radiation import STEFAN_BOLTZMANN
 from ..kernels import (check_kernel_inputs, check_vectors, dtype_code,
                        load_library, ptr, raise_on_error, stream_ptr,
                        use_kernel)
+from .fields import stiff_flags
 from .thomas import cyclic_thomas, thomas
 from .varprop import _table_arg, eval_spec, harm
 
@@ -224,11 +227,11 @@ def _edge_arg(edges, emissivity: float):
     return (ctypes.c_double * 12)(*flat)
 
 
-def _launch_open(entry, name, rhs, T, code, glo, ghi, gsl, gsh, inv_dtor,
-                 axis, *, k_spec, cp_spec, h_lo, h_hi, tinf, emissivity,
-                 edge0, edge1):
-    """K15 (axis 0 or 1 of a 3-D field) or K8's general form (last axis)
-    on CUDA tensors."""
+def _launch_open(name, rhs, T, code, glo, ghi, gsl, gsh, inv_dtor, axis, *,
+                 k_spec, cp_spec, h_lo, h_hi, tinf, emissivity, edge0,
+                 edge1):
+    """K15 (axis 0 or 1 of a 3-D field) or K8's general form (the last
+    axis) on CUDA tensors."""
     check_kernel_inputs(name, T, code, rhs)
     n = T.shape[axis]
     check_vectors(name, T, n, glo, ghi, gsl, gsh)
@@ -237,17 +240,24 @@ def _launch_open(entry, name, rhs, T, code, glo, ghi, gsl, gsh, inv_dtor,
     rc, tik, tik2 = _rad_args(emissivity, tinf)
     rad = emissivity > 0.0
     out = torch.empty_like(T)
-    scratch = torch.empty_like(T)
-    # the field as (B1, n, B2): B1*B2 pencils of n rows B2 apart (the z
-    # sweep's B2 is 1)
-    B1 = math.prod(T.shape[:axis])
-    sizes = (B1, n, T.numel() // (B1 * n))
-    err = getattr(load_library(), entry)(
-        dtype_code(T.dtype), T.device.index, ptr(rhs), ptr(T), ptr(code),
-        ptr(glo), ptr(ghi), ptr(gsl), ptr(gsh), ptr(out), ptr(scratch),
-        *sizes, ktab, kn, ctab, cn, float(inv_dtor), float(h_lo),
-        float(h_hi), float(tinf), rc if rad else 0.0, tik, tik2, int(rad),
-        _edge_arg((edge0, edge1), emissivity), stream_ptr(T.device))
+    lib = load_library()
+    films = (ktab, kn, ctab, cn, float(inv_dtor), float(h_lo), float(h_hi),
+             float(tinf), rc if rad else 0.0, tik, tik2, int(rad),
+             _edge_arg((edge0, edge1), emissivity), stream_ptr(T.device))
+    head = (dtype_code(T.dtype), T.device.index, ptr(rhs), ptr(T), ptr(code),
+            ptr(glo), ptr(ghi), ptr(gsl), ptr(gsh), ptr(out))
+    if axis == T.dim() - 1:
+        # K8's general form: npen lines of n contiguous rows (a flag byte a
+        # line at float32 for the stiff lines' replay)
+        npen = T.numel() // n
+        err = lib.atf_vp2_sweep_z_general(*head, ptr(stiff_flags(T, npen)),
+                                          npen, n, *films)
+    else:
+        # K15: the field as (B1, n, B2), B1*B2 pencils of n rows B2 apart;
+        # d' in a scratch field
+        B1 = math.prod(T.shape[:axis])
+        err = lib.atf_vp2_sweep_strided(*head, ptr(torch.empty_like(T)), B1,
+                                        n, T.numel() // (B1 * n), *films)
     raise_on_error(err, name)
     return out
 
@@ -280,11 +290,14 @@ def vp2_sweep_z(rhs: torch.Tensor, T: torch.Tensor, code: torch.Tensor,
     T^n, from which k, cp and the films are derived; ``code``: the z code
     in the natural layout; ``inv_dtor = rho/dt`` at the field's dtype.
 
-    Cartesian form (``csrc/vp2_sweep.cu``, each line split across a warp,
-    no c'/d' scratch): ``glo = theta/dz^2`` and ``gs = 1/dz`` numbers,
-    ``code = build_vp2_code(mask, 2, edge_exposed=True)``, the film ``h``
-    on both faces against ``t_inf``.
-    General form (``csrc/vp2_cyl.cu``; taken when ``glo`` is a tensor):
+    Both forms run on one kernel (``csrc/vp2_sweep.cu``, each line split
+    across a warp, no c'/d' scratch).  Cartesian form: ``glo =
+    theta/dz^2`` and ``gs = 1/dz`` numbers, ``code = build_vp2_code(mask,
+    2, edge_exposed=True)``, the film ``h`` on both faces against
+    ``t_inf``.
+    General form (taken when ``glo`` is a tensor; its columns staged once
+    a block; at float32 a line with a row past the kernel's stiffness
+    ratio solved again in Thomas order, bit for bit the plain version):
     per-row (n,) coupling columns ``glo``/``ghi`` (zeros at Dirichlet
     rows) and film columns ``gs``/``gsh``, the lo-face film ``h`` and the
     hi-face film ``h_hi``, both against ``t_inf``, and the domain-edge
@@ -302,11 +315,10 @@ def vp2_sweep_z(rhs: torch.Tensor, T: torch.Tensor, code: torch.Tensor,
         raise ValueError(f"vp2_sweep_z: field must be 3-D, got {rhs.dim()}")
     if general:
         out = _launch_open(
-            "atf_vp2_sweep_z_cols", "vp2_sweep_z", rhs, T, code, glo,
-            glo if ghi is None else ghi, gs, gs if gsh is None else gsh,
-            inv_dtor, 2, k_spec=k_spec, cp_spec=cp_spec, h_lo=h,
-            h_hi=h if h_hi is None else h_hi, tinf=t_inf,
-            emissivity=emissivity, edge0=edge0, edge1=edge1)
+            "vp2_sweep_z", rhs, T, code, glo, glo if ghi is None else ghi,
+            gs, gs if gsh is None else gsh, inv_dtor, 2, k_spec=k_spec,
+            cp_spec=cp_spec, h_lo=h, h_hi=h if h_hi is None else h_hi,
+            tinf=t_inf, emissivity=emissivity, edge0=edge0, edge1=edge1)
         vp2_sweep_z.launches += 1
         return out
     if ghi is not None or gsh is not None or edge0 is not None \
@@ -371,9 +383,9 @@ def vp2_sweep_strided(rhs: torch.Tensor | None, T: torch.Tensor,
             rhs, T, code, glo, ghi, gsl, gsh, inv_dtor, k_spec=k_spec,
             cp_spec=cp_spec, h_lo=h_lo, h_hi=h_hi, tinf_void=tinf_void,
             emissivity=emissivity, edge0=edge0, edge1=edge1)
-    out = _launch_open("atf_vp2_sweep_strided", "vp2_sweep_strided", rhs, T,
-                       code, glo, ghi, gsl, gsh, inv_dtor, 0, k_spec=k_spec,
-                       cp_spec=cp_spec, h_lo=h_lo, h_hi=h_hi, tinf=tinf_void,
+    out = _launch_open("vp2_sweep_strided", rhs, T, code, glo, ghi, gsl,
+                       gsh, inv_dtor, 0, k_spec=k_spec, cp_spec=cp_spec,
+                       h_lo=h_lo, h_hi=h_hi, tinf=tinf_void,
                        emissivity=emissivity, edge0=edge0, edge1=edge1)
     vp2_sweep_strided.launches += 1
     return out
@@ -420,10 +432,10 @@ def vp2_sweep_y(rhs: torch.Tensor, T: torch.Tensor, code: torch.Tensor,
         raise ValueError(f"vp2_sweep_y: field must be 3-D, got {T.dim()}")
     g, s = (torch.full((T.shape[1],), float(v), dtype=T.dtype,
                        device=T.device) for v in (glo, gs))
-    out = _launch_open("atf_vp2_sweep_strided", "vp2_sweep_y", rhs, T, code,
-                       g, g, s, s, inv_dtor, 1, k_spec=k_spec,
-                       cp_spec=cp_spec, h_lo=h, h_hi=h, tinf=t_inf,
-                       emissivity=emissivity, edge0=None, edge1=None)
+    out = _launch_open("vp2_sweep_y", rhs, T, code, g, g, s, s, inv_dtor, 1,
+                       k_spec=k_spec, cp_spec=cp_spec, h_lo=h, h_hi=h,
+                       tinf=t_inf, emissivity=emissivity, edge0=None,
+                       edge1=None)
     vp2_sweep_y.launches += 1
     return out
 

@@ -112,14 +112,15 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    C with cells exactly at the solidus and liquidus, and K22 on K18's
    rows (the fields tier's); K16, K18 and K22 also on CYCLIC_SHAPES at
    float32 (lines of 3 rows also float64); max |delta| (gates P8_TOL;
-   K17, K18 and K22, whose lines are split across threads, also within
-   KERNEL_TOL_ULP float32 ulp of the output's scale, KERNEL_TOL_F64 of it
-   at float64), kernel and plain ms, % of 3.35 TB/s under each byte
-   model.  K17 r and z and K21 on the same rows, K18 and K22 on its rows
-   (the fields tier's), also on the tube at 10x the step's dt (blocks
-   past kOpenStiff or kCyclicFieldStiff: Thomas order) and K17 on
-   8192-row lines (8192x64x64 r, 64x64x8192 z), within KERNEL_TOL_ULP
-   (K18 also P8_TOL).
+   K8's general form, K17, K18 and K22, whose lines are split across
+   threads, also within KERNEL_TOL_ULP float32 ulp of the output's scale,
+   KERNEL_TOL_F64 of it at float64), kernel and plain ms, % of 3.35 TB/s
+   under each byte model.  K8's general form, K17 r and z and K21 on the
+   same rows, K18 and K22 on its rows (the fields tier's), also on the
+   tube at 10x the step's dt (lines past kK8Stiff, blocks past kOpenStiff
+   or kCyclicFieldStiff: Thomas order) and K8's general form (a 64x64x8192
+   tube) and K17 on 8192-row lines (8192x64x64 r, 64x64x8192 z), within
+   KERNEL_TOL_ULP (K8's general form and K18 also P8_TOL).
    Its step part: bench.py's cyl_varprop configuration at (64, 512, 1024)
    float32 (melt_pool_enhanced_k(54, 1420, 1470, 4), apparent_cp(490,
    490, 2.7e5, 1420, 1470), emissivity 0.5, h 300 outside, 50 inside, 400
@@ -1554,6 +1555,16 @@ def line_streams(torch, shape, axis, dev, seed):
     return streams, 4e6 * (1.0 + 0.1 * rnd(shape[axis]))
 
 
+def k8_general_kw(torch, grid, cols):
+    """K8's general form's keywords in phase 8: the z columns of the
+    cylindrical step (ghi = glo, zero at Dirichlet rows; gsh = gsl), lo
+    and hi films of 80 and 200 W/m^2K, the top edge film, radiation."""
+    kt, ct = varprop_tables()
+    return dict(k_spec=kt, cp_spec=ct, ghi=cols["geo_z"], gsh=cols["gs_z"],
+                h=80.0, h_hi=200.0, t_inf=20.0, emissivity=EMISSIVITY,
+                edge1=(400.0, 1.0 / grid.dz, 20.0))
+
+
 def phase2_cylvp(torch, dev):
     """K15, K16, K8's general form, K17 and K18 against their plain
     versions (float32 and float64), and K22 on K18's rows."""
@@ -1587,9 +1598,7 @@ def phase2_cylvp(torch, dev):
         rc = (cols["glo_r"], cols["ghi_r"], cols["gsl_r"], cols["gsh_r"])
         pk = dict(k_spec=kt, cp_spec=ct, h_void=80.0, tinf_void=20.0,
                   emissivity=EMISSIVITY)
-        zk = dict(k_spec=kt, cp_spec=ct, ghi=cols["geo_z"], gsh=cols["gs_z"],
-                  h=80.0, h_hi=200.0, t_inf=20.0, emissivity=EMISSIVITY,
-                  edge1=(400.0, 1.0 / grid.dz, 20.0))
+        zk = k8_general_kw(torch, grid, cols)
         # the stream tier's inputs, built from T as the step builds them
         sr, sz = k17_streams(torch, grid, mat, mask, T, R, P8_DT)
         sp = (R, cvp._face_phi(kt(T), mask), *sr[2:])
@@ -1654,7 +1663,7 @@ def phase2_cylvp(torch, dev):
                   f"{nbytes / cells:.2f} B/cell", flush=True)
             check(err <= tol, f"{kname} {vname} {where}: max|d| "
                   f"{err:.3e} K > {tol:.0e} K")
-            if kname in ("K17", "K18", "K22"):
+            if kname in ("K8", "K17", "K18", "K22"):
                 # lines split across threads: also KERNEL_TOL_ULP float32
                 # ulp of the output's scale, KERNEL_TOL_F64 of it at
                 # float64
@@ -1666,10 +1675,11 @@ def phase2_cylvp(torch, dev):
             del got, want
         del T, R, variants, sr, sz, sp, ap
         torch.cuda.empty_cache()
-    # K17 and K18 (and K21 and K22 on the same rows, the fields tier's) on
-    # the tube at 10x the step's dt (rows past kOpenStiff and
-    # kCyclicFieldStiff: Thomas order), K17 on 8192-row lines (the core's
-    # global reduced rows; z past its staging)
+    # K8's general form, K17 and K18 (and K21 and K22 on the same rows,
+    # the fields tier's) on the tube at 10x the step's dt (rows past
+    # kK8Stiff, kOpenStiff and kCyclicFieldStiff: Thomas order), K8's
+    # general form and K17 on 8192-row lines (the core's global reduced
+    # rows; z past its staging)
     from adi_thermal_fields_tpu_torch.solvers import (tridiag_fields,
                                                       tridiag_fields_plain)
     label, shape, _ = P8_SHAPES[0]
@@ -1679,6 +1689,17 @@ def phase2_cylvp(torch, dev):
     cols = cvp._vp2_columns(grid, zbc, torch.float32, dev)
     sr, sz = k17_streams(torch, grid, mat, mask, T, R, 10.0 * P8_DT)
     where = f"{label} float32, 10x dt"
+    f32 = np.float32
+    code_z = cvp.build_cyl_vp2_plan(mask, grid, zbc)[2]
+    zargs = (R, T, code_z, cols["geo_z"], cols["gs_z"],
+             float(f32(1.0) / f32(f32(10.0 * P8_DT) / f32(mat.rho))))
+    zk = k8_general_kw(torch, grid, cols)
+    rows.append(kernel_row(torch, "K8", "z, cylindrical", where,
+                           (R, T, code_z),
+                           lambda: vp2_sweep_z(*zargs, **zk),
+                           lambda: vp2_sweep_z_plain(*zargs, **zk),
+                           tol_k=P8_TOL["float32"], scale_too=True))
+    del code_z, zargs
     for vname, st, axis, gl, gh, kern, plain in (
             ("r", sr, 0, cols["glo_r"], cols["ghi_r"],
              vp_fields_sweep_strided, vp_fields_sweep_strided_plain),
@@ -1704,6 +1725,23 @@ def phase2_cylvp(torch, dev):
                            lambda: cyclic_fields(*ap, 1),
                            lambda: cyclic_fields_plain(*ap, 1)))
     del T, R, sr, sz, sp, ap, mask
+    torch.cuda.empty_cache()
+    # K8's general form on the tube's radii and phi at 8192 z rows
+    label = f"{'x'.join(map(str, LONG_LINES[2]))} tube"
+    grid, mat, mask, zbc, T = cylvp_case(torch, label, LONG_LINES[2],
+                                         torch.float32, dev)
+    R = random_field(torch, mask, seed=43)
+    code_z = cvp.build_cyl_vp2_plan(mask, grid, zbc)[2]
+    cols = cvp._vp2_columns(grid, zbc, torch.float32, dev)
+    zargs = (R, T, code_z, cols["geo_z"], cols["gs_z"],
+             float(f32(1.0) / f32(f32(P8_DT) / f32(mat.rho))))
+    zk = k8_general_kw(torch, grid, cols)
+    rows.append(kernel_row(torch, "K8", "z, cylindrical",
+                           f"{label} float32", (R, T, code_z),
+                           lambda: vp2_sweep_z(*zargs, **zk),
+                           lambda: vp2_sweep_z_plain(*zargs, **zk),
+                           tol_k=P8_TOL["float32"], scale_too=True))
+    del T, R, code_z, zargs, mask
     torch.cuda.empty_cache()
     for vname, shape, axis, kern, plain in (
             ("r", LONG_LINES[0], 0, vp_fields_sweep_strided,

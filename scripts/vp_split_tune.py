@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
-"""The varprop sweeps on the split-line core (K6, K7, K7x, K8, K19:
-csrc/varprop_sweeps.cu, csrc/vp2_sweep.cu, csrc/varprop_z.cu,
-csrc/split_line.cuh) on one CUDA card: their register and spill report, a
-check against the plain versions over odd shapes, and their times.
+"""The varprop sweeps on the split-line core (K6, K7, K7x, K8 and its
+general form "K8g", K19: csrc/varprop_sweeps.cu, csrc/vp2_sweep.cu,
+csrc/varprop_z.cu, csrc/split_line.cuh) on one CUDA card: their register
+and spill report, a check against the plain versions over odd shapes, and
+their times; or (``--bins``) K8's general form's distance from its plain
+version against the lines' stiffness.
 
     python3 scripts/vp_split_tune.py [--quick] [--kernels K6,K19]
                                      [--set NAME=VALUE ...]
                                      [--sub OLD=NEW ...]
+    python3 scripts/vp_split_tune.py --bins 17,23,31,47,59:1,3,10
+                                     [--set kK8Stiff=1e30 ...]
 
 Prints one line per case.  Checks (float32 within 8 float32 ulp of the
 output's scale, float64 within 1e-12 of it): lines of 1 to 12,000 rows,
@@ -26,10 +30,27 @@ clamp_sum_rn=clamp_sum`` (a text substitution, wherever OLD occurs in
 them) measures a copy of the package under build/tune/ so changed;
 ``--quick`` skips the checks and times the 256^3, 384^3, 512^3 and
 8192-row z lines alone.
+``--bins SEEDS:DTS`` runs K8's general form alone, on chip_smoke.py phase
+8's (64, 512, 1024) tube (float32) and (37, 203, 131) disk (float32 and
+float64) with T over 1400-1500 C (the melt-pool k x4 above 1470) and the
+rhs drawn from each seed, at each multiple of the step's dt, and prints
+one JSON line per shape, seed and dt: the lines' largest stiffness ratio
+(|a| + |c|) / (b - |a| - |c|) of the plain version's rows (a[0] and
+c[n-1] dropped), the share of lines past kK8Stiff (solved again in Thomas
+order at float32), the max |delta| from the plain version (K and float32
+ulp of the output's scale), the CUDA-event median ms (first seed), and
+per bin of the lines' largest ratio the count of lines, their largest
+|delta| and the largest distances of the plain version and of the kernel
+from the float64 solve of the same rows.  ``--set kK8Stiff=1e30`` splits
+every line; ``--sub 'Chunk<T, M, false> ch;=Chunk<T, M, false, true> ch;'
+--sub 'warp_reduced(ch.a[0]=warp_reduced<T, true>(ch.a[0]'`` takes
+rounded divisions in the chunks and phase (b) in registers instead of the
+hardware reciprocal.
 """
 import contextlib
 import importlib.util
 import io
+import json
 import math
 import os
 import re
@@ -41,7 +62,9 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "adi_thermal_fields_tpu_torch"
 SOURCES = ("vp2_sweep.cu", "varprop_sweeps.cu", "varprop_z.cu",
            "split_line.cuh")
-KERNELS = ("K6", "K7", "K7x", "K8", "K19")
+KERNELS = ("K6", "K7", "K7x", "K8", "K8g", "K19")
+# bins of a line's largest |a| + |c| over b - |a| - |c|
+EDGES = (0, 1, 2, 4, 8, 12, 16, 24, 32, 48, 64, 96, 128, 256, float("inf"))
 
 
 def patched_copy(sets, subs):
@@ -87,6 +110,8 @@ def ptxas_report(build_library):
     for part in buf.getvalue().split("Compiling entry function")[1:]:
         name = part.split("'")[1]
         if not any(k in name for k in ("vp2_sweep_z_kernel",
+                                        "vp2_sweep_z_general_kernel",
+                                        "staged_replay_kernel",
                                         "vp_sweep_z_kernel",
                                         "split_strided_kernel",
                                         "sweep_strided_kernel")):
@@ -111,7 +136,8 @@ def measure(root, quick, kernels):
         varprop_fields_plain, varprop_sweep_x, varprop_sweep_x_plain,
         varprop_sweep_y, varprop_sweep_y_plain, varprop_sweep_z,
         varprop_sweep_z_plain, varprop_theta_rhs, varprop_theta_sweep,
-        varprop_theta_sweep_plain, vp2_sweep_z, vp2_sweep_z_plain)
+        varprop_theta_sweep_plain, build_vp2_code, vp2_sweep_z,
+        vp2_sweep_z_plain)
     from adi_thermal_fields_tpu_torch.step.cartesian_varprop import (
         build_varprop_codes)
 
@@ -143,6 +169,18 @@ def measure(root, quick, kernels):
         yk = (R, codes[1], fc[1], w, sc["tg"][1], sc["sk"][1], 20.0)
         zk = (R, T, codes[2], sc["glo"], sc["gs"], sc["inv_dtor"])
         zkw = dict(k_spec=kt, cp_spec=ct, h=cs.H_CONV, t_inf=20.0)
+        # K8's general form: distinct per-row columns, both edge films
+        n = shape[2]
+        gcol = (lambda v: v * (1.0 + 0.2 * torch.rand(
+            n, generator=torch.Generator(device=dev).manual_seed(seed + n),
+            device=dev)).to(dtype))
+        zg = (R, T, build_vp2_code(mask, 2), gcol(sc["glo"]), gcol(sc["gs"]),
+              sc["inv_dtor"])
+        zgw = dict(k_spec=kt, cp_spec=ct, ghi=gcol(sc["glo"]),
+                   gsh=gcol(sc["gs"]), h=cs.H_CONV, h_hi=2.0 * cs.H_CONV,
+                   t_inf=20.0, emissivity=cs.EMISSIVITY,
+                   edge0=(300.0, sc["gs"], 30.0),
+                   edge1=(400.0, sc["gs"], 15.0))
         th = (T, codes[0], *fc, w, sc["cw"], sc["inv_d2"], sc["tg"][0],
               sc["sk"][0], 20.0)
         src = torch.where(mask, 1e8 * torch.rand(shape, device=dev),
@@ -176,6 +214,8 @@ def measure(root, quick, kernels):
                                        **zkw)),
             ("K8 z conv", 13, lambda: vp2_sweep_z(*zk, **zkw),
              lambda: vp2_sweep_z_plain(*zk, **zkw)),
+            ("K8g z general", 13, lambda: vp2_sweep_z(*zg, **zgw),
+             lambda: vp2_sweep_z_plain(*zg, **zgw)),
         ]
 
     def runs(name, which):
@@ -184,12 +224,12 @@ def measure(root, quick, kernels):
 
     # (shape, which kernels): K6, K7x solve along axis 0, K7 along axis 1,
     # K8 and K19 along axis 2
-    checks = [((37, 45, 70), "K6 K7 K7x K8 K19"),
-              ((3, 1, 1), "K6 K7 K7x K8 K19"),
-              ((2, 3, 33), "K6 K7 K7x K8 K19"), ((4, 7, 256), "K8 K19"),
-              ((4, 7, 257), "K8 K19"), ((3, 5, 513), "K8 K19"),
-              ((2, 3, 1030), "K8 K19"), ((2, 3, 8192), "K8 K19"),
-              ((1, 3, 12000), "K8 K19"),
+    checks = [((37, 45, 70), "K6 K7 K7x K8 K8g K19"),
+              ((3, 1, 1), "K6 K7 K7x K8 K8g K19"),
+              ((2, 3, 33), "K6 K7 K7x K8 K8g K19"),
+              ((4, 7, 256), "K8 K8g K19"), ((4, 7, 257), "K8 K8g K19"),
+              ((3, 5, 513), "K8 K8g K19"), ((2, 3, 1030), "K8 K8g K19"),
+              ((2, 3, 8192), "K8 K8g K19"), ((1, 3, 12000), "K8 K8g K19"),
               ((3, 200, 37), "K7"), ((3, 500, 37), "K7"),
               ((5, 1100, 7), "K7"), ((5, 2200, 7), "K7"),
               ((2, 4500, 9), "K7"), ((1, 8192, 40), "K7"),
@@ -223,9 +263,9 @@ def measure(root, quick, kernels):
     f32, f64 = torch.float32, torch.float64
     timed = (("256^3 waam", (256,) * 3, True, "K6 K7 K7x K8 K19", f32),
              ("384^3 waam", (384,) * 3, True, "K19", f32),
-             ("512^3 waam", (512,) * 3, True, "K6 K7 K7x K8 K19", f32),
+             ("512^3 waam", (512,) * 3, True, "K6 K7 K7x K8 K8g K19", f32),
              ("512^3 waam f64", (512,) * 3, True, "K6 K7x K19", f64),
-             ("64x64x8192", (64, 64, 8192), False, "K8 K19", f32),
+             ("64x64x8192", (64, 64, 8192), False, "K8 K8g K19", f32),
              ("8192x64x64", (8192, 64, 64), False, "K6 K7 K7x K8 K19", f32),
              ("64x8192x64", (64, 8192, 64), False, "K7", f32))
     for label, shape, waam, which, dtype in (timed[:5] if quick
@@ -245,24 +285,135 @@ def measure(root, quick, kernels):
         torch.cuda.empty_cache()
 
 
+def line_max(t):
+    """The largest value of each line (the last axis) of ``t``."""
+    return t.amax(dim=-1).reshape(-1)
+
+
+def bins(root, seeds, dts):
+    """K8's general form against its plain version, line by line, binned
+    by the lines' stiffness (module docstring)."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from adi_thermal_fields_tpu_torch.bc.faces import shift_in
+    from adi_thermal_fields_tpu_torch.kernels.build import build_library
+    from adi_thermal_fields_tpu_torch.solvers import (thomas, vp2_sweep_z,
+                                                      vp2_sweep_z_plain)
+    from adi_thermal_fields_tpu_torch.solvers.vp2 import (_faces_hi,
+                                                          _open_films,
+                                                          _scaled_rows)
+    from adi_thermal_fields_tpu_torch.step import cylindrical_varprop as cvp
+
+    dev = torch.device("cuda", 0)
+    _, secs = build_library()
+    print(f"card: {torch.cuda.get_device_name(0)}; package {root}; library "
+          f"build {secs:.1f} s", flush=True)
+    stiff = float(re.search(r"constexpr double kK8Stiff = ([^;]+);", open(
+        os.path.join(root, PKG, "csrc", "vp2_sweep.cu")).read()).group(1))
+    kt, ct = cs.varprop_tables()
+    for label, shape, prec in cs.P8_SHAPES:
+        dtype = getattr(torch, prec)
+        f = getattr(np, prec)
+        grid, mat, mask, zbc, _ = cs.cylvp_case(torch, label, shape, dtype,
+                                                dev)
+        code = cvp.build_cyl_vp2_plan(mask, grid, zbc)[2]
+        cols = cvp._vp2_columns(grid, zbc, dtype, dev)
+        glo, gs = cols["geo_z"], cols["gs_z"]
+        films = dict(h=80.0, h_hi=200.0, t_inf=20.0,
+                     emissivity=cs.EMISSIVITY,
+                     edge1=(400.0, 1.0 / grid.dz, 20.0))
+        for seed in seeds:
+            g = torch.Generator(device=dev).manual_seed(seed)
+            T = torch.where(mask, 1400.0 + 100.0 * torch.rand(
+                shape, generator=g, device=dev), 20.0)
+            T.view(-1)[seed::97] = cs.SOLIDUS
+            T.view(-1)[31 + seed::101] = cs.LIQUIDUS
+            T = T.to(dtype)
+            R = cs.random_field(torch, mask, seed + 1).to(dtype)
+            for dtm in dts:
+                inv = float(f(1.0) / f(f(dtm * cs.P8_DT) / f(mat.rho)))
+                args = (R, T, code, glo, gs, inv)
+                kw = dict(k_spec=kt, cp_spec=ct, ghi=glo, gsh=gs, **films)
+                fn = (lambda: vp2_sweep_z(*args, **kw))
+                got = fn()
+                want = vp2_sweep_z_plain(*args, **kw)
+                # the plain version's rows
+                fhi = _faces_hi(T, code, kt, 2)
+                sink, srhs = _open_films(
+                    T, code, gs, gs, 2, films["h"], films["h_hi"],
+                    films["t_inf"], films["emissivity"], None,
+                    films["edge1"])
+                a, b, c, d = _scaled_rows(
+                    R, T, ct, inv, glo * shift_in(fhi, 2, -1, fill=0.0),
+                    glo * fhi, sink, srhs)
+                a[..., 0] = 0.0
+                c[..., -1] = 0.0
+                off = a.abs() + c.abs()
+                ratio = line_max((off / (b - off)).double())
+                mv = (lambda t: t.double().movedim(2, 0))
+                exact = thomas(mv(a), mv(b), mv(c), mv(d)).movedim(0, 2)
+                torch.cuda.synchronize()
+                err = line_max((got - want).abs().double())
+                e_plain = line_max((want.double() - exact).abs())
+                e_kern = line_max((got.double() - exact).abs())
+                ulp = torch.finfo(torch.float32).eps * float(
+                    want.abs().max())
+                rows = []
+                for lo, hi in zip(EDGES[:-1], EDGES[1:]):
+                    sel = (ratio >= lo) & (ratio < hi)
+                    if bool(sel.any()):
+                        rows.append(dict(
+                            ratio=[lo, hi], lines=int(sel.sum()),
+                            err=float(err[sel].max()),
+                            err_ulp=float(err[sel].max()) / ulp,
+                            plain_vs_exact=float(e_plain[sel].max()),
+                            kernel_vs_exact=float(e_kern[sel].max())))
+                rec = dict(
+                    kernel="K8g", shape=label, dtype=prec, seed=seed,
+                    dt_multiple=dtm, max_ratio=float(ratio.max()),
+                    replayed=(float((ratio > stiff).double().mean())
+                              if dtype == torch.float32 else 0.0),
+                    max_abs_err=float(err.max()),
+                    err_ulp=float(err.max()) / ulp,
+                    ms=cs.cuda_ms(torch, fn, 20) if seed == seeds[0]
+                    else None, bins=rows)
+                print(json.dumps(rec), flush=True)
+                del got, want, a, b, c, d, exact, fhi, sink, srhs
+            del T, R
+            torch.cuda.empty_cache()
+
+
 def main():
     args = sys.argv[1:]
     if args[:1] == ["--measure"]:
         measure(args[1], args[2] == "--quick", args[3].split(","))
         return
+    if args[:1] == ["--bins-run"]:
+        seeds, dts = args[2].split(":")
+        bins(args[1], [int(v) for v in seeds.split(",")],
+             [float(v) for v in dts.split(",")])
+        return
     quick = "--quick" in args
     args = [a for a in args if a != "--quick"]
-    sets, subs, kernels = [], [], ",".join(KERNELS)
+    sets, subs, kernels, binspec = [], [], ",".join(KERNELS), None
     for flag, value in zip(args[::2], args[1::2]):
         if flag == "--kernels":
             kernels = value
+        elif flag == "--bins":
+            binspec = value
         else:
             (sets if flag == "--set" else subs).append(value)
     root = patched_copy(sets, subs) if sets or subs else HERE
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--measure", root,
-                           "--quick" if quick else "--full", kernels])
-    sys.exit(proc.returncode)
+    cmd = ([sys.executable, os.path.abspath(__file__), "--bins-run", root,
+            binspec] if binspec else
+           [sys.executable, os.path.abspath(__file__), "--measure", root,
+            "--quick" if quick else "--full", kernels])
+    sys.exit(subprocess.run(cmd).returncode)
 
 
 if __name__ == "__main__":

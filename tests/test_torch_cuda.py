@@ -1285,3 +1285,159 @@ def test_vp2_y_switch_on_card(flag, launches, monkeypatch):
     assert float((got - res[(flag, "cpu")]).abs().max()) <= 2e-3
     off = res[(False, "cpu")]
     assert bool(((got - off).abs() <= 5e-3 + 2e-5 * off.abs()).all())
+
+
+# K8's general form on K8's split-line kernel: lines of 1-3 rows, several
+# lines a warp (n <= 16 chunks), one and several chunks a lane, n no
+# multiple of the chunk, 8192-row lines (the core's strided kernel), and
+# films, edge films, Dirichlet rows and distinct or shared columns.
+VP2_GENERAL_SHAPES = ((3, 5, 1), (4, 3, 2), (3, 7, 3), (5, 9, 70),
+                      (3, 5, 256), (3, 5, 257), (3, 4, 700), (2, 3, 1024),
+                      (2, 2, 1030), (1, 3, 5000), (2, 2, 8192))
+
+
+def _vp2_general_calls(shape, dtype, seed, dt=0.02):
+    """(name, kernel, plain) of K8's general form on ``shape``: shared
+    columns with Dirichlet end rows (the cylindrical step's), distinct
+    columns with both edge films, with and without radiation."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(seed)
+    n = shape[2]
+    act = torch.from_numpy(rng.random(shape) > 0.2).to(dev)
+    cast = (lambda a: torch.from_numpy(np.asarray(a)).to(dev, dtype))
+    T = cast(np.where(act.cpu().numpy(),
+                      1350.0 + 200.0 * rng.random(shape), 20.0))
+    T.view(-1)[::7] = 1420.0
+    T.view(-1)[3::11] = 1470.0
+    R = cast(20.0 + 1480.0 * rng.random(shape))
+    f = np.float32 if dtype == torch.float32 else np.float64
+    inv = float(f(1.0) / f(f(dt) / f(7800.0)))
+    tabs = dict(k_spec=melt_pool_enhanced_k(54.0, 1420.0, 1470.0, 4.0),
+                cp_spec=apparent_cp(490.0, 490.0, 2.7e5, 1420.0, 1470.0))
+    geo = np.full(n, 4e6)
+    geo[[0, n - 1]] = 0.0                      # Dirichlet end rows
+    code_d = build_vp2_code(act, 2, clear_rows=(0, n - 1))
+    code = build_vp2_code(act, 2)
+    glo, ghi = (cast(4e6 * (1.0 + 0.2 * rng.random(n))) for _ in range(2))
+    gsl, gsh = (cast(2e3 * (1.0 + 0.2 * rng.random(n))) for _ in range(2))
+    shared = (R, T, code_d, cast(geo), cast(np.full(n, 2e3)), inv)
+    distinct = (R, T, code, glo, gsl, inv)
+    kw_s = dict(ghi=shared[3], gsh=shared[4], h=80.0, h_hi=200.0, t_inf=20.0,
+                **tabs)
+    kw_d = dict(ghi=ghi, gsh=gsh, h=60.0, h_hi=150.0, t_inf=25.0,
+                edge0=(300.0, 2.5e3, 30.0), edge1=(400.0, 2e3, 15.0), **tabs)
+    calls = []
+    for eps in (0.0, 0.5):
+        for name, args, kw in (("shared", shared, kw_s),
+                               ("distinct", distinct, kw_d)):
+            calls.append((f"{name} eps={eps}",
+                          lambda a=args, k=kw, e=eps: vp2_sweep_z(
+                              *a, emissivity=e, **k),
+                          lambda a=args, k=kw, e=eps: vp2_sweep_z_plain(
+                              *a, emissivity=e, **k)))
+    return calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float64, 1e-12),
+                                       (torch.float32, 8 * 2.0 ** -23)],
+                         ids=["f64", "f32"])
+def test_vp2_general_z_on_split_kernel_on_card(dtype, rel):
+    """K8's general form on K8's split-line kernel against its plain
+    version on odd, short and 8192-row lines, within ``rel`` of the
+    output's scale; at 10x the step's dt (rows past the stiffness ratio,
+    solved again in Thomas order at float32) too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    reset_launch_counts()
+    calls = 0
+    for i, shape in enumerate(VP2_GENERAL_SHAPES):
+        for dt in ((0.02, 0.2) if shape[2] in (70, 1024) else (0.02,)):
+            for name, kern, plain in _vp2_general_calls(shape, dtype, 90 + i,
+                                                        dt):
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                calls += 1
+                assert got.is_cuda and got.dtype == dtype
+                assert bool(torch.isfinite(got).all())
+                scale = max(1.0, float(want.abs().max()))
+                assert float((got - want).abs().max()) <= rel * scale, \
+                    (name, shape, dt)
+    assert launch_counts() == _counts(K8=calls)
+
+
+@pytest.mark.cuda
+def test_vp2_general_z_takes_no_field_sized_scratch_on_card():
+    """K8's general form solves each line on chip: one call raises the
+    allocator's peak by its output (and a flag byte a line) alone, under
+    two fields (its first version took a c'/d' scratch field)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _, kern, _ = _vp2_general_calls((64, 96, 160), torch.float32, 73)[1]
+    out = kern()                              # builds and loads the library
+    torch.cuda.synchronize()
+    del out
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = kern()
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated(dev) - base
+    field = out.numel() * out.element_size()
+    assert field <= rise < 2 * field, (rise, field)
+
+
+# K23's plane march: tiles of 8 y rows x 128 z cells, ragged in y and z
+# (nz no multiple of 4: no vector access), dimensions of 1, one plane,
+# and x cut into segments.
+GSTREAM_SHAPES = ((37, 45, 70), (5, 9, 131), (3, 17, 128), (1, 1, 1),
+                  (7, 1, 5), (1, 13, 1), (2, 8, 256), (64, 3, 4),
+                  (130, 10, 12))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64],
+                         ids=["f32", "bf16", "f64"])
+def test_gstream_fields_on_ragged_tiles_on_card(dtype):
+    """K23 against its plain version bit for bit on ragged tiles, in each
+    film mode, with and without a source, on masks with voids."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from adi_thermal_fields_tpu_torch.solvers import (gstream_fields,
+                                                      gstream_fields_plain)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tabs = dict(k_spec=melt_pool_enhanced_k(54.0, 1420.0, 1470.0, 4.0),
+                cp_spec=apparent_cp(490.0, 520.0, 2.7e5, 1420.0, 1470.0),
+                rho=7800.0)
+    tg3, sk3 = (1.5e-3, 1.4e-3, 1.6e-3), (49.0, 51.0, 47.0)
+    reset_launch_counts()
+    calls = 0
+    for i, shape in enumerate(GSTREAM_SHAPES):
+        rng = np.random.default_rng(80 + i)
+        mask_np = rng.random(shape) > 0.3
+        m8 = torch.from_numpy(mask_np).to(dev, torch.uint8)
+        cast = (lambda a: torch.from_numpy(a).to(dev, torch.float64)
+                .to(dtype))
+        T = cast(np.where(mask_np, 20.0 + 1580.0 * rng.random(shape), 20.0))
+        T.view(-1)[::7] = 1420.0
+        h = cast(50.0 + 100.0 * rng.random(shape))
+        src = cast(rng.random(shape) * 1e8)
+        for kw in (dict(h_mode="const", hpar=30.0),
+                   dict(h_mode="stream", h=h),
+                   dict(h_mode="rad", hpar=0.5, h_conv=30.0, t_inf=20.0)):
+            for s in (None, src):
+                got = gstream_fields(T, m8, tg3, sk3, dt=0.02, src=s, **tabs,
+                                     **kw)
+                want = gstream_fields_plain(T, m8, tg3, sk3, dt=0.02, src=s,
+                                            **tabs, **kw)
+                calls += 1
+                torch.cuda.synchronize()
+                for a, b in zip([*got[0], *got[1], *got[2], got[3]],
+                                [*want[0], *want[1], *want[2], want[3]]):
+                    if b is None:
+                        assert a is None
+                        continue
+                    assert a.is_cuda and a.dtype == dtype
+                    assert torch.equal(a, b), (shape, kw["h_mode"])
+    assert launch_counts() == _counts(K23=calls)
