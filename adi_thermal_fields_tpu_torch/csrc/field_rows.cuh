@@ -36,13 +36,19 @@ constexpr double kOpenStiff = 16.0;
 // count).  `Chunk::load_rows` runs it on a chunk's rows once all are
 // formed: run as each row is formed, it held the strided kernel's loads
 // back (K21 at 384^3: 0.69 against 0.51 ms, PERF.md section 6).
+// `Ratio::kStiff` the ratio (K10's former its own: csrc/masked.cu).
+struct OpenRatio {
+  static constexpr double kStiff = kOpenStiff;
+};
+
+template <typename Ratio = OpenRatio>
 struct StiffCheck {
   bool& stiff;
   template <typename A>
   __device__ __forceinline__ void operator()(const A& a, const A& b,
                                              const A& c) const {
     constexpr int M = sizeof(A) / sizeof(a[0]);
-    const float q = float(kOpenStiff / (1.0 + kOpenStiff));
+    const float q = float(Ratio::kStiff / (1.0 + Ratio::kStiff));
 #pragma unroll
     for (int k = 0; k < M; ++k) {
       stiff = stiff || fabsf(a[k]) + fabsf(c[k]) > q * b[k];
@@ -51,10 +57,10 @@ struct StiffCheck {
 };
 
 // The check where the former replays (float32), else none.
-template <bool kReplay>
+template <bool kReplay, typename Ratio = OpenRatio>
 __device__ __forceinline__ auto stiff_check(bool& stiff) {
   if constexpr (kReplay) {
-    return StiffCheck{stiff};
+    return StiffCheck<Ratio>{stiff};
   } else {
     return NoCheck{};
   }
@@ -87,8 +93,10 @@ size_t open_replay_bytes(int64_t n) {
 // i.  d' goes to out and becomes x there; c' stays in shared memory `sm`,
 // the whole line's where it fits, else a segment's, formed again from a
 // checkpoint of c' (kept every S rows in the forward pass) before the
-// segment's back substitution.
-template <typename C, typename RowFn>
+// segment's back substitution.  kRecip: thomas(reciprocal=True)'s order,
+// one rounded reciprocal a row that c and d - a d' are multiplied by (K26),
+// else two rounded divisions.
+template <bool kRecip = false, typename C, typename RowFn>
 __device__ __noinline__ void open_replay(const RowFn& row, C* out,
                                          int64_t base, int64_t rs, int64_t n,
                                          bool valid, C* sm) {
@@ -109,8 +117,14 @@ __device__ __noinline__ void open_replay(const RowFn& row, C* out,
     C a, b, c, d;
     row(i, a, b, c, d);
     const C den = sub(b, mul(a, cp));
-    cp = div(c, den);
-    dp = div(sub(d, mul(a, dp)), den);
+    if constexpr (kRecip) {
+      const C inv = div(C(1), den);
+      cp = mul(c, inv);
+      dp = mul(sub(d, mul(a, dp)), inv);
+    } else {
+      cp = div(c, den);
+      dp = div(sub(d, mul(a, dp)), den);
+    }
     out[base + i * rs] = dp;
     if (nseg == 1) seg[i * 32] = cp;
   }
@@ -123,7 +137,11 @@ __device__ __noinline__ void open_replay(const RowFn& row, C* out,
       for (int64_t i = i0; i < i1; ++i) {
         C a, b, c, d;
         row(i, a, b, c, d);
-        cp = div(c, sub(b, mul(a, cp)));
+        if constexpr (kRecip) {
+          cp = mul(c, div(C(1), sub(b, mul(a, cp))));
+        } else {
+          cp = div(c, sub(b, mul(a, cp)));
+        }
         seg[(i - i0) * 32] = cp;
       }
     }
@@ -195,7 +213,8 @@ struct FieldRows {
   template <int M>
   __device__ __forceinline__ void load_staged(Chunk<T, M, false>& ch,
                                               const T* x, const T* f, int fs,
-                                              const T* cols, int cs, int j,
+                                              const T* cols, int cs,
+                                              const uint8_t*, int j,
                                               int64_t nv, bool& stiff) const {
     const int64_t row0 = (int64_t)j * M;
     const int s0 = j * (M + 1);
@@ -306,7 +325,8 @@ struct VpFieldRows {
   template <int M>
   __device__ __forceinline__ void load_staged(Chunk<T, M, false>& ch,
                                               const T* x, const T* f, int fs,
-                                              const T* cols, int cs, int j,
+                                              const T* cols, int cs,
+                                              const uint8_t*, int j,
                                               int64_t nv, bool& stiff) const {
     const int64_t row0 = (int64_t)j * M;
     const int s0 = j * (M + 1);

@@ -22,29 +22,47 @@
 //     _gsweep_kernel (:263), which JAX feeds the (z, x, y) transpose of the
 //     field and of three streams (four transposes a step,
 //     cartesian_varprop.py:516-520): here the sweep runs along the
-//     contiguous z axis of the natural field, staged through shared memory
-//     as K19 is, and the step transposes nothing.
+//     contiguous z axis of the natural field, on the staged split-line
+//     kernel of csrc/split_staged.cuh, and the step transposes nothing.
 //
 // Rows (K24-K26): a = -g_lo, c = -g_hi, b = 1 + g_lo + g_hi + sw, d = rhs
 // + sw*t_inf; no codes, no row lag (g_hi is already the cell's own upper
 // face), and void cells are identity rows because their streams are zero.
-// Eliminated with one reciprocal per row (inv = 1/(b + g_lo*c'); c' =
-// -g_hi*inv; d' = (d + g_lo*d')*inv), the TPU kernels' order.  Every
-// operation is one IEEE rounding (the _rn helpers) in the plain versions'
-// order (solvers/gstreams.py): each kernel repeats its plain version bit
-// for bit.  Types: S storage, C compute (common.cuh ATF_DISPATCH_STATE);
-// a bfloat16 state solves at float32 and stores its result to nearest or
-// stochastically (K24-K26, `key`), the streams always to nearest.
+// K24 and K25 eliminate with one reciprocal per row (inv = 1/(b +
+// g_lo*c'); c' = -g_hi*inv; d' = (d + g_lo*d')*inv), the TPU kernels'
+// order, every operation one IEEE rounding (the _rn helpers) in the plain
+// versions' order (solvers/gstreams.py): each repeats its plain version
+// bit for bit.  K26 forms the same rows one rounding each
+// (`GStreamRows`: the rows of _gsolve bit for bit) but solves them split
+// across a warp's lanes, which parts from the Thomas order by about the
+// condition number times a rounding (ratios (g_lo + g_hi) / (1 + sw)
+// below 5 at the step's dt; float32 lines past kK26Stiff replay in Thomas
+// order).  Types:
+// S storage, C compute (common.cuh ATF_DISPATCH_STATE); a bfloat16 state
+// solves at float32 and stores its result to nearest or stochastically
+// (K24-K26, `key`, from the cell's natural index: the plain version's
+// rounding), the streams always to nearest.
 //
 // What bounds them on the H100: memory.  Per cell at bfloat16 (float32):
 // K23 reads T + mask and writes nine streams, 21 B (41); K24 reads T and
 // seven streams and writes U, 18 B (36); K25 and K26 read rhs and three
-// streams and write x, 10 B (20); the sweeps also move c' and d' as
+// streams and write x, 10 B (20); K24 and K25 also move c' and d' as
 // float32 scratch (+16 B).  Designs: K24 K6's thread-per-(y, z)-pencil
 // march along x, the pencil's own x-1, x and x+1 values in registers; K25
-// K7's thread-per-pencil strided sweep; K26 K19's warp of 32 pencils
-// staging [32 pencils x 32 rows] tiles of every stream through shared
-// memory.  K23 (PR 16) marches tiles of 8 y rows x 128 z cells along x,
+// K7's thread-per-pencil strided sweep; K26 K19's staged layout on the
+// split-line core (csrc/split_staged.cuh): a warp a line, its lanes the
+// line's chunks, the persistent block's lines and streams staged by
+// cp.async at the state type (bfloat16 in 4-byte pairs), double-buffered,
+// c' and d' never
+// leaving the SM: 10 B/cell (20), nothing else; 12-row chunks at 384 rows
+// (32 a line: 16-row chunks left a quarter of the lanes idle).  What holds
+// it near 40% of its bfloat16 bound: the solve's latency, not bytes (the
+// float32 line runs in ~1.15x the time for twice the bytes).  The
+// first K26 ran one warp a block, a lane a line's serial recurrence,
+// staging [32 lines x 32 rows] tiles widened to float32 by scalar loads
+// and sending c' and d' through float32 scratch (26 B/cell at bfloat16,
+// 10-12 warps an SM).
+// K23 marches tiles of 8 y rows x 128 z cells along x,
 // four cells a thread, as K3: k(T) once a cell into a shared tile with
 // its y halo rows (the z halo by lanes 0 and 31), each face's harm once
 // (the y faces through the tile, the z faces by shuffle, the x face
@@ -58,6 +76,7 @@
 // 384^3).  The march does a third of its table evaluations and half its
 // divisions and still holds 38-43% of its bfloat16 bound (PERF.md section
 // 6): latency at 16 warps an SM (116 registers), not bytes.
+#include "field_rows.cuh"
 #include "varprop.cuh"
 
 namespace {
@@ -656,97 +675,109 @@ __global__ void __launch_bounds__(256) gstream_sweep_strided_kernel(
   }
 }
 
-constexpr int kPencils = 32;        // K26 pencils per block (one warp)
-constexpr int kChunk = 32;          // rows per staged tile
-constexpr int kPitch = kChunk + 1;  // padded tile row: conflict-free lanes
+// K26's stiffness ratio (csrc/field_rows.cuh): at float32 a line with a
+// row past |a| + |c| > kK26Stiff * (b - |a| - |c|) is solved again in
+// Thomas order, grow's reciprocal order, bit for bit gstream_sweep_z_plain.
+// 16: every line split, over five seeds and dt x1-10 on chip_smoke.py
+// phase 10's streams at 384^3 and 97x203x131 (scripts/open_tune.py,
+// PERF.md section 6), lines below 16 stayed within 6.2 float32 ulp of
+// scale of the plain version (the gate is 8), lines of 16-24 and 24-32
+// reached 10.3 and 11.0.  The step's rows sit below 5 at its dt.  No
+// bfloat16 state replays (its gate is one bfloat16 ulp), no float64 one.
+constexpr double kK26Stiff = 16.0;
 
-template <typename C>
-constexpr size_t gz_smem_bytes() {
-  // rhs / c' / x, d', g_lo, g_hi, sw tiles
-  return 5 * sizeof(C) * kPencils * kPitch;
-}
-
+// K26's rows for the staged split-line kernel (csrc/split_staged.cuh) and,
+// on lines too long to stage, the strided one: the streams g_lo, g_hi and
+// sw and the right-hand side at the state type S, widened (atf::ld), the
+// row formed at C in grow's order, one rounding each: _gsolve's rows bit
+// for bit.  No code, no columns.
 template <typename S, typename C>
-__global__ void __launch_bounds__(kPencils) gstream_sweep_z_kernel(
-    const S* __restrict__ rhs, const S* __restrict__ glo,
-    const S* __restrict__ ghi, const S* __restrict__ sw,
-    S* __restrict__ out, C* __restrict__ cpbuf, C* __restrict__ dpbuf,
-    int64_t npen, int64_t n, C t_inf, int64_t key) {
-  extern __shared__ __align__(16) unsigned char atf_smem[];
-  C* tile = reinterpret_cast<C*>(atf_smem);     // rhs, then c', then x
-  C* tile2 = tile + kPencils * kPitch;          // d'
-  C* ltile = tile2 + kPencils * kPitch;         // g_lo
-  C* htile = ltile + kPencils * kPitch;         // g_hi
-  C* stile = htile + kPencils * kPitch;         // sw
+struct GStreamRows {
+  static constexpr int kStreams = 3;             // g_lo, g_hi, sw
+  static constexpr int kCols = 0;
+  static constexpr bool kReplay =
+      std::is_same_v<S, float> && std::is_same_v<C, float>;
+  static constexpr double kStiff = kK26Stiff;
+  static size_t replay_bytes(int64_t n) { return open_replay_bytes<C>(n); }
+  const S* rhs;
+  const S* g[kStreams];
+  C t_inf;
 
-  const int lane = threadIdx.x;
-  const int64_t pen0 = (int64_t)blockIdx.x * kPencils;
-  const int np = (int)atf::imin(kPencils, npen - pen0);
-  const int row = lane * kPitch;
+  __device__ __forceinline__ const S* stream(int t) const { return g[t]; }
+  __device__ __forceinline__ const C* col(int) const { return nullptr; }
 
-  // forward elimination, chunk by chunk: stage (lane = row), recur (lane =
-  // pencil), write c' and d' back (lane = row)
-  C cp = C(0), dp = C(0);
-  for (int64_t k0 = 0; k0 < n; k0 += kChunk) {
-    const int cz = (int)atf::imin(kChunk, n - k0);
-    if (lane < cz) {
-      for (int q = 0; q < np; ++q) {
-        const int64_t g = (pen0 + q) * n + k0 + lane;
-        const int s = q * kPitch + lane;
-        tile[s] = atf::ld(rhs + g);
-        ltile[s] = atf::ld(glo + g);
-        htile[s] = atf::ld(ghi + g);
-        stile[s] = atf::ld(sw + g);
-      }
-    }
-    __syncwarp();
-    if (lane < np) {
-      for (int jj = 0; jj < cz; ++jj) {
-        grow(ltile[row + jj], htile[row + jj], stile[row + jj],
-             tile[row + jj], t_inf, cp, dp);
-        tile[row + jj] = cp;
-        tile2[row + jj] = dp;
-      }
-    }
-    __syncwarp();
-    if (lane < cz) {
-      for (int q = 0; q < np; ++q) {
-        const int64_t g = (pen0 + q) * n + k0 + lane;
-        cpbuf[g] = tile[q * kPitch + lane];
-        dpbuf[g] = tile2[q * kPitch + lane];
-      }
-    }
-    __syncwarp();
+  __device__ __forceinline__ void row(C lo, C hi, C sw, C r, C& a, C& b,
+                                      C& c, C& d) const {
+    a = -lo;
+    c = -hi;
+    b = add(add(add(C(1), lo), hi), sw);
+    d = add(r, mul(sw, t_inf));
   }
 
-  // back substitution, last chunk first
-  C x = C(0);
-  for (int64_t k0 = (n - 1) / kChunk * kChunk; k0 >= 0; k0 -= kChunk) {
-    const int cz = (int)atf::imin(kChunk, n - k0);
-    if (lane < cz) {
-      for (int q = 0; q < np; ++q) {
-        const int64_t g = (pen0 + q) * n + k0 + lane;
-        tile[q * kPitch + lane] = cpbuf[g];
-        tile2[q * kPitch + lane] = dpbuf[g];
-      }
-    }
-    __syncwarp();
-    if (lane < np) {
-      for (int jj = cz - 1; jj >= 0; --jj) {
-        x = sub(tile2[row + jj], mul(tile[row + jj], x));
-        tile[row + jj] = x;
-      }
-    }
-    __syncwarp();
-    if (lane < cz) {
-      for (int q = 0; q < np; ++q) {
-        const int64_t g = (pen0 + q) * n + k0 + lane;
-        atf::st(out + g, tile[q * kPitch + lane], key, g);
-      }
-    }
-    __syncwarp();
+  // row i of the line at base + i*rs
+  __device__ __forceinline__ void row_at(int64_t off, C& a, C& b, C& c,
+                                         C& d) const {
+    row(atf::ld(g[0] + off), atf::ld(g[1] + off), atf::ld(g[2] + off),
+        atf::ld(rhs + off), a, b, c, d);
   }
-}
+
+  template <int M>
+  __device__ __forceinline__ void load(Chunk<C, M, false>& ch, int64_t base,
+                                       int64_t rs, int64_t row0, int64_t n,
+                                       bool valid) const {
+    bool stiff = false;
+    load(ch, base, rs, row0, n, valid, stiff);
+  }
+
+  template <int M>
+  __device__ __forceinline__ void load(Chunk<C, M, false>& ch, int64_t base,
+                                       int64_t rs, int64_t row0, int64_t n,
+                                       bool valid, bool& stiff) const {
+    ch.load_rows(
+        [&](int k, C& a, C& b, C& c, C& d) {
+          const int64_t i = row0 + k;
+          if (!valid || i >= n) {
+            a = c = d = C(0);
+            b = C(1);
+            return;
+          }
+          row_at(base + i * rs, a, b, c, d);
+        },
+        row0, n, stiff_check<kReplay, GStreamRows>(stiff));
+  }
+
+  __device__ __forceinline__ void replay(C* out, int64_t base, int64_t rs,
+                                         int64_t n, bool valid,
+                                         C* sm) const {
+    open_replay<true>(
+        [&](int64_t i, C& a, C& b, C& c, C& d) {
+          row_at(base + i * rs, a, b, c, d);
+        },
+        out, base, rs, n, valid, sm);
+  }
+
+  template <int M>
+  __device__ __forceinline__ void load_staged(Chunk<C, M, false>& ch,
+                                              const S* x, const S* f, int fs,
+                                              const C*, int,
+                                              const uint8_t*, int j,
+                                              int64_t nv, bool& stiff) const {
+    const int64_t row0 = (int64_t)j * M;
+    const int s0 = j * staged_stride<S, M>();
+    ch.load_rows(
+        [&](int k, C& a, C& b, C& c, C& d) {
+          if (row0 + k >= nv) {
+            a = c = d = C(0);
+            b = C(1);
+            return;
+          }
+          const int s = s0 + k;
+          row(atf::ld(f + s), atf::ld(f + fs + s), atf::ld(f + 2 * fs + s),
+              atf::ld(x + s), a, b, c, d);
+        },
+        row0, nv, stiff_check<kReplay, GStreamRows>(stiff));
+  }
+};
 
 // K23 on the (nx, ny, nz) field: tiles of kGfRows y rows x kGfTileZ z
 // cells, each marched along x through a segment of planes; the segment
@@ -895,17 +926,17 @@ ATF_API int atf_gstream_sweep_strided(int dtype, int device, const void* rhs,
 
 ATF_API int atf_gstream_sweep_z(int dtype, int device, const void* rhs,
                                 const void* glo, const void* ghi,
-                                const void* sw, void* out, void* cpbuf,
-                                void* dpbuf, int64_t npen, int64_t n,
-                                double t_inf, int64_t key, void* stream) {
-  const int64_t blocks = atf::cdiv(npen, kPencils);
+                                const void* sw, void* out, void* flags,
+                                int64_t npen, int64_t n, double t_inf,
+                                int64_t key, void* stream) {
   ATF_DISPATCH_STATE(
       dtype, device,
-      gstream_sweep_z_kernel<S, C><<<(unsigned)blocks, kPencils,
-                                     gz_smem_bytes<C>(),
-                                     (cudaStream_t)stream>>>(
-          static_cast<const S*>(rhs), static_cast<const S*>(glo),
-          static_cast<const S*>(ghi), static_cast<const S*>(sw),
-          static_cast<S*>(out), static_cast<C*>(cpbuf),
-          static_cast<C*>(dpbuf), npen, n, (C)t_inf, key));
+      ATF_RETURN_IF((launch_split_staged<C, GStreamRows<S, C>>(
+          GStreamRows<S, C>{static_cast<const S*>(rhs),
+                            {static_cast<const S*>(glo),
+                             static_cast<const S*>(ghi),
+                             static_cast<const S*>(sw)},
+                            (C)t_inf},
+          static_cast<S*>(out), static_cast<uint8_t*>(flags), npen, n,
+          device, (cudaStream_t)stream, key))));
 }

@@ -26,17 +26,17 @@
 // couplings (row 0's a, row n-1's c) come out by Sherman-Morrison in the
 // gauge of cyclic_thomas (gamma = -b_0, beta = a_0, alpha = c_{n-1}).
 //
-// Rounding: K9 and K10 repeat their plain versions' operations (the row
-// formulas of solvers/masked.py, then thomas: divisions, not reciprocal
+// Rounding: K9 repeats its plain version's operations (the row formulas
+// of solvers/masked.py, then thomas: divisions, not reciprocal
 // multiplies) one IEEE rounding at a time, with the _rn intrinsics, which
-// nvcc never contracts into an FMA: bit for bit.  K11 forms its rows so
-// too, but solves them split across threads (below), which parts from the
-// Thomas order by up to 6 float32 ulp of the output's scale on rings whose
-// rows stay below a stiffness ratio of 12, more on stiffer ones (~140 ulp
-// on a full disk's second ring, fac*geo ~ 520 at 0.5 mm cells: the solve
-// amplifies each rounding by the condition number); a block of lines with
-// a row past its stiffness ratio (kK11Stiff) is solved in Thomas order
-// instead, bit for bit its plain version.
+// nvcc never contracts into an FMA: bit for bit.  K10 and K11 form their
+// rows so too, but solve them split across threads (below), which parts
+// from the Thomas order by about the condition number times a rounding.
+// K11: up to 6 float32 ulp of the output's scale on rings whose rows stay
+// below a stiffness ratio of 12, more on stiffer ones (~140 ulp on a full
+// disk's second ring, fac*geo ~ 520 at 0.5 mm cells); a block of lines
+// with a row past its stiffness ratio (kK11Stiff) is solved in Thomas
+// order instead, bit for bit its plain version.  K10: kK10Stiff below.
 //
 // What bounds them on the H100: memory.  The byte model (float32) reads
 // rhs 4 + code 1 + sink 4 + srhs 4 and writes x 4 = 17 B/cell per sweep.
@@ -45,13 +45,23 @@
 //        and d' in a scratch field (K1's design): +16 B/cell of global
 //        round trip.  glo[i]/ghi[i] are the same for every thread of a row
 //        (broadcast loads through the read-only cache).
-//   K10: one thread per pencil would read z rows with a stride of n.  As in
-//        K2 and K8, a block of one warp owns 32 pencils and stages [32
-//        pencils x 32 rows] tiles of rhs, sink, srhs and code through shared
-//        memory with coalesced loads (lane = row), then each lane runs its
-//        pencil's recurrence from the tiles (lane = pencil; padded pitch,
-//        conflict-free).  c' and d' go to global scratch through the same
-//        tiles.
+//   K10: the staged split-line kernel of csrc/split_staged.cuh (K19's
+//        layout): a warp a line, its lanes the line's chunks (32 rows a
+//        lane on the tube's 1,024-row lines, one chunk a lane, the
+//        reduced rows in registers; several lines a warp below 16
+//        chunks), the persistent block's lines, their sink and srhs and
+//        their code bytes staged by cp.async one group of lines at a
+//        time, glo and ghi once a block; `MaskedRows` forms the rows from
+//        the tiles.  Nothing of the solve leaves the SM but x: 17 B/cell
+//        (+1 flag byte a line at float32; float32 lines past kK10Stiff
+//        replay in Thomas order, a lane a line, rows from global memory).
+//        What holds it near half of its byte model on the tube: latency
+//        -- a 32-row chunk a lane (255 registers) at 8 warps an SM.  The
+//        first K10 ran one warp a block, a lane a line's serial
+//        recurrence, staging [32 lines x 32 rows] tiles with plain loads
+//        and sending c' and d' through global scratch (~33 B/cell, 10-12
+//        warps an SM waiting on two divisions a row).  Lines too long to
+//        stage (past ~5,000 rows) go to the core's strided kernel.
 //   K11: the periodic split-line kernel of csrc/split_cyclic.cuh on K7's
 //        layout: a warp's lanes are 32 phi lines adjacent in z (every row
 //        load and store coalesced), the block's 32 warps split each line's
@@ -66,7 +76,7 @@
 //        latency -- the rounded divisions (three a row; the hardware
 //        reciprocal parted K16 from its plain version by 1.3e-3 K on the
 //        tube, past its gate) and 64 registers a thread at 32 warps.
-#include "split_cyclic.cuh"
+#include "field_rows.cuh"
 
 namespace {
 
@@ -133,99 +143,117 @@ __global__ void __launch_bounds__(256) masked_sweep_strided_kernel(
   }
 }
 
-constexpr int kPencils = 32;        // pencils per K10 block (one warp)
-constexpr int kChunk = 32;          // rows per staged tile
-constexpr int kPitch = kChunk + 1;  // padded tile row: conflict-free lanes
+// K10's stiffness ratio (csrc/field_rows.cuh): at float32 a line with a
+// row past |a| + |c| > kK10Stiff * (b - |a| - |c|) is solved again in
+// Thomas order, bit for bit masked_sweep_z_plain.  16: every line split,
+// over five seeds and dt x1-10 on chip_smoke.py phase 6's tube, disk and
+// the spiral app's ring (scripts/open_tune.py, PERF.md section 6), lines
+// below 16 stayed within 6.2 float32 ulp of scale of the plain version
+// (the gate is 8), lines of 16-24 reached 8.4, of 48-64 27.6.  The masked
+// step's tube sits near 2.3 at its dt, the app's ring near 9 at the same
+// dt (23 at the app's own 0.05 s: replayed).  At float64 nothing replays.
+constexpr double kK10Stiff = 16.0;
 
+// K10's rows for the staged split-line kernel (csrc/split_staged.cuh) and,
+// on lines too long to stage, the strided one: exactly masked_row and
+// prefold, one rounding each, so the rows of masked_sweep_z_plain bit for
+// bit; rhs staged into the solution's tile, sink and srhs beside it, the
+// code bytes in their own tile, glo and ghi once a block.
 template <typename T>
-constexpr size_t z_smem_bytes() {
-  // rhs / c' / x, d', sink and srhs tiles (T), then the code tile (bytes)
-  return 4 * sizeof(T) * kPencils * kPitch + kPencils * kPitch;
-}
+struct MaskedRows {
+  static constexpr int kStreams = 2;             // sink, srhs
+  static constexpr int kCols = 2;                // glo, ghi
+  static constexpr bool kCode = true;
+  // one staged group of lines at a time (csrc/split_staged.cuh): 39 KB a
+  // block on the tube instead of 67, so 4 blocks an SM at 255 registers
+  // instead of 3; the tube 0.353 against 0.576-0.599 ms, 0.30 against 0.54
+  // in the masked step (PERF.md section 6)
+  static constexpr int kBuffers = 1;
+  static constexpr bool kReplay = std::is_same_v<T, float>;
+  static constexpr double kStiff = kK10Stiff;
+  static size_t replay_bytes(int64_t n) { return open_replay_bytes<T>(n); }
+  const T* rhs;
+  const uint8_t* code;
+  const T* sink;
+  const T* srhs;
+  const T* glo;
+  const T* ghi;
+  T fac, ambient;
 
-template <typename T>
-__global__ void __launch_bounds__(kPencils) masked_sweep_z_kernel(
-    const T* __restrict__ rhs, const uint8_t* __restrict__ code,
-    const T* __restrict__ sink, const T* __restrict__ srhs,
-    const T* __restrict__ glo, const T* __restrict__ ghi,
-    T* __restrict__ out, T* __restrict__ dpbuf, int64_t npen, int64_t n,
-    T fac, T ambient) {
-  extern __shared__ __align__(16) unsigned char atf_smem[];
-  T* tile = reinterpret_cast<T*>(atf_smem);       // rhs, then c', then x
-  T* tile2 = tile + kPencils * kPitch;            // d'
-  T* stile = tile2 + kPencils * kPitch;           // sink
-  T* rtile = stile + kPencils * kPitch;           // srhs
-  uint8_t* ctile = reinterpret_cast<uint8_t*>(rtile + kPencils * kPitch);
-
-  const int lane = threadIdx.x;
-  const int64_t pen0 = (int64_t)blockIdx.x * kPencils;
-  const int np = (int)atf::imin(kPencils, npen - pen0);
-  const int row = lane * kPitch;
-
-  // forward elimination, chunk by chunk: stage the four inputs (lane =
-  // row), recur (lane = pencil), write c' and d' back (lane = row)
-  T cp = T(0), dp = T(0);
-  for (int64_t k0 = 0; k0 < n; k0 += kChunk) {
-    const int cz = (int)atf::imin(kChunk, n - k0);
-    if (lane < cz) {
-      for (int q = 0; q < np; ++q) {
-        const int64_t g = (pen0 + q) * n + k0 + lane;
-        tile[q * kPitch + lane] = rhs[g];
-        stile[q * kPitch + lane] = sink[g];
-        rtile[q * kPitch + lane] = srhs[g];
-        ctile[q * kPitch + lane] = code[g];
-      }
-    }
-    __syncwarp();
-    if (lane < np) {
-      for (int j = 0; j < cz; ++j) {
-        T a, b, c, d;
-        masked_row<T>(ctile[row + j], __ldg(glo + k0 + j),
-                      __ldg(ghi + k0 + j), stile[row + j], tile[row + j],
-                      rtile[row + j], fac, ambient, a, b, c, d);
-        eliminate(a, b, c, d, cp, dp);
-        tile[row + j] = cp;
-        tile2[row + j] = dp;
-      }
-    }
-    __syncwarp();
-    if (lane < cz) {
-      for (int q = 0; q < np; ++q) {
-        const int64_t g = (pen0 + q) * n + k0 + lane;
-        out[g] = tile[q * kPitch + lane];
-        dpbuf[g] = tile2[q * kPitch + lane];
-      }
-    }
-    __syncwarp();
+  __device__ __forceinline__ const T* stream(int t) const {
+    return t == 0 ? sink : srhs;
+  }
+  __device__ __forceinline__ const T* col(int t) const {
+    return t == 0 ? glo : ghi;
   }
 
-  // back substitution, last chunk first
-  T x = T(0);
-  for (int64_t k0 = (n - 1) / kChunk * kChunk; k0 >= 0; k0 -= kChunk) {
-    const int cz = (int)atf::imin(kChunk, n - k0);
-    if (lane < cz) {
-      for (int q = 0; q < np; ++q) {
-        const int64_t g = (pen0 + q) * n + k0 + lane;
-        tile[q * kPitch + lane] = out[g];
-        tile2[q * kPitch + lane] = dpbuf[g];
-      }
-    }
-    __syncwarp();
-    if (lane < np) {
-      for (int j = cz - 1; j >= 0; --j) {
-        x = sub(tile2[row + j], mul(tile[row + j], x));
-        tile[row + j] = x;
-      }
-    }
-    __syncwarp();
-    if (lane < cz) {
-      for (int q = 0; q < np; ++q) {
-        out[(pen0 + q) * n + k0 + lane] = tile[q * kPitch + lane];
-      }
-    }
-    __syncwarp();
+  // row i of the line, at offset off
+  __device__ __forceinline__ void row(int64_t off, int64_t i, T& a, T& b,
+                                      T& c, T& d) const {
+    masked_row<T>(__ldg(code + off), __ldg(glo + i), __ldg(ghi + i),
+                  __ldg(sink + off), __ldg(rhs + off), __ldg(srhs + off),
+                  fac, ambient, a, b, c, d);
   }
-}
+
+  template <int M>
+  __device__ __forceinline__ void load(Chunk<T, M, false>& ch, int64_t base,
+                                       int64_t rs, int64_t row0, int64_t n,
+                                       bool valid) const {
+    bool stiff = false;
+    load(ch, base, rs, row0, n, valid, stiff);
+  }
+
+  template <int M>
+  __device__ __forceinline__ void load(Chunk<T, M, false>& ch, int64_t base,
+                                       int64_t rs, int64_t row0, int64_t n,
+                                       bool valid, bool& stiff) const {
+    ch.load_rows(
+        [&](int k, T& a, T& b, T& c, T& d) {
+          const int64_t i = row0 + k;
+          if (!valid || i >= n) {
+            a = c = d = T(0);
+            b = T(1);
+            return;
+          }
+          row(base + i * rs, i, a, b, c, d);
+        },
+        row0, n, stiff_check<kReplay, MaskedRows>(stiff));
+  }
+
+  // thomas's operations, eliminate's order: two rounded divisions a row
+  __device__ __forceinline__ void replay(T* out, int64_t base, int64_t rs,
+                                         int64_t n, bool valid,
+                                         T* sm) const {
+    open_replay(
+        [&](int64_t i, T& a, T& b, T& c, T& d) {
+          row(base + i * rs, i, a, b, c, d);
+        },
+        out, base, rs, n, valid, sm);
+  }
+
+  template <int M>
+  __device__ __forceinline__ void load_staged(Chunk<T, M, false>& ch,
+                                              const T* x, const T* f, int fs,
+                                              const T* cols, int cs,
+                                              const uint8_t* ct, int j,
+                                              int64_t nv, bool& stiff) const {
+    const int64_t row0 = (int64_t)j * M;
+    const int s0 = j * (M + 1);
+    const int c0 = j * (M + 4);
+    ch.load_rows(
+        [&](int k, T& a, T& b, T& c, T& d) {
+          if (row0 + k >= nv) {
+            a = c = d = T(0);
+            b = T(1);
+            return;
+          }
+          const int s = s0 + k;
+          masked_row<T>(ct[c0 + k], cols[s], cols[cs + s], f[s], x[s],
+                        f[fs + s], fac, ambient, a, b, c, d);
+        },
+        row0, nv, stiff_check<kReplay, MaskedRows>(stiff));
+  }
+};
 
 // K11's stiffness ratio (csrc/split_cyclic.cuh): a block of lines with a
 // row past |a| + |c| > kK11Stiff * (b - |a| - |c|) is solved in Thomas
@@ -285,22 +313,6 @@ void launch_masked_sweep_strided(const void* rhs, const void* code,
       (T)ambient);
 }
 
-template <typename T>
-void launch_masked_sweep_z(const void* rhs, const void* code,
-                           const void* sink, const void* srhs,
-                           const void* glo, const void* ghi, void* out,
-                           void* scratch, int64_t npen, int64_t n,
-                           double fac, double ambient, cudaStream_t stream) {
-  const int64_t blocks = atf::cdiv(npen, kPencils);
-  masked_sweep_z_kernel<T><<<(unsigned)blocks, kPencils, z_smem_bytes<T>(),
-                             stream>>>(
-      static_cast<const T*>(rhs), static_cast<const uint8_t*>(code),
-      static_cast<const T*>(sink), static_cast<const T*>(srhs),
-      static_cast<const T*>(glo), static_cast<const T*>(ghi),
-      static_cast<T*>(out), static_cast<T*>(scratch), npen, n, (T)fac,
-      (T)ambient);
-}
-
 }  // namespace
 
 ATF_API int atf_masked_sweep_strided(int dtype, int device, const void* rhs,
@@ -320,13 +332,20 @@ ATF_API int atf_masked_sweep_strided(int dtype, int device, const void* rhs,
 ATF_API int atf_masked_sweep_z(int dtype, int device, const void* rhs,
                                const void* code, const void* sink,
                                const void* srhs, const void* glo,
-                               const void* ghi, void* out, void* scratch,
+                               const void* ghi, void* out, void* flags,
                                int64_t npen, int64_t n, double fac,
                                double ambient, void* stream) {
   ATF_DISPATCH(dtype, device,
-               launch_masked_sweep_z<T>(rhs, code, sink, srhs, glo, ghi, out,
-                                        scratch, npen, n, fac, ambient,
-                                        (cudaStream_t)stream));
+               ATF_RETURN_IF((launch_split_staged<T, MaskedRows<T>>(
+                   MaskedRows<T>{static_cast<const T*>(rhs),
+                                 static_cast<const uint8_t*>(code),
+                                 static_cast<const T*>(sink),
+                                 static_cast<const T*>(srhs),
+                                 static_cast<const T*>(glo),
+                                 static_cast<const T*>(ghi), (T)fac,
+                                 (T)ambient},
+                   static_cast<T*>(out), static_cast<uint8_t*>(flags), npen,
+                   n, device, (cudaStream_t)stream))));
 }
 
 ATF_API int atf_masked_cyclic_phi(int dtype, int device, const void* rhs,

@@ -591,12 +591,13 @@ size_t split_smem_bytes(int W, int R, int M, bool global, int keep) {
                       (size_t)32 * W * (R - 1) * kept);
 }
 
-template <typename C, typename Rows, int M, bool kGlobal, int kKeep>
+template <typename S, typename C, typename Rows, int M, bool kGlobal,
+          int kKeep>
 __global__ void __launch_bounds__(32 * kSplitWarps<C>)
     split_strided_kernel(const __grid_constant__ Rows rows,
-                         C* __restrict__ out, int64_t n, int64_t B2,
+                         S* __restrict__ out, int64_t n, int64_t B2,
                          int64_t ls, int64_t rs, int R,
-                         C* __restrict__ gred) {
+                         C* __restrict__ gred, int64_t key) {
   extern __shared__ __align__(16) unsigned char atf_smem[];
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
@@ -638,7 +639,9 @@ __global__ void __launch_bounds__(32 * kSplitWarps<C>)
 #pragma unroll
     for (int k = 0; k < M; ++k) {
       const int64_t i = (int64_t)j * M + k;
-      if (valid && i < n) out[base + i * rs] = ch.x(k, x0, xl);
+      if (valid && i < n) {
+        atf::st(&out[base + i * rs], ch.x(k, x0, xl), key, base + i * rs);
+      }
     }
   };
 
@@ -690,10 +693,13 @@ __global__ void __launch_bounds__(32 * kSplitWarps<C>)
 }
 
 template <typename C, typename Rows, int M, bool kGlobal,
-          int kKeep = kKeepNone>
-cudaError_t launch_split_strided_m(const Rows& rows, C* out, int64_t B1,
+          int kKeep = kKeepNone, typename S = C>
+cudaError_t launch_split_strided_m(const Rows& rows, S* out, int64_t B1,
                                    int64_t n, int64_t B2, int64_t ls,
-                                   int64_t rs, cudaStream_t stream) {
+                                   int64_t rs, cudaStream_t stream,
+                                   int64_t key = -1) {
+  static_assert(std::is_same_v<S, C> || !StiffRows<Rows>::value,
+                "the Thomas-order replay writes d' into out at C");
   const int W = (int)atf::imin(kSplitWarps<C>, atf::cdiv(n, M));
   const int R = (int)atf::cdiv(n, (int64_t)W * M);
   size_t smem = split_smem_bytes<C>(W, R, M, kGlobal, kKeep);
@@ -708,11 +714,11 @@ cudaError_t launch_split_strided_m(const Rows& rows, C* out, int64_t B1,
         cudaMallocAsync(reinterpret_cast<void**>(&gred), bytes, stream);
     if (err != cudaSuccess) return err;
   }
-  auto* kernel = split_strided_kernel<C, Rows, M, kGlobal, kKeep>;
+  auto* kernel = split_strided_kernel<S, C, Rows, M, kGlobal, kKeep>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   kernel<<<(unsigned)blocks, 32 * W, smem, stream>>>(rows, out, n, B2, ls,
-                                                      rs, R, gred);
+                                                      rs, R, gred, key);
   if (kGlobal) {
     const cudaError_t launch_err = cudaGetLastError();
     const cudaError_t free_err = cudaFreeAsync(gred, stream);
@@ -722,12 +728,14 @@ cudaError_t launch_split_strided_m(const Rows& rows, C* out, int64_t B1,
 }
 
 // Lines b2 of groups b1 of a (B1, n, B2) field (line b2 of group b1 at
-// b1*n*B2 + b2*ls, rows rs apart), solved with `rows`' rows into `out`.
-template <typename C, typename Rows>
-cudaError_t launch_split_strided(const Rows& rows, C* out, int64_t B1,
+// b1*n*B2 + b2*ls, rows rs apart), solved with `rows`' rows at C into
+// `out` (a storage type S: through atf::st with `key`, the cell's offset
+// its counter).
+template <typename C, typename Rows, typename S>
+cudaError_t launch_split_strided(const Rows& rows, S* out, int64_t B1,
                                  int64_t n, int64_t B2, int64_t ls,
-                                 int64_t rs, int device,
-                                 cudaStream_t stream) {
+                                 int64_t rs, int device, cudaStream_t stream,
+                                 int64_t key = -1) {
   auto fits = [&](int M, int keep) {
     const int W = (int)atf::imin(kSplitWarps<C>, atf::cdiv(n, M));
     return split_smem_bytes<C>(W, (int)atf::cdiv(n, (int64_t)W * M), M,
@@ -735,24 +743,24 @@ cudaError_t launch_split_strided(const Rows& rows, C* out, int64_t B1,
   };
   if (fits(8, kKeepRows)) {
     return launch_split_strided_m<C, Rows, 8, false, kKeepRows>(
-        rows, out, B1, n, B2, ls, rs, stream);
+        rows, out, B1, n, B2, ls, rs, stream, key);
   }
   if constexpr (KeepsRhs<Rows>::value) {
     if (fits(8, kKeepRhs)) {
       return launch_split_strided_m<C, Rows, 8, false, kKeepRhs>(
-          rows, out, B1, n, B2, ls, rs, stream);
+          rows, out, B1, n, B2, ls, rs, stream, key);
     }
   }
   if (fits(8, kKeepNone)) {
     return launch_split_strided_m<C, Rows, 8, false>(rows, out, B1, n, B2,
-                                                     ls, rs, stream);
+                                                     ls, rs, stream, key);
   }
   if (fits(16, false)) {
     return launch_split_strided_m<C, Rows, 16, false>(rows, out, B1, n, B2,
-                                                      ls, rs, stream);
+                                                      ls, rs, stream, key);
   }
   return launch_split_strided_m<C, Rows, 16, true>(rows, out, B1, n, B2, ls,
-                                                   rs, stream);
+                                                   rs, stream, key);
 }
 
 }  // namespace

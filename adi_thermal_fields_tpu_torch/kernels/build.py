@@ -70,7 +70,7 @@ _SIGNATURES = {
                                  _D, _I64, _P], _I),
     "atf_gstream_sweep_strided": ([_I, _I, *[_P] * 7, _I64, _I64, _I64, _D,
                                    _I64, _P], _I),
-    "atf_gstream_sweep_z": ([_I, _I, *[_P] * 7, _I64, _I64, _D, _I64, _P],
+    "atf_gstream_sweep_z": ([_I, _I, *[_P] * 6, _I64, _I64, _D, _I64, _P],
                             _I),
     "atf_masked_sweep_strided": ([_I, _I, *[_P] * 8, _I64, _I64, _D, _D,
                                   _P], _I),

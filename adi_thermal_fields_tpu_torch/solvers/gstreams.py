@@ -23,8 +23,10 @@ and the theta pass is ``T + rr*sum_ax (g_lo*(T_lo - T) + g_hi*(T_hi - T))``
 with ``rr = (1-theta)/theta``.  Every function computes at float32 for a
 bfloat16 state (float64 at float64), in the JAX kernels' order, and stores
 at the state dtype: the streams rounded to nearest, the sweeps' results to
-nearest or, with ``rng_seed``, stochastically (solvers/rounding.py).  The
-kernels repeat their plain versions one IEEE rounding at a time.  Each
+nearest or, with ``rng_seed``, stochastically (solvers/rounding.py).  K23,
+K24 and K25 repeat their plain versions one IEEE rounding at a time; K26
+forms the same rows so but solves each line split across a warp's lanes
+(csrc/split_staged.cuh), within the split kernels' gate.  Each
 wrapper runs its plain version on CPU tensors and launches its kernel on
 CUDA tensors, counting the launch in its ``launches`` attribute.
 """
@@ -38,6 +40,7 @@ from ..bc.radiation import STEFAN_BOLTZMANN
 from ..kernels import (STATE_DTYPES, check_kernel_inputs, compute_dtype,
                        dtype_code, load_library, ptr, raise_on_error,
                        stream_ptr, use_kernel)
+from .fields import stiff_flags
 from .rounding import sr_key, to_state, widen
 from .thomas import thomas
 from .varprop import _table_arg, eval_spec, harm
@@ -288,14 +291,27 @@ def gstream_sweep_z(rhs: torch.Tensor, g_lo: torch.Tensor,
                     rng_offset: int = 0) -> torch.Tensor:
     """K26: the g-stream sweep along the contiguous z axis of the natural
     (x, y, z) field, every stream natural (the JAX step transposes the
-    field and three streams for its axis-0 kernel instead)."""
+    field and three streams for its axis-0 kernel instead); split across a
+    warp's lanes (the staged split-line kernel, no c'/d' scratch), so
+    within the split kernels' gate of its plain version, not bitwise; at
+    float32 a line with a row past ``kK26Stiff`` (``csrc/gstreams.cu``) is
+    solved again in Thomas order, bit for bit."""
     if not use_kernel(rhs, g_lo, g_hi, sw):
         return gstream_sweep_z_plain(rhs, g_lo, g_hi, sw, t_inf,
                                      rng_seed=rng_seed, rng_offset=rng_offset)
+    if rhs.dim() != 3:
+        raise ValueError(f"gstream_sweep_z: field must be 3-D, got "
+                         f"{rhs.dim()}")
+    check_kernel_inputs("gstream_sweep_z", rhs, None, g_lo, g_hi, sw,
+                        dtypes=STATE_DTYPES)
     n = rhs.shape[-1]
-    out = _launch_sweep("gstream_sweep_z", load_library().atf_gstream_sweep_z,
-                        rhs, g_lo, g_hi, sw, t_inf, (rhs.numel() // n, n),
-                        sr_key(rng_seed, rng_offset))
+    out = torch.empty_like(rhs)
+    flags = stiff_flags(rhs, rhs.numel() // n)
+    err = load_library().atf_gstream_sweep_z(
+        dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(g_lo),
+        ptr(g_hi), ptr(sw), ptr(out), ptr(flags), rhs.numel() // n, n,
+        float(t_inf), sr_key(rng_seed, rng_offset), stream_ptr(rhs.device))
+    raise_on_error(err, "gstream_sweep_z")
     gstream_sweep_z.launches += 1
     return out
 

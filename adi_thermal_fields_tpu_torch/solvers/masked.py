@@ -23,15 +23,19 @@ K11 along axis 1 of a (B1, n, B2) field (phi) as a periodic system whose
 wrap couplings are row 0's ``a`` and row n-1's ``c``, with one geometry
 value per system (``geo``, shape (B1, B2)).
 
-K9 and K10 repeat their plain versions' arithmetic bit for bit.  K11 forms
-its rows so but solves each line split across the block's warps with the
-wrap by Sherman-Morrison (``csrc/split_cyclic.cuh``), except on blocks of
-stiff rings (past ``kK11Stiff`` in ``csrc/masked.cu``), which it solves in
-Thomas order, bit for bit ``cyclic_thomas``; it refuses lines too long for
-that replay's shared memory (past ~91,000 rows at float32, ~22,000 at
-float64).  Each wrapper runs its plain version on CPU tensors and its
-kernel on CUDA tensors (or raises), and counts the launches in
-``launches``.
+K9 repeats its plain version's arithmetic bit for bit.  K10 forms its rows
+so but solves each line split across a warp's lanes, on the staged
+split-line kernel of ``csrc/split_staged.cuh`` (lines too long to stage on
+the core's strided kernel), with no c'/d' scratch; at float32 a line with
+a row past ``kK10Stiff`` (``csrc/masked.cu``) is solved again in Thomas
+order, bit for bit ``thomas``.  K11 forms its rows so but solves each line
+split across the block's warps with the wrap by Sherman-Morrison
+(``csrc/split_cyclic.cuh``), except on blocks of stiff rings (past
+``kK11Stiff``), which it solves in Thomas order, bit for bit
+``cyclic_thomas``; it refuses lines too long for that replay's shared
+memory (past ~91,000 rows at float32, ~22,000 at float64).  Each wrapper
+runs its plain version on CPU tensors and its kernel on CUDA tensors (or
+raises), and counts the launches in ``launches``.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ import torch
 from ..kernels import (check_kernel_inputs, check_vectors, dtype_code,
                        load_library, ptr, raise_on_error, stream_ptr,
                        use_kernel)
+from .fields import stiff_flags
 from .thomas import cyclic_thomas, thomas
 
 __all__ = ["masked_sweep_strided", "masked_sweep_strided_plain",
@@ -98,16 +103,21 @@ def masked_cyclic_phi_plain(rhs, code, sink, srhs, geo, fac, ambient):
 
 def _sweep(name, entry, axis, rhs, code, sink, srhs, glo, ghi, fac,
            ambient):
-    """Launch K9 (axis 0) or K10 (last axis) on CUDA tensors."""
+    """Launch K9 (axis 0; d' through a scratch field) or K10 (last axis;
+    ``stiff_flags``' byte a line) on CUDA tensors."""
     check_kernel_inputs(name, rhs, code, sink, srhs)
     n = rhs.shape[axis]
     check_vectors(name, rhs, n, glo, ghi)
     out = torch.empty_like(rhs)
-    scratch = torch.empty_like(rhs)
-    sizes = (n, rhs.numel() // n) if axis == 0 else (rhs.numel() // n, n)
+    if axis == 0:
+        sizes = (n, rhs.numel() // n)
+        extra = torch.empty_like(rhs)
+    else:
+        sizes = (rhs.numel() // n, n)
+        extra = stiff_flags(rhs, sizes[0])
     err = getattr(load_library(), entry)(
         dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(code),
-        ptr(sink), ptr(srhs), ptr(glo), ptr(ghi), ptr(out), ptr(scratch),
+        ptr(sink), ptr(srhs), ptr(glo), ptr(ghi), ptr(out), ptr(extra),
         *sizes, fac, ambient, stream_ptr(rhs.device))
     raise_on_error(err, name)
     return out
@@ -136,7 +146,8 @@ def masked_sweep_z(rhs: torch.Tensor, code: torch.Tensor, sink: torch.Tensor,
                    srhs: torch.Tensor, glo: torch.Tensor, ghi: torch.Tensor,
                    fac: float, ambient: float) -> torch.Tensor:
     """K10: masked-Robin sweep along the contiguous last axis (z of the
-    natural field), every input in that natural layout."""
+    natural field), every input in that natural layout; split across a
+    warp's lanes (within the split kernels' gate of ``thomas``)."""
     if not use_kernel(rhs, code, sink, srhs, glo, ghi):
         return masked_sweep_z_plain(rhs, code, sink, srhs, glo, ghi, fac,
                                     ambient)

@@ -70,11 +70,13 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    K9 (r), K11 (phi, cyclic) and K10 (z) against their plain versions,
    float32, on the plan of a (64, 512, 1024) annular tube (substrate, a
    half-built wall and a partly deposited top layer; Dirichlet bottom
-   pins) and of a (37, 203, 131) full disk with a random mask, and K11
-   also on CYCLIC_SHAPES (the spiral app's (32, 720, 200) ring, 4096-row
-   lines on a mild and a stiff annulus, lines of 2 and 3 rows): max
-   |delta| in float32 ulp of the output's scale, kernel and plain ms, %
-   of 3.35 TB/s at 17 B/cell.  Its step part: the (64, 512, 1024)
+   pins) and of a (37, 203, 131) full disk with a random mask, K10 also
+   on K10_SHAPES (the spiral app's ring at 0.25 mm, the tube at 10x dt,
+   8192-row lines past the staging), and K11 also on CYCLIC_SHAPES (the
+   spiral app's (32, 720, 200) ring, 4096-row lines on a mild and a stiff
+   annulus, lines of 2 and 3 rows): max |delta| in float32 ulp of the
+   output's scale (KERNEL_TOL_ULP; K10 and K11 solve split), kernel and
+   plain ms, % of 3.35 TB/s at 17 B/cell.  Its step part: the (64, 512, 1024)
    masked-Robin step (bench.py's masked-cylindrical configuration),
    kernels against reference after 3 steps within STEP_TOL, CUDA-event
    ms/step after two warm-up steps, Gcell/s, the plan rebuild's ms on its
@@ -170,9 +172,13 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    SHORT_LAYER_S s, at float32 and with the varprop flags at float64.
 10. The bfloat16 bandwidth mode.  Its kernel part (run with phase 2):
    K23 (film modes const and rad, with and without a source), K24 (seeded,
-   and with src_pre), K25 and K26 (seeded) against their plain versions at
+   and with src_pre) and K25 (seeded) against their plain versions at
    384^3 (the WAAM mask) and 97x203x131 (a random mask), bfloat16 and
-   float32: bitwise; the bfloat16 entries K1b-K4b at the 256^3 WAAM mask,
+   float32: bitwise; K26 (a split solve) there and on 64x64x8192 lines
+   (past the staging): within KERNEL_TOL_ULP of the output's scale at
+   float32, one bfloat16 ulp of it at bfloat16, to nearest and seeded (the
+   share of cells apart printed); the bfloat16 entries K1b-K4b at the
+   256^3 WAAM mask,
    to nearest and seeded: within one bfloat16 ulp of the output's scale
    (the share of cells apart printed); kernel and plain ms and % of each bound; the
    kernels' stochastic rounding of 1 + ulp/4 over 128^3 cells (P(up) =
@@ -405,6 +411,14 @@ CYCLIC_SHAPES = (("32x720x200 app tube", (32, 720, 200), 2.5e-4, 0.052),
                  ("2x4096x64 stiff tube", (2, 4096, 64), 5e-4, 0.02),
                  ("8x2x96 disk", (8, 2, 96), 5e-4, 0.0),
                  ("8x3x96 disk", (8, 3, 96), 5e-4, 0.0))
+# K10's further lines (phase 6): the spiral app's ring (0.25 mm), the
+# tube at 10x dt (float32 lines past kK10Stiff replay in Thomas order) and
+# 8192-row lines past the staging (the core's strided kernel): (label,
+# shape, dr, r_inner, dt multiple)
+K10_SHAPES = (CYCLIC_SHAPES[0][:2] + (2.5e-4, 0.052, 1.0),
+              ("64x512x1024 tube, 10x dt", (64, 512, 1024), 5e-4, 0.02,
+               10.0),
+              ("64x64x8192 lines", (64, 64, 8192), 5e-4, 0.02, 1.0))
 P6_APP = ["--R_out", "60", "--wall_thickness", "8", "--height", "40",
           "--z_back", "10", "--nr", "32", "--nphi", "720", "--dz", "0.25",
           "--pitch", "2", "--auto_speed", "--t_tot", "30", "--dt_fixed",
@@ -1119,6 +1133,19 @@ def phase2_cyl(torch, dev):
         rows += [kernel_row(torch, kname, vname, label, (R, *ins), kern,
                             plain)
                  for kname, vname, ins, kern, plain in variants]
+        del R, mask, plan
+        torch.cuda.empty_cache()
+    for label, shape, dr, r_inner, dtm in K10_SHAPES:     # K10 alone
+        grid = CylindricalGrid(*shape, dr, dr, r_inner=r_inner)
+        mask = tube_mask(torch, shape, dev)
+        plan = cyl_plan(torch, grid, mask, "dirichlet")
+        R = random_field(torch, mask, seed=23)
+        fz = float(torch.tensor(CYL_DT * dtm, dtype=f32)
+                   * torch.tensor(mat.alpha, dtype=f32))
+        rows.append(kernel_row(
+            torch, "K10", "z", label, (R, *plan.z),
+            lambda: masked_sweep_z(R, *plan.z, fz, 20.0),
+            lambda: masked_sweep_z_plain(R, *plan.z, fz, 20.0)))
         del R, mask, plan
         torch.cuda.empty_cache()
     for label, shape, dr, r_inner in CYCLIC_SHAPES:        # K11 alone
@@ -2188,9 +2215,35 @@ def time_row(torch, rows, kname, vname, where, ins, kern, plain, err,
           flush=True)
 
 
+def k26_row(torch, rows, vname, where, ins, kern, plain):
+    """K26 (a split solve) against its plain version: within
+    KERNEL_TOL_ULP float32 ulp of the output's scale at float32, one
+    bfloat16 ulp of it at bfloat16 (the share of cells apart printed)."""
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype and bool(torch.isfinite(got).all()),
+          f"K26 {vname} {where}: non-finite output")
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    share = float((got != want).double().mean())
+    if got.dtype == torch.bfloat16:
+        ulps, lim = err / bf16_ulp(scale), 1.0
+        unit = "bf16 ulp of scale, tol 1"
+    else:
+        ulps = err / (torch.finfo(torch.float32).eps * scale)
+        lim, unit = KERNEL_TOL_ULP, f"ulp of scale, tol {KERNEL_TOL_ULP}"
+    time_row(torch, rows, "K26", vname, where, ins, kern, plain, err,
+             extra=f" ({ulps:.2f} {unit}, {100.0 * share:.4f}% of cells "
+                   "differ)")
+    check(ulps <= lim, f"K26 {vname} {where}: {ulps:.2f} ({unit}) from its "
+          "plain version")
+
+
 def phase2_gstreams(torch, dev):
-    """K23-K26 against their plain versions at float32 and bfloat16:
-    bitwise (phase 10's kernel part)."""
+    """K23-K26 against their plain versions at float32 and bfloat16: K23-K25
+    bitwise, K26 (a split solve) within KERNEL_TOL_ULP or one bfloat16 ulp
+    of the output's scale, also on 8192-row lines (phase 10's kernel
+    part)."""
     from adi_thermal_fields_tpu_torch import CartesianGrid, Material
     from adi_thermal_fields_tpu_torch.solvers import (
         gstream_fields, gstream_fields_plain, gstream_sweep_y,
@@ -2258,11 +2311,6 @@ def phase2_gstreams(torch, dev):
                                          rng_offset=2, **seed),
                  lambda: gstream_sweep_y_plain(R, g_lo[1], g_hi[1], sw[1],
                                                20.0, rng_offset=2, **seed)),
-                ("K26", "z, seeded", (R, g_lo[2], g_hi[2], sw[2]),
-                 lambda: gstream_sweep_z(R, g_lo[2], g_hi[2], sw[2], 20.0,
-                                         rng_offset=3, **seed),
-                 lambda: gstream_sweep_z_plain(R, g_lo[2], g_hi[2], sw[2],
-                                               20.0, rng_offset=3, **seed)),
             ]
             where = f"{label} {str(dtype)[6:]}"
             for kname, vname, ins, kern, plain in variants:
@@ -2284,8 +2332,37 @@ def phase2_gstreams(torch, dev):
                 check(same, f"{kname} {vname} {where}: max|d| {err:.3e} "
                       "from its plain version, not bitwise")
                 del got, want
-            del T, R, src, g_lo, g_hi, sw, sp, variants
+            z = (R, g_lo[2], g_hi[2], sw[2])
+            for vname, kw in ((("z", {}),) if dtype == torch.bfloat16
+                              else ()) + (("z, seeded", seed),):
+                k26_row(torch, rows, vname, where, z,
+                        lambda: gstream_sweep_z(*z, 20.0, rng_offset=3,
+                                                **kw),
+                        lambda: gstream_sweep_z_plain(*z, 20.0,
+                                                      rng_offset=3, **kw))
+            del T, R, src, g_lo, g_hi, sw, sp, variants, z
             torch.cuda.empty_cache()
+    # K26 on 8192-row lines: past the staging, the core's strided kernel
+    shape = LONG_LINES[2]
+    grid = CartesianGrid(*shape, 0.5e-3)
+    sc = vp_scalars(grid, mat, P10_VP_DT)
+    mask = waam_mask(torch, shape, dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        T = mushy_field(torch, mask, seed=7).to(dtype)
+        R = random_field(torch, mask, seed=13).to(dtype)
+        g_lo, g_hi, sw, _ = gstream_fields_plain(
+            T, mask.to(torch.uint8), sc["tg"], sc["sk"], k_spec=kt,
+            cp_spec=ct, rho=mat.rho, dt=sc["dt"], t_inf=20.0, h_mode="rad",
+            hpar=EMISSIVITY, h_conv=H_CONV)
+        z = (R, g_lo[2], g_hi[2], sw[2])
+        k26_row(torch, rows, "z, seeded",
+                f"{'x'.join(map(str, shape))} {str(dtype)[6:]}", z,
+                lambda: gstream_sweep_z(*z, 20.0, rng_offset=3,
+                                        rng_seed=P10_SEED),
+                lambda: gstream_sweep_z_plain(*z, 20.0, rng_offset=3,
+                                              rng_seed=P10_SEED))
+        del T, R, g_lo, g_hi, sw, z
+        torch.cuda.empty_cache()
     return rows
 
 

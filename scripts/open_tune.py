@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
-"""The open field sweeps K21 (a/b/c/d fields) and K17 (five streams) on
-the split-line core, on one CUDA card: their build time and register and
-spill report, their error against their plain versions block by block
-against each block's stiffness, and their time.  The open-line twin of
-scripts/cyclic_tune.py.
+"""The open split-line sweeps K21 (a/b/c/d fields), K17 (five streams),
+K10 (masked-Robin z) and K26 (g-stream z) on one CUDA card: their build
+time and register and spill report, their error against their plain
+versions block by block against each block's stiffness, and their time.
+The open-line twin of scripts/cyclic_tune.py.
 
     python3 scripts/open_tune.py [--build-report] [--seeds 17,23]
-                                 [--dts 1,10] [--set NAME=VALUE ...]
-                                 [--sub OLD=NEW ...]
+                                 [--dts 1,10] [--kernels K10,K26]
+                                 [--set NAME=VALUE ...] [--sub OLD=NEW ...]
 
 A block of lines with a row past (|a| + |c|) > ratio (b - |a| - |c|) is
 solved in Thomas order, bit for bit the plain version, where ratio is
-kOpenStiff of csrc/field_rows.cuh; ``--set kOpenStiff=1e30`` (any
-``constexpr`` of csrc/field_rows.cuh, csrc/split_staged.cuh and
-csrc/split_line.cuh) splits every block; ``--sub OLD=NEW`` makes a text
+kOpenStiff of csrc/field_rows.cuh (K17, K21) or kK10Stiff of
+csrc/masked.cu (K10; K26 replays nothing); ``--set kOpenStiff=1e30`` or
+``--set kK10Stiff=1e30`` (any ``constexpr`` of csrc/field_rows.cuh,
+csrc/split_staged.cuh, csrc/split_line.cuh, csrc/masked.cu and
+csrc/gstreams.cu) splits every block; ``--sub OLD=NEW`` makes a text
 substitution in those sources (OLD free of '='); either is measured in a
-copy of the package under build/tune/.
+copy of the package under build/tune/.  ``--kernels`` (default all four)
+picks the kernels measured.
 
 Prints (``--build-report``) the nvcc time of csrc/fields.cu and
 csrc/vp_fields.cu each compiled alone, with the registers and spills of
@@ -37,7 +40,11 @@ x, y and z; and the spiral app's ring of chip_smoke.py phase 8 ((32, 720,
 200) at 0.25 mm, r_inner 52 mm) at theta = 0.5 of its --dt_fixed 0.05 s:
 its Douglas print's own rows.  The Douglas step solves the rows of
 theta*dw: the (64, 512, 1024) tube's Douglas step reaches half the ratio
-of its inputs here at the same dt.
+of its inputs here at the same dt.  K10: chip_smoke.py phase 6's plans and
+random fields on its tube, its disk and the spiral app's ring
+(CYCLIC_SHAPES[0]) at multiples of phase 6's dt (float32).  K26: phase
+10's streams (the radiative film) from its mushy T and random fields at
+384^3 (WAAM mask) and 97x203x131 at multiples of its dt (float32).
 """
 import importlib.util
 import json
@@ -50,20 +57,46 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "adi_thermal_fields_tpu_torch"
-SOURCES = ("field_rows.cuh", "split_staged.cuh", "split_line.cuh")
+SOURCES = ("field_rows.cuh", "split_staged.cuh", "split_line.cuh",
+           "masked.cu", "gstreams.cu")
 # bins of a block's largest |a| + |c| over b - |a| - |c|
 EDGES = (0, 1, 2, 4, 8, 12, 16, 24, 32, 48, 64, 96, 128, 256, float("inf"))
 
 
 def patched_copy(sets, subs):
     """A copy of the package under build/tune/ with the constants set and
-    the substitutions made."""
+    the substitutions made; an earlier copy with the same sources is kept
+    (with its built library)."""
     tag = "open_" + "_".join(re.sub(r"\W", "", s) for s in sets + subs)[:80]
     root = os.path.join(HERE, "build", "tune", tag)
-    shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(os.path.join(HERE, PKG), os.path.join(root, PKG),
+    fresh = root + ".new"
+    shutil.rmtree(fresh, ignore_errors=True)
+    shutil.copytree(os.path.join(HERE, PKG), os.path.join(fresh, PKG),
                     ignore=shutil.ignore_patterns("__pycache__"))
-    csrc = os.path.join(root, PKG, "csrc")
+    patch(os.path.join(fresh, PKG, "csrc"), sets, subs)
+    old = os.path.join(root, PKG)
+    if os.path.isdir(old) and same_tree(old, os.path.join(fresh, PKG)):
+        shutil.rmtree(fresh)
+        return root
+    shutil.rmtree(root, ignore_errors=True)
+    os.rename(fresh, root)
+    return root
+
+
+def same_tree(a, b):
+    """The two directories hold the same files with the same bytes."""
+    import filecmp
+    cmp = filecmp.dircmp(a, b, ignore=["__pycache__"])
+    if cmp.left_only or cmp.right_only or cmp.funny_files:
+        return False
+    _, bad, err = filecmp.cmpfiles(a, b, cmp.common_files, shallow=False)
+    return not bad and not err and all(
+        same_tree(os.path.join(a, d), os.path.join(b, d))
+        for d in cmp.common_dirs)
+
+
+def patch(csrc, sets, subs):
+    """Set the constants and make the substitutions in csrc/SOURCES."""
     for s in sets:
         name, value = s.split("=")
         hits = 0
@@ -87,7 +120,6 @@ def patched_copy(sets, subs):
             open(path, "w").write(text.replace(old, new))
         if hits == 0:
             raise SystemExit(f"open_tune: {old} not in {SOURCES}")
-    return root
 
 
 def build_report(root):
@@ -98,7 +130,7 @@ def build_report(root):
     csrc = os.path.join(root, PKG, "csrc")
     work = os.path.join(root, "build", "tune_obj")
     os.makedirs(work, exist_ok=True)
-    for src in ("fields.cu", "vp_fields.cu"):
+    for src in ("fields.cu", "vp_fields.cu", "masked.cu", "gstreams.cu"):
         t0 = time.perf_counter()
         proc = subprocess.run(
             [find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", csrc, "-c",
@@ -143,7 +175,88 @@ def load_chip_smoke(root=HERE):
     return cs
 
 
-def measure(cs, dev, seeds, dts, with_report, root=HERE):
+def k10_rows(torch, R, code, sink, srhs, glo, ghi, fac, ambient):
+    """K10's rows (solvers/masked.py ``_masked_plain`` along z)."""
+    from adi_thermal_fields_tpu_torch.solvers.masked import _prefold
+    low = ((code & 1) != 0).to(R.dtype)
+    high = ((code & 2) != 0).to(R.dtype)
+    al, ch = glo * low, ghi * high
+    return (-fac * al, 1.0 + fac * (al + ch + sink), -fac * ch,
+            _prefold(R, code, srhs, fac, ambient))
+
+
+def measure_k10_k26(cs, dev, seeds, dts, kernels, report):
+    """K10 on phase 6's shapes, K26 (float32) on phase 10's."""
+    import torch
+    from adi_thermal_fields_tpu_torch import (CartesianGrid, CylindricalGrid,
+                                              Material)
+    from adi_thermal_fields_tpu_torch.solvers import (
+        gstream_fields, gstream_sweep_z, gstream_sweep_z_plain,
+        masked_sweep_z, masked_sweep_z_plain)
+
+    f32 = torch.float32
+    mat = Material(7800.0, 490.0, 54.0)
+    cases = [(label, shape, 5e-4, 0.0 if label.endswith("disk") else 0.02)
+             for label, shape in cs.CYL_SHAPES] + [cs.CYCLIC_SHAPES[0]]
+    for label, shape, dr, r_inner in cases if "K10" in kernels else ():
+        grid = CylindricalGrid(*shape, dr, dr, r_inner=r_inner)
+        for si, seed in enumerate(seeds):
+            if label.endswith("disk"):
+                g = torch.Generator(device=dev).manual_seed(seed + 12)
+                mask = torch.rand(shape, generator=g, device=dev) > 0.25
+            else:
+                mask = cs.tube_mask(torch, shape, dev)
+            plan = cs.cyl_plan(torch, grid, mask, "dirichlet")
+            R = cs.random_field(torch, mask, seed=seed)
+            for di, dtm in enumerate(dts):
+                fac = float(torch.tensor(cs.CYL_DT * dtm, dtype=f32)
+                            * torch.tensor(mat.alpha, dtype=f32))
+                rows = k10_rows(torch, R, *plan.z, fac, 20.0)
+                report("K10", label, seed, dtm,
+                       lambda: masked_sweep_z(R, *plan.z, fac, 20.0),
+                       lambda: masked_sweep_z_plain(R, *plan.z, fac, 20.0),
+                       rows, 2, si == 0 and di == 0)
+                del rows
+            del R, plan, mask
+            torch.cuda.empty_cache()
+    kt, ct = cs.varprop_tables()
+    for label, shape in cs.P10_SHAPES if "K26" in kernels else ():
+        for si, seed in enumerate(seeds):
+            if label.endswith("waam"):
+                mask = cs.waam_mask(torch, shape, dev)
+            else:
+                g = torch.Generator(device=dev).manual_seed(seed + 3)
+                mask = torch.rand(shape, generator=g, device=dev) > 0.25
+            T = cs.mushy_field(torch, mask, seed=seed + 7)
+            R = cs.random_field(torch, mask, seed=seed + 13)
+            for di, dtm in enumerate(dts):
+                sc = cs.vp_scalars(CartesianGrid(*shape, 0.5e-3), mat,
+                                   cs.P10_VP_DT * dtm)
+                g_lo, g_hi, sw, _ = gstream_fields(
+                    T, mask.to(torch.uint8), sc["tg"], sc["sk"], k_spec=kt,
+                    cp_spec=ct, rho=mat.rho, dt=sc["dt"], t_inf=20.0,
+                    h_mode="rad", hpar=cs.EMISSIVITY, h_conv=cs.H_CONV)
+                lo, hi, s = g_lo[2], g_hi[2], sw[2]
+                rows = (-lo, 1.0 + lo + hi + s, -hi, R + s * 20.0)
+                report("K26", label, seed, dtm,
+                       lambda: gstream_sweep_z(R, lo, hi, s, 20.0),
+                       lambda: gstream_sweep_z_plain(R, lo, hi, s, 20.0),
+                       rows, 2, si == 0 and di == 0)
+                if si == 0 and di == 0:          # the bfloat16 state's ms
+                    z16 = [t.to(torch.bfloat16) for t in (R, lo, hi, s)]
+                    ms = cs.cuda_ms(torch, lambda: gstream_sweep_z(
+                        *z16, 20.0, rng_seed=cs.P10_SEED, rng_offset=3), 20)
+                    print(json.dumps(dict(kernel="K26", shape=label,
+                                          dtype="bfloat16", ms=ms)),
+                          flush=True)
+                    del z16
+                del rows, g_lo, g_hi, sw, lo, hi, s
+            del T, R, mask
+            torch.cuda.empty_cache()
+
+
+def measure(cs, dev, seeds, dts, with_report, root=HERE,
+            kernels=("K10", "K17", "K21", "K26")):
     import torch
     from adi_thermal_fields_tpu_torch.solvers import (
         thomas, tridiag_fields, tridiag_fields_plain, vp_fields_sweep_strided,
@@ -190,12 +303,14 @@ def measure(cs, dev, seeds, dts, with_report, root=HERE):
         print(json.dumps(rec), flush=True)
         del got, want, exact
 
+    measure_k10_k26(cs, dev, seeds, dts, kernels, report)
     # K17 along r and z, and K21 on the same rows (the fields tier's)
     k17_cases = [(label, shape, prec, 5e-4, None, 1.0)
                  for label, shape, prec in cs.P8_SHAPES]
     k17_cases.append(("32x720x200 app tube", (32, 720, 200), "float32",
                       2.5e-4, 0.052, 0.5 * 0.05 / cs.P8_DT))
-    for label, shape, prec, dr, r_inner, base in k17_cases:
+    for label, shape, prec, dr, r_inner, base in (
+            k17_cases if {"K17", "K21"} & set(kernels) else ()):
         dtype = getattr(torch, prec)
         grid, mat, mask, zbc, _ = cs.cylvp_case(torch, label, shape, dtype,
                                                 dev, dr, r_inner)
@@ -234,7 +349,7 @@ def measure(cs, dev, seeds, dts, with_report, root=HERE):
             torch.cuda.empty_cache()
         del mask, cols
     # K21 on phase 9's systems
-    for label, shape, prec in cs.P9_SHAPES:
+    for label, shape, prec in cs.P9_SHAPES if "K21" in kernels else ():
         dtype = getattr(torch, prec)
         for si, seed in enumerate(seeds):
             a, b, c, R = cs.field_systems(torch, shape, dtype, dev, seed + 5)
@@ -257,11 +372,14 @@ def main():
     report = "--build-report" in args
     args = [a for a in args if a != "--build-report"]
     seeds, dts, sets, subs = "17", "1", [], []
+    kernels = "K10,K17,K21,K26"
     for flag, value in zip(args[::2], args[1::2]):
         if flag == "--seeds":
             seeds = value
         elif flag == "--dts":
             dts = value
+        elif flag == "--kernels":
+            kernels = value
         elif flag == "--set":
             sets.append(value)
         elif flag == "--sub":
@@ -276,7 +394,8 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("open_tune: no CUDA card")
     measure(cs, torch.device("cuda", 0), [int(s) for s in seeds.split(",")],
-            [float(d) for d in dts.split(",")], report, root)
+            [float(d) for d in dts.split(",")], report, root,
+            tuple(kernels.split(",")))
 
 
 if __name__ == "__main__":

@@ -164,11 +164,11 @@ def profile_steps(torch, step, T, n=3):
             m = (re.search(r"cu_[0-9a-f]{8}\d+(\w+?_kernel)", ev.key)
                  or re.search(r"::(\w+_kernel)<", ev.key))
             name = m.group(1) if m else ev.key[:60]
-            # the split-line core's strided and cyclic kernels: by their
-            # row formers
-            r = re.search(r"split_(?:strided|cyclic)_kernel(?:I[fd]NS_\d+"
-                          r"(\w+?)I[fd][EL]|<\w+, \(anonymous namespace\)::"
-                          r"(\w+)<)", ev.key)
+            # the split-line core's strided, cyclic and staged kernels: by
+            # their row formers
+            r = re.search(r"split_(?:strided|cyclic|staged)_kernel(?:I(?:[fd]"
+                          r"|13__nv_bfloat16)+NS_\d+(\w+?)I|<(?:[\w ]+, )+"
+                          r"\(anonymous namespace\)::(\w+)<)", ev.key)
             if r:
                 name += f"<{r.group(1) or r.group(2)}>"
             by_name[name] = by_name.get(name, 0.0) + dev / 1e3 / n
