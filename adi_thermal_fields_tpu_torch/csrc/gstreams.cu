@@ -28,40 +28,68 @@
 // Rows (K24-K26): a = -g_lo, c = -g_hi, b = 1 + g_lo + g_hi + sw, d = rhs
 // + sw*t_inf; no codes, no row lag (g_hi is already the cell's own upper
 // face), and void cells are identity rows because their streams are zero.
-// K24 and K25 eliminate with one reciprocal per row (inv = 1/(b +
-// g_lo*c'); c' = -g_hi*inv; d' = (d + g_lo*d')*inv), the TPU kernels'
-// order, every operation one IEEE rounding (the _rn helpers) in the plain
-// versions' order (solvers/gstreams.py): each repeats its plain version
-// bit for bit.  K26 forms the same rows one rounding each
-// (`GStreamRows`: the rows of _gsolve bit for bit) but solves them split
-// across a warp's lanes, which parts from the Thomas order by about the
-// condition number times a rounding (ratios (g_lo + g_hi) / (1 + sw)
-// below 5 at the step's dt; float32 lines past kK26Stiff replay in Thomas
-// order).  Types:
-// S storage, C compute (common.cuh ATF_DISPATCH_STATE); a bfloat16 state
-// solves at float32 and stores its result to nearest or stochastically
-// (K24-K26, `key`, from the cell's natural index: the plain version's
-// rounding), the streams always to nearest.
+// The row formers (`GStreamRows` for K25 and K26, `GThetaRows` for K24)
+// form each row one IEEE rounding at a time (the _rn helpers) in the plain
+// versions' order (solvers/gstreams.py), so the rows, and K24's right-hand
+// sides, equal _gsolve's bit for bit; the split-line core then solves them
+// split across threads, which parts from the Thomas order by about the
+// condition number times a rounding (ratios (g_lo + g_hi) / (1 + sw) below
+// 5 at the step's dt).  At float32 a line (the strided kernel: a block of
+// 32 lines) with a row past its former's ratio (kK24Stiff; K25 and K26
+// kK26Stiff) is solved again in Thomas order in grow's reciprocal order,
+// bit for bit its plain version.  Types: S storage, C compute (common.cuh
+// ATF_DISPATCH_STATE); a bfloat16 state solves at float32 and stores its
+// result to nearest or stochastically (`key`, from the cell's natural
+// index: the plain version's rounding), the streams always to nearest.
 //
 // What bounds them on the H100: memory.  Per cell at bfloat16 (float32):
 // K23 reads T + mask and writes nine streams, 21 B (41); K24 reads T and
 // seven streams and writes U, 18 B (36); K25 and K26 read rhs and three
-// streams and write x, 10 B (20); K24 and K25 also move c' and d' as
-// float32 scratch (+16 B).  Designs: K24 K6's thread-per-(y, z)-pencil
-// march along x, the pencil's own x-1, x and x+1 values in registers; K25
-// K7's thread-per-pencil strided sweep; K26 K19's staged layout on the
-// split-line core (csrc/split_staged.cuh): a warp a line, its lanes the
-// line's chunks, the persistent block's lines and streams staged by
-// cp.async at the state type (bfloat16 in 4-byte pairs), double-buffered,
-// c' and d' never
-// leaving the SM: 10 B/cell (20), nothing else; 12-row chunks at 384 rows
-// (32 a line: 16-row chunks left a quarter of the lanes idle).  What holds
-// it near 40% of its bfloat16 bound: the solve's latency, not bytes (the
-// float32 line runs in ~1.15x the time for twice the bytes).  The
-// first K26 ran one warp a block, a lane a line's serial recurrence,
-// staging [32 lines x 32 rows] tiles widened to float32 by scalar loads
-// and sending c' and d' through float32 scratch (26 B/cell at bfloat16,
-// 10-12 warps an SM).
+// streams and write x, 10 B (20); none moves anything else below its
+// shared-memory lengths (c' and d' never leave the SM).  Designs:
+//   K24 and K25: the strided kernel of the split-line core
+//      (csrc/split_line.cuh, `split_strided_kernel`; K1's layout): lanes
+//      are 32 lines adjacent in z (K24: the (y, z) pencils of the x sweep,
+//      (B1, n, B2) = (1, nx, ny*nz); K25: the z columns of a y sweep,
+//      (nx, ny, nz)), so every row load and store is coalesced; the
+//      block's 16 warps (two blocks an SM: kGxyWarps, kGxyBlocks) split
+//      each line's 8-row chunks, each chunk's rows are formed and
+//      eliminated in registers, the reduced rows solved on warp shuffles,
+//      and x written once through atf::st with the key.  At bfloat16 a
+//      warp reads two rows of its 32 lines with one 4-byte load a lane
+//      (`ld_pair`) where the rows pair up (nz even): the loads in flight,
+//      not bytes, bound the bfloat16 sweeps.
+//      K25 takes K26's `GStreamRows` (its strided `load`, `row_at` and
+//      `replay`).  K24's `GThetaRows` forms each right-hand side from the
+//      stencil, as K6's `VpThetaRows` does (csrc/varprop_sweeps.cu), but
+//      every stream is the cell's own, so the neighbours give only T:
+//        x+-1: T carried from row to row within the chunk, with a halo row
+//              of T at row0 - 1 and row0 + M;
+//        z+-1: T from the neighbouring lanes by warp shuffle; lanes 0 and
+//              31 load their outer neighbour (reading rows in pairs, lanes
+//              0, 1, 30 and 31 load both rows' in one instruction).  Lane
+//              b2 + 1 is z + 1 only inside a y row: the values are selected
+//              by k > 0 and k + 1 < nz, never multiplied by them;
+//        y+-1: T at off -+ nz, from L1/L2.
+//      Where two blocks' shared memory holds no eliminated rows (lines of
+//      257-512 rows, 384^3's among them) K24 keeps each row's right-hand
+//      side and forms its rows again from it in phase (c), without the
+//      stencil's loads (K25 forms its rows again from its inputs).  The
+//      first K24 and K25 marched one thread along each pencil (a Thomas
+//      recurrence with a rounded division a row, c' and d' through two
+//      float32 field-sized scratch buffers, +16 B/cell: 34 and 26 B/cell
+//      at bfloat16).
+//   K26: K19's staged layout on the split-line core
+//      (csrc/split_staged.cuh): a warp a line, its lanes the line's
+//      chunks, the persistent block's lines and streams staged by cp.async
+//      at the state type (bfloat16 in 4-byte pairs), double-buffered;
+//      12-row chunks at 384 rows (32 a line: 16-row chunks left a quarter
+//      of the lanes idle).  What holds it near 40% of its bfloat16 bound:
+//      the solve's latency, not bytes (the float32 line runs in ~1.15x the
+//      time for twice the bytes).  The first K26 ran one warp a block, a
+//      lane a line's serial recurrence, staging [32 lines x 32 rows] tiles
+//      widened to float32 by scalar loads and sending c' and d' through
+//      float32 scratch (26 B/cell at bfloat16, 10-12 warps an SM).
 // K23 marches tiles of 8 y rows x 128 z cells along x,
 // four cells a thread, as K3: k(T) once a cell into a shared tile with
 // its y halo rows (the z halo by lanes 0 and 31), each face's harm once
@@ -583,15 +611,70 @@ __global__ void __launch_bounds__(kGfThreads, kGfMinBlocks)
   if (x1 > x0) finish_ylo(bufs[(x1 - 1 - x0) % kGfBufs], x1 - 1);
 }
 
-// One g-stream row into the recurrence (c', d').
-template <typename C>
-__device__ __forceinline__ void grow(C lo, C hi, C sw, C d, C t_inf, C& cp,
-                                     C& dp) {
-  const C b = add(add(add(C(1), lo), hi), sw);
-  const C dd = add(d, mul(sw, t_inf));
-  const C inv = div(C(1), add(b, mul(lo, cp)));
-  cp = mul(-hi, inv);
-  dp = mul(add(dd, mul(lo, dp)), inv);
+// The stiffness ratios of the g-stream sweeps (csrc/field_rows.cuh): at
+// float32 a line with a row past |a| + |c| > ratio * (b - |a| - |c|) is
+// solved again in Thomas order, grow's reciprocal order, bit for bit its
+// plain version (on the strided kernel, K24, K25 and K26's long lines, the
+// block of 32 lines that holds it).  No bfloat16 state replays (its gate
+// is one bfloat16 ulp), no float64 one.  Every line split, over five seeds
+// and dt x1-10 on chip_smoke.py phase 10's streams at 384^3 and 97x203x131
+// (scripts/open_tune.py, PERF.md section 6), the largest distance from the
+// plain version in float32 ulp of the output's scale (the gate is 8):
+//   K26 (z): 6.2 below 16, 10.3 at 16-24, 11.0 at 24-32;
+//   K25 (y): 4.9 below 16, 6.2 at 16-24, 13.7 at 24-32: K26's cut, 16;
+//   K24 (x): 4.7 below 16, 5.5 at 16-24, 7.2 at 24-32, 5.4 at 32-48.
+// The step's rows sit below 5 at its dt.
+constexpr double kK26Stiff = 16.0;
+constexpr double kK24Stiff = 16.0;
+
+// K24's and K25's block shape on the strided kernel at float32 compute
+// (float32 and bfloat16 states): kGxyWarps warps a block, registers held
+// to kGxyBlocks blocks an SM (split_line.cuh SplitShape; float64 takes the
+// core's).  On the H100 at 384^3 (scripts/gstream_tune.py, PERF.md section
+// 6), with the bfloat16 rows read in pairs (ld_pair), 16 warps and two
+// blocks an SM (64 registers; K24 then keeps right-hand sides, K25 forms
+// its rows again) took the bfloat16 step 2.97 -> 2.69 ms against one block
+// of 32 warps; 24 warps (80 registers) ran the same at 384^3 and 1.1-3x
+// slower on 8192-row and 97x203x131 lines, 8 warps and four blocks, or 16
+// warps and one, slower.
+constexpr int kGxyWarps = 16;
+constexpr int kGxyBlocks = 2;
+
+// Rows r and r + 1 of a warp's 32 adjacent bfloat16 lines by one 4-byte
+// load a lane: lanes 0-15 load the line pair (2h, 2h + 1) of row r, lanes
+// 16-31 that of row r + 1, at p[q + (r or r + 1)*rs] with q the pair's
+// offset (even, as rs); each lane takes its own line's two values by
+// shuffle (v[0] row r, v[1] row r + 1).  `ok`: the pair is read (rows in
+// [0, n)), else its values are 0.  A warp's load moves 128 bytes, not 64:
+// at bfloat16 K24 and K25 are bound by the loads in flight, not bytes (one
+// 2-byte load a value ran K25 at 0.55 ms against 0.42, K24 at 1.15 against
+// 1.00; PERF.md section 6).
+__device__ __forceinline__ void ld_pair(const __nv_bfloat16* p, int64_t q,
+                                        int64_t rs, int64_t r, int64_t n,
+                                        bool ok, float (&v)[2]) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int64_t row = r + (lane >> 4);
+  uint32_t w = 0;
+  if (ok && row >= 0 && row < n) {
+    w = *reinterpret_cast<const uint32_t*>(p + q + row * rs);
+  }
+  const uint32_t lo = __shfl_sync(kAll, w, lane >> 1);
+  const uint32_t hi = __shfl_sync(kAll, w, 16 + (lane >> 1));
+  v[0] = __uint_as_float(lane & 1 ? lo & 0xffff0000u : lo << 16);
+  v[1] = __uint_as_float(lane & 1 ? hi & 0xffff0000u : hi << 16);
+}
+
+// the pair this lane loads: (its line's offset - lane) + 2 (lane % 16), and
+// whether the pair holds lines (both or neither: B2 even)
+__device__ __forceinline__ int64_t pair_offset(int64_t base) {
+  const int lane = threadIdx.x & 31;
+  return base - lane + 2 * (lane & 15);
+}
+__device__ __forceinline__ bool pair_valid(bool valid) {
+  const int lane = threadIdx.x & 31;
+  return ((__ballot_sync(0xffffffffu, valid) >> (2 * (lane & 15))) & 1u) !=
+         0u;
 }
 
 // One axis of the explicit pass: g_lo*(t_lo - t) + g_hi*(t_hi - t).
@@ -600,97 +683,22 @@ __device__ __forceinline__ C gterm(C lo, C hi, C t_lo, C t_hi, C t) {
   return add(mul(lo, sub(t_lo, t)), mul(hi, sub(t_hi, t)));
 }
 
-template <typename S, typename C>
-__global__ void __launch_bounds__(256) gstream_theta_sweep_kernel(
-    const S* __restrict__ Tf, const S* __restrict__ gxlo,
-    const S* __restrict__ gxhi, const S* __restrict__ gylo,
-    const S* __restrict__ gyhi, const S* __restrict__ gzlo,
-    const S* __restrict__ gzhi, const S* __restrict__ swx,
-    const S* __restrict__ srcp, S* __restrict__ out, C* __restrict__ cpbuf,
-    C* __restrict__ dpbuf, int64_t nx, int64_t ny, int64_t nz, C rr,
-    C t_inf, int64_t key) {
-  const int64_t plane = ny * nz;
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= plane) return;
-  const int64_t j = p / nz;
-  const int64_t k = p - j * nz;
-  const bool has_ylo = j > 0, has_yhi = j + 1 < ny;
-  const bool has_zlo = k > 0, has_zhi = k + 1 < nz;
-
-  C cp = C(0), dp = C(0);
-  C t_lo = C(0);               // T at x-1 (0 before the first row)
-  C t_c = atf::ld(Tf + p);     // T at x
-  for (int64_t i = 0; i < nx; ++i) {
-    const int64_t off = i * plane + p;
-    const C t_hi = (i + 1 < nx) ? atf::ld(Tf + off + plane) : C(0);
-    const C lo = atf::ld(gxlo + off);
-    const C hi = atf::ld(gxhi + off);
-    // explicit pass: x, then y, then z (neighbours 0 past the edge)
-    C acc = gterm(lo, hi, t_lo, t_hi, t_c);
-    acc = add(acc, gterm(atf::ld(gylo + off), atf::ld(gyhi + off),
-                         has_ylo ? atf::ld(Tf + off - nz) : C(0),
-                         has_yhi ? atf::ld(Tf + off + nz) : C(0), t_c));
-    acc = add(acc, gterm(atf::ld(gzlo + off), atf::ld(gzhi + off),
-                         has_zlo ? atf::ld(Tf + off - 1) : C(0),
-                         has_zhi ? atf::ld(Tf + off + 1) : C(0), t_c));
-    C d = add(t_c, mul(rr, acc));
-    if (srcp != nullptr) d = add(d, atf::ld(srcp + off));
-    grow(lo, hi, atf::ld(swx + off), d, t_inf, cp, dp);
-    cpbuf[off] = cp;
-    dpbuf[off] = dp;
-    t_lo = t_c;
-    t_c = t_hi;
-  }
-  C x = C(0);
-  for (int64_t i = nx - 1; i >= 0; --i) {
-    const int64_t off = i * plane + p;
-    x = sub(dpbuf[off], mul(cpbuf[off], x));
-    atf::st(out + off, x, key, off);
-  }
+// The g-stream row of grow's order from the cell's g_lo, g_hi, sw and
+// right-hand side r, one rounding each: _gsolve's row bit for bit.
+template <typename C>
+__device__ __forceinline__ void grow(C lo, C hi, C sw, C r, C t_inf, C& a,
+                                     C& b, C& c, C& d) {
+  a = -lo;
+  c = -hi;
+  b = add(add(add(C(1), lo), hi), sw);
+  d = add(r, mul(sw, t_inf));
 }
 
-template <typename S, typename C>
-__global__ void __launch_bounds__(256) gstream_sweep_strided_kernel(
-    const S* __restrict__ rhs, const S* __restrict__ glo,
-    const S* __restrict__ ghi, const S* __restrict__ sw,
-    S* __restrict__ out, C* __restrict__ cpbuf, C* __restrict__ dpbuf,
-    int64_t B1, int64_t n, int64_t B2, C t_inf, int64_t key) {
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= B1 * B2) return;
-  const int64_t b1 = p / B2;
-  const int64_t base = b1 * n * B2 + (p - b1 * B2);
-  C cp = C(0), dp = C(0);
-  for (int64_t i = 0; i < n; ++i) {
-    const int64_t off = base + i * B2;
-    grow(atf::ld(glo + off), atf::ld(ghi + off), atf::ld(sw + off),
-         atf::ld(rhs + off), t_inf, cp, dp);
-    cpbuf[off] = cp;
-    dpbuf[off] = dp;
-  }
-  C x = C(0);
-  for (int64_t i = n - 1; i >= 0; --i) {
-    const int64_t off = base + i * B2;
-    x = sub(dpbuf[off], mul(cpbuf[off], x));
-    atf::st(out + off, x, key, off);
-  }
-}
-
-// K26's stiffness ratio (csrc/field_rows.cuh): at float32 a line with a
-// row past |a| + |c| > kK26Stiff * (b - |a| - |c|) is solved again in
-// Thomas order, grow's reciprocal order, bit for bit gstream_sweep_z_plain.
-// 16: every line split, over five seeds and dt x1-10 on chip_smoke.py
-// phase 10's streams at 384^3 and 97x203x131 (scripts/open_tune.py,
-// PERF.md section 6), lines below 16 stayed within 6.2 float32 ulp of
-// scale of the plain version (the gate is 8), lines of 16-24 and 24-32
-// reached 10.3 and 11.0.  The step's rows sit below 5 at its dt.  No
-// bfloat16 state replays (its gate is one bfloat16 ulp), no float64 one.
-constexpr double kK26Stiff = 16.0;
-
-// K26's rows for the staged split-line kernel (csrc/split_staged.cuh) and,
-// on lines too long to stage, the strided one: the streams g_lo, g_hi and
-// sw and the right-hand side at the state type S, widened (atf::ld), the
-// row formed at C in grow's order, one rounding each: _gsolve's rows bit
-// for bit.  No code, no columns.
+// K25's and K26's rows for the staged split-line kernel
+// (csrc/split_staged.cuh; K26) and the strided one (K25, and K26's lines
+// too long to stage): the streams g_lo, g_hi and sw and the right-hand side
+// at the state type S, widened (atf::ld), the row formed at C by grow.  No
+// code, no columns.
 template <typename S, typename C>
 struct GStreamRows {
   static constexpr int kStreams = 3;             // g_lo, g_hi, sw
@@ -706,19 +714,11 @@ struct GStreamRows {
   __device__ __forceinline__ const S* stream(int t) const { return g[t]; }
   __device__ __forceinline__ const C* col(int) const { return nullptr; }
 
-  __device__ __forceinline__ void row(C lo, C hi, C sw, C r, C& a, C& b,
-                                      C& c, C& d) const {
-    a = -lo;
-    c = -hi;
-    b = add(add(add(C(1), lo), hi), sw);
-    d = add(r, mul(sw, t_inf));
-  }
-
   // row i of the line at base + i*rs
   __device__ __forceinline__ void row_at(int64_t off, C& a, C& b, C& c,
                                          C& d) const {
-    row(atf::ld(g[0] + off), atf::ld(g[1] + off), atf::ld(g[2] + off),
-        atf::ld(rhs + off), a, b, c, d);
+    grow(atf::ld(g[0] + off), atf::ld(g[1] + off),
+         atf::ld(g[2] + off), atf::ld(rhs + off), t_inf, a, b, c, d);
   }
 
   template <int M>
@@ -772,10 +772,334 @@ struct GStreamRows {
             return;
           }
           const int s = s0 + k;
-          row(atf::ld(f + s), atf::ld(f + fs + s), atf::ld(f + 2 * fs + s),
-              atf::ld(x + s), a, b, c, d);
+          grow(atf::ld(f + s), atf::ld(f + fs + s), atf::ld(f + 2 * fs + s),
+               atf::ld(x + s), t_inf, a, b, c, d);
         },
         row0, nv, stiff_check<kReplay, GStreamRows>(stiff));
+  }
+};
+
+// K25's rows: K26's, with K25's block shape and, at bfloat16 where the
+// lines' rows pair up (B2 even, aligned), two rows a load (ld_pair).
+template <typename S, typename C>
+struct GStreamYRows : GStreamRows<S, C> {
+  static constexpr int kWarps = sizeof(C) == 4 ? kGxyWarps : kSplitWarps<C>;
+  static constexpr int kMinBlocks = sizeof(C) == 4 ? kGxyBlocks : 1;
+
+  bool pairs;     // the lines' rows 4-byte aligned in pairs (B2 even)
+
+  template <int M>
+  __device__ __forceinline__ void load(Chunk<C, M, false>& ch, int64_t base,
+                                       int64_t rs, int64_t row0, int64_t n,
+                                       bool valid) const {
+    bool stiff = false;
+    load(ch, base, rs, row0, n, valid, stiff);
+  }
+
+  template <int M>
+  __device__ __forceinline__ void load(Chunk<C, M, false>& ch, int64_t base,
+                                       int64_t rs, int64_t row0, int64_t n,
+                                       bool valid, bool& stiff) const {
+    if constexpr (sizeof(S) == 2 && M % 2 == 0) {
+      if (pairs) {
+        load_pairs(ch, base, rs, row0, n, valid);
+        return;
+      }
+    }
+    GStreamRows<S, C>::load(ch, base, rs, row0, n, valid, stiff);
+  }
+
+  template <int M>
+  __device__ __forceinline__ void load_pairs(Chunk<C, M, false>& ch,
+                                             int64_t base, int64_t rs,
+                                             int64_t row0, int64_t n,
+                                             bool valid) const {
+    const bool pv = pair_valid(valid);
+    const int64_t q0 = pair_offset(base);
+    C v[4][2];
+    ch.load_rows(
+        [&](int k, C& a, C& b, C& c, C& d) {
+          if (k % 2 == 0) {
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              ld_pair(t < 3 ? this->g[t] : this->rhs, q0, rs, row0 + k, n, pv,
+                      v[t]);
+            }
+          }
+          const int64_t i = row0 + k;
+          if (!valid || i >= n) {
+            a = c = d = C(0);
+            b = C(1);
+            return;
+          }
+          const int q = k % 2;
+          grow(v[0][q], v[1][q], v[2][q], v[3][q], this->t_inf, a, b, c, d);
+        },
+        row0, n);
+  }
+};
+
+// K24's rows for the strided kernel on the x lines of the natural field:
+// (B1, n, B2) = (1, nx, ny*nz), line b2 = j*nz + k at base = b2, rows
+// rs = ny*nz apart.  Row i is grow's row from gx_lo, gx_hi and sw_x at the
+// cell and the right-hand side
+//   d = t + rr*((gterm_x + gterm_y) + gterm_z) (+ src_pre),
+// each neighbour's T zero past the domain edge, in
+// gstream_theta_sweep_plain's order, one rounding each: the plain rows bit
+// for bit.  Every lane of a warp forms the same rows of its own line
+// together (the z neighbours come by shuffle); a lane past the last line
+// (`valid` false) takes part with zeros and forms identity rows.  Where the
+// core keeps a value a row (kKeepRhs), phase (a) keeps each row's
+// right-hand side and phase (c) forms the row again from it and the
+// cell's x streams, without the stencil's loads.  The float32 replay forms
+// each row alone from global memory (no shuffle): the same rows.
+template <typename S, typename C>
+struct GThetaRows {
+  static constexpr int kWarps = sizeof(C) == 4 ? kGxyWarps : kSplitWarps<C>;
+  static constexpr int kMinBlocks = sizeof(C) == 4 ? kGxyBlocks : 1;
+  static constexpr bool kKeepsRhs = true;
+  static constexpr bool kReplay =
+      std::is_same_v<S, float> && std::is_same_v<C, float>;
+  static constexpr double kStiff = kK24Stiff;
+  static size_t replay_bytes(int64_t n) { return open_replay_bytes<C>(n); }
+  const S* Tf;
+  const S* gx_lo;
+  const S* gx_hi;
+  const S* gy_lo;
+  const S* gy_hi;
+  const S* gz_lo;
+  const S* gz_hi;
+  const S* sw_x;
+  const S* src;                                  // src_pre, or null
+  int64_t ny, nz;
+  C rr, t_inf;
+  bool pairs;     // bfloat16 rows read two at a time (nz even, aligned)
+
+  // the right-hand side from T at the cell (t) and its neighbours, the
+  // cell's x streams (lo, hi), y and z streams and src_pre (sp)
+  __device__ __forceinline__ C rhs(C lo, C hi, C t, C tx_lo, C tx_hi, C gyl,
+                                   C gyh, C ty_lo, C ty_hi, C gzl, C gzh,
+                                   C tz_lo, C tz_hi, C sp) const {
+    C acc = gterm(lo, hi, tx_lo, tx_hi, t);
+    acc = add(acc, gterm(gyl, gyh, ty_lo, ty_hi, t));
+    acc = add(acc, gterm(gzl, gzh, tz_lo, tz_hi, t));
+    const C d = add(t, mul(rr, acc));
+    return src != nullptr ? add(d, sp) : d;
+  }
+
+  // the same with the y and z streams and src_pre read at off
+  __device__ __forceinline__ C rhs(int64_t off, C lo, C hi, C t, C tx_lo,
+                                   C tx_hi, C ty_lo, C ty_hi, C tz_lo,
+                                   C tz_hi) const {
+    return rhs(lo, hi, t, tx_lo, tx_hi, atf::ld(gy_lo + off),
+               atf::ld(gy_hi + off), ty_lo, ty_hi, atf::ld(gz_lo + off),
+               atf::ld(gz_hi + off), tz_lo, tz_hi,
+               src != nullptr ? atf::ld(src + off) : C(0));
+  }
+
+  template <int M>
+  __device__ __forceinline__ void load(Chunk<C, M, false>& ch, int64_t base,
+                                       int64_t rs, int64_t row0, int64_t n,
+                                       bool valid, C* kept = nullptr,
+                                       int stride = 0) const {
+    bool stiff = false;
+    form<M, false>(ch, base, rs, row0, n, valid, kept, stride, stiff);
+  }
+
+  template <int M>
+  __device__ __forceinline__ void load(Chunk<C, M, false>& ch, int64_t base,
+                                       int64_t rs, int64_t row0, int64_t n,
+                                       bool valid, bool& stiff) const {
+    form<M, false>(ch, base, rs, row0, n, valid, nullptr, 0, stiff);
+  }
+
+  template <int M>
+  __device__ __forceinline__ void load(Chunk<C, M, false>& ch, int64_t base,
+                                       int64_t rs, int64_t row0, int64_t n,
+                                       bool valid, C* kept, int stride,
+                                       bool& stiff) const {
+    form<M, false>(ch, base, rs, row0, n, valid, kept, stride, stiff);
+  }
+
+  template <int M>
+  __device__ __forceinline__ void reload(Chunk<C, M, false>& ch,
+                                         int64_t base, int64_t rs,
+                                         int64_t row0, int64_t n, bool valid,
+                                         C* kept, int stride) const {
+    bool stiff = false;
+    form<M, true>(ch, base, rs, row0, n, valid, kept, stride, stiff);
+  }
+
+  // kAgain: the right-hand sides from kept[k*stride]; else from the
+  // stencil, stored there where kept is not null
+  template <int M, bool kAgain>
+  __device__ __forceinline__ void form(Chunk<C, M, false>& ch, int64_t base,
+                                       int64_t rs, int64_t row0, int64_t n,
+                                       bool valid, C* kept, int stride,
+                                       bool& stiff) const {
+    if constexpr (sizeof(S) == 2 && M % 2 == 0) {
+      if (pairs) {
+        form_pairs<M, kAgain>(ch, base, rs, row0, n, valid, kept, stride);
+        return;
+      }
+    }
+    constexpr unsigned kAll = 0xffffffffu;
+    const int lane = threadIdx.x & 31;
+    const int64_t j = base / nz;
+    const int64_t kz = base - j * nz;
+    const bool ylo = valid && j > 0, yhi = valid && j + 1 < ny;
+    const bool zlo = valid && kz > 0, zhi = valid && kz + 1 < nz;
+    const bool in0 = valid && row0 < n;
+    // T at the row before the chunk and at its first row
+    C t_lo = (!kAgain && in0 && row0 > 0)
+                 ? atf::ld(Tf + base + (row0 - 1) * rs)
+                 : C(0);
+    C t_c = (!kAgain && in0) ? atf::ld(Tf + base + row0 * rs) : C(0);
+    ch.load_rows(
+        [&](int k, C& a, C& b, C& c, C& d) {
+          const int64_t i = row0 + k;
+          if (i >= n) {                 // the same rows for the whole warp
+            a = c = d = C(0);
+            b = C(1);
+            return;
+          }
+          const int64_t off = base + i * rs;
+          const C lo = valid ? atf::ld(gx_lo + off) : C(0);
+          const C hi = valid ? atf::ld(gx_hi + off) : C(0);
+          const C sw = valid ? atf::ld(sw_x + off) : C(0);
+          C dv;
+          if constexpr (kAgain) {
+            dv = kept[k * stride];
+          } else {
+            const C t_hi =
+                valid && i + 1 < n ? atf::ld(Tf + off + rs) : C(0);
+            C tz_lo = __shfl_up_sync(kAll, t_c, 1);
+            C tz_hi = __shfl_down_sync(kAll, t_c, 1);
+            if (lane == 0) tz_lo = zlo ? atf::ld(Tf + off - 1) : C(0);
+            if (lane == 31) tz_hi = zhi ? atf::ld(Tf + off + 1) : C(0);
+            dv = valid ? rhs(off, lo, hi, t_c, t_lo, t_hi,
+                             ylo ? atf::ld(Tf + off - nz) : C(0),
+                             yhi ? atf::ld(Tf + off + nz) : C(0),
+                             zlo ? tz_lo : C(0), zhi ? tz_hi : C(0))
+                       : C(0);
+            if (kept != nullptr) kept[k * stride] = dv;
+            t_lo = t_c;
+            t_c = t_hi;
+          }
+          grow(lo, hi, sw, dv, t_inf, a, b, c, d);
+        },
+        row0, n, stiff_check<kReplay, GThetaRows>(stiff));
+  }
+
+  // form's rows with every input but the z halo read two rows at a time
+  // (ld_pair; bfloat16, M even): at an even row k the right-hand sides of
+  // rows k and k + 1, from T at rows row0 + k - 1 .. row0 + k + 2 (the
+  // first two carried from the last pair), their y neighbours and streams.
+  template <int M, bool kAgain>
+  __device__ __forceinline__ void form_pairs(Chunk<C, M, false>& ch,
+                                             int64_t base, int64_t rs,
+                                             int64_t row0, int64_t n,
+                                             bool valid, C* kept,
+                                             int stride) const {
+    constexpr unsigned kAll = 0xffffffffu;
+    const int lane = threadIdx.x & 31;
+    const int64_t j = base / nz;
+    const int64_t kz = base - j * nz;
+    const bool zlo = valid && kz > 0, zhi = valid && kz + 1 < nz;
+    const int64_t q0 = pair_offset(base);
+    const bool pv = pair_valid(valid);
+    const int64_t jp = q0 / nz;                  // the pair's y row
+    const bool ylo = pv && jp > 0, yhi = pv && jp + 1 < ny;
+    // the z halo: T left of lane 0's line, right of lane 31's
+    const int64_t b0 = base - lane, b31 = b0 + 31;
+    const bool hlo = b0 % nz > 0, hhi = b31 < ny * nz && b31 % nz + 1 < nz;
+    C t[2];                         // T at rows row0 + k - 1 and row0 + k
+    if constexpr (!kAgain) ld_pair(Tf, q0, rs, row0 - 1, n, pv, t);
+    C x[3][2], dv[2];
+    ch.load_rows(
+        [&](int k, C& a, C& b, C& c, C& d) {
+          const int64_t i = row0 + k;
+          const int h = k % 2;
+          if (h == 0) {
+            ld_pair(gx_lo, q0, rs, i, n, pv, x[0]);
+            ld_pair(gx_hi, q0, rs, i, n, pv, x[1]);
+            ld_pair(sw_x, q0, rs, i, n, pv, x[2]);
+            if constexpr (!kAgain) {
+              C th[2], gy[2][2], gz[2][2], ty[2][2], sp[2] = {C(0), C(0)};
+              ld_pair(Tf, q0, rs, i + 1, n, pv, th);
+              ld_pair(gy_lo, q0, rs, i, n, pv, gy[0]);
+              ld_pair(gy_hi, q0, rs, i, n, pv, gy[1]);
+              ld_pair(gz_lo, q0, rs, i, n, pv, gz[0]);
+              ld_pair(gz_hi, q0, rs, i, n, pv, gz[1]);
+              ld_pair(Tf, q0 - nz, rs, i, n, ylo, ty[0]);
+              ld_pair(Tf, q0 + nz, rs, i, n, yhi, ty[1]);
+              if (src != nullptr) ld_pair(src, q0, rs, i, n, pv, sp);
+              // T at rows i - 1 .. i + 2
+              const C tr[4] = {t[0], t[1], th[0], th[1]};
+              // the z halo of rows i and i + 1 by one load: lanes 0 and 1
+              // left of lane 0's line, lanes 30 and 31 right of lane 31's
+              // (one instruction, not four: PERF.md section 6)
+              C hz = C(0);
+              const int64_t r = i + (lane & 1);
+              if (r < n && (lane < 2 ? hlo : lane >= 30 && hhi)) {
+                hz = atf::ld(Tf + (lane < 2 ? b0 - 1 : b31 + 1) + r * rs);
+              }
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                C tz_lo = __shfl_up_sync(kAll, tr[1 + e], 1);
+                C tz_hi = __shfl_down_sync(kAll, tr[1 + e], 1);
+                const C hl = __shfl_sync(kAll, hz, e);
+                const C hh = __shfl_sync(kAll, hz, 30 + e);
+                if (lane == 0) tz_lo = hl;
+                if (lane == 31) tz_hi = hh;
+                dv[e] = valid ? rhs(x[0][e], x[1][e], tr[1 + e], tr[e],
+                                    tr[2 + e], gy[0][e], gy[1][e], ty[0][e],
+                                    ty[1][e], gz[0][e], gz[1][e],
+                                    zlo ? tz_lo : C(0), zhi ? tz_hi : C(0),
+                                    sp[e])
+                              : C(0);
+              }
+              t[0] = th[0];
+              t[1] = th[1];
+            }
+          }
+          if (i >= n) {                 // the same rows for the whole warp
+            a = c = d = C(0);
+            b = C(1);
+            return;
+          }
+          C r;
+          if constexpr (kAgain) {
+            r = kept[k * stride];
+          } else {
+            r = dv[h];
+            if (kept != nullptr) kept[k * stride] = r;
+          }
+          grow(x[0][h], x[1][h], x[2][h], r, t_inf, a, b, c, d);
+        },
+        row0, n);
+  }
+
+  __device__ __forceinline__ void replay(C* out, int64_t base, int64_t rs,
+                                         int64_t n, bool valid,
+                                         C* sm) const {
+    const int64_t j = base / nz;
+    const int64_t kz = base - j * nz;
+    open_replay<true>(
+        [&](int64_t i, C& a, C& b, C& c, C& d) {
+          const int64_t off = base + i * rs;
+          const C lo = atf::ld(gx_lo + off), hi = atf::ld(gx_hi + off);
+          const C dv = rhs(
+              off, lo, hi, atf::ld(Tf + off),
+              i > 0 ? atf::ld(Tf + off - rs) : C(0),
+              i + 1 < n ? atf::ld(Tf + off + rs) : C(0),
+              j > 0 ? atf::ld(Tf + off - nz) : C(0),
+              j + 1 < ny ? atf::ld(Tf + off + nz) : C(0),
+              kz > 0 ? atf::ld(Tf + off - 1) : C(0),
+              kz + 1 < nz ? atf::ld(Tf + off + 1) : C(0));
+          grow(lo, hi, atf::ld(sw_x + off), dv, t_inf, a, b, c, d);
+        },
+        out, base, rs, n, valid, sm);
   }
 };
 
@@ -885,43 +1209,53 @@ ATF_API int atf_gstream_fields(
                          cn, sc, hmode, device, (cudaStream_t)stream));
 }
 
+// K24: the x lines, (B1, n, B2) = (1, nx, ny*nz).
 ATF_API int atf_gstream_theta_sweep(
     int dtype, int device, const void* Tf, const void* gxlo,
     const void* gxhi, const void* gylo, const void* gyhi, const void* gzlo,
     const void* gzhi, const void* swx, const void* srcp, void* out,
-    void* cpbuf, void* dpbuf, int64_t nx, int64_t ny, int64_t nz, double rr,
-    double t_inf, int64_t key, void* stream) {
-  const int threads = 256;
-  const int64_t blocks = atf::cdiv(ny * nz, threads);
+    int64_t nx, int64_t ny, int64_t nz, double rr, double t_inf, int64_t key,
+    void* stream) {
+  const void* ptrs[9] = {Tf, gxlo, gxhi, gylo, gyhi, gzlo, gzhi, swx, srcp};
+  bool pairs = nz % 2 == 0;
+  for (const void* q : ptrs) {
+    pairs = pairs && reinterpret_cast<uintptr_t>(q) % 4 == 0;
+  }
   ATF_DISPATCH_STATE(
       dtype, device,
-      gstream_theta_sweep_kernel<S, C><<<(unsigned)blocks, threads, 0,
-                                         (cudaStream_t)stream>>>(
-          static_cast<const S*>(Tf), static_cast<const S*>(gxlo),
-          static_cast<const S*>(gxhi), static_cast<const S*>(gylo),
-          static_cast<const S*>(gyhi), static_cast<const S*>(gzlo),
-          static_cast<const S*>(gzhi), static_cast<const S*>(swx),
-          static_cast<const S*>(srcp), static_cast<S*>(out),
-          static_cast<C*>(cpbuf), static_cast<C*>(dpbuf), nx, ny, nz,
-          (C)rr, (C)t_inf, key));
+      ATF_RETURN_IF((launch_split_strided<C, GThetaRows<S, C>>(
+          GThetaRows<S, C>{
+              static_cast<const S*>(Tf), static_cast<const S*>(gxlo),
+              static_cast<const S*>(gxhi), static_cast<const S*>(gylo),
+              static_cast<const S*>(gyhi), static_cast<const S*>(gzlo),
+              static_cast<const S*>(gzhi), static_cast<const S*>(swx),
+              static_cast<const S*>(srcp), ny, nz, (C)rr, (C)t_inf, pairs},
+          static_cast<S*>(out), 1, nx, ny * nz, 1, ny * nz, device,
+          (cudaStream_t)stream, key))));
 }
 
+// K25: the lines of (B1, n, B2) along n (the y lines of (nx, ny, nz)).
 ATF_API int atf_gstream_sweep_strided(int dtype, int device, const void* rhs,
                                       const void* glo, const void* ghi,
-                                      const void* sw, void* out, void* cpbuf,
-                                      void* dpbuf, int64_t B1, int64_t n,
-                                      int64_t B2, double t_inf, int64_t key,
-                                      void* stream) {
-  const int threads = 256;
-  const int64_t blocks = atf::cdiv(B1 * B2, threads);
+                                      const void* sw, void* out, int64_t B1,
+                                      int64_t n, int64_t B2, double t_inf,
+                                      int64_t key, void* stream) {
+  const void* ptrs[4] = {rhs, glo, ghi, sw};
+  bool pairs = B2 % 2 == 0;
+  for (const void* q : ptrs) {
+    pairs = pairs && reinterpret_cast<uintptr_t>(q) % 4 == 0;
+  }
   ATF_DISPATCH_STATE(
       dtype, device,
-      gstream_sweep_strided_kernel<S, C><<<(unsigned)blocks, threads, 0,
-                                           (cudaStream_t)stream>>>(
-          static_cast<const S*>(rhs), static_cast<const S*>(glo),
-          static_cast<const S*>(ghi), static_cast<const S*>(sw),
-          static_cast<S*>(out), static_cast<C*>(cpbuf),
-          static_cast<C*>(dpbuf), B1, n, B2, (C)t_inf, key));
+      ATF_RETURN_IF((launch_split_strided<C, GStreamYRows<S, C>>(
+          GStreamYRows<S, C>{{static_cast<const S*>(rhs),
+                              {static_cast<const S*>(glo),
+                               static_cast<const S*>(ghi),
+                               static_cast<const S*>(sw)},
+                              (C)t_inf},
+                             pairs},
+          static_cast<S*>(out), B1, n, B2, 1, B2, device,
+          (cudaStream_t)stream, key))));
 }
 
 ATF_API int atf_gstream_sweep_z(int dtype, int device, const void* rhs,

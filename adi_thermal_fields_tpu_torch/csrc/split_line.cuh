@@ -1,12 +1,14 @@
 // The split-line core of the tridiagonal sweeps K1, K2, K4, K6-K8, K19,
-// K17 and K21 (with csrc/split_staged.cuh for their contiguous z) and,
+// K17, K21 and K24-K26 (with csrc/split_staged.cuh for their contiguous z:
+// K10 and K26 too) and,
 // through csrc/split_cyclic.cuh, the periodic phi sweeps K11 and K16.
 //
 // A line of n rows is cut into chunks of M rows, one chunk per thread:
 //   (a) `Chunk::load` forms the chunk's rows in registers (a, c and b from a
 //       16-entry table of the code's low bits, `fill_row_table`; the right-
 //       hand side from the caller's `src`; K1, K2, K4), `Chunk::load_rows`
-//       takes them from the caller's row former (K6-K8, K17, K19, K21) and
+//       takes them from the caller's row former (K6-K8, K10, K17, K19,
+//       K21, K24-K26) and
 //       `load_cyclic` (csrc/split_cyclic.cuh) those of a periodic line
 //       (K11, K16), and all
 //       eliminate inside the chunk (a downward pass, then an upward one),
@@ -523,8 +525,8 @@ inline int smem_limit(int device) {
 }
 
 // ---------------------------------------------------------------------------
-// A split-line sweep along a strided axis with the caller's rows (K7's y
-// sweep; K8's lines too long to stage)
+// A split-line sweep along a strided axis with the caller's rows (K6, K7,
+// K7x, K24, K25; K8's and the staged kernel's lines too long to stage)
 // ---------------------------------------------------------------------------
 //
 // K1's layout (csrc/sweeps.cu): a warp's lanes are 32 lines adjacent in B2,
@@ -535,20 +537,21 @@ inline int smem_limit(int device) {
 // memory where they fit (kKeepRows: lines of up to 512 rows at float32,
 // 256 at float64), else forms them again, as K1 reloads its inputs: from
 // one value a row that the row former kept in shared memory in phase (a)
-// where it keeps one (kKeepRhs: K6 its right-hand sides, the stencil's
-// result, as K4 does; up to 1,024 rows at float32, 512 at float64), else
-// from its inputs.  `Rows` forms a chunk: `rows.load(ch, base, rs, row0,
-// n, valid)` loads and eliminates rows row0 .. row0 + M - 1 of the line
-// whose row i lies at base + i*rs (identity rows past n, and for a lane
+// where it keeps one (kKeepRhs: K6 and K24 their right-hand sides, the
+// stencil's result, as K4 does; up to 1,024 rows at float32, 512 at
+// float64), else from its inputs.  `Rows` forms a chunk: `rows.load(ch,
+// base, rs, row0, n, valid)` loads and eliminates rows row0 .. row0 + M - 1
+// of the line whose row i lies at base + i*rs (identity rows past n, and
+// for a lane
 // past the last line, `valid` false); a former that keeps a value a row
 // (`kKeepsRhs`) also takes `load(..., kept, stride)` (kept[k*stride]:
-// row k's value, stored where kept is not null) and `reload(..., kept,
-// stride)`, which forms the rows again from them.  Memory: the reduced
-// rows (A, Cc, D: 2WR rows of 32
-// lines) in shared memory, or (kGlobal, lines too long for it) in `gred`,
-// then phase (b)'s segment rows (3 x 2W x 33).  M = 8 rows a thread (16,
-// then global reduced rows, where a line's reduced rows would
-// not fit: past 2,048 and 4,096 rows at float32, 1,024 and 2,048 at
+// row k's value, stored where kept is not null; a former that replays
+// takes `stiff` after them) and `reload(..., kept, stride)`, which forms
+// the rows again from them.  Memory: the reduced rows (A, Cc, D: 2WR rows
+// of 32 lines) in shared memory, or (kGlobal, lines too long for it) in
+// `gred`, then phase (b)'s segment rows (3 x 2W x 33).  M = 8 rows a thread
+// (16, then global reduced rows, where a line's reduced rows would not
+// fit: past 2,048 and 4,096 rows at float32, 1,024 and 2,048 at
 // float64); one block an SM, of W = 32 warps at float32 (64 registers)
 // and 16 at float64.  On the H100 (PERF.md §6, K7 at 512^3) 32 warps of
 // 8-row chunks (two chunks a thread, one formed again in phase (c)) ran
@@ -558,21 +561,36 @@ inline int smem_limit(int device) {
 template <typename C>
 constexpr int kSplitWarps = sizeof(C) == 4 ? 32 : 16;
 
+// The block's warps and the blocks an SM its registers are held to
+// (__launch_bounds__): Rows::kWarps and Rows::kMinBlocks where the former
+// sets them (K24, K25), else kSplitWarps<C> and 1.  With more than one
+// block an SM, a line's rows are kept only where that many blocks' shared
+// memory fits.
+template <typename Rows, typename C, typename = void>
+struct SplitShape {
+  static constexpr int kWarps = kSplitWarps<C>, kBlocks = 1;
+};
+template <typename Rows, typename C>
+struct SplitShape<Rows, C, std::void_t<decltype(Rows::kWarps)>> {
+  static constexpr int kWarps = Rows::kWarps, kBlocks = Rows::kMinBlocks;
+};
+
 // What shared memory keeps of a thread's chunks but the last for phase
 // (c): nothing (they are formed again from the inputs), their eliminated
 // inner rows (a', c', d': (R-1) x (M-2) x 3 values a thread), or the row
 // former's value of each row ((R-1) x M values a thread).
 constexpr int kKeepNone = 0, kKeepRows = 1, kKeepRhs = 2;
 
-// Rows::kKeepsRhs where the former keeps a value a row (K6), else false.
+// Rows::kKeepsRhs where the former keeps a value a row (K6, K24), else
+// false.
 template <typename Rows, typename = void>
 struct KeepsRhs : std::false_type {};
 template <typename Rows>
 struct KeepsRhs<Rows, std::void_t<decltype(Rows::kKeepsRhs)>>
     : std::bool_constant<Rows::kKeepsRhs> {};
 
-// Rows::kReplay where the former replays stiff blocks (K17 and K21 at
-// float32), else false: a block with a row past the former's ratio solves
+// Rows::kReplay where the former replays stiff blocks (K17, K21 and K24-K26
+// at float32), else false: a block with a row past the former's ratio solves
 // its lines again in Thomas order (`Rows::replay`, csrc/field_rows.cuh)
 // instead of phases (b) and (c).
 template <typename Rows, typename = void>
@@ -593,7 +611,8 @@ size_t split_smem_bytes(int W, int R, int M, bool global, int keep) {
 
 template <typename S, typename C, typename Rows, int M, bool kGlobal,
           int kKeep>
-__global__ void __launch_bounds__(32 * kSplitWarps<C>)
+__global__ void __launch_bounds__(32 * SplitShape<Rows, C>::kWarps,
+                                  SplitShape<Rows, C>::kBlocks)
     split_strided_kernel(const __grid_constant__ Rows rows,
                          S* __restrict__ out, int64_t n, int64_t B2,
                          int64_t ls, int64_t rs, int R,
@@ -648,8 +667,14 @@ __global__ void __launch_bounds__(32 * kSplitWarps<C>)
   for (int r = 0; r < R; ++r) {                  // (a)
     const int j = w * R + r;
     if constexpr (kKeep == kKeepRhs) {
-      rows.load(ch, base, rs, (int64_t)j * M, n, valid,
-                r < R - 1 ? kept_rhs(r) : nullptr, (int)blockDim.x);
+      C* const kr = r < R - 1 ? kept_rhs(r) : nullptr;
+      if constexpr (StiffRows<Rows>::value) {
+        rows.load(ch, base, rs, (int64_t)j * M, n, valid, kr,
+                  (int)blockDim.x, stiff);
+      } else {
+        rows.load(ch, base, rs, (int64_t)j * M, n, valid, kr,
+                  (int)blockDim.x);
+      }
     } else {
       eliminate(j);
     }
@@ -700,7 +725,7 @@ cudaError_t launch_split_strided_m(const Rows& rows, S* out, int64_t B1,
                                    int64_t key = -1) {
   static_assert(std::is_same_v<S, C> || !StiffRows<Rows>::value,
                 "the Thomas-order replay writes d' into out at C");
-  const int W = (int)atf::imin(kSplitWarps<C>, atf::cdiv(n, M));
+  const int W = (int)atf::imin(SplitShape<Rows, C>::kWarps, atf::cdiv(n, M));
   const int R = (int)atf::cdiv(n, (int64_t)W * M);
   size_t smem = split_smem_bytes<C>(W, R, M, kGlobal, kKeep);
   if constexpr (StiffRows<Rows>::value) {        // a stiff block's replay
@@ -736,10 +761,12 @@ cudaError_t launch_split_strided(const Rows& rows, S* out, int64_t B1,
                                  int64_t n, int64_t B2, int64_t ls,
                                  int64_t rs, int device, cudaStream_t stream,
                                  int64_t key = -1) {
+  using Shape = SplitShape<Rows, C>;
   auto fits = [&](int M, int keep) {
-    const int W = (int)atf::imin(kSplitWarps<C>, atf::cdiv(n, M));
+    const int W = (int)atf::imin(Shape::kWarps, atf::cdiv(n, M));
     return split_smem_bytes<C>(W, (int)atf::cdiv(n, (int64_t)W * M), M,
-                               false, keep) <= (size_t)smem_limit(device);
+                               false, keep) <=
+           (size_t)smem_limit(device) / Shape::kBlocks;
   };
   if (fits(8, kKeepRows)) {
     return launch_split_strided_m<C, Rows, 8, false, kKeepRows>(

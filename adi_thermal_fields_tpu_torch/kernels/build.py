@@ -66,9 +66,9 @@ _SIGNATURES = {
                          _I64, _P], _I),
     "atf_gstream_fields": ([_I, _I, *[_P] * 14, _I64, _I64, _I64, _DP, _I,
                             _DP, _I, *[_D] * 12, _I, _P], _I),
-    "atf_gstream_theta_sweep": ([_I, _I, *[_P] * 12, _I64, _I64, _I64, _D,
+    "atf_gstream_theta_sweep": ([_I, _I, *[_P] * 10, _I64, _I64, _I64, _D,
                                  _D, _I64, _P], _I),
-    "atf_gstream_sweep_strided": ([_I, _I, *[_P] * 7, _I64, _I64, _I64, _D,
+    "atf_gstream_sweep_strided": ([_I, _I, *[_P] * 5, _I64, _I64, _I64, _D,
                                    _I64, _P], _I),
     "atf_gstream_sweep_z": ([_I, _I, *[_P] * 6, _I64, _I64, _D, _I64, _P],
                             _I),

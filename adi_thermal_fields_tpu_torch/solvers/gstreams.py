@@ -23,10 +23,12 @@ and the theta pass is ``T + rr*sum_ax (g_lo*(T_lo - T) + g_hi*(T_hi - T))``
 with ``rr = (1-theta)/theta``.  Every function computes at float32 for a
 bfloat16 state (float64 at float64), in the JAX kernels' order, and stores
 at the state dtype: the streams rounded to nearest, the sweeps' results to
-nearest or, with ``rng_seed``, stochastically (solvers/rounding.py).  K23,
-K24 and K25 repeat their plain versions one IEEE rounding at a time; K26
-forms the same rows so but solves each line split across a warp's lanes
-(csrc/split_staged.cuh), within the split kernels' gate.  Each
+nearest or, with ``rng_seed``, stochastically (solvers/rounding.py).  K23
+repeats its plain version one IEEE rounding at a time; K24-K26 form the
+same rows (and K24 the same right-hand sides) so, but solve each line
+split across threads (K24 and K25 the strided kernel of
+csrc/split_line.cuh, K26 the staged one of csrc/split_staged.cuh), within
+the split kernels' gate.  Each
 wrapper runs its plain version on CPU tensors and launches its kernel on
 CUDA tensors, counting the launch in its ``launches`` attribute.
 """
@@ -174,12 +176,9 @@ def _gsolve(d, g_lo, g_hi, sw, t_inf, axis):
         .movedim(0, axis).contiguous()
 
 
-def gstream_theta_sweep_plain(T, gx_lo, gx_hi, gy_lo, gy_hi, gz_lo, gz_hi,
-                              sw_x, rr, t_inf, *, src_pre=None,
-                              rng_seed=None, rng_offset=0):
-    """Plain version of K24: the explicit pass (x, then y, then z), then the
-    x rows and ``thomas``."""
-    state = T.dtype
+def _theta_rhs(T, gx_lo, gx_hi, gy_lo, gy_hi, gz_lo, gz_hi, rr, src_pre):
+    """K24's right-hand sides at the compute dtype: the explicit pass (x,
+    then y, then z; each neighbour 0 past the domain edge)."""
     T = widen(T)
     acc = None
     for ax, lo, hi in ((0, gx_lo, gx_hi), (1, gy_lo, gy_hi),
@@ -189,10 +188,17 @@ def gstream_theta_sweep_plain(T, gx_lo, gx_hi, gy_lo, gy_hi, gz_lo, gz_hi,
                 + hi * (shift_in(T, ax, +1, fill=0.0) - T))
         acc = term if acc is None else acc + term
     d = T + rr * acc
-    if src_pre is not None:
-        d = d + widen(src_pre)
+    return d if src_pre is None else d + widen(src_pre)
+
+
+def gstream_theta_sweep_plain(T, gx_lo, gx_hi, gy_lo, gy_hi, gz_lo, gz_hi,
+                              sw_x, rr, t_inf, *, src_pre=None,
+                              rng_seed=None, rng_offset=0):
+    """Plain version of K24: the explicit pass (x, then y, then z), then the
+    x rows and ``thomas``."""
+    d = _theta_rhs(T, gx_lo, gx_hi, gy_lo, gy_hi, gz_lo, gz_hi, rr, src_pre)
     x = _gsolve(d, widen(gx_lo), widen(gx_hi), widen(sw_x), t_inf, 0)
-    return to_state(x, state, sr_key(rng_seed, rng_offset))
+    return to_state(x, T.dtype, sr_key(rng_seed, rng_offset))
 
 
 def gstream_theta_sweep(T: torch.Tensor, gx_lo: torch.Tensor,
@@ -204,7 +210,13 @@ def gstream_theta_sweep(T: torch.Tensor, gx_lo: torch.Tensor,
                         rng_offset: int = 0) -> torch.Tensor:
     """K24: ``U = A_x^{-1}[(I + rr*G) T (+ src_pre) + sw_x*t_inf]``, the
     g-stream theta pass fused into the x sweep, natural (x, y, z) layout;
-    ``rr = (1-theta)/theta``; streams from K23."""
+    ``rr = (1-theta)/theta``; streams from K23.  Its right-hand sides
+    equal the plain version's bit for bit; the solve is split across
+    threads (the strided split-line kernel, the stencil formed a chunk at a
+    time, no c'/d' scratch), so within the split kernels' gate of its
+    plain version, not bitwise; at float32 a block of 32 lines with a row
+    past ``kK24Stiff`` (``csrc/gstreams.cu``) is solved again in Thomas
+    order, bit for bit."""
     ins = (gx_lo, gx_hi, gy_lo, gy_hi, gz_lo, gz_hi, sw_x)
     if not use_kernel(T, *ins, src_pre):
         return gstream_theta_sweep_plain(T, *ins, rr, t_inf,
@@ -216,13 +228,10 @@ def gstream_theta_sweep(T: torch.Tensor, gx_lo: torch.Tensor,
     check_kernel_inputs("gstream_theta_sweep", T, None, *ins, src_pre,
                         dtypes=STATE_DTYPES)
     out = torch.empty_like(T)
-    cdt = compute_dtype(T.dtype)
-    cpbuf = torch.empty(T.shape, dtype=cdt, device=T.device)
-    dpbuf = torch.empty(T.shape, dtype=cdt, device=T.device)
     err = load_library().atf_gstream_theta_sweep(
         dtype_code(T.dtype), T.device.index, ptr(T), *(ptr(t) for t in ins),
-        ptr(src_pre), ptr(out), ptr(cpbuf), ptr(dpbuf), *T.shape, float(rr),
-        float(t_inf), sr_key(rng_seed, rng_offset), stream_ptr(T.device))
+        ptr(src_pre), ptr(out), *T.shape, float(rr), float(t_inf),
+        sr_key(rng_seed, rng_offset), stream_ptr(T.device))
     raise_on_error(err, "gstream_theta_sweep")
     gstream_theta_sweep.launches += 1
     return out
@@ -249,35 +258,30 @@ def gstream_sweep_z_plain(rhs, g_lo, g_hi, sw, t_inf, *, rng_seed=None,
     return _sweep_plain(rhs, g_lo, g_hi, sw, t_inf, 2, rng_seed, rng_offset)
 
 
-def _launch_sweep(name, entry, rhs, g_lo, g_hi, sw, t_inf, dims, key):
-    if rhs.dim() != 3:
-        raise ValueError(f"{name}: field must be 3-D, got {rhs.dim()}")
-    check_kernel_inputs(name, rhs, None, g_lo, g_hi, sw, dtypes=STATE_DTYPES)
-    out = torch.empty_like(rhs)
-    cdt = compute_dtype(rhs.dtype)
-    cpbuf = torch.empty(rhs.shape, dtype=cdt, device=rhs.device)
-    dpbuf = torch.empty(rhs.shape, dtype=cdt, device=rhs.device)
-    err = entry(dtype_code(rhs.dtype), rhs.device.index, ptr(rhs),
-                ptr(g_lo), ptr(g_hi), ptr(sw), ptr(out), ptr(cpbuf),
-                ptr(dpbuf), *dims, float(t_inf), key,
-                stream_ptr(rhs.device))
-    raise_on_error(err, name)
-    return out
-
-
 def gstream_sweep_y(rhs: torch.Tensor, g_lo: torch.Tensor,
                     g_hi: torch.Tensor, sw: torch.Tensor, t_inf: float, *,
                     rng_seed: int | None = None,
                     rng_offset: int = 0) -> torch.Tensor:
     """K25: the g-stream sweep along y of the natural (x, y, z) field, the
-    streams the y ones of K23."""
+    streams the y ones of K23; split across threads (the strided
+    split-line kernel, no c'/d' scratch), so within the split kernels' gate
+    of its plain version, not bitwise; at float32 a block of 32 lines with
+    a row past ``kK26Stiff`` (``csrc/gstreams.cu``) is solved again in
+    Thomas order, bit for bit."""
     if not use_kernel(rhs, g_lo, g_hi, sw):
         return gstream_sweep_y_plain(rhs, g_lo, g_hi, sw, t_inf,
                                      rng_seed=rng_seed, rng_offset=rng_offset)
-    out = _launch_sweep("gstream_sweep_y",
-                        load_library().atf_gstream_sweep_strided, rhs, g_lo,
-                        g_hi, sw, t_inf, tuple(rhs.shape),
-                        sr_key(rng_seed, rng_offset))
+    if rhs.dim() != 3:
+        raise ValueError(f"gstream_sweep_y: field must be 3-D, got "
+                         f"{rhs.dim()}")
+    check_kernel_inputs("gstream_sweep_y", rhs, None, g_lo, g_hi, sw,
+                        dtypes=STATE_DTYPES)
+    out = torch.empty_like(rhs)
+    err = load_library().atf_gstream_sweep_strided(
+        dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(g_lo),
+        ptr(g_hi), ptr(sw), ptr(out), *rhs.shape, float(t_inf),
+        sr_key(rng_seed, rng_offset), stream_ptr(rhs.device))
+    raise_on_error(err, "gstream_sweep_y")
     gstream_sweep_y.launches += 1
     return out
 

@@ -171,13 +171,14 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    kernels against reference (within APP_TOL) on a print of 20 layers of
    SHORT_LAYER_S s, at float32 and with the varprop flags at float64.
 10. The bfloat16 bandwidth mode.  Its kernel part (run with phase 2):
-   K23 (film modes const and rad, with and without a source), K24 (seeded,
-   and with src_pre) and K25 (seeded) against their plain versions at
-   384^3 (the WAAM mask) and 97x203x131 (a random mask), bfloat16 and
-   float32: bitwise; K26 (a split solve) there and on 64x64x8192 lines
-   (past the staging): within KERNEL_TOL_ULP of the output's scale at
-   float32, one bfloat16 ulp of it at bfloat16, to nearest and seeded (the
-   share of cells apart printed); the bfloat16 entries K1b-K4b at the
+   K23 (film modes const and rad, with and without a source) against its
+   plain version at 384^3 (the WAAM mask) and 97x203x131 (a random mask),
+   bfloat16 and float32: bitwise; K24 (seeded, and with src_pre), K25
+   (seeded) and K26 (split solves) there, and on 8192-row lines along x
+   (K24, 8192x64x64), y (K25, 64x8192x64) and z (K26, 64x64x8192, past
+   the staging), seeded: within KERNEL_TOL_ULP of the output's scale at
+   float32, one bfloat16 ulp of it at bfloat16 (the share of cells apart
+   printed); the bfloat16 entries K1b-K4b at the
    256^3 WAAM mask,
    to nearest and seeded: within one bfloat16 ulp of the output's scale
    (the share of cells apart printed); kernel and plain ms and % of each bound; the
@@ -2215,14 +2216,15 @@ def time_row(torch, rows, kname, vname, where, ins, kern, plain, err,
           flush=True)
 
 
-def k26_row(torch, rows, vname, where, ins, kern, plain):
-    """K26 (a split solve) against its plain version: within
-    KERNEL_TOL_ULP float32 ulp of the output's scale at float32, one
-    bfloat16 ulp of it at bfloat16 (the share of cells apart printed)."""
+def split_row(torch, rows, kname, vname, where, ins, kern, plain):
+    """A split solve of the g-stream tier (K24-K26) against its plain
+    version: within KERNEL_TOL_ULP float32 ulp of the output's scale at
+    float32, one bfloat16 ulp of it at bfloat16 (the share of cells apart
+    printed)."""
     got, want = kern(), plain()
     torch.cuda.synchronize()
     check(got.dtype == want.dtype and bool(torch.isfinite(got).all()),
-          f"K26 {vname} {where}: non-finite output")
+          f"{kname} {vname} {where}: non-finite output")
     err = float((got.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
     share = float((got != want).double().mean())
@@ -2232,18 +2234,18 @@ def k26_row(torch, rows, vname, where, ins, kern, plain):
     else:
         ulps = err / (torch.finfo(torch.float32).eps * scale)
         lim, unit = KERNEL_TOL_ULP, f"ulp of scale, tol {KERNEL_TOL_ULP}"
-    time_row(torch, rows, "K26", vname, where, ins, kern, plain, err,
+    time_row(torch, rows, kname, vname, where, ins, kern, plain, err,
              extra=f" ({ulps:.2f} {unit}, {100.0 * share:.4f}% of cells "
                    "differ)")
-    check(ulps <= lim, f"K26 {vname} {where}: {ulps:.2f} ({unit}) from its "
-          "plain version")
+    check(ulps <= lim, f"{kname} {vname} {where}: {ulps:.2f} ({unit}) from "
+          "its plain version")
 
 
 def phase2_gstreams(torch, dev):
-    """K23-K26 against their plain versions at float32 and bfloat16: K23-K25
-    bitwise, K26 (a split solve) within KERNEL_TOL_ULP or one bfloat16 ulp
-    of the output's scale, also on 8192-row lines (phase 10's kernel
-    part)."""
+    """K23-K26 against their plain versions at float32 and bfloat16: K23
+    bitwise, K24-K26 (split solves) within KERNEL_TOL_ULP or one bfloat16
+    ulp of the output's scale, also on 8192-row lines along x (K24), y (K25)
+    and z (K26) (phase 10's kernel part)."""
     from adi_thermal_fields_tpu_torch import CartesianGrid, Material
     from adi_thermal_fields_tpu_torch.solvers import (
         gstream_fields, gstream_fields_plain, gstream_sweep_y,
@@ -2299,6 +2301,8 @@ def phase2_gstreams(torch, dev):
                                         **fk, **rad),
                  lambda: gstream_fields_plain(T, m8, sc["tg"], sc["sk"],
                                               src=src, **fk, **rad)),
+            ]
+            splits = [
                 ("K24", "theta + x, seeded", th[:8],
                  lambda: gstream_theta_sweep(*th, rng_offset=1, **seed),
                  lambda: gstream_theta_sweep_plain(*th, rng_offset=1,
@@ -2335,34 +2339,45 @@ def phase2_gstreams(torch, dev):
             z = (R, g_lo[2], g_hi[2], sw[2])
             for vname, kw in ((("z", {}),) if dtype == torch.bfloat16
                               else ()) + (("z, seeded", seed),):
-                k26_row(torch, rows, vname, where, z,
-                        lambda: gstream_sweep_z(*z, 20.0, rng_offset=3,
-                                                **kw),
-                        lambda: gstream_sweep_z_plain(*z, 20.0,
-                                                      rng_offset=3, **kw))
-            del T, R, src, g_lo, g_hi, sw, sp, variants, z
+                splits.append(
+                    ("K26", vname, z,
+                     lambda kw=kw: gstream_sweep_z(*z, 20.0, rng_offset=3,
+                                                   **kw),
+                     lambda kw=kw: gstream_sweep_z_plain(
+                         *z, 20.0, rng_offset=3, **kw)))
+            for kname, vname, ins, kern, plain in splits:
+                split_row(torch, rows, kname, vname, where, ins, kern, plain)
+            del T, R, src, g_lo, g_hi, sw, sp, variants, splits, z
             torch.cuda.empty_cache()
-    # K26 on 8192-row lines: past the staging, the core's strided kernel
-    shape = LONG_LINES[2]
-    grid = CartesianGrid(*shape, 0.5e-3)
-    sc = vp_scalars(grid, mat, P10_VP_DT)
-    mask = waam_mask(torch, shape, dev)
-    for dtype in (torch.bfloat16, torch.float32):
-        T = mushy_field(torch, mask, seed=7).to(dtype)
-        R = random_field(torch, mask, seed=13).to(dtype)
-        g_lo, g_hi, sw, _ = gstream_fields_plain(
-            T, mask.to(torch.uint8), sc["tg"], sc["sk"], k_spec=kt,
-            cp_spec=ct, rho=mat.rho, dt=sc["dt"], t_inf=20.0, h_mode="rad",
-            hpar=EMISSIVITY, h_conv=H_CONV)
-        z = (R, g_lo[2], g_hi[2], sw[2])
-        k26_row(torch, rows, "z, seeded",
-                f"{'x'.join(map(str, shape))} {str(dtype)[6:]}", z,
-                lambda: gstream_sweep_z(*z, 20.0, rng_offset=3,
-                                        rng_seed=P10_SEED),
-                lambda: gstream_sweep_z_plain(*z, 20.0, rng_offset=3,
-                                              rng_seed=P10_SEED))
-        del T, R, g_lo, g_hi, sw, z
-        torch.cuda.empty_cache()
+    # 8192-row lines: K24 along x, K25 along y (the strided kernel, the
+    # reduced rows in global memory), K26 along z (past the staging: the
+    # strided kernel)
+    for ax, kname in enumerate(("K24", "K25", "K26")):
+        shape = LONG_LINES[ax]
+        grid = CartesianGrid(*shape, 0.5e-3)
+        sc = vp_scalars(grid, mat, P10_VP_DT)
+        mask = waam_mask(torch, shape, dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            T = mushy_field(torch, mask, seed=7).to(dtype)
+            R = random_field(torch, mask, seed=13).to(dtype)
+            g_lo, g_hi, sw, _ = gstream_fields_plain(
+                T, mask.to(torch.uint8), sc["tg"], sc["sk"], k_spec=kt,
+                cp_spec=ct, rho=mat.rho, dt=sc["dt"], t_inf=20.0,
+                h_mode="rad", hpar=EMISSIVITY, h_conv=H_CONV)
+            th = (T, g_lo[0], g_hi[0], g_lo[1], g_hi[1], g_lo[2], g_hi[2],
+                  sw[0], 1.0, 20.0)
+            ins = th[:8] if ax == 0 else (R, g_lo[ax], g_hi[ax], sw[ax])
+            kern, plain = {
+                0: (gstream_theta_sweep, gstream_theta_sweep_plain),
+                1: (gstream_sweep_y, gstream_sweep_y_plain),
+                2: (gstream_sweep_z, gstream_sweep_z_plain)}[ax]
+            args = th if ax == 0 else (*ins, 20.0)
+            kw = dict(rng_offset=ax + 1, rng_seed=P10_SEED)
+            split_row(torch, rows, kname, f"{'xyz'[ax]}, seeded",
+                      f"{'x'.join(map(str, shape))} {str(dtype)[6:]}", ins,
+                      lambda: kern(*args, **kw), lambda: plain(*args, **kw))
+            del T, R, g_lo, g_hi, sw, th, ins, args
+            torch.cuda.empty_cache()
     return rows
 
 

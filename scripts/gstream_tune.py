@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """K23, the g-stream fields pass (csrc/gstreams.cu), on one CUDA card: its
 registers and spills, a bitwise check against its plain version on ragged
-tiles, and its times; for the source as it is or a patched copy.
+tiles, and its times; for the source as it is or a patched copy.  With
+``--kernels K24,K25`` the same for the x and y sweeps K24 and K25.
 
-    python3 scripts/gstream_tune.py [--set NAME=VALUE ...] [--sub OLD=NEW ...]
+    python3 scripts/gstream_tune.py [--kernels K24,K25] [--set NAME=VALUE
+                                    ...] [--sub OLD=NEW ...]
 
 builds csrc/gstreams.cu alone (a library of K23-K26 only, ~20 s) and
 prints the ptxas report of K23's kernels, then a check of K23 against
@@ -16,6 +18,17 @@ and the share of its bound (21 B/cell at bfloat16, 41 at float32, +2/+4
 with a source).  ``--set kGfMinBlocks=2`` (any ``constexpr`` of
 csrc/gstreams.cu) or ``--sub OLD=NEW`` (a text substitution in it)
 measures a copy of the package under build/tune/ so changed.
+
+K24 and K25 (``--kernels K24,K25``): the ptxas report of their split-line
+kernels, a check against their plain versions (8 float32 ulp of the
+output's scale, 1e-12 of it at float64, one bfloat16 ulp at bfloat16; on
+lines of 1-8192 rows, every path of the strided kernel, to nearest and
+seeded), the CUDA-event median ms at chip_smoke.py phase 10's 384^3 WAAM
+mask and 97x203x131 (bfloat16 seeded and float32) and on its 8192-row
+lines (bfloat16), and phase 10's bfloat16 varprop step at 384^3 (ms/step
+and its profile: scripts/vp2_gstream_ab.py ``bf16_step``; the step runs
+K23-K26 alone, all in csrc/gstreams.cu).  ``--set kGxyWarps=16 --set
+kGxyBlocks=2`` measures another block shape.
 """
 import contextlib
 import importlib.util
@@ -57,7 +70,96 @@ def patched_copy(sets, subs):
     return root
 
 
-def measure(root):
+def gate(torch, got, want):
+    """|got - want| over its gate: 8 float32 ulp of the output's scale
+    (1e-12 of it at float64, one bfloat16 ulp at bfloat16)."""
+    scale = float(want.double().abs().max())
+    err = float((got.double() - want.double()).abs().max())
+    if want.dtype == torch.bfloat16:
+        return err / 2.0 ** (math.floor(math.log2(scale)) - 7)
+    return err / ((1e-12 if want.dtype == torch.float64 else 8 * 2.0 ** -23)
+                  * scale)
+
+
+def measure_xy(torch, cs, dev):
+    """K24 and K25: check, times, the bfloat16 varprop step."""
+    import json
+    import numpy as np
+    from adi_thermal_fields_tpu_torch.solvers import (
+        gstream_sweep_y, gstream_sweep_y_plain, gstream_theta_sweep,
+        gstream_theta_sweep_plain)
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    from vp2_gstream_ab import bf16_step
+    from z_pencils_ab import gstream_case
+
+    worst, bad = {}, 0
+    for i, shape in enumerate(((1, 9, 37), (2, 5, 33), (37, 45, 70),
+                               (384, 3, 50), (600, 3, 11), (1100, 2, 35),
+                               (2100, 1, 33), (8192, 1, 40))):
+        rng = np.random.default_rng(90 + i)
+        live = rng.random(shape) > 0.2
+        for dtype in (torch.float32, torch.bfloat16, torch.float64):
+            cast = (lambda a: torch.from_numpy(a).to(dev, torch.float64)
+                    .to(dtype))
+            g = [cast(3.0 * rng.random(shape) * live) for _ in range(6)]
+            sw = cast(0.2 * rng.random(shape) * live)
+            T = cast(20.0 + 1480.0 * rng.random(shape))
+            src = cast(5.0 * rng.random(shape) * live)
+            yt = (lambda t: t.transpose(0, 1).contiguous())
+            for seed in (None, 12):
+                kw = dict(rng_seed=seed)
+                pairs = [("K24", lambda: gstream_theta_sweep(
+                              T, *g, sw, 1.0, 20.0, src_pre=src, **kw),
+                          lambda: gstream_theta_sweep_plain(
+                              T, *g, sw, 1.0, 20.0, src_pre=src, **kw))]
+                ins = [yt(t) for t in (T, g[2], g[3], sw)]
+                pairs.append(("K25",
+                              lambda: gstream_sweep_y(*ins, 20.0, **kw),
+                              lambda: gstream_sweep_y_plain(*ins, 20.0,
+                                                            **kw)))
+                for kname, kern, plain in pairs:
+                    r = gate(torch, kern(), plain())
+                    key = f"{kname} {str(dtype)[6:]}"
+                    worst[key] = max(worst.get(key, 0.0), r)
+                    if r > 1.0:
+                        bad += 1
+                        print(f"FAIL {kname} {shape} {dtype} seed {seed}: "
+                              f"{r:.2f} of its gate", flush=True)
+    print(f"check done: {bad} cases past the gate; worst share of the "
+          f"gate {json.dumps({k: round(v, 3) for k, v in worst.items()})}",
+          flush=True)
+    out = {}
+    seed = dict(rng_seed=cs.P10_SEED)
+    cases = [(label, shape, dtype) for label, shape in cs.P10_SHAPES
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [("waam", cs.LONG_LINES[0], torch.bfloat16),
+              ("waam", cs.LONG_LINES[1], torch.bfloat16)]
+    for label, shape, dtype in cases:
+        T, R, g_lo, g_hi, sw = gstream_case(torch, cs, dev, label, shape,
+                                            dtype)
+        where = f"{'x'.join(map(str, shape))} {str(dtype)[6:]}"
+        th = (T, g_lo[0], g_hi[0], g_lo[1], g_hi[1], g_lo[2], g_hi[2],
+              sw[0], 1.0, 20.0)
+        for kname, fn in (
+                ("K24", lambda: gstream_theta_sweep(*th, rng_offset=1,
+                                                    **seed)),
+                ("K25", lambda: gstream_sweep_y(R, g_lo[1], g_hi[1], sw[1],
+                                                20.0, rng_offset=2,
+                                                **seed))):
+            if shape == cs.LONG_LINES[1 - (kname == "K25")]:
+                continue
+            out[f"{kname} {where}"] = round(cs.cuda_ms(torch, fn, 20), 4)
+        del T, R, g_lo, g_hi, sw, th
+        torch.cuda.empty_cache()
+    bf16_step(torch, cs, dev, out)
+    prof = out.pop("profile_bf16 varprop 384^3")
+    out["step busy ms"] = round(prof["busy_ms"], 4)
+    out["step kernels"] = {k: round(v, 4)
+                           for k, v in prof["kernels"].items()}
+    print(json.dumps(out), flush=True)
+
+
+def measure(root, kernels=("K23",)):
     sys.path.insert(0, root)
     import torch
     from adi_thermal_fields_tpu_torch.kernels import build
@@ -83,7 +185,9 @@ def measure(root):
           f"{secs:.1f} s", flush=True)
     for part in buf.getvalue().split("Compiling entry function")[1:]:
         name = part.split("'")[1]
-        if "gstream_fields" not in name:
+        if not any(("gstream_fields" in name) if k == "K23" else
+                   ("GThetaRows" in name) if k == "K24" else
+                   ("GStreamYRows" in name) for k in kernels):
             continue
         regs = re.search(r"Used (\d+) registers", part)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -91,6 +195,9 @@ def measure(root):
         print(f"ptxas {name[:90]}: {regs.group(1) if regs else '?'} regs, "
               f"spills {spill.groups() if spill else '?'}", flush=True)
 
+    if "K23" not in kernels:
+        measure_xy(torch, cs, dev)
+        return
     mat = Material(7800.0, 490.0, 54.0)
     kt, ct = cs.varprop_tables()
 
@@ -154,14 +261,17 @@ def measure(root):
 def main():
     args = sys.argv[1:]
     if args[:1] == ["--measure"]:
-        measure(args[1])
+        measure(args[1], tuple(args[2].split(",")))
         return
-    sets, subs = [], []
+    sets, subs, kernels = [], [], "K23"
     for flag, value in zip(args[::2], args[1::2]):
-        (sets if flag == "--set" else subs).append(value)
+        if flag == "--kernels":
+            kernels = value
+        else:
+            (sets if flag == "--set" else subs).append(value)
     root = patched_copy(sets, subs) if sets or subs else HERE
     sys.exit(subprocess.run([sys.executable, os.path.abspath(__file__),
-                             "--measure", root]).returncode)
+                             "--measure", root, kernels]).returncode)
 
 
 if __name__ == "__main__":

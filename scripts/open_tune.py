@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """The open split-line sweeps K21 (a/b/c/d fields), K17 (five streams),
-K10 (masked-Robin z) and K26 (g-stream z) on one CUDA card: their build
-time and register and spill report, their error against their plain
-versions block by block against each block's stiffness, and their time.
-The open-line twin of scripts/cyclic_tune.py.
+K10 (masked-Robin z) and the g-stream sweeps K24 (theta + x), K25 (y) and
+K26 (z) on one CUDA card: their build time and register and spill report,
+their error against their plain versions block by block against each
+block's stiffness, and their time.  The open-line twin of
+scripts/cyclic_tune.py.
 
     python3 scripts/open_tune.py [--build-report] [--seeds 17,23]
                                  [--dts 1,10] [--kernels K10,K26]
@@ -11,13 +12,14 @@ The open-line twin of scripts/cyclic_tune.py.
 
 A block of lines with a row past (|a| + |c|) > ratio (b - |a| - |c|) is
 solved in Thomas order, bit for bit the plain version, where ratio is
-kOpenStiff of csrc/field_rows.cuh (K17, K21) or kK10Stiff of
-csrc/masked.cu (K10; K26 replays nothing); ``--set kOpenStiff=1e30`` or
-``--set kK10Stiff=1e30`` (any ``constexpr`` of csrc/field_rows.cuh,
+kOpenStiff of csrc/field_rows.cuh (K17, K21), kK10Stiff of csrc/masked.cu
+(K10) or kK24Stiff (K24) and kK26Stiff (K25, K26) of csrc/gstreams.cu;
+``--set kOpenStiff=1e30`` or ``--set kK10Stiff=1e30`` (any ``constexpr``
+of csrc/field_rows.cuh,
 csrc/split_staged.cuh, csrc/split_line.cuh, csrc/masked.cu and
 csrc/gstreams.cu) splits every block; ``--sub OLD=NEW`` makes a text
 substitution in those sources (OLD free of '='); either is measured in a
-copy of the package under build/tune/.  ``--kernels`` (default all four)
+copy of the package under build/tune/.  ``--kernels`` (default all six)
 picks the kernels measured.
 
 Prints (``--build-report``) the nvcc time of csrc/fields.cu and
@@ -42,9 +44,12 @@ its Douglas print's own rows.  The Douglas step solves the rows of
 theta*dw: the (64, 512, 1024) tube's Douglas step reaches half the ratio
 of its inputs here at the same dt.  K10: chip_smoke.py phase 6's plans and
 random fields on its tube, its disk and the spiral app's ring
-(CYCLIC_SHAPES[0]) at multiples of phase 6's dt (float32).  K26: phase
+(CYCLIC_SHAPES[0]) at multiples of phase 6's dt (float32).  K24-K26: phase
 10's streams (the radiative film) from its mushy T and random fields at
-384^3 (WAAM mask) and 97x203x131 at multiples of its dt (float32).
+384^3 (WAAM mask) and 97x203x131 at multiples of its dt (float32; K24 on
+the mushy T with its seven streams, K25 and K26 on the random field with
+the y and z streams); K24's and K25's blocks are 32 adjacent lines of the
+x and y sweeps.
 """
 import importlib.util
 import json
@@ -255,8 +260,62 @@ def measure_k10_k26(cs, dev, seeds, dts, kernels, report):
             torch.cuda.empty_cache()
 
 
+def measure_k24_k25(cs, dev, seeds, dts, kernels, report):
+    """K24 and K25 (float32) on phase 10's streams."""
+    import torch
+    from adi_thermal_fields_tpu_torch import CartesianGrid, Material
+    from adi_thermal_fields_tpu_torch.solvers import (
+        gstream_fields, gstream_sweep_y, gstream_sweep_y_plain,
+        gstream_theta_sweep, gstream_theta_sweep_plain)
+    from adi_thermal_fields_tpu_torch.solvers.gstreams import _theta_rhs
+
+    if not {"K24", "K25"} & set(kernels):
+        return
+    mat = Material(7800.0, 490.0, 54.0)
+    kt, ct = cs.varprop_tables()
+    for label, shape in cs.P10_SHAPES:
+        for si, seed in enumerate(seeds):
+            if label.endswith("waam"):
+                mask = cs.waam_mask(torch, shape, dev)
+            else:
+                g = torch.Generator(device=dev).manual_seed(seed + 3)
+                mask = torch.rand(shape, generator=g, device=dev) > 0.25
+            T = cs.mushy_field(torch, mask, seed=seed + 7)
+            R = cs.random_field(torch, mask, seed=seed + 13)
+            for di, dtm in enumerate(dts):
+                sc = cs.vp_scalars(CartesianGrid(*shape, 0.5e-3), mat,
+                                   cs.P10_VP_DT * dtm)
+                g_lo, g_hi, sw, _ = gstream_fields(
+                    T, mask.to(torch.uint8), sc["tg"], sc["sk"], k_spec=kt,
+                    cp_spec=ct, rho=mat.rho, dt=sc["dt"], t_inf=20.0,
+                    h_mode="rad", hpar=cs.EMISSIVITY, h_conv=cs.H_CONV)
+                timed = si == 0 and di == 0
+                th = (T, g_lo[0], g_hi[0], g_lo[1], g_hi[1], g_lo[2],
+                      g_hi[2], sw[0], 1.0, 20.0)
+                if "K24" in kernels:
+                    d = _theta_rhs(T, *th[1:7], 1.0, None)
+                    lo, hi, s = g_lo[0], g_hi[0], sw[0]
+                    rows = (-lo, 1.0 + lo + hi + s, -hi, d + s * 20.0)
+                    report("K24", label, seed, dtm,
+                           lambda: gstream_theta_sweep(*th),
+                           lambda: gstream_theta_sweep_plain(*th), rows, 0,
+                           timed)
+                    del d, rows
+                if "K25" in kernels:
+                    lo, hi, s = g_lo[1], g_hi[1], sw[1]
+                    rows = (-lo, 1.0 + lo + hi + s, -hi, R + s * 20.0)
+                    report("K25", label, seed, dtm,
+                           lambda: gstream_sweep_y(R, lo, hi, s, 20.0),
+                           lambda: gstream_sweep_y_plain(R, lo, hi, s, 20.0),
+                           rows, 1, timed)
+                    del rows
+                del g_lo, g_hi, sw, th
+            del T, R, mask
+            torch.cuda.empty_cache()
+
+
 def measure(cs, dev, seeds, dts, with_report, root=HERE,
-            kernels=("K10", "K17", "K21", "K26")):
+            kernels=("K10", "K17", "K21", "K24", "K25", "K26")):
     import torch
     from adi_thermal_fields_tpu_torch.solvers import (
         thomas, tridiag_fields, tridiag_fields_plain, vp_fields_sweep_strided,
@@ -304,6 +363,7 @@ def measure(cs, dev, seeds, dts, with_report, root=HERE,
         del got, want, exact
 
     measure_k10_k26(cs, dev, seeds, dts, kernels, report)
+    measure_k24_k25(cs, dev, seeds, dts, kernels, report)
     # K17 along r and z, and K21 on the same rows (the fields tier's)
     k17_cases = [(label, shape, prec, 5e-4, None, 1.0)
                  for label, shape, prec in cs.P8_SHAPES]
@@ -372,7 +432,7 @@ def main():
     report = "--build-report" in args
     args = [a for a in args if a != "--build-report"]
     seeds, dts, sets, subs = "17", "1", [], []
-    kernels = "K10,K17,K21,K26"
+    kernels = "K10,K17,K21,K24,K25,K26"
     for flag, value in zip(args[::2], args[1::2]):
         if flag == "--seeds":
             seeds = value

@@ -13,12 +13,12 @@ bounds relative to each output's scale (face conductivities, 1/(rho cp)
 and films are not temperatures), and so are the cylindrical sweeps K9-K18,
 whose stiff phi systems near a full disk's axis amplify one rounding; the
 cylindrical varprop step runs kernels against reference at float64.  K20
-and K23-K25 repeat their plain versions one rounding at a time: they are
+and K23 repeat their plain versions one rounding at a time: they are
 held to bitwise equality, and so is K15's y entry.  K6, K7, K7's x entry,
-K8, K10, K17, K19, K21 and K26 split each line across threads (the
+K8, K10, K17, K19, K21 and K24-K26 split each line across threads (the
 split-line core of K1, K2 and K4): within 8 float32 ulp of the output's
-scale, 1e-12 of it at float64 (K26 at bfloat16: one bfloat16 ulp of the
-output's scale); K20 then K7's x entry equals K6 bit for bit (the unfused
+scale, 1e-12 of it at float64 (K24-K26 at bfloat16: one bfloat16 ulp of
+the output's scale); K20 then K7's x entry equals K6 bit for bit (the unfused
 varprop step equals the fused one).  K11, K16, K18 and K22 split their
 periodic lines the same way, in Thomas order on stiff rings: the same
 bounds, on the spiral app's ring, 4096-row lines and lines of 2 and 3
@@ -1037,11 +1037,11 @@ def _split_gate(got, want):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_gstream_kernels_match_plain_on_card(dtype):
-    """K23 (film modes const, stream and rad, with and without a source),
-    K24 (with and without src_pre) and K25 against their plain versions
-    on the card: bitwise, with and without a rounding seed; K26 (a split
-    solve) within 8 float32 ulp of the output's scale at float32, one
-    bfloat16 ulp of it at bfloat16."""
+    """K23 (film modes const, stream and rad, with and without a source)
+    against its plain version on the card: bitwise; K24 (with and without
+    src_pre), K25 and K26 (split solves), with and without a rounding seed:
+    within 8 float32 ulp of the output's scale at float32, one bfloat16
+    ulp of it at bfloat16."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     from adi_thermal_fields_tpu_torch.solvers import (
@@ -1082,9 +1082,9 @@ def test_gstream_kernels_match_plain_on_card(dtype):
         for s in (None, sp):
             args = (T, g_lo[0], g_hi[0], g_lo[1], g_hi[1], g_lo[2], g_hi[2],
                     sw[0], 1.0, 20.0)
-            pairs.append((gstream_theta_sweep(*args, src_pre=s, **sr),
+            split.append((gstream_theta_sweep(*args, src_pre=s, **sr),
                           gstream_theta_sweep_plain(*args, src_pre=s, **sr)))
-        pairs.append((gstream_sweep_y(R, g_lo[1], g_hi[1], sw[1], 20.0, **sr),
+        split.append((gstream_sweep_y(R, g_lo[1], g_hi[1], sw[1], 20.0, **sr),
                       gstream_sweep_y_plain(R, g_lo[1], g_hi[1], sw[1], 20.0,
                                             **sr)))
         split.append((gstream_sweep_z(R, g_lo[2], g_hi[2], sw[2], 20.0,
@@ -1173,9 +1173,9 @@ def test_bf16_engine_routes_on_card(route, launches):
     """make_cartesian_engine(dtype=bfloat16, stochastic_rounding=True) on
     the card: launches per step, and the card's step against the CPU's
     (plain versions, the same rounding bits): within two bfloat16 ulps,
-    the g-stream step within one (K23-K25 repeat their plain versions,
-    K26 splits its z lines: a float32 rounding apart, which can move a
-    cell's stochastic rounding by one ulp)."""
+    the g-stream step within one (K23 repeats its plain version, K24-K26
+    split their lines: a float32 rounding apart, which can move a cell's
+    stochastic rounding by one ulp)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     from adi_thermal_fields_tpu_torch import CartesianGrid
@@ -1542,3 +1542,72 @@ def test_gstream_z_on_split_kernel_on_card(dtype):
             assert got.is_cuda and got.dtype == dtype
             _split_gate(got, want)
     assert launch_counts() == _counts(K26=calls)
+
+
+# K24's x lines (nx, ny, nz) and, transposed to (ny, nx, nz), K25's y
+# lines: 1 and 2 rows, ragged line counts, nz odd and even (bfloat16 rows
+# read one or two at a time), and the strided kernel's every path at two
+# blocks an SM (kept eliminated rows up to 256 rows, kept right-hand sides
+# (K24) or rows formed again at 257-512, rows formed again to 1,024,
+# 16-row chunks to 2,048, the reduced rows in global memory past it)
+XY_LINE_SHAPES = ((1, 9, 37), (2, 5, 33), (37, 11, 45), (384, 3, 50),
+                  (600, 3, 11), (1100, 2, 35), (2100, 1, 33), (8192, 1, 40))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64],
+                         ids=["f32", "bf16", "f64"])
+def test_gstream_xy_on_split_kernel_on_card(dtype):
+    """K24 and K25 on the strided split-line kernel against their plain
+    versions on short, ragged and long lines, to nearest and seeded:
+    within 8 float32 ulp of the output's scale (1e-12 of it at float64,
+    one bfloat16 ulp at bfloat16); at float32 with every line of 37 rows
+    or more past the replay ratio (couplings x100), bit for bit (the
+    Thomas-order replay)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from adi_thermal_fields_tpu_torch.solvers import (
+        gstream_sweep_y, gstream_sweep_y_plain, gstream_theta_sweep,
+        gstream_theta_sweep_plain)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    reset_launch_counts()
+    k24 = k25 = 0
+    for i, shape in enumerate(XY_LINE_SHAPES):
+        rng = np.random.default_rng(90 + i)
+        live = rng.random(shape) > 0.2
+        cast = (lambda a: torch.from_numpy(a).to(dev, torch.float64)
+                .to(dtype))
+        # lines of 1 and 2 rows have no inner row past the ratio
+        for stiff in ((False, True) if dtype == torch.float32
+                      and shape[0] > 2 else (False,)):
+            scale = 300.0 if stiff else 3.0
+            g = [cast(scale * rng.random(shape) * live) for _ in range(6)]
+            sw = cast(0.2 * rng.random(shape) * live)
+            T = cast(20.0 + 1480.0 * rng.random(shape))
+            src = cast(5.0 * rng.random(shape) * live)
+            yt = (lambda t: t.transpose(0, 1).contiguous())
+            for seed in (None, 12):
+                sr = dict(rng_seed=seed)
+                for s in (None, src):
+                    got = gstream_theta_sweep(T, *g, sw, 1.0, 20.0,
+                                              src_pre=s, rng_offset=1, **sr)
+                    want = gstream_theta_sweep_plain(T, *g, sw, 1.0, 20.0,
+                                                     src_pre=s, rng_offset=1,
+                                                     **sr)
+                    k24 += 1
+                    torch.cuda.synchronize()
+                    assert got.is_cuda and got.dtype == dtype
+                    if stiff:
+                        assert torch.equal(got, want)
+                    _split_gate(got, want)
+                ins = [yt(t) for t in (T, g[2], g[3], sw)]
+                got = gstream_sweep_y(*ins, 20.0, rng_offset=2, **sr)
+                want = gstream_sweep_y_plain(*ins, 20.0, rng_offset=2, **sr)
+                k25 += 1
+                torch.cuda.synchronize()
+                assert got.is_cuda and got.dtype == dtype
+                if stiff:
+                    assert torch.equal(got, want)
+                _split_gate(got, want)
+    assert launch_counts() == _counts(K24=k24, K25=k25)
