@@ -41,7 +41,7 @@ hand for the H100 (csrc/):
 * K13 ``solvers.const_sweeps.const_sweep_z`` — the constant-row sweep
   along contiguous z;
 * K14 ``solvers.const_sweeps.cyclic_const_phi`` — the constant-coefficient
-  periodic phi solve;
+  periodic phi solve (its rings' factors from ``cyclic_const_phi_table``);
 * K15 ``solvers.vp2.vp2_sweep_strided`` — the tier-2 r sweep deriving k,
   cp and films from T (K8's general form takes z);
 * K16 ``solvers.vp2.vp2_cyclic_phi`` — the tier-2 periodic phi sweep;

@@ -1,48 +1,29 @@
-// K15 and K16: the tier-2 sweeps of the cylindrical variable-property
-// step along r and phi (its z sweep, K8's general form, runs on K8's
-// split-line kernel in csrc/vp2_sweep.cu).
+// K16: the tier-2 periodic sweep of the cylindrical variable-property
+// step along phi (its r sweep K15 and z sweep, K8's general form, run on
+// the core's split-line kernels in csrc/vp2_sweep.cu).
 //
-// K15 replaces adi_thermal_fields_tpu/solvers/pallas_vp2.py fused_vp2_sweep
-//     (:402) in its solve-leading forms (the pipelined body
-//     _vp2_pipe_kernel :1109, call site :539, and the streaming body
-//     _vp2_kernel :201 at call site :611 without nat_rhs_out, which compute
-//     the same thing): the solve along the strided axis of a C-contiguous
-//     field viewed as (B1, n, B2) -- r of the natural (r, phi, z) field,
-//     (1, nr, nphi*nz).
-// K15's y entry ("K15y") replaces fused_vp2_sweep_axis1 (:1029, body
-//     _vp2_axis1_kernel :903): the Cartesian y solve of the natural
-//     (x, y, z) field, (nx, ny, nz), with uniform geometry (constant
-//     columns glo = ghi = theta/dy^2, gsl = gsh = 1/dy, h_lo = h_hi, no
-//     edge films: edge_exposed codes carry the domain-edge films).  Same
-//     kernel, same access class (one thread per pencil, z coalesced).
-// K16 replaces fused_vp2_cyclic_axis1 (:812, call site :882, body
-//     _vp2_cyclic_kernel :633): the PERIODIC solve along axis 1 of a
-//     (B1, n, B2) field -- phi of the natural field.
+// K16 replaces adi_thermal_fields_tpu/solvers/pallas_vp2.py
+//     fused_vp2_cyclic_axis1 (:812, call site :882, body _vp2_cyclic_kernel
+//     :633): the PERIODIC solve along axis 1 of a (B1, n, B2) field -- phi
+//     of the natural field.
 //
-// Row i of K15, from rhs (T itself when the caller passes none), T^n and
-// the code byte (bits 1 = hi coupling live, 2/4 = lo/hi face exposed, 8 =
-// active), the per-row columns glo/ghi (coupling) and gsl/gsh (interface
-// films) and the edge films at rows 0 and n-1 (csrc/vp2_films.cuh):
-//   k_i = k(T_i); f_hi = bit1 ? harm(k_i, k_{i+1}) : 0; f_lo = previous
-//   row's f_hi; hr = eps*sigma*(Tk+Tik)(Tk^2+Tik^2) (0 without radiation);
-//   sink = bit2*gsl*(h_lo + hr) + bit4*gsh*(h_hi + hr); srhs = sink*t_inf;
-//   at an edge row: s_e = bit8*g_e*(h_e + hr_e); sink += s_e;
-//   srhs += s_e*t_e;
-//   al = glo*f_lo; ch = ghi*f_hi; coup = al + ch + sink;
+// Row i, from rhs, T^n and the code byte (bits 1 = hi coupling live, 2/4 =
+// lo/hi face exposed, 16 = lo coupling live), the coupling metric geo and
+// film metric gs (one value per ring):
+//   k_i = k(T_i); f_lo = bit16 ? harm(k_{i-1}, k_i) : 0 and f_hi = bit1 ?
+//   harm(k_i, k_{i+1}) : 0 with i-1 and i+1 taken mod n; hr =
+//   eps*sigma*(Tk+Tik)(Tk^2+Tik^2) (0 without radiation); sink = (bit2 +
+//   bit4)*gs*(h_void + hr);
+//   al = geo*f_lo; ch = geo*f_hi; coup = al + ch + sink;
 //   w = coup > 0 ? cp(T_i)*inv_dtor : 1        (scaled-row elimination,
-//   b = w + coup; d = rhs*w + srhs; a = -al; c = -ch   pallas_vp2.py:335)
-// K16's rows: f_lo = bit16 ? harm(k_{i-1}, k_i) : 0 and f_hi = bit1 ?
-// harm(k_i, k_{i+1}) : 0 with i-1 and i+1 taken mod n, sink = (bit2 +
-// bit4)*gs*(h_void + hr), the coupling metric geo and film metric gs one
-// value per ring, the same scaled rows; the wrap couplings come out by
-// Sherman-Morrison in cyclic_thomas's gauge (csrc/split_cyclic.cuh).  The
-// coup > 0 gate is right for films >= 0 only; the step refuses negative
-// films.
+//   b = w + coup; d = rhs*w + sink*tinf; a = -al; c = -ch   pallas_vp2.py:335)
+// and the wrap couplings come out by Sherman-Morrison in cyclic_thomas's
+// gauge (csrc/split_cyclic.cuh).  The coup > 0 gate is right for films >= 0
+// only; the step refuses negative films.
 //
-// Rounding: each kernel forms its plain version's rows (solvers/vp2.py: one
+// Rounding: the kernel forms its plain version's rows (solvers/vp2.py: one
 // tensor op per operation) one IEEE rounding at a time with the _rn helpers
-// (common.cuh, varprop.cuh), which nvcc never contracts into an FMA, and
-// K15 also solves them in thomas's order, bit for bit.
+// (common.cuh, varprop.cuh), which nvcc never contracts into an FMA.
 // In float32 the apparent heat capacity jumps 12x at the solidus within
 // one ulp of T, so one contracted rounding in T's path would move a cell
 // across it.  K16 solves its rows split across threads: within 7.3e-4 K
@@ -51,108 +32,30 @@
 // a tube's inner rings, a full disk's, where the split solve parts by up
 // to 1 K) is solved in Thomas order instead, bit for bit.
 //
-// What bounds them on the H100: memory.  The byte model (float32) reads T
-// (4) + code (1) (+ rhs 4) and writes x (4): 9 B/cell for K15 without an
-// rhs, 13 B/cell otherwise; k, cp, the faces and the films live in
-// registers only.  Each holds far below it (PERF.md section 6).
-//   K15: one thread per (b1, b2) pencil; adjacent threads read adjacent
-//        addresses, so every row load is coalesced; c' lives in the output
-//        and d' in a scratch field (K9's design, +16 B/cell of global round
-//        trip).  The columns are the same for every thread of a row
-//        (broadcast loads through the read-only cache).
-//   K16: K11's periodic split-line kernel (csrc/split_cyclic.cuh: lanes =
-//        32 phi lines adjacent in z, the block's warps splitting each
-//        line's 8-row chunks, Sherman-Morrison's second right-hand side in
-//        the reduced system only); `Vp2CyclicRows` evaluates k(T) once a
-//        row and, at a chunk's edges, at rows row0 - 1 and row0 + M mod n
-//        (the wrap faces), cp(T) every row (selected where coup > 0, as
-//        K8).  Nothing but x leaves the SM (the first K16 marched a thread
-//        a pencil with c', y and z in global memory).  It holds far below
-//        its byte model: latency -- four rounded divisions a row (harm and
-//        the elimination; with the hardware reciprocal it parted from the
-//        plain version past P8_TOL on the tube), two table evaluations a
-//        row and 64 registers a thread at 32 warps (small spills).  Its
-//        stiff blocks (a third of the (64, 512, 1024) tube's) replay the
-//        Thomas order at about five split blocks' time each: the tube
-//        takes ~1.8 ms, above the first K16's 1.6 (PERF.md section 6).
+// What bounds it on the H100: memory.  The byte model (float32) reads T
+// (4) + code (1) + rhs (4) and writes x (4): 13 B/cell; k, cp, the faces
+// and the films live in registers only.  It holds far below it (PERF.md
+// section 6): K11's periodic split-line kernel (csrc/split_cyclic.cuh:
+// lanes = 32 phi lines adjacent in z, the block's warps splitting each
+// line's 8-row chunks, Sherman-Morrison's second right-hand side in the
+// reduced system only); `Vp2CyclicRows` evaluates k(T) once a row and, at
+// a chunk's edges, at rows row0 - 1 and row0 + M mod n (the wrap faces),
+// cp(T) every row (selected where coup > 0, as K8).  Nothing but x leaves
+// the SM (the first K16 marched a thread a pencil with c', y and z in
+// global memory).  Latency holds it there -- four rounded divisions a row
+// (harm and the elimination; with the hardware reciprocal it parted from
+// the plain version past P8_TOL on the tube), two table evaluations a row
+// and 64 registers a thread at 32 warps (small spills).  Its stiff blocks
+// (a third of the (64, 512, 1024) tube's) replay the Thomas order at
+// about five split blocks' time each: the tube takes ~1.8 ms, above the
+// first K16's 1.6 (PERF.md section 6).
 #include "split_cyclic.cuh"
-#include "vp2_films.cuh"
+#include "varprop.cuh"
 
 namespace {
 
 using atf::add;
-using atf::div;
 using atf::mul;
-using atf::sub;
-
-// (b, d) of open-sweep row i with al = glo*f_lo and ch = ghi*f_hi given
-template <typename T>
-__device__ __forceinline__ void open_row(
-    unsigned code, T tc, T rhs, T al, T ch, T gsl, T gsh, int64_t i,
-    int64_t n, const atf::Table<T>& ctab, const Films<T>& f, T& b, T& d) {
-  T sink, srhs;
-  open_films(code, tc, gsl, gsh, i == 0, i == n - 1, f, sink, srhs);
-  const T coup = add(add(al, ch), sink);
-  const T w =
-      coup > T(0) ? mul(atf::clamp_sum_rn(ctab, tc), f.inv_dtor) : T(1);
-  b = add(w, coup);
-  d = add(mul(rhs, w), srhs);
-}
-
-// one Thomas elimination step with a = -al, c = -ch (thomas' divisions)
-template <typename T>
-__device__ __forceinline__ void eliminate(T al, T ch, T b, T d, T& cp,
-                                          T& dp) {
-  const T a = -al;
-  const T denom = sub(b, mul(a, cp));
-  cp = div(-ch, denom);
-  dp = div(sub(d, mul(a, dp)), denom);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(256) vp2_sweep_strided_kernel(
-    const T* __restrict__ rhs, const T* __restrict__ Tf,
-    const uint8_t* __restrict__ code, const T* __restrict__ glo,
-    const T* __restrict__ ghi, const T* __restrict__ gsl,
-    const T* __restrict__ gsh, T* __restrict__ out, T* __restrict__ dpbuf,
-    int64_t B1, int64_t n, int64_t B2,
-    const __grid_constant__ atf::Table<T> ktab,
-    const __grid_constant__ atf::Table<T> ctab,
-    const __grid_constant__ Films<T> f) {
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= B1 * B2) return;
-  const int64_t b1 = p / B2;
-  const int64_t base = b1 * n * B2 + (p - b1 * B2);
-  T cp = T(0), dp = T(0), f_lo = T(0);
-  T t_next = Tf[base];
-  T k_next = atf::clamp_sum_rn(ktab, t_next);
-  for (int64_t i = 0; i < n; ++i) {
-    const int64_t off = base + i * B2;
-    const T tc = t_next;
-    const T k_cur = k_next;
-    if (i + 1 < n) {
-      t_next = Tf[off + B2];
-      k_next = atf::clamp_sum_rn(ktab, t_next);
-    }
-    const unsigned c = code[off];
-    const T f_hi = (c & 1u) ? atf::harm_rn(k_cur, k_next) : T(0);
-    const T al = mul(__ldg(glo + i), f_lo);
-    const T ch = mul(__ldg(ghi + i), f_hi);
-    T b, d;
-    open_row<T>(c, tc, rhs ? rhs[off] : tc, al, ch, __ldg(gsl + i),
-                __ldg(gsh + i), i, n, ctab, f, b, d);
-    eliminate(al, ch, b, d, cp, dp);
-    out[off] = cp;
-    dpbuf[off] = dp;
-    f_lo = f_hi;
-  }
-  T x = T(0);
-  for (int64_t i = n - 1; i >= 0; --i) {
-    const int64_t off = base + i * B2;
-    x = sub(dpbuf[off], mul(out[off], x));
-    out[off] = x;
-  }
-}
 
 // K16's stiffness ratio, as K11's (csrc/masked.cu): a block of lines with
 // a row past |a| + |c| > kK16Stiff * (b - |a| - |c|) is solved in Thomas
@@ -225,31 +128,6 @@ struct Vp2CyclicRows {
 // kK8SmallSeg).
 constexpr int kSmallSeg = 4;
 
-// K15: B1*B2 pencils of n rows B2 apart of a (B1, n, B2) field
-template <typename T>
-void launch_vp2_open(const void* rhs, const void* Tf, const void* code,
-                     const void* glo, const void* ghi, const void* gsl,
-                     const void* gsh, void* out, void* scratch, int64_t B1,
-                     int64_t n, int64_t B2, const double* ktab, int kn,
-                     const double* ctab, int cn, double inv_dtor,
-                     double h_lo, double h_hi, double tinf, double rc,
-                     double tik, double tik2, int with_rad,
-                     const double* edges, cudaStream_t stream) {
-  atf::Table<T> kt, ct;
-  atf::make_table(ktab, kn, &kt);
-  atf::make_table(ctab, cn, &ct);
-  const Films<T> f = make_films<T>(inv_dtor, h_lo, h_hi, tinf, rc, tik, tik2,
-                                   with_rad, edges);
-  const int threads = 256;
-  const int64_t blocks = atf::cdiv(B1 * B2, threads);
-  vp2_sweep_strided_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const T*>(rhs), static_cast<const T*>(Tf),
-      static_cast<const uint8_t*>(code), static_cast<const T*>(glo),
-      static_cast<const T*>(ghi), static_cast<const T*>(gsl),
-      static_cast<const T*>(gsh), static_cast<T*>(out),
-      static_cast<T*>(scratch), B1, n, B2, kt, ct, f);
-}
-
 template <typename T>
 cudaError_t launch_vp2_cyclic_phi(const void* rhs, const void* Tf,
                                   const void* code, const void* geo,
@@ -288,21 +166,6 @@ bool tables_ok(int kn, int cn) {
 }
 
 }  // namespace
-
-ATF_API int atf_vp2_sweep_strided(
-    int dtype, int device, const void* rhs, const void* Tf, const void* code,
-    const void* glo, const void* ghi, const void* gsl, const void* gsh,
-    void* out, void* scratch, int64_t B1, int64_t n, int64_t B2,
-    const double* ktab, int kn, const double* ctab, int cn, double inv_dtor,
-    double h_lo, double h_hi, double tinf, double rc, double tik,
-    double tik2, int with_rad, const double* edges, void* stream) {
-  if (!tables_ok(kn, cn)) return (int)cudaErrorInvalidValue;
-  ATF_DISPATCH(dtype, device,
-               launch_vp2_open<T>(rhs, Tf, code, glo, ghi, gsl, gsh, out,
-                                  scratch, B1, n, B2, ktab, kn, ctab, cn,
-                                  inv_dtor, h_lo, h_hi, tinf, rc, tik, tik2,
-                                  with_rad, edges, (cudaStream_t)stream));
-}
 
 ATF_API int atf_vp2_cyclic_phi(int dtype, int device, const void* rhs,
                                const void* Tf, const void* code,

@@ -1,6 +1,7 @@
 // K8: the tier-2 variable-property sweep along the contiguous z axis, each
 // line split across a warp; its Cartesian form and its general form on one
-// kernel.
+// kernel.  K15 and its y entry: the general form's rows along a strided
+// axis (below).
 //
 // Replaces adi_thermal_fields_tpu/solvers/pallas_vp2.py fused_vp2_sweep
 // with nat_rhs_out=True (:402; streaming call site :611, body _vp2_kernel
@@ -81,6 +82,27 @@
 // slower.  The general form holds under a fifth of its byte model on the
 // tube's 1,024-row lines (two 16-row chunks a lane; 153 registers; one
 // 32-row chunk a lane ran slower, 1.03 ms).
+//
+// K15 replaces fused_vp2_sweep in its solve-leading forms (the pipelined
+// body _vp2_pipe_kernel :1109, call site :539, and the streaming body
+// _vp2_kernel :201 at call site :611 without nat_rhs_out): the solve along
+// the strided axis of a C-contiguous field viewed as (B1, n, B2) -- r of
+// the natural (r, phi, z) field, (1, nr, nphi*nz) -- with the general
+// form's rows (per-row columns, h_lo != h_hi, the edge films at rows 0 and
+// n-1; the rhs is T itself where the caller passes none: the first sweep
+// of the backward-Euler step).  K15's y entry ("K15y") replaces
+// fused_vp2_sweep_axis1 (:1029, body _vp2_axis1_kernel :903): the
+// Cartesian y solve of the natural (x, y, z) field, (nx, ny, nz), with
+// constant columns (glo = ghi = theta/dy^2, gsl = gsh = 1/dy), h_lo = h_hi
+// and no edge films.  Both form `Vp2GenRows`' rows: short lines (the
+// cylindrical r) in a march of a thread a line with c' in shared memory,
+// long ones (K15y's 512-row y lines) on the core's strided kernel
+// (csrc/split_line.cuh), each line split across the block's warps; c'
+// and d' never take a field-sized buffer.  Byte model (float32): T (4) +
+// code (1) (+ rhs 4) in, x (4) out = 9 B/cell without an rhs (the step's
+// K15), 13 with one; the march moves d' through the L2 beside it.  Their
+// first version marched a thread a pencil with c' in the output and d'
+// in a field-sized scratch buffer, both read back (~25 B/cell).
 //
 // Rounding: k, cp, the faces and the films repeat the plain version
 // (solvers/vp2.py) bit for bit (the _rn helpers of varprop.cuh); the split
@@ -767,6 +789,152 @@ cudaError_t launch_vp2_sweep_z_general(
                          device, stream);
 }
 
+// K15 and K15y: the general form's rows along a strided axis of a (B1, n,
+// B2) field (lines B2 apart, rows B2 apart).  Lines of up to kK15MarchRows
+// rows: `vp2_march_kernel`, a thread a line in Thomas order (thomas's
+// divisions), adjacent threads on adjacent lines, k(T) once a row, c' in
+// shared memory and d' through the output, which the backward pass reads
+// back (from the L2), bit for bit the plain version: kK15MarchGroup rows'
+// loads in flight at a time, registers held to kK15MarchBlocks blocks an
+// SM, kK15MarchThreads threads a block on lines of up to kK15MarchCells /
+// kK15MarchThreads rows (c' takes 32 KB a block at float32), half as many
+// on lines up to twice as long, and so on down to one warp a block (c'
+// kept to kK15MarchCells values a block).  Longer lines: the core's
+// strided kernel, `launch_split_strided` (K17's r sweep's layout: lanes =
+// 32 lines adjacent in B2; its launch shape: M = 8 rows a thread, 32 warps at
+// float32, one block an SM, which beat M = 4 and 16, 8 and 16 warps and
+// two blocks an SM), the reduced system on warp shuffles, the eliminated
+// rows of a thread's earlier chunks kept in shared memory; float32 blocks
+// with a row past kK8Stiff are solved again in Thomas order by their warp
+// 0, bit for bit the plain version.  kK15MarchRows is where the two
+// cross on the H100 (PERF.md section 6; scripts/cyl_be_tune.py
+// --crossover, tubes of the step's kind with n-row r lines, ~2^25 cells):
+// the march 0.46-0.58 ms up to 96 rows against the split kernel's
+// 0.52-0.63, then 0.66-1.28 against 0.50-0.69 from 112 to 256 rows.  The
+// split kernel parted from the plain version by 6.2-6.9 float32 ulp of
+// scale (1.0-1.2e-3 K, past chip_smoke.py's P8_TOL) at every length from
+// 64 to 256 rows; the march is bit for bit.
+constexpr int kK15MarchRows = 96;
+constexpr int kK15MarchCells = 8192;
+constexpr int kK15MarchThreads = 128;
+constexpr int kK15MarchGroup = 4;
+constexpr int kK15MarchBlocks = 7;
+
+// B1*B2 lines of n rows B2 apart, a thread a line (gen_row's rows, thomas's
+// order: c' = c/(b - a c'), d' = (d - a d')/(b - a c')).  The forward pass
+// takes kK15MarchGroup rows at a time: their loads (T a row ahead, the
+// code and the rhs; the columns, the same for every line, come from the
+// L1) go out together, so that the memory's latency is met once a group,
+// not once a row.  kK15MarchBlocks: the blocks an SM its registers are
+// held to.
+template <typename T, int kSeg>
+__global__ void __launch_bounds__(kK15MarchThreads, kK15MarchBlocks)
+    vp2_march_kernel(
+    const __grid_constant__ Vp2GenRows<T, kSeg> rows, T* __restrict__ out,
+    int64_t B1, int64_t n, int64_t B2) {
+  using atf::div;
+  using atf::sub;
+  constexpr int G = kK15MarchGroup;
+  extern __shared__ __align__(16) unsigned char atf_smem[];
+  T* cps = reinterpret_cast<T*>(atf_smem) + threadIdx.x;
+  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= B1 * B2) return;
+  const int64_t b1 = p / B2;
+  const int64_t base = b1 * n * B2 + (p - b1 * B2);
+  const Vp2GenParams<T>& g = rows.p;
+  T cp = T(0), dp = T(0), f_lo = T(0);
+  T t_cur = __ldg(rows.Tf + base);
+  T k_cur = atf::table<kSeg>(g.ktab, t_cur);
+  for (int64_t i0 = 0; i0 < n; i0 += G) {
+    T t_up[G], r[G];
+    unsigned cd[G];
+#pragma unroll
+    for (int k = 0; k < G; ++k) {                // the group's loads
+      const int64_t i = i0 + k, off = base + i * B2;
+      if (i < n) {
+        t_up[k] = i + 1 < n ? __ldg(rows.Tf + off + B2) : T(0);
+        cd[k] = __ldg(rows.code + off);
+        r[k] = __ldg(rows.rhs + off);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const int64_t i = i0 + k;
+      if (i < n) {
+        // the last row's neighbour replicates it (bit 1 is clear there)
+        const T k_up =
+            i + 1 < n ? atf::table<kSeg>(g.ktab, t_up[k]) : k_cur;
+        const T f_hi = (cd[k] & 1u) ? atf::harm_rn(k_cur, k_up) : T(0);
+        T a, b, c, d;
+        gen_row<kSeg>(g, t_cur, cd[k], r[k], f_lo, f_hi,
+                      __ldg(g.col[0] + i), __ldg(g.col[1] + i),
+                      __ldg(g.col[2] + i), __ldg(g.col[3] + i), i == 0,
+                      i == n - 1, a, b, c, d);
+        const T den = sub(b, mul(a, cp));
+        cp = div(c, den);
+        dp = div(sub(d, mul(a, dp)), den);
+        cps[i * blockDim.x] = cp;
+        out[base + i * B2] = dp;
+        f_lo = f_hi;
+        t_cur = t_up[k];
+        k_cur = k_up;
+      }
+    }
+  }
+  T x = T(0);
+  for (int64_t i = n - 1; i >= 0; --i) {
+    const int64_t off = base + i * B2;
+    x = sub(out[off], mul(cps[i * blockDim.x], x));
+    out[off] = x;
+  }
+}
+
+template <typename T>
+cudaError_t launch_vp2_sweep_strided(
+    const void* rhs, const void* Tf, const void* code, const void* glo,
+    const void* ghi, const void* gsl, const void* gsh, void* out, int64_t B1,
+    int64_t n, int64_t B2, const double* ktab, int kn, const double* ctab,
+    int cn, double inv_dtor, double h_lo, double h_hi, double tinf,
+    double rc, double tik, double tik2, int with_rad, const double* edges,
+    int device, cudaStream_t stream) {
+  Vp2GenParams<T> p;
+  atf::make_table(ktab, kn, &p.ktab);
+  atf::make_table(ctab, cn, &p.ctab);
+  p.f = make_films<T>(inv_dtor, h_lo, h_hi, tinf, rc, tik, tik2, with_rad,
+                      edges);
+  p.col[0] = static_cast<const T*>(glo);
+  p.col[1] = static_cast<const T*>(ghi);
+  p.col[2] = static_cast<const T*>(gsl);
+  p.col[3] = static_cast<const T*>(gsh);
+  p.two = glo == ghi && gsl == gsh;
+  auto* r = static_cast<const T*>(rhs);
+  auto* t = static_cast<const T*>(Tf);
+  auto* c = static_cast<const uint8_t*>(code);
+  auto* o = static_cast<T*>(out);
+  auto launch = [&](auto seg) {
+    constexpr int kSeg = decltype(seg)::value;
+    const Vp2GenRows<T, kSeg> gen{r, t, c, p};
+    if (n <= kK15MarchRows) {
+      int threads = kK15MarchThreads;
+      while (threads > 32 && (int64_t)threads * n > kK15MarchCells) {
+        threads /= 2;
+      }
+      const size_t smem = sizeof(T) * threads * (size_t)n;
+      auto* kernel = vp2_march_kernel<T, kSeg>;
+      atf::allow_dynamic_smem(kernel, smem);
+      kernel<<<(unsigned)atf::cdiv(B1 * B2, threads), threads, smem,
+               stream>>>(gen, o, B1, n, B2);
+      return cudaSuccess;
+    }
+    return launch_split_strided<T>(gen, o, B1, n, B2, 1, B2, device,
+                                   stream);
+  };
+  if (kn <= kK8SmallSeg && cn <= kK8SmallSeg) {
+    return launch(std::integral_constant<int, kK8SmallSeg>{});
+  }
+  return launch(std::integral_constant<int, 0>{});
+}
+
 bool tables_ok(int kn, int cn) {
   return kn >= 0 && kn <= atf::kMaxSeg && cn >= 0 && cn <= atf::kMaxSeg;
 }
@@ -805,4 +973,21 @@ ATF_API int atf_vp2_sweep_z_general(
                    rhs, Tf, code, glo, ghi, gsl, gsh, out, flags, npen, n,
                    ktab, kn, ctab, cn, inv_dtor, h_lo, h_hi, tinf, rc, tik,
                    tik2, with_rad, edges, device, (cudaStream_t)stream))));
+}
+
+// K15 and its y entry: the (B1, n, B2) field's lines along axis 1 (rhs may
+// be T itself).
+ATF_API int atf_vp2_sweep_strided(
+    int dtype, int device, const void* rhs, const void* Tf, const void* code,
+    const void* glo, const void* ghi, const void* gsl, const void* gsh,
+    void* out, int64_t B1, int64_t n, int64_t B2, const double* ktab, int kn,
+    const double* ctab, int cn, double inv_dtor, double h_lo, double h_hi,
+    double tinf, double rc, double tik, double tik2, int with_rad,
+    const double* edges, void* stream) {
+  if (!tables_ok(kn, cn)) return (int)cudaErrorInvalidValue;
+  ATF_DISPATCH(dtype, device,
+               ATF_RETURN_IF((launch_vp2_sweep_strided<T>(
+                   rhs, Tf, code, glo, ghi, gsl, gsh, out, B1, n, B2, ktab,
+                   kn, ctab, cn, inv_dtor, h_lo, h_hi, tinf, rc, tik, tik2,
+                   with_rad, edges, device, (cudaStream_t)stream))));
 }

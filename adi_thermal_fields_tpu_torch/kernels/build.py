@@ -79,9 +79,9 @@ _SIGNATURES = {
                                _P], _I),
     "atf_const_sweep_strided": ([_I, _I, *[_P] * 6, _I64, _I64, _P], _I),
     "atf_const_sweep_z": ([_I, _I, *[_P] * 6, _I64, _I64, _P], _I),
-    "atf_cyclic_const_phi": ([_I, _I, _P, _P, _P, _I64, _I64, _I64, _P],
-                             _I),
-    "atf_vp2_sweep_strided": ([_I, _I, *[_P] * 9, _I64, _I64, _I64, _DP, _I,
+    "atf_cyclic_const_phi": ([_I, _I, *[_P] * 4, _I64, _I64, _I64, _P], _I),
+    "atf_cyclic_const_table": ([_I, _I, _P, _P, _I64, _I64, _P], _I),
+    "atf_vp2_sweep_strided": ([_I, _I, *[_P] * 8, _I64, _I64, _I64, _DP, _I,
                                _DP, _I, *[_D] * 7, _I, _DP, _P], _I),
     "atf_vp2_sweep_z_general": ([_I, _I, *[_P] * 9, _I64, _I64, _DP, _I,
                                  _DP, _I, *[_D] * 7, _I, _DP, _P], _I),

@@ -21,12 +21,20 @@ with gauge ``gamma = -b``, with one ``fac`` per B1 index (per ring).
 The coefficients depend on the row (K14: the ring and the row) only, so
 ``inv[i] = 1/(b[i] - a[i] cp[i-1])``, ``cp[i] = c[i] inv[i]`` and K14's
 Sherman-Morrison vector z are computed once per row or ring, by the plain
-versions and the kernels alike, and each line carries only its rhs.
+versions and the kernels alike, and each line carries only its rhs.  K14
+takes its rings' factors from a table (``cyclic_const_phi_table``, built
+by a kernel of one thread a ring, bit for bit the plain version's; the
+step keeps it for its dt) and splits each line across a block's warps
+(csrc/const_sweeps.cu): within a few float32 ulp of the output's scale of
+its plain version, except on the rings whose stiffness ratio 2 fac passes
+``kK14Stiff`` (a constant of the CUDA source), which it solves in Thomas
+order, bit for bit.
 
 Each wrapper checks its inputs on every device (float32/float64,
 contiguous, (n,) coefficient vectors of the field's dtype), then runs its
 plain version on CPU tensors and its kernel on CUDA tensors (or raises),
-and counts the launches in ``launches``.
+and counts the launches in ``launches`` (K14's table kernel in
+``cyclic_const_phi_table.launches``, "K14t").
 """
 from __future__ import annotations
 
@@ -37,7 +45,11 @@ from ..kernels import (check_vectors, dtype_code, load_library, ptr,
 
 __all__ = ["const_sweep_strided", "const_sweep_strided_plain",
            "const_sweep_z", "const_sweep_z_plain", "cyclic_const_phi",
-           "cyclic_const_phi_plain"]
+           "cyclic_const_phi_plain", "cyclic_const_phi_table",
+           "cyclic_const_phi_table_plain"]
+
+# K14's table: its values a ring past the 3n factors (kK14Tail)
+K14_TAIL = 3
 
 
 def _row_factors(a, b, c):
@@ -79,11 +91,10 @@ def const_sweep_z_plain(rhs, a, b, c, radd):
     return _const_plain(rhs, a, b, c, radd, rhs.dim() - 1)
 
 
-def cyclic_const_phi_plain(rhs, fac):
-    """Plain version of K14 (any device): ``_cyclic_const_kernel``'s
-    operations along axis 1, the ring's system (inv, cp, z) once per
-    ring."""
-    n = rhs.shape[1]
+def _ring_system(fac, n):
+    """Each ring's system as cyclic_const_phi_plain forms it: ``a``,
+    ``gamma`` ((B1, 1)), the rows' ``av``, ``inv``, ``cp`` and z of B z =
+    u ((n, B1, 1)), one operation at a time."""
     f = fac[:, None]                     # (B1, 1): broadcast over B2
     a = -f
     b = 1.0 + 2.0 * f
@@ -105,6 +116,15 @@ def cyclic_const_phi_plain(rhs, fac):
     for i in range(n - 1, -1, -1):
         torch.sub(z[i], cp[i] * zn, out=z[i])
         zn = z[i]
+    return a, gamma, av, inv, cp, z
+
+
+def cyclic_const_phi_plain(rhs, fac):
+    """Plain version of K14 (any device): ``_cyclic_const_kernel``'s
+    operations along axis 1, the ring's system (inv, cp, z) once per
+    ring."""
+    n = rhs.shape[1]
+    a, gamma, av, inv, cp, z = _ring_system(fac, n)
     y = torch.empty_like(rhs)
     dy = torch.zeros_like(rhs[:, 0])
     for i in range(n):
@@ -117,6 +137,16 @@ def cyclic_const_phi_plain(rhs, fac):
     fact = ((y[:, 0] + a * y[:, n - 1] / gamma)
             / (1.0 + z[0] + a * z[n - 1] / gamma))
     return y - fact[:, None, :] * z.movedim(0, 1)
+
+
+def cyclic_const_phi_table_plain(fac, n):
+    """Plain version of K14's table: (B1, 3n + 3) values a ring, ``inv``,
+    ``cp`` and ``z`` (n each, bit for bit cyclic_const_phi_plain's), then
+    ``den = 1 + z_0 + a z_{n-1}/gamma``, ``a/gamma`` and ``1/den``."""
+    a, gamma, _, inv, cp, z = _ring_system(fac, n)
+    den = 1.0 + z[0] + a * z[n - 1] / gamma
+    return torch.cat([inv[..., 0].T, cp[..., 0].T, z[..., 0].T, den,
+                      a / gamma, 1.0 / den], 1).contiguous()
 
 
 def _check(name, rhs, n, *vecs):
@@ -174,23 +204,62 @@ def const_sweep_z(rhs: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 const_sweep_z.launches = 0
 
 
-def cyclic_const_phi(rhs: torch.Tensor, fac: torch.Tensor) -> torch.Tensor:
+def cyclic_const_phi_table(fac: torch.Tensor, n: int) -> torch.Tensor:
+    """K14's table of the rings' factors for lines of ``n`` rows (see
+    ``cyclic_const_phi_table_plain``): on CUDA tensors built by a kernel of
+    one thread a ring ("K14t"), bit for bit the plain version's.  It
+    depends on ``fac`` alone: the step keeps it beside ``fac`` for its
+    dt."""
+    if fac.dim() != 1 or n < 2:
+        raise ValueError("cyclic_const_phi_table: fac must be (B1,) and the "
+                         f"lines >= 2 rows, got {tuple(fac.shape)}, n={n}")
+    _check("cyclic_const_phi_table", fac, fac.shape[0], fac)
+    if not use_kernel(fac):
+        return cyclic_const_phi_table_plain(fac, n)
+    tab = torch.empty((fac.shape[0], 3 * n + K14_TAIL), dtype=fac.dtype,
+                      device=fac.device)
+    err = load_library().atf_cyclic_const_table(
+        dtype_code(fac.dtype), fac.device.index, ptr(fac), ptr(tab),
+        fac.shape[0], n, stream_ptr(fac.device))
+    raise_on_error(err, "cyclic_const_phi_table")
+    cyclic_const_phi_table.launches += 1
+    return tab
+
+
+cyclic_const_phi_table.launches = 0
+
+
+def cyclic_const_phi(rhs: torch.Tensor, fac: torch.Tensor,
+                     table: torch.Tensor | None = None) -> torch.Tensor:
     """K14: periodic constant-coefficient solve ``(I - fac L_per) x = rhs``
     along axis 1 of a (B1, n, B2) field (phi of the natural field);
-    ``fac``: (B1,), one value per ring."""
+    ``fac``: (B1,), one value per ring; ``table``: its
+    ``cyclic_const_phi_table`` (built in the call where None: a launch of
+    its kernel too).  Each line is split across a block's warps, except on
+    the rings past the kernel's stiffness ratio, which are solved in
+    Thomas order, bit for bit the plain version."""
     if rhs.dim() != 3 or rhs.shape[1] < 2:
         raise ValueError("cyclic_const_phi solves periodic lines of length "
                          f">= 2 along axis 1 of a 3-D field, got "
                          f"{tuple(rhs.shape)}")
-    kernel = use_kernel(rhs, fac)
+    kernel = use_kernel(rhs, fac, table)
     B1, n, B2 = rhs.shape
     _check("cyclic_const_phi", rhs, B1, fac)
+    if table is not None and (table.shape != (B1, 3 * n + K14_TAIL)
+                              or table.dtype != rhs.dtype
+                              or table.device != rhs.device
+                              or not table.is_contiguous()):
+        raise ValueError("cyclic_const_phi: the table must be the contiguous "
+                         f"({B1}, {3 * n + K14_TAIL}) table of the field's "
+                         "dtype and device (cyclic_const_phi_table)")
     if not kernel:
         return cyclic_const_phi_plain(rhs, fac)
+    if table is None:
+        table = cyclic_const_phi_table(fac, n)
     out = torch.empty_like(rhs)
     err = load_library().atf_cyclic_const_phi(
         dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(fac),
-        ptr(out), B1, n, B2, stream_ptr(rhs.device))
+        ptr(table), ptr(out), B1, n, B2, stream_ptr(rhs.device))
     raise_on_error(err, "cyclic_const_phi")
     cyclic_const_phi.launches += 1
     return out

@@ -49,15 +49,19 @@ cylindrical step moves its z code to (z, r, phi)), so nothing is
 transposed.
 
 The plain versions build the rows with one tensor op per operation and
-solve them with ``thomas`` / ``cyclic_thomas``; K15 repeats that
-arithmetic one IEEE rounding at a time.  K8 (both forms) forms the same
-rows bit for bit but solves each line split across a warp (the split-line
-core of ``csrc/split_line.cuh``), not in Thomas order: within a few
-float32 ulp of the output's scale; at float32 its general form solves a
-line with a row past ``kK8Stiff`` (``csrc/vp2_sweep.cu``) again in Thomas
-order, bit for bit ``thomas``.  K16 forms its rows bit for bit and
-solves them split across the block's warps with the wrap by
-Sherman-Morrison (``csrc/split_cyclic.cuh``), except on blocks of stiff
+solve them with ``thomas`` / ``cyclic_thomas``.  K8 (both forms) forms the
+same rows bit for bit but solves each line split across a warp (the
+split-line core of ``csrc/split_line.cuh``), not in Thomas order: within a
+few float32 ulp of the output's scale; at float32 its general form solves
+a line with a row past ``kK8Stiff`` (``csrc/vp2_sweep.cu``) again in
+Thomas order, bit for bit ``thomas``.  K15 and its y entry form the same
+rows: lines of up to 96 rows (the cylindrical r) in Thomas order, a thread
+a line with c' in shared memory, bit for bit ``thomas``; longer lines
+(K15y's y) on the core's strided kernel, split across a block's warps
+with K8's bounds and replay (a block of 32 lines with a row past
+``kK8Stiff``); neither takes a c'/d' scratch field.  K16 forms its rows
+bit for bit and solves them split across the block's warps with the wrap
+by Sherman-Morrison (``csrc/split_cyclic.cuh``), except on blocks of stiff
 rings (past ``kK16Stiff`` in ``csrc/vp2_cyl.cu``), which it solves in
 Thomas order, bit for bit ``cyclic_thomas``, and refuses lines too long
 for that replay (K11's limits, ``solvers/masked.py``).  Each wrapper runs
@@ -230,8 +234,8 @@ def _edge_arg(edges, emissivity: float):
 def _launch_open(name, rhs, T, code, glo, ghi, gsl, gsh, inv_dtor, axis, *,
                  k_spec, cp_spec, h_lo, h_hi, tinf, emissivity, edge0,
                  edge1):
-    """K15 (axis 0 or 1 of a 3-D field) or K8's general form (the last
-    axis) on CUDA tensors."""
+    """K15 (axis 0 or 1 of a 3-D field: ``rhs`` None passes T) or K8's
+    general form (the last axis) on CUDA tensors."""
     check_kernel_inputs(name, T, code, rhs)
     n = T.shape[axis]
     check_vectors(name, T, n, glo, ghi, gsl, gsh)
@@ -244,8 +248,9 @@ def _launch_open(name, rhs, T, code, glo, ghi, gsl, gsh, inv_dtor, axis, *,
     films = (ktab, kn, ctab, cn, float(inv_dtor), float(h_lo), float(h_hi),
              float(tinf), rc if rad else 0.0, tik, tik2, int(rad),
              _edge_arg((edge0, edge1), emissivity), stream_ptr(T.device))
-    head = (dtype_code(T.dtype), T.device.index, ptr(rhs), ptr(T), ptr(code),
-            ptr(glo), ptr(ghi), ptr(gsl), ptr(gsh), ptr(out))
+    head = (dtype_code(T.dtype), T.device.index,
+            ptr(T if rhs is None else rhs), ptr(T), ptr(code), ptr(glo),
+            ptr(ghi), ptr(gsl), ptr(gsh), ptr(out))
     if axis == T.dim() - 1:
         # K8's general form: npen lines of n contiguous rows (a flag byte a
         # line at float32 for the stiff lines' replay)
@@ -253,11 +258,10 @@ def _launch_open(name, rhs, T, code, glo, ghi, gsl, gsh, inv_dtor, axis, *,
         err = lib.atf_vp2_sweep_z_general(*head, ptr(stiff_flags(T, npen)),
                                           npen, n, *films)
     else:
-        # K15: the field as (B1, n, B2), B1*B2 pencils of n rows B2 apart;
-        # d' in a scratch field
+        # K15: the field as (B1, n, B2), B1*B2 lines of n rows B2 apart
         B1 = math.prod(T.shape[:axis])
-        err = lib.atf_vp2_sweep_strided(*head, ptr(torch.empty_like(T)), B1,
-                                        n, T.numel() // (B1 * n), *films)
+        err = lib.atf_vp2_sweep_strided(*head, B1, n, T.numel() // (B1 * n),
+                                        *films)
     raise_on_error(err, name)
     return out
 
@@ -377,7 +381,11 @@ def vp2_sweep_strided(rhs: torch.Tensor | None, T: torch.Tensor,
     coupling columns; ``gsl``/``gsh``: (n,) interface-film columns;
     ``h_lo``/``h_hi``: the lo/hi interface films against ``tinf_void``;
     ``edge0``/``edge1``: None or ``(h, geo, t_inf)`` domain-edge films at
-    rows 0 and n-1 (gated by bit 8); ``inv_dtor = rho/dt``."""
+    rows 0 and n-1 (gated by bit 8); ``inv_dtor = rho/dt``.  Lines of up
+    to 96 rows run in Thomas order, bit for bit the plain version; longer
+    ones are split across a block's warps (``csrc/vp2_sweep.cu``; float32
+    blocks with a row past ``kK8Stiff`` in Thomas order); the wrapper
+    allocates the output alone."""
     if not use_kernel(rhs, T, code, glo, ghi, gsl, gsh):
         return vp2_sweep_strided_plain(
             rhs, T, code, glo, ghi, gsl, gsh, inv_dtor, k_spec=k_spec,

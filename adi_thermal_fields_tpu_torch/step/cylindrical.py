@@ -43,7 +43,7 @@ import torch
 from ..core.grid import CylindricalGrid
 from ..core.material import Material
 from ..solvers.const_sweeps import (const_sweep_strided, const_sweep_z,
-                                    cyclic_const_phi)
+                                    cyclic_const_phi, cyclic_const_phi_table)
 from ..solvers.spectral import phi_eigenvalue_factors, phi_solve_spectral
 from ..solvers.thomas import thomas
 
@@ -266,6 +266,15 @@ def _phi_fac(grid, mat, theta, dt, dtype, device):
             * phi_eigenvalue_factors(grid, dtype)).to(device)
 
 
+@functools.lru_cache(maxsize=64)
+def _phi_table(grid, mat, theta, dt, dtype, device):
+    """K14's table of the rings' factors (``cyclic_const_phi_table``),
+    kept beside ``_phi_fac`` under the same key: a run of steps at one dt
+    builds it once."""
+    return cyclic_const_phi_table(
+        _phi_fac(grid, mat, theta, dt, dtype, device), grid.nphi)
+
+
 def _col(v):
     return v[:, None, None]
 
@@ -306,8 +315,8 @@ def _phi_solve(X, grid, mat, theta, dt, implementation):
     if grid.nphi == 1:
         return X
     if implementation == "kernels":
-        return cyclic_const_phi(X, _phi_fac(grid, mat, theta, dt, X.dtype,
-                                            X.device))
+        key = (grid, mat, theta, dt, X.dtype, X.device)
+        return cyclic_const_phi(X, _phi_fac(*key), _phi_table(*key))
     return phi_solve_spectral(X, grid, mat, theta, dt)
 
 

@@ -14,20 +14,25 @@ and films are not temperatures), and so are the cylindrical sweeps K9-K18,
 whose stiff phi systems near a full disk's axis amplify one rounding; the
 cylindrical varprop step runs kernels against reference at float64.  K20
 and K23 repeat their plain versions one rounding at a time: they are
-held to bitwise equality, and so is K15's y entry.  K6, K7, K7's x entry,
-K8, K10, K17, K19, K21 and K24-K26 split each line across threads (the
-split-line core of K1, K2 and K4): within 8 float32 ulp of the output's
+held to bitwise equality, and so are K15 and K15y on lines of up to
+kK15MarchRows rows (a thread a line).  K6, K7, K7's x entry, K8, K10,
+K15 and K15y on longer lines, K17, K19, K21 and K24-K26 split each line
+across threads (the split-line core of K1, K2 and K4): within 8 float32 ulp of the output's
 scale, 1e-12 of it at float64 (K24-K26 at bfloat16: one bfloat16 ulp of
 the output's scale); K20 then K7's x entry equals K6 bit for bit (the unfused
 varprop step equals the fused one).  K11, K16, K18 and K22 split their
 periodic lines the same way, in Thomas order on stiff rings: the same
 bounds, on the spiral app's ring, 4096-row lines and lines of 2 and 3
-rows too.
+rows too; so does K14, its rings past kK14Stiff bit for bit its plain
+version.
 K1's v1 entry is held to the field-plan K1 bounds.
 The bfloat16 entries of K1-K4 solve at float32 like their plain versions
 but round differently (FMA contraction): within one bfloat16 ulp of them.
 chip_smoke.py runs the same comparisons at full size.
 """
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -40,7 +45,8 @@ from adi_thermal_fields_tpu_torch import (CylindricalGrid, Material, RobinBC,
 from adi_thermal_fields_tpu_torch.solvers import (
     KERNELS, build_vp2_code, const_sweep_strided, const_sweep_strided_plain,
     const_sweep_z, const_sweep_z_plain, cyclic_const_phi,
-    cyclic_const_phi_plain, fused_sweep, fused_sweep_axis1,
+    cyclic_const_phi_plain, cyclic_const_phi_table,
+    cyclic_const_phi_table_plain, fused_sweep, fused_sweep_axis1,
     fused_sweep_axis1_plain, fused_sweep_plain, fused_theta_sweep,
     fused_theta_sweep_plain,
     launch_counts, masked_cyclic_phi, masked_cyclic_phi_plain,
@@ -68,6 +74,14 @@ C_EXP, INV = 3.5e-7, (1.0e6, 1.1e6, 0.9e6)
 def _counts(**launched):
     """launch_counts() when only ``launched`` kernels ran."""
     return {**{k: 0 for k in KERNELS}, **launched}
+
+
+def _source_constant(name, src):
+    """A kernel's ``constexpr`` value ``name`` in csrc/src."""
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                        "adi_thermal_fields_tpu_torch", "csrc", src)
+    return float(re.search(rf"constexpr \w+ {name} = ([0-9.e+]+);",
+                           open(path).read()).group(1))
 
 
 @pytest.mark.cuda
@@ -633,7 +647,7 @@ def test_const_kernels_match_plain_on_card(dtype, rel, nphi, r_inner,
         assert got.is_cuda and got.dtype == dtype
         assert float((got - want).abs().max()) <= rel * float(
             want.abs().max())
-    assert launch_counts() == _counts(K12=1, K13=1, K14=1)
+    assert launch_counts() == _counts(K12=1, K13=1, K14=1, K14t=1)
 
 
 @pytest.mark.cuda
@@ -773,6 +787,159 @@ def test_cyclic_phi_kernels_on_long_short_and_stiff_lines_on_card(case,
         assert float((got - want).abs().max()) <= rel * float(
             want.abs().max())
     assert launch_counts() == _counts(K11=1, K16=1, K18=1, K22=1)
+
+
+# K14's rings: the spiral app's 720-row ring (rows in registers at
+# float32, read again in each pass at float64), 4096-row
+# lines (rows read again in each pass) and a full disk, whose inner rings
+# pass kK14Stiff (Thomas order): (shape, dr, r_inner)
+K14_RINGS = {"app-ring": ((32, 720, 200), 2.5e-4, 0.052),
+             "long": ((2, 4096, 64), 5e-4, 1.0),
+             "disk": ((37, 203, 131), 5e-4, 0.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float64, 1e-12),
+                                       (torch.float32, 8 * 2.0 ** -23)],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("case", list(K14_RINGS))
+def test_k14_on_long_and_flagged_rings_on_card(case, dtype, rel):
+    """K14's table bit for bit its plain version's, K14 on long lines
+    within ``rel`` of the output's scale, and on the rings past kK14Stiff
+    bit for bit its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    shape, dr, r_inner = K14_RINGS[case]
+    grid = CylindricalGrid(*shape, dr, dr, r_inner=r_inner)
+    mat = Material(7800.0, 490.0, 54.0)
+    fac = pcyl._phi_fac(grid, mat, 1.0, 0.02, dtype, dev)
+    rng = np.random.default_rng(43)
+    R = torch.from_numpy(20.0 + 1480.0 * rng.random(shape)).to(dev, dtype)
+    n = shape[1]
+    reset_launch_counts()
+    table = cyclic_const_phi_table(fac, n)
+    got = cyclic_const_phi(R, fac, table)
+    want = cyclic_const_phi_plain(R, fac)
+    torch.cuda.synchronize()
+    assert torch.equal(table, cyclic_const_phi_table_plain(fac, n))
+    flag = 2.0 * fac > _source_constant("kK14Stiff", "const_sweeps.cu")
+    assert bool(flag.any()) == (case == "disk")
+    assert torch.equal(got[flag], want[flag])
+    assert float((got - want).abs().max()) <= rel * float(want.abs().max())
+    assert launch_counts() == _counts(K14=1, K14t=1)
+
+
+def _k15_calls(shape, dtype, seed, scale=1.0):
+    """(name, kernel, plain) of K15 along axis 0 of ``shape`` (distinct
+    per-row columns, h_lo != h_hi, both edge films; the rhs given and T
+    itself) and of K15's y entry along axis 1 (constant columns); the
+    couplings times ``scale`` (x10: float32 blocks past kK8Stiff, solved
+    in Thomas order)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(seed)
+    act = torch.from_numpy(rng.random(shape) > 0.2).to(dev)
+    cast = (lambda a: torch.from_numpy(np.asarray(a)).to(dev, dtype))
+    T = cast(np.where(act.cpu().numpy(),
+                      1350.0 + 200.0 * rng.random(shape), 20.0))
+    T.view(-1)[::7] = 1420.0
+    T.view(-1)[3::11] = 1470.0
+    R = cast(20.0 + 1480.0 * rng.random(shape))
+    f = np.float32 if dtype == torch.float32 else np.float64
+    inv = float(f(1.0) / f(f(0.02) / f(7800.0)))
+    tabs = dict(k_spec=melt_pool_enhanced_k(54.0, 1420.0, 1470.0, 4.0),
+                cp_spec=apparent_cp(490.0, 490.0, 2.7e5, 1420.0, 1470.0))
+    n = shape[0]
+    cols = [cast(base * (1.0 + 0.2 * rng.random(n)))
+            for base in (4e6 * scale, 4e6 * scale, 2e3, 2e3)]
+    code_r = build_vp2_code(act, 0)
+    code_y = build_vp2_code(act, 1, edge_exposed=True)
+    rk = dict(h_lo=80.0, h_hi=200.0, tinf_void=15.0, emissivity=0.5,
+              edge0=(150.0, 1.9e3, 30.0), edge1=(300.0, 2.1e3, 20.0), **tabs)
+    yk = dict(h=30.0, t_inf=15.0, emissivity=0.5, **tabs)
+    glo = float(f(4e5 * scale))
+    return [
+        ("K15 rhs", lambda: vp2_sweep_strided(R, T, code_r, *cols, inv, **rk),
+         lambda: vp2_sweep_strided_plain(R, T, code_r, *cols, inv, **rk)),
+        ("K15 rhs is T",
+         lambda: vp2_sweep_strided(None, T, code_r, *cols, inv, **rk),
+         lambda: vp2_sweep_strided_plain(None, T, code_r, *cols, inv, **rk)),
+        ("K15y", lambda: vp2_sweep_y(R, T, code_y, glo, 2e3, inv, **yk),
+         lambda: vp2_sweep_y_plain(R, T, code_y, glo, 2e3, inv, **yk))]
+
+
+# K15's and K15y's lines: odd, short (1-3 rows, ragged line counts) and
+# up to K15_MARCH rows (the march of a thread a line), one row past it and
+# long (300 rows: the strided split kernel with kept rows; 8192 rows: its
+# reduced rows in global memory)
+K15_MARCH = int(_source_constant("kK15MarchRows", "vp2_sweep.cu"))
+K15_SHAPES = ((37, 45, 70), (64, 9, 33), (1, 5, 40), (2, 3, 7), (3, 2, 65),
+              (300, 6, 40), (6, 300, 40), (8192, 4, 40), (5, 8192, 3),
+              (K15_MARCH, 6, 40), (K15_MARCH + 1, 6, 40),
+              (6, K15_MARCH + 1, 40))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float64, 1e-12),
+                                       (torch.float32, 8 * 2.0 ** -23)],
+                         ids=["f64", "f32"])
+def test_vp2_strided_on_split_kernel_on_card(dtype, rel):
+    """K15 and K15y against their plain versions on odd and short lines
+    and lines of K15_MARCH rows (the march: bit for bit) and on lines one
+    row longer, of 300 and of 8192 rows (the core's strided kernel),
+    within ``rel`` of the output's scale; with the couplings x10 (float32
+    blocks past kK8Stiff in Thomas order) too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    reset_launch_counts()
+    runs = {"K15": 0, "K15y": 0}
+    for i, shape in enumerate(K15_SHAPES):
+        for scale in ((1.0, 10.0) if 37 in shape or 300 in shape
+                      else (1.0,)):
+            for name, kern, plain in _k15_calls(shape, dtype, 70 + i, scale):
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                runs[name.split()[0]] += 1
+                assert got.is_cuda and got.dtype == dtype
+                assert bool(torch.isfinite(got).all())
+                scale_out = max(1.0, float(want.abs().max()))
+                assert float((got - want).abs().max()) <= rel * scale_out, \
+                    (name, shape, scale)
+                n = shape[0] if name.startswith("K15 ") else shape[1]
+                if n <= K15_MARCH:
+                    assert torch.equal(got, want), (name, shape, scale)
+    assert launch_counts() == _counts(**runs)
+
+
+@pytest.mark.cuda
+def test_k14_and_k15_take_no_field_sized_scratch_on_card():
+    """K14 (given its table) and K15 (the rhs given and T itself) raise
+    the allocator's peak by their output alone (their first versions
+    wrote y' or d' to a field-sized buffer beside it: K15 to a scratch
+    field)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    grid = CylindricalGrid(64, 96, 160, 5e-4, 5e-4, r_inner=0.02)
+    fac = pcyl._phi_fac(grid, Material(7800.0, 490.0, 54.0), 1.0, 0.02,
+                        torch.float32, dev)
+    R = torch.rand(grid.shape, device=dev) * 1000.0 + 20.0
+    table = cyclic_const_phi_table(fac, grid.nphi)
+    calls = [lambda: cyclic_const_phi(R, fac, table)]
+    calls += [kern for _, kern, _ in
+              _k15_calls((64, 96, 160), torch.float32, 73)[:2]]
+    for kern in calls:
+        out = kern()                          # builds and loads the library
+        torch.cuda.synchronize()
+        del out
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        out = kern()
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated(dev) - base
+        field = out.numel() * out.element_size()
+        assert field <= rise < 2 * field, (rise, field)
+        del out
 
 
 @pytest.mark.cuda
