@@ -39,7 +39,7 @@ hand for the H100 (csrc/):
 * K12 ``solvers.const_sweeps.const_sweep_strided`` — the constant-row r
   sweep;
 * K13 ``solvers.const_sweeps.const_sweep_z`` — the constant-row sweep
-  along contiguous z;
+  along contiguous z (its rows' factors from ``const_sweep_table``);
 * K14 ``solvers.const_sweeps.cyclic_const_phi`` — the constant-coefficient
   periodic phi solve (its rings' factors from ``cyclic_const_phi_table``);
 * K15 ``solvers.vp2.vp2_sweep_strided`` — the tier-2 r sweep deriving k,

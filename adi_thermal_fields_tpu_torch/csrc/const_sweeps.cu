@@ -20,34 +20,49 @@
 //   inv_i = 1/(b_i - a_i cp_{i-1}),  cp_i = c_i inv_i,
 //   d'_i = (d_i + radd_i - a_i d'_{i-1}) inv_i,  x_i = d'_i - cp_i x_{i+1}.
 // The coefficients depend on the row only (K14: on the ring and the row),
-// so inv and cp are the same for every line.  K12 and K13: one thread of
-// each block computes them into shared memory before the lines start, and
-// each line carries only d'.  K14 also solves the Sherman-Morrison system
+// so inv and cp are the same for every line.  K12: one thread of each
+// block computes them into shared memory before the lines start, and each
+// line carries only d'.  K13 takes them from a table built once by
+// `const_table_kernel` (one thread, _row_factors' order; the step keeps it
+// for its dt), which also records the rows' stiffness ratio.  K14 also
+// solves the Sherman-Morrison system
 // B z = u (a = c = -fac, b = 1 + 2 fac, gamma = -b, b_0 = 2b, b_{n-1} = b
 // - a a/gamma, u = gamma e_0 + a e_{n-1}), so a line carries only y and
 // x = y - z (y_0 + a y_{n-1}/gamma)/(1 + z_0 + a z_{n-1}/gamma); its ring's
 // inv, cp, z and the fix-up's denominator come from a table built once a
 // ring by `cyclic_const_table_kernel` (the step keeps it for its dt).
 //
-// Rounding: K12 and K13 take every operation as one IEEE rounding
+// Rounding: K12 takes every operation as one IEEE rounding
 // (atf::add/sub/mul/div, the _rn intrinsics) in the order of the plain
 // versions in solvers/const_sweeps.py, which compute inv and cp once per
-// row the same way, so kernel and plain version agree bit for bit; so does
-// K14's table.  K14 splits each line across warps (not Thomas order): a
-// few float32 ulp of the output's scale from its plain version (up to 3 on
-// rings whose stiffness ratio 2 fac = (|a| + |c|)/(b - |a| - |c|) stays
-// below 128, up to 10 past 1024 on 4096-row lines; PERF.md section 6).
-// K14 solves the rings past kK14Stiff (a full disk's innermost rings at
-// 0.5 mm cells) in Thomas order, bit for bit.
+// row the same way, so kernel and plain version agree bit for bit; so do
+// K13's and K14's tables.  K13 and K14 split each line across warps (not
+// Thomas order): a few float32 ulp of the output's scale from their plain
+// versions (K14: up to 3 on rings whose stiffness ratio 2 fac = (|a| +
+// |c|)/(b - |a| - |c|) stays below 128, up to 10 past 1024 on 4096-row
+// lines; PERF.md section 6).  K14 solves the rings past kK14Stiff (a full
+// disk's innermost rings at 0.5 mm cells) in Thomas order, bit for bit,
+// and K13 a table past kK13Stiff.
 //
 // What bounds them on the H100: memory.  The byte model (float32) reads rhs
 // 4 and writes x 4 = 8 B/cell (the coefficient vectors add < 0.01 B/cell).
 //   K12: one thread per (phi, z) pencil; adjacent threads read adjacent
 //        addresses.  d' goes through the output (+8 B/cell round trip).
-//   K13: one warp owns 32 pencils and stages [32 pencils x 32 rows] tiles
-//        of rhs, d' and x through shared memory (coalesced, lane = row),
-//        then each lane recurs along its pencil (lane = pencil; padded
-//        pitch); d' goes through the output (K2/K10's design).
+//   K13: a block takes a tile of 32 z lines, contiguous in global memory,
+//        and stages it by cp.async into shared memory (16 bytes a copy,
+//        the chunks XOR-swizzled, where the lines are whole 16-byte
+//        chunks; else 4 or 8 bytes a copy into rows of an odd pitch);
+//        then lane = line and warp = a run of rows, as in K14: the
+//        forward and backward passes with their carries run on the
+//        staged tile, in place, and the tile goes back to global memory
+//        coalesced: the field is read once and written once, the table's
+//        factors come through the read-only cache, and no line divides.
+//        Lines too long to stage (past kK13StageKB of shared memory:
+//        1,600 rows at float32) read their rows from global memory in
+//        each pass, d' through the output (20 B/cell).  Its
+//        first version ran one warp of 32 pencils a block whose lane 0
+//        first formed every row's factors in a serial chain of divisions,
+//        with d' through the output (16 B/cell, ~15 warps an SM).
 //   K14: a tile's lanes are 32 lines adjacent in z of one ring, its warps
 //        consecutive runs of phi rows, kept in registers (lines of up to
 //        32 kK14Warps rows at float32, 16 kK14Warps at float64): the field
@@ -64,7 +79,7 @@
 //        divisions.
 #include <tuple>
 
-#include "common.cuh"
+#include "split_line.cuh"
 
 namespace {
 
@@ -119,86 +134,368 @@ __global__ void __launch_bounds__(256) const_sweep_strided_kernel(
   }
 }
 
-constexpr int kPencils = 32;        // pencils per K13 block (one warp)
-constexpr int kChunk = 32;          // rows per staged tile
-constexpr int kPitch = kChunk + 1;  // padded tile row: conflict-free lanes
+// ---------------------------------------------------------------------------
+// The run-and-carry solve of K13 and K14: a line's rows split into runs, one
+// a warp (lanes = lines).  Forward: a pass from zero gives each run's last
+// l and the row-only multiplier G (the product of -a_i inv_i); the runs'
+// carries chain through shared memory, D = l + G D; a second pass from the
+// run's D gives d'.  Backward: the same with x_i = d'_i - cp_i x_{i+1}
+// (m, and H the product of -cp_i).  No division on a line.
+// ---------------------------------------------------------------------------
 
+// one row of a forward pass: l from the row before, and G
 template <typename T>
-size_t z_smem_bytes(int64_t n) {
-  // the rhs / d' / x tile, then inv and cp
-  return sizeof(T) * (kPencils * kPitch + 2 * n);
+__device__ __forceinline__ void run_forward(T v, T ai, T iv, T& l, T& G) {
+  l = (v - ai * l) * iv;
+  G = G * (-ai * iv);
 }
 
+// one row of a backward pass: m from the row after, and H
 template <typename T>
-__global__ void __launch_bounds__(kPencils) const_sweep_z_kernel(
-    const T* __restrict__ rhs, const T* __restrict__ a,
-    const T* __restrict__ b, const T* __restrict__ c,
-    const T* __restrict__ radd, T* __restrict__ out, int64_t npen,
-    int64_t n) {
-  extern __shared__ __align__(16) unsigned char atf_smem[];
-  T* tile = reinterpret_cast<T*>(atf_smem);
-  T* inv = tile + kPencils * kPitch;
-  T* cp = inv + n;
-  const int lane = threadIdx.x;
-  if (lane == 0) row_factors(a, b, c, n, inv, cp);
-  __syncwarp();
+__device__ __forceinline__ void run_backward(T v, T ci, T& m, T& H) {
+  m = v - ci * m;
+  H = H * -ci;
+}
 
-  const int64_t pen0 = (int64_t)blockIdx.x * kPencils;
-  const int np = (int)atf::imin(kPencils, npen - pen0);
-  const int row = lane * kPitch;
-
-  // forward, chunk by chunk: stage rhs (lane = row), recur (lane =
-  // pencil), write d' (lane = row)
+// the carry into warp w's run: D of the runs before it (sL: their l, 32
+// lines a run; sG: their G)
+template <typename T>
+__device__ __forceinline__ T carry_forward(const T* sL, const T* sG, int w,
+                                           int lane) {
   T dp = T(0);
-  for (int64_t k0 = 0; k0 < n; k0 += kChunk) {
-    const int cz = (int)atf::imin(kChunk, n - k0);
-    if (lane < cz) {
-      for (int q = 0; q < np; ++q) {
-        tile[q * kPitch + lane] = rhs[(pen0 + q) * n + k0 + lane];
-      }
-    }
-    __syncwarp();
-    if (lane < np) {
-      for (int j = 0; j < cz; ++j) {
-        const int64_t i = k0 + j;
-        dp = forward(tile[row + j], __ldg(radd + i), __ldg(a + i), inv[i],
-                     dp);
-        tile[row + j] = dp;
-      }
-    }
-    __syncwarp();
-    if (lane < cz) {
-      for (int q = 0; q < np; ++q) {
-        out[(pen0 + q) * n + k0 + lane] = tile[q * kPitch + lane];
-      }
-    }
-    __syncwarp();
-  }
+#pragma unroll 4
+  for (int v = 0; v < w; ++v) dp = sL[v * 32 + lane] + sG[v] * dp;
+  return dp;
+}
 
-  // back substitution, last chunk first
-  T x = T(0);
-  for (int64_t k0 = (n - 1) / kChunk * kChunk; k0 >= 0; k0 -= kChunk) {
-    const int cz = (int)atf::imin(kChunk, n - k0);
-    if (lane < cz) {
-      for (int q = 0; q < np; ++q) {
-        tile[q * kPitch + lane] = out[(pen0 + q) * n + k0 + lane];
-      }
-    }
-    __syncwarp();
-    if (lane < np) {
-      for (int j = cz - 1; j >= 0; --j) {
-        x = sub(tile[row + j], mul(cp[k0 + j], x));
-        tile[row + j] = x;
-      }
-    }
-    __syncwarp();
-    if (lane < cz) {
-      for (int q = 0; q < np; ++q) {
-        out[(pen0 + q) * n + k0 + lane] = tile[q * kPitch + lane];
-      }
-    }
-    __syncwarp();
+// the backward chain over the W runs, last first: y_in (the carry into
+// warp w's run, from the runs after it) and, returned, y at row 0
+template <typename T>
+__device__ __forceinline__ T carry_backward(const T* sM, const T* sH, int w,
+                                            int W, int lane, T& y_in) {
+  T y = T(0);
+#pragma unroll 4
+  for (int v = W - 1; v >= 0; --v) {
+    if (v == w) y_in = y;
+    y = sM[v * 32 + lane] + sH[v] * y;
   }
+  return y;
+}
+
+// ---------------------------------------------------------------------------
+// K13: the constant-row z sweep
+// ---------------------------------------------------------------------------
+//
+// Its table (`const_table_kernel`, one thread, _row_factors' order): inv
+// and cp (n values each), then kK13Tail values: the rows' stiffness ratio,
+// the largest (|a_i| + |c_i|)/(b_i - |a_i| - |c_i|) (a_0 and c_{n-1} do
+// not count; infinity where the denominator is not positive).
+constexpr int kK13Tail = 1;
+
+// K13's stiffness ratio: a table past it is solved in Thomas order, bit
+// for bit const_sweep_z_plain.  1024: with every table split, over five
+// seeds and dt x1-100 on chip_smoke.py phase 7's shapes, the spiral app's
+// z rows and 8192-row lines (scripts/cyl_be_tune.py, PERF.md section 6),
+// tables below 1024 stayed within 5.3 float32 ulp of scale of the plain
+// version (the gate is 8), those of 1130 and 2261 reached 6.1 and 6.8;
+// the plain version lay as far from the float64 solve as the split one.
+// The steps' tables sit at 2.3 (phase 7) and 22.6 (the spiral app).
+constexpr double kK13Stiff = 1024.0;
+
+// The block's warps (at most: every warp takes at least one row), the
+// unrolling of its passes and the most shared memory a staged tile may
+// take.
+constexpr int kK13Warps = 16;
+constexpr int kK13Unroll = 8;
+constexpr int kK13StageKB = 200;
+
+template <typename T>
+__global__ void const_table_kernel(const T* __restrict__ a,
+                                   const T* __restrict__ b,
+                                   const T* __restrict__ c,
+                                   T* __restrict__ tab, int64_t n) {
+  if (blockIdx.x != 0 || threadIdx.x != 0) return;
+  row_factors(a, b, c, n, tab, tab + n);
+  T ratio = T(0);
+  for (int64_t i = 0; i < n; ++i) {
+    const T off = add(i == 0 ? T(0) : fabs(a[i]),
+                      i == n - 1 ? T(0) : fabs(c[i]));
+    const T den = sub(b[i], off);
+    const T r = den > T(0) ? div(off, den) : T(INFINITY);
+    ratio = r > ratio ? r : ratio;
+  }
+  tab[2 * n] = ratio;
+}
+
+// A tile: 32 lines (the lanes; pen0 its first), warp w taking rows [w R,
+// (w + 1) R).  kStaged: the tile is staged into shared memory by cp.async
+// (line q's row i at q * pitch + i, pitch = n | 1: odd, so that the
+// lanes' rows fall in distinct banks), solved there in place and stored
+// back coalesced; else each pass reads the rows from global memory and d'
+// goes through the output.  A table past kK13Stiff: warp 0 marches each
+// line in Thomas order with forward's and the back substitution's
+// roundings (the plain version's).  A block a tile: the blocks an SM (three
+// at 512 rows) load, solve and store out of phase, which kept the memory
+// busier than persistent blocks that stage their next tile while solving
+// this one (one block an SM; PERF.md section 6).
+template <typename T, bool kStaged>
+__global__ void __launch_bounds__(32 * kK13Warps)
+    const_sweep_z_kernel(const T* __restrict__ rhs, const T* __restrict__ a,
+                         const T* __restrict__ radd,
+                         const T* __restrict__ tab, T* __restrict__ out,
+                         int64_t npen, int64_t n, int R) {
+  extern __shared__ __align__(16) unsigned char atf_smem[];
+  __shared__ T sL[32 * kK13Warps], sM[32 * kK13Warps], sG[kK13Warps],
+      sH[kK13Warps];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int W = blockDim.x >> 5;
+  const int64_t pen0 = (int64_t)blockIdx.x * 32;
+  const int np = (int)atf::imin(32, npen - pen0);
+  const bool valid = lane < np;
+  const int64_t pitch = n | 1;
+  T* tile = reinterpret_cast<T*>(atf_smem);
+  // each thread's elements of the tile's np lines, in global order
+  auto tile_loop = [&](auto&& f) {
+    int64_t q = 0, i = threadIdx.x;
+    while (i >= n) {
+      i -= n;
+      ++q;
+    }
+    while (q < np) {
+      f(q, i);
+      i += blockDim.x;
+      while (i >= n) {
+        i -= n;
+        ++q;
+      }
+    }
+  };
+  if constexpr (kStaged) {
+    tile_loop([&](int64_t q, int64_t i) {
+      stage(tile + q * pitch + i, rhs + (pen0 + q) * n + i);
+    });
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  const T* src = kStaged ? tile + lane * pitch : rhs + (pen0 + lane) * n;
+  T* dst = kStaged ? tile + lane * pitch : out + (pen0 + lane) * n;
+  const T* inv = tab;
+  const T* cp = tab + n;
+
+  if (__ldg(tab + 2 * n) > T(kK13Stiff)) {       // Thomas order
+    if (w == 0 && valid) {
+      T dp = T(0);
+      for (int64_t i = 0; i < n; ++i) {
+        dp = forward(src[i], __ldg(radd + i), __ldg(a + i), __ldg(inv + i),
+                     dp);
+        dst[i] = dp;
+      }
+      T x = T(0);
+      for (int64_t i = n - 1; i >= 0; --i) {
+        x = sub(dst[i], mul(__ldg(cp + i), x));
+        dst[i] = x;
+      }
+    }
+  } else {
+    const int64_t i0 = (int64_t)w * R;
+    const int64_t i1 = atf::imin(n, i0 + R);
+    auto coef = [&](int64_t i) { return i == 0 ? T(0) : __ldg(a + i); };
+    T l = T(0), G = T(1);                        // forward from zero
+#pragma unroll kK13Unroll
+    for (int64_t i = i0; i < i1; ++i) {
+      run_forward(valid ? src[i] + __ldg(radd + i) : T(0), coef(i),
+                  __ldg(inv + i), l, G);
+    }
+    sL[threadIdx.x] = l;
+    if (lane == 0) sG[w] = G;
+    __syncthreads();
+    T dp = carry_forward(sL, sG, w, lane);       // forward again: d'
+    if (valid) {
+#pragma unroll kK13Unroll
+      for (int64_t i = i0; i < i1; ++i) {
+        dp = (src[i] + __ldg(radd + i) - coef(i) * dp) * __ldg(inv + i);
+        dst[i] = dp;
+      }
+    }
+    T m = T(0), H = T(1);                        // backward from zero
+#pragma unroll kK13Unroll
+    for (int64_t i = i1 - 1; i >= i0; --i) {
+      run_backward(valid ? dst[i] : T(0), __ldg(cp + i), m, H);
+    }
+    sM[threadIdx.x] = m;
+    if (lane == 0) sH[w] = H;
+    __syncthreads();
+    T y = T(0);                                  // backward again: x
+    carry_backward(sM, sH, w, W, lane, y);
+    if (valid) {
+#pragma unroll kK13Unroll
+      for (int64_t i = i1 - 1; i >= i0; --i) {
+        y = dst[i] - __ldg(cp + i) * y;
+        dst[i] = y;
+      }
+    }
+  }
+  if constexpr (kStaged) {                       // the tile back, coalesced
+    __syncthreads();
+    tile_loop([&](int64_t q, int64_t i) {
+      out[(pen0 + q) * n + i] = tile[q * pitch + i];
+    });
+  }
+}
+
+// 16 bytes of a line: V = 4 float32 or 2 float64 rows.
+template <typename T>
+struct alignas(16) Rows16 {
+  static constexpr int V = 16 / sizeof(T);
+  T v[V];
+};
+
+// chunk c of a (16-byte aligned) vector through the read-only cache
+template <typename T>
+__device__ __forceinline__ Rows16<T> ld16(const T* p, int64_t c) {
+  Rows16<T> r;
+  if constexpr (sizeof(T) == 4) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p) + c);
+    r.v[0] = x.x;
+    r.v[1] = x.y;
+    r.v[2] = x.z;
+    r.v[3] = x.w;
+  } else {
+    const double2 x = __ldg(reinterpret_cast<const double2*>(p) + c);
+    r.v[0] = x.x;
+    r.v[1] = x.y;
+  }
+  return r;
+}
+
+// K13 on lines of a whole number of 16-byte chunks (n a multiple of V,
+// every vector 16-byte aligned): const_sweep_z_kernel's solve, in the same
+// order, on a tile staged 16 bytes a copy.  Line q's chunk c lies at q *
+// pc + (c ^ (q & 7)) (pc: the chunks a line, rounded up to 8): XOR-swizzled
+// within its group of eight, so that the eight lanes of a quarter warp,
+// reading one chunk each of eight lines, hit distinct banks; each pass
+// reads and writes a chunk (V rows) at a time, and takes the coefficients
+// a chunk at a time too.  Runs are whole chunks (R a multiple of V).
+template <typename T>
+__global__ void __launch_bounds__(32 * kK13Warps)
+    const_sweep_z_vec_kernel(const T* __restrict__ rhs,
+                             const T* __restrict__ a,
+                             const T* __restrict__ radd,
+                             const T* __restrict__ tab, T* __restrict__ out,
+                             int64_t npen, int64_t n, int R) {
+  using C16 = Rows16<T>;
+  constexpr int V = C16::V;
+  extern __shared__ __align__(16) unsigned char atf_smem[];
+  __shared__ T sL[32 * kK13Warps], sM[32 * kK13Warps], sG[kK13Warps],
+      sH[kK13Warps];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int W = blockDim.x >> 5;
+  const int64_t pen0 = (int64_t)blockIdx.x * 32;
+  const int np = (int)atf::imin(32, npen - pen0);
+  const int64_t nc = n / V;
+  const int64_t pc = atf::cdiv(nc, 8) * 8;
+  C16* tile = reinterpret_cast<C16*>(atf_smem);
+  auto at = [&](int64_t q, int64_t c) { return q * pc + (c ^ (q & 7)); };
+  // each thread's chunks of the tile's np lines, in global order
+  auto chunk_loop = [&](auto&& f) {
+    int64_t q = 0, c = threadIdx.x;
+    while (c >= nc) {
+      c -= nc;
+      ++q;
+    }
+    while (q < np) {
+      f(q, c);
+      c += blockDim.x;
+      while (c >= nc) {
+        c -= nc;
+        ++q;
+      }
+    }
+  };
+  chunk_loop([&](int64_t q, int64_t c) {
+    cp_async(tile + at(q, c), rhs + (pen0 + q) * n + c * V, 16);
+  });
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const T* inv = tab;
+  const T* cp = tab + n;
+
+  if (__ldg(tab + 2 * n) > T(kK13Stiff)) {       // Thomas order
+    if (w == 0 && lane < np) {
+      auto el = [&](int64_t i) -> T& {
+        return tile[at(lane, i / V)].v[i % V];
+      };
+      T dp = T(0);
+      for (int64_t i = 0; i < n; ++i) {
+        dp = forward(el(i), __ldg(radd + i), __ldg(a + i), __ldg(inv + i),
+                     dp);
+        el(i) = dp;
+      }
+      T x = T(0);
+      for (int64_t i = n - 1; i >= 0; --i) {
+        x = sub(el(i), mul(__ldg(cp + i), x));
+        el(i) = x;
+      }
+    }
+  } else {
+    const int64_t c0 = (int64_t)w * (R / V);
+    const int64_t c1 = atf::imin(nc, c0 + R / V);
+    auto coef = [&](const C16& av, int64_t c, int k) {
+      return c == 0 && k == 0 ? T(0) : av.v[k];
+    };
+    T l = T(0), G = T(1);                        // forward from zero
+    for (int64_t c = c0; c < c1; ++c) {
+      const C16 x = tile[at(lane, c)], ra = ld16(radd, c), av = ld16(a, c),
+                iv = ld16(inv, c);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        run_forward(x.v[k] + ra.v[k], coef(av, c, k), iv.v[k], l, G);
+      }
+    }
+    sL[threadIdx.x] = l;
+    if (lane == 0) sG[w] = G;
+    __syncthreads();
+    T dp = carry_forward(sL, sG, w, lane);       // forward again: d'
+    for (int64_t c = c0; c < c1; ++c) {
+      C16 x = tile[at(lane, c)];
+      const C16 ra = ld16(radd, c), av = ld16(a, c), iv = ld16(inv, c);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        dp = (x.v[k] + ra.v[k] - coef(av, c, k) * dp) * iv.v[k];
+        x.v[k] = dp;
+      }
+      tile[at(lane, c)] = x;
+    }
+    T m = T(0), H = T(1);                        // backward from zero
+    for (int64_t c = c1 - 1; c >= c0; --c) {
+      const C16 x = tile[at(lane, c)], cv = ld16(cp, c);
+#pragma unroll
+      for (int k = V - 1; k >= 0; --k) run_backward(x.v[k], cv.v[k], m, H);
+    }
+    sM[threadIdx.x] = m;
+    if (lane == 0) sH[w] = H;
+    __syncthreads();
+    T y = T(0);                                  // backward again: x
+    carry_backward(sM, sH, w, W, lane, y);
+    for (int64_t c = c1 - 1; c >= c0; --c) {
+      C16 x = tile[at(lane, c)];
+      const C16 cv = ld16(cp, c);
+#pragma unroll
+      for (int k = V - 1; k >= 0; --k) {
+        y = x.v[k] - cv.v[k] * y;
+        x.v[k] = y;
+      }
+      tile[at(lane, c)] = x;
+    }
+  }
+  __syncthreads();                               // the tile back, coalesced
+  chunk_loop([&](int64_t q, int64_t c) {
+    reinterpret_cast<C16*>(out + (pen0 + q) * n)[c] = tile[at(q, c)];
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -302,12 +599,8 @@ constexpr int kK14Blocks = 1;
 // A tile: 32 lines adjacent in z (the lanes) of one ring, the block's W
 // warps taking consecutive runs of R*M phi rows (kRegs: R = 1, the rows
 // kept in registers; else each pass reads them again, d' through the
-// output).  Each line: a forward pass from zero gives the run's last l and
-// the row-only multiplier G (the product of -a_i inv_i); the runs' carries
-// chain through shared memory, D = l + G D (w multiply-adds); a second
-// forward pass from D gives d'.  The backward pass does the same with
-// x_i = d'_i - cp_i x_{i+1} (m, and H the product of -cp_i), the last
-// chain ending at y_0; y_{n-1} = d'_{n-1} comes from the last warp.  Then
+// output), solved by run and carry (above), the backward chain ending at
+// y_0; y_{n-1} = d'_{n-1} comes from the last warp.  Then
 // x = y - fact z with fact = (y_0 + e y_{n-1}) / den: no division on a
 // line.  A ring past kK14Stiff goes to the Thomas order instead.  The
 // blocks are persistent (as many as fit on the card), each walking tiles
@@ -380,19 +673,14 @@ __global__ void __launch_bounds__(32 * kK14Warps, kK14Blocks)
           } else {
             v = load(i);
           }
-          const T iv = __ldg(inv + i);
-          const T ai = i == 0 ? T(0) : a;
-          l = (v - ai * l) * iv;
-          G = G * (-ai * iv);
+          run_forward(v, i == 0 ? T(0) : a, __ldg(inv + i), l, G);
         }
       }
     }
     sL[threadIdx.x] = l;
     if (lane == 0) sG[w] = G;
     __syncthreads();
-    T dp = T(0);                                 // D of the runs before
-#pragma unroll 4
-    for (int v = 0; v < w; ++v) dp = sL[v * 32 + lane] + sG[v] * dp;
+    T dp = carry_forward(sL, sG, w, lane);       // D of the runs before
     bool last = false;
     for (int r = 0; r < R; ++r) {                // forward again: d'
 #pragma unroll
@@ -430,21 +718,15 @@ __global__ void __launch_bounds__(32 * kK14Warps, kK14Blocks)
           } else {
             v = valid ? out[base + i * B2] : T(0);
           }
-          const T ci = __ldg(cp + i);
-          m = v - ci * m;
-          H = H * -ci;
+          run_backward(v, __ldg(cp + i), m, H);
         }
       }
     }
     sM[threadIdx.x] = m;
     if (lane == 0) sH[w] = H;
     __syncthreads();
-    T y = T(0), y_in = T(0);                     // the chain down to y_0
-#pragma unroll 4
-    for (int v = W - 1; v >= 0; --v) {
-      if (v == w) y_in = y;
-      y = sM[v * 32 + lane] + sH[v] * y;
-    }
+    T y_in = T(0);                               // the chain down to y_0
+    T y = carry_backward(sM, sH, w, W, lane, y_in);
     const T fact = (y + __ldg(tr + 3 * n + 1) * sYn[lane]) *
                    __ldg(tr + 3 * n + 2);
     y = y_in;                                    // backward again: x
@@ -482,17 +764,58 @@ void launch_const_sweep_strided(const void* rhs, const void* a,
       static_cast<const T*>(radd), static_cast<T*>(out), n, B);
 }
 
+// K13: lines of n rows split into runs over W warps; the tile staged where
+// it takes at most kK13StageKB (and the card's limit) of shared memory, 16
+// bytes a copy where the lines and vectors allow it.
 template <typename T>
-void launch_const_sweep_z(const void* rhs, const void* a, const void* b,
-                          const void* c, const void* radd, void* out,
-                          int64_t npen, int64_t n, cudaStream_t stream) {
-  const int64_t blocks = atf::cdiv(npen, kPencils);
-  const size_t smem = z_smem_bytes<T>(n);
-  atf::allow_dynamic_smem(const_sweep_z_kernel<T>, smem);
-  const_sweep_z_kernel<T><<<(unsigned)blocks, kPencils, smem, stream>>>(
-      static_cast<const T*>(rhs), static_cast<const T*>(a),
-      static_cast<const T*>(b), static_cast<const T*>(c),
-      static_cast<const T*>(radd), static_cast<T*>(out), npen, n);
+cudaError_t launch_const_sweep_z(const void* rhs, const void* a,
+                                 const void* radd, const void* tab,
+                                 void* out, int64_t npen, int64_t n,
+                                 int device, cudaStream_t stream) {
+  constexpr int V = Rows16<T>::V;
+  const unsigned blocks = (unsigned)atf::cdiv(npen, 32);
+  const size_t limit = atf::imin(smem_limit(device), kK13StageKB * 1024);
+  auto* r = static_cast<const T*>(rhs);
+  auto* av = static_cast<const T*>(a);
+  auto* ra = static_cast<const T*>(radd);
+  auto* t = static_cast<const T*>(tab);
+  auto* o = static_cast<T*>(out);
+  auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  const size_t vec_smem = 16 * 32 * (size_t)(atf::cdiv(n / V, 8) * 8);
+  if (n % V == 0 && aligned(rhs) && aligned(a) && aligned(radd) &&
+      aligned(tab) && aligned(out) && vec_smem <= limit) {
+    const int R = (int)(atf::cdiv(atf::cdiv(n, kK13Warps), V) * V);
+    const int W = (int)atf::cdiv(n, R);
+    auto* kernel = const_sweep_z_vec_kernel<T>;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)vec_smem);
+    kernel<<<blocks, 32 * W, vec_smem, stream>>>(r, av, ra, t, o, npen, n,
+                                                 R);
+    return cudaSuccess;
+  }
+  const int R = (int)atf::cdiv(n, atf::imin(kK13Warps, n));
+  const int W = (int)atf::cdiv(n, R);             // every warp a row or more
+  const size_t smem = sizeof(T) * 32 * (size_t)(n | 1);
+  if (smem <= limit) {
+    auto* kernel = const_sweep_z_kernel<T, true>;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    kernel<<<blocks, 32 * W, smem, stream>>>(r, av, ra, t, o, npen, n, R);
+  } else {
+    const_sweep_z_kernel<T, false><<<blocks, 32 * W, 0, stream>>>(
+        r, av, ra, t, o, npen, n, R);
+  }
+  return cudaSuccess;
+}
+
+template <typename T>
+void launch_const_table(const void* a, const void* b, const void* c,
+                        void* tab, int64_t n, cudaStream_t stream) {
+  const_table_kernel<T><<<1, 32, 0, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b),
+      static_cast<const T*>(c), static_cast<T*>(tab), n);
 }
 
 template <typename T, int M, bool kRegs>
@@ -564,12 +887,22 @@ ATF_API int atf_const_sweep_strided(int dtype, int device, const void* rhs,
 }
 
 ATF_API int atf_const_sweep_z(int dtype, int device, const void* rhs,
-                              const void* a, const void* b, const void* c,
-                              const void* radd, void* out, int64_t npen,
+                              const void* a, const void* radd,
+                              const void* tab, void* out, int64_t npen,
                               int64_t n, void* stream) {
   ATF_DISPATCH(dtype, device,
-               launch_const_sweep_z<T>(rhs, a, b, c, radd, out, npen, n,
-                                       (cudaStream_t)stream));
+               ATF_RETURN_IF(launch_const_sweep_z<T>(
+                   rhs, a, radd, tab, out, npen, n, device,
+                   (cudaStream_t)stream)));
+}
+
+// K13's table, 2n + kK13Tail values.
+ATF_API int atf_const_sweep_table(int dtype, int device, const void* a,
+                                  const void* b, const void* c, void* tab,
+                                  int64_t n, void* stream) {
+  ATF_DISPATCH(dtype, device,
+               launch_const_table<T>(a, b, c, tab, n,
+                                     (cudaStream_t)stream));
 }
 
 ATF_API int atf_cyclic_const_phi(int dtype, int device, const void* rhs,

@@ -26,10 +26,11 @@
 // couplings (row 0's a, row n-1's c) come out by Sherman-Morrison in the
 // gauge of cyclic_thomas (gamma = -b_0, beta = a_0, alpha = c_{n-1}).
 //
-// Rounding: K9 repeats its plain version's operations (the row formulas
-// of solvers/masked.py, then thomas: divisions, not reciprocal
+// Rounding: K9's march repeats its plain version's operations (the row
+// formulas of solvers/masked.py, then thomas: divisions, not reciprocal
 // multiplies) one IEEE rounding at a time, with the _rn intrinsics, which
-// nvcc never contracts into an FMA: bit for bit.  K10 and K11 form their
+// nvcc never contracts into an FMA: bit for bit.  K9's longer lines, K10
+// and K11 form their
 // rows so too, but solve them split across threads (below), which parts
 // from the Thomas order by about the condition number times a rounding.
 // K11: up to 6 float32 ulp of the output's scale on rings whose rows stay
@@ -40,11 +41,17 @@
 //
 // What bounds them on the H100: memory.  The byte model (float32) reads
 // rhs 4 + code 1 + sink 4 + srhs 4 and writes x 4 = 17 B/cell per sweep.
-//   K9:  one thread per (phi, z) pencil; adjacent threads read adjacent
-//        addresses, so every row load is coalesced.  c' lives in the output
-//        and d' in a scratch field (K1's design): +16 B/cell of global
-//        round trip.  glo[i]/ghi[i] are the same for every thread of a row
-//        (broadcast loads through the read-only cache).
+//   K9:  one thread per (phi, z) pencil on lines of up to kK9MarchRows
+//        rows (the r lines of every cylindrical configuration in the repo
+//        are 64 rows or fewer): adjacent threads take adjacent lines, so
+//        every row load is coalesced; kK9MarchGroup rows' loads go out
+//        together; c' stays in shared memory and d' in registers (the rows
+//        unrolled to a compile-time maximum), so the field is read once
+//        and x written once: 17 B/cell.  glo[i]/ghi[i] are the same for
+//        every thread of a row (broadcast loads through the read-only
+//        cache).  Longer lines: the core's strided split kernel on
+//        `MaskedRows` (K10's long lines' path), float32 blocks past
+//        kK10Stiff replayed in Thomas order.
 //   K10: the staged split-line kernel of csrc/split_staged.cuh (K19's
 //        layout): a warp a line, its lanes the line's chunks (32 rows a
 //        lane on the tube's 1,024-row lines, one chunk a lane, the
@@ -114,33 +121,6 @@ __device__ __forceinline__ void eliminate(T a, T b, T c, T d, T& cp,
   const T denom = sub(b, mul(a, cp));
   cp = div(c, denom);
   dp = div(sub(d, mul(a, dp)), denom);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(256) masked_sweep_strided_kernel(
-    const T* __restrict__ rhs, const uint8_t* __restrict__ code,
-    const T* __restrict__ sink, const T* __restrict__ srhs,
-    const T* __restrict__ glo, const T* __restrict__ ghi,
-    T* __restrict__ out, T* __restrict__ dpbuf, int64_t n, int64_t B, T fac,
-    T ambient) {
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= B) return;
-  T cp = T(0), dp = T(0);
-  for (int64_t i = 0; i < n; ++i) {
-    const int64_t off = i * B + p;
-    T a, b, c, d;
-    masked_row<T>(code[off], __ldg(glo + i), __ldg(ghi + i), sink[off],
-                  rhs[off], srhs[off], fac, ambient, a, b, c, d);
-    eliminate(a, b, c, d, cp, dp);
-    out[off] = cp;
-    dpbuf[off] = dp;
-  }
-  T x = T(0);
-  for (int64_t i = n - 1; i >= 0; --i) {
-    const int64_t off = i * B + p;
-    x = sub(dpbuf[off], mul(out[off], x));
-    out[off] = x;
-  }
 }
 
 // K10's stiffness ratio (csrc/field_rows.cuh): at float32 a line with a
@@ -296,21 +276,130 @@ struct MaskedCyclicRows {
   }
 };
 
+// K9's march (lines of up to kK9MarchRows rows, a thread a line): the
+// rows unrolled to NR, a compile-time maximum (8, 16, 32, 64 or 128 rows),
+// d' in NR registers, c' in shared memory (blockDim.x * n values a block),
+// kK9MarchThreads threads a block, registers held to kK9MarchBlocks
+// blocks an SM at float32 (125 registers at 64 rows; kK9MarchBlocks64 at
+// float64, 214).  kK9MarchRows: where the march and the split kernel cross
+// on the H100 (PERF.md section 6; scripts/cyl_be_tune.py --crossover,
+// n-row r lines of tubes of phase 6's kind, ~2^25 cells): the march 0.366
+// and 0.371 ms at 37 and 64 rows against the split kernel's 0.523 and
+// 0.441, then 1.07-1.17 against 0.43-0.52 from 72 to 128 rows (its 128
+// registers of d' leave one block an SM).  On the tube, 128 threads and
+// four blocks an SM, or an L2 prefetch of the rows a group ahead, took
+// the same time within the noise (0.36-0.37 ms).
+constexpr int kK9MarchRows = 64;
+constexpr int kK9MarchThreads = 256;
+constexpr int kK9MarchGroup = 4;
+constexpr int kK9MarchBlocks = 2;
+constexpr int kK9MarchBlocks64 = 1;
+static_assert(kK9MarchRows <= 128, "d' of a line in at most 128 registers");
+
+// At float64 the march takes lines of up to 64 rows (128 doubles of d'
+// would not fit in a thread's 255 registers).  kBlocks: the blocks an SM
+// the registers of a march of NR rows are held to (one past 64 rows).
+template <typename T, int NR = 0>
+struct K9March {
+  static constexpr int kRows =
+      sizeof(T) == 4 || kK9MarchRows < 64 ? kK9MarchRows : 64;
+  static constexpr int kBlocks = NR > 64         ? 1
+                                 : sizeof(T) == 4 ? kK9MarchBlocks
+                                                  : kK9MarchBlocks64;
+};
+
+// B lines of n <= NR rows B apart (masked_row's rows, thomas's order:
+// eliminate), a thread a line.  The forward pass takes kK9MarchGroup rows
+// at a time, and loads the next group's inputs (the code, sink, rhs and
+// srhs) before it eliminates this group's rows, so that the memory's
+// latency is met once a group and hidden behind the divisions; the
+// backward pass reads c' from shared memory and d' from registers and
+// writes x: nothing of the solve but x goes to global memory.
+template <typename T, int NR>
+__global__ void __launch_bounds__(kK9MarchThreads, K9March<T, NR>::kBlocks)
+    masked_march_kernel(const __grid_constant__ MaskedRows<T> rows,
+                        T* __restrict__ out, int64_t n, int64_t B) {
+  constexpr int G = kK9MarchGroup;
+  static_assert(NR % G == 0, "whole groups of rows");
+  extern __shared__ __align__(16) unsigned char atf_smem[];
+  T* cps = reinterpret_cast<T*>(atf_smem) + threadIdx.x;
+  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= B) return;
+  unsigned cd[2][G];
+  T sk[2][G], r[2][G], sr[2][G];
+  auto load = [&](int i0, int s) {               // a group's inputs
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const int64_t off = (int64_t)(i0 + k) * B + p;
+      if (i0 + k < n) {
+        cd[s][k] = __ldg(rows.code + off);
+        sk[s][k] = __ldg(rows.sink + off);
+        r[s][k] = __ldg(rows.rhs + off);
+        sr[s][k] = __ldg(rows.srhs + off);
+      }
+    }
+  };
+  T cp = T(0), dp = T(0), dps[NR];
+  load(0, 0);
+#pragma unroll
+  for (int i0 = 0; i0 < NR; i0 += G) {
+    if (i0 < n) {
+      const int s = (i0 / G) & 1;
+      if (i0 + G < NR) load(i0 + G, s ^ 1);     // the next group's loads
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        const int i = i0 + k;
+        if (i < n) {
+          T a, b, c, d;
+          masked_row<T>(cd[s][k], __ldg(rows.glo + i), __ldg(rows.ghi + i),
+                        sk[s][k], r[s][k], sr[s][k], rows.fac,
+                        rows.ambient, a, b, c, d);
+          eliminate(a, b, c, d, cp, dp);
+          cps[i * blockDim.x] = cp;
+          dps[i] = dp;
+        }
+      }
+    }
+  }
+  T x = T(0);
+#pragma unroll
+  for (int i = NR - 1; i >= 0; --i) {
+    if (i < n) {
+      x = sub(dps[i], mul(cps[i * blockDim.x], x));
+      out[(int64_t)i * B + p] = x;
+    }
+  }
+}
+
+template <typename T, int NR>
+cudaError_t launch_masked_march(const MaskedRows<T>& rows, T* out, int64_t n,
+                                int64_t B, cudaStream_t stream) {
+  const int threads = kK9MarchThreads;
+  const size_t smem = sizeof(T) * threads * (size_t)n;
+  auto* kernel = masked_march_kernel<T, NR>;
+  atf::allow_dynamic_smem(kernel, smem);
+  kernel<<<(unsigned)atf::cdiv(B, threads), threads, smem, stream>>>(
+      rows, out, n, B);
+  return cudaSuccess;
+}
+
+// K9: the (n, B) field's lines along axis 0, the march up to
+// K9March<T>::kRows rows, the strided split kernel past it.
 template <typename T>
-void launch_masked_sweep_strided(const void* rhs, const void* code,
-                                 const void* sink, const void* srhs,
-                                 const void* glo, const void* ghi, void* out,
-                                 void* scratch, int64_t n, int64_t B,
-                                 double fac, double ambient,
-                                 cudaStream_t stream) {
-  const int threads = 256;
-  const int64_t blocks = atf::cdiv(B, threads);
-  masked_sweep_strided_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const T*>(rhs), static_cast<const uint8_t*>(code),
-      static_cast<const T*>(sink), static_cast<const T*>(srhs),
-      static_cast<const T*>(glo), static_cast<const T*>(ghi),
-      static_cast<T*>(out), static_cast<T*>(scratch), n, B, (T)fac,
-      (T)ambient);
+cudaError_t launch_masked_sweep_strided(const MaskedRows<T>& rows, T* out,
+                                        int64_t n, int64_t B, int device,
+                                        cudaStream_t stream) {
+  if (n <= K9March<T>::kRows) {
+    if (n <= 8) return launch_masked_march<T, 8>(rows, out, n, B, stream);
+    if (n <= 16) return launch_masked_march<T, 16>(rows, out, n, B, stream);
+    if (n <= 32) return launch_masked_march<T, 32>(rows, out, n, B, stream);
+    if (n <= 64) return launch_masked_march<T, 64>(rows, out, n, B, stream);
+    if constexpr (K9March<T>::kRows > 64) {
+      return launch_masked_march<T, 128>(rows, out, n, B, stream);
+    }
+  }
+  // lines 1 apart, rows B apart
+  return launch_split_strided<T>(rows, out, 1, n, B, 1, B, device, stream);
 }
 
 }  // namespace
@@ -318,15 +407,20 @@ void launch_masked_sweep_strided(const void* rhs, const void* code,
 ATF_API int atf_masked_sweep_strided(int dtype, int device, const void* rhs,
                                      const void* code, const void* sink,
                                      const void* srhs, const void* glo,
-                                     const void* ghi, void* out,
-                                     void* scratch, int64_t n, int64_t B,
-                                     double fac, double ambient,
+                                     const void* ghi, void* out, int64_t n,
+                                     int64_t B, double fac, double ambient,
                                      void* stream) {
   ATF_DISPATCH(dtype, device,
-               launch_masked_sweep_strided<T>(rhs, code, sink, srhs, glo,
-                                              ghi, out, scratch, n, B, fac,
-                                              ambient,
-                                              (cudaStream_t)stream));
+               ATF_RETURN_IF((launch_masked_sweep_strided<T>(
+                   MaskedRows<T>{static_cast<const T*>(rhs),
+                                 static_cast<const uint8_t*>(code),
+                                 static_cast<const T*>(sink),
+                                 static_cast<const T*>(srhs),
+                                 static_cast<const T*>(glo),
+                                 static_cast<const T*>(ghi), (T)fac,
+                                 (T)ambient},
+                   static_cast<T*>(out), n, B, device,
+                   (cudaStream_t)stream))));
 }
 
 ATF_API int atf_masked_sweep_z(int dtype, int device, const void* rhs,

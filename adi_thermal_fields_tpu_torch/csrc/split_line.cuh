@@ -453,16 +453,20 @@ __device__ __forceinline__ void block_reduced_warps(C* A, C* Cc, C* D,
   }
 }
 
-// Staging for the kernels that own a line per warp (K2, K8): cp.async
-// copies into shared memory, and the padded layout of a group of W lines.
+// Staging for the kernels that own a line per warp (K2, K8; K13's tiles):
+// cp.async copies of 4, 8 or 16 bytes into shared memory, and the padded
+// layout of a group of W lines.
 __device__ __forceinline__ void cp_async(void* smem, const void* gmem,
                                          int bytes) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   if (bytes == 4) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                  "l"(gmem));
-  } else {
+  } else if (bytes == 8) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(gmem));
+  } else {                                       // 16 bytes, past the L1
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                  "l"(gmem));
   }
 }

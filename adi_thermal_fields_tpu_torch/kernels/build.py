@@ -72,13 +72,14 @@ _SIGNATURES = {
                                    _I64, _P], _I),
     "atf_gstream_sweep_z": ([_I, _I, *[_P] * 6, _I64, _I64, _D, _I64, _P],
                             _I),
-    "atf_masked_sweep_strided": ([_I, _I, *[_P] * 8, _I64, _I64, _D, _D,
+    "atf_masked_sweep_strided": ([_I, _I, *[_P] * 7, _I64, _I64, _D, _D,
                                   _P], _I),
     "atf_masked_sweep_z": ([_I, _I, *[_P] * 8, _I64, _I64, _D, _D, _P], _I),
     "atf_masked_cyclic_phi": ([_I, _I, *[_P] * 6, _I64, _I64, _I64, _D, _D,
                                _P], _I),
     "atf_const_sweep_strided": ([_I, _I, *[_P] * 6, _I64, _I64, _P], _I),
-    "atf_const_sweep_z": ([_I, _I, *[_P] * 6, _I64, _I64, _P], _I),
+    "atf_const_sweep_z": ([_I, _I, *[_P] * 5, _I64, _I64, _P], _I),
+    "atf_const_sweep_table": ([_I, _I, *[_P] * 4, _I64, _P], _I),
     "atf_cyclic_const_phi": ([_I, _I, *[_P] * 4, _I64, _I64, _I64, _P], _I),
     "atf_cyclic_const_table": ([_I, _I, _P, _P, _I64, _I64, _P], _I),
     "atf_vp2_sweep_strided": ([_I, _I, *[_P] * 8, _I64, _I64, _I64, _DP, _I,

@@ -28,13 +28,15 @@ K11, K16, K18 and K22 run one periodic split-line kernel
 (csrc/split_cyclic.cuh) with their own row formers.
 Each wrapper counts its CUDA launches in a ``launches`` attribute; K1-K4
 count their bfloat16 entries apart, in ``<wrapper>.bf16.launches``
-("K1b"-"K4b"), K1 its v1 entry in ``sweep_strided.v1.launches`` and
+("K1b"-"K4b"), K1 its v1 entry in ``sweep_strided.v1.launches``, K13
+its table's kernel in ``const_sweep_table.launches`` ("K13t") and
 K14 its table's kernel in ``cyclic_const_phi_table.launches`` ("K14t");
 ``vp_fields_sweep_z`` counts in ``vp_fields_sweep_strided.launches``
 (K17).
 """
 from .const_sweeps import (const_sweep_strided,
-                           const_sweep_strided_plain, const_sweep_z,
+                           const_sweep_strided_plain, const_sweep_table,
+                           const_sweep_table_plain, const_sweep_z,
                            const_sweep_z_plain, cyclic_const_phi,
                            cyclic_const_phi_plain, cyclic_const_phi_table,
                            cyclic_const_phi_table_plain)
@@ -76,6 +78,7 @@ KERNELS = {"K1": sweep_strided, "K2": sweep_z, "K3": theta_rhs,
            "K8": vp2_sweep_z, "K9": masked_sweep_strided,
            "K10": masked_sweep_z, "K11": masked_cyclic_phi,
            "K12": const_sweep_strided, "K13": const_sweep_z,
+           "K13t": const_sweep_table,
            "K14": cyclic_const_phi, "K14t": cyclic_const_phi_table,
            "K15": vp2_sweep_strided,
            "K16": vp2_cyclic_phi, "K17": vp_fields_sweep_strided,
@@ -100,7 +103,8 @@ __all__ = ["thomas", "cyclic_thomas", "sweep_code", "sweep_strided", "sweep_stri
            "masked_sweep_strided_plain", "masked_sweep_z",
            "masked_sweep_z_plain", "masked_cyclic_phi",
            "masked_cyclic_phi_plain", "const_sweep_strided",
-           "const_sweep_strided_plain", "const_sweep_z",
+           "const_sweep_strided_plain", "const_sweep_table",
+           "const_sweep_table_plain", "const_sweep_z",
            "const_sweep_z_plain", "cyclic_const_phi",
            "cyclic_const_phi_plain", "cyclic_const_phi_table",
            "cyclic_const_phi_table_plain", "vp2_sweep_strided",

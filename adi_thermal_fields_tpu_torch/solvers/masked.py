@@ -23,8 +23,13 @@ K11 along axis 1 of a (B1, n, B2) field (phi) as a periodic system whose
 wrap couplings are row 0's ``a`` and row n-1's ``c``, with one geometry
 value per system (``geo``, shape (B1, B2)).
 
-K9 repeats its plain version's arithmetic bit for bit.  K10 forms its rows
-so but solves each line split across a warp's lanes, on the staged
+K9 marches a thread a line on lines of up to ``kK9MarchRows`` rows
+(``csrc/masked.cu``; every cylindrical configuration in the repo has r
+lines of 64 rows or fewer), c' in shared memory and d' in registers,
+repeating its plain version's arithmetic bit for bit; longer lines go to
+the core's strided split kernel on K10's rows (within the split kernels'
+gate, float32 blocks past ``kK10Stiff`` in Thomas order).  K10 forms its
+rows so but solves each line split across a warp's lanes, on the staged
 split-line kernel of ``csrc/split_staged.cuh`` (lines too long to stage on
 the core's strided kernel), with no c'/d' scratch; at float32 a line with
 a row past ``kK10Stiff`` (``csrc/masked.cu``) is solved again in Thomas
@@ -103,21 +108,20 @@ def masked_cyclic_phi_plain(rhs, code, sink, srhs, geo, fac, ambient):
 
 def _sweep(name, entry, axis, rhs, code, sink, srhs, glo, ghi, fac,
            ambient):
-    """Launch K9 (axis 0; d' through a scratch field) or K10 (last axis;
-    ``stiff_flags``' byte a line) on CUDA tensors."""
+    """Launch K9 (axis 0) or K10 (last axis; ``stiff_flags``' byte a
+    line) on CUDA tensors."""
     check_kernel_inputs(name, rhs, code, sink, srhs)
     n = rhs.shape[axis]
     check_vectors(name, rhs, n, glo, ghi)
     out = torch.empty_like(rhs)
     if axis == 0:
-        sizes = (n, rhs.numel() // n)
-        extra = torch.empty_like(rhs)
+        sizes, extra = (n, rhs.numel() // n), ()
     else:
         sizes = (rhs.numel() // n, n)
-        extra = stiff_flags(rhs, sizes[0])
+        extra = (ptr(stiff_flags(rhs, sizes[0])),)
     err = getattr(load_library(), entry)(
         dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(code),
-        ptr(sink), ptr(srhs), ptr(glo), ptr(ghi), ptr(out), ptr(extra),
+        ptr(sink), ptr(srhs), ptr(glo), ptr(ghi), ptr(out), *extra,
         *sizes, fac, ambient, stream_ptr(rhs.device))
     raise_on_error(err, name)
     return out

@@ -19,7 +19,8 @@ Two implementations:
 
 * ``"kernels"`` (the JAX ``"pallas"`` route): K12 along r, K14 along phi
   (not launched when nphi == 1), K13 along z in the natural layout with
-  the Dirichlet end rows written into its rhs first;
+  the Dirichlet end rows written into its rhs first; K13's and K14's
+  tables (K13t, K14t) built once per dt and cached;
 * ``"reference"`` (the JAX ``"xla"`` route): ``thomas`` with per-row
   coefficient vectors along r and z, ``phi_solve_spectral`` along phi.
 
@@ -42,8 +43,9 @@ import torch
 
 from ..core.grid import CylindricalGrid
 from ..core.material import Material
-from ..solvers.const_sweeps import (const_sweep_strided, const_sweep_z,
-                                    cyclic_const_phi, cyclic_const_phi_table)
+from ..solvers.const_sweeps import (const_sweep_strided, const_sweep_table,
+                                    const_sweep_z, cyclic_const_phi,
+                                    cyclic_const_phi_table)
 from ..solvers.spectral import phi_eigenvalue_factors, phi_solve_spectral
 from ..solvers.thomas import thomas
 
@@ -260,6 +262,16 @@ def _z_coefficients(grid, mat, zbc, theta_dt, dtype, device):
 
 
 @functools.lru_cache(maxsize=64)
+def _z_table(grid, mat, zbc, theta_dt, dtype, device):
+    """K13's table of the z rows' factors (``const_sweep_table``), kept
+    beside ``_z_coefficients`` under the same key: a run of steps at one
+    dt builds it once."""
+    (a, b, c, _), _ = _z_coefficients(grid, mat, zbc, theta_dt, dtype,
+                                      device)
+    return const_sweep_table(a, b, c)
+
+
+@functools.lru_cache(maxsize=64)
 def _phi_fac(grid, mat, theta, dt, dtype, device):
     """K14's fac per ring: theta*alpha*dt/(r_i^2 dphi^2), axis row 0."""
     return (theta * mat.alpha * dt
@@ -299,7 +311,9 @@ def _z_sweep(rhs, grid, mat, theta_dt, zbc, implementation):
             rhs = rhs.clone()
             for idx, t_dir in dir_rows:
                 rhs[:, :, idx] = t_dir
-        return const_sweep_z(rhs, a, b, c, radd)
+        return const_sweep_z(rhs, a, b, c, radd,
+                             _z_table(grid, mat, zbc, theta_dt, rhs.dtype,
+                                      rhs.device))
     d = rhs.movedim(2, 0)                        # (nz, nr, nphi)
     if dir_rows:
         d = d.clone()

@@ -22,7 +22,7 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    of 1 and 3 planes (8192x64x64, 1x512x512, 3x512x512); K5-K8 at
    the 256^3 WAAM mask and 97x203x131, and K6, K7 and K8 (the split-line
    sweeps of the varprop step) also at the 512^3 WAAM mask (the summary's
-   times), at 8192x64x64 and on 8192-row lines (64x8192x64 for K7's y,
+   times; K5 there too), at 8192x64x64 and on 8192-row lines (64x8192x64 for K7's y,
    64x64x8192 for K8's z), K6 also on fields of 1 and 3 planes
    (1x512x512, 3x512x512), and K19 (h stream, rob_c) at the 512^3 WAAM
    mask at float32 and float64 and on 8192-row z lines (the core's strided
@@ -70,7 +70,10 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    K9 (r), K11 (phi, cyclic) and K10 (z) against their plain versions,
    float32, on the plan of a (64, 512, 1024) annular tube (substrate, a
    half-built wall and a partly deposited top layer; Dirichlet bottom
-   pins) and of a (37, 203, 131) full disk with a random mask, K10 also
+   pins) and of a (37, 203, 131) full disk with a random mask, K9 there
+   bit for bit (its march of a thread a line) and also on r lines past
+   kK9MarchRows (K9_LONG_SHAPE: the core's strided split kernel, within
+   KERNEL_TOL_ULP), K10 also
    on K10_SHAPES (the spiral app's ring at 0.25 mm, the tube at 10x dt,
    8192-row lines past the staging), and K11 also on CYCLIC_SHAPES (the
    spiral app's (32, 720, 200) ring, 4096-row lines on a mild and a stiff
@@ -95,16 +98,19 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    % of 3.35 TB/s at 8 B/cell, and the time of one PyTorch call computing
    the same function (K12/K13: addmm by the dense inverse of the constant
    per-row matrix, built once, TF32 off; K14: the spectral solve, rfft ->
-   divide -> irfft).  K14 runs with the step's table (built once per dt
-   by its own kernel, K14t: bit for bit its plain version, its kernel and
-   plain ms, no PyTorch call) and prints the share of rings past its
-   stiffness ratio (the source's kK14Stiff: Thomas order) at both shapes.
+   divide -> irfft).  K13 and K14 run with the step's tables (each built
+   once per dt by its own kernel, K13t and K14t: bit for bit their plain
+   versions, their kernel and plain ms, no PyTorch call); K13 prints its
+   table's stiffness ratio and K14 the share of rings past its own (the
+   source's kK13Stiff and kK14Stiff: Thomas order) at both shapes, and K13
+   runs once more on the disk at a dt whose table passes kK13Stiff (bit
+   for bit).
    Its step part: the (128, 512, 512) step through adi_step_cylindrical,
    backward Euler and then Douglas, kernels against reference (thomas +
    FFT) after 3 steps within STEP_TOL, CUDA-event ms/step after two
    warm-up steps, Gcell/s, and launches of exactly K12, K13 and K14 once
-   per step and K14t once a run (the table cached for the dt after the
-   first step).  Its app part:
+   per step and K13t and K14t once a run (the tables cached for the dt
+   after the first step).  Its app part:
    phase 6's spiral app with --void_mode clamp, kernels and reference: T
    finite, Tmax <= --Ts in every frame, every deposited column active, the
    two runs within APP_TOL, and more than 1 K from phase 6's robin-mode
@@ -240,7 +246,7 @@ Phases (each asserts; a failure exits non-zero and prints no result):
 Each main path is driven with the launch counts set to 0 just before it
 and read just after it: phases 3 (constant properties) and 4 for K1-K4,
 phases 3 (variable properties) and 5 for K5-K8 and K19, phase 6's step
-and app for K9-K11, phase 7's step and app for K12-K14 and K14t, phase
+and app for K9-K11, phase 7's step and app for K12-K14, K13t and K14t, phase
 8's steps and apps for K8 and K15-K18, phase 9's steps and apps for K7's
 x entry and K19-K22 (beside K1, K3 and K5-K7), then phase 10's steps and
 apps for K1b-K4b and K23-K26 (beside the float32 K1-K8 of its
@@ -279,12 +285,13 @@ P2_SHAPES = (("256^3 waam", (256, 256, 256)), ("256^3 random", (256,) * 3),
              ("97x203x131 random", (97, 203, 131)))
 # phase 2's K1-K4 rows at the main path's shape (the summary's times)
 P2_SWEEP_SHAPE = ("512^3 waam", (512,) * 3)
-# K6, K7 and K8 at the main path's shape (the summary's times), K19 there
-# at float32 and float64, on many short lines, on 8192-row lines (K6 and
-# K7x solve along x, K7 along y, K8 and K19 along z: K6's and K7's reduced
-# rows in global memory, K8 with 16 chunks a lane, K19 on the core's
-# strided kernel) and K6 on x lines of one and three rows
-P2_VP_SWEEP_SHAPES = (P2_SWEEP_SHAPE + ("K6 K7 K8 K19", "float32"),
+# K6, K7 and K8 at the main path's shape (the summary's times), K5 and
+# K19 there at float32 (K19 also at float64), on many short lines, on
+# 8192-row lines (K6 and K7x solve along x, K7 along y, K8 and K19 along
+# z: K6's and K7's reduced rows in global memory, K8 with 16 chunks a
+# lane, K19 on the core's strided kernel) and K6 on x lines of one and
+# three rows
+P2_VP_SWEEP_SHAPES = (P2_SWEEP_SHAPE + ("K5 K6 K7 K8 K19", "float32"),
                       P2_SWEEP_SHAPE + ("K19", "float64"),
                       ("8192x64x64 random", (8192, 64, 64), "K6 K7 K8",
                        "float32"),
@@ -331,6 +338,8 @@ KERNEL_INFO = {
             "adi_thermal_fields_tpu/solvers/pallas_sweeps.py:1567"),
     "K13": ("const_sweep_z", "csrc/const_sweeps.cu",
             "adi_thermal_fields_tpu/solvers/pallas_sweeps.py:1567"),
+    "K13t": ("const_sweep_table, K13's row table", "csrc/const_sweeps.cu",
+             "adi_thermal_fields_tpu/solvers/pallas_sweeps.py:1567"),
     "K14": ("cyclic_const_phi", "csrc/const_sweeps.cu",
             "adi_thermal_fields_tpu/solvers/pallas_sweeps.py:1727"),
     "K14t": ("cyclic_const_phi_table, K14's ring table",
@@ -380,11 +389,14 @@ KERNEL_INFO = {
 }
 # float32 operations per cell of each kernel's main variant, counted from
 # its source (adds, multiplies and divides of one row, the back
-# substitution, table segments evaluated; an estimate for the bound; K14t:
-# per ring and phi row of its table)
+# substitution, table segments evaluated; an estimate for the bound; K13:
+# the run-and-carry solve's two forward and two backward passes; K13t: per
+# row of its table, the factors and the stiffness ratio; K14t: per ring
+# and phi row of its table)
 OPS_PER_CELL = {"K1": 22, "K2": 22, "K3": 20, "K4": 42, "K5": 140,
                 "K6": 45, "K7": 25, "K8": 85, "K9": 20, "K10": 20,
-                "K11": 30, "K12": 6, "K13": 6, "K14": 15, "K14t": 12,
+                "K11": 30, "K12": 6, "K13": 15, "K13t": 10, "K14": 15,
+                "K14t": 12,
                 "K15": 50,
                 "K16": 60, "K17": 20, "K18": 30, "K7x": 25, "K19": 25,
                 "K20": 25, "K21": 8, "K22": 20, "K23": 110, "K24": 35,
@@ -393,7 +405,11 @@ OPS_PER_CELL = {"K1": 22, "K2": 22, "K3": 20, "K4": 42, "K5": 140,
 CONST_KERNELS = ("K1", "K2", "K3", "K4")
 VP_KERNELS = ("K5", "K6", "K7", "K8", "K19")
 CYL_KERNELS = ("K9", "K10", "K11")
-BE_KERNELS = ("K12", "K13", "K14", "K14t")
+BE_KERNELS = ("K12", "K13", "K14", "K13t", "K14t")
+# K9's r lines past kK9MarchRows (the core's strided split kernel): 97 r
+# rows (or one past the march, if longer), 512 phi rows, ~2^25 cells, as
+# the K15 crossover's shapes (scripts/cyl_be_tune.py)
+K9_LONG_ROWS = 97
 CYL_VP_KERNELS = ("K8", "K15", "K16", "K17", "K18")
 # phase 9: the new kernels, and the kernels its routes share with earlier
 # phases (the apps' constant-property plans K1-K4, the varprop route
@@ -1122,7 +1138,8 @@ def cyl_plan(torch, grid, mask, kind_bot):
 
 
 def phase2_cyl(torch, dev):
-    """K9-K11 against their plain versions (float32)."""
+    """K9-K11 against their plain versions (float32): K9's march bit for
+    bit, its lines past kK9MarchRows within the scale's gate."""
     from adi_thermal_fields_tpu_torch import CylindricalGrid, Material
     from adi_thermal_fields_tpu_torch.solvers import (
         masked_cyclic_phi, masked_cyclic_phi_plain, masked_sweep_strided,
@@ -1157,10 +1174,25 @@ def phase2_cyl(torch, dev):
              lambda: masked_sweep_z_plain(R, *plan.z, fac, 20.0)),
         ]
         rows += [kernel_row(torch, kname, vname, label, (R, *ins), kern,
-                            plain)
+                            plain, bitwise=kname == "K9")
                  for kname, vname, ins, kern, plain in variants]
         del R, mask, plan
         torch.cuda.empty_cache()
+    # K9 on r lines past its march: the core's strided split kernel
+    n = max(K9_LONG_ROWS, int(source_constant("kK9MarchRows",
+                                              "masked.cu")) + 1)
+    shape = (n, 512, max(8, 2 ** 25 // (512 * n)))
+    label = f"{n}x512x{shape[2]} tube"
+    grid = CylindricalGrid(*shape, 5e-4, 5e-4, r_inner=0.02)
+    mask = tube_mask(torch, shape, dev)
+    plan = cyl_plan(torch, grid, mask, "dirichlet")
+    R = random_field(torch, mask, seed=17)
+    rows.append(kernel_row(
+        torch, "K9", "r, split", label, (R, *plan.r),
+        lambda: masked_sweep_strided(R, *plan.r, fac, 20.0),
+        lambda: masked_sweep_strided_plain(R, *plan.r, fac, 20.0)))
+    del R, mask, plan
+    torch.cuda.empty_cache()
     for label, shape, dr, r_inner, dtm in K10_SHAPES:     # K10 alone
         grid = CylindricalGrid(*shape, dr, dr, r_inner=r_inner)
         mask = tube_mask(torch, shape, dev)
@@ -1193,12 +1225,12 @@ def phase2_cyl(torch, dev):
 
 
 def kernel_row(torch, kname, vname, where, ins, kern, plain, tol_k=None,
-               scale_too=False):
+               scale_too=False, bitwise=False):
     """A kernel against its plain version on one input: within tol_k K
     (and, where scale_too, the scale's gate too), or without it within
     KERNEL_TOL_ULP float32 ulp of the output's scale (KERNEL_TOL_F64 of
-    it at float64); its summary row (each input read once, the output
-    written once)."""
+    it at float64), and where ``bitwise`` bit for bit; its summary row
+    (each input read once, the output written once)."""
     got, want = kern(), plain()
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()),
@@ -1213,7 +1245,8 @@ def kernel_row(torch, kname, vname, where, ins, kern, plain, tol_k=None,
     ms = cuda_ms(torch, kern, 20)
     plain_ms = cuda_ms(torch, plain, 3)
     pct = 100.0 * nbytes / (ms * 1e-3) / HBM_BYTES_PER_S
-    gate = (f"tol {KERNEL_TOL_ULP}" if got.dtype == torch.float32 else
+    gate = ("bitwise" if bitwise else f"tol {KERNEL_TOL_ULP}"
+            if got.dtype == torch.float32 else
             f"tol {KERNEL_TOL_F64:.0e} of scale")
     tol = gate if tol_k is None else f"tol {tol_k:.0e} K" + (
         f", {gate}" if scale_too else "")
@@ -1221,6 +1254,9 @@ def kernel_row(torch, kname, vname, where, ins, kern, plain, tol_k=None,
           f"({ulps:.2f} ulp of scale, {tol})  kernel {ms:8.3f} ms  plain "
           f"{plain_ms:9.3f} ms  {pct:5.1f}% of 3.35 TB/s at "
           f"{nbytes / cells:.2f} B/cell", flush=True)
+    if bitwise:
+        check(torch.equal(got, want), f"{kname} {vname} {where}: max|d| "
+              f"{err:.3e} from its plain version, not bitwise")
     if tol_k is None or scale_too:
         check(err <= lim, f"{kname} {vname} {where}: max|d| {err:.3e} from "
               f"its plain version > {lim:.3e} (the scale's gate)")
@@ -1382,10 +1418,11 @@ def dense_inverse_call(torch, vecs, axis, R):
 
 def phase2_be(torch, dev):
     """K12-K14 against their plain versions (float32), and the PyTorch
-    call computing each one's function; K14's table (K14t) bit for bit
-    its plain version's."""
+    call computing each one's function; K13's and K14's tables (K13t,
+    K14t) bit for bit their plain versions'."""
     from adi_thermal_fields_tpu_torch.solvers import (
-        const_sweep_strided, const_sweep_strided_plain, const_sweep_z,
+        const_sweep_strided, const_sweep_strided_plain, const_sweep_table,
+        const_sweep_table_plain, const_sweep_z,
         const_sweep_z_plain, cyclic_const_phi, cyclic_const_phi_plain,
         cyclic_const_phi_table, cyclic_const_phi_table_plain,
         phi_solve_spectral)
@@ -1411,9 +1448,24 @@ def phase2_be(torch, dev):
               f"2 fac = {stiff:g} ({100.0 * flagged / grid.nr:.1f}%, "
               f"Thomas order; largest 2 fac {float(2.0 * fac.max()):.1f})",
               flush=True)
-        rows.append(k14_table_row(torch, label, fac, grid.nphi,
-                                  cyclic_const_phi_table,
-                                  cyclic_const_phi_table_plain))
+        rows.append(table_row(torch, "K14t", label, (fac,), fac.numel()
+                              * grid.nphi,
+                              lambda: cyclic_const_phi_table(fac, grid.nphi),
+                              lambda: cyclic_const_phi_table_plain(
+                                  fac, grid.nphi)))
+        # K13 with its table, as the step keeps it for its dt; past
+        # kK13Stiff the lines go to Thomas order
+        z_table = cyl._z_table(grid, mat, zbc, P7_DT, f32, dev)
+        zs = source_constant("kK13Stiff", "const_sweeps.cu")
+        ratio = float(z_table[-1])
+        print(f"[phase 2] K13 {label}: its table's stiffness ratio "
+              f"{ratio:.3f} ({'past' if ratio > zs else 'below'} "
+              f"kK13Stiff = {zs:g}: "
+              f"{'Thomas order' if ratio > zs else 'split'})", flush=True)
+        rows.append(table_row(torch, "K13t", label, z_vecs[:3], grid.nz,
+                              lambda: const_sweep_table(*z_vecs[:3]),
+                              lambda: const_sweep_table_plain(
+                                  *z_vecs[:3])))
         variants = [
             ("K12", "r", r_vecs,
              lambda: const_sweep_strided(R, *r_vecs),
@@ -1423,8 +1475,8 @@ def phase2_be(torch, dev):
              lambda: cyclic_const_phi(R, fac, table),
              lambda: cyclic_const_phi_plain(R, fac),
              lambda: phi_solve_spectral(R, grid, mat, 1.0, P7_DT)),
-            ("K13", "z", z_vecs,
-             lambda: const_sweep_z(R, *z_vecs),
+            ("K13", "z", (*z_vecs, z_table),
+             lambda: const_sweep_z(R, *z_vecs, z_table),
              lambda: const_sweep_z_plain(R, *z_vecs),
              dense_inverse_call(torch, z_vecs, 2, R)),
         ]
@@ -1457,30 +1509,52 @@ def phase2_be(torch, dev):
             check(ulps <= KERNEL_TOL_ULP, f"{kname} {vname} {label}: "
                   f"{ulps:.2f} float32 ulp of the output's scale > "
                   f"{KERNEL_TOL_ULP}")
+            check(kname != "K13" or ratio <= zs or torch.equal(got, want),
+                  f"K13 {label}: its table past kK13Stiff, and not bit for "
+                  "bit its plain version")
             del got, want, lib_out
         del R, variants
         torch.cuda.empty_cache()
+    # K13 on the disk at a dt whose table passes kK13Stiff (twice it; the
+    # ratio grows as dt): Thomas order, bit for bit
+    label, shape = P7_SHAPES[1]
+    grid, mat, _, zbc = be_case(label, shape)
+    zs = source_constant("kK13Stiff", "const_sweeps.cu")
+    base, _ = cyl._z_coefficients(grid, mat, zbc, P7_DT, f32, dev)
+    dt = P7_DT * 2.0 * zs / float(const_sweep_table(*base[:3])[-1])
+    z_vecs, _ = cyl._z_coefficients(grid, mat, zbc, dt, f32, dev)
+    z_table = const_sweep_table(*z_vecs[:3])
+    check(float(z_table[-1]) > zs, f"K13 {label} at {dt:g} s: its table's "
+          f"ratio {float(z_table[-1]):.1f} is not past kK13Stiff")
+    R = random_field(torch, torch.ones(shape, dtype=torch.bool, device=dev),
+                     seed=23)
+    rows.append(kernel_row(
+        torch, "K13", "z, Thomas order", f"{label} {dt:.3g} s",
+        (R, *z_vecs, z_table), lambda: const_sweep_z(R, *z_vecs, z_table),
+        lambda: const_sweep_z_plain(R, *z_vecs), bitwise=True))
+    del R
     return rows
 
 
-def k14_table_row(torch, label, fac, n, kern, plain):
-    """K14's table kernel (K14t) against its plain version: bit for bit;
-    its time once per dt, its bound (fac read, the table written)."""
-    got, want = kern(fac, n), plain(fac, n)
+def table_row(torch, kname, label, ins, cells, kern, plain):
+    """A table kernel (K13t, K14t) against its plain version: bit for bit;
+    its time once per dt, its bound (``ins`` read, the table written;
+    ``cells``: the rows it forms)."""
+    got, want = kern(), plain()
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    check(torch.equal(got, want), f"K14t table {label}: max|d| {err:.3e} "
-          "from its plain version, not bitwise")
-    nbytes = (fac.numel() + got.numel()) * got.element_size()
-    ms = cuda_ms(torch, lambda: kern(fac, n), 10)
-    plain_ms = cuda_ms(torch, lambda: plain(fac, n), 3)
-    b = bound("K14t", nbytes, fac.numel() * n)
-    print(f"[phase 2] K14t table {label:20s} bitwise  kernel {ms:8.3f} ms  "
-          f"plain {plain_ms:9.3f} ms  bound {b['bound_ms']:.4f} ms "
+    check(torch.equal(got, want), f"{kname} table {label}: max|d| "
+          f"{err:.3e} from its plain version, not bitwise")
+    nbytes = (sum(t.numel() for t in ins) + got.numel()) * got.element_size()
+    ms = cuda_ms(torch, kern, 10)
+    plain_ms = cuda_ms(torch, plain, 3)
+    b = bound(kname, nbytes, cells)
+    print(f"[phase 2] {kname} table {label:20s} bitwise  kernel {ms:8.3f} ms"
+          f"  plain {plain_ms:9.3f} ms  bound {b['bound_ms']:.4f} ms "
           f"({b['bound_by']}); once per dt", flush=True)
-    return dict(kernel="K14t", variant="table", shape=label,
+    return dict(kernel=kname, variant="table", shape=label,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                bytes_per_cell=nbytes / (fac.numel() * n), **b)
+                bytes_per_cell=nbytes / cells, **b)
 
 
 def phase7_step(torch, dev):
@@ -1494,9 +1568,11 @@ def phase7_step(torch, dev):
     grid, mat, rob, zbc = be_case(label, shape)
     T0 = random_field(torch, torch.ones(shape, dtype=torch.bool, device=dev),
                       seed=31)
-    # K12-K14 once a step; K14's table (K14t) once a run: built at the
-    # first step, then kept for the dt
-    per_step = {k: int(k in BE_KERNELS and k != "K14t") for k in KERNEL_INFO}
+    # K12-K14 once a step; their tables (K13t, K14t) once a run: built at
+    # the first step, then kept for the dt
+    tables = ("K13t", "K14t")
+    per_step = {k: int(k in BE_KERNELS and k not in tables)
+                for k in KERNEL_INFO}
     out = {}
     for scheme in ("be", "douglas"):
         res = {}
@@ -1506,6 +1582,7 @@ def phase7_step(torch, dev):
                     T, grid, mat, dt=P7_DT, robin_outer=rob, zbc=zbc,
                     scheme=scheme, implementation=impl)
             cyl._phi_table.cache_clear()
+            cyl._z_table.cache_clear()
             before = launch_counts()
             T = T0
             for _ in range(P3_WARMUP):
@@ -1523,7 +1600,7 @@ def phase7_step(torch, dev):
             delta = {k: v - before[k] for k, v in launch_counts().items()}
             want = {k: (P3_WARMUP + P3_STEPS) * v if impl == "kernels"
                     else 0 for k, v in per_step.items()}
-            want["K14t"] = int(impl == "kernels")
+            want.update({k: int(impl == "kernels") for k in tables})
             check(delta == want, f"phase 7 {scheme} {impl}: launches "
                   f"{delta} != expected {want}")
             check(bool(torch.isfinite(T).all()), f"phase 7 {scheme} {impl}: "
@@ -3251,7 +3328,8 @@ def main():
                     "K6": "theta + x, h stream", "K7": "y, h stream",
                     "K8": "z, rad", "K9": "r", "K10": "z",
                     "K11": "phi (cyclic)", "K12": "r", "K13": "z",
-                    "K14": "phi (cyclic)", "K14t": "table", "K15": "r",
+                    "K14": "phi (cyclic)", "K13t": "table", "K14t": "table",
+                    "K15": "r",
                     "K16": "phi (cyclic)",
                     "K17": "r", "K18": "phi (cyclic)", "K7x": "x, h stream",
                     "K19": "z, h stream", "K20": "rhs", "K21": "x",
@@ -3277,7 +3355,7 @@ def main():
                  else P2_SHAPES[0][0])
         ref = next(r for r in mine if r["variant"] == main_variant[k]
                    and r["shape"] == shape)
-        # K1-K11, K14t, K15-K26 and their entries: no PyTorch call
+        # K1-K11, K13t, K14t, K15-K26 and their entries: no PyTorch call
         # computes these masked, variable-coefficient or field-coefficient
         # (cyclic) tridiagonal solves, stencils or table passes:
         # library_ms is null

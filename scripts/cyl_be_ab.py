@@ -1,19 +1,30 @@
 #!/usr/bin/env python3
-"""A/B of K14 (the unmasked cylindrical step's periodic phi solve) and K15
-with its y entry K15y (the tier-2 r and y sweeps) and the steps and apps
-that run them, between two checkouts of the PyTorch port, on one CUDA
-card.
+"""A/B of the cylindrical steps' pencil sweeps K9 (masked-Robin r) and K13
+(constant-row z), K14 (the unmasked cylindrical step's periodic phi solve)
+and K15 with its y entry K15y (the tier-2 r and y sweeps) and the steps
+and apps that run them, between two checkouts of the PyTorch port, on one
+CUDA card.
 
-    python3 scripts/cyl_be_ab.py [--k14] OTHER_CHECKOUT
-    python3 scripts/cyl_be_ab.py [--k14] --measure CHECKOUT
+    python3 scripts/cyl_be_ab.py [--k14 | --pencils] OTHER_CHECKOUT
+    python3 scripts/cyl_be_ab.py [--k14 | --pencils] --measure CHECKOUT
 
 runs, in turns, OTHER, this checkout, this checkout, OTHER, each in its
 own process (each builds its own kernel library), and prints one JSON line
 per run (``--measure``: one run of one checkout; ``--k14``: K14's rows
-alone): CUDA-event medians in ms
+alone; ``--pencils``: K9's, K13's and K14's rows and the masked, BE and
+Douglas steps alone): CUDA-event medians in ms
 and the share of each kernel's bound (chip_smoke.py ``bound``: its field
 read once and its output written once at 3.35 TB/s, or its operations at
 67 TFLOP/s), at chip_smoke.py's shapes:
+
+* K9 at phase 6's (64, 512, 1024) tube and (37, 203, 131) disk and on
+  97-row r lines of the tube's kind (97, 512, 675), float32, fac = dt *
+  alpha at phase 6's dt;
+* K13 at phase 7's (128, 512, 512) annulus and (37, 203, 131) disk and on
+  8192-row lines (64, 64, 8192), float32, with the step's table where the
+  checkout takes one and given none (the table built in the call), and
+  K13's table kernel (K13t) alone;
+* phase 6's masked-Robin step at (64, 512, 1024), with its profile;
 
 * K14 at phase 7's (128, 512, 512) annulus and (37, 203, 131) disk,
   float32 and float64, and on the spiral app's (32, 720, 200) ring at its
@@ -40,8 +51,12 @@ import subprocess
 import sys
 
 from cyclic_rows_ab import row, timed_step
+from z_pencils_ab import k10_case, masked_step
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# K9's r lines past its march and K13's z lines past its staging
+K9_LONG = ("97x512x675 tube", (97, 512, 675))
+K13_LONG = ("64x64x8192 annular", (64, 64, 8192))
 
 
 def k14_rows(torch, cs, dev, out):
@@ -85,6 +100,53 @@ def k14_rows(torch, cs, dev, out):
         lambda: cyclic_const_phi(*args))
     del R, args
     torch.cuda.empty_cache()
+
+
+def k9_rows(torch, cs, dev, out):
+    """K9 at phase 6's tube and disk and on 97-row r lines."""
+    from adi_thermal_fields_tpu_torch import Material
+    from adi_thermal_fields_tpu_torch.solvers import masked_sweep_strided
+
+    f32 = torch.float32
+    fac = float(torch.tensor(cs.CYL_DT, dtype=f32)
+                * torch.tensor(Material(7800.0, 490.0, 54.0).alpha,
+                               dtype=f32))
+    shapes = [(label, shape, 0.0 if label.endswith("disk") else 0.02)
+              for label, shape in cs.CYL_SHAPES]
+    shapes.append(K9_LONG + (0.02,))
+    for label, shape, r_inner in shapes:
+        R, plan = k10_case(torch, cs, dev, label, shape, 5e-4, r_inner)
+        row(torch, cs, out, "K9", label, (R, *plan.r),
+            lambda: masked_sweep_strided(R, *plan.r, fac, 20.0))
+        del R, plan
+        torch.cuda.empty_cache()
+
+
+def k13_rows(torch, cs, dev, out):
+    """K13 at phase 7's shapes and on 8192-row lines, with the step's
+    table (where the checkout takes one) and given none; K13t alone."""
+    from adi_thermal_fields_tpu_torch.solvers import const_sweep_z
+    from adi_thermal_fields_tpu_torch.step import cylindrical as cyl
+
+    f32 = torch.float32
+    takes_table = "table" in inspect.signature(const_sweep_z).parameters
+    for label, shape in (*cs.P7_SHAPES, K13_LONG):
+        grid, mat, _, zbc = cs.be_case(label, shape)
+        R = cs.random_field(torch, torch.ones(shape, dtype=torch.bool,
+                                              device=dev), 23)
+        vecs, _ = cyl._z_coefficients(grid, mat, zbc, cs.P7_DT, f32, dev)
+        row(torch, cs, out, "K13", f"{label} no table", (R, *vecs),
+            lambda: const_sweep_z(R, *vecs))
+        if takes_table:
+            from adi_thermal_fields_tpu_torch.solvers import \
+                const_sweep_table
+            table = cyl._z_table(grid, mat, zbc, cs.P7_DT, f32, dev)
+            row(torch, cs, out, "K13", label, (R, *vecs, table),
+                lambda: const_sweep_z(R, *vecs, table))
+            out[f"K13t {label} ms"] = cs.cuda_ms(
+                torch, lambda: const_sweep_table(*vecs[:3]), 10)
+        del R
+        torch.cuda.empty_cache()
 
 
 def be_steps(torch, cs, dev, out):
@@ -204,7 +266,7 @@ def app_prints(torch, cs, dev, out):
         torch.cuda.empty_cache()
 
 
-def measure(root, k14_only):
+def measure(root, only):
     sys.path.insert(0, root)
     import torch
     spec = importlib.util.spec_from_file_location(
@@ -214,27 +276,36 @@ def measure(root, k14_only):
 
     dev = torch.device("cuda", 0)
     out = dict(root=root)
+    if only == "--pencils":
+        k9_rows(torch, cs, dev, out)
+        k13_rows(torch, cs, dev, out)
     k14_rows(torch, cs, dev, out)
-    if not k14_only:
+    if only == "--pencils":
+        masked_step(torch, cs, dev, out)
+        be_steps(torch, cs, dev, out)
+    elif only is None:
         be_steps(torch, cs, dev, out)
         k15_rows(torch, cs, dev, out)
         varprop_be_step(torch, cs, dev, out)
         app_prints(torch, cs, dev, out)
-    out["card"] = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    out["card"] = smi.stdout.strip() or torch.cuda.get_device_name(0)
     print(json.dumps(out), flush=True)
 
 
 def main():
     args = sys.argv[1:]
-    k14_only = args[:1] == ["--k14"]
-    args = args[k14_only:]
+    only = args[0] if args[:1] in (["--k14"], ["--pencils"]) else None
+    args = args[only is not None:]
     if args[0] == "--measure":
-        measure(os.path.abspath(args[1]), k14_only)
+        measure(os.path.abspath(args[1]), only)
         return
     other = os.path.abspath(args[0])
     for root in (other, HERE, HERE, other):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               *(["--k14"] if k14_only else []),
+                               *([only] if only else []),
                                "--measure", root], capture_output=True,
                               text=True)
         if proc.returncode != 0:

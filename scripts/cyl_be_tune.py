@@ -1,43 +1,60 @@
 #!/usr/bin/env python3
-"""K14 (the periodic phi solve of the unmasked cylindrical step) and K15
-with its y entry K15y (the tier-2 r and y sweeps) on one CUDA card: their
-launch shapes, K14's stiffness ratio and K15's replays.
+"""K9 and K13 (the cylindrical steps' r and z pencil sweeps), K14 (the
+periodic phi solve of the unmasked cylindrical step) and K15 with its y
+entry K15y (the tier-2 r and y sweeps) on one CUDA card: their launch
+shapes, K9's and K15's crossovers, K13's and K14's stiffness ratios and
+K15's replays.
 
     python3 scripts/cyl_be_tune.py [--variants 'NAME=VALUE,...;...']
+                                   [--kernels K9,K13,K14,K15]
                                    [--crossover 64,96,128]
                                    [--seeds 17,23] [--dts 1,10]
                                    [--no-ratio]
 
-Each variant is a set of ``constexpr`` values of csrc/const_sweeps.cu
-(kK14Warps, kK14Blocks, kK14Stiff) and csrc/vp2_sweep.cu (kK15MarchRows:
-0 sends every line to the split kernel, a large value every line to the
-march; kK15MarchCells, kK15MarchThreads, kK15MarchGroup, kK15MarchBlocks)
-in a copy of the package under build/tune/ so changed (the empty variant:
-this checkout).  The variants' libraries build at once; then, for each,
-one JSON line: the registers and spills ptxas reports for K14's kernels
-and K15's march, and CUDA-event medians in ms of K14 at chip_smoke.py
-phase 7's (128, 512, 512) annulus and (37, 203, 131) disk, K15 at phase
-8's (64, 512, 1024) tube (the rhs T, and given), its disk and the tube at
-10x dt, K15y at the 512^3 WAAM mask, and phase 7's and phase 8's
-backward-Euler steps.  With --crossover, in place of those: K15 (the rhs
-T, as the BE step calls it) on tubes of phase 8's kind with r lines of
-each given length (512 phi rows, about 2^25 cells) and K15y at 512^3,
-each with its CUDA-event median ms and its largest |delta| from the plain
-version (K and float32 ulp of the output's scale, against chip_smoke.py's
-P8_TOL): run with kK15MarchRows=0 and a large kK15MarchRows, the lengths
-where the march and the split kernel cross.
+Each variant is a set of ``constexpr`` values of csrc/masked.cu
+(kK9MarchRows: 0 sends every line to the split kernel, 128 every line of
+up to 128 rows to the march; kK9MarchThreads, kK9MarchGroup,
+kK9MarchBlocks, kK9MarchBlocks64), csrc/const_sweeps.cu (kK13Warps,
+kK13StageKB, kK13Stiff, kK14Warps, kK14Blocks, kK14Stiff) and
+csrc/vp2_sweep.cu (kK15MarchRows: 0 sends every line to the split kernel,
+a large value every line to the march; kK15MarchCells, kK15MarchThreads,
+kK15MarchGroup, kK15MarchBlocks) in a copy of the package under
+build/tune/ so changed (the empty variant: this checkout).  The variants'
+libraries build at once; then, for each, one JSON line: the registers and
+spills ptxas reports for K9's and K15's marches and K13's and K14's
+kernels, and CUDA-event medians in ms, of the kernels named by
+--kernels: K9 at chip_smoke.py phase 6's (64, 512, 1024) tube, (37, 203,
+131) disk and 97-row r lines, and the masked step; K13 at phase 7's
+(128, 512, 512) annulus, (37, 203, 131) disk and 8192-row lines, with the
+step's table and given none, and K13t; K14 at phase 7's shapes; K15 at
+phase 8's (64, 512, 1024) tube (the rhs T, and given), its disk and the
+tube at 10x dt, K15y at the 512^3 WAAM mask, and phase 7's (K13, K14)
+and phase 8's (K15) backward-Euler steps.  With --crossover, in place of
+those: K9 on tubes of phase 6's kind and K15 (the rhs T, as the BE step
+calls it) on tubes of phase 8's kind with r lines of each given length
+(512 phi rows, about 2^25 cells), and K15y at 512^3, each with its
+CUDA-event median ms and its largest |delta| from the plain version (K
+and float32 ulp of the output's scale, against chip_smoke.py's
+KERNEL_TOL_ULP for K9 and P8_TOL for K15; K9: bit for bit or not): run
+with kK9MarchRows=0 and 128 (kK15MarchRows=0 and a large value), the
+lengths where the march and the split kernel cross.
 
-Then (unless --no-ratio), in a copy with kK14Stiff = 1e30: K14 with every
-ring split on phase 7's shapes, the spiral app's ring (32, 720, 200) and
-4096-row lines on a 20 mm annulus, for each seed of the right-hand side
-and each multiple of the step's dt: per bin of the rings' stiffness ratio
-2 fac, the rings, their largest |delta| from the plain version and the
-largest distances of the plain version and of the split solve from the
-float64 plain version (float32 ulp of the output's scale), and the share
-of rings past this checkout's kK14Stiff; and K15's share of blocks (32
-lines) with a row past kK8Stiff (Thomas order) on the tube at 1x and 10x
-dt, the disk and the spiral app's tube (r_inner 52 mm, 0.25 mm cells,
-its dt_fixed 0.05 s), with its |delta| from the plain version.
+Then (unless --no-ratio), in a copy with kK13Stiff = kK14Stiff = 1e30:
+K14 with every ring split on phase 7's shapes, the spiral app's ring (32,
+720, 200) and 4096-row lines on a 20 mm annulus, for each seed of the
+right-hand side and each multiple of the step's dt: per bin of the rings'
+stiffness ratio 2 fac, the rings, their largest |delta| from the plain
+version and the largest distances of the plain version and of the split
+solve from the float64 plain version (float32 ulp of the output's scale),
+and the share of rings past this checkout's kK14Stiff; K13 with every
+table split on phase 7's shapes, the spiral app's z rows (0.25 mm, its
+dt_fixed 0.05 s) and 8192-row lines, per seed and dt multiple: the
+table's ratio, K13's largest distance from the plain version and both
+from the float64 plain version, and whether this checkout's kK13Stiff
+sends it to Thomas order; and K15's share of blocks (32 lines) with a row
+past kK8Stiff (Thomas order) on the tube at 1x and 10x dt, the disk and
+the spiral app's tube (r_inner 52 mm, 0.25 mm cells, its dt_fixed 0.05
+s), with its |delta| from the plain version.
 """
 import argparse
 import importlib.util
@@ -50,11 +67,13 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "adi_thermal_fields_tpu_torch"
-SOURCES = ("const_sweeps.cu", "vp2_sweep.cu")
+SOURCES = ("const_sweeps.cu", "vp2_sweep.cu", "masked.cu")
+# the cells of a crossover tube (512 phi rows)
+CROSSOVER_CELLS = 2 ** 25
 # bins of a ring's 2 fac (K14) or a block's largest row ratio (K15)
 EDGES = (0, 1, 2, 4, 8, 12, 16, 24, 32, 64, 128, 1024, float("inf"))
-# the copy in which K14 splits every ring
-SPLIT_ALL = ["kK14Stiff=1e30"]
+# the copy in which K13 splits every table and K14 every ring
+SPLIT_ALL = ["kK14Stiff=1e30", "kK13Stiff=1e30"]
 
 
 def source_constant(root, name, src):
@@ -98,8 +117,8 @@ def load_cs(torch_root):
 
 
 def build(root):
-    """Build ``root``'s library; the registers and spills of K14's kernels
-    and K15's march (ptxas -v)."""
+    """Build ``root``'s library; the registers and spills of K9's and
+    K15's marches and K13's and K14's kernels (ptxas -v)."""
     sys.path.insert(0, root)
     import contextlib
     import io
@@ -111,16 +130,26 @@ def build(root):
     report = {}
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '(\w+)'", line)
-        if not m or not re.search(r"cyclic_const_phi|march", m.group(1)):
+        if not m or not re.search(r"cyclic_const_phi|march|const_sweep_z"
+                                  r"|const_table", m.group(1)):
             continue
         name = m.group(1)
         k14 = re.search(r"cyclic_const_phi_kernelI([fd])Li(\d+)ELb(\d)",
                         name)
-        march = re.search(r"march_kernelI([fd])Li(\d+)", name)
+        k9 = re.search(r"masked_march_kernelI([fd])Li(\d+)", name)
+        march = re.search(r"vp2_march_kernelI([fd])Li(\d+)", name)
+        k13 = re.search(r"const_sweep_z_kernelI([fd])Lb(\d)", name)
+        k13v = re.search(r"const_sweep_z_vec_kernelI([fd])", name)
         if k14:
             key = "K14 {} M{} regs{}".format(*k14.groups())
+        elif k9:
+            key = "K9 march {} rows{}".format(*k9.groups())
         elif march:
             key = "K15 march {} seg{}".format(*march.groups())
+        elif k13:
+            key = "K13 {} staged{}".format(*k13.groups())
+        elif k13v:
+            key = "K13 {} staged 16-byte".format(*k13v.groups())
         else:
             key = name[-60:]
         tail = " ".join(lines[i + 1:i + 4])
@@ -131,9 +160,10 @@ def build(root):
     print(json.dumps(dict(build_s=secs, ptxas=report)), flush=True)
 
 
-def times(root, crossover):
-    """CUDA-event medians of K14, K15 and K15y and of the two BE steps, or
-    (``crossover``: r line lengths) K15's and K15y's times and errors."""
+def times(root, crossover, kernels):
+    """CUDA-event medians of ``kernels``' rows and steps, or
+    (``crossover``: r line lengths) K9's, K15's and K15y's times and
+    errors."""
     import torch
     cs = load_cs(root)
     sys.path.insert(0, os.path.join(HERE, "scripts"))
@@ -141,12 +171,23 @@ def times(root, crossover):
     dev = torch.device("cuda", 0)
     out = dict(root=root)
     if crossover:
-        k15_crossover(torch, cs, dev, crossover, out)
+        if "K9" in kernels:
+            k9_crossover(torch, cs, dev, crossover, out)
+        if "K15" in kernels:
+            k15_crossover(torch, cs, dev, crossover, out)
     else:
-        cyl_be_ab.k14_rows(torch, cs, dev, out)
-        cyl_be_ab.k15_rows(torch, cs, dev, out)
-        cyl_be_ab.be_steps(torch, cs, dev, out)
-        cyl_be_ab.varprop_be_step(torch, cs, dev, out)
+        if "K9" in kernels:
+            cyl_be_ab.k9_rows(torch, cs, dev, out)
+            cyl_be_ab.masked_step(torch, cs, dev, out)
+        if "K13" in kernels:
+            cyl_be_ab.k13_rows(torch, cs, dev, out)
+        if "K14" in kernels:
+            cyl_be_ab.k14_rows(torch, cs, dev, out)
+        if "K13" in kernels or "K14" in kernels:
+            cyl_be_ab.be_steps(torch, cs, dev, out)
+        if "K15" in kernels:
+            cyl_be_ab.k15_rows(torch, cs, dev, out)
+            cyl_be_ab.varprop_be_step(torch, cs, dev, out)
     print(json.dumps({k: v for k, v in out.items()
                       if not k.startswith("profile")}), flush=True)
 
@@ -213,6 +254,95 @@ def k14_ratio(torch, cs, dev, seeds, dts, stiff):
                                              kv[0].split("-")[0]))})),
                   flush=True)
             torch.cuda.empty_cache()
+
+
+def k13_ratio(torch, cs, dev, seeds, dts, stiff):
+    """K13 split on every table (a copy built with kK13Stiff = 1e30)
+    against the plain version, per shape and dt; ``stiff``: this
+    checkout's ratio."""
+    from adi_thermal_fields_tpu_torch import CylindricalGrid, Material
+    from adi_thermal_fields_tpu_torch.solvers import (const_sweep_table,
+                                                      const_sweep_z,
+                                                      const_sweep_z_plain)
+    from adi_thermal_fields_tpu_torch.step import cylindrical as cyl
+    import cyl_be_ab
+
+    eps = torch.finfo(torch.float32).eps
+    mat = Material(7800.0, 490.0, 54.0)
+    ring = cs.CYCLIC_SHAPES[0]
+    shapes = [(label, shape, 5e-4, 0.02 if label.endswith("annular")
+               else 0.0, cs.P7_DT) for label, shape in cs.P7_SHAPES]
+    shapes += [(ring[0] + " z", ring[1], ring[2], ring[3], 0.05),
+               cyl_be_ab.K13_LONG + (5e-4, 0.02, cs.P7_DT)]
+    for label, shape, dr, r_inner, dt0 in shapes:
+        grid = CylindricalGrid(*shape, dr, dr, r_inner=r_inner)
+        _, _, _, zbc = cs.be_case(label, shape)
+        for mult in dts:
+            dt = mult * dt0
+            vecs, _ = cyl._z_coefficients(grid, mat, zbc, dt, torch.float32,
+                                          dev)
+            v64, _ = cyl._z_coefficients(grid, mat, zbc, dt, torch.float64,
+                                         dev)
+            table = const_sweep_table(*vecs[:3])
+            ratio = float(table[-1])
+            worst = [0.0, 0.0, 0.0]
+            for seed in seeds:
+                R = cs.random_field(torch, torch.ones(
+                    shape, dtype=torch.bool, device=dev), seed)
+                got = const_sweep_z(R, *vecs, table)
+                want = const_sweep_z_plain(R, *vecs)
+                ref = const_sweep_z_plain(R.double(), *v64)
+                scale = float(want.abs().max()) * eps
+                for j, d in enumerate((got - want, want.double() - ref,
+                                       got.double() - ref)):
+                    worst[j] = max(worst[j], float(d.abs().max()) / scale)
+                del R, got, want, ref
+            print(json.dumps(dict(
+                kernel="K13", shape=label, dt_x=mult, seeds=len(seeds),
+                ratio=ratio, thomas_order_here=ratio > stiff,
+                ulp_vs_plain=round(worst[0], 3),
+                plain_ulp_vs_f64=round(worst[1], 3),
+                split_ulp_vs_f64=round(worst[2], 3))), flush=True)
+            torch.cuda.empty_cache()
+
+
+def record(cs, out, key, got, want, ms, tol):
+    """``key``'s ms and its largest |delta| from the plain version (K, and
+    float32 ulp of the output's scale against ``tol``)."""
+    import torch
+    eps = torch.finfo(torch.float32).eps
+    err = float((got - want).abs().max())
+    out[f"{key} ms"] = ms
+    out[f"{key} max_abs_err"] = err
+    out[f"{key} ulp_of_scale"] = err / (eps * float(want.abs().max()))
+    out[f"{key} within_tol"] = err <= tol(want)
+    out[f"{key} bitwise"] = bool(torch.equal(got, want))
+
+
+def k9_crossover(torch, cs, dev, lengths, out):
+    """K9 on tubes of phase 6's kind with r lines of each length, 512 phi
+    rows and about 2^25 cells, at the step's dt: the median ms and the
+    largest |delta| from the plain version."""
+    from adi_thermal_fields_tpu_torch import Material
+    from adi_thermal_fields_tpu_torch.solvers import (
+        masked_sweep_strided, masked_sweep_strided_plain)
+    from z_pencils_ab import k10_case
+
+    f32 = torch.float32
+    fac = float(torch.tensor(cs.CYL_DT, dtype=f32)
+                * torch.tensor(Material(7800.0, 490.0, 54.0).alpha,
+                               dtype=f32))
+    eps = torch.finfo(f32).eps
+    for n in lengths:
+        shape = (n, 512, max(8, CROSSOVER_CELLS // (512 * n)))
+        R, plan = k10_case(torch, cs, dev, f"{n} tube", shape, 5e-4, 0.02)
+        fn = (lambda: masked_sweep_strided(R, *plan.r, fac, 20.0))
+        record(cs, out, f"K9 n{n}", fn(),
+               masked_sweep_strided_plain(R, *plan.r, fac, 20.0),
+               cs.cuda_ms(torch, fn, 20),
+               lambda w: cs.KERNEL_TOL_ULP * eps * float(w.abs().max()))
+        del R, plan
+        torch.cuda.empty_cache()
 
 
 def k15_case(torch, cs, dev, label, shape, dr, r_inner, dt):
@@ -301,34 +431,31 @@ def k15_crossover(torch, cs, dev, lengths, out):
     sys.path.insert(0, os.path.join(HERE, "scripts"))
     import cyl_be_ab
 
-    eps = torch.finfo(torch.float32).eps
-
-    def record(key, got, want, ms):
-        err = float((got - want).abs().max())
-        out[f"{key} ms"] = ms
-        out[f"{key} max_abs_err"] = err
-        out[f"{key} ulp_of_scale"] = err / (eps * float(want.abs().max()))
-        out[f"{key} within_P8_TOL"] = err <= cs.P8_TOL["float32"]
+    def k15_record(key, got, want, ms):
+        record(cs, out, key, got, want, ms,
+               lambda w: cs.P8_TOL["float32"])
 
     for n in lengths:
-        shape = (n, 512, max(8, 2 ** 25 // (512 * n)))
+        shape = (n, 512, max(8, CROSSOVER_CELLS // (512 * n)))
         label = f"{n}x512x{shape[2]} tube"
         args, rk, _ = k15_case(torch, cs, dev, label, shape, 5e-4, None,
                                cs.P8_DT)
         got = vp2_sweep_strided(*args, **rk)
         want = vp2_sweep_strided_plain(*args, **rk)
-        record(f"K15 n{n}", got, want,
-               cs.cuda_ms(torch, lambda: vp2_sweep_strided(*args, **rk), 20))
+        k15_record(f"K15 n{n}", got, want,
+                   cs.cuda_ms(torch, lambda: vp2_sweep_strided(*args, **rk),
+                              20))
         del args, got, want
         torch.cuda.empty_cache()
     # K15y's 512-row y lines: cyl_be_ab's row and its error
-    cyl_be_ab.k15y_row(torch, cs, dev, out, record)
+    cyl_be_ab.k15y_row(torch, cs, dev, out, k15_record)
 
 
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--variants", default="")
     p.add_argument("--crossover", default="")
+    p.add_argument("--kernels", default="K9,K13,K14,K15")
     p.add_argument("--seeds", default="17,23,31,47,59")
     p.add_argument("--dts", default="1,2.5,5,10")
     p.add_argument("--no-ratio", action="store_true")
@@ -340,17 +467,25 @@ def main():
     if a.build:
         build(a.build)
         return
+    kernels = a.kernels.split(",")
     if a.times:
-        times(a.times, crossover)
+        times(a.times, crossover, kernels)
         return
     if a.ratio:
         import torch
         cs = load_cs(a.ratio)
+        sys.path.insert(0, os.path.join(HERE, "scripts"))
         dev = torch.device("cuda", 0)
-        k14_ratio(torch, cs, dev, [int(s) for s in a.seeds.split(",")],
-                  [float(d) for d in a.dts.split(",")],
-                  source_constant(HERE, "kK14Stiff", "const_sweeps.cu"))
-        k15_replays(torch, cs, dev)
+        seeds = [int(s) for s in a.seeds.split(",")]
+        dts = [float(d) for d in a.dts.split(",")]
+        if "K13" in kernels:
+            k13_ratio(torch, cs, dev, seeds, dts,
+                      source_constant(HERE, "kK13Stiff", "const_sweeps.cu"))
+        if "K14" in kernels:
+            k14_ratio(torch, cs, dev, seeds, dts,
+                      source_constant(HERE, "kK14Stiff", "const_sweeps.cu"))
+        if "K15" in kernels:
+            k15_replays(torch, cs, dev)
         return
     variants = [[s for s in v.split(",") if s]
                 for v in a.variants.split(";")] if a.variants else [[]]
@@ -369,8 +504,8 @@ def main():
             out.strip().splitlines()[-1]))), flush=True)
     for v, r in zip(variants, roots):
         proc = subprocess.run([sys.executable, me, "--times", r,
-                               "--crossover", a.crossover],
-                              capture_output=True, text=True)
+                               "--crossover", a.crossover, "--kernels",
+                               a.kernels], capture_output=True, text=True)
         if proc.returncode != 0:
             raise SystemExit(f"times of {v}: exit {proc.returncode}\n"
                              f"{proc.stdout}\n{proc.stderr}")
@@ -378,7 +513,8 @@ def main():
             proc.stdout.strip().splitlines()[-1]))), flush=True)
     if ratio_root:
         proc = subprocess.run([sys.executable, me, "--ratio", ratio_root,
-                               "--seeds", a.seeds, "--dts", a.dts],
+                               "--seeds", a.seeds, "--dts", a.dts,
+                               "--kernels", a.kernels],
                               capture_output=True, text=True)
         print(proc.stdout, end="", flush=True)
         if proc.returncode != 0:

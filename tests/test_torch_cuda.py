@@ -14,8 +14,10 @@ and films are not temperatures), and so are the cylindrical sweeps K9-K18,
 whose stiff phi systems near a full disk's axis amplify one rounding; the
 cylindrical varprop step runs kernels against reference at float64.  K20
 and K23 repeat their plain versions one rounding at a time: they are
-held to bitwise equality, and so are K15 and K15y on lines of up to
-kK15MarchRows rows (a thread a line).  K6, K7, K7's x entry, K8, K10,
+held to bitwise equality, and so are K9, K15 and K15y on lines of up to
+kK9MarchRows and kK15MarchRows rows (a thread a line), K13 where its
+table passes kK13Stiff (Thomas order) and the tables K13t and K14t.
+K6, K7, K7's x entry, K8, K9 past its march, K10, K13 below kK13Stiff,
 K15 and K15y on longer lines, K17, K19, K21 and K24-K26 split each line
 across threads (the split-line core of K1, K2 and K4): within 8 float32 ulp of the output's
 scale, 1e-12 of it at float64 (K24-K26 at bfloat16: one bfloat16 ulp of
@@ -44,6 +46,7 @@ from adi_thermal_fields_tpu_torch import (CylindricalGrid, Material, RobinBC,
                                           build_masked_robin_plan)
 from adi_thermal_fields_tpu_torch.solvers import (
     KERNELS, build_vp2_code, const_sweep_strided, const_sweep_strided_plain,
+    const_sweep_table, const_sweep_table_plain,
     const_sweep_z, const_sweep_z_plain, cyclic_const_phi,
     cyclic_const_phi_plain, cyclic_const_phi_table,
     cyclic_const_phi_table_plain, fused_sweep, fused_sweep_axis1,
@@ -610,6 +613,8 @@ def test_masked_kernels_match_plain_on_card(dtype, rel, r_inner, kind_bot):
         assert got.is_cuda and got.dtype == dtype
         assert float((got - want).abs().max()) <= rel * float(
             want.abs().max())
+    # K9's 37-row r lines: its march, bit for bit
+    assert torch.equal(*pairs[0])
     assert launch_counts() == _counts(K9=1, K10=1, K11=1)
 
 
@@ -647,7 +652,112 @@ def test_const_kernels_match_plain_on_card(dtype, rel, nphi, r_inner,
         assert got.is_cuda and got.dtype == dtype
         assert float((got - want).abs().max()) <= rel * float(
             want.abs().max())
-    assert launch_counts() == _counts(K12=1, K13=1, K14=1, K14t=1)
+    assert launch_counts() == _counts(K12=1, K13=1, K14=1, K13t=1, K14t=1)
+
+
+# K9's r lines: up to its march's rows (a thread a line: bit for bit), one
+# row past them and 300 rows (the core's strided split kernel); float64
+# marches lines of up to 64 rows
+K9_MARCH = int(_source_constant("kK9MarchRows", "masked.cu"))
+K9_SHAPES = ((2, 45, 70), (min(K9_MARCH, 64), 9, 33), (K9_MARCH, 6, 40),
+             (K9_MARCH + 1, 6, 40), (300, 5, 21))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float64, 1e-12),
+                                       (torch.float32, 8 * 2.0 ** -23)],
+                         ids=["f64", "f32"])
+def test_masked_r_sweep_past_its_march_on_card(dtype, rel):
+    """K9 against its plain version on r lines of 2 rows, of the march's
+    rows (bit for bit) and past them (the strided split kernel: within
+    ``rel`` of the output's scale), at the step's dt and ten times it
+    (float32 blocks past kK10Stiff in Thomas order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    march = K9_MARCH if dtype == torch.float32 else min(K9_MARCH, 64)
+    reset_launch_counts()
+    calls = 0
+    for i, shape in enumerate(K9_SHAPES):
+        rng = np.random.default_rng(90 + i)
+        grid = CylindricalGrid(*shape, 2.5e-4, 2.5e-4, r_inner=0.02)
+        act = torch.from_numpy(rng.random(shape) > 0.2).to(dev)
+        plan = build_masked_robin_plan(
+            grid, Material(7800.0, 490.0, 54.0), act,
+            robin_outer=RobinBC(300.0, 20.0),
+            zbc=ZFaceBC(kind_bot="dirichlet", T_bot=140.0, kind_top="robin",
+                        h_top=400.0), robin_inner=RobinBC(150.0, 30.0),
+            h_void=80.0, dtype=dtype)
+        R = torch.from_numpy(20.0 + 1480.0 * rng.random(shape)).to(dev, dtype)
+        for dt in (0.02, 0.2):
+            fac = float(torch.tensor(dt, dtype=dtype)
+                        * (54.0 / (7800.0 * 490.0)))
+            got = masked_sweep_strided(R, *plan.r, fac, 20.0)
+            want = masked_sweep_strided_plain(R, *plan.r, fac, 20.0)
+            calls += 1
+            torch.cuda.synchronize()
+            assert got.is_cuda and got.dtype == dtype
+            assert bool(torch.isfinite(got).all())
+            assert float((got - want).abs().max()) <= rel * float(
+                want.abs().max()), (shape, dt)
+            if shape[0] <= march:
+                assert torch.equal(got, want), (shape, dt)
+    assert launch_counts() == _counts(K9=calls)
+
+
+# K13's z lines: 2, 3 and 131 rows (staged 4 or 8 bytes a copy), ragged
+# line counts (partial tiles), 512 and 132 rows (16 bytes a copy; 132: a
+# padded tile row) and 8192 rows (past the staging: rows read in each
+# pass), each at the step's dt, and at a dt whose table passes kK13Stiff
+# (Thomas order, bit for bit): (nr, nphi, nz)
+K13_STIFF = _source_constant("kK13Stiff", "const_sweeps.cu")
+K13_SHAPES = ((3, 5, 2), (2, 7, 3), (5, 9, 131), (4, 16, 512),
+              (2, 33, 8192), (3, 7, 132))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float64, 1e-12),
+                                       (torch.float32, 8 * 2.0 ** -23)],
+                         ids=["f64", "f32"])
+def test_k13_on_short_long_and_stiff_lines_on_card(dtype, rel):
+    """K13's table bit for bit its plain version's; K13 given the table
+    and not (the table built in the call) alike, within ``rel`` of the
+    output's scale of its plain version, and bit for bit where the table
+    passes kK13Stiff."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mat = Material(7800.0, 490.0, 54.0)
+    zbc = ZFaceBC(kind_bot="dirichlet", T_bot=140.0, kind_top="robin",
+                  h_top=400.0)
+    reset_launch_counts()
+    calls = 0
+    for i, shape in enumerate(K13_SHAPES):
+        grid = CylindricalGrid(*shape, 5e-4, 5e-4, r_inner=0.02)
+        rng = np.random.default_rng(110 + i)
+        R = torch.from_numpy(20.0 + 1480.0 * rng.random(shape)).to(dev,
+                                                                   dtype)
+        for dt in (0.02, 2000.0):
+            vecs, _ = pcyl._z_coefficients(grid, mat, zbc, dt, dtype, dev)
+            table = const_sweep_table(*vecs[:3])
+            got = const_sweep_z(R, *vecs, table)
+            alone = const_sweep_z(R, *vecs)
+            want = const_sweep_z_plain(R, *vecs)
+            calls += 1
+            torch.cuda.synchronize()
+            assert torch.equal(table, const_sweep_table_plain(*vecs[:3]))
+            assert torch.equal(got, alone)
+            assert got.is_cuda and got.dtype == dtype
+            assert bool(torch.isfinite(got).all())
+            stiff = float(table[-1]) > K13_STIFF
+            # ratios of ~2.3 at the step's dt, 2.3e5 at 2000 s (n = 2:
+            # 269, and stiff or not by kK13Stiff)
+            assert stiff == (dt > 1.0) or shape[2] == 2, (shape, dt)
+            assert float((got - want).abs().max()) <= rel * float(
+                want.abs().max()), (shape, dt)
+            if stiff:
+                assert torch.equal(got, want), (shape, dt)
+    assert launch_counts() == _counts(K13=2 * calls, K13t=2 * calls)
 
 
 @pytest.mark.cuda
