@@ -37,7 +37,7 @@ hand for the H100 (csrc/):
 * K11 ``solvers.masked.masked_cyclic_phi`` — the mask-broken periodic phi
   sweep;
 * K12 ``solvers.const_sweeps.const_sweep_strided`` — the constant-row r
-  sweep;
+  sweep (its rows' factors from ``const_sweep_table``);
 * K13 ``solvers.const_sweeps.const_sweep_z`` — the constant-row sweep
   along contiguous z (its rows' factors from ``const_sweep_table``);
 * K14 ``solvers.const_sweeps.cyclic_const_phi`` — the constant-coefficient

@@ -20,10 +20,9 @@
 //   inv_i = 1/(b_i - a_i cp_{i-1}),  cp_i = c_i inv_i,
 //   d'_i = (d_i + radd_i - a_i d'_{i-1}) inv_i,  x_i = d'_i - cp_i x_{i+1}.
 // The coefficients depend on the row only (K14: on the ring and the row),
-// so inv and cp are the same for every line.  K12: one thread of each
-// block computes them into shared memory before the lines start, and each
-// line carries only d'.  K13 takes them from a table built once by
-// `const_table_kernel` (one thread, _row_factors' order; the step keeps it
+// so inv and cp are the same for every line.  K12 and K13 take them from a
+// table built once by `const_table_kernel` (one thread, _row_factors'
+// order; the step keeps one for its r rows and one for its z rows, each
 // for its dt), which also records the rows' stiffness ratio.  K14 also
 // solves the Sherman-Morrison system
 // B z = u (a = c = -fac, b = 1 + 2 fac, gamma = -b, b_0 = 2b, b_{n-1} = b
@@ -32,22 +31,36 @@
 // inv, cp, z and the fix-up's denominator come from a table built once a
 // ring by `cyclic_const_table_kernel` (the step keeps it for its dt).
 //
-// Rounding: K12 takes every operation as one IEEE rounding
+// Rounding: the tables take every operation as one IEEE rounding
 // (atf::add/sub/mul/div, the _rn intrinsics) in the order of the plain
 // versions in solvers/const_sweeps.py, which compute inv and cp once per
-// row the same way, so kernel and plain version agree bit for bit; so do
-// K13's and K14's tables.  K13 and K14 split each line across warps (not
-// Thomas order): a few float32 ulp of the output's scale from their plain
-// versions (K14: up to 3 on rings whose stiffness ratio 2 fac = (|a| +
-// |c|)/(b - |a| - |c|) stays below 128, up to 10 past 1024 on 4096-row
-// lines; PERF.md section 6).  K14 solves the rings past kK14Stiff (a full
-// disk's innermost rings at 0.5 mm cells) in Thomas order, bit for bit,
-// and K13 a table past kK13Stiff.
+// row the same way, so table and plain version agree bit for bit; so does
+// K12's march (forward's and the back substitution's roundings on the
+// table's factors).  K12 past its march, K13 and K14 split each line across
+// warps (not Thomas order): a few float32 ulp of the output's scale from
+// their plain versions (K14: up to 3 on rings whose stiffness ratio 2 fac
+// = (|a| + |c|)/(b - |a| - |c|) stays below 128, up to 10 past 1024 on
+// 4096-row lines; PERF.md section 6).  K14 solves the rings past kK14Stiff
+// (a full disk's innermost rings at 0.5 mm cells) in Thomas order, bit for
+// bit, K13 a table past kK13Stiff and K12 one past kK12Stiff.
 //
 // What bounds them on the H100: memory.  The byte model (float32) reads rhs
 // 4 and writes x 4 = 8 B/cell (the coefficient vectors add < 0.01 B/cell).
-//   K12: one thread per (phi, z) pencil; adjacent threads read adjacent
-//        addresses.  d' goes through the output (+8 B/cell round trip).
+//   K12: lines of up to kK12MarchRows rows march a thread a line (adjacent
+//        threads on adjacent lines: every row load is coalesced), the
+//        loads of the line's first kK12RegRows rows unrolled ahead of the
+//        chain into registers, the rows past them copied by cp.async into
+//        the thread's column of shared memory, d' kept where its row is,
+//        the table's factors staged once a block in shared memory: the
+//        field is read once and written once, and no line
+//        divides.  Longer lines are split as K14's: a tile's lanes are 32
+//        adjacent lines, its warps consecutive runs of rows kept in
+//        registers (lines of up to 32 kK12Warps rows at float32, 16
+//        kK12Warps at float64; past that each pass reads its rows again,
+//        d' through the output: 24 B/cell), the carries through shared
+//        memory.  Its first version ran a thread a line after thread 0 of
+//        every block had formed the rows' factors in a serial chain of
+//        divisions, with d' through the output (16 B/cell).
 //   K13: a block takes a tile of 32 z lines, contiguous in global memory,
 //        and stages it by cp.async into shared memory (16 bytes a copy,
 //        the chunks XOR-swizzled, where the lines are whole 16-byte
@@ -88,59 +101,19 @@ using atf::div;
 using atf::mul;
 using atf::sub;
 
-// inv_i and cp_i of a constant-row tridiagonal system (one thread)
-template <typename T>
-__device__ void row_factors(const T* __restrict__ a, const T* __restrict__ b,
-                            const T* __restrict__ c, int64_t n,
-                            T* __restrict__ inv, T* __restrict__ cp) {
-  T cprev = T(0);
-  for (int64_t i = 0; i < n; ++i) {
-    const T iv = div(T(1), sub(b[i], mul(a[i], cprev)));
-    cprev = mul(c[i], iv);
-    inv[i] = iv;
-    cp[i] = cprev;
-  }
-}
-
 // d'_i from d'_{i-1}
 template <typename T>
 __device__ __forceinline__ T forward(T d, T radd, T a, T inv, T dp) {
   return mul(sub(add(d, radd), mul(a, dp)), inv);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(256) const_sweep_strided_kernel(
-    const T* __restrict__ rhs, const T* __restrict__ a,
-    const T* __restrict__ b, const T* __restrict__ c,
-    const T* __restrict__ radd, T* __restrict__ out, int64_t n, int64_t B) {
-  extern __shared__ __align__(16) unsigned char atf_smem[];
-  T* inv = reinterpret_cast<T*>(atf_smem);
-  T* cp = inv + n;
-  if (threadIdx.x == 0) row_factors(a, b, c, n, inv, cp);
-  __syncthreads();
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= B) return;
-  T dp = T(0);
-  for (int64_t i = 0; i < n; ++i) {
-    const int64_t off = i * B + p;
-    dp = forward(rhs[off], __ldg(radd + i), __ldg(a + i), inv[i], dp);
-    out[off] = dp;
-  }
-  T x = T(0);
-  for (int64_t i = n - 1; i >= 0; --i) {
-    const int64_t off = i * B + p;
-    x = sub(out[off], mul(cp[i], x));
-    out[off] = x;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The run-and-carry solve of K13 and K14: a line's rows split into runs, one
-// a warp (lanes = lines).  Forward: a pass from zero gives each run's last
-// l and the row-only multiplier G (the product of -a_i inv_i); the runs'
-// carries chain through shared memory, D = l + G D; a second pass from the
-// run's D gives d'.  Backward: the same with x_i = d'_i - cp_i x_{i+1}
-// (m, and H the product of -cp_i).  No division on a line.
+// The run-and-carry solve of K12, K13 and K14: a line's rows split into
+// runs, one a warp (lanes = lines).  Forward: a pass from zero gives each
+// run's last l and the row-only multiplier G (the product of -a_i inv_i);
+// the runs' carries chain through shared memory, D = l + G D; a second
+// pass from the run's D gives d'.  Backward: the same with x_i = d'_i -
+// cp_i x_{i+1} (m, and H the product of -cp_i).  No division on a line.
 // ---------------------------------------------------------------------------
 
 // one row of a forward pass: l from the row before, and G
@@ -183,15 +156,303 @@ __device__ __forceinline__ T carry_backward(const T* sM, const T* sH, int w,
 }
 
 // ---------------------------------------------------------------------------
+// The row table of K12 and K13
+// ---------------------------------------------------------------------------
+//
+// `const_table_kernel` (one thread, _row_factors' order): inv and cp (n
+// values each), then one value (the wrappers' K13_TAIL): the rows'
+// stiffness ratio, the largest (|a_i| + |c_i|)/(b_i - |a_i| - |c_i|) (a_0
+// and c_{n-1} do not count; infinity where the denominator is not
+// positive).
+template <typename T>
+__global__ void const_table_kernel(const T* __restrict__ a,
+                                   const T* __restrict__ b,
+                                   const T* __restrict__ c,
+                                   T* __restrict__ tab, int64_t n) {
+  if (blockIdx.x != 0 || threadIdx.x != 0) return;
+  T cprev = T(0), ratio = T(0);
+  for (int64_t i = 0; i < n; ++i) {
+    const T iv = div(T(1), sub(b[i], mul(a[i], cprev)));
+    cprev = mul(c[i], iv);
+    tab[i] = iv;
+    tab[n + i] = cprev;
+    const T off = add(i == 0 ? T(0) : fabs(a[i]),
+                      i == n - 1 ? T(0) : fabs(c[i]));
+    const T den = sub(b[i], off);
+    const T r = den > T(0) ? div(off, den) : T(INFINITY);
+    ratio = r > ratio ? r : ratio;
+  }
+  tab[2 * n] = ratio;
+}
+
+// the table's stiffness ratio
+template <typename T>
+__device__ __forceinline__ T table_ratio(const T* __restrict__ tab,
+                                         int64_t n) {
+  return __ldg(tab + 2 * n);
+}
+
+// ---------------------------------------------------------------------------
+// K12: the constant-row r sweep
+// ---------------------------------------------------------------------------
+//
+// K12's march (lines of up to kK12MarchRows rows at float32,
+// kK12MarchRows64 at float64, a thread a line): the first rows of each
+// line in registers (NR: 8, 16, 32 or 64 at float32, up to kK12RegRows;
+// half of that at float64), unrolled, the rest in shared memory (a column
+// of blockDim.x values a row), kK12MarchThreads threads a block.
+// kK12MarchRows, kK12MarchRows64: where the march and the split kernel
+// cross on the H100 (PERF.md section 6; scripts/cyl_be_tune.py
+// --crossover, r lines of n rows of phase 7's annulus kind, ~2^25 cells):
+// the march 0.120-0.164 ms from 16 to 256 rows against the split
+// kernel's 0.226-0.274, a tie at 384 (160 KB of shared memory a block);
+// at float64 0.218-0.242 up to 128 rows against 0.268-0.364, a tie at
+// 160.  Every row in registers took 0.199 ms at 128 rows (179 registers).
+constexpr int kK12MarchRows = 256;
+constexpr int kK12MarchRows64 = 128;
+constexpr int kK12RegRows = 64;
+constexpr int kK12MarchThreads = 128;
+
+template <typename T>
+struct K12March {
+  static constexpr int kRows =
+      sizeof(T) == 4 ? kK12MarchRows : kK12MarchRows64;
+  static constexpr int kRegRows =
+      sizeof(T) == 4 ? kK12RegRows : kK12RegRows / 2;
+};
+
+// K12's stiffness ratio: a table past it is solved in Thomas order past
+// the march, bit for bit const_sweep_strided_plain.  1024, as K13's: with
+// every table split, over five seeds and dt x1-1000 on chip_smoke.py
+// phase 7's shapes, the spiral app's r rows and 512-row lines
+// (scripts/cyl_be_tune.py, PERF.md section 6), tables below 1024 stayed
+// within 5.1 float32 ulp of scale of the plain version (the gate is 8),
+// those of 2261 reached 8.6.
+constexpr double kK12Stiff = 1024.0;
+
+// The split kernel's warps and the blocks an SM its registers are held to
+// (as K14's).
+constexpr int kK12Warps = 16;
+constexpr int kK12Blocks = 1;
+
+// B lines of n rows B apart, a thread a line, in Thomas order on the
+// table's factors (forward's and the back substitution's roundings: the
+// plain version's).  The block stages a, radd, inv and cp in shared
+// memory.  Each thread first sends its line's rows past NR by cp.async
+// into its column of shared memory, then loads its first NR rows into
+// registers (the loop is unrolled: all the loads are in flight together)
+// and runs the chain over them while the copies land; d' stays where its
+// row is, and the back substitution writes x once.
+template <typename T, int NR>
+__global__ void __launch_bounds__(kK12MarchThreads)
+    const_march_kernel(const T* __restrict__ rhs, const T* __restrict__ a,
+                       const T* __restrict__ radd, const T* __restrict__ tab,
+                       T* __restrict__ out, int64_t n, int64_t B) {
+  extern __shared__ __align__(16) unsigned char atf_smem[];
+  T* sa = reinterpret_cast<T*>(atf_smem);        // a, radd, inv, cp
+  T* sr = sa + n;
+  T* si = sr + n;
+  T* sc = si + n;
+  T* sd = sc + n + threadIdx.x;                  // rows NR..n-1 of the line
+  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool valid = p < B;
+  if (valid) {
+    for (int64_t i = NR; i < n; ++i) {
+      cp_async(sd + (i - NR) * blockDim.x, rhs + i * B + p, (int)sizeof(T));
+    }
+  }
+  cp_async_commit();
+  for (int64_t i = threadIdx.x; i < n; i += blockDim.x) {
+    sa[i] = __ldg(a + i);
+    sr[i] = __ldg(radd + i);
+    si[i] = __ldg(tab + i);
+    sc[i] = __ldg(tab + n + i);
+  }
+  __syncthreads();
+  if (!valid) return;
+  T d[NR];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    if (i < n) d[i] = rhs[(int64_t)i * B + p];
+  }
+  T dp = T(0);
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    if (i < n) {
+      dp = forward(d[i], sr[i], sa[i], si[i], dp);
+      d[i] = dp;
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll 4
+  for (int64_t i = NR; i < n; ++i) {
+    T& v = sd[(i - NR) * blockDim.x];
+    dp = forward(v, sr[i], sa[i], si[i], dp);
+    v = dp;
+  }
+  T x = T(0);
+#pragma unroll 4
+  for (int64_t i = n - 1; i >= NR; --i) {
+    x = sub(sd[(i - NR) * blockDim.x], mul(sc[i], x));
+    out[i * B + p] = x;
+  }
+#pragma unroll
+  for (int i = NR - 1; i >= 0; --i) {
+    if (i < n) {
+      x = sub(d[i], mul(sc[i], x));
+      out[(int64_t)i * B + p] = x;
+    }
+  }
+}
+
+// Line p of a table past kK12Stiff in Thomas order, its rows read from
+// global memory and d' through the output: the plain version's roundings.
+template <typename T>
+__device__ __noinline__ void const_thomas_strided(
+    const T* __restrict__ rhs, const T* __restrict__ a,
+    const T* __restrict__ radd, const T* __restrict__ tab,
+    T* __restrict__ out, int64_t p, int64_t n, int64_t B) {
+  T dp = T(0);
+  for (int64_t i = 0; i < n; ++i) {
+    dp = forward(rhs[i * B + p], __ldg(radd + i), __ldg(a + i),
+                 __ldg(tab + i), dp);
+    out[i * B + p] = dp;
+  }
+  T x = T(0);
+  for (int64_t i = n - 1; i >= 0; --i) {
+    x = sub(out[i * B + p], mul(__ldg(tab + n + i), x));
+    out[i * B + p] = x;
+  }
+}
+
+// Lines past the march: a tile's lanes are 32 adjacent lines (p = 32 t +
+// lane), the block's W warps taking consecutive runs of R*M rows (kRegs:
+// R = 1, the rows kept in registers; else each pass reads them again, d'
+// through the output), solved by run and carry (above, the order of K13),
+// the blocks persistent (as many as fit on the card), each walking tiles
+// gridDim.x apart and, with kRegs, loading its rows of the next tile
+// before it solves this one.  A table past kK12Stiff: every thread marches
+// lines in Thomas order instead.
+template <typename T, int M, bool kRegs>
+__global__ void __launch_bounds__(32 * kK12Warps, kK12Blocks)
+    const_split_kernel(const T* __restrict__ rhs, const T* __restrict__ a,
+                       const T* __restrict__ radd, const T* __restrict__ tab,
+                       T* __restrict__ out, int64_t n, int64_t B, int R) {
+  __shared__ T sL[32 * kK12Warps], sM[32 * kK12Warps], sG[kK12Warps],
+      sH[kK12Warps];
+  if (table_ratio(tab, n) > T(kK12Stiff)) {      // Thomas order
+    for (int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; p < B;
+         p += (int64_t)gridDim.x * blockDim.x) {
+      const_thomas_strided(rhs, a, radd, tab, out, p, n, B);
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int W = blockDim.x >> 5;
+  const T* inv = tab;
+  const T* cp = tab + n;
+  const int64_t tiles = atf::cdiv(B, 32);
+  const int64_t i0 = (int64_t)w * R * M;        // the run's first row
+  auto coef = [&](int64_t i) { return i == 0 ? T(0) : __ldg(a + i); };
+  T next[kRegs ? M : 1];
+  auto prefetch = [&](int64_t t) {
+    if (t >= tiles) return;
+    const int64_t p = t * 32 + lane;
+#pragma unroll
+    for (int k = 0; k < M; ++k) {
+      const int64_t i = i0 + k;
+      next[k] = (p < B && i < n) ? rhs[i * B + p] : T(0);
+    }
+  };
+  if constexpr (kRegs) prefetch(blockIdx.x);
+
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t p = t * 32 + lane;
+    const bool valid = p < B;
+    T d[kRegs ? M : 1];
+    if constexpr (kRegs) {
+#pragma unroll
+      for (int k = 0; k < M; ++k) d[k] = next[k];
+      prefetch(t + gridDim.x);
+    }
+    // row i's rhs (k: its place in the run's registers), or d' after the
+    // forward passes
+    auto value = [&](int64_t i, int k) {
+      if constexpr (kRegs) {
+        return d[k];
+      } else {
+        return valid ? rhs[i * B + p] : T(0);
+      }
+    };
+    auto dprime = [&](int64_t i, int k) {
+      if constexpr (kRegs) {
+        return d[k];
+      } else {
+        return valid ? out[i * B + p] : T(0);
+      }
+    };
+
+    T l = T(0), G = T(1);                        // forward from zero
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int k = 0; k < M; ++k) {
+        const int64_t i = i0 + (int64_t)r * M + k;
+        if (i < n) {
+          run_forward(value(i, k) + __ldg(radd + i), coef(i), __ldg(inv + i),
+                      l, G);
+        }
+      }
+    }
+    sL[threadIdx.x] = l;
+    if (lane == 0) sG[w] = G;
+    __syncthreads();
+    T dp = carry_forward(sL, sG, w, lane);       // forward again: d'
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int k = 0; k < M; ++k) {
+        const int64_t i = i0 + (int64_t)r * M + k;
+        if (i < n) {
+          dp = (value(i, k) + __ldg(radd + i) - coef(i) * dp) *
+               __ldg(inv + i);
+          if constexpr (kRegs) {
+            d[k] = dp;
+          } else if (valid) {
+            out[i * B + p] = dp;
+          }
+        }
+      }
+    }
+    T m = T(0), H = T(1);                        // backward from zero
+    for (int r = R - 1; r >= 0; --r) {
+#pragma unroll
+      for (int k = M - 1; k >= 0; --k) {
+        const int64_t i = i0 + (int64_t)r * M + k;
+        if (i < n) run_backward(dprime(i, k), __ldg(cp + i), m, H);
+      }
+    }
+    sM[threadIdx.x] = m;
+    if (lane == 0) sH[w] = H;
+    __syncthreads();
+    T y = T(0);                                  // backward again: x
+    carry_backward(sM, sH, w, W, lane, y);
+    for (int r = R - 1; r >= 0; --r) {
+#pragma unroll
+      for (int k = M - 1; k >= 0; --k) {
+        const int64_t i = i0 + (int64_t)r * M + k;
+        if (i < n) {
+          y = dprime(i, k) - __ldg(cp + i) * y;
+          if (valid) out[i * B + p] = y;
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K13: the constant-row z sweep
 // ---------------------------------------------------------------------------
 //
-// Its table (`const_table_kernel`, one thread, _row_factors' order): inv
-// and cp (n values each), then kK13Tail values: the rows' stiffness ratio,
-// the largest (|a_i| + |c_i|)/(b_i - |a_i| - |c_i|) (a_0 and c_{n-1} do
-// not count; infinity where the denominator is not positive).
-constexpr int kK13Tail = 1;
-
 // K13's stiffness ratio: a table past it is solved in Thomas order, bit
 // for bit const_sweep_z_plain.  1024: with every table split, over five
 // seeds and dt x1-100 on chip_smoke.py phase 7's shapes, the spiral app's
@@ -208,24 +469,6 @@ constexpr double kK13Stiff = 1024.0;
 constexpr int kK13Warps = 16;
 constexpr int kK13Unroll = 8;
 constexpr int kK13StageKB = 200;
-
-template <typename T>
-__global__ void const_table_kernel(const T* __restrict__ a,
-                                   const T* __restrict__ b,
-                                   const T* __restrict__ c,
-                                   T* __restrict__ tab, int64_t n) {
-  if (blockIdx.x != 0 || threadIdx.x != 0) return;
-  row_factors(a, b, c, n, tab, tab + n);
-  T ratio = T(0);
-  for (int64_t i = 0; i < n; ++i) {
-    const T off = add(i == 0 ? T(0) : fabs(a[i]),
-                      i == n - 1 ? T(0) : fabs(c[i]));
-    const T den = sub(b[i], off);
-    const T r = den > T(0) ? div(off, den) : T(INFINITY);
-    ratio = r > ratio ? r : ratio;
-  }
-  tab[2 * n] = ratio;
-}
 
 // A tile: 32 lines (the lanes; pen0 its first), warp w taking rows [w R,
 // (w + 1) R).  kStaged: the tile is staged into shared memory by cp.async
@@ -284,7 +527,7 @@ __global__ void __launch_bounds__(32 * kK13Warps)
   const T* inv = tab;
   const T* cp = tab + n;
 
-  if (__ldg(tab + 2 * n) > T(kK13Stiff)) {       // Thomas order
+  if (table_ratio(tab, n) > T(kK13Stiff)) {       // Thomas order
     if (w == 0 && valid) {
       T dp = T(0);
       for (int64_t i = 0; i < n; ++i) {
@@ -424,7 +667,7 @@ __global__ void __launch_bounds__(32 * kK13Warps)
   const T* inv = tab;
   const T* cp = tab + n;
 
-  if (__ldg(tab + 2 * n) > T(kK13Stiff)) {       // Thomas order
+  if (table_ratio(tab, n) > T(kK13Stiff)) {       // Thomas order
     if (w == 0 && lane < np) {
       auto el = [&](int64_t i) -> T& {
         return tile[at(lane, i / V)].v[i % V];
@@ -749,19 +992,83 @@ __global__ void __launch_bounds__(32 * kK14Warps, kK14Blocks)
   }
 }
 
+// The march's shared memory: the four coefficient vectors and the rows
+// past NR of the block's lines.
 template <typename T>
-void launch_const_sweep_strided(const void* rhs, const void* a,
-                                const void* b, const void* c,
-                                const void* radd, void* out, int64_t n,
-                                int64_t B, cudaStream_t stream) {
-  const int threads = 256;
-  const int64_t blocks = atf::cdiv(B, threads);
-  const size_t smem = 2 * n * sizeof(T);
-  atf::allow_dynamic_smem(const_sweep_strided_kernel<T>, smem);
-  const_sweep_strided_kernel<T><<<(unsigned)blocks, threads, smem, stream>>>(
-      static_cast<const T*>(rhs), static_cast<const T*>(a),
-      static_cast<const T*>(b), static_cast<const T*>(c),
-      static_cast<const T*>(radd), static_cast<T*>(out), n, B);
+size_t const_march_smem(int64_t n, int NR) {
+  const int64_t shared_rows = n > NR ? n - NR : 0;
+  return sizeof(T) *
+         (4 * (size_t)n + (size_t)shared_rows * kK12MarchThreads);
+}
+
+template <typename T, int NR>
+cudaError_t launch_const_march(const T* rhs, const T* a, const T* radd,
+                               const T* tab, T* out, int64_t n, int64_t B,
+                               cudaStream_t stream) {
+  const int threads = kK12MarchThreads;
+  const size_t smem = const_march_smem<T>(n, NR);
+  auto* kernel = const_march_kernel<T, NR>;
+  atf::allow_dynamic_smem(kernel, smem);
+  kernel<<<(unsigned)atf::cdiv(B, threads), threads, smem, stream>>>(
+      rhs, a, radd, tab, out, n, B);
+  return cudaSuccess;
+}
+
+template <typename T, int M, bool kRegs>
+cudaError_t launch_const_split(const T* rhs, const T* a, const T* radd,
+                               const T* tab, T* out, int64_t n, int64_t B,
+                               int device, cudaStream_t stream) {
+  // every warp takes at least one row
+  const int R = kRegs ? 1 : (int)atf::cdiv(n, (int64_t)kK12Warps * M);
+  const int W = (int)atf::cdiv(n, (int64_t)R * M);
+  auto* kernel = const_split_kernel<T, M, kRegs>;
+  int per_sm = 0, sms = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * W, 0);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int64_t blocks = atf::imin(
+      atf::cdiv(B, 32), (int64_t)(per_sm > 0 ? per_sm : 1) *
+                            (sms > 0 ? sms : 1));
+  kernel<<<(unsigned)blocks, 32 * W, 0, stream>>>(rhs, a, radd, tab, out, n,
+                                                  B, R);
+  return cudaSuccess;
+}
+
+// K12: the (n, B) field's lines along axis 0, the march up to
+// K12March<T>::kRows rows (where its shared memory fits); past it the
+// split kernel with M rows a thread, the fewest that keep a line in
+// registers within kK12Warps warps (at most 32 at float32, 16 at float64),
+// else 16 rows a thread read again in each pass.
+template <typename T>
+cudaError_t launch_const_sweep_strided(const void* rhs, const void* a,
+                                       const void* radd, const void* tab,
+                                       void* out, int64_t n, int64_t B,
+                                       int device, cudaStream_t stream) {
+  auto* r = static_cast<const T*>(rhs);
+  auto* av = static_cast<const T*>(a);
+  auto* ra = static_cast<const T*>(radd);
+  auto* t = static_cast<const T*>(tab);
+  auto* o = static_cast<T*>(out);
+  constexpr int kRegRows = K12March<T>::kRegRows;
+  if (n <= K12March<T>::kRows &&
+      const_march_smem<T>(n, kRegRows) <= (size_t)smem_limit(device)) {
+    auto args = std::make_tuple(r, av, ra, t, o, n, B, stream);
+    if (n <= 8) return std::apply(launch_const_march<T, 8>, args);
+    if (n <= 16) return std::apply(launch_const_march<T, 16>, args);
+    if (n <= 32 || kRegRows == 32) {
+      return std::apply(launch_const_march<T, 32>, args);
+    }
+    return std::apply(launch_const_march<T, kRegRows>, args);
+  }
+  auto args = std::make_tuple(r, av, ra, t, o, n, B, device, stream);
+  auto fits = [&](int M) { return atf::cdiv(n, M) <= kK12Warps; };
+  if (fits(4)) return std::apply(launch_const_split<T, 4, true>, args);
+  if (fits(8)) return std::apply(launch_const_split<T, 8, true>, args);
+  if (fits(16)) return std::apply(launch_const_split<T, 16, true>, args);
+  if (sizeof(T) == 4 && fits(32)) {
+    return std::apply(
+        launch_const_split<T, sizeof(T) == 4 ? 32 : 16, true>, args);
+  }
+  return std::apply(launch_const_split<T, 16, false>, args);
 }
 
 // K13: lines of n rows split into runs over W warps; the tile staged where
@@ -877,13 +1184,13 @@ void launch_cyclic_const_table(const void* fac, void* tab, int64_t B1,
 }  // namespace
 
 ATF_API int atf_const_sweep_strided(int dtype, int device, const void* rhs,
-                                    const void* a, const void* b,
-                                    const void* c, const void* radd,
-                                    void* out, int64_t n, int64_t B,
-                                    void* stream) {
+                                    const void* a, const void* radd,
+                                    const void* tab, void* out, int64_t n,
+                                    int64_t B, void* stream) {
   ATF_DISPATCH(dtype, device,
-               launch_const_sweep_strided<T>(rhs, a, b, c, radd, out, n, B,
-                                             (cudaStream_t)stream));
+               ATF_RETURN_IF(launch_const_sweep_strided<T>(
+                   rhs, a, radd, tab, out, n, B, device,
+                   (cudaStream_t)stream)));
 }
 
 ATF_API int atf_const_sweep_z(int dtype, int device, const void* rhs,
@@ -896,7 +1203,7 @@ ATF_API int atf_const_sweep_z(int dtype, int device, const void* rhs,
                    (cudaStream_t)stream)));
 }
 
-// K13's table, 2n + kK13Tail values.
+// K12's and K13's row table, 2n + 1 values.
 ATF_API int atf_const_sweep_table(int dtype, int device, const void* a,
                                   const void* b, const void* c, void* tab,
                                   int64_t n, void* stream) {

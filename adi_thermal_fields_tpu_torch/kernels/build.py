@@ -77,7 +77,7 @@ _SIGNATURES = {
     "atf_masked_sweep_z": ([_I, _I, *[_P] * 8, _I64, _I64, _D, _D, _P], _I),
     "atf_masked_cyclic_phi": ([_I, _I, *[_P] * 6, _I64, _I64, _I64, _D, _D,
                                _P], _I),
-    "atf_const_sweep_strided": ([_I, _I, *[_P] * 6, _I64, _I64, _P], _I),
+    "atf_const_sweep_strided": ([_I, _I, *[_P] * 5, _I64, _I64, _P], _I),
     "atf_const_sweep_z": ([_I, _I, *[_P] * 5, _I64, _I64, _P], _I),
     "atf_const_sweep_table": ([_I, _I, *[_P] * 4, _I64, _P], _I),
     "atf_cyclic_const_phi": ([_I, _I, *[_P] * 4, _I64, _I64, _I64, _P], _I),

@@ -28,8 +28,8 @@ K11, K16, K18 and K22 run one periodic split-line kernel
 (csrc/split_cyclic.cuh) with their own row formers.
 Each wrapper counts its CUDA launches in a ``launches`` attribute; K1-K4
 count their bfloat16 entries apart, in ``<wrapper>.bf16.launches``
-("K1b"-"K4b"), K1 its v1 entry in ``sweep_strided.v1.launches``, K13
-its table's kernel in ``const_sweep_table.launches`` ("K13t") and
+("K1b"-"K4b"), K1 its v1 entry in ``sweep_strided.v1.launches``, K12's
+and K13's table kernel in ``const_sweep_table.launches`` ("K13t") and
 K14 its table's kernel in ``cyclic_const_phi_table.launches`` ("K14t");
 ``vp_fields_sweep_z`` counts in ``vp_fields_sweep_strided.launches``
 (K17).

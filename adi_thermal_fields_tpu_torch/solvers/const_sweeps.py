@@ -21,22 +21,24 @@ with gauge ``gamma = -b``, with one ``fac`` per B1 index (per ring).
 The coefficients depend on the row (K14: the ring and the row) only, so
 ``inv[i] = 1/(b[i] - a[i] cp[i-1])``, ``cp[i] = c[i] inv[i]`` and K14's
 Sherman-Morrison vector z are computed once per row or ring, by the plain
-versions and the kernels alike, and each line carries only its rhs.  K13
-and K14 take their factors from a table (``const_sweep_table``, built by
-a kernel of one thread, and ``cyclic_const_phi_table``, of one thread a
-ring; each bit for bit its plain version's; the step keeps both for its
-dt) and split each line across a block's warps, by run and carry
-(csrc/const_sweeps.cu): within a few float32 ulp of the output's scale of
-their plain versions, except past a stiffness ratio (K13: the table's
-ratio past ``kK13Stiff``; K14: the rings whose 2 fac passes
-``kK14Stiff``; constants of the CUDA source), where they solve in Thomas
-order, bit for bit.
+versions and the kernels alike, and each line carries only its rhs.  The
+kernels take their factors from a table (``const_sweep_table`` for K12
+and K13, built by a kernel of one thread, and ``cyclic_const_phi_table``
+for K14, of one thread a ring; each bit for bit its plain version's; the
+step keeps them for its dt).  K12 marches a thread a line on lines of up
+to ``kK12MarchRows`` rows (d' in registers): bit for bit its plain
+version.  Longer K12 lines, and K13 and K14, split each line across a
+block's warps, by run and carry (csrc/const_sweeps.cu): within a few
+float32 ulp of the output's scale of their plain versions, except past a
+stiffness ratio (K12 and K13: the table's ratio past ``kK12Stiff`` and
+``kK13Stiff``; K14: the rings whose 2 fac passes ``kK14Stiff``; constants
+of the CUDA source), where they solve in Thomas order, bit for bit.
 
 Each wrapper checks its inputs on every device (float32/float64,
 contiguous, (n,) coefficient vectors of the field's dtype), then runs its
 plain version on CPU tensors and its kernel on CUDA tensors (or raises),
 and counts the launches in ``launches`` (the table kernels in
-``const_sweep_table.launches``, "K13t", and
+``const_sweep_table.launches``, "K13t" (K12's table too), and
 ``cyclic_const_phi_table.launches``, "K14t").
 """
 from __future__ import annotations
@@ -52,7 +54,7 @@ __all__ = ["const_sweep_strided", "const_sweep_strided_plain",
            "cyclic_const_phi_plain", "cyclic_const_phi_table",
            "cyclic_const_phi_table_plain"]
 
-# K13's table: its values past the 2n factors (kK13Tail: the stiffness
+# K12's and K13's table: its values past the 2n factors (the stiffness
 # ratio); K14's: its values a ring past the 3n factors (kK14Tail)
 K13_TAIL = 1
 K14_TAIL = 3
@@ -98,11 +100,11 @@ def const_sweep_z_plain(rhs, a, b, c, radd):
 
 
 def const_sweep_table_plain(a, b, c):
-    """Plain version of K13's table: (2n + 1,) values, ``inv`` and ``cp``
-    (``_row_factors``' bit for bit), then the rows' stiffness ratio, the
-    largest ``(|a_i| + |c_i|)/(b_i - |a_i| - |c_i|)`` (``a[0]`` and
-    ``c[n-1]`` do not count; infinity where the denominator is not
-    positive)."""
+    """Plain version of K12's and K13's table: (2n + 1,) values, ``inv``
+    and ``cp`` (``_row_factors``' bit for bit), then the rows' stiffness
+    ratio, the largest ``(|a_i| + |c_i|)/(b_i - |a_i| - |c_i|)``
+    (``a[0]`` and ``c[n-1]`` do not count; infinity where the denominator
+    is not positive)."""
     inv, cp = _row_factors(a, b, c)
     aa, ca = a.abs(), c.abs()
     aa[0] = 0.0
@@ -180,27 +182,40 @@ def _check(name, rhs, n, *vecs):
     check_vectors(name, rhs, n, *vecs)
 
 
-def _sweep(rhs, a, b, c, radd):
-    """Launch K12 on CUDA tensors."""
-    n = rhs.shape[0]
-    out = torch.empty_like(rhs)
-    err = load_library().atf_const_sweep_strided(
-        dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(a), ptr(b),
-        ptr(c), ptr(radd), ptr(out), n, rhs.numel() // n,
-        stream_ptr(rhs.device))
-    raise_on_error(err, "const_sweep_strided")
-    return out
+def _check_table(name, rhs, n, table):
+    """A K12 or K13 table: (2n + K13_TAIL,), the field's dtype, contiguous."""
+    if table is not None and (table.shape != (2 * n + K13_TAIL,)
+                              or table.dtype != rhs.dtype
+                              or not table.is_contiguous()):
+        raise ValueError(f"{name}: the table must be the contiguous "
+                         f"({2 * n + K13_TAIL},) table of the field's dtype "
+                         "(const_sweep_table)")
 
 
 def const_sweep_strided(rhs: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                        c: torch.Tensor, radd: torch.Tensor) -> torch.Tensor:
+                        c: torch.Tensor, radd: torch.Tensor,
+                        table: torch.Tensor | None = None) -> torch.Tensor:
     """K12: constant-row sweep along axis 0 of a C-contiguous field (the r
-    sweep of the natural (r, phi, z) field); ``a, b, c, radd``: (n,)."""
-    kernel = use_kernel(rhs, a, b, c, radd)
-    _check("const_sweep_strided", rhs, rhs.shape[0], a, b, c, radd)
+    sweep of the natural (r, phi, z) field); ``a, b, c, radd``: (n,);
+    ``table``: their ``const_sweep_table`` (built in the call where None:
+    a launch of its kernel too).  Lines of up to the kernel's march rows
+    are solved a thread a line in Thomas order, bit for bit the plain
+    version; longer lines are split across a block's warps, except where
+    the table's stiffness ratio passes the kernel's."""
+    kernel = use_kernel(rhs, a, b, c, radd, table)
+    n = rhs.shape[0]
+    _check("const_sweep_strided", rhs, n, a, b, c, radd)
+    _check_table("const_sweep_strided", rhs, n, table)
     if not kernel:
         return const_sweep_strided_plain(rhs, a, b, c, radd)
-    out = _sweep(rhs, a, b, c, radd)
+    if table is None:
+        table = const_sweep_table(a, b, c)
+    out = torch.empty_like(rhs)
+    err = load_library().atf_const_sweep_strided(
+        dtype_code(rhs.dtype), rhs.device.index, ptr(rhs), ptr(a),
+        ptr(radd), ptr(table), ptr(out), n, rhs.numel() // n,
+        stream_ptr(rhs.device))
+    raise_on_error(err, "const_sweep_strided")
     const_sweep_strided.launches += 1
     return out
 
@@ -210,10 +225,11 @@ const_sweep_strided.launches = 0
 
 def const_sweep_table(a: torch.Tensor, b: torch.Tensor,
                       c: torch.Tensor) -> torch.Tensor:
-    """K13's table of the rows' factors (see ``const_sweep_table_plain``):
-    on CUDA tensors built by a kernel of one thread ("K13t"), bit for bit
-    the plain version's.  It depends on ``a``, ``b`` and ``c`` alone: the
-    step keeps it beside them for its dt."""
+    """K12's and K13's table of the rows' factors (see
+    ``const_sweep_table_plain``): on CUDA tensors built by a kernel of one
+    thread ("K13t"), bit for bit the plain version's.  It depends on
+    ``a``, ``b`` and ``c`` alone: the step keeps it beside them for its
+    dt."""
     n = b.shape[0] if b.dim() == 1 else -1
     _check("const_sweep_table", b, n, a, b, c)
     if not use_kernel(a, b, c):
@@ -242,12 +258,7 @@ def const_sweep_z(rhs: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     kernel = use_kernel(rhs, a, b, c, radd, table)
     n = rhs.shape[-1]
     _check("const_sweep_z", rhs, n, a, b, c, radd)
-    if table is not None and (table.shape != (2 * n + K13_TAIL,)
-                              or table.dtype != rhs.dtype
-                              or not table.is_contiguous()):
-        raise ValueError("const_sweep_z: the table must be the contiguous "
-                         f"({2 * n + K13_TAIL},) table of the field's dtype "
-                         "(const_sweep_table)")
+    _check_table("const_sweep_z", rhs, n, table)
     if not kernel:
         return const_sweep_z_plain(rhs, a, b, c, radd)
     if table is None:

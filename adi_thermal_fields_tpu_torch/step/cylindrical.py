@@ -19,8 +19,9 @@ Two implementations:
 
 * ``"kernels"`` (the JAX ``"pallas"`` route): K12 along r, K14 along phi
   (not launched when nphi == 1), K13 along z in the natural layout with
-  the Dirichlet end rows written into its rhs first; K13's and K14's
-  tables (K13t, K14t) built once per dt and cached;
+  the Dirichlet end rows written into its rhs first; K12's and K13's
+  row tables (both K13t) and K14's ring table (K14t) built once per dt
+  and cached;
 * ``"reference"`` (the JAX ``"xla"`` route): ``thomas`` with per-row
   coefficient vectors along r and z, ``phi_solve_spectral`` along phi.
 
@@ -254,6 +255,16 @@ def _r_coefficients(grid, mat, robin_outer, robin_inner, theta_dt, dtype,
 
 
 @functools.lru_cache(maxsize=64)
+def _r_table(grid, mat, robin_outer, robin_inner, theta_dt, dtype, device):
+    """K12's table of the r rows' factors (``const_sweep_table``), kept
+    beside ``_r_coefficients`` under the same key: a run of steps at one
+    dt builds it once."""
+    a, b, c, _ = _r_coefficients(grid, mat, robin_outer, robin_inner,
+                                 theta_dt, dtype, device)
+    return const_sweep_table(a, b, c)
+
+
+@functools.lru_cache(maxsize=64)
 def _z_coefficients(grid, mat, zbc, theta_dt, dtype, device):
     ge_a, ge_c, ge_b, rob_rhs, dir_rows = _z_geometry(grid, mat, zbc)
     fac = theta_dt * mat.alpha / (grid.dz * grid.dz)
@@ -294,10 +305,11 @@ def _col(v):
 def _r_sweep(rhs, grid, mat, theta_dt, robin_outer, robin_inner,
              implementation):
     """Solve (I - theta*dt*alpha*L_r) x = rhs along axis 0."""
-    a, b, c, radd = _r_coefficients(grid, mat, robin_outer, robin_inner,
-                                    theta_dt, rhs.dtype, rhs.device)
+    key = (grid, mat, robin_outer, robin_inner, theta_dt, rhs.dtype,
+           rhs.device)
+    a, b, c, radd = _r_coefficients(*key)
     if implementation == "kernels":
-        return const_sweep_strided(rhs, a, b, c, radd)
+        return const_sweep_strided(rhs, a, b, c, radd, _r_table(*key))
     return thomas(_col(a), _col(b), _col(c), rhs + _col(radd))
 
 

@@ -98,19 +98,23 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    % of 3.35 TB/s at 8 B/cell, and the time of one PyTorch call computing
    the same function (K12/K13: addmm by the dense inverse of the constant
    per-row matrix, built once, TF32 off; K14: the spectral solve, rfft ->
-   divide -> irfft).  K13 and K14 run with the step's tables (each built
-   once per dt by its own kernel, K13t and K14t: bit for bit their plain
-   versions, their kernel and plain ms, no PyTorch call); K13 prints its
-   table's stiffness ratio and K14 the share of rings past its own (the
-   source's kK13Stiff and kK14Stiff: Thomas order) at both shapes, and K13
-   runs once more on the disk at a dt whose table passes kK13Stiff (bit
-   for bit).
+   divide -> irfft).  K12, K13 and K14 run with the step's tables (each
+   built once per dt by its own kernel, K12's and K13's by K13t and K14's
+   by K14t: bit for bit their plain versions, their kernel and plain ms,
+   no PyTorch call); K12 is bit for bit its plain version on lines it
+   marches (up to the source's kK12MarchRows rows), and runs once more on
+   r lines past them (K12_LONG_ROWS: the split kernel, within
+   KERNEL_TOL_ULP); K13 prints its table's stiffness ratio and K14 the
+   share of rings past its own (the source's kK13Stiff and kK14Stiff:
+   Thomas order) at both shapes, and K13 runs once more on the disk at a
+   dt whose table passes kK13Stiff (bit for bit).
    Its step part: the (128, 512, 512) step through adi_step_cylindrical,
    backward Euler and then Douglas, kernels against reference (thomas +
    FFT) after 3 steps within STEP_TOL, CUDA-event ms/step after two
    warm-up steps, Gcell/s, and launches of exactly K12, K13 and K14 once
-   per step and K13t and K14t once a run (the tables cached for the dt
-   after the first step).  Its app part:
+   per step, K13t twice a run (K12's r table and K13's z table) and K14t
+   once (the tables cached for the dt after the first step).  Its app
+   part:
    phase 6's spiral app with --void_mode clamp, kernels and reference: T
    finite, Tmax <= --Ts in every frame, every deposited column active, the
    two runs within APP_TOL, and more than 1 K from phase 6's robin-mode
@@ -338,7 +342,8 @@ KERNEL_INFO = {
             "adi_thermal_fields_tpu/solvers/pallas_sweeps.py:1567"),
     "K13": ("const_sweep_z", "csrc/const_sweeps.cu",
             "adi_thermal_fields_tpu/solvers/pallas_sweeps.py:1567"),
-    "K13t": ("const_sweep_table, K13's row table", "csrc/const_sweeps.cu",
+    "K13t": ("const_sweep_table, K12's and K13's row table",
+             "csrc/const_sweeps.cu",
              "adi_thermal_fields_tpu/solvers/pallas_sweeps.py:1567"),
     "K14": ("cyclic_const_phi", "csrc/const_sweeps.cu",
             "adi_thermal_fields_tpu/solvers/pallas_sweeps.py:1727"),
@@ -389,8 +394,10 @@ KERNEL_INFO = {
 }
 # float32 operations per cell of each kernel's main variant, counted from
 # its source (adds, multiplies and divides of one row, the back
-# substitution, table segments evaluated; an estimate for the bound; K13:
-# the run-and-carry solve's two forward and two backward passes; K13t: per
+# substitution, table segments evaluated; an estimate for the bound; K12:
+# its march's forward pass and back substitution on the table's factors
+# (its split kernel, past the march, does K13's 15); K13: the
+# run-and-carry solve's two forward and two backward passes; K13t: per
 # row of its table, the factors and the stiffness ratio; K14t: per ring
 # and phi row of its table)
 OPS_PER_CELL = {"K1": 22, "K2": 22, "K3": 20, "K4": 42, "K5": 140,
@@ -410,6 +417,9 @@ BE_KERNELS = ("K12", "K13", "K14", "K13t", "K14t")
 # rows (or one past the march, if longer), 512 phi rows, ~2^25 cells, as
 # the K15 crossover's shapes (scripts/cyl_be_tune.py)
 K9_LONG_ROWS = 97
+# K12's r lines past kK12MarchRows (the split kernel): 512 r rows (or one
+# past the march, if longer), 512 phi rows, ~2^25 cells
+K12_LONG_ROWS = 512
 CYL_VP_KERNELS = ("K8", "K15", "K16", "K17", "K18")
 # phase 9: the new kernels, and the kernels its routes share with earlier
 # phases (the apps' constant-property plans K1-K4, the varprop route
@@ -1418,8 +1428,9 @@ def dense_inverse_call(torch, vecs, axis, R):
 
 def phase2_be(torch, dev):
     """K12-K14 against their plain versions (float32), and the PyTorch
-    call computing each one's function; K13's and K14's tables (K13t,
-    K14t) bit for bit their plain versions'."""
+    call computing each one's function; K12's and K13's tables (K13t) and
+    K14's (K14t) bit for bit their plain versions'; K12 on lines past its
+    march."""
     from adi_thermal_fields_tpu_torch.solvers import (
         const_sweep_strided, const_sweep_strided_plain, const_sweep_table,
         const_sweep_table_plain, const_sweep_z,
@@ -1429,7 +1440,7 @@ def phase2_be(torch, dev):
     from adi_thermal_fields_tpu_torch.step import cylindrical as cyl
 
     f32 = torch.float32
-    eps32 = torch.finfo(f32).eps
+    k12_march = int(source_constant("kK12MarchRows", "const_sweeps.cu"))
     rows = []
     for label, shape in P7_SHAPES:
         grid, mat, rob, zbc = be_case(label, shape)
@@ -1466,9 +1477,18 @@ def phase2_be(torch, dev):
                               lambda: const_sweep_table(*z_vecs[:3]),
                               lambda: const_sweep_table_plain(
                                   *z_vecs[:3])))
+        # K12 with its table, as the step keeps it for its dt (K13t's
+        # kernel builds it)
+        r_key = (grid, mat, rob, None, P7_DT, f32, dev)
+        r_table = cyl._r_table(*r_key)
+        rows.append(table_row(torch, "K13t", f"{label} r", r_vecs[:3],
+                              grid.nr,
+                              lambda: const_sweep_table(*r_vecs[:3]),
+                              lambda: const_sweep_table_plain(
+                                  *r_vecs[:3])))
         variants = [
-            ("K12", "r", r_vecs,
-             lambda: const_sweep_strided(R, *r_vecs),
+            ("K12", "r", (*r_vecs, r_table),
+             lambda: const_sweep_strided(R, *r_vecs, r_table),
              lambda: const_sweep_strided_plain(R, *r_vecs),
              dense_inverse_call(torch, r_vecs, 0, R)),
             ("K14", "phi (cyclic)", (fac, table),
@@ -1480,41 +1500,31 @@ def phase2_be(torch, dev):
              lambda: const_sweep_z_plain(R, *z_vecs),
              dense_inverse_call(torch, z_vecs, 2, R)),
         ]
-        cells = R.numel()
         for kname, vname, ins, kern, plain, lib in variants:
-            got, want, lib_out = kern(), plain(), lib().view(shape)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got).all()),
-                  f"{kname} {vname} {label}: non-finite output")
-            err = float((got - want).abs().max())
-            ulps = err / (eps32 * float(want.abs().max()))
-            lib_err = float((lib_out - want).abs().max())
-            # the field read once and written once, and the vectors
-            nbytes = 2 * R.numel() * R.element_size() + sum(
-                t.numel() * t.element_size() for t in ins)
-            ms = cuda_ms(torch, kern, 20)
-            plain_ms = cuda_ms(torch, plain, 3)
-            lib_ms = cuda_ms(torch, lib, 10)
-            pct = 100.0 * nbytes / (ms * 1e-3) / HBM_BYTES_PER_S
-            rows.append(dict(kernel=kname, variant=vname, shape=label,
-                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bytes_per_cell=nbytes / cells,
-                             pct_hbm=pct, **bound(kname, nbytes, cells)))
-            print(f"[phase 2] {kname} {vname:32s} {label:20s} "
-                  f"max|d|={err:.3e} K ({ulps:.2f} ulp of scale, tol "
-                  f"{KERNEL_TOL_ULP})  kernel {ms:8.3f} ms  plain "
-                  f"{plain_ms:9.3f} ms  {pct:5.1f}% of 3.35 TB/s at "
-                  f"{nbytes / cells:.2f} B/cell; PyTorch call {lib_ms:8.3f} "
-                  f"ms (max|d| {lib_err:.3e} K)", flush=True)
-            check(ulps <= KERNEL_TOL_ULP, f"{kname} {vname} {label}: "
-                  f"{ulps:.2f} float32 ulp of the output's scale > "
-                  f"{KERNEL_TOL_ULP}")
-            check(kname != "K13" or ratio <= zs or torch.equal(got, want),
-                  f"K13 {label}: its table past kK13Stiff, and not bit for "
-                  "bit its plain version")
-            del got, want, lib_out
+            # K12 marches (bit for bit) lines of up to kK12MarchRows rows
+            bitwise = (kname == "K13" and ratio > zs
+                       or kname == "K12" and grid.nr <= k12_march)
+            rows.append(be_row(torch, kname, vname, label, R, ins, kern,
+                               plain, lib, bitwise))
         del R, variants
         torch.cuda.empty_cache()
+    # K12 on r lines past its march (the split kernel): K12_LONG_ROWS rows
+    # (or one past the march, if longer), 512 phi rows, ~2^25 cells
+    n = max(K12_LONG_ROWS, k12_march + 1)
+    shape = (n, 512, max(8, 2 ** 25 // (512 * n)))
+    label = f"{n}x512x{shape[2]} annular"
+    grid, mat, rob, _ = be_case(label, shape)
+    r_key = (grid, mat, rob, None, P7_DT, f32, dev)
+    r_vecs, r_table = cyl._r_coefficients(*r_key), cyl._r_table(*r_key)
+    R = random_field(torch, torch.ones(shape, dtype=torch.bool, device=dev),
+                     seed=23)
+    rows.append(be_row(torch, "K12", "r, split", label, R,
+                       (*r_vecs, r_table),
+                       lambda: const_sweep_strided(R, *r_vecs, r_table),
+                       lambda: const_sweep_strided_plain(R, *r_vecs),
+                       dense_inverse_call(torch, r_vecs, 0, R), False))
+    del R
+    torch.cuda.empty_cache()
     # K13 on the disk at a dt whose table passes kK13Stiff (twice it; the
     # ratio grows as dt): Thomas order, bit for bit
     label, shape = P7_SHAPES[1]
@@ -1534,6 +1544,42 @@ def phase2_be(torch, dev):
         lambda: const_sweep_z_plain(R, *z_vecs), bitwise=True))
     del R
     return rows
+
+
+def be_row(torch, kname, vname, label, R, ins, kern, plain, lib, bitwise):
+    """K12, K13 or K14 on R against its plain version: within
+    KERNEL_TOL_ULP float32 ulp of the output's scale, and where
+    ``bitwise`` bit for bit; its times, its share of 3.35 TB/s (R read
+    once and written once, and ``ins``) and the PyTorch call's time."""
+    f32 = torch.float32
+    got, want, lib_out = kern(), plain(), lib().view(R.shape)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()),
+          f"{kname} {vname} {label}: non-finite output")
+    err = float((got - want).abs().max())
+    ulps = err / (torch.finfo(f32).eps * float(want.abs().max()))
+    lib_err = float((lib_out - want).abs().max())
+    cells = R.numel()
+    nbytes = 2 * cells * R.element_size() + sum(
+        t.numel() * t.element_size() for t in ins)
+    ms = cuda_ms(torch, kern, 20)
+    plain_ms = cuda_ms(torch, plain, 3)
+    lib_ms = cuda_ms(torch, lib, 10)
+    pct = 100.0 * nbytes / (ms * 1e-3) / HBM_BYTES_PER_S
+    gate = "bitwise" if bitwise else f"tol {KERNEL_TOL_ULP}"
+    print(f"[phase 2] {kname} {vname:32s} {label:20s} "
+          f"max|d|={err:.3e} K ({ulps:.2f} ulp of scale, {gate})  kernel "
+          f"{ms:8.3f} ms  plain {plain_ms:9.3f} ms  {pct:5.1f}% of 3.35 "
+          f"TB/s at {nbytes / cells:.2f} B/cell; PyTorch call "
+          f"{lib_ms:8.3f} ms (max|d| {lib_err:.3e} K)", flush=True)
+    check(ulps <= KERNEL_TOL_ULP, f"{kname} {vname} {label}: {ulps:.2f} "
+          f"float32 ulp of the output's scale > {KERNEL_TOL_ULP}")
+    check(not bitwise or torch.equal(got, want), f"{kname} {vname} "
+          f"{label}: not bit for bit its plain version")
+    return dict(kernel=kname, variant=vname, shape=label, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bytes_per_cell=nbytes / cells, pct_hbm=pct,
+                **bound(kname, nbytes, cells))
 
 
 def table_row(torch, kname, label, ins, cells, kern, plain):
@@ -1568,9 +1614,10 @@ def phase7_step(torch, dev):
     grid, mat, rob, zbc = be_case(label, shape)
     T0 = random_field(torch, torch.ones(shape, dtype=torch.bool, device=dev),
                       seed=31)
-    # K12-K14 once a step; their tables (K13t, K14t) once a run: built at
-    # the first step, then kept for the dt
-    tables = ("K13t", "K14t")
+    # K12-K14 once a step; their tables once a run: built at the first
+    # step, then kept for the dt (K13t's kernel builds K12's r table and
+    # K13's z table, K14t's K14's ring table)
+    tables = {"K13t": 2, "K14t": 1}
     per_step = {k: int(k in BE_KERNELS and k not in tables)
                 for k in KERNEL_INFO}
     out = {}
@@ -1582,6 +1629,7 @@ def phase7_step(torch, dev):
                     T, grid, mat, dt=P7_DT, robin_outer=rob, zbc=zbc,
                     scheme=scheme, implementation=impl)
             cyl._phi_table.cache_clear()
+            cyl._r_table.cache_clear()
             cyl._z_table.cache_clear()
             before = launch_counts()
             T = T0
@@ -1600,7 +1648,8 @@ def phase7_step(torch, dev):
             delta = {k: v - before[k] for k, v in launch_counts().items()}
             want = {k: (P3_WARMUP + P3_STEPS) * v if impl == "kernels"
                     else 0 for k, v in per_step.items()}
-            want.update({k: int(impl == "kernels") for k in tables})
+            want.update({k: v * (impl == "kernels")
+                         for k, v in tables.items()})
             check(delta == want, f"phase 7 {scheme} {impl}: launches "
                   f"{delta} != expected {want}")
             check(bool(torch.isfinite(T).all()), f"phase 7 {scheme} {impl}: "

@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
 """A/B of the cylindrical steps' pencil sweeps K9 (masked-Robin r) and K13
-(constant-row z), K14 (the unmasked cylindrical step's periodic phi solve)
-and K15 with its y entry K15y (the tier-2 r and y sweeps) and the steps
-and apps that run them, between two checkouts of the PyTorch port, on one
-CUDA card.
+(constant-row z), K12 (the unmasked cylindrical step's r sweep), K14 (its
+periodic phi solve) and K15 with its y entry K15y (the tier-2 r and y
+sweeps) and the steps and apps that run them, between two checkouts of
+the PyTorch port, on one CUDA card.
 
-    python3 scripts/cyl_be_ab.py [--k14 | --pencils] OTHER_CHECKOUT
-    python3 scripts/cyl_be_ab.py [--k14 | --pencils] --measure CHECKOUT
+    python3 scripts/cyl_be_ab.py [--k14 | --pencils | --k12] OTHER_CHECKOUT
+    python3 scripts/cyl_be_ab.py [--k14 | --pencils | --k12] --measure CHECKOUT
 
 runs, in turns, OTHER, this checkout, this checkout, OTHER, each in its
 own process (each builds its own kernel library), and prints one JSON line
 per run (``--measure``: one run of one checkout; ``--k14``: K14's rows
 alone; ``--pencils``: K9's, K13's and K14's rows and the masked, BE and
-Douglas steps alone): CUDA-event medians in ms
+Douglas steps alone; ``--k12``: K12's, K13's and K14's rows and the BE
+and Douglas steps alone): CUDA-event medians in ms
 and the share of each kernel's bound (chip_smoke.py ``bound``: its field
 read once and its output written once at 3.35 TB/s, or its operations at
 67 TFLOP/s), at chip_smoke.py's shapes:
@@ -25,6 +26,12 @@ read once and its output written once at 3.35 TB/s, or its operations at
   checkout takes one and given none (the table built in the call), and
   K13's table kernel (K13t) alone;
 * phase 6's masked-Robin step at (64, 512, 1024), with its profile;
+* K12 at phase 7's (128, 512, 512) annulus and (37, 203, 131) disk, the
+  spiral app's (32, 720, 200) ring at its dt (0.05 s) and 512-row r
+  lines (512, 512, 128), float32, with the step's table (``_r_table``)
+  where the checkout takes one and given none (the table built in the
+  call), and at the annulus the PyTorch call computing the same function
+  (chip_smoke.py's addmm by the dense inverse);
 
 * K14 at phase 7's (128, 512, 512) annulus and (37, 203, 131) disk,
   float32 and float64, and on the spiral app's (32, 720, 200) ring at its
@@ -57,6 +64,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # K9's r lines past its march and K13's z lines past its staging
 K9_LONG = ("97x512x675 tube", (97, 512, 675))
 K13_LONG = ("64x64x8192 annular", (64, 64, 8192))
+# K12's r lines past its march
+K12_LONG = ("512x512x128 annular", (512, 512, 128))
 
 
 def k14_rows(torch, cs, dev, out):
@@ -145,6 +154,42 @@ def k13_rows(torch, cs, dev, out):
                 lambda: const_sweep_z(R, *vecs, table))
             out[f"K13t {label} ms"] = cs.cuda_ms(
                 torch, lambda: const_sweep_table(*vecs[:3]), 10)
+        del R
+        torch.cuda.empty_cache()
+
+
+def k12_rows(torch, cs, dev, out):
+    """K12 at phase 7's shapes, the spiral app's ring and 512-row r lines,
+    with the step's table (where the checkout takes one) and given none;
+    the addmm call at the annulus."""
+    from adi_thermal_fields_tpu_torch import CylindricalGrid, RobinBC
+    from adi_thermal_fields_tpu_torch.solvers import const_sweep_strided
+    from adi_thermal_fields_tpu_torch.step import cylindrical as cyl
+
+    f32 = torch.float32
+    takes_table = "table" in inspect.signature(
+        const_sweep_strided).parameters
+    ring = cs.CYCLIC_SHAPES[0]
+    cases = [(label, shape, 5e-4, 0.02 if label.endswith("annular")
+              else 0.0, cs.P7_DT) for label, shape in cs.P7_SHAPES]
+    cases += [(ring[0], ring[1], ring[2], ring[3], 0.05),
+              K12_LONG + (5e-4, 0.02, cs.P7_DT)]
+    for label, shape, dr, r_inner, dt in cases:
+        grid = CylindricalGrid(*shape, dr, dr, r_inner=r_inner)
+        _, mat, _, _ = cs.be_case(label, shape)
+        key = (grid, mat, RobinBC(300.0, 20.0), None, dt, f32, dev)
+        vecs = cyl._r_coefficients(*key)
+        R = cs.random_field(torch, torch.ones(shape, dtype=torch.bool,
+                                              device=dev), 23)
+        row(torch, cs, out, "K12", f"{label} no table", (R, *vecs),
+            lambda: const_sweep_strided(R, *vecs))
+        if takes_table:
+            table = cyl._r_table(*key)
+            row(torch, cs, out, "K12", label, (R, *vecs, table),
+                lambda: const_sweep_strided(R, *vecs, table))
+        if label == cs.P7_SHAPES[0][0]:
+            out["K12 addmm ms"] = cs.cuda_ms(
+                torch, cs.dense_inverse_call(torch, vecs, 0, R), 10)
         del R
         torch.cuda.empty_cache()
 
@@ -278,10 +323,14 @@ def measure(root, only):
     out = dict(root=root)
     if only == "--pencils":
         k9_rows(torch, cs, dev, out)
+    if only == "--k12":
+        k12_rows(torch, cs, dev, out)
+    if only in ("--pencils", "--k12"):
         k13_rows(torch, cs, dev, out)
     k14_rows(torch, cs, dev, out)
     if only == "--pencils":
         masked_step(torch, cs, dev, out)
+    if only in ("--pencils", "--k12"):
         be_steps(torch, cs, dev, out)
     elif only is None:
         be_steps(torch, cs, dev, out)
@@ -297,7 +346,8 @@ def measure(root, only):
 
 def main():
     args = sys.argv[1:]
-    only = args[0] if args[:1] in (["--k14"], ["--pencils"]) else None
+    only = args[0] if args[:1] in (["--k14"], ["--pencils"],
+                                   ["--k12"]) else None
     args = args[only is not None:]
     if args[0] == "--measure":
         measure(os.path.abspath(args[1]), only)

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""K9 and K13 (the cylindrical steps' r and z pencil sweeps), K14 (the
-periodic phi solve of the unmasked cylindrical step) and K15 with its y
-entry K15y (the tier-2 r and y sweeps) on one CUDA card: their launch
-shapes, K9's and K15's crossovers, K13's and K14's stiffness ratios and
-K15's replays.
+"""K9 and K13 (the cylindrical steps' r and z pencil sweeps), K12 and K14
+(the r sweep and the periodic phi solve of the unmasked cylindrical step)
+and K15 with its y entry K15y (the tier-2 r and y sweeps) on one CUDA
+card: their launch shapes, K9's, K12's and K15's crossovers, K12's, K13's
+and K14's stiffness ratios and K15's replays.
 
     python3 scripts/cyl_be_tune.py [--variants 'NAME=VALUE,...;...']
-                                   [--kernels K9,K13,K14,K15]
+                                   [--kernels K9,K12,K13,K14,K15]
                                    [--crossover 64,96,128]
                                    [--seeds 17,23] [--dts 1,10]
                                    [--no-ratio]
@@ -14,32 +14,39 @@ K15's replays.
 Each variant is a set of ``constexpr`` values of csrc/masked.cu
 (kK9MarchRows: 0 sends every line to the split kernel, 128 every line of
 up to 128 rows to the march; kK9MarchThreads, kK9MarchGroup,
-kK9MarchBlocks, kK9MarchBlocks64), csrc/const_sweeps.cu (kK13Warps,
-kK13StageKB, kK13Stiff, kK14Warps, kK14Blocks, kK14Stiff) and
+kK9MarchBlocks, kK9MarchBlocks64), csrc/const_sweeps.cu (kK12MarchRows,
+as kK9MarchRows, and kK12MarchRows64; kK12RegRows, kK12MarchThreads,
+kK12Warps, kK12Blocks, kK12Stiff,
+kK13Warps, kK13StageKB, kK13Stiff, kK14Warps, kK14Blocks, kK14Stiff) and
 csrc/vp2_sweep.cu (kK15MarchRows: 0 sends every line to the split kernel,
 a large value every line to the march; kK15MarchCells, kK15MarchThreads,
 kK15MarchGroup, kK15MarchBlocks) in a copy of the package under
 build/tune/ so changed (the empty variant: this checkout).  The variants'
 libraries build at once; then, for each, one JSON line: the registers and
-spills ptxas reports for K9's and K15's marches and K13's and K14's
-kernels, and CUDA-event medians in ms, of the kernels named by
+spills ptxas reports for K9's, K12's and K15's marches and K12's, K13's
+and K14's kernels, and CUDA-event medians in ms, of the kernels named by
 --kernels: K9 at chip_smoke.py phase 6's (64, 512, 1024) tube, (37, 203,
-131) disk and 97-row r lines, and the masked step; K13 at phase 7's
+131) disk and 97-row r lines, and the masked step; K12 at phase 7's
+(128, 512, 512) annulus and (37, 203, 131) disk, the spiral app's ring
+and 512-row r lines, with the step's table and given none; K13 at phase 7's
 (128, 512, 512) annulus, (37, 203, 131) disk and 8192-row lines, with the
 step's table and given none, and K13t; K14 at phase 7's shapes; K15 at
 phase 8's (64, 512, 1024) tube (the rhs T, and given), its disk and the
-tube at 10x dt, K15y at the 512^3 WAAM mask, and phase 7's (K13, K14)
-and phase 8's (K15) backward-Euler steps.  With --crossover, in place of
-those: K9 on tubes of phase 6's kind and K15 (the rhs T, as the BE step
-calls it) on tubes of phase 8's kind with r lines of each given length
-(512 phi rows, about 2^25 cells), and K15y at 512^3, each with its
+tube at 10x dt, K15y at the 512^3 WAAM mask, and phase 7's (K12, K13,
+K14) and phase 8's (K15) backward-Euler steps.  With --crossover, in place
+of those: K9 on tubes of phase 6's kind, K12 (float32 and float64, with
+the step's table) on annuli of phase 7's kind and K15 (the rhs T, as the
+BE step calls it) on tubes of phase 8's kind with r lines of each given
+length (512 phi rows, about 2^25 cells), and K15y at 512^3, each with its
 CUDA-event median ms and its largest |delta| from the plain version (K
 and float32 ulp of the output's scale, against chip_smoke.py's
-KERNEL_TOL_ULP for K9 and P8_TOL for K15; K9: bit for bit or not): run
-with kK9MarchRows=0 and 128 (kK15MarchRows=0 and a large value), the
-lengths where the march and the split kernel cross.
+KERNEL_TOL_ULP for K9 and K12 and P8_TOL for K15; K9 and K12: bit for
+bit or not): run with kK9MarchRows=0 and 128 (kK12MarchRows likewise,
+kK15MarchRows=0 and a large value), the lengths where the march and the
+split kernel cross.
 
-Then (unless --no-ratio), in a copy with kK13Stiff = kK14Stiff = 1e30:
+Then (unless --no-ratio), in a copy with kK12Stiff = kK13Stiff = kK14Stiff
+= 1e30 and kK12MarchRows = kK12MarchRows64 = 0:
 K14 with every ring split on phase 7's shapes, the spiral app's ring (32,
 720, 200) and 4096-row lines on a 20 mm annulus, for each seed of the
 right-hand side and each multiple of the step's dt: per bin of the rings'
@@ -51,10 +58,11 @@ table split on phase 7's shapes, the spiral app's z rows (0.25 mm, its
 dt_fixed 0.05 s) and 8192-row lines, per seed and dt multiple: the
 table's ratio, K13's largest distance from the plain version and both
 from the float64 plain version, and whether this checkout's kK13Stiff
-sends it to Thomas order; and K15's share of blocks (32 lines) with a row
-past kK8Stiff (Thomas order) on the tube at 1x and 10x dt, the disk and
-the spiral app's tube (r_inner 52 mm, 0.25 mm cells, its dt_fixed 0.05
-s), with its |delta| from the plain version.
+sends it to Thomas order; K12 likewise on phase 7's shapes, the spiral
+app's r rows and 512-row r lines; and K15's share of blocks (32 lines)
+with a row past kK8Stiff (Thomas order) on the tube at 1x and 10x dt,
+the disk and the spiral app's tube (r_inner 52 mm, 0.25 mm cells, its
+dt_fixed 0.05 s), with its |delta| from the plain version.
 """
 import argparse
 import importlib.util
@@ -72,8 +80,9 @@ SOURCES = ("const_sweeps.cu", "vp2_sweep.cu", "masked.cu")
 CROSSOVER_CELLS = 2 ** 25
 # bins of a ring's 2 fac (K14) or a block's largest row ratio (K15)
 EDGES = (0, 1, 2, 4, 8, 12, 16, 24, 32, 64, 128, 1024, float("inf"))
-# the copy in which K13 splits every table and K14 every ring
-SPLIT_ALL = ["kK14Stiff=1e30", "kK13Stiff=1e30"]
+# the copy in which K12 and K13 split every table and K14 every ring
+SPLIT_ALL = ["kK14Stiff=1e30", "kK13Stiff=1e30", "kK12Stiff=1e30",
+             "kK12MarchRows=0", "kK12MarchRows64=0"]
 
 
 def source_constant(root, name, src):
@@ -117,8 +126,8 @@ def load_cs(torch_root):
 
 
 def build(root):
-    """Build ``root``'s library; the registers and spills of K9's and
-    K15's marches and K13's and K14's kernels (ptxas -v)."""
+    """Build ``root``'s library; the registers and spills of K9's, K12's
+    and K15's marches and K12's, K13's and K14's kernels (ptxas -v)."""
     sys.path.insert(0, root)
     import contextlib
     import io
@@ -131,7 +140,7 @@ def build(root):
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if not m or not re.search(r"cyclic_const_phi|march|const_sweep_z"
-                                  r"|const_table", m.group(1)):
+                                  r"|const_table|const_split", m.group(1)):
             continue
         name = m.group(1)
         k14 = re.search(r"cyclic_const_phi_kernelI([fd])Li(\d+)ELb(\d)",
@@ -140,7 +149,13 @@ def build(root):
         march = re.search(r"vp2_march_kernelI([fd])Li(\d+)", name)
         k13 = re.search(r"const_sweep_z_kernelI([fd])Lb(\d)", name)
         k13v = re.search(r"const_sweep_z_vec_kernelI([fd])", name)
-        if k14:
+        k12 = re.search(r"const_march_kernelI([fd])Li(\d+)", name)
+        k12s = re.search(r"const_split_kernelI([fd])Li(\d+)ELb(\d)", name)
+        if k12:
+            key = "K12 march {} rows{}".format(*k12.groups())
+        elif k12s:
+            key = "K12 split {} M{} regs{}".format(*k12s.groups())
+        elif k14:
             key = "K14 {} M{} regs{}".format(*k14.groups())
         elif k9:
             key = "K9 march {} rows{}".format(*k9.groups())
@@ -162,7 +177,7 @@ def build(root):
 
 def times(root, crossover, kernels):
     """CUDA-event medians of ``kernels``' rows and steps, or
-    (``crossover``: r line lengths) K9's, K15's and K15y's times and
+    (``crossover``: r line lengths) K9's, K12's, K15's and K15y's times and
     errors."""
     import torch
     cs = load_cs(root)
@@ -173,17 +188,21 @@ def times(root, crossover, kernels):
     if crossover:
         if "K9" in kernels:
             k9_crossover(torch, cs, dev, crossover, out)
+        if "K12" in kernels:
+            k12_crossover(torch, cs, dev, crossover, out)
         if "K15" in kernels:
             k15_crossover(torch, cs, dev, crossover, out)
     else:
         if "K9" in kernels:
             cyl_be_ab.k9_rows(torch, cs, dev, out)
             cyl_be_ab.masked_step(torch, cs, dev, out)
+        if "K12" in kernels:
+            cyl_be_ab.k12_rows(torch, cs, dev, out)
         if "K13" in kernels:
             cyl_be_ab.k13_rows(torch, cs, dev, out)
         if "K14" in kernels:
             cyl_be_ab.k14_rows(torch, cs, dev, out)
-        if "K13" in kernels or "K14" in kernels:
+        if {"K12", "K13", "K14"} & set(kernels):
             cyl_be_ab.be_steps(torch, cs, dev, out)
         if "K15" in kernels:
             cyl_be_ab.k15_rows(torch, cs, dev, out)
@@ -306,6 +325,52 @@ def k13_ratio(torch, cs, dev, seeds, dts, stiff):
             torch.cuda.empty_cache()
 
 
+def k12_ratio(torch, cs, dev, seeds, dts, stiff):
+    """K12 split on every table (a copy built with kK12Stiff = 1e30 and
+    no march) against the plain version, per shape and dt;
+    ``stiff``: this checkout's ratio."""
+    from adi_thermal_fields_tpu_torch import CylindricalGrid, RobinBC
+    from adi_thermal_fields_tpu_torch.solvers import (
+        const_sweep_strided, const_sweep_strided_plain)
+    from adi_thermal_fields_tpu_torch.step import cylindrical as cyl
+    import cyl_be_ab
+
+    eps = torch.finfo(torch.float32).eps
+    ring = cs.CYCLIC_SHAPES[0]
+    shapes = [(label, shape, 5e-4, 0.02 if label.endswith("annular")
+               else 0.0, cs.P7_DT) for label, shape in cs.P7_SHAPES]
+    shapes += [(ring[0], ring[1], ring[2], ring[3], 0.05),
+               cyl_be_ab.K12_LONG + (5e-4, 0.02, cs.P7_DT)]
+    for label, shape, dr, r_inner, dt0 in shapes:
+        grid = CylindricalGrid(*shape, dr, dr, r_inner=r_inner)
+        _, mat, _, _ = cs.be_case(label, shape)
+        for mult in dts:
+            key = (grid, mat, RobinBC(300.0, 20.0), None, mult * dt0)
+            vecs = cyl._r_coefficients(*key, torch.float32, dev)
+            v64 = cyl._r_coefficients(*key, torch.float64, dev)
+            table = cyl._r_table(*key, torch.float32, dev)
+            ratio = float(table[-1])
+            worst = [0.0, 0.0, 0.0]
+            for seed in seeds:
+                R = cs.random_field(torch, torch.ones(
+                    shape, dtype=torch.bool, device=dev), seed)
+                got = const_sweep_strided(R, *vecs, table)
+                want = const_sweep_strided_plain(R, *vecs)
+                ref = const_sweep_strided_plain(R.double(), *v64)
+                scale = float(want.abs().max()) * eps
+                for j, d in enumerate((got - want, want.double() - ref,
+                                       got.double() - ref)):
+                    worst[j] = max(worst[j], float(d.abs().max()) / scale)
+                del R, got, want, ref
+            print(json.dumps(dict(
+                kernel="K12", shape=label, dt_x=mult, seeds=len(seeds),
+                ratio=ratio, thomas_order_here=ratio > stiff,
+                ulp_vs_plain=round(worst[0], 3),
+                plain_ulp_vs_f64=round(worst[1], 3),
+                split_ulp_vs_f64=round(worst[2], 3))), flush=True)
+            torch.cuda.empty_cache()
+
+
 def record(cs, out, key, got, want, ms, tol):
     """``key``'s ms and its largest |delta| from the plain version (K, and
     float32 ulp of the output's scale against ``tol``)."""
@@ -343,6 +408,37 @@ def k9_crossover(torch, cs, dev, lengths, out):
                lambda w: cs.KERNEL_TOL_ULP * eps * float(w.abs().max()))
         del R, plan
         torch.cuda.empty_cache()
+
+
+def k12_crossover(torch, cs, dev, lengths, out):
+    """K12 with the step's table on annuli of phase 7's kind with r lines
+    of each length, 512 phi rows and about 2^25 cells, at the step's dt,
+    float32 and float64: the median ms and the largest |delta| from the
+    plain version."""
+    from adi_thermal_fields_tpu_torch import CylindricalGrid, RobinBC
+    from adi_thermal_fields_tpu_torch.solvers import (
+        const_sweep_strided, const_sweep_strided_plain)
+    from adi_thermal_fields_tpu_torch.step import cylindrical as cyl
+
+    for dtype in (torch.float32, torch.float64):
+        eps = torch.finfo(dtype).eps
+        for n in lengths:
+            shape = (n, 512, max(8, CROSSOVER_CELLS // (512 * n)))
+            grid = CylindricalGrid(*shape, 5e-4, 5e-4, r_inner=0.02)
+            _, mat, _, _ = cs.be_case("annular", shape)
+            key = (grid, mat, RobinBC(300.0, 20.0), None, cs.P7_DT, dtype,
+                   dev)
+            vecs = cyl._r_coefficients(*key)
+            table = cyl._r_table(*key)
+            R = cs.random_field(torch, torch.ones(
+                shape, dtype=torch.bool, device=dev), 23).to(dtype)
+            fn = (lambda: const_sweep_strided(R, *vecs, table))
+            record(cs, out, f"K12 {str(dtype)[6:]} n{n}", fn(),
+                   const_sweep_strided_plain(R, *vecs),
+                   cs.cuda_ms(torch, fn, 20),
+                   lambda w: cs.KERNEL_TOL_ULP * eps * float(w.abs().max()))
+            del R
+            torch.cuda.empty_cache()
 
 
 def k15_case(torch, cs, dev, label, shape, dr, r_inner, dt):
@@ -455,7 +551,7 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument("--variants", default="")
     p.add_argument("--crossover", default="")
-    p.add_argument("--kernels", default="K9,K13,K14,K15")
+    p.add_argument("--kernels", default="K9,K12,K13,K14,K15")
     p.add_argument("--seeds", default="17,23,31,47,59")
     p.add_argument("--dts", default="1,2.5,5,10")
     p.add_argument("--no-ratio", action="store_true")
@@ -478,6 +574,9 @@ def main():
         dev = torch.device("cuda", 0)
         seeds = [int(s) for s in a.seeds.split(",")]
         dts = [float(d) for d in a.dts.split(",")]
+        if "K12" in kernels:
+            k12_ratio(torch, cs, dev, seeds, dts,
+                      source_constant(HERE, "kK12Stiff", "const_sweeps.cu"))
         if "K13" in kernels:
             k13_ratio(torch, cs, dev, seeds, dts,
                       source_constant(HERE, "kK13Stiff", "const_sweeps.cu"))

@@ -652,7 +652,8 @@ def test_const_kernels_match_plain_on_card(dtype, rel, nphi, r_inner,
         assert got.is_cuda and got.dtype == dtype
         assert float((got - want).abs().max()) <= rel * float(
             want.abs().max())
-    assert launch_counts() == _counts(K12=1, K13=1, K14=1, K13t=1, K14t=1)
+    # K12 and K13 each build their table in the call (K13t twice)
+    assert launch_counts() == _counts(K12=1, K13=1, K14=1, K13t=2, K14t=1)
 
 
 # K9's r lines: up to its march's rows (a thread a line: bit for bit), one
@@ -1023,10 +1024,10 @@ def test_vp2_strided_on_split_kernel_on_card(dtype, rel):
 
 @pytest.mark.cuda
 def test_k14_and_k15_take_no_field_sized_scratch_on_card():
-    """K14 (given its table) and K15 (the rhs given and T itself) raise
-    the allocator's peak by their output alone (their first versions
-    wrote y' or d' to a field-sized buffer beside it: K15 to a scratch
-    field)."""
+    """K14 (given its table), K12 (given its table, marched and split) and
+    K15 (the rhs given and T itself) raise the allocator's peak by their
+    output alone (their first versions wrote y' or d' to a field-sized
+    buffer beside it: K15 to a scratch field)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -1036,6 +1037,16 @@ def test_k14_and_k15_take_no_field_sized_scratch_on_card():
     R = torch.rand(grid.shape, device=dev) * 1000.0 + 20.0
     table = cyclic_const_phi_table(fac, grid.nphi)
     calls = [lambda: cyclic_const_phi(R, fac, table)]
+    # K12 given its table: the march (64 rows) and the split kernel past
+    # its registers (600 rows: d' through the output)
+    for shape in (grid.shape, (600, 8, 40)):
+        g = CylindricalGrid(*shape, 5e-4, 5e-4, r_inner=0.02)
+        key = (g, Material(7800.0, 490.0, 54.0), RobinBC(300.0, 20.0), None,
+               0.02, torch.float32, dev)
+        vecs = pcyl._r_coefficients(*key)
+        Rk = R if shape == grid.shape else torch.rand(shape, device=dev)
+        calls.append(lambda Rk=Rk, vecs=vecs, t=pcyl._r_table(*key):
+                     const_sweep_strided(Rk, *vecs, t))
     calls += [kern for _, kern, _ in
               _k15_calls((64, 96, 160), torch.float32, 73)[:2]]
     for kern in calls:
@@ -1888,3 +1899,63 @@ def test_gstream_xy_on_split_kernel_on_card(dtype):
                     assert torch.equal(got, want)
                 _split_gate(got, want)
     assert launch_counts() == _counts(K24=k24, K25=k25)
+
+
+# K12's r lines: 2, 3 and 37 rows, the march's last rows at float64 and
+# float32 (kK12MarchRows64, kK12MarchRows), one past them, 128 rows (the
+# annulus), 300 and 8192 rows (the split kernel, past its registers at
+# 8192), ragged line counts: (nr, nphi, nz)
+K12_MARCH = int(_source_constant("kK12MarchRows", "const_sweeps.cu"))
+K12_F64_MARCH = int(_source_constant("kK12MarchRows64", "const_sweeps.cu"))
+K12_STIFF = _source_constant("kK12Stiff", "const_sweeps.cu")
+K12_SHAPES = ((2, 45, 70), (3, 7, 33), (37, 9, 33), (K12_F64_MARCH, 5, 41),
+              (K12_F64_MARCH + 1, 5, 41), (K12_MARCH, 6, 40),
+              (K12_MARCH + 1, 6, 40), (128, 5, 21), (300, 5, 21),
+              (8192, 2, 20))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float64, 1e-12),
+                                       (torch.float32, 8 * 2.0 ** -23)],
+                         ids=["f64", "f32"])
+def test_k12_on_short_long_and_stiff_lines_on_card(dtype, rel):
+    """K12 given the table and not (the table built in the call) alike,
+    within ``rel`` of the output's scale of its plain version, bit for bit
+    on lines it marches (up to kK12MarchRows rows, kK12MarchRows64 at
+    float64) and on
+    longer lines where the table passes kK12Stiff (Thomas order); at the
+    step's dt and at 2000 s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    march = K12_MARCH if dtype == torch.float32 else K12_F64_MARCH
+    mat = Material(7800.0, 490.0, 54.0)
+    reset_launch_counts()
+    calls = 0
+    for i, shape in enumerate(K12_SHAPES):
+        grid = CylindricalGrid(*shape, 5e-4, 5e-4, r_inner=0.02)
+        rng = np.random.default_rng(120 + i)
+        R = torch.from_numpy(20.0 + 1480.0 * rng.random(shape)).to(dev,
+                                                                   dtype)
+        for dt in (0.02, 2000.0):
+            vecs = pcyl._r_coefficients(grid, mat, RobinBC(300.0, 20.0),
+                                        RobinBC(150.0, 30.0), dt, dtype, dev)
+            table = const_sweep_table(*vecs[:3])
+            got = const_sweep_strided(R, *vecs, table)
+            alone = const_sweep_strided(R, *vecs)
+            want = const_sweep_strided_plain(R, *vecs)
+            calls += 1
+            torch.cuda.synchronize()
+            assert torch.equal(table, const_sweep_table_plain(*vecs[:3]))
+            assert torch.equal(got, alone)
+            assert got.is_cuda and got.dtype == dtype
+            assert bool(torch.isfinite(got).all())
+            stiff = float(table[-1]) > K12_STIFF
+            # ratios of ~2.3 at the step's dt, ~2e5 at 2000 s (n = 2: the
+            # Robin rows alone, ~720)
+            assert stiff == (dt > 1.0) or shape[0] == 2, (shape, dt)
+            assert float((got - want).abs().max()) <= rel * float(
+                want.abs().max()), (shape, dt)
+            if shape[0] <= march or stiff:
+                assert torch.equal(got, want), (shape, dt)
+    assert launch_counts() == _counts(K12=2 * calls, K13t=2 * calls)

@@ -356,7 +356,8 @@ def test_k13_stiff_table_takes_thomas_order_bit_for_bit(n, dtype):
 def test_k13_table_wrapper_and_step_cache(dtype, monkeypatch):
     """The table: ``_row_factors``' inv and cp bit for bit, then the rows'
     stiffness ratio; const_sweep_z with and without it alike; a wrong one
-    refused; the steps build one table per theta_dt."""
+    refused; the steps build one z table (and one r table) per
+    theta_dt."""
     n = 9
     a, b, c, radd = _k13_vecs(n, dtype)
     table = const_sweep_table(a, b, c)
@@ -384,6 +385,7 @@ def test_k13_table_wrapper_and_step_cache(dtype, monkeypatch):
         return const_sweep_table(*args)
 
     monkeypatch.setattr(pcyl, "const_sweep_table", counting)
+    pcyl._r_table.cache_clear()
     pcyl._z_table.cache_clear()
     grid = CylindricalGrid(4, 6, n, 5e-4, 5e-4, r_inner=0.02)
     mat = Material(7800.0, 490.0, 54.0)
@@ -396,5 +398,7 @@ def test_k13_table_wrapper_and_step_cache(dtype, monkeypatch):
         X = T
         for _ in range(3):
             X = adi_step_cylindrical(X, grid, mat, scheme=scheme, **kw)
-    assert built == [n, n]                  # theta_dt: dt, then 0.5 dt
+    # theta_dt: dt, then 0.5 dt; at each, K12's r table (nr rows) first
+    assert built == [grid.nr, n, grid.nr, n]
+    pcyl._r_table.cache_clear()
     pcyl._z_table.cache_clear()
