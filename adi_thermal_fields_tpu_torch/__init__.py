@@ -16,7 +16,11 @@ ambient-clamp birth wrapper, and the variable-property cylindrical step
 (tables, radiation, backward Euler and Douglas-Gunn, face-cut or clamp
 birth, and its field-coefficient tier); and the bf16 bandwidth mode
 (bfloat16 states solved at float32, stores rounded stochastically from
-the engine's integer step counter).  They run on CUDA kernels written by
+the engine's integer step counter); and the apps' outputs and the
+single-track app: VTK frames (``io.vtk``), npz checkpoints and resume
+(``io.checkpoint``), the per-voxel thermal history and interpass dwell of
+the engine (``apps.engine``), the frame viewer, and ``apps.single_track``
+with its Goldak torch (``birth.heat_source``).  They run on CUDA kernels written by
 hand for the H100 (csrc/):
 
 * K1 ``solvers.sweeps.sweep_strided`` — masked sweep along x or y;
@@ -77,7 +81,9 @@ from .bc.faces import FACES, exposed_face, exposed_faces
 from .bc.packs import CoeffPacks, build_coeff_packs
 from .core.grid import CartesianGrid, CylindricalGrid
 from .core.material import Material
+from .core.timestep import TimeControls
 from .step.cartesian import adi_step as adi_step_cartesian
+from .step.cartesian import apply_surface_impulse
 from .step.cartesian_fused import SweepPlan, adi_step_fused, build_sweep_plan
 from .step.cartesian_varprop import (PropertyTable, adi_step_varprop,
                                      adi_step_varprop_fused,
@@ -98,9 +104,9 @@ from .bc.radiation import STEFAN_BOLTZMANN, radiative_h
 
 __version__ = "0.1.0"
 
-__all__ = ["CartesianGrid", "Material", "FACES", "exposed_face",
-           "exposed_faces", "CoeffPacks", "build_coeff_packs",
-           "adi_step_cartesian", "SweepPlan", "build_sweep_plan",
+__all__ = ["CartesianGrid", "Material", "TimeControls", "FACES",
+           "exposed_face", "exposed_faces", "CoeffPacks", "build_coeff_packs",
+           "adi_step_cartesian", "apply_surface_impulse", "SweepPlan", "build_sweep_plan",
            "adi_step_fused", "PropertyTable", "apparent_cp",
            "melt_pool_enhanced_k", "adi_step_varprop",
            "adi_step_varprop_fused", "adi_step_varprop_gstreams",

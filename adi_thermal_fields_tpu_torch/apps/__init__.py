@@ -1,1 +1,2 @@
-"""Engine and CLI apps (the WAAM flagship and the spiral tube)."""
+"""Engine and CLI apps (the WAAM flagship, the spiral tube, the single
+track and the frame viewer)."""

@@ -1,12 +1,19 @@
 """Event-driven simulation engine shared by the CLI apps.
 
 Counterpart: ``adi_thermal_fields_tpu/apps/engine.py`` —
-``make_cartesian_engine`` (:52; its constant-property single-device
-branches :409-459) and ``EventLoop`` (:592).  The host walks the event list
-(births and frames); between events ``advance`` issues the sub-steps from
-Python with scalar arguments and no host synchronisation.  Syncs happen
-once at the start and at frame boundaries (the finite check and frame
-callbacks), as in the JAX loop.
+``history_update`` (:36), ``make_cartesian_engine`` (:52; its
+single-device branches), ``make_cartesian_advance`` (:538) and
+``EventLoop`` (:592).  The host walks the event list (births and frames);
+between events ``advance`` issues the sub-steps from Python with scalar
+arguments and no host synchronisation.  Syncs happen once at the start,
+at frame boundaries (the finite check and frame callbacks) and, with
+interpass dwell control, once per dwell check (the part's masked maximum),
+as in the JAX loop.
+
+With ``history_t_crit`` the engine also tracks each voxel's thermal
+history, its running peak and its seconds above one or more critical
+temperatures, updated in place on the device after every sub-step of
+every route (``history_update``).
 
 ``implementation`` is explicit — there is no choice by device:
 "kernels" runs step/cartesian_fused.adi_step_fused (K1-K4 on CUDA tensors,
@@ -45,9 +52,28 @@ from ..step.cartesian_varprop import (adi_step_varprop,
                                       build_face_h_axes, build_varprop_codes,
                                       check_films)
 
-__all__ = ["make_cartesian_engine", "EventLoop", "IMPLEMENTATIONS", "clock"]
+__all__ = ["make_cartesian_engine", "make_cartesian_advance", "EventLoop",
+           "history_update", "IMPLEMENTATIONS", "clock"]
 
 IMPLEMENTATIONS = ("kernels", "reference")
+
+
+def history_update(pk, ta, T, dt, tc, multi):
+    """One sub-step of the per-voxel thermal-history state, IN PLACE on
+    ``pk`` and ``ta``: the running peak ``pk = max(pk, T)`` and the
+    dt-weighted time above threshold ``ta += dt * (T > tc)`` (a leading
+    threshold axis on ``ta`` when ``multi``).  ``tc``: a 1-D tensor of the
+    thresholds at ``ta``'s dtype, on T's device (compared at that dtype,
+    as JAX compares at ``promote_types(T.dtype, float32)``); ``dt``: a
+    Python float.  No host synchronisation.  Returns ``(pk, ta)``."""
+    torch.maximum(pk, T, out=pk)
+    if multi:
+        above = T[None] > tc.view((-1,) + (1,) * T.dim())
+    else:
+        # a 1-element 1-D tc: a 0-dim one would compare at T's dtype
+        above = T > tc[:1]
+    ta.add_(above, alpha=dt)
+    return pk, ta
 
 
 def _faces_on(spec, device, dtype) -> dict:
@@ -88,6 +114,8 @@ def make_cartesian_engine(grid: CartesianGrid, mat: Material, *,
     """Split engine: ``prepare(active) -> prep`` (plan or pack rebuild,
     needed only when the mask changes) and
     ``advance(T, prep, dt, n_sub, t0=0.0) -> T`` (the sub-step loop).
+    ``advance.has_source`` says whether ``source_fn`` is set (EventLoop's
+    interpass dwell refuses a continuous source).
 
     ``dtype``: state and pack dtype (float32, float64 or bfloat16; a
     bfloat16 state solves at float32 in the kernels' bfloat16 entries and
@@ -100,7 +128,20 @@ def make_cartesian_engine(grid: CartesianGrid, mat: Material, *,
     the materialized Neumann/Dirichlet varprop step.  ``robin_h``:
     scalar (plan-lite: no coefficient fields), per-face dict or 3-D field
     (field plan).  ``source_fn``: optional ``t -> volumetric heat field
-    [W/m^3]``.  Thermal history and device meshes are not ported yet.
+    [W/m^3]``.  Device meshes are not ported yet.
+
+    ``history_t_crit``: per-voxel thermal history (JAX :88-100).  The
+    advance becomes ``advance(T, prep, dt, n_sub, t0, hist) -> (T, hist)``
+    with ``hist = (T_peak, t_above)`` updated IN PLACE after every
+    sub-step of every route (``history_update``): the running peak and the
+    seconds above ``history_t_crit``.  A tuple of thresholds gives
+    ``t_above`` a leading threshold axis (``(800.0, 500.0)``: the steel
+    t8/5 as ``t_above[1] - t_above[0]`` for monotone cooling), and
+    ``advance.history_thresholds`` holds the tuple (None for one
+    threshold).  ``t_above`` is kept at ``promote_types(state, float32)``.
+    EventLoop(history=True) threads the state and resets a cell's history
+    at its birth; never-born cells accumulate from their placeholder
+    temperatures, so consumers mask by the final active state.
 
     Variable properties: ``k_table`` / ``cp_table`` (PropertyTable,
     number, callable, or a per-axis k 3-tuple; ``apparent_cp`` for latent
@@ -118,9 +159,6 @@ def make_cartesian_engine(grid: CartesianGrid, mat: Material, *,
     if implementation not in IMPLEMENTATIONS:
         raise ValueError(f"implementation must be one of {IMPLEMENTATIONS}, "
                          f"got {implementation!r}")
-    if history_t_crit is not None:
-        raise NotImplementedError("thermal-history tracking is not ported "
-                                  "to the PyTorch engine yet")
     if mesh is not None:
         raise NotImplementedError("multi-device meshes are not ported to "
                                   "the PyTorch engine yet")
@@ -263,48 +301,148 @@ def make_cartesian_engine(grid: CartesianGrid, mat: Material, *,
             return adi_step(T, active, packs, grid, mat, dt=dt, theta=theta,
                             t_inf=t_inf, source=src)
 
-    def advance(T, prep, dt: float, n_sub: int, t0: float = 0.0):
-        """``n_sub`` sub-steps of ``dt`` from ``t0`` on the clock of
-        ``clock``."""
-        tick = clock(T.dtype, dt, t0)
-        for i in range(n_sub):
-            T = step1(T, prep, dt, *tick(i))
-        return T
+    if history_t_crit is None:
+        def advance(T, prep, dt: float, n_sub: int, t0: float = 0.0):
+            """``n_sub`` sub-steps of ``dt`` from ``t0`` on the clock of
+            ``clock``."""
+            tick = clock(T.dtype, dt, t0)
+            for i in range(n_sub):
+                T = step1(T, prep, dt, *tick(i))
+            return T
+        advance.history_thresholds = None
+    else:
+        multi = isinstance(history_t_crit, (tuple, list))
+        t_crits = tuple(float(t) for t in (history_t_crit if multi
+                                           else (history_t_crit,)))
+        tcs = {}          # the thresholds on the device, once per dtype
 
+        def advance(T, prep, dt: float, n_sub: int, t0: float = 0.0,
+                    hist=None):
+            """As above, updating ``hist = (T_peak, t_above)`` in place
+            after every sub-step."""
+            pk, ta = hist
+            if ta.dtype not in tcs:
+                tcs[ta.dtype] = torch.tensor(t_crits, dtype=ta.dtype,
+                                             device=T.device)
+            tc = tcs[ta.dtype]
+            tick = clock(T.dtype, dt, t0)
+            for i in range(n_sub):
+                T = step1(T, prep, dt, *tick(i))
+                history_update(pk, ta, T, dt, tc, multi)
+            return T, (pk, ta)
+        advance.history_thresholds = t_crits if multi else None
+    advance.has_source = source_fn is not None
     return prepare, advance
+
+
+def make_cartesian_advance(grid: CartesianGrid, mat: Material, *,
+                           implementation: str, device,
+                           theta: float = 0.5, t_inf: float = 20.0,
+                           robin_h=None, neumann=None, dirichlet_mask=None,
+                           dirichlet_value=None, source_fn=None, mesh=None,
+                           robin_h_fn=None):
+    """Fused convenience form (JAX :538-589): ``advance(T, active, dt,
+    n_sub, t0=0.0) -> T`` rebuilds the plan or packs for the current mask
+    on every call, then takes ``n_sub`` steps.  The engine is built once
+    per state dtype.  Prefer make_cartesian_engine + EventLoop(prepare=...)
+    for large grids: the rebuild then happens on births only.
+
+    ``robin_h_fn``: optional ``T -> h`` (scalar, face dict or field) giving
+    a temperature-dependent film, e.g. ``bc.radiation.radiative_h``,
+    evaluated at the field entering each call (refreshed per event
+    segment); it replaces ``robin_h``, and the engine is rebuilt with it on
+    every call."""
+    cache = {}
+    kw = dict(implementation=implementation, device=device, theta=theta,
+              t_inf=t_inf, neumann=neumann, dirichlet_mask=dirichlet_mask,
+              dirichlet_value=dirichlet_value, source_fn=source_fn,
+              mesh=mesh)
+
+    def advance(T, active, dt: float, n_sub: int, t0: float = 0.0):
+        if robin_h_fn is not None:
+            prepare, adv = make_cartesian_engine(
+                grid, mat, dtype=T.dtype, robin_h=robin_h_fn(T), **kw)
+        else:
+            if T.dtype not in cache:
+                cache[T.dtype] = make_cartesian_engine(
+                    grid, mat, dtype=T.dtype, robin_h=robin_h, **kw)
+            prepare, adv = cache[T.dtype]
+        return adv(T, prepare(active), dt, n_sub, t0)
+
+    advance.has_source = source_fn is not None
+    return advance
 
 
 @dataclasses.dataclass
 class EventLoop:
-    """Run an element-birth simulation through its event schedule.
+    """Run an element-birth simulation through its event schedule (JAX
+    :592-788).
 
-    advance : ``(T, prep, dt, n_sub, t0) -> T`` from make_cartesian_engine.
-    prepare : ``active -> prep``, called when the mask changes (births).
+    advance : with ``prepare`` set, ``(T, prep, dt, n_sub, t0) -> T`` from
+        make_cartesian_engine, and ``prepare(active) -> prep`` is called
+        when the mask changes (births); with ``prepare=None``,
+        ``(T, active, dt, n_sub, t0) -> T`` is given the mask (e.g.
+        make_cartesian_advance).
     activation_times : tensor of the field's shape on the field's device;
         a cell is born when ``activation_times <= t`` (substrate = -inf).
     deposit_T : temperature assigned to newborn cells.
     dt_cap : max sub-step; event segments are split evenly to respect it.
-    substeps : sub-steps taken by ``run`` (output).
-    ``run`` raises on NaN/Inf at frame boundaries and the last event.
-    Thermal history and interpass dwell are not ported yet."""
+    check_finite : raise on NaN/Inf (with the simulation time) at frame
+        boundaries and the last event.
+    history : thread the per-voxel thermal history (an advance from
+        ``make_cartesian_engine(history_t_crit=...)`` and ``prepare``);
+        after ``run`` ``(T_peak, t_above)`` are in ``history_state``.  A
+        cell's history restarts at its birth: the peak at the deposit
+        temperature, zero time above.  ``history_thresholds``: the
+        threshold tuple, when not read from ``advance.history_thresholds``.
+    interpass_T : interpass temperature control [C]: before each birth the
+        loop holds deposition and keeps cooling the part in
+        ``interpass_dwell``-second increments until its maximum temperature
+        is at or below this (or ``interpass_max_dwell`` seconds of dwell
+        accrue).  The dwell is inserted on top of the schedule (its clock
+        and the activation times are unchanged); each layer's dwell is
+        logged in ``dwell_log`` as ``(event_time, dwell_seconds)``.  One
+        host read of the part's masked maximum per dwell check.  It raises
+        with an engine built with a continuous ``source_fn`` (the torch
+        would keep burning at the frozen schedule time).
+    substeps : sub-steps taken by ``run``, dwells included (output).
+    """
 
     advance: Callable
-    prepare: Callable
     activation_times: Any
     deposit_T: float
     dt_cap: float
+    prepare: Callable | None = None
+    check_finite: bool = True
     history: bool = False
+    history_state: Any = None
+    history_thresholds: tuple | None = None
     interpass_T: float | None = None
+    interpass_dwell: float = 5.0
+    interpass_max_dwell: float = 600.0
+    dwell_log: Any = None
     substeps: int = 0
 
-    def run(self, T, *, frame_times, t_end: float | None = None,
-            on_frame: Callable | None = None):
+    def _advance(self, T, prep, active, dt: float, n_sub: int, t: float):
+        # dt and the segment start rounded to the STATE dtype, as the JAX
+        # loop passes them (:724-736): at bfloat16 both are bf16-quantised
+        # before the clock widens them.  Kept so, for parity with JAX.
+        dt, t = round_to_state(dt, T.dtype), round_to_state(t, T.dtype)
+        self.substeps += n_sub
         if self.history:
-            raise NotImplementedError("thermal-history tracking is not "
-                                      "ported to the PyTorch engine yet")
-        if self.interpass_T is not None:
-            raise NotImplementedError("interpass dwell control is not "
-                                      "ported to the PyTorch engine yet")
+            T, self.history_state = self.advance(T, prep, dt, n_sub, t,
+                                                 self.history_state)
+            return T
+        return self.advance(T, active if prep is None else prep, dt, n_sub,
+                            t)
+
+    def run(self, T, *, frame_times, t_end: float | None = None,
+            on_frame: Callable | None = None, extra_events=(),
+            start_t: float = 0.0, history_state=None):
+        """``start_t``: resume the schedule from this time (births at or
+        after it replay).  ``history_state``: ``(T_peak, t_above)`` to
+        resume the history from (copied; default: the peak seeded from the
+        entering field, zero time above)."""
         act = self.activation_times
         eps = 1e-12
         # event times come from the activation field's own values (one host
@@ -313,7 +451,7 @@ class EventLoop:
         # epsilon vanishes in the cast), and every layer would activate one
         # event late.
         act_h = act.detach().cpu().numpy()
-        finite = np.isfinite(act_h) & (act_h >= 0.0)
+        finite = np.isfinite(act_h) & (act_h >= start_t)
         births = np.unique(np.where(finite, act_h, np.inf))
         births = [float(b) for b in births if math.isfinite(float(b))]
         frame_times = [float(t) for t in frame_times]
@@ -322,18 +460,55 @@ class EventLoop:
         # a float32 birth time a hair above the float64 t_end still deposits
         birth_set = set(b for b in births
                         if b <= t_end + 1e-6 * max(1.0, abs(t_end)))
-        events = sorted(birth_set | set(frame_times) | {t_end})
+        events = sorted(birth_set | set(frame_times)
+                        | set(float(e) for e in extra_events) | {t_end})
         frames = set(frame_times)
         final_event = events[-1] if events else None
 
-        t = 0.0
+        if self.interpass_T is not None and self.interpass_dwell <= 0:
+            raise ValueError("interpass_dwell must be positive (a zero or "
+                             "negative increment would dwell forever)")
+        if self.interpass_T is not None and getattr(self.advance,
+                                                    "has_source", False):
+            raise ValueError(
+                "interpass_T cannot be combined with a continuous source_fn: "
+                "during the dwell the engine keeps evaluating the source at "
+                "the frozen schedule time (the torch never switches off), so "
+                "the part may never cool to the threshold.  Model deposition "
+                "heating via birth deposits (deposit_T) when using interpass "
+                "control")
+        t = float(start_t)
         active = (act <= t).expand(T.shape)
         # layers born at the start are deposited now; the substrate (-inf)
         # and cells born earlier keep the entering field
-        born_now = active & (act >= t)
+        born_now = active & torch.isfinite(act) & (act >= t)
         T = torch.where(born_now, self.deposit_T, T)
         active_any = bool(active.any())          # one sync at start only
-        prep = self.prepare(active)
+        prep = self.prepare(active) if self.prepare is not None else None
+        if self.history:
+            if prep is None:
+                raise ValueError("EventLoop(history=True) requires prepare "
+                                 "and an advance from make_cartesian_engine("
+                                 "history_t_crit=...)")
+            if history_state is not None:
+                # the advance updates the state in place: work on copies
+                self.history_state = tuple(
+                    torch.as_tensor(x, device=T.device).clone()
+                    for x in history_state)
+            else:
+                # t_above accumulates many small dt increments: solve
+                # precision even for bfloat16 states; a tuple of thresholds
+                # adds a leading threshold axis
+                ths = (self.history_thresholds
+                       if self.history_thresholds is not None
+                       else getattr(self.advance, "history_thresholds",
+                                    None))
+                ta_shape = tuple(T.shape) if not ths else \
+                    (len(ths),) + tuple(T.shape)
+                self.history_state = (T.clone(), torch.zeros(
+                    ta_shape, dtype=torch.promote_types(T.dtype,
+                                                        torch.float32),
+                    device=T.device))
         if t in frames and on_frame is not None:
             on_frame(t, T, active)
 
@@ -350,22 +525,42 @@ class EventLoop:
             seg = te - t
             if active_any:
                 n_sub = max(1, int(math.ceil(seg / self.dt_cap)))
-                # dt and the segment start rounded to the STATE dtype, as
-                # the JAX loop passes them (:729-731): at bfloat16 both are
-                # bf16-quantised before the clock widens them.  Kept so, for
-                # parity with JAX, not corrected here.
-                T = self.advance(T, prep, round_to_state(seg / n_sub, T.dtype),
-                                 n_sub, round_to_state(t, T.dtype))
-                self.substeps += n_sub
+                T = self._advance(T, prep, active, seg / n_sub, n_sub, t)
             t = te
             if te in birth_set:
+                if self.interpass_T is not None and active_any:
+                    dwell = 0.0
+                    n_dw = max(1, int(math.ceil(self.interpass_dwell
+                                                / self.dt_cap)))
+                    dt_dw = self.interpass_dwell / n_dw
+                    while dwell < self.interpass_max_dwell:
+                        # one host read per dwell check
+                        tmax = float(torch.where(active, T,
+                                                 -math.inf).max())
+                        if tmax <= self.interpass_T:
+                            break
+                        T = self._advance(T, prep, active, dt_dw, n_dw, t)
+                        dwell += self.interpass_dwell
+                    if dwell > 0.0:
+                        if self.dwell_log is None:
+                            self.dwell_log = []
+                        self.dwell_log.append((te, dwell))
                 new_active = (act <= t).expand(T.shape)
                 newborn = new_active & ~active
                 T = torch.where(newborn, self.deposit_T, T)
+                if self.history:
+                    # a newborn's history starts at its deposit: void cells
+                    # carry placeholder temperatures through the solver's
+                    # identity rows, so anything accumulated before is void
+                    pk, ta = self.history_state
+                    self.history_state = (
+                        torch.where(newborn, T, torch.maximum(pk, T)),
+                        torch.where(newborn, 0.0, ta))
                 active = new_active
                 active_any = True          # a birth event implies new cells
-                prep = self.prepare(active)
-            if te in frames or te == final_event:
+                if self.prepare is not None:
+                    prep = self.prepare(active)
+            if self.check_finite and (te in frames or te == final_event):
                 check(t)
             if te in frames and on_frame is not None:
                 on_frame(t, T, active)

@@ -29,11 +29,23 @@ Example (on a CUDA machine):
     python -m adi_thermal_fields_tpu_torch.apps.spiral_tube --R_out 32 \\
         --wall_thickness 2 --height 8 --z_back 20 --pitch 4 --out ""
 
+Outputs (JAX :341-511): ``--history_t_crit`` tracks each voxel's peak
+temperature and seconds above each threshold (reset at a column's birth
+to ``--Ts``, then ``apps.engine.history_update`` after every step, in
+place on the device), masked by the final active state on output and
+saved to ``--history_out``; ``--vtk`` writes the final state as a
+STRUCTURED_GRID with the true tube geometry [mm]; ``--checkpoint``
+writes an npz checkpoint at every frame and ``--resume`` restarts from
+one by step index (the schedule is recomputed from the same flags; the
+same dt and thresholds are required), its clock added up step by step as
+the straight run's is, so that a resumed run equals the straight one bit
+for bit.
+
 ``--device`` defaults to ``cuda`` and the run raises when CUDA is absent;
 ``--device cpu`` runs the kernels' plain versions.  ``--implementation
-reference`` runs the plain step.  Flags of the JAX app that this port does
-not support yet exit with a message naming what they need.  A non-empty
-``--out`` writes a GIF and needs matplotlib and imageio.
+reference`` runs the plain step.  ``--mesh`` (the multi-device layer) is
+not ported and exits with a message.  A non-empty ``--out`` writes a GIF
+and needs matplotlib and imageio.
 """
 from __future__ import annotations
 
@@ -103,13 +115,25 @@ def build_argparser() -> argparse.ArgumentParser:
                         "nozzle, normalized so its domain integral is Q")
     p.add_argument("--torch_sigma", type=float, default=3.0,
                    help="torch Gaussian sigma [mm]")
-    # the other JAX-app flags: parsed so that they exit with a message
-    p.add_argument("--history_t_crit", type=str, default=None)
-    p.add_argument("--history_out", type=str, default="spiral_history.npz")
+    p.add_argument("--history_t_crit", type=str, default=None,
+                   help="track per-voxel thermal history: peak temperature "
+                        "and seconds above each comma-separated threshold "
+                        "[C] (e.g. '800,500' -> t8/5 = t_above[1] - "
+                        "t_above[0])")
+    p.add_argument("--history_out", type=str, default="spiral_history.npz",
+                   help="npz output path for the thermal-history arrays")
+    p.add_argument("--vtk", type=str, default="",
+                   help="write the final state as a legacy VTK "
+                        "STRUCTURED_GRID with the true tube geometry [mm]")
+    p.add_argument("--checkpoint", type=str, default="",
+                   help="write a resume checkpoint (npz) at every frame")
+    p.add_argument("--resume", type=str, default="",
+                   help="resume from a checkpoint file; the deposition "
+                        "schedule is recomputed from the (identical) CLI "
+                        "args, so only T, t and the thermal history are "
+                        "restored")
+    # the JAX app's multi-device flag: parsed so that it exits
     p.add_argument("--mesh", type=str, default="")
-    p.add_argument("--vtk", type=str, default="")
-    p.add_argument("--checkpoint", type=str, default="")
-    p.add_argument("--resume", type=str, default="")
     # the port's own
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; the run raises when CUDA is absent")
@@ -124,12 +148,7 @@ def build_argparser() -> argparse.ArgumentParser:
 def _reject_unsupported(args) -> None:
     """Exit with a message for flags this port does not support yet."""
     bad = [f"{name}: needs {need}" for name, on, need in (
-        ("--mesh", bool(args.mesh), "the multi-device layer"),
-        ("--history_t_crit", args.history_t_crit is not None,
-         "the thermal-history tracker"),
-        ("--vtk", bool(args.vtk), "the VTK writer"),
-        ("--checkpoint", bool(args.checkpoint), "checkpoint I/O"),
-        ("--resume", bool(args.resume), "checkpoint I/O")) if on]
+        ("--mesh", bool(args.mesh), "the multi-device layer"),) if on]
     if bad:
         raise SystemExit("not supported by the PyTorch port yet: "
                          + "; ".join(bad)
@@ -141,13 +160,16 @@ def run(args) -> dict:
                                 spiral_activation_times)
     from ..core.grid import CylindricalGrid
     from ..core.material import Material
+    from ..io.checkpoint import RunState, load_checkpoint, save_checkpoint
     from ..io.logging import log
+    from ..io.vtk import write_vtk_cylindrical_grid
     from ..step.cylindrical import RobinBC, ZFaceBC, adi_step_masked
     from ..step.cylindrical_masked import (build_masked_robin_plan,
                                            masked_robin_solve)
     from ..step.cylindrical_varprop import (adi_step_cyl_varprop,
                                             adi_step_cyl_varprop_masked,
                                             build_cyl_vp2_plan)
+    from .engine import history_update
 
     _reject_unsupported(args)
     device = torch.device(args.device)
@@ -299,11 +321,62 @@ def run(args) -> dict:
             active=a3, h_void=h_void, T_inf_void=args.T_inf,
             h_front=args.h_end, source=src, vp2_plan=codes, **vp_kw)
 
+    # per-voxel thermal history (the engine's semantics: reset at birth to
+    # the deposit temperature, then history_update after every step)
+    crits = None
+    if args.history_t_crit is not None:
+        crits = tuple(float(v) for v in str(args.history_t_crit).split(","))
+        tc = torch.tensor(crits, dtype=dtype, device=device)
+        pk = torch.full(grid.shape, args.T_inf, dtype=dtype, device=device)
+        ta = torch.zeros((len(crits),) + grid.shape, dtype=dtype,
+                         device=device)
+        log(f"thermal history: peak + t_above{crits} C", tag="history")
+
+    # resume by step index: the schedule recomputes from the CLI args, so
+    # the state is T, t and the thermal history only
+    i0 = 0
+    if args.resume:
+        st = load_checkpoint(args.resume)
+        T = torch.as_tensor(np.asarray(st.T, np.float64)).to(
+            device=device, dtype=dtype)
+        i0 = int(round(st.t / dt))
+        if abs(i0 * dt - st.t) > 1e-9 * max(1.0, st.t):
+            raise SystemExit(f"checkpoint t={st.t} is not a multiple of "
+                             f"--dt_fixed {dt}; resume needs the same dt")
+        if crits is not None:
+            if not (st.meta and "history_peak" in st.meta):
+                raise SystemExit("--history_t_crit set but the checkpoint "
+                                 "carries no thermal-history state")
+            ha = st.meta["history_above"]
+            if ha.shape[0] != len(crits):
+                raise SystemExit(
+                    f"checkpoint thermal-history has {ha.shape[0]} "
+                    f"thresholds, --history_t_crit has {len(crits)}")
+            ck_crits = tuple(float(v) for v in
+                             np.atleast_1d(st.meta.get("history_crits",
+                                                       np.asarray(crits))))
+            if ck_crits != crits:
+                raise SystemExit(
+                    f"checkpoint thermal-history thresholds {ck_crits} != "
+                    f"--history_t_crit {crits}; resuming would mix "
+                    "accumulators measured against different temperatures")
+            pk = torch.as_tensor(np.asarray(st.meta["history_peak"],
+                                            np.float64)).to(device=device,
+                                                            dtype=dtype)
+            ta = torch.as_tensor(np.asarray(ha, np.float64)).to(
+                device=device, dtype=dtype)
+        log(f"resumed t={st.t:.3f} s (step {i0}/{n_steps})", tag="resume")
+
     frames = []
     plan = a3 = None
     plans_built = 0
+    # the clock a straight run reaches at step i0, added up as it adds it
+    # (i0 * dt can differ in the last bit, and a column born on that step
+    # boundary would then be born a step apart; the JAX app takes i0 * dt)
     t = 0.0
-    for i in range(n_steps):
+    for _ in range(i0):
+        t += dt
+    for i in range(i0, n_steps):
         t_next = t + dt
         newborn = newborn_between(act, t, t_next)
         born = bool(newborn.any())
@@ -311,6 +384,9 @@ def run(args) -> dict:
             if born:
                 nb = torch.from_numpy(newborn).to(device)[None]
                 T = T.masked_fill(nb, args.Ts)
+                if crits is not None:
+                    pk.masked_fill_(nb, args.Ts)
+                    ta.masked_fill_(nb, 0.0)
             active = active_at(act, t_next)
             if clamp:
                 a3 = torch.from_numpy(active).to(device)[None] \
@@ -335,6 +411,8 @@ def run(args) -> dict:
         else:
             T = masked_robin_solve(T, plan, grid, mat, dt=dt, source=src,
                                    implementation=args.implementation)
+        if crits is not None:
+            history_update(pk, ta, T, dt, tc, multi=True)
         t = t_next
         if (i + 1) % frame_every == 0 or i == n_steps - 1:
             a_np = np.broadcast_to(active[None], grid.shape)
@@ -342,13 +420,56 @@ def run(args) -> dict:
             tmax = float(np.nanmax(np.where(a_np, T_np, np.nan)))
             log(f"t={t:8.3f} s  Tmax={tmax:8.1f}", tag="frame")
             frames.append((t, T_np, a_np.copy()))
+            if args.checkpoint:
+                meta = None if crits is None else {
+                    "history_peak": pk, "history_above": ta,
+                    "history_crits": np.asarray(crits)}
+                save_checkpoint(args.checkpoint, RunState(
+                    T=T_np, active=np.asarray(active), t=t, meta=meta))
 
+    active_end = active_at(act, t)
     out = {"T": T, "frames": frames, "grid": grid, "t": t,
-           "active": active_at(act, t), "activation_times": act,
-           "steps": n_steps, "plans_built": plans_built}
+           "active": active_end, "activation_times": act,
+           "steps": n_steps, "steps_run": max(0, n_steps - i0),
+           "plans_built": plans_built}
+    # never-born cells carry meaningless placeholder history: masked by
+    # the final active state
+    a_fin = np.broadcast_to(active_end[None], grid.shape)
+    if crits is not None:
+        pk_np = np.where(a_fin, pk.cpu().numpy(), 0.0)
+        ta_np = np.where(a_fin[None], ta.cpu().numpy(), 0.0)
+        out["history"] = {"peak": pk_np, "t_above": ta_np, "crits": crits}
+        if len(crits) == 2:
+            t85 = ta_np[1] - ta_np[0]
+            log(f"t{crits[0]:g}/{crits[1]:g}: max "
+                f"{float(t85.max()):.3f} s, mean (deposited) "
+                f"{float(t85[a_fin].mean()):.3f} s", tag="history")
+        if args.history_out:
+            np.savez_compressed(
+                args.history_out, peak=pk_np, t_above=ta_np,
+                crits=np.asarray(crits), r=np.asarray(grid.r),
+                dphi=grid.dphi, dz=grid.dz,
+                active=a_fin.astype(np.uint8))
+            log(f"saved {args.history_out}", tag="history")
+
+    if args.vtk:
+        fields = {"T": np.where(a_fin, T.cpu().numpy(), args.T_inf),
+                  "active": a_fin.astype(np.float32)}
+        if crits is not None:
+            fields["T_peak"] = out["history"]["peak"]
+            for kk, cc in enumerate(crits):
+                fields[f"t_above_{cc:g}C"] = out["history"]["t_above"][kk]
+        write_vtk_cylindrical_grid(
+            args.vtk, fields, r=np.asarray(grid.r) * 1e3,
+            dphi=grid.dphi, dz=grid.dz * 1e3, binary=True,
+            comment="adi_thermal_fields_tpu spiral_tube [mm]")
+        log(f"saved {args.vtk}", tag="vtk")
+
     if args.out and frames:
         _save_gif(args.out, frames, grid, args)
         log(f"saved {args.out}", tag="gif")
+    elif args.out:
+        log("no steps ran (resume at/past t_tot); gif skipped", tag="gif")
     return out
 
 

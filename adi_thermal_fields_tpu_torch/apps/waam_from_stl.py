@@ -26,13 +26,25 @@ stochastically, seeded by the engine's step counter.  The JAX app rounds
 stochastically only on a TPU and warns elsewhere (:305-316); the port's
 rounding runs on every device, CPU included.
 
+Outputs (JAX :417-470): ``--save_vtk 1`` writes a VTK frame per frame
+time into ``--outdir`` (binary past 2 M cells under ``--vtk_format
+auto``); ``--checkpoint`` writes an npz checkpoint at every frame, and
+``--resume`` restarts from one (also one the JAX app wrote), with its
+thermal history when the thresholds match; ``--history_t_crit`` tracks
+each voxel's peak temperature and seconds above each threshold and writes
+them to ``waam_history.vtk`` (zero on never-born cells; two thresholds
+also log the t8/5 cooling time); ``--interpass_T`` dwells before each
+layer until the part has cooled to it.
+
 ``--device`` defaults to ``cuda`` and the run raises when CUDA is absent;
 ``--device cpu`` runs the kernels' plain versions.  Flags of the JAX app
-that this port does not support yet exit with a message naming them.
+that this port does not support yet (``--mesh``) exit with a message
+naming them.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
@@ -107,13 +119,34 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--corrected_bc", type=int, default=0,
                    help="1: STL projected-area corrected per-face Robin "
                         "fields instead of the uniform --h_side")
+    # output
+    p.add_argument("--save_vtk", type=int, default=0)
+    p.add_argument("--vtk_format", choices=["auto", "ascii", "binary"],
+                   default="auto",
+                   help="auto = binary above 2M cells, ascii below")
+    p.add_argument("--outdir", type=str, default="waam_out",
+                   help="directory of the VTK frames and waam_history.vtk "
+                        "(made when something is written)")
+    p.add_argument("--checkpoint", type=str, default="",
+                   help="write a resume checkpoint (npz) at every frame")
+    p.add_argument("--resume", type=str, default="",
+                   help="resume from a checkpoint file (the port's or the "
+                        "JAX app's)")
+    p.add_argument("--interpass_T", type=float, default=None,
+                   help="interpass temperature control [C]: dwell (keep "
+                        "cooling) before each layer until the part's max "
+                        "temperature is at or below this")
+    p.add_argument("--interpass_dwell_s", type=float, default=5.0)
+    p.add_argument("--interpass_max_dwell_s", type=float, default=600.0)
+    p.add_argument("--history_t_crit", type=str, default=None,
+                   help="track per-voxel thermal history: peak temperature "
+                        "and seconds above the critical temperature(s) [C]; "
+                        "a comma list tracks each ('800,500' gives the "
+                        "steel t8/5 as t_above_500 - t_above_800), written "
+                        "to waam_history.vtk")
+    p.add_argument("--viewer", type=int, default=0)
     # JAX-app flags not ported yet: parsed so that they exit with a message
     p.add_argument("--mesh", type=str, default="")
-    p.add_argument("--checkpoint", type=str, default="")
-    p.add_argument("--resume", type=str, default="")
-    p.add_argument("--save_vtk", type=int, default=0)
-    p.add_argument("--history_t_crit", type=str, default=None)
-    p.add_argument("--interpass_T", type=float, default=None)
     return p
 
 
@@ -124,11 +157,6 @@ def _reject_unsupported(args) -> None:
                or args.melt_k_factor != 1.0)
     bad = [name for name, on in (
         ("--mesh", bool(args.mesh)),
-        ("--checkpoint", bool(args.checkpoint)),
-        ("--resume", bool(args.resume)),
-        ("--save_vtk", args.save_vtk != 0),
-        ("--history_t_crit", args.history_t_crit is not None),
-        ("--interpass_T", args.interpass_T is not None),
         # per-face films with variable properties run the classic varprop
         # tier, whose bfloat16 entries (K5-K7, K19) are not ported
         ("--precision bfloat16 on area-corrected films with variable "
@@ -237,7 +265,10 @@ def layer_birth_times(mask, layers, dx, bead_width_m, scan_speed_m_s,
 def run(args) -> dict:
     from ..core.grid import CartesianGrid
     from ..core.material import Material
+    from ..io.checkpoint import (RunState, load_checkpoint, save_checkpoint,
+                                 to_numpy)
     from ..io.logging import fmt_bytes, log
+    from ..io.vtk import write_vtk_structured_points
     from ..step.cartesian_varprop import apparent_cp, melt_pool_enhanced_k
     from .engine import EventLoop, make_cartesian_engine
 
@@ -325,9 +356,17 @@ def run(args) -> dict:
                      for f, v in scale.items()}
         log("using STL projected-area corrected Robin fields", tag="bc")
 
+    hist_crits = None
+    crits_np = None     # canonical threshold array (checkpoint meta/guard)
+    if args.history_t_crit is not None:
+        vals = tuple(float(v) for v in str(args.history_t_crit).split(","))
+        hist_crits = vals if len(vals) > 1 else vals[0]
+        crits_np = np.atleast_1d(np.asarray(vals))
+
     prepare, advance = make_cartesian_engine(
         grid, mat, implementation=args.implementation, device=device,
         dtype=dtype, theta=args.theta, t_inf=args.T_inf, robin_h=robin_h,
+        history_t_crit=hist_crits,
         k_table=k_table, cp_table=cp_table, emissivity=emissivity,
         radiation_scale=rad_scale if emissivity is not None else None,
         stochastic_rounding=dtype == torch.bfloat16)
@@ -337,14 +376,57 @@ def run(args) -> dict:
         f"(cfl={args.cfl}), implementation={args.implementation}", tag="num")
 
     T = torch.full(grid.shape, args.T_inf, dtype=dtype, device=device)
+    start_t = 0.0
+    resume_history = None
+    if args.resume:
+        st = load_checkpoint(args.resume)
+        T = torch.as_tensor(np.asarray(st.T, np.float64)).to(
+            device=device, dtype=dtype)
+        start_t = st.t
+        if args.history_t_crit is not None and st.meta \
+                and "history_peak" in st.meta:
+            ha = st.meta["history_above"]
+            # t_above's leading threshold axis must match the current
+            # --history_t_crit
+            nth = len(hist_crits) if isinstance(hist_crits, tuple) else None
+            want = (grid.shape if nth is None
+                    else (nth,) + tuple(grid.shape))
+            if tuple(ha.shape) != tuple(want):
+                raise SystemExit(
+                    f"checkpoint thermal-history shape {tuple(ha.shape)} does "
+                    f"not match --history_t_crit {args.history_t_crit} "
+                    f"(expected {want}); resume with the same threshold list "
+                    "the checkpoint was written with")
+            ck_crits = st.meta.get("history_crits")
+            if ck_crits is not None and not np.array_equal(
+                    np.atleast_1d(ck_crits), crits_np):
+                raise SystemExit(
+                    f"checkpoint thermal-history thresholds "
+                    f"{np.atleast_1d(ck_crits).tolist()} != "
+                    f"--history_t_crit {crits_np.tolist()}; resuming "
+                    "would mix accumulators measured against different "
+                    "temperatures")
+            # t_above accumulates at solve precision (>= float32)
+            resume_history = (
+                torch.as_tensor(np.asarray(st.meta["history_peak"],
+                                           np.float64)).to(
+                    device=device, dtype=dtype),
+                torch.as_tensor(np.asarray(ha)).to(
+                    device=device,
+                    dtype=torch.promote_types(dtype, torch.float32)))
+            log("resumed thermal-history state from checkpoint", tag="ckpt")
+        log(f"resumed from {args.resume} at t={start_t:.3f} s", tag="ckpt")
+
     frame_times = (np.linspace(0.0, total_time, args.nframes).tolist()
                    if args.nframes > 1 and total_time > 0 else [0.0])
     frames_meta = []
+    binary = (args.vtk_format == "binary"
+              or (args.vtk_format == "auto" and grid.ncells > 2_000_000))
+    vtk_geo = dict(spacing=tuple(v * 1e3 for v in d),
+                   origin=tuple(np.asarray(origin) * 1e3), binary=binary)
 
     def on_frame(t, T_d, active):
-        # numpy has no bfloat16: read a bfloat16 field at float32
-        T_np = T_d.to(torch.promote_types(T_d.dtype, torch.float32)) \
-            .cpu().numpy()
+        T_np = to_numpy(T_d)           # bfloat16 at float32
         a_np = active.cpu().numpy()
         n_act = int(a_np.sum())
         tmax = float(np.nanmax(np.where(a_np, T_np, np.nan))) if n_act else 0.0
@@ -353,16 +435,72 @@ def run(args) -> dict:
                 tag="warn")
         log(f"t={t:9.3f} s  active={n_act}  Tmax={tmax:8.1f}", tag="frame")
         frames_meta.append((t, n_act, tmax))
+        if args.save_vtk:
+            os.makedirs(args.outdir, exist_ok=True)
+            write_vtk_structured_points(
+                os.path.join(args.outdir, f"waam_{t:010.3f}.vtk"),
+                {"Temperature": T_np, "Mask": a_np.astype(np.float32)},
+                **vtk_geo)
+        if args.checkpoint:
+            meta = None
+            if args.history_t_crit is not None \
+                    and loop.history_state is not None:
+                pk_c, ta_c = loop.history_state
+                meta = {"history_peak": pk_c, "history_above": ta_c,
+                        "history_crits": crits_np}
+            save_checkpoint(args.checkpoint,
+                            RunState(T=T_np, active=a_np, t=t, meta=meta))
 
     loop = EventLoop(advance=advance, prepare=prepare, activation_times=act,
-                     deposit_T=args.Ts, dt_cap=dt_cap)
+                     deposit_T=args.Ts, dt_cap=dt_cap,
+                     history=args.history_t_crit is not None,
+                     history_thresholds=(hist_crits if isinstance(
+                         hist_crits, tuple) else None),
+                     interpass_T=args.interpass_T,
+                     interpass_dwell=args.interpass_dwell_s,
+                     interpass_max_dwell=args.interpass_max_dwell_s)
     T, active, t = loop.run(T, frame_times=frame_times, t_end=total_time,
-                            on_frame=on_frame)
+                            on_frame=on_frame, start_t=start_t,
+                            history_state=resume_history)
+    if loop.dwell_log:
+        tot = sum(dw for _, dw in loop.dwell_log)
+        log(f"interpass dwells: {len(loop.dwell_log)} layers, "
+            f"{tot:.1f} s total cooling inserted", tag="interpass")
     log(f"done: {len(frames_meta)} frames, {loop.substeps} sub-steps",
         tag="done")
+
+    if args.history_t_crit is not None:
+        pk_np, ta_np = (to_numpy(x) for x in loop.history_state)
+        a_np = active.cpu().numpy()
+        fn = os.path.join(args.outdir, "waam_history.vtk")
+        # never-born cells carry no meaningful history: masked to 0
+        fields = {"T_peak": np.where(a_np, pk_np.astype(np.float32), 0.0)}
+        if isinstance(hist_crits, tuple):
+            for tc, ta_i in zip(hist_crits, ta_np):
+                key = f"t_above_{tc:g}".replace(".", "p")
+                fields[key] = np.where(a_np, ta_i.astype(np.float32), 0.0)
+        else:
+            fields["t_above"] = np.where(a_np, ta_np.astype(np.float32), 0.0)
+        fields["Mask"] = a_np.astype(np.float32)
+        os.makedirs(args.outdir, exist_ok=True)
+        write_vtk_structured_points(fn, fields, **vtk_geo)
+        if isinstance(hist_crits, tuple) and len(hist_crits) == 2 \
+                and a_np.any():
+            t85 = ta_np[1] - ta_np[0]
+            log(f"t{hist_crits[0]:g}/{hist_crits[1]:g}: max "
+                f"{float(t85[a_np].max()):.3f} s, mean (deposited) "
+                f"{float(t85[a_np].mean()):.3f} s", tag="history")
+        log(f"thermal history (T_crit={args.history_t_crit}) -> {fn}",
+            tag="history")
+
+    if args.viewer and frames_meta:
+        log("viewer: load the VTK series in ParaView, or use "
+            "adi_thermal_fields_tpu_torch.apps.viewer on saved frames",
+            tag="viewer")
     return {"T": T, "active": active, "t": t, "frames": frames_meta,
             "grid": grid, "layers": layers, "births": births,
-            "substeps": loop.substeps}
+            "substeps": loop.substeps, "history": loop.history_state,
+            "dwell_log": loop.dwell_log}
 
 
 def main(argv=None):

@@ -57,7 +57,7 @@ from .sweeps import (fused_sweep, fused_sweep_axis0,
                      sweep_strided, sweep_strided_plain, sweep_z,
                      sweep_z_plain)
 from .theta_sweep import fused_theta_sweep, fused_theta_sweep_plain
-from .thomas import cyclic_thomas, thomas
+from .thomas import cyclic_thomas, thomas, thomas_along_axis
 from .varprop import (varprop_fields, varprop_fields_plain,
                       varprop_sweep_x, varprop_sweep_x_plain,
                       varprop_sweep_y, varprop_sweep_y_plain,
@@ -93,7 +93,7 @@ KERNELS = {"K1": sweep_strided, "K2": sweep_z, "K3": theta_rhs,
            # K1's v1 entry and K15's y entry, counted apart
            "K1v1": sweep_strided.v1, "K15y": vp2_sweep_y}
 
-__all__ = ["thomas", "cyclic_thomas", "sweep_code", "sweep_strided", "sweep_strided_plain",
+__all__ = ["thomas", "thomas_along_axis", "cyclic_thomas", "sweep_code", "sweep_strided", "sweep_strided_plain",
            "sweep_z", "sweep_z_plain", "theta_rhs", "theta_rhs_plain",
            "fused_theta_sweep", "fused_theta_sweep_plain", "varprop_fields",
            "varprop_fields_plain", "varprop_theta_sweep",

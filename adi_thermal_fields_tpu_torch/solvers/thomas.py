@@ -1,10 +1,11 @@
 """Batched tridiagonal (Thomas) solves: the plain solves under every kernel.
 
 Counterpart: ``adi_thermal_fields_tpu/solvers/thomas.py`` — ``thomas`` (a
-``lax.scan``) and ``cyclic_thomas`` (:67, the periodic solve).  Here a Python loop runs over the line and each iteration is
-a few tensor ops vectorized over the batch — on any device.  It is the
-solve inside the plain version of every sweep kernel and inside the
-reference step (step/cartesian.py).
+``lax.scan``), ``thomas_along_axis`` (:58) and ``cyclic_thomas`` (:67, the
+periodic solve).  Here a Python loop runs over the line and each
+iteration is a few tensor ops vectorized over the batch — on any device.
+It is the solve inside the plain version of every sweep kernel and inside
+the reference step (step/cartesian.py).
 
 Conventions: for systems ``a[i] x[i-1] + b[i] x[i] + c[i] x[i+1] = d[i]``
 along axis 0, ``a[0]`` and ``c[n-1]`` are ignored (treated as zero).
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["thomas", "cyclic_thomas"]
+__all__ = ["thomas", "thomas_along_axis", "cyclic_thomas"]
 
 
 def thomas(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -46,6 +47,15 @@ def thomas(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         torch.sub(dp[i], cp[i] * x_next, out=x[i])
         x_next = x[i]
     return x
+
+
+def thomas_along_axis(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                      d: torch.Tensor, axis: int) -> torch.Tensor:
+    """Solve tridiagonal systems along an arbitrary axis of nd tensors."""
+    if axis == 0:
+        return thomas(a, b, c, d)
+    mv = (lambda t: t.movedim(axis, 0))
+    return thomas(mv(a), mv(b), mv(c), mv(d)).movedim(0, axis)
 
 
 def cyclic_thomas(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,

@@ -1,9 +1,10 @@
 """Cartesian masked theta-scheme ADI time step: the plain reference step.
 
 Counterpart: ``adi_thermal_fields_tpu/step/cartesian.py`` —
-``masked_laplacian_1d``, ``build_sweep_system``, ``implicit_sweep`` and
-``adi_step``.  Plain tensor ops on any device; the kernel path
-(step/cartesian_fused.py) is checked against it on the CPU and on the card.
+``masked_laplacian_1d``, ``build_sweep_system``, ``implicit_sweep``,
+``adi_step`` and ``apply_surface_impulse`` (:134).  Plain tensor ops on
+any device; the kernel path (step/cartesian_fused.py) is checked against
+it on the CPU and on the card.
 
 One step advances ``T^{n+1} = W(V(U(R0)))`` where
 ``R0 = T^n + dt*kappa*(1-theta)*(Lx+Ly+Lz) T^n`` (mask-aware Laplacians) and
@@ -23,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..bc.faces import shift_in
+from ..bc.faces import exposed_face, shift_in
 from ..bc.packs import CoeffPacks
 from ..core.grid import CartesianGrid
 from ..core.material import Material
@@ -31,7 +32,7 @@ from ..solvers.thomas import thomas
 
 __all__ = ["adi_step", "masked_laplacian_1d", "build_sweep_system",
            "implicit_sweep", "step_scalars", "solve_numpy_dtype",
-           "round_to_state"]
+           "round_to_state", "apply_surface_impulse"]
 
 
 def solve_numpy_dtype(dtype: torch.dtype):
@@ -150,3 +151,18 @@ def adi_step(T: torch.Tensor, mask: torch.Tensor, packs: CoeffPacks,
     W = implicit_sweep(V, mask, packs.coeff[2], packs.dir_mask,
                        packs.dir_val, packs.qflux[2], tg[2], dt, t_inf, 2)
     return W
+
+
+def apply_surface_impulse(T: torch.Tensor, mask: torch.Tensor,
+                          grid: CartesianGrid, mat: Material, Q,
+                          face: str = "z-") -> torch.Tensor:
+    """Add a surface heat impulse ``dT = Q/(rho cp d_normal)`` [Q in J/m^2]
+    on the exposed cells of the outermost slab of ``face``.  Returns the
+    updated field."""
+    axis = {"x": 0, "y": 1, "z": 2}[face[0]]
+    # dT = Q * A_face / (rho cp V) = Q / (rho cp d_normal)
+    dT = Q / (mat.rho * mat.cp * grid.spacing[axis])
+    exp = exposed_face(mask.to(torch.bool), face)
+    slab = torch.zeros_like(exp)
+    slab.select(axis, 0 if face[1] == "-" else T.shape[axis] - 1).fill_(True)
+    return torch.where(exp & slab, T + dT, T)

@@ -5,6 +5,7 @@ v1 entry and K15 with its y entry), and check every result.
 
     python3 chip_smoke.py        # from the root of a checkout; one card
     python3 chip_smoke.py --profile   # phase 8's steps under torch.profiler
+    python3 chip_smoke.py --phase12   # phase 4's kernels print, then phase 12
 
 Phases (each asserts; a failure exits non-zero and prints no result):
 
@@ -246,6 +247,27 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    Each of the four float32 prints is held against the float64 print of
    its flags (max, mean |d| and mean d over the solid; printed).  The
    switch is set back whatever happens.
+12. The apps' outputs and the single-track app.  (a) Phase 4's print
+   again with the kernels, with --history_t_crit 800,500, --checkpoint,
+   --save_vtk 1 and 4 frames: the final T bit for bit phase 4's (tracking
+   the history must not touch the field); waam_history.vtk read back:
+   T_peak >= T on active cells and at --Ts on the deposited ones, each
+   t_above_* 0 where the peak stayed under its threshold, t8/5 >= 0,
+   zeros on never-born cells; the checkpoint's T and history equal the
+   run's, and --resume from it gives the same peaks.  Wall s beside phase
+   4's; the history pass's ms per sub-step (CUDA events) beside one
+   sub-step of the engine, on the bar and at 512^3.  (b) The bar with
+   --interpass_T 300 and SHORT_LAYER_S layers (P12_DWELL), kernels and
+   reference: equal dwell logs, T within APP_TOL.  (c) Phase 6's spiral
+   print with the kernels at a fixed speed, to half its --t_tot with
+   --checkpoint and --history_t_crit 800,500, then --resume to the full
+   --t_tot, against a straight run: T and t_above bit for bit.  (d) The
+   single-track app at P12_TRACK (120x240x38, 1.09 M cells), with and
+   without --goldak_power 1500, kernels only: T finite, every bead column
+   active, Tmax <= --T_track without the torch, the torch's run hotter,
+   launches per sub-step K4 = K1 = K2 = 1 (K3 = 1, K1 = 2, K2 = 1 with
+   the torch); then P12_TRACK_SMALL with the kernels and the reference
+   step, within APP_TOL.
 
 Each main path is driven with the launch counts set to 0 just before it
 and read just after it: phases 3 (constant properties) and 4 for K1-K4,
@@ -255,7 +277,8 @@ and app for K9-K11, phase 7's step and app for K12-K14, K13t and K14t, phase
 x entry and K19-K22 (beside K1, K3 and K5-K7), then phase 10's steps and
 apps for K1b-K4b and K23-K26 (beside the float32 K1-K8 of its
 comparisons), then phase 11's v1 pass, steps and print for K1v1 and K15y
-(beside K5-K8, and K19 in its float64 print).  The line before the
+(beside K5-K8, and K19 in its float64 print), then phase 12's prints
+for K1-K4 and K9-K11.  The line before the
 last is a JSON summary of the kernels (launches of those runs; each
 kernel's time at its main-path shape beside its bound, the least time for
 the bytes it must move and the operations it must do, its plain version's
@@ -264,6 +287,7 @@ time, and the PyTorch call's time where one exists); the last line is
 """
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -515,6 +539,19 @@ P10_APP_MEAN_TOL = 8.0
 # JAX switch test (tests/test_vp2.py:367-368)
 P11_Y_SHAPES = (("256^3 waam", (256,) * 3), ("512^3 waam", (512,) * 3))
 P11_RTOL, P11_ATOL = 2e-5, 5e-3
+# phase 12: the history thresholds; the dwell of the interpass print (one
+# 0.25 s increment up to 0.5 s before each layer: a fresh deposit stays
+# above 300 C, so every layer dwells the cap); the single-track app at
+# full width (0.25 mm, a 3 x 3 mm bead) and at 0.5 mm for the reference
+P12_HIST = ["--history_t_crit", "800,500"]
+P12_DWELL = ["--interpass_T", "300", "--interpass_dwell_s", "0.25",
+             "--interpass_max_dwell_s", "0.5"]
+P12_TRACK = ["--dx_mm", "0.25", "--track_w_vox", "12", "--track_h_vox",
+             "12", "--out", ""]
+P12_TRACK_SMALL = ["--dx_mm", "0.5", "--track_w_vox", "6", "--track_h_vox",
+                   "6", "--out", ""]
+P12_GOLDAK = ["--goldak_power", "1500"]
+P12_KERNELS = CONST_KERNELS + CYL_KERNELS
 
 
 def fail(msg):
@@ -827,6 +864,14 @@ def bar_stl(turn_deg=0.0):
     return stl
 
 
+def bar_argv(dev, precision="float32", turn_deg=0.0, layer_s=P4_LAYER_S):
+    """Phase 4's WAAM app flags: the bar, 20 layers of ``layer_s`` s."""
+    return ["--stl", bar_stl(turn_deg), "--dx_mm", str(P4_DX_MM),
+            "--nframes", "4",
+            "--layer_times_s", ",".join([str(layer_s)] * P4_LAYERS),
+            "--precision", precision, "--device", str(dev)]
+
+
 def app_phase(torch, dev, phase, extra, precision="float32",
               impls=("kernels", "reference"), turn_deg=0.0,
               layer_s=P4_LAYER_S):
@@ -836,10 +881,7 @@ def app_phase(torch, dev, phase, extra, precision="float32",
     from adi_thermal_fields_tpu_torch.apps import waam_from_stl as app
     from adi_thermal_fields_tpu_torch.step.cartesian import round_to_state
 
-    argv = ["--stl", bar_stl(turn_deg), "--dx_mm", str(P4_DX_MM),
-            "--nframes", "4",
-            "--layer_times_s", ",".join([str(layer_s)] * P4_LAYERS),
-            "--precision", precision, "--device", str(dev)] + extra
+    argv = bar_argv(dev, precision, turn_deg, layer_s) + extra
     runs = {}
     for impl in impls:
         args = app.build_argparser().parse_args(
@@ -3261,6 +3303,281 @@ def profile_phase8(torch, dev, steps=5):
                   f"{e.count // steps:4d}x  {e.key[:90]}", flush=True)
 
 
+def history_ms(torch, dev, label, shape, mask):
+    """The history pass's ms per sub-step (history_update on (T_peak,
+    t_above) for 800 and 500 C) beside one float32 sub-step of the
+    engine's plan-lite step (h 30), without and with the history."""
+    from adi_thermal_fields_tpu_torch import CartesianGrid, Material
+    from adi_thermal_fields_tpu_torch.apps.engine import (
+        history_update, make_cartesian_engine)
+
+    grid = CartesianGrid(*shape, P4_DX_MM * 1e-3)
+    mat = Material(7800.0, 490.0, 54.0)
+    T = random_field(torch, mask, 71)
+    dt = 0.02
+    ms = {}
+    for hist in (None, (800.0, 500.0)):
+        prep, adv = make_cartesian_engine(
+            grid, mat, implementation="kernels", device=dev,
+            dtype=torch.float32, robin_h=30.0, t_inf=20.0,
+            history_t_crit=hist)
+        p = prep(mask)
+        if hist is None:
+            ms["step"] = cuda_ms(torch, lambda: adv(T, p, dt, 1), 5)
+        else:
+            pk = T.clone()
+            ta = torch.zeros((2,) + tuple(shape), dtype=torch.float32,
+                             device=dev)
+            ms["step + history"] = cuda_ms(
+                torch, lambda: adv(T, p, dt, 1, 0.0, (pk, ta)), 5)
+            tc = torch.tensor(hist, dtype=torch.float32, device=dev)
+            ms["history"] = cuda_ms(
+                torch, lambda: history_update(pk, ta, T, dt, tc, True), 5)
+        del p
+    nbytes = 28 * mask.numel()     # T read, T_peak and 2 t_above r/w
+    bnd = 1e3 * nbytes / HBM_BYTES_PER_S
+    print(f"[phase 12] {label}: history pass {ms['history']:.3f} ms per "
+          f"sub-step (bound {bnd:.3f}, 28 B/cell), the engine's sub-step "
+          f"{ms['step']:.3f} ms, with the history {ms['step + history']:.3f}"
+          f" ms ({100 * ms['history'] / ms['step']:.1f}% of the step)",
+          flush=True)
+    return ms
+
+
+def phase12_bar(torch, dev, p4):
+    """(a) Phase 4's print with the history, its VTK files and its
+    checkpoint, then a resume from that checkpoint."""
+    import numpy as np
+    from adi_thermal_fields_tpu_torch.apps import waam_from_stl as app
+    from adi_thermal_fields_tpu_torch.io.checkpoint import load_checkpoint
+    from adi_thermal_fields_tpu_torch.io.vtk import (
+        read_vtk_structured_points)
+
+    work = os.path.join(HERE, "build", "chip_smoke")
+    ck = os.path.join(work, "ck.npz")
+    outdir = os.path.join(work, "vtk")
+    shutil.rmtree(outdir, ignore_errors=True)
+    argv = bar_argv(dev) + P12_HIST + [
+        "--implementation", "kernels", "--checkpoint", ck, "--save_vtk", "1",
+        "--outdir", outdir]
+    t0 = time.perf_counter()
+    res = app.run(app.build_argparser().parse_args(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"[phase 12] bar with history, 4 VTK frames and checkpoints: "
+          f"{res['substeps']} sub-steps, wall {wall:.2f} s (phase 4's "
+          f"kernels: {p4['wall_kernels']:.2f} s)", flush=True)
+    T = res["T"]
+    check(torch.equal(T, p4["T_kernels"]), "phase 12: the history changed "
+          "the field: T differs from phase 4's kernels T")
+    pk, ta = res["history"]
+    check(ta.shape == (2,) + tuple(T.shape) and ta.dtype == torch.float32,
+          f"phase 12: t_above {tuple(ta.shape)} {ta.dtype}")
+    names = sorted(os.listdir(outdir))
+    check(len(names) == 5 and "waam_history.vtk" in names,
+          f"phase 12: VTK files {names}")
+    h = read_vtk_structured_points(os.path.join(outdir, "waam_history.vtk"))
+    check(sorted(h) == ["Mask", "T_peak", "t_above_500", "t_above_800"],
+          f"phase 12: history fields {sorted(h)}")
+    a = h["Mask"] > 0.5
+    T_np = T.cpu().numpy()
+    check(bool((a == res["active"].cpu().numpy()).all()),
+          "phase 12: the history file's mask is not the active set")
+    ts = float(np.float32(1500.0))
+    check(bool((h["T_peak"][a] >= T_np[a]).all()),
+          "phase 12: T_peak < T on an active cell")
+    check(bool((h["T_peak"][a] == ts).all()), "phase 12: a deposited "
+          "cell's peak is not --Ts (the bar is all deposit)")
+    for tc in (800, 500):
+        f = h[f"t_above_{tc}"]
+        check(bool((f >= 0).all()) and not f[a & (h["T_peak"] <= tc)].any(),
+              f"phase 12: t_above_{tc} nonzero where the peak stayed under "
+              "it, or negative")
+    t85 = h["t_above_500"] - h["t_above_800"]
+    check(bool((t85 >= 0).all()), "phase 12: t8/5 < 0")
+    check(not any(h[k][~a].any() for k in h), "phase 12: a never-born cell "
+          "carries history")
+    st = load_checkpoint(ck)
+    check(st.t == res["t"] and np.array_equal(st.T, T_np)
+          and np.array_equal(st.meta["history_peak"], pk.cpu().numpy())
+          and np.array_equal(st.meta["history_above"], ta.cpu().numpy()),
+          "phase 12: the checkpoint is not the run's state")
+    print(f"[phase 12] waam_history.vtk: {int(a.sum())} active cells, "
+          f"T_peak {float(h['T_peak'][a].min()):.1f}-"
+          f"{float(h['T_peak'][a].max()):.1f} C, t_above_800 max "
+          f"{float(h['t_above_800'].max()):.3f} s, t8/5 max "
+          f"{float(t85.max()):.3f} s, mean {float(t85[a].mean()):.3f} s",
+          flush=True)
+    back = app.run(app.build_argparser().parse_args(argv + ["--resume",
+                                                            ck]))
+    check(torch.equal(back["T"], T) and torch.equal(back["history"][0], pk)
+          and torch.equal(back["history"][1], ta),
+          "phase 12: --resume does not give the run's field and peaks")
+    bar_mask = res["active"].contiguous()
+    del res, back, T, pk, ta
+    torch.cuda.empty_cache()
+    return dict(wall=wall, bar_mask=bar_mask)
+
+
+def phase12_history_ms(torch, dev, bar_mask):
+    """The history pass against the engine's sub-step on the bar and at
+    512^3 (after the main path's counts are read)."""
+    out = {"bar": history_ms(torch, dev, f"bar {tuple(bar_mask.shape)}",
+                             tuple(bar_mask.shape), bar_mask)}
+    big = waam_mask(torch, (P3_N,) * 3, dev)
+    out[f"{P3_N}^3"] = history_ms(torch, dev, f"{P3_N}^3 waam",
+                                  (P3_N,) * 3, big)
+    del big
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase12_dwell(torch, dev):
+    """(b) The bar with interpass dwell control, kernels and reference."""
+    from adi_thermal_fields_tpu_torch.apps import waam_from_stl as app
+
+    runs = {}
+    for impl in ("kernels", "reference"):
+        t0 = time.perf_counter()
+        res = app.run(app.build_argparser().parse_args(
+            bar_argv(dev, layer_s=SHORT_LAYER_S) + P12_DWELL
+            + ["--implementation", impl]))
+        torch.cuda.synchronize()
+        runs[impl] = res
+        log = res["dwell_log"] or []
+        print(f"[phase 12] interpass bar {impl:9s}: {res['substeps']} "
+              f"sub-steps, {len(log)} dwells, "
+              f"{sum(d for _, d in log):.2f} s of dwell, wall "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    k, r = runs["kernels"], runs["reference"]
+    check(k["dwell_log"] == r["dwell_log"] and len(k["dwell_log"] or [])
+          == P4_LAYERS - 1, f"phase 12: dwell logs {k['dwell_log']} != "
+          f"{r['dwell_log']}")
+    check(k["substeps"] == r["substeps"], "phase 12: dwell sub-steps differ")
+    err = float((k["T"] - r["T"]).abs().max())
+    print(f"[phase 12] interpass bar: max|T_kernels - T_reference| = "
+          f"{err:.3e} K", flush=True)
+    check(err <= APP_TOL, f"phase 12 interpass: {err:.3e} K > {APP_TOL} K")
+
+
+def phase12_spiral(torch, dev):
+    """(c) Phase 6's spiral print interrupted at half its --t_tot and
+    resumed, against the straight print, with the history."""
+    import numpy as np
+    from adi_thermal_fields_tpu_torch.apps import spiral_tube as app
+
+    # phase 6's print at the fixed speed its --auto_speed chooses (a
+    # schedule that does not depend on --t_tot): 20 layers of 1.5 s at the
+    # wall's mid-radius
+    argv = [a for a in P6_APP if a != "--auto_speed"]
+    i = argv.index("--t_tot")
+    t_tot = float(argv[i + 1])
+    del argv[i:i + 2]
+    a = app.build_argparser().parse_args(P6_APP)
+    r_mid = a.R_out - 0.5 * a.wall_thickness
+    n_layers = round(a.height / a.pitch)
+    speed = 2 * np.pi * r_mid / (t_tot / n_layers)
+    ck = os.path.join(HERE, "build", "chip_smoke", "spiral_ck.npz")
+    argv += ["--speed", repr(speed), "--device", str(dev),
+             "--implementation", "kernels", "--history_out", ""] + P12_HIST
+    runs = {}
+    for name, extra in (("half", ["--t_tot", repr(t_tot / 2),
+                                  "--checkpoint", ck]),
+                        ("resumed", ["--t_tot", repr(t_tot), "--resume",
+                                     ck]),
+                        ("straight", ["--t_tot", repr(t_tot)])):
+        t0 = time.perf_counter()
+        res = app.run(app.build_argparser().parse_args(argv + extra))
+        torch.cuda.synchronize()
+        runs[name] = res
+        print(f"[phase 12] spiral {name:8s}: {res['steps_run']} steps, wall "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    r, s = runs["resumed"], runs["straight"]
+    dT = float((r["T"] - s["T"]).abs().max())
+    dta = float(np.abs(r["history"]["t_above"]
+                       - s["history"]["t_above"]).max())
+    dpk = float(np.abs(r["history"]["peak"] - s["history"]["peak"]).max())
+    print(f"[phase 12] spiral resumed vs straight: max|dT| = {dT:.3e} K, "
+          f"max|d t_above| = {dta:.3e} s, max|d T_peak| = {dpk:.3e} K",
+          flush=True)
+    check(runs["half"]["steps_run"] + r["steps_run"] == s["steps_run"],
+          "phase 12: the resumed spiral's steps do not add up")
+    check(torch.equal(r["T"], s["T"]) and dta == 0.0 and dpk == 0.0,
+          "phase 12: the resumed spiral is not bit for bit the straight "
+          "print")
+    check(float(s["history"]["t_above"].max()) > 0.0,
+          "phase 12: the spiral's history stayed empty")
+
+
+def phase12_track(torch, dev):
+    """(d) The single-track app at full width, with and without the
+    torch, then at 0.5 mm with the kernels and the reference step."""
+    import numpy as np
+    from adi_thermal_fields_tpu_torch.apps import single_track as app
+    from adi_thermal_fields_tpu_torch.solvers import (launch_counts,
+                                                      reset_launch_counts)
+
+    per_step = {"birth": dict(K4=1, K1=1, K2=1),
+                "torch": dict(K3=1, K1=2, K2=1)}
+    total = {}
+
+    def counted(argv):
+        """One run of the app, its launches added to ``total``."""
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        r = app.run(app.build_argparser().parse_args(argv))
+        torch.cuda.synchronize()
+        got = launch_counts()
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        return r, got, time.perf_counter() - t0
+
+    res = {}
+    for name, extra in (("birth", []), ("torch", P12_GOLDAK)):
+        r, got, wall = counted(P12_TRACK + extra + ["--device", str(dev)])
+        n = r["substeps"]
+        want = {k: per_step[name].get(k, 0) * n for k in got}
+        check(got == want, f"phase 12 track {name}: launches {got} != "
+              f"{want}")
+        T, active, act = r["T"], r["active"], r["activation_times"]
+        bead = torch.isfinite(act)
+        tmax = float(T[active].max())
+        print(f"[phase 12] single track {name:5s}: grid {r['grid'].shape} "
+              f"({r['grid'].ncells / 1e6:.2f} M cells), "
+              f"{int(bead.any(dim=2).any(dim=0).sum())} bead columns, "
+              f"{n} sub-steps, wall {wall:.2f} s, Tmax {tmax:.2f} C, "
+              "launches per sub-step "
+              + ", ".join(f"{k} {got[k] / n:g}" for k in CONST_KERNELS),
+              flush=True)
+        check(n > 1000, f"track {name}: {n} sub-steps")
+        check(bool(torch.isfinite(T).all()), f"track {name}: non-finite T")
+        check(bool(active[bead].all()), f"track {name}: a bead column is "
+              "not active at the end")
+        res[name] = r
+    check(float(res["birth"]["T"][res["birth"]["active"]].max()) <= 1500.0,
+          "track: Tmax above --T_track without the torch")
+    a = res["birth"]["active"]
+    hot = float(res["torch"]["T"][a].mean())
+    cold = float(res["birth"]["T"][a].mean())
+    print(f"[phase 12] single track: mean T over the part {cold:.2f} C "
+          f"(birth), {hot:.2f} C (torch)", flush=True)
+    check(hot > cold + 5.0, "track: the torch's run is not hotter")
+    small = {}
+    for impl in ("kernels", "reference"):
+        small[impl], _, wall = counted(
+            P12_TRACK_SMALL + P12_GOLDAK + ["--device", str(dev),
+                                            "--implementation", impl])
+        print(f"[phase 12] single track 0.5 mm {impl:9s}: "
+              f"{small[impl]['substeps']} sub-steps, wall {wall:.2f} s",
+              flush=True)
+    err = float((small["kernels"]["T"] - small["reference"]["T"]).abs()
+                .max())
+    print(f"[phase 12] single track 0.5 mm: max|T_kernels - T_reference| = "
+          f"{err:.3e} K", flush=True)
+    check(err <= APP_TOL, f"track: kernels vs reference {err:.3e} K")
+    return total
+
+
 def main():
     torch = load_port()
     if sys.argv[1:] == ["--profile"]:
@@ -3269,6 +3586,18 @@ def main():
         phase0(torch)
         phase1()
         profile_phase8(torch, dev)
+        return
+    if sys.argv[1:] == ["--phase12"]:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        phase0(torch)
+        phase1()
+        p4 = app_phase(torch, dev, 4, [], impls=("kernels",))
+        p12 = phase12_bar(torch, dev, p4)
+        phase12_dwell(torch, dev)
+        phase12_spiral(torch, dev)
+        phase12_track(torch, dev)
+        phase12_history_ms(torch, dev, p12["bar_mask"])
         return
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -3324,6 +3653,14 @@ def main():
     phase11_step(torch, dev, p5_32,
                  p10["float32 varprop without latent heat"], p5)
     counts_11 = launch_counts()
+    reset_launch_counts()
+    p12 = phase12_bar(torch, dev, p4)
+    phase12_dwell(torch, dev)
+    phase12_spiral(torch, dev)
+    counts_12 = launch_counts()
+    for k, v in phase12_track(torch, dev).items():
+        counts_12[k] += v
+    phase12_history_ms(torch, dev, p12["bar_mask"])
     d32 = float((p5_32["T_kernels"].double() - p5["T_kernels"]).abs().max())
     print(f"[phase 5] max|T_float32 - T_float64| (kernels) = {d32:.3e} K",
           flush=True)
@@ -3347,6 +3684,13 @@ def main():
     check(all(counts_11[k] > 0 if k in REMAINDER_KERNELS else
               k in P11_ALSO or counts_11[k] == 0 for k in KERNEL_INFO),
           f"the v1 sweeps' and tier-2 y path's launches: {counts_11}")
+    check(all(counts_12[k] > 0 if k in P12_KERNELS else counts_12[k] == 0
+              for k in KERNEL_INFO),
+          f"the apps' outputs and single-track path's launches: "
+          f"{counts_12}")
+    print("[phase 12] launches of its prints: "
+          + ", ".join(f"{k} {counts_12[k]}" for k in P12_KERNELS),
+          flush=True)
     d45 = float((p5_32["T_kernels"] - p4["T_kernels"]).abs().max())
     print(f"[phase 5] max|T_varprop - T_constant| = {d45:.3e} K", flush=True)
     check(d45 > 1.0, "the varprop flags changed the app's field by "

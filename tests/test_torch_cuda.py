@@ -30,6 +30,8 @@ version.
 K1's v1 entry is held to the field-plan K1 bounds.
 The bfloat16 entries of K1-K4 solve at float32 like their plain versions
 but round differently (FMA contraction): within one bfloat16 ulp of them.
+The engine's thermal history leaves the field bit for bit on the card,
+and a resumed spiral print equals its straight run bit for bit.
 chip_smoke.py runs the same comparisons at full size.
 """
 import os
@@ -1959,3 +1961,72 @@ def test_k12_on_short_long_and_stiff_lines_on_card(dtype, rel):
             if shape[0] <= march or stiff:
                 assert torch.equal(got, want), (shape, dt)
     assert launch_counts() == _counts(K12=2 * calls, K13t=2 * calls)
+
+
+@pytest.mark.cuda
+def test_history_and_resume_on_card(tmp_path):
+    """The engine's thermal history on the card: on the plan-lite (K4, K1,
+    K2), varprop (K5-K8) and bfloat16 (K1b-K4b, stochastic) routes, history
+    on against off gives the same field bit for bit and the same launches,
+    T_peak >= T and t_above in whole sub-steps; the spiral app interrupted
+    and resumed equals its straight run bit for bit (the same card,
+    kernels and sub-steps)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from adi_thermal_fields_tpu_torch import CartesianGrid
+    from adi_thermal_fields_tpu_torch.apps import spiral_tube
+    from adi_thermal_fields_tpu_torch.apps.engine import (
+        make_cartesian_engine)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(67)
+    grid = CartesianGrid(37, 45, 70, 5e-4)
+    mask = torch.from_numpy(rng.random(grid.shape) > 0.2).to(dev)
+    T0 = torch.from_numpy(300.0 + 1200.0 * rng.random(grid.shape)).to(dev)
+    mat = Material(7800.0, 490.0, 54.0)
+    tabs = dict(k_table=melt_pool_enhanced_k(54.0, 1420.0, 1470.0, 4.0),
+                cp_table=apparent_cp(490.0, 490.0, 2.7e5, 1420.0, 1470.0))
+    routes = {"lite": (torch.float32, dict(robin_h=30.0)),
+              "varprop": (torch.float32, dict(robin_h=30.0, emissivity=0.5,
+                                              **tabs)),
+              "bf16": (torch.bfloat16, dict(robin_h=30.0,
+                                            stochastic_rounding=True))}
+    for route, (dtype, kw) in routes.items():
+        res = {}
+        for hist in (None, (800.0, 500.0)):
+            prep, adv = make_cartesian_engine(
+                grid, mat, implementation="kernels", device=dev, dtype=dtype,
+                t_inf=20.0, history_t_crit=hist, **kw)
+            p = prep(mask)
+            T = T0.to(dtype)
+            reset_launch_counts()
+            if hist is None:
+                res["off"] = adv(T, p, 0.02, 4, 1.0)
+            else:
+                pk = T.clone()
+                ta = torch.zeros((2,) + grid.shape, device=dev)
+                res["on"], (pk, ta) = adv(T, p, 0.02, 4, 1.0, (pk, ta))
+            res[f"launches {hist is None}"] = launch_counts()
+        assert torch.equal(res["on"], res["off"]), route
+        assert res["launches True"] == res["launches False"], route
+        assert sum(res["launches True"].values()) > 0, route
+        assert bool((pk >= res["on"]).all()) and ta.dtype == torch.float32
+        steps = (ta / float(np.float32(0.02))).round()
+        assert torch.equal(ta, steps * float(np.float32(0.02))), route
+        assert bool((steps[1] >= steps[0]).all()) and steps.max() == 4
+    argv = ["--R_out", "32", "--wall_thickness", "2", "--height", "8",
+            "--z_back", "8", "--nr", "8", "--nphi", "96", "--dz", "0.5",
+            "--pitch", "2", "--speed", "60", "--dt_fixed", "0.05",
+            "--nframes", "2", "--out", "", "--history_t_crit", "800,500",
+            "--history_out", "", "--device", "cuda"]
+    ck = str(tmp_path / "ck.npz")
+    run = (lambda *extra: spiral_tube.run(
+        spiral_tube.build_argparser().parse_args(argv + list(extra))))
+    run("--t_tot", "1", "--checkpoint", ck)
+    resumed = run("--t_tot", "2", "--resume", ck)
+    straight = run("--t_tot", "2")
+    assert resumed["steps_run"] == 20
+    assert torch.equal(resumed["T"], straight["T"])
+    for k in ("peak", "t_above"):
+        np.testing.assert_array_equal(resumed["history"][k],
+                                      straight["history"][k])
+    assert straight["history"]["t_above"].max() > 0

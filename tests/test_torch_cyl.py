@@ -273,12 +273,10 @@ def test_spiral_app_matches_jax(case, impl):
         assert 0 < got["plans_built"] < got["steps"] == 40
 
 
+# the history, VTK and checkpoint flags run now
+# (tests/test_torch_io_apps.py)
 @pytest.mark.parametrize("flag,needs", [
-    (["--mesh", "2x4"], "multi-device"),
-    (["--history_t_crit", "800"], "thermal-history"),
-    (["--vtk", "tube.vtk"], "VTK"),
-    (["--checkpoint", "ck.npz"], "checkpoint"),
-    (["--resume", "ck.npz"], "checkpoint")])
+    (["--mesh", "2x4"], "multi-device")])
 def test_spiral_app_refuses_unported_flags(flag, needs):
     args = port_app.build_argparser().parse_args(
         TUBE + ["--device", "cpu"] + flag)

@@ -8,7 +8,8 @@
 * the kernel wrappers are forward only: they raise on inputs that require
   grad;
 * flags the port does not support yet exit with a message naming them
-  (the variable-property flags are supported: tests/test_torch_varprop.py).
+  (the variable-property flags are supported: tests/test_torch_varprop.py;
+  the outputs: tests/test_torch_io_apps.py).
 """
 import os
 import subprocess
@@ -93,6 +94,16 @@ def test_port_imports_no_jax():
             "import adi_thermal_fields_tpu_torch.step.cylindrical_varprop\n"
             "import adi_thermal_fields_tpu_torch.solvers.fields\n"
             "import adi_thermal_fields_tpu_torch.geometry.bc_correction\n"
+            "import adi_thermal_fields_tpu_torch.apps.single_track\n"
+            "import adi_thermal_fields_tpu_torch.apps.viewer\n"
+            "import adi_thermal_fields_tpu_torch.io.vtk\n"
+            "import adi_thermal_fields_tpu_torch.io.checkpoint\n"
+            "import adi_thermal_fields_tpu_torch.birth.layers\n"
+            "import adi_thermal_fields_tpu_torch.birth.heat_source\n"
+            "import adi_thermal_fields_tpu_torch.core.timestep\n"
+            "import adi_thermal_fields_tpu_torch.geometry.shapes\n"
+            "import adi_thermal_fields_tpu_torch.geometry.perimeter\n"
+            "import adi_thermal_fields_tpu_torch.geometry.slices\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax',\n"
             "                                    'adi_thermal_fields_tpu'))\n"
@@ -118,16 +129,15 @@ def test_kernel_wrappers_refuse_inputs_that_require_grad():
             call()
 
 
-# the varprop flags and --precision bfloat16 run now; combined with a flag
-# the port lacks they still exit, naming only that flag (bfloat16 with the
-# corrected films and variable properties needs the classic tier's bf16
-# entries)
+# the varprop flags, --precision bfloat16 and the outputs (history, VTK,
+# checkpoints, interpass dwell: tests/test_torch_io_apps.py) run now; a
+# flag the port lacks still exits, naming only that flag (bfloat16 with
+# the corrected films and variable properties needs the classic tier's
+# bf16 entries)
 @pytest.mark.parametrize("flag", [
     ["--latent_J_kg", "2.7e5", "--precision", "bfloat16",
      "--corrected_bc", "1"],
-    ["--melt_k_factor", "3", "--history_t_crit", "800"], ["--mesh", "2x2"],
-    ["--checkpoint", "ck.npz"], ["--resume", "ck.npz"], ["--save_vtk", "1"],
-    ["--history_t_crit", "800"], ["--interpass_T", "200"],
+    ["--mesh", "2x2"],
     ["--precision", "bfloat16", "--corrected_bc", "1", "--emissivity",
      "0.5"]])
 def test_unsupported_flags_exit_with_a_message(box_stl, flag):
