@@ -36,6 +36,8 @@ import os
 import numpy as np
 import torch
 
+from . import resolve_device
+
 __all__ = ["build_argparser", "run", "main"]
 
 
@@ -92,10 +94,7 @@ def run(args) -> dict:
     from ..io.logging import log
     from .engine import EventLoop, make_cartesian_advance
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available on this machine; pass "
-                           "--device cpu to run the plain versions")
+    device = resolve_device(args.device)
     dx = args.dx_mm * 1e-3
     nx = int(round(args.plate_x_mm / args.dx_mm))
     ny = int(round(args.plate_y_mm / args.dx_mm))

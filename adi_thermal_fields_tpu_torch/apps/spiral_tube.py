@@ -55,6 +55,8 @@ import math
 import numpy as np
 import torch
 
+from . import resolve_device
+
 __all__ = ["build_argparser", "run", "main"]
 
 
@@ -172,10 +174,7 @@ def run(args) -> dict:
     from .engine import history_update
 
     _reject_unsupported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available on this machine; pass "
-                           "--device cpu to run the plain versions")
+    device = resolve_device(args.device)
 
     mm = 1e-3
     R_out = args.R_out * mm

@@ -49,6 +49,8 @@ import os
 import numpy as np
 import torch
 
+from . import resolve_device
+
 __all__ = ["build_argparser", "load_voxels", "extract_layers",
            "parse_layer_times", "layer_birth_times", "run", "main"]
 
@@ -273,10 +275,7 @@ def run(args) -> dict:
     from .engine import EventLoop, make_cartesian_engine
 
     _reject_unsupported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available on this machine; pass "
-                           "--device cpu to run the plain versions")
+    device = resolve_device(args.device)
 
     mesh, mask_full, origin, d = load_voxels(args)
     dx, _, dz = d

@@ -1,4 +1,5 @@
-"""Host I/O: logging, VTK frames and npz checkpoints (numpy)."""
+"""Host I/O: logging, VTK frames, npz checkpoints (numpy) and profiling
+(io/profiling.py: torch.profiler traces and a step timer)."""
 from .checkpoint import RunState, load_checkpoint, save_checkpoint
 from .logging import fmt_bytes, log
 from .vtk import (read_vtk_structured_grid, read_vtk_structured_points,

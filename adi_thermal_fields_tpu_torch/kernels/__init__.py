@@ -2,8 +2,13 @@
 
 The rule: a CPU tensor goes to the kernel's plain PyTorch version; a CUDA
 tensor goes to the hand-written kernel, or the wrapper raises.  No wrapper
-falls back from a failed build or launch to the plain version.  This port
-is forward only, so a wrapper raises on an input that requires grad.
+falls back from a failed build or launch to the plain version.  The
+wrappers themselves are forward only: called under grad mode with an input
+that requires grad, a wrapper raises, so autograd never stops unseen at a
+kernel.  Gradients go through the autograd Functions of
+``solvers/differentiable.py``, whose forward calls the wrappers with grad
+mode off and whose backward is the hand-derived pullback (transposed
+solves on K21 and K22, the stencil on K3).
 """
 from __future__ import annotations
 
@@ -30,13 +35,14 @@ def compute_dtype(dtype: torch.dtype) -> torch.dtype:
 def use_kernel(*tensors: torch.Tensor | None) -> bool:
     """True when the inputs lie on a CUDA device (launch the kernel), False
     when they lie on the CPU (run the plain version).  Raises for inputs on
-    different devices, on any other device type, or requiring grad."""
+    different devices, on any other device type, or requiring grad while
+    grad mode is on (inside an autograd Function's forward it is off)."""
     ts = [t for t in tensors if t is not None]
-    for t in ts:
-        if t.requires_grad:
-            raise RuntimeError(
-                "the kernel wrappers are forward only: an input requires "
-                "grad, and autograd would stop silently at the kernel")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            "the kernel wrappers are forward only: an input requires grad, "
+            "and autograd would stop silently at the kernel (differentiate "
+            "through solvers/differentiable.py)")
     devices = {t.device for t in ts}
     if len(devices) != 1:
         raise ValueError(f"kernel inputs lie on several devices: {devices}")

@@ -1,5 +1,6 @@
 """Solvers: the plain Thomas solves, the spectral phi solve, the bfloat16
-stores and the twenty-six hand-written kernels.
+stores and the twenty-six hand-written kernels (differentiable.py: the
+autograd Functions that carry gradients across them).
 
 Constant properties: K1 ``sweep_strided`` and K2 ``sweep_z`` (sweeps.py;
 K1's v1 entry "K1v1" behind the JAX v1 names ``fused_sweep``,

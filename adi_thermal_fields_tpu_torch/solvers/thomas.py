@@ -25,28 +25,30 @@ def thomas(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     ``dp[i] = (d[i]-a[i]*dp[i-1])/(b[i]-a[i]*cp[i-1])``, then
     ``x[i] = dp[i] - cp[i]*x[i+1]``.  ``reciprocal``: divide once per row,
     ``inv = 1/(b[i]-a[i]*cp[i-1])``, and multiply ``c[i]`` and
-    ``d[i]-a[i]*dp[i-1]`` by it (the order of the JAX varprop kernels)."""
+    ``d[i]-a[i]*dp[i-1]`` by it (the order of the JAX varprop kernels).
+    The rows are gathered in lists and stacked once, so autograd runs
+    through the solve (the JAX scan is differentiable too)."""
     n = d.shape[0]
-    cp = torch.empty_like(d)
-    dp = torch.empty_like(d)
+    cp, dp = [], []
     cp_prev = torch.zeros_like(d[0])
     dp_prev = torch.zeros_like(d[0])
     for i in range(n):
         denom = b[i] - a[i] * cp_prev
         if reciprocal:
             inv = torch.reciprocal(denom)
-            torch.mul(c[i], inv, out=cp[i])
-            torch.mul(d[i] - a[i] * dp_prev, inv, out=dp[i])
+            cp_prev = c[i] * inv
+            dp_prev = (d[i] - a[i] * dp_prev) * inv
         else:
-            torch.div(c[i], denom, out=cp[i])
-            torch.div(d[i] - a[i] * dp_prev, denom, out=dp[i])
-        cp_prev, dp_prev = cp[i], dp[i]
-    x = torch.empty_like(d)
+            cp_prev = c[i] / denom
+            dp_prev = (d[i] - a[i] * dp_prev) / denom
+        cp.append(cp_prev)
+        dp.append(dp_prev)
+    x = [None] * n
     x_next = torch.zeros_like(d[0])
     for i in range(n - 1, -1, -1):
-        torch.sub(dp[i], cp[i] * x_next, out=x[i])
-        x_next = x[i]
-    return x
+        x_next = dp[i] - cp[i] * x_next
+        x[i] = x_next
+    return torch.stack(x)
 
 
 def thomas_along_axis(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,

@@ -84,7 +84,8 @@ from .fields import stiff_flags
 from .thomas import cyclic_thomas, thomas
 from .varprop import _table_arg, eval_spec, harm
 
-__all__ = ["build_vp2_code", "vp2_streams", "vp2_sweep_z",
+__all__ = ["build_vp2_code", "vp2_streams", "vp2_open_streams",
+           "vp2_cyclic_streams", "vp2_sweep_z",
            "vp2_sweep_z_plain", "vp2_sweep_strided", "vp2_sweep_strided_plain",
            "vp2_sweep_y", "vp2_sweep_y_plain", "vp2_cyclic_phi",
            "vp2_cyclic_phi_plain"]
@@ -190,15 +191,41 @@ def _scaled_rows(rhs, T, cp_spec, inv_dtor, al, ch, sink, srhs):
     return -al, w_r + coup, -ch, rhs * w_r + srhs
 
 
+def vp2_open_streams(T, code, gsl, gsh, axis, *, k_spec, h_lo, h_hi,
+                     tinf, emissivity=0.0, edge0=None, edge1=None):
+    """``(fhi, sink, srhs)`` of an open sweep along ``axis`` from T^n (JAX
+    ``vp2_streams_xla``, unscaled): the harmonic hi faces, the interface
+    films and the domain-edge films.  The plain versions build their rows
+    from these, and the gradient route pulls their cotangents back."""
+    fhi = _faces_hi(T, code, k_spec, axis)
+    sink, srhs = _open_films(T, code, gsl, gsh, axis, h_lo, h_hi, tinf,
+                             emissivity, edge0, edge1)
+    return fhi, sink, srhs
+
+
+def vp2_cyclic_streams(T, code, gs, *, k_spec, h_void=0.0, tinf_void=0.0,
+                       emissivity=0.0):
+    """``(flo, fhi, sink, srhs)`` of the periodic sweep along axis 1 from
+    T^n (JAX ``vp2_cyclic_streams_xla``, with the hi faces beside the lo
+    faces; ``gs``: (B1,) per ring)."""
+    bit = (lambda b: ((code & b) != 0).to(T.dtype))
+    k = eval_spec(k_spec, T)
+    flo = harm(torch.roll(k, 1, 1), k) * bit(16)
+    fhi = harm(k, torch.roll(k, -1, 1)) * bit(1)
+    hr = _rad(T, emissivity, tinf_void) if emissivity > 0.0 else 0.0
+    sink = (bit(2) + bit(4)) * gs[:, None, None] * (h_void + hr)
+    return flo, fhi, sink, sink * tinf_void
+
+
 def vp2_streams(T, code, gs, dtor, *, k_spec, cp_spec, h: float,
                 tinf: float, emissivity: float = 0.0):
     """``(fhi, dw, sink, srhs)`` along z, JAX ``vp2_streams_xla`` for the
     symmetric Cartesian use (``gs_lo = gs_hi = gs``, ``h_lo = h_hi = h``,
     no edge films), in the natural layout; ``dw = dtor/cp(T)``."""
-    sink, srhs = _open_films(T, code, gs, gs, 2, h, h, tinf, emissivity,
-                             None, None)
-    return (_faces_hi(T, code, k_spec, 2), dtor / eval_spec(cp_spec, T),
-            sink, srhs)
+    fhi, sink, srhs = vp2_open_streams(T, code, gs, gs, 2, k_spec=k_spec,
+                                       h_lo=h, h_hi=h, tinf=tinf,
+                                       emissivity=emissivity)
+    return fhi, dtor / eval_spec(cp_spec, T), sink, srhs
 
 
 def _open_plain(rhs, T, code, glo, ghi, gsl, gsh, inv_dtor, axis, *, k_spec,
@@ -206,9 +233,9 @@ def _open_plain(rhs, T, code, glo, ghi, gsl, gsh, inv_dtor, axis, *, k_spec,
     """The open sweep's streams and scaled rows along ``axis``, solved by
     ``thomas``."""
     col = (lambda v: _col(v, axis, T.dim()))
-    fhi = _faces_hi(T, code, k_spec, axis)
-    sink, srhs = _open_films(T, code, gsl, gsh, axis, h_lo, h_hi, tinf,
-                             emissivity, edge0, edge1)
+    fhi, sink, srhs = vp2_open_streams(
+        T, code, gsl, gsh, axis, k_spec=k_spec, h_lo=h_lo, h_hi=h_hi,
+        tinf=tinf, emissivity=emissivity, edge0=edge0, edge1=edge1)
     al = col(glo) * shift_in(fhi, axis, -1, fill=0.0)
     ch = col(ghi) * fhi
     rows = _scaled_rows(T if rhs is None else rhs, T, cp_spec, inv_dtor, al,
@@ -460,15 +487,12 @@ def vp2_cyclic_phi_plain(rhs, T, code, geo, gs, inv_dtor, *, k_spec,
     """Plain version of K16: the cyclic streams (JAX
     ``vp2_cyclic_streams_xla`` with the hi faces beside the lo faces), the
     scaled rows, ``cyclic_thomas`` along axis 1."""
-    bit = (lambda b: ((code & b) != 0).to(T.dtype))
-    g3, s3 = geo[:, None, None], gs[:, None, None]
-    k = eval_spec(k_spec, T)
-    flo = harm(torch.roll(k, 1, 1), k) * bit(16)
-    fhi = harm(k, torch.roll(k, -1, 1)) * bit(1)
-    hr = _rad(T, emissivity, tinf_void) if emissivity > 0.0 else 0.0
-    sink = (bit(2) + bit(4)) * s3 * (h_void + hr)
+    g3 = geo[:, None, None]
+    flo, fhi, sink, srhs = vp2_cyclic_streams(
+        T, code, gs, k_spec=k_spec, h_void=h_void, tinf_void=tinf_void,
+        emissivity=emissivity)
     rows = _scaled_rows(rhs, T, cp_spec, inv_dtor, g3 * flo, g3 * fhi, sink,
-                        sink * tinf_void)
+                        srhs)
     mv = (lambda t: t.movedim(1, 0))
     return cyclic_thomas(*(mv(t) for t in rows)).movedim(0, 1).contiguous()
 

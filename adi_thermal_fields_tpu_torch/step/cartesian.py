@@ -32,7 +32,7 @@ from ..solvers.thomas import thomas
 
 __all__ = ["adi_step", "masked_laplacian_1d", "build_sweep_system",
            "implicit_sweep", "step_scalars", "solve_numpy_dtype",
-           "round_to_state", "apply_surface_impulse"]
+           "solve_dtype", "round_to_state", "apply_surface_impulse"]
 
 
 def solve_numpy_dtype(dtype: torch.dtype):
@@ -48,25 +48,38 @@ def solve_numpy_dtype(dtype: torch.dtype):
         "bfloat16)")
 
 
+def solve_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The solve's torch dtype for a state dtype (``solve_numpy_dtype``)."""
+    return torch.float64 if solve_numpy_dtype(dtype) is np.float64 \
+        else torch.float32
+
+
 def round_to_state(x: float, dtype: torch.dtype) -> float:
     """``x`` rounded to the state dtype (to nearest), as a Python float."""
     return float(torch.tensor(float(x), dtype=dtype))
 
 
 def step_scalars(dtype: torch.dtype, grid: CartesianGrid, mat: Material,
-                 dt: float, theta: float):
-    """Per-step scalars as Python floats: ``(dt, inv_d2, tg, c_exp)``.
+                 dt, theta: float):
+    """Per-step scalars ``(dt, inv_d2, tg, c_exp)``.
 
     ``dt`` is rounded to the solve dtype (float32 for bfloat16 states, as
     the JAX step's ``promote_types(T.dtype, float32)``) and ``tg =
     theta*(kappa*dt*inv_d2)`` and ``c_exp = dt*kappa*(1-theta)`` are
     evaluated at its precision in the JAX step's op order.  ``inv_d2``
     stays at double precision: consumers round it at the solve dtype, as
-    the JAX step does."""
+    the JAX step does.  A Python-float ``dt`` gives Python floats; a 0-d
+    tensor ``dt`` (a decision variable of the inverse apps) gives 0-d
+    tensors at the solve dtype that keep its graph."""
+    inv_d2 = tuple(1.0 / (d * d) for d in grid.spacing)
+    if torch.is_tensor(dt):
+        dt_s = dt.to(solve_dtype(dtype))
+        kappa = mat.alpha
+        tg = tuple(theta * (kappa * dt_s * iv) for iv in inv_d2)
+        return dt_s, inv_d2, tg, dt_s * kappa * (1.0 - theta)
     f = solve_numpy_dtype(dtype)
     dt_s = f(dt)
     kappa = f(mat.alpha)
-    inv_d2 = tuple(1.0 / (d * d) for d in grid.spacing)
     tg = tuple(float(f(theta) * (kappa * dt_s * f(iv))) for iv in inv_d2)
     c_exp = float(dt_s * kappa * f(1.0 - theta))
     return float(dt_s), inv_d2, tg, c_exp
@@ -86,15 +99,18 @@ def masked_laplacian_1d(T: torch.Tensor, mask: torch.Tensor, axis: int,
 
 
 def build_sweep_system(rhs, mask, coeff_ax, dir_mask, dir_val, qflux_ax,
-                       theta_gam: float, dt: float, t_inf: float, axis: int):
+                       theta_gam, dt, t_inf: float, axis: int):
     """The per-axis tridiagonal system (a, b, c, d) of one implicit sweep,
-    in the natural field layout."""
+    in the natural field layout (``theta_gam`` and ``dt`` floats or 0-d
+    tensors)."""
     low = mask & shift_in(mask, axis, -1, fill=False)
     high = mask & shift_in(mask, axis, +1, fill=False)
 
     dtype = rhs.dtype
     zero = torch.zeros((), dtype=dtype, device=rhs.device)
-    neg_tg = torch.full((), -theta_gam, dtype=dtype, device=rhs.device)
+    neg_tg = ((-theta_gam).to(dtype) if torch.is_tensor(theta_gam)
+              else torch.full((), -theta_gam, dtype=dtype,
+                              device=rhs.device))
     a = torch.where(low, neg_tg, zero)
     c = torch.where(high, neg_tg, zero)
     nnb = low.to(dtype) + high.to(dtype)
@@ -115,7 +131,7 @@ def build_sweep_system(rhs, mask, coeff_ax, dir_mask, dir_val, qflux_ax,
 
 
 def implicit_sweep(rhs, mask, coeff_ax, dir_mask, dir_val, qflux_ax,
-                   theta_gam: float, dt: float, t_inf: float,
+                   theta_gam, dt, t_inf: float,
                    axis: int) -> torch.Tensor:
     """One per-axis implicit sweep in full-shape batched form."""
     a, b, c, d = build_sweep_system(rhs, mask, coeff_ax, dir_mask, dir_val,
@@ -126,11 +142,12 @@ def implicit_sweep(rhs, mask, coeff_ax, dir_mask, dir_val, qflux_ax,
 
 
 def adi_step(T: torch.Tensor, mask: torch.Tensor, packs: CoeffPacks,
-             grid: CartesianGrid, mat: Material, *, dt: float,
+             grid: CartesianGrid, mat: Material, *, dt,
              theta: float = 0.5, t_inf: float = 0.0,
              source: torch.Tensor | None = None) -> torch.Tensor:
-    """Advance one ADI step.  ``dt`` is a Python float; it is rounded to
-    the state dtype.
+    """Advance one ADI step.  ``dt`` is a Python float or a 0-d tensor
+    (autograd flows to it, and to T, the packs and the source); it is
+    rounded to the state dtype (``step_scalars``).
 
     ``source``: optional volumetric heat rate [W/m^3] added explicitly to
     R0 as ``dt*S/(rho cp)`` on in-mask cells."""

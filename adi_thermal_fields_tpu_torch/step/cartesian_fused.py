@@ -29,6 +29,9 @@ import torch
 from ..bc.packs import CoeffPacks
 from ..core.grid import CartesianGrid
 from ..core.material import Material
+from ..solvers.differentiable import (fused_theta_solve_lite,
+                                      sweep_solve, sweep_solve_lite,
+                                      theta_rhs_diff)
 from ..solvers.rounding import sr_key, to_state, widen
 from ..solvers.stencil import theta_rhs
 from ..solvers.sweeps import sweep_code, sweep_strided, sweep_z
@@ -91,13 +94,19 @@ def build_sweep_plan(mask: torch.Tensor, packs: CoeffPacks | None, *,
 
 
 def adi_step_fused(T: torch.Tensor, plan: SweepPlan, grid: CartesianGrid,
-                   mat: Material, *, dt: float, theta: float = 0.5,
+                   mat: Material, *, dt, theta: float = 0.5,
                    t_inf: float = 0.0,
                    source: torch.Tensor | None = None,
                    rng_seed: int | None = None) -> torch.Tensor:
     """One theta-scheme ADI step on the kernel path.  ``dt`` is a Python
-    float, rounded to the solve dtype; ``source``: optional volumetric heat
-    rate [W/m^3], as in step/cartesian.adi_step.
+    float or a 0-d tensor, rounded to the solve dtype; ``source``:
+    optional volumetric heat rate [W/m^3], as in step/cartesian.adi_step.
+
+    float32 and float64 states run through the autograd Functions of
+    solvers/differentiable.py where JAX calls its custom VJPs
+    (cartesian_pallas.py:196-297), so gradients w.r.t. T, dt, the source
+    and the plan's fields flow through the kernels; with no input that
+    requires grad they launch the same kernels and record no graph.
 
     A bfloat16 state (and bfloat16 plan fields) solves every pass at
     float32 and stores bfloat16.  ``rng_seed`` (an integer: vary it per
@@ -105,9 +114,57 @@ def adi_step_fused(T: torch.Tensor, plan: SweepPlan, grid: CartesianGrid,
     stochastic, as the JAX step's: K3 with the seed, the sweeps with seed
     + 1, + 2, + 3 (offsets 0-3 of solvers/rounding.sr_key); without it they
     round to nearest.  The JAX step solves the stochastic z pass on the
-    transposed layout; here K2 takes the natural z in every mode.
-    float32 and float64 states ignore ``rng_seed``."""
+    transposed layout; here K2 takes the natural z in every mode.  That
+    route is not differentiable (the JAX step bypasses its VJPs there):
+    asked for a gradient, it raises.  float32 and float64 states ignore
+    ``rng_seed``."""
     dt, inv_d2, tg, c_exp = step_scalars(T.dtype, grid, mat, dt, theta)
+    if T.dtype == torch.bfloat16:
+        fields = (T, dt, source, *(plan.coeffs or ()),
+                  *(plan.qfluxes or ()), *(plan.dir_vals or ()))
+        if torch.is_grad_enabled() and any(
+                torch.is_tensor(x) and x.requires_grad for x in fields):
+            raise ValueError(
+                "adi_step_fused: the bfloat16 route (stochastic or "
+                "nearest stores) is not differentiable, as in the JAX "
+                "step; differentiate a float32 or float64 state")
+        if torch.is_tensor(dt):
+            dt, tg, c_exp = float(dt), tuple(map(float, tg)), float(c_exp)
+        return _step_bf16(T, plan, mat, dt, inv_d2, tg, c_exp, t_inf,
+                          source, rng_seed)
+    codes = plan.codes
+    lite = plan.coeffs is None
+
+    if (lite and source is None and plan.qfluxes is None
+            and plan.dir_vals is None):
+        # the flagship WAAM configuration: stencil fused into the x-sweep
+        rc = plan.rob_c
+        U = fused_theta_solve_lite(T, codes[0], c_exp, inv_d2, rc[0], tg[0],
+                                   dt, t_inf)
+        V = sweep_solve_lite(U, codes[1], rc[1], tg[1], dt, t_inf, axis=1)
+        return sweep_solve_lite(V, codes[2], rc[2], tg[2], dt, t_inf, axis=2)
+
+    R0 = theta_rhs_diff(T, plan.mask_u8, c_exp, inv_d2)
+    if source is not None:
+        R0 = R0 + torch.where(plan.mask, dt * source / (mat.rho * mat.cp),
+                              0.0)
+    q = plan.qfluxes or (None, None, None)
+    dv = plan.dir_vals or (None, None, None)
+    X = R0
+    for ax in range(3):
+        if lite:
+            X = sweep_solve_lite(X, codes[ax], plan.rob_c[ax], tg[ax], dt,
+                                 t_inf, q[ax], dv[ax], axis=ax)
+        else:
+            X = sweep_solve(X, codes[ax], plan.coeffs[ax], tg[ax], dt, t_inf,
+                            q[ax], dv[ax], axis=ax)
+    return X
+
+
+def _step_bf16(T, plan, mat, dt, inv_d2, tg, c_exp, t_inf, source,
+               rng_seed):
+    """The bfloat16 step: the kernels' bfloat16 entries, stores rounded
+    to nearest or stochastically with ``rng_seed``."""
     codes = plan.codes
     lite = plan.coeffs is None
     sr = dict(rng_seed=rng_seed)

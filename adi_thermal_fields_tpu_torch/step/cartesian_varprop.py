@@ -57,7 +57,7 @@ from ..solvers.varprop import (clamp_sum, face_g, table_segments,
                                varprop_sweep_y, varprop_sweep_z,
                                varprop_theta_rhs, varprop_theta_sweep)
 from ..solvers.vp2 import build_vp2_code, vp2_sweep_y, vp2_sweep_z
-from .cartesian import solve_numpy_dtype
+from .cartesian import solve_dtype, solve_numpy_dtype
 
 __all__ = ["PropertyTable", "apparent_cp", "melt_pool_enhanced_k",
            "adi_step_varprop", "adi_step_varprop_fused",
@@ -173,7 +173,7 @@ def _axis_k(T, mat_ref, k_table) -> tuple:
 
 def adi_step_varprop(T: torch.Tensor, mask: torch.Tensor, packs: CoeffPacks,
                      grid: CartesianGrid, mat_ref: Material, *,
-                     k_table=None, cp_table=None, dt: float,
+                     k_table=None, cp_table=None, dt,
                      theta: float = 0.5, t_inf: float = 0.0,
                      source: torch.Tensor | None = None,
                      implementation: str = "reference") -> torch.Tensor:
@@ -183,13 +183,16 @@ def adi_step_varprop(T: torch.Tensor, mask: torch.Tensor, packs: CoeffPacks,
     per-axis 3-tuple of them; ``cp_table``: a table, a callable or None.
     Dirichlet rows are pinned (a = c = 0, b = 1, d = the pin).
     ``implementation``: "reference" solves each axis with ``thomas``,
-    "kernels" with K21 in the natural layout.  ``dt`` is rounded to the
-    state dtype."""
+    "kernels" with K21 in the natural layout.  ``dt`` (a Python float, or
+    a 0-d tensor for the reference implementation's autograd) is rounded
+    to the solve dtype; callable tables may close over tensors that
+    require grad (the inverse apps' fitted k and cp)."""
     if implementation not in IMPLEMENTATIONS:
         raise ValueError(f"implementation must be one of {IMPLEMENTATIONS}, "
                          f"got {implementation!r}")
     mask = mask.to(torch.bool)
-    dt = float(solve_numpy_dtype(T.dtype)(dt))
+    dt = (dt.to(solve_dtype(T.dtype)) if torch.is_tensor(dt)
+          else float(solve_numpy_dtype(T.dtype)(dt)))
     inv_d2 = [1.0 / (d * d) for d in grid.spacing]
     kfs = _axis_k(T, mat_ref, k_table)
     cpf = _prop(T, cp_table, mat_ref.cp)

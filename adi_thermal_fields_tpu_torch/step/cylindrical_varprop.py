@@ -46,8 +46,14 @@ Three implementations:
 
 ``nphi == 1`` runs no phi sweep.  bfloat16 and float16 states are solved
 at float32 and rounded back once, as the JAX step does.  ``dt`` is a
-Python float.  Not ported, and refused naming what they need: the
-multi-device hooks ``constrain``, ``z_solver`` and ``pallas_solvers``.
+Python float or a 0-d tensor.  The ``kernels`` tier runs its sweeps
+through the autograd Functions of solvers/differentiable.py, where JAX
+calls its custom VJPs (:184, :497-537, :653, :707): gradients w.r.t. T,
+dt and what the tables close over flow through K15-K18 and K8's general
+form; the ``reference`` tier is differentiable by autograd, and the
+``fields`` tier (K21/K22 on materialized rows) is forward only.  Not
+ported, and refused naming what they need: the multi-device hooks
+``constrain``, ``z_solver`` and ``pallas_solvers``.
 """
 from __future__ import annotations
 
@@ -60,13 +66,12 @@ from ..bc.faces import shift_in
 from ..bc.radiation import radiative_h
 from ..core.grid import CylindricalGrid
 from ..core.material import Material
+from ..solvers.differentiable import (vp2_cyclic_solve, vp2_sweep_solve,
+                                      vp_cyclic_solve, vp_sweep_solve)
 from ..solvers.fields import cyclic_fields, tridiag_fields
 from ..solvers.thomas import cyclic_thomas, thomas
 from ..solvers.varprop import face_g, harm
-from ..solvers.vp2 import (build_vp2_code, vp2_cyclic_phi, vp2_sweep_strided,
-                           vp2_sweep_z)
-from ..solvers.vpfields import (vp_fields_cyclic_phi,
-                                vp_fields_sweep_strided, vp_fields_sweep_z)
+from ..solvers.vp2 import build_vp2_code
 from .cartesian import solve_numpy_dtype
 from .cartesian_varprop import PropertyTable, check_films
 from .cylindrical import RobinBC, ZFaceBC, _vec
@@ -202,8 +207,12 @@ def _vp2_be_step(T, grid, mat_ref, dt, robin_outer, zbc, k_specs, cp_spec,
     general form (z)."""
     dtype, dev = T.dtype, T.device
     f = solve_numpy_dtype(dtype)
-    dt_s = f(dt)
-    inv_dtor = float(f(1.0) / f(dt_s / f(mat_ref.rho)))
+    if torch.is_tensor(dt):
+        dt_s = dt.to(dtype)
+        dtor = dt_s / mat_ref.rho
+    else:
+        dt_s = f(dt)
+        dtor = float(f(dt_s / f(mat_ref.rho)))
     nr, dr = grid.nr, grid.dr
     eps = float(emissivity)
     h_v, tv = float(h_void), float(T_inf_void)
@@ -227,20 +236,19 @@ def _vp2_be_step(T, grid, mat_ref, dt, robin_outer, zbc, k_specs, cp_spec,
     rhs_r = None
     if source is not None:
         cpf = _ev(cp_table, mat_ref.cp, T)
-        s = torch.full((), float(dt_s), dtype=dtype, device=dev) \
-            / (mat_ref.rho * cpf) * source
+        if not torch.is_tensor(dt_s):
+            dt_s = torch.full((), float(dt_s), dtype=dtype, device=dev)
+        s = dt_s / (mat_ref.rho * cpf) * source
         if act is not None:
             s = torch.where(act, s, 0.0)
         rhs_r = T + s
-    X = vp2_sweep_strided(rhs_r, T, code_r, cols["glo_r"], cols["ghi_r"],
-                          cols["gsl_r"], cols["gsh_r"], inv_dtor,
-                          k_spec=k_specs[0], cp_spec=cp_spec, h_lo=h_v,
-                          h_hi=h_v, tinf_void=tv, emissivity=eps,
-                          edge0=edge_r0, edge1=edge_r1)
+    X = vp2_sweep_solve(rhs_r, T, code_r, cols["glo_r"], cols["ghi_r"],
+                        cols["gsl_r"], cols["gsh_r"], dtor,
+                        spec=(k_specs[0], cp_spec, h_v, h_v, tv, eps,
+                              edge_r0, edge_r1), axis=0)
     if grid.nphi > 1:
-        X = vp2_cyclic_phi(X, T, code_p, cols["geo_p"], cols["gs_p"],
-                           inv_dtor, k_spec=k_specs[1], cp_spec=cp_spec,
-                           h_void=h_v, tinf_void=tv, emissivity=eps)
+        X = vp2_cyclic_solve(X, T, code_p, cols["geo_p"], cols["gs_p"], dtor,
+                             spec=(k_specs[1], cp_spec, h_v, tv, eps))
 
     # z: Robin ends as edge films; Dirichlet rows pinned in the rhs, their
     # coupling columns zero and their film bits cleared in the code
@@ -251,11 +259,10 @@ def _vp2_be_step(T, grid, mat_ref, dt, robin_outer, zbc, k_specs, cp_spec,
             raise ValueError(f"unknown z-face BC kind: {kind!r}")
         edges.append((float(h), 1.0 / grid.dz, float(t_inf))
                      if kind == "robin" else None)
-    return vp2_sweep_z(_pin_z(X, zbc, act), T, code_z, cols["geo_z"],
-                       cols["gs_z"], inv_dtor, k_spec=k_specs[2],
-                       cp_spec=cp_spec, h=h_v, t_inf=tv, emissivity=eps,
-                       ghi=cols["geo_z"], gsh=cols["gs_z"],
-                       h_hi=float(h_front), edge0=edges[0], edge1=edges[1])
+    return vp2_sweep_solve(_pin_z(X, zbc, act), T, code_z, cols["geo_z"],
+                           cols["geo_z"], cols["gs_z"], cols["gs_z"], dtor,
+                           spec=(k_specs[2], cp_spec, h_v, float(h_front),
+                                 tv, eps, edges[0], edges[1]), axis=2)
 
 
 def _fields_step(T, grid, mat_ref, dt, robin_outer, zbc, k_table, cp_table,
@@ -266,7 +273,7 @@ def _fields_step(T, grid, mat_ref, dt, robin_outer, zbc, k_table, cp_table,
     ("reference"), backward Euler or Douglas-Gunn."""
     dtype, dev = T.dtype, T.device
     f = solve_numpy_dtype(dtype)
-    dt_s = float(f(dt))
+    dt_s = dt.to(dtype) if torch.is_tensor(dt) else float(f(dt))
     nr, nphi, nz = grid.shape
     dr, dz = grid.dr, grid.dz
     (kf_r, kf_p, kf_z), w = _props(T, mat_ref, k_table, cp_table)
@@ -320,9 +327,9 @@ def _fields_step(T, grid, mat_ref, dt, robin_outer, zbc, k_table, cp_table,
 
     def solve_r(rhs, dwx):
         if solver == "kernels":
-            return vp_fields_sweep_strided(
+            return vp_sweep_solve(
                 rhs.contiguous(), fr_hi, dwx, sink_r, srhs_r, cols["glo_r"],
-                cols["ghi_r"])
+                cols["ghi_r"], axis=0)
         a = -dwx * ga_r * fr
         c = -dwx * gc_r * fr_hi
         b = 1.0 + dwx * (ga_r * fr + gc_r * fr_hi + sink_r)
@@ -352,7 +359,7 @@ def _fields_step(T, grid, mat_ref, dt, robin_outer, zbc, k_table, cp_table,
 
         def solve_phi(rhs, dwx):
             if solver == "kernels":
-                return vp_fields_cyclic_phi(
+                return vp_cyclic_solve(
                     rhs.contiguous(), fp, dwx, sink_p, srhs_p, cols["geo_p"])
             ap = -dwx * gphi * fp
             cp = -dwx * gphi * fp_hi
@@ -397,8 +404,8 @@ def _fields_step(T, grid, mat_ref, dt, robin_outer, zbc, k_table, cp_table,
     def solve_z(rhs, dwx):
         d = _pin_z(rhs, zbc, act)
         if solver == "kernels":
-            return vp_fields_sweep_z(d.contiguous(), fz_hi, dwx.contiguous(),
-                                     sink_z, srhs_z, gz, gz)
+            return vp_sweep_solve(d.contiguous(), fz_hi, dwx.contiguous(),
+                                  sink_z, srhs_z, gz, gz, axis=2)
         az = -dwx * colz * fz
         cz = -dwx * colz * fz_hi
         bz = 1.0 + dwx * (colz * (fz + fz_hi) + sink_z)
@@ -434,7 +441,8 @@ def _fields_step(T, grid, mat_ref, dt, robin_outer, zbc, k_table, cp_table,
     if source is not None:
         Y0 = Y0 + gate(dw * source)
     thdw = th * dw
-    thdt = float(f(th) * f(dt_s))
+    thdt = (th * dt_s if torch.is_tensor(dt_s)
+            else float(f(th) * f(dt_s)))
     X = solve_r(Y0 - thdt * Lr, thdw)
     if solve_phi is not None:
         X = solve_phi(X - thdt * Lp, thdw)
@@ -442,7 +450,7 @@ def _fields_step(T, grid, mat_ref, dt, robin_outer, zbc, k_table, cp_table,
 
 
 def adi_step_cyl_varprop(T: torch.Tensor, grid: CylindricalGrid,
-                         mat_ref: Material, *, dt: float,
+                         mat_ref: Material, *, dt,
                          robin_outer: RobinBC, zbc: ZFaceBC,
                          k_table=None, cp_table=None,
                          robin_inner: RobinBC | None = None,
@@ -516,7 +524,7 @@ def adi_step_cyl_varprop(T: torch.Tensor, grid: CylindricalGrid,
 
 
 def adi_step_cyl_varprop_masked(T: torch.Tensor, grid: CylindricalGrid,
-                                mat_ref: Material, *, dt: float,
+                                mat_ref: Material, *, dt,
                                 robin_outer: RobinBC, zbc: ZFaceBC,
                                 active: torch.Tensor, k_table=None,
                                 cp_table=None,

@@ -6,6 +6,9 @@ v1 entry and K15 with its y entry), and check every result.
     python3 chip_smoke.py        # from the root of a checkout; one card
     python3 chip_smoke.py --profile   # phase 8's steps under torch.profiler
     python3 chip_smoke.py --phase12   # phase 4's kernels print, then phase 12
+    python3 chip_smoke.py --phase13   # phase 13 alone (gradients, inverse apps)
+    python3 chip_smoke.py --inverse-defaults  # the inverse apps at their
+                                              # CLI defaults (~17 min)
 
 Phases (each asserts; a failure exits non-zero and prints no result):
 
@@ -268,6 +271,33 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    launches per sub-step K4 = K1 = K2 = 1 (K3 = 1, K1 = 2, K2 = 1 with
    the torch); then P12_TRACK_SMALL with the kernels and the reference
    step, within APP_TOL.
+13. Gradients and the inverse tier.  (a) The gradient w.r.t. T0 and dt
+   of a seeded weighted sum after P13_STEPS steps of adi_step_fused
+   (autograd Functions of solvers/differentiable.py: K4/K3 and K1/K2
+   forward, K21 and K3 backward) against autograd through the plain
+   adi_step on the same CUDA tensors: the lite plan on phase 2's 256^3
+   WAAM mask at float32 and float64, the entry plan (scalar h + Neumann)
+   and the field plan (per-face h fields + Neumann + Dirichlet) at 256^3
+   float32; the field gradient within GRAD_TOL_ULP float32 ulp of its
+   scale per kernel pass of the chain (KERNEL_TOL_F64 of it at float64),
+   dt within GRAD_DT_RTOL.  Then forward and forward+backward of the
+   512^3 float32 lite step timed with CUDA events, and the K3/K21
+   launches the backward adds.  (b) The cylindrical varprop kernels tier
+   on phase 8's tube at float64 against the reference tier's autograd:
+   backward Euler with phase 8's tables (K15, K16, K8's general form;
+   gradient w.r.t. T) and backward Euler and Douglas with k0 + 0.01 T and
+   430 + 0.1 T callables (K17, K18; w.r.t. T and k0; JAX
+   tests/test_cyl_varprop.py:564), backward on K21 and K22.  (c) The
+   inverse apps on the card on the JAX tests' problems (P13_OPT_ARGV,
+   P13_CAL_ARGV): optimize_process --var deposit_T (the loss and the t8/5
+   spread fall) and calibrate_params --fit h,k --true_h 45 --true_k 38
+   (both within P13_FIT_RTOL); at their CLI defaults they take ~16 min
+   on the plain steps, so `--inverse-defaults` runs them alone
+   (optimize_process's losses within P13_APP_RTOL of the plain CPU run's:
+   at its defaults the app does not descend, in JAX either).  (d)
+   Printed, not gated:
+   compare_implementations (cartesian at --n 256, cyl_varprop at --n 128)
+   and StepTimer on the 512^3 lite step.
 
 Each main path is driven with the launch counts set to 0 just before it
 and read just after it: phases 3 (constant properties) and 4 for K1-K4,
@@ -278,7 +308,8 @@ x entry and K19-K22 (beside K1, K3 and K5-K7), then phase 10's steps and
 apps for K1b-K4b and K23-K26 (beside the float32 K1-K8 of its
 comparisons), then phase 11's v1 pass, steps and print for K1v1 and K15y
 (beside K5-K8, and K19 in its float64 print), then phase 12's prints
-for K1-K4 and K9-K11.  The line before the
+for K1-K4 and K9-K11, then phase 13's gradients for the forward kernels
+and K3, K21 and K22 in their backward.  The line before the
 last is a JSON summary of the kernels (launches of those runs; each
 kernel's time at its main-path shape beside its bound, the least time for
 the bytes it must move and the operations it must do, its plain version's
@@ -286,6 +317,7 @@ time, and the PyTorch call's time where one exists); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import json
+import math
 import os
 import shutil
 import statistics
@@ -305,6 +337,19 @@ KERNEL_TOL_ULP = 8  # one kernel vs its plain version, in float32 ulp of the
 #                     reaches ~9000 K)
 KERNEL_TOL_F64 = 1e-12  # the same at float64, of the output's scale
 STEP_TOL = 1e-2     # 3 full steps (3 sweeps + stencil each), ~80 ulp
+GRAD_TOL_ULP = KERNEL_TOL_ULP  # a gradient through the kernel path vs
+#                     autograd through the plain step, float32: this many
+#                     ulp of the gradient's scale per kernel pass of the
+#                     chain (the forward's sweeps and stencils and the
+#                     backward's transposed solves and stencil passes, each
+#                     within KERNEL_TOL_ULP of its plain version); float64:
+#                     KERNEL_TOL_F64 of the scale
+GRAD_DT_RTOL = {"float32": 1e-2, "float64": 1e-8}  # a scalar gradient (dt,
+#                     k0) relative to the plain one: a sum over every cell
+#                     of terms of both signs, formed in two orders (the
+#                     hand pullback, autograd through thomas); float64 as
+#                     JAX's own dt gate (tests/test_pallas_sweeps.py:77),
+#                     float32 a check for gross faults only
 APP_TOL = 0.5       # ~1700 sub-steps of ulp-level differences, which the
 #                     diffusion does not fully damp: 0.03% of the range
 
@@ -552,6 +597,38 @@ P12_TRACK_SMALL = ["--dx_mm", "0.5", "--track_w_vox", "6", "--track_h_vox",
                    "6", "--out", ""]
 P12_GOLDAK = ["--goldak_power", "1500"]
 P12_KERNELS = CONST_KERNELS + CYL_KERNELS
+# phase 13: the gradient checks' edge, the timed edge, steps per loss;
+# the inverse apps on the JAX tests' problems: optimize_process on
+# tests/test_optimize_process.py:58's wall (4 layers, 40 Adam iterations
+# at lr 15; the loss and the t8/5 spread fall) and calibrate_params
+# --fit h,k on tests/test_calibrate_params.py:64's 12x10x8 block (48
+# steps, 25 L-BFGS iterations).  At their CLI defaults (a 24x16 wall of
+# 8 layers, 24 sub-steps a layer, 40 Adam iterations at lr 20; a
+# 20x16x12 block over 120 steps, 40 L-BFGS iterations) the two took 522
+# and 462 s on the H100, the plain steps' row loops a launch per op: more
+# than the script's whole limit, so `--inverse-defaults` runs them alone.
+# At its defaults optimize_process does not descend, in the JAX app as in
+# the port (Adam at lr 20 overshoots): its initial and final losses are
+# held to the plain run on the CPU, `python -m
+# adi_thermal_fields_tpu_torch.apps.optimize_process --var deposit_T
+# --device cpu` (float64; the JAX app under x64 gives the same to
+# 2.2e-14), within P13_APP_RTOL.  The calibration's recovery gate is the
+# JAX tests' (tests/test_calibrate_params.py:47-48).
+P13_N, P13_TIME_N, P13_STEPS = 256, 512, 2
+P13_OPT_ARGV = ["--var", "deposit_T", "--iters", "40", "--lr", "15",
+                "--nx", "10", "--ny", "6", "--nz_plate", "3", "--layers",
+                "4", "--layer_vox", "1", "--wall_w_vox", "2", "--dx_mm",
+                "2.0", "--h", "200", "--n_sub", "8", "--target_t85", "1.5",
+                "--dwell_s", "3", "--deposit_T", "1500"]
+P13_CAL_ARGV = ["--nx", "12", "--ny", "10", "--nz", "8", "--n_steps", "48",
+                "--fit", "h,k", "--true_h", "45", "--true_k", "38",
+                "--iters", "25"]
+P13_OPT_DEFAULT_ARGV = ["--var", "deposit_T"]
+P13_OPT_DEFAULT_REF = (87.21894057177214, 98.51740264356538)
+P13_CAL_DEFAULT_ARGV = ["--fit", "h,k", "--true_h", "45", "--true_k", "38"]
+P13_APP_RTOL = 1e-9
+P13_FIT_RTOL = 1e-6
+P13_BWD_KERNELS = ("K3", "K21", "K22")
 
 
 def fail(msg):
@@ -585,9 +662,12 @@ def source_constant(name, src):
     return float(m.group(1))
 
 
-def cuda_ms(torch, fn, reps):
-    """Median CUDA-event milliseconds of ``fn`` after one warm-up call."""
-    fn()
+def cuda_ms(torch, fn, reps, warm=True):
+    """Median CUDA-event milliseconds of ``fn`` after one warm-up call
+    (none with ``warm=False``: a plain version that has just computed
+    the reference is warm, and its calls are most of phase 2's time)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -755,7 +835,7 @@ def phase2(torch, dev):
             ulp = torch.finfo(f32).eps * max(1.0, float(want.abs().max()))
             tol = KERNEL_TOL_ULP * ulp
             ms = cuda_ms(torch, kern, 20)
-            plain_ms = cuda_ms(torch, plain, 3)
+            plain_ms = cuda_ms(torch, plain, 1, warm=False)
             pct = 100.0 * cells * bpc / (ms * 1e-3) / HBM_BYTES_PER_S
             rows.append(dict(kernel=kname, variant=vname, shape=label,
                              max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -1055,7 +1135,7 @@ def phase2_varprop(torch, dev):
                 err = max(err, e)
                 ulps = max(ulps, e / (eps32 * scale) if scale > 0 else 0.0)
             ms = cuda_ms(torch, kern, 20)
-            plain_ms = cuda_ms(torch, plain, 3)
+            plain_ms = cuda_ms(torch, plain, 1, warm=False)
             pct = 100.0 * cells * bpc / (ms * 1e-3) / HBM_BYTES_PER_S
             rows.append(dict(kernel=kname, variant=vname, shape=where,
                              max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -1295,7 +1375,7 @@ def kernel_row(torch, kname, vname, where, ins, kern, plain, tol_k=None,
     nbytes = sum(t.numel() * t.element_size() for t in (*ins, got))
     cells = got.numel()
     ms = cuda_ms(torch, kern, 20)
-    plain_ms = cuda_ms(torch, plain, 3)
+    plain_ms = cuda_ms(torch, plain, 1, warm=False)
     pct = 100.0 * nbytes / (ms * 1e-3) / HBM_BYTES_PER_S
     gate = ("bitwise" if bitwise else f"tol {KERNEL_TOL_ULP}"
             if got.dtype == torch.float32 else
@@ -1605,7 +1685,7 @@ def be_row(torch, kname, vname, label, R, ins, kern, plain, lib, bitwise):
     nbytes = 2 * cells * R.element_size() + sum(
         t.numel() * t.element_size() for t in ins)
     ms = cuda_ms(torch, kern, 20)
-    plain_ms = cuda_ms(torch, plain, 3)
+    plain_ms = cuda_ms(torch, plain, 1, warm=False)
     lib_ms = cuda_ms(torch, lib, 10)
     pct = 100.0 * nbytes / (ms * 1e-3) / HBM_BYTES_PER_S
     gate = "bitwise" if bitwise else f"tol {KERNEL_TOL_ULP}"
@@ -1635,7 +1715,7 @@ def table_row(torch, kname, label, ins, cells, kern, plain):
           f"{err:.3e} from its plain version, not bitwise")
     nbytes = (sum(t.numel() for t in ins) + got.numel()) * got.element_size()
     ms = cuda_ms(torch, kern, 10)
-    plain_ms = cuda_ms(torch, plain, 3)
+    plain_ms = cuda_ms(torch, plain, 1, warm=False)
     b = bound(kname, nbytes, cells)
     print(f"[phase 2] {kname} table {label:20s} bitwise  kernel {ms:8.3f} ms"
           f"  plain {plain_ms:9.3f} ms  bound {b['bound_ms']:.4f} ms "
@@ -1910,7 +1990,7 @@ def phase2_cylvp(torch, dev):
             # each input read once, the output written once
             nbytes = sum(t.numel() * t.element_size() for t in (*ins, got))
             ms = cuda_ms(torch, kern, 20)
-            plain_ms = cuda_ms(torch, plain, 3)
+            plain_ms = cuda_ms(torch, plain, 1, warm=False)
             pct = 100.0 * nbytes / (ms * 1e-3) / HBM_BYTES_PER_S
             rows.append(dict(kernel=kname, variant=vname, shape=where,
                              max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -2209,7 +2289,7 @@ def phase2_fields(torch, dev):
             err = float((got - want).abs().max())
             nbytes = sum(t.numel() * t.element_size() for t in (*ins, got))
             ms = cuda_ms(torch, kern, 20)
-            plain_ms = cuda_ms(torch, plain, 3)
+            plain_ms = cuda_ms(torch, plain, 1, warm=False)
             pct = 100.0 * nbytes / (ms * 1e-3) / HBM_BYTES_PER_S
             rows.append(dict(kernel=kname, variant=vname, shape=where,
                              max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -2464,7 +2544,7 @@ def time_row(torch, rows, kname, vname, where, ins, kern, plain, err,
     cells = outs[0].numel()
     nbytes = sum(t.numel() * t.element_size() for t in (*ins, *outs))
     ms = cuda_ms(torch, kern, 20)
-    plain_ms = cuda_ms(torch, plain, 3)
+    plain_ms = cuda_ms(torch, plain, 1, warm=False)
     b = bound(kname, nbytes, cells)
     rows.append(dict(kernel=kname, variant=vname, shape=where,
                      max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -3002,7 +3082,7 @@ def phase2_remainder(torch, dev):
         # each input read once, the output written once
         nbytes = sum(t.numel() * t.element_size() for t in (*ins, got))
         ms = cuda_ms(torch, kern, 20)
-        plain_ms = cuda_ms(torch, plain, 3)
+        plain_ms = cuda_ms(torch, plain, 1, warm=False)
         pct = 100.0 * nbytes / (ms * 1e-3) / HBM_BYTES_PER_S
         rows.append(dict(kernel=kname, variant=vname, shape=label,
                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -3578,6 +3658,337 @@ def phase12_track(torch, dev):
     return total
 
 
+def grad_gate(torch, name, got, want, passes=1):
+    """A gradient of the kernel path against autograd through the plain
+    path: a field within ``passes`` x GRAD_TOL_ULP float32 ulp of its
+    scale (KERNEL_TOL_F64 of it at float64), a scalar within
+    GRAD_DT_RTOL of itself."""
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    dname = str(want.dtype).split(".")[-1]
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite gradient")
+    if want.numel() == 1:
+        rel = err / max(scale, 1e-300)
+        lim = GRAD_DT_RTOL[dname]
+        print(f"[phase 13] {name}: {float(got):.9e} against "
+              f"{float(want):.9e} (relative {rel:.3e}, tol {lim:.0e})",
+              flush=True)
+        check(rel <= lim, f"{name}: relative {rel:.3e} > {lim:.0e}")
+        return rel
+    eps = torch.finfo(want.dtype).eps
+    lim = (KERNEL_TOL_F64 if want.dtype == torch.float64 else
+           passes * GRAD_TOL_ULP * eps) * scale
+    print(f"[phase 13] {name}: max|d| = {err:.3e} of scale {scale:.3e} "
+          f"({err / (eps * scale):.2f} ulp of scale; tol "
+          f"{lim / (eps * scale):.0f})", flush=True)
+    check(err <= lim, f"{name}: max|d| {err:.3e} > {lim:.3e}")
+    return err / (eps * scale)
+
+
+def lite_const(grid, mat, h, dtype):
+    """The engine's plan-lite constant h/(rho cp d) per axis, in the op
+    order of build_coeff_packs."""
+    import numpy as np
+    f = np.float32 if dtype == "float32" else np.float64
+    return tuple(float(f(h) * f(1.0 / (mat.rho * mat.cp * d)))
+                 for d in grid.spacing)
+
+
+def cart_grad(torch, step, T0, dt0, w, steps=P13_STEPS):
+    """(loss, dL/dT0, dL/ddt) of ``sum(w * T)`` after ``steps`` steps."""
+    T = T0.clone().requires_grad_(True)
+    dt = torch.tensor(dt0, dtype=T0.dtype, device=T0.device,
+                      requires_grad=True)
+    X = T
+    for _ in range(steps):
+        X = step(X, dt)
+    loss = (w * X).sum()
+    gT, gdt = torch.autograd.grad(loss, (T, dt))
+    return loss.detach(), gT, gdt
+
+
+def phase13_cartesian(torch, dev, n=P13_N, time_n=P13_TIME_N, rows=()):
+    """(a) adi_step_fused's gradient against the plain adi_step's, the
+    512^3 forward and forward+backward times, and (d) StepTimer."""
+    from adi_thermal_fields_tpu_torch import (CartesianGrid, Material,
+                                              adi_step_cartesian,
+                                              adi_step_fused,
+                                              build_coeff_packs,
+                                              build_sweep_plan)
+    from adi_thermal_fields_tpu_torch.bc.faces import FACES
+    from adi_thermal_fields_tpu_torch.io.profiling import StepTimer
+    from adi_thermal_fields_tpu_torch.solvers import launch_counts
+
+    def case(n, dtype, kind):
+        grid = CartesianGrid(n, n, n, 0.5e-3)
+        mat = Material(7800.0, 490.0, 54.0)
+        mask = waam_mask(torch, grid.shape, dev)
+        dname = str(dtype).split(".")[-1]
+        if kind == "lite":
+            packs = build_coeff_packs(mask, grid, mat, dtype=dtype,
+                                      robin_h=30.0)
+            plan = build_sweep_plan(mask, None, has_neumann=False,
+                                    has_dirichlet=False,
+                                    robin_const=lite_const(grid, mat, 30.0,
+                                                           dname))
+        elif kind == "entry":
+            packs = build_coeff_packs(mask, grid, mat, dtype=dtype,
+                                      robin_h=200.0, neumann={"z+": 5e5})
+            plan = build_sweep_plan(mask, packs, has_neumann=True,
+                                    has_dirichlet=False,
+                                    robin_const=lite_const(grid, mat, 200.0,
+                                                           dname))
+        else:
+            dirm = torch.zeros_like(mask)
+            dirm[:, :, 0] = mask[:, :, 0]
+            packs = build_coeff_packs(
+                mask, grid, mat, dtype=dtype,
+                robin_h={f: 200.0 for f in FACES}, neumann={"z+": 5e5},
+                dirichlet_mask=dirm, dirichlet_value=77.0)
+            plan = build_sweep_plan(mask, packs, has_neumann=True,
+                                    has_dirichlet=True)
+        T0 = random_field(torch, mask, seed=13).to(dtype)
+        g = torch.Generator(device=dev).manual_seed(17)
+        w = torch.rand(grid.shape, generator=g, device=dev).to(dtype)
+        dt0 = 2.0 * grid.dx ** 2 / mat.alpha
+        kw = dict(theta=0.5, t_inf=20.0)
+        fused = (lambda X, dt: adi_step_fused(X, plan, grid, mat, dt=dt,
+                                              **kw))
+        plain = (lambda X, dt: adi_step_cartesian(X, mask, packs, grid, mat,
+                                                  dt=dt, **kw))
+        return fused, plain, T0, dt0, w
+
+    fwd = {"lite": {"K4": 1, "K1": 1, "K2": 1},
+           "entry": {"K3": 1, "K1": 2, "K2": 1}}
+    fwd["field"] = fwd["entry"]
+    # per step backward: three transposed solves on K21, K3 on the
+    # cotangent and three unit-Laplacian K3 passes for c_exp's cotangent
+    bwd = {"K21": 3, "K3": 4}
+    out = {}
+    for kind, dtype in (("lite", torch.float32), ("lite", torch.float64),
+                        ("entry", torch.float32), ("field", torch.float32)):
+        fused, plain, T0, dt0, w = case(n, dtype, kind)
+        dname = str(dtype).split(".")[-1]
+        name = f"{n}^3 {dname} {kind} plan"
+        before = launch_counts()
+        Lk, gTk, gdtk = cart_grad(torch, fused, T0, dt0, w)
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        want = {k: P13_STEPS * (fwd[kind].get(k, 0) + bwd.get(k, 0))
+                for k in delta}
+        check(delta == want, f"[phase 13] {name}: launches {delta} != "
+              f"expected {want}")
+        Lp, gTp, gdtp = cart_grad(torch, plain, T0, dt0, w)
+        print(f"[phase 13] {name}: loss {float(Lk):.9e} (plain "
+              f"{float(Lp):.9e}); launches of forward + backward "
+              f"{ {k: v for k, v in delta.items() if v} }", flush=True)
+        passes = P13_STEPS * (sum(fwd[kind].values()) + 4)
+        out[name] = dict(
+            ulp_T=grad_gate(torch, f"{name} dL/dT0", gTk, gTp, passes),
+            rel_dt=grad_gate(torch, f"{name} dL/ddt", gdtk, gdtp))
+        del gTk, gTp
+        torch.cuda.empty_cache()
+
+    # the 512^3 float32 lite step: forward alone, forward + backward
+    fused, _, T0, dt0, w = case(time_n, torch.float32, "lite")
+
+    def forward():
+        with torch.no_grad():
+            X = T0
+            for _ in range(P13_STEPS):
+                X = fused(X, dt0)
+        return X
+
+    before = launch_counts()
+    cart_grad(torch, fused, T0, dt0, w)
+    mid = launch_counts()
+    forward()
+    after = launch_counts()
+    added = {k: (mid[k] - before[k]) - (after[k] - mid[k])
+             for k in P13_BWD_KERNELS}
+    def grad_T_only():
+        T = T0.clone().requires_grad_(True)
+        X = T
+        for _ in range(P13_STEPS):
+            X = fused(X, dt0)
+        return torch.autograd.grad((w * X).sum(), T)
+
+    f_ms = cuda_ms(torch, forward, 5)
+    fb_ms = cuda_ms(torch, lambda: cart_grad(torch, fused, T0, dt0, w), 5)
+    fbT_ms = cuda_ms(torch, grad_T_only, 5)
+    print(f"[phase 13] {time_n}^3 f32 lite, {P13_STEPS} steps: forward "
+          f"{f_ms:.3f} ms, forward + backward (dL/dT0, dL/ddt) "
+          f"{fb_ms:.3f} ms ({fb_ms / f_ms:.2f}x), dL/dT0 alone "
+          f"{fbT_ms:.3f} ms ({fbT_ms / f_ms:.2f}x); the backward adds "
+          f"launches {added}", flush=True)
+    out["time"] = dict(forward_ms=f_ms, forward_backward_ms=fb_ms,
+                       grad_T_ms=fbT_ms, backward_launches=added)
+    # where the forward + backward's device time goes (torch.profiler
+    # through io/profiling.trace; printed, not gated)
+    from adi_thermal_fields_tpu_torch.io.profiling import trace
+    with trace(os.path.join(HERE, "build", "trace_phase13")) as prof:
+        cart_grad(torch, fused, T0, dt0, w)
+        torch.cuda.synchronize()
+    dev_us = (lambda e: getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0.0)))
+    # the device's own rows (kernels, copies): each aten op's row counts
+    # its kernels' time again
+    kern = sorted((e for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                  key=dev_us, reverse=True)
+    ops = sorted((e for e in prof.key_averages()
+                  if e.key.startswith("aten::")), key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in kern) / 1e3
+    print(f"[phase 13] profile of one forward + backward: device busy "
+          f"{busy:.3f} ms; kernels by device time: " + "; ".join(
+              f"{e.key.split('<')[0][:48]} {dev_us(e) / 1e3:.3f} ms "
+              f"x{e.count}" for e in kern[:10]) + "; aten ops: "
+          + "; ".join(f"{e.key} {dev_us(e) / 1e3:.3f} ms x{e.count}"
+                      for e in ops[:8]), flush=True)
+
+    # (d) StepTimer's slope on the same step, beside phase 2's kernels
+    timer = StepTimer()
+    per, _ = timer.time_steps(lambda X: fused(X, dt0), T0, n_steps=20)
+    mine = {r["kernel"]: r["ms"] for r in rows
+            if r["shape"] == P2_SWEEP_SHAPE[0] and r["variant"] in
+            ("stencil + lite x", "lite y", "lite z")}
+    print(f"[phase 13] StepTimer {time_n}^3 f32 lite step: "
+          f"{per * 1e3:.3f} ms/step (slope of 5 and 20 steps); phase 2's "
+          f"K4 + K1 + K2 = {sum(mine.values()):.3f} ms {mine}", flush=True)
+    out["step_timer_ms"] = per * 1e3
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase13_cyl(torch, dev, shape=None):
+    """(b) The cylindrical varprop kernels tier's gradient against the
+    reference tier's autograd at float64 on phase 8's tube."""
+    from adi_thermal_fields_tpu_torch import RobinBC, adi_step_cyl_varprop
+
+    label, shape8, _ = P8_SHAPES[0]
+    grid, mat, mask, zbc, T0 = cylvp_case(torch, label, shape or shape8,
+                                          torch.float64, dev)
+    kt, ct = varprop_tables()
+    kw = dict(dt=P8_DT, robin_outer=RobinBC(300.0, 20.0), zbc=zbc,
+              robin_inner=RobinBC(50.0, 20.0), active=mask, h_void=80.0,
+              T_inf_void=20.0, h_front=200.0, emissivity=EMISSIVITY)
+    g = torch.Generator(device=dev).manual_seed(19)
+    w = torch.rand(grid.shape, generator=g, device=dev,
+                   dtype=torch.float64)
+
+    def grads(impl, scheme, tables):
+        T = T0.clone().requires_grad_(True)
+        if tables:
+            props, ins = dict(k_table=kt, cp_table=ct), (T,)
+        else:
+            k0 = torch.tensor(30.0, dtype=torch.float64, device=dev,
+                              requires_grad=True)
+            props = dict(k_table=lambda t: k0 + 0.01 * t,
+                         cp_table=lambda t: 430.0 + 0.1 * t)
+            ins = (T, k0)
+        out = adi_step_cyl_varprop(T, grid, mat, scheme=scheme,
+                                   implementation=impl, **props, **kw)
+        return torch.autograd.grad((w * out).sum(), ins)
+
+    from adi_thermal_fields_tpu_torch.solvers import launch_counts
+    res = {}
+    for scheme, tables, fwd in (("be", True, "K15 K16 K8"),
+                                ("be", False, "K17 K18"),
+                                ("douglas", False, "K17 K18")):
+        name = (f"{label} f64 {scheme} "
+                f"{'tables' if tables else 'k0 + 0.01 T'} ({fwd})")
+        before = launch_counts()
+        gk = grads("kernels", scheme, tables)
+        delta = {k: v - before[k] for k, v in launch_counts().items() if
+                 v - before[k]}
+        gp = grads("reference", scheme, tables)
+        print(f"[phase 13] {name}: launches of forward + backward {delta}",
+              flush=True)
+        check(delta.get("K21", 0) == 2 and delta.get("K22", 0) == 1,
+              f"{name}: the backward's launches {delta}")
+        res[name] = grad_gate(torch, f"{name} dL/dT", gk[0], gp[0])
+        if not tables:
+            grad_gate(torch, f"{name} dL/dk0", gk[1], gp[1])
+        del gk, gp
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase13_apps(torch, dev, defaults=False):
+    """(c) The inverse apps on the card: on the JAX tests' problems, or
+    with ``defaults`` at their CLI defaults (``--inverse-defaults``)."""
+    from adi_thermal_fields_tpu_torch.apps import (calibrate_params,
+                                                   optimize_process)
+
+    spread = (lambda v: max(v) - min(v))
+    argv = P13_OPT_DEFAULT_ARGV if defaults else P13_OPT_ARGV
+    t0 = time.perf_counter()
+    r = optimize_process.main(argv + ["--device", str(dev)])
+    s0, s1 = spread(r["t85_initial"]), spread(r["t85_final"])
+    losses = (r["loss_initial"], r["loss_final"])
+    print(f"[phase 13] optimize_process {' '.join(argv)}: loss "
+          f"{losses[0]!r} -> {losses[1]!r}, t8/5 spread {s0:.4g} -> "
+          f"{s1:.4g} s ({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(all(math.isfinite(v) for v in r["history"] + list(losses)),
+          f"optimize_process {argv}: a loss is not finite")
+    if defaults:
+        errs = [abs(a - b) / abs(b)
+                for a, b in zip(losses, P13_OPT_DEFAULT_REF)]
+        print(f"[phase 13] optimize_process at its defaults against the "
+              f"plain CPU run {P13_OPT_DEFAULT_REF}: relative {errs} (tol "
+              f"{P13_APP_RTOL:.0e})", flush=True)
+        check(max(errs) <= P13_APP_RTOL,
+              f"optimize_process: losses {losses} against the CPU run's "
+              f"{P13_OPT_DEFAULT_REF}")
+    else:
+        check(losses[1] < losses[0] and s1 < s0,
+              "optimize_process: the loss or the t8/5 spread did not fall")
+    argv = P13_CAL_DEFAULT_ARGV if defaults else P13_CAL_ARGV
+    t0 = time.perf_counter()
+    r = calibrate_params.main(argv + ["--device", str(dev)])
+    errs = {k: abs(r["fitted"][k] - r["truth"][k]) / r["truth"][k]
+            for k in ("h", "k")}
+    print(f"[phase 13] calibrate_params {' '.join(argv)}: "
+          f"{r['fitted']} against "
+          f"{r['truth']} (relative {errs}, tol {P13_FIT_RTOL:.0e}; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    check(max(errs.values()) <= P13_FIT_RTOL,
+          f"calibrate_params: relative errors {errs} > {P13_FIT_RTOL}")
+
+
+def phase13_compare(torch, dev):
+    """(d) compare_implementations, printed."""
+    from adi_thermal_fields_tpu_torch.apps import compare_implementations
+
+    for argv in (["--n", "256"], ["--case", "cyl_varprop", "--n", "128"]):
+        r = compare_implementations.main(argv + ["--device", str(dev)])
+        print(f"[phase 13] compare_implementations {' '.join(argv)}: "
+              f"{r}", flush=True)
+
+
+def phase13(torch, dev, rows=()):
+    """Phase 13; returns its launch counts."""
+    from adi_thermal_fields_tpu_torch.solvers import (launch_counts,
+                                                      reset_launch_counts)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    phase13_cartesian(torch, dev, rows=rows)
+    phase13_cyl(torch, dev)
+    counts = launch_counts()
+    check(all(counts[k] > 0 for k in CONST_KERNELS + P13_BWD_KERNELS
+              + ("K8", "K15", "K16", "K17", "K18")),
+          f"phase 13's launches: {counts}")
+    print(f"[phase 13] gradients: {time.perf_counter() - t0:.1f} s; "
+          f"launches {({k: v for k, v in counts.items() if v})}",
+          flush=True)
+    t0 = time.perf_counter()
+    phase13_apps(torch, dev)
+    phase13_compare(torch, dev)
+    print(f"[phase 13] inverse apps and compare_implementations: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
 def main():
     torch = load_port()
     if sys.argv[1:] == ["--profile"]:
@@ -3586,6 +3997,20 @@ def main():
         phase0(torch)
         phase1()
         profile_phase8(torch, dev)
+        return
+    if sys.argv[1:] == ["--phase13"]:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        phase0(torch)
+        phase1()
+        phase13(torch, dev)
+        return
+    if sys.argv[1:] == ["--inverse-defaults"]:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        phase0(torch)
+        phase1()
+        phase13_apps(torch, dev, defaults=True)
         return
     if sys.argv[1:] == ["--phase12"]:
         dev = torch.device("cuda", 0)
@@ -3603,13 +4028,23 @@ def main():
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_last = [time.perf_counter()]
+
+    def lap(label):
+        """Print the seconds a stretch of the script took."""
+        now = time.perf_counter()
+        print(f"[time] {label}: {now - t_last[0]:.1f} s", flush=True)
+        t_last[0] = now
+
     name, _ = phase0(torch)
     phase1()
+    lap("phases 0-1 (the build)")
     rows = phase2(torch, dev) + phase2_varprop(torch, dev) \
         + phase2_cyl(torch, dev) + phase2_be(torch, dev) \
         + phase2_cylvp(torch, dev) + phase2_fields(torch, dev) \
         + phase2_gstreams(torch, dev) + phase2_bf16(torch, dev) \
         + phase2_remainder(torch, dev)
+    lap("phase 2")
 
     from adi_thermal_fields_tpu_torch.solvers import (launch_counts,
                                                       reset_launch_counts)
@@ -3619,6 +4054,7 @@ def main():
     phase3(torch, dev)
     p4 = app_phase(torch, dev, 4, [])
     counts_c = launch_counts()
+    lap("phases 3-4")
     reset_launch_counts()
     phase3_varprop(torch, dev)
     vp_flags = ["--latent_J_kg", str(LATENT), "--melt_k_factor", "4",
@@ -3629,30 +4065,37 @@ def main():
               layer_s=SHORT_LAYER_S)
     p5_32 = app_phase(torch, dev, 5, vp_flags, impls=("kernels",))
     counts_v = launch_counts()
+    lap("phases 3 (varprop) and 5")
     reset_launch_counts()
     phase6_step(torch, dev)
     p6 = spiral_app(torch, dev, 6)
     counts_y = launch_counts()
+    lap("phase 6")
     reset_launch_counts()
     phase7_step(torch, dev)
     p7 = spiral_app(torch, dev, 7, ("--void_mode", "clamp"))
     counts_b = launch_counts()
+    lap("phase 7")
     reset_launch_counts()
     phase8_step(torch, dev)
     p8, _ = phase8_app(torch, dev)
     counts_8 = launch_counts()
+    lap("phase 8")
     reset_launch_counts()
     phase9_step(torch, dev)
     phase9_app(torch, dev)
     counts_9 = launch_counts()
+    lap("phase 9")
     reset_launch_counts()
     phase10_step(torch, dev)
     p10 = phase10_app(torch, dev, p4, p5_32)
     counts_10 = launch_counts()
+    lap("phase 10")
     reset_launch_counts()
     phase11_step(torch, dev, p5_32,
                  p10["float32 varprop without latent heat"], p5)
     counts_11 = launch_counts()
+    lap("phase 11")
     reset_launch_counts()
     p12 = phase12_bar(torch, dev, p4)
     phase12_dwell(torch, dev)
@@ -3661,6 +4104,9 @@ def main():
     for k, v in phase12_track(torch, dev).items():
         counts_12[k] += v
     phase12_history_ms(torch, dev, p12["bar_mask"])
+    lap("phase 12")
+    phase13(torch, dev, rows)
+    lap("phase 13")
     d32 = float((p5_32["T_kernels"].double() - p5["T_kernels"]).abs().max())
     print(f"[phase 5] max|T_float32 - T_float64| (kernels) = {d32:.3e} K",
           flush=True)

@@ -2030,3 +2030,108 @@ def test_history_and_resume_on_card(tmp_path):
         np.testing.assert_array_equal(resumed["history"][k],
                                       straight["history"][k])
     assert straight["history"]["t_above"].max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_function_backward_on_card_matches_plain(dtype):
+    """The autograd Functions of solvers/differentiable.py on the card
+    (the forward kernel, the pullback's transposed solves on K21/K22 and
+    its stencil passes on K3) against the same Functions on the CPU (plain
+    versions, plain thomas): each field cotangent within 32 float32 ulp of
+    its scale (the forward kernel and the backward's solve, 8 ulp a pass,
+    and their inputs' rounding), 1e-12 of it at float64; each scalar
+    cotangent (a sum over every cell) within 1e-4 relative, 1e-9 at
+    float64; the backward launches K21, K22 and K3 where it solves and
+    pulls back the stencil."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from adi_thermal_fields_tpu_torch.solvers import differentiable as pd
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(71)
+    shape = (37, 45, 70)
+    mask = rng.random(shape) > 0.25
+    act = torch.from_numpy(rng.random(shape) > 0.3)
+    f32 = dtype == torch.float32
+    field_tol = (32 * torch.finfo(torch.float32).eps if f32 else 1e-12)
+    scalar_tol = 1e-4 if f32 else 1e-9
+
+    def fld(scale):
+        return torch.from_numpy(scale * rng.random(shape)).to(dtype)
+
+    def sc(v):
+        return torch.tensor(v, dtype=dtype)
+
+    mk = torch.from_numpy(mask)
+    codes = [sweep_code(mk, torch.from_numpy(rng.random(shape) > 0.9),
+                        ax).movedim(0, ax).contiguous() for ax in range(3)]
+    lcodes = [sweep_code(mk, None, ax).movedim(0, ax).contiguous()
+              for ax in range(3)]
+    coeff = fld(0.3) * mk
+    cols = {n: torch.from_numpy(1e5 + 1e6 * rng.random(n)).to(dtype)
+            for n in set(shape)}
+    kp = melt_pool_enhanced_k(54.0, 1420.0, 1470.0, 4.0)
+    cpp = apparent_cp(490.0, 490.0, 2.7e5, 1420.0, 1470.0)
+    spec = (kp, cpp, 50.0, 120.0, 20.0, 0.5, (300.0, 1e3, 25.0),
+            (80.0, 2e3, 30.0))
+    streams = (lambda: [fld(100.0), fld(40.0), fld(1e-5), fld(30.0),
+                        fld(300.0)])
+    inv = (1e6, 1.1e6, 0.9e6)
+    cases = []
+    for ax in range(3):
+        cases.append((f"sweep_solve {ax}", lambda *a, ax=ax: pd.sweep_solve(
+            a[0], a[7], *a[1:7], axis=ax),
+            [fld(100.0), coeff, sc(0.37), sc(0.05), sc(20.0), fld(1.0) * mk,
+             fld(500.0), codes[ax]], ("K21",)))
+        cases.append((f"sweep_solve_lite {ax}",
+                      lambda *a, ax=ax: pd.sweep_solve_lite(
+                          a[0], a[5], *a[1:5], axis=ax),
+                      [fld(100.0), sc(0.0031), sc(0.37), sc(0.05),
+                       sc(20.0), lcodes[ax]], ("K21",)))
+    mu8 = mk.to(torch.uint8)
+    cases.append(("theta_rhs_diff", lambda T, c, m: pd.theta_rhs_diff(
+        T, m, c, inv), [fld(1500.0), sc(1.3e-8), mu8], ("K3",)))
+    code0 = sweep_code(mk, None, 0, stencil_bits=True)
+    cases.append(("fused_theta_solve_lite",
+                  lambda T, ce, rc, tg, dt, ti, c: pd.fused_theta_solve_lite(
+                      T, c, ce, inv, rc, tg, dt, ti),
+                  [fld(1500.0), sc(1.3e-8), sc(0.0031), sc(0.21), sc(0.05),
+                   sc(20.0), code0], ("K21", "K3")))
+    cases.append(("vp_sweep_solve r", lambda *s: pd.vp_sweep_solve(
+        *s, axis=0), streams() + [cols[37], cols[37]], ("K21",)))
+    cases.append(("vp_sweep_solve z", lambda *s: pd.vp_sweep_solve(
+        *s, axis=2), streams() + [cols[70], cols[70]], ("K21",)))
+    cases.append(("vp_cyclic_solve", pd.vp_cyclic_solve,
+                  streams() + [cols[37]], ("K22",)))
+    for ax, n in ((0, 37), (2, 70)):
+        cases.append((f"vp2_sweep_solve {ax}",
+                      lambda r, T, d, c, g, ax=ax: pd.vp2_sweep_solve(
+                          r, T, c, g, g, g, g, d, spec=spec, axis=ax),
+                      [fld(1500.0), fld(1500.0), sc(0.02 / 7800.0),
+                       build_vp2_code(act, ax), cols[n]], ("K21",)))
+    cases.append(("vp2_cyclic_solve", lambda r, T, d, c, g: pd.vp2_cyclic_solve(
+        r, T, c, g, g, d, spec=(kp, cpp, 50.0, 20.0, 0.5)),
+        [fld(1500.0), fld(1500.0), sc(0.02 / 7800.0),
+         build_vp2_code(act, 1, periodic=True), cols[37]], ("K22",)))
+    for name, fn, args, bwd in cases:
+        w = torch.from_numpy(rng.standard_normal(shape)).to(dtype)
+        grads = {}
+        for where in ("cpu", "cuda"):
+            ins = [a.to(where).contiguous() for a in args]
+            for a in ins:
+                if a.is_floating_point() and a.dim() in (0, 3):
+                    a.requires_grad_(True)
+            req = [a for a in ins if a.requires_grad]
+            out = fn(*ins)
+            reset_launch_counts()
+            grads[where] = torch.autograd.grad((w.to(where) * out).sum(),
+                                               req)
+            launched = launch_counts()
+        assert all(launched[k] > 0 for k in bwd), (name, launched)
+        for i, (g, p) in enumerate(zip(grads["cuda"], grads["cpu"])):
+            g = g.cpu()
+            scale = float(p.abs().max())
+            err = float((g - p).abs().max())
+            lim = (scalar_tol if p.dim() == 0 else field_tol) * scale
+            assert err <= lim, (name, i, err, scale)

@@ -57,6 +57,7 @@ from adi_thermal_fields_tpu_torch.solvers import (
     KERNELS, build_vp2_code, launch_counts, reset_launch_counts,
     vp2_cyclic_phi, vp2_sweep_strided, vp2_sweep_z, vp_fields_cyclic_phi,
     vp_fields_sweep_strided)
+from adi_thermal_fields_tpu_torch.solvers import differentiable as pdiff
 from adi_thermal_fields_tpu_torch.step import cylindrical_varprop as pcvp
 
 torch.set_num_threads(1)
@@ -345,15 +346,16 @@ def test_step_matches_jax_xla(config, scheme, impl):
 
 
 class _Calls:
-    """Records which kernel wrappers a step calls (on CPU tensors)."""
+    """Records which kernel wrappers a step calls (on CPU tensors); the
+    kernels tier calls them through solvers/differentiable.py."""
 
     def __init__(self, monkeypatch):
         self.names = []
         for name in ("vp2_sweep_strided", "vp2_cyclic_phi", "vp2_sweep_z",
                      "vp_fields_sweep_strided", "vp_fields_cyclic_phi",
                      "vp_fields_sweep_z"):
-            fn = getattr(pcvp, name)
-            monkeypatch.setattr(pcvp, name, self._wrap(name, fn))
+            fn = getattr(pdiff, name)
+            monkeypatch.setattr(pdiff, name, self._wrap(name, fn))
 
     def _wrap(self, name, fn):
         def call(*args, **kwargs):

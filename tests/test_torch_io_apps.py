@@ -258,8 +258,10 @@ def test_engine_history_matches_jax(route, crit):
                                         implementation=impl, device="cpu",
                                         dtype=torch.float64, **pkw)
     assert ap.history_thresholds == (tuple(crit) if multi else None)
+    # copies: the engine updates its history in place, and the JAX call
+    # above may still be reading ta0 (a CPU array it can alias)
     got_T, (pk, ta) = ap(_t(T), pp(_t(mask)), 0.05, 4, 0.0,
-                         (_t(T.copy()), _t(ta0)))
+                         (_t(T.copy()), _t(ta0.copy())))
     np.testing.assert_allclose(got_T.numpy(), np.asarray(want_T), rtol=0,
                                atol=ATOL)
     np.testing.assert_allclose(pk.numpy(), np.asarray(want_pk), rtol=0,

@@ -54,7 +54,7 @@ from adi_thermal_fields_tpu_torch.bc.faces import shift_in
 from adi_thermal_fields_tpu_torch.solvers import (
     thomas, tridiag_fields_plain, vp_fields_sweep_strided_plain,
     vp_fields_sweep_z_plain)
-from adi_thermal_fields_tpu_torch.step import cylindrical_varprop as pcvp
+from adi_thermal_fields_tpu_torch.solvers import differentiable as pdiff
 
 from test_torch_split_varprop import ULP32, _chunk, _t, _within, split_solve
 
@@ -302,9 +302,10 @@ def test_kernels_tier_solves_z_on_the_natural_streams(monkeypatch):
                 inside[0] -= 1
         return call
 
+    # the kernels tier calls the wrappers through solvers/differentiable.py
     for name in ("vp_fields_sweep_strided", "vp_fields_cyclic_phi",
                  "vp_fields_sweep_z"):
-        monkeypatch.setattr(pcvp, name, kernel(name, getattr(pcvp, name)))
+        monkeypatch.setattr(pdiff, name, kernel(name, getattr(pdiff, name)))
     out = adi_step_cyl_varprop(
         T, grid, Material(7800.0, 490.0, 54.0), dt=0.05,
         robin_outer=RobinBC(300.0, 20.0),

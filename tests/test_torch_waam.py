@@ -5,8 +5,9 @@
   and frame list (tolerance 1e-9 K at float64 after its 24 sub-steps; the
   two sides differ by ~1e-12 K);
 * the port imports no jax (checked in a fresh interpreter);
-* the kernel wrappers are forward only: they raise on inputs that require
-  grad;
+* the kernel wrappers are forward only: under grad mode they raise on
+  inputs that require grad (gradients go through
+  solvers/differentiable.py);
 * flags the port does not support yet exit with a message naming them
   (the variable-property flags are supported: tests/test_torch_varprop.py;
   the outputs: tests/test_torch_io_apps.py).
@@ -104,6 +105,11 @@ def test_port_imports_no_jax():
             "import adi_thermal_fields_tpu_torch.geometry.shapes\n"
             "import adi_thermal_fields_tpu_torch.geometry.perimeter\n"
             "import adi_thermal_fields_tpu_torch.geometry.slices\n"
+            "import adi_thermal_fields_tpu_torch.solvers.differentiable\n"
+            "import adi_thermal_fields_tpu_torch.io.profiling\n"
+            "import adi_thermal_fields_tpu_torch.apps.compare_implementations\n"
+            "import adi_thermal_fields_tpu_torch.apps.optimize_process\n"
+            "import adi_thermal_fields_tpu_torch.apps.calibrate_params\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax',\n"
             "                                    'adi_thermal_fields_tpu'))\n"
