@@ -28,9 +28,11 @@ pins both implementations take the materialized step adi_step_varprop,
 "kernels" solving it with K21; "reference" always does, and with
 radiation rebuilds its packs every sub-step from the live field.
 bfloat16 states run the kernels' bfloat16 entries (K1-K4; the varprop
-step on the g-stream tier, K23-K26) and, with ``stochastic_rounding``,
-round their stores stochastically, seeded by the integer step counter of
-``clock``.
+step on the g-stream tier, K23-K26, or, with per-face films, per-axis k
+tuples or callables, on the classic tier's K5b, K6b, K7b and K19b) and,
+with ``stochastic_rounding``, round their stores stochastically, seeded
+by the integer step counter of ``clock``.  Per-face films and scales are
+held at ``promote(dtype, float32)``, as the JAX engine holds them (:285).
 """
 from __future__ import annotations
 
@@ -204,12 +206,14 @@ def make_cartesian_engine(grid: CartesianGrid, mat: Material, *,
         h_conv = (float(robin_h or 0.0)
                   if emissivity is not None and scalar_conv else None)
         fused = neumann is None and dirichlet_mask is None
-        # per-face films on the device at the state dtype, converted once
+        # per-face films on the device at promote(dtype, float32), the
+        # JAX engine's h_dtype (:285), converted once
         h_pf = s_pf = None
         if not scalar_conv:
+            hdt = torch.promote_types(dtype, torch.float32)
             h_pf = _faces_on(robin_h if lite_c is None
-                             else float(robin_h or 0.0), device, dtype)
-            s_pf = _faces_on(radiation_scale, device, dtype)
+                             else float(robin_h or 0.0), device, hdt)
+            s_pf = _faces_on(radiation_scale, device, hdt)
 
         def _compose_h(T):
             """This sub-step's total film for the packs: the convective
@@ -237,8 +241,7 @@ def make_cartesian_engine(grid: CartesianGrid, mat: Material, *,
                 # K5 and K20 read the mask as uint8: convert once per birth;
                 # per-face films fold into per-axis streams once per birth
                 h_ab = (None if scalar_conv else
-                        build_face_h_axes(active, h_pf, s_spec,
-                                          dtype=dtype))
+                        build_face_h_axes(active, h_pf, s_spec, dtype=hdt))
                 return (active.to(torch.uint8), build_varprop_codes(active),
                         h_ab)
 

@@ -21,10 +21,11 @@ Example (on a CUDA machine):
 
 ``--precision bfloat16`` stores the field at bfloat16 and solves at
 float32 (the kernels' bfloat16 entries: K4, K1, K2 or K3, K1 x3; with the
-varprop flags the g-stream tier K23-K26), rounding every store
-stochastically, seeded by the engine's step counter.  The JAX app rounds
-stochastically only on a TPU and warns elsewhere (:305-316); the port's
-rounding runs on every device, CPU included.
+varprop flags the g-stream tier K23-K26, and with them and
+``--corrected_bc 1`` the classic tier's K5b, K6b, K7b and K19b), rounding
+every store stochastically, seeded by the engine's step counter.  The JAX
+app rounds stochastically only on a TPU and warns elsewhere (:305-316);
+the port's rounding runs on every device, CPU included.
 
 Outputs (JAX :417-470): ``--save_vtk 1`` writes a VTK frame per frame
 time into ``--outdir`` (binary past 2 M cells under ``--vtk_format
@@ -154,18 +155,13 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def _reject_unsupported(args) -> None:
     """Exit with a message for flags this port does not support yet."""
-    bf16 = args.precision == "bfloat16"
-    varprop = (args.emissivity > 0 or args.latent_J_kg > 0
-               or args.melt_k_factor != 1.0)
     bad = [name for name, on in (
         ("--mesh", bool(args.mesh)),
-        # per-face films with variable properties run the classic varprop
-        # tier, whose bfloat16 entries (K5-K7, K19) are not ported
-        ("--precision bfloat16 on area-corrected films with variable "
-         "properties", bf16 and bool(args.corrected_bc) and varprop),
-        # the reference step cannot round stochastically
+        # the reference step cannot round stochastically (the JAX engine
+        # refuses it too)
         ("--precision bfloat16 with --implementation reference",
-         bf16 and args.implementation == "reference")) if on]
+         args.precision == "bfloat16"
+         and args.implementation == "reference")) if on]
     if bad:
         raise SystemExit("not supported by the PyTorch port yet: "
                          + ", ".join(bad)

@@ -27,11 +27,16 @@ def radiative_h(T: torch.Tensor, emissivity, t_inf, *, celsius: bool = True,
 
     celsius: temperatures are C (the framework's unit convention) and are
     shifted by 273.15 K for the T^4 law.  ``T_inf + 273.15`` is formed at
-    ``T``'s precision, as the JAX function does."""
-    off = 273.15 if celsius else 0.0
+    ``T``'s precision, as the JAX function does.  At bfloat16 the Python
+    scalars are rounded to bfloat16 first, as JAX rounds a weakly typed
+    scalar to a bfloat16 array's dtype (``eps*sigma`` and 273.15 move)."""
+    weak = ((lambda v: float(torch.tensor(float(v), dtype=T.dtype)))
+            if T.dtype == torch.bfloat16 else (lambda v: v))
+    off = weak(273.15 if celsius else 0.0)
     Tk = T + off
     # a device fill, not a host-to-device copy (which would stall the host
     # on the stream)
     Tik = torch.full((), float(t_inf), dtype=T.dtype, device=T.device) + off
-    h = emissivity * STEFAN_BOLTZMANN * (Tk + Tik) * (Tk * Tk + Tik * Tik)
-    return h + h_conv
+    h = weak(emissivity * STEFAN_BOLTZMANN) * (Tk + Tik) \
+        * (Tk * Tk + Tik * Tik)
+    return h + weak(h_conv)

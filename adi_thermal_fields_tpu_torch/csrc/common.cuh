@@ -48,6 +48,14 @@ __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ double ld(const double* p) { return *p; }
 
+// ld through the read-only data cache (__ldg), for the row formers whose
+// pointers the compiler cannot prove read-only.
+__device__ __forceinline__ float ldg(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ double ldg(const double* p) { return __ldg(p); }
+
 __device__ __forceinline__ void st(float* p, float v, int64_t, int64_t) {
   *p = v;
 }

@@ -640,43 +640,6 @@ constexpr double kK24Stiff = 16.0;
 constexpr int kGxyWarps = 16;
 constexpr int kGxyBlocks = 2;
 
-// Rows r and r + 1 of a warp's 32 adjacent bfloat16 lines by one 4-byte
-// load a lane: lanes 0-15 load the line pair (2h, 2h + 1) of row r, lanes
-// 16-31 that of row r + 1, at p[q + (r or r + 1)*rs] with q the pair's
-// offset (even, as rs); each lane takes its own line's two values by
-// shuffle (v[0] row r, v[1] row r + 1).  `ok`: the pair is read (rows in
-// [0, n)), else its values are 0.  A warp's load moves 128 bytes, not 64:
-// at bfloat16 K24 and K25 are bound by the loads in flight, not bytes (one
-// 2-byte load a value ran K25 at 0.55 ms against 0.42, K24 at 1.15 against
-// 1.00; PERF.md section 6).
-__device__ __forceinline__ void ld_pair(const __nv_bfloat16* p, int64_t q,
-                                        int64_t rs, int64_t r, int64_t n,
-                                        bool ok, float (&v)[2]) {
-  constexpr unsigned kAll = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const int64_t row = r + (lane >> 4);
-  uint32_t w = 0;
-  if (ok && row >= 0 && row < n) {
-    w = *reinterpret_cast<const uint32_t*>(p + q + row * rs);
-  }
-  const uint32_t lo = __shfl_sync(kAll, w, lane >> 1);
-  const uint32_t hi = __shfl_sync(kAll, w, 16 + (lane >> 1));
-  v[0] = __uint_as_float(lane & 1 ? lo & 0xffff0000u : lo << 16);
-  v[1] = __uint_as_float(lane & 1 ? hi & 0xffff0000u : hi << 16);
-}
-
-// the pair this lane loads: (its line's offset - lane) + 2 (lane % 16), and
-// whether the pair holds lines (both or neither: B2 even)
-__device__ __forceinline__ int64_t pair_offset(int64_t base) {
-  const int lane = threadIdx.x & 31;
-  return base - lane + 2 * (lane & 15);
-}
-__device__ __forceinline__ bool pair_valid(bool valid) {
-  const int lane = threadIdx.x & 31;
-  return ((__ballot_sync(0xffffffffu, valid) >> (2 * (lane & 15))) & 1u) !=
-         0u;
-}
-
 // One axis of the explicit pass: g_lo*(t_lo - t) + g_hi*(t_hi - t).
 template <typename C>
 __device__ __forceinline__ C gterm(C lo, C hi, C t_lo, C t_hi, C t) {

@@ -81,7 +81,7 @@ __device__ __forceinline__ T rad_film(T x, T rc, T tik, T tik2) {
 // helpers of common.cuh, never contracted into an FMA), in the plain
 // versions' order: K8 (both forms), K15 and K16 evaluate k, cp, the faces
 // and the films bit for bit as their plain versions do with them.  (K5
-// still takes the contracted ones above.)
+// keeps the contracted ones above: on these it ran 9% slower, PERF.md.)
 //
 // kUnroll: how far the segment loop unrolls (fully by default; a kernel
 // that inlines many evaluations, K8, keeps it rolled: its code, and its

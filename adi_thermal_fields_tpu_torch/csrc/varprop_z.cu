@@ -44,6 +44,15 @@
 // Rounding: the split solve is not Thomas order and takes the hardware
 // reciprocal at float32: a few float32 ulp of the output's scale from the
 // plain version (chip_smoke.py KERNEL_TOL_ULP = 8).  float64 divides.
+//
+// bfloat16 (K19b): the staged split-line kernel of csrc/split_staged.cuh
+// (K26's) with K19's rows (vp_rows.cuh VpZRows): the rhs and fc, w, h
+// staged at bfloat16 in 4-byte pairs where the lines allow, the code bytes
+// staged, the rows solved at float32, every cell stored through atf::st
+// with the key (JAX's z store rounds with `sr + 3`,
+// pallas_varprop.py:227/238); lines too long to stage take the core's
+// strided kernel with K7's rows.  9 B/cell (rhs 2, code 1, fc 2, w 2, x
+// 2), 11 with h.
 #include "vp_rows.cuh"
 
 namespace {
@@ -226,7 +235,7 @@ __global__ void __launch_bounds__(32 * kK19Lines) vp_sweep_z_kernel(
 }
 
 template <typename T, int M>
-cudaError_t launch_vp_z_m(const VpRows<T>& rows, T* out, int64_t npen,
+cudaError_t launch_vp_z_m(const VpRows<T, T>& rows, T* out, int64_t npen,
                           int64_t n, int device, cudaStream_t stream) {
   const int R = (int)atf::cdiv(n, 32 * M);
   // lines of at most 16 chunks: P lines a warp
@@ -239,8 +248,8 @@ cudaError_t launch_vp_z_m(const VpRows<T>& rows, T* out, int64_t npen,
   };
   if (bytes(1) > (size_t)atf::imin(smem_limit(device), kK19StageKB * 1024)) {
     // lines n apart, rows contiguous
-    return launch_split_strided<T, VpRows<T>>(rows, out, 1, n, npen, n, 1,
-                                              device, stream);
+    return launch_split_strided<T, VpRows<T, T>>(rows, out, 1, n, npen, n,
+                                                 1, device, stream);
   }
   int nw = kK19Lines;
   while (nw > 1 && bytes(nw) > 100 * 1024) nw /= 2;
@@ -265,6 +274,37 @@ cudaError_t launch_vp_z_m(const VpRows<T>& rows, T* out, int64_t npen,
   return cudaSuccess;
 }
 
+// K19b: a bfloat16 state on the staged split-line kernel (K26's,
+// csrc/split_staged.cuh) with K19's rows (VpZRows), stored through
+// atf::st with the key.
+template <bool kH>
+cudaError_t launch_vp_z_bf16(const VpRows<__nv_bfloat16, float>& rows,
+                             __nv_bfloat16* out, int64_t npen, int64_t n,
+                             int device, cudaStream_t stream, int64_t key) {
+  return launch_split_staged<float, VpZRows<__nv_bfloat16, float, kH>>(
+      VpZRows<__nv_bfloat16, float, kH>{rows}, out, nullptr, npen, n, device,
+      stream, key);
+}
+
+// K19 at S = C (K19's staged kernel, M by the line's length), K19b at a
+// bfloat16 state.
+template <typename S, typename C>
+cudaError_t launch_vp_z(const VpRows<S, C>& rows, S* out, int64_t npen,
+                        int64_t n, int device, cudaStream_t stream,
+                        int64_t key) {
+  if constexpr (sizeof(S) == 2) {
+    return rows.h != nullptr
+               ? launch_vp_z_bf16<true>(rows, out, npen, n, device, stream,
+                                        key)
+               : launch_vp_z_bf16<false>(rows, out, npen, n, device, stream,
+                                         key);
+  } else {
+    return n > kK19M8Rows
+               ? launch_vp_z_m<C, 16>(rows, out, npen, n, device, stream)
+               : launch_vp_z_m<C, 8>(rows, out, npen, n, device, stream);
+  }
+}
+
 }  // namespace
 
 ATF_API int atf_varprop_sweep_z(int dtype, int device, const void* rhs,
@@ -272,19 +312,16 @@ ATF_API int atf_varprop_sweep_z(int dtype, int device, const void* rhs,
                                 const void* w, const void* h, void* out,
                                 int64_t npen, int64_t n, double tg,
                                 double sk, double t_inf, double rob_c,
-                                void* stream) {
-  ATF_DISPATCH(
+                                int64_t key, void* stream) {
+  ATF_DISPATCH_STATE(
       dtype, device,
-      const VpRows<T> rows{static_cast<const T*>(rhs),
-                           static_cast<const uint8_t*>(code),
-                           static_cast<const T*>(fc),
-                           static_cast<const T*>(w),
-                           static_cast<const T*>(h), (T)tg, (T)sk,
-                           (T)t_inf, (T)rob_c};
-      auto* o = static_cast<T*>(out);
-      ATF_RETURN_IF((n > kK19M8Rows
-                         ? launch_vp_z_m<T, 16>(rows, o, npen, n, device,
-                                                (cudaStream_t)stream)
-                         : launch_vp_z_m<T, 8>(rows, o, npen, n, device,
-                                               (cudaStream_t)stream))));
+      const VpRows<S, C> rows{static_cast<const S*>(rhs),
+                              static_cast<const uint8_t*>(code),
+                              static_cast<const S*>(fc),
+                              static_cast<const S*>(w),
+                              static_cast<const S*>(h), (C)tg, (C)sk,
+                              (C)t_inf, (C)rob_c};
+      ATF_RETURN_IF((launch_vp_z<S, C>(rows, static_cast<S*>(out), npen, n,
+                                       device, (cudaStream_t)stream,
+                                       key))));
 }

@@ -21,8 +21,8 @@ __all__ = ["use_kernel", "check_kernel_inputs", "check_vectors", "dtype_code",
            "load_library", "FLOAT_DTYPES", "STATE_DTYPES", "compute_dtype"]
 
 # field types of the kernels: every kernel takes float32 and float64; the
-# kernels with a bfloat16 entry (K1-K4, K23-K26) also take bfloat16
-# states, solved at float32 (csrc/common.cuh ATF_DISPATCH_STATE)
+# kernels with a bfloat16 entry (K1-K7, K19, K20, K23-K26) also take
+# bfloat16 states, solved at float32 (csrc/common.cuh ATF_DISPATCH_STATE)
 FLOAT_DTYPES = (torch.float32, torch.float64)
 STATE_DTYPES = FLOAT_DTYPES + (torch.bfloat16,)
 

@@ -43,13 +43,13 @@ _SIGNATURES = {
     "atf_varprop_fields": ([_I, _I, *[_P] * 7, _I64, _I64, _I64, _DP, _I,
                             _DP, _I, *[_D] * 5, _P], _I),
     "atf_varprop_theta_sweep": ([_I, _I, *[_P] * 9, _I64, _I64, _I64,
-                                 *[_D] * 9, _P], _I),
+                                 *[_D] * 9, _I64, _P], _I),
     "atf_varprop_sweep_strided": ([_I, _I, *[_P] * 6, _I64, _I64, _I64,
-                                   *[_D] * 4, _P], _I),
+                                   *[_D] * 4, _I64, _P], _I),
     "atf_varprop_theta_rhs": ([_I, _I, *[_P] * 8, _I64, _I64, _I64,
-                               *[_D] * 5, _P], _I),
-    "atf_varprop_sweep_z": ([_I, _I, *[_P] * 6, _I64, _I64, *[_D] * 4, _P],
-                            _I),
+                               *[_D] * 5, _I64, _P], _I),
+    "atf_varprop_sweep_z": ([_I, _I, *[_P] * 6, _I64, _I64, *[_D] * 4,
+                             _I64, _P], _I),
     "atf_tridiag_fields_strided": ([_I, _I, *[_P] * 5, _I64, _I64, _I64, _P],
                                    _I),
     "atf_tridiag_fields_z": ([_I, _I, *[_P] * 6, _I64, _I64, _P], _I),

@@ -14,9 +14,9 @@ K7 ``varprop_sweep_y`` and its x entry ``varprop_sweep_x`` (counted as
 Field-coefficient solves: K21 ``tridiag_fields`` and K22
 ``cyclic_fields`` (fields.py).  The g-stream
 varprop tier: K23 ``gstream_fields``, K24 ``gstream_theta_sweep``, K25
-``gstream_sweep_y`` and K26 ``gstream_sweep_z`` (gstreams.py).  K1-K4 and
-K23-K26 take bfloat16 states (float32 solves, stores to nearest or
-stochastic: rounding.py).
+``gstream_sweep_y`` and K26 ``gstream_sweep_z`` (gstreams.py).  K1-K7,
+K19, K20 and K23-K26 take bfloat16 states (float32 solves, stores to
+nearest or stochastic: rounding.py).
 Masked-Robin cylindrical step: K9 ``masked_sweep_strided``, K10
 ``masked_sweep_z`` and K11 ``masked_cyclic_phi`` (masked.py).
 Unmasked cylindrical step: K12 ``const_sweep_strided``, K13
@@ -27,10 +27,11 @@ Cylindrical variable-property step: K15 ``vp2_sweep_strided``, K16
 K18 ``vp_fields_cyclic_phi`` (vpfields.py).
 K11, K16, K18 and K22 run one periodic split-line kernel
 (csrc/split_cyclic.cuh) with their own row formers.
-Each wrapper counts its CUDA launches in a ``launches`` attribute; K1-K4
-count their bfloat16 entries apart, in ``<wrapper>.bf16.launches``
-("K1b"-"K4b"), K1 its v1 entry in ``sweep_strided.v1.launches``, K12's
-and K13's table kernel in ``const_sweep_table.launches`` ("K13t") and
+Each wrapper counts its CUDA launches in a ``launches`` attribute; K1-K7,
+K19 and K20 count their bfloat16 entries apart, in
+``<wrapper>.bf16.launches`` ("K1b"-"K7b", "K7xb", "K19b", "K20b"), K1
+its v1 entry in ``sweep_strided.v1.launches``, K12's and K13's table
+kernel in ``const_sweep_table.launches`` ("K13t") and
 K14 its table's kernel in ``cyclic_const_phi_table.launches`` ("K14t");
 ``vp_fields_sweep_z`` counts in ``vp_fields_sweep_strided.launches``
 (K17).
@@ -88,9 +89,12 @@ KERNELS = {"K1": sweep_strided, "K2": sweep_z, "K3": theta_rhs,
            "K21": tridiag_fields, "K22": cyclic_fields,
            "K23": gstream_fields, "K24": gstream_theta_sweep,
            "K25": gstream_sweep_y, "K26": gstream_sweep_z,
-           # the bfloat16 entries of K1-K4, counted apart
+           # the bfloat16 entries of K1-K7, K19 and K20, counted apart
            "K1b": sweep_strided.bf16, "K2b": sweep_z.bf16,
            "K3b": theta_rhs.bf16, "K4b": fused_theta_sweep.bf16,
+           "K5b": varprop_fields.bf16, "K6b": varprop_theta_sweep.bf16,
+           "K7b": varprop_sweep_y.bf16, "K7xb": varprop_sweep_x.bf16,
+           "K19b": varprop_sweep_z.bf16, "K20b": varprop_theta_rhs.bf16,
            # K1's v1 entry and K15's y entry, counted apart
            "K1v1": sweep_strided.v1, "K15y": vp2_sweep_y}
 

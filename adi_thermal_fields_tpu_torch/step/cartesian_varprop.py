@@ -34,7 +34,10 @@ streams, K20 then K7's x entry with ``fuse_theta=False``.  Float64 z runs
 K19 as in JAX, whose tier-2 z kernel takes float32 states only.
 ``adi_step_varprop_gstreams`` (JAX :450) is the g-stream tier, K23 ->
 K24 -> K25 -> K26, which ``adi_step_varprop_fused`` takes for bfloat16
-states (float32 with ``gstreams=True``), stochastic rounding included.
+states (float32 with ``gstreams=True``), stochastic rounding included;
+the bfloat16 states it does not take (per-face streams, per-axis k
+tuples, callables, theta <= 0, ``gstreams=False``) run the classic tier's
+bfloat16 entries (K5b, K6b or K20b -> K7xb, K7b, K19b), as in JAX.
 """
 from __future__ import annotations
 
@@ -317,7 +320,10 @@ def build_varprop_fields(T: torch.Tensor, mask: torch.Tensor,
     ``w = 1/(rho cp)`` and, with ``rad = (emissivity, t_inf, h_conv)``,
     the Picard radiative film, natural layout, T's dtype (JAX :385-447).
     K5 when both properties are numbers or tables; per-axis k tuples and
-    callables build them with tensor ops (``face_g`` per axis)."""
+    callables build them with tensor ops (``face_g`` per axis) at T's
+    dtype, as JAX does: at bfloat16 a number k is a bfloat16 field, a
+    PropertyTable is evaluated at float32 and rounded, and every operation
+    rounds to bfloat16."""
     ks = (None if isinstance(k_table, (tuple, list))
           else _kernel_spec(k_table, mat_ref.k))
     cs = _kernel_spec(cp_table, mat_ref.cp)
@@ -327,7 +333,10 @@ def build_varprop_fields(T: torch.Tensor, mask: torch.Tensor,
     mask = mask.to(torch.bool)
     kfs = _axis_k(T, mat_ref, k_table)
     fc = tuple(face_g(kfs[ax], ax, -1, mask).to(T.dtype) for ax in range(3))
-    w = (1.0 / (mat_ref.rho * _prop(T, cp_table, mat_ref.cp))).to(T.dtype)
+    # rho at T's dtype: JAX rounds the weakly typed scalar to a bfloat16
+    # array's dtype (7800 -> 7808)
+    rho = torch.tensor(float(mat_ref.rho), dtype=T.dtype)
+    w = (1.0 / (rho * _prop(T, cp_table, mat_ref.cp))).to(T.dtype)
     if rad is None:
         return fc, w
     eps, tinf, hconv = rad
@@ -448,8 +457,17 @@ def adi_step_varprop_fused(T: torch.Tensor, mask: torch.Tensor, codes: tuple,
     number cp and conductivity along the axis, a scalar or self-radiative
     film (no ``h_field``, no ``h_axes``); float64 states, film fields and
     streams and callables take K7 and K19.  The classic tier takes
-    float32 and float64 states: a bfloat16 state that the g-stream tier
-    does not take raises."""
+    float32, float64 and bfloat16 states.  A bfloat16 state that the
+    g-stream tier does not take (``h_axes``, per-axis k tuples, callables,
+    theta <= 0, ``gstreams=False``) runs the classic tier's bfloat16
+    entries K5b, K6b (or K20b then K7xb), K7b and K19b: fields and rows at
+    float32 from the bfloat16 streams, every store at bfloat16, rounded
+    stochastically with ``rng_seed`` at the JAX offsets (R0 0, x 1, y 2,
+    z 3; to nearest without a seed; K5b's fields always to nearest).  JAX
+    rebuilds z's faces and 1/(rho cp) on the (z, x, y) transposes from k
+    and cp rounded to bfloat16 first (:718-752); the port's z sweep reads
+    K5b's natural fz and w, which round once.  ``h_field`` and ``source``
+    are read at the state dtype.  Other dtypes raise."""
     if h_axes is not None and h_field is not None:
         raise ValueError("h_axes and h_field are mutually exclusive")
     if gstreams is None:
@@ -464,13 +482,8 @@ def adi_step_varprop_fused(T: torch.Tensor, mask: torch.Tensor, codes: tuple,
             dt=dt, theta=theta, t_inf=t_inf, robin_h=robin_h,
             h_field=h_field, emissivity=emissivity, h_conv=h_conv,
             source=source, rng_seed=rng_seed)
-    if T.dtype not in (torch.float32, torch.float64):
-        raise NotImplementedError(
-            f"state dtype {T.dtype} on the classic varprop tier (per-face "
-            "film streams h_axes, per-axis k tuples or callables, theta <= "
-            "0, or gstreams=False): its bfloat16 entries of K5-K7 and K19 "
-            "with stochastic rounding are a later port; the g-stream tier "
-            "takes bfloat16 states with number or table properties")
+    # float32, float64 or bfloat16 (any other dtype raises here)
+    f = solve_numpy_dtype(T.dtype)
     check_films(robin_h, emissivity)
     self_rad = emissivity is not None and h_field is None and h_axes is None
     h_conv = float(h_conv or 0.0)
@@ -483,8 +496,8 @@ def adi_step_varprop_fused(T: torch.Tensor, mask: torch.Tensor, codes: tuple,
     cp_spec = _kernel_spec(cp_table, mat_ref.cp)
     ky_spec, kz_spec = (_kernel_spec(kt, mat_ref.k) for kt in kts[1:])
 
-    # scalars at the state dtype, in the JAX step's op order
-    f = solve_numpy_dtype(T.dtype)
+    # scalars at the solve dtype (float32 for bfloat16), in the JAX step's
+    # op order
     dt_s = f(dt)
     inv_d2 = [1.0 / (d * d) for d in grid.spacing]
     cw = float(f(1.0 - theta) * dt_s)
@@ -501,23 +514,28 @@ def adi_step_varprop_fused(T: torch.Tensor, mask: torch.Tensor, codes: tuple,
         hf = h_field
     rob = 0.0 if hf is not None or h_axes is not None else float(robin_h)
     if h_axes is not None:
-        # h_rad is pure radiation: the convection lives in A
+        # h_rad is pure radiation (at T's dtype, as JAX forms it): the
+        # convection lives in A; each stream at the state dtype
         h_rad = (None if emissivity is None else
                  radiative_h(T, emissivity, t_inf, h_conv=0.0))
         hs = tuple((A if B is None or h_rad is None else A + h_rad * B)
                    .to(T.dtype) for A, B in h_axes)
     else:
-        hs = (hf,) * 3
+        hs = (hf if hf is None else hf.to(T.dtype),) * 3
+    # a bfloat16 state rounds its stores stochastically with rng_seed, at
+    # the JAX step's offsets: R0 0, x 1, y 2, z 3 (:617-621, 657-665, 773)
+    seed = rng_seed if T.dtype == torch.bfloat16 else None
+    src = None if source is None else source.to(T.dtype)
 
     if fuse_theta is False:
-        R0 = varprop_theta_rhs(T, *fc, w, mask_u8, cw, inv_d2, src=source,
-                               dt=float(dt_s))
+        R0 = varprop_theta_rhs(T, *fc, w, mask_u8, cw, inv_d2, src=src,
+                               dt=float(dt_s), rng_seed=seed, rng_offset=0)
         U = varprop_sweep_x(R0, codes[0], fc[0], w, tg[0], sk[0], t_inf,
-                            h=hs[0], rob_c=rob)
+                            h=hs[0], rob_c=rob, rng_seed=seed, rng_offset=1)
     else:
         U = varprop_theta_sweep(T, codes[0], *fc, w, cw, inv_d2, tg[0],
-                                sk[0], t_inf, h=hs[0], rob_c=rob,
-                                src=source, dt=float(dt_s))
+                                sk[0], t_inf, h=hs[0], rob_c=rob, src=src,
+                                dt=float(dt_s), rng_seed=seed, rng_offset=1)
     # the tier-2 sweeps (K15's y entry, K8) derive k, cp and a scalar or
     # self-radiative film from T^n in registers; the JAX step's vp2 gate
     # (float32 states only), each constant rounded to float32 once
@@ -535,10 +553,10 @@ def adi_step_varprop_fused(T: torch.Tensor, mask: torch.Tensor, codes: tuple,
                         k_spec=ky_spec, **vp2)
     else:
         V = varprop_sweep_y(U, codes[1], fc[1], w, tg[1], sk[1], t_inf,
-                            h=hs[1], rob_c=rob)
+                            h=hs[1], rob_c=rob, rng_seed=seed, rng_offset=2)
     if vp2_ok and kz_spec is not None:
         return vp2_sweep_z(V, T, codes[2], float(f(theta * inv_d2[2])),
                            float(f(1.0 / grid.spacing[2])), inv_dtor,
                            k_spec=kz_spec, **vp2)
     return varprop_sweep_z(V, codes[3], fc[2], w, tg[2], sk[2], t_inf,
-                           h=hs[2], rob_c=rob)
+                           h=hs[2], rob_c=rob, rng_seed=seed, rng_offset=3)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's main paths once on one CUDA card, through their
-twenty-six hand-written kernels (four with a bfloat16 entry, K1 with its
-v1 entry and K15 with its y entry), and check every result.
+twenty-six hand-written kernels (nine with a bfloat16 entry, K1-K7, K19
+and K20, K7's x entry too; K1 with its v1 entry and K15 with its y
+entry), and check every result.
 
     python3 chip_smoke.py        # from the root of a checkout; one card
     python3 chip_smoke.py --profile   # phase 8's steps under torch.profiler
@@ -192,8 +193,9 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    --h_side) with --corrected_bc 1, and with --corrected_bc 1 --emissivity
    0.5 --latent_J_kg 2.7e5 --melt_k_factor 4: the whole print with the
    float32 kernels (wall time, Tmax <= --Ts, the solid active), then
-   kernels against reference (within APP_TOL) on a print of 20 layers of
-   SHORT_LAYER_S s, at float32 and with the varprop flags at float64.
+   kernels against reference (within APP_TOL) on
+   a print of 20 layers of SHORT_LAYER_S s, at float32 and with all the
+   varprop flags at float64.
 10. The bfloat16 bandwidth mode.  Its kernel part (run with phase 2):
    K23 (film modes const and rad, with and without a source) against its
    plain version at 384^3 (the WAAM mask) and 97x203x131 (a random mask),
@@ -201,30 +203,48 @@ Phases (each asserts; a failure exits non-zero and prints no result):
    (seeded) and K26 (split solves) there, and on 8192-row lines along x
    (K24, 8192x64x64), y (K25, 64x8192x64) and z (K26, 64x64x8192, past
    the staging), seeded: within KERNEL_TOL_ULP of the output's scale at
-   float32, one bfloat16 ulp of it at bfloat16 (the share of cells apart
-   printed); the bfloat16 entries K1b-K4b at the
-   256^3 WAAM mask,
-   to nearest and seeded: within one bfloat16 ulp of the output's scale
-   (the share of cells apart printed); kernel and plain ms and % of each bound; the
-   kernels' stochastic rounding of 1 + ulp/4 over 128^3 cells (P(up) =
-   0.25 +- 0.01, only the two neighbours).  Its step part: bench.py's
-   main_bf16 case (512^3, 1 mm, Robin 200, dt 0.05 s) through
-   make_cartesian_engine(dtype=bfloat16, stochastic_rounding=True), ms/step
-   and Gcell/s beside the float32 step of the same case (launches K4b = K1b
-   = K2b = 1 per step), the same with per-face h (K3b = 1, K1b = 2,
-   K2b = 1);
+   float32, one bfloat16 ulp of it at bfloat16 and at most P10_SHARE_TOL
+   of the cells apart; the bfloat16 entries K1b-K4b at the 256^3 WAAM
+   mask, to nearest and seeded: within one bfloat16 ulp of the output's
+   scale and P10_SHARE_TOL of the cells apart; kernel and plain ms and %
+   of each bound; the kernels' stochastic rounding of 1 + ulp/4 over 128^3 cells (P(up) =
+   0.25 +- 0.01, only the two neighbours); the classic varprop tier's
+   bfloat16 entries K20b (bit for bit), K5b and K6b, K7xb, K7b and K19b
+   (split solves: within one bfloat16 ulp of the output's scale and
+   P10_SHARE_TOL of the cells apart; each seeded entry's plain version
+   under the next pass's key must part from it at more than
+   P10_SHARE_TOL, so that the gate sees a wrong key) at phase 9's 384^3
+   (bench.py run_corrected's mask and per-face film streams) and 97x203x131,
+   bfloat16 T through the mushy interval, phase 2's tables, to nearest and
+   seeded, K7b and K19b also on 8192-row lines (64x8192x64, 64x64x8192),
+   each beside its float32 counterpart's time on the same inputs.  Its
+   step part: bench.py's main_bf16 case (512^3, 1 mm, Robin 200, dt 0.05
+   s) through make_cartesian_engine(dtype=bfloat16,
+   stochastic_rounding=True), ms/step and Gcell/s beside the float32 step
+   of the same case (launches K4b = K1b = K2b = 1 per step), the same
+   with per-face h (K3b = 1, K1b = 2, K2b = 1);
    run_varprop's case at 384^3 bfloat16 (K23 = K24 = K25 = K26 = 1 per
    step, K5-K8 never); the float32 A/B of the g-stream and classic tiers
-   on that step (classic, g-streams, g-streams, classic); the drift gates
-   of tests/test_bf16_drift.py (64x56x48, 900 C, Robin 200, dt 0.002 s, 30
-   steps: stochastic rounding within max 21 K and mean 2.5 K of float32,
-   round-to-nearest cooling less than half as much, step counters
+   on that step (classic, g-streams, g-streams, classic); run_corrected's
+   case at 384^3 bfloat16 on the classic tier (K5b = K6b = K7b = K19b = 1
+   per step, no other kernel; with fuse_theta=False K20b = K7xb = 1 and
+   K6b = 0) beside the float32 step of the same case, both states held to
+   float32's within P10_CORR_MAX_TOL K and a mean of P10_CORR_MEAN_TOL K
+   over the solid, the mean change of the solid's temperature within
+   P10_CORR_COOL_RTOL of float32's; the drift
+   gates of tests/test_bf16_drift.py (64x56x48, 900 C, Robin 200, dt 0.002
+   s, 30 steps: stochastic rounding within max 21 K and mean 2.5 K of
+   float32, round-to-nearest cooling less than half as much, step counters
    decorrelating the rounding).  Its app part: the WAAM app at bfloat16 on
    phase 4's bar (against phase 4's float32 field), with phase 5's varprop
    flags less the latent heat (against a float32 run of those flags), both
    gated at a mean of P10_APP_MEAN_TOL K over the solid, and with all of
    phase 5's flags (against phase 5's float32 field; printed, not gated:
-   the stochastically rounded state freezes at the solidus, PERF.md).
+   the stochastically rounded state freezes at the solidus, PERF.md); and
+   phase 9's turned bar with --corrected_bc 1 (the classic tier's
+   bfloat16 entries) with the varprop flags less the latent heat, gated
+   against a float32 print of those flags, and with the latent heat,
+   printed only.
 11. The last TPU kernels: the v1 field-coefficient sweeps and the tier-2 y
    sweep.  Its kernel part (run with phase 2): K1's v1 entry through the
    public fused_sweep for axes 0, 1 and 2 and through fused_sweep_axis1
@@ -305,11 +325,12 @@ phases 3 (variable properties) and 5 for K5-K8 and K19, phase 6's step
 and app for K9-K11, phase 7's step and app for K12-K14, K13t and K14t, phase
 8's steps and apps for K8 and K15-K18, phase 9's steps and apps for K7's
 x entry and K19-K22 (beside K1, K3 and K5-K7), then phase 10's steps and
-apps for K1b-K4b and K23-K26 (beside the float32 K1-K8 of its
-comparisons), then phase 11's v1 pass, steps and print for K1v1 and K15y
-(beside K5-K8, and K19 in its float64 print), then phase 12's prints
-for K1-K4 and K9-K11, then phase 13's gradients for the forward kernels
-and K3, K21 and K22 in their backward.  The line before the
+apps for K1b-K7b, K7xb, K19b, K20b and K23-K26 (beside the float32 K1-K8
+and K19 of its comparisons), then phase 11's v1 pass, steps and print
+for K1v1 and K15y (beside K5-K8, and K19 in its float64 print), then
+phase 12's prints for K1-K4 and K9-K11, then phase 13's gradients for
+the forward kernels and K3, K21 and K22 in their backward.  The line
+before the
 last is a JSON summary of the kernels (launches of those runs; each
 kernel's time at its main-path shape beside its bound, the least time for
 the bytes it must move and the operations it must do, its plain version's
@@ -454,6 +475,20 @@ KERNEL_INFO = {
             "adi_thermal_fields_tpu/solvers/pallas_stencil.py:115"),
     "K4b": ("fused_theta_sweep, bfloat16 entry", "csrc/theta_sweep.cu",
             "adi_thermal_fields_tpu/solvers/pallas_theta_sweep.py:454"),
+    # the bfloat16 entries of the classic varprop tier (float32 fields and
+    # solves, bfloat16 stores: K5b to nearest, the others seeded)
+    "K5b": ("varprop_fields, bfloat16 entry", "csrc/varprop_fields.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_varprop.py:1274"),
+    "K6b": ("varprop_theta_sweep, bfloat16 entry", "csrc/varprop_sweeps.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_varprop.py:1066"),
+    "K7b": ("varprop_sweep_y, bfloat16 entry", "csrc/varprop_sweeps.cu",
+            "adi_thermal_fields_tpu/solvers/pallas_varprop.py:718"),
+    "K7xb": ("varprop_sweep_x, bfloat16 entry", "csrc/varprop_sweeps.cu",
+             "adi_thermal_fields_tpu/solvers/pallas_varprop.py:251"),
+    "K19b": ("varprop_sweep_z, bfloat16 entry", "csrc/varprop_z.cu",
+             "adi_thermal_fields_tpu/solvers/pallas_varprop.py:251"),
+    "K20b": ("varprop_theta_rhs, bfloat16 entry", "csrc/varprop_sweeps.cu",
+             "adi_thermal_fields_tpu/solvers/pallas_varprop.py:471"),
     # K1's v1 entry (rows 7-8: fused_sweep_axis0 :289, fused_sweep_axis1
     # :215) and K15's y entry (row 23)
     "K1v1": ("fused_sweep, K1's v1 entry", "csrc/sweeps.cu",
@@ -477,7 +512,8 @@ OPS_PER_CELL = {"K1": 22, "K2": 22, "K3": 20, "K4": 42, "K5": 140,
                 "K16": 60, "K17": 20, "K18": 30, "K7x": 25, "K19": 25,
                 "K20": 25, "K21": 8, "K22": 20, "K23": 110, "K24": 35,
                 "K25": 12, "K26": 12, "K1b": 22, "K2b": 22, "K3b": 20,
-                "K4b": 42, "K1v1": 22, "K15y": 50}
+                "K4b": 42, "K5b": 140, "K6b": 45, "K7b": 25, "K7xb": 25,
+                "K19b": 25, "K20b": 25, "K1v1": 22, "K15y": 50}
 CONST_KERNELS = ("K1", "K2", "K3", "K4")
 VP_KERNELS = ("K5", "K6", "K7", "K8", "K19")
 CYL_KERNELS = ("K9", "K10", "K11")
@@ -498,11 +534,14 @@ GENERAL_KERNELS = ("K7x", "K19", "K20", "K21", "K22")
 # versions; K20 is)
 SPLIT_GENERAL = ("K7x", "K19", "K21", "K22")
 P9_ALSO = CONST_KERNELS + ("K5", "K6", "K7")
-# phase 10: the bfloat16 entries and the g-stream tier, and the kernels
-# its float32 comparisons share with earlier phases
+# phase 10: the bfloat16 entries, the g-stream tier and the classic
+# varprop tier's bfloat16 entries, and the kernels its float32
+# comparisons share with earlier phases (the corrected step's K5-K7, K19)
 GSTREAM_KERNELS = ("K23", "K24", "K25", "K26")
-BF16_KERNELS = ("K1b", "K2b", "K3b", "K4b") + GSTREAM_KERNELS
-P10_ALSO = CONST_KERNELS + ("K5", "K6", "K7", "K8")
+VP_BF16_KERNELS = ("K5b", "K6b", "K7b", "K7xb", "K19b", "K20b")
+BF16_KERNELS = ("K1b", "K2b", "K3b", "K4b") + GSTREAM_KERNELS \
+    + VP_BF16_KERNELS
+P10_ALSO = CONST_KERNELS + ("K5", "K6", "K7", "K8", "K19")
 # phase 11: the v1 sweeps and the tier-2 y sweep, and the varprop kernels
 # its switch-off legs and its print share with phase 3
 REMAINDER_KERNELS = ("K1v1", "K15y")
@@ -580,6 +619,22 @@ P10_VP_DT = 0.02
 P10_SEED = 12345
 P10_SR_N = 128
 P10_APP_MEAN_TOL = 8.0
+# the share of cells at which a bfloat16 entry and its plain version store
+# different numbers: both round one float32 value (a few float32 ulp apart)
+# under one key, so they part only next to a rounding boundary (at most
+# 0.04% of the cells on these shapes, PERF.md section 6); a key that drops
+# the seed, takes another pass's offset or hashes a block-local index parts
+# at ~25-50% of them, and the seeded entries' plain versions under the next
+# offset must part by more than this
+P10_SHARE_TOL = 1e-3
+# run_corrected's bfloat16 step (stochastic) against float32 after
+# P3_WARMUP + P3_STEPS steps, over the solid (measured: max 7.19 K, mean
+# 0.05 K, PERF.md section 6), both fuse_theta routes
+P10_CORR_MAX_TOL, P10_CORR_MEAN_TOL = 16.0, 0.25
+# and the solid's mean change over those steps within this share of
+# float32's: the roundings are unbiased, so it stays where a wrong film or
+# face term in one sweep would move it
+P10_CORR_COOL_RTOL = 0.1
 # phase 11: K15y's shapes; the tolerance of the switched step, that of the
 # JAX switch test (tests/test_vp2.py:367-368)
 P11_Y_SHAPES = (("256^3 waam", (256,) * 3), ("512^3 waam", (512,) * 3))
@@ -2396,17 +2451,39 @@ def per_step_check(torch, name, kernels, reference, T0, per):
     return dict(ms_kernels=ms, ms_reference=rms, max_abs_err=max(errs))
 
 
+_CORRECTED_FIELDS = {}
+
+
+def corrected_fields(torch, shape, dev):
+    """bench.py's run_corrected fields: per-face h, then per-face radiation
+    scales (numpy's generator seeded 5, all h faces drawn first), float32
+    on ``dev``.  Drawn once a shape and kept on the host, float32: phases
+    2, 9 and 10 share phase 9's."""
+    import numpy as np
+    from adi_thermal_fields_tpu_torch.bc.faces import FACES
+
+    key = tuple(shape)
+    if key not in _CORRECTED_FIELDS:
+        rng = np.random.default_rng(5)
+        hf = {f: (10.0 + 10.0 * rng.random(shape)).astype(np.float32)
+              for f in FACES}
+        scale = {f: (0.7 + 0.6 * rng.random(shape)).astype(np.float32)
+                 for f in FACES}
+        _CORRECTED_FIELDS[key] = (hf, scale)
+    on_dev = (lambda d: {f: torch.from_numpy(a).to(dev) for f, a in
+                         d.items()})
+    return tuple(on_dev(d) for d in _CORRECTED_FIELDS[key])
+
+
 def phase9_step(torch, dev):
     """The corrected-BC route (and its fuse_theta=False form), the
     Neumann/Dirichlet varprop step and the cylindrical fields tier,
     float32, kernels against reference per step."""
-    import numpy as np
     from adi_thermal_fields_tpu_torch import (CartesianGrid, Material,
                                               RobinBC,
                                               adi_step_cyl_varprop,
                                               adi_step_varprop_fused)
     from adi_thermal_fields_tpu_torch.apps.engine import make_cartesian_engine
-    from adi_thermal_fields_tpu_torch.bc.faces import FACES
 
     n = P9_N
     grid = CartesianGrid(n, n, n, 1e-3)
@@ -2415,11 +2492,7 @@ def phase9_step(torch, dev):
     mask = bench_mask(torch, grid.shape, dev)
     T0 = torch.where(mask, 900.0, 20.0).to(torch.float32)
     dt = 0.02
-    # bench.py's run_corrected fields: all h faces, then all scales
-    rng = np.random.default_rng(5)
-    f32 = (lambda a: torch.from_numpy(a).to(dev, torch.float32))
-    hf = {f: f32(10.0 + 10.0 * rng.random(grid.shape)) for f in FACES}
-    scale = {f: f32(0.7 + 0.6 * rng.random(grid.shape)) for f in FACES}
+    hf, scale = corrected_fields(torch, grid.shape, dev)
     common = dict(device=dev, dtype=torch.float32, theta=0.5, t_inf=20.0,
                   k_table=kt, cp_table=ct)
     out = {}
@@ -2558,29 +2631,55 @@ def time_row(torch, rows, kname, vname, where, ins, kern, plain, err,
           flush=True)
 
 
-def split_row(torch, rows, kname, vname, where, ins, kern, plain):
-    """A split solve of the g-stream tier (K24-K26) against its plain
+def share_apart(a, b):
+    """The share of cells at which ``a`` and ``b`` differ."""
+    return float((a != b).double().mean())
+
+
+def check_share(name, share, wrong=None):
+    """A bfloat16 output against its plain version: at most P10_SHARE_TOL
+    of the cells apart; ``wrong``, the share apart from the plain version
+    under another rounding key, must pass it (the gate sees a wrong key)."""
+    check(share <= P10_SHARE_TOL, f"{name}: {100.0 * share:.4f}% of the "
+          f"cells apart from its plain version (> {100.0 * P10_SHARE_TOL}%:"
+          " the rounding keys differ)")
+    if wrong is not None:
+        check(wrong > P10_SHARE_TOL, f"{name}: under the next pass's key "
+              f"the plain version parts at only {100.0 * wrong:.4f}% of the "
+              "cells: the share gate cannot see a wrong key")
+
+
+def split_row(torch, rows, kname, vname, where, ins, kern, plain,
+              extra="", wrong_key=None):
+    """A split solve (K24-K26; K6b, K7xb, K7b, K19b) against its plain
     version: within KERNEL_TOL_ULP float32 ulp of the output's scale at
-    float32, one bfloat16 ulp of it at bfloat16 (the share of cells apart
-    printed)."""
+    float32; at bfloat16 one bfloat16 ulp of it and at most P10_SHARE_TOL
+    of the cells apart (``wrong_key``: the plain version under another
+    key, which must part by more)."""
     got, want = kern(), plain()
     torch.cuda.synchronize()
     check(got.dtype == want.dtype and bool(torch.isfinite(got).all()),
           f"{kname} {vname} {where}: non-finite output")
     err = float((got.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
-    share = float((got != want).double().mean())
+    share = share_apart(got, want)
+    wrong = None
     if got.dtype == torch.bfloat16:
         ulps, lim = err / bf16_ulp(scale), 1.0
         unit = "bf16 ulp of scale, tol 1"
+        if wrong_key is not None:
+            wrong = share_apart(got, wrong_key())
+            extra = f"; {100.0 * wrong:.2f}% under the next key{extra}"
     else:
         ulps = err / (torch.finfo(torch.float32).eps * scale)
         lim, unit = KERNEL_TOL_ULP, f"ulp of scale, tol {KERNEL_TOL_ULP}"
     time_row(torch, rows, kname, vname, where, ins, kern, plain, err,
              extra=f" ({ulps:.2f} {unit}, {100.0 * share:.4f}% of cells "
-                   "differ)")
+                   f"differ){extra}")
     check(ulps <= lim, f"{kname} {vname} {where}: {ulps:.2f} ({unit}) from "
           "its plain version")
+    if got.dtype == torch.bfloat16:
+        check_share(f"{kname} {vname} {where}", share, wrong)
 
 
 def phase2_gstreams(torch, dev):
@@ -2813,13 +2912,14 @@ def phase2_bf16(torch, dev):
                   f"{kname} {vname}: non-finite output")
             err = float((got.float() - want.float()).abs().max())
             ulps = err / bf16_ulp(float(want.float().abs().max()))
-            share = float((got != want).double().mean())
+            share = share_apart(got, want)
             time_row(torch, rows, kname, vname, f"{label} bfloat16", ins,
                      kern, plain, err,
                      extra=f" ({ulps:.0f} bf16 ulp of scale, "
                            f"{100.0 * share:.4f}% of cells differ)")
             check(ulps <= 1.0, f"{kname} {vname}: {ulps} bf16 ulp of the "
                   "output's scale from its plain version")
+            check_share(f"{kname} {vname}", share)
             del got, want
     del T, mask, pk
     torch.cuda.empty_cache()
@@ -2849,6 +2949,188 @@ def phase2_bf16(torch, dev):
     return rows
 
 
+def corrected_streams(torch, mask, T, dtype):
+    """The step's per-axis film streams of bench.py's run_corrected fields
+    at ``T`` (build_face_h_axes at float32, then A + h_rad(T)*B at
+    ``dtype``), as adi_step_varprop_fused forms them."""
+    from adi_thermal_fields_tpu_torch.bc.radiation import radiative_h
+    from adi_thermal_fields_tpu_torch.step.cartesian_varprop import (
+        build_face_h_axes)
+
+    hf, scale = corrected_fields(torch, mask.shape, mask.device)
+    h_ab = build_face_h_axes(mask, hf, scale, dtype=torch.float32)
+    h_rad = radiative_h(T, EMISSIVITY, 20.0, h_conv=0.0)
+    return tuple((A + h_rad * B).to(dtype) for A, B in h_ab)
+
+
+def phase2_vp_bf16(torch, dev):
+    """The classic varprop tier's bfloat16 entries against their plain
+    versions at phase 9's 384^3 (bench.py run_corrected's mask and film
+    streams) and 97x203x131 (a random mask), rounding to nearest and
+    seeded: K20b bit for bit, K5b (contracted tables) and the split solves
+    K6b, K7xb, K7b and K19b within one bfloat16 ulp of the output's scale;
+    K7b and K19b also on 8192-row lines; each main variant at 384^3
+    beside its float32 counterpart on the same inputs widened (phase 10's
+    kernel part)."""
+    from adi_thermal_fields_tpu_torch import CartesianGrid, Material
+    from adi_thermal_fields_tpu_torch.solvers import (
+        varprop_fields, varprop_fields_plain, varprop_sweep_x,
+        varprop_sweep_x_plain, varprop_sweep_y, varprop_sweep_y_plain,
+        varprop_sweep_z, varprop_sweep_z_plain, varprop_theta_rhs,
+        varprop_theta_rhs_plain, varprop_theta_sweep,
+        varprop_theta_sweep_plain)
+    from adi_thermal_fields_tpu_torch.step.cartesian_varprop import (
+        build_varprop_codes)
+
+    bf = torch.bfloat16
+    mat = Material(7800.0, 490.0, 54.0)
+    kt, ct = varprop_tables()
+    rad = (EMISSIVITY, 20.0, H_CONV)
+    fk = dict(k_spec=kt, cp_spec=ct, rho=mat.rho)
+    seed = dict(rng_seed=P10_SEED)
+    rows = []
+    cases = [(label, shape, None) for label, shape, _ in P9_SHAPES[:2]] \
+        + [(f"{'x'.join(map(str, LONG_LINES[ax]))} random", LONG_LINES[ax],
+            ax) for ax in (1, 2)]
+    for label, shape, long_ax in cases:
+        grid = CartesianGrid(*shape, 1e-3)
+        sc = vp_scalars(grid, mat, P10_VP_DT)
+        if label.endswith("waam"):
+            mask = bench_mask(torch, shape, dev)
+        else:
+            g = torch.Generator(device=dev).manual_seed(3)
+            mask = torch.rand(shape, generator=g, device=dev) > 0.25
+        T = mushy_field(torch, mask, seed=7).to(bf)
+        R = random_field(torch, mask, seed=13).to(bf)
+        m8 = mask.to(torch.uint8)
+        codes = build_varprop_codes(mask)
+        g = torch.Generator(device=dev).manual_seed(5)
+        src = torch.where(mask, 1e8 * torch.rand(shape, generator=g,
+                                                 device=dev), 0.0).to(bf)
+        fc, w = varprop_fields_plain(T, m8, **fk)
+        if long_ax is None:
+            hs = corrected_streams(torch, mask, T, bf)
+        else:                   # the long lines: any film streams
+            g = torch.Generator(device=dev).manual_seed(11)
+            hs = tuple((10.0 + 30.0 * torch.rand(shape, generator=g,
+                                                 device=dev)).to(bf)
+                       for _ in range(3))
+        rhs = (T, *fc, w, m8, sc["cw"], sc["inv_d2"])
+        th = (T, codes[0], *fc, w, sc["cw"], sc["inv_d2"], sc["tg"][0],
+              sc["sk"][0], 20.0)
+        sweeps = [(ax, (R, codes[ax if ax < 2 else 3], fc[ax], w,
+                        sc["tg"][ax], sc["sk"][ax], 20.0)) for ax in range(3)]
+        exact = [
+            ("K5b", "fields", (T, m8),
+             lambda: varprop_fields(T, m8, **fk),
+             lambda: varprop_fields_plain(T, m8, **fk)),
+            ("K5b", "fields + rad", (T, m8),
+             lambda: varprop_fields(T, m8, rad=rad, **fk),
+             lambda: varprop_fields_plain(T, m8, rad=rad, **fk)),
+            ("K20b", "rhs", rhs[:6],
+             lambda: varprop_theta_rhs(*rhs),
+             lambda: varprop_theta_rhs_plain(*rhs)),
+            ("K20b", "rhs, seeded", rhs[:6],
+             lambda: varprop_theta_rhs(*rhs, **seed),
+             lambda: varprop_theta_rhs_plain(*rhs, **seed)),
+            ("K20b", "rhs + src", (*rhs[:6], src),
+             lambda: varprop_theta_rhs(*rhs, src=src, dt=sc["dt"]),
+             lambda: varprop_theta_rhs_plain(*rhs, src=src, dt=sc["dt"]))]
+        split = [
+            ("K6b", "theta + x, h stream", (*th[:6], hs[0]),
+             varprop_theta_sweep, varprop_theta_sweep_plain, th,
+             dict(h=hs[0], rng_offset=1)),
+            ("K6b", "theta + x, h stream, seeded", (*th[:6], hs[0]),
+             varprop_theta_sweep, varprop_theta_sweep_plain, th,
+             dict(h=hs[0], rng_offset=1, **seed)),
+            ("K6b", "theta + x, rob_c + src", (*th[:6], src),
+             varprop_theta_sweep, varprop_theta_sweep_plain, th,
+             dict(rob_c=H_CONV, src=src, dt=sc["dt"]))]
+        names = (("K7xb", "x", varprop_sweep_x, varprop_sweep_x_plain),
+                 ("K7b", "y", varprop_sweep_y, varprop_sweep_y_plain),
+                 ("K19b", "z", varprop_sweep_z, varprop_sweep_z_plain))
+        for ax, args in sweeps:
+            kname, axn, kern, plain = names[ax]
+            split += [(kname, f"{axn}, h stream", (*args[:4], hs[ax]), kern,
+                       plain, args, dict(h=hs[ax], rng_offset=ax + 1)),
+                      (kname, f"{axn}, h stream, seeded",
+                       (*args[:4], hs[ax]), kern, plain, args,
+                       dict(h=hs[ax], rng_offset=ax + 1, **seed))]
+            if ax > 0:
+                split.append((kname, f"{axn}, rob_c", args[:4], kern, plain,
+                              args, dict(rob_c=H_CONV, rng_offset=ax + 1)))
+        if long_ax is not None:        # the long lines: their sweep only
+            exact = []
+            split = [r for r in split if r[0] == names[long_ax][0]
+                     and r[1].endswith("h stream, seeded")]
+        where = f"{label} bfloat16"
+        wide = (lambda t: t.float() if torch.is_tensor(t)
+                and t.dtype == bf else t)
+        # the float32 kernels of the main variants on the same inputs
+        # widened (the split solves' below)
+        T32, rhs32 = T.float(), tuple(wide(a) for a in rhs)
+        f32_exact = {"fields + rad": lambda: varprop_fields(T32, m8, rad=rad,
+                                                            **fk),
+                     "rhs, seeded": lambda: varprop_theta_rhs(*rhs32)}
+        for kname, vname, ins, kern, plain in exact:
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            flat = (lambda o: [t for x in (o if isinstance(o, tuple)
+                                           else (o,))
+                               for t in (x if isinstance(x, tuple)
+                                         else (x,)) if t is not None])
+            pairs = list(zip(flat(got), flat(want)))
+            check(all(a.dtype == bf and bool(torch.isfinite(a).all())
+                      for a, _ in pairs),
+                  f"{kname} {vname} {where}: non-finite output")
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in pairs)
+            if kname == "K20b":         # one rounding per operation
+                ulps = 0.0 if all(torch.equal(a, b) for a, b in pairs) \
+                    else math.inf
+            else:   # K5b: each output within a bf16 ulp of its scale
+                ulps = max(float((a.float() - b.float()).abs().max())
+                           / bf16_ulp(float(b.float().abs().max()))
+                           for a, b in pairs)
+            share = max(share_apart(a, b) for a, b in pairs)
+            extra, wrong = "", None
+            if vname.endswith("seeded"):    # K20b's plain under key 1
+                wrong = share_apart(flat(got)[0], varprop_theta_rhs_plain(
+                    *rhs, rng_offset=1, **seed))
+                extra = f"; {100.0 * wrong:.2f}% under the next key"
+            if label.endswith("waam") and vname in f32_exact:
+                ms32 = cuda_ms(torch, f32_exact[vname], 20)
+                extra += f" (float32 {ms32:.3f} ms)"
+            time_row(torch, rows, kname, vname, where, ins, kern, plain, err,
+                     extra=f" ({ulps:.2f} bf16 ulp of scale, "
+                           f"{100.0 * share:.4f}% of cells differ){extra}")
+            check(ulps <= (0.0 if kname == "K20b" else 1.0),
+                  f"{kname} {vname} {where}: {ulps} bf16 ulp of the "
+                  "output's scale from its plain version")
+            check_share(f"{kname} {vname} {where}", share, wrong)
+            del got, want, pairs
+        for kname, vname, ins, kern, plain, args, kw in split:
+            extra = ""
+            if long_ax is None and label.endswith("waam") \
+                    and vname.endswith("h stream, seeded"):
+                # the float32 kernel on the same inputs widened
+                a32 = tuple(wide(a) for a in args)
+                k32 = {k: wide(v) for k, v in kw.items()
+                       if k not in ("rng_seed", "rng_offset")}
+                ms32 = cuda_ms(torch, lambda: kern(*a32, **k32), 20)
+                extra = f" (float32 {ms32:.3f} ms)"
+            wrong_key = None
+            if "rng_seed" in kw:        # the plain version, the next key
+                wk = dict(kw, rng_offset=kw["rng_offset"] + 1)
+                wrong_key = (lambda: plain(*args, **wk))
+            split_row(torch, rows, kname, vname, where, ins,
+                      lambda: kern(*args, **kw), lambda: plain(*args, **kw),
+                      extra=extra, wrong_key=wrong_key)
+        del T, R, src, fc, w, hs, exact, split, sweeps, rhs, th, T32, rhs32
+        torch.cuda.empty_cache()
+    return rows
+
+
 def timed_seq(torch, step, T0, n, warmup=P3_WARMUP):
     """CUDA-event ms of each of ``n`` steps ``step(T, i)`` after
     ``warmup`` steps, the step index running on (the engine's counter)."""
@@ -2871,9 +3153,11 @@ def timed_seq(torch, step, T0, n, warmup=P3_WARMUP):
 
 def phase10_step(torch, dev):
     """bench.py's bf16 case (plan-lite, and the field plan) at 512^3 and
-    run_varprop's configuration at 384^3 through make_cartesian_engine(
-    dtype=bfloat16, stochastic_rounding=True); the float32 g-stream A/B;
-    the drift gates of tests/test_bf16_drift.py on the card."""
+    run_varprop's and run_corrected's configurations at 384^3 through
+    make_cartesian_engine(dtype=bfloat16, stochastic_rounding=True) (the
+    corrected one on the classic tier's bfloat16 entries, also with
+    fuse_theta=False); the float32 g-stream A/B; the drift gates of
+    tests/test_bf16_drift.py on the card."""
     from adi_thermal_fields_tpu_torch import (CartesianGrid, Material,
                                               adi_step_varprop_fused,
                                               build_varprop_codes)
@@ -2971,7 +3255,67 @@ def phase10_step(torch, dev):
           f"{rel:.2e} (relative)", flush=True)
     check(rel < 1e-5, f"phase 10 A/B: the tiers differ by {rel:.2e}")
     out["f32 A/B"] = times
-    del a, b, T32, T0, mask, codes, m8
+    del a, b, T32, codes, m8
+    torch.cuda.empty_cache()
+
+    # bench.py run_corrected at 384^3: per-face film fields and radiation
+    # scales take the classic tier, at bfloat16 its bfloat16 entries;
+    # beside the float32 step of the same case, and held to its state
+    hf, scale = corrected_fields(torch, grid.shape, dev)
+    cbc = dict(robin_h=hf, radiation_scale=scale, emissivity=EMISSIVITY,
+               k_table=kt, cp_table=ct)
+    names = (f"{n}^3 bf16 corrected (bench run_corrected, classic tier)",
+             f"{n}^3 f32 corrected (the same case)")
+    Tb = engine_run(names[0], grid, mask, T0.to(bf), bf, P10_VP_DT,
+                    {"K5b": 1, "K6b": 1, "K7b": 1, "K19b": 1}, **cbc)
+    Tf = engine_run(names[1], grid, mask, T0.to(f32), f32, P10_VP_DT,
+                    {"K5": 1, "K6": 1, "K7": 1, "K19": 1}, **cbc)
+    cool32 = float((T0 - Tf)[mask].mean())
+
+    def held_to_f32(route, T):
+        """The bfloat16 state against float32's: max and mean over the
+        solid, and the solid's mean change (unbiased rounding keeps it)."""
+        d = (T.float() - Tf)[mask].abs()
+        cool = float((T0 - T.float())[mask].mean())
+        print(f"[phase 10] {n}^3 corrected{route} after "
+              f"{P3_WARMUP + P3_STEPS} steps: |T_bf16 - T_f32| max "
+              f"{float(d.max()):.3f} K (gate {P10_CORR_MAX_TOL}), mean "
+              f"{float(d.mean()):.4f} K (gate {P10_CORR_MEAN_TOL}) over the "
+              f"solid; the solid cooled {cool:.5f} K on average (float32 "
+              f"{cool32:.5f} K, gate {P10_CORR_COOL_RTOL} of it)", flush=True)
+        check(float(d.max()) <= P10_CORR_MAX_TOL
+              and float(d.mean()) <= P10_CORR_MEAN_TOL,
+              f"phase 10 corrected{route}: bf16 max {float(d.max()):.3f} K, "
+              f"mean {float(d.mean()):.4f} K from float32")
+        check(cool32 > 0.0 and abs(cool - cool32) <= P10_CORR_COOL_RTOL
+              * cool32, f"phase 10 corrected{route}: the solid cooled "
+              f"{cool:.5f} K on average, float32 {cool32:.5f} K")
+
+    held_to_f32("", Tb)
+    print(f"[phase 10] {n}^3 corrected: bf16/f32 time "
+          f"{out[names[0]]['ms'] / out[names[1]]['ms']:.3f}", flush=True)
+    # the same step with fuse_theta=False: K20b, then K7's x entry
+    prepare, _ = make_cartesian_engine(
+        grid, mat, implementation="kernels", device=dev, dtype=bf, theta=0.5,
+        t_inf=20.0, stochastic_rounding=True, **cbc)
+    m8, codes, h_ab = prepare(mask)
+    before = launch_counts()
+    Tu, step_ms = timed_seq(torch, lambda T, i: adi_step_varprop_fused(
+        T, m8, codes, grid, mat, k_table=kt, cp_table=ct, dt=P10_VP_DT,
+        theta=0.5, t_inf=20.0, h_axes=h_ab, emissivity=EMISSIVITY,
+        h_conv=None, fuse_theta=False, rng_seed=i), T0.to(bf), P3_STEPS)
+    delta = {k: v - before[k] for k, v in launch_counts().items()}
+    per = {"K5b": 1, "K20b": 1, "K7xb": 1, "K7b": 1, "K19b": 1}
+    want = {k: (P3_WARMUP + P3_STEPS) * per.get(k, 0) for k in delta}
+    check(delta == want, f"phase 10 corrected, fuse_theta=False: launches "
+          f"{delta} != expected {want}")
+    ms = statistics.median(step_ms)
+    print(f"[phase 10] {n}^3 bf16 corrected, fuse_theta=False: {ms:9.3f} "
+          f"ms/step (median; steps {', '.join(f'{s:.3f}' for s in step_ms)})"
+          f"; launches per step {per}", flush=True)
+    held_to_f32(", fuse_theta=False", Tu)
+    out["bf16 corrected, fuse_theta=False"] = dict(ms=ms)
+    del Tb, Tf, Tu, hf, scale, cbc, m8, codes, h_ab, T0, mask
     torch.cuda.empty_cache()
 
     # the drift gates of tests/test_bf16_drift.py: 64x56x48 at 900 C,
@@ -3024,18 +3368,35 @@ def phase10_app(torch, dev, p4, p5_32):
     """The WAAM app on phase 4's bar with --precision bfloat16, with phase
     5's varprop flags (the g-stream tier), and with those flags less the
     latent heat, over the whole print on the kernels, against float32
-    fields of the same flags (phases 4 and 5; the last run here)."""
+    fields of the same flags (phases 4 and 5; a float32 run here); then on
+    phase 9's turned bar with --corrected_bc 1 and the varprop flags (the
+    classic tier's bfloat16 entries): less the latent heat against a
+    float32 print of the same flags here, with it printed only."""
     vp_flags = ["--latent_J_kg", str(LATENT), "--melt_k_factor", "4",
                 "--emissivity", str(EMISSIVITY)]
     no_latent = vp_flags[2:]
+    cbc = ["--corrected_bc", "1"]
     p_nl = app_phase(torch, dev, 10, no_latent, impls=("kernels",))
+    p_cnl = app_phase(torch, dev, 10, cbc + no_latent, impls=("kernels",),
+                      turn_deg=30.0)
     out = {}
-    for name, extra, f32_run, gated in (
-            ("constant", [], p4, True),
-            ("varprop without latent heat", no_latent, p_nl, True),
-            ("varprop", vp_flags, p5_32, False)):
+    for name, extra, f32_run, gated, turn in (
+            ("constant", [], p4, True, 0.0),
+            ("varprop without latent heat", no_latent, p_nl, True, 0.0),
+            ("varprop", vp_flags, p5_32, False, 0.0),
+            ("corrected varprop without latent heat", cbc + no_latent,
+             p_cnl, True, 30.0),
+            ("corrected varprop", cbc + vp_flags, None, False, 30.0)):
         res = app_phase(torch, dev, 10, extra, precision="bfloat16",
-                        impls=("kernels",))
+                        impls=("kernels",), turn_deg=turn)
+        if f32_run is None:     # printed only: no float32 print of these
+            T = res["T_kernels"].float()[res["active"]]
+            print(f"[phase 10] app {name}: bf16 over the solid max "
+                  f"{float(T.max()):.3f} C, mean {float(T.mean()):.4f} C "
+                  f"(not gated: the solidus freeze, PERF.md); wall "
+                  f"{res['wall_kernels']:.2f} s", flush=True)
+            out[name] = dict(wall=res["wall_kernels"])
+            continue
         Tb, T32 = res["T_kernels"].float(), f32_run["T_kernels"].float()
         d = (Tb - T32)[res["active"]].abs()
         print(f"[phase 10] app {name}: |T_bf16 - T_f32| over the solid max "
@@ -4043,7 +4404,7 @@ def main():
         + phase2_cyl(torch, dev) + phase2_be(torch, dev) \
         + phase2_cylvp(torch, dev) + phase2_fields(torch, dev) \
         + phase2_gstreams(torch, dev) + phase2_bf16(torch, dev) \
-        + phase2_remainder(torch, dev)
+        + phase2_vp_bf16(torch, dev) + phase2_remainder(torch, dev)
     lap("phase 2")
 
     from adi_thermal_fields_tpu_torch.solvers import (launch_counts,
@@ -4177,6 +4538,11 @@ def main():
                     "K26": "z, seeded", "K1b": "lite y, seeded",
                     "K2b": "lite z, seeded", "K3b": "stencil, seeded",
                     "K4b": "stencil + lite x, seeded",
+                    "K5b": "fields + rad", "K20b": "rhs, seeded",
+                    "K6b": "theta + x, h stream, seeded",
+                    "K7xb": "x, h stream, seeded",
+                    "K7b": "y, h stream, seeded",
+                    "K19b": "z, h stream, seeded",
                     "K1v1": "x, pinned, no dir_val", "K15y": "y, rad"}
     summary = []
     for k, (fn, src, replaces) in KERNEL_INFO.items():
@@ -4185,7 +4551,8 @@ def main():
                  if k in BE_KERNELS else f"{P8_SHAPES[0][0]} float32"
                  if k in ("K15", "K16", "K17", "K18") else
                  f"{P9_SHAPES[0][0]} float32" if k in GENERAL_KERNELS
-                 else f"{P10_SHAPES[0][0]} bfloat16" if k in GSTREAM_KERNELS
+                 else f"{P10_SHAPES[0][0]} bfloat16"
+                 if k in GSTREAM_KERNELS + VP_BF16_KERNELS
                  else f"{P2_SHAPES[0][0]} bfloat16" if k in BF16_KERNELS
                  else f"{P2_SHAPES[0][0]} f32" if k == "K1v1"
                  else f"{P11_Y_SHAPES[1][0]} f32" if k == "K15y"

@@ -261,8 +261,9 @@ def test_gstream_routing():
 def test_gstream_refusals():
     """theta = 0, per-axis k tuples and float64 raise in the g-stream step
     (JAX's messages); on adi_step_varprop_fused a bfloat16 state that the
-    g-stream tier does not take raises, naming the classic tier's
-    bfloat16 entries."""
+    g-stream tier does not take runs the classic tier's bfloat16 entries,
+    as JAX routes it (tests/test_torch_bf16_varprop.py holds them to
+    JAX)."""
     mask, T, _, _ = _case()
     _, g = _grids(T.shape)
     _, (kt, ct) = _tables()
@@ -279,9 +280,14 @@ def test_gstream_refusals():
         adi_step_varprop_gstreams(_t(T, torch.float64), mt, g, mat,
                                   k_table=kt, **kw)
     codes = build_varprop_codes(mt)
-    with pytest.raises(NotImplementedError, match="K5-K7 and K19"):
-        adi_step_varprop_fused(_t(T, torch.bfloat16), mt, codes, g, mat,
-                               k_table=(kt, 30.0, kt), **kw)
+    Tb = _t(T, torch.bfloat16)
+    for extra in (dict(k_table=(kt, 30.0, kt)), dict(k_table=kt, theta=0.0)):
+        got = adi_step_varprop_fused(Tb, mt, codes, g, mat, **extra, **kw)
+        assert got.dtype == torch.bfloat16
+        assert bool(torch.isfinite(got.float()).all())
+        assert torch.equal(got.view(torch.int16), adi_step_varprop_fused(
+            Tb, mt, codes, g, mat, gstreams=False, **extra,
+            **kw).view(torch.int16))
 
 
 # ---------------------------------------------------------------------------
@@ -440,12 +446,17 @@ def box_stl(tmp_path):
 
 @pytest.mark.parametrize("extra", [
     [], ["--latent_J_kg", "2.7e5", "--melt_k_factor", "4",
-         "--emissivity", "0.5"]], ids=["constant", "varprop"])
+         "--emissivity", "0.5"],
+    ["--corrected_bc", "1", "--emissivity", "0.5", "--melt_k_factor", "4"],
+    ["--corrected_bc", "1", "--latent_J_kg", "2.7e5"]],
+    ids=["constant", "varprop", "corrected_varprop", "corrected_latent"])
 def test_waam_app_bfloat16_on_cpu(box_stl, extra):
     """``--precision bfloat16`` through the app on the CPU (the plain
     versions, stochastic rounding on): a bfloat16 field, finite, below
     --Ts, every solid voxel active, and within 8 K (one bfloat16 quantum
-    at 1500 C) of the float32 run on average over the solid."""
+    at 1500 C) of the float32 run on average over the solid.  With
+    ``--corrected_bc 1`` and variable properties the step runs the classic
+    tier's bfloat16 entries (per-face film streams)."""
     argv = ["--stl", box_stl, "--dx_mm", "1", "--nframes", "3",
             "--bead_height_mm", "2", "--device", "cpu"] + extra
     runs = {p: port_app.run(port_app.build_argparser().parse_args(

@@ -29,7 +29,9 @@ rows too; so does K14, its rings past kK14Stiff bit for bit its plain
 version.
 K1's v1 entry is held to the field-plan K1 bounds.
 The bfloat16 entries of K1-K4 solve at float32 like their plain versions
-but round differently (FMA contraction): within one bfloat16 ulp of them.
+but round differently (FMA contraction): within one bfloat16 ulp of them;
+those of K5, K6, K7, K7's x entry and K19 within one bfloat16 ulp of the
+output's scale, and K20b bit for bit.
 The engine's thermal history leaves the field bit for bit on the card,
 and a resumed spiral print equals its straight run bit for bit.
 chip_smoke.py runs the same comparisons at full size.
@@ -1313,11 +1315,16 @@ def _bf16_ulps(got, want):
 
 def _split_gate(got, want):
     """A split solve against its plain version: 8 float32 ulp of the
-    output's scale (1e-12 of it at float64, one ulp at bfloat16)."""
+    output's scale (1e-12 of it at float64; at bfloat16 one ulp, and at
+    most 0.1% of the cells apart, or 4: both round one float32 value under
+    one key, so they part only next to a rounding boundary, where a wrong
+    key parts at ~25-50% of them)."""
     scale = float(want.double().abs().max())
     err = float((got.double() - want.double()).abs().max())
     if want.dtype == torch.bfloat16:
         assert err <= 2.0 ** (np.floor(np.log2(scale)) - 7), err
+        apart = int((got != want).sum())
+        assert apart <= max(4, 1e-3 * want.numel()), apart
     else:
         rel = 1e-12 if want.dtype == torch.float64 else 8 * 2.0 ** -23
         assert err <= rel * scale, err / scale
@@ -1452,6 +1459,84 @@ def test_bf16_entries_match_plain_on_card():
         assert got.is_cuda and got.dtype == torch.bfloat16
         assert _bf16_ulps(got, want) <= 1.0
     assert launch_counts() == _counts(K1b=8, K2b=4, K3b=2, K4b=2)
+
+
+# The classic varprop tier's bfloat16 entries: odd shapes (z even: rows
+# read in pairs; z odd: one row a load), lines of 1 and 2 rows along each
+# axis, line counts that leave a partial warp, and 8192-row lines along x,
+# y and z (K6b's and K7's reduced rows in global memory, K19b past its
+# staging on the core's strided kernel).
+BF16_VP_SHAPES = ((37, 45, 70), (37, 45, 71), (1, 45, 70), (2, 45, 71),
+                  (37, 1, 70), (37, 2, 70), (37, 45, 1), (37, 45, 2),
+                  (8192, 2, 64), (2, 8192, 64), (2, 64, 8192))
+
+
+@pytest.mark.cuda
+def test_bf16_varprop_entries_on_card():
+    """K20b against its plain version bit for bit (one rounding per
+    operation in the plain order, the same rounding bits); K5b (with and
+    without the film; its tables contracted into FMAs), K6b (film stream
+    and source), K7xb, K7b and K19b (film stream and rob_c; split solves)
+    within one bfloat16 ulp of the output's scale; each rounding to nearest
+    and seeded, on BF16_VP_SHAPES."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    kt = melt_pool_enhanced_k(54.0, 1416.0, 1472.0, 4.0)
+    ct = apparent_cp(490.0, 520.0, 2.7e5, 1416.0, 1472.0)
+    bf = torch.bfloat16
+    reset_launch_counts()
+    n_split = 0
+    for i, shape in enumerate(BF16_VP_SHAPES):
+        rng = np.random.default_rng(70 + i)
+        mask_np = rng.random(shape) > 0.2
+        mask = torch.from_numpy(mask_np).to(dev)
+        m8 = mask.to(torch.uint8)
+        cast = (lambda a: torch.from_numpy(a).to(dev, torch.float32).to(bf))
+        T = cast(np.where(mask_np, 20.0 + 1580.0 * rng.random(shape), 20.0))
+        T.view(-1)[::7] = 1416.0              # the solidus and liquidus
+        T.view(-1)[3::11] = 1472.0
+        R = cast(np.where(mask_np, 20.0 + 1480.0 * rng.random(shape), 20.0))
+        src = cast(1e8 * rng.random(shape))
+        tabs = dict(k_spec=kt, cp_spec=ct, rho=7800.0)
+        for rad in (None, (0.5, TINF, 30.0)):
+            got = varprop_fields(T, m8, rad=rad, **tabs)
+            want = varprop_fields_plain(T, m8, rad=rad, **tabs)
+            for g, w in zip([*got[0], *got[1:]], [*want[0], *want[1:]]):
+                assert g.is_cuda and g.dtype == bf
+                _split_gate(g, w)
+        fc, w, h = want
+        codes = [sweep_code(mask, None, ax).movedim(0, ax).contiguous()
+                 for ax in range(3)]
+        for seed in (None, 31):
+            sr = dict(rng_seed=seed)
+            rhs = (T, *fc, w, m8, 0.01, INV)
+            got = varprop_theta_rhs(*rhs, src=src, dt=0.02, rng_offset=0,
+                                    **sr)
+            assert torch.equal(got, varprop_theta_rhs_plain(
+                *rhs, src=src, dt=0.02, rng_offset=0, **sr)), shape
+            th = (T, codes[0], *fc, w, 0.01, INV, 7e4, 70.0, TINF)
+            split = [(varprop_theta_sweep, varprop_theta_sweep_plain, th,
+                      dict(h=h, src=src, dt=0.02, rng_offset=1))]
+            for ax, (kern, plain) in enumerate((
+                    (varprop_sweep_x, varprop_sweep_x_plain),
+                    (varprop_sweep_y, varprop_sweep_y_plain),
+                    (varprop_sweep_z, varprop_sweep_z_plain))):
+                args = (R, codes[ax], fc[ax], w, 7e4, 70.0, TINF)
+                split += [(kern, plain, args, dict(h=h, rng_offset=ax + 1)),
+                          (kern, plain, args,
+                           dict(rob_c=30.0, rng_offset=ax + 1))]
+            for kern, plain, args, kw in split:
+                got = kern(*args, **kw, **sr)
+                want_s = plain(*args, **kw, **sr)
+                torch.cuda.synchronize()
+                assert got.is_cuda and got.dtype == bf
+                _split_gate(got, want_s)
+            n_split += 1
+    n = len(BF16_VP_SHAPES)
+    assert launch_counts() == _counts(K5b=2 * n, K20b=2 * n, K6b=2 * n,
+                                      K7xb=4 * n, K7b=4 * n, K19b=4 * n)
+    assert n_split == 2 * n
 
 
 @pytest.mark.cuda

@@ -497,15 +497,21 @@ def test_unported_varprop_routes_raise():
     codes = build_varprop_codes(mask)
     # the g-stream tier runs now: float64 with gstreams=True takes the
     # classic tier, as in JAX; a bfloat16 state with a per-axis k tuple
-    # needs the classic tier's bfloat16 entries, not ported
+    # runs the classic tier's bfloat16 entries (JAX's route); a float16
+    # state raises
     assert torch.equal(
         adi_step_varprop_fused(T, mask, codes, grid, mat, gstreams=True,
                                **_fused_kw()),
         adi_step_varprop_fused(T, mask, codes, grid, mat, gstreams=False,
                                **_fused_kw()))
     kw = {**_fused_kw(), "k_table": (40.0, 50.0, 60.0)}
-    with pytest.raises(NotImplementedError, match="K5-K7 and K19"):
-        adi_step_varprop_fused(T.to(torch.bfloat16), mask, codes, grid, mat,
+    got = adi_step_varprop_fused(T.to(torch.bfloat16), mask, codes, grid,
+                                 mat, **kw)
+    assert got.dtype == torch.bfloat16
+    assert float((got.double() - adi_step_varprop_fused(
+        T, mask, codes, grid, mat, **kw)).abs().max()) <= 8.0
+    with pytest.raises(NotImplementedError, match="float16"):
+        adi_step_varprop_fused(T.to(torch.float16), mask, codes, grid, mat,
                                **kw)
     with pytest.raises(ValueError, match="requires emissivity"):
         make_cartesian_engine(grid, mat, implementation="kernels",

@@ -135,17 +135,11 @@ def test_kernel_wrappers_refuse_inputs_that_require_grad():
             call()
 
 
-# the varprop flags, --precision bfloat16 and the outputs (history, VTK,
-# checkpoints, interpass dwell: tests/test_torch_io_apps.py) run now; a
-# flag the port lacks still exits, naming only that flag (bfloat16 with
-# the corrected films and variable properties needs the classic tier's
-# bf16 entries)
-@pytest.mark.parametrize("flag", [
-    ["--latent_J_kg", "2.7e5", "--precision", "bfloat16",
-     "--corrected_bc", "1"],
-    ["--mesh", "2x2"],
-    ["--precision", "bfloat16", "--corrected_bc", "1", "--emissivity",
-     "0.5"]])
+# the varprop flags, --precision bfloat16 (with --corrected_bc too:
+# tests/test_torch_bf16.py::test_waam_app_bfloat16_on_cpu) and the outputs
+# (history, VTK, checkpoints, interpass dwell: tests/test_torch_io_apps.py)
+# run now; a flag the port lacks still exits, naming only that flag
+@pytest.mark.parametrize("flag", [["--mesh", "2x2"]])
 def test_unsupported_flags_exit_with_a_message(box_stl, flag):
     args = port_app.build_argparser().parse_args(
         _argv(box_stl)[:-4] + ["--device", "cpu"] + flag)
